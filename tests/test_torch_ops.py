@@ -4,8 +4,8 @@ Inputs are made with numpy from a seed and handed to both. Tolerances:
 fp32 1e-6 for the elementwise ops and the dense attention path; 1e-5 for
 the fused-attention kernel's plain version against the JAX Pallas kernel
 in interpret mode (tiled online softmax vs one full softmax, fp32).
-The CUDA kernel itself is held against its plain version by the
-``cuda``-marked test, which skips where no card exists.
+The CUDA kernel itself is held against its plain version on the card by
+``tests/test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -178,26 +178,3 @@ def test_library_path_tracks_the_source():
     assert build.library_path("flash_attention_infer") == path
     assert set(build.KERNEL_SOURCES) == {
         p.stem for p in build.CSRC_DIR.glob("*.cu")}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain_version(dtype):
-    """The hand-written kernel against its plain version on the card, at a
-    ragged S (not a multiple of the 64-row tile), padded and packed."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    dt = getattr(torch, dtype)
-    atol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
-    B, S, H, D = 3, 100, 4, 64
-    q, k, v = (torch.from_numpy(t).to("cuda", dt) for t in _qkv(9, (B, S, H, D)))
-    mask = torch.from_numpy(_padded_mask(B, S, seed=10)).cuda()
-    for kw in ({"bias": attention.make_attention_bias(mask)},
-               {"sequence_ids": torch.from_numpy(_packed_ids(B, S)).cuda()}):
-        before = kattn.flash_attention_infer.launches
-        out = kattn.flash_attention_infer(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert kattn.flash_attention_infer.launches == before + 1
-        ref = kattn.flash_attention_infer_reference(q, k, v, **kw)
-        assert torch.isfinite(out).all()
-        assert (out.float() - ref.float()).abs().max().item() <= atol
