@@ -139,7 +139,7 @@ def test_flash_infer_cpu_call_counts_no_launch():
     q, k, v = (torch.from_numpy(t) for t in _qkv(7, (2, 16, 2, 8)))
     before = kattn.flash_attention_infer.launches
     kattn.flash_attention_infer(q, k, v)
-    assert kattn.flash_attention_infer.launches == before
+    assert kattn.flash_attention_infer.launches == before == 0
 
 
 def test_flash_infer_rejects_bias_with_sequence_ids():
