@@ -2,9 +2,15 @@
 
 A package of its own beside the JAX package: it imports ``torch`` and
 numpy, never JAX and nothing of ``bert_pytorch_tpu``, and keeps the JAX
-package's module names so each counterpart is easy to find. This slice
-carries the serving path: ``python -m bert_pytorch_tpu_torch.run_server``
-serves the ``fill_mask`` and ``classify`` heads over HTTP, with the
-encoder's attention in a hand-written CUDA kernel
-(``ops/kernels/attention.py``, ``csrc/flash_attention_infer.cu``).
+package's module names so each counterpart is easy to find. Two paths are
+ported:
+
+* serving: ``python -m bert_pytorch_tpu_torch.run_server`` serves the
+  ``fill_mask`` and ``classify`` heads over HTTP, the encoder's attention
+  in a hand-written CUDA kernel (``csrc/flash_attention_infer.cu``);
+* pretraining: ``python -m bert_pytorch_tpu_torch.run_pretraining`` trains
+  BERT MLM+NSP on one GPU (``pretrain.py``, ``optim/``, ``data/``), the
+  attention forward and backward in hand-written CUDA kernels
+  (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``)
+  behind one autograd Function (``ops/kernels/attention.py``).
 """

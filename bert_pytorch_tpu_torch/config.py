@@ -1,16 +1,20 @@
-"""Model configuration: ``BertConfig``.
+"""Model configuration (``BertConfig``) and the runners' config-file
+parsing (``parse_args_with_config_file``, ``require_args``).
 
-A copy of the JAX package's ``config.BertConfig`` (same defaults, the same
+Copies of the JAX package's ``config.py`` (same defaults, the same
 dict/JSON constructors with merge semantics, ``head_dim`` and
-``padded_vocab_size``), kept here so the port imports nothing of that
-package. Behavioral parity target: reference src/modeling.py:188-295.
+``padded_vocab_size``; the same three-level flag precedence), kept here so
+the port imports nothing of that package. Behavioral parity target:
+reference src/modeling.py:188-295 and run_pretraining.py:159-177.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
-from typing import Any
+import sys
+from typing import Any, List, Optional
 
 
 class BertConfig:
@@ -107,3 +111,53 @@ class BertConfig:
         pads to a multiple of 8; on TPU 128-lane alignment is natural but 8
         keeps checkpoint-shape parity)."""
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
+
+
+def parse_args_with_config_file(
+    parser: argparse.ArgumentParser,
+    argv: Optional[List[str]] = None,
+    config_file_flag: str = "--config_file",
+) -> argparse.Namespace:
+    """Three-level precedence: CLI flag > JSON config file > argparse
+    default (reference run_pretraining.py:159-177). A key of the JSON file
+    that no flag of ``parser`` takes raises."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parser.parse_args(argv)
+    config_path = getattr(args, config_file_flag.lstrip("-"), None)
+    if not config_path:
+        return args
+    with open(config_path, "r", encoding="utf-8") as f:
+        config_values = json.load(f)
+    # Detect explicitly-passed flags with a default-suppressing aux parser.
+    aux = argparse.ArgumentParser(argument_default=argparse.SUPPRESS,
+                                  add_help=False)
+    for action in parser._actions:
+        if action.option_strings and not isinstance(action,
+                                                    argparse._HelpAction):
+            kwargs: dict = {"dest": action.dest}
+            if isinstance(action, (argparse._StoreTrueAction,
+                                   argparse._StoreFalseAction)):
+                kwargs["action"] = "store_true"
+            else:
+                kwargs["type"] = action.type
+                kwargs["nargs"] = action.nargs
+            aux.add_argument(*action.option_strings, **kwargs)
+    explicit, _ = aux.parse_known_args(argv)
+    explicitly_set = set(vars(explicit).keys())
+    known = {action.dest for action in parser._actions}
+    for key, value in config_values.items():
+        if key not in known:
+            raise ValueError(f"Unknown key '{key}' in config file {config_path}")
+        if key not in explicitly_set:
+            setattr(args, key, value)
+    return args
+
+
+def require_args(args: argparse.Namespace, names: List[str]) -> None:
+    """Required args may come from the CLI or the config file
+    (run_pretraining.py:573-581)."""
+    missing = [name for name in names if getattr(args, name, None) is None]
+    if missing:
+        raise ValueError(
+            f"Missing required arguments (set via CLI or config file): "
+            f"{missing}")

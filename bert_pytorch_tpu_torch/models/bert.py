@@ -1,5 +1,5 @@
 """BERT model family in PyTorch: the port of the JAX package's
-``models/bert.py`` for the serving heads.
+``models/bert.py`` for the serving heads and the pretraining model.
 
 Component parity with reference src/modeling.py (cited per class). The
 dtype semantics follow the JAX package's flax modules:
@@ -9,10 +9,21 @@ dtype semantics follow the JAX package's flax modules:
     serving), casting their fp32 parameters to it;
   - LayerNorm statistics and the attention softmax run in fp32.
 
-For serving, each Dense/Embed keeps one cached copy of its parameters in
-the compute dtype (rebuilt whenever the fp32 parameter changes), so a bf16
-forward does not re-cast the weights on every call. The cache holds a bf16
-copy of every matmul weight beside the fp32 master.
+For serving (a forward under ``no_grad``/``inference_mode``), each
+Dense/Embed keeps one cached copy of its parameters in the compute dtype
+(rebuilt whenever the fp32 parameter changes), so a bf16 forward does not
+re-cast the weights on every call. A forward that records a graph casts
+with autograd on every call instead, so the gradient reaches the fp32
+master parameters.
+
+Training (``BertForPreTraining``): dropout runs where the JAX model's
+``nn.Dropout`` and attention dropout run, but only when the caller passes
+``dropout_seeds`` (:func:`draw_dropout_seeds`: one for the embeddings,
+one per encoder layer), never from a global generator, so a layer
+recomputed under ``torch.utils.checkpoint`` (``remat``) draws the masks
+its first forward drew. ``remat="dots"`` saves the matmul outputs of each
+layer and recomputes the rest, the counterpart of the JAX encoder's
+``checkpoint_dots_with_no_batch_dims``; ``"full"`` saves nothing.
 
 Module and parameter names mirror the flax tree (``query``, ``dense_act``,
 ``output_layer_norm``, ...), so :mod:`.convert` maps the JAX params onto
@@ -22,23 +33,36 @@ this state dict name by name. The encoder's ``nn.scan`` over layers is an
 
 from __future__ import annotations
 
-from typing import Optional
+from functools import partial
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.ops.activations import ACT2FN
 from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
-                                                  make_attention_bias)
+                                                  make_attention_bias,
+                                                  resolve_backend)
+from bert_pytorch_tpu_torch.ops.dropout import dropout
 from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
+
+REMAT_POLICIES = ("none", "dots", "full")
+# Seeds drawn per call site from one layer seed (see _sub_seed).
+_ATTENTION_PROBS, _ATTENTION_OUT, _LAYER_OUT = range(3)
 
 
 class _CastCache:
-    """Copies of a module's fp32 parameters in the compute dtype, keyed by
-    each parameter's storage and version counter so an in-place update
-    (``load_state_dict``) invalidates them."""
+    """A module's fp32 parameters in the compute dtype.
+
+    Under ``no_grad``/``inference_mode`` (serving) it keeps cached copies,
+    keyed by each parameter's storage and version counter so an in-place
+    update (``load_state_dict``, an optimizer step) invalidates them. When
+    autograd records and a parameter requires grad, it casts with autograd
+    on every call (no cache), so the gradient reaches the fp32 master."""
 
     def __init__(self):
         self._key = None
@@ -47,6 +71,8 @@ class _CastCache:
     def get(self, params, dtype):
         if all(p.dtype == dtype for p in params):
             return tuple(params)
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return tuple(p.to(dtype) for p in params)
         key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
         if key != self._key:
             self._values = tuple(p.detach().to(dtype) for p in params)
@@ -146,7 +172,8 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                sequence_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                sequence_ids: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         seq_len = input_ids.shape[-1]
         idx = torch.arange(seq_len, device=input_ids.device)[None, :]
         if sequence_ids is not None:
@@ -162,7 +189,10 @@ class BertEmbeddings(nn.Module):
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids)
-        return self.layer_norm(x)
+        x = self.layer_norm(x)
+        if dropout_seed is None:
+            return x
+        return dropout(x, self.config.hidden_dropout_prob, dropout_seed)
 
 
 class BertSelfAttention(nn.Module):
@@ -184,18 +214,28 @@ class BertSelfAttention(nn.Module):
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
                                            cfg.layer_norm_eps, device)
         self.attention_backend = attention_backend
+        self.attention_dropout = cfg.attention_probs_dropout_prob
+        self.hidden_dropout = cfg.hidden_dropout_prob
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
-                sequence_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                sequence_ids: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         batch, seq = hidden.shape[0], hidden.shape[1]
         shape = (batch, seq, self.heads, self.head_dim)
         q = self.query(hidden).view(shape)
         k = self.key(hidden).view(shape)
         v = self.value(hidden).view(shape)
+        train = dropout_seed is not None
         context = dot_product_attention(
-            q, k, v, bias=bias, backend=self.attention_backend,
-            sequence_ids=sequence_ids)
+            q, k, v, bias=bias, dropout_rate=self.attention_dropout,
+            deterministic=not train, backend=self.attention_backend,
+            sequence_ids=sequence_ids,
+            dropout_seed=(_sub_seed(dropout_seed, _ATTENTION_PROBS)
+                          if train else None))
         out = self.output(context.reshape(batch, seq, -1))
+        if train:
+            out = dropout(out, self.hidden_dropout,
+                          _sub_seed(dropout_seed, _ATTENTION_OUT))
         return self.output_layer_norm(out + hidden)
 
 
@@ -216,27 +256,57 @@ class BertLayer(nn.Module):
                             device)
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
                                            cfg.layer_norm_eps, device)
+        self.hidden_dropout = cfg.hidden_dropout_prob
 
-    def forward(self, hidden, bias, sequence_ids=None):
-        attn_out = self.attention(hidden, bias, sequence_ids)
+    def forward(self, hidden, bias, sequence_ids=None, dropout_seed=None):
+        attn_out = self.attention(hidden, bias, sequence_ids, dropout_seed)
         out = self.output(self.intermediate(attn_out))
+        if dropout_seed is not None:
+            out = dropout(out, self.hidden_dropout,
+                          _sub_seed(dropout_seed, _LAYER_OUT))
         return self.output_layer_norm(out + attn_out)
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of the Dense matmuls (no batch dims), recompute the
+    rest: attention, activations, LayerNorm, dropout."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class BertEncoder(nn.Module):
     """num_hidden_layers × BertLayer (the JAX package's ``nn.scan`` stack,
-    here a ModuleList walked in order; modeling.py:522-536)."""
+    here a ModuleList walked in order; modeling.py:522-536), each layer
+    under ``torch.utils.checkpoint`` when ``remat`` is ``"dots"`` or
+    ``"full"`` (the JAX encoder's ``nn.remat`` policies)."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
-                 attention_backend: str, device=None):
+                 attention_backend: str, device=None, remat: str = "none"):
         super().__init__()
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
+                             f"{remat!r}")
+        self.remat = remat
         self.layers = nn.ModuleList(
             BertLayer(config, dtype, attention_backend, device)
             for _ in range(config.num_hidden_layers))
 
-    def forward(self, hidden, bias, sequence_ids=None):
-        for layer in self.layers:
-            hidden = layer(hidden, bias, sequence_ids)
+    def forward(self, hidden, bias, sequence_ids=None, dropout_seeds=None):
+        """``dropout_seeds``: one int per layer, or None (no dropout)."""
+        for i, layer in enumerate(self.layers):
+            seed = None if dropout_seeds is None else dropout_seeds[i]
+            if self.remat == "none" or not torch.is_grad_enabled():
+                hidden = layer(hidden, bias, sequence_ids, seed)
+                continue
+            context_fn = (partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+                          if self.remat == "dots" else None)
+            kwargs = {"context_fn": context_fn} if context_fn else {}
+            hidden = checkpoint(layer, hidden, bias, sequence_ids, seed,
+                                use_reentrant=False, **kwargs)
         return hidden
 
 
@@ -266,22 +336,28 @@ class BertModel(nn.Module):
     modeling.py:802-883. Returns ``(sequence_output, pooled)``."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
-                 attention_backend: str = "dense", device=None):
+                 attention_backend: str = "dense", device=None,
+                 remat: str = "none"):
         super().__init__()
         self.config = config
         self.attention_backend = attention_backend
         self.embeddings = BertEmbeddings(config, dtype, device)
-        self.encoder = BertEncoder(config, dtype, attention_backend, device)
+        self.encoder = BertEncoder(config, dtype, attention_backend, device,
+                                   remat)
         if config.next_sentence:
             self.pooler = BertPooler(config, dtype, device)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                sequence_ids=None, cls_positions=None):
+                sequence_ids=None, cls_positions=None, dropout_seeds=None):
         """``sequence_ids``/``cls_positions`` mark a PACKED batch:
         block-diagonal attention, per-sequence position restart and, with
-        ``cls_positions`` [B, K], one pooled vector per packed sequence."""
-        if sequence_ids is not None and self.attention_backend == "flash_infer":
-            # The fused kernel rebuilds the block-diagonal mask from the
+        ``cls_positions`` [B, K], one pooled vector per packed sequence.
+        ``dropout_seeds`` (embeddings, then one per layer) turns dropout
+        on."""
+        backend = resolve_backend(self.attention_backend,
+                                  input_ids.shape[-1], input_ids.device)
+        if sequence_ids is not None and backend in ("flash_infer", "flash"):
+            # The fused kernels rebuild the block-diagonal mask from the
             # ids, so the [B, 1, S, S] bias is never built.
             bias = None
         else:
@@ -289,8 +365,18 @@ class BertModel(nn.Module):
                 attention_mask = torch.ones_like(input_ids)
             bias = make_attention_bias(attention_mask, torch.float32,
                                        sequence_ids)
-        hidden = self.embeddings(input_ids, token_type_ids, sequence_ids)
-        sequence_output = self.encoder(hidden, bias, sequence_ids)
+        seeds = [None] if dropout_seeds is None else list(dropout_seeds)
+        if dropout_seeds is not None and (
+                len(seeds) != 1 + self.config.num_hidden_layers):
+            raise ValueError(
+                f"dropout_seeds holds {len(seeds)} seeds; the model needs "
+                f"{1 + self.config.num_hidden_layers} (embeddings + one per "
+                "layer, draw_dropout_seeds)")
+        hidden = self.embeddings(input_ids, token_type_ids, sequence_ids,
+                                 seeds[0])
+        sequence_output = self.encoder(
+            hidden, bias, sequence_ids,
+            None if dropout_seeds is None else seeds[1:])
         pooled = (self.pooler(sequence_output, cls_positions)
                   if self.config.next_sentence else None)
         return sequence_output, pooled
@@ -327,6 +413,60 @@ class BertLMPredictionHead(nn.Module):
         x = self.transform(hidden)
         (bias,) = self._cast.get((self.bias,), self.dtype)
         return F.linear(x, word_embeddings.compute_weight(), bias)
+
+
+class BertForPreTraining(nn.Module):
+    """MLM + NSP pretraining model; parity with modeling.py:886-947 and the
+    JAX package's ``BertForPreTraining``. Returns ``(prediction_logits,
+    seq_relationship_logits)``; the second is None when
+    ``config.next_sentence`` is False."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 attention_backend: str = "dense", remat: str = "none",
+                 device=None):
+        super().__init__()
+        self.config = config
+        self.bert = BertModel(config, dtype, attention_backend, device, remat)
+        self.predictions = BertLMPredictionHead(config, dtype, device)
+        if config.next_sentence:
+            self.seq_relationship = Dense(config.hidden_size, 2, dtype,
+                                          device)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                masked_positions=None, sequence_ids=None, cls_positions=None,
+                dropout_seeds=None):
+        """With ``masked_positions`` [B, P] the MLM logits are computed only
+        at those positions ([B, P, V] instead of [B, S, V]): the hidden
+        states are gathered before the tied decoder (the JAX model uses a
+        one-hot matmul for the TPU's sake; a gather is the same values).
+        ``sequence_ids``/``cls_positions`` select the packed path and give
+        [B, K, 2] NSP logits, one per packed sequence."""
+        sequence_output, pooled = self.bert(
+            input_ids, token_type_ids, attention_mask, sequence_ids,
+            cls_positions, dropout_seeds)
+        if masked_positions is not None:
+            rows = torch.arange(sequence_output.shape[0],
+                                device=sequence_output.device)[:, None]
+            sequence_output = sequence_output[rows, masked_positions.long()]
+        prediction_logits = self.predictions(
+            sequence_output, self.bert.embeddings.word_embeddings)
+        seq_logits = (self.seq_relationship(pooled)
+                      if self.config.next_sentence else None)
+        return prediction_logits, seq_logits
+
+
+def _sub_seed(seed: int, site: int) -> int:
+    """The seed of one dropout site of a layer, from the layer's seed."""
+    return seed * 4 + site
+
+
+def draw_dropout_seeds(generator: torch.Generator,
+                       num_layers: int) -> Sequence[int]:
+    """Seeds for one training forward: one for the embeddings, then one per
+    encoder layer (the JAX encoder splits its dropout rng per layer), drawn
+    before the forward so a recomputed layer reuses its seed."""
+    draws = torch.randint(0, 2 ** 61, (num_layers + 1,), generator=generator)
+    return [int(x) for x in draws.tolist()]
 
 
 class BertForMaskedLM(nn.Module):

@@ -3,7 +3,7 @@
 :func:`from_jax_params` turns the JAX package's flax params tree (nested
 dicts with numpy leaves, as ``model.init(...)["params"]`` returns after
 ``nn.unbox`` and a ``np.asarray`` per leaf) into this package's state dict
-for one serving head. The port's modules mirror the flax names, so the map
+for one head: a serving head or the pretraining model. The port's modules mirror the flax names, so the map
 is name for name, with three layout changes:
 
 * the encoder's ``nn.scan`` stacks every layer leaf on a leading ``L``
@@ -32,6 +32,7 @@ from bert_pytorch_tpu_torch.config import BertConfig
 HEAD_SUBTREES = {
     "fill_mask": ("bert", "predictions"),
     "classify": ("bert", "head"),
+    "pretraining": ("bert", "predictions"),
 }
 _STACKED = "bert/encoder/layers/"
 
@@ -66,12 +67,18 @@ def _leaf(path: str, value: np.ndarray):
 
 def from_jax_params(params: dict, config: BertConfig,
                     head: str) -> Dict[str, torch.Tensor]:
-    """The JAX params of one serving head (``"fill_mask"``:
-    ``BertForMaskedLM``; ``"classify"``: ``BertForSequenceClassification``)
-    as a fp32 state dict for the port's model of the same head."""
+    """The JAX params of one head (``"fill_mask"``: ``BertForMaskedLM``;
+    ``"classify"``: ``BertForSequenceClassification``; ``"pretraining"``:
+    ``BertForPreTraining``, whose ``predictions`` head keeps its decoder
+    tied to the word embeddings and, with ``config.next_sentence``, whose
+    ``seq_relationship`` Dense maps like any other) as a fp32 state dict
+    for the port's model of the same head."""
     if head not in HEAD_SUBTREES:
         raise ValueError(f"unknown head {head!r}; known: {sorted(HEAD_SUBTREES)}")
-    missing = [k for k in HEAD_SUBTREES[head] if k not in params]
+    required = HEAD_SUBTREES[head]
+    if head == "pretraining" and config.next_sentence:
+        required = required + ("seq_relationship",)
+    missing = [k for k in required if k not in params]
     if missing:
         raise KeyError(f"{head} params lack subtrees {missing} "
                        f"(have {sorted(params)})")

@@ -10,7 +10,17 @@ Backends (``backend=``):
   tensor ops that materialize the [B, H, S, S] scores;
 * ``"flash_infer"`` — the counterpart of ``"pallas_infer"``: the
   forward-only fused kernel (ops/kernels/attention.py), a hand-written CUDA
-  kernel on the card and its plain version on the CPU.
+  kernel on the card and its plain version on the CPU;
+* ``"flash"`` — the counterpart of ``"pallas"``: the training kernels with
+  a gradient and in-kernel attention dropout (ops/kernels/attention.py
+  ``flash_attention``);
+* ``"auto"`` — ``"flash"`` at S >= 256 on a CUDA tensor, ``"dense"``
+  otherwise. The 256 crossover is the JAX package's (ops/attention.py
+  :70-78, measured on a TPU); it is not measured on the H100.
+
+Training dropout takes an explicit ``dropout_seed``: the flash kernels draw
+their Philox mask from it, the dense path a torch generator seeded with it
+(ops/dropout.py).
 """
 
 from __future__ import annotations
@@ -19,9 +29,24 @@ from typing import Optional
 
 import torch
 
-from bert_pytorch_tpu_torch.ops.kernels.attention import flash_attention_infer
+from bert_pytorch_tpu_torch.ops.dropout import dropout
+from bert_pytorch_tpu_torch.ops.kernels.attention import (
+    flash_attention, flash_attention_infer)
 
-BACKENDS = ("dense", "flash_infer")
+BACKENDS = ("dense", "flash_infer", "flash", "auto")
+AUTO_FLASH_MIN_SEQ = 256
+
+
+def resolve_backend(backend: str, seq: int, device: torch.device) -> str:
+    """The backend ``backend`` runs as: ``"auto"`` becomes ``"flash"`` at
+    ``seq >= AUTO_FLASH_MIN_SEQ`` on a CUDA device, else ``"dense"``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"attention backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "auto":
+        return ("flash" if seq >= AUTO_FLASH_MIN_SEQ
+                and device.type == "cuda" else "dense")
+    return backend
 
 
 def make_attention_bias(
@@ -55,18 +80,27 @@ def dot_product_attention(
     deterministic: bool = True,
     backend: str = "dense",
     sequence_ids: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over [B, S, H, D] query/key/value tensors; returns
     [B, S, H, D].
 
     ``sequence_ids`` ([B, S], 0 = pad) marks a PACKED batch: on the dense
     path the caller's ``bias`` is then the [B, 1, S, S] block-diagonal mask
-    from :func:`make_attention_bias`; the fused kernel drops that bias and
-    rebuilds the block-diagonal mask per tile from the id vectors.
+    from :func:`make_attention_bias` (or None); the fused kernels drop that
+    bias and rebuild the block-diagonal mask per tile from the id vectors.
+    Dropout of the attention probabilities runs when ``deterministic`` is
+    False and ``dropout_rate > 0``, from ``dropout_seed``.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"attention backend must be one of {BACKENDS}, "
-                         f"got {backend!r}")
+    backend = resolve_backend(backend, q.shape[1], q.device)
+    active = not deterministic and dropout_rate > 0.0
+    if active and backend != "flash_infer" and dropout_seed is None:
+        raise ValueError("attention dropout needs dropout_seed")
+    if backend == "flash":
+        kbias = None if sequence_ids is not None else bias
+        return flash_attention(
+            q, k, v, bias=kbias, dropout_rate=dropout_rate if active else 0.0,
+            seed=dropout_seed if active else None, sequence_ids=sequence_ids)
     if backend == "flash_infer":
         if not deterministic and dropout_rate > 0.0:
             raise ValueError(
@@ -75,10 +109,6 @@ def dot_product_attention(
         kbias = None if sequence_ids is not None else bias
         return flash_attention_infer(q, k, v, bias=kbias,
                                      sequence_ids=sequence_ids)
-    if not deterministic and dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (serving runs "
-            "deterministic forwards)")
     # The dense path scales q in q's dtype BEFORE QK^T, as the JAX
     # package's XLA path does (ops/attention.py:180-192).
     depth = q.shape[-1]
@@ -88,4 +118,6 @@ def dot_product_attention(
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if active:
+        probs = dropout(probs, dropout_rate, dropout_seed)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

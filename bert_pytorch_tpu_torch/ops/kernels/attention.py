@@ -1,6 +1,8 @@
-"""Forward-only fused attention for serving: the port of the JAX package's
-``flash_attention_infer`` (ops/pallas/attention.py, the Pallas kernel
-``_infer_fwd_kernel`` + ``_infer_stream``).
+"""Fused attention kernels of the port: the counterparts of the JAX
+package's Pallas kernels in ops/pallas/attention.py.
+
+Serving (forward only), the port of ``flash_attention_infer``
+(``_infer_fwd_kernel`` + ``_infer_stream``):
 
 * :func:`flash_attention_infer` — the wrapper. A CUDA tensor launches the
   hand-written kernel (csrc/flash_attention_infer.cu) on the current
@@ -10,18 +12,41 @@
   the same function: the CPU tests hold it against the JAX kernel, and the
   chip smoke holds the CUDA kernel against it.
 
-Numerics (both versions): fp32 scores ``(q k^T) * (1/sqrt(D)) + key bias``
-(+ the -10000 block-diagonal mask for packed rows), an fp32 softmax, P
-rounded to v's dtype before the PV product with fp32 accumulation, and the
-output in q's dtype. The scale is applied to the fp32 scores, as the
-Pallas kernel does; the dense path (ops/attention.py) scales q in its own
+Training, the port of ``flash_attention`` (``_flash_fwd_kernel``,
+``_flash_dq_kernel``, ``_flash_dkv_kernel``):
+
+* :func:`flash_attention` — a ``torch.autograd.Function`` over [B, S, H, D]
+  tensors with key bias, packed sequence ids and attention dropout. Its
+  forward launches csrc/flash_attention_fwd.cu (out and ``lse``), its
+  backward csrc/flash_attention_bwd.cu (dq with ``delta = rowsum(dO * O)``
+  folded in, then dk, dv and the key-bias gradient). Each kernel has its
+  own wrapper and launch count (:func:`flash_attention_fwd`,
+  :func:`flash_attention_dq`, :func:`flash_attention_dkv`) and plain
+  version, which the wrapper takes for CPU tensors.
+* :func:`flash_attention_reference` — the plain, differentiable PyTorch
+  version of :func:`flash_attention` (autograd through tensor ops).
+* :func:`philox_keep_mask` — the dropout mask: Philox4x32-10 keyed by the
+  seed and counted by (key / 4, query row, batch*head), the same generator
+  the kernels run (csrc/flash_attention_common.cuh), so kernel and plain
+  version draw identical masks. The TPU kernels drew theirs from the
+  hardware PRNG per tile; those bits cannot be reproduced, so the JAX
+  parity tests run at rate 0.
+
+Numerics (every version): fp32 scores ``(q k^T) * (1/sqrt(D)) + key bias``
+(+ the -10000 block-diagonal mask for packed rows), an fp32 softmax whose
+row sum ``l`` counts the undropped probabilities, P rounded to v's dtype
+before the PV product with fp32 accumulation, 1/(1-rate) applied at the
+normalisation, and the output in q's dtype. In the backward, dS is rounded
+to k's / q's dtype before the dq / dk products and the kept P / (1-rate)
+to dO's dtype before dv, as the Pallas kernels do. The scale is applied to
+the fp32 scores; the dense path (ops/attention.py) scales q in its own
 dtype instead, so in bf16 the two routes round differently.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +54,9 @@ from bert_pytorch_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = "flash_attention_infer"
+_MASK32 = 0xFFFFFFFF
+_PTR, _INT, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float)
 
 
 def _infer_bias_seg(
@@ -36,6 +64,7 @@ def _infer_bias_seg(
     sequence_ids: Optional[torch.Tensor],
     batch: int,
     seq: int,
+    name: str = _NAME,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(key_bias [B, S] fp32 or None, sequence ids [B, S] int32 or None).
 
@@ -45,7 +74,7 @@ def _infer_bias_seg(
     is a caller's mistake."""
     if sequence_ids is not None and bias is not None:
         raise ValueError(
-            f"{_NAME}: pass either bias (padded batches) or sequence_ids "
+            f"{name}: pass either bias (padded batches) or sequence_ids "
             "(packed batches), not both")
     key_bias = None
     if bias is not None:
@@ -56,68 +85,130 @@ def _infer_bias_seg(
     return key_bias, seg
 
 
-def _reference(q, k, v, key_bias, seg):
-    batch, seq, heads, depth = q.shape
-    scale = 1.0 / float(depth) ** 0.5
-    # fp32 scores; the scale applies to the fp32 product, as in the kernel.
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The accumulation dtype of the plain versions: fp32, or float64 for
+    float64 inputs (``gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, key_bias, seg):
+    """[B, H, S, S] scores in the accumulation dtype, scaled after the
+    product, with the key bias and the packed mask added."""
+    acc = _acc_dtype(q)
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if key_bias is not None:
-        s = s + key_bias[:, None, None, :]
+        s = s + key_bias.to(acc)[:, None, None, :]
     if seg is not None:
         same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)
-        s = s + torch.where(same, 0.0, -10000.0)[:, None, :, :]
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    denom = p.sum(dim=-1, keepdim=True)  # the unrounded probabilities
-    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
-    return (pv / denom).permute(0, 2, 1, 3).to(q.dtype)
+        s = s + torch.where(same, 0.0, -10000.0).to(acc)[:, None, :, :]
+    return s
 
 
 def flash_attention_infer_reference(q, k, v, bias=None, sequence_ids=None):
     """The plain PyTorch version of :func:`flash_attention_infer`, on any
-    device (one full softmax instead of the kernel's tiled online one)."""
+    device (one full softmax instead of the kernel's tiled online one):
+    the training forward's plain version without dropout."""
     key_bias, seg = _infer_bias_seg(bias, sequence_ids, q.shape[0],
                                     q.shape[1])
-    return _reference(q, k, v, key_bias, seg)
+    return _forward_math(q, k, v, key_bias, seg, 0, 0.0)[0]
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(_NAME)
-    fn = lib.flash_attention_infer
-    if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
-        lib.flash_attention_infer_error.argtypes = [ctypes.c_int]
-        lib.flash_attention_infer_error.restype = ctypes.c_char_p
+# The C entry points of each kernel library and their argument types.
+_ENTRY_POINTS: Dict[str, Dict[str, list]] = {
+    "flash_attention_infer": {
+        "flash_attention_infer": [_PTR] * 6 + [_INT] * 5 + [_F32, _PTR],
+    },
+    "flash_attention_fwd": {
+        "flash_attention_fwd": ([_PTR] * 7 + [_INT] * 5 + [_F32, _INT]
+                                + [_U32] * 3 + [_F32, _PTR]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_dq": ([_PTR] * 10 + [_INT] * 5 + [_F32, _INT]
+                               + [_U32] * 3 + [_F32, _PTR]),
+        "flash_attention_dkv": ([_PTR] * 11 + [_INT] * 5 + [_F32, _INT]
+                                + [_U32] * 3 + [_F32, _PTR]),
+    },
+}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed, with
+    ``argtypes`` set on every entry point (``<name>_error`` maps a
+    cudaError_t to its message)."""
+    lib = build.load(name)
+    for entry, argtypes in _ENTRY_POINTS[name].items():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error")
+    if err.argtypes is None:
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v, key_bias, seg) -> None:
+def _raise_on(rc: int, lib: ctypes.CDLL, lib_name: str, name: str) -> None:
+    if rc != 0:
+        message = getattr(lib, f"{lib_name}_error")(rc).decode()
+        raise RuntimeError(
+            f"{name}: kernel launch failed: {message} (cudaError {rc})")
+
+
+def _check(name: str, q: torch.Tensor, same: Dict[str, torch.Tensor],
+           key_bias, seg, stats: Optional[Dict[str, torch.Tensor]] = None
+           ) -> None:
+    """Raise on what the kernels do not take: q [B, S, H, D] contiguous
+    float32/bfloat16 with head_dim a multiple of 8 up to 128; ``same``
+    tensors of q's shape, dtype and device; the key bias [B, S] fp32 and
+    the ids [B, S] int32; ``stats`` (lse, delta) [B*H, S] fp32 — each
+    contiguous and on q's device, since the kernels read them by pointer."""
     if q.dim() != 4:
-        raise ValueError(f"{_NAME}: q must be [B, S, H, D], got {tuple(q.shape)}")
-    for name, t in (("k", k), ("v", v)):
+        raise ValueError(f"{name}: q must be [B, S, H, D], got {tuple(q.shape)}")
+    for label, t in same.items():
         if t.shape != q.shape:
-            raise ValueError(f"{_NAME}: {name} shape {tuple(t.shape)} != "
+            raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != "
                              f"q shape {tuple(q.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{_NAME}: {name} must match q's dtype and "
+            raise ValueError(f"{name}: {label} must match q's dtype and "
                              f"device ({q.dtype}, {q.device})")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{_NAME}: dtype {q.dtype} not supported "
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         "(float32, bfloat16)")
-    depth = q.shape[-1]
+    batch, seq, heads, depth = q.shape
     if depth % 8 or depth > 128:
-        raise ValueError(f"{_NAME}: head_dim {depth} must be a multiple of "
+        raise ValueError(f"{name}: head_dim {depth} must be a multiple of "
                          "8 up to 128")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    expected = [(label, t, (batch, seq), dtype) for label, t, dtype in (
+        ("bias", key_bias, torch.float32), ("sequence_ids", seg, torch.int32))
+        if t is not None]
+    expected += [(label, t, (batch * heads, seq), torch.float32)
+                 for label, t in (stats or {}).items()]
+    for label, t, shape, dtype in expected:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {label} must be {list(shape)} {dtype}, "
+                             f"got {list(t.shape)} {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {label} must be on {q.device}")
+    for label, t in (("q", q), *same.items(),
+                     *((label, t) for label, t, _, _ in expected)):
         if not t.is_contiguous():
-            raise ValueError(f"{_NAME}: {name} must be contiguous")
-    for name, t in (("bias", key_bias), ("sequence_ids", seg)):
-        if t is not None and t.device != q.device:
-            raise ValueError(f"{_NAME}: {name} must be on {q.device}")
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def _device_of(name: str, q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def flash_attention_infer(q, k, v, bias=None, sequence_ids=None):
@@ -131,28 +222,315 @@ def flash_attention_infer(q, k, v, bias=None, sequence_ids=None):
     version and counts nothing."""
     batch, seq = q.shape[0], q.shape[1]
     key_bias, seg = _infer_bias_seg(bias, sequence_ids, batch, seq)
-    if q.device.type == "cpu":
-        return _reference(q, k, v, key_bias, seg)
-    if q.device.type != "cuda":
-        raise ValueError(f"{_NAME}: unsupported device {q.device}")
-    _check(q, k, v, key_bias, seg)
+    if _device_of(_NAME, q) == "cpu":
+        return _forward_math(q, k, v, key_bias, seg, 0, 0.0)[0]
+    _check(_NAME, q, {"k": k, "v": v}, key_bias, seg)
     heads, depth = q.shape[2], q.shape[3]
     out = torch.empty_like(q)
-    lib = _library()
+    lib = _library(_NAME)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_infer(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            key_bias.data_ptr() if key_bias is not None else None,
-            seg.data_ptr() if seg is not None else None,
-            batch, seq, heads, depth, _DTYPE_CODES[q.dtype],
-            1.0 / float(depth) ** 0.5, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{_NAME}: kernel launch failed: "
-            f"{lib.flash_attention_infer_error(rc).decode()} (cudaError {rc})")
+            _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
+            _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, _stream(q))
+    _raise_on(rc, lib, _NAME, _NAME)
     flash_attention_infer.launches += 1
     return out
 
 
 flash_attention_infer.launches = 0
+
+
+# -- training: dropout masks ---------------------------------------------
+
+def dropout_threshold(rate: float) -> int:
+    """Keep iff 32 random bits >= this (the JAX kernels' convention)."""
+    return min(int(rate * (1 << 32)), (1 << 32) - 1)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(high, low) 32-bit words of a * b for a uint32 constant and a tensor
+    of uint32 values held in int64, without overflowing int64."""
+    t1 = (b & 0xFFFF) * a          # < 2^48
+    t2 = (b >> 16) * a             # < 2^48
+    s = t1 + ((t2 & 0xFFFF) << 16)
+    return (t2 >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, seed: int):
+    """Philox4x32-10 of the counter (c0, c1, c2, c3) (int64 tensors holding
+    uint32 values, broadcast together) under the 64-bit key ``seed``; the
+    plain twin of ``philox4x32_10`` in csrc/flash_attention_common.cuh."""
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _MASK32
+        k1 = (k1 + 0xBB67AE85) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_keep_mask(seed: int, rate: float, bh: torch.Tensor,
+                     rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The attention-dropout keep mask at the given coordinates: bool
+    [len(bh), len(rows), len(cols)], element (b*H + h, q, k) kept iff word
+    ``k % 4`` of Philox(counter=(k // 4, q, b*H + h, 0), key=seed) is >=
+    :func:`dropout_threshold`. Depends only on the coordinates, so any
+    block of the mask computed alone equals that block of the whole."""
+    cols = cols.long()
+    zero = torch.zeros((), dtype=torch.int64, device=cols.device)
+    words = philox4x32_10(
+        (cols // 4)[None, None, :], rows.long()[None, :, None],
+        bh.long()[:, None, None], zero, int(seed))
+    lane = (cols % 4)[None, None, :]
+    bits = torch.where(lane == 0, words[0], torch.where(
+        lane == 1, words[1], torch.where(lane == 2, words[2], words[3])))
+    return bits >= dropout_threshold(rate)
+
+
+def _keep(q: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """The whole [B, H, S, S] keep mask of one attention call."""
+    batch, seq, heads = q.shape[:3]
+    idx = torch.arange(max(batch * heads, seq), device=q.device)
+    return philox_keep_mask(seed, rate, idx[:batch * heads], idx[:seq],
+                            idx[:seq]).view(batch, heads, seq, seq)
+
+
+# -- training: plain versions of the three kernels ------------------------
+
+def _forward_math(q, k, v, key_bias, seg, seed, rate):
+    """(out [B, S, H, D] in q's dtype, lse [B*H, S]): the forward kernel's
+    function, differentiable through autograd."""
+    batch, seq, heads, _ = q.shape
+    acc = _acc_dtype(q)
+    s = _scores(q, k, key_bias, seg)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)  # the undropped probabilities
+    lse = (m + torch.log(l)).reshape(batch * heads, seq)
+    if rate > 0.0:
+        p = torch.where(_keep(q, seed, rate), p, 0.0)
+    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
+    out = pv / (l * (1.0 - rate))
+    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
+
+
+def _probs_and_da(q, k, v, do, lse, key_bias, seg, seed, rate):
+    """The backward kernels' shared start: (p = exp(s - lse), dA = dO v^T
+    with the dropout mask and 1/(1-rate) applied, keep mask or None)."""
+    batch, seq, heads, _ = q.shape
+    acc = _acc_dtype(q)
+    p = torch.exp(_scores(q, k, key_bias, seg)
+                  - lse.to(acc).view(batch, heads, seq, 1))
+    da = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
+    keep = None
+    if rate > 0.0:
+        keep = _keep(q, seed, rate)
+        da = torch.where(keep, da * (1.0 / (1.0 - rate)), 0.0)
+    return p, da, keep
+
+
+def _dq_math(q, k, v, out, do, lse, key_bias, seg, seed, rate):
+    """(dq in q's dtype, delta [B*H, S]): the dq kernel's function."""
+    batch, seq, heads, depth = q.shape
+    acc = _acc_dtype(q)
+    delta = (do.to(acc) * out.to(acc)).sum(-1).permute(0, 2, 1)  # [B,H,S]
+    p, da, _ = _probs_and_da(q, k, v, do, lse, key_bias, seg, seed, rate)
+    ds = p * (da - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(acc), k.to(acc))
+    dq = dq * (1.0 / float(depth) ** 0.5)
+    return dq.to(q.dtype).contiguous(), delta.reshape(batch * heads, seq)
+
+
+def _dkv_math(q, k, v, do, lse, delta, key_bias, seg, seed, rate):
+    """(dk, dv in k's / v's dtype, dbias [B*H, S]): the dkv kernel's
+    function; dbias is the sum over queries of dS."""
+    batch, seq, heads, depth = q.shape
+    acc = _acc_dtype(q)
+    p, da, keep = _probs_and_da(q, k, v, do, lse, key_bias, seg, seed, rate)
+    p_v = p if keep is None else torch.where(
+        keep, p * (1.0 / (1.0 - rate)), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_v.to(do.dtype).to(acc), do.to(acc))
+    ds = p * (da - delta.to(acc).view(batch, heads, seq, 1))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(acc), q.to(acc))
+    dk = dk * (1.0 / float(depth) ** 0.5)
+    dbias = ds.sum(dim=2).reshape(batch * heads, seq)
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous(), dbias
+
+
+# -- training: kernel wrappers ---------------------------------------------
+
+def _dropout_args(seed, rate):
+    """(dropout flag, seed words, threshold) for a C entry point."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    seed = int(seed or 0)
+    if not 0 <= seed < 1 << 64:
+        raise ValueError(f"dropout seed must be in [0, 2**64), got {seed}")
+    return (int(rate > 0.0), seed & _MASK32, seed >> 32,
+            dropout_threshold(rate))
+
+
+def flash_attention_fwd(q, k, v, key_bias=None, seg=None, seed=None,
+                        rate=0.0):
+    """The forward kernel: (out [B, S, H, D], lse [B*H, S] fp32) for
+    [B, S, H, D] q, k, v, a [B, S] fp32 key bias and [B, S] int32 sequence
+    ids (each optional), and dropout ``rate`` drawn from ``seed``. A CUDA
+    tensor launches csrc/flash_attention_fwd.cu and counts the launch in
+    ``flash_attention_fwd.launches``; a CPU tensor takes the plain
+    version and counts nothing."""
+    name = "flash_attention_fwd"
+    flag, lo, hi, threshold = _dropout_args(seed, rate)
+    if _device_of(name, q) == "cpu":
+        return _forward_math(q, k, v, key_bias, seg, seed, rate)
+    _check(name, q, {"k": k, "v": v}, key_bias, seg)
+    batch, seq, heads, depth = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(batch * heads, seq, dtype=torch.float32,
+                      device=q.device)
+    lib = _library(name)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
+            depth, _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag,
+            lo, hi, threshold, 1.0 - rate, _stream(q))
+    _raise_on(rc, lib, name, name)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_dq(q, k, v, out, do, lse, key_bias=None, seg=None,
+                       seed=None, rate=0.0):
+    """The dq kernel: (dq [B, S, H, D], delta [B*H, S] fp32) from the
+    forward's out and lse and the output gradient ``do``; ``delta =
+    rowsum(do * out)`` is computed in the kernel and feeds
+    :func:`flash_attention_dkv`. CUDA launches csrc/flash_attention_bwd.cu
+    (counted in ``flash_attention_dq.launches``); CPU takes the plain
+    version."""
+    name = "flash_attention_dq"
+    flag, lo, hi, threshold = _dropout_args(seed, rate)
+    if _device_of(name, q) == "cpu":
+        return _dq_math(q, k, v, out, do, lse, key_bias, seg, seed, rate)
+    _check(name, q, {"k": k, "v": v, "out": out, "do": do}, key_bias, seg,
+           {"lse": lse})
+    batch, seq, heads, depth = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty(batch * heads, seq, dtype=torch.float32,
+                        device=q.device)
+    lib = _library("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
+            _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag, lo, hi,
+            threshold, 1.0 / (1.0 - rate), _stream(q))
+    _raise_on(rc, lib, "flash_attention_bwd", name)
+    flash_attention_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, key_bias=None, seg=None,
+                        seed=None, rate=0.0):
+    """The dkv kernel: (dk, dv [B, S, H, D], dbias [B*H, S] fp32, the sum
+    over queries of dS). CUDA launches csrc/flash_attention_bwd.cu (counted
+    in ``flash_attention_dkv.launches``); CPU takes the plain version."""
+    name = "flash_attention_dkv"
+    flag, lo, hi, threshold = _dropout_args(seed, rate)
+    if _device_of(name, q) == "cpu":
+        return _dkv_math(q, k, v, do, lse, delta, key_bias, seg, seed, rate)
+    _check(name, q, {"k": k, "v": v, "do": do}, key_bias, seg,
+           {"lse": lse, "delta": delta})
+    batch, seq, heads, depth = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty(batch * heads, seq, dtype=torch.float32,
+                        device=q.device)
+    lib = _library("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
+            depth, _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag,
+            lo, hi, threshold, 1.0 / (1.0 - rate), _stream(q))
+    _raise_on(rc, lib, "flash_attention_bwd", name)
+    flash_attention_dkv.launches += 1
+    return dk, dv, dbias
+
+
+flash_attention_fwd.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0
+TRAINING_KERNELS: Sequence = (flash_attention_fwd, flash_attention_dq,
+                              flash_attention_dkv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v); the backward runs the dq kernel, then the
+    dkv kernel, from the saved out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seg, seed, rate):
+        out, lse = flash_attention_fwd(q, k, v, key_bias, seg, seed, rate)
+        ctx.save_for_backward(q, k, v, out, lse, key_bias, seg)
+        ctx.seed, ctx.rate = seed, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, key_bias, seg = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        dq, delta = flash_attention_dq(q, k, v, out, dout, lse, key_bias,
+                                       seg, ctx.seed, ctx.rate)
+        dk, dv, dbias = flash_attention_dkv(q, k, v, dout, lse, delta,
+                                            key_bias, seg, ctx.seed,
+                                            ctx.rate)
+        d_key_bias = None
+        if key_bias is not None and ctx.needs_input_grad[3]:
+            batch, seq, heads = q.shape[:3]
+            d_key_bias = dbias.view(batch, heads, seq).sum(1).to(
+                key_bias.dtype)
+        return dq, dk, dv, d_key_bias, None, None, None
+
+
+def _training_inputs(name, q, bias, sequence_ids, dropout_rate, seed):
+    batch, seq = q.shape[0], q.shape[1]
+    if bias is not None and bias.numel() != batch * seq:
+        raise ValueError(
+            f"{name}: bias must be the [B, 1, 1, S] key bias, got "
+            f"{tuple(bias.shape)} (packed batches pass sequence_ids)")
+    key_bias, seg = _infer_bias_seg(bias, sequence_ids, batch, seq, name)
+    rate = float(dropout_rate)
+    if rate > 0.0 and seed is None:
+        raise ValueError(f"{name}: dropout_rate > 0 requires seed")
+    return key_bias, seg, rate, int(seed or 0)
+
+
+def flash_attention(q, k, v, bias=None, dropout_rate=0.0, seed=None,
+                    sequence_ids=None):
+    """Fused attention with a gradient over [B, S, H, D] tensors; returns
+    out in q's dtype. ``bias`` is the [B, 1, 1, S] key bias of padded
+    batches (its gradient is the sum over queries and heads of dS);
+    ``sequence_ids`` ([B, S], 0 = pad) marks a packed batch instead.
+    ``dropout_rate > 0`` drops attention probabilities with the Philox
+    mask of ``seed`` (an int in [0, 2**64)), regenerated by the backward.
+
+    CUDA tensors run the three kernels (forward now, dq and dkv in the
+    backward); CPU tensors run their plain versions."""
+    key_bias, seg, rate, seed = _training_inputs(
+        "flash_attention", q, bias, sequence_ids, dropout_rate, seed)
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), key_bias, seg, seed, rate)
+
+
+def flash_attention_reference(q, k, v, bias=None, dropout_rate=0.0,
+                              seed=None, sequence_ids=None):
+    """The plain, differentiable PyTorch version of
+    :func:`flash_attention`: the same arithmetic and the same Philox mask,
+    differentiated by autograd."""
+    key_bias, seg, rate, seed = _training_inputs(
+        "flash_attention_reference", q, bias, sequence_ids, dropout_rate,
+        seed)
+    return _forward_math(q, k, v, key_bias, seg, seed, rate)[0]

@@ -5,8 +5,8 @@ plain C interface. ``nvcc`` compiles it for Hopper (``sm_90a``) into a
 shared library, and ``ctypes`` loads it: no PyTorch headers are involved,
 so a build takes seconds. Libraries are built at first use into
 ``bert_pytorch_tpu_torch/build/`` (listed in ``.gitignore``), named by a
-hash of the source and flags, so an edited source is rebuilt and never
-served stale. A missing compiler or a failed build raises: there is no
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and never served stale. A missing compiler or a failed build raises: there is no
 fallback to another implementation.
 """
 
@@ -26,7 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 # One entry per kernel source (csrc/<name>.cu -> build/lib<name>-<hash>.so).
-KERNEL_SOURCES = ("flash_attention_infer",)
+KERNEL_SOURCES = ("flash_attention_infer", "flash_attention_fwd",
+                  "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,9 +57,10 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
+    text = source_path(name).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,9 +1,14 @@
-"""Synthetic serving inputs: a small WordPiece vocab written from a fixed
-word list (the port's copy of the JAX package's ``write_trace_vocab``).
+"""Synthetic inputs of the port.
 
-The repository holds no 30522-entry vocab, so demo-mode serving (seeded
-random weights) tokenizes with this file: its ids are all < 30522, so a
-model at the published vocab width serves it unchanged.
+* Serving: a small WordPiece vocab written from a fixed word list (the
+  port's copy of the JAX package's ``write_trace_vocab``). The repository
+  holds no 30522-entry vocab, so demo-mode serving (seeded random weights)
+  tokenizes with this file: its ids are all < 30522, so a model at the
+  published vocab width serves it unchanged.
+* Pretraining: host batches of random rows shaped like the JAX package's
+  synthetic shards and masked by the port's dataset code
+  (:func:`synthetic_pretraining_batch`), for driving the train step where
+  no shard (and no ``h5py``) is at hand.
 """
 
 from __future__ import annotations
@@ -23,3 +28,64 @@ def write_trace_vocab(path: str) -> str:
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
     return path
+
+
+def synthetic_samples(rng, num_samples: int, seq_len: int, vocab_size: int):
+    """Rows of random tokens shaped like the JAX package's synthetic shards
+    (``make_shard``): [CLS] a [SEP] b [SEP] with content length in
+    [S/2, S-1), ids 5..vocab, special ids 2/3, then pad. Returns
+    (input_ids [N, S] int32, special token positions per row, next-sentence
+    labels [N] int8)."""
+    import numpy as np
+
+    input_ids = np.zeros((num_samples, seq_len), np.int32)
+    specials = []
+    next_sentence = rng.integers(0, 2, num_samples).astype(np.int8)
+    cls_id, sep_id = 2, 3
+    for i in range(num_samples):
+        content = int(rng.integers(seq_len // 2, seq_len - 1))
+        ids = rng.integers(5, vocab_size, size=content).astype(np.int32)
+        split = int(rng.integers(1, content - 1)) if content > 2 else 1
+        row = np.concatenate(
+            [[cls_id], ids[:split], [sep_id], ids[split:], [sep_id]])
+        special = [0, split + 1, len(row) - 1]
+        row = row[:seq_len]
+        special = [min(p, seq_len - 1) for p in special]
+        input_ids[i, :len(row)] = row
+        specials.append(special)
+    return input_ids, specials, next_sentence
+
+
+def synthetic_pretraining_batch(seed: int, batch_size: int, seq_len: int,
+                                vocab_size: int, max_pred_per_seq: int,
+                                masked_lm_prob: float = 0.15,
+                                mask_token_index: int = 4) -> dict:
+    """One host batch of the loader's layout (input_ids, segment_ids,
+    input_mask, masked_lm_labels [N, S], next_sentence_labels [N]; int32),
+    from :func:`synthetic_samples` masked by the dataset's own
+    ``mask_input``, with per-sample generators seeded on (seed, index) as
+    the dataset seeds them."""
+    import numpy as np
+
+    from bert_pytorch_tpu_torch.data.dataset import (input_mask_for,
+                                                     mask_input,
+                                                     segment_ids_for)
+
+    ids, specials, nsp = synthetic_samples(np.random.default_rng(seed),
+                                           batch_size, seq_len, vocab_size)
+    rows = {"input_ids": [], "segment_ids": [], "input_mask": [],
+            "masked_lm_labels": []}
+    for i, special in enumerate(specials):
+        rng = np.random.default_rng((seed, 0, i))
+        special = np.asarray(special)
+        rows["segment_ids"].append(segment_ids_for(ids[i], special))
+        rows["input_mask"].append(input_mask_for(ids[i], special))
+        masked, labels = mask_input(rng, ids[i].copy(), special,
+                                    max_pred_per_seq, masked_lm_prob,
+                                    vocab_size, mask_token_index)
+        rows["input_ids"].append(masked)
+        rows["masked_lm_labels"].append(labels)
+    batch = {key: np.stack(value).astype(np.int32)
+             for key, value in rows.items()}
+    batch["next_sentence_labels"] = nsp.astype(np.int32)
+    return batch

@@ -6,24 +6,40 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name and power limit (``nvidia-smi``); no CUDA device = fail;
-2. build every CUDA kernel of the serving path from the sources in the
-   checkout (one ``nvcc`` per source, all started together);
+2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
+   per source, all started together): the serving kernel and the three
+   training kernels (forward, dq, dkv);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (B=8, H=16, D=64, S in {128, 512}, bf16
-   and fp32, padded rows and packed rows);
+   shapes the main paths give it (B=8, H=16, D=64, S in {128, 512}, bf16
+   and fp32, padded rows and packed rows; the training kernels also at
+   dropout 0 and 0.1 with a fixed seed, comparing out, lse, dq, delta,
+   dk, dv and dbias, each within the tolerance stated below);
 4. time each kernel, its plain version and the one PyTorch call that
-   computes the same function (CUDA events), beside the least time the
-   card could take for the same work;
-5. the main path: ``run_server.build_service`` at full BERT-large width
-   (configs/bert_large_uncased_config.json, seeded random weights, a demo
-   vocab) serving fill_mask and classify over HTTP, packed and unpacked,
-   over both buckets; every kernel launch counter must move, and the
-   fused-attention kernel must launch once per encoder layer per forward.
-   Then one staged fp32 fill_mask batch through a ``flash_infer`` engine
-   and a ``dense`` engine with the same seeded weights must agree.
+   computes the same function (``scaled_dot_product_attention``: forward
+   for the forward kernels, forward + backward for dq and dkv), CUDA
+   events, beside the least time the card could take for the same work;
+5. the serving main path: ``run_server.build_service`` at full BERT-large
+   width (configs/bert_large_uncased_config.json, seeded random weights,
+   a demo vocab) serving fill_mask and classify over HTTP, packed and
+   unpacked, over both buckets; the serving kernel must launch once per
+   encoder layer per forward. Then one staged fp32 fill_mask batch
+   through a ``flash_infer`` engine and a ``dense`` engine with the same
+   seeded weights must agree;
+6. the training main path: the pretraining runner's own setup functions
+   and train step (configs/bert_pretraining_phase2_config.json at
+   BERT-large width: S=512, max_pred 80, remat dots, LAMB with poly
+   warmup, bf16, the flash kernels), four optimizer steps of local batch
+   8 x accumulation 2 on seeded synthetic batches masked by the port's
+   dataset code. Every loss finite, the first within 1 of ln(30528) +
+   ln(2), and the launch counts exact: per step 2 x 24 x 2 forward
+   launches (remat recomputes the forward) and 24 x 2 each of dq and dkv.
+   Then an fp32 training step with the flash kernels and with dense
+   attention (2 layers at BERT-large width, dropout 0, the same weights
+   and batch) must agree in loss, gradients and updated parameters.
 
-The last three lines of standard output are the kernels JSON, the card's
-name and power limit (``nvidia-smi``), and the JSON result.
+Every launch counter is set to 0 just before each main path and read just
+after it. The last three lines of standard output are the kernels JSON,
+the card's name and power limit (``nvidia-smi``), and the JSON result.
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ B, H, D = 8, 16, 64
 SEQS = (128, 512)
 CONFIG = os.path.join(REPO, "configs", "bert_large_uncased_config.json")
 REPLACES = "bert_pytorch_tpu/ops/pallas/attention.py:512"
+SERVING_KERNELS = ("flash_attention_infer",)
 
 
 def log(msg: str) -> None:
@@ -193,6 +210,215 @@ def check_and_time_attention() -> dict:
             "library_ms": head["library_ms"], "cases": cases}
 
 
+# Training kernels against their plain versions, per output: (atol, rtol)
+# on |kernel - plain| <= atol + rtol * |plain|. fp32 differs only in
+# summation order; bf16 adds P rounded at each tile's running maximum (the
+# plain version rounds at the row maximum), dS and P rounded to bf16 from
+# lse values that differ in their last fp32 bits, and the bf16 outputs.
+TRAIN_TOL = {
+    torch.float32: {"out": (2e-5, 1e-5), "lse": (2e-5, 1e-6),
+                    "dq": (1e-4, 1e-4), "delta": (1e-4, 1e-5),
+                    "dk": (1e-4, 1e-4), "dv": (1e-4, 1e-4),
+                    "dbias": (1e-4, 1e-4)},
+    torch.bfloat16: {"out": (2e-2, 2e-2), "lse": (2e-5, 1e-6),
+                     "dq": (2e-2, 2e-2), "delta": (2e-3, 1e-3),
+                     "dk": (2e-2, 2e-2), "dv": (2e-2, 2e-2),
+                     "dbias": (2e-3, 2e-2)},
+}
+TRAIN_RATES = (0.0, 0.1)
+TRAIN_SEED = 0x0123456789ABCDEF
+TRAIN_REPLACES = {
+    "flash_attention_fwd": "bert_pytorch_tpu/ops/pallas/attention.py:179",
+    "flash_attention_dq": "bert_pytorch_tpu/ops/pallas/attention.py:242",
+    "flash_attention_dkv": "bert_pytorch_tpu/ops/pallas/attention.py:293",
+}
+TRAIN_SOURCES = {
+    "flash_attention_fwd": "bert_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
+    "flash_attention_dq": "bert_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_dkv": "bert_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
+}
+# FLOPs per B*H*S^2*D of each kernel: QK^T and PV forward; QK^T, dO V^T and
+# dS K for dq; QK^T, dO V^T, P^T dO and dS^T Q for dkv.
+TRAIN_FLOPS = {"flash_attention_fwd": 4, "flash_attention_dq": 6,
+               "flash_attention_dkv": 8}
+
+
+def train_bound_ms(name: str, seq: int, dtype) -> tuple:
+    """(least time in ms, what bounds it) for one training kernel at
+    B x S x H x D: every operand read once and every result written once
+    ([B, S, H, D] tensors in dtype; lse, delta, dbias [B*H, S] and the
+    [B, S] key bias in fp32), against TRAIN_FLOPS * B*H*S^2*D operations."""
+    elem = torch.finfo(dtype).bits // 8
+    act = B * seq * H * D * elem
+    stat = B * H * seq * 4
+    nbytes = {
+        "flash_attention_fwd": 4 * act + stat,              # q k v | out lse
+        "flash_attention_dq": 6 * act + 2 * stat,           # q k v o dO | dq, lse | delta
+        "flash_attention_dkv": 6 * act + 3 * stat,          # q k v dO | dk dv, lse delta | dbias
+    }[name] + B * seq * 4
+    flops = TRAIN_FLOPS[name] * B * H * seq * seq * D
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _compare(name: str, got, ref, tol) -> float:
+    """max |got - ref|; raises unless every element is finite and within
+    atol + rtol * |ref|."""
+    atol, rtol = tol
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    finite = bool(torch.isfinite(got).all())
+    bad = int((err > atol + rtol * ref.abs()).sum())
+    max_err = err.max().item()
+    if not finite or bad:
+        raise AssertionError(
+            f"{name}: {bad} elements outside atol {atol:g} + rtol {rtol:g} "
+            f"(max_abs_err {max_err:.3e}), finite {finite}")
+    return max_err
+
+
+def training_inputs(seq: int, dtype, packed: bool, gen: torch.Generator):
+    """attention_inputs plus the output gradient, and the (key_bias, seg)
+    pair the training kernels take."""
+    from bert_pytorch_tpu_torch.ops.kernels.attention import _infer_bias_seg
+
+    q, k, v, kw = attention_inputs(seq, dtype, packed, gen)
+    do = torch.randn(B, seq, H, D, device="cuda", generator=gen).to(dtype)
+    key_bias, seg = _infer_bias_seg(kw.get("bias"), kw.get("sequence_ids"),
+                                    B, seq)
+    return q, k, v, do, kw, key_bias, seg
+
+
+def sdpa_calls(q, k, v, do, kw, rate: float):
+    """The one-PyTorch-call yardsticks (never on the port's path):
+    scaled_dot_product_attention with the same additive mask and
+    dropout_p, forward alone and forward + backward."""
+    fwd = library_call(q, k, v, kw)
+    if "bias" in kw:
+        mask = kw["bias"].to(q.dtype)
+    else:
+        sids = kw["sequence_ids"]
+        same = (sids[:, :, None] == sids[:, None, :]) & (sids[:, :, None] > 0)
+        mask = torch.where(same, 0.0, -10000.0)[:, None].to(q.dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd_drop():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, dropout_p=rate)
+
+    def fwd_bwd():
+        out = fwd_drop()
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    return (fwd if rate == 0.0 else lambda: fwd_drop().detach()), fwd_bwd
+
+
+def check_training_kernels() -> dict:
+    """Hold the forward, dq and dkv kernels against their plain versions on
+    the same inputs: S in SEQS, bf16 and fp32, padded and packed, dropout 0
+    and 0.1 with a fixed seed. Returns the max error per kernel."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {name: 0.0 for name in TRAIN_REPLACES}
+    for seq in SEQS:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = TRAIN_TOL[dtype]
+            for packed in (False, True):
+                q, k, v, do, _, kb, seg = training_inputs(seq, dtype, packed,
+                                                          gen)
+                for rate in TRAIN_RATES:
+                    case = (f"S={seq} {str(dtype)[6:]} "
+                            f"{'packed' if packed else 'padded'} rate {rate}")
+                    args = (kb, seg, TRAIN_SEED, rate)
+                    out, lse = ka.flash_attention_fwd(q, k, v, *args)
+                    ref_out, ref_lse = ka._forward_math(q, k, v, *args)
+                    errs = {"out": _compare(f"fwd out {case}", out, ref_out,
+                                            tol["out"]),
+                            "lse": _compare(f"fwd lse {case}", lse, ref_lse,
+                                            tol["lse"])}
+                    dq, delta = ka.flash_attention_dq(q, k, v, ref_out, do,
+                                                      ref_lse, *args)
+                    ref_dq, ref_delta = ka._dq_math(q, k, v, ref_out, do,
+                                                    ref_lse, *args)
+                    errs["dq"] = _compare(f"dq {case}", dq, ref_dq, tol["dq"])
+                    errs["delta"] = _compare(f"delta {case}", delta,
+                                             ref_delta, tol["delta"])
+                    dk, dv, dbias = ka.flash_attention_dkv(
+                        q, k, v, do, ref_lse, ref_delta, *args)
+                    ref_dk, ref_dv, ref_db = ka._dkv_math(
+                        q, k, v, do, ref_lse, ref_delta, *args)
+                    for label, got, ref in (("dk", dk, ref_dk),
+                                            ("dv", dv, ref_dv),
+                                            ("dbias", dbias, ref_db)):
+                        errs[label] = _compare(f"{label} {case}", got, ref,
+                                               tol[label])
+                    torch.cuda.synchronize()
+                    log(f"[check] training kernels {case}: " + ", ".join(
+                        f"{key} {val:.2e}" for key, val in errs.items()))
+                    worst["flash_attention_fwd"] = max(
+                        worst["flash_attention_fwd"], errs["out"],
+                        errs["lse"])
+                    worst["flash_attention_dq"] = max(
+                        worst["flash_attention_dq"], errs["dq"],
+                        errs["delta"])
+                    worst["flash_attention_dkv"] = max(
+                        worst["flash_attention_dkv"], errs["dk"],
+                        errs["dv"], errs["dbias"])
+    return worst
+
+
+def time_training_kernels(rate: float = 0.1) -> dict:
+    """Kernel, plain-version and SDPA times of each training kernel at the
+    main path's shapes (padded rows, dropout ``rate``), CUDA events."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = {name: [] for name in TRAIN_REPLACES}
+    for seq in SEQS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, kw, kb, seg = training_inputs(seq, dtype, False, gen)
+            args = (kb, seg, TRAIN_SEED, rate)
+            out, lse = ka._forward_math(q, k, v, *args)
+            _, delta = ka._dq_math(q, k, v, out, do, lse, *args)
+            calls = {
+                "flash_attention_fwd": (
+                    lambda: ka.flash_attention_fwd(q, k, v, *args),
+                    lambda: ka._forward_math(q, k, v, *args)),
+                "flash_attention_dq": (
+                    lambda: ka.flash_attention_dq(q, k, v, out, do, lse,
+                                                  *args),
+                    lambda: ka._dq_math(q, k, v, out, do, lse, *args)),
+                "flash_attention_dkv": (
+                    lambda: ka.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                   *args),
+                    lambda: ka._dkv_math(q, k, v, do, lse, delta, *args)),
+            }
+            sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(q, k, v, do, kw, rate)
+            t_sdpa_fwd = cuda_time_ms(sdpa_fwd)
+            t_sdpa_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd)
+            for name, (kernel, plain) in calls.items():
+                t_kernel = cuda_time_ms(kernel)
+                t_plain = cuda_time_ms(plain, iters=20, warmup=2)
+                t_bound, by = train_bound_ms(name, seq, dtype)
+                t_lib = (t_sdpa_fwd if name == "flash_attention_fwd"
+                         else t_sdpa_fwd_bwd)
+                log(f"[time] {name} S={seq} {str(dtype)[6:]} rate {rate}: "
+                    f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+                    f"SDPA fwd {t_sdpa_fwd:.4f} ms, SDPA fwd+bwd "
+                    f"{t_sdpa_fwd_bwd:.4f} ms, bound {t_bound:.4f} ms ({by})")
+                cases[name].append({
+                    "seq": seq, "dtype": str(dtype)[6:], "rate": rate,
+                    "ms": t_kernel, "plain_ms": t_plain,
+                    "sdpa_fwd_ms": t_sdpa_fwd,
+                    "sdpa_fwd_bwd_ms": t_sdpa_fwd_bwd, "library_ms": t_lib,
+                    "bound_ms": t_bound, "bound_by": by})
+    return cases
+
+
 def serve_args(vocab: str, dtype: str, backend: str, tasks: str):
     from bert_pytorch_tpu_torch import run_server
 
@@ -320,10 +546,10 @@ def drive_main_path(vocab: str, kernels: dict) -> dict:
     if buckets != [128, 512] or packed_rows < 2 or all(p[2] for p in plans):
         raise AssertionError(f"traffic did not cover both buckets, packed "
                              f"and unpacked rows: {plans}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in SERVING_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+                                 "serving path")
     if launches["flash_attention_infer"] != layers * forwards:
         raise AssertionError(
             f"flash_attention_infer launched {launches} times over "
@@ -366,6 +592,183 @@ def check_flash_vs_dense(vocab: str) -> float:
     return err
 
 
+PHASE2 = os.path.join(REPO, "configs", "bert_pretraining_phase2_config.json")
+TRAIN_LOCAL_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 4
+TRAIN_SEQ = 512
+# The first loss of a seeded random init: ln(vocab) MLM + ln(2) NSP.
+INIT_LOSS = math.log(30528) + math.log(2)
+# fp32 flash vs dense training step at BERT-large width, 2 layers, dropout
+# 0: the loss within 1e-4; each gradient within 1e-3 of that tensor's
+# largest gradient, floored at 1e-4 of the model's largest (attention
+# summed in another order, q scaled before the product on the dense path;
+# the floor covers tensors whose true gradient is 0, such as the key
+# projection's bias, to which the softmax is invariant); each parameter after one LAMB step
+# within 2e-4, twice the largest single-element LAMB update at the step's
+# lr (4e-3 x a trust ratio near 0.02), since m_hat / sqrt(v_hat) is
+# sign(g) on the first step and flips where a gradient is near 0.
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3, 2e-4
+
+
+def training_args(extra=()):
+    """The runner's arguments for the phase-2 recipe at BERT-large width:
+    the recipe's config file (seq 512 rows, max_pred 80, remat dots, LAMB
+    with poly warmup), a local batch of 8 accumulated twice, bf16, the
+    flash kernels, a few steps and no checkpoint."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    return run_pretraining.parse_arguments([
+        "--config_file", PHASE2, "--model_config_file", CONFIG,
+        "--local_batch_size", str(TRAIN_LOCAL_BATCH),
+        "--global_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+        "--steps", str(TRAIN_STEPS), "--skip_final_checkpoint",
+        "--attention_backend", "flash", "--dtype", "bfloat16",
+        "--device", "cuda", "--seed", "0", *extra])
+
+
+def training_batches(args, config, count: int, seed0: int = 0) -> list:
+    """Seeded synthetic global batches of S=512 rows masked by the port's
+    dataset code, stacked into [A, B, S] on the card."""
+    from bert_pytorch_tpu_torch import pretrain
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        synthetic_pretraining_batch)
+
+    return [pretrain.to_device(pretrain.stack_microbatches(
+        synthetic_pretraining_batch(
+            seed0 + i, args.global_batch_size, TRAIN_SEQ, config.vocab_size,
+            args.max_predictions_per_seq, args.masked_token_fraction),
+        args.accumulation_steps), args.device) for i in range(count)]
+
+
+def drive_training(kernels: dict) -> dict:
+    """The training main path: the port runner's setup functions and train
+    step, TRAIN_STEPS optimizer steps of BERT-large phase 2."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    args = run_pretraining.setup_training(training_args())
+    if (args.remat, args.max_predictions_per_seq, args.lr_decay,
+            args.optimizer) != ("dots", 80, "poly", "lamb"):
+        raise AssertionError(f"not the phase-2 recipe: {vars(args)}")
+    model, config = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    step = run_pretraining.make_step(args, model, optimizer, schedule,
+                                     config)
+    batches = training_batches(args, config, TRAIN_STEPS)
+    layers = config.num_hidden_layers
+    torch.cuda.synchronize()
+    # Counts to zero just before the main path, read just after.
+    for kernel in kernels.values():
+        kernel.launches = 0
+    records = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        values = {k: float(v) for k, v in metrics.items()}  # synchronises
+        values["step_ms"] = (time.perf_counter() - t0) * 1e3
+        records.append(values)
+        log(f"[train] step {len(records)}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in values.items()))
+    launches = {name: k.launches for name, k in kernels.items()}
+    losses = [r["loss"] for r in records]
+    if not all(math.isfinite(x) and r["finite"] == 1.0
+               for x, r in zip(losses, records)):
+        raise AssertionError(f"non-finite training step: {records}")
+    if abs(losses[0] - INIT_LOSS) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not within 1 of "
+                             f"ln(30528) + ln(2) = {INIT_LOSS:.4f}")
+    per_step = layers * args.accumulation_steps
+    expected = {"flash_attention_fwd": 2 * per_step * TRAIN_STEPS,
+                "flash_attention_dq": per_step * TRAIN_STEPS,
+                "flash_attention_dkv": per_step * TRAIN_STEPS}
+    for name, want in expected.items():
+        if launches[name] != want:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
+                f"steps; expected {want} (remat dots recomputes the forward)")
+    steady = [r["step_ms"] for r in records[1:]]
+    step_ms = statistics.median(steady)
+    del model, optimizer, step, batches
+    torch.cuda.empty_cache()
+    return {"steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+            "step_ms": step_ms, "first_step_ms": records[0]["step_ms"],
+            "seq_per_s": args.global_batch_size / step_ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def check_training_flash_vs_dense() -> dict:
+    """fp32, 2 layers at BERT-large width, dropout 0: the same seeded
+    weights and batch through a flash model and a dense model; one LAMB
+    step each (at the recipe's peak lr: no warmup) must give the same loss,
+    gradients and updated parameters."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    with open(CONFIG, encoding="utf-8") as f:
+        cfg = dict(json.load(f), num_hidden_layers=2, hidden_dropout_prob=0.0,
+                   attention_probs_dropout_prob=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert_large_2_layers.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        results = {}
+        for backend in ("flash", "dense"):
+            args = run_pretraining.setup_training(training_args([
+                "--model_config_file", path, "--dtype", "float32",
+                "--attention_backend", backend, "--warmup_proportion", "0",
+                "--steps", "1", "--global_batch_size",
+                str(TRAIN_LOCAL_BATCH)]))
+            model, config = run_pretraining.prepare_model(args)
+            optimizer, schedule = run_pretraining.prepare_optimizer(args,
+                                                                    model)
+            step = run_pretraining.make_step(args, model, optimizer,
+                                             schedule, config)
+            metrics = step(training_batches(args, config, 1, seed0=100)[0])
+            results[backend] = (
+                float(metrics["loss"]),
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+            del model, optimizer, step
+    (loss_f, grads_f, params_f), (loss_d, grads_d, params_d) = (
+        results["flash"], results["dense"])
+    loss_err = abs(loss_f - loss_d)
+    floor = 1e-4 * max(g.abs().max().item() for g in grads_d.values())
+    grad_err = max(((grads_f[n] - grads_d[n]).abs().max()
+                    / (grads_d[n].abs().max() + floor)).item()
+                   for n in grads_d)
+    param_err = max((params_f[n] - params_d[n]).abs().max().item()
+                    for n in params_d)
+    log(f"[check] fp32 training step, flash vs dense (2 layers, BERT-large "
+        f"width): loss {loss_f:.6f} vs {loss_d:.6f} (|d| {loss_err:.2e}, "
+        f"atol {TRAIN_LOSS_ATOL:g}), grads max relative {grad_err:.2e} "
+        f"(rtol {TRAIN_GRAD_RTOL:g}), params after LAMB {param_err:.2e} "
+        f"(atol {TRAIN_PARAM_ATOL:g})")
+    if not (loss_err <= TRAIN_LOSS_ATOL and grad_err <= TRAIN_GRAD_RTOL
+            and param_err <= TRAIN_PARAM_ATOL):
+        raise AssertionError("flash and dense training steps disagree")
+    torch.cuda.empty_cache()
+    return {"loss_abs_err": loss_err, "grad_rel_err": grad_err,
+            "param_abs_err": param_err}
+
+
+def training_entries(worst: dict, cases: dict, launches: dict) -> list:
+    """The kernels-line entries of the training kernels: the headline
+    numbers at the main path's shape (S=512, bf16, dropout 0.1)."""
+    out = []
+    for name in TRAIN_REPLACES:
+        head = next(c for c in cases[name] if c["seq"] == TRAIN_SEQ
+                    and c["dtype"] == "bfloat16")
+        out.append({"name": name, "route": "cuda",
+                    "source": TRAIN_SOURCES[name],
+                    "replaces": TRAIN_REPLACES[name],
+                    "launches": launches[name], "max_abs_err": worst[name],
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"],
+                    "library": ("sdpa forward" if name == "flash_attention_fwd"
+                                else "sdpa forward+backward"),
+                    "cases": cases[name]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -373,6 +776,7 @@ def main() -> int:
         return 2
     from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.ops.kernels.attention import (
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
         flash_attention_infer)
 
     # fp32 matmuls in full fp32 for every comparison below (TF32 keeps
@@ -386,8 +790,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build()
     log(f"[build] {built} in {time.perf_counter() - t0:.2f}s")
-    kernels = {"flash_attention_infer": flash_attention_infer}
-    entries = {"flash_attention_infer": check_and_time_attention()}
+    kernels = {"flash_attention_infer": flash_attention_infer,
+               "flash_attention_fwd": flash_attention_fwd,
+               "flash_attention_dq": flash_attention_dq,
+               "flash_attention_dkv": flash_attention_dkv}
+    infer_entry = check_and_time_attention()
+    worst = check_training_kernels()
+    cases = time_training_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
             write_trace_vocab)
@@ -398,10 +807,19 @@ def main() -> int:
             f"{served['p50_ms']:.1f} ms, max {served['max_ms']:.1f} ms on "
             f"{card}")
         engine_err = check_flash_vs_dense(vocab)
-    for name, entry in entries.items():
-        entry["launches"] = served["launches"][name]
-    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err))}")
-    print(json.dumps({"kernels": list(entries.values())}))
+    torch.cuda.empty_cache()
+    trained = drive_training(kernels)
+    log(f"[train] BERT-large phase 2 (S=512, max_pred 80, bf16, remat dots, "
+        f"LAMB), local batch {TRAIN_LOCAL_BATCH} x {TRAIN_ACCUM}: "
+        f"{trained['step_ms']:.1f} ms/step, {trained['seq_per_s']:.2f} "
+        f"seq/s, first step {trained['first_step_ms']:.1f} ms, peak "
+        f"{trained['peak_gib']:.1f} GiB on {card}")
+    train_check = check_training_flash_vs_dense()
+    infer_entry["launches"] = served["launches"]["flash_attention_infer"]
+    entries = [infer_entry] + training_entries(worst, cases,
+                                               trained["launches"])
+    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, training=trained, training_flash_vs_dense=train_check))}")
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device,

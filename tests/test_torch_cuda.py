@@ -1,13 +1,15 @@
-"""The port's hand-written CUDA kernel on the card, held against its plain
-PyTorch version. Every test here is ``cuda``-marked and skips where no
+"""The port's hand-written CUDA kernels on the card, held against their
+plain PyTorch versions. Every test here is ``cuda``-marked and skips where no
 CUDA card exists (the kernel has no CPU mode). This file imports no JAX,
 so it runs on a machine without it; run it there with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU and imports
-it). Tolerances: fp32 2e-5 (summation order), bf16 2e-2 (P rounded to
-bf16 before PV at each tile's running maximum).
+it). Tolerances: the inference kernel fp32 2e-5 (summation order), bf16
+2e-2 (P rounded to bf16 before PV at each tile's running maximum); the
+training kernels per output as (atol, rtol) in TRAIN_TOL, the bars of
+chip_smoke.py (lse carries rtol for the packed pad rows near -10000).
 """
 
 import json
@@ -105,3 +107,98 @@ def test_engine_flash_matches_dense_on_card(tmp_path):
     assert [s["id"] for s in flash] == [s["id"] for s in dense]
     np.testing.assert_allclose([s["score"] for s in flash],
                                [s["score"] for s in dense], atol=1e-5)
+
+
+TRAIN_TOL = {
+    "float32": {"out": (2e-5, 1e-5), "lse": (2e-5, 1e-6), "dq": (1e-4, 1e-4),
+                "delta": (1e-4, 1e-5), "dk": (1e-4, 1e-4),
+                "dv": (1e-4, 1e-4), "dbias": (1e-4, 1e-4)},
+    "bfloat16": {"out": (2e-2, 2e-2), "lse": (2e-5, 1e-6),
+                 "dq": (2e-2, 2e-2), "delta": (2e-3, 1e-3),
+                 "dk": (2e-2, 2e-2), "dv": (2e-2, 2e-2),
+                 "dbias": (2e-3, 2e-2)},
+}
+
+
+def _close(got, ref, tol):
+    atol, rtol = tol
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= atol + rtol * ref.abs()).all(), (
+        (got - ref).abs().max().item())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("depth", [24, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_kernels_match_plain_versions(dtype, depth, rate):
+    """Forward, dq and dkv at a ragged S, padded and packed, with and
+    without dropout; each kernel is fed the same inputs as its plain
+    version and counts one launch."""
+    _need_card()
+    tol = TRAIN_TOL[dtype]
+    q, k, v, mask, sids = _inputs(getattr(torch, dtype), 3, 100, 4, depth, 9)
+    do = torch.randn_like(q.float()).to(q.dtype)
+    for kb, seg in ((kattn._infer_bias_seg(make_attention_bias(mask), None,
+                                           3, 100)[0], None),
+                    (None, sids.to(torch.int32))):
+        args = (kb, seg, 12345, rate)
+        counts = [f.launches for f in kattn.TRAINING_KERNELS]
+        out, lse = kattn.flash_attention_fwd(q, k, v, *args)
+        ref_out, ref_lse = kattn._forward_math(q, k, v, *args)
+        dq, delta = kattn.flash_attention_dq(q, k, v, ref_out, do, ref_lse,
+                                             *args)
+        ref_dq, ref_delta = kattn._dq_math(q, k, v, ref_out, do, ref_lse,
+                                           *args)
+        dk, dv, dbias = kattn.flash_attention_dkv(q, k, v, do, ref_lse,
+                                                  ref_delta, *args)
+        ref_dk, ref_dv, ref_db = kattn._dkv_math(q, k, v, do, ref_lse,
+                                                 ref_delta, *args)
+        torch.cuda.synchronize()
+        assert [f.launches for f in kattn.TRAINING_KERNELS] == [
+            c + 1 for c in counts]
+        for name, got, ref in (("out", out, ref_out), ("lse", lse, ref_lse),
+                               ("dq", dq, ref_dq), ("delta", delta, ref_delta),
+                               ("dk", dk, ref_dk), ("dv", dv, ref_dv),
+                               ("dbias", dbias, ref_db)):
+            _close(got, ref, tol[name])
+
+
+def test_flash_attention_autograd_on_card():
+    """The autograd Function on CUDA tensors (three kernel launches) gives
+    the differentiable reference's output and grads, with dropout."""
+    _need_card()
+    q, k, v, mask, _ = _inputs(torch.float32, 2, 130, 4, 64, 3)
+    bias = make_attention_bias(mask).requires_grad_()
+    leaves = [t.requires_grad_() for t in (q, k, v)] + [bias]
+    results = []
+    for fn in (kattn.flash_attention, kattn.flash_attention_reference):
+        out = fn(q, k, v, bias=bias, dropout_rate=0.1, seed=77)
+        results.append((out, torch.autograd.grad(out.square().sum(), leaves)))
+    (out, grads), (ref, ref_grads) = results
+    _close(out, ref, (2e-5, 1e-5))
+    for got, want in zip(grads, ref_grads):
+        _close(got, want, (2e-4, 1e-4))
+
+
+def test_training_wrappers_raise_on_what_the_kernels_do_not_take():
+    _need_card()
+    q, k, v, _, _ = _inputs(torch.float32, 2, 16, 2, 64, 1)
+    with pytest.raises(TypeError, match="not supported"):
+        kattn.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kattn.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2))
+    with pytest.raises(ValueError, match="must match"):
+        kattn.flash_attention_dq(q, k, v, q, q.cpu(), q[:, :, 0, 0].clone())
+    with pytest.raises(ValueError, match="seed"):
+        kattn.flash_attention_fwd(q, k, v, seed=-1, rate=0.1)
+    _, lse = kattn.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse must be"):
+        kattn.flash_attention_dq(q, k, v, q, q, lse[:1])
+    with pytest.raises(ValueError, match="bias must be"):
+        kattn.flash_attention_fwd(q, k, v, torch.zeros(2, 16, device="cuda",
+                                                       dtype=torch.float64))
+    with pytest.raises(ValueError, match="sequence_ids must be"):
+        kattn.flash_attention_fwd(q, k, v, None, torch.ones(
+            2, 16, device="cuda", dtype=torch.int64))
