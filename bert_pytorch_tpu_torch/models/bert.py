@@ -9,6 +9,13 @@ dtype semantics follow the JAX package's flax modules:
     serving), casting their fp32 parameters to it;
   - LayerNorm statistics and the attention softmax run in fp32.
 
+Serving heads take ``quant`` (None | ``"bf16"`` | ``"int8"``, the JAX
+package's inference weight formats, ops/quant.py) for every Dense they
+share with training, through :func:`make_dense`: None keeps the fp32
+``Dense``, ``"bf16"`` stores its weight and bias in bf16, ``"int8"``
+swaps in ``Int8Dense``; the output classifier takes ``quant.exclude``
+(bf16 under int8). Embeddings, LayerNorm and the MLM vocab bias stay fp32.
+
 For serving (a forward under ``no_grad``/``inference_mode``), each
 Dense/Embed keeps one cached copy of its parameters in the compute dtype
 (rebuilt whenever the fp32 parameter changes), so a bf16 forward does not
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from bert_pytorch_tpu_torch.config import BertConfig
+from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.ops.activations import ACT2FN
 from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
                                                   make_attention_bias,
@@ -81,23 +89,38 @@ class _CastCache:
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense``/``DenseGeneral`` counterpart: an fp32 weight in
-    torch's [out, in] layout and an fp32 bias, computed in ``dtype``. A
-    DenseGeneral over (heads, head_dim) is this layer with the two axes
-    flattened, which is what the caller reshapes to and from."""
+    """``flax.linen.Dense``/``DenseGeneral`` counterpart: a weight in
+    torch's [out, in] layout and a bias, stored in ``param_dtype`` (fp32,
+    or bf16 for ``quant="bf16"``) and computed in ``dtype``. A DenseGeneral
+    over (heads, head_dim) is this layer with the two axes flattened, which
+    is what the caller reshapes to and from."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features, dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype,
+                                             device=device))
         self.dtype = dtype
         self._cast = _CastCache()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self._cast.get((self.weight, self.bias), self.dtype)
         return F.linear(x.to(self.dtype), weight, bias)
+
+
+def make_dense(quant: Optional[str], in_features: int, out_features: int,
+               dtype: torch.dtype, device=None) -> nn.Module:
+    """The Dense of one serving-head call site (JAX ``quant.make_dense``):
+    ``None`` the fp32 :class:`Dense` training uses, ``"bf16"`` the same
+    module with bf16 storage, ``"int8"`` an ``Int8Dense``."""
+    quant_ops.check_mode(quant)
+    if quant == "int8":
+        return quant_ops.Int8Dense(in_features, out_features, dtype, device)
+    return Dense(in_features, out_features, dtype, device,
+                 torch.bfloat16 if quant == "bf16" else torch.float32)
 
 
 class Embed(nn.Module):
@@ -140,9 +163,11 @@ class LinearActivation(nn.Module):
     Dense already added the bias, so the plain activation follows."""
 
     def __init__(self, in_features: int, out_features: int, act: str,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
-        self.dense = Dense(in_features, out_features, dtype, device)
+        self.dense = make_dense(quant, in_features, out_features, dtype,
+                                device)
         self.act = act[5:] if act.startswith("bias_") else act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -202,15 +227,16 @@ class BertSelfAttention(nn.Module):
     :func:`~bert_pytorch_tpu_torch.ops.attention.dot_product_attention`."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
-                 attention_backend: str, device=None):
+                 attention_backend: str, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
         cfg = config
         self.heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
         width = self.heads * self.head_dim
-        self.query = Dense(cfg.hidden_size, width, dtype, device)
-        self.key = Dense(cfg.hidden_size, width, dtype, device)
-        self.value = Dense(cfg.hidden_size, width, dtype, device)
-        self.output = Dense(width, cfg.hidden_size, dtype, device)
+        self.query = make_dense(quant, cfg.hidden_size, width, dtype, device)
+        self.key = make_dense(quant, cfg.hidden_size, width, dtype, device)
+        self.value = make_dense(quant, cfg.hidden_size, width, dtype, device)
+        self.output = make_dense(quant, width, cfg.hidden_size, dtype, device)
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
                                            cfg.layer_norm_eps, device)
         self.attention_backend = attention_backend
@@ -244,16 +270,17 @@ class BertLayer(nn.Module):
     modeling.py:482-493."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
-                 attention_backend: str, device=None):
+                 attention_backend: str, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
         cfg = config
         self.attention = BertSelfAttention(cfg, dtype, attention_backend,
-                                           device)
+                                           device, quant)
         self.intermediate = LinearActivation(
             cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, dtype,
-            device)
-        self.output = Dense(cfg.intermediate_size, cfg.hidden_size, dtype,
-                            device)
+            device, quant)
+        self.output = make_dense(quant, cfg.intermediate_size,
+                                 cfg.hidden_size, dtype, device)
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
                                            cfg.layer_norm_eps, device)
         self.hidden_dropout = cfg.hidden_dropout_prob
@@ -284,14 +311,15 @@ class BertEncoder(nn.Module):
     ``"full"`` (the JAX encoder's ``nn.remat`` policies)."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
-                 attention_backend: str, device=None, remat: str = "none"):
+                 attention_backend: str, device=None, remat: str = "none",
+                 quant: Optional[str] = None):
         super().__init__()
         if remat not in REMAT_POLICIES:
             raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{remat!r}")
         self.remat = remat
         self.layers = nn.ModuleList(
-            BertLayer(config, dtype, attention_backend, device)
+            BertLayer(config, dtype, attention_backend, device, quant)
             for _ in range(config.num_hidden_layers))
 
     def forward(self, hidden, bias, sequence_ids=None, dropout_seeds=None):
@@ -315,19 +343,17 @@ class BertPooler(nn.Module):
     For packed rows, ``positions`` [B, K] gathers each packed sequence's
     own [CLS] offset and returns [B, K, hidden]."""
 
-    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None):
+    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
         self.dense_act = LinearActivation(
-            config.hidden_size, config.hidden_size, "tanh", dtype, device)
+            config.hidden_size, config.hidden_size, "tanh", dtype, device,
+            quant)
 
     def forward(self, sequence_output: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if positions is None:
-            cls = sequence_output[:, 0]
-        else:
-            rows = torch.arange(sequence_output.shape[0],
-                                device=sequence_output.device)[:, None]
-            cls = sequence_output[rows, positions.long()]
+        cls = (sequence_output[:, 0] if positions is None
+               else gather_rows(sequence_output, positions))
         return self.dense_act(cls)
 
 
@@ -337,15 +363,15 @@ class BertModel(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str = "dense", device=None,
-                 remat: str = "none"):
+                 remat: str = "none", quant: Optional[str] = None):
         super().__init__()
         self.config = config
         self.attention_backend = attention_backend
         self.embeddings = BertEmbeddings(config, dtype, device)
         self.encoder = BertEncoder(config, dtype, attention_backend, device,
-                                   remat)
+                                   remat, quant)
         if config.next_sentence:
-            self.pooler = BertPooler(config, dtype, device)
+            self.pooler = BertPooler(config, dtype, device, quant)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 sequence_ids=None, cls_positions=None, dropout_seeds=None):
@@ -356,7 +382,7 @@ class BertModel(nn.Module):
         on."""
         backend = resolve_backend(self.attention_backend,
                                   input_ids.shape[-1], input_ids.device)
-        if sequence_ids is not None and backend in ("flash_infer", "flash"):
+        if sequence_ids is not None and backend != "dense":
             # The fused kernels rebuild the block-diagonal mask from the
             # ids, so the [B, 1, S, S] bias is never built.
             bias = None
@@ -385,11 +411,12 @@ class BertModel(nn.Module):
 class BertPredictionHeadTransform(nn.Module):
     """dense → act → LayerNorm; parity with modeling.py:551-561."""
 
-    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None):
+    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
         self.dense_act = LinearActivation(
             config.hidden_size, config.hidden_size, config.hidden_act, dtype,
-            device)
+            device, quant)
         self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_eps,
                                     device)
 
@@ -401,9 +428,11 @@ class BertLMPredictionHead(nn.Module):
     """MLM head whose decoder weight IS the word-embedding table plus a
     free bias; parity with modeling.py:563-599."""
 
-    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None):
+    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
-        self.transform = BertPredictionHeadTransform(config, dtype, device)
+        self.transform = BertPredictionHeadTransform(config, dtype, device,
+                                                     quant)
         self.bias = nn.Parameter(torch.zeros(config.vocab_size, device=device))
         self.dtype = dtype
         self._cast = _CastCache()
@@ -445,14 +474,20 @@ class BertForPreTraining(nn.Module):
             input_ids, token_type_ids, attention_mask, sequence_ids,
             cls_positions, dropout_seeds)
         if masked_positions is not None:
-            rows = torch.arange(sequence_output.shape[0],
-                                device=sequence_output.device)[:, None]
-            sequence_output = sequence_output[rows, masked_positions.long()]
+            sequence_output = gather_rows(sequence_output, masked_positions)
         prediction_logits = self.predictions(
             sequence_output, self.bert.embeddings.word_embeddings)
         seq_logits = (self.seq_relationship(pooled)
                       if self.config.next_sentence else None)
         return prediction_logits, seq_logits
+
+
+def gather_rows(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """[B, P, ...] rows of ``x`` [B, S, ...] at ``positions`` [B, P] (the
+    JAX model's one-hot matmul gather, as an index gather: the same
+    values)."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, positions.long()]
 
 
 def _sub_seed(seed: int, site: int) -> int:
@@ -474,15 +509,22 @@ class BertForMaskedLM(nn.Module):
     the packed-row path (block-diagonal attention, position restart)."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
-                 attention_backend: str = "dense", device=None):
+                 attention_backend: str = "dense", device=None,
+                 quant: Optional[str] = None):
         super().__init__()
-        self.bert = BertModel(config, dtype, attention_backend, device)
-        self.predictions = BertLMPredictionHead(config, dtype, device)
+        self.bert = BertModel(config, dtype, attention_backend, device,
+                              quant=quant)
+        self.predictions = BertLMPredictionHead(config, dtype, device, quant)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                sequence_ids=None):
+                sequence_ids=None, output_positions=None):
+        """``output_positions`` [B, P] selects the fused-epilogue path: the
+        hidden rows at those positions are gathered BEFORE the vocab
+        projection, so the head returns [B, P, V] instead of [B, S, V]."""
         sequence_output, _ = self.bert(input_ids, token_type_ids,
                                        attention_mask, sequence_ids)
+        if output_positions is not None:
+            sequence_output = gather_rows(sequence_output, output_positions)
         return self.predictions(sequence_output,
                                 self.bert.embeddings.word_embeddings)
 
@@ -492,9 +534,12 @@ class _ClassifierHead(nn.Module):
     no-op in inference)."""
 
     def __init__(self, hidden_size: int, num_labels: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
-        self.classifier = Dense(hidden_size, num_labels, dtype, device)
+        # An output layer (quant.EXCLUDE_MODULES): bf16, never int8.
+        self.classifier = make_dense(quant_ops.exclude(quant), hidden_size,
+                                     num_labels, dtype, device)
 
     def forward(self, x):
         return self.classifier(x)
@@ -507,14 +552,16 @@ class BertForSequenceClassification(nn.Module):
 
     def __init__(self, config: BertConfig, num_labels: int,
                  dtype: torch.dtype = torch.float32,
-                 attention_backend: str = "dense", device=None):
+                 attention_backend: str = "dense", device=None,
+                 quant: Optional[str] = None):
         super().__init__()
         if not config.next_sentence:
             raise ValueError("BertForSequenceClassification needs the "
                              "pooler (config.next_sentence)")
-        self.bert = BertModel(config, dtype, attention_backend, device)
+        self.bert = BertModel(config, dtype, attention_backend, device,
+                              quant=quant)
         self.head = _ClassifierHead(config.hidden_size, num_labels, dtype,
-                                    device)
+                                    device, quant)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 sequence_ids=None, cls_positions=None):

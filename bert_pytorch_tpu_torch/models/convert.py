@@ -15,6 +15,12 @@ is name for name, with three layout changes:
   biases flatten too;
 * ``embedding`` tables become ``weight``.
 
+A tree that the JAX package's ``quant.quantize_params`` produced maps the
+same way onto a head built with ``quant=``: ``kernel_q`` (int8) becomes
+``weight_q``, ``kernel_scale`` ``weight_scale``, and bf16 kernels and
+biases stay bf16. :func:`quantize_state_dict` applies the same rules
+(JAX ``quant.convert_module``) to the port's own fp32 state dict.
+
 The JAX package's ``models/convert.py`` ``export_torch_state_dict`` shows
 the same layout under HF naming.
 """
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.config import BertConfig
+from bert_pytorch_tpu_torch.ops import quant as quant_ops
 
 # Top-level subtrees each served head's params must carry.
 HEAD_SUBTREES = {
@@ -48,16 +55,22 @@ def _flatten(tree, prefix=""):
     return out
 
 
+# Kernel leaf names (plain, int8) and the torch names they take.
+_KERNELS = {"kernel": "weight", "kernel_q": "weight_q"}
+
+
 def _leaf(path: str, value: np.ndarray):
     """(torch key suffix, torch-layout array) for one unstacked leaf."""
     module, _, name = path.rpartition("/")
-    if name == "kernel":
+    if name in _KERNELS:
         if value.ndim == 3:
             # DenseGeneral: (H, heads, hd) in, or (heads, hd, H) out.
             value = (value.reshape(-1, value.shape[-1])
                      if module.endswith("attention/output")
                      else value.reshape(value.shape[0], -1))
-        return f"{module}/weight", np.ascontiguousarray(value.T)
+        return f"{module}/{_KERNELS[name]}", np.ascontiguousarray(value.T)
+    if name == "kernel_scale":
+        return f"{module}/weight_scale", value
     if name == "embedding":
         return f"{module}/weight", value
     if name == "bias" and value.ndim == 2:
@@ -71,8 +84,10 @@ def from_jax_params(params: dict, config: BertConfig,
     ``"classify"``: ``BertForSequenceClassification``; ``"pretraining"``:
     ``BertForPreTraining``, whose ``predictions`` head keeps its decoder
     tied to the word embeddings and, with ``config.next_sentence``, whose
-    ``seq_relationship`` Dense maps like any other) as a fp32 state dict
-    for the port's model of the same head."""
+    ``seq_relationship`` Dense maps like any other) as a state dict for
+    the port's model of the same head: fp32 for fp32 params; for a tree
+    from JAX ``quantize_params``, int8 and bf16 leaves keep their type (the
+    head built with the same ``quant`` loads it)."""
     if head not in HEAD_SUBTREES:
         raise ValueError(f"unknown head {head!r}; known: {sorted(HEAD_SUBTREES)}")
     required = HEAD_SUBTREES[head]
@@ -85,8 +100,7 @@ def from_jax_params(params: dict, config: BertConfig,
     state: Dict[str, torch.Tensor] = {}
 
     def put(path, value):
-        key = path.replace("/", ".")
-        state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        state[path.replace("/", ".")] = _to_torch(value)
 
     for path, value in _flatten(params).items():
         if path.startswith(_STACKED):
@@ -100,3 +114,48 @@ def from_jax_params(params: dict, config: BertConfig,
         else:
             put(*_leaf(path, value))
     return state
+
+
+def _to_torch(value) -> torch.Tensor:
+    """int8 stays int8, bf16 (numpy's ``bfloat16`` extension type, as the
+    JAX quantizer stores it) becomes torch bf16, the rest fp32."""
+    value = np.asarray(value)
+    if value.dtype == np.int8:
+        return torch.from_numpy(np.array(value))
+    if value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def quantize_state_dict(state: Dict[str, torch.Tensor],
+                        mode: str) -> Dict[str, torch.Tensor]:
+    """A serving head's fp32 state dict in the layout of the same head
+    built with ``quant=mode`` (JAX ``quant.convert_module``'s rules).
+
+    Only Dense modules convert (a 2-D ``weight`` with a sibling ``bias``);
+    embeddings, LayerNorm and the MLM vocab bias pass through fp32. int8:
+    ``weight_q`` (int8) and ``weight_scale`` (0-dim fp32) from the
+    host-side :func:`~bert_pytorch_tpu_torch.ops.quant.quantize_array`,
+    bias bf16. bf16, and the output layers of ``EXCLUDE_MODULES`` under
+    int8: weight and bias bf16. The JAX encoder quantizes its stacked
+    kernels with one scale per layer; each of the port's layers is its own
+    module with its own per-tensor scale, the same number."""
+    quant_ops.check_mode(mode)
+    out = dict(state)
+    for key, weight in state.items():
+        module, _, name = key.rpartition(".")
+        bias_key = f"{module}.bias"
+        if name != "weight" or weight.dim() != 2 or bias_key not in state:
+            continue
+        excluded = any(part in quant_ops.EXCLUDE_MODULES
+                       for part in module.split("."))
+        if mode == "int8" and not excluded:
+            q, scale = quant_ops.quantize_array(
+                weight.detach().float().cpu().numpy())
+            del out[key]
+            out[f"{module}.weight_q"] = torch.from_numpy(q)
+            out[f"{module}.weight_scale"] = torch.from_numpy(scale)
+        else:
+            out[key] = weight.detach().to(torch.bfloat16)
+        out[bias_key] = state[bias_key].detach().to(torch.bfloat16)
+    return out

@@ -11,6 +11,9 @@ Backends (``backend=``):
 * ``"flash_infer"`` — the counterpart of ``"pallas_infer"``: the
   forward-only fused kernel (ops/kernels/attention.py), a hand-written CUDA
   kernel on the card and its plain version on the CPU;
+* ``"flash_infer_int8"`` — the counterpart of ``"pallas_infer_int8"``:
+  the same forward-only contract with int8 QK^T (q and k quantized per
+  (batch, head); ops/kernels/attention.py ``flash_attention_infer_int8``);
 * ``"flash"`` — the counterpart of ``"pallas"``: the training kernels with
   a gradient and in-kernel attention dropout (ops/kernels/attention.py
   ``flash_attention``);
@@ -31,9 +34,12 @@ import torch
 
 from bert_pytorch_tpu_torch.ops.dropout import dropout
 from bert_pytorch_tpu_torch.ops.kernels.attention import (
-    flash_attention, flash_attention_infer)
+    flash_attention, flash_attention_infer, flash_attention_infer_int8)
 
-BACKENDS = ("dense", "flash_infer", "flash", "auto")
+BACKENDS = ("dense", "flash_infer", "flash_infer_int8", "flash", "auto")
+# The forward-only serving kernels: no dropout, packed rows drop the bias.
+INFER_BACKENDS = {"flash_infer": flash_attention_infer,
+                  "flash_infer_int8": flash_attention_infer_int8}
 AUTO_FLASH_MIN_SEQ = 256
 
 
@@ -94,21 +100,21 @@ def dot_product_attention(
     """
     backend = resolve_backend(backend, q.shape[1], q.device)
     active = not deterministic and dropout_rate > 0.0
-    if active and backend != "flash_infer" and dropout_seed is None:
+    if active and backend not in INFER_BACKENDS and dropout_seed is None:
         raise ValueError("attention dropout needs dropout_seed")
     if backend == "flash":
         kbias = None if sequence_ids is not None else bias
         return flash_attention(
             q, k, v, bias=kbias, dropout_rate=dropout_rate if active else 0.0,
             seed=dropout_seed if active else None, sequence_ids=sequence_ids)
-    if backend == "flash_infer":
-        if not deterministic and dropout_rate > 0.0:
+    if backend in INFER_BACKENDS:
+        if active:
             raise ValueError(
-                "backend='flash_infer' is forward-only; training dropout "
-                "needs backend='dense'")
+                f"backend={backend!r} is forward-only; training dropout "
+                "needs backend='flash' or 'dense'")
         kbias = None if sequence_ids is not None else bias
-        return flash_attention_infer(q, k, v, bias=kbias,
-                                     sequence_ids=sequence_ids)
+        return INFER_BACKENDS[backend](q, k, v, bias=kbias,
+                                       sequence_ids=sequence_ids)
     # The dense path scales q in q's dtype BEFORE QK^T, as the JAX
     # package's XLA path does (ops/attention.py:180-192).
     depth = q.shape[-1]

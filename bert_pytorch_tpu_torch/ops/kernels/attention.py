@@ -12,6 +12,21 @@ Serving (forward only), the port of ``flash_attention_infer``
   the same function: the CPU tests hold it against the JAX kernel, and the
   chip smoke holds the CUDA kernel against it.
 
+Serving with int8 scores, the port of ``flash_attention_infer_int8``
+(``_infer_fwd_kernel_int8`` + ``_infer_stream``):
+
+* :func:`flash_attention_infer_int8` — the wrapper: quantizes q and k to
+  int8 with one symmetric scale per (batch, head) (:func:`quantize_qk`,
+  plain tensor ops outside the kernel, as the JAX wrapper does), then
+  :func:`flash_attention_infer_int8_prequantized` launches
+  csrc/flash_attention_infer_int8.cu on a CUDA tensor (or raises) and
+  takes the plain version on a CPU tensor. The kernel shares its online
+  softmax and PV stream with the fp kernel (csrc/flash_infer_stream.cuh).
+* :func:`flash_attention_infer_int8_reference` — its plain version: the
+  exact int32 scores (products summed in float64), rescaled by
+  ``(q_scale * k_scale) * (1/sqrt(D))`` in fp32, then the fp kernel's
+  softmax and PV.
+
 Training, the port of ``flash_attention`` (``_flash_fwd_kernel``,
 ``_flash_dq_kernel``, ``_flash_dkv_kernel``):
 
@@ -50,10 +65,12 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from bert_pytorch_tpu_torch.ops import quant
 from bert_pytorch_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = "flash_attention_infer"
+_INT8 = "flash_attention_infer_int8"
 _MASK32 = 0xFFFFFFFF
 _PTR, _INT, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float)
@@ -97,6 +114,12 @@ def _scores(q, k, key_bias, seg):
     acc = _acc_dtype(q)
     scale = 1.0 / float(q.shape[-1]) ** 0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    return _masked(s, key_bias, seg)
+
+
+def _masked(s, key_bias, seg):
+    """Scaled [B, H, S, S] scores plus the key bias and the packed mask."""
+    acc = s.dtype
     if key_bias is not None:
         s = s + key_bias.to(acc)[:, None, None, :]
     if seg is not None:
@@ -118,6 +141,9 @@ def flash_attention_infer_reference(q, k, v, bias=None, sequence_ids=None):
 _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     "flash_attention_infer": {
         "flash_attention_infer": [_PTR] * 6 + [_INT] * 5 + [_F32, _PTR],
+    },
+    "flash_attention_infer_int8": {
+        "flash_attention_infer_int8": [_PTR] * 8 + [_INT] * 5 + [_F32, _PTR],
     },
     "flash_attention_fwd": {
         "flash_attention_fwd": ([_PTR] * 7 + [_INT] * 5 + [_F32, _INT]
@@ -157,22 +183,24 @@ def _raise_on(rc: int, lib: ctypes.CDLL, lib_name: str, name: str) -> None:
 
 
 def _check(name: str, q: torch.Tensor, same: Dict[str, torch.Tensor],
-           key_bias, seg, stats: Optional[Dict[str, torch.Tensor]] = None
-           ) -> None:
+           key_bias, seg, stats: Optional[Dict[str, torch.Tensor]] = None,
+           q_label: str = "q") -> None:
     """Raise on what the kernels do not take: q [B, S, H, D] contiguous
     float32/bfloat16 with head_dim a multiple of 8 up to 128; ``same``
     tensors of q's shape, dtype and device; the key bias [B, S] fp32 and
     the ids [B, S] int32; ``stats`` (lse, delta) [B*H, S] fp32 — each
-    contiguous and on q's device, since the kernels read them by pointer."""
+    contiguous and on q's device, since the kernels read them by pointer.
+    ``q_label`` names q in the messages."""
     if q.dim() != 4:
-        raise ValueError(f"{name}: q must be [B, S, H, D], got {tuple(q.shape)}")
+        raise ValueError(f"{name}: {q_label} must be [B, S, H, D], got "
+                         f"{tuple(q.shape)}")
     for label, t in same.items():
         if t.shape != q.shape:
             raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != "
-                             f"q shape {tuple(q.shape)}")
+                             f"{q_label} shape {tuple(q.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name}: {label} must match q's dtype and "
-                             f"device ({q.dtype}, {q.device})")
+            raise ValueError(f"{name}: {label} must match {q_label}'s dtype "
+                             f"and device ({q.dtype}, {q.device})")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         "(float32, bfloat16)")
@@ -191,7 +219,7 @@ def _check(name: str, q: torch.Tensor, same: Dict[str, torch.Tensor],
                              f"got {list(t.shape)} {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name}: {label} must be on {q.device}")
-    for label, t in (("q", q), *same.items(),
+    for label, t in ((q_label, q), *same.items(),
                      *((label, t) for label, t, _, _ in expected)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
@@ -239,6 +267,119 @@ def flash_attention_infer(q, k, v, bias=None, sequence_ids=None):
 
 
 flash_attention_infer.launches = 0
+
+
+# -- serving with int8 scores ------------------------------------------------
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor):
+    """(q8, q_scale, k8, k_scale): [B, S, H, D] q and k quantized to int8
+    with one symmetric fp32 scale per (batch, head) over (S, D), the
+    scales as contiguous [B, H] arrays. The JAX wrapper's
+    ``quantize_symmetric(x3, axes=(1, 2))`` on the [B*H, S, D] layout: the
+    same elements per scale, so the same ints and scales. The scale spans
+    every position of the row (padding and, in packed rows, every packed
+    request), as in the JAX package."""
+    batch, _, heads, _ = q.shape
+    q8, q_scale = quant.quantize_symmetric(q, (1, 3))
+    k8, k_scale = quant.quantize_symmetric(k, (1, 3))
+    return (q8, q_scale.reshape(batch, heads).contiguous(),
+            k8, k_scale.reshape(batch, heads).contiguous())
+
+
+def _int8_forward_math(q8, k8, q_scale, k_scale, v, key_bias, seg):
+    """The int8 kernel's function on pre-quantized inputs: exact int32
+    scores (int8 products summed in float64: every sum is an integer below
+    2**24, so the fp32 value is exact), times ``(q_scale * k_scale) *
+    (1/sqrt(D))`` in fp32, plus the key bias and packed mask, then the fp
+    kernel's softmax and PV; out in v's dtype."""
+    scale = 1.0 / float(q8.shape[-1]) ** 0.5
+    s32 = torch.einsum("bqhd,bkhd->bhqk", q8.double(), k8.double()).float()
+    rescale = (q_scale.float() * k_scale.float()) * scale
+    s = _masked(s32 * rescale[:, :, None, None], key_bias, seg)
+    out, _ = _softmax_pv(s, v, None, 0.0)
+    return out.to(v.dtype).contiguous()
+
+
+def _check_int8(name, q8, k8, q_scale, k_scale, v, key_bias, seg) -> None:
+    """Raise on what the int8 kernel does not take: q8 and k8 int8 of v's
+    shape, 4-byte aligned (the kernel reads them as 32-bit words); scales
+    [B, H] fp32; v [B, S, H, D] float32/bfloat16 with head_dim a multiple
+    of 8 up to 128; the key bias and ids as for the fp kernel. All
+    contiguous and on v's device."""
+    _check(name, v, {}, key_bias, seg, q_label="v")
+    batch, _, heads, _ = v.shape
+    for label, t in (("q8", q8), ("k8", k8)):
+        if t.shape != v.shape or t.dtype != torch.int8:
+            raise ValueError(f"{name}: {label} must be int8 of v's shape "
+                             f"{tuple(v.shape)}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+        if t.device != v.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous on "
+                             f"{v.device}")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: {label} must be 4-byte aligned")
+    for label, t in (("q_scale", q_scale), ("k_scale", k_scale)):
+        if tuple(t.shape) != (batch, heads) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {label} must be [{batch}, {heads}] "
+                             f"float32, got {list(t.shape)} {t.dtype}")
+        if t.device != v.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous on "
+                             f"{v.device}")
+
+
+def flash_attention_infer_int8_prequantized(q8, k8, q_scale, k_scale, v,
+                                            key_bias=None, seg=None):
+    """The int8-score kernel on pre-quantized inputs (:func:`quantize_qk`):
+    q8, k8 [B, S, H, D] int8, q_scale, k_scale [B, H] fp32, v [B, S, H, D],
+    the [B, S] fp32 key bias or [B, S] int32 ids (each optional); returns
+    [B, S, H, D] in v's dtype. A CUDA tensor launches
+    csrc/flash_attention_infer_int8.cu on the current stream, counting the
+    launch in ``flash_attention_infer_int8.launches``, or raises; a CPU
+    tensor takes the plain version and counts nothing."""
+    if _device_of(_INT8, v) == "cpu":
+        return _int8_forward_math(q8, k8, q_scale, k_scale, v, key_bias, seg)
+    _check_int8(_INT8, q8, k8, q_scale, k_scale, v, key_bias, seg)
+    batch, seq, heads, depth = v.shape
+    out = torch.empty_like(v)
+    lib = _library(_INT8)
+    with torch.cuda.device(v.device):
+        rc = lib.flash_attention_infer_int8(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_scale.data_ptr(), k_scale.data_ptr(), _ptr(key_bias),
+            _ptr(seg), batch, seq, heads, depth, _DTYPE_CODES[v.dtype],
+            1.0 / float(depth) ** 0.5, _stream(v))
+    _raise_on(rc, lib, _INT8, _INT8)
+    flash_attention_infer_int8.launches += 1
+    return out
+
+
+def flash_attention_infer_int8(q, k, v, bias=None, sequence_ids=None):
+    """Forward-only fused attention with int8 QK^T over [B, S, H, D]
+    tensors; returns [B, S, H, D] in v's dtype. The contract of
+    :func:`flash_attention_infer` (``bias`` for padded batches,
+    ``sequence_ids`` for packed ones) with q and k quantized per (batch,
+    head) by :func:`quantize_qk` before the kernel. On a CUDA tensor this
+    launches the int8 kernel (counted in ``.launches``); on a CPU tensor it
+    returns the plain version."""
+    key_bias, seg = _infer_bias_seg(bias, sequence_ids, q.shape[0],
+                                    q.shape[1], _INT8)
+    q8, q_scale, k8, k_scale = quantize_qk(q, k)
+    return flash_attention_infer_int8_prequantized(
+        q8, k8, q_scale, k_scale, v, key_bias, seg)
+
+
+flash_attention_infer_int8.launches = 0
+
+
+def flash_attention_infer_int8_reference(q, k, v, bias=None,
+                                         sequence_ids=None):
+    """The plain PyTorch version of :func:`flash_attention_infer_int8`, on
+    any device: the same quantization, exact int32 scores, one full
+    softmax."""
+    key_bias, seg = _infer_bias_seg(bias, sequence_ids, q.shape[0],
+                                    q.shape[1], _INT8)
+    q8, q_scale, k8, k_scale = quantize_qk(q, k)
+    return _int8_forward_math(q8, k8, q_scale, k_scale, v, key_bias, seg)
 
 
 # -- training: dropout masks ---------------------------------------------
@@ -302,18 +443,27 @@ def _keep(q: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
 def _forward_math(q, k, v, key_bias, seg, seed, rate):
     """(out [B, S, H, D] in q's dtype, lse [B*H, S]): the forward kernel's
     function, differentiable through autograd."""
-    batch, seq, heads, _ = q.shape
-    acc = _acc_dtype(q)
     s = _scores(q, k, key_bias, seg)
+    keep = _keep(q, seed, rate) if rate > 0.0 else None
+    out, lse = _softmax_pv(s, v, keep, rate)
+    return out.to(q.dtype).contiguous(), lse
+
+
+def _softmax_pv(s, v, keep, rate):
+    """(out [B, S, H, D] in the scores' dtype, lse [B*H, S]) from masked
+    [B, H, S, S] scores: the softmax and PV shared by the forward kernels'
+    plain versions (the counterpart of the kernels' shared stream)."""
+    batch, heads, seq = s.shape[:3]
+    acc = s.dtype
     m = s.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)  # the undropped probabilities
     lse = (m + torch.log(l)).reshape(batch * heads, seq)
-    if rate > 0.0:
-        p = torch.where(_keep(q, seed, rate), p, 0.0)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
     pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
     out = pv / (l * (1.0 - rate))
-    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
+    return out.permute(0, 2, 1, 3), lse
 
 
 def _probs_and_da(q, k, v, do, lse, key_bias, seg, seed, rate):

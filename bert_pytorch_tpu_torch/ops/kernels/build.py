@@ -26,8 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 # One entry per kernel source (csrc/<name>.cu -> build/lib<name>-<hash>.so).
-KERNEL_SOURCES = ("flash_attention_infer", "flash_attention_fwd",
-                  "flash_attention_bwd")
+KERNEL_SOURCES = ("flash_attention_infer", "flash_attention_infer_int8",
+                  "flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,6 +5,10 @@
         --vocab_file vocab.txt --tasks fill_mask,classify \
         --buckets 128,512 --max_batch_size 8 --pack_requests --port 8000
 
+    # the fast path: int8 weights, int8-score attention, fused fill_mask
+    python -m bert_pytorch_tpu_torch.run_server ... --quantize int8 \
+        --attention_backend flash_infer_int8 --fuse_epilogues
+
     curl -s localhost:8000/v1/fill_mask -d '{"text": "paris is [MASK]"}'
     curl -s localhost:8000/healthz
     curl -s localhost:8000/statsz
@@ -37,6 +41,7 @@ EXIT_PREEMPTED = 75
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     from bert_pytorch_tpu_torch.serve.cli import (add_device_args,
+                                                  add_fast_path_args,
                                                   add_tracing_args)
 
     parser = argparse.ArgumentParser(description="BERT inference server "
@@ -56,6 +61,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "dispatches when its oldest request has "
                              "waited this long")
     add_device_args(parser)
+    add_fast_path_args(parser)
     add_tracing_args(parser)
     parser.add_argument("--pack_requests", action="store_true",
                         help="pack several short requests per row with "
@@ -113,6 +119,9 @@ def build_service(args: argparse.Namespace,
         dtype=DTYPES[args.dtype],
         attention_backend=args.attention_backend,
         device=args.device,
+        quantize=args.quantize,
+        fuse_epilogues=args.fuse_epilogues,
+        epilogue_slots=args.epilogue_slots,
     )
     batcher = Batcher(
         max_batch_size=args.max_batch_size,
@@ -132,11 +141,14 @@ def main(args: argparse.Namespace) -> int:
     service = build_service(args)
     engine = service.engine
     logger.info("warming %d task heads over buckets %s on %s (%s, "
-                "attention=%s, pack=%d)", len(engine.tasks), engine.buckets,
-                engine.device, args.dtype, engine.attention_backend,
-                engine.max_requests_per_pack)
+                "attention=%s, quantize=%s, fuse_epilogues=%s, pack=%d)",
+                len(engine.tasks), engine.buckets, engine.device, args.dtype,
+                engine.attention_backend, args.quantize,
+                engine.fuse_epilogues, engine.max_requests_per_pack)
     engine.warmup()
-    logger.info("warmup done in %ss", engine.startup["cold_start_s"])
+    logger.info("warmup done in %ss; weight bytes %d",
+                engine.startup["cold_start_s"],
+                engine.startup["weight_bytes"])
     service.start()
     server = make_server(service, host=args.host, port=args.port,
                          request_timeout_s=args.request_timeout_s)

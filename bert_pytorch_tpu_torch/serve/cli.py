@@ -1,6 +1,6 @@
 """Shared CLI surface of the serving entry point (the port of the JAX
-package's ``serve/cli.py``): the device, kernel and tracing flags, and the
-dispatch-mode names the service validates against.
+package's ``serve/cli.py``): the device, kernel, fast-path and tracing
+flags, and the dispatch-mode names the service validates against.
 """
 
 from __future__ import annotations
@@ -9,7 +9,8 @@ import argparse
 
 import torch
 
-ATTENTION_BACKENDS = ("flash_infer", "dense")
+ATTENTION_BACKENDS = ("flash_infer", "flash_infer_int8", "dense")
+QUANTIZE_CHOICES = ("none", "bf16", "int8")
 DISPATCH_MODES = ("pipelined", "serial")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -39,8 +40,33 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
         "--attention_backend", type=str, default="flash_infer",
         choices=ATTENTION_BACKENDS,
         help="encoder attention: flash_infer is the forward-only fused "
-             "CUDA kernel (its plain PyTorch version on the CPU); dense "
-             "materializes the [B, H, S, S] scores with plain tensor ops")
+             "CUDA kernel (its plain PyTorch version on the CPU), "
+             "flash_infer_int8 its int8-QK^T twin (per-head symmetric "
+             "scales); dense materializes the [B, H, S, S] scores with "
+             "plain tensor ops")
+
+
+def add_fast_path_args(parser: argparse.ArgumentParser) -> None:
+    """The serving fast-path engine options (ops/quant.py, the fused
+    fill_mask gather), spelled as in the JAX package. The engine takes
+    ``args.quantize`` verbatim and reads "none" as None."""
+    parser.add_argument(
+        "--quantize", type=str, default="none", choices=QUANTIZE_CHOICES,
+        help="inference weight format: bf16 halves the Dense weight "
+             "bytes, int8 quarters them and serves int8 GEMMs (per-tensor "
+             "symmetric weight scales, per-token activation scales); "
+             "embeddings and LayerNorm stay fp32")
+    parser.add_argument(
+        "--fuse_epilogues", action="store_true",
+        help="fold each head's output extraction into the forward: "
+             "fill_mask gathers its [MASK] rows before the vocab "
+             "projection, so [B, epilogue_slots, V] logits cross to the "
+             "host instead of [B, S, V]")
+    parser.add_argument(
+        "--epilogue_slots", type=int, default=8,
+        help="per-row gather quota for fused epilogues; a batch whose "
+             "rows carry more positions of interest runs the unfused "
+             "forward")
 
 
 def add_tracing_args(parser: argparse.ArgumentParser) -> None:

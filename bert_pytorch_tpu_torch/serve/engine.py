@@ -6,6 +6,12 @@ The :class:`InferenceEngine` owns the device side of serving:
 * **weights** — each task head takes a state dict converted from the JAX
   package's params (:func:`~bert_pytorch_tpu_torch.models.convert.
   from_jax_params`) or, without one, seeded random init (demo mode);
+  ``quantize`` (``"bf16"``/``"int8"``, ops/quant.py) then converts the
+  fp32 weights to the serving storage format;
+* **fused epilogues** — with ``fuse_epilogues``, fill_mask gathers its
+  [MASK] rows before the vocab projection ([B, epilogue_slots, V] out
+  instead of [B, S, V]); a batch whose rows need more slots runs the
+  unfused forward;
 * **warmup** — one forward per (task head, length bucket, packedness) at
   startup, so the first request pays no kernel build, library load or
   cuBLAS set-up; ``startup["cold_start_s"]`` records what that took;
@@ -39,6 +45,8 @@ import torch
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.data.packing import first_fit_decreasing
 from bert_pytorch_tpu_torch.models import bert as models
+from bert_pytorch_tpu_torch.models.convert import quantize_state_dict
+from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.serve import tasks as tasks_lib
 from bert_pytorch_tpu_torch.serve.batcher import Request
 from bert_pytorch_tpu_torch.serve.cli import ATTENTION_BACKENDS, resolve_device
@@ -83,16 +91,29 @@ class StagedBatch:
     ``offsets`` maps request id -> (row, token offset, pack slot) for
     :meth:`InferenceEngine.demux`; ``pack_s`` is the host seconds spent
     filling the arrays. ``staged_at`` is stamped by the dispatch plane when
-    staging completes."""
+    staging completes.
+
+    ``positions`` ([B, epilogue_slots] row positions, or None) selects the
+    fused gather forward; ``gather_slots`` then maps request id -> (row,
+    first slot, slot count) into its [B, epilogue_slots, V] output."""
 
     def __init__(self, task: str, plan: BatchPlan, args: tuple,
-                 offsets: Dict[int, Tuple[int, int, int]], pack_s: float):
+                 offsets: Dict[int, Tuple[int, int, int]], pack_s: float,
+                 positions: Optional[np.ndarray] = None,
+                 gather_slots: Optional[Dict[int, Tuple[int, int, int]]]
+                 = None):
         self.task = task
         self.plan = plan
         self.args = args
         self.offsets = offsets
         self.pack_s = pack_s
+        self.positions = positions
+        self.gather_slots = gather_slots or {}
         self.staged_at: Optional[float] = None
+
+    @property
+    def fused(self) -> bool:
+        return self.positions is not None
 
 
 class InferenceEngine:
@@ -109,6 +130,9 @@ class InferenceEngine:
         clock: Callable[[], float] = time.perf_counter,
         attention_backend: str = "flash_infer",
         device: str = "cuda",
+        quantize: Optional[str] = None,
+        fuse_epilogues: bool = False,
+        epilogue_slots: int = 8,
     ):
         """``tasks`` maps task name -> options: ``classify`` reads
         ``labels``; any task may carry ``weights``, a state dict from
@@ -116,11 +140,26 @@ class InferenceEngine:
         ``seed`` + the task's index). ``attention_backend`` routes the
         encoder's attention (ops/attention.py): ``"flash_infer"`` is the
         forward-only CUDA kernel (its plain version on the CPU),
-        ``"dense"`` the plain tensor path. ``device`` defaults to ``cuda``
-        and raises where there is none."""
+        ``"flash_infer_int8"`` its int8-score twin, ``"dense"`` the plain
+        tensor path. ``device`` defaults to ``cuda`` and raises where there
+        is none.
+
+        ``quantize`` (None/``"none"``, ``"bf16"``, ``"int8"``) selects the
+        weight storage (ops/quant.py): int8 runs int8 GEMMs with per-token
+        activation scales. ``fuse_epilogues`` gathers fill_mask's [MASK]
+        rows before the vocab projection; ``epilogue_slots`` is the
+        per-row gather quota, past which a batch runs the unfused
+        forward."""
         if attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(f"attention_backend must be one of "
                              f"{ATTENTION_BACKENDS}, got {attention_backend!r}")
+        self.quantize = quant_ops.check_mode(
+            None if quantize in (None, "none") else quantize)
+        self.fuse_epilogues = bool(fuse_epilogues)
+        self.epilogue_slots = int(epilogue_slots)
+        if self.fuse_epilogues and self.epilogue_slots < 1:
+            raise ValueError(
+                f"epilogue_slots must be >= 1, got {epilogue_slots}")
         self.device = resolve_device(device)
         self.attention_backend = attention_backend
         self.config = config
@@ -154,23 +193,39 @@ class InferenceEngine:
     def _build_task(self, name: str, options: dict,
                     seed: int) -> torch.nn.Module:
         cfg = self.config
-        kwargs = dict(dtype=self.dtype,
-                      attention_backend=self.attention_backend,
-                      device=self.device)
-        if name == "fill_mask":
-            model = models.BertForMaskedLM(cfg, **kwargs)
-        elif name == "classify":
-            labels = options.get("labels") or ["0", "1"]
-            model = models.BertForSequenceClassification(
-                cfg, num_labels=len(labels), **kwargs)
-        else:
+
+        def build(quant):
+            kwargs = dict(dtype=self.dtype,
+                          attention_backend=self.attention_backend,
+                          device=self.device, quant=quant)
+            if name == "fill_mask":
+                return models.BertForMaskedLM(cfg, **kwargs)
+            if name == "classify":
+                labels = options.get("labels") or ["0", "1"]
+                return models.BertForSequenceClassification(
+                    cfg, num_labels=len(labels), **kwargs)
             raise ValueError(f"unknown serve task {name!r}")
+
         weights = options.get("weights")
+        if weights is not None and any(
+                t.dtype != torch.float32 for t in weights.values()):
+            # Already quantized (from_jax_params of a quantize_params tree).
+            model = build(self.quantize)
+            model.load_state_dict(weights, strict=True)
+            return model.eval()
+        # The fp32 model is always built first: it takes the checkpoint's
+        # (or the seeded demo) weights, which quantize after loading.
+        model = build(None)
         if weights is not None:
             model.load_state_dict(weights, strict=True)
         else:
             generator = torch.Generator(device=self.device).manual_seed(seed)
             models.init_weights(model, cfg.initializer_range, generator)
+        if self.quantize:
+            state = quantize_state_dict(model.state_dict(), self.quantize)
+            del model
+            model = build(self.quantize)
+            model.load_state_dict(state, strict=True)
         return model.eval()
 
     def warmup(self) -> int:
@@ -181,8 +236,10 @@ class InferenceEngine:
         t0 = self._clock()
         count = 0
         B, K = self.max_batch_size, self.max_requests_per_pack
+        slots = np.zeros((B, self.epilogue_slots), np.int32)
         for spec in self.tasks.values():
             pooled = spec.handler.output_kind == "pooled"
+            fused = ((False, True) if self._gathers(spec) else (False,))
             for bucket in self.buckets:
                 zeros = np.zeros((B, bucket), np.int32)
                 for packed in ((False, True) if self.pack else (False,)):
@@ -192,20 +249,28 @@ class InferenceEngine:
                         args = (zeros,) * 4 + (np.zeros((B, K), np.int32),)
                     else:
                         args = (zeros,) * 4
-                    self._run(spec, args)
-                    count += 1
+                    for gather in fused:
+                        self._run(spec, args, slots if gather else None)
+                        count += 1
+        by_task = {name: quant_ops.weight_bytes(spec.model)
+                   for name, spec in self.tasks.items()}
         self.startup = {
             "cold_start_s": round(self._clock() - t0, 3),
             "warmup_forwards": count,
             "attention_backend": self.attention_backend,
             "device": str(self.device),
             "dtype": str(self.dtype).replace("torch.", ""),
-            "weight_bytes": sum(
-                p.numel() * p.element_size()
-                for s in self.tasks.values() for p in s.model.parameters()),
+            "quantize": self.quantize or "none",
+            "fuse_epilogues": self.fuse_epilogues,
+            "weight_bytes": sum(by_task.values()),
+            "weight_bytes_by_task": by_task,
         }
         self.warmed = True
         return count
+
+    def _gathers(self, spec: TaskSpec) -> bool:
+        """Whether ``spec``'s forward may take the fused gather epilogue."""
+        return self.fuse_epilogues and spec.handler.epilogue == "gather"
 
     # -- planning --------------------------------------------------------
 
@@ -270,7 +335,13 @@ class InferenceEngine:
     def stage(self, task: str, plan: BatchPlan) -> StagedBatch:
         """Pack/pad one planned batch into its fixed-shape host arrays.
         HOST-ONLY — never touches the device, so the assembler stage runs
-        it concurrently with the executor's forward."""
+        it concurrently with the executor's forward.
+
+        A fused-epilogue engine also stages, for a ``"gather"`` head, the
+        [B, epilogue_slots] absolute row positions of every request's
+        positions of interest (zero-padded: unused slots gather position 0
+        harmlessly); a batch whose rows overflow the quota stages for the
+        unfused forward instead."""
         spec = self.tasks[task]
         t_host0 = self._clock()
         B, S = self.max_batch_size, plan.bucket
@@ -278,6 +349,8 @@ class InferenceEngine:
         seg = np.zeros((B, S), np.int32)
         mask = np.zeros((B, S), np.int32)
         offsets: Dict[int, Tuple[int, int, int]] = {}  # id -> (row, off, slot)
+        positions, gather_slots = (self._gather_slots(spec, plan)
+                                   if self._gathers(spec) else (None, {}))
         if plan.packed:
             K = self.max_requests_per_pack
             sids = np.zeros((B, S), np.int32)
@@ -307,14 +380,41 @@ class InferenceEngine:
                 offsets[req.id] = (r, 0, 0)
             args = (ids, seg, mask)
         return StagedBatch(task, plan, args, offsets,
-                           pack_s=self._clock() - t_host0)
+                           pack_s=self._clock() - t_host0,
+                           positions=positions, gather_slots=gather_slots)
 
-    def _run(self, spec: TaskSpec, args: tuple) -> torch.Tensor:
+    def _gather_slots(self, spec: TaskSpec, plan: BatchPlan):
+        """([B, epilogue_slots] absolute row positions, request id -> (row,
+        first slot, slot count)) of the positions of interest of a
+        ``"gather"`` head; (None, {}) when a row needs more slots than the
+        quota, so the batch runs the unfused forward."""
+        positions = np.zeros((self.max_batch_size, self.epilogue_slots),
+                             np.int32)
+        slots: Dict[int, Tuple[int, int, int]] = {}
+        for r, row in enumerate(plan.rows):
+            used, offset = 0, 0
+            for req in row:
+                pts = spec.handler.gather_positions(req.features)
+                if used + len(pts) > self.epilogue_slots:
+                    return None, {}
+                positions[r, used:used + len(pts)] = [offset + p for p in pts]
+                slots[req.id] = (r, used, len(pts))
+                used += len(pts)
+                offset += req.length if plan.packed else 0
+        return positions, slots
+
+    def _run(self, spec: TaskSpec, args: tuple,
+             positions: Optional[np.ndarray] = None) -> torch.Tensor:
         """One forward on host arrays (ids, segments, mask[, sequence ids
-        [, cls positions]]), synchronized with the device."""
+        [, cls positions]]), synchronized with the device; ``positions``
+        selects the fused gather forward (``output_positions``)."""
         with torch.inference_mode():
             tensors = [torch.from_numpy(a).to(self.device) for a in args]
-            out = spec.model(*tensors)
+            kwargs = {}
+            if positions is not None:
+                kwargs["output_positions"] = torch.from_numpy(positions).to(
+                    self.device)
+            out = spec.model(*tensors, **kwargs)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.forwards += 1
@@ -329,7 +429,7 @@ class InferenceEngine:
         spec = self.tasks[staged.task]
         plan = staged.plan
         t0 = self._clock()
-        out = self._run(spec, staged.args)
+        out = self._run(spec, staged.args, staged.positions)
         info = {
             "bucket": plan.bucket,
             "rows": self.max_batch_size,
@@ -338,6 +438,7 @@ class InferenceEngine:
             "pack_s": staged.pack_s,
             "compiles": 0,
             "packed": plan.packed,
+            "fused": staged.fused,
         }
         return out, info
 
@@ -345,7 +446,9 @@ class InferenceEngine:
         """Slice each request's own output back out of the batch output
         (host conversion + per-request views, in ``plan.requests`` order).
         The completion stage runs it, so client decode never blocks the
-        next device step."""
+        next device step. A fused gather batch hands each request its own
+        run of gathered rows as a :class:`~bert_pytorch_tpu_torch.serve.
+        tasks.GatheredTokens`."""
         spec = self.tasks[staged.task]
         plan = staged.plan
         host = out.to("cpu").float().numpy()
@@ -353,7 +456,11 @@ class InferenceEngine:
         results: List[object] = []
         for req in plan.requests:
             r, off, slot = staged.offsets[req.id]
-            if pooled:
+            if staged.fused:
+                row, first, count = staged.gather_slots[req.id]
+                results.append(tasks_lib.GatheredTokens(
+                    host[row, first:first + count]))
+            elif pooled:
                 results.append(host[r, slot] if plan.packed else host[r])
             else:
                 results.append(host[r, off:off + req.length])

@@ -16,14 +16,28 @@ Tasks (``TASKS``):
 
 Every ``postprocess`` consumes fp32 numpy slices already demultiplexed per
 request by the engine (packed or not), so results match between the
-padded/packed batched path and a direct single-request forward.
+padded/packed batched path and a direct single-request forward. A head
+that declares ``epilogue = "gather"`` (fill_mask) receives, from an engine
+with fused epilogues, a :class:`GatheredTokens` of its positions of
+interest instead of the whole token plane.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+
+
+class GatheredTokens(NamedTuple):
+    """Per-request output of a fused-epilogue forward: token-level logits
+    already gathered at the request's positions of interest (for
+    fill_mask, one row per [MASK] in ``features['mask_positions']`` order)
+    instead of the whole [request_len, vocab] plane. A wrapper type, not a
+    bare array, so ``postprocess`` never guesses from a shape whether row i
+    means token i or the i-th gathered position."""
+
+    logits: np.ndarray  # [n_positions, vocab]
 
 
 # -- tokenizer surface shims (the squad.py/ner_dataset.py conventions) ----
@@ -79,8 +93,20 @@ class TaskHandler:
     #   "pooled"  -> one vector per request (pooled/classifier logits)
     #   "span"    -> (start_logits[S], end_logits[S]) tuple
     output_kind: str = "tokens"
+    # Fused-epilogue capability (serve/engine.py ``fuse_epilogues``):
+    #   "gather" -> the forward gathers this head's positions of interest
+    #               (gather_positions) before its vocab projection; demux
+    #               hands postprocess a GatheredTokens
+    #   None     -> nothing to fuse (pooled heads already extract in-model)
+    epilogue: Optional[str] = None
+
     def __init__(self, tokenizer):
         self.tokenizer = tokenizer
+
+    def gather_positions(self, features: dict) -> List[int]:
+        """Request-relative positions a ``"gather"`` epilogue extracts;
+        only heads that declare that epilogue implement it."""
+        raise NotImplementedError
 
     def prepare(self, payload: dict, max_len: int) -> dict:
         raise NotImplementedError
@@ -120,6 +146,11 @@ class FillMaskHandler(TaskHandler):
 
     name = "fill_mask"
     output_kind = "tokens"
+    epilogue = "gather"
+
+    def gather_positions(self, features: dict) -> List[int]:
+        return features["mask_positions"]
+
     def prepare(self, payload: dict, max_len: int) -> dict:
         text = payload["text"]
         mask_id = _token_to_id(self.tokenizer, "[MASK]")
@@ -148,8 +179,12 @@ class FillMaskHandler(TaskHandler):
         return features
 
     def postprocess(self, features: dict, outputs, payload: dict) -> dict:
-        logits = np.asarray(outputs, np.float32)  # [len, vocab]
-        rows = [logits[pos] for pos in features["mask_positions"]]
+        if isinstance(outputs, GatheredTokens):
+            # Already gathered on the device, one row per mask slot.
+            rows = list(np.asarray(outputs.logits, np.float32))
+        else:
+            logits = np.asarray(outputs, np.float32)  # [len, vocab]
+            rows = [logits[pos] for pos in features["mask_positions"]]
         top_k = int(payload.get("top_k", 5))
         slots = []
         for row in rows:

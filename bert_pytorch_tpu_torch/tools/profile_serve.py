@@ -5,7 +5,8 @@ kernels that fill the forward.
     python -m bert_pytorch_tpu_torch.tools.profile_serve \
         [--model_config_file configs/bert_large_uncased_config.json] \
         [--buckets 128,512] [--max_batch_size 8] [--dtype bfloat16] \
-        [--attention_backend flash_infer] [--iters 5]
+        [--attention_backend flash_infer] [--iters 5] \
+        [--quantize none|bf16|int8] [--fuse_epilogues] [--epilogue_slots 8]
 
 Per (task, bucket, packed) it stages one full batch of seeded demo-vocab
 requests sized for that bucket and reports, in milliseconds:
@@ -15,7 +16,14 @@ requests sized for that bucket and reports, in milliseconds:
   ends in a device synchronize), medians over ``--iters`` runs;
 * ``kernels`` — device time per kernel name over one forward, from
   ``torch.profiler`` (CUDA activity), largest first, with each kernel's
-  share of the forward's device time.
+  share of the forward's device time; ``attention_ms`` sums the fused
+  attention kernels (``flash_infer*``) and ``gemm_ms`` the library GEMMs
+  (cuBLAS/cuBLASLt kernel names), ``int8_gemm_ms`` those of them on int8
+  operands.
+
+``fused`` says whether the batch took the fused fill_mask gather (each
+request here carries one [MASK], so a packed row of four fits the default
+eight slots).
 
 Weights are seeded random (demo mode); the widths are the config's. Needs
 a CUDA card unless ``--device cpu`` (then no kernel table is taken).
@@ -54,6 +62,12 @@ def _requests(engine, task, bucket, packed, rng):
     return reqs
 
 
+# Kernel-name fragments of the library GEMMs (cuBLAS, cuBLASLt and the
+# CUTLASS kernels they dispatch to), and of those on int8 operands.
+_GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "imma")
+_INT8_NAMES = ("s8", "i8", "int8", "imma")
+
+
 def _kernel_table(engine, staged):
     from torch.profiler import ProfilerActivity, profile
 
@@ -72,15 +86,21 @@ def _kernel_table(engine, staged):
             rows.append((evt.key, device_us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows) or 1.0
-    return total, [{"name": name[:90], "ms": ms, "calls": calls,
-                    "share": ms / total} for name, ms, calls in rows[:8]]
+    gemms = [r for r in rows if any(f in r[0].lower() for f in _GEMM_NAMES)]
+    return total, {
+        "attention_ms": sum(r[1] for r in rows if "flash_infer" in r[0]),
+        "gemm_ms": sum(r[1] for r in gemms),
+        "int8_gemm_ms": sum(r[1] for r in gemms if any(
+            f in r[0].lower() for f in _INT8_NAMES)),
+        "kernels": [{"name": name[:90], "ms": ms, "calls": calls,
+                     "share": ms / total} for name, ms, calls in rows[:12]]}
 
 
 def main(argv=None) -> int:
     from bert_pytorch_tpu_torch.config import BertConfig
     from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
     from bert_pytorch_tpu_torch.serve import InferenceEngine
-    from bert_pytorch_tpu_torch.serve.cli import DTYPES
+    from bert_pytorch_tpu_torch.serve.cli import DTYPES, add_fast_path_args
     from bert_pytorch_tpu_torch.serve.engine import BatchPlan
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
         write_trace_vocab)
@@ -95,6 +115,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
+    add_fast_path_args(parser)
     args = parser.parse_args(argv)
 
     config = BertConfig.from_json_file(args.model_config_file)
@@ -104,7 +125,10 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
-        print(json.dumps({"card": card, "torch": torch.__version__}),
+        print(json.dumps({"card": card, "torch": torch.__version__,
+                          "quantize": args.quantize,
+                          "attention_backend": args.attention_backend,
+                          "fuse_epilogues": args.fuse_epilogues}),
               flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         tokenizer = BertTokenizer(write_trace_vocab(
@@ -114,7 +138,9 @@ def main(argv=None) -> int:
         buckets=[int(b) for b in args.buckets.split(",")],
         max_batch_size=args.max_batch_size, max_requests_per_pack=4,
         dtype=DTYPES[args.dtype], seed=args.seed,
-        attention_backend=args.attention_backend, device=args.device)
+        attention_backend=args.attention_backend, device=args.device,
+        quantize=args.quantize, fuse_epilogues=args.fuse_epilogues,
+        epilogue_slots=args.epilogue_slots)
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     for task in engine.tasks:
@@ -142,13 +168,14 @@ def main(argv=None) -> int:
                                                t4 - t3)):
                         times[key].append(dt * 1e3)
                 line = {"task": task, "bucket": bucket, "packed": packed,
+                        "fused": staged.fused,
                         "requests": len(plan.requests),
                         "real_tokens": sum(r.length for r in plan.requests)}
                 line.update({f"{k}_ms": statistics.median(v)
                              for k, v in times.items()})
                 if engine.device.type == "cuda":
-                    total, kernels = _kernel_table(engine, staged)
-                    line.update(device_ms=total, kernels=kernels)
+                    total, table = _kernel_table(engine, staged)
+                    line.update(device_ms=total, **table)
                 print(json.dumps(line), flush=True)
     return 0
 

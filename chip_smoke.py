@@ -7,17 +7,20 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name and power limit (``nvidia-smi``); no CUDA device = fail;
 2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
-   per source, all started together): the serving kernel and the three
-   training kernels (forward, dq, dkv);
+   per source, all started together): the two serving kernels (fp and
+   int8 scores) and the three training kernels (forward, dq, dkv);
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it (B=8, H=16, D=64, S in {128, 512}, bf16
-   and fp32, padded rows and packed rows; the training kernels also at
+   and fp32, padded rows and packed rows; the int8 kernel and its plain
+   version fed the same int8 q/k and scales; the training kernels also at
    dropout 0 and 0.1 with a fixed seed, comparing out, lse, dq, delta,
    dk, dv and dbias, each within the tolerance stated below);
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function (``scaled_dot_product_attention``: forward
-   for the forward kernels, forward + backward for dq and dkv), CUDA
-   events, beside the least time the card could take for the same work;
+   for the forward kernels, forward + backward for dq and dkv; for the
+   int8 kernel, which no single PyTorch call computes, bf16 SDPA on the
+   dequantized q and k), CUDA events, beside the least time the card could
+   take for the same work;
 5. the serving main path: ``run_server.build_service`` at full BERT-large
    width (configs/bert_large_uncased_config.json, seeded random weights,
    a demo vocab) serving fill_mask and classify over HTTP, packed and
@@ -25,6 +28,20 @@ Phases (any failure exits non-zero and prints no result line):
    encoder layer per forward. Then one staged fp32 fill_mask batch
    through a ``flash_infer`` engine and a ``dense`` engine with the same
    seeded weights must agree;
+5c. the int8 serving main path: ``build_service`` at the same width with
+   ``--quantize int8 --attention_backend flash_infer_int8
+   --fuse_epilogues --pack_requests``, the same waves plus one fill_mask
+   request with 9 [MASK]s (past the 8 gather slots, so one batch takes the
+   unfused forward); the int8 kernel must launch once per encoder layer
+   per forward and the fp kernel never; the int8 engine's weight bytes are
+   logged beside the fp32 engine's. Then one staged fp32-compute
+   fill_mask batch from the same seeded weights: int8 scores on fp32
+   weights must agree with the fp32 engine to the JAX package's int8
+   attention bound, the fused gather must equal the unfused batch's
+   [MASK] rows, and with int8 weights the int8-score engine must agree
+   with a dense-attention one to the JAX package's 1e-1 at 2 layers of
+   BERT-large width, and at full depth by no more than int8 weights
+   alone move the logits (check_int8_engines);
 6. the training main path: the pretraining runner's own setup functions
    and train step (configs/bert_pretraining_phase2_config.json at
    BERT-large width: S=512, max_pred 80, remat dots, LAMB with poly
@@ -57,6 +74,7 @@ import traceback
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -79,7 +97,25 @@ B, H, D = 8, 16, 64
 SEQS = (128, 512)
 CONFIG = os.path.join(REPO, "configs", "bert_large_uncased_config.json")
 REPLACES = "bert_pytorch_tpu/ops/pallas/attention.py:512"
-SERVING_KERNELS = ("flash_attention_infer",)
+# The int8-score kernel: QK^T at the H100's dense int8 tensor-core rate.
+PEAK_INT8_OPS = 1979e12
+INT8_REPLACES = "bert_pytorch_tpu/ops/pallas/attention.py:624"
+INT8_SOURCE = "bert_pytorch_tpu_torch/csrc/flash_attention_infer_int8.cu"
+# fp32 weights and compute, int8 attention scores against fp scores: the
+# JAX package's bound for int8 attention on served logits
+# (INT8_ATTN_MODEL_ATOL). The fused gather against the unfused batch's
+# [MASK] rows: the same rows through the same head, fp32. int8-weight
+# engines with int8 and with fp32 scores: the JAX package's bound
+# (INT8_LOGIT_ATOL), set on a 2-layer config, at 2 layers of BERT-large
+# width; at full depth, the distance int8 weights alone put between the
+# dense int8 and fp32 engines in the same run (check_int8_engines).
+INT8_ATTN_ATOL = 2e-2
+FUSED_ATOL = 1e-5
+INT8_LOGIT_ATOL = 1e-1
+INT8_CHECK_LAYERS = 2
+# A fill_mask request with more [MASK]s than the 8 gather slots: its batch
+# runs the unfused forward.
+OVERFLOW_MASKS = 9
 
 
 def log(msg: str) -> None:
@@ -208,6 +244,83 @@ def check_and_time_attention() -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "cases": cases}
+
+
+def int8_bound_ms(seq: int, dtype) -> tuple:
+    """(least time in ms, what bounds it) for the int8-score kernel: q8 and
+    k8 read once at 1 B an element, v read and out written at v's element
+    size, the [B, S] fp32 key bias (or ids) and the two [B, H] fp32 scales;
+    against QK^T (2*B*H*S^2*D) at the int8 rate plus PV (as many) at the
+    rate of v's dtype."""
+    elem = torch.finfo(dtype).bits // 8
+    n = B * seq * H * D
+    nbytes = 2 * n + 2 * n * elem + B * seq * 4 + 2 * B * H * 4
+    ops = 2 * B * H * seq * seq * D
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (ops / PEAK_INT8_OPS + ops / PEAK_FLOPS[dtype]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_and_time_int8_attention() -> dict:
+    """Phases 3 and 4 for the int8-score kernel. Kernel and plain version
+    take the same int8 q/k and scales (quantized once), so the int32
+    scores are exact on both sides and the fp kernel's tolerances apply.
+    ``wrapper_ms`` also times the quantization the wrapper runs first."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_err = 0.0
+    cases = []
+    for seq in SEQS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for packed in (False, True):
+                q, k, v, kw = attention_inputs(seq, dtype, packed, gen)
+                key_bias, seg = ka._infer_bias_seg(
+                    kw.get("bias"), kw.get("sequence_ids"), B, seq)
+                q8, q_scale, k8, k_scale = ka.quantize_qk(q, k)
+                args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+                out = ka.flash_attention_infer_int8_prequantized(*args)
+                torch.cuda.synchronize()
+                ref = ka._int8_forward_math(*args)
+                err = (out.float() - ref.float()).abs().max().item()
+                finite = bool(torch.isfinite(out).all())
+                name = (f"S={seq} {str(dtype)[6:]} "
+                        f"{'packed' if packed else 'padded'}")
+                log(f"[check] flash_attention_infer_int8 {name}: max_abs_err "
+                    f"{err:.3e} (atol {ATOL[dtype]:g}), finite {finite}")
+                if not finite or not err <= ATOL[dtype]:
+                    raise AssertionError(
+                        f"flash_attention_infer_int8 disagrees with its "
+                        f"plain version at {name}: {err} > {ATOL[dtype]}")
+                max_err = max(max_err, err)
+                t_kernel = cuda_time_ms(
+                    lambda: ka.flash_attention_infer_int8_prequantized(*args))
+                t_wrapper = cuda_time_ms(
+                    lambda: ka.flash_attention_infer_int8(q, k, v, **kw))
+                t_plain = cuda_time_ms(lambda: ka._int8_forward_math(*args),
+                                       iters=20, warmup=2)
+                deq = [(t8.float() * s[:, None, :, None]).to(torch.bfloat16)
+                       for t8, s in ((q8, q_scale), (k8, k_scale))]
+                t_lib = cuda_time_ms(library_call(
+                    deq[0], deq[1], v.to(torch.bfloat16), kw))
+                t_bound, by = int8_bound_ms(seq, dtype)
+                log(f"[time] int8 {name}: kernel {t_kernel:.4f} ms, wrapper "
+                    f"(quantize + kernel) {t_wrapper:.4f} ms, plain "
+                    f"{t_plain:.4f} ms, library (bf16 SDPA on dequantized "
+                    f"q/k) {t_lib:.4f} ms, bound {t_bound:.4f} ms ({by})")
+                cases.append({"seq": seq, "dtype": str(dtype)[6:],
+                              "packed": packed, "max_abs_err": err,
+                              "ms": t_kernel, "wrapper_ms": t_wrapper,
+                              "plain_ms": t_plain, "library_ms": t_lib,
+                              "bound_ms": t_bound, "bound_by": by})
+    head = next(c for c in cases if c["seq"] == max(SEQS)
+                and c["dtype"] == "bfloat16" and not c["packed"])
+    return {"name": "flash_attention_infer_int8", "route": "cuda",
+            "source": INT8_SOURCE, "replaces": INT8_REPLACES,
+            "launches": None, "max_abs_err": max_err, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "bf16 sdpa on dequantized q/k", "cases": cases}
 
 
 # Training kernels against their plain versions, per output: (atol, rtol)
@@ -419,16 +532,21 @@ def time_training_kernels(rate: float = 0.1) -> dict:
     return cases
 
 
-def serve_args(vocab: str, dtype: str, backend: str, tasks: str):
+# The fast-path flags of the int8 serving main path.
+INT8_FLAGS = ("--quantize", "int8", "--fuse_epilogues")
+
+
+def serve_args(vocab: str, dtype: str, backend: str, tasks: str,
+               extra=(), config: str = CONFIG):
     from bert_pytorch_tpu_torch import run_server
 
     return run_server.parse_arguments([
-        "--model_config_file", CONFIG, "--vocab_file", vocab,
+        "--model_config_file", config, "--vocab_file", vocab,
         "--device", "cuda", "--dtype", dtype,
         "--attention_backend", backend, "--tasks", tasks,
         "--buckets", "128,512", "--max_batch_size", "8",
         "--pack_requests", "--max_wait_ms", "20", "--port", "0",
-        "--trace_sample_rate", "0"])
+        "--trace_sample_rate", "0", *extra])
 
 
 def request_waves() -> list:
@@ -466,12 +584,13 @@ def post(port: int, task: str, payload: dict) -> tuple:
         return exc.code, exc.read().decode(), time.perf_counter() - t0
 
 
-def check_body(task: str, body, labels) -> None:
+def check_body(task: str, payload: dict, body, labels) -> None:
     if task == "fill_mask":
         masks = body["masks"]
-        if len(masks) != 1 or len(masks[0]) != 5:
+        if (len(masks) != payload["text"].count("[MASK]")
+                or any(len(m) != 5 for m in masks)):
             raise AssertionError(f"fill_mask body malformed: {body}")
-        for slot in masks[0]:
+        for slot in (slot for m in masks for slot in m):
             if not (isinstance(slot["token"], str)
                     and 0.0 <= slot["score"] <= 1.0
                     and math.isfinite(slot["score"])):
@@ -482,15 +601,17 @@ def check_body(task: str, body, labels) -> None:
             raise AssertionError(f"classify body malformed: {body}")
 
 
-def drive_main_path(vocab: str, kernels: dict) -> dict:
-    """Phase 5a: serve fill_mask + classify over HTTP at BERT-large width."""
+def serve_waves(args, waves: list, kernels: dict) -> dict:
+    """Build the service for ``args``, warm it, then serve ``waves`` over
+    HTTP (each wave's requests concurrently) and two requests through
+    ``run_direct`` (one request alone in an unpacked row). Every count is
+    set to 0 just before the traffic and read just after. Checks that every
+    request answered 200 with a well-formed body."""
     from bert_pytorch_tpu_torch import run_server
     from bert_pytorch_tpu_torch.serve import make_server
 
-    args = serve_args(vocab, "bfloat16", "flash_infer", "fill_mask,classify")
     service = run_server.build_service(args)
     engine = service.engine
-    layers = engine.config.num_hidden_layers
     t0 = time.perf_counter()
     engine.warmup()
     log(f"[serve] warmup {engine.startup} in "
@@ -500,12 +621,12 @@ def drive_main_path(vocab: str, kernels: dict) -> dict:
 
     def recording(staged):
         plans.append((staged.task, staged.plan.bucket, staged.plan.packed,
-                      max(len(row) for row in staged.plan.rows)))
+                      max(len(row) for row in staged.plan.rows),
+                      staged.fused))
         return execute_staged(staged)
 
     engine.execute_staged = recording
     labels = args.classify_labels.split(",")
-    waves = request_waves()
     # Counts to zero just before the main path, read just after.
     for kernel in kernels.values():
         kernel.launches = 0
@@ -532,64 +653,225 @@ def drive_main_path(vocab: str, kernels: dict) -> dict:
         thread.join(timeout=30)
     launches = {name: k.launches for name, k in kernels.items()}
     forwards = engine.forwards
-    for (task, _), (status, body, _) in zip(payloads, results):
+    for (task, payload), (status, body, _) in zip(payloads, results):
         if status != 200:
             raise AssertionError(f"{task} answered {status}: {body}")
-        check_body(task, body, labels)
-    for task, body in direct.items():
-        check_body(task, body, labels)
+        check_body(task, payload, body, labels)
+    for task, payload in (waves[0][0], waves[0][1]):
+        check_body(task, payload, direct[task], labels)
     latencies = sorted(r[2] for r in results)
+    log(f"[serve] {len(results)} requests answered 200 over {forwards} "
+        f"forwards; plans (task, bucket, packed, max requests/row, fused): "
+        f"{plans}")
+    return {"requests": len(results), "forwards": forwards,
+            "launches": launches, "plans": plans,
+            "layers": engine.config.num_hidden_layers,
+            "p50_ms": statistics.median(latencies) * 1e3,
+            "max_ms": latencies[-1] * 1e3,
+            "cold_start_s": engine.startup["cold_start_s"],
+            "weight_bytes": engine.startup["weight_bytes"],
+            "weight_bytes_by_task": engine.startup["weight_bytes_by_task"]}
+
+
+def check_coverage(plans: list) -> None:
+    """Both buckets, and packed rows beside unpacked ones, were served."""
     buckets = sorted({p[1] for p in plans})
     packed_rows = max(p[3] for p in plans if p[2])
-    log(f"[serve] {len(results)} requests answered 200 over {forwards} "
-        f"forwards; plans (task, bucket, packed, max requests/row): {plans}")
     if buckets != [128, 512] or packed_rows < 2 or all(p[2] for p in plans):
         raise AssertionError(f"traffic did not cover both buckets, packed "
                              f"and unpacked rows: {plans}")
-    for name in SERVING_KERNELS:
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "serving path")
-    if launches["flash_attention_infer"] != layers * forwards:
+
+
+def check_launches(served: dict, kernel: str, idle: Sequence[str]) -> None:
+    """``kernel`` launched once per encoder layer per forward of the run,
+    and each of ``idle`` never."""
+    launches, forwards = served["launches"], served["forwards"]
+    if launches[kernel] == 0 or launches[kernel] != served["layers"] * forwards:
         raise AssertionError(
-            f"flash_attention_infer launched {launches} times over "
-            f"{forwards} forwards; expected {layers} per forward")
-    return {"requests": len(results), "forwards": forwards,
-            "launches": launches, "p50_ms": statistics.median(latencies) * 1e3,
-            "max_ms": latencies[-1] * 1e3, "cold_start_s":
-            engine.startup["cold_start_s"]}
+            f"{kernel} launched {launches} times over {forwards} forwards; "
+            f"expected {served['layers']} per forward")
+    for name in idle:
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on the path of {kernel}")
 
 
-def check_flash_vs_dense(vocab: str) -> float:
-    """Phase 5b: the same seeded fp32 weights through a flash_infer engine
-    and a dense engine; one staged fill_mask batch, packed and unpacked."""
-    from bert_pytorch_tpu_torch import run_server
+def drive_main_path(vocab: str, kernels: dict) -> dict:
+    """Phase 5a: serve fill_mask + classify over HTTP at BERT-large width."""
+    args = serve_args(vocab, "bfloat16", "flash_infer", "fill_mask,classify")
+    served = serve_waves(args, request_waves(), kernels)
+    check_coverage(served["plans"])
+    check_launches(served, "flash_attention_infer", ())
+    return served
+
+
+def overflow_request() -> tuple:
+    """One fill_mask request with more [MASK]s than the gather slots."""
+    words = ("paris", "is", "the", "capital", "of", "france", "and", "a",
+             "city", "river")[:OVERFLOW_MASKS]
+    return ("fill_mask", {"text": " ".join(f"[MASK] {w}" for w in words),
+                          "top_k": 5})
+
+
+def drive_int8_main_path(vocab: str, kernels: dict) -> dict:
+    """Phase 5c: the int8 fast path over HTTP at BERT-large width (int8
+    weights and GEMMs, the int8-score kernel, the fused fill_mask gather),
+    with one batch past the gather slots."""
+    args = serve_args(vocab, "bfloat16", "flash_infer_int8",
+                      "fill_mask,classify", INT8_FLAGS)
+    served = serve_waves(args, request_waves() + [[overflow_request()]],
+                         kernels)
+    plans = served["plans"]
+    check_coverage(plans)
+    fill = {p[4] for p in plans if p[0] == "fill_mask"}
+    if fill != {False, True} or any(p[4] for p in plans
+                                    if p[0] == "classify"):
+        raise AssertionError(f"fill_mask did not take both the fused and "
+                             f"the unfused forward (or classify fused): "
+                             f"{plans}")
+    check_launches(served, "flash_attention_infer_int8",
+                   ("flash_attention_infer",))
+    return served
+
+
+def fill_mask_batch(engine, payloads: list) -> tuple:
+    """One staged fill_mask batch of ``payloads``, unpacked then packed:
+    (per-request outputs, per-request [MASK] rows, whether each plan took
+    the fused gather), in plan order (the same for every engine: planning
+    depends only on the request lengths)."""
     from bert_pytorch_tpu_torch.serve.batcher import Request
+    from bert_pytorch_tpu_torch.serve.tasks import GatheredTokens
 
-    payloads = [p for wave in request_waves() for t, p in wave
-                if t == "fill_mask"][:8]
-    outs = {}
+    handler = engine.tasks["fill_mask"].handler
+    reqs = [Request("fill_mask", handler.prepare(p, engine.max_len()), p)
+            for p in payloads]
+    outs, rows, fused = [], [], []
+    for packed in (False, True):
+        plan = engine.plan_batch(reqs, packed=packed)
+        results, info = engine.execute("fill_mask", plan)
+        fused.append(info["fused"])
+        for req, out in zip(plan.requests, results):
+            outs.append(out)
+            rows.append(out.logits if isinstance(out, GatheredTokens)
+                        else out[req.features["mask_positions"]])
+    return outs, rows, fused
+
+
+def _max_err(a: list, b: list) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def fill_mask_payloads() -> list:
+    return [p for wave in request_waves() for t, p in wave
+            if t == "fill_mask"][:8]
+
+
+def check_flash_vs_dense(vocab: str) -> tuple:
+    """Phase 5b: the same seeded fp32 weights through a flash_infer engine
+    and a dense engine; one staged fill_mask batch, packed and unpacked.
+    Returns the error and the flash engine's [MASK] rows."""
+    from bert_pytorch_tpu_torch import run_server
+
+    outs, rows = {}, {}
     for backend in ("flash_infer", "dense"):
         engine = run_server.build_service(
             serve_args(vocab, "float32", backend, "fill_mask")).engine
-        handler = engine.tasks["fill_mask"].handler
-        reqs = [Request("fill_mask", handler.prepare(p, engine.max_len()), p)
-                for p in payloads]
-        outs[backend] = []
-        for packed in (False, True):
-            plan = engine.plan_batch(reqs, packed=packed)
-            results, _ = engine.execute("fill_mask", plan)
-            outs[backend].extend(results)
+        outs[backend], rows[backend], _ = fill_mask_batch(
+            engine, fill_mask_payloads())
         del engine
         torch.cuda.empty_cache()
-    err = max(float(np.abs(a - b).max())
-              for a, b in zip(outs["flash_infer"], outs["dense"]))
+    err = _max_err(outs["flash_infer"], outs["dense"])
     finite = all(np.isfinite(a).all() for a in outs["flash_infer"])
     log(f"[check] fp32 fill_mask logits, flash_infer vs dense engine: "
         f"max_abs_err {err:.3e} (atol {ENGINE_ATOL:g}), finite {finite}")
     if not finite or not err <= ENGINE_ATOL:
         raise AssertionError(f"flash_infer and dense engines disagree: {err}")
-    return err
+    return err, rows["flash_infer"]
+
+
+def cut_config(tmp: str, **overrides) -> str:
+    """BERT-large's config file with ``overrides`` (a cut depth), written
+    under ``tmp``; returns its path."""
+    with open(CONFIG, encoding="utf-8") as f:
+        cfg = dict(json.load(f), **overrides)
+    path = os.path.join(tmp, "bert_large_cut.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _rows_of(vocab: str, backend: str, extra=(), unfused: bool = False,
+             config: str = CONFIG):
+    """[MASK] rows and fused flags of one fp32-compute fill_mask engine
+    from the seeded weights; with ``unfused`` also the same engine's rows
+    staged without the gather (outputs, rows, flags)."""
+    from bert_pytorch_tpu_torch import run_server
+
+    engine = run_server.build_service(serve_args(
+        vocab, "float32", backend, "fill_mask", extra, config)).engine
+    runs = [fill_mask_batch(engine, fill_mask_payloads())]
+    if unfused:
+        engine.fuse_epilogues = False
+        runs.append(fill_mask_batch(engine, fill_mask_payloads()))
+    del engine
+    torch.cuda.empty_cache()
+    return runs
+
+
+def check_int8_engines(vocab: str, fp32_rows: list) -> dict:
+    """Phase 5c, second half: one staged fill_mask batch (packed and
+    unpacked) through fp32-compute engines from the same seeded weights,
+    compared at the [MASK] rows with ``fp32_rows`` (fp32 weights,
+    flash_infer):
+
+    * fp32 weights, flash_infer_int8: the score quantization alone,
+      within INT8_ATTN_ATOL;
+    * int8 weights, flash_infer_int8, fused gather: equal to its own
+      unfused batch within FUSED_ATOL;
+    * int8 weights, dense attention, at INT8_CHECK_LAYERS layers of
+      BERT-large width: the int8-score engine within INT8_LOGIT_ATOL, the
+      JAX package's bound, which it set on a 2-layer config;
+    * the same pair at full depth: the int8-score engine may differ from
+      the dense one by no more than the dense one differs from the fp32
+      engine (the int8 weights' own distance). Over 24 layers the
+      per-token activation quantization turns the score rounding into
+      whole-step flips of downstream activations, so the 2-layer bound is
+      not held there; every distance is logged."""
+    (_, attn_rows, _), = _rows_of(vocab, "flash_infer_int8")
+    (_, int8_rows, fused), (unfused_outs, unfused_rows, unfused) = _rows_of(
+        vocab, "flash_infer_int8", INT8_FLAGS, unfused=True)
+    (_, dense_rows, _), = _rows_of(vocab, "dense", ("--quantize", "int8"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = cut_config(tmp, num_hidden_layers=INT8_CHECK_LAYERS)
+        (_, cut_int8_rows, _), = _rows_of(vocab, "flash_infer_int8",
+                                          INT8_FLAGS, config=cut)
+        (_, cut_dense_rows, _), = _rows_of(vocab, "dense",
+                                           ("--quantize", "int8"), config=cut)
+    errs = {"int8_scores_vs_fp32": _max_err(attn_rows, fp32_rows),
+            "fused_vs_unfused": _max_err(int8_rows, unfused_rows),
+            "int8_vs_dense_int8_cut": _max_err(cut_int8_rows, cut_dense_rows),
+            "int8_vs_dense_int8": _max_err(int8_rows, dense_rows),
+            "dense_int8_vs_fp32": _max_err(dense_rows, fp32_rows),
+            "int8_vs_fp32": _max_err(int8_rows, fp32_rows)}
+    finite = all(np.isfinite(a).all() for a in
+                 attn_rows + int8_rows + unfused_outs + cut_int8_rows)
+    log(f"[check] fp32-compute fill_mask [MASK] logits: int8 scores on fp32 "
+        f"weights vs fp32 {errs['int8_scores_vs_fp32']:.3e} (atol "
+        f"{INT8_ATTN_ATOL:g}); int8 weights: fused vs unfused "
+        f"{errs['fused_vs_unfused']:.3e} (atol {FUSED_ATOL:g}), "
+        f"flash_infer_int8 vs dense at {INT8_CHECK_LAYERS} layers "
+        f"{errs['int8_vs_dense_int8_cut']:.3e} (atol {INT8_LOGIT_ATOL:g}), "
+        f"at 24 layers {errs['int8_vs_dense_int8']:.3e} (bound: dense int8 "
+        f"vs fp32 {errs['dense_int8_vs_fp32']:.3e}), flash_infer_int8 vs "
+        f"fp32 {errs['int8_vs_fp32']:.3e}; fused plans {fused}, unfused "
+        f"plans {unfused}; finite {finite}")
+    if not (finite and all(fused) and not any(unfused)
+            and errs["int8_scores_vs_fp32"] <= INT8_ATTN_ATOL
+            and errs["fused_vs_unfused"] <= FUSED_ATOL
+            and errs["int8_vs_dense_int8_cut"] <= INT8_LOGIT_ATOL
+            and errs["int8_vs_dense_int8"] <= errs["dense_int8_vs_fp32"]):
+        raise AssertionError(f"int8 engine checks failed: {errs}")
+    return errs
 
 
 PHASE2 = os.path.join(REPO, "configs", "bert_pretraining_phase2_config.json")
@@ -701,13 +983,9 @@ def check_training_flash_vs_dense() -> dict:
     gradients and updated parameters."""
     from bert_pytorch_tpu_torch import run_pretraining
 
-    with open(CONFIG, encoding="utf-8") as f:
-        cfg = dict(json.load(f), num_hidden_layers=2, hidden_dropout_prob=0.0,
-                   attention_probs_dropout_prob=0.0)
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "bert_large_2_layers.json")
-        with open(path, "w", encoding="utf-8") as f:
-            json.dump(cfg, f)
+        path = cut_config(tmp, num_hidden_layers=2, hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
         results = {}
         for backend in ("flash", "dense"):
             args = run_pretraining.setup_training(training_args([
@@ -777,7 +1055,7 @@ def main() -> int:
     from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.ops.kernels.attention import (
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
-        flash_attention_infer)
+        flash_attention_infer, flash_attention_infer_int8)
 
     # fp32 matmuls in full fp32 for every comparison below (TF32 keeps
     # about three decimal digits).
@@ -791,10 +1069,12 @@ def main() -> int:
     built = build.build()
     log(f"[build] {built} in {time.perf_counter() - t0:.2f}s")
     kernels = {"flash_attention_infer": flash_attention_infer,
+               "flash_attention_infer_int8": flash_attention_infer_int8,
                "flash_attention_fwd": flash_attention_fwd,
                "flash_attention_dq": flash_attention_dq,
                "flash_attention_dkv": flash_attention_dkv}
     infer_entry = check_and_time_attention()
+    int8_entry = check_and_time_int8_attention()
     worst = check_training_kernels()
     cases = time_training_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -806,7 +1086,14 @@ def main() -> int:
         log(f"[serve] {served['requests']} requests served, p50 "
             f"{served['p50_ms']:.1f} ms, max {served['max_ms']:.1f} ms on "
             f"{card}")
-        engine_err = check_flash_vs_dense(vocab)
+        engine_err, fp32_rows = check_flash_vs_dense(vocab)
+        torch.cuda.empty_cache()
+        served8 = drive_int8_main_path(vocab, kernels)
+        log(f"[serve int8] {served8['requests']} requests served, p50 "
+            f"{served8['p50_ms']:.1f} ms, max {served8['max_ms']:.1f} ms; "
+            f"weight bytes int8 {served8['weight_bytes_by_task']} vs fp32 "
+            f"{served['weight_bytes_by_task']} on {card}")
+        int8_errs = check_int8_engines(vocab, fp32_rows)
     torch.cuda.empty_cache()
     trained = drive_training(kernels)
     log(f"[train] BERT-large phase 2 (S=512, max_pred 80, bf16, remat dots, "
@@ -816,9 +1103,10 @@ def main() -> int:
         f"{trained['peak_gib']:.1f} GiB on {card}")
     train_check = check_training_flash_vs_dense()
     infer_entry["launches"] = served["launches"]["flash_attention_infer"]
-    entries = [infer_entry] + training_entries(worst, cases,
-                                               trained["launches"])
-    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, training=trained, training_flash_vs_dense=train_check))}")
+    int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
+    entries = [infer_entry, int8_entry] + training_entries(
+        worst, cases, trained["launches"])
+    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

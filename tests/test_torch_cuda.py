@@ -6,8 +6,10 @@ so it runs on a machine without it; run it there with
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU and imports
-it). Tolerances: the inference kernel fp32 2e-5 (summation order), bf16
-2e-2 (P rounded to bf16 before PV at each tile's running maximum); the
+it). Tolerances: the inference kernels fp32 2e-5 (summation order), bf16
+2e-2 (P rounded to bf16 before PV at each tile's running maximum; the
+int8-score kernel is fed the same int8 q/k as its plain version, so its
+int32 scores are exact and the same bars apply); the
 training kernels per output as (atol, rtol) in TRAIN_TOL, the bars of
 chip_smoke.py (lse carries rtol for the packed pad rows near -10000).
 """
@@ -202,3 +204,114 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="sequence_ids must be"):
         kattn.flash_attention_fwd(q, k, v, None, torch.ones(
             2, 16, device="cuda", dtype=torch.int64))
+
+
+# -- the int8-score serving kernel (TPU kernel #5) --------------------------
+
+@pytest.mark.parametrize("depth", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_matches_plain_version(dtype, depth):
+    """Padded and packed rows at a ragged S; kernel and plain version take
+    the same int8 q/k and scales, so the int32 scores are exact on both
+    sides and the fp kernel's tolerances apply. The wrapper (quantize +
+    kernel) counts one launch per call."""
+    _need_card()
+    q, k, v, mask, sids = _inputs(getattr(torch, dtype), 3, 100, 4, depth, 5)
+    q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+    for kw in ({"bias": make_attention_bias(mask)}, {"sequence_ids": sids}):
+        key_bias, seg = kattn._infer_bias_seg(kw.get("bias"),
+                                              kw.get("sequence_ids"), 3, 100)
+        args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+        before = kattn.flash_attention_infer_int8.launches
+        out = kattn.flash_attention_infer_int8_prequantized(*args)
+        torch.cuda.synchronize()
+        assert kattn.flash_attention_infer_int8.launches == before + 1
+        ref = kattn._int8_forward_math(*args)
+        assert out.dtype == v.dtype and out.shape == v.shape
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+        wrapped = kattn.flash_attention_infer_int8(q, k, v, **kw)
+        plain = kattn.flash_attention_infer_int8_reference(q, k, v, **kw)
+        assert (wrapped.float() - plain.float()).abs().max().item() <= (
+            ATOL[dtype])
+
+
+def test_int8_wrapper_raises_on_what_the_kernel_does_not_take():
+    _need_card()
+    q, k, v, _, _ = _inputs(torch.float32, 2, 16, 2, 64, 1)
+    q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+    run = kattn.flash_attention_infer_int8_prequantized
+    with pytest.raises(ValueError, match="q_scale must be"):
+        run(q8, k8, q_scale.reshape(-1), k_scale, v)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        run(q8, k8, q_scale, k_scale.double(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(q8.transpose(1, 2), k8.transpose(1, 2), q_scale, k_scale,
+            v.transpose(1, 2))
+    with pytest.raises(ValueError, match="q8 must be int8"):
+        run(q8.float(), k8, q_scale, k_scale, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        kattn.flash_attention_infer_int8(q[..., :12].contiguous(),
+                                         k[..., :12].contiguous(),
+                                         v[..., :12].contiguous())
+
+
+def test_int8_matmul_pads_a_small_product_on_card():
+    """torch._int_mm on the card needs more than 16 rows; an 8-row product
+    (the pooler of an unpacked batch of 8) is padded with zero rows and
+    gives the CPU product's values."""
+    _need_card()
+    from bert_pytorch_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32))
+    w8, w_scale = quant.quantize_array(
+        rng.standard_normal((32, 64)).astype(np.float32))
+    w8, w_scale = torch.from_numpy(w8), torch.from_numpy(w_scale)
+    want = quant.int8_matmul(x, w8, w_scale)
+    got = quant.int8_matmul(x.cuda(), w8.cuda(), w_scale.cuda())
+    assert got.shape == (8, 32)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=1e-6)
+
+
+def test_int8_fused_engine_on_card(tmp_path):
+    """A tiny int8 engine on the card with the int8-score kernel and the
+    fused gather: the fused result equals the unfused one, each forward
+    launches the kernel once per layer, and it agrees with a dense-attention
+    int8 engine from the same seeded weights to the int8 bound."""
+    _need_card()
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        write_trace_vocab)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps(dict(
+        vocab_size=40, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=128,
+        max_position_embeddings=64)))
+    vocab = write_trace_vocab(str(tmp_path / "vocab.txt"))
+    payload = {"text": "the capital of [MASK] is [MASK]"}
+    results = {}
+    for backend in ("flash_infer_int8", "dense"):
+        engine = run_server.build_service(run_server.parse_arguments([
+            "--model_config_file", str(cfg), "--vocab_file", vocab,
+            "--dtype", "float32", "--attention_backend", backend,
+            "--tasks", "fill_mask", "--buckets", "16,32", "--quantize",
+            "int8", "--fuse_epilogues"])).engine
+        before, forwards = (kattn.flash_attention_infer_int8.launches,
+                            engine.forwards)
+        results[backend] = engine.run_direct("fill_mask", payload)
+        if backend == "flash_infer_int8":
+            assert (kattn.flash_attention_infer_int8.launches - before
+                    == 2 * (engine.forwards - forwards))
+            engine.fuse_epilogues = False
+            unfused = engine.run_direct("fill_mask", payload)
+            for a, b in zip(results[backend]["masks"], unfused["masks"]):
+                assert [s["id"] for s in a] == [s["id"] for s in b]
+                np.testing.assert_allclose([s["score"] for s in a],
+                                           [s["score"] for s in b], atol=1e-5)
+    for a, b in zip(results["flash_infer_int8"]["masks"],
+                    results["dense"]["masks"]):
+        np.testing.assert_allclose([s["score"] for s in a],
+                                   [s["score"] for s in b], atol=1e-1)
