@@ -1,5 +1,6 @@
 """BERT model family in PyTorch: the port of the JAX package's
-``models/bert.py`` for the serving heads and the pretraining model.
+``models/bert.py`` for the serving heads, the pretraining model and the
+SQuAD head (``BertForQuestionAnswering``).
 
 Component parity with reference src/modeling.py (cited per class). The
 dtype semantics follow the JAX package's flax modules:
@@ -32,6 +33,10 @@ its first forward drew. ``remat="dots"`` saves the matmul outputs of each
 layer and recomputes the rest, the counterpart of the JAX encoder's
 ``checkpoint_dots_with_no_batch_dims``; ``"full"`` saves nothing.
 
+Every model takes ``layer_norm_backend`` (``"plain"``, the default, or
+``"kernel"``), the flax ``LayerNorm.backend`` field, and hands it to each
+of its LayerNorms.
+
 Module and parameter names mirror the flax tree (``query``, ``dense_act``,
 ``output_layer_norm``, ...), so :mod:`.convert` maps the JAX params onto
 this state dict name by name. The encoder's ``nn.scan`` over layers is an
@@ -56,6 +61,7 @@ from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
                                                   make_attention_bias,
                                                   resolve_backend)
 from bert_pytorch_tpu_torch.ops.dropout import dropout
+from bert_pytorch_tpu_torch.ops.layernorm import BACKENDS as LN_BACKENDS
 from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
 
 REMAT_POLICIES = ("none", "dots", "full")
@@ -145,16 +151,24 @@ class Embed(nn.Module):
 
 class LayerNorm(nn.Module):
     """Affine LayerNorm; parity with ``BertLayerNorm`` (modeling.py:311-336).
-    fp32 statistics, result in the input's dtype."""
+    fp32 statistics, result in the input's dtype. ``backend`` is the flax
+    module's field: ``"plain"`` (the JAX ``"xla"``) or ``"kernel"`` (the
+    JAX ``"pallas"``: the hand-written forward kernel,
+    ops/kernels/layernorm.py)."""
 
-    def __init__(self, features: int, eps: float = 1e-12, device=None):
+    def __init__(self, features: int, eps: float = 1e-12, device=None,
+                 backend: str = "plain"):
         super().__init__()
+        if backend not in LN_BACKENDS:
+            raise ValueError(f"layer_norm_backend must be one of "
+                             f"{LN_BACKENDS}, got {backend!r}")
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.eps = eps
+        self.backend = backend
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.scale, self.bias, self.eps)
+        return layer_norm(x, self.scale, self.bias, self.eps, self.backend)
 
 
 class LinearActivation(nn.Module):
@@ -181,7 +195,8 @@ class BertEmbeddings(nn.Module):
     at 0 for every packed sequence (a cummax of the segment starts), so a
     sequence embeds identically alone or packed at some row offset."""
 
-    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None):
+    def __init__(self, config: BertConfig, dtype: torch.dtype, device=None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -193,7 +208,7 @@ class BertEmbeddings(nn.Module):
             self.token_type_embeddings = Embed(cfg.type_vocab_size,
                                                cfg.hidden_size, dtype, device)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                    device)
+                                    device, layer_norm_backend)
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
@@ -228,7 +243,8 @@ class BertSelfAttention(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str, device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         cfg = config
         self.heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
@@ -238,7 +254,8 @@ class BertSelfAttention(nn.Module):
         self.value = make_dense(quant, cfg.hidden_size, width, dtype, device)
         self.output = make_dense(quant, width, cfg.hidden_size, dtype, device)
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
-                                           cfg.layer_norm_eps, device)
+                                           cfg.layer_norm_eps, device,
+                                           layer_norm_backend)
         self.attention_backend = attention_backend
         self.attention_dropout = cfg.attention_probs_dropout_prob
         self.hidden_dropout = cfg.hidden_dropout_prob
@@ -271,18 +288,20 @@ class BertLayer(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str, device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         cfg = config
         self.attention = BertSelfAttention(cfg, dtype, attention_backend,
-                                           device, quant)
+                                           device, quant, layer_norm_backend)
         self.intermediate = LinearActivation(
             cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, dtype,
             device, quant)
         self.output = make_dense(quant, cfg.intermediate_size,
                                  cfg.hidden_size, dtype, device)
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
-                                           cfg.layer_norm_eps, device)
+                                           cfg.layer_norm_eps, device,
+                                           layer_norm_backend)
         self.hidden_dropout = cfg.hidden_dropout_prob
 
     def forward(self, hidden, bias, sequence_ids=None, dropout_seed=None):
@@ -312,14 +331,16 @@ class BertEncoder(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str, device=None, remat: str = "none",
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         if remat not in REMAT_POLICIES:
             raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{remat!r}")
         self.remat = remat
         self.layers = nn.ModuleList(
-            BertLayer(config, dtype, attention_backend, device, quant)
+            BertLayer(config, dtype, attention_backend, device, quant,
+                      layer_norm_backend)
             for _ in range(config.num_hidden_layers))
 
     def forward(self, hidden, bias, sequence_ids=None, dropout_seeds=None):
@@ -363,13 +384,15 @@ class BertModel(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str = "dense", device=None,
-                 remat: str = "none", quant: Optional[str] = None):
+                 remat: str = "none", quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         self.config = config
         self.attention_backend = attention_backend
-        self.embeddings = BertEmbeddings(config, dtype, device)
+        self.embeddings = BertEmbeddings(config, dtype, device,
+                                         layer_norm_backend)
         self.encoder = BertEncoder(config, dtype, attention_backend, device,
-                                   remat, quant)
+                                   remat, quant, layer_norm_backend)
         if config.next_sentence:
             self.pooler = BertPooler(config, dtype, device, quant)
 
@@ -412,13 +435,14 @@ class BertPredictionHeadTransform(nn.Module):
     """dense → act → LayerNorm; parity with modeling.py:551-561."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype, device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         self.dense_act = LinearActivation(
             config.hidden_size, config.hidden_size, config.hidden_act, dtype,
             device, quant)
         self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_eps,
-                                    device)
+                                    device, layer_norm_backend)
 
     def forward(self, hidden):
         return self.layer_norm(self.dense_act(hidden))
@@ -429,10 +453,11 @@ class BertLMPredictionHead(nn.Module):
     free bias; parity with modeling.py:563-599."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype, device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         self.transform = BertPredictionHeadTransform(config, dtype, device,
-                                                     quant)
+                                                     quant, layer_norm_backend)
         self.bias = nn.Parameter(torch.zeros(config.vocab_size, device=device))
         self.dtype = dtype
         self._cast = _CastCache()
@@ -452,11 +477,13 @@ class BertForPreTraining(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  attention_backend: str = "dense", remat: str = "none",
-                 device=None):
+                 device=None, layer_norm_backend: str = "plain"):
         super().__init__()
         self.config = config
-        self.bert = BertModel(config, dtype, attention_backend, device, remat)
-        self.predictions = BertLMPredictionHead(config, dtype, device)
+        self.bert = BertModel(config, dtype, attention_backend, device, remat,
+                              layer_norm_backend=layer_norm_backend)
+        self.predictions = BertLMPredictionHead(
+            config, dtype, device, layer_norm_backend=layer_norm_backend)
         if config.next_sentence:
             self.seq_relationship = Dense(config.hidden_size, 2, dtype,
                                           device)
@@ -510,11 +537,14 @@ class BertForMaskedLM(nn.Module):
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  attention_backend: str = "dense", device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         self.bert = BertModel(config, dtype, attention_backend, device,
-                              quant=quant)
-        self.predictions = BertLMPredictionHead(config, dtype, device, quant)
+                              quant=quant,
+                              layer_norm_backend=layer_norm_backend)
+        self.predictions = BertLMPredictionHead(config, dtype, device, quant,
+                                                layer_norm_backend)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 sequence_ids=None, output_positions=None):
@@ -553,13 +583,15 @@ class BertForSequenceClassification(nn.Module):
     def __init__(self, config: BertConfig, num_labels: int,
                  dtype: torch.dtype = torch.float32,
                  attention_backend: str = "dense", device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
         super().__init__()
         if not config.next_sentence:
             raise ValueError("BertForSequenceClassification needs the "
                              "pooler (config.next_sentence)")
         self.bert = BertModel(config, dtype, attention_backend, device,
-                              quant=quant)
+                              quant=quant,
+                              layer_norm_backend=layer_norm_backend)
         self.head = _ClassifierHead(config.hidden_size, num_labels, dtype,
                                     device, quant)
 
@@ -568,6 +600,32 @@ class BertForSequenceClassification(nn.Module):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
                               sequence_ids, cls_positions)
         return self.head(pooled)
+
+
+class BertForQuestionAnswering(nn.Module):
+    """Start/end span logits; parity with modeling.py:1274-1327 and the JAX
+    package's ``BertForQuestionAnswering``. Returns ``(start_logits,
+    end_logits)``, each [B, S] fp32: the ``qa_outputs`` Dense computes in
+    fp32 whatever the model's dtype (the JAX head's ``dtype=float32``)."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 attention_backend: str = "dense", remat: str = "none",
+                 device=None, layer_norm_backend: str = "plain"):
+        super().__init__()
+        self.config = config
+        self.bert = BertModel(config, dtype, attention_backend, device, remat,
+                              layer_norm_backend=layer_norm_backend)
+        self.qa_outputs = Dense(config.hidden_size, 2, torch.float32, device)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                sequence_ids=None, dropout_seeds=None):
+        """``dropout_seeds`` (:func:`draw_dropout_seeds`) turns dropout on;
+        ``sequence_ids`` selects the packed-row path."""
+        sequence_output, _ = self.bert(input_ids, token_type_ids,
+                                       attention_mask, sequence_ids, None,
+                                       dropout_seeds)
+        logits = self.qa_outputs(sequence_output)
+        return logits[..., 0], logits[..., 1]
 
 
 @torch.no_grad()

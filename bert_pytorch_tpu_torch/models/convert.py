@@ -22,12 +22,17 @@ biases stay bf16. :func:`quantize_state_dict` applies the same rules
 (JAX ``quant.convert_module``) to the port's own fp32 state dict.
 
 The JAX package's ``models/convert.py`` ``export_torch_state_dict`` shows
-the same layout under HF naming.
+the same layout under HF naming. :func:`from_torch_state_dict` reads that
+naming (and the reference's) into the port's names, the counterpart of
+the JAX ``convert_torch_state_dict``, and :func:`load_pretrained_encoder`
+puts the encoder of a torch archive under a finetuning model, the
+foreign-archive branch of the JAX ``load_pretrained_encoder``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,7 +45,10 @@ HEAD_SUBTREES = {
     "fill_mask": ("bert", "predictions"),
     "classify": ("bert", "head"),
     "pretraining": ("bert", "predictions"),
+    "qa": ("bert", "qa_outputs"),
 }
+ROADMAP_CHECKPOINTS = ("ROADMAP.md, queue 1 of the modules still to port: "
+                       "\"Checkpointing (utils/checkpoint.py)\"")
 _STACKED = "bert/encoder/layers/"
 
 
@@ -84,7 +92,8 @@ def from_jax_params(params: dict, config: BertConfig,
     ``"classify"``: ``BertForSequenceClassification``; ``"pretraining"``:
     ``BertForPreTraining``, whose ``predictions`` head keeps its decoder
     tied to the word embeddings and, with ``config.next_sentence``, whose
-    ``seq_relationship`` Dense maps like any other) as a state dict for
+    ``seq_relationship`` Dense maps like any other; ``"qa"``:
+    ``BertForQuestionAnswering``) as a state dict for
     the port's model of the same head: fp32 for fp32 params; for a tree
     from JAX ``quantize_params``, int8 and bf16 leaves keep their type (the
     head built with the same ``quant`` loads it)."""
@@ -159,3 +168,151 @@ def quantize_state_dict(state: Dict[str, torch.Tensor],
             out[key] = weight.detach().to(torch.bfloat16)
         out[bias_key] = state[bias_key].detach().to(torch.bfloat16)
     return out
+
+
+# -- torch archives (reference / HF naming) ---------------------------------
+
+def _first(sd: Dict, *names: str) -> Optional[torch.Tensor]:
+    """The first of ``names`` in ``sd`` (naming variants: ``dense_act`` vs
+    ``dense``, ``LayerNorm.weight`` vs ``LayerNorm.gamma``), or None."""
+    for name in names:
+        if name in sd:
+            return sd[name]
+    return None
+
+
+def _pad_vocab(t: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Zero-pad the leading (vocab) axis up to ``vocab_size``."""
+    if t.shape[0] > vocab_size:
+        raise ValueError(f"checkpoint vocab {t.shape[0]} larger than config "
+                         f"vocab {vocab_size}")
+    if t.shape[0] == vocab_size:
+        return t
+    pad = t.new_zeros((vocab_size - t.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat([t, pad])
+
+
+def _torch_names(config: BertConfig, head: str) -> Dict[str, tuple]:
+    """Port state-dict name -> the torch names it may take (reference
+    naming first, then HF), for the encoder and ``head``'s own modules."""
+    names: Dict[str, tuple] = {}
+
+    def dense(port: str, *torch_prefixes: str):
+        for leaf in ("weight", "bias"):
+            names[f"{port}.{leaf}"] = tuple(f"{p}.{leaf}"
+                                            for p in torch_prefixes)
+
+    def norm(port: str, torch_prefix: str):
+        names[f"{port}.scale"] = (f"{torch_prefix}.weight",
+                                  f"{torch_prefix}.gamma")
+        names[f"{port}.bias"] = (f"{torch_prefix}.bias",
+                                 f"{torch_prefix}.beta")
+
+    emb = "bert.embeddings"
+    for table in ("word_embeddings", "position_embeddings",
+                  "token_type_embeddings"):
+        names[f"{emb}.{table}.weight"] = (f"{emb}.{table}.weight",)
+    norm(f"{emb}.layer_norm", f"{emb}.LayerNorm")
+    for i in range(config.num_hidden_layers):
+        port, ref = f"bert.encoder.layers.{i}", f"bert.encoder.layer.{i}"
+        for proj in ("query", "key", "value"):
+            dense(f"{port}.attention.{proj}", f"{ref}.attention.self.{proj}")
+        dense(f"{port}.attention.output", f"{ref}.attention.output.dense")
+        norm(f"{port}.attention.output_layer_norm",
+             f"{ref}.attention.output.LayerNorm")
+        dense(f"{port}.intermediate.dense", f"{ref}.intermediate.dense_act",
+              f"{ref}.intermediate.dense")
+        dense(f"{port}.output", f"{ref}.output.dense")
+        norm(f"{port}.output_layer_norm", f"{ref}.output.LayerNorm")
+    dense("bert.pooler.dense_act.dense", "bert.pooler.dense_act",
+          "bert.pooler.dense")
+    if head in ("pretraining", "fill_mask"):
+        names["predictions.bias"] = ("cls.predictions.bias",)
+        dense("predictions.transform.dense_act.dense",
+              "cls.predictions.transform.dense_act",
+              "cls.predictions.transform.dense")
+        norm("predictions.transform.layer_norm",
+             "cls.predictions.transform.LayerNorm")
+    if head == "pretraining":
+        dense("seq_relationship", "cls.seq_relationship")
+    if head == "qa":
+        dense("qa_outputs", "qa_outputs")
+    if head == "classify":
+        dense("head.classifier", "classifier")
+    return names
+
+
+def from_torch_state_dict(state_dict: Dict, config: BertConfig,
+                          head: str) -> Dict[str, torch.Tensor]:
+    """A reference or HF torch BERT state dict (``module.`` prefixes
+    dropped; ``dense_act`` or ``dense``, gamma/beta or weight/bias
+    LayerNorms) as the port's state dict for ``head``: fp32 tensors under
+    the port's names, the word embeddings and MLM bias zero-padded to
+    ``config.vocab_size``. Torch Linear weights are [out, in] in both, so
+    nothing is transposed. Modules the archive lacks (a bare encoder loaded
+    for a head) are absent from the result, as in the JAX
+    ``convert_torch_state_dict``."""
+    if head not in HEAD_SUBTREES:
+        raise ValueError(f"unknown head {head!r}; known: {sorted(HEAD_SUBTREES)}")
+    sd = {(k[7:] if k.startswith("module.") else k): v
+          for k, v in state_dict.items()}
+    state: Dict[str, torch.Tensor] = {}
+    for port, candidates in _torch_names(config, head).items():
+        value = _first(sd, *candidates)
+        if value is None or (port.endswith("token_type_embeddings.weight")
+                             and not config.next_sentence):
+            continue
+        value = (value.detach().cpu() if isinstance(value, torch.Tensor)
+                 else torch.from_numpy(np.asarray(value))).float()
+        if port in ("bert.embeddings.word_embeddings.weight",
+                    "predictions.bias"):
+            value = _pad_vocab(value, config.vocab_size)
+        state[port] = value.contiguous()
+    if "bert.embeddings.word_embeddings.weight" not in state:
+        raise KeyError("no bert.embeddings.word_embeddings.weight in the "
+                       "state dict: not a BERT checkpoint")
+    return state
+
+
+def load_pretrained_encoder(path: str, config: BertConfig,
+                            model: torch.nn.Module) -> torch.nn.Module:
+    """Put the ``bert`` encoder of a torch archive under ``model`` (its
+    head keeps its fresh init: the strict=False load of reference
+    run_squad.py:957-961). ``path`` is a directory holding
+    ``pytorch_model.bin`` (its ``config.json`` is not read: ``config``
+    is), or a ``.bin``/``.pt``/``.pth`` torch file, whose state dict may
+    sit under a ``"model"`` key. The JAX package's own msgpack checkpoints
+    and TF checkpoints need the checkpoint module, which is not ported:
+    they raise. Every encoder tensor of ``model`` must be in the
+    archive."""
+    if os.path.isdir(path):
+        weights = os.path.join(path, "pytorch_model.bin")
+        if not os.path.exists(weights):
+            raise NotImplementedError(
+                f"{path} holds no pytorch_model.bin; TF checkpoints "
+                f"(bert_model.ckpt*) are not read by the port yet "
+                f"({ROADMAP_CHECKPOINTS})")
+    elif path.endswith((".bin", ".pt", ".pth")):
+        weights = path
+    else:
+        raise NotImplementedError(
+            f"{path}: only torch archives (a directory with "
+            "pytorch_model.bin, or a .bin/.pt/.pth file) are read by the "
+            "port; msgpack and TF checkpoints need the checkpoint module, "
+            f"not ported yet ({ROADMAP_CHECKPOINTS})")
+    sd = torch.load(weights, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), dict):
+        sd = sd["model"]  # the reference's checkpoint dict (run_squad.py:958)
+    loaded = {k: v for k, v in from_torch_state_dict(sd, config,
+                                                     "pretraining").items()
+              if k.startswith("bert.")}
+    state = model.state_dict()
+    missing = sorted(k for k in state if k.startswith("bert.")
+                     and k not in loaded)
+    if missing:
+        raise KeyError(f"{path} lacks encoder tensors {missing[:4]} "
+                       f"({len(missing)} in all)")
+    state.update({k: v.to(state[k].device) for k, v in loaded.items()
+                  if k in state})
+    model.load_state_dict(state)
+    return model

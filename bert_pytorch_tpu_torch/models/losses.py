@@ -1,12 +1,14 @@
-"""Pretraining losses: the port of the JAX package's ``models/losses.py``
+"""Losses: the port of the JAX package's ``models/losses.py``
 (``pretraining_loss``, ``masked_lm_loss``, ``next_sentence_loss``,
-``mlm_accuracy``).
+``mlm_accuracy``, ``span_loss``).
 
-Parity target ``BertPretrainingCriterion`` (reference run_pretraining.py:
-58-72): masked-LM cross-entropy with ignore_index -1 plus NSP
-cross-entropy, summed. Each cross-entropy is computed in fp32 whatever the
-logits' dtype and averaged over the positions that carry a label
-(``max(count, 1)``, so a batch with none gives 0).
+Parity targets: ``BertPretrainingCriterion`` (reference run_pretraining.py:
+58-72), masked-LM cross-entropy with ignore_index -1 plus NSP
+cross-entropy, summed; the SQuAD span loss (reference run_squad.py:
+1085-1092), start and end cross-entropy averaged. Each cross-entropy is
+computed in fp32 whatever the logits' dtype and averaged over the
+positions that carry a label (``max(count, 1)``, so a batch with none
+gives 0).
 """
 
 from __future__ import annotations
@@ -59,6 +61,25 @@ def pretraining_loss(prediction_logits: torch.Tensor,
         loss = loss + next_sentence_loss(seq_relationship_logits,
                                          next_sentence_labels)
     return loss
+
+
+def span_loss(start_logits: torch.Tensor, end_logits: torch.Tensor,
+              start_positions: torch.Tensor,
+              end_positions: torch.Tensor) -> torch.Tensor:
+    """SQuAD loss over [B, S] logits: positions clamped into [0, S], one
+    extra class of logit -10000 appended, CE with ignore_index S on start
+    and on end, averaged (run_squad.py:1085-1092: a clamped index is the
+    ignored index S)."""
+    seq_len = start_logits.shape[-1]
+    start_positions = start_positions.clamp(0, seq_len)
+    end_positions = end_positions.clamp(0, seq_len)
+    pad = torch.full(start_logits.shape[:-1] + (1,), -10000.0,
+                     dtype=start_logits.dtype, device=start_logits.device)
+    start_l = torch.cat([start_logits, pad], dim=-1).float()
+    end_l = torch.cat([end_logits, pad], dim=-1).float()
+    s = _xent_ignore(start_l, start_positions, ignore_index=seq_len)
+    e = _xent_ignore(end_l, end_positions, ignore_index=seq_len)
+    return (s + e) / 2.0
 
 
 def mlm_accuracy(prediction_logits: torch.Tensor,

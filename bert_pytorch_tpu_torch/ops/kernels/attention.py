@@ -160,26 +160,8 @@ _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
 
 def _library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed, with
-    ``argtypes`` set on every entry point (``<name>_error`` maps a
-    cudaError_t to its message)."""
-    lib = build.load(name)
-    for entry, argtypes in _ENTRY_POINTS[name].items():
-        fn = getattr(lib, entry)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error")
-    if err.argtypes is None:
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(rc: int, lib: ctypes.CDLL, lib_name: str, name: str) -> None:
-    if rc != 0:
-        message = getattr(lib, f"{lib_name}_error")(rc).decode()
-        raise RuntimeError(
-            f"{name}: kernel launch failed: {message} (cudaError {rc})")
+    ``argtypes`` set on every entry point."""
+    return build.load_bound(name, _ENTRY_POINTS[name])
 
 
 def _check(name: str, q: torch.Tensor, same: Dict[str, torch.Tensor],
@@ -261,7 +243,7 @@ def flash_attention_infer(q, k, v, bias=None, sequence_ids=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
             _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, _stream(q))
-    _raise_on(rc, lib, _NAME, _NAME)
+    build.raise_on(rc, lib, _NAME, _NAME)
     flash_attention_infer.launches += 1
     return out
 
@@ -348,7 +330,7 @@ def flash_attention_infer_int8_prequantized(q8, k8, q_scale, k_scale, v,
             q_scale.data_ptr(), k_scale.data_ptr(), _ptr(key_bias),
             _ptr(seg), batch, seq, heads, depth, _DTYPE_CODES[v.dtype],
             1.0 / float(depth) ** 0.5, _stream(v))
-    _raise_on(rc, lib, _INT8, _INT8)
+    build.raise_on(rc, lib, _INT8, _INT8)
     flash_attention_infer_int8.launches += 1
     return out
 
@@ -546,7 +528,7 @@ def flash_attention_fwd(q, k, v, key_bias=None, seg=None, seed=None,
             lse.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
             depth, _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag,
             lo, hi, threshold, 1.0 - rate, _stream(q))
-    _raise_on(rc, lib, name, name)
+    build.raise_on(rc, lib, name, name)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -577,7 +559,7 @@ def flash_attention_dq(q, k, v, out, do, lse, key_bias=None, seg=None,
             _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
             _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag, lo, hi,
             threshold, 1.0 / (1.0 - rate), _stream(q))
-    _raise_on(rc, lib, "flash_attention_bwd", name)
+    build.raise_on(rc, lib, "flash_attention_bwd", name)
     flash_attention_dq.launches += 1
     return dq, delta
 
@@ -605,7 +587,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, key_bias=None, seg=None,
             dbias.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
             depth, _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag,
             lo, hi, threshold, 1.0 / (1.0 - rate), _stream(q))
-    _raise_on(rc, lib, "flash_attention_bwd", name)
+    build.raise_on(rc, lib, "flash_attention_bwd", name)
     flash_attention_dkv.launches += 1
     return dk, dv, dbias
 

@@ -20,14 +20,15 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 # One entry per kernel source (csrc/<name>.cu -> build/lib<name>-<hash>.so).
 KERNEL_SOURCES = ("flash_attention_infer", "flash_attention_infer_int8",
-                  "flash_attention_fwd", "flash_attention_bwd")
+                  "flash_attention_fwd", "flash_attention_bwd",
+                  "layer_norm_fwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,3 +110,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libraries[name] = lib
         return lib
+
+
+def load_bound(name: str, entry_points: Dict[str, List]) -> ctypes.CDLL:
+    """:func:`load`, with ``argtypes`` set on each named entry point (each
+    returns a cudaError_t as an ``int``) and on ``<name>_error``, which
+    maps a cudaError_t to its message."""
+    lib = load(name)
+    for entry, argtypes in entry_points.items():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error")
+    if err.argtypes is None:
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(rc: int, lib: ctypes.CDLL, lib_name: str, name: str) -> None:
+    """Raise if a C entry point of ``lib_name`` returned a cudaError_t
+    other than 0 for the wrapper ``name``."""
+    if rc != 0:
+        message = getattr(lib, f"{lib_name}_error")(rc).decode()
+        raise RuntimeError(
+            f"{name}: kernel launch failed: {message} (cudaError {rc})")

@@ -1,24 +1,29 @@
 """Optimizers: the port of the JAX package's ``optim/transforms.py``
-``lamb`` and ``adamw`` as ``torch.optim.Optimizer`` subclasses, with the
-same update math (Apex ``FusedLAMB``/``FusedAdam`` semantics, reference
-run_pretraining.py:279-295 and src/optimization.py:25).
+``lamb``, ``adamw`` and ``bert_adam`` as ``torch.optim.Optimizer``
+subclasses, with the same update math (Apex ``FusedLAMB``/``FusedAdam``
+semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
+``BertAdam``, src/optimization.py:64-174).
 
 * The learning rate is a float or a schedule (optim/schedules.py) read at
   the optimizer's step count BEFORE the step increments it; each param
   group carries that count (``group["count"]``, :func:`reset_count`) and
   the lr it last used (``group["lr"]``).
-* Moments are fp32 and bias-corrected; the update is
-  ``m_hat / (sqrt(v_hat) + eps) + weight_decay * p``.
+* Moments are fp32; the update is ``m_hat / (sqrt(v_hat) + eps) +
+  weight_decay * p``, bias-corrected for LAMB and (by default) AdamW.
+  ``AdamW(bias_correction=False)`` (the finetuning runners' FusedAdam) and
+  ``BertAdam`` use the raw moments.
 * LAMB clips the gradients to a global norm first
   (``min(1, max_norm / (||g|| + 1e-6))``) and scales each tensor's lr by
   the trust ratio ``||p|| / ||update||`` (1.0 where either norm is 0).
+  ``BertAdam`` clips each tensor to ``max_grad_norm`` on its own and reads
+  its schedule (``warmup_linear`` and the others of
+  optim/schedules.py, with no +1 offset) inside the optimizer.
 * Weight decay applies per param group: :func:`param_groups` splits a
   model's parameters with :func:`no_decay_mask`, the counterpart of the
   JAX ``weight_decay_mask``.
 
-``bert_adam``, ``dynamic_loss_scale`` (fp16), LAMB's ``trust_clip`` and
-the option to turn bias correction off (the finetuning runners' AdamW) are
-not ported yet.
+``dynamic_loss_scale`` (fp16) and LAMB's ``trust_clip`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
+
+from bert_pytorch_tpu_torch.optim import schedules
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -76,8 +83,10 @@ class _Adam(torch.optim.Optimizer):
     :class:`AdamW`."""
 
     def __init__(self, params, lr: LearningRate, betas: Tuple[float, float],
-                 eps: float, weight_decay: float):
+                 eps: float, weight_decay: float,
+                 bias_correction: bool = True):
         self.schedule = lr if callable(lr) else (lambda count: lr)
+        self.bias_correction = bias_correction
         super().__init__(params, dict(
             lr=self.schedule(0), betas=betas, eps=eps,
             weight_decay=weight_decay, count=0))
@@ -88,8 +97,10 @@ class _Adam(torch.optim.Optimizer):
         count = group["count"]
         group["lr"] = float(self.schedule(count))
         b1, b2 = group["betas"]
-        c1 = 1.0 - b1 ** (count + 1)
-        c2 = 1.0 - b2 ** (count + 1)
+        c1 = c2 = 1.0
+        if self.bias_correction:
+            c1 = 1.0 - b1 ** (count + 1)
+            c2 = 1.0 - b2 ** (count + 1)
         for p, g in zip(group["params"], grads):
             state = self.state[p]
             if not state:
@@ -139,11 +150,14 @@ class Lamb(_Adam):
 
 class AdamW(_Adam):
     """Adam with decoupled weight decay (the JAX ``adamw``; the Apex
-    ``FusedAdam`` role in finetuning)."""
+    ``FusedAdam`` role in finetuning, where the runners turn
+    ``bias_correction`` off, reference run_squad.py:982-988)."""
 
     def __init__(self, params, lr: LearningRate, betas=(0.9, 0.999),
-                 eps: float = 1e-6, weight_decay: float = 0.01):
-        super().__init__(params, lr, betas, eps, weight_decay)
+                 eps: float = 1e-6, weight_decay: float = 0.01,
+                 bias_correction: bool = True):
+        super().__init__(params, lr, betas, eps, weight_decay,
+                         bias_correction)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -152,5 +166,52 @@ class AdamW(_Adam):
         for group in self.param_groups:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in group["params"]]
+            for p, upd in self._updates(group, grads):
+                p.add_((-group["lr"] * upd).to(p.dtype))
+
+
+_BERT_ADAM_SCHEDULES = {
+    "warmup_linear": schedules.warmup_linear_schedule,
+    "warmup_cosine": schedules.warmup_cosine_schedule,
+    "warmup_constant": schedules.warmup_constant_schedule,
+    "warmup_poly": schedules.warmup_poly_schedule,
+}
+
+
+class BertAdam(_Adam):
+    """``BertAdam`` (the JAX ``bert_adam``; reference
+    src/optimization.py:64-174): the lr at step t is ``schedule(lr,
+    warmup, t_total)`` read at the pre-update count (no +1 offset; a
+    constant ``lr`` when ``t_total`` is -1), each gradient tensor is
+    clipped to ``max_grad_norm`` on its own, and the update ``m / (sqrt(v)
+    + eps) + weight_decay * p`` has no bias correction. The SQuAD runner's
+    fp32 path (run_squad.py:999-1002)."""
+
+    def __init__(self, params, lr: float, schedule: str = "warmup_linear",
+                 warmup: float = -1.0, t_total: int = -1,
+                 betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+        if schedule not in _BERT_ADAM_SCHEDULES:
+            raise ValueError(f"Invalid schedule parameter: {schedule}")
+        rate: LearningRate = lr
+        if t_total != -1:
+            rate = _BERT_ADAM_SCHEDULES[schedule](lr, warmup, t_total,
+                                                  offset=0)
+        super().__init__(params, rate, betas, eps, weight_decay,
+                         bias_correction=False)
+        self.max_grad_norm = max_grad_norm
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("BertAdam.step takes no closure")
+        for group in self.param_groups:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in group["params"]]
+            if self.max_grad_norm > 0:
+                grads = [g * torch.clamp(
+                    self.max_grad_norm
+                    / (torch.linalg.vector_norm(g.float()) + 1e-6),
+                    max=1.0).to(g.dtype) for g in grads]
             for p, upd in self._updates(group, grads):
                 p.add_((-group["lr"] * upd).to(p.dtype))

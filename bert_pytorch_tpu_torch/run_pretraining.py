@@ -24,7 +24,9 @@ On-the-fly packing packs up to 8 sequences per row (the JAX runner's
 ``--max_sequences_per_pack`` default), and LAMB clips to a global norm of
 1.0 (its ``--max_grad_norm`` default). ``attention_backend "pallas"`` in a
 config file (the JAX recipe's phase-2 setting) selects its counterpart,
-``flash``.
+``flash``. ``--layer_norm_backend kernel`` (or its JAX name ``pallas``)
+runs every LayerNorm through the hand-written forward kernel; the default
+``plain`` (JAX ``xla``) is the JAX runner's.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
 where there is none raises.
@@ -49,6 +51,7 @@ from bert_pytorch_tpu_torch.data.loader import DataLoader
 from bert_pytorch_tpu_torch.data.sampler import DistributedSampler
 from bert_pytorch_tpu_torch.data.tokenization import load_vocab
 from bert_pytorch_tpu_torch.models.bert import BertForPreTraining, init_weights
+from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.schedules import SCHEDULES, make_schedule
 from bert_pytorch_tpu_torch.optim.transforms import AdamW, Lamb, param_groups
 
@@ -105,6 +108,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         choices=["auto", "dense", "flash"],
                         help="'auto': the flash kernels at seq >= 256 on a "
                              "CUDA device, dense otherwise")
+    parser.add_argument("--layer_norm_backend", type=str, default="plain",
+                        help="plain (the JAX 'xla'; default) or kernel "
+                             "(the JAX 'pallas'): the LayerNorm forward "
+                             "kernel")
     # optimizer
     parser.add_argument("--optimizer", type=str, default="lamb",
                         choices=["lamb", "adamw"])
@@ -137,6 +144,7 @@ def setup_training(args) -> argparse.Namespace:
         raise ValueError(
             f"attention_backend {args.attention_backend!r} is not one of "
             "auto, dense, flash")
+    args.layer_norm_backend = resolve_backend(args.layer_norm_backend)
     if args.dtype not in DTYPES:
         raise ValueError(f"dtype {args.dtype!r} is not one of {sorted(DTYPES)}")
     if args.global_batch_size % args.local_batch_size:
@@ -170,7 +178,7 @@ def prepare_model(args):
     model = BertForPreTraining(
         config, dtype=DTYPES[args.dtype],
         attention_backend=args.attention_backend, remat=args.remat,
-        device=args.device)
+        device=args.device, layer_norm_backend=args.layer_norm_backend)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     init_weights(model, config.initializer_range, gen)
     return model, config
@@ -245,6 +253,7 @@ def main(args) -> dict:
     log({"event": "start", "device": str(args.device),
                "dtype": args.dtype, "attention_backend":
                args.attention_backend, "remat": args.remat,
+               "layer_norm_backend": args.layer_norm_backend,
                "accumulation_steps": args.accumulation_steps,
                "samples": len(loader.dataset), "packed": int(args.packed)})
     global_step, epoch = 0, 0

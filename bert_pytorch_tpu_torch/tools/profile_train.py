@@ -48,7 +48,7 @@ GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
 LOCAL_BATCH, ACCUMULATION_STEPS, ITERS = 8, 2, 5
 
 
-def _device_rows(prof):
+def device_rows(prof):
     """(kernel name, device ms, launches), largest first. Annotations that
     the profiler mirrors onto the device timeline (``Optimizer.step#...``)
     span other kernels and would count them twice: they are left out."""
@@ -123,7 +123,7 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(0)
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
     host = sorted(((evt.key, evt.self_cpu_time_total / 1e3, evt.count)
                    for evt in prof.key_averages()

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card: name and power limit (``nvidia-smi``); no CUDA device = fail;
 2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
    per source, all started together): the two serving kernels (fp and
-   int8 scores) and the three training kernels (forward, dq, dkv);
+   int8 scores), the three training kernels (forward, dq, dkv) and the
+   LayerNorm forward kernel;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it (B=8, H=16, D=64, S in {128, 512}, bf16
    and fp32, padded rows and packed rows; the int8 kernel and its plain
@@ -52,7 +53,25 @@ Phases (any failure exits non-zero and prints no result line):
    launches (remat recomputes the forward) and 24 x 2 each of dq and dkv.
    Then an fp32 training step with the flash kernels and with dense
    attention (2 layers at BERT-large width, dropout 0, the same weights
-   and batch) must agree in loss, gradients and updated parameters.
+   and batch) must agree in loss, gradients and updated parameters;
+7. the LayerNorm forward kernel against its plain version at the rows the
+   paths give it ([32*384, 1024], [8*512, 1024], [7, 768]; bf16 and fp32;
+   one all-zero and one constant row, whose variance is 0): out, mean and
+   rstd within the tolerances stated below; the autograd Function's
+   gradients against autograd through the plain LayerNorm; its device time
+   per call (``torch.profiler``: the kernel alone takes less than the
+   host's time to issue it) beside its plain version's,
+   ``torch.nn.functional.layer_norm``'s and its bound, and CUDA-event
+   times of 100 calls back to back;
+8. the SQuAD main path: ``run_squad.main`` at BERT-large width on seeded
+   synthetic SQuAD files (max_seq_length 384, doc_stride 128, batch 32,
+   bf16, AdamW, ``--layer_norm_backend kernel``): three optimizer steps,
+   prediction and the official eval script. Every loss finite, the first
+   within 1 of ln(384), one prediction per question, EM and F1 reported,
+   and the LayerNorm kernel launched exactly 1 + 2 x 24 times per forward
+   (steps + prediction batches) and no other kernel. The serving and
+   pretraining paths keep the plain LayerNorm: the kernel launches never
+   there.
 
 Every launch counter is set to 0 just before each main path and read just
 after it. The last three lines of standard output are the kernels JSON,
@@ -116,6 +135,25 @@ INT8_CHECK_LAYERS = 2
 # A fill_mask request with more [MASK]s than the 8 gather slots: its batch
 # runs the unfused forward.
 OVERFLOW_MASKS = 9
+# The LayerNorm forward kernel (TPU kernel #6): the SQuAD path's rows
+# (batch 32 x 384), the pretraining path's (8 x 512) and a ragged BERT-base
+# shape. Against its plain version on the same inputs: fp32 out within
+# LN_OUT_ATOL (statistics summed in another order); bf16 out within one
+# bf16 ulp of the plain value plus LN_OUT_ATOL (the same fp32 math, so one
+# rounding step apart at most, from fp32 values up to LN_OUT_ATOL apart:
+# an output near 0, where normed * scale cancels against bias, keeps that
+# absolute fp32 difference while its ulp shrinks); mean within LN_STAT_RTOL relative (+ LN_STAT_ATOL for
+# means near 0) and rstd within LN_STAT_RTOL relative; the Function's fp32
+# gradients within LN_GRAD_RTOL of each gradient's largest magnitude
+# (dscale and dbias sum 12288 rows in another order).
+LN_SHAPES = ((32 * 384, 1024), (8 * 512, 1024), (7, 768))
+LN_EPS = 1e-12
+LN_OUT_ATOL, LN_STAT_RTOL, LN_STAT_ATOL, LN_GRAD_RTOL = 1e-5, 1e-5, 1e-7, 1e-5
+LN_REPLACES = "bert_pytorch_tpu/ops/pallas/layernorm.py:25"
+LN_SOURCE = "bert_pytorch_tpu_torch/csrc/layer_norm_fwd.cu"
+# fp32 operations per element of the kernel (sum, center, square and sum,
+# scale by rstd, scale, shift), on the CUDA cores whatever x's dtype.
+LN_OPS_PER_ELEMENT = 7
 
 
 def log(msg: str) -> None:
@@ -142,6 +180,26 @@ def cuda_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
+    """Device time per call of ``fn``: the time of every CUDA kernel in a
+    ``torch.profiler`` trace of ``iters`` calls after ``warmup``, summed
+    and divided by ``iters``. Unlike :func:`cuda_time_ms` it leaves out
+    the card's idle time between launches when the host issues them
+    slower than the card runs them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_pytorch_tpu_torch.tools.profile_train import device_rows
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[1] for r in device_rows(prof)) / iters
 
 
 def attention_inputs(seq: int, dtype, packed: bool, gen: torch.Generator):
@@ -701,7 +759,7 @@ def drive_main_path(vocab: str, kernels: dict) -> dict:
     args = serve_args(vocab, "bfloat16", "flash_infer", "fill_mask,classify")
     served = serve_waves(args, request_waves(), kernels)
     check_coverage(served["plans"])
-    check_launches(served, "flash_attention_infer", ())
+    check_launches(served, "flash_attention_infer", ("layer_norm_fwd",))
     return served
 
 
@@ -730,7 +788,7 @@ def drive_int8_main_path(vocab: str, kernels: dict) -> dict:
                              f"the unfused forward (or classify fused): "
                              f"{plans}")
     check_launches(served, "flash_attention_infer_int8",
-                   ("flash_attention_infer",))
+                   ("flash_attention_infer", "layer_norm_fwd"))
     return served
 
 
@@ -960,12 +1018,14 @@ def drive_training(kernels: dict) -> dict:
     per_step = layers * args.accumulation_steps
     expected = {"flash_attention_fwd": 2 * per_step * TRAIN_STEPS,
                 "flash_attention_dq": per_step * TRAIN_STEPS,
-                "flash_attention_dkv": per_step * TRAIN_STEPS}
+                "flash_attention_dkv": per_step * TRAIN_STEPS,
+                "layer_norm_fwd": 0}
     for name, want in expected.items():
         if launches[name] != want:
             raise AssertionError(
                 f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
-                f"steps; expected {want} (remat dots recomputes the forward)")
+                f"steps; expected {want} (remat dots recomputes the forward; "
+                "the pretraining path keeps the plain LayerNorm)")
     steady = [r["step_ms"] for r in records[1:]]
     step_ms = statistics.median(steady)
     del model, optimizer, step, batches
@@ -1047,6 +1107,213 @@ def training_entries(worst: dict, cases: dict, launches: dict) -> list:
     return out
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``t`` (fp32 holding bf16 values; 8
+    significant bits), the smallest normal's ulp at 0."""
+    mag = t.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def ln_inputs(rows: int, hidden: int, dtype, gen: torch.Generator):
+    """x [rows, H] (normal, sd 2, mean 0.5; row 0 all zero and row 1
+    constant 0.5, both with variance 0) in ``dtype``; fp32 scale ~ 1 and
+    bias ~ 0 [H]."""
+    x = torch.randn(rows, hidden, device="cuda", generator=gen) * 2.0 + 0.5
+    x[0] = 0.0
+    if rows > 1:
+        x[1] = 0.5
+    scale = 1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    return x.to(dtype), scale, bias
+
+
+def ln_bound_ms(rows: int, hidden: int, dtype) -> tuple:
+    """(least time in ms, what bounds it): x read and out written once at
+    x's element size plus the fp32 mean and rstd of each row, against
+    LN_OPS_PER_ELEMENT fp32 operations per element."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = rows * hidden * 2 * elem + 8 * rows
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (LN_OPS_PER_ELEMENT * rows * hidden
+             / PEAK_FLOPS[torch.float32] * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_ln_gradients(rows: int, hidden: int, gen) -> float:
+    """The Function's fp32 dx, dscale and dbias against autograd through
+    the plain LayerNorm on the same inputs and output gradient; returns
+    the worst error relative to each gradient's largest magnitude."""
+    from bert_pytorch_tpu_torch.ops.kernels.layernorm import layer_norm_kernel
+    from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
+
+    x, scale, bias = ln_inputs(rows, hidden, torch.float32, gen)
+    g = torch.randn(rows, hidden, device="cuda", generator=gen)
+    leaves = [t.requires_grad_() for t in (x, scale, bias)]
+    grads = [torch.autograd.grad(fn(x, scale, bias, LN_EPS), leaves, g)
+             for fn in (layer_norm_kernel, layer_norm)]
+    torch.cuda.synchronize()
+    worst = 0.0
+    for label, got, want in zip(("dx", "dscale", "dbias"), *grads):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        finite = bool(torch.isfinite(got).all())
+        if not finite or not rel <= LN_GRAD_RTOL:
+            raise AssertionError(
+                f"layer_norm Function {label} at [{rows}, {hidden}]: "
+                f"relative error {rel:.3e} > {LN_GRAD_RTOL:g} or not "
+                f"finite ({finite})")
+        worst = max(worst, rel)
+    return worst
+
+
+def check_and_time_layer_norm() -> dict:
+    """Phase 7: the LayerNorm forward kernel against its plain version at
+    LN_SHAPES in bf16 and fp32 (out, mean, rstd), its gradients through the
+    autograd Function, and its time beside the plain version's,
+    ``torch.nn.functional.layer_norm``'s (weight and bias in x's dtype: one
+    PyTorch call for the same function, a yardstick only) and its bound."""
+    from bert_pytorch_tpu_torch.ops.kernels import layernorm as kln
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, max_err, grad_err = [], 0.0, 0.0
+    for rows, hidden in LN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, scale, bias = ln_inputs(rows, hidden, dtype, gen)
+            out, mean, rstd = kln.layer_norm_fwd(x, scale, bias, LN_EPS)
+            torch.cuda.synchronize()
+            ref, ref_mean, ref_rstd = kln.layer_norm_fwd_reference(
+                x, scale, bias, LN_EPS)
+            err = (out.float() - ref.float()).abs()
+            tol = LN_OUT_ATOL + (bf16_ulp(ref.float())
+                                 if dtype == torch.bfloat16 else 0.0)
+            mean_ok = ((mean - ref_mean).abs()
+                       <= LN_STAT_ATOL + LN_STAT_RTOL * ref_mean.abs()).all()
+            rstd_rel = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (out, mean, rstd))
+            name = f"[{rows}, {hidden}] {str(dtype)[6:]}"
+            log(f"[check] layer_norm_fwd {name}: out max_abs_err "
+                f"{err.max().item():.3e} (atol {LN_OUT_ATOL:g}"
+                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}), "
+                f"mean max_abs_err {(mean - ref_mean).abs().max().item():.3e}, "
+                f"rstd max rel err {rstd_rel:.3e} (rtol {LN_STAT_RTOL:g}; "
+                f"zero-variance rows: rstd {rstd[0].item():.6g}), "
+                f"finite {finite}")
+            if not (finite and bool((err <= tol).all()) and bool(mean_ok)
+                    and rstd_rel <= LN_STAT_RTOL):
+                worst = int(torch.argmax(err - tol))
+                raise AssertionError(
+                    f"layer_norm_fwd disagrees with its plain version at "
+                    f"{name}: element {divmod(worst, hidden)} kernel "
+                    f"{out.flatten()[worst].item()!r} plain "
+                    f"{ref.flatten()[worst].item()!r} (tolerance "
+                    f"{tol.flatten()[worst].item():.3e}); mean ok "
+                    f"{bool(mean_ok)}, finite {finite}")
+            max_err = max(max_err, err.max().item())
+            weight, shift = scale.to(dtype), bias.to(dtype)
+            calls = {
+                "kernel": lambda: kln.layer_norm_fwd(x, scale, bias, LN_EPS),
+                "plain": lambda: kln.layer_norm_fwd_reference(
+                    x, scale, bias, LN_EPS),
+                "library": lambda: torch.nn.functional.layer_norm(
+                    x, (hidden,), weight, shift, LN_EPS)}
+            device = {k: device_time_ms(fn) for k, fn in calls.items()}
+            events = {k: cuda_time_ms(fn) for k, fn in calls.items()}
+            t_bound, by = ln_bound_ms(rows, hidden, dtype)
+            log(f"[time] layer_norm_fwd {name}: device time per call "
+                f"kernel {device['kernel']:.4f} ms, plain "
+                f"{device['plain']:.4f} ms, F.layer_norm "
+                f"{device['library']:.4f} ms, bound {t_bound:.4f} ms ({by}); "
+                f"CUDA events per call of 100 back to back (with the host's "
+                f"issue time) kernel {events['kernel']:.4f}, plain "
+                f"{events['plain']:.4f}, F.layer_norm "
+                f"{events['library']:.4f} ms")
+            cases.append({"rows": rows, "hidden": hidden,
+                          "dtype": str(dtype)[6:],
+                          "max_abs_err": err.max().item(),
+                          "ms": device["kernel"], "plain_ms": device["plain"],
+                          "library_ms": device["library"],
+                          "event_ms": events["kernel"],
+                          "plain_event_ms": events["plain"],
+                          "library_event_ms": events["library"],
+                          "bound_ms": t_bound, "bound_by": by})
+        grad_err = max(grad_err, check_ln_gradients(rows, hidden, gen))
+    log(f"[check] layer_norm Function fp32 gradients vs autograd through the "
+        f"plain LayerNorm: worst relative error {grad_err:.3e} (rtol "
+        f"{LN_GRAD_RTOL:g})")
+    head = next(c for c in cases if (c["rows"], c["hidden"]) == LN_SHAPES[0]
+                and c["dtype"] == "bfloat16")
+    return {"name": "layer_norm_fwd", "route": "cuda", "source": LN_SOURCE,
+            "replaces": LN_REPLACES, "launches": None, "max_abs_err": max_err,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "F.layer_norm, weight and bias in x's dtype",
+            "grad_rel_err": grad_err, "cases": cases}
+
+
+SQUAD_STEPS, SQUAD_BATCH, SQUAD_SEQ = 3, 32, 384
+# The first loss of a seeded random init: start and end CE over S classes.
+SQUAD_INIT_LOSS = math.log(SQUAD_SEQ)
+EVAL_SCRIPT = os.path.join(REPO, "scripts", "squad_evaluate_v11.py")
+
+
+def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
+    """Phase 8: SQuAD finetuning and prediction at BERT-large width through
+    ``run_squad.main``, every LayerNorm through the kernel."""
+    from bert_pytorch_tpu_torch import run_squad
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        write_squad_json)
+
+    train = write_squad_json(os.path.join(tmp, "squad_train.json"), 11, 8)
+    dev = write_squad_json(os.path.join(tmp, "squad_dev.json"), 12, 6)
+    with open(dev, encoding="utf-8") as f:
+        questions = {qa["id"] for article in json.load(f)["data"]
+                     for p in article["paragraphs"] for qa in p["qas"]}
+    out = os.path.join(tmp, "squad_out")
+    args = run_squad.parse_args([
+        "--config_file", CONFIG, "--vocab_file", vocab, "--do_lower_case",
+        "--train_file", train, "--predict_file", dev, "--do_train",
+        "--do_predict", "--do_eval", "--eval_script", EVAL_SCRIPT,
+        "--output_dir", out, "--skip_checkpoint",
+        "--max_seq_length", str(SQUAD_SEQ), "--doc_stride", "128",
+        "--train_batch_size", str(SQUAD_BATCH), "--max_steps",
+        str(SQUAD_STEPS), "--dtype", "bfloat16", "--layer_norm_backend",
+        "kernel", "--device", "cuda", "--seed", "0", "--log_freq", "1"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Counts to zero just before the main path, read just after.
+    for kernel in kernels.values():
+        kernel.launches = 0
+    summary = run_squad.main(args)
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = summary["step_losses"]
+    if len(losses) != SQUAD_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"SQuAD steps not all finite: {losses}")
+    if abs(losses[0] - SQUAD_INIT_LOSS) > 1.0:
+        raise AssertionError(f"first SQuAD loss {losses[0]} is not within 1 "
+                             f"of ln({SQUAD_SEQ}) = {SQUAD_INIT_LOSS:.4f}")
+    with open(os.path.join(out, "predictions.json"), encoding="utf-8") as f:
+        answered = set(json.load(f))
+    if answered != questions:
+        raise AssertionError(f"{len(answered)} predictions for "
+                             f"{len(questions)} questions")
+    if summary.get("exact_match") is None or summary.get("F1") is None:
+        raise AssertionError(f"no EM/F1 from the eval script: {summary}")
+    with open(CONFIG, encoding="utf-8") as f:
+        per_forward = 1 + 2 * json.load(f)["num_hidden_layers"]
+    forwards = summary["global_step"] + summary["predict_batches"]
+    expected = {name: 0 for name in kernels}
+    expected["layer_norm_fwd"] = per_forward * forwards
+    if launches != expected:
+        raise AssertionError(f"SQuAD launches {launches}; expected "
+                             f"{expected} ({per_forward} LayerNorms per "
+                             f"forward over {forwards} forwards)")
+    torch.cuda.empty_cache()
+    return dict(summary, launches=launches, forwards=forwards,
+                questions=len(questions), peak_gib=peak_gib)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1056,6 +1323,7 @@ def main() -> int:
     from bert_pytorch_tpu_torch.ops.kernels.attention import (
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
         flash_attention_infer, flash_attention_infer_int8)
+    from bert_pytorch_tpu_torch.ops.kernels.layernorm import layer_norm_fwd
 
     # fp32 matmuls in full fp32 for every comparison below (TF32 keeps
     # about three decimal digits).
@@ -1072,11 +1340,13 @@ def main() -> int:
                "flash_attention_infer_int8": flash_attention_infer_int8,
                "flash_attention_fwd": flash_attention_fwd,
                "flash_attention_dq": flash_attention_dq,
-               "flash_attention_dkv": flash_attention_dkv}
+               "flash_attention_dkv": flash_attention_dkv,
+               "layer_norm_fwd": layer_norm_fwd}
     infer_entry = check_and_time_attention()
     int8_entry = check_and_time_int8_attention()
     worst = check_training_kernels()
     cases = time_training_kernels()
+    ln_entry = check_and_time_layer_norm()
     with tempfile.TemporaryDirectory() as tmp:
         from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
             write_trace_vocab)
@@ -1102,11 +1372,26 @@ def main() -> int:
         f"seq/s, first step {trained['first_step_ms']:.1f} ms, peak "
         f"{trained['peak_gib']:.1f} GiB on {card}")
     train_check = check_training_flash_vs_dense()
+    with tempfile.TemporaryDirectory() as tmp:
+        from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+            write_trace_vocab)
+
+        vocab = write_trace_vocab(os.path.join(tmp, "vocab.txt"))
+        squad = drive_squad(vocab, tmp, kernels)
+    log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
+        f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
+        f"losses {squad['step_losses']}, train "
+        f"{squad['e2e_train_time']:.2f} s "
+        f"({squad['training_sequences_per_second']:.2f} seq/s), predict "
+        f"{squad['predict_batches']} batches in "
+        f"{squad['e2e_inference_time']:.2f} s, EM {squad['exact_match']}, "
+        f"F1 {squad['F1']}, peak {squad['peak_gib']:.1f} GiB on {card}")
     infer_entry["launches"] = served["launches"]["flash_attention_infer"]
     int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
+    ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
-        worst, cases, trained["launches"])
-    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check))}")
+        worst, cases, trained["launches"]) + [ln_entry]
+    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, squad=squad))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -315,3 +315,122 @@ def test_int8_fused_engine_on_card(tmp_path):
                     results["dense"]["masks"]):
         np.testing.assert_allclose([s["score"] for s in a],
                                    [s["score"] for s in b], atol=1e-1)
+
+
+# -- the LayerNorm forward kernel (TPU kernel #6) ---------------------------
+
+def _ln_inputs(rows, hidden, dtype, seed):
+    """x [rows, H] with an all-zero and a constant row (variance 0), fp32
+    scale ~ 1 and bias ~ 0 on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, hidden)).astype(np.float32) * 2.0 + 0.5
+    x[0] = 0.0
+    if rows > 1:
+        x[1] = 0.5
+    scale = 1.0 + 0.1 * rng.standard_normal(hidden).astype(np.float32)
+    bias = 0.1 * rng.standard_normal(hidden).astype(np.float32)
+    return (torch.from_numpy(x).to("cuda", dtype),
+            torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda())
+
+
+@pytest.mark.parametrize("rows,hidden", [(1, 8), (5, 100), (33, 768),
+                                         (64, 1024), (3, 4096), (17, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_kernel_matches_plain_version(dtype, rows, hidden):
+    """Widths the 16-byte loads take (multiples of 8) and widths they do
+    not (100, and 1000 in bf16), up to the 4096 limit: out within 1e-5
+    (fp32; bf16: one bf16 ulp more, for a rounding step taken from fp32
+    values up to 1e-5 apart), mean and rstd within 1e-5 relative, one
+    launch counted per call."""
+    _need_card()
+    from bert_pytorch_tpu_torch.ops.kernels import layernorm as kln
+
+    x, scale, bias = _ln_inputs(rows, hidden, getattr(torch, dtype), 3)
+    before = kln.layer_norm_fwd.launches
+    out, mean, rstd = kln.layer_norm_fwd(x, scale, bias, 1e-12)
+    torch.cuda.synchronize()
+    assert kln.layer_norm_fwd.launches == before + 1
+    ref, ref_mean, ref_rstd = kln.layer_norm_fwd_reference(x, scale, bias,
+                                                           1e-12)
+    assert out.dtype == x.dtype and mean.shape == rstd.shape == (rows, 1)
+    got, want = out.float(), ref.float()
+    tol = torch.full_like(want, 1e-5)
+    if dtype == "bfloat16":
+        mag = want.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+        tol += torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert ((got - want).abs() <= tol).all()
+    assert ((mean - ref_mean).abs() <= 1e-7 + 1e-5 * ref_mean.abs()).all()
+    assert ((rstd - ref_rstd).abs() <= 1e-5 * ref_rstd).all()
+    assert rstd[0].item() == pytest.approx(1e6, rel=1e-5)
+
+
+def test_layer_norm_function_gradients_on_card():
+    """The autograd Function on a CUDA tensor of rank 3 (forward kernel,
+    plain backward) against autograd through the plain LayerNorm."""
+    _need_card()
+    from bert_pytorch_tpu_torch.ops.kernels.layernorm import layer_norm_kernel
+    from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
+
+    x, scale, bias = _ln_inputs(48, 768, torch.float32, 5)
+    x = x.view(4, 12, 768)
+    g = torch.randn_like(x)
+    leaves = [t.requires_grad_() for t in (x, scale, bias)]
+    outs, grads = [], []
+    for fn in (layer_norm_kernel, layer_norm):
+        out = fn(x, scale, bias, 1e-12)
+        outs.append(out)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    assert outs[0].shape == x.shape
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)
+    for got, want in zip(*grads):
+        assert ((got - want).abs().max() <= 1e-5 * want.abs().max()).item()
+
+
+def test_layer_norm_wrapper_raises_on_what_the_kernel_does_not_take():
+    _need_card()
+    from bert_pytorch_tpu_torch.ops.kernels import layernorm as kln
+
+    x, scale, bias = _ln_inputs(8, 64, torch.float32, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kln.layer_norm_fwd(x.t().contiguous().t(), scale, bias)
+    with pytest.raises(TypeError, match="not supported"):
+        kln.layer_norm_fwd(x.half(), scale, bias)
+    with pytest.raises(ValueError, match="must be \\[rows, H\\]"):
+        kln.layer_norm_fwd(x[None], scale, bias)
+    with pytest.raises(ValueError, match="H <= 4096"):
+        wide = torch.zeros(2, 4104, device="cuda")
+        kln.layer_norm_fwd(wide, torch.ones(4104, device="cuda"),
+                           torch.zeros(4104, device="cuda"))
+    with pytest.raises(ValueError, match="scale must be"):
+        kln.layer_norm_fwd(x, scale.to(torch.bfloat16), bias)
+    with pytest.raises(ValueError, match="bias must be contiguous"):
+        kln.layer_norm_fwd(x, scale, bias.cpu())
+
+
+def test_squad_head_with_layer_norm_kernel_on_card():
+    """A tiny fp32 QA model on the card: the LayerNorm kernel gives the
+    plain LayerNorm's span logits from the same weights, launching once
+    per LayerNorm (1 + 2 per layer)."""
+    _need_card()
+    from bert_pytorch_tpu_torch.config import BertConfig
+    from bert_pytorch_tpu_torch.models import bert
+    from bert_pytorch_tpu_torch.ops.kernels import layernorm as kln
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=128,
+                     max_position_embeddings=64)
+    models = [bert.init_weights(
+        bert.BertForQuestionAnswering(cfg, device="cuda",
+                                      layer_norm_backend=b), 0.02,
+        torch.Generator(device="cuda").manual_seed(0))
+        for b in ("kernel", "plain")]
+    ids = torch.randint(0, 64, (3, 40), device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, 30:] = 0
+    before = kln.layer_norm_fwd.launches
+    with torch.no_grad():
+        got, want = (m(ids, torch.zeros_like(ids), mask) for m in models)
+    assert kln.layer_norm_fwd.launches == before + 5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
