@@ -14,26 +14,39 @@
 // product (the Pallas kernel's `p.astype(v.dtype)`). Masking is additive
 // (-10000), never -inf, and m starts at -1e30, so a row whose keys are all
 // masked (a padded or all-pad row) still comes out finite, as on the TPU.
-//
-// Design: this file supplies the score tile; the online softmax, the PV
-// product and the output are the stream shared with the int8 kernel
-// (flash_infer_stream.cuh, the counterpart of `_infer_stream`). One thread
-// block per (batch*head, 64-row q tile); q and each 64-key K tile are
-// staged in shared memory as fp32 (rows padded to an odd stride so column
-// walks are free of bank conflicts); each of the 256 threads computes a
-// 4 x 4 block of the score tile with fp32 FMAs. The key bias and the
-// sequence ids are read from [B, S] arrays: no per-head copy is made.
 // q, k, v and out keep the model's [B, S, H, D] layout, so no transpose is
-// launched around the kernel.
+// launched around the kernel; the key bias and the sequence ids are read
+// from [B, S] arrays, with no per-head copy.
 //
-// What bounds it on the H100: the scores and PV products run on the CUDA
-// cores in fp32 (FMA), fed from shared memory at two FMAs per load, so
-// the kernel is bound by shared-memory bandwidth and the fp32 pipes, far
-// from the tensor-core rate that bounds the work itself at S >= 128.
-// Moving both products onto the tensor cores (`wgmma` on bf16 tiles fed by
-// TMA, with a warp-specialised producer) is later work.
+// Two routes, chosen by the wrapper from dtype and head_dim before launch
+// (ops/kernels/attention.py `infer_route`):
+//
+// * Tensor cores (`flash_infer_wgmma_kernel`, bf16 with head_dim 32, 64 or
+//   128: every serving forward of the repo's configs). This file supplies
+//   the score tile, S = Q K^T by `wgmma.mma_async` m64n64k16 bf16 -> fp32
+//   from TMA-loaded, swizzled q and K tiles; the online softmax,
+//   P V (P from registers, V by TMA through a 2-stage ring) and the output
+//   are the stream shared with the int8 kernel (flash_infer_wgmma.cuh).
+//   It replaces the CUDA-core route's fp32 FMA products, which were bound
+//   by shared-memory bandwidth and the fp32 pipes (0.4802 ms at S=512
+//   against a 0.0100 ms bound). What bounds it now: not the tensor cores
+//   (QK^T and PV are ~1 clock of tensor-core work per score element) but
+//   the softmax's instruction issue on the CUDA cores, ~10 instructions a
+//   score element, so the stream keeps it lean: e^x by one `ex2.approx`,
+//   index masks only on the ragged last tile, the bias read while the
+//   score wgmma runs. At S=512 it reads 3.8x its byte bound, level with
+//   SDPA (PERF.md).
+// * CUDA cores (`flash_infer_kernel`, fp32 inputs and any other head_dim,
+//   a multiple of 8 up to 128): one thread block per (batch*head, 64-row
+//   q tile); q and each 64-key K tile staged in shared memory as fp32
+//   (rows padded to an odd stride so column walks are free of bank
+//   conflicts); each of the 256 threads computes a 4 x 4 block of the
+//   score tile with fp32 FMAs; softmax and PV from the CUDA-core stream
+//   (flash_infer_stream.cuh). Bound by shared-memory bandwidth and the
+//   fp32 pipes.
 
 #include "flash_infer_stream.cuh"
+#include "flash_infer_wgmma.cuh"
 
 namespace {
 
@@ -148,12 +161,87 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                       head_dim, scale, stream);
 }
 
+// The tensor-core score tile: bf16 q and K tiles by TMA, S by wgmma.
+template <int D>
+struct WgmmaScores {
+  static constexpr int kQBytes = flash::wg::Tile<2 * D>::kBytes;
+  static constexpr int kKBytes = kQBytes;
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+
+  __device__ __forceinline__ void load_q(uint32_t dst, uint32_t bar, int h,
+                                         int s, int b) const {
+    flash::wg::load_tile<2 * D, 2>(dst, qmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ void load_k(uint32_t dst, uint32_t bar, int h,
+                                         int s, int b) const {
+    flash::wg::load_tile<2 * D, 2>(dst, kmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ void issue(uint32_t qs, uint32_t ks,
+                                        float (&s)[32]) const {
+    flash::wg::pin(s);
+    flash::wg::wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < D / 16; ++step)
+      flash::wg::mma_bf16_ss(s, flash::wg::k_major<2 * D>(qs, step),
+                             flash::wg::k_major<2 * D>(ks, step), step > 0);
+    flash::wg::wgmma_commit();
+  }
+  __device__ __forceinline__ void finish(float (&s)[32]) const {
+    flash::wg::wgmma_wait();
+    flash::wg::pin(s);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(flash::wg::kThreads)
+flash_infer_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         __nv_bfloat16* __restrict__ out,
+                         const float* __restrict__ key_bias,
+                         const int* __restrict__ seg, int seq, int heads,
+                         float scale) {
+  extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
+  WgmmaScores<D> scores{&qmap, &kmap};
+  flash::wg::infer_stream<D>(scores, scale, &vmap, out, key_bias, seg, seq,
+                             heads, reinterpret_cast<uint8_t*>(smem));
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, const float* key_bias, const int* seg,
+                         int batch, int seq, int heads, float scale,
+                         cudaStream_t stream) {
+  constexpr int kChunk = flash::wg::Tile<2 * D>::kChunk;
+  CUtensorMap maps[3];
+  const void* srcs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = flash::wg::bshd_map(
+        &maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kChunk, batch,
+        seq, heads, D);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr size_t smem = flash::wg::smem_bytes<WgmmaScores<D>, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_infer_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (seq + flash::wg::kRows - 1) /
+                                     flash::wg::kRows);
+  flash_infer_wgmma_kernel<D><<<grid, flash::wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), key_bias,
+      seg, seq, heads, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. key_bias ([B, S] fp32) and seg
-// ([B, S] int32) may each be null. Returns the launch's cudaError_t.
+// The CUDA-core route. dtype: 0 = float32, 1 = bfloat16. key_bias
+// ([B, S] fp32) and seg ([B, S] int32) may each be null. Returns the
+// launch's cudaError_t.
 int flash_attention_infer(const void* q, const void* k, const void* v,
                           void* out, const float* key_bias, const int* seg,
                           int batch, int seq, int heads, int head_dim,
@@ -168,6 +256,42 @@ int flash_attention_infer(const void* q, const void* k, const void* v,
                             head_dim, scale, s)
           : dispatch<__nv_bfloat16>(q, k, v, out, key_bias, seg, batch, seq,
                                     heads, head_dim, scale, s);
+  return static_cast<int>(err);
+}
+
+// The tensor-core route: q, k, v, out [B, S, H, D] bfloat16, 16-byte
+// aligned, head_dim 32, 64 or 128; key_bias and seg as above. Returns the
+// launch's cudaError_t (cudaErrorSymbolNotFound if the driver has no
+// cuTensorMapEncodeTiled).
+int flash_attention_infer_wgmma(const void* q, const void* k, const void* v,
+                                void* out, const float* key_bias,
+                                const int* seg, int batch, int seq,
+                                int heads, int head_dim, float scale,
+                                void* stream) {
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = launch_wgmma<32>(q, k, v, out, key_bias, seg, batch, seq, heads,
+                             scale, s);
+      break;
+    case 64:
+      err = launch_wgmma<64>(q, k, v, out, key_bias, seg, batch, seq, heads,
+                             scale, s);
+      break;
+    case 128:
+      err = launch_wgmma<128>(q, k, v, out, key_bias, seg, batch, seq, heads,
+                              scale, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -16,31 +16,41 @@
 //   out = softmax(s) v                             (in v's dtype)
 //
 // The rescale is formed in that order once per block, and everything after
-// the raw product is the stream shared with the fp kernel #4
-// (flash_infer_stream.cuh): the same online softmax, P rounded to v's
-// dtype before PV with fp32 accumulation, the same masking and edges.
+// the raw product is the stream shared with the fp kernel #4: the same
+// online softmax, P rounded to v's dtype before PV with fp32 accumulation,
+// the same masking and edges.
 //
-// Design: one thread block per (batch*head, 64-row q tile), 256 threads.
-// The q rows and each 64-key K tile are staged in shared memory as 32-bit
-// words of four int8 values (rows padded to an odd word stride, so the 16
-// key rows a half-warp reads fall in distinct banks); each thread computes
-// a 4 x 4 block of int32 scores with `__dp4a` (four int8 products and
-// their sum per instruction, exact). V is staged as fp32 by the stream.
+// Two routes, chosen by the wrapper from v's dtype and head_dim before
+// launch (ops/kernels/attention.py `infer_route`):
 //
-// What bounds it on the H100: the work itself is bound by bytes at these
-// shapes (q8 and k8 at 1 B an element, v and out at 2 B in bf16, against
-// QK^T at the int8 tensor-core rate of 1,979 TOP/s and PV at 989 TFLOP/s
-// bf16). This first version runs both products on the CUDA cores
-// (`__dp4a` for QK^T, fp32 FMA for PV from shared memory), so like #4 it
-// is bound by shared-memory traffic and the CUDA-core pipes, far above
-// that bound. What it does about it: the int8 tiles carry a quarter of the
-// shared-memory bytes of #4's fp32 tiles into the score product and do four
-// products per instruction; moving QK^T to `mma.sync`/`wgmma` int8 and PV
-// to bf16 tensor cores is later work.
+// * Tensor cores (`flash_infer_int8_wgmma_kernel`, v in bf16 with head_dim
+//   32, 64 or 128: every int8 serving forward of the repo's configs). The
+//   q8 and each K8 tile come by TMA (rows of head_dim bytes, swizzled by
+//   that width: 64 bytes at D=64), both K-major, as 8-bit wgmma requires;
+//   S is `wgmma.mma_async` m64n64k32 s8 x s8 -> s32, exact, converted to
+//   fp32 and multiplied by the rescale; the softmax, P V (bf16 P from
+//   registers, V by TMA) and the output are #4's tensor-core stream
+//   (flash_infer_wgmma.cuh). It replaces `__dp4a` products and fp32-FMA
+//   PV on the CUDA cores, bound by shared-memory traffic (0.3765 ms at
+//   S=512 against a 0.0075 ms bound). What bounds it now: as in #4, the
+//   softmax's instruction issue on the CUDA cores, which the shared
+//   stream keeps lean; the work itself is bound by bytes (q8 and k8 at
+//   1 B an element, v and out at 2 B). At S=512 it reads 4.8x that bound,
+//   a little under bf16 SDPA on the dequantized q and k (PERF.md).
+// * CUDA cores (`flash_infer_int8_kernel`, v in fp32 and any other
+//   head_dim): one thread block per (batch*head, 64-row q tile), 256
+//   threads. The q rows and each 64-key K tile are staged in shared memory
+//   as 32-bit words of four int8 values (rows padded to an odd word
+//   stride, so the 16 key rows a half-warp reads fall in distinct banks);
+//   each thread computes a 4 x 4 block of int32 scores with `__dp4a` (four
+//   int8 products and their sum per instruction, exact); softmax and PV
+//   from the CUDA-core stream (flash_infer_stream.cuh), V staged as fp32.
+//   Bound by shared-memory traffic and the CUDA-core pipes.
 
 #include <stdint.h>
 
 #include "flash_infer_stream.cuh"
+#include "flash_infer_wgmma.cuh"
 
 namespace {
 
@@ -176,12 +186,100 @@ cudaError_t dispatch(const void* q8, const void* k8, const void* v,
                       batch, seq, heads, head_dim, scale, stream);
 }
 
+// The tensor-core score tile: int8 q8 and K8 tiles by TMA, exact int32 S
+// by wgmma, handed on as fp32.
+template <int D>
+struct WgmmaInt8Scores {
+  static constexpr int kQBytes = flash::wg::Tile<D>::kBytes;
+  static constexpr int kKBytes = kQBytes;
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+  int acc[32];
+
+  __device__ __forceinline__ void load_q(uint32_t dst, uint32_t bar, int h,
+                                         int s, int b) const {
+    flash::wg::load_tile<D, 1>(dst, qmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ void load_k(uint32_t dst, uint32_t bar, int h,
+                                         int s, int b) const {
+    flash::wg::load_tile<D, 1>(dst, kmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ void issue(uint32_t qs, uint32_t ks,
+                                        float (&)[32]) {
+    flash::wg::pin(acc);
+    flash::wg::wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < D / 32; ++step)
+      flash::wg::mma_s8_ss(acc, flash::wg::k_major<D>(qs, step),
+                           flash::wg::k_major<D>(ks, step), step > 0);
+    flash::wg::wgmma_commit();
+  }
+  __device__ __forceinline__ void finish(float (&s)[32]) {
+    flash::wg::wgmma_wait();
+    flash::wg::pin(acc);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = static_cast<float>(acc[e]);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(flash::wg::kThreads)
+flash_infer_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              __nv_bfloat16* __restrict__ out,
+                              const float* __restrict__ q_scale,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ key_bias,
+                              const int* __restrict__ seg, int seq,
+                              int heads, float scale) {
+  extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
+  WgmmaInt8Scores<D> scores{&qmap, &kmap};
+  const int bh = blockIdx.x;
+  const float rescale = (q_scale[bh] * k_scale[bh]) * scale;
+  flash::wg::infer_stream<D>(scores, rescale, &vmap, out, key_bias, seg,
+                             seq, heads, reinterpret_cast<uint8_t*>(smem));
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q8, const void* k8, const void* v,
+                         void* out, const float* q_scale,
+                         const float* k_scale, const float* key_bias,
+                         const int* seg, int batch, int seq, int heads,
+                         float scale, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  cudaError_t err = flash::wg::bshd_map(
+      &maps[0], q8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+      flash::wg::Tile<D>::kChunk, batch, seq, heads, D);
+  if (err == cudaSuccess)
+    err = flash::wg::bshd_map(&maps[1], k8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                              flash::wg::Tile<D>::kChunk, batch, seq, heads,
+                              D);
+  if (err == cudaSuccess)
+    err = flash::wg::bshd_map(&maps[2], v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              2, flash::wg::Tile<2 * D>::kChunk, batch, seq,
+                              heads, D);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = flash::wg::smem_bytes<WgmmaInt8Scores<D>, D>();
+  err = cudaFuncSetAttribute(flash_infer_int8_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (seq + flash::wg::kRows - 1) /
+                                     flash::wg::kRows);
+  flash_infer_int8_wgmma_kernel<D>
+      <<<grid, flash::wg::kThreads, smem, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out),
+          q_scale, k_scale, key_bias, seg, seq, heads, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q8, k8: [B, S, H, D] int8, 4-byte aligned; v, out: [B, S, H, D] in
-// dtype (0 = float32, 1 = bfloat16); q_scale, k_scale: [B, H] fp32.
+// The CUDA-core route. q8, k8: [B, S, H, D] int8, 4-byte aligned; v, out:
+// [B, S, H, D] in dtype (0 = float32, 1 = bfloat16); q_scale, k_scale: [B, H] fp32.
 // key_bias ([B, S] fp32) and seg ([B, S] int32) may each be null. Returns
 // the launch's cudaError_t.
 int flash_attention_infer_int8(const void* q8, const void* k8, const void* v,
@@ -203,6 +301,45 @@ int flash_attention_infer_int8(const void* q8, const void* k8, const void* v,
           : dispatch<__nv_bfloat16>(q8, k8, v, out, q_scale, k_scale,
                                     key_bias, seg, batch, seq, heads,
                                     head_dim, scale, s);
+  return static_cast<int>(err);
+}
+
+// The tensor-core route: q8, k8 [B, S, H, D] int8 and v, out bfloat16,
+// each 16-byte aligned, head_dim 32, 64 or 128; the scales, key_bias and
+// seg as above. Returns the launch's cudaError_t (cudaErrorSymbolNotFound
+// if the driver has no cuTensorMapEncodeTiled).
+int flash_attention_infer_int8_wgmma(const void* q8, const void* k8,
+                                     const void* v, void* out,
+                                     const float* q_scale,
+                                     const float* k_scale,
+                                     const float* key_bias, const int* seg,
+                                     int batch, int seq, int heads,
+                                     int head_dim, float scale,
+                                     void* stream) {
+  const void* ptrs[4] = {q8, k8, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = launch_wgmma<32>(q8, k8, v, out, q_scale, k_scale, key_bias, seg,
+                             batch, seq, heads, scale, s);
+      break;
+    case 64:
+      err = launch_wgmma<64>(q8, k8, v, out, q_scale, k_scale, key_bias, seg,
+                             batch, seq, heads, scale, s);
+      break;
+    case 128:
+      err = launch_wgmma<128>(q8, k8, v, out, q_scale, k_scale, key_bias,
+                              seg, batch, seq, heads, scale, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

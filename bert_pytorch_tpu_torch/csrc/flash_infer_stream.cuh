@@ -23,7 +23,8 @@
 //
 // and the kernel has staged its query rows before it calls the stream (the
 // stream's first barrier publishes them). Everything downstream is this one
-// body: s = raw * scale + key_bias (+ the -10000 packed block-diagonal mask),
+// body: s = raw * scale + key_bias (+ the -10000 packed block-diagonal mask;
+// the product and the sum rounded apart, no fused multiply-add),
 // the fp32 online softmax (running max m from -1e30, running sum l of the
 // unrounded probabilities), P rounded to v's dtype before the PV product
 // with fp32 accumulation, and out = acc / l in v's dtype.
@@ -116,7 +117,10 @@ __device__ __forceinline__ void infer_stream(
 #pragma unroll
       for (int c = 0; c < kPer; ++c) {
         const int kk = tx + 16 * c;
-        float s = sc[i][c] * scale + kb[kk];
+        // Product and sum rounded apart, as the plain version rounds
+        // them: a fused multiply-add would round once, and next to a
+        // -10000 bias (ulp ~1e-3) that flips scores of masked rows.
+        float s = __fadd_rn(__fmul_rn(sc[i][c], scale), kb[kk]);
         if (segmented) s += seg_mask(qseg[r], kseg[kk]);
         sc[i][c] = s;
         if (k0 + kk < seq) tile_max = fmaxf(tile_max, s);

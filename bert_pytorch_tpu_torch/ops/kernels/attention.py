@@ -8,6 +8,13 @@ Serving (forward only), the port of ``flash_attention_infer``
   hand-written kernel (csrc/flash_attention_infer.cu) on the current
   stream, or raises; a CPU tensor takes the plain version. Nothing falls
   back from the card to the plain version.
+* :func:`infer_route` — which of the kernel's two routes a launch takes,
+  from dtype and head_dim alone, before the launch: ``"tensor_cores"``
+  (Hopper ``wgmma`` fed by TMA, csrc/flash_infer_wgmma.cuh) for bf16 with
+  head_dim in :data:`TENSOR_CORE_HEAD_DIMS`, ``"cuda_cores"`` for the rest
+  (fp32, other head dims). A failed build or launch raises on either route;
+  neither falls back to the other. Each wrapper counts launches per route
+  in ``.route_launches`` beside ``.launches``.
 * :func:`flash_attention_infer_reference` — the plain PyTorch version of
   the same function: the CPU tests hold it against the JAX kernel, and the
   chip smoke holds the CUDA kernel against it.
@@ -69,6 +76,11 @@ from bert_pytorch_tpu_torch.ops import quant
 from bert_pytorch_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Head dims of the serving kernels' tensor-core route: rows of 32, 64 or a
+# multiple of 128 bytes in int8 and bf16, the widths a TMA swizzle span
+# takes whole.
+TENSOR_CORE_HEAD_DIMS = (32, 64, 128)
+ROUTES = ("tensor_cores", "cuda_cores")
 _NAME = "flash_attention_infer"
 _INT8 = "flash_attention_infer_int8"
 _MASK32 = 0xFFFFFFFF
@@ -137,13 +149,39 @@ def flash_attention_infer_reference(q, k, v, bias=None, sequence_ids=None):
     return _forward_math(q, k, v, key_bias, seg, 0, 0.0)[0]
 
 
+def infer_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route a CUDA launch of a serving attention kernel takes, from
+    the dtype of its values (q for :func:`flash_attention_infer`, v for
+    the int8-score kernel) and head_dim: ``"tensor_cores"`` for bf16 with
+    head_dim in :data:`TENSOR_CORE_HEAD_DIMS`, else ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _count(wrapper, route: str) -> None:
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
+
+
+def reset_counts(wrapper) -> None:
+    """Set a kernel wrapper's launch count (and its per-route counts,
+    where it has them) to 0."""
+    wrapper.launches = 0
+    for route in getattr(wrapper, "route_launches", {}):
+        wrapper.route_launches[route] = 0
+
+
 # The C entry points of each kernel library and their argument types.
 _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     "flash_attention_infer": {
         "flash_attention_infer": [_PTR] * 6 + [_INT] * 5 + [_F32, _PTR],
+        "flash_attention_infer_wgmma": [_PTR] * 6 + [_INT] * 4 + [_F32, _PTR],
     },
     "flash_attention_infer_int8": {
         "flash_attention_infer_int8": [_PTR] * 8 + [_INT] * 5 + [_F32, _PTR],
+        "flash_attention_infer_int8_wgmma": ([_PTR] * 8 + [_INT] * 4
+                                             + [_F32, _PTR]),
     },
     "flash_attention_fwd": {
         "flash_attention_fwd": ([_PTR] * 7 + [_INT] * 5 + [_F32, _INT]
@@ -221,34 +259,59 @@ def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _check_aligned(name: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """The tensor-core route reads its operands by TMA, which needs 16-byte
+    aligned bases."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned for "
+                             "the tensor-core route")
+
+
 def flash_attention_infer(q, k, v, bias=None, sequence_ids=None):
     """Forward-only fused attention over [B, S, H, D] tensors; returns
     [B, S, H, D] in q's dtype. ``bias`` is the [B, 1, 1, S] key bias for
     padded batches; ``sequence_ids`` ([B, S], 0 = pad) marks a packed batch
     and rebuilds the block-diagonal mask inside the kernel.
 
-    On a CUDA tensor this launches the CUDA kernel, counting the launch in
-    ``flash_attention_infer.launches``; on a CPU tensor it returns the plain
-    version and counts nothing."""
+    On a CUDA tensor this launches the CUDA kernel on the route
+    :func:`infer_route` picks, counting the launch in
+    ``flash_attention_infer.launches`` and ``.route_launches[route]``; on
+    a CPU tensor it returns the plain version and counts nothing."""
     batch, seq = q.shape[0], q.shape[1]
     key_bias, seg = _infer_bias_seg(bias, sequence_ids, batch, seq)
     if _device_of(_NAME, q) == "cpu":
         return _forward_math(q, k, v, key_bias, seg, 0, 0.0)[0]
     _check(_NAME, q, {"k": k, "v": v}, key_bias, seg)
-    heads, depth = q.shape[2], q.shape[3]
+    return _launch_infer(q, k, v, key_bias, seg,
+                         infer_route(q.dtype, q.shape[3]))
+
+
+def _launch_infer(q, k, v, key_bias, seg, route: str):
+    """Launch the fp-score kernel on ``route`` (checked CUDA inputs)."""
+    batch, seq, heads, depth = q.shape
     out = torch.empty_like(q)
+    scale = 1.0 / float(depth) ** 0.5
     lib = _library(_NAME)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_infer(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
-            _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, _stream(q))
+        if route == "tensor_cores":
+            _check_aligned(_NAME, {"q": q, "k": k, "v": v, "out": out})
+            rc = lib.flash_attention_infer_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ptr(key_bias), _ptr(seg), batch, seq, heads, depth, scale,
+                _stream(q))
+        else:
+            rc = lib.flash_attention_infer(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
+                _DTYPE_CODES[q.dtype], scale, _stream(q))
     build.raise_on(rc, lib, _NAME, _NAME)
-    flash_attention_infer.launches += 1
+    _count(flash_attention_infer, route)
     return out
 
 
 flash_attention_infer.launches = 0
+flash_attention_infer.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 # -- serving with int8 scores ------------------------------------------------
@@ -315,23 +378,39 @@ def flash_attention_infer_int8_prequantized(q8, k8, q_scale, k_scale, v,
     q8, k8 [B, S, H, D] int8, q_scale, k_scale [B, H] fp32, v [B, S, H, D],
     the [B, S] fp32 key bias or [B, S] int32 ids (each optional); returns
     [B, S, H, D] in v's dtype. A CUDA tensor launches
-    csrc/flash_attention_infer_int8.cu on the current stream, counting the
-    launch in ``flash_attention_infer_int8.launches``, or raises; a CPU
-    tensor takes the plain version and counts nothing."""
+    csrc/flash_attention_infer_int8.cu on the current stream, on the route
+    :func:`infer_route` picks from v's dtype and head_dim, counting the
+    launch in ``flash_attention_infer_int8.launches`` and
+    ``.route_launches[route]``, or raises; a CPU tensor takes the plain
+    version and counts nothing."""
     if _device_of(_INT8, v) == "cpu":
         return _int8_forward_math(q8, k8, q_scale, k_scale, v, key_bias, seg)
     _check_int8(_INT8, q8, k8, q_scale, k_scale, v, key_bias, seg)
+    return _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg,
+                        infer_route(v.dtype, v.shape[3]))
+
+
+def _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg, route: str):
+    """Launch the int8-score kernel on ``route`` (checked CUDA inputs)."""
     batch, seq, heads, depth = v.shape
     out = torch.empty_like(v)
+    scale = 1.0 / float(depth) ** 0.5
     lib = _library(_INT8)
     with torch.cuda.device(v.device):
-        rc = lib.flash_attention_infer_int8(
-            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q_scale.data_ptr(), k_scale.data_ptr(), _ptr(key_bias),
-            _ptr(seg), batch, seq, heads, depth, _DTYPE_CODES[v.dtype],
-            1.0 / float(depth) ** 0.5, _stream(v))
+        if route == "tensor_cores":
+            _check_aligned(_INT8, {"q8": q8, "k8": k8, "v": v, "out": out})
+            rc = lib.flash_attention_infer_int8_wgmma(
+                q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q_scale.data_ptr(), k_scale.data_ptr(), _ptr(key_bias),
+                _ptr(seg), batch, seq, heads, depth, scale, _stream(v))
+        else:
+            rc = lib.flash_attention_infer_int8(
+                q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q_scale.data_ptr(), k_scale.data_ptr(), _ptr(key_bias),
+                _ptr(seg), batch, seq, heads, depth, _DTYPE_CODES[v.dtype],
+                scale, _stream(v))
     build.raise_on(rc, lib, _INT8, _INT8)
-    flash_attention_infer_int8.launches += 1
+    _count(flash_attention_infer_int8, route)
     return out
 
 
@@ -341,8 +420,8 @@ def flash_attention_infer_int8(q, k, v, bias=None, sequence_ids=None):
     :func:`flash_attention_infer` (``bias`` for padded batches,
     ``sequence_ids`` for packed ones) with q and k quantized per (batch,
     head) by :func:`quantize_qk` before the kernel. On a CUDA tensor this
-    launches the int8 kernel (counted in ``.launches``); on a CPU tensor it
-    returns the plain version."""
+    launches the int8 kernel (counted in ``.launches`` and
+    ``.route_launches``); on a CPU tensor it returns the plain version."""
     key_bias, seg = _infer_bias_seg(bias, sequence_ids, q.shape[0],
                                     q.shape[1], _INT8)
     q8, q_scale, k8, k_scale = quantize_qk(q, k)
@@ -351,6 +430,7 @@ def flash_attention_infer_int8(q, k, v, bias=None, sequence_ids=None):
 
 
 flash_attention_infer_int8.launches = 0
+flash_attention_infer_int8.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_infer_int8_reference(q, k, v, bias=None,

@@ -15,18 +15,29 @@ Phases (any failure exits non-zero and prints no result line):
    and fp32, padded rows and packed rows; the int8 kernel and its plain
    version fed the same int8 q/k and scales; the training kernels also at
    dropout 0 and 0.1 with a fixed seed, comparing out, lse, dq, delta,
-   dk, dv and dbias, each within the tolerance stated below);
+   dk, dv and dbias, each within the tolerance stated below). The two
+   serving kernels also run the edges of their tensor-core route (bf16:
+   ragged S=200 at D=64 and 128, D=128 at S=512; fp32 S=200 on the
+   CUDA-core route), padded with row 0's every key masked and packed with
+   row 0 all pad, and each launch must take the route ``infer_route``
+   names (bf16 -> tensor cores, fp32 -> CUDA cores);
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function (``scaled_dot_product_attention``: forward
    for the forward kernels, forward + backward for dq and dkv; for the
    int8 kernel, which no single PyTorch call computes, bf16 SDPA on the
-   dequantized q and k), CUDA events, beside the least time the card could
-   take for the same work;
+   dequantized q and k), beside the least time the card could take for
+   the same work. The serving kernels and SDPA are timed by device time
+   per call (``torch.profiler``: at S=128 a kernel takes less card time
+   than the host needs to issue it), with CUDA-event times of 100 calls
+   back to back beside them, and in bf16 also by the device time of the
+   same kernel on its CUDA-core route; the training kernels by CUDA
+   events;
 5. the serving main path: ``run_server.build_service`` at full BERT-large
    width (configs/bert_large_uncased_config.json, seeded random weights,
    a demo vocab) serving fill_mask and classify over HTTP, packed and
    unpacked, over both buckets; the serving kernel must launch once per
-   encoder layer per forward. Then one staged fp32 fill_mask batch
+   encoder layer per forward, every launch on its tensor-core route.
+   Then one staged fp32 fill_mask batch
    through a ``flash_infer`` engine and a ``dense`` engine with the same
    seeded weights must agree;
 5c. the int8 serving main path: ``build_service`` at the same width with
@@ -34,7 +45,8 @@ Phases (any failure exits non-zero and prints no result line):
    --fuse_epilogues --pack_requests``, the same waves plus one fill_mask
    request with 9 [MASK]s (past the 8 gather slots, so one batch takes the
    unfused forward); the int8 kernel must launch once per encoder layer
-   per forward and the fp kernel never; the int8 engine's weight bytes are
+   per forward, every launch on its tensor-core route, and the fp kernel
+   never; the int8 engine's weight bytes are
    logged beside the fp32 engine's. Then one staged fp32-compute
    fill_mask batch from the same seeded weights: int8 scores on fp32
    weights must agree with the fp32 engine to the JAX package's int8
@@ -202,21 +214,25 @@ def device_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return sum(r[1] for r in device_rows(prof)) / iters
 
 
-def attention_inputs(seq: int, dtype, packed: bool, gen: torch.Generator):
-    """q, k, v [B, S, H, D] and either the [B, 1, 1, S] key bias of rows
+def attention_inputs(seq: int, dtype, packed: bool, gen: torch.Generator,
+                     depth: int = D, empty_row: bool = False):
+    """q, k, v [B, S, H, depth] and either the [B, 1, 1, S] key bias of rows
     with random lengths, or [B, S] sequence ids of 1-4 packed segments per
-    row followed by id-0 pad."""
-    q, k, v = (torch.randn(B, seq, H, D, device="cuda", generator=gen)
+    row followed by id-0 pad. ``empty_row`` makes row 0 a padded row whose
+    every key is masked, or a packed row that is all pad."""
+    q, k, v = (torch.randn(B, seq, H, depth, device="cuda", generator=gen)
                .to(dtype) for _ in range(3))
     if not packed:
         lens = torch.randint(1, seq + 1, (B,), device="cuda", generator=gen)
+        if empty_row:
+            lens[0] = 0
         mask = torch.arange(seq, device="cuda")[None, :] < lens[:, None]
         bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
         return q, k, v, {"bias": bias}
     rng = np.random.default_rng(int(torch.randint(
         0, 2**31 - 1, (1,), generator=gen, device="cuda")))
     sids = np.zeros((B, seq), np.int32)
-    for row in range(B):
+    for row in range(1 if empty_row else 0, B):
         n_seg = int(rng.integers(1, 5))
         room = int(rng.integers(n_seg, seq + 1))  # the rest is pad
         cuts = np.sort(rng.choice(np.arange(1, room), n_seg - 1,
@@ -227,158 +243,227 @@ def attention_inputs(seq: int, dtype, packed: bool, gen: torch.Generator):
     return q, k, v, {"sequence_ids": torch.from_numpy(sids).cuda()}
 
 
+def sdpa_mask(q, kwargs):
+    """The additive mask of ``kwargs`` in q's dtype, for SDPA."""
+    if "bias" in kwargs:
+        return kwargs["bias"].to(q.dtype)
+    sids = kwargs["sequence_ids"]
+    same = (sids[:, :, None] == sids[:, None, :]) & (sids[:, :, None] > 0)
+    return torch.where(same, 0.0, -10000.0)[:, None].to(q.dtype)
+
+
 def library_call(q, k, v, kwargs):
     """The one PyTorch call computing the same function (a yardstick only;
     the port never calls it): scaled_dot_product_attention with the same
     additive mask."""
-    if "bias" in kwargs:
-        mask = kwargs["bias"].to(q.dtype)
-    else:
-        sids = kwargs["sequence_ids"]
-        same = (sids[:, :, None] == sids[:, None, :]) & (sids[:, :, None] > 0)
-        mask = torch.where(same, 0.0, -10000.0)[:, None].to(q.dtype)
+    mask = sdpa_mask(q, kwargs)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask)
 
 
-def bound_ms(seq: int, dtype) -> tuple:
+def bound_ms(seq: int, dtype, depth: int = D) -> tuple:
     """(least time in ms, what bounds it): q, k, v read once and out written
     once (+ the [B, S] fp32 key bias), against 4*B*H*S^2*D operations."""
     elem = torch.finfo(dtype).bits // 8
-    nbytes = 4 * B * seq * H * D * elem + B * seq * 4
-    flops = 4 * B * H * seq * seq * D
+    nbytes = 4 * B * seq * H * depth * elem + B * seq * 4
+    flops = 4 * B * H * seq * seq * depth
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_and_time_attention() -> dict:
-    """Phases 3 and 4 for the fused-attention kernel."""
-    from bert_pytorch_tpu_torch.ops.kernels.attention import (
-        flash_attention_infer, flash_attention_infer_reference)
+# Checked beyond the timed grid, for the tensor-core route's edges: (S,
+# head_dim, dtypes). S=200 is ragged (not a multiple of the 64-row tile)
+# and D=128 takes two 128-byte boxes per row; each runs padded and packed
+# with row 0 fully masked (every key -10000) or all pad.
+EDGE_CASES = ((200, 64, (torch.bfloat16, torch.float32)),
+              (200, 128, (torch.bfloat16,)), (512, 128, (torch.bfloat16,)))
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
-    cases = []
+
+def attention_cases():
+    """(seq, depth, dtype, packed, empty_row, timed) of the phase-3/4
+    grid: SEQS x {bf16, fp32} x {padded, packed} at D, timed, then
+    EDGE_CASES."""
     for seq in SEQS:
         for dtype in (torch.bfloat16, torch.float32):
             for packed in (False, True):
-                q, k, v, kw = attention_inputs(seq, dtype, packed, gen)
-                out = flash_attention_infer(q, k, v, **kw)
-                torch.cuda.synchronize()
-                ref = flash_attention_infer_reference(q, k, v, **kw)
-                err = (out.float() - ref.float()).abs().max().item()
-                finite = bool(torch.isfinite(out).all())
-                name = (f"S={seq} {str(dtype)[6:]} "
-                        f"{'packed' if packed else 'padded'}")
-                log(f"[check] flash_attention_infer {name}: max_abs_err "
-                    f"{err:.3e} (atol {ATOL[dtype]:g}), finite {finite}")
-                if not finite or not err <= ATOL[dtype]:
-                    raise AssertionError(
-                        f"flash_attention_infer disagrees with its plain "
-                        f"version at {name}: {err} > {ATOL[dtype]}")
-                max_err = max(max_err, err)
-                t_kernel = cuda_time_ms(
-                    lambda: flash_attention_infer(q, k, v, **kw))
-                t_plain = cuda_time_ms(
-                    lambda: flash_attention_infer_reference(q, k, v, **kw))
-                t_lib = cuda_time_ms(library_call(q, k, v, kw))
-                t_bound, by = bound_ms(seq, dtype)
-                log(f"[time] {name}: kernel {t_kernel:.4f} ms, plain "
-                    f"{t_plain:.4f} ms, library {t_lib:.4f} ms, bound "
-                    f"{t_bound:.4f} ms ({by})")
-                cases.append({"seq": seq, "dtype": str(dtype)[6:],
-                              "packed": packed, "max_abs_err": err,
-                              "ms": t_kernel, "plain_ms": t_plain,
-                              "library_ms": t_lib, "bound_ms": t_bound,
-                              "bound_by": by})
-    # The headline numbers: the serving dtype at the larger bucket, padded.
-    head = next(c for c in cases if c["seq"] == max(SEQS)
-                and c["dtype"] == "bfloat16" and not c["packed"])
-    return {"name": "flash_attention_infer", "route": "cuda",
-            "source": "bert_pytorch_tpu_torch/csrc/flash_attention_infer.cu",
-            "replaces": REPLACES, "launches": None, "max_abs_err": max_err,
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "cases": cases}
+                yield seq, D, dtype, packed, False, True
+    for seq, depth, dtypes in EDGE_CASES:
+        for dtype in dtypes:
+            for packed in (False, True):
+                yield seq, depth, dtype, packed, True, False
 
 
-def int8_bound_ms(seq: int, dtype) -> tuple:
+def check_case(label: str, name: str, dtype, out, ref) -> float:
+    err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    log(f"[check] {label} {name}: max_abs_err {err:.3e} (atol "
+        f"{ATOL[dtype]:g}), finite {finite}")
+    if not finite or not err <= ATOL[dtype]:
+        raise AssertionError(f"{label} disagrees with its plain version at "
+                             f"{name}: {err} > {ATOL[dtype]}")
+    return err
+
+
+def time_case(kernel, plain, library, cuda_cores=None) -> dict:
+    """Device time per call (``torch.profiler``) of the kernel, of the
+    library call and, for a bf16 case, of the same kernel on its CUDA-core
+    route; CUDA-event times per call of 100 back to back (with the host's
+    issue time) of the kernel, the plain version and the library call."""
+    out = {"ms": device_time_ms(kernel), "event_ms": cuda_time_ms(kernel),
+           "plain_ms": cuda_time_ms(plain, iters=20, warmup=2),
+           "library_ms": device_time_ms(library),
+           "library_event_ms": cuda_time_ms(library)}
+    if cuda_cores is not None:
+        out["cuda_core_ms"] = device_time_ms(cuda_cores)
+    return out
+
+
+def log_times(label: str, name: str, t: dict, bound: tuple, library: str):
+    core = (f", CUDA-core route {t['cuda_core_ms']:.4f} ms"
+            if "cuda_core_ms" in t else "")
+    log(f"[time] {label} {name}: device time per call kernel "
+        f"{t['ms']:.4f} ms, {library} {t['library_ms']:.4f} ms{core}, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}); CUDA events kernel "
+        f"{t['event_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {library} "
+        f"{t['library_event_ms']:.4f} ms")
+
+
+def kernel_entry(name: str, source: str, replaces: str, cases: list,
+                 **extra) -> dict:
+    """A kernels-line entry: the headline numbers are the serving dtype at
+    the larger bucket, padded, at D."""
+    head = next(c for c in cases if c["seq"] == max(SEQS) and c["depth"] == D
+                and c["dtype"] == "bfloat16" and not c["packed"]
+                and "ms" in c)
+    return dict({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": None,
+                 "max_abs_err": max(c["max_abs_err"] for c in cases),
+                 "ms": head["ms"], "plain_ms": head["plain_ms"],
+                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"],
+                 "kernel_route": head["kernel_route"],
+                 "event_ms": head["event_ms"],
+                 "library_event_ms": head["library_event_ms"],
+                 "cuda_core_ms": head["cuda_core_ms"], "cases": cases},
+                **extra)
+
+
+def check_and_time_attention() -> dict:
+    """Phases 3 and 4 for the fused-attention kernel (#4)."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for seq, depth, dtype, packed, empty_row, timed in attention_cases():
+        q, k, v, kw = attention_inputs(seq, dtype, packed, gen, depth,
+                                       empty_row)
+        route = ka.infer_route(dtype, depth)
+        before = dict(ka.flash_attention_infer.route_launches)
+        out = ka.flash_attention_infer(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if ka.flash_attention_infer.route_launches[route] != before[route] + 1:
+            raise AssertionError(f"flash_attention_infer did not launch on "
+                                 f"its {route} route")
+        name = (f"S={seq} D={depth} {str(dtype)[6:]} "
+                f"{'packed' if packed else 'padded'}"
+                f"{' (row 0 empty)' if empty_row else ''} [{route}]")
+        err = check_case("flash_attention_infer", name, dtype, out,
+                         ka.flash_attention_infer_reference(q, k, v, **kw))
+        case = {"seq": seq, "depth": depth, "dtype": str(dtype)[6:],
+                "packed": packed, "empty_row": empty_row,
+                "kernel_route": route, "max_abs_err": err}
+        if timed:
+            key_bias, seg = ka._infer_bias_seg(
+                kw.get("bias"), kw.get("sequence_ids"), B, seq)
+            t = time_case(
+                lambda: ka.flash_attention_infer(q, k, v, **kw),
+                lambda: ka.flash_attention_infer_reference(q, k, v, **kw),
+                library_call(q, k, v, kw),
+                (lambda: ka._launch_infer(q, k, v, key_bias, seg,
+                                          "cuda_cores"))
+                if route == "tensor_cores" else None)
+            t_bound, by = bound_ms(seq, dtype, depth)
+            log_times("flash_attention_infer", name, t, (t_bound, by), "SDPA")
+            case.update(t, bound_ms=t_bound, bound_by=by)
+        cases.append(case)
+    return kernel_entry("flash_attention_infer",
+                        "bert_pytorch_tpu_torch/csrc/flash_attention_infer.cu",
+                        REPLACES, cases)
+
+
+def int8_bound_ms(seq: int, dtype, depth: int = D) -> tuple:
     """(least time in ms, what bounds it) for the int8-score kernel: q8 and
     k8 read once at 1 B an element, v read and out written at v's element
     size, the [B, S] fp32 key bias (or ids) and the two [B, H] fp32 scales;
     against QK^T (2*B*H*S^2*D) at the int8 rate plus PV (as many) at the
     rate of v's dtype."""
     elem = torch.finfo(dtype).bits // 8
-    n = B * seq * H * D
+    n = B * seq * H * depth
     nbytes = 2 * n + 2 * n * elem + B * seq * 4 + 2 * B * H * 4
-    ops = 2 * B * H * seq * seq * D
+    ops = 2 * B * H * seq * seq * depth
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (ops / PEAK_INT8_OPS + ops / PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_and_time_int8_attention() -> dict:
-    """Phases 3 and 4 for the int8-score kernel. Kernel and plain version
-    take the same int8 q/k and scales (quantized once), so the int32
-    scores are exact on both sides and the fp kernel's tolerances apply.
-    ``wrapper_ms`` also times the quantization the wrapper runs first."""
+    """Phases 3 and 4 for the int8-score kernel (#5). Kernel and plain
+    version take the same int8 q/k and scales (quantized once), so the
+    int32 scores are exact on both sides and the fp kernel's tolerances
+    apply. ``wrapper_ms`` (CUDA events) also times the quantization the
+    wrapper runs first; the library call is bf16 SDPA on the dequantized
+    q and k."""
     from bert_pytorch_tpu_torch.ops.kernels import attention as ka
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    max_err = 0.0
     cases = []
-    for seq in SEQS:
-        for dtype in (torch.bfloat16, torch.float32):
-            for packed in (False, True):
-                q, k, v, kw = attention_inputs(seq, dtype, packed, gen)
-                key_bias, seg = ka._infer_bias_seg(
-                    kw.get("bias"), kw.get("sequence_ids"), B, seq)
-                q8, q_scale, k8, k_scale = ka.quantize_qk(q, k)
-                args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
-                out = ka.flash_attention_infer_int8_prequantized(*args)
-                torch.cuda.synchronize()
-                ref = ka._int8_forward_math(*args)
-                err = (out.float() - ref.float()).abs().max().item()
-                finite = bool(torch.isfinite(out).all())
-                name = (f"S={seq} {str(dtype)[6:]} "
-                        f"{'packed' if packed else 'padded'}")
-                log(f"[check] flash_attention_infer_int8 {name}: max_abs_err "
-                    f"{err:.3e} (atol {ATOL[dtype]:g}), finite {finite}")
-                if not finite or not err <= ATOL[dtype]:
-                    raise AssertionError(
-                        f"flash_attention_infer_int8 disagrees with its "
-                        f"plain version at {name}: {err} > {ATOL[dtype]}")
-                max_err = max(max_err, err)
-                t_kernel = cuda_time_ms(
-                    lambda: ka.flash_attention_infer_int8_prequantized(*args))
-                t_wrapper = cuda_time_ms(
-                    lambda: ka.flash_attention_infer_int8(q, k, v, **kw))
-                t_plain = cuda_time_ms(lambda: ka._int8_forward_math(*args),
-                                       iters=20, warmup=2)
-                deq = [(t8.float() * s[:, None, :, None]).to(torch.bfloat16)
-                       for t8, s in ((q8, q_scale), (k8, k_scale))]
-                t_lib = cuda_time_ms(library_call(
-                    deq[0], deq[1], v.to(torch.bfloat16), kw))
-                t_bound, by = int8_bound_ms(seq, dtype)
-                log(f"[time] int8 {name}: kernel {t_kernel:.4f} ms, wrapper "
-                    f"(quantize + kernel) {t_wrapper:.4f} ms, plain "
-                    f"{t_plain:.4f} ms, library (bf16 SDPA on dequantized "
-                    f"q/k) {t_lib:.4f} ms, bound {t_bound:.4f} ms ({by})")
-                cases.append({"seq": seq, "dtype": str(dtype)[6:],
-                              "packed": packed, "max_abs_err": err,
-                              "ms": t_kernel, "wrapper_ms": t_wrapper,
-                              "plain_ms": t_plain, "library_ms": t_lib,
-                              "bound_ms": t_bound, "bound_by": by})
-    head = next(c for c in cases if c["seq"] == max(SEQS)
-                and c["dtype"] == "bfloat16" and not c["packed"])
-    return {"name": "flash_attention_infer_int8", "route": "cuda",
-            "source": INT8_SOURCE, "replaces": INT8_REPLACES,
-            "launches": None, "max_abs_err": max_err, "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "library": "bf16 sdpa on dequantized q/k", "cases": cases}
+    for seq, depth, dtype, packed, empty_row, timed in attention_cases():
+        q, k, v, kw = attention_inputs(seq, dtype, packed, gen, depth,
+                                       empty_row)
+        key_bias, seg = ka._infer_bias_seg(
+            kw.get("bias"), kw.get("sequence_ids"), B, seq)
+        q8, q_scale, k8, k_scale = ka.quantize_qk(q, k)
+        args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+        route = ka.infer_route(dtype, depth)
+        before = dict(ka.flash_attention_infer_int8.route_launches)
+        out = ka.flash_attention_infer_int8_prequantized(*args)
+        torch.cuda.synchronize()
+        if (ka.flash_attention_infer_int8.route_launches[route]
+                != before[route] + 1):
+            raise AssertionError(f"flash_attention_infer_int8 did not launch "
+                                 f"on its {route} route")
+        name = (f"S={seq} D={depth} {str(dtype)[6:]} "
+                f"{'packed' if packed else 'padded'}"
+                f"{' (row 0 empty)' if empty_row else ''} [{route}]")
+        err = check_case("flash_attention_infer_int8", name, dtype, out,
+                         ka._int8_forward_math(*args))
+        case = {"seq": seq, "depth": depth, "dtype": str(dtype)[6:],
+                "packed": packed, "empty_row": empty_row,
+                "kernel_route": route, "max_abs_err": err}
+        if timed:
+            deq = [(t8.float() * s[:, None, :, None]).to(torch.bfloat16)
+                   for t8, s in ((q8, q_scale), (k8, k_scale))]
+            t = time_case(
+                lambda: ka.flash_attention_infer_int8_prequantized(*args),
+                lambda: ka._int8_forward_math(*args),
+                library_call(deq[0], deq[1], v.to(torch.bfloat16), kw),
+                (lambda: ka._launch_int8(*args, "cuda_cores"))
+                if route == "tensor_cores" else None)
+            t["wrapper_event_ms"] = cuda_time_ms(
+                lambda: ka.flash_attention_infer_int8(q, k, v, **kw))
+            t_bound, by = int8_bound_ms(seq, dtype, depth)
+            log_times("flash_attention_infer_int8", name, t, (t_bound, by),
+                      "bf16 SDPA on dequantized q/k")
+            log(f"[time] flash_attention_infer_int8 {name}: wrapper "
+                f"(quantize + kernel), CUDA events {t['wrapper_event_ms']:.4f}"
+                f" ms")
+            case.update(t, bound_ms=t_bound, bound_by=by)
+        cases.append(case)
+    return kernel_entry("flash_attention_infer_int8", INT8_SOURCE,
+                        INT8_REPLACES, cases,
+                        library="bf16 sdpa on dequantized q/k")
 
 
 # Training kernels against their plain versions, per output: (atol, rtol)
@@ -466,12 +551,7 @@ def sdpa_calls(q, k, v, do, kw, rate: float):
     scaled_dot_product_attention with the same additive mask and
     dropout_p, forward alone and forward + backward."""
     fwd = library_call(q, k, v, kw)
-    if "bias" in kw:
-        mask = kw["bias"].to(q.dtype)
-    else:
-        sids = kw["sequence_ids"]
-        same = (sids[:, :, None] == sids[:, None, :]) & (sids[:, :, None] > 0)
-        mask = torch.where(same, 0.0, -10000.0)[:, None].to(q.dtype)
+    mask = sdpa_mask(q, kw)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -594,6 +674,14 @@ def time_training_kernels(rate: float = 0.1) -> dict:
 INT8_FLAGS = ("--quantize", "int8", "--fuse_epilogues")
 
 
+def zero_counts(kernels: dict) -> None:
+    """Every launch count (and per-route count) to 0."""
+    from bert_pytorch_tpu_torch.ops.kernels.attention import reset_counts
+
+    for kernel in kernels.values():
+        reset_counts(kernel)
+
+
 def serve_args(vocab: str, dtype: str, backend: str, tasks: str,
                extra=(), config: str = CONFIG):
     from bert_pytorch_tpu_torch import run_server
@@ -686,8 +774,7 @@ def serve_waves(args, waves: list, kernels: dict) -> dict:
     engine.execute_staged = recording
     labels = args.classify_labels.split(",")
     # Counts to zero just before the main path, read just after.
-    for kernel in kernels.values():
-        kernel.launches = 0
+    zero_counts(kernels)
     engine.forwards = 0
     service.start()
     server = make_server(service, port=0)
@@ -710,6 +797,8 @@ def serve_waves(args, waves: list, kernels: dict) -> dict:
         service.stop()
         thread.join(timeout=30)
     launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.route_launches) for name, k in kernels.items()
+              if hasattr(k, "route_launches")}
     forwards = engine.forwards
     for (task, payload), (status, body, _) in zip(payloads, results):
         if status != 200:
@@ -722,7 +811,7 @@ def serve_waves(args, waves: list, kernels: dict) -> dict:
         f"forwards; plans (task, bucket, packed, max requests/row, fused): "
         f"{plans}")
     return {"requests": len(results), "forwards": forwards,
-            "launches": launches, "plans": plans,
+            "launches": launches, "routes": routes, "plans": plans,
             "layers": engine.config.num_hidden_layers,
             "p50_ms": statistics.median(latencies) * 1e3,
             "max_ms": latencies[-1] * 1e3,
@@ -742,12 +831,18 @@ def check_coverage(plans: list) -> None:
 
 def check_launches(served: dict, kernel: str, idle: Sequence[str]) -> None:
     """``kernel`` launched once per encoder layer per forward of the run,
-    and each of ``idle`` never."""
+    every launch on its tensor-core route, and each of ``idle`` never."""
     launches, forwards = served["launches"], served["forwards"]
     if launches[kernel] == 0 or launches[kernel] != served["layers"] * forwards:
         raise AssertionError(
             f"{kernel} launched {launches} times over {forwards} forwards; "
             f"expected {served['layers']} per forward")
+    routes = served["routes"][kernel]
+    if routes["tensor_cores"] != launches[kernel]:
+        raise AssertionError(f"{kernel} launches by route {routes}: every "
+                             f"serving launch must take the tensor cores")
+    log(f"[serve] {kernel}: {launches[kernel]} launches over {forwards} "
+        f"forwards ({served['layers']} per forward), by route {routes}")
     for name in idle:
         if launches[name] != 0:
             raise AssertionError(f"{name} launched {launches[name]} times "
@@ -996,8 +1091,7 @@ def drive_training(kernels: dict) -> dict:
     layers = config.num_hidden_layers
     torch.cuda.synchronize()
     # Counts to zero just before the main path, read just after.
-    for kernel in kernels.values():
-        kernel.launches = 0
+    zero_counts(kernels)
     records = []
     for batch in batches:
         t0 = time.perf_counter()
@@ -1282,8 +1376,7 @@ def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # Counts to zero just before the main path, read just after.
-    for kernel in kernels.values():
-        kernel.launches = 0
+    zero_counts(kernels)
     summary = run_squad.main(args)
     launches = {name: k.launches for name, k in kernels.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1387,7 +1480,10 @@ def main() -> int:
         f"{squad['e2e_inference_time']:.2f} s, EM {squad['exact_match']}, "
         f"F1 {squad['F1']}, peak {squad['peak_gib']:.1f} GiB on {card}")
     infer_entry["launches"] = served["launches"]["flash_attention_infer"]
+    infer_entry["route_launches"] = served["routes"]["flash_attention_infer"]
     int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
+    int8_entry["route_launches"] = served8["routes"][
+        "flash_attention_infer_int8"]
     ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
         worst, cases, trained["launches"]) + [ln_entry]

@@ -1,0 +1,185 @@
+"""The serving attention kernels' two routes, on the CPU: which route a
+launch takes (``infer_route``, from dtype and head_dim alone), that a CPU
+tensor takes the plain version and counts no launch on any route, and
+that the wrappers call the route's C entry point, count it, and raise on
+a failed launch without falling back to the other route (a stand-in
+library replaces the built one; no kernel runs here)."""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from bert_pytorch_tpu_torch.ops.attention import make_attention_bias
+from bert_pytorch_tpu_torch.ops.kernels import attention as kattn
+
+KERNELS = (kattn.flash_attention_infer, kattn.flash_attention_infer_int8)
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 32, "tensor_cores"),
+    (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"),
+    (torch.bfloat16, 24, "cuda_cores"),
+    (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 96, "cuda_cores"),
+    (torch.float16, 64, "cuda_cores"),
+])
+def test_route_from_dtype_and_head_dim(dtype, head_dim, route):
+    """bf16 with head_dim 32, 64 or 128 takes the tensor cores (#4 by q's
+    dtype, #5 by v's); fp32, D=24 and every other head_dim the CUDA
+    cores."""
+    assert kattn.infer_route(dtype, head_dim) == route
+    assert route in kattn.ROUTES
+
+
+def _inputs(dtype, seq=40, depth=64, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, seq, 3, depth)).astype(np.float32)).to(dtype) for _ in range(3))
+    mask = np.ones((2, seq), np.int32)
+    mask[1, seq // 2:] = 0
+    sids = np.zeros((2, seq), np.int32)
+    sids[0, :seq // 3], sids[0, seq // 3:] = 1, 2
+    return q, k, v, make_attention_bias(torch.from_numpy(mask)), \
+        torch.from_numpy(sids)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_tensors_take_the_plain_version_and_count_nothing(dtype):
+    """A CPU tensor on either route's dtype takes the plain version: equal
+    to the reference bit for bit, no launch counted, on any route."""
+    q, k, v, bias, sids = _inputs(dtype)
+    before = [(f.launches, dict(f.route_launches)) for f in KERNELS]
+    for kw in ({"bias": bias}, {"sequence_ids": sids}):
+        torch.testing.assert_close(
+            kattn.flash_attention_infer(q, k, v, **kw),
+            kattn.flash_attention_infer_reference(q, k, v, **kw),
+            atol=0, rtol=0)
+        torch.testing.assert_close(
+            kattn.flash_attention_infer_int8(q, k, v, **kw),
+            kattn.flash_attention_infer_int8_reference(q, k, v, **kw),
+            atol=0, rtol=0)
+    assert [(f.launches, dict(f.route_launches)) for f in KERNELS] == before
+
+
+def test_reset_counts_zeroes_every_route():
+    wrapper = kattn.flash_attention_infer
+    saved = wrapper.launches, dict(wrapper.route_launches)
+    try:
+        wrapper.launches = 5
+        wrapper.route_launches.update(tensor_cores=3, cuda_cores=2)
+        kattn.reset_counts(wrapper)
+        assert wrapper.launches == 0
+        assert wrapper.route_launches == {"tensor_cores": 0, "cuda_cores": 0}
+        kattn.reset_counts(kattn.flash_attention_fwd)  # no routes: just 0
+        assert kattn.flash_attention_fwd.launches == 0
+    finally:
+        wrapper.launches, wrapper.route_launches = saved[0], saved[1]
+
+
+class _FakeLibrary:
+    """Records the C entry point each launch calls and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.rc = rc
+        self.calls = []
+
+    def __getattr__(self, name):
+        if name.endswith("_error"):
+            return lambda code: b"stand-in launch failure"
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+        return entry
+
+
+@pytest.fixture()
+def fake_library(monkeypatch):
+    """The launch helpers with the built library and the CUDA device
+    context replaced, and the launch counts restored afterwards."""
+    saved = [(f.launches, dict(f.route_launches)) for f in KERNELS]
+    lib = _FakeLibrary()
+    monkeypatch.setattr(kattn, "_library", lambda name: lib)
+    monkeypatch.setattr(kattn, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    yield lib
+    for f, (launches, routes) in zip(KERNELS, saved):
+        f.launches, f.route_launches = launches, routes
+
+
+@pytest.mark.parametrize("dtype,depth,entry,route", [
+    (torch.bfloat16, 64, "flash_attention_infer_wgmma", "tensor_cores"),
+    (torch.bfloat16, 128, "flash_attention_infer_wgmma", "tensor_cores"),
+    (torch.float32, 64, "flash_attention_infer", "cuda_cores"),
+    (torch.bfloat16, 24, "flash_attention_infer", "cuda_cores"),
+])
+def test_fp_kernel_calls_its_routes_entry_point(fake_library, dtype, depth,
+                                                entry, route):
+    q, k, v, _, sids = _inputs(dtype, depth=depth)
+    kb, seg = kattn._infer_bias_seg(None, sids, 2, q.shape[1])
+    before = dict(kattn.flash_attention_infer.route_launches)
+    out = kattn._launch_infer(q, k, v, kb, seg,
+                              kattn.infer_route(dtype, depth))
+    assert out.shape == q.shape and out.dtype == dtype
+    ((name, args),) = fake_library.calls
+    assert name == entry
+    # The tensor-core entry takes no dtype code; both end with the scale
+    # and the stream, after (batch, seq, heads, head_dim).
+    assert args[6:10] == (2, q.shape[1], 3, depth)
+    assert args[-2] == pytest.approx(depth ** -0.5)
+    after = kattn.flash_attention_infer.route_launches
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("dtype,depth,entry,route", [
+    (torch.bfloat16, 64, "flash_attention_infer_int8_wgmma",
+     "tensor_cores"),
+    (torch.bfloat16, 32, "flash_attention_infer_int8_wgmma",
+     "tensor_cores"),
+    (torch.float32, 64, "flash_attention_infer_int8", "cuda_cores"),
+    (torch.bfloat16, 96, "flash_attention_infer_int8", "cuda_cores"),
+])
+def test_int8_kernel_calls_its_routes_entry_point(fake_library, dtype, depth,
+                                                  entry, route):
+    q, k, v, bias, _ = _inputs(dtype, depth=depth)
+    kb, seg = kattn._infer_bias_seg(bias, None, 2, q.shape[1])
+    q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+    before = dict(kattn.flash_attention_infer_int8.route_launches)
+    out = kattn._launch_int8(q8, k8, q_scale, k_scale, v, kb, seg,
+                             kattn.infer_route(v.dtype, depth))
+    assert out.shape == v.shape and out.dtype == dtype
+    ((name, args),) = fake_library.calls
+    assert name == entry
+    assert args[8:12] == (2, q.shape[1], 3, depth)
+    after = kattn.flash_attention_infer_int8.route_launches
+    assert after[route] == before[route] + 1
+
+
+def test_failed_launch_raises_and_falls_back_to_nothing(fake_library):
+    """A launch that returns a CUDA error raises; the other route's entry
+    point is never called and no launch is counted."""
+    fake_library.rc = 1
+    q, k, v, _, _ = _inputs(torch.bfloat16)
+    before = kattn.flash_attention_infer.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        kattn._launch_infer(q, k, v, None, None, "tensor_cores")
+    assert [name for name, _ in fake_library.calls] == [
+        "flash_attention_infer_wgmma"]
+    assert kattn.flash_attention_infer.launches == before
+
+
+def test_tensor_core_route_needs_16_byte_aligned_operands(fake_library):
+    q, k, v, _, _ = _inputs(torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype)
+    shifted = flat[1:].view(q.shape)  # 2 bytes past an aligned base
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kattn._launch_infer(shifted, k, v, None, None, "tensor_cores")
+    assert fake_library.calls == []

@@ -46,23 +46,86 @@ def _inputs(dtype, batch, seq, heads, depth, seed):
     return q, k, v, torch.from_numpy(mask).cuda(), torch.from_numpy(sids).cuda()
 
 
-@pytest.mark.parametrize("depth", [24, 64, 128])
+@pytest.mark.parametrize("depth", [24, 32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version(dtype, depth):
     """Padded and packed rows at a ragged S (not a multiple of the 64-row
-    tile), for head_dim 64 (the repo's configs) and two other multiples
-    of 8."""
+    tile), for head_dim 64 (the repo's configs) and other multiples of 8;
+    each launch counted on the route ``infer_route`` names (bf16 at 32, 64
+    and 128: the tensor cores)."""
     _need_card()
     q, k, v, mask, sids = _inputs(getattr(torch, dtype), 3, 100, 4, depth, 9)
+    route = kattn.infer_route(q.dtype, depth)
     for kw in ({"bias": make_attention_bias(mask)}, {"sequence_ids": sids}):
         before = kattn.flash_attention_infer.launches
+        routed = kattn.flash_attention_infer.route_launches[route]
         out = kattn.flash_attention_infer(q, k, v, **kw)
         torch.cuda.synchronize()
         assert kattn.flash_attention_infer.launches == before + 1
+        assert kattn.flash_attention_infer.route_launches[route] == routed + 1
         ref = kattn.flash_attention_infer_reference(q, k, v, **kw)
         assert out.dtype == q.dtype and out.shape == q.shape
         assert torch.isfinite(out).all()
         assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+
+
+def _edge_inputs(depth, seed):
+    """bf16 at S=200 (ragged: 3 key tiles and 8 keys), padded with row 0's
+    every key masked, packed with row 2 all pad."""
+    q, k, v, mask, sids = _inputs(torch.bfloat16, 3, 200, 4, depth, seed)
+    mask[0] = 0
+    return q, k, v, ({"bias": make_attention_bias(mask)},
+                     {"sequence_ids": sids})
+
+
+@pytest.mark.parametrize("depth", [64, 128])
+def test_tensor_core_route_edges(depth):
+    """Both serving kernels on their tensor-core route at a ragged S, with
+    a fully masked padded row and an all-pad packed row: finite, within
+    the bf16 bar of their plain versions, one tensor-core launch each."""
+    _need_card()
+    q, k, v, cases = _edge_inputs(depth, 4)
+    q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+    for kw in cases:
+        key_bias, seg = kattn._infer_bias_seg(kw.get("bias"),
+                                              kw.get("sequence_ids"), 3, 200)
+        int8_args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+        for wrapper, run, plain in (
+                (kattn.flash_attention_infer,
+                 lambda: kattn.flash_attention_infer(q, k, v, **kw),
+                 lambda: kattn.flash_attention_infer_reference(q, k, v,
+                                                               **kw)),
+                (kattn.flash_attention_infer_int8,
+                 lambda: kattn.flash_attention_infer_int8_prequantized(
+                     *int8_args),
+                 lambda: kattn._int8_forward_math(*int8_args))):
+            routed = wrapper.route_launches["tensor_cores"]
+            out = run()
+            torch.cuda.synchronize()
+            assert wrapper.route_launches["tensor_cores"] == routed + 1
+            assert torch.isfinite(out).all()
+            err = (out.float() - plain().float()).abs().max().item()
+            assert err <= ATOL["bfloat16"], err
+
+
+def test_tensor_core_and_cuda_core_routes_agree():
+    """The same bf16 inputs through both routes of each serving kernel
+    (the CUDA-core route reached directly): within the bf16 bar."""
+    _need_card()
+    q, k, v, cases = _edge_inputs(64, 6)
+    q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+    for kw in cases:
+        key_bias, seg = kattn._infer_bias_seg(kw.get("bias"),
+                                              kw.get("sequence_ids"), 3, 200)
+        int8_args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+        pairs = [[kattn._launch_infer(q, k, v, key_bias, seg, route)
+                  for route in kattn.ROUTES],
+                 [kattn._launch_int8(*int8_args, route)
+                  for route in kattn.ROUTES]]
+        torch.cuda.synchronize()
+        for tensor_cores, cuda_cores in pairs:
+            err = (tensor_cores.float() - cuda_cores.float()).abs().max()
+            assert err.item() <= ATOL["bfloat16"], err.item()
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
@@ -208,24 +271,29 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take():
 
 # -- the int8-score serving kernel (TPU kernel #5) --------------------------
 
-@pytest.mark.parametrize("depth", [64, 128])
+@pytest.mark.parametrize("depth", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_kernel_matches_plain_version(dtype, depth):
     """Padded and packed rows at a ragged S; kernel and plain version take
     the same int8 q/k and scales, so the int32 scores are exact on both
     sides and the fp kernel's tolerances apply. The wrapper (quantize +
-    kernel) counts one launch per call."""
+    kernel) counts one launch per call, on the route ``infer_route``
+    names for v."""
     _need_card()
     q, k, v, mask, sids = _inputs(getattr(torch, dtype), 3, 100, 4, depth, 5)
     q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+    route = kattn.infer_route(v.dtype, depth)
     for kw in ({"bias": make_attention_bias(mask)}, {"sequence_ids": sids}):
         key_bias, seg = kattn._infer_bias_seg(kw.get("bias"),
                                               kw.get("sequence_ids"), 3, 100)
         args = (q8, k8, q_scale, k_scale, v, key_bias, seg)
         before = kattn.flash_attention_infer_int8.launches
+        routed = kattn.flash_attention_infer_int8.route_launches[route]
         out = kattn.flash_attention_infer_int8_prequantized(*args)
         torch.cuda.synchronize()
         assert kattn.flash_attention_infer_int8.launches == before + 1
+        assert (kattn.flash_attention_infer_int8.route_launches[route]
+                == routed + 1)
         ref = kattn._int8_forward_math(*args)
         assert out.dtype == v.dtype and out.shape == v.shape
         assert torch.isfinite(out).all()
