@@ -13,7 +13,7 @@
 //                            the keep mask drops,
 //                       dS = p * (dA - delta),
 //                       dQ = (dS rounded to k's dtype) k * scale;
-//   flash_dkv_kernel <- `_flash_dkv_kernel`: per 64-key tile, loop over q
+//   dkv kernels      <- `_flash_dkv_kernel`: per 64-key tile, loop over q
 //                       tiles;
 //                       dV    = (keep * p / (1-r) rounded to dO's dtype)^T dO,
 //                       dK    = (dS rounded to q's dtype)^T q * scale,
@@ -23,24 +23,48 @@
 // the product, the additive key bias, the packed -10000 mask) and the keep
 // mask is regenerated from the element coordinates by the Philox of
 // flash_attention_common.cuh, so the backward differentiates the forward
-// that ran, with any tiling.
+// that ran, with any tiling. No atomics: each output tile is owned by one
+// block. q, k, v, dO, dq, dk, dv keep the model's [B, S, H, D] layout;
+// lse, delta and dbias are [B*H, S] fp32; the key bias and sequence ids
+// are read from [B, S].
 //
-// Design: as the forward. One block of 256 threads (16 x 16) per
-// (batch*head, 64-row tile); the tiles the inner loop walks are staged in
-// shared memory as fp32 with an odd row stride; each thread owns a 4 x 4
-// block of the [64 x 64] score tile and a 4 x (head_dim / 16) block of its
-// output. The dq kernel's thread rows are query rows; the dkv kernel's are
-// key rows, so its dS^T and P^T tiles are written and read back by the same
-// half-warp and the dbias sum reduces with shuffles. No atomics: each
-// output tile is owned by one block. q, k, v, dO, dq, dk, dv keep the
-// model's [B, S, H, D] layout; lse, delta and dbias are [B*H, S] fp32; the
-// key bias and sequence ids are read from [B, S].
+// The dkv kernel has two routes, chosen by the wrapper from dtype and
+// head_dim before launch (ops/kernels/attention.py `train_route`):
 //
-// What bounds it on the H100: four products per tile pair (two for the
-// scores and dA, two for the outputs) run on the CUDA cores in fp32 fed
-// from shared memory, far from the tensor-core rate that bounds the work.
+// * Tensor cores (`flash_dkv_wgmma_kernel`, bf16 with head_dim 32 or 64:
+//   BERT-base and BERT-large). One warpgroup per (batch*head, 64-key
+//   tile). TMA brings the K and V tiles once and each 64-row q and dO tile
+//   through a 2-stage ring (the mbarrier ring and descriptors of
+//   wgmma_common.cuh). Per q tile, four `wgmma` products, all in the two
+//   shapes of the forward: S^T = K q^T and dA^T = V dO^T from shared memory,
+//   both operands K-major (m64n64k16); then dV += P_drop^T dO and
+//   dK += dS^T q with P_drop^T and dS^T from registers (the fragments of
+//   S^T are, pair by pair, the A fragments of a k16 step) and dO and q as
+//   the MN-major B operand, the same tiles read with the transpose bit.
+//   The rows of the fragments are keys, so dbias sums over the quad at the
+//   end and across q tiles in registers. lse, delta and the q ids are read
+//   per tile by each thread for its own 16 q columns while the score
+//   wgmmas run, and so is the keep mask (`keep_bits_t`): one Philox call
+//   gives four neighbouring keys of one q row, which are rows of four
+//   lanes, so each of the four draws a quarter of the calls they share and
+//   they swap bytes by shuffles: no word is drawn twice. dK and dV stay in
+//   registers (head_dim fp32 a thread), which is why head_dim 128 keeps
+//   the CUDA-core route. What bounds it: the CUDA cores (the elementwise
+//   dS and, with dropout, the Philox rounds), not the tensor cores.
+// * CUDA cores (`flash_dkv_kernel`, fp32 and any other head_dim) and the
+//   dq kernel (one route): one block of 256 threads (16 x 16) per
+//   (batch*head, 64-row tile); the tiles the inner loop walks are staged
+//   in shared memory as fp32 with an odd row stride; each thread owns a
+//   4 x 4 block of the [64 x 64] score tile and a 4 x (head_dim / 16)
+//   block of its output. The dq kernel's thread rows are query rows; the
+//   dkv kernel's are key rows, so its dS^T and P^T tiles are written and
+//   read back by the same half-warp and the dbias sum reduces with
+//   shuffles. The products (two for the scores and dA, and two for the
+//   outputs in dkv) run on the CUDA cores in fp32 fed from shared memory,
+//   far from the tensor-core rate that bounds the work.
 
 #include "flash_attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -509,6 +533,318 @@ cudaError_t dkv_entry(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;  // not reached
 }
 
+// -- the dkv kernel's tensor-core route --------------------------------------
+
+// The keep bits of this thread's 32 elements of the transposed [64 keys x
+// 64 q] tile whose keys start at k0 and q rows at q0 (bit e: element e, at
+// key row 16 * warp + lane / 4 + 8 * ((e >> 1) & 1) and q column
+// 8 * (e >> 2) + 2 * (lane % 4) + (e & 1)). The four keys of one Philox
+// call are key i = lane / 4 % 4 of the four lanes with the same lane / 16
+// and lane % 4, and those lanes share all 32 of their calls: lane i draws
+// the calls of elements 8i .. 8i + 7, keeps byte b for key b, and the four
+// swap bytes with three shuffles.
+__device__ __forceinline__ uint32_t keep_bits_t(uint2 seed, uint32_t threshold,
+                                                int bh, int q0, int k0,
+                                                int warp, int lane) {
+  const int i = (lane >> 2) & 3;
+  const int c = lane & 3;
+  const uint32_t group0 =
+      static_cast<uint32_t>((k0 >> 2) + 4 * warp + (lane >> 4));
+  uint32_t own = 0;  // bit 8b + k: key b of call k (element 8i + k)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int half = (k >> 1) & 1;
+    const int col = 8 * (2 * i + (k >> 2)) + 2 * c + (k & 1);
+    const uint4 w = philox4x32_10(
+        make_uint4(group0 + 2 * half, static_cast<uint32_t>(q0 + col),
+                   static_cast<uint32_t>(bh), 0u),
+        seed);
+    own |= (static_cast<uint32_t>(w.x >= threshold) |
+            static_cast<uint32_t>(w.y >= threshold) << 8 |
+            static_cast<uint32_t>(w.z >= threshold) << 16 |
+            static_cast<uint32_t>(w.w >= threshold) << 24)
+           << k;
+  }
+  uint32_t keep = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {  // from the lane whose i is i ^ t
+    const uint32_t from =
+        t == 0 ? own : __shfl_xor_sync(0xffffffffu, own, 4 * t);
+    keep |= ((from >> (8 * i)) & 0xFFu) << (8 * (i ^ t));
+  }
+  return keep;
+}
+
+// P_drop^T and dS^T of one tile pair on this thread's 32 elements of S^T
+// and dA^T (raw products; layout as in keep_bits_t), given the bias and
+// ids of its two keys and lse, delta and ids of its 16 q columns: leaves
+// both in bf16 pairs (the A fragments of four k16 steps) and adds dS to
+// the keys' dbias sums. kFull: every q row of the tile lies before S
+// (else rows past S get probability 0 by index).
+template <bool kFull, bool kDropout>
+__device__ __forceinline__ void grad_tile(
+    const float (&s)[32], const float (&da)[32], const float (&kb)[2],
+    const int (&kid)[2], const float (&lse)[16], const float (&delta)[16],
+    const int (&qid)[16], bool segmented, float scale, float inv_keep,
+    uint32_t keep, int q0, int col0, int seq, float (&db)[2],
+    uint32_t (&pt)[16], uint32_t (&dst)[16]) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = (e >> 1) & 1;
+    float pv[2], ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 2 * (e >> 2) + u;  // this thread's q column
+      float x = __fadd_rn(__fmul_rn(s[e + u], scale), kb[r]);  // no FMA
+      if (segmented) x += seg_mask(qid[c], kid[r]);
+      float p = wg::exp_approx(x - lse[c]);
+      if (!kFull && q0 + 8 * (e >> 2) + col0 + u >= seq) p = 0.f;
+      float a = da[e + u];
+      pv[u] = p;
+      if (kDropout) {
+        const bool kept = (keep >> (e + u)) & 1u;
+        pv[u] = kept ? p * inv_keep : 0.f;
+        a = kept ? a * inv_keep : 0.f;
+      }
+      ds[u] = p * (a - delta[c]);
+      db[r] += ds[u];
+    }
+    pt[e >> 1] = wg::pack_bf16(pv[0], pv[1]);
+    dst[e >> 1] = wg::pack_bf16(ds[0], ds[1]);
+  }
+}
+
+// Dynamic shared memory of the tensor-core dkv kernel: the K and V tiles,
+// two q and two dO stages, three mbarriers, and 1024 bytes to align the
+// base for the 128-byte swizzle.
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return 1024 + (2 + 2 * wg::kStages) * wg::Tile<2 * D>::kBytes +
+         (wg::kStages + 1) * sizeof(uint64_t);
+}
+
+// Launch: grid (batch * heads, ceil(seq / 64)), wg::kThreads threads,
+// dkv_smem_bytes<D>() of dynamic shared memory.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(wg::kThreads)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv,
+                       float* __restrict__ dbias,
+                       const float* __restrict__ key_bias,
+                       const int* __restrict__ seg, int seq, int heads,
+                       float scale, uint2 seed, uint32_t threshold,
+                       float inv_keep) {
+  using T = wg::Tile<2 * D>;
+  constexpr int kRows = wg::kRows;
+  constexpr int kStages = wg::kStages;
+  constexpr int kAcc = D / 2;  // fp32 values of dK (and of dV) per thread
+  extern __shared__ float smem[];  // the same symbol as the CUDA-core kernels'
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.y * kRows;
+  const long long tok0 = static_cast<long long>(b) * seq;
+  const long long stat0 = static_cast<long long>(bh) * seq;
+  const int num_qb = (seq + kRows - 1) / kRows;
+
+  const uint32_t raw = wg::smem_u32(smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + T::kBytes;
+  const uint32_t q_s = v_s + T::kBytes;                   // kStages q tiles
+  const uint32_t do_s = q_s + kStages * T::kBytes;        // kStages dO tiles
+  const uint32_t bars = do_s + kStages * T::kBytes;       // full[0], full[1]
+  const uint32_t kv_bar = bars + 8 * kStages;
+
+  auto load_stage = [&](int t) {
+    const int st = t % kStages;
+    const uint32_t bar = bars + 8 * st;
+    wg::mbar_expect_tx(bar, 2 * T::kBytes);
+    wg::load_tile<2 * D, 2>(q_s + st * T::kBytes, &qmap, bar, h, t * kRows,
+                            b);
+    wg::load_tile<2 * D, 2>(do_s + st * T::kBytes, &domap, bar, h,
+                            t * kRows, b);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) wg::mbar_init(bars + 8 * st, 1);
+    wg::mbar_init(kv_bar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    wg::mbar_expect_tx(kv_bar, 2 * T::kBytes);
+    wg::load_tile<2 * D, 2>(k_s, &kmap, kv_bar, h, k0, b);
+    wg::load_tile<2 * D, 2>(v_s, &vmap, kv_bar, h, k0, b);
+    for (int t = 0; t < kStages && t < num_qb; ++t) load_stage(t);
+  }
+
+  // This thread's two keys k0 + row0 (+ 8) and its q columns 8j + col0
+  // (+ 1) of each q tile. Keys past S are not masked: they only reach
+  // their own rows of dK, dV and dbias, which are not written.
+  const int row0 = 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const bool segmented = seg != nullptr;
+  float kb[2];
+  int kid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + row0 + 8 * r;
+    const bool inside = key < seq;
+    kb[r] = (key_bias != nullptr && inside) ? key_bias[tok0 + key] : 0.f;
+    kid[r] = (segmented && inside) ? seg[tok0 + key] : 0;
+  }
+  float dk_acc[kAcc], dv_acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float db[2] = {0.f, 0.f};  // this thread's share of its keys' dbias
+
+  wg::mbar_wait(kv_bar, 0);
+  for (int t = 0; t < num_qb; ++t) {
+    const int st = t % kStages;
+    const int q0 = t * kRows;
+    const uint32_t qt = q_s + st * T::kBytes;
+    const uint32_t dot = do_s + st * T::kBytes;
+    wg::mbar_wait(bars + 8 * st, (t / kStages) & 1);
+
+    float s[32], da[32];  // S^T and dA^T: keys by q
+    wg::pin(s);
+    wg::pin(da);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < D / 16; ++step)
+      wg::mma_bf16_ss(s, wg::k_major<2 * D>(k_s, step),
+                      wg::k_major<2 * D>(qt, step), step > 0);
+#pragma unroll
+    for (int step = 0; step < D / 16; ++step)
+      wg::mma_bf16_ss(da, wg::k_major<2 * D>(v_s, step),
+                      wg::k_major<2 * D>(dot, step), step > 0);
+    wg::wgmma_commit();
+    // lse, delta and ids of this thread's 16 q columns, and with dropout
+    // its keep bits, made while the MMAs run.
+    const bool full = q0 + kRows <= seq;  // every q row of the tile inside S
+    float lse_q[16], delta_q[16];
+    int qid[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int q = q0 + 8 * (c >> 1) + col0 + (c & 1);
+      const bool inside = full || q < seq;
+      lse_q[c] = inside ? lse[stat0 + q] : 0.f;
+      delta_q[c] = inside ? delta[stat0 + q] : 0.f;
+      qid[c] = (segmented && inside) ? seg[tok0 + q] : 0;
+    }
+    uint32_t keep = ~0u;
+    if constexpr (kDropout)
+      keep = keep_bits_t(seed, threshold, bh, q0, k0, warp, lane);
+    wg::wgmma_wait();
+    wg::pin(s);
+    wg::pin(da);
+
+    uint32_t pt[16], dst[16];  // P_drop^T and dS^T in bf16 pairs
+    if (full)
+      grad_tile<true, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                segmented, scale, inv_keep, keep, q0, col0,
+                                seq, db, pt, dst);
+    else
+      grad_tile<false, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                 segmented, scale, inv_keep, keep, q0, col0,
+                                 seq, db, pt, dst);
+
+    wg::pin(dk_acc);
+    wg::pin(dv_acc);
+    wg::pin(pt);
+    wg::pin(dst);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      const uint32_t a_p[4] = {pt[4 * step], pt[4 * step + 1],
+                               pt[4 * step + 2], pt[4 * step + 3]};
+      wg::mma_pv<D>(dv_acc, a_p, wg::mn_major<2 * D>(dot, step));
+      const uint32_t a_ds[4] = {dst[4 * step], dst[4 * step + 1],
+                                dst[4 * step + 2], dst[4 * step + 3]};
+      wg::mma_pv<D>(dk_acc, a_ds, wg::mn_major<2 * D>(qt, step));
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait();
+    wg::pin(dk_acc);
+    wg::pin(dv_acc);
+
+    __syncthreads();  // every read of this stage is done
+    if (tid == 0 && t + kStages < num_qb) load_stage(t + kStages);
+  }
+
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const long long base = tok0 * row_stride + static_cast<long long>(h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + row0 + 8 * r;
+    const float db_row = wg::quad_sum(db[r]);
+    if (key >= seq) continue;
+    if ((lane & 3) == 0) dbias[stat0 + key] = db_row;
+    const long long off = base + key * row_stride + col0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jj) =
+          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * jj) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D, bool kDropout>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv,
+                             float* dbias, const float* key_bias,
+                             const int* seg, int batch, int seq, int heads,
+                             float scale, uint2 seed, uint32_t threshold,
+                             float inv_keep, cudaStream_t stream) {
+  constexpr int kChunk = wg::Tile<2 * D>::kChunk;
+  CUtensorMap maps[4];
+  const void* srcs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        wg::bshd_map(&maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     kChunk, batch, seq, heads, D);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = prepare(flash_dkv_wgmma_kernel<D, kDropout>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
+  flash_dkv_wgmma_kernel<D, kDropout><<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), dbias,
+      key_bias, seg, seq, heads, scale, seed, threshold, inv_keep);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_dkv_wgmma(bool dropout, const void* q, const void* k,
+                               const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dk,
+                               void* dv, float* dbias, const float* key_bias,
+                               const int* seg, int batch, int seq, int heads,
+                               float scale, uint2 seed, uint32_t threshold,
+                               float inv_keep, cudaStream_t stream) {
+  if (dropout)
+    return launch_dkv_wgmma<D, true>(q, k, v, dout, lse, delta, dk, dv, dbias,
+                                     key_bias, seg, batch, seq, heads, scale,
+                                     seed, threshold, inv_keep, stream);
+  return launch_dkv_wgmma<D, false>(q, k, v, dout, lse, delta, dk, dv, dbias,
+                                    key_bias, seg, batch, seq, heads, scale,
+                                    seed, threshold, inv_keep, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -533,8 +869,9 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
       threshold, inv_keep, static_cast<cudaStream_t>(stream)));
 }
 
-// dk, dv and dbias ([B*H, S] fp32, the sum over queries of dS) from lse and
-// the delta the dq kernel wrote; the other arguments as for dq.
+// The dkv kernel's CUDA-core route: dk, dv and dbias ([B*H, S] fp32, the
+// sum over queries of dS) from lse and the delta the dq kernel wrote; the
+// other arguments as for dq.
 int flash_attention_dkv(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dk, void* dv, float* dbias,
@@ -550,6 +887,46 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
       heads, head_dim, dtype, scale, dropout != 0,
       make_uint2(seed_lo, seed_hi), threshold, inv_keep,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The dkv kernel's tensor-core route: q, k, v, dout, dk, dv [B, S, H, D]
+// bfloat16, 16-byte aligned, head_dim 32 or 64; the other arguments as for
+// flash_attention_dkv. Returns the launch's cudaError_t
+// (cudaErrorSymbolNotFound if the driver has no cuTensorMapEncodeTiled).
+int flash_attention_dkv_wgmma(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv,
+                              float* dbias, const float* key_bias,
+                              const int* seg, int batch, int seq, int heads,
+                              int head_dim, float scale, int dropout,
+                              uint32_t seed_lo, uint32_t seed_hi,
+                              uint32_t threshold, float inv_keep,
+                              void* stream) {
+  const void* ptrs[6] = {q, k, v, dout, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = dispatch_dkv_wgmma<32>(drop, q, k, v, dout, lse, delta, dk, dv,
+                                   dbias, key_bias, seg, batch, seq, heads,
+                                   scale, seed, threshold, inv_keep, s);
+      break;
+    case 64:
+      err = dispatch_dkv_wgmma<64>(drop, q, k, v, dout, lse, delta, dk, dv,
+                                   dbias, key_bias, seg, batch, seq, heads,
+                                   scale, seed, threshold, inv_keep, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 const char* flash_attention_bwd_error(int code) {

@@ -17,25 +17,42 @@
 // rounded to v's dtype before the PV product and fp32 accumulation, as the
 // Pallas kernel does. The keep mask comes from the counter-based Philox of
 // flash_attention_common.cuh, so the backward kernels regenerate it from
-// the element coordinates alone.
+// the element coordinates alone. q, k, v, out keep the model's [B, S, H, D]
+// layout and the key bias and sequence ids are read from [B, S] arrays:
+// nothing is copied or transposed around the kernel. A ragged edge (S not
+// a multiple of 64) is masked: keys past S get probability 0, rows past S
+// are not written.
 //
-// Design: one thread block per (batch*head, 64-row q tile); a loop over
-// 64-key K/V tiles staged in shared memory as fp32 (odd row stride, free of
-// bank conflicts); 256 threads in a 16 x 16 grid, each owning a 4 x 4 block
-// of the score tile and a 4 x (head_dim / 16) block of the output. A row's
-// 16 owners form a half-warp, so the row max and sum reduce with shuffles.
-// The key bias and the sequence ids are read from [B, S] arrays and q, k,
-// v, out keep the model's [B, S, H, D] layout: nothing is copied or
-// transposed around the kernel. A ragged edge (S not a multiple of 64) is
-// masked: keys past S get probability 0, rows past S are not written.
+// Two routes, chosen by the wrapper from dtype and head_dim before launch
+// (ops/kernels/attention.py `train_route`):
 //
-// What bounds it on the H100: both products run on the CUDA cores in fp32
-// (FMA) fed from shared memory, so the kernel is bound by shared-memory
-// bandwidth and the fp32 pipes, far from the tensor-core rate that bounds
-// the work itself. Tensor cores (`wgmma` on bf16 tiles fed by TMA) are
-// later work.
+// * Tensor cores (`flash_fwd_wgmma_kernel`, bf16 with head_dim 32, 64 or
+//   128: every training forward of the repo's configs). The serving
+//   kernels' stream (flash_infer_wgmma.cuh) with its training additions:
+//   one warpgroup per (batch*head, 64-row q tile); TMA brings q once and
+//   K/V through a 2-stage ring; S = Q K^T and P V by `wgmma` (P from
+//   registers); the online softmax on the accumulator fragments; the keep
+//   mask drawn in registers for each thread's own elements while the score
+//   wgmma runs (`keep_bits`: one Philox call per four keys of a row, the
+//   two lanes that share them swapping halves), applied after l has summed
+//   the undropped probabilities; lse written from the quad-reduced l with
+//   the accurate log. It replaces the CUDA-core route's fp32 FMA products
+//   (0.5199 ms at S=512 on an H100, against a 0.0101 ms bound). What
+//   bounds it now: the CUDA cores, not the tensor cores: the softmax's
+//   instructions and, with dropout, the Philox rounds (10 rounds of two
+//   32-bit multiplies per four elements).
+// * CUDA cores (`flash_fwd_kernel`, fp32 and any other head_dim, a multiple
+//   of 8 up to 128): one thread block per (batch*head, 64-row q tile); a
+//   loop over 64-key K/V tiles staged in shared memory as fp32 (odd row
+//   stride, free of bank conflicts); 256 threads in a 16 x 16 grid, each
+//   owning a 4 x 4 block of the score tile and a 4 x (head_dim / 16) block
+//   of the output. A row's 16 owners form a half-warp, so the row max and
+//   sum reduce with shuffles; the keep mask goes through a byte tile in
+//   shared memory. Both products run on the CUDA cores in fp32 fed from
+//   shared memory: bound by shared-memory bandwidth and the fp32 pipes.
 
 #include "flash_attention_common.cuh"
+#include "flash_infer_wgmma.cuh"
 
 namespace {
 
@@ -249,14 +266,77 @@ cudaError_t dispatch(bool dropout, const void* q, const void* k,
                                 threshold, keep_scale, stream);
 }
 
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(flash::wg::kThreads)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse,
+                       const float* __restrict__ key_bias,
+                       const int* __restrict__ seg, int seq, int heads,
+                       float scale, uint2 seed, uint32_t threshold,
+                       float keep_scale) {
+  extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
+  wg::Bf16Scores<D> scores{&qmap, &kmap};
+  wg::forward_stream<D, kDropout>(scores, scale, &vmap, out, key_bias, seg,
+                                  seq, heads,
+                                  reinterpret_cast<uint8_t*>(smem),
+                                  wg::Train{lse, seed, threshold, keep_scale});
+}
+
+template <int D, bool kDropout>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, float* lse, const float* key_bias,
+                         const int* seg, int batch, int seq, int heads,
+                         float scale, uint2 seed, uint32_t threshold,
+                         float keep_scale, cudaStream_t stream) {
+  constexpr int kChunk = wg::Tile<2 * D>::kChunk;
+  CUtensorMap maps[3];
+  const void* srcs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        wg::bshd_map(&maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     kChunk, batch, seq, heads, D);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr size_t smem = wg::smem_bytes<wg::Bf16Scores<D>, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D, kDropout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
+  flash_fwd_wgmma_kernel<D, kDropout>
+      <<<grid, wg::kThreads, smem, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse,
+          key_bias, seg, seq, heads, scale, seed, threshold, keep_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_wgmma(bool dropout, const void* q, const void* k,
+                           const void* v, void* out, float* lse,
+                           const float* key_bias, const int* seg, int batch,
+                           int seq, int heads, float scale, uint2 seed,
+                           uint32_t threshold, float keep_scale,
+                           cudaStream_t stream) {
+  if (dropout)
+    return launch_wgmma<D, true>(q, k, v, out, lse, key_bias, seg, batch, seq,
+                                 heads, scale, seed, threshold, keep_scale,
+                                 stream);
+  return launch_wgmma<D, false>(q, k, v, out, lse, key_bias, seg, batch, seq,
+                                heads, scale, seed, threshold, keep_scale,
+                                stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. key_bias ([B, S] fp32) and seg
-// ([B, S] int32) may each be null. dropout != 0 draws the keep mask from
-// (seed_lo, seed_hi) with keep iff bits >= threshold; keep_scale = 1 - rate.
-// Returns the launch's cudaError_t.
+// The CUDA-core route. dtype: 0 = float32, 1 = bfloat16. key_bias ([B, S]
+// fp32) and seg ([B, S] int32) may each be null. dropout != 0 draws the
+// keep mask from (seed_lo, seed_hi) with keep iff bits >= threshold;
+// keep_scale = 1 - rate. Returns the launch's cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, float* lse, const float* key_bias,
                         const int* seg, int batch, int seq, int heads,
@@ -277,6 +357,49 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                                     key_bias, seg, batch, seq, heads,
                                     head_dim, scale, seed, threshold,
                                     keep_scale, s);
+  return static_cast<int>(err);
+}
+
+// The tensor-core route: q, k, v, out [B, S, H, D] bfloat16, 16-byte
+// aligned, head_dim 32, 64 or 128; the other arguments as above. Returns
+// the launch's cudaError_t (cudaErrorSymbolNotFound if the driver has no
+// cuTensorMapEncodeTiled).
+int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
+                              void* out, float* lse, const float* key_bias,
+                              const int* seg, int batch, int seq, int heads,
+                              int head_dim, float scale, int dropout,
+                              uint32_t seed_lo, uint32_t seed_hi,
+                              uint32_t threshold, float keep_scale,
+                              void* stream) {
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = dispatch_wgmma<32>(drop, q, k, v, out, lse, key_bias, seg, batch,
+                               seq, heads, scale, seed, threshold,
+                               keep_scale, s);
+      break;
+    case 64:
+      err = dispatch_wgmma<64>(drop, q, k, v, out, lse, key_bias, seg, batch,
+                               seq, heads, scale, seed, threshold,
+                               keep_scale, s);
+      break;
+    case 128:
+      err = dispatch_wgmma<128>(drop, q, k, v, out, lse, key_bias, seg,
+                                batch, seq, heads, scale, seed, threshold,
+                                keep_scale, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -22,11 +22,12 @@
 // (ops/kernels/attention.py `infer_route`):
 //
 // * Tensor cores (`flash_infer_wgmma_kernel`, bf16 with head_dim 32, 64 or
-//   128: every serving forward of the repo's configs). This file supplies
-//   the score tile, S = Q K^T by `wgmma.mma_async` m64n64k16 bf16 -> fp32
-//   from TMA-loaded, swizzled q and K tiles; the online softmax,
-//   P V (P from registers, V by TMA through a 2-stage ring) and the output
-//   are the stream shared with the int8 kernel (flash_infer_wgmma.cuh).
+//   128: every serving forward of the repo's configs). The score tile,
+//   S = Q K^T by `wgmma.mma_async` m64n64k16 bf16 -> fp32 from TMA-loaded,
+//   swizzled q and K tiles (`Bf16Scores`), the online softmax, P V (P from
+//   registers, V by TMA through a 2-stage ring) and the output are the
+//   stream shared with the int8 kernel and the training forward
+//   (flash_infer_wgmma.cuh).
 //   It replaces the CUDA-core route's fp32 FMA products, which were bound
 //   by shared-memory bandwidth and the fp32 pipes (0.4802 ms at S=512
 //   against a 0.0100 ms bound). What bounds it now: not the tensor cores
@@ -161,38 +162,6 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                       head_dim, scale, stream);
 }
 
-// The tensor-core score tile: bf16 q and K tiles by TMA, S by wgmma.
-template <int D>
-struct WgmmaScores {
-  static constexpr int kQBytes = flash::wg::Tile<2 * D>::kBytes;
-  static constexpr int kKBytes = kQBytes;
-  const CUtensorMap* qmap;
-  const CUtensorMap* kmap;
-
-  __device__ __forceinline__ void load_q(uint32_t dst, uint32_t bar, int h,
-                                         int s, int b) const {
-    flash::wg::load_tile<2 * D, 2>(dst, qmap, bar, h, s, b);
-  }
-  __device__ __forceinline__ void load_k(uint32_t dst, uint32_t bar, int h,
-                                         int s, int b) const {
-    flash::wg::load_tile<2 * D, 2>(dst, kmap, bar, h, s, b);
-  }
-  __device__ __forceinline__ void issue(uint32_t qs, uint32_t ks,
-                                        float (&s)[32]) const {
-    flash::wg::pin(s);
-    flash::wg::wgmma_fence();
-#pragma unroll
-    for (int step = 0; step < D / 16; ++step)
-      flash::wg::mma_bf16_ss(s, flash::wg::k_major<2 * D>(qs, step),
-                             flash::wg::k_major<2 * D>(ks, step), step > 0);
-    flash::wg::wgmma_commit();
-  }
-  __device__ __forceinline__ void finish(float (&s)[32]) const {
-    flash::wg::wgmma_wait();
-    flash::wg::pin(s);
-  }
-};
-
 template <int D>
 __global__ void __launch_bounds__(flash::wg::kThreads)
 flash_infer_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -203,9 +172,9 @@ flash_infer_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                          const int* __restrict__ seg, int seq, int heads,
                          float scale) {
   extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
-  WgmmaScores<D> scores{&qmap, &kmap};
-  flash::wg::infer_stream<D>(scores, scale, &vmap, out, key_bias, seg, seq,
-                             heads, reinterpret_cast<uint8_t*>(smem));
+  flash::wg::Bf16Scores<D> scores{&qmap, &kmap};
+  flash::wg::forward_stream<D>(scores, scale, &vmap, out, key_bias, seg,
+                               seq, heads, reinterpret_cast<uint8_t*>(smem));
 }
 
 template <int D>
@@ -222,7 +191,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
         seq, heads, D);
     if (err != cudaSuccess) return err;
   }
-  constexpr size_t smem = flash::wg::smem_bytes<WgmmaScores<D>, D>();
+  constexpr size_t smem =
+      flash::wg::smem_bytes<flash::wg::Bf16Scores<D>, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_infer_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -237,8 +237,8 @@ flash_infer_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   WgmmaInt8Scores<D> scores{&qmap, &kmap};
   const int bh = blockIdx.x;
   const float rescale = (q_scale[bh] * k_scale[bh]) * scale;
-  flash::wg::infer_stream<D>(scores, rescale, &vmap, out, key_bias, seg,
-                             seq, heads, reinterpret_cast<uint8_t*>(smem));
+  flash::wg::forward_stream<D>(scores, rescale, &vmap, out, key_bias, seg,
+                               seq, heads, reinterpret_cast<uint8_t*>(smem));
 }
 
 template <int D>

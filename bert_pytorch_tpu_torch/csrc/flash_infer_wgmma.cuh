@@ -1,32 +1,30 @@
-// The tensor-core route of the serving attention kernels, for Hopper
-// (sm_90a): flash_attention_infer.cu (fp scores, TPU kernel #4) and
-// flash_attention_infer_int8.cu (int8 scores, TPU kernel #5) each supply a
-// score tile; the online softmax, the PV product and the output are the one
-// body below, as `_infer_stream` in bert_pytorch_tpu/ops/pallas/attention.py
-// is shared by `_infer_fwd_kernel` and `_infer_fwd_kernel_int8`.
+// The forward stream of the attention kernels' tensor-core route, for
+// Hopper (sm_90a): the serving kernels flash_attention_infer.cu (fp scores,
+// TPU kernel #4) and flash_attention_infer_int8.cu (int8 scores, #5) each
+// supply a score tile, and the training forward flash_attention_fwd.cu (#1)
+// supplies #4's; the online softmax, the PV product and the output are the
+// one body below, as `_infer_stream` in bert_pytorch_tpu/ops/pallas/
+// attention.py is shared by `_infer_fwd_kernel` and `_infer_fwd_kernel_int8`
+// and `_flash_fwd_kernel` computes the same softmax with dropout and lse.
 //
-// The function and its numerics are those of flash_infer_stream.cuh (the
-// CUDA-core route): s = raw * scale + key_bias (+ -10000 where the packed
-// ids differ or q's id is 0; product and sum rounded apart, as the plain
-// version rounds them), m from -1e30, l summing the unrounded
-// probabilities, P rounded to bf16 before PV with fp32 accumulation,
-// out = acc / l in bf16, keys past S at probability 0 by index and rows
-// past S not written; only e^x differs, taken by the hardware's
-// ex2.approx. Only bf16 v (and out) take this route.
+// The function and its numerics are those of flash_infer_stream.cuh and
+// flash_attention_fwd.cu's CUDA-core kernel: s = raw * scale + key_bias
+// (+ -10000 where the packed ids differ or q's id is 0; product and sum
+// rounded apart, as the plain version rounds them), m from -1e30, l summing
+// the unrounded, undropped probabilities, P (dropped where the keep mask
+// drops) rounded to bf16 before PV with fp32 accumulation, out = acc / l
+// (/ (1 - rate) in training) in bf16, keys past S at probability 0 by
+// index and rows past S not written; only e^x differs, taken by the
+// hardware's ex2.approx. Training also writes lse = m + log(l) (the
+// accurate log) as [B*H, S] fp32. Only bf16 v (and out) take this route.
 //
 // Design, one thread block per (batch*head, 64 query rows), one warpgroup
-// (128 threads):
+// (128 threads), from the pieces of wgmma_common.cuh:
 //   * TMA brings the q tile once and each 64-key K and V tile through a
-//     2-stage ring in shared memory, completing on one mbarrier per stage
-//     (the expected bytes are the full boxes: TMA counts zero-filled rows
-//     too). Thread 0 issues tile j + 2 into the stage tile j used, once
-//     every thread is past it, so the next tile is in flight while this
-//     one is computed.
-//   * The [B, S, H, D] layout stays: each tensor is a 4-D map (D, H, S, B)
-//     with a box of (chunk, 1, 64, 1), so the ragged S edge zero-fills
-//     inside the batch instead of reading the next batch's rows. A row of
-//     up to 128 bytes is one box swizzled by its width (32, 64 or 128
-//     bytes); a 256-byte row (bf16 D = 128) is two 128-byte boxes.
+//     2-stage ring in shared memory, completing on one mbarrier per stage.
+//     Thread 0 issues tile j + 2 into the stage tile j used, once every
+//     thread is past it, so the next tile is in flight while this one is
+//     computed.
 //   * S = Q K^T is `wgmma.mma_async` m64n64 with both operands K-major in
 //     shared memory (k16 for bf16, k32 for int8 -> int32, exact); the
 //     Scores object issues it and hands back raw fp32 products.
@@ -40,329 +38,53 @@
 //     read with wgmma's transpose bit.
 //   * The key bias and ids ([B, S] each) are read per key tile by each
 //     thread for its own keys while the score wgmma runs: no per-head copy.
+//   * Dropout (training) is drawn in registers for the thread's own
+//     elements while the score wgmma runs (keep_bits), from the Philox of
+//     flash_attention_common.cuh: no shared-memory mask tile.
 //   * The softmax's instructions on the CUDA cores, not the tensor cores,
 //     set the time, so it is kept lean: e^x by one `ex2.approx`, and the
 //     index checks for keys past S only on the ragged last tile.
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
 #include "flash_attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace flash {
 namespace wg {
 
-constexpr int kThreads = 128;  // one warpgroup
-constexpr int kRows = 64;      // q rows per block, keys per tile (wgmma M)
-constexpr int kStages = 2;
-
-// A 64-row tile of rows of kRowBytes bytes, as TMA lays it out: chunks of
-// up to 128 bytes per row (the swizzle span), each chunk 64 rows deep.
-template <int kRowBytes>
-struct Tile {
-  static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes % 128 == 0,
-                "rows of 32, 64 or a multiple of 128 bytes");
-  static constexpr int kChunk = kRowBytes < 128 ? kRowBytes : 128;
-  static constexpr int kChunks = kRowBytes / kChunk;
-  static constexpr int kBytes = kRows * kRowBytes;  // a multiple of 1024
-};
-
-// -- host: tensor maps ------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links against nothing but the runtime.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The 4-D map (D, H, S, B) over a contiguous [B, S, H, D] tensor of
-// `elem`-byte values, with a box of (chunk bytes, 1, 64 rows, 1) swizzled by
-// the chunk's width; rows past S read as zeros.
-inline cudaError_t bshd_map(CUtensorMap* map, const void* base,
-                            CUtensorMapDataType type, int elem, int chunk,
-                            int batch, int seq, int heads, int head_dim) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t row = static_cast<cuuint64_t>(head_dim) * elem;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk / elem), 1,
-                             static_cast<cuuint32_t>(kRows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      chunk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                   : chunk == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult rc = encode(
-      map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// -- device: shared memory, mbarriers, TMA ----------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int x, int h, int s,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(h), "r"(s), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-// The 64 rows from s of one (b, h) head into a Tile<kRowBytes> at dst.
-template <int kRowBytes, int kElem>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int h, int s, int b) {
-  using T = Tile<kRowBytes>;
+// The keep bits of this thread's 32 score elements in the tile whose rows
+// start at q0 + row0 (this thread's first row) and whose keys start at k0
+// (bit e: element e, laid out as in softmax_tile). One Philox call gives
+// the four keys 8j + 4(c/2) .. + 3 of one row (c = lane % 4); lanes c and
+// c ^ 1 hold two of those keys each, of the same two rows r and r + 8, so
+// lane c draws row r + 8 (c & 1) and the pair swaps draws with one shuffle:
+// no word is drawn twice and none is wasted.
+__device__ __forceinline__ uint32_t keep_bits(uint2 seed, uint32_t threshold,
+                                              int bh, int row, int k0,
+                                              int lane) {
+  const int c = lane & 3;
+  const int odd = c & 1;
+  const uint32_t q = static_cast<uint32_t>(row + 8 * odd);
+  uint32_t own = 0;  // bit 4j + i: key i of the group of block j
 #pragma unroll
-  for (int c = 0; c < T::kChunks; ++c)
-    tma_load(dst + c * kRows * T::kChunk, map, bar, c * T::kChunk / kElem, h,
-             s, b);
-}
-
-// -- device: wgmma ------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units, 14 bits each), swizzle mode (1: 128 B, 2: 64 B,
-// 3: 32 B). Every tile base is 1024-byte aligned, so the base offset is 0.
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo, int swizzle) {
-  const uint64_t mode = swizzle == 128 ? 1 : swizzle == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | mode << 62;
-}
-
-// K-major operand (rows of K contiguous: the q and k tiles), at the k-step
-// `step` of 32 bytes (k16 bf16 or k32 int8): 8-row groups 8 * chunk bytes
-// apart; the leading offset is unused by swizzled K-major layouts.
-template <int kRowBytes>
-__device__ __forceinline__ uint64_t k_major(uint32_t base, int step) {
-  using T = Tile<kRowBytes>;
-  const int byte = step * 32;
-  return descriptor(base + (byte / T::kChunk) * kRows * T::kChunk +
-                        byte % T::kChunk,
-                    16, 8 * T::kChunk, T::kChunk);
-}
-
-// MN-major B operand (the V tile: keys by D, D contiguous), at the key step
-// `step` of 16 keys: the leading offset steps to the next chunk of D, the
-// stride offset to the next 8 keys.
-template <int kRowBytes>
-__device__ __forceinline__ uint64_t mn_major(uint32_t base, int step) {
-  using T = Tile<kRowBytes>;
-  return descriptor(base + step * 16 * T::kChunk, kRows * T::kChunk,
-                    8 * T::kChunk, T::kChunk);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-template <typename R, int N>
-__device__ __forceinline__ void pin(R (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if constexpr (std::is_same_v<R, float>)
-      asm volatile("" : "+f"(r[i])::"memory");
-    else
-      asm volatile("" : "+r"(r[i])::"memory");
+  for (int j = 0; j < 8; ++j) {
+    const uint4 w = philox4x32_10(
+        make_uint4(static_cast<uint32_t>((k0 >> 2) + 2 * j + (c >> 1)), q,
+                   static_cast<uint32_t>(bh), 0u),
+        seed);
+    own |= (static_cast<uint32_t>(w.x >= threshold) |
+            static_cast<uint32_t>(w.y >= threshold) << 1 |
+            static_cast<uint32_t>(w.z >= threshold) << 2 |
+            static_cast<uint32_t>(w.w >= threshold) << 3)
+           << (4 * j);
   }
-}
-
-#define FLASH_WG8(C, d, i)                                                  \
-  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
-      C(d[i + 6]), C(d[i + 7])
-#define FLASH_WG_REGS32                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, "                \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "           \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "         \
-  "%24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (+)= A B^T for a 64 x 64 fp32 tile, bf16 A and B K-major in shared
-// memory; `accumulate` 0 overwrites d.
-__device__ __forceinline__ void mma_bf16_ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_WG_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16),
-        FLASH_WG8("+f", d, 24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// The same for int8 A and B (k32), int32 d: exact.
-__device__ __forceinline__ void mma_s8_ss(int (&d)[32], uint64_t a, uint64_t b,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FLASH_WG_REGS32
-      ", %32, %33, p;\n}\n"
-      : FLASH_WG8("+r", d, 0), FLASH_WG8("+r", d, 8), FLASH_WG8("+r", d, 16),
-        FLASH_WG8("+r", d, 24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += P V for one 16-key step: P (64 x 16 bf16) from registers, V
-// (16 keys x N) MN-major in shared memory (transpose bit set); d is
-// 64 x N fp32, N = 32, 64 or 128.
-template <int N>
-__device__ __forceinline__ void mma_pv(float (&d)[N / 2],
-                                       const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void mma_pv<32>(float (&d)[16],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_pv<64>(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16),
-        FLASH_WG8("+f", d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_pv<128>(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16),
-        FLASH_WG8("+f", d, 24), FLASH_WG8("+f", d, 32),
-        FLASH_WG8("+f", d, 40), FLASH_WG8("+f", d, 48),
-        FLASH_WG8("+f", d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef FLASH_WG8
-#undef FLASH_WG_REGS32
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// e^x as 2^(x log2 e) by the special-function unit's `ex2.approx`
-// (relative error about 2^-22, far inside the bf16 rounding P takes next;
-// results below the smallest normal flush to 0, as exp(-10000) does).
-__device__ __forceinline__ float exp_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
+  const uint32_t row_r = odd ? other : own;
+  const uint32_t row_r8 = odd ? own : other;
+  // Element e = 4j + 2 * half + t is key 2(c & 1) + t of group j.
+  return ((row_r >> (2 * odd)) & 0x33333333u) |
+         (((row_r8 >> (2 * odd)) & 0x33333333u) << 2);
 }
 
 // The online softmax of one key tile on this thread's 32 accumulator
@@ -371,12 +93,13 @@ __device__ __forceinline__ float exp_approx(float x) {
 // its 16 keys: updates the running max m and this thread's share of the
 // row sum l, leaves P in bf16 pairs (the A fragments of four k16 steps)
 // and the factor alpha the output must be rescaled by. kFull: every key of
-// the tile lies before S, so no key is masked by index.
-template <bool kFull>
+// the tile lies before S, so no key is masked by index. kDropout: l sums
+// every probability, then P is zeroed where bit e of `keep` is 0.
+template <bool kFull, bool kDropout>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], const float (&kb)[16], const int (&kid)[16],
     const int (&qid)[2], bool segmented, float scale, int k0, int col0,
-    int seq, float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int seq, uint32_t keep, float (&m)[2], float (&l)[2], float (&alpha)[2],
     uint32_t (&p)[16]) {
   float tile_max[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -406,10 +129,47 @@ __device__ __forceinline__ void softmax_tile(
       p0 = key < seq ? p0 : 0.f;
       p1 = key + 1 < seq ? p1 : 0.f;
     }
-    l[r] += p0 + p1;  // l sums the unrounded probabilities
+    l[r] += p0 + p1;  // l sums the unrounded, undropped probabilities
+    if (kDropout) {
+      p0 = (keep >> e) & 1u ? p0 : 0.f;
+      p1 = (keep >> (e + 1)) & 1u ? p1 : 0.f;
+    }
     p[e >> 1] = pack_bf16(p0, p1);
   }
 }
+
+// The fp score tile of #4 and #1: bf16 q and K tiles by TMA, S = Q K^T by
+// wgmma m64n64k16 (bf16 -> fp32).
+template <int D>
+struct Bf16Scores {
+  static constexpr int kQBytes = Tile<2 * D>::kBytes;
+  static constexpr int kKBytes = kQBytes;
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+
+  __device__ __forceinline__ void load_q(uint32_t dst, uint32_t bar, int h,
+                                         int s, int b) const {
+    load_tile<2 * D, 2>(dst, qmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ void load_k(uint32_t dst, uint32_t bar, int h,
+                                         int s, int b) const {
+    load_tile<2 * D, 2>(dst, kmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ void issue(uint32_t qs, uint32_t ks,
+                                        float (&s)[32]) const {
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < D / 16; ++step)
+      mma_bf16_ss(s, k_major<2 * D>(qs, step), k_major<2 * D>(ks, step),
+                  step > 0);
+    wgmma_commit();
+  }
+  __device__ __forceinline__ void finish(float (&s)[32]) const {
+    wgmma_wait();
+    pin(s);
+  }
+};
 
 // Dynamic shared memory a kernel of this route asks for: the q tile, two
 // K and two V stages (bf16 V, rows of 2 * head_dim bytes), three mbarriers,
@@ -420,6 +180,15 @@ constexpr size_t smem_bytes() {
          kStages * Tile<2 * D>::kBytes + 3 * sizeof(uint64_t);
 }
 
+// What the training forward adds to the stream. Serving passes Serve{}.
+struct Serve {};
+struct Train {
+  float* lse;          // [B*H, S] fp32: m + log(l) of every row
+  uint2 seed;          // the Philox key
+  uint32_t threshold;  // keep iff the element's 32 bits are >= threshold
+  float keep_scale;    // 1 - rate: out = acc / (l * keep_scale)
+};
+
 // The shared stream. `Scores` supplies:
 //   kQBytes, kKBytes          the shared-memory bytes of its q and K tiles;
 //   load_q(dst, bar, h, s, b) / load_k(...)
@@ -428,13 +197,17 @@ constexpr size_t smem_bytes() {
 //                             shared addresses q and k;
 //   finish(s)                 wait for it and leave the raw fp32 products in
 //                             s (the stream multiplies them by `scale`).
+// `Extra` is Serve or Train; kDropout (Train only) draws the keep mask.
 // Launch: grid (batch * heads, ceil(seq / 64)), kThreads threads,
 // smem_bytes<Scores, D>() of dynamic shared memory.
-template <int D, class Scores>
-__device__ __forceinline__ void infer_stream(
+template <int D, bool kDropout = false, class Scores, class Extra = Serve>
+__device__ __forceinline__ void forward_stream(
     Scores& scores, float scale, const CUtensorMap* vmap,
     __nv_bfloat16* __restrict__ out, const float* __restrict__ key_bias,
-    const int* __restrict__ seg, int seq, int heads, uint8_t* smem_raw) {
+    const int* __restrict__ seg, int seq, int heads, uint8_t* smem_raw,
+    const Extra& extra = Extra{}) {
+  constexpr bool kTrain = std::is_same_v<Extra, Train>;
+  static_assert(kTrain || !kDropout, "dropout is training's");
   using V = Tile<2 * D>;
   constexpr int kOut = D / 2;  // fp32 output values per thread
   const int tid = threadIdx.x;
@@ -497,7 +270,8 @@ __device__ __forceinline__ void infer_stream(
 
     float s[32];
     scores.issue(q_s, k_s + st * Scores::kKBytes, s);
-    // The bias and ids of this thread's 16 keys, read while the MMA runs.
+    // The bias and ids of this thread's 16 keys, and in training with
+    // dropout its keep bits, made while the MMA runs.
     const bool full = k0 + kRows <= seq;  // every key of the tile inside S
     float kb[16];
     int kid[16];
@@ -508,16 +282,20 @@ __device__ __forceinline__ void infer_stream(
       kb[c] = (key_bias != nullptr && inside) ? key_bias[tok0 + key] : 0.f;
       kid[c] = (segmented && inside) ? seg[tok0 + key] : 0;
     }
+    uint32_t keep = ~0u;
+    if constexpr (kDropout)
+      keep = keep_bits(extra.seed, extra.threshold, blockIdx.x, q0 + row0,
+                       k0, lane);
     scores.finish(s);
 
     float alpha[2];
     uint32_t p[16];  // P in bf16 pairs: the A fragments of four k16 steps
     if (full)
-      softmax_tile<true>(s, kb, kid, qid, segmented, scale, k0, col0, seq, m,
-                         l, alpha, p);
+      softmax_tile<true, kDropout>(s, kb, kid, qid, segmented, scale, k0,
+                                   col0, seq, keep, m, l, alpha, p);
     else
-      softmax_tile<false>(s, kb, kid, qid, segmented, scale, k0, col0, seq, m,
-                          l, alpha, p);
+      softmax_tile<false, kDropout>(s, kb, kid, qid, segmented, scale, k0,
+                                    col0, seq, keep, m, l, alpha, p);
 #pragma unroll
     for (int i = 0; i < kOut; ++i) o[i] *= alpha[(i >> 1) & 1];
 
@@ -545,11 +323,18 @@ __device__ __forceinline__ void infer_stream(
     const int s = q0 + row0 + 8 * r;
     const float sum = quad_sum(l[r]);
     if (s >= seq) continue;
+    float denom = sum;
+    if constexpr (kTrain) {
+      denom = sum * extra.keep_scale;
+      if ((lane & 3) == 0)
+        extra.lse[static_cast<long long>(blockIdx.x) * seq + s] =
+            m[r] + logf(sum);
+    }
     __nv_bfloat16* dst = out + base + s * row_stride + col0;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
       const __nv_bfloat162 v = __floats2bfloat162_rn(
-          o[4 * jj + 2 * r] / sum, o[4 * jj + 2 * r + 1] / sum);
+          o[4 * jj + 2 * r] / denom, o[4 * jj + 2 * r + 1] / denom);
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) = v;
     }
   }

@@ -45,6 +45,15 @@ Training, the port of ``flash_attention`` (``_flash_fwd_kernel``,
   own wrapper and launch count (:func:`flash_attention_fwd`,
   :func:`flash_attention_dq`, :func:`flash_attention_dkv`) and plain
   version, which the wrapper takes for CPU tensors.
+* :func:`train_route` — the route of a forward or dkv launch, from the
+  kernel, dtype and head_dim alone, before the launch, as
+  :func:`infer_route` is for serving: ``"tensor_cores"`` (``wgmma`` + TMA;
+  the forward on the serving kernels' stream, csrc/flash_infer_wgmma.cuh)
+  for bf16 with head_dim in :data:`TRAIN_TENSOR_CORE_HEAD_DIMS`,
+  ``"cuda_cores"`` for the rest. The dq kernel has the CUDA-core route
+  only. A failed build or launch raises on either route; neither falls
+  back to the other. The forward and dkv wrappers count launches per
+  route in ``.route_launches``.
 * :func:`flash_attention_reference` — the plain, differentiable PyTorch
   version of :func:`flash_attention` (autograd through tensor ops).
 * :func:`philox_keep_mask` — the dropout mask: Philox4x32-10 keyed by the
@@ -80,6 +89,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # multiple of 128 bytes in int8 and bf16, the widths a TMA swizzle span
 # takes whole.
 TENSOR_CORE_HEAD_DIMS = (32, 64, 128)
+# The training kernels' tensor-core route: the forward takes the serving
+# kernels' head dims (its stream is theirs); dkv keeps dK and dV, head_dim
+# fp32 values a thread, in one warpgroup's registers, so head_dim 128 keeps
+# its CUDA-core route.
+TRAIN_TENSOR_CORE_HEAD_DIMS = {"flash_attention_fwd": (32, 64, 128),
+                               "flash_attention_dkv": (32, 64)}
 ROUTES = ("tensor_cores", "cuda_cores")
 _NAME = "flash_attention_infer"
 _INT8 = "flash_attention_infer_int8"
@@ -159,6 +174,17 @@ def infer_route(dtype: torch.dtype, head_dim: int) -> str:
     return "cuda_cores"
 
 
+def train_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
+    """The route a CUDA launch of the training kernel ``kernel``
+    (``"flash_attention_fwd"`` or ``"flash_attention_dkv"``) takes, from
+    q's dtype and head_dim: ``"tensor_cores"`` for bf16 with head_dim in
+    ``TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]``, else ``"cuda_cores"``."""
+    if (dtype == torch.bfloat16
+            and head_dim in TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _count(wrapper, route: str) -> None:
     wrapper.launches += 1
     wrapper.route_launches[route] += 1
@@ -186,12 +212,16 @@ _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     "flash_attention_fwd": {
         "flash_attention_fwd": ([_PTR] * 7 + [_INT] * 5 + [_F32, _INT]
                                 + [_U32] * 3 + [_F32, _PTR]),
+        "flash_attention_fwd_wgmma": ([_PTR] * 7 + [_INT] * 4 + [_F32, _INT]
+                                      + [_U32] * 3 + [_F32, _PTR]),
     },
     "flash_attention_bwd": {
         "flash_attention_dq": ([_PTR] * 10 + [_INT] * 5 + [_F32, _INT]
                                + [_U32] * 3 + [_F32, _PTR]),
         "flash_attention_dkv": ([_PTR] * 11 + [_INT] * 5 + [_F32, _INT]
                                 + [_U32] * 3 + [_F32, _PTR]),
+        "flash_attention_dkv_wgmma": ([_PTR] * 11 + [_INT] * 4 + [_F32, _INT]
+                                      + [_U32] * 3 + [_F32, _PTR]),
     },
 }
 
@@ -589,27 +619,41 @@ def flash_attention_fwd(q, k, v, key_bias=None, seg=None, seed=None,
     """The forward kernel: (out [B, S, H, D], lse [B*H, S] fp32) for
     [B, S, H, D] q, k, v, a [B, S] fp32 key bias and [B, S] int32 sequence
     ids (each optional), and dropout ``rate`` drawn from ``seed``. A CUDA
-    tensor launches csrc/flash_attention_fwd.cu and counts the launch in
-    ``flash_attention_fwd.launches``; a CPU tensor takes the plain
-    version and counts nothing."""
+    tensor launches csrc/flash_attention_fwd.cu on the route
+    :func:`train_route` picks, counting the launch in
+    ``flash_attention_fwd.launches`` and ``.route_launches[route]``; a CPU
+    tensor takes the plain version and counts nothing."""
     name = "flash_attention_fwd"
-    flag, lo, hi, threshold = _dropout_args(seed, rate)
+    _dropout_args(seed, rate)
     if _device_of(name, q) == "cpu":
         return _forward_math(q, k, v, key_bias, seg, seed, rate)
     _check(name, q, {"k": k, "v": v}, key_bias, seg)
+    return _launch_fwd(q, k, v, key_bias, seg, seed, rate,
+                       train_route(q.dtype, q.shape[3], name))
+
+
+def _launch_fwd(q, k, v, key_bias, seg, seed, rate, route: str):
+    """Launch the forward kernel on ``route`` (checked CUDA inputs)."""
+    name = "flash_attention_fwd"
+    flag, lo, hi, threshold = _dropout_args(seed, rate)
     batch, seq, heads, depth = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(batch * heads, seq, dtype=torch.float32,
                       device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
+            depth)
+    tail = (1.0 / float(depth) ** 0.5, flag, lo, hi, threshold, 1.0 - rate,
+            _stream(q))
     lib = _library(name)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
-            depth, _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag,
-            lo, hi, threshold, 1.0 - rate, _stream(q))
+        if route == "tensor_cores":
+            _check_aligned(name, {"q": q, "k": k, "v": v, "out": out})
+            rc = lib.flash_attention_fwd_wgmma(*args, *tail)
+        else:
+            rc = lib.flash_attention_fwd(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, name, name)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, route)
     return out, lse
 
 
@@ -647,34 +691,53 @@ def flash_attention_dq(q, k, v, out, do, lse, key_bias=None, seg=None,
 def flash_attention_dkv(q, k, v, do, lse, delta, key_bias=None, seg=None,
                         seed=None, rate=0.0):
     """The dkv kernel: (dk, dv [B, S, H, D], dbias [B*H, S] fp32, the sum
-    over queries of dS). CUDA launches csrc/flash_attention_bwd.cu (counted
-    in ``flash_attention_dkv.launches``); CPU takes the plain version."""
+    over queries of dS). CUDA launches csrc/flash_attention_bwd.cu on the
+    route :func:`train_route` picks (counted in
+    ``flash_attention_dkv.launches`` and ``.route_launches[route]``); CPU
+    takes the plain version."""
     name = "flash_attention_dkv"
-    flag, lo, hi, threshold = _dropout_args(seed, rate)
+    _dropout_args(seed, rate)
     if _device_of(name, q) == "cpu":
         return _dkv_math(q, k, v, do, lse, delta, key_bias, seg, seed, rate)
     _check(name, q, {"k": k, "v": v, "do": do}, key_bias, seg,
            {"lse": lse, "delta": delta})
+    return _launch_dkv(q, k, v, do, lse, delta, key_bias, seg, seed, rate,
+                       train_route(q.dtype, q.shape[3], name))
+
+
+def _launch_dkv(q, k, v, do, lse, delta, key_bias, seg, seed, rate,
+                route: str):
+    """Launch the dkv kernel on ``route`` (checked CUDA inputs)."""
+    name = "flash_attention_dkv"
+    flag, lo, hi, threshold = _dropout_args(seed, rate)
     batch, seq, heads, depth = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty(batch * heads, seq, dtype=torch.float32,
                         device=q.device)
-    lib = _library("flash_attention_bwd")
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dbias.data_ptr(), _ptr(key_bias), _ptr(seg), batch, seq, heads,
-            depth, _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag,
-            lo, hi, threshold, 1.0 / (1.0 - rate), _stream(q))
+            depth)
+    tail = (1.0 / float(depth) ** 0.5, flag, lo, hi, threshold,
+            1.0 / (1.0 - rate), _stream(q))
+    lib = _library("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        if route == "tensor_cores":
+            _check_aligned(name, {"q": q, "k": k, "v": v, "do": do,
+                                  "dk": dk, "dv": dv})
+            rc = lib.flash_attention_dkv_wgmma(*args, *tail)
+        else:
+            rc = lib.flash_attention_dkv(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, "flash_attention_bwd", name)
-    flash_attention_dkv.launches += 1
+    _count(flash_attention_dkv, route)
     return dk, dv, dbias
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+flash_attention_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 TRAINING_KERNELS: Sequence = (flash_attention_fwd, flash_attention_dq,
                               flash_attention_dkv)
 

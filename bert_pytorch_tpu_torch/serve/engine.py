@@ -58,6 +58,13 @@ class SwapBusy(RuntimeError):
     yet; the HTTP layer keeps the mapping."""
 
 
+class SwapUnsupported(RuntimeError):
+    """Hot-swap was requested of an engine that cannot swap: the port's
+    engine has no ``swap_params`` until the msgpack checkpoint import is
+    ported (serve/http.py maps this to HTTP 404, as /profilez answers
+    without a capture controller)."""
+
+
 class TaskSpec:
     """One served head: its model (weights on the engine's device) and its
     request handler."""

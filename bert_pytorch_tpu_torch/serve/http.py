@@ -46,7 +46,8 @@ Routes:
   in-flight batches finish on the old version. 200 with the swap info
   (load_s + the compile split proving a same-geometry swap recompiled
   nothing), 409 while another swap is in flight (loads cannot
-  overlap), 404 on an unknown task, 400 on a missing checkpoint.
+  overlap), 404 on an unknown task, 400 on a missing checkpoint. Until
+  hot-swap is ported, a well-formed request answers 404 naming it.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from bert_pytorch_tpu_torch.serve.batcher import BatcherFull
-from bert_pytorch_tpu_torch.serve.engine import SwapBusy
+from bert_pytorch_tpu_torch.serve.engine import SwapBusy, SwapUnsupported
 from bert_pytorch_tpu_torch.serve.service import ServiceDraining, ServingService
 from bert_pytorch_tpu_torch.serve.tracing import (TRACE_HEADER,
                                             TRACE_ID_RESPONSE_HEADER,
@@ -215,6 +216,8 @@ def _make_handler():
                                     str(body["version"]))
             except SwapBusy as exc:
                 self._reply(409, {"error": str(exc)}, echo)
+            except SwapUnsupported as exc:
+                self._reply(404, {"error": str(exc)}, echo)
             except ValueError as exc:
                 code = 404 if "unknown task" in str(exc) else 400
                 self._reply(code, {"error": str(exc)}, echo)

@@ -63,7 +63,8 @@ from bert_pytorch_tpu_torch.serve.batcher import Batcher, Request
 # One source of truth for the mode names: the CLI surface (argparse
 # choices) and this constructor's validation must never drift.
 from bert_pytorch_tpu_torch.serve.cli import DISPATCH_MODES
-from bert_pytorch_tpu_torch.serve.engine import InferenceEngine
+from bert_pytorch_tpu_torch.serve.engine import (InferenceEngine,
+                                                 SwapUnsupported)
 from bert_pytorch_tpu_torch.serve.stats import ServeTelemetry
 from bert_pytorch_tpu_torch.serve.tracing import TraceCollector
 from bert_pytorch_tpu_torch.testing import faults
@@ -755,9 +756,15 @@ class ServingService:
         the load happens off the dispatch path and only the atomic flip
         touches state the executor reads; in-flight batches complete
         against the old version. Raises engine.SwapBusy when a swap is
-        already in flight (HTTP 409)."""
-        return self.engine.swap_params(
-            task, checkpoint, version, emit=self.telemetry.emit)
+        already in flight (HTTP 409), and engine.SwapUnsupported when the
+        engine cannot swap (HTTP 404)."""
+        swap_params = getattr(self.engine, "swap_params", None)
+        if not callable(swap_params):
+            raise SwapUnsupported(
+                "hot-swap is not ported: this server's engine has no "
+                "swap_params (it waits for the msgpack checkpoint import)")
+        return swap_params(task, checkpoint, version,
+                           emit=self.telemetry.emit)
 
     # -- health / drain ----------------------------------------------------
 

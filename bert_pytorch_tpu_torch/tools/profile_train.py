@@ -19,8 +19,8 @@ backend) with:
   rest;
 * ``device_ms`` — device time of one step by ``torch.profiler`` (CUDA
   activity) and ``device_busy`` = device_ms / step_ms;
-* ``attention`` — the three training kernels' device time, launches and
-  share of device_ms; ``largest_gemm`` — the largest cuBLAS GEMM kernel
+* ``attention`` — the three training kernels' device time, launches
+  (and those on the tensor-core route) and share of device_ms; ``largest_gemm`` — the largest cuBLAS GEMM kernel
   by total time; ``kernels`` — the top kernels by device time;
 * ``host`` — the top operators by self CPU time in the same step (where
   the host spends the time the card waits).
@@ -41,9 +41,13 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-ATTENTION_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
-                     "flash_dq_kernel": "flash_attention_dq",
-                     "flash_dkv_kernel": "flash_attention_dkv"}
+# The device kernels of each training attention kernel, by route: the
+# CUDA-core kernel and, for the forward and dkv, the tensor-core one.
+ATTENTION_KERNELS = {
+    "flash_attention_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+    "flash_attention_dq": ("flash_dq_kernel",),
+    "flash_attention_dkv": ("flash_dkv_kernel", "flash_dkv_wgmma_kernel"),
+}
 GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
 LOCAL_BATCH, ACCUMULATION_STEPS, ITERS = 8, 2, 5
 
@@ -130,13 +134,17 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
                    if evt.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda r: -r[1])
     attention = {}
-    for key, label in ATTENTION_KERNELS.items():
-        hits = [r for r in rows if key in r[0]]
+    for label, names in ATTENTION_KERNELS.items():
+        hits = [r for r in rows if any(n in r[0] for n in names)]
         ms = sum(r[1] for r in hits)
-        attention[label] = {"ms": ms, "launches": sum(r[2] for r in hits),
-                            "share": ms / device_ms if device_ms else 0.0}
+        attention[label] = {
+            "ms": ms, "launches": sum(r[2] for r in hits),
+            "tensor_core_launches": sum(r[2] for r in hits
+                                        if "wgmma" in r[0]),
+            "share": ms / device_ms if device_ms else 0.0}
     gemms = [r for r in rows if any(m in r[0].lower() for m in GEMM_MARKERS)
-             and not any(k in r[0] for k in ATTENTION_KERNELS)]
+             and not any(n in r[0] for names in ATTENTION_KERNELS.values()
+                         for n in names)]
     largest = gemms[0] if gemms else None
     result = {
         "backend": backend, "dtype": args.dtype, "remat": args.remat,

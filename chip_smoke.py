@@ -20,7 +20,13 @@ Phases (any failure exits non-zero and prints no result line):
    ragged S=200 at D=64 and 128, D=128 at S=512; fp32 S=200 on the
    CUDA-core route), padded with row 0's every key masked and packed with
    row 0 all pad, and each launch must take the route ``infer_route``
-   names (bf16 -> tensor cores, fp32 -> CUDA cores);
+   names (bf16 -> tensor cores, fp32 -> CUDA cores). The training
+   forward and dkv run in bf16 on both routes (the one ``train_route``
+   picks, through the wrapper, and the CUDA-core one), and on the edges of
+   the tensor-core route (ragged S=200 at D=32, 64 and 128, the fully
+   masked and all-pad rows, rates 0 and 0.1); the keep mask each route of
+   each drew, read from its outputs, must equal ``philox_keep_mask`` bit
+   for bit (B=8, H=16, S=512 and a ragged S=200, rates 0 and 0.1);
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function (``scaled_dot_product_attention``: forward
    for the forward kernels, forward + backward for dq and dkv; for the
@@ -30,8 +36,11 @@ Phases (any failure exits non-zero and prints no result line):
    per call (``torch.profiler``: at S=128 a kernel takes less card time
    than the host needs to issue it), with CUDA-event times of 100 calls
    back to back beside them, and in bf16 also by the device time of the
-   same kernel on its CUDA-core route; the training kernels by CUDA
-   events;
+   same kernel on its CUDA-core route; the training kernels the same way
+   (device time per call, CUDA events beside), the forward and dkv on both
+   routes and, at S=512 bf16, at rate 0 as well as 0.1 (the keep mask's
+   cost), SDPA's backward alone as its forward + backward less its
+   forward;
 5. the serving main path: ``run_server.build_service`` at full BERT-large
    width (configs/bert_large_uncased_config.json, seeded random weights,
    a demo vocab) serving fill_mask and classify over HTTP, packed and
@@ -62,7 +71,8 @@ Phases (any failure exits non-zero and prints no result line):
    8 x accumulation 2 on seeded synthetic batches masked by the port's
    dataset code. Every loss finite, the first within 1 of ln(30528) +
    ln(2), and the launch counts exact: per step 2 x 24 x 2 forward
-   launches (remat recomputes the forward) and 24 x 2 each of dq and dkv.
+   launches (remat recomputes the forward) and 24 x 2 each of dq and dkv,
+   every forward and dkv launch on its tensor-core route.
    Then an fp32 training step with the flash kernels and with dense
    attention (2 layers at BERT-large width, dropout 0, the same weights
    and batch) must agree in loss, gradients and updated parameters;
@@ -534,13 +544,15 @@ def _compare(name: str, got, ref, tol) -> float:
     return max_err
 
 
-def training_inputs(seq: int, dtype, packed: bool, gen: torch.Generator):
+def training_inputs(seq: int, dtype, packed: bool, gen: torch.Generator,
+                    depth: int = D, empty_row: bool = False):
     """attention_inputs plus the output gradient, and the (key_bias, seg)
     pair the training kernels take."""
     from bert_pytorch_tpu_torch.ops.kernels.attention import _infer_bias_seg
 
-    q, k, v, kw = attention_inputs(seq, dtype, packed, gen)
-    do = torch.randn(B, seq, H, D, device="cuda", generator=gen).to(dtype)
+    q, k, v, kw = attention_inputs(seq, dtype, packed, gen, depth, empty_row)
+    do = torch.randn(B, seq, H, depth, device="cuda",
+                     generator=gen).to(dtype)
     key_bias, seg = _infer_bias_seg(kw.get("bias"), kw.get("sequence_ids"),
                                     B, seq)
     return q, k, v, do, kw, key_bias, seg
@@ -567,64 +579,164 @@ def sdpa_calls(q, k, v, do, kw, rate: float):
     return (fwd if rate == 0.0 else lambda: fwd_drop().detach()), fwd_bwd
 
 
+def _routes_of(name: str, dtype, depth: int = D) -> list:
+    """The routes a check runs ``name`` on: the one ``train_route`` picks
+    (first: the wrapper's), and in bf16 the CUDA-core route too, reached
+    directly. The dq kernel has one route."""
+    from bert_pytorch_tpu_torch.ops.kernels.attention import train_route
+
+    if name == "flash_attention_dq":
+        return ["cuda_cores"]
+    route = train_route(dtype, depth, name)
+    return [route] + (["cuda_cores"] if route == "tensor_cores" else [])
+
+
+def _run_fwd(route, first, q, k, v, args):
+    """The forward on ``route``: through the wrapper for its first route
+    (the one it picks), else that route's launch."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    if first:
+        return ka.flash_attention_fwd(q, k, v, *args)
+    return ka._launch_fwd(q, k, v, *args, route)
+
+
+def _run_dkv(route, first, q, k, v, do, lse, delta, args):
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    if first:
+        return ka.flash_attention_dkv(q, k, v, do, lse, delta, *args)
+    return ka._launch_dkv(q, k, v, do, lse, delta, *args, route)
+
+
+def check_training_case(label: str, q, k, v, do, key_bias, seg, rate: float,
+                        tol: dict, worst: dict) -> None:
+    """Forward, dq and dkv against their plain versions on one input, the
+    forward and dkv on each of their routes (_routes_of); each launch must
+    land on the route it was meant for. Raises on any element outside
+    ``tol``; keeps the largest error per kernel in ``worst``."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    args = (key_bias, seg, TRAIN_SEED, rate)
+    depth = q.shape[3]
+    ref_out, ref_lse = ka._forward_math(q, k, v, *args)
+    ref_dq, ref_delta = ka._dq_math(q, k, v, ref_out, do, ref_lse, *args)
+    ref_dk, ref_dv, ref_db = ka._dkv_math(q, k, v, do, ref_lse, ref_delta,
+                                          *args)
+    errs = {}
+    for name, wrapper, run, refs in (
+            ("flash_attention_fwd", ka.flash_attention_fwd,
+             lambda route, first: _run_fwd(route, first, q, k, v, args),
+             (("out", ref_out), ("lse", ref_lse))),
+            ("flash_attention_dkv", ka.flash_attention_dkv,
+             lambda route, first: _run_dkv(route, first, q, k, v, do,
+                                           ref_lse, ref_delta, args),
+             (("dk", ref_dk), ("dv", ref_dv), ("dbias", ref_db)))):
+        for i, route in enumerate(_routes_of(name, q.dtype, depth)):
+            before = wrapper.route_launches[route]
+            got = run(route, i == 0)
+            torch.cuda.synchronize()
+            if wrapper.route_launches[route] != before + 1:
+                raise AssertionError(f"{name} did not launch on its {route} "
+                                     f"route ({label})")
+            for (out_name, ref), value in zip(refs, got):
+                err = _compare(f"{name} [{route}] {out_name} {label}", value,
+                               ref, tol[out_name])
+                errs[f"{out_name} [{route}]"] = err
+                worst[name] = max(worst[name], err)
+    dq, delta = ka.flash_attention_dq(q, k, v, ref_out, do, ref_lse, *args)
+    torch.cuda.synchronize()
+    for out_name, value, ref in (("dq", dq, ref_dq),
+                                 ("delta", delta, ref_delta)):
+        errs[out_name] = _compare(f"dq {out_name} {label}", value, ref,
+                                  tol[out_name])
+        worst["flash_attention_dq"] = max(worst["flash_attention_dq"],
+                                          errs[out_name])
+    log(f"[check] training kernels {label}: " + ", ".join(
+        f"{key} {val:.2e}" for key, val in errs.items()))
+
+
 def check_training_kernels() -> dict:
     """Hold the forward, dq and dkv kernels against their plain versions on
     the same inputs: S in SEQS, bf16 and fp32, padded and packed, dropout 0
-    and 0.1 with a fixed seed. Returns the max error per kernel."""
-    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
-
+    and 0.1 with a fixed seed; in bf16 the forward and dkv on both routes.
+    Returns the max error per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in TRAIN_REPLACES}
     for seq in SEQS:
         for dtype in (torch.bfloat16, torch.float32):
-            tol = TRAIN_TOL[dtype]
             for packed in (False, True):
                 q, k, v, do, _, kb, seg = training_inputs(seq, dtype, packed,
                                                           gen)
                 for rate in TRAIN_RATES:
-                    case = (f"S={seq} {str(dtype)[6:]} "
-                            f"{'packed' if packed else 'padded'} rate {rate}")
-                    args = (kb, seg, TRAIN_SEED, rate)
-                    out, lse = ka.flash_attention_fwd(q, k, v, *args)
-                    ref_out, ref_lse = ka._forward_math(q, k, v, *args)
-                    errs = {"out": _compare(f"fwd out {case}", out, ref_out,
-                                            tol["out"]),
-                            "lse": _compare(f"fwd lse {case}", lse, ref_lse,
-                                            tol["lse"])}
-                    dq, delta = ka.flash_attention_dq(q, k, v, ref_out, do,
-                                                      ref_lse, *args)
-                    ref_dq, ref_delta = ka._dq_math(q, k, v, ref_out, do,
-                                                    ref_lse, *args)
-                    errs["dq"] = _compare(f"dq {case}", dq, ref_dq, tol["dq"])
-                    errs["delta"] = _compare(f"delta {case}", delta,
-                                             ref_delta, tol["delta"])
-                    dk, dv, dbias = ka.flash_attention_dkv(
-                        q, k, v, do, ref_lse, ref_delta, *args)
-                    ref_dk, ref_dv, ref_db = ka._dkv_math(
-                        q, k, v, do, ref_lse, ref_delta, *args)
-                    for label, got, ref in (("dk", dk, ref_dk),
-                                            ("dv", dv, ref_dv),
-                                            ("dbias", dbias, ref_db)):
-                        errs[label] = _compare(f"{label} {case}", got, ref,
-                                               tol[label])
-                    torch.cuda.synchronize()
-                    log(f"[check] training kernels {case}: " + ", ".join(
-                        f"{key} {val:.2e}" for key, val in errs.items()))
-                    worst["flash_attention_fwd"] = max(
-                        worst["flash_attention_fwd"], errs["out"],
-                        errs["lse"])
-                    worst["flash_attention_dq"] = max(
-                        worst["flash_attention_dq"], errs["dq"],
-                        errs["delta"])
-                    worst["flash_attention_dkv"] = max(
-                        worst["flash_attention_dkv"], errs["dk"],
-                        errs["dv"], errs["dbias"])
+                    check_training_case(
+                        f"S={seq} {str(dtype)[6:]} "
+                        f"{'packed' if packed else 'padded'} rate {rate}",
+                        q, k, v, do, kb, seg, rate, TRAIN_TOL[dtype], worst)
     return worst
 
 
+# The tensor-core route's edges for the forward and dkv, bf16: S=200 is
+# ragged (three full tiles and 8 rows), each head dim the route takes for
+# either kernel (dkv keeps head_dim 128 on the CUDA cores), padded with row
+# 0's every key masked and packed with row 0 all pad, at each rate.
+TRAIN_EDGE_SEQ, TRAIN_EDGE_DEPTHS = 200, (32, 64, 128)
+
+
+def check_training_edges(worst: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for depth in TRAIN_EDGE_DEPTHS:
+        for packed in (False, True):
+            q, k, v, do, _, kb, seg = training_inputs(
+                TRAIN_EDGE_SEQ, torch.bfloat16, packed, gen, depth,
+                empty_row=True)
+            for rate in TRAIN_RATES:
+                rows = ("packed (row 0 all pad)" if packed
+                        else "padded (row 0 every key masked)")
+                check_training_case(
+                    f"S={TRAIN_EDGE_SEQ} D={depth} bfloat16 {rows} rate "
+                    f"{rate}", q, k, v, do, kb, seg, rate,
+                    TRAIN_TOL[torch.bfloat16], worst)
+
+
+def check_keep_masks() -> dict:
+    """The keep mask each route of the forward and dkv drew, read from
+    their outputs (bert_pytorch_tpu_torch/testing/dropout_masks.py), held
+    bit for bit against the plain Philox twin: at the main path's shape
+    (B=8, H=16, S=512) and at a ragged S=200, rates 0 and 0.1. Returns the
+    kept share per (S, rate)."""
+    from bert_pytorch_tpu_torch.testing import dropout_masks as dm
+
+    shares = {}
+    for batch, seq, heads in ((B, TRAIN_SEQ, H), (2, TRAIN_EDGE_SEQ, 3)):
+        for rate in TRAIN_RATES:
+            want = dm.philox_mask(batch, seq, heads, TRAIN_SEED, rate, "cuda")
+            for route in ("tensor_cores", "cuda_cores"):
+                for read in (dm.forward_keep_mask, dm.dkv_keep_mask):
+                    got = read(batch, seq, heads, TRAIN_SEED, rate,
+                               device="cuda", route=route)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"{read.__name__} [{route}] S={seq} rate {rate}:"
+                            f" {int((got != want).sum())} of {got.numel()} "
+                            "mask bits differ from philox_keep_mask")
+            shares[f"S={seq} rate {rate}"] = want.float().mean().item()
+            log(f"[check] keep mask S={seq} rate {rate}: forward and dkv, "
+                f"both routes, equal philox_keep_mask bit for bit (kept "
+                f"share {shares[f'S={seq} rate {rate}']:.5f})")
+    return shares
+
+
 def time_training_kernels(rate: float = 0.1) -> dict:
-    """Kernel, plain-version and SDPA times of each training kernel at the
-    main path's shapes (padded rows, dropout ``rate``), CUDA events."""
+    """Times of each training kernel at the main path's shapes (padded
+    rows, dropout ``rate``): device time per call (``torch.profiler``) of
+    the kernel on each of its routes (_routes_of) and of SDPA forward and
+    forward + backward (the backward alone is their difference), with
+    CUDA-event times of 100 calls back to back beside them (the host's
+    issue time included); the plain version by CUDA events. At S=512 bf16
+    the forward and dkv are also read at rate 0 on their first route: the
+    keep mask's cost is the difference."""
     from bert_pytorch_tpu_torch.ops.kernels import attention as ka
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -635,38 +747,65 @@ def time_training_kernels(rate: float = 0.1) -> dict:
             args = (kb, seg, TRAIN_SEED, rate)
             out, lse = ka._forward_math(q, k, v, *args)
             _, delta = ka._dq_math(q, k, v, out, do, lse, *args)
-            calls = {
+            runs = {
                 "flash_attention_fwd": (
-                    lambda: ka.flash_attention_fwd(q, k, v, *args),
+                    lambda route, first, a=args: _run_fwd(route, first, q, k,
+                                                          v, a),
                     lambda: ka._forward_math(q, k, v, *args)),
                 "flash_attention_dq": (
-                    lambda: ka.flash_attention_dq(q, k, v, out, do, lse,
-                                                  *args),
+                    lambda route, first, a=args: ka.flash_attention_dq(
+                        q, k, v, out, do, lse, *a),
                     lambda: ka._dq_math(q, k, v, out, do, lse, *args)),
                 "flash_attention_dkv": (
-                    lambda: ka.flash_attention_dkv(q, k, v, do, lse, delta,
-                                                   *args),
+                    lambda route, first, a=args: _run_dkv(
+                        route, first, q, k, v, do, lse, delta, a),
                     lambda: ka._dkv_math(q, k, v, do, lse, delta, *args)),
             }
             sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(q, k, v, do, kw, rate)
-            t_sdpa_fwd = cuda_time_ms(sdpa_fwd)
-            t_sdpa_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd)
-            for name, (kernel, plain) in calls.items():
-                t_kernel = cuda_time_ms(kernel)
-                t_plain = cuda_time_ms(plain, iters=20, warmup=2)
+            sdpa = {"fwd": device_time_ms(sdpa_fwd),
+                    "fwd_bwd": device_time_ms(sdpa_fwd_bwd),
+                    "fwd_event": cuda_time_ms(sdpa_fwd),
+                    "fwd_bwd_event": cuda_time_ms(sdpa_fwd_bwd)}
+            sdpa["bwd"] = sdpa["fwd_bwd"] - sdpa["fwd"]
+            label = f"S={seq} {str(dtype)[6:]} rate {rate}"
+            for name, (run, plain) in runs.items():
+                routes = _routes_of(name, dtype)
+                head = routes[0]
+                times = {route: device_time_ms(
+                    lambda r=route, first=(i == 0): run(r, first))
+                    for i, route in enumerate(routes)}
                 t_bound, by = train_bound_ms(name, seq, dtype)
-                t_lib = (t_sdpa_fwd if name == "flash_attention_fwd"
-                         else t_sdpa_fwd_bwd)
-                log(f"[time] {name} S={seq} {str(dtype)[6:]} rate {rate}: "
-                    f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
-                    f"SDPA fwd {t_sdpa_fwd:.4f} ms, SDPA fwd+bwd "
-                    f"{t_sdpa_fwd_bwd:.4f} ms, bound {t_bound:.4f} ms ({by})")
-                cases[name].append({
-                    "seq": seq, "dtype": str(dtype)[6:], "rate": rate,
-                    "ms": t_kernel, "plain_ms": t_plain,
-                    "sdpa_fwd_ms": t_sdpa_fwd,
-                    "sdpa_fwd_bwd_ms": t_sdpa_fwd_bwd, "library_ms": t_lib,
-                    "bound_ms": t_bound, "bound_by": by})
+                fwd = name == "flash_attention_fwd"
+                case = {"seq": seq, "dtype": str(dtype)[6:], "rate": rate,
+                        "kernel_route": head, "ms": times[head],
+                        "event_ms": cuda_time_ms(lambda: run(head, True)),
+                        "plain_ms": cuda_time_ms(plain, iters=20, warmup=2),
+                        "sdpa_fwd_ms": sdpa["fwd"],
+                        "sdpa_fwd_bwd_ms": sdpa["fwd_bwd"],
+                        "sdpa_bwd_ms": sdpa["bwd"],
+                        "library_ms": sdpa["fwd" if fwd else "fwd_bwd"],
+                        "library_event_ms": sdpa[
+                            "fwd_event" if fwd else "fwd_bwd_event"],
+                        "bound_ms": t_bound, "bound_by": by}
+                extra = ""
+                if head != "cuda_cores" and "cuda_cores" in times:
+                    case["cuda_core_ms"] = times["cuda_cores"]
+                    extra += f", CUDA-core route {times['cuda_cores']:.4f} ms"
+                if (seq == TRAIN_SEQ and dtype == torch.bfloat16
+                        and name != "flash_attention_dq"):
+                    case["rate0_ms"] = device_time_ms(
+                        lambda: run(head, True, (kb, seg, TRAIN_SEED, 0.0)))
+                    extra += f", at rate 0 {case['rate0_ms']:.4f} ms"
+                log(f"[time] {name} {label} [{head}]: device time per call "
+                    f"kernel {case['ms']:.4f} ms{extra}, SDPA fwd "
+                    f"{sdpa['fwd']:.4f} ms, SDPA fwd+bwd "
+                    f"{sdpa['fwd_bwd']:.4f} ms (bwd alone {sdpa['bwd']:.4f}"
+                    f" ms), bound {t_bound:.4f} ms ({by}); CUDA events "
+                    f"kernel {case['event_ms']:.4f} ms, plain "
+                    f"{case['plain_ms']:.4f} ms, SDPA fwd "
+                    f"{sdpa['fwd_event']:.4f} ms, fwd+bwd "
+                    f"{sdpa['fwd_bwd_event']:.4f} ms")
+                cases[name].append(case)
     return cases
 
 
@@ -1102,6 +1241,8 @@ def drive_training(kernels: dict) -> dict:
         log(f"[train] step {len(records)}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in values.items()))
     launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.route_launches) for name, k in kernels.items()
+              if hasattr(k, "route_launches")}
     losses = [r["loss"] for r in records]
     if not all(math.isfinite(x) and r["finite"] == 1.0
                for x, r in zip(losses, records)):
@@ -1120,11 +1261,18 @@ def drive_training(kernels: dict) -> dict:
                 f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
                 f"steps; expected {want} (remat dots recomputes the forward; "
                 "the pretraining path keeps the plain LayerNorm)")
+    for name in ("flash_attention_fwd", "flash_attention_dkv"):
+        if routes[name]["tensor_cores"] != launches[name]:
+            raise AssertionError(f"{name} launches by route {routes[name]}: "
+                                 "every bf16 launch must take the tensor "
+                                 "cores")
+    log(f"[train] launches {launches}; by route {routes}")
     steady = [r["step_ms"] for r in records[1:]]
     step_ms = statistics.median(steady)
     del model, optimizer, step, batches
     torch.cuda.empty_cache()
     return {"steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+            "routes": routes,
             "step_ms": step_ms, "first_step_ms": records[0]["step_ms"],
             "seq_per_s": args.global_batch_size / step_ms * 1e3,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -1180,24 +1328,32 @@ def check_training_flash_vs_dense() -> dict:
             "param_abs_err": param_err}
 
 
-def training_entries(worst: dict, cases: dict, launches: dict) -> list:
+def training_entries(worst: dict, cases: dict, trained: dict) -> list:
     """The kernels-line entries of the training kernels: the headline
-    numbers at the main path's shape (S=512, bf16, dropout 0.1)."""
+    numbers at the main path's shape (S=512, bf16, dropout 0.1), device
+    time per call; launches (and, for the forward and dkv, launches by
+    route) from the phase-2 drive."""
     out = []
+    keys = ("kernel_route", "event_ms", "library_event_ms", "cuda_core_ms",
+            "rate0_ms", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms", "sdpa_bwd_ms")
     for name in TRAIN_REPLACES:
         head = next(c for c in cases[name] if c["seq"] == TRAIN_SEQ
                     and c["dtype"] == "bfloat16")
-        out.append({"name": name, "route": "cuda",
-                    "source": TRAIN_SOURCES[name],
-                    "replaces": TRAIN_REPLACES[name],
-                    "launches": launches[name], "max_abs_err": worst[name],
-                    "ms": head["ms"], "plain_ms": head["plain_ms"],
-                    "bound_ms": head["bound_ms"],
-                    "bound_by": head["bound_by"],
-                    "library_ms": head["library_ms"],
-                    "library": ("sdpa forward" if name == "flash_attention_fwd"
-                                else "sdpa forward+backward"),
-                    "cases": cases[name]})
+        entry = {"name": name, "route": "cuda",
+                 "source": TRAIN_SOURCES[name],
+                 "replaces": TRAIN_REPLACES[name],
+                 "launches": trained["launches"][name],
+                 "max_abs_err": worst[name],
+                 "ms": head["ms"], "plain_ms": head["plain_ms"],
+                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"],
+                 "library": ("sdpa forward" if name == "flash_attention_fwd"
+                             else "sdpa forward+backward")}
+        entry.update({key: head[key] for key in keys if key in head})
+        if name in trained["routes"]:
+            entry["route_launches"] = trained["routes"][name]
+        entry["cases"] = cases[name]
+        out.append(entry)
     return out
 
 
@@ -1438,6 +1594,8 @@ def main() -> int:
     infer_entry = check_and_time_attention()
     int8_entry = check_and_time_int8_attention()
     worst = check_training_kernels()
+    check_training_edges(worst)
+    mask_shares = check_keep_masks()
     cases = time_training_kernels()
     ln_entry = check_and_time_layer_norm()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1486,8 +1644,8 @@ def main() -> int:
         "flash_attention_infer_int8"]
     ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
-        worst, cases, trained["launches"]) + [ln_entry]
-    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, squad=squad))}")
+        worst, cases, trained) + [ln_entry]
+    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

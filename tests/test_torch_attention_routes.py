@@ -1,9 +1,12 @@
-"""The serving attention kernels' two routes, on the CPU: which route a
-launch takes (``infer_route``, from dtype and head_dim alone), that a CPU
-tensor takes the plain version and counts no launch on any route, and
-that the wrappers call the route's C entry point, count it, and raise on
-a failed launch without falling back to the other route (a stand-in
-library replaces the built one; no kernel runs here)."""
+"""The two routes of the serving attention kernels (#4, #5) and of the
+training forward and dkv kernels (#1, #3), on the CPU: which route a
+launch takes (``infer_route`` and ``train_route``, from dtype and head_dim
+alone), that a CPU tensor takes the plain version and counts no launch on
+any route, and that the wrappers call the route's C entry point, count
+it, and raise on a failed launch without falling back to the other route
+(a stand-in library replaces the built one; no kernel runs here). Also
+the keep-mask readers of testing/dropout_masks.py, which the card tests
+use to compare the routes' masks, on the plain versions."""
 
 import contextlib
 
@@ -14,7 +17,8 @@ import torch
 from bert_pytorch_tpu_torch.ops.attention import make_attention_bias
 from bert_pytorch_tpu_torch.ops.kernels import attention as kattn
 
-KERNELS = (kattn.flash_attention_infer, kattn.flash_attention_infer_int8)
+KERNELS = (kattn.flash_attention_infer, kattn.flash_attention_infer_int8,
+           kattn.flash_attention_fwd, kattn.flash_attention_dkv)
 
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
@@ -75,8 +79,8 @@ def test_reset_counts_zeroes_every_route():
         kattn.reset_counts(wrapper)
         assert wrapper.launches == 0
         assert wrapper.route_launches == {"tensor_cores": 0, "cuda_cores": 0}
-        kattn.reset_counts(kattn.flash_attention_fwd)  # no routes: just 0
-        assert kattn.flash_attention_fwd.launches == 0
+        kattn.reset_counts(kattn.flash_attention_dq)  # no routes: just 0
+        assert kattn.flash_attention_dq.launches == 0
     finally:
         wrapper.launches, wrapper.route_launches = saved[0], saved[1]
 
@@ -183,3 +187,152 @@ def test_tensor_core_route_needs_16_byte_aligned_operands(fake_library):
     with pytest.raises(ValueError, match="16-byte aligned"):
         kattn._launch_infer(shifted, k, v, None, None, "tensor_cores")
     assert fake_library.calls == []
+
+
+# -- the training forward (#1) and dkv (#3) kernels -------------------------
+
+FWD, DKV = "flash_attention_fwd", "flash_attention_dkv"
+
+
+@pytest.mark.parametrize("dtype,head_dim,fwd_route,dkv_route", [
+    (torch.bfloat16, 64, "tensor_cores", "tensor_cores"),
+    (torch.bfloat16, 32, "tensor_cores", "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores", "cuda_cores"),
+    (torch.bfloat16, 24, "cuda_cores", "cuda_cores"),
+    (torch.bfloat16, 96, "cuda_cores", "cuda_cores"),
+    (torch.float32, 64, "cuda_cores", "cuda_cores"),
+    (torch.float32, 128, "cuda_cores", "cuda_cores"),
+    (torch.float16, 64, "cuda_cores", "cuda_cores"),
+])
+def test_train_route_from_dtype_and_head_dim(dtype, head_dim, fwd_route,
+                                             dkv_route):
+    """bf16 forward at head_dim 32, 64 and 128 and bf16 dkv at 32 and 64
+    (dK and dV of head_dim 128 do not fit one warpgroup's registers) take
+    the tensor cores; fp32 and other head dims the CUDA cores."""
+    assert kattn.train_route(dtype, head_dim, FWD) == fwd_route
+    assert kattn.train_route(dtype, head_dim, DKV) == dkv_route
+
+
+def _training_args(dtype, depth, seq=40):
+    q, k, v, bias, _ = _inputs(dtype, seq=seq, depth=depth)
+    do = torch.ones_like(q)
+    kb, _ = kattn._infer_bias_seg(bias, None, 2, seq)
+    lse = torch.zeros(2 * 3, seq)
+    return q, k, v, do, lse, kb
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_training_cpu_tensors_take_the_plain_versions_and_count_nothing(
+        dtype):
+    """The forward and dkv wrappers on CPU tensors return their plain
+    versions bit for bit and count no launch on any route."""
+    q, k, v, do, lse, kb = _training_args(dtype, 64)
+    before = [(f.launches, dict(f.route_launches)) for f in KERNELS]
+    args = (kb, None, 99, 0.1)
+    for got, want in zip(kattn.flash_attention_fwd(q, k, v, *args),
+                         kattn._forward_math(q, k, v, *args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for got, want in zip(
+            kattn.flash_attention_dkv(q, k, v, do, lse, lse, *args),
+            kattn._dkv_math(q, k, v, do, lse, lse, *args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert [(f.launches, dict(f.route_launches)) for f in KERNELS] == before
+
+
+@pytest.mark.parametrize("dtype,depth,entry,route", [
+    (torch.bfloat16, 64, "flash_attention_fwd_wgmma", "tensor_cores"),
+    (torch.bfloat16, 128, "flash_attention_fwd_wgmma", "tensor_cores"),
+    (torch.float32, 64, "flash_attention_fwd", "cuda_cores"),
+    (torch.bfloat16, 24, "flash_attention_fwd", "cuda_cores"),
+])
+def test_forward_calls_its_routes_entry_point(fake_library, dtype, depth,
+                                              entry, route):
+    q, k, v, _, _, kb = _training_args(dtype, depth)
+    before = dict(kattn.flash_attention_fwd.route_launches)
+    out, lse = kattn._launch_fwd(q, k, v, kb, None, 5, 0.1,
+                                 kattn.train_route(dtype, depth, FWD))
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lse.shape == (2 * 3, q.shape[1]) and lse.dtype == torch.float32
+    ((name, args),) = fake_library.calls
+    assert name == entry
+    # Both take (batch, seq, heads, head_dim) after the seven pointers and
+    # end with 1 - rate and the stream; only the CUDA-core entry takes the
+    # dtype code.
+    assert args[7:11] == (2, q.shape[1], 3, depth)
+    assert args[-2] == pytest.approx(0.9)
+    after = kattn.flash_attention_fwd.route_launches
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("dtype,depth,entry,route", [
+    (torch.bfloat16, 64, "flash_attention_dkv_wgmma", "tensor_cores"),
+    (torch.bfloat16, 32, "flash_attention_dkv_wgmma", "tensor_cores"),
+    (torch.bfloat16, 128, "flash_attention_dkv", "cuda_cores"),
+    (torch.float32, 64, "flash_attention_dkv", "cuda_cores"),
+])
+def test_dkv_calls_its_routes_entry_point(fake_library, dtype, depth, entry,
+                                          route):
+    q, k, v, do, lse, kb = _training_args(dtype, depth)
+    before = dict(kattn.flash_attention_dkv.route_launches)
+    dk, dv, dbias = kattn._launch_dkv(q, k, v, do, lse, lse, kb, None, 5,
+                                      0.1, kattn.train_route(dtype, depth,
+                                                             DKV))
+    assert dk.shape == dv.shape == q.shape and dbias.shape == lse.shape
+    ((name, args),) = fake_library.calls
+    assert name == entry
+    assert args[11:15] == (2, q.shape[1], 3, depth)
+    assert args[-2] == pytest.approx(1 / 0.9)
+    after = kattn.flash_attention_dkv.route_launches
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("kernel", [FWD, DKV])
+def test_failed_training_launch_raises_and_falls_back_to_nothing(
+        fake_library, kernel):
+    """A tensor-core launch of #1 or #3 that returns a CUDA error raises;
+    the CUDA-core entry point is never called and nothing is counted."""
+    fake_library.rc = 1
+    q, k, v, do, lse, kb = _training_args(torch.bfloat16, 64)
+    wrapper = getattr(kattn, kernel)
+    before = wrapper.launches, dict(wrapper.route_launches)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        if kernel == FWD:
+            kattn._launch_fwd(q, k, v, kb, None, 5, 0.1, "tensor_cores")
+        else:
+            kattn._launch_dkv(q, k, v, do, lse, lse, kb, None, 5, 0.1,
+                              "tensor_cores")
+    assert [name for name, _ in fake_library.calls] == [f"{kernel}_wgmma"]
+    assert (wrapper.launches, dict(wrapper.route_launches)) == before
+
+
+@pytest.mark.parametrize("kernel", [FWD, DKV])
+def test_training_tensor_core_route_needs_16_byte_aligned_operands(
+        fake_library, kernel):
+    q, k, v, do, lse, kb = _training_args(torch.bfloat16, 64)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype)
+    shifted = flat[1:].view(q.shape)  # 2 bytes past an aligned base
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == FWD:
+            kattn._launch_fwd(shifted, k, v, kb, None, 5, 0.1,
+                              "tensor_cores")
+        else:
+            kattn._launch_dkv(shifted, k, v, do, lse, lse, kb, None, 5, 0.1,
+                              "tensor_cores")
+    assert fake_library.calls == []
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_keep_mask_readers_see_the_philox_mask(dtype, rate):
+    """The mask readers the card tests hold the routes to, on the plain
+    versions: the forward's and dkv's masks read from their outputs equal
+    philox_keep_mask bit for bit, ragged windows included (S = 100)."""
+    from bert_pytorch_tpu_torch.testing import dropout_masks as dm
+
+    want = dm.philox_mask(2, 100, 2, 77, rate)
+    assert torch.equal(dm.forward_keep_mask(2, 100, 2, 77, rate, dtype),
+                       want)
+    assert torch.equal(dm.dkv_keep_mask(2, 100, 2, 77, rate, dtype), want)

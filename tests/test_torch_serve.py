@@ -8,6 +8,7 @@ kernel's plain version on CPU tensors), the JAX engine through ``"xla"``.
 
 import json
 import threading
+import urllib.error
 import urllib.request
 
 import jax
@@ -172,6 +173,42 @@ def test_http_smoke_two_posts(vocab_file, weights, tmp_path, engine):
         thread.join(timeout=30)
     assert not thread.is_alive()
     assert service.telemetry.snapshot()["requests"] == 2
+
+
+def test_swapz_refuses_cleanly_until_hot_swap_is_ported(vocab_file, weights,
+                                                         tmp_path):
+    """A well-formed POST /swapz for a served task answers 404 naming the
+    missing hot-swap, never a 500 with the engine's AttributeError."""
+    cfg_path = tmp_path / "config.json"
+    cfg_path.write_text(json.dumps(_config_dict()))
+    args = run_server.parse_arguments([
+        "--model_config_file", str(cfg_path), "--vocab_file", vocab_file,
+        "--device", "cpu", "--dtype", "float32", "--tasks", "fill_mask",
+        "--buckets", "16", "--port", "0"])
+    service = run_server.build_service(
+        args, weights={"fill_mask": weights["fill_mask"]})
+    service.start()
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = {"task": "fill_mask", "checkpoint": str(tmp_path / "ckpt"),
+                "version": "v2"}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/swapz",
+            data=json.dumps(body).encode())
+        with pytest.raises(urllib.error.HTTPError) as info:
+            urllib.request.urlopen(req, timeout=60)
+        assert info.value.code == 404
+        error = json.loads(info.value.read())["error"]
+        assert "hot-swap is not ported" in error
+        assert "AttributeError" not in error
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
 
 
 def test_run_server_defaults_to_cuda_and_raises_without_it(vocab_file,
