@@ -28,19 +28,34 @@
 // lse, delta and dbias are [B*H, S] fp32; the key bias and sequence ids
 // are read from [B, S].
 //
-// The dkv kernel has two routes, chosen by the wrapper from dtype and
-// head_dim before launch (ops/kernels/attention.py `train_route`):
+// Each kernel has two routes, chosen by the wrapper from dtype and head_dim
+// before launch (ops/kernels/attention.py `train_route`):
 //
-// * Tensor cores (`flash_dkv_wgmma_kernel`, bf16 with head_dim 32 or 64:
-//   BERT-base and BERT-large). One warpgroup per (batch*head, 64-key
+// * Tensor cores, dq (`flash_dq_wgmma_kernel`, bf16 with head_dim 32, 64
+//   or 128). One warpgroup per (batch*head, 64-row q tile). delta is
+//   summed first, from O and dO in global memory (each lane of a quad a
+//   quarter of its two rows, 16-byte loads, then a quad sum), while TMA
+//   brings the q and dO tiles once and each 64-key K and V tile through a
+//   2-stage ring (wgmma_common.cuh). Per key tile, three `wgmma` products
+//   in the forward's shapes: S = Q K^T and dA = dO V^T from shared memory,
+//   both operands K-major (m64n64k16), then dQ += dS K with dS from
+//   registers (the S accumulator's fragments are, pair by pair, the A
+//   fragments of a k16 step) and K as the MN-major B operand: one swizzled
+//   K tile read through two descriptors. The rows are q rows, so lse and
+//   delta are two per-thread constants read before the key loop; the key
+//   bias and ids of the thread's 16 keys and the keep mask (`keep_bits`,
+//   the forward's layout) are read and drawn while the score wgmmas run.
+//   dQ stays in registers (head_dim / 2 fp32 a thread). What bounds it:
+//   the CUDA cores (the elementwise dS and, with dropout, the Philox
+//   rounds), not the tensor cores.
+// * Tensor cores, dkv (`flash_dkv_wgmma_kernel`, bf16 with head_dim 32 or
+//   64: BERT-base and BERT-large). One warpgroup per (batch*head, 64-key
 //   tile). TMA brings the K and V tiles once and each 64-row q and dO tile
-//   through a 2-stage ring (the mbarrier ring and descriptors of
-//   wgmma_common.cuh). Per q tile, four `wgmma` products, all in the two
-//   shapes of the forward: S^T = K q^T and dA^T = V dO^T from shared memory,
-//   both operands K-major (m64n64k16); then dV += P_drop^T dO and
-//   dK += dS^T q with P_drop^T and dS^T from registers (the fragments of
-//   S^T are, pair by pair, the A fragments of a k16 step) and dO and q as
-//   the MN-major B operand, the same tiles read with the transpose bit.
+//   through the 2-stage ring. Per q tile, four `wgmma` products, all in
+//   the two shapes of the forward: S^T = K q^T and dA^T = V dO^T from
+//   shared memory, both operands K-major (m64n64k16); then dV += P_drop^T
+//   dO and dK += dS^T q with P_drop^T and dS^T from registers and dO and q
+//   as the MN-major B operand, the same tiles read with the transpose bit.
 //   The rows of the fragments are keys, so dbias sums over the quad at the
 //   end and across q tiles in registers. lse, delta and the q ids are read
 //   per tile by each thread for its own 16 q columns while the score
@@ -49,22 +64,22 @@
 //   lanes, so each of the four draws a quarter of the calls they share and
 //   they swap bytes by shuffles: no word is drawn twice. dK and dV stay in
 //   registers (head_dim fp32 a thread), which is why head_dim 128 keeps
-//   the CUDA-core route. What bounds it: the CUDA cores (the elementwise
-//   dS and, with dropout, the Philox rounds), not the tensor cores.
-// * CUDA cores (`flash_dkv_kernel`, fp32 and any other head_dim) and the
-//   dq kernel (one route): one block of 256 threads (16 x 16) per
-//   (batch*head, 64-row tile); the tiles the inner loop walks are staged
-//   in shared memory as fp32 with an odd row stride; each thread owns a
-//   4 x 4 block of the [64 x 64] score tile and a 4 x (head_dim / 16)
-//   block of its output. The dq kernel's thread rows are query rows; the
-//   dkv kernel's are key rows, so its dS^T and P^T tiles are written and
-//   read back by the same half-warp and the dbias sum reduces with
-//   shuffles. The products (two for the scores and dA, and two for the
-//   outputs in dkv) run on the CUDA cores in fp32 fed from shared memory,
-//   far from the tensor-core rate that bounds the work.
+//   the CUDA-core route. What bounds it: the CUDA cores, as for dq.
+// * CUDA cores (`flash_dq_kernel`, `flash_dkv_kernel`: fp32 and any other
+//   head_dim): one block of 256 threads (16 x 16) per (batch*head, 64-row
+//   tile); the tiles the inner loop walks are staged in shared memory as
+//   fp32 with an odd row stride; each thread owns a 4 x 4 block of the
+//   [64 x 64] score tile and a 4 x (head_dim / 16) block of its output.
+//   The dq kernel's thread rows are query rows; the dkv kernel's are key
+//   rows, so its dS^T and P^T tiles are written and read back by the same
+//   half-warp and the dbias sum reduces with shuffles. The products (two
+//   for the scores and dA, and one or two for the outputs) run on the CUDA
+//   cores in fp32 fed from shared memory, far from the tensor-core rate
+//   that bounds the work.
 
 #include "flash_attention_common.cuh"
 #include "wgmma_common.cuh"
+#include "wgmma_dropout.cuh"
 
 namespace {
 
@@ -533,50 +548,37 @@ cudaError_t dkv_entry(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;  // not reached
 }
 
-// -- the dkv kernel's tensor-core route --------------------------------------
+// -- the tensor-core routes --------------------------------------------------
 
-// The keep bits of this thread's 32 elements of the transposed [64 keys x
-// 64 q] tile whose keys start at k0 and q rows at q0 (bit e: element e, at
-// key row 16 * warp + lane / 4 + 8 * ((e >> 1) & 1) and q column
-// 8 * (e >> 2) + 2 * (lane % 4) + (e & 1)). The four keys of one Philox
-// call are key i = lane / 4 % 4 of the four lanes with the same lane / 16
-// and lane % 4, and those lanes share all 32 of their calls: lane i draws
-// the calls of elements 8i .. 8i + 7, keeps byte b for key b, and the four
-// swap bytes with three shuffles.
-__device__ __forceinline__ uint32_t keep_bits_t(uint2 seed, uint32_t threshold,
-                                                int bh, int q0, int k0,
-                                                int warp, int lane) {
-  const int i = (lane >> 2) & 3;
-  const int c = lane & 3;
-  const uint32_t group0 =
-      static_cast<uint32_t>((k0 >> 2) + 4 * warp + (lane >> 4));
-  uint32_t own = 0;  // bit 8b + k: key b of call k (element 8i + k)
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int half = (k >> 1) & 1;
-    const int col = 8 * (2 * i + (k >> 2)) + 2 * c + (k & 1);
-    const uint4 w = philox4x32_10(
-        make_uint4(group0 + 2 * half, static_cast<uint32_t>(q0 + col),
-                   static_cast<uint32_t>(bh), 0u),
-        seed);
-    own |= (static_cast<uint32_t>(w.x >= threshold) |
-            static_cast<uint32_t>(w.y >= threshold) << 8 |
-            static_cast<uint32_t>(w.z >= threshold) << 16 |
-            static_cast<uint32_t>(w.w >= threshold) << 24)
-           << k;
-  }
-  uint32_t keep = 0;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {  // from the lane whose i is i ^ t
-    const uint32_t from =
-        t == 0 ? own : __shfl_xor_sync(0xffffffffu, own, 4 * t);
-    keep |= ((from >> (8 * i)) & 0xFFu) << (8 * (i ^ t));
-  }
-  return keep;
+// Dynamic shared memory of either tensor-core kernel: the two tiles it
+// keeps (K and V in dkv, q and dO in dq), two stages of each of the two it
+// walks, three mbarriers, and 1024 bytes to align the base for the
+// 128-byte swizzle.
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  return 1024 + (2 + 2 * wg::kStages) * wg::Tile<2 * D>::kBytes +
+         (wg::kStages + 1) * sizeof(uint64_t);
 }
 
+// The TMA maps of q, k, v and dO ([B, S, H, D] bf16), in that order.
+template <int D>
+cudaError_t qkvdo_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
+                       const void* v, const void* dout, int batch, int seq,
+                       int heads) {
+  const void* srcs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = wg::bshd_map(
+        &maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+        wg::Tile<2 * D>::kChunk, batch, seq, heads, D);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// -- the dkv kernel's tensor-core route --------------------------------------
+
 // P_drop^T and dS^T of one tile pair on this thread's 32 elements of S^T
-// and dA^T (raw products; layout as in keep_bits_t), given the bias and
+// and dA^T (raw products; layout as in wg::keep_bits_t), given the bias and
 // ids of its two keys and lse, delta and ids of its 16 q columns: leaves
 // both in bf16 pairs (the A fragments of four k16 steps) and adds dS to
 // the keys' dbias sums. kFull: every q row of the tile lies before S
@@ -614,17 +616,9 @@ __device__ __forceinline__ void grad_tile(
   }
 }
 
-// Dynamic shared memory of the tensor-core dkv kernel: the K and V tiles,
-// two q and two dO stages, three mbarriers, and 1024 bytes to align the
-// base for the 128-byte swizzle.
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return 1024 + (2 + 2 * wg::kStages) * wg::Tile<2 * D>::kBytes +
-         (wg::kStages + 1) * sizeof(uint64_t);
-}
 
 // Launch: grid (batch * heads, ceil(seq / 64)), wg::kThreads threads,
-// dkv_smem_bytes<D>() of dynamic shared memory.
+// bwd_smem_bytes<D>() of dynamic shared memory.
 template <int D, bool kDropout>
 __global__ void __launch_bounds__(wg::kThreads)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -742,7 +736,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     uint32_t keep = ~0u;
     if constexpr (kDropout)
-      keep = keep_bits_t(seed, threshold, bh, q0, k0, warp, lane);
+      keep = wg::keep_bits_t(seed, threshold, bh, q0, k0, warp, lane);
     wg::wgmma_wait();
     wg::pin(s);
     wg::pin(da);
@@ -808,17 +802,11 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              const int* seg, int batch, int seq, int heads,
                              float scale, uint2 seed, uint32_t threshold,
                              float inv_keep, cudaStream_t stream) {
-  constexpr int kChunk = wg::Tile<2 * D>::kChunk;
   CUtensorMap maps[4];
-  const void* srcs[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err =
-        wg::bshd_map(&maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     kChunk, batch, seq, heads, D);
-    if (err != cudaSuccess) return err;
-  }
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = prepare(flash_dkv_wgmma_kernel<D, kDropout>, smem);
+  cudaError_t err = qkvdo_maps<D>(maps, q, k, v, dout, batch, seq, heads);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = bwd_smem_bytes<D>();
+  err = prepare(flash_dkv_wgmma_kernel<D, kDropout>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
   flash_dkv_wgmma_kernel<D, kDropout><<<grid, wg::kThreads, smem, stream>>>(
@@ -845,11 +833,279 @@ cudaError_t dispatch_dkv_wgmma(bool dropout, const void* q, const void* k,
                                     seed, threshold, inv_keep, stream);
 }
 
+// -- the dq kernel's tensor-core route ---------------------------------------
+
+// dS of one key tile on this thread's 32 elements of S and dA (raw
+// products; element e at q row row0 + 8 * ((e >> 1) & 1) and key k0 +
+// 8 * (e >> 2) + col0 + (e & 1), its keep bit bit e of `keep`), given lse,
+// delta and ids of its two q rows and the bias and ids of its 16 keys:
+// leaves dS in bf16 pairs (the A fragments of four k16 steps). kFull:
+// every key of the tile lies before S (else keys past S get probability 0
+// by index: their K and V rows read as zeros, but exp(s - lse) there is
+// not bounded, and inf * 0 would reach dQ).
+template <bool kFull, bool kDropout>
+__device__ __forceinline__ void dq_grad_tile(
+    const float (&s)[32], const float (&da)[32], const float (&kb)[16],
+    const int (&kid)[16], const float (&lse)[2], const float (&delta)[2],
+    const int (&qid)[2], bool segmented, float scale, float inv_keep,
+    uint32_t keep, int k0, int col0, int seq, uint32_t (&ds)[16]) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = (e >> 1) & 1;
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 2 * (e >> 2) + u;  // this thread's key
+      float x = __fadd_rn(__fmul_rn(s[e + u], scale), kb[c]);  // no FMA
+      if (segmented) x += seg_mask(qid[r], kid[c]);
+      float p = wg::exp_approx(x - lse[r]);
+      if (!kFull && k0 + 8 * (e >> 2) + col0 + u >= seq) p = 0.f;
+      float a = da[e + u];
+      if (kDropout) a = (keep >> (e + u)) & 1u ? a * inv_keep : 0.f;
+      v[u] = p * (a - delta[r]);
+    }
+    ds[e >> 1] = wg::pack_bf16(v[0], v[1]);
+  }
+}
+
+// Launch: grid (batch * heads, ceil(seq / 64)), wg::kThreads threads,
+// bwd_smem_bytes<D>() of dynamic shared memory.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(wg::kThreads)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const __nv_bfloat16* __restrict__ out,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq,
+                      const float* __restrict__ key_bias,
+                      const int* __restrict__ seg, int seq, int heads,
+                      float scale, uint2 seed, uint32_t threshold,
+                      float inv_keep) {
+  using T = wg::Tile<2 * D>;
+  constexpr int kRows = wg::kRows;
+  constexpr int kStages = wg::kStages;
+  constexpr int kAcc = D / 2;  // fp32 values of dQ per thread
+  extern __shared__ float smem[];  // the same symbol as the CUDA-core kernels'
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = blockIdx.y * kRows;
+  const long long tok0 = static_cast<long long>(b) * seq;
+  const long long stat0 = static_cast<long long>(bh) * seq;
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const long long base = tok0 * row_stride + static_cast<long long>(h) * D;
+  const int num_kb = (seq + kRows - 1) / kRows;
+
+  const uint32_t raw = wg::smem_u32(smem);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  const uint32_t do_s = q_s + T::kBytes;
+  const uint32_t k_s = do_s + T::kBytes;            // kStages K tiles
+  const uint32_t v_s = k_s + kStages * T::kBytes;   // kStages V tiles
+  const uint32_t bars = v_s + kStages * T::kBytes;  // full[0], full[1]
+  const uint32_t q_bar = bars + 8 * kStages;
+
+  auto load_stage = [&](int j) {
+    const int st = j % kStages;
+    const uint32_t bar = bars + 8 * st;
+    wg::mbar_expect_tx(bar, 2 * T::kBytes);
+    wg::load_tile<2 * D, 2>(k_s + st * T::kBytes, &kmap, bar, h, j * kRows,
+                            b);
+    wg::load_tile<2 * D, 2>(v_s + st * T::kBytes, &vmap, bar, h, j * kRows,
+                            b);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) wg::mbar_init(bars + 8 * st, 1);
+    wg::mbar_init(q_bar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    wg::mbar_expect_tx(q_bar, 2 * T::kBytes);
+    wg::load_tile<2 * D, 2>(q_s, &qmap, q_bar, h, q0, b);
+    wg::load_tile<2 * D, 2>(do_s, &domap, q_bar, h, q0, b);
+    for (int j = 0; j < kStages && j < num_kb; ++j) load_stage(j);
+  }
+
+  // This thread's two q rows q0 + row0 (+ 8) and its keys 8j + col0 (+ 1)
+  // of each key tile. Rows past S are not masked: TMA reads their q and dO
+  // as zeros, so their dA and delta are 0 and so is their dS, which reaches
+  // only their own rows of dQ, which are not written.
+  const int row0 = 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const bool segmented = seg != nullptr;
+  float lse_q[2], delta_q[2];
+  int qid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + row0 + 8 * r;
+    const bool inside = q < seq;
+    lse_q[r] = inside ? lse[stat0 + q] : 0.f;
+    qid[r] = (segmented && inside) ? seg[tok0 + q] : 0;
+    // delta = rowsum(dO * O) in fp32 while the tiles load: each lane of the
+    // quad takes the 16-byte pieces lane % 4, + 4, ... of the row.
+    float part = 0.f;
+    if (inside) {
+      const uint4* o_row =
+          reinterpret_cast<const uint4*>(out + base + q * row_stride);
+      const uint4* do_row =
+          reinterpret_cast<const uint4*>(dout + base + q * row_stride);
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const uint4 ov = o_row[4 * i + (lane & 3)];
+        const uint4 dv = do_row[4 * i + (lane & 3)];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 of = __bfloat1622float2(o2[t]);
+          const float2 df = __bfloat1622float2(d2[t]);
+          part = fmaf(df.x, of.x, part);
+          part = fmaf(df.y, of.y, part);
+        }
+      }
+    }
+    delta_q[r] = wg::quad_sum(part);
+    if (inside && (lane & 3) == 0) delta[stat0 + q] = delta_q[r];
+  }
+  float dq_acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dq_acc[i] = 0.f;
+
+  wg::mbar_wait(q_bar, 0);
+  for (int j = 0; j < num_kb; ++j) {
+    const int st = j % kStages;
+    const int k0 = j * kRows;
+    const uint32_t kt = k_s + st * T::kBytes;
+    const uint32_t vt = v_s + st * T::kBytes;
+    wg::mbar_wait(bars + 8 * st, (j / kStages) & 1);
+
+    float s[32], da[32];  // S and dA: q rows by keys
+    wg::pin(s);
+    wg::pin(da);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < D / 16; ++step)
+      wg::mma_bf16_ss(s, wg::k_major<2 * D>(q_s, step),
+                      wg::k_major<2 * D>(kt, step), step > 0);
+#pragma unroll
+    for (int step = 0; step < D / 16; ++step)
+      wg::mma_bf16_ss(da, wg::k_major<2 * D>(do_s, step),
+                      wg::k_major<2 * D>(vt, step), step > 0);
+    wg::wgmma_commit();
+    // The bias and ids of this thread's 16 keys, and with dropout its keep
+    // bits, made while the MMAs run.
+    const bool full = k0 + kRows <= seq;  // every key of the tile inside S
+    float kb[16];
+    int kid[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int key = k0 + 8 * (c >> 1) + col0 + (c & 1);
+      const bool inside = full || key < seq;
+      kb[c] = (key_bias != nullptr && inside) ? key_bias[tok0 + key] : 0.f;
+      kid[c] = (segmented && inside) ? seg[tok0 + key] : 0;
+    }
+    uint32_t keep = ~0u;
+    if constexpr (kDropout)
+      keep = wg::keep_bits(seed, threshold, bh, q0 + row0, k0, lane);
+    wg::wgmma_wait();
+    wg::pin(s);
+    wg::pin(da);
+
+    uint32_t ds[16];  // dS in bf16 pairs
+    if (full)
+      dq_grad_tile<true, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                   segmented, scale, inv_keep, keep, k0,
+                                   col0, seq, ds);
+    else
+      dq_grad_tile<false, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                    segmented, scale, inv_keep, keep, k0,
+                                    col0, seq, ds);
+
+    wg::pin(dq_acc);
+    wg::pin(ds);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      const uint32_t a[4] = {ds[4 * step], ds[4 * step + 1], ds[4 * step + 2],
+                             ds[4 * step + 3]};
+      wg::mma_pv<D>(dq_acc, a, wg::mn_major<2 * D>(kt, step));
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait();
+    wg::pin(dq_acc);
+
+    __syncthreads();  // every read of this stage is done
+    if (tid == 0 && j + kStages < num_kb) load_stage(j + kStages);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + row0 + 8 * r;
+    if (q >= seq) continue;
+    __nv_bfloat16* dst = dq + base + q * row_stride + col0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) =
+          __floats2bfloat162_rn(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+    }
+  }
+}
+
+template <int D, bool kDropout>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* out, const void* dout,
+                            const float* lse, float* delta, void* dq,
+                            const float* key_bias, const int* seg, int batch,
+                            int seq, int heads, float scale, uint2 seed,
+                            uint32_t threshold, float inv_keep,
+                            cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err = qkvdo_maps<D>(maps, q, k, v, dout, batch, seq, heads);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = bwd_smem_bytes<D>();
+  err = prepare(flash_dq_wgmma_kernel<D, kDropout>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
+  flash_dq_wgmma_kernel<D, kDropout><<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3],
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), key_bias, seg, seq, heads, scale, seed,
+      threshold, inv_keep);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_dq_wgmma(bool dropout, const void* q, const void* k,
+                              const void* v, const void* out,
+                              const void* dout, const float* lse,
+                              float* delta, void* dq, const float* key_bias,
+                              const int* seg, int batch, int seq, int heads,
+                              float scale, uint2 seed, uint32_t threshold,
+                              float inv_keep, cudaStream_t stream) {
+  if (dropout)
+    return launch_dq_wgmma<D, true>(q, k, v, out, dout, lse, delta, dq,
+                                    key_bias, seg, batch, seq, heads, scale,
+                                    seed, threshold, inv_keep, stream);
+  return launch_dq_wgmma<D, false>(q, k, v, out, dout, lse, delta, dq,
+                                   key_bias, seg, batch, seq, heads, scale,
+                                   seed, threshold, inv_keep, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dq and delta = rowsum(dO * O) from the forward's out and lse. dtype:
+// The dq kernel's CUDA-core route: dq and delta = rowsum(dO * O) from the
+// forward's out and lse. dtype:
 // 0 = float32, 1 = bfloat16; key_bias ([B, S] fp32) and seg ([B, S] int32)
 // may each be null; lse and delta are [B*H, S] fp32. dropout != 0
 // regenerates the forward's keep mask from (seed_lo, seed_hi, threshold);
@@ -867,6 +1123,50 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
       q, k, v, out, dout, lse, delta, dq, key_bias, seg, batch, seq, heads,
       head_dim, dtype, scale, dropout != 0, make_uint2(seed_lo, seed_hi),
       threshold, inv_keep, static_cast<cudaStream_t>(stream)));
+}
+
+// The dq kernel's tensor-core route: q, k, v, out, dout, dq [B, S, H, D]
+// bfloat16, 16-byte aligned, head_dim 32, 64 or 128; the other arguments as
+// for flash_attention_dq. Returns the launch's cudaError_t
+// (cudaErrorSymbolNotFound if the driver has no cuTensorMapEncodeTiled).
+int flash_attention_dq_wgmma(const void* q, const void* k, const void* v,
+                             const void* out, const void* dout,
+                             const float* lse, float* delta, void* dq,
+                             const float* key_bias, const int* seg,
+                             int batch, int seq, int heads, int head_dim,
+                             float scale, int dropout, uint32_t seed_lo,
+                             uint32_t seed_hi, uint32_t threshold,
+                             float inv_keep, void* stream) {
+  const void* ptrs[6] = {q, k, v, out, dout, dq};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = dispatch_dq_wgmma<32>(drop, q, k, v, out, dout, lse, delta, dq,
+                                  key_bias, seg, batch, seq, heads, scale,
+                                  seed, threshold, inv_keep, s);
+      break;
+    case 64:
+      err = dispatch_dq_wgmma<64>(drop, q, k, v, out, dout, lse, delta, dq,
+                                  key_bias, seg, batch, seq, heads, scale,
+                                  seed, threshold, inv_keep, s);
+      break;
+    case 128:
+      err = dispatch_dq_wgmma<128>(drop, q, k, v, out, dout, lse, delta, dq,
+                                   key_bias, seg, batch, seq, heads, scale,
+                                   seed, threshold, inv_keep, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // The dkv kernel's CUDA-core route: dk, dv and dbias ([B*H, S] fp32, the

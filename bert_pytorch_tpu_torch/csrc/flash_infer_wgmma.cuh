@@ -39,8 +39,9 @@
 //   * The key bias and ids ([B, S] each) are read per key tile by each
 //     thread for its own keys while the score wgmma runs: no per-head copy.
 //   * Dropout (training) is drawn in registers for the thread's own
-//     elements while the score wgmma runs (keep_bits), from the Philox of
-//     flash_attention_common.cuh: no shared-memory mask tile.
+//     elements while the score wgmma runs (keep_bits, wgmma_dropout.cuh),
+//     from the Philox of flash_attention_common.cuh: no shared-memory mask
+//     tile.
 //   * The softmax's instructions on the CUDA cores, not the tensor cores,
 //     set the time, so it is kept lean: e^x by one `ex2.approx`, and the
 //     index checks for keys past S only on the ragged last tile.
@@ -49,43 +50,10 @@
 
 #include "flash_attention_common.cuh"
 #include "wgmma_common.cuh"
+#include "wgmma_dropout.cuh"
 
 namespace flash {
 namespace wg {
-
-// The keep bits of this thread's 32 score elements in the tile whose rows
-// start at q0 + row0 (this thread's first row) and whose keys start at k0
-// (bit e: element e, laid out as in softmax_tile). One Philox call gives
-// the four keys 8j + 4(c/2) .. + 3 of one row (c = lane % 4); lanes c and
-// c ^ 1 hold two of those keys each, of the same two rows r and r + 8, so
-// lane c draws row r + 8 (c & 1) and the pair swaps draws with one shuffle:
-// no word is drawn twice and none is wasted.
-__device__ __forceinline__ uint32_t keep_bits(uint2 seed, uint32_t threshold,
-                                              int bh, int row, int k0,
-                                              int lane) {
-  const int c = lane & 3;
-  const int odd = c & 1;
-  const uint32_t q = static_cast<uint32_t>(row + 8 * odd);
-  uint32_t own = 0;  // bit 4j + i: key i of the group of block j
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint4 w = philox4x32_10(
-        make_uint4(static_cast<uint32_t>((k0 >> 2) + 2 * j + (c >> 1)), q,
-                   static_cast<uint32_t>(bh), 0u),
-        seed);
-    own |= (static_cast<uint32_t>(w.x >= threshold) |
-            static_cast<uint32_t>(w.y >= threshold) << 1 |
-            static_cast<uint32_t>(w.z >= threshold) << 2 |
-            static_cast<uint32_t>(w.w >= threshold) << 3)
-           << (4 * j);
-  }
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
-  const uint32_t row_r = odd ? other : own;
-  const uint32_t row_r8 = odd ? own : other;
-  // Element e = 4j + 2 * half + t is key 2(c & 1) + t of group j.
-  return ((row_r >> (2 * odd)) & 0x33333333u) |
-         (((row_r8 >> (2 * odd)) & 0x33333333u) << 2);
-}
 
 // The online softmax of one key tile on this thread's 32 accumulator
 // elements (element e: row row0 + 8 * ((e >> 1) & 1), key k0 + 8 * (e >> 2)

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core routes of the
 // attention kernels: the serving kernels #4 and #5 (flash_attention_infer.cu,
-// flash_attention_infer_int8.cu) and the training forward #1 and dkv #3
-// (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// flash_attention_infer_int8.cu) and the training forward #1, dq #2 and
+// dkv #3 (flash_attention_fwd.cu, flash_attention_bwd.cu).
 //
 //   * TMA: 4-D tensor maps (D, H, S, B) over the model's [B, S, H, D]
 //     layout, encoded on the host through the driver entry point the
@@ -194,9 +194,9 @@ __device__ __forceinline__ uint64_t k_major(uint32_t base, int step) {
 }
 
 // MN-major B operand (a tile of rows by D, D contiguous, read as 16 rows x
-// N: V in the forward, dO and q in dkv), at the row step `step` of 16 rows:
-// the leading offset steps to the next chunk of D, the stride offset to the
-// next 8 rows.
+// N: V in the forward, K in dq, dO and q in dkv), at the row step `step` of
+// 16 rows: the leading offset steps to the next chunk of D, the stride
+// offset to the next 8 rows.
 template <int kRowBytes>
 __device__ __forceinline__ uint64_t mn_major(uint32_t base, int step) {
   using T = Tile<kRowBytes>;
@@ -262,9 +262,10 @@ __device__ __forceinline__ void mma_s8_ss(int (&d)[32], uint64_t a, uint64_t b,
 }
 
 // d += A B for one k16 step: A (64 x 16 bf16) from registers in the
-// accumulator's fragment layout (P in the forward; P^T and dS^T in dkv), B
-// (16 x N) MN-major in shared memory (transpose bit set: V in the forward,
-// dO and q in dkv); d is 64 x N fp32, N = 32, 64 or 128.
+// accumulator's fragment layout (P in the forward; dS in dq; P^T and dS^T
+// in dkv), B (16 x N) MN-major in shared memory (transpose bit set: V in
+// the forward, K in dq, dO and q in dkv); d is 64 x N fp32, N = 32, 64 or
+// 128.
 template <int N>
 __device__ __forceinline__ void mma_pv(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t b);

@@ -45,15 +45,14 @@ Training, the port of ``flash_attention`` (``_flash_fwd_kernel``,
   own wrapper and launch count (:func:`flash_attention_fwd`,
   :func:`flash_attention_dq`, :func:`flash_attention_dkv`) and plain
   version, which the wrapper takes for CPU tensors.
-* :func:`train_route` — the route of a forward or dkv launch, from the
-  kernel, dtype and head_dim alone, before the launch, as
+* :func:`train_route` — the route of a training kernel's launch, from
+  the kernel, dtype and head_dim alone, before the launch, as
   :func:`infer_route` is for serving: ``"tensor_cores"`` (``wgmma`` + TMA;
   the forward on the serving kernels' stream, csrc/flash_infer_wgmma.cuh)
   for bf16 with head_dim in :data:`TRAIN_TENSOR_CORE_HEAD_DIMS`,
-  ``"cuda_cores"`` for the rest. The dq kernel has the CUDA-core route
-  only. A failed build or launch raises on either route; neither falls
-  back to the other. The forward and dkv wrappers count launches per
-  route in ``.route_launches``.
+  ``"cuda_cores"`` for the rest. A failed build or launch raises on either
+  route; neither falls back to the other. Each wrapper counts launches
+  per route in ``.route_launches``.
 * :func:`flash_attention_reference` — the plain, differentiable PyTorch
   version of :func:`flash_attention` (autograd through tensor ops).
 * :func:`philox_keep_mask` — the dropout mask: Philox4x32-10 keyed by the
@@ -90,10 +89,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # takes whole.
 TENSOR_CORE_HEAD_DIMS = (32, 64, 128)
 # The training kernels' tensor-core route: the forward takes the serving
-# kernels' head dims (its stream is theirs); dkv keeps dK and dV, head_dim
-# fp32 values a thread, in one warpgroup's registers, so head_dim 128 keeps
-# its CUDA-core route.
+# kernels' head dims (its stream is theirs), and so does dq (dQ is
+# head_dim / 2 fp32 values a thread, as the forward's output); dkv keeps dK
+# and dV, head_dim fp32 values a thread, in one warpgroup's registers, so
+# head_dim 128 keeps its CUDA-core route.
 TRAIN_TENSOR_CORE_HEAD_DIMS = {"flash_attention_fwd": (32, 64, 128),
+                               "flash_attention_dq": (32, 64, 128),
                                "flash_attention_dkv": (32, 64)}
 ROUTES = ("tensor_cores", "cuda_cores")
 _NAME = "flash_attention_infer"
@@ -176,9 +177,12 @@ def infer_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def train_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """The route a CUDA launch of the training kernel ``kernel``
-    (``"flash_attention_fwd"`` or ``"flash_attention_dkv"``) takes, from
-    q's dtype and head_dim: ``"tensor_cores"`` for bf16 with head_dim in
-    ``TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]``, else ``"cuda_cores"``."""
+    (``"flash_attention_fwd"``, ``"flash_attention_dq"`` or
+    ``"flash_attention_dkv"``) takes, from q's dtype and head_dim:
+    ``"tensor_cores"`` for bf16 with head_dim in
+    ``TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]`` (32, 64 and 128 for the forward
+    and dq; 32 and 64 for dkv, whose dK and dV at 128 would not fit one
+    warpgroup's registers), else ``"cuda_cores"``."""
     if (dtype == torch.bfloat16
             and head_dim in TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]):
         return "tensor_cores"
@@ -218,6 +222,8 @@ _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     "flash_attention_bwd": {
         "flash_attention_dq": ([_PTR] * 10 + [_INT] * 5 + [_F32, _INT]
                                + [_U32] * 3 + [_F32, _PTR]),
+        "flash_attention_dq_wgmma": ([_PTR] * 10 + [_INT] * 4 + [_F32, _INT]
+                                     + [_U32] * 3 + [_F32, _PTR]),
         "flash_attention_dkv": ([_PTR] * 11 + [_INT] * 5 + [_F32, _INT]
                                 + [_U32] * 3 + [_F32, _PTR]),
         "flash_attention_dkv_wgmma": ([_PTR] * 11 + [_INT] * 4 + [_F32, _INT]
@@ -663,28 +669,43 @@ def flash_attention_dq(q, k, v, out, do, lse, key_bias=None, seg=None,
     forward's out and lse and the output gradient ``do``; ``delta =
     rowsum(do * out)`` is computed in the kernel and feeds
     :func:`flash_attention_dkv`. CUDA launches csrc/flash_attention_bwd.cu
-    (counted in ``flash_attention_dq.launches``); CPU takes the plain
-    version."""
+    on the route :func:`train_route` picks (counted in
+    ``flash_attention_dq.launches`` and ``.route_launches[route]``); CPU
+    takes the plain version."""
     name = "flash_attention_dq"
-    flag, lo, hi, threshold = _dropout_args(seed, rate)
+    _dropout_args(seed, rate)
     if _device_of(name, q) == "cpu":
         return _dq_math(q, k, v, out, do, lse, key_bias, seg, seed, rate)
     _check(name, q, {"k": k, "v": v, "out": out, "do": do}, key_bias, seg,
            {"lse": lse})
+    return _launch_dq(q, k, v, out, do, lse, key_bias, seg, seed, rate,
+                      train_route(q.dtype, q.shape[3], name))
+
+
+def _launch_dq(q, k, v, out, do, lse, key_bias, seg, seed, rate,
+               route: str):
+    """Launch the dq kernel on ``route`` (checked CUDA inputs)."""
+    name = "flash_attention_dq"
+    flag, lo, hi, threshold = _dropout_args(seed, rate)
     batch, seq, heads, depth = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty(batch * heads, seq, dtype=torch.float32,
                         device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _ptr(key_bias), _ptr(seg), batch, seq, heads, depth)
+    tail = (1.0 / float(depth) ** 0.5, flag, lo, hi, threshold,
+            1.0 / (1.0 - rate), _stream(q))
     lib = _library("flash_attention_bwd")
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _ptr(key_bias), _ptr(seg), batch, seq, heads, depth,
-            _DTYPE_CODES[q.dtype], 1.0 / float(depth) ** 0.5, flag, lo, hi,
-            threshold, 1.0 / (1.0 - rate), _stream(q))
+        if route == "tensor_cores":
+            _check_aligned(name, {"q": q, "k": k, "v": v, "out": out,
+                                  "do": do, "dq": dq})
+            rc = lib.flash_attention_dq_wgmma(*args, *tail)
+        else:
+            rc = lib.flash_attention_dq(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, "flash_attention_bwd", name)
-    flash_attention_dq.launches += 1
+    _count(flash_attention_dq, route)
     return dq, delta
 
 
@@ -736,6 +757,7 @@ def _launch_dkv(q, k, v, do, lse, delta, key_bias, seg, seed, rate,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention_dq.launches = 0
+flash_attention_dq.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention_dkv.launches = 0
 flash_attention_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 TRAINING_KERNELS: Sequence = (flash_attention_fwd, flash_attention_dq,

@@ -6,6 +6,11 @@ its outputs alone, so that the kernels' routes and the plain Philox twin
   keys outside it carry the -10000 key bias (probability exp(-10000) = 0);
   v is one-hot, key ``w + d`` of the window to column d. Then out[q, d] is
   keep[q, w + d] / (64 (1 - rate)): nonzero exactly where the key is kept.
+* The dq kernel: q = 0, so p = exp(0 - lse) = 1/S with lse = log(S);
+  v = dO = e_0 in every row, so dA = 1; out = 0, so delta = 0; k is
+  one-hot, key ``w + d`` of a 64-key window to column d, and zero
+  outside it. Then dq[q, d] is keep[q, w + d] / (S (1 - rate)) * scale:
+  nonzero exactly where the key is kept.
 * The dkv kernel: q = k = v = 0, so p = exp(0 - lse) = 1/S with the
   forward's lse = log(S); dO is one-hot, q row ``w + d`` of a 64-row
   window to column d, and zero outside it. Then dv[k, d] is
@@ -56,6 +61,32 @@ def forward_keep_mask(batch: int, seq: int, heads: int, seed: int,
                                        route)
         # [B, S, H, D] -> [B*H, S q, window keys]
         seen = out.permute(0, 2, 1, 3).reshape(batch * heads, seq, DEPTH)
+        keep[:, :, w:w + width] = seen[:, :, :width] != 0
+    return keep
+
+
+def dq_keep_mask(batch: int, seq: int, heads: int, seed: int, rate: float,
+                 dtype=torch.bfloat16, device="cpu",
+                 route: Optional[str] = None) -> torch.Tensor:
+    """The keep mask the dq kernel drew, read from its dq output."""
+    zeros = _zeros(batch, seq, heads, dtype, device)
+    e0 = _zeros(batch, seq, heads, dtype, device)
+    e0[..., 0] = 1.0
+    lse = torch.full((batch * heads, seq), math.log(seq), device=device)
+    keep = torch.zeros(batch * heads, seq, seq, dtype=torch.bool,
+                       device=device)
+    for w in range(0, seq, DEPTH):
+        width = min(DEPTH, seq - w)
+        k = _zeros(batch, seq, heads, dtype, device)
+        keys = torch.arange(w, w + width, device=device)
+        k[:, keys, :, keys - w] = 1.0
+        args = (zeros, k, e0, zeros, e0, lse, None, None, seed, rate)
+        if route is None:
+            dq, _ = kattn.flash_attention_dq(*args)
+        else:
+            dq, _ = kattn._launch_dq(*args, route)
+        # dq [B, S q, H, D] -> [B*H, S q, window keys]
+        seen = dq.permute(0, 2, 1, 3).reshape(batch * heads, seq, DEPTH)
         keep[:, :, w:w + width] = seen[:, :, :width] != 0
     return keep
 

@@ -42,10 +42,10 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # The device kernels of each training attention kernel, by route: the
-# CUDA-core kernel and, for the forward and dkv, the tensor-core one.
+# CUDA-core kernel and the tensor-core one.
 ATTENTION_KERNELS = {
     "flash_attention_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
-    "flash_attention_dq": ("flash_dq_kernel",),
+    "flash_attention_dq": ("flash_dq_kernel", "flash_dq_wgmma_kernel"),
     "flash_attention_dkv": ("flash_dkv_kernel", "flash_dkv_wgmma_kernel"),
 }
 GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")

@@ -21,7 +21,7 @@ Phases (any failure exits non-zero and prints no result line):
    CUDA-core route), padded with row 0's every key masked and packed with
    row 0 all pad, and each launch must take the route ``infer_route``
    names (bf16 -> tensor cores, fp32 -> CUDA cores). The training
-   forward and dkv run in bf16 on both routes (the one ``train_route``
+   forward, dq and dkv run in bf16 on both routes (the one ``train_route``
    picks, through the wrapper, and the CUDA-core one), and on the edges of
    the tensor-core route (ragged S=200 at D=32, 64 and 128, the fully
    masked and all-pad rows, rates 0 and 0.1); the keep mask each route of
@@ -37,10 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
    than the host needs to issue it), with CUDA-event times of 100 calls
    back to back beside them, and in bf16 also by the device time of the
    same kernel on its CUDA-core route; the training kernels the same way
-   (device time per call, CUDA events beside), the forward and dkv on both
-   routes and, at S=512 bf16, at rate 0 as well as 0.1 (the keep mask's
-   cost), SDPA's backward alone as its forward + backward less its
-   forward;
+   (device time per call, CUDA events beside), each on both routes and,
+   at S=512 bf16, at rate 0 as well as 0.1 (the keep mask's cost),
+   SDPA's backward alone as its forward + backward less its forward;
 5. the serving main path: ``run_server.build_service`` at full BERT-large
    width (configs/bert_large_uncased_config.json, seeded random weights,
    a demo vocab) serving fill_mask and classify over HTTP, packed and
@@ -72,7 +71,7 @@ Phases (any failure exits non-zero and prints no result line):
    dataset code. Every loss finite, the first within 1 of ln(30528) +
    ln(2), and the launch counts exact: per step 2 x 24 x 2 forward
    launches (remat recomputes the forward) and 24 x 2 each of dq and dkv,
-   every forward and dkv launch on its tensor-core route.
+   every forward, dq and dkv launch on its tensor-core route.
    Then an fp32 training step with the flash kernels and with dense
    attention (2 layers at BERT-large width, dropout 0, the same weights
    and batch) must agree in loss, gradients and updated parameters;
@@ -582,11 +581,9 @@ def sdpa_calls(q, k, v, do, kw, rate: float):
 def _routes_of(name: str, dtype, depth: int = D) -> list:
     """The routes a check runs ``name`` on: the one ``train_route`` picks
     (first: the wrapper's), and in bf16 the CUDA-core route too, reached
-    directly. The dq kernel has one route."""
+    directly."""
     from bert_pytorch_tpu_torch.ops.kernels.attention import train_route
 
-    if name == "flash_attention_dq":
-        return ["cuda_cores"]
     route = train_route(dtype, depth, name)
     return [route] + (["cuda_cores"] if route == "tensor_cores" else [])
 
@@ -601,6 +598,14 @@ def _run_fwd(route, first, q, k, v, args):
     return ka._launch_fwd(q, k, v, *args, route)
 
 
+def _run_dq(route, first, q, k, v, out, do, lse, args):
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    if first:
+        return ka.flash_attention_dq(q, k, v, out, do, lse, *args)
+    return ka._launch_dq(q, k, v, out, do, lse, *args, route)
+
+
 def _run_dkv(route, first, q, k, v, do, lse, delta, args):
     from bert_pytorch_tpu_torch.ops.kernels import attention as ka
 
@@ -611,10 +616,10 @@ def _run_dkv(route, first, q, k, v, do, lse, delta, args):
 
 def check_training_case(label: str, q, k, v, do, key_bias, seg, rate: float,
                         tol: dict, worst: dict) -> None:
-    """Forward, dq and dkv against their plain versions on one input, the
-    forward and dkv on each of their routes (_routes_of); each launch must
-    land on the route it was meant for. Raises on any element outside
-    ``tol``; keeps the largest error per kernel in ``worst``."""
+    """Forward, dq and dkv against their plain versions on one input, each
+    on each of its routes (_routes_of); each launch must land on the route
+    it was meant for. Raises on any element outside ``tol``; keeps the
+    largest error per kernel in ``worst``."""
     from bert_pytorch_tpu_torch.ops.kernels import attention as ka
 
     args = (key_bias, seg, TRAIN_SEED, rate)
@@ -628,6 +633,10 @@ def check_training_case(label: str, q, k, v, do, key_bias, seg, rate: float,
             ("flash_attention_fwd", ka.flash_attention_fwd,
              lambda route, first: _run_fwd(route, first, q, k, v, args),
              (("out", ref_out), ("lse", ref_lse))),
+            ("flash_attention_dq", ka.flash_attention_dq,
+             lambda route, first: _run_dq(route, first, q, k, v, ref_out, do,
+                                          ref_lse, args),
+             (("dq", ref_dq), ("delta", ref_delta))),
             ("flash_attention_dkv", ka.flash_attention_dkv,
              lambda route, first: _run_dkv(route, first, q, k, v, do,
                                            ref_lse, ref_delta, args),
@@ -644,14 +653,6 @@ def check_training_case(label: str, q, k, v, do, key_bias, seg, rate: float,
                                ref, tol[out_name])
                 errs[f"{out_name} [{route}]"] = err
                 worst[name] = max(worst[name], err)
-    dq, delta = ka.flash_attention_dq(q, k, v, ref_out, do, ref_lse, *args)
-    torch.cuda.synchronize()
-    for out_name, value, ref in (("dq", dq, ref_dq),
-                                 ("delta", delta, ref_delta)):
-        errs[out_name] = _compare(f"dq {out_name} {label}", value, ref,
-                                  tol[out_name])
-        worst["flash_attention_dq"] = max(worst["flash_attention_dq"],
-                                          errs[out_name])
     log(f"[check] training kernels {label}: " + ", ".join(
         f"{key} {val:.2e}" for key, val in errs.items()))
 
@@ -659,7 +660,7 @@ def check_training_case(label: str, q, k, v, do, key_bias, seg, rate: float,
 def check_training_kernels() -> dict:
     """Hold the forward, dq and dkv kernels against their plain versions on
     the same inputs: S in SEQS, bf16 and fp32, padded and packed, dropout 0
-    and 0.1 with a fixed seed; in bf16 the forward and dkv on both routes.
+    and 0.1 with a fixed seed; in bf16 each on both routes.
     Returns the max error per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in TRAIN_REPLACES}
@@ -676,9 +677,9 @@ def check_training_kernels() -> dict:
     return worst
 
 
-# The tensor-core route's edges for the forward and dkv, bf16: S=200 is
+# The tensor-core route's edges for the training kernels, bf16: S=200 is
 # ragged (three full tiles and 8 rows), each head dim the route takes for
-# either kernel (dkv keeps head_dim 128 on the CUDA cores), padded with row
+# any of them (dkv keeps head_dim 128 on the CUDA cores), padded with row
 # 0's every key masked and packed with row 0 all pad, at each rate.
 TRAIN_EDGE_SEQ, TRAIN_EDGE_DEPTHS = 200, (32, 64, 128)
 
@@ -700,7 +701,7 @@ def check_training_edges(worst: dict) -> None:
 
 
 def check_keep_masks() -> dict:
-    """The keep mask each route of the forward and dkv drew, read from
+    """The keep mask each route of the forward, dq and dkv drew, read from
     their outputs (bert_pytorch_tpu_torch/testing/dropout_masks.py), held
     bit for bit against the plain Philox twin: at the main path's shape
     (B=8, H=16, S=512) and at a ragged S=200, rates 0 and 0.1. Returns the
@@ -712,7 +713,8 @@ def check_keep_masks() -> dict:
         for rate in TRAIN_RATES:
             want = dm.philox_mask(batch, seq, heads, TRAIN_SEED, rate, "cuda")
             for route in ("tensor_cores", "cuda_cores"):
-                for read in (dm.forward_keep_mask, dm.dkv_keep_mask):
+                for read in (dm.forward_keep_mask, dm.dq_keep_mask,
+                             dm.dkv_keep_mask):
                     got = read(batch, seq, heads, TRAIN_SEED, rate,
                                device="cuda", route=route)
                     torch.cuda.synchronize()
@@ -722,8 +724,8 @@ def check_keep_masks() -> dict:
                             f" {int((got != want).sum())} of {got.numel()} "
                             "mask bits differ from philox_keep_mask")
             shares[f"S={seq} rate {rate}"] = want.float().mean().item()
-            log(f"[check] keep mask S={seq} rate {rate}: forward and dkv, "
-                f"both routes, equal philox_keep_mask bit for bit (kept "
+            log(f"[check] keep mask S={seq} rate {rate}: forward, dq and "
+                f"dkv, both routes, equal philox_keep_mask bit for bit (kept "
                 f"share {shares[f'S={seq} rate {rate}']:.5f})")
     return shares
 
@@ -735,8 +737,8 @@ def time_training_kernels(rate: float = 0.1) -> dict:
     forward + backward (the backward alone is their difference), with
     CUDA-event times of 100 calls back to back beside them (the host's
     issue time included); the plain version by CUDA events. At S=512 bf16
-    the forward and dkv are also read at rate 0 on their first route: the
-    keep mask's cost is the difference."""
+    each is also read at rate 0 on its first route: the keep mask's cost
+    is the difference."""
     from bert_pytorch_tpu_torch.ops.kernels import attention as ka
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -753,8 +755,8 @@ def time_training_kernels(rate: float = 0.1) -> dict:
                                                           v, a),
                     lambda: ka._forward_math(q, k, v, *args)),
                 "flash_attention_dq": (
-                    lambda route, first, a=args: ka.flash_attention_dq(
-                        q, k, v, out, do, lse, *a),
+                    lambda route, first, a=args: _run_dq(
+                        route, first, q, k, v, out, do, lse, a),
                     lambda: ka._dq_math(q, k, v, out, do, lse, *args)),
                 "flash_attention_dkv": (
                     lambda route, first, a=args: _run_dkv(
@@ -791,8 +793,7 @@ def time_training_kernels(rate: float = 0.1) -> dict:
                 if head != "cuda_cores" and "cuda_cores" in times:
                     case["cuda_core_ms"] = times["cuda_cores"]
                     extra += f", CUDA-core route {times['cuda_cores']:.4f} ms"
-                if (seq == TRAIN_SEQ and dtype == torch.bfloat16
-                        and name != "flash_attention_dq"):
+                if seq == TRAIN_SEQ and dtype == torch.bfloat16:
                     case["rate0_ms"] = device_time_ms(
                         lambda: run(head, True, (kb, seg, TRAIN_SEED, 0.0)))
                     extra += f", at rate 0 {case['rate0_ms']:.4f} ms"
@@ -1261,7 +1262,7 @@ def drive_training(kernels: dict) -> dict:
                 f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
                 f"steps; expected {want} (remat dots recomputes the forward; "
                 "the pretraining path keeps the plain LayerNorm)")
-    for name in ("flash_attention_fwd", "flash_attention_dkv"):
+    for name in TRAIN_REPLACES:
         if routes[name]["tensor_cores"] != launches[name]:
             raise AssertionError(f"{name} launches by route {routes[name]}: "
                                  "every bf16 launch must take the tensor "
@@ -1331,8 +1332,8 @@ def check_training_flash_vs_dense() -> dict:
 def training_entries(worst: dict, cases: dict, trained: dict) -> list:
     """The kernels-line entries of the training kernels: the headline
     numbers at the main path's shape (S=512, bf16, dropout 0.1), device
-    time per call; launches (and, for the forward and dkv, launches by
-    route) from the phase-2 drive."""
+    time per call; launches and launches by route from the phase-2
+    drive."""
     out = []
     keys = ("kernel_route", "event_ms", "library_event_ms", "cuda_core_ms",
             "rate0_ms", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms", "sdpa_bwd_ms")
@@ -1350,8 +1351,7 @@ def training_entries(worst: dict, cases: dict, trained: dict) -> list:
                  "library": ("sdpa forward" if name == "flash_attention_fwd"
                              else "sdpa forward+backward")}
         entry.update({key: head[key] for key in keys if key in head})
-        if name in trained["routes"]:
-            entry["route_launches"] = trained["routes"][name]
+        entry["route_launches"] = trained["routes"][name]
         entry["cases"] = cases[name]
         out.append(entry)
     return out

@@ -1,5 +1,5 @@
 """The two routes of the serving attention kernels (#4, #5) and of the
-training forward and dkv kernels (#1, #3), on the CPU: which route a
+training forward, dq and dkv kernels (#1, #2, #3), on the CPU: which route a
 launch takes (``infer_route`` and ``train_route``, from dtype and head_dim
 alone), that a CPU tensor takes the plain version and counts no launch on
 any route, and that the wrappers call the route's C entry point, count
@@ -18,7 +18,8 @@ from bert_pytorch_tpu_torch.ops.attention import make_attention_bias
 from bert_pytorch_tpu_torch.ops.kernels import attention as kattn
 
 KERNELS = (kattn.flash_attention_infer, kattn.flash_attention_infer_int8,
-           kattn.flash_attention_fwd, kattn.flash_attention_dkv)
+           kattn.flash_attention_fwd, kattn.flash_attention_dq,
+           kattn.flash_attention_dkv)
 
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
@@ -71,18 +72,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(dtype):
 
 
 def test_reset_counts_zeroes_every_route():
-    wrapper = kattn.flash_attention_infer
-    saved = wrapper.launches, dict(wrapper.route_launches)
+    wrappers = (kattn.flash_attention_infer, kattn.flash_attention_dq)
+    saved = [(w.launches, dict(w.route_launches)) for w in wrappers]
     try:
-        wrapper.launches = 5
-        wrapper.route_launches.update(tensor_cores=3, cuda_cores=2)
-        kattn.reset_counts(wrapper)
-        assert wrapper.launches == 0
-        assert wrapper.route_launches == {"tensor_cores": 0, "cuda_cores": 0}
-        kattn.reset_counts(kattn.flash_attention_dq)  # no routes: just 0
-        assert kattn.flash_attention_dq.launches == 0
+        for wrapper in wrappers:
+            wrapper.launches = 5
+            wrapper.route_launches.update(tensor_cores=3, cuda_cores=2)
+            kattn.reset_counts(wrapper)
+            assert wrapper.launches == 0
+            assert wrapper.route_launches == {"tensor_cores": 0,
+                                              "cuda_cores": 0}
     finally:
-        wrapper.launches, wrapper.route_launches = saved[0], saved[1]
+        for wrapper, (launches, routes) in zip(wrappers, saved):
+            wrapper.launches, wrapper.route_launches = launches, routes
 
 
 class _FakeLibrary:
@@ -189,9 +191,10 @@ def test_tensor_core_route_needs_16_byte_aligned_operands(fake_library):
     assert fake_library.calls == []
 
 
-# -- the training forward (#1) and dkv (#3) kernels -------------------------
+# -- the training forward (#1), dq (#2) and dkv (#3) kernels -----------------
 
-FWD, DKV = "flash_attention_fwd", "flash_attention_dkv"
+FWD, DQ, DKV = ("flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv")
 
 
 @pytest.mark.parametrize("dtype,head_dim,fwd_route,dkv_route", [
@@ -213,6 +216,22 @@ def test_train_route_from_dtype_and_head_dim(dtype, head_dim, fwd_route,
     assert kattn.train_route(dtype, head_dim, DKV) == dkv_route
 
 
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 32, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 24, "cuda_cores"),
+    (torch.bfloat16, 96, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"),
+    (torch.float16, 64, "cuda_cores"),
+])
+def test_dq_train_route_from_dtype_and_head_dim(dtype, head_dim, route):
+    """bf16 dq at head_dim 32, 64 and 128 (dQ is head_dim / 2 fp32 values
+    a thread, as the forward's output) takes the tensor cores; fp32 and
+    other head dims the CUDA cores."""
+    assert kattn.train_route(dtype, head_dim, DQ) == route
+
+
 def _training_args(dtype, depth, seq=40):
     q, k, v, bias, _ = _inputs(dtype, seq=seq, depth=depth)
     do = torch.ones_like(q)
@@ -224,13 +243,17 @@ def _training_args(dtype, depth, seq=40):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_training_cpu_tensors_take_the_plain_versions_and_count_nothing(
         dtype):
-    """The forward and dkv wrappers on CPU tensors return their plain
+    """The forward, dq and dkv wrappers on CPU tensors return their plain
     versions bit for bit and count no launch on any route."""
     q, k, v, do, lse, kb = _training_args(dtype, 64)
     before = [(f.launches, dict(f.route_launches)) for f in KERNELS]
     args = (kb, None, 99, 0.1)
     for got, want in zip(kattn.flash_attention_fwd(q, k, v, *args),
                          kattn._forward_math(q, k, v, *args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for got, want in zip(
+            kattn.flash_attention_dq(q, k, v, v, do, lse, *args),
+            kattn._dq_math(q, k, v, v, do, lse, *args)):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
     for got, want in zip(
             kattn.flash_attention_dkv(q, k, v, do, lse, lse, *args),
@@ -288,26 +311,65 @@ def test_dkv_calls_its_routes_entry_point(fake_library, dtype, depth, entry,
     assert sum(after.values()) == sum(before.values()) + 1
 
 
-@pytest.mark.parametrize("kernel", [FWD, DKV])
+@pytest.mark.parametrize("dtype,depth,entry,route", [
+    (torch.bfloat16, 64, "flash_attention_dq_wgmma", "tensor_cores"),
+    (torch.bfloat16, 32, "flash_attention_dq_wgmma", "tensor_cores"),
+    (torch.bfloat16, 128, "flash_attention_dq_wgmma", "tensor_cores"),
+    (torch.float32, 64, "flash_attention_dq", "cuda_cores"),
+    (torch.bfloat16, 24, "flash_attention_dq", "cuda_cores"),
+])
+def test_dq_calls_its_routes_entry_point(fake_library, dtype, depth, entry,
+                                         route):
+    q, k, v, do, lse, kb = _training_args(dtype, depth)
+    before = dict(kattn.flash_attention_dq.route_launches)
+    dq, delta = kattn._launch_dq(q, k, v, v, do, lse, kb, None, 5, 0.1,
+                                 kattn.train_route(dtype, depth, DQ))
+    assert dq.shape == q.shape and dq.dtype == dtype
+    assert delta.shape == lse.shape and delta.dtype == torch.float32
+    ((name, args),) = fake_library.calls
+    assert name == entry
+    # Both take (batch, seq, heads, head_dim) after the ten pointers and
+    # end with 1 / (1 - rate) and the stream; only the CUDA-core entry
+    # takes the dtype code.
+    assert args[10:14] == (2, q.shape[1], 3, depth)
+    assert args[-2] == pytest.approx(1 / 0.9)
+    if route == "tensor_cores":
+        assert args[14] == pytest.approx(depth ** -0.5)
+    else:
+        assert args[14] == kattn._DTYPE_CODES[dtype]
+    after = kattn.flash_attention_dq.route_launches
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+def _launch_on_tensor_cores(kernel, q, k, v, do, lse, kb):
+    """One tensor-core launch of the training kernel ``kernel``."""
+    if kernel == FWD:
+        return kattn._launch_fwd(q, k, v, kb, None, 5, 0.1, "tensor_cores")
+    if kernel == DQ:
+        return kattn._launch_dq(q, k, v, v, do, lse, kb, None, 5, 0.1,
+                                "tensor_cores")
+    return kattn._launch_dkv(q, k, v, do, lse, lse, kb, None, 5, 0.1,
+                             "tensor_cores")
+
+
+@pytest.mark.parametrize("kernel", [FWD, DKV, DQ])
 def test_failed_training_launch_raises_and_falls_back_to_nothing(
         fake_library, kernel):
-    """A tensor-core launch of #1 or #3 that returns a CUDA error raises;
-    the CUDA-core entry point is never called and nothing is counted."""
+    """A tensor-core launch of #1, #2 or #3 that returns a CUDA error
+    raises; the CUDA-core entry point is never called and nothing is
+    counted."""
     fake_library.rc = 1
     q, k, v, do, lse, kb = _training_args(torch.bfloat16, 64)
     wrapper = getattr(kattn, kernel)
     before = wrapper.launches, dict(wrapper.route_launches)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
-        if kernel == FWD:
-            kattn._launch_fwd(q, k, v, kb, None, 5, 0.1, "tensor_cores")
-        else:
-            kattn._launch_dkv(q, k, v, do, lse, lse, kb, None, 5, 0.1,
-                              "tensor_cores")
+        _launch_on_tensor_cores(kernel, q, k, v, do, lse, kb)
     assert [name for name, _ in fake_library.calls] == [f"{kernel}_wgmma"]
     assert (wrapper.launches, dict(wrapper.route_launches)) == before
 
 
-@pytest.mark.parametrize("kernel", [FWD, DKV])
+@pytest.mark.parametrize("kernel", [FWD, DKV, DQ])
 def test_training_tensor_core_route_needs_16_byte_aligned_operands(
         fake_library, kernel):
     q, k, v, do, lse, kb = _training_args(torch.bfloat16, 64)
@@ -315,12 +377,7 @@ def test_training_tensor_core_route_needs_16_byte_aligned_operands(
     shifted = flat[1:].view(q.shape)  # 2 bytes past an aligned base
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        if kernel == FWD:
-            kattn._launch_fwd(shifted, k, v, kb, None, 5, 0.1,
-                              "tensor_cores")
-        else:
-            kattn._launch_dkv(shifted, k, v, do, lse, lse, kb, None, 5, 0.1,
-                              "tensor_cores")
+        _launch_on_tensor_cores(kernel, shifted, k, v, do, lse, kb)
     assert fake_library.calls == []
 
 
@@ -336,3 +393,14 @@ def test_keep_mask_readers_see_the_philox_mask(dtype, rate):
     assert torch.equal(dm.forward_keep_mask(2, 100, 2, 77, rate, dtype),
                        want)
     assert torch.equal(dm.dkv_keep_mask(2, 100, 2, 77, rate, dtype), want)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dq_keep_mask_reader_sees_the_philox_mask(dtype, rate):
+    """dq's mask read from its output (route None: the wrapper, here the
+    plain version) equals philox_keep_mask bit for bit at a ragged S."""
+    from bert_pytorch_tpu_torch.testing import dropout_masks as dm
+
+    assert torch.equal(dm.dq_keep_mask(2, 100, 2, 77, rate, dtype),
+                       dm.philox_mask(2, 100, 2, 77, rate))

@@ -246,45 +246,51 @@ def test_flash_attention_autograd_on_card():
         _close(got, want, (2e-4, 1e-4))
 
 
+TRAIN_WRAPPERS = (kattn.flash_attention_fwd, kattn.flash_attention_dq,
+                  kattn.flash_attention_dkv)
+
+
 def _train_routes(depth):
-    return (kattn.train_route(torch.bfloat16, depth, "flash_attention_fwd"),
-            kattn.train_route(torch.bfloat16, depth, "flash_attention_dkv"))
+    """The routes ``train_route`` names for bf16 forward, dq and dkv."""
+    return tuple(kattn.train_route(torch.bfloat16, depth, f.__name__)
+                 for f in TRAIN_WRAPPERS)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("depth", [32, 64, 128])
 def test_training_tensor_core_route_edges(depth, rate):
-    """The forward (#1) and dkv (#3) kernels on the route ``train_route``
-    names for bf16 (the tensor cores at 32, 64 and 128 for the forward,
-    at 32 and 64 for dkv) at a ragged S, with a fully masked padded row and
-    an all-pad packed row: within TRAIN_TOL of their plain versions, one
-    launch counted on that route each."""
+    """The forward (#1), dq (#2) and dkv (#3) kernels on the route
+    ``train_route`` names for bf16 (the tensor cores at 32, 64 and 128
+    for the forward and dq, at 32 and 64 for dkv) at a ragged S, with a
+    fully masked padded row and an all-pad packed row: within TRAIN_TOL of
+    their plain versions, one launch counted on that route each."""
     _need_card()
     tol = TRAIN_TOL["bfloat16"]
     q, k, v, cases = _edge_inputs(depth, 5)
     do = torch.randn_like(q.float()).to(q.dtype)
-    fwd_route, dkv_route = _train_routes(depth)
-    assert fwd_route == "tensor_cores"
-    assert dkv_route == ("cuda_cores" if depth == 128 else "tensor_cores")
+    routes = _train_routes(depth)
+    assert routes == ("tensor_cores", "tensor_cores",
+                      "cuda_cores" if depth == 128 else "tensor_cores")
     for kw in cases:
         kb, seg = kattn._infer_bias_seg(kw.get("bias"),
                                         kw.get("sequence_ids"), 3, 200)
         args = (kb, seg, 4242, rate)
-        fwd_before = kattn.flash_attention_fwd.route_launches[fwd_route]
-        dkv_before = kattn.flash_attention_dkv.route_launches[dkv_route]
+        before = [f.route_launches[r] for f, r in zip(TRAIN_WRAPPERS, routes)]
         out, lse = kattn.flash_attention_fwd(q, k, v, *args)
         ref_out, ref_lse = kattn._forward_math(q, k, v, *args)
-        _, delta = kattn._dq_math(q, k, v, ref_out, do, ref_lse, *args)
+        dq, delta = kattn.flash_attention_dq(q, k, v, ref_out, do, ref_lse,
+                                             *args)
+        ref_dq, ref_delta = kattn._dq_math(q, k, v, ref_out, do, ref_lse,
+                                           *args)
         dk, dv, dbias = kattn.flash_attention_dkv(q, k, v, do, ref_lse,
-                                                  delta, *args)
+                                                  ref_delta, *args)
         ref_dk, ref_dv, ref_db = kattn._dkv_math(q, k, v, do, ref_lse,
-                                                 delta, *args)
+                                                 ref_delta, *args)
         torch.cuda.synchronize()
-        assert (kattn.flash_attention_fwd.route_launches[fwd_route]
-                == fwd_before + 1)
-        assert (kattn.flash_attention_dkv.route_launches[dkv_route]
-                == dkv_before + 1)
+        assert [f.route_launches[r] for f, r in zip(TRAIN_WRAPPERS, routes)
+                ] == [c + 1 for c in before]
         for name, got, ref in (("out", out, ref_out), ("lse", lse, ref_lse),
+                               ("dq", dq, ref_dq), ("delta", delta, ref_delta),
                                ("dk", dk, ref_dk), ("dv", dv, ref_dv),
                                ("dbias", dbias, ref_db)):
             _close(got, ref, tol[name])
@@ -293,45 +299,41 @@ def test_training_tensor_core_route_edges(depth, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("seq", [200, 512])
 def test_keep_masks_equal_between_routes(seq, rate):
-    """The keep mask each route of the forward and of dkv drew, read from
+    """The keep mask each route of the forward, dq and dkv drew, read from
     their outputs (testing/dropout_masks.py), equals the plain Philox twin
-    bit for bit: the dq kernel, which regenerates it, and any tiling see
-    the same mask."""
+    bit for bit: any kernel and any tiling see the same mask."""
     _need_card()
     from bert_pytorch_tpu_torch.testing import dropout_masks as dm
 
     want = dm.philox_mask(2, seq, 3, 0xC0FFEE, rate, "cuda")
     for route in kattn.ROUTES:
-        for read in (dm.forward_keep_mask, dm.dkv_keep_mask):
+        for read in (dm.forward_keep_mask, dm.dq_keep_mask,
+                     dm.dkv_keep_mask):
             got = read(2, seq, 3, 0xC0FFEE, rate, device="cuda", route=route)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (route, read.__name__)
 
 
 def test_flash_attention_autograd_on_tensor_cores():
-    """bf16 autograd through the Function with #1 and #3 on the tensor
-    cores and #2 on the CUDA cores, dropout 0.1: out within the bf16 bar of
+    """bf16 autograd through the Function with #1, #2 and #3 on the tensor
+    cores, dropout 0.1: out within the bf16 bar of
     flash_attention_reference, each gradient within 2e-2 of its largest
     magnitude (bf16 gradients, one ulp ~4e-3 relative, and dS rounded to
     bf16 before the kernels' products but not in autograd)."""
     _need_card()
     q, k, v, mask, _ = _inputs(torch.bfloat16, 2, 130, 4, 64, 3)
-    assert _train_routes(64) == ("tensor_cores", "tensor_cores")
+    assert _train_routes(64) == ("tensor_cores",) * 3
     bias = make_attention_bias(mask).requires_grad_()
     leaves = [t.requires_grad_() for t in (q, k, v)] + [bias]
-    routed = (kattn.flash_attention_fwd.route_launches["tensor_cores"],
-              kattn.flash_attention_dkv.route_launches["tensor_cores"],
-              kattn.flash_attention_dq.launches)
+    routed = [f.route_launches["tensor_cores"] for f in TRAIN_WRAPPERS]
     results = []
     for fn in (kattn.flash_attention, kattn.flash_attention_reference):
         out = fn(q, k, v, bias=bias, dropout_rate=0.1, seed=77)
         results.append((out, torch.autograd.grad(out.float().square().sum(),
                                                  leaves)))
     torch.cuda.synchronize()
-    assert (kattn.flash_attention_fwd.route_launches["tensor_cores"],
-            kattn.flash_attention_dkv.route_launches["tensor_cores"],
-            kattn.flash_attention_dq.launches) == tuple(
-                c + 1 for c in routed)
+    assert [f.route_launches["tensor_cores"] for f in TRAIN_WRAPPERS] == [
+        c + 1 for c in routed]
     (out, grads), (ref, ref_grads) = results
     _close(out, ref, TRAIN_TOL["bfloat16"]["out"])
     for got, want in zip(grads, ref_grads):
