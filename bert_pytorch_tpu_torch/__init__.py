@@ -6,8 +6,10 @@ package's module names so each counterpart is easy to find. Two paths are
 ported:
 
 * serving: ``python -m bert_pytorch_tpu_torch.run_server`` serves the
-  ``fill_mask`` and ``classify`` heads over HTTP, the encoder's attention
-  in a hand-written CUDA kernel (``csrc/flash_attention_infer.cu``);
+  ``fill_mask``, ``classify``, ``squad`` and ``ner`` heads over HTTP from
+  the JAX package's checkpoints (``utils/checkpoint.py``, params-only)
+  with hot-swap, the encoder's attention in a hand-written CUDA kernel
+  (``csrc/flash_attention_infer.cu``);
 * pretraining: ``python -m bert_pytorch_tpu_torch.run_pretraining`` trains
   BERT MLM+NSP on one GPU (``pretrain.py``, ``optim/``, ``data/``), the
   attention forward and backward in hand-written CUDA kernels

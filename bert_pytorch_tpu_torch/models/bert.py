@@ -602,20 +602,52 @@ class BertForSequenceClassification(nn.Module):
         return self.head(pooled)
 
 
+class BertForTokenClassification(nn.Module):
+    """Per-token classifier; parity with modeling.py:1200-1271 and the JAX
+    package's ``BertForTokenClassification``. Returns [B, S, num_labels];
+    ``sequence_ids`` selects the packed-row path (the engine demultiplexes
+    each packed request's own run of tokens)."""
+
+    def __init__(self, config: BertConfig, num_labels: int,
+                 dtype: torch.dtype = torch.float32,
+                 attention_backend: str = "dense", device=None,
+                 quant: Optional[str] = None,
+                 layer_norm_backend: str = "plain"):
+        super().__init__()
+        self.bert = BertModel(config, dtype, attention_backend, device,
+                              quant=quant,
+                              layer_norm_backend=layer_norm_backend)
+        self.head = _ClassifierHead(config.hidden_size, num_labels, dtype,
+                                    device, quant)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                sequence_ids=None):
+        sequence_output, _ = self.bert(input_ids, token_type_ids,
+                                       attention_mask, sequence_ids)
+        return self.head(sequence_output)
+
+
 class BertForQuestionAnswering(nn.Module):
     """Start/end span logits; parity with modeling.py:1274-1327 and the JAX
     package's ``BertForQuestionAnswering``. Returns ``(start_logits,
     end_logits)``, each [B, S] fp32: the ``qa_outputs`` Dense computes in
-    fp32 whatever the model's dtype (the JAX head's ``dtype=float32``)."""
+    fp32 whatever the model's dtype (the JAX head's ``dtype=float32``).
+    With ``quant=`` (serving) the encoder takes that storage and
+    ``qa_outputs``, an output layer, ``quant_ops.exclude(quant)``'s: bf16
+    weights, fp32 compute (JAX bert.py:978-985)."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  attention_backend: str = "dense", remat: str = "none",
-                 device=None, layer_norm_backend: str = "plain"):
+                 device=None, layer_norm_backend: str = "plain",
+                 quant: Optional[str] = None):
         super().__init__()
         self.config = config
         self.bert = BertModel(config, dtype, attention_backend, device, remat,
+                              quant=quant,
                               layer_norm_backend=layer_norm_backend)
-        self.qa_outputs = Dense(config.hidden_size, 2, torch.float32, device)
+        self.qa_outputs = make_dense(quant_ops.exclude(quant),
+                                     config.hidden_size, 2, torch.float32,
+                                     device)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 sequence_ids=None, dropout_seeds=None):

@@ -3,8 +3,10 @@
 :func:`from_jax_params` turns the JAX package's flax params tree (nested
 dicts with numpy leaves, as ``model.init(...)["params"]`` returns after
 ``nn.unbox`` and a ``np.asarray`` per leaf) into this package's state dict
-for one head: a serving head or the pretraining model. The port's modules mirror the flax names, so the map
-is name for name, with three layout changes:
+for one head: a serving head or the pretraining model. The port's modules
+mirror the flax names, so the map is name for name, module by module
+(:func:`module_state`, which the streaming checkpoint decode of
+``utils/checkpoint.py`` also calls), with three layout changes:
 
 * the encoder's ``nn.scan`` stacks every layer leaf on a leading ``L``
   axis: ``bert/encoder/layers/<leaf>`` [L, ...] becomes
@@ -18,20 +20,24 @@ is name for name, with three layout changes:
 A tree that the JAX package's ``quant.quantize_params`` produced maps the
 same way onto a head built with ``quant=``: ``kernel_q`` (int8) becomes
 ``weight_q``, ``kernel_scale`` ``weight_scale``, and bf16 kernels and
-biases stay bf16. :func:`quantize_state_dict` applies the same rules
-(JAX ``quant.convert_module``) to the port's own fp32 state dict.
+biases stay bf16. :func:`quantize_module` holds the same rules (JAX
+``quant.convert_module``) for one module of the port's own fp32 state
+dict; :func:`quantize_state_dict` applies them to a whole one.
+:func:`to_jax_params` is the inverse of :func:`from_jax_params`: what the
+port writes into a checkpoint the JAX package reads.
 
 The JAX package's ``models/convert.py`` ``export_torch_state_dict`` shows
 the same layout under HF naming. :func:`from_torch_state_dict` reads that
 naming (and the reference's) into the port's names, the counterpart of
 the JAX ``convert_torch_state_dict``, and :func:`load_pretrained_encoder`
-puts the encoder of a torch archive under a finetuning model, the
-foreign-archive branch of the JAX ``load_pretrained_encoder``.
+puts the encoder of a torch archive or of a JAX msgpack checkpoint under
+a finetuning model, as the JAX ``load_pretrained_encoder`` does.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -40,63 +46,81 @@ import torch
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.ops import quant as quant_ops
 
-# Top-level subtrees each served head's params must carry.
+# Top-level subtrees each head's params must carry (the serving heads
+# under the engine's task names).
 HEAD_SUBTREES = {
     "fill_mask": ("bert", "predictions"),
     "classify": ("bert", "head"),
+    "squad": ("bert", "qa_outputs"),
+    "ner": ("bert", "head"),
     "pretraining": ("bert", "predictions"),
-    "qa": ("bert", "qa_outputs"),
 }
 ROADMAP_CHECKPOINTS = ("ROADMAP.md, queue 1 of the modules still to port: "
                        "\"Checkpointing (utils/checkpoint.py)\"")
+ROADMAP_TF = ("ROADMAP.md, queue 1 of the modules still to port: \"The rest "
+              "of finetuning\", --init_checkpoint from TF checkpoints")
 _STACKED = "bert/encoder/layers/"
+STACKED_PATH = ("bert", "encoder", "layers")
 
 
-def _flatten(tree, prefix=""):
-    out = {}
+def modules_of(tree, path=()):
+    """(path, {leaf name: leaf}) of every dict of ``tree`` that holds
+    leaves (the flax modules), depth first."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+    if leaves:
+        yield path, leaves
     for key, value in tree.items():
-        path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, dict):
-            out.update(_flatten(value, path))
-        else:
-            out[path] = np.asarray(value)
-    return out
+            yield from modules_of(value, path + (str(key),))
 
 
 # Kernel leaf names (plain, int8) and the torch names they take.
 _KERNELS = {"kernel": "weight", "kernel_q": "weight_q"}
 
 
-def _leaf(path: str, value: np.ndarray):
-    """(torch key suffix, torch-layout array) for one unstacked leaf."""
-    module, _, name = path.rpartition("/")
+def _leaf(module: str, name: str, value: torch.Tensor):
+    """(port state-dict key, torch-layout tensor) of one unstacked leaf of
+    the module at path ``module`` ("/"-joined)."""
     if name in _KERNELS:
-        if value.ndim == 3:
+        if value.dim() == 3:
             # DenseGeneral: (H, heads, hd) in, or (heads, hd, H) out.
             value = (value.reshape(-1, value.shape[-1])
                      if module.endswith("attention/output")
                      else value.reshape(value.shape[0], -1))
-        return f"{module}/{_KERNELS[name]}", np.ascontiguousarray(value.T)
-    if name == "kernel_scale":
-        return f"{module}/weight_scale", value
-    if name == "embedding":
-        return f"{module}/weight", value
-    if name == "bias" and value.ndim == 2:
-        return path, value.reshape(-1)  # (heads, head_dim) bias
-    return path, value
+        name, value = _KERNELS[name], value.t().contiguous()
+    elif name == "kernel_scale":
+        name = "weight_scale"
+    elif name == "embedding":
+        name = "weight"
+    elif name == "bias" and value.dim() == 2:
+        value = value.reshape(-1)  # (heads, head_dim) bias
+    return f"{module}/{name}".replace("/", "."), value
 
 
-def from_jax_params(params: dict, config: BertConfig,
-                    head: str) -> Dict[str, torch.Tensor]:
-    """The JAX params of one head (``"fill_mask"``: ``BertForMaskedLM``;
-    ``"classify"``: ``BertForSequenceClassification``; ``"pretraining"``:
-    ``BertForPreTraining``, whose ``predictions`` head keeps its decoder
-    tied to the word embeddings and, with ``config.next_sentence``, whose
-    ``seq_relationship`` Dense maps like any other; ``"qa"``:
-    ``BertForQuestionAnswering``) as a state dict for
-    the port's model of the same head: fp32 for fp32 params; for a tree
-    from JAX ``quantize_params``, int8 and bf16 leaves keep their type (the
-    head built with the same ``quant`` loads it)."""
+def module_state(path, leaves: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """One flax module of the JAX params (its path and its leaves as torch
+    tensors) as entries of the port's state dict: the per-module rule of
+    :func:`from_jax_params`, which the streaming checkpoint decode
+    (utils/checkpoint.py) also calls as each module's bytes arrive. A
+    module under ``bert/encoder/layers`` holds [L, ...] stacked leaves and
+    becomes L modules, ``bert.encoder.layers.<i>...``."""
+    module = "/".join(path)
+    state: Dict[str, torch.Tensor] = {}
+    if tuple(path[:3]) == STACKED_PATH:
+        rest = module[len(_STACKED):]
+        for name, value in leaves.items():
+            for i in range(value.shape[0]):
+                key, v = _leaf(f"{_STACKED}{i}/{rest}", name, value[i])
+                state[key] = v
+        return state
+    for name, value in leaves.items():
+        key, v = _leaf(module, name, value)
+        state[key] = v
+    return state
+
+
+def _check_head(params: dict, config: BertConfig, head: str) -> None:
     if head not in HEAD_SUBTREES:
         raise ValueError(f"unknown head {head!r}; known: {sorted(HEAD_SUBTREES)}")
     required = HEAD_SUBTREES[head]
@@ -106,28 +130,40 @@ def from_jax_params(params: dict, config: BertConfig,
     if missing:
         raise KeyError(f"{head} params lack subtrees {missing} "
                        f"(have {sorted(params)})")
+
+
+def from_jax_params(params: dict, config: BertConfig,
+                    head: str) -> Dict[str, torch.Tensor]:
+    """The JAX params of one head (``"fill_mask"``: ``BertForMaskedLM``;
+    ``"classify"``: ``BertForSequenceClassification``; ``"squad"``:
+    ``BertForQuestionAnswering``; ``"ner"``:
+    ``BertForTokenClassification``; ``"pretraining"``:
+    ``BertForPreTraining``, whose ``predictions`` head keeps its decoder
+    tied to the word embeddings and, with ``config.next_sentence``, whose
+    ``seq_relationship`` Dense maps like any other) as a state dict for
+    the port's model of the same head: fp32 for fp32 params; for a tree
+    from JAX ``quantize_params``, int8 and bf16 leaves keep their type (the
+    head built with the same ``quant`` loads it)."""
+    _check_head(params, config, head)
     state: Dict[str, torch.Tensor] = {}
-
-    def put(path, value):
-        state[path.replace("/", ".")] = _to_torch(value)
-
-    for path, value in _flatten(params).items():
-        if path.startswith(_STACKED):
-            rest = path[len(_STACKED):]
-            if value.shape[0] != config.num_hidden_layers:
-                raise ValueError(
-                    f"{path}: {value.shape[0]} stacked layers, config has "
-                    f"{config.num_hidden_layers}")
-            for i in range(config.num_hidden_layers):
-                put(*_leaf(f"{_STACKED}{i}/{rest}", value[i]))
-        else:
-            put(*_leaf(path, value))
+    for path, leaves in modules_of(params):
+        if path[:3] == STACKED_PATH:
+            for name, value in leaves.items():
+                if np.shape(value)[0] != config.num_hidden_layers:
+                    raise ValueError(
+                        f"{'/'.join(path)}/{name}: {np.shape(value)[0]} "
+                        f"stacked layers, config has "
+                        f"{config.num_hidden_layers}")
+        state.update(module_state(
+            path, {name: _to_torch(v) for name, v in leaves.items()}))
     return state
 
 
 def _to_torch(value) -> torch.Tensor:
     """int8 stays int8, bf16 (numpy's ``bfloat16`` extension type, as the
     JAX quantizer stores it) becomes torch bf16, the rest fp32."""
+    if isinstance(value, torch.Tensor):
+        return value
     value = np.asarray(value)
     if value.dtype == np.int8:
         return torch.from_numpy(np.array(value))
@@ -136,10 +172,73 @@ def _to_torch(value) -> torch.Tensor:
     return torch.from_numpy(np.array(value, dtype=np.float32))
 
 
-def quantize_state_dict(state: Dict[str, torch.Tensor],
-                        mode: str) -> Dict[str, torch.Tensor]:
-    """A serving head's fp32 state dict in the layout of the same head
-    built with ``quant=mode`` (JAX ``quant.convert_module``'s rules).
+_ATTENTION_IN = ("attention.query", "attention.key", "attention.value")
+_LAYER = re.compile(r"bert\.encoder\.layers\.(\d+)\.(.+)")
+
+
+def _jax_leaf(module: str, name: str, value: torch.Tensor, heads: int):
+    """(flax leaf name, JAX-layout tensor) of one port leaf: the inverse
+    of :func:`_leaf`."""
+    if name in ("weight", "weight_q"):
+        if module.endswith("_embeddings"):
+            return "embedding", value
+        kernel = value.t().contiguous()  # [in, out]
+        if module.endswith(_ATTENTION_IN):
+            kernel = kernel.reshape(kernel.shape[0], heads, -1)
+        elif module.endswith("attention.output"):
+            kernel = kernel.reshape(heads, -1, kernel.shape[-1])
+        return ("kernel" if name == "weight" else "kernel_q"), kernel
+    if name == "weight_scale":
+        return "kernel_scale", value
+    if name == "bias" and module.endswith(_ATTENTION_IN):
+        return name, value.reshape(heads, -1)
+    return name, value
+
+
+def _put(tree: dict, path, value) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def to_jax_params(state: Dict[str, torch.Tensor], config: BertConfig,
+                  head: str) -> dict:
+    """The inverse of :func:`from_jax_params`: the port's state dict of
+    ``head`` as the JAX package's nested params, CPU tensors in the JAX
+    layout (kernels [in, out], the attention kernels and biases split by
+    head, ``weight_q``/``weight_scale`` as ``kernel_q``/``kernel_scale``),
+    the encoder layers stacked on a leading ``L`` axis. What
+    :func:`~bert_pytorch_tpu_torch.utils.checkpoint.save_checkpoint` writes
+    for the JAX package to read."""
+    heads = config.num_attention_heads
+    tree: dict = {}
+    layers: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for key, value in state.items():
+        module, _, name = key.rpartition(".")
+        name, value = _jax_leaf(module, name, value.detach().to("cpu"), heads)
+        match = _LAYER.fullmatch(module)
+        if match:
+            rest = tuple(match.group(2).split(".")) + (name,)
+            layers.setdefault(rest, {})[int(match.group(1))] = value
+        else:
+            _put(tree, module.split(".") + [name], value.contiguous())
+    for rest, by_layer in layers.items():
+        if sorted(by_layer) != list(range(config.num_hidden_layers)):
+            raise ValueError(
+                f"bert.encoder.layers.*.{'.'.join(rest)}: layers "
+                f"{sorted(by_layer)}, config has {config.num_hidden_layers}")
+        _put(tree, STACKED_PATH + rest, torch.stack(
+            [by_layer[i] for i in range(config.num_hidden_layers)]))
+    _check_head(tree, config, head)
+    return tree
+
+
+def quantize_module(module: str, leaves: Dict[str, torch.Tensor],
+                    mode: str) -> Dict[str, torch.Tensor]:
+    """The quantization rule for ONE module of a serving head (its port
+    path and its fp32 leaves by name; JAX ``quant.convert_module``), the
+    one place the rule lives: :func:`quantize_state_dict` and the
+    streaming checkpoint decode both call it.
 
     Only Dense modules convert (a 2-D ``weight`` with a sibling ``bias``);
     embeddings, LayerNorm and the MLM vocab bias pass through fp32. int8:
@@ -149,24 +248,37 @@ def quantize_state_dict(state: Dict[str, torch.Tensor],
     int8: weight and bias bf16. The JAX encoder quantizes its stacked
     kernels with one scale per layer; each of the port's layers is its own
     module with its own per-tensor scale, the same number."""
+    weight = leaves.get("weight")
+    if weight is None or weight.dim() != 2 or "bias" not in leaves:
+        return dict(leaves)
+    out = dict(leaves)
+    excluded = any(part in quant_ops.EXCLUDE_MODULES
+                   for part in module.split("."))
+    if mode == "int8" and not excluded:
+        q, scale = quant_ops.quantize_array(
+            weight.detach().float().cpu().numpy())
+        del out["weight"]
+        out["weight_q"] = torch.from_numpy(q)
+        out["weight_scale"] = torch.from_numpy(scale)
+    else:
+        out["weight"] = weight.detach().to(torch.bfloat16)
+    out["bias"] = leaves["bias"].detach().to(torch.bfloat16)
+    return out
+
+
+def quantize_state_dict(state: Dict[str, torch.Tensor],
+                        mode: str) -> Dict[str, torch.Tensor]:
+    """A serving head's fp32 state dict in the layout of the same head
+    built with ``quant=mode``: :func:`quantize_module` on each module."""
     quant_ops.check_mode(mode)
-    out = dict(state)
-    for key, weight in state.items():
+    modules: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in state.items():
         module, _, name = key.rpartition(".")
-        bias_key = f"{module}.bias"
-        if name != "weight" or weight.dim() != 2 or bias_key not in state:
-            continue
-        excluded = any(part in quant_ops.EXCLUDE_MODULES
-                       for part in module.split("."))
-        if mode == "int8" and not excluded:
-            q, scale = quant_ops.quantize_array(
-                weight.detach().float().cpu().numpy())
-            del out[key]
-            out[f"{module}.weight_q"] = torch.from_numpy(q)
-            out[f"{module}.weight_scale"] = torch.from_numpy(scale)
-        else:
-            out[key] = weight.detach().to(torch.bfloat16)
-        out[bias_key] = state[bias_key].detach().to(torch.bfloat16)
+        modules.setdefault(module, {})[name] = value
+    out: Dict[str, torch.Tensor] = {}
+    for module, leaves in modules.items():
+        for name, value in quantize_module(module, leaves, mode).items():
+            out[f"{module}.{name}"] = value
     return out
 
 
@@ -235,7 +347,7 @@ def _torch_names(config: BertConfig, head: str) -> Dict[str, tuple]:
              "cls.predictions.transform.LayerNorm")
     if head == "pretraining":
         dense("seq_relationship", "cls.seq_relationship")
-    if head == "qa":
+    if head == "squad":
         dense("qa_outputs", "qa_outputs")
     if head == "classify":
         dense("head.classifier", "classifier")
@@ -276,37 +388,43 @@ def from_torch_state_dict(state_dict: Dict, config: BertConfig,
 
 def load_pretrained_encoder(path: str, config: BertConfig,
                             model: torch.nn.Module) -> torch.nn.Module:
-    """Put the ``bert`` encoder of a torch archive under ``model`` (its
-    head keeps its fresh init: the strict=False load of reference
+    """Put the ``bert`` encoder of a checkpoint under ``model`` (its head
+    keeps its fresh init: the strict=False load of reference
     run_squad.py:957-961). ``path`` is a directory holding
     ``pytorch_model.bin`` (its ``config.json`` is not read: ``config``
-    is), or a ``.bin``/``.pt``/``.pth`` torch file, whose state dict may
-    sit under a ``"model"`` key. The JAX package's own msgpack checkpoints
-    and TF checkpoints need the checkpoint module, which is not ported:
-    they raise. Every encoder tensor of ``model`` must be in the
-    archive."""
+    is), a ``.bin``/``.pt``/``.pth`` torch file, whose state dict may sit
+    under a ``"model"`` key, or one of the JAX package's msgpack
+    checkpoints, whose ``model/bert`` subtree is read params-only
+    (``utils/checkpoint.py`` ``load_params_only``; the msgpack branch of
+    the JAX ``load_pretrained_encoder``). TF checkpoints raise. Every
+    encoder tensor of ``model`` must be in the checkpoint."""
+    state = model.state_dict()
     if os.path.isdir(path):
         weights = os.path.join(path, "pytorch_model.bin")
         if not os.path.exists(weights):
             raise NotImplementedError(
                 f"{path} holds no pytorch_model.bin; TF checkpoints "
                 f"(bert_model.ckpt*) are not read by the port yet "
-                f"({ROADMAP_CHECKPOINTS})")
+                f"({ROADMAP_TF})")
     elif path.endswith((".bin", ".pt", ".pth")):
         weights = path
-    else:
+    elif os.path.exists(path + ".index"):
         raise NotImplementedError(
-            f"{path}: only torch archives (a directory with "
-            "pytorch_model.bin, or a .bin/.pt/.pth file) are read by the "
-            "port; msgpack and TF checkpoints need the checkpoint module, "
-            f"not ported yet ({ROADMAP_CHECKPOINTS})")
-    sd = torch.load(weights, map_location="cpu", weights_only=True)
-    if isinstance(sd.get("model"), dict):
-        sd = sd["model"]  # the reference's checkpoint dict (run_squad.py:958)
-    loaded = {k: v for k, v in from_torch_state_dict(sd, config,
-                                                     "pretraining").items()
-              if k.startswith("bert.")}
-    state = model.state_dict()
+            f"{path} is a TF checkpoint, not read by the port yet "
+            f"({ROADMAP_TF})")
+    else:
+        weights = None
+    if weights is None:
+        from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
+
+        loaded = ckpt_util.load_params_only(
+            path, {k: v for k, v in state.items() if k.startswith("bert.")})
+    else:
+        sd = torch.load(weights, map_location="cpu", weights_only=True)
+        if isinstance(sd.get("model"), dict):
+            sd = sd["model"]  # the reference's checkpoint dict (run_squad.py:958)
+        loaded = {k: v for k, v in from_torch_state_dict(
+            sd, config, "pretraining").items() if k.startswith("bert.")}
     missing = sorted(k for k in state if k.startswith("bert.")
                      and k not in loaded)
     if missing:

@@ -2,7 +2,8 @@
 
     python -m bert_pytorch_tpu_torch.run_server \
         --model_config_file configs/bert_large_uncased_config.json \
-        --vocab_file vocab.txt --tasks fill_mask,classify \
+        --vocab_file vocab.txt --tasks fill_mask,classify,squad,ner \
+        --fill_mask_checkpoint out/ --squad_checkpoint squad/ckpt_0.msgpack \
         --buckets 128,512 --max_batch_size 8 --pack_requests --port 8000
 
     # the fast path: int8 weights, int8-score attention, fused fill_mask
@@ -10,15 +11,26 @@
         --attention_backend flash_infer_int8 --fuse_epilogues
 
     curl -s localhost:8000/v1/fill_mask -d '{"text": "paris is [MASK]"}'
+    curl -s localhost:8000/v1/squad \
+        -d '{"question": "who wrote hamlet", "context": "shakespeare wrote hamlet"}'
+    curl -s localhost:8000/v1/ner -d '{"text": "paris is in france"}'
+    curl -s localhost:8000/swapz \
+        -d '{"task": "classify", "checkpoint": "ckpt_9.msgpack", "version": "v2"}'
     curl -s localhost:8000/healthz
     curl -s localhost:8000/statsz
     curl -s localhost:8000/metricsz   # Prometheus text format
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
-no card exists. Without weights (``build_service(args, weights=...)``, from
-``models.convert.from_jax_params``) every task serves seeded
-RANDOMLY-INITIALIZED weights (demo mode) and says so. The vocab is padded
-to a multiple of 8 (30522 -> 30528), as the JAX package's server does.
+no card exists. Each ``--<task>_checkpoint`` names a JAX package
+checkpoint (a ``ckpt_*.msgpack`` file, or a directory whose newest one is
+taken) whose ``model`` subtree is that head's params, read params-only;
+a failed load fails the start-up. A task with neither a checkpoint nor
+in-memory weights (``build_service(args, weights=...)``, from
+``models.convert.from_jax_params``) serves seeded RANDOMLY-INITIALIZED
+weights (demo mode) and says so. ``--save_init_checkpoint DIR`` writes the
+first task's served params there as ``ckpt_0.msgpack`` (with its
+manifest) before serving. The vocab is padded to a multiple of 8
+(30522 -> 30528), as the JAX package's server does.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import signal
 import sys
 from typing import Dict, Optional
@@ -37,6 +50,7 @@ logger = logging.getLogger("bert_pytorch_tpu_torch.run_server")
 # A SIGTERM-initiated drain exits with this code, the preemption contract
 # the JAX package's runners and supervisor share.
 EXIT_PREEMPTED = 75
+TASKS = ("fill_mask", "classify", "squad", "ner")
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
@@ -48,10 +62,28 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                                      "(PyTorch / CUDA)")
     parser.add_argument("--model_config_file", type=str, required=True)
     parser.add_argument("--vocab_file", type=str, default=None)
-    parser.add_argument("--tasks", type=str, default="fill_mask,classify",
+    parser.add_argument("--tasks", type=str,
+                        default="fill_mask,classify,squad,ner",
                         help="comma-separated task heads to serve")
+    for task in TASKS:
+        parser.add_argument(f"--{task}_checkpoint", type=str, default=None,
+                            help=f"params checkpoint for the {task} head "
+                                 "(file or run output dir); omitted = "
+                                 "random init (demo mode)")
     parser.add_argument("--classify_labels", type=str, default="0,1",
                         help="comma-separated labels for classify")
+    parser.add_argument("--ner_labels", type=str,
+                        default="O,B-PER,I-PER,B-LOC,I-LOC,B-ORG,I-ORG,"
+                                "B-MISC,I-MISC",
+                        help="comma-separated NER tag set (ids 1-based)")
+    parser.add_argument("--serving_version", type=str, default="v0",
+                        help="version name of the weights served (what "
+                             "/healthz and /statsz report until a "
+                             "/swapz changes it)")
+    parser.add_argument("--save_init_checkpoint", type=str, default="",
+                        help="write the first task's served params as "
+                             "ckpt_0.msgpack (+ manifest) into this "
+                             "directory before serving")
     parser.add_argument("--buckets", type=str, default="32,64,128",
                         help="length buckets; each batch is padded to the "
                              "smallest bucket that fits it")
@@ -79,13 +111,28 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     return args
 
 
+def resolve_ckpt(path: Optional[str]) -> Optional[str]:
+    """A ``--<task>_checkpoint`` value as a file: a directory gives its
+    newest ``ckpt_*.msgpack`` (``FileNotFoundError`` if it holds none)."""
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
+
+    if not path:
+        return None
+    if os.path.isdir(path):
+        found = ckpt_util.latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no ckpt_*.msgpack under {path}")
+        return found
+    return path
+
+
 def build_service(args: argparse.Namespace,
                   weights: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
     """The :class:`ServingService` for ``args``, warmed up lazily by
-    ``start()``. ``weights`` maps task -> state dict (from
-    ``from_jax_params``); tasks without one serve seeded random weights.
-    The tokenizer lowercases unless the model config says
-    ``"lowercase": false``."""
+    ``start()``. Each task loads its ``--<task>_checkpoint``; ``weights``
+    maps task -> state dict (from ``from_jax_params``) for tasks without
+    one; the rest serve seeded random weights. The tokenizer lowercases
+    unless the model config says ``"lowercase": false``."""
     from bert_pytorch_tpu_torch.config import BertConfig
     from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
     from bert_pytorch_tpu_torch.serve import (Batcher, InferenceEngine,
@@ -94,20 +141,28 @@ def build_service(args: argparse.Namespace,
 
     config = BertConfig.from_json_file(args.model_config_file)
     config.vocab_size = config.padded_vocab_size(8)
-    tokenizer = BertTokenizer(args.vocab_file,
-                              do_lower_case=getattr(config, "lowercase", True))
+    lowercase = getattr(config, "lowercase", True)
+    tokenizer = BertTokenizer(args.vocab_file, do_lower_case=lowercase)
     weights = weights or {}
     tasks = {}
     for task in (t.strip() for t in args.tasks.split(",")):
         if not task:
             continue
-        options = {"weights": weights.get(task)}
+        options = {"checkpoint": resolve_ckpt(
+            getattr(args, f"{task}_checkpoint", None))}
+        if options["checkpoint"] is None:
+            options["weights"] = weights.get(task)
         if task == "classify":
             options["labels"] = args.classify_labels.split(",")
+        elif task == "ner":
+            options["labels"] = args.ner_labels.split(",")
+        elif task == "squad":
+            options["do_lower_case"] = lowercase
         tasks[task] = options
-        if options["weights"] is None:
-            logger.warning("task %s: no weights given — serving randomly "
-                           "initialized weights (demo mode)", task)
+        if options["checkpoint"] is None and options.get("weights") is None:
+            logger.warning("task %s: no checkpoint and no weights given — "
+                           "serving randomly initialized weights (demo "
+                           "mode)", task)
     engine = InferenceEngine(
         config,
         tokenizer,
@@ -122,6 +177,7 @@ def build_service(args: argparse.Namespace,
         quantize=args.quantize,
         fuse_epilogues=args.fuse_epilogues,
         epilogue_slots=args.epilogue_slots,
+        version=args.serving_version,
     )
     batcher = Batcher(
         max_batch_size=args.max_batch_size,
@@ -129,6 +185,24 @@ def build_service(args: argparse.Namespace,
         max_requests_per_pack=engine.max_requests_per_pack)
     return ServingService(engine, batcher, ServeTelemetry(),
                           tracer=build_tracer(args))
+
+
+def save_init_checkpoint(engine, output_dir: str) -> str:
+    """Write the first (sorted) task's served params into ``output_dir``
+    as ``ckpt_0.msgpack`` ``{"model": <JAX-layout params>, "epoch": 0}``
+    plus its manifest, as the JAX server's ``--save_init_checkpoint``
+    does; returns the path. A quantized engine writes its quantized
+    params."""
+    from bert_pytorch_tpu_torch.models.convert import to_jax_params
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
+
+    task = sorted(engine.tasks)[0]
+    params = to_jax_params(engine.tasks[task].model.state_dict(),
+                           engine.config, task)
+    path = ckpt_util.save_checkpoint(output_dir, 0,
+                                     {"model": params, "epoch": 0})
+    logger.info("init checkpoint for task %s: %s", task, path)
+    return path
 
 
 def main(args: argparse.Namespace) -> int:
@@ -140,6 +214,8 @@ def main(args: argparse.Namespace) -> int:
                         format="%(asctime)s %(levelname)s %(message)s")
     service = build_service(args)
     engine = service.engine
+    if args.save_init_checkpoint:
+        save_init_checkpoint(engine, args.save_init_checkpoint)
     logger.info("warming %d task heads over buckets %s on %s (%s, "
                 "attention=%s, quantize=%s, fuse_epilogues=%s, pack=%d)",
                 len(engine.tasks), engine.buckets, engine.device, args.dtype,
@@ -153,9 +229,9 @@ def main(args: argparse.Namespace) -> int:
     server = make_server(service, host=args.host, port=args.port,
                          request_timeout_s=args.request_timeout_s)
     host, port = server.server_address[:2]
-    logger.info("serving %s on http://%s:%s (POST /v1/<task>, GET "
-                "/healthz, /statsz, /metricsz)", sorted(engine.tasks),
-                host, port)
+    logger.info("serving %s (version %s) on http://%s:%s (POST /v1/<task>, "
+                "/swapz; GET /healthz, /statsz, /metricsz)",
+                sorted(engine.tasks), engine.version(), host, port)
     preempted = {"signaled": False}
 
     def shutdown(signum, frame):

@@ -34,7 +34,8 @@ Not ported yet, so rejected rather than ignored (argparse refuses their
 flags): checkpoint writing (the runner requires ``--skip_checkpoint``),
 ``--save_steps``, ``--dtype float16`` and ``--init_loss_scale``, the BPE
 tokenizer, the telemetry planes, device prefetch, ``--mesh_data`` and
-``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives only
+``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives and
+the JAX package's msgpack checkpoints, not TF checkpoints
 (models/convert.py ``load_pretrained_encoder``).
 ``--layer_norm_backend kernel`` (or its JAX name ``pallas``) runs every
 LayerNorm through the hand-written forward kernel.

@@ -3,15 +3,23 @@ JAX package's ``serve/engine.py``.
 
 The :class:`InferenceEngine` owns the device side of serving:
 
-* **weights** — each task head takes a state dict converted from the JAX
-  package's params (:func:`~bert_pytorch_tpu_torch.models.convert.
-  from_jax_params`) or, without one, seeded random init (demo mode);
-  ``quantize`` (``"bf16"``/``"int8"``, ops/quant.py) then converts the
-  fp32 weights to the serving storage format;
+* **weights** — each task head (``fill_mask``, ``classify``, ``squad``,
+  ``ner``) loads a JAX package checkpoint params-only
+  (:func:`~bert_pytorch_tpu_torch.utils.checkpoint.load_params_only`:
+  only the ``model`` subtree decodes, module by module, quantized as it
+  arrives), or takes a state dict converted from the JAX params in memory
+  (:func:`~bert_pytorch_tpu_torch.models.convert.from_jax_params`), or,
+  with neither, seeded random init (demo mode); ``quantize``
+  (``"bf16"``/``"int8"``, ops/quant.py) selects the serving storage;
+* **hot-swap** — :meth:`swap_params` loads one head's new checkpoint off
+  the dispatch path and flips (model, version, epoch) in one lock
+  acquisition; :meth:`execute_staged` takes the three in one acquisition
+  too, so a batch runs on exactly one version, and counts torn serves;
 * **fused epilogues** — with ``fuse_epilogues``, fill_mask gathers its
   [MASK] rows before the vocab projection ([B, epilogue_slots, V] out
-  instead of [B, S, V]); a batch whose rows need more slots runs the
-  unfused forward;
+  instead of [B, S, V]; a batch whose rows need more slots runs the
+  unfused forward), and squad stacks its start and end logits into one
+  [B, 2, S] output (``stack_span``: one transfer to the host);
 * **warmup** — one forward per (task head, length bucket, packedness) at
   startup, so the first request pays no kernel build, library load or
   cuBLAS set-up; ``startup["cold_start_s"]`` records what that took;
@@ -36,6 +44,8 @@ else rides in its batch).
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -50,19 +60,19 @@ from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.serve import tasks as tasks_lib
 from bert_pytorch_tpu_torch.serve.batcher import Request
 from bert_pytorch_tpu_torch.serve.cli import ATTENTION_BACKENDS, resolve_device
+from bert_pytorch_tpu_torch.testing import faults
+from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
 
 
 class SwapBusy(RuntimeError):
     """A second hot-swap was requested while one is already in flight
-    (serve/http.py maps this to HTTP 409). Hot-swap itself is not ported
-    yet; the HTTP layer keeps the mapping."""
+    (loads cannot overlap; serve/http.py maps this to HTTP 409)."""
 
 
 class SwapUnsupported(RuntimeError):
-    """Hot-swap was requested of an engine that cannot swap: the port's
-    engine has no ``swap_params`` until the msgpack checkpoint import is
-    ported (serve/http.py maps this to HTTP 404, as /profilez answers
-    without a capture controller)."""
+    """Hot-swap was requested of an engine that has no ``swap_params``,
+    such as a test's stand-in engine (serve/http.py maps this to HTTP 404,
+    as /profilez answers without a capture controller)."""
 
 
 class TaskSpec:
@@ -100,12 +110,16 @@ class StagedBatch:
     filling the arrays. ``staged_at`` is stamped by the dispatch plane when
     staging completes.
 
-    ``positions`` ([B, epilogue_slots] row positions, or None) selects the
-    fused gather forward; ``gather_slots`` then maps request id -> (row,
-    first slot, slot count) into its [B, epilogue_slots, V] output."""
+    ``fused`` selects the head's fused-epilogue forward: for a
+    ``"gather"`` head, ``positions`` ([B, epilogue_slots] row positions)
+    are gathered before the vocab projection and ``gather_slots`` maps
+    request id -> (row, first slot, slot count) into its
+    [B, epilogue_slots, V] output; a ``"stack_span"`` head returns one
+    [B, 2, S] output."""
 
     def __init__(self, task: str, plan: BatchPlan, args: tuple,
                  offsets: Dict[int, Tuple[int, int, int]], pack_s: float,
+                 fused: bool = False,
                  positions: Optional[np.ndarray] = None,
                  gather_slots: Optional[Dict[int, Tuple[int, int, int]]]
                  = None):
@@ -114,13 +128,10 @@ class StagedBatch:
         self.args = args
         self.offsets = offsets
         self.pack_s = pack_s
+        self.fused = fused
         self.positions = positions
         self.gather_slots = gather_slots or {}
         self.staged_at: Optional[float] = None
-
-    @property
-    def fused(self) -> bool:
-        return self.positions is not None
 
 
 class InferenceEngine:
@@ -140,11 +151,16 @@ class InferenceEngine:
         quantize: Optional[str] = None,
         fuse_epilogues: bool = False,
         epilogue_slots: int = 8,
+        version: str = "v0",
     ):
-        """``tasks`` maps task name -> options: ``classify`` reads
-        ``labels``; any task may carry ``weights``, a state dict from
-        ``from_jax_params`` for that head (absent = seeded random init from
-        ``seed`` + the task's index). ``attention_backend`` routes the
+        """``tasks`` maps task name -> options: ``classify`` and ``ner``
+        read ``labels``, ``squad`` ``do_lower_case`` and
+        ``max_query_length``; any task may carry ``checkpoint``, the path
+        of a JAX package checkpoint whose ``model`` subtree is that head's
+        params, or ``weights``, a state dict from ``from_jax_params``
+        (with neither: seeded random init from ``seed`` + the task's
+        index). ``version`` names the weights served, until
+        :meth:`swap_params` changes it. ``attention_backend`` routes the
         encoder's attention (ops/attention.py): ``"flash_infer"`` is the
         forward-only CUDA kernel (its plain version on the CPU),
         ``"flash_infer_int8"`` its int8-score twin, ``"dense"`` the plain
@@ -154,9 +170,9 @@ class InferenceEngine:
         ``quantize`` (None/``"none"``, ``"bf16"``, ``"int8"``) selects the
         weight storage (ops/quant.py): int8 runs int8 GEMMs with per-token
         activation scales. ``fuse_epilogues`` gathers fill_mask's [MASK]
-        rows before the vocab projection; ``epilogue_slots`` is the
-        per-row gather quota, past which a batch runs the unfused
-        forward."""
+        rows before the vocab projection and stacks squad's start and end
+        logits; ``epilogue_slots`` is the per-row gather quota, past which
+        a batch runs the unfused forward."""
         if attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(f"attention_backend must be one of "
                              f"{ATTENTION_BACKENDS}, got {attention_backend!r}")
@@ -187,12 +203,33 @@ class InferenceEngine:
         # device-calling thread; read by the chip smoke to tie kernel
         # launches to forwards.
         self.forwards = 0
+        # Hot-swap state: _swap_lock makes (spec.model, serving_version,
+        # _swap_epoch) flip as one unit; execute_staged reads all three in
+        # one acquisition, and a model that changed without the epoch
+        # changing counts as a torn serve.
+        self._swap_lock = threading.Lock()
+        self.serving_version = str(version)
+        self._swap_epoch = 0
+        self._swaps = 0
+        self._torn_serves = 0
+        self._swap_inflight = False
         handlers = tasks_lib.build_handlers(tokenizer, tasks)
         self.tasks: Dict[str, TaskSpec] = {}
+        # Per task, the (options, seed) it was built from: swap_params
+        # builds the same head for the incoming checkpoint.
+        self._task_build: Dict[str, Tuple[dict, int]] = {}
+        # Seconds each head took to build and load its weights.
+        self.load_s: Dict[str, float] = {}
         for name, options in tasks.items():
             options = options or {}
-            model = self._build_task(name, options, seed=seed + len(self.tasks))
+            task_seed = seed + len(self.tasks)
+            t0 = self._clock()
+            model = self._build_task(name, options, seed=task_seed)
+            self.load_s[name] = self._clock() - t0
             self.tasks[name] = TaskSpec(name, model, handlers[name])
+            self._task_build[name] = (
+                {k: v for k, v in options.items() if k != "weights"},
+                task_seed)
         self.warmed = False
 
     # -- construction ----------------------------------------------------
@@ -201,18 +238,37 @@ class InferenceEngine:
                     seed: int) -> torch.nn.Module:
         cfg = self.config
 
-        def build(quant):
+        def build(quant, device=self.device):
             kwargs = dict(dtype=self.dtype,
                           attention_backend=self.attention_backend,
-                          device=self.device, quant=quant)
+                          device=device, quant=quant)
             if name == "fill_mask":
                 return models.BertForMaskedLM(cfg, **kwargs)
             if name == "classify":
                 labels = options.get("labels") or ["0", "1"]
                 return models.BertForSequenceClassification(
                     cfg, num_labels=len(labels), **kwargs)
+            if name == "squad":
+                return models.BertForQuestionAnswering(cfg, **kwargs)
+            if name == "ner":
+                labels = options.get("labels") or ["O"]
+                # +1: label ids start at 1, id 0 is reserved.
+                return models.BertForTokenClassification(
+                    cfg, num_labels=len(labels) + 1, **kwargs)
             raise ValueError(f"unknown serve task {name!r}")
 
+        checkpoint = options.get("checkpoint")
+        if checkpoint:
+            # The fp32 layout (shapes only, on the meta device) is the
+            # load target; each module is cast or quantized as its bytes
+            # decode and moves to the device at once.
+            target = build(None, "meta").state_dict()
+            state = ckpt_util.load_params_only(
+                checkpoint, target, quantize=self.quantize,
+                device=self.device)
+            model = build(self.quantize)
+            model.load_state_dict(state, strict=True)
+            return model.eval()
         weights = options.get("weights")
         if weights is not None and any(
                 t.dtype != torch.float32 for t in weights.values()):
@@ -220,8 +276,8 @@ class InferenceEngine:
             model = build(self.quantize)
             model.load_state_dict(weights, strict=True)
             return model.eval()
-        # The fp32 model is always built first: it takes the checkpoint's
-        # (or the seeded demo) weights, which quantize after loading.
+        # The fp32 model is always built first: it takes the given (or the
+        # seeded demo) weights, which quantize after loading.
         model = build(None)
         if weights is not None:
             model.load_state_dict(weights, strict=True)
@@ -246,7 +302,11 @@ class InferenceEngine:
         slots = np.zeros((B, self.epilogue_slots), np.int32)
         for spec in self.tasks.values():
             pooled = spec.handler.output_kind == "pooled"
-            fused = ((False, True) if self._gathers(spec) else (False,))
+            epilogue = self._epilogue(spec)
+            # A gather head runs both forwards (the unfused one past the
+            # slot quota); a stack_span head only its fused one.
+            fused = {"gather": (False, True), "stack_span": (True,)}.get(
+                epilogue, (False,))
             for bucket in self.buckets:
                 zeros = np.zeros((B, bucket), np.int32)
                 for packed in ((False, True) if self.pack else (False,)):
@@ -256,8 +316,11 @@ class InferenceEngine:
                         args = (zeros,) * 4 + (np.zeros((B, K), np.int32),)
                     else:
                         args = (zeros,) * 4
-                    for gather in fused:
-                        self._run(spec, args, slots if gather else None)
+                    for is_fused in fused:
+                        self._run(spec.model, args,
+                                  slots if is_fused and epilogue == "gather"
+                                  else None,
+                                  stack=is_fused and epilogue == "stack_span")
                         count += 1
         by_task = {name: quant_ops.weight_bytes(spec.model)
                    for name, spec in self.tasks.items()}
@@ -271,13 +334,91 @@ class InferenceEngine:
             "fuse_epilogues": self.fuse_epilogues,
             "weight_bytes": sum(by_task.values()),
             "weight_bytes_by_task": by_task,
+            "load_s_by_task": {k: round(v, 3) for k, v in self.load_s.items()},
         }
         self.warmed = True
         return count
 
-    def _gathers(self, spec: TaskSpec) -> bool:
-        """Whether ``spec``'s forward may take the fused gather epilogue."""
-        return self.fuse_epilogues and spec.handler.epilogue == "gather"
+    def _epilogue(self, spec: TaskSpec) -> Optional[str]:
+        """The fused epilogue ``spec``'s forward takes (None unfused)."""
+        return spec.handler.epilogue if self.fuse_epilogues else None
+
+    # -- hot swap --------------------------------------------------------
+
+    def version(self) -> str:
+        """The serving model version (flipped with the model; what
+        /healthz, /statsz and /metricsz report)."""
+        with self._swap_lock:
+            return self.serving_version
+
+    def swap_stats(self) -> dict:
+        """Swap counters for /statsz: the serving version, completed swaps,
+        and torn serves (forwards whose model changed without the
+        epoch-bumping flip; 0 by construction)."""
+        with self._swap_lock:
+            return {"version": self.serving_version,
+                    "swaps": self._swaps,
+                    "torn_serves": self._torn_serves}
+
+    def swap_params(self, task: str, checkpoint: str, version: str,
+                    emit: Optional[Callable[[dict], None]] = None) -> dict:
+        """Hot-swap one task's weights to ``checkpoint``, stamping the
+        engine as serving ``version``. Raises ``ValueError`` for an unknown
+        task, ``FileNotFoundError`` for a missing file and
+        :class:`SwapBusy` when a swap is already in flight (serve/http.py
+        maps them to 404, 400 and 409).
+
+        The new head loads off the dispatch path, built from the task's
+        original options and seed with the same quantization as startup
+        (streamed, module by module); a failed load raises and leaves the
+        old version serving. The flip replaces the model, the version
+        stamp and the swap epoch in one lock acquisition; a batch that
+        took the old model runs it to completion. The kernels the head
+        runs are built and loaded once per process, at warmup, so a swap
+        builds none: the info keeps the JAX engine's ``compiles`` keys,
+        at 0."""
+        spec = self.tasks.get(task)
+        if spec is None:
+            raise ValueError(
+                f"unknown task {task!r} (serving: {sorted(self.tasks)})")
+        if not checkpoint or not os.path.isfile(checkpoint):
+            raise FileNotFoundError(f"swap checkpoint missing: "
+                                    f"{checkpoint!r}")
+        with self._swap_lock:
+            if self._swap_inflight:
+                raise SwapBusy(
+                    "a hot-swap is already in flight; retry after it "
+                    "completes")
+            self._swap_inflight = True
+            swap_attempt = self._swaps + 1
+        try:
+            options, seed = self._task_build[task]
+            t0 = self._clock()
+            model = self._build_task(
+                task, dict(options, checkpoint=checkpoint), seed=seed)
+            load_s = self._clock() - t0
+            # Chaos hook (testing/faults.py swap_hold): hold the window
+            # between the load and the flip open.
+            faults.get_plan().serve_swap_check(swap_attempt, emit=emit)
+            with self._swap_lock:
+                from_version = self.serving_version
+                spec.model = model
+                self.serving_version = str(version)
+                self._swap_epoch += 1
+                self._swaps += 1
+        finally:
+            with self._swap_lock:
+                self._swap_inflight = False
+        return {
+            "task": task,
+            "version": str(version),
+            "from_version": from_version,
+            "checkpoint": checkpoint,
+            "load_s": round(load_s, 3),
+            "compiles": 0,
+            "compiles_cold": 0,
+            "compiles_warm": 0,
+        }
 
     # -- planning --------------------------------------------------------
 
@@ -348,7 +489,8 @@ class InferenceEngine:
         [B, epilogue_slots] absolute row positions of every request's
         positions of interest (zero-padded: unused slots gather position 0
         harmlessly); a batch whose rows overflow the quota stages for the
-        unfused forward instead."""
+        unfused forward instead. A ``"stack_span"`` head always stages
+        fused."""
         spec = self.tasks[task]
         t_host0 = self._clock()
         B, S = self.max_batch_size, plan.bucket
@@ -356,8 +498,10 @@ class InferenceEngine:
         seg = np.zeros((B, S), np.int32)
         mask = np.zeros((B, S), np.int32)
         offsets: Dict[int, Tuple[int, int, int]] = {}  # id -> (row, off, slot)
+        epilogue = self._epilogue(spec)
         positions, gather_slots = (self._gather_slots(spec, plan)
-                                   if self._gathers(spec) else (None, {}))
+                                   if epilogue == "gather" else (None, {}))
+        fused = positions is not None or epilogue == "stack_span"
         if plan.packed:
             K = self.max_requests_per_pack
             sids = np.zeros((B, S), np.int32)
@@ -387,7 +531,7 @@ class InferenceEngine:
                 offsets[req.id] = (r, 0, 0)
             args = (ids, seg, mask)
         return StagedBatch(task, plan, args, offsets,
-                           pack_s=self._clock() - t_host0,
+                           pack_s=self._clock() - t_host0, fused=fused,
                            positions=positions, gather_slots=gather_slots)
 
     def _gather_slots(self, spec: TaskSpec, plan: BatchPlan):
@@ -410,33 +554,52 @@ class InferenceEngine:
                 offset += req.length if plan.packed else 0
         return positions, slots
 
-    def _run(self, spec: TaskSpec, args: tuple,
-             positions: Optional[np.ndarray] = None) -> torch.Tensor:
-        """One forward on host arrays (ids, segments, mask[, sequence ids
-        [, cls positions]]), synchronized with the device; ``positions``
-        selects the fused gather forward (``output_positions``)."""
+    def _run(self, model: torch.nn.Module, args: tuple,
+             positions: Optional[np.ndarray] = None,
+             stack: bool = False) -> torch.Tensor:
+        """One forward of ``model`` on host arrays (ids, segments, mask[,
+        sequence ids[, cls positions]]), synchronized with the device;
+        ``positions`` selects the fused gather forward
+        (``output_positions``), ``stack`` stacks a span head's (start,
+        end) into one [B, 2, S] tensor."""
         with torch.inference_mode():
             tensors = [torch.from_numpy(a).to(self.device) for a in args]
             kwargs = {}
             if positions is not None:
                 kwargs["output_positions"] = torch.from_numpy(positions).to(
                     self.device)
-            out = spec.model(*tensors, **kwargs)
+            out = model(*tensors, **kwargs)
+            if stack:
+                out = torch.stack(out, dim=1)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.forwards += 1
         return out
 
-    def execute_staged(self, staged: StagedBatch
-                       ) -> Tuple[torch.Tensor, dict]:
+    def execute_staged(self, staged: StagedBatch) -> Tuple[object, dict]:
         """Run one staged batch's forward (incl. the device sync); returns
         (device output, info dict). The ONLY method on the serving path
         that touches the device — in pipelined dispatch, only the executor
-        stage calls it."""
+        stage calls it.
+
+        The model, its swap epoch and the version are read in ONE lock
+        acquisition, so the whole forward runs on one consistent version
+        whenever a hot-swap flips the head; a model that changed while the
+        epoch did not (a change that bypassed the flip) counts as a torn
+        serve."""
         spec = self.tasks[staged.task]
         plan = staged.plan
         t0 = self._clock()
-        out = self._run(spec, staged.args, staged.positions)
+        with self._swap_lock:
+            model = spec.model
+            epoch = self._swap_epoch
+            version = self.serving_version
+        out = self._run(model, staged.args, staged.positions,
+                        stack=staged.fused
+                        and spec.handler.epilogue == "stack_span")
+        with self._swap_lock:
+            if spec.model is not model and self._swap_epoch == epoch:
+                self._torn_serves += 1
         info = {
             "bucket": plan.bucket,
             "rows": self.max_batch_size,
@@ -446,31 +609,44 @@ class InferenceEngine:
             "compiles": 0,
             "packed": plan.packed,
             "fused": staged.fused,
+            "version": version,
         }
         return out, info
 
-    def demux(self, staged: StagedBatch, out: torch.Tensor) -> List[object]:
+    def demux(self, staged: StagedBatch, out) -> List[object]:
         """Slice each request's own output back out of the batch output
         (host conversion + per-request views, in ``plan.requests`` order).
         The completion stage runs it, so client decode never blocks the
         next device step. A fused gather batch hands each request its own
         run of gathered rows as a :class:`~bert_pytorch_tpu_torch.serve.
-        tasks.GatheredTokens`."""
+        tasks.GatheredTokens`; a span head's output, stacked [B, 2, S] or
+        a (start, end) pair, becomes each request's (start, end) slices."""
         spec = self.tasks[staged.task]
         plan = staged.plan
-        host = out.to("cpu").float().numpy()
-        pooled = spec.handler.output_kind == "pooled"
+        kind = spec.handler.output_kind
+        if kind == "span":
+            if staged.fused:
+                both = out.to("cpu").float().numpy()  # one transfer
+                start, end = both[:, 0], both[:, 1]
+            else:
+                start, end = (t.to("cpu").float().numpy() for t in out)
+        else:
+            host = out.to("cpu").float().numpy()
+        gathered = staged.fused and spec.handler.epilogue == "gather"
         results: List[object] = []
         for req in plan.requests:
             r, off, slot = staged.offsets[req.id]
-            if staged.fused:
+            n = req.length
+            if kind == "pooled":
+                results.append(host[r, slot] if plan.packed else host[r])
+            elif kind == "span":
+                results.append((start[r, off:off + n], end[r, off:off + n]))
+            elif gathered:
                 row, first, count = staged.gather_slots[req.id]
                 results.append(tasks_lib.GatheredTokens(
                     host[row, first:first + count]))
-            elif pooled:
-                results.append(host[r, slot] if plan.packed else host[r])
             else:
-                results.append(host[r, off:off + req.length])
+                results.append(host[r, off:off + n])
         return results
 
     def execute(self, task: str, plan: BatchPlan

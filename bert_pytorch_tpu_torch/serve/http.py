@@ -44,10 +44,12 @@ Routes:
   ``version`` (the registry version name). The load runs on this
   control thread off the dispatch path; the flip is atomic, so
   in-flight batches finish on the old version. 200 with the swap info
-  (load_s + the compile split proving a same-geometry swap recompiled
-  nothing), 409 while another swap is in flight (loads cannot
-  overlap), 404 on an unknown task, 400 on a missing checkpoint. Until
-  hot-swap is ported, a well-formed request answers 404 naming it.
+  (task, version, from_version, checkpoint, load_s, and the compile
+  counts: 0, since the kernels were built and loaded at startup), 409
+  while another swap is in flight (loads cannot overlap), 404 on an
+  unknown task or an engine without ``swap_params``, 400 on a missing
+  checkpoint; a failed load answers 500 and leaves the old version
+  serving.
 """
 
 from __future__ import annotations

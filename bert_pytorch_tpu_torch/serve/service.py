@@ -757,12 +757,12 @@ class ServingService:
         touches state the executor reads; in-flight batches complete
         against the old version. Raises engine.SwapBusy when a swap is
         already in flight (HTTP 409), and engine.SwapUnsupported when the
-        engine cannot swap (HTTP 404)."""
+        engine has no ``swap_params`` (HTTP 404)."""
         swap_params = getattr(self.engine, "swap_params", None)
         if not callable(swap_params):
             raise SwapUnsupported(
-                "hot-swap is not ported: this server's engine has no "
-                "swap_params (it waits for the msgpack checkpoint import)")
+                "hot-swap unsupported: this server's engine has no "
+                "swap_params")
         return swap_params(task, checkpoint, version,
                            emit=self.telemetry.emit)
 

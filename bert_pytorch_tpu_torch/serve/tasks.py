@@ -1,25 +1,33 @@
 """Per-task-head request pre/post-processing: the port of the JAX
-package's ``serve/tasks.py`` for the ``fill_mask`` and ``classify`` heads.
+package's ``serve/tasks.py``.
 
 One :class:`TaskHandler` per served head turns a JSON payload into the
 unpadded feature arrays the engine batches (``prepare``) and the model's
 per-request output slice back into a JSON-able result (``postprocess``).
 Handlers accept both tokenizer surfaces (the fast ``encode().ids`` ones and
 the pure-Python :class:`~bert_pytorch_tpu_torch.data.tokenization.
-BertTokenizer`). ``squad`` and ``ner`` are not ported yet.
+BertTokenizer`); SQuAD reuses the port's n-best decode
+(:mod:`bert_pytorch_tpu_torch.squad`).
 
-Tasks (``TASKS``):
+Tasks (``TASK_NAMES``):
 
 * ``fill_mask`` — MLM head: top-k token predictions per ``[MASK]`` slot;
 * ``classify`` — sequence classification: label + softmax probabilities
-  (single sentence or sentence pair).
+  (single sentence or sentence pair);
+* ``squad`` — extractive QA: n-best span decode with the character-level
+  answer realignment, in one window (the context is truncated to the
+  largest bucket, the online-serving convention);
+* ``ner`` — token classification: one tag per word (first-subtoken
+  convention, label ids start at 1).
 
 Every ``postprocess`` consumes fp32 numpy slices already demultiplexed per
 request by the engine (packed or not), so results match between the
 padded/packed batched path and a direct single-request forward. A head
 that declares ``epilogue = "gather"`` (fill_mask) receives, from an engine
 with fused epilogues, a :class:`GatheredTokens` of its positions of
-interest instead of the whole token plane.
+interest instead of the whole token plane; ``"stack_span"`` (squad) has
+its start and end logits stacked into one [B, 2, S] output, which the
+engine splits back before ``postprocess``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+
+from bert_pytorch_tpu_torch import squad as squad_lib
 
 
 class GatheredTokens(NamedTuple):
@@ -94,10 +104,11 @@ class TaskHandler:
     #   "span"    -> (start_logits[S], end_logits[S]) tuple
     output_kind: str = "tokens"
     # Fused-epilogue capability (serve/engine.py ``fuse_epilogues``):
-    #   "gather" -> the forward gathers this head's positions of interest
-    #               (gather_positions) before its vocab projection; demux
-    #               hands postprocess a GatheredTokens
-    #   None     -> nothing to fuse (pooled heads already extract in-model)
+    #   "gather"     -> the forward gathers this head's positions of
+    #                   interest (gather_positions) before its vocab
+    #                   projection; demux hands postprocess a GatheredTokens
+    #   "stack_span" -> start/end leave the device as one [B, 2, S] output
+    #   None         -> nothing to fuse (pooled heads extract in-model)
     epilogue: Optional[str] = None
 
     def __init__(self, tokenizer):
@@ -226,12 +237,142 @@ class ClassifyHandler(TaskHandler):
         }
 
 
-TASK_NAMES = ("fill_mask", "classify")
+class SquadHandler(TaskHandler):
+    """Extractive QA with the run_squad n-best decode.
+
+    Serving is single-window: the context is truncated to the request's
+    length budget (``max_len`` = largest bucket) instead of sliding
+    ``doc_stride`` windows, so one request maps to one row.
+    ``convert_examples_to_features`` runs on the pre-truncated doc words,
+    and ``get_answers`` performs the n-best and character-realignment
+    decode the offline evaluator uses.
+    """
+
+    name = "squad"
+    output_kind = "span"
+    epilogue = "stack_span"
+
+    def __init__(self, tokenizer, do_lower_case: bool = True,
+                 max_query_length: int = 64):
+        super().__init__(tokenizer)
+        self.do_lower_case = do_lower_case
+        self.max_query_length = max_query_length
+
+    def prepare(self, payload: dict, max_len: int) -> dict:
+        example = squad_lib.SquadExample(
+            qas_id="live",
+            question_text=payload["question"],
+            doc_tokens=squad_lib.whitespace_tokenize(payload["context"]),
+        )
+        query_tokens = _encode_tokens(self.tokenizer, example.question_text)
+        query_len = min(len(query_tokens), self.max_query_length)
+        budget = max(1, max_len - query_len - 3)
+        # Drop doc words from the end until their subtokens fit the one
+        # window, so the featurizer emits exactly one span; each word is
+        # tokenized once.
+        doc_tokens = list(example.doc_tokens)
+        counts = [len(_encode_tokens(self.tokenizer, w))
+                  for w in doc_tokens]
+        total = sum(counts)
+        while doc_tokens and total > budget:
+            total -= counts.pop()
+            doc_tokens.pop()
+        example.doc_tokens = doc_tokens or ["."]
+        feat = squad_lib.convert_examples_to_features(
+            [example], self.tokenizer, max_seq_length=max_len,
+            doc_stride=max_len, max_query_length=self.max_query_length,
+            is_training=False)[0]
+        n = len(feat.tokens)
+        return {
+            "input_ids": list(feat.input_ids[:n]),
+            "segment_ids": list(feat.segment_ids[:n]),
+            "example": example,
+            "feature": feat,
+        }
+
+    def postprocess(self, features: dict, outputs, payload: dict) -> dict:
+        start, end = outputs
+        start = np.asarray(start, np.float32)
+        end = np.asarray(end, np.float32)
+        feat = features["feature"]
+        pad = len(feat.input_ids) - len(start)
+        if pad > 0:  # re-pad to the featurizer's max_seq_length basis
+            start = np.concatenate([start, np.full(pad, -1e4, np.float32)])
+            end = np.concatenate([end, np.full(pad, -1e4, np.float32)])
+
+        class _Args:
+            n_best_size = int(payload.get("n_best", 5))
+            max_answer_length = int(payload.get("max_answer_length", 30))
+            version_2_with_negative = False
+            null_score_diff_threshold = 0.0
+            do_lower_case = self.do_lower_case
+
+        answers, nbest, _ = squad_lib.get_answers(
+            [features["example"]], [feat],
+            [squad_lib.RawResult(feat.unique_id, start.tolist(),
+                                 end.tolist())],
+            _Args())
+        return {
+            "answer": answers["live"],
+            "n_best": [
+                {"text": e["text"], "probability": float(e["probability"]),
+                 "start_logit": float(e["start_logit"]),
+                 "end_logit": float(e["end_logit"])}
+                for e in nbest["live"]],
+        }
+
+
+class NerHandler(TaskHandler):
+    """Token classification: one tag per whitespace word.
+
+    Every subtoken of a word rides the row; the word's tag is read from
+    its FIRST subtoken, and label ids start at 1 (0 is the reserved
+    non-entity/padding class), as the NER finetuning runner trains them.
+    """
+
+    name = "ner"
+    output_kind = "tokens"
+
+    def __init__(self, tokenizer, labels: List[str]):
+        super().__init__(tokenizer)
+        self.labels = list(labels)  # id i+1 -> labels[i]
+
+    def prepare(self, payload: dict, max_len: int) -> dict:
+        words = payload["text"].split()
+        ids: List[int] = []
+        word_starts: List[int] = []  # offset of each word's first subtoken
+        for word in words:
+            subtokens = _encode_tokens(self.tokenizer, word) or ["[UNK]"]
+            if len(ids) + len(subtokens) > max_len - 2:
+                break
+            word_starts.append(len(ids) + 1)  # +1 for [CLS]
+            ids.extend(_token_to_id(self.tokenizer, t) for t in subtokens)
+        features = self._wrap(ids, max_len)
+        features["words"] = words[: len(word_starts)]
+        features["word_starts"] = word_starts
+        return features
+
+    def postprocess(self, features: dict, outputs, payload: dict) -> dict:
+        logits = np.asarray(outputs, np.float32)  # [len, n_labels + 1]
+        tags = []
+        for word, pos in zip(features["words"], features["word_starts"]):
+            pred = int(np.argmax(logits[pos]))
+            # id 0 is the reserved class; real labels are 1-based.
+            tag = (self.labels[pred - 1]
+                   if 1 <= pred <= len(self.labels) else "O")
+            tags.append({"word": word, "tag": tag,
+                         "score": float(_softmax(logits[pos])[pred])})
+        return {"entities": tags}
+
+
+TASK_NAMES = ("fill_mask", "classify", "squad", "ner")
 
 
 def build_handlers(tokenizer, task_config: dict) -> Dict[str, TaskHandler]:
     """Instantiate handlers for the configured tasks. ``task_config`` maps
-    task name -> per-task options; ``classify`` reads ``labels``."""
+    task name -> per-task options: ``classify`` and ``ner`` read
+    ``labels``; ``squad`` reads ``do_lower_case`` and
+    ``max_query_length``."""
     handlers: Dict[str, TaskHandler] = {}
     for name, options in task_config.items():
         options = options or {}
@@ -240,6 +381,14 @@ def build_handlers(tokenizer, task_config: dict) -> Dict[str, TaskHandler]:
         elif name == "classify":
             handlers[name] = ClassifyHandler(
                 tokenizer, options.get("labels") or ["0", "1"])
+        elif name == "squad":
+            handlers[name] = SquadHandler(
+                tokenizer,
+                do_lower_case=bool(options.get("do_lower_case", True)),
+                max_query_length=int(options.get("max_query_length", 64)))
+        elif name == "ner":
+            handlers[name] = NerHandler(
+                tokenizer, options.get("labels") or ["O"])
         else:
             raise ValueError(f"unknown serve task {name!r}; "
                              f"known: {', '.join(TASK_NAMES)}")

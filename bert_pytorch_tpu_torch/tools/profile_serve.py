@@ -6,10 +6,12 @@ kernels that fill the forward.
         [--model_config_file configs/bert_large_uncased_config.json] \
         [--buckets 128,512] [--max_batch_size 8] [--dtype bfloat16] \
         [--attention_backend flash_infer] [--iters 5] \
+        [--tasks fill_mask,classify,squad,ner] \
         [--quantize none|bf16|int8] [--fuse_epilogues] [--epilogue_slots 8]
 
 Per (task, bucket, packed) it stages one full batch of seeded demo-vocab
-requests sized for that bucket and reports, in milliseconds:
+requests sized for that bucket (squad: a four-word question and a context
+filling the rest) and reports, in milliseconds:
 
 * ``stage_ms`` / ``execute_ms`` / ``demux_ms`` / ``postprocess_ms`` — the
   engine's three steps and the handlers' decode (host clock; ``execute``
@@ -21,9 +23,9 @@ requests sized for that bucket and reports, in milliseconds:
   (cuBLAS/cuBLASLt kernel names), ``int8_gemm_ms`` those of them on int8
   operands.
 
-``fused`` says whether the batch took the fused fill_mask gather (each
-request here carries one [MASK], so a packed row of four fits the default
-eight slots).
+``fused`` says whether the batch took its head's fused epilogue: the
+fill_mask gather (each request here carries one [MASK], so a packed row
+of four fits the default eight slots) or squad's stacked span output.
 
 Weights are seeded random (demo mode); the widths are the config's. Needs
 a CUDA card unless ``--device cpu`` (then no kernel table is taken).
@@ -57,7 +59,11 @@ def _requests(engine, task, bucket, packed, rng):
         text = [str(w) for w in rng.choice(TRACE_WORDS, words)]
         if task == "fill_mask":
             text[len(text) // 2] = "[MASK]"
-        payload = {"text": " ".join(text)}
+        if task == "squad":
+            payload = {"question": " ".join(text[:4]),
+                       "context": " ".join(text[4:] or text)}
+        else:
+            payload = {"text": " ".join(text)}
         reqs.append(Request(task, handler.prepare(payload, bucket), payload))
     return reqs
 
@@ -115,6 +121,8 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--tasks", default="fill_mask,classify,squad,ner",
+                        help="comma-separated serving heads to profile")
     add_fast_path_args(parser)
     args = parser.parse_args(argv)
 
@@ -134,7 +142,7 @@ def main(argv=None) -> int:
         tokenizer = BertTokenizer(write_trace_vocab(
             os.path.join(tmp, "vocab.txt")))
     engine = InferenceEngine(
-        config, tokenizer, {"fill_mask": {}, "classify": {}},
+        config, tokenizer, {task: {} for task in args.tasks.split(",")},
         buckets=[int(b) for b in args.buckets.split(",")],
         max_batch_size=args.max_batch_size, max_requests_per_pack=4,
         dtype=DTYPES[args.dtype], seed=args.seed,

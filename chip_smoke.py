@@ -40,22 +40,39 @@ Phases (any failure exits non-zero and prints no result line):
    (device time per call, CUDA events beside), each on both routes and,
    at S=512 bf16, at rate 0 as well as 0.1 (the keep mask's cost),
    SDPA's backward alone as its forward + backward less its forward;
-5. the serving main path: ``run_server.build_service`` at full BERT-large
-   width (configs/bert_large_uncased_config.json, seeded random weights,
-   a demo vocab) serving fill_mask and classify over HTTP, packed and
-   unpacked, over both buckets; the serving kernel must launch once per
-   encoder layer per forward, every launch on its tensor-core route.
+5. the serving main path, from checkpoints: the four heads' seeded
+   weights at full BERT-large width (configs/bert_large_uncased_config.json,
+   a demo vocab), as an in-memory server holds them, are written with the
+   port's ``save_checkpoint`` (about 1.3 GB of fp32 a head, after a check
+   of the free disk; the write and load seconds of each head are logged),
+   then ``run_server.build_service`` with ``--tasks
+   fill_mask,classify,squad,ner`` and the four ``--<task>_checkpoint``
+   directories serves fill_mask, classify, squad and ner over HTTP, packed
+   and unpacked, over both buckets; the serving kernel must launch once
+   per encoder layer per forward, every launch on its tensor-core route.
+   Every head's loaded weights must equal the in-memory ones bit for bit,
+   and every request's ``run_direct`` answer the in-memory server's.
+   Then the hot-swap: a classify + squad server from the checkpoints
+   keeps eight clients sending requests while ``POST /swapz`` swaps
+   classify to a checkpoint of other seeded weights as v2; every request
+   answers 200, /healthz and /statsz report v2, one swap and no torn
+   serve, the answers after it equal a fresh engine's from that
+   checkpoint, and the swap's ``load_s`` is logged.
    Then one staged fp32 fill_mask batch
    through a ``flash_infer`` engine and a ``dense`` engine with the same
    seeded weights must agree;
-5c. the int8 serving main path: ``build_service`` at the same width with
-   ``--quantize int8 --attention_backend flash_infer_int8
-   --fuse_epilogues --pack_requests``, the same waves plus one fill_mask
-   request with 9 [MASK]s (past the 8 gather slots, so one batch takes the
-   unfused forward); the int8 kernel must launch once per encoder layer
-   per forward, every launch on its tensor-core route, and the fp kernel
+5c. the int8 serving main path: ``build_service`` from the same
+   checkpoints with ``--quantize int8 --attention_backend
+   flash_infer_int8 --fuse_epilogues --pack_requests``, the same waves
+   plus one fill_mask request with 9 [MASK]s (past the 8 gather slots, so
+   one batch takes the unfused forward; squad takes the stacked-span
+   forward, classify and ner none); the int8 weights quantized as they
+   stream in must equal ``quantize_state_dict`` of the in-memory weights
+   bit for bit; the int8 kernel must launch once per encoder layer per
+   forward, every launch on its tensor-core route, and the fp kernel
    never; the int8 engine's weight bytes are
-   logged beside the fp32 engine's. Then one staged fp32-compute
+   logged beside the fp32 engine's. The checkpoints are deleted. Then one
+   staged fp32-compute
    fill_mask batch from the same seeded weights: int8 scores on fp32
    weights must agree with the fp32 engine to the JAX package's int8
    attention bound, the fused gather must equal the unfused batch's
@@ -104,6 +121,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -156,6 +174,13 @@ INT8_CHECK_LAYERS = 2
 # A fill_mask request with more [MASK]s than the 8 gather slots: its batch
 # runs the unfused forward.
 OVERFLOW_MASKS = 9
+# The four serving heads, served from checkpoints the smoke writes; the
+# NER tags are run_server's default set; the classify weights the hot-swap
+# loads (version v2) are drawn from SWAP_SEED.
+HEADS = ("fill_mask", "classify", "squad", "ner")
+NER_TAGS = ("O", "B-PER", "I-PER", "B-LOC", "I-LOC", "B-ORG", "I-ORG",
+            "B-MISC", "I-MISC")
+SWAP_SEED = 1234
 # The LayerNorm forward kernel (TPU kernel #6): the SQuAD path's rows
 # (batch 32 x 384), the pretraining path's (8 x 512) and a ragged BERT-base
 # shape. Against its plain version on the same inputs: fp32 out within
@@ -836,8 +861,9 @@ def serve_args(vocab: str, dtype: str, backend: str, tasks: str,
 
 
 def request_waves() -> list:
-    """Two waves of concurrent requests for both heads: short ones (packed
-    several to a row in the 128 bucket), then long ones (the 512 bucket)."""
+    """Two waves of concurrent requests for the four heads: short ones
+    (packed several to a row in the 128 bucket), then long ones (the 512
+    bucket; squad's context truncated to it)."""
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import TRACE_WORDS
 
     rng = np.random.default_rng(7)
@@ -851,14 +877,19 @@ def request_waves() -> list:
             out.append(("fill_mask", {"text": " ".join(
                 words[:cut] + ["[MASK]"] + words[cut:]), "top_k": 5}))
             out.append(("classify", {"text": " ".join(words)}))
+            out.append(("squad", {"question": " ".join(words[:4]),
+                                  "context": " ".join(words)}))
+            out.append(("ner", {"text": " ".join(words)}))
         return out
 
     return [wave(4, 24, 8), wave(200, 420, 4)]
 
 
-def post(port: int, task: str, payload: dict) -> tuple:
+def post(port: int, task: str, payload: dict, path: str = "") -> tuple:
+    """POST ``payload`` to /v1/<task> (or to ``path``): (status, body,
+    seconds)."""
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/{task}",
+        f"http://127.0.0.1:{port}{path or '/v1/' + task}",
         data=json.dumps(payload).encode(),
         headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -868,6 +899,12 @@ def post(port: int, task: str, payload: dict) -> tuple:
             return resp.status, body, time.perf_counter() - t0
     except urllib.error.HTTPError as exc:
         return exc.code, exc.read().decode(), time.perf_counter() - t0
+
+
+def get(port: int, path: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
 
 
 def check_body(task: str, payload: dict, body, labels) -> None:
@@ -881,18 +918,32 @@ def check_body(task: str, payload: dict, body, labels) -> None:
                     and 0.0 <= slot["score"] <= 1.0
                     and math.isfinite(slot["score"])):
                 raise AssertionError(f"fill_mask slot malformed: {slot}")
+    elif task == "squad":
+        nbest = body["n_best"]
+        if not (isinstance(body["answer"], str) and nbest and all(
+                math.isfinite(e["start_logit"])
+                and math.isfinite(e["end_logit"])
+                and 0.0 <= e["probability"] <= 1.0 for e in nbest)):
+            raise AssertionError(f"squad body malformed: {body}")
+    elif task == "ner":
+        ents, words = body["entities"], payload["text"].split()
+        if not (ents and [e["word"] for e in ents] == words[:len(ents)]
+                and all(e["tag"] in NER_TAGS and 0.0 <= e["score"] <= 1.0
+                        for e in ents)):
+            raise AssertionError(f"ner body malformed: {body}")
     else:
         if body["label"] not in labels or abs(
                 sum(body["scores"].values()) - 1.0) > 1e-4:
             raise AssertionError(f"classify body malformed: {body}")
 
 
-def serve_waves(args, waves: list, kernels: dict) -> dict:
+def serve_waves(args, waves: list, kernels: dict) -> tuple:
     """Build the service for ``args``, warm it, then serve ``waves`` over
-    HTTP (each wave's requests concurrently) and two requests through
-    ``run_direct`` (one request alone in an unpacked row). Every count is
-    set to 0 just before the traffic and read just after. Checks that every
-    request answered 200 with a well-formed body."""
+    HTTP (each wave's requests concurrently) and one request per head
+    through ``run_direct`` (one request alone in an unpacked row). Every
+    count is set to 0 just before the traffic and read just after. Checks
+    that every request answered 200 with a well-formed body. Returns (the
+    run's numbers, the engine)."""
     from bert_pytorch_tpu_torch import run_server
     from bert_pytorch_tpu_torch.serve import make_server
 
@@ -929,8 +980,10 @@ def serve_waves(args, waves: list, kernels: dict) -> dict:
             payloads += wave
         # The unpacked forward (key-bias path of the kernel): the offline
         # scoring entry point runs one request alone in a row.
+        singles = [tp for tp in waves[0][:len(HEADS)]
+                   if tp[0] in engine.tasks]
         direct = {task: engine.run_direct(task, payload)
-                  for task, payload in (waves[0][0], waves[0][1])}
+                  for task, payload in singles}
     finally:
         server.shutdown()
         server.server_close()
@@ -944,20 +997,23 @@ def serve_waves(args, waves: list, kernels: dict) -> dict:
         if status != 200:
             raise AssertionError(f"{task} answered {status}: {body}")
         check_body(task, payload, body, labels)
-    for task, payload in (waves[0][0], waves[0][1]):
+    for task, payload in singles:
         check_body(task, payload, direct[task], labels)
     latencies = sorted(r[2] for r in results)
     log(f"[serve] {len(results)} requests answered 200 over {forwards} "
         f"forwards; plans (task, bucket, packed, max requests/row, fused): "
         f"{plans}")
+    del engine.execute_staged
     return {"requests": len(results), "forwards": forwards,
             "launches": launches, "routes": routes, "plans": plans,
             "layers": engine.config.num_hidden_layers,
             "p50_ms": statistics.median(latencies) * 1e3,
             "max_ms": latencies[-1] * 1e3,
             "cold_start_s": engine.startup["cold_start_s"],
+            "load_s_by_task": engine.startup["load_s_by_task"],
             "weight_bytes": engine.startup["weight_bytes"],
-            "weight_bytes_by_task": engine.startup["weight_bytes_by_task"]}
+            "weight_bytes_by_task": engine.startup["weight_bytes_by_task"]
+            }, engine
 
 
 def check_coverage(plans: list) -> None:
@@ -989,13 +1045,189 @@ def check_launches(served: dict, kernel: str, idle: Sequence[str]) -> None:
                                  f"on the path of {kernel}")
 
 
-def drive_main_path(vocab: str, kernels: dict) -> dict:
-    """Phase 5a: serve fill_mask + classify over HTTP at BERT-large width."""
-    args = serve_args(vocab, "bfloat16", "flash_infer", "fill_mask,classify")
-    served = serve_waves(args, request_waves(), kernels)
+def write_checkpoints(vocab: str, root: str) -> tuple:
+    """Phase 5, first: the four heads' seeded BERT-large weights as an
+    in-memory server holds them, each written with the port's
+    ``save_checkpoint`` (about 1.3 GB of fp32 a head), and classify's from
+    SWAP_SEED for the hot-swap. Checks the free disk first and fails
+    loudly when it is short. Returns (the in-memory engine, checkpoint
+    paths, seconds per write)."""
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.models import bert
+    from bert_pytorch_tpu_torch.models.convert import to_jax_params
+    from bert_pytorch_tpu_torch.ops.quant import weight_bytes
+    from bert_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
+
+    memory = run_server.build_service(serve_args(
+        vocab, "bfloat16", "flash_infer", ",".join(HEADS))).engine
+    cfg = memory.config
+    swap_model = bert.init_weights(
+        bert.BertForSequenceClassification(cfg, num_labels=2,
+                                           device=memory.device),
+        cfg.initializer_range,
+        torch.Generator(device=memory.device).manual_seed(SWAP_SEED))
+    models = {task: spec.model for task, spec in memory.tasks.items()}
+    models["classify_v2"] = swap_model
+    need = sum(weight_bytes(m) for m in models.values())
+    free = shutil.disk_usage(root).free
+    log(f"[ckpt] writing {need / 2**30:.2f} GiB of checkpoints under {root}: "
+        f"{free / 2**30:.2f} GiB free")
+    if free < need * 1.05 + 2**30:
+        raise AssertionError(f"not enough disk for the checkpoints: "
+                             f"{free} bytes free, {need} needed")
+    paths, write_s = {}, {}
+    for name, model in models.items():
+        head = name.split("_v2")[0]
+        t0 = time.perf_counter()
+        params = to_jax_params(model.state_dict(), cfg, head)
+        paths[name] = save_checkpoint(os.path.join(root, name), 0,
+                                      {"model": params, "epoch": 0})
+        write_s[name] = time.perf_counter() - t0
+        del params
+        log(f"[ckpt] {name}: {os.path.getsize(paths[name])} bytes written "
+            f"in {write_s[name]:.2f} s")
+    return memory, paths, write_s
+
+
+def checkpoint_flags(paths: dict, tasks) -> list:
+    """``--<task>_checkpoint <dir>`` for each task (the directory: the
+    server takes its newest checkpoint)."""
+    return [arg for task in tasks for arg in (
+        f"--{task}_checkpoint", os.path.dirname(paths[task]))]
+
+
+def compare_engines(engine, memory) -> int:
+    """The checkpoint-loaded engine against the in-memory one: every
+    head's weights bit for bit, and every wave request's answer through
+    ``run_direct`` equal (the same fp32 weights reach the same kernels, so
+    any difference is a load fault). Returns the answers compared."""
+    for task, spec in engine.tasks.items():
+        got = spec.model.state_dict()
+        want = memory.tasks[task].model.state_dict()
+        if set(got) != set(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"{task}: the checkpoint-loaded weights "
+                                 "differ from the in-memory ones")
+    compared = 0
+    for wave in request_waves():
+        for task, payload in wave:
+            ours = engine.run_direct(task, payload)
+            if ours != memory.run_direct(task, payload):
+                raise AssertionError(f"{task} answer from the checkpoint "
+                                     f"differs from memory: {payload}")
+            compared += 1
+    return compared
+
+
+def drive_main_path(vocab: str, kernels: dict, memory, paths: dict) -> tuple:
+    """Phase 5a: serve the four heads from their checkpoints over HTTP at
+    BERT-large width, then hold the loaded engine to the in-memory one."""
+    args = serve_args(vocab, "bfloat16", "flash_infer", ",".join(HEADS),
+                      checkpoint_flags(paths, HEADS))
+    served, engine = serve_waves(args, request_waves(), kernels)
     check_coverage(served["plans"])
     check_launches(served, "flash_attention_infer", ("layer_norm_fwd",))
-    return served
+    t0 = time.perf_counter()
+    served["answers_equal_memory"] = compare_engines(engine, memory)
+    log(f"[check] checkpoint-loaded heads: weights bit-equal to memory, "
+        f"{served['answers_equal_memory']} run_direct answers equal in "
+        f"{time.perf_counter() - t0:.2f} s; load s by head "
+        f"{served['load_s_by_task']}")
+    return served, engine
+
+
+def check_hot_swap(vocab: str, kernels: dict, paths: dict) -> dict:
+    """Hot-swap on the card: a classify + squad server from the
+    checkpoints keeps eight clients sending classify and squad requests
+    while ``POST /swapz`` swaps classify to the SWAP_SEED checkpoint as
+    v2. Every request answers 200 and well formed, /healthz and /statsz
+    report v2, one swap and no torn serve, the answers after the swap equal
+    a fresh engine's built from that checkpoint, and the kernel launches
+    once per layer per forward on the tensor cores."""
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.serve import make_server
+
+    tasks = ("classify", "squad")
+    service = run_server.build_service(serve_args(
+        vocab, "bfloat16", "flash_infer", ",".join(tasks),
+        checkpoint_flags(paths, tasks)))
+    engine = service.engine
+    engine.warmup()
+    payloads = [tp for wave in request_waves() for tp in wave
+                if tp[0] in tasks]
+    results, stop = [], threading.Event()
+
+    def client(mine):
+        while not stop.is_set():
+            for task, payload in mine:
+                results.append((task, payload, post(port, task, payload)))
+
+    zero_counts(kernels)
+    engine.forwards = 0
+    service.start()
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            clients = [pool.submit(client, payloads[i::8]) for i in range(8)]
+            time.sleep(1.0)
+            before = len(results)
+            status, info, swap_s = post(port, "", {
+                "task": "classify", "checkpoint": paths["classify_v2"],
+                "version": "v2"}, path="/swapz")
+            during = len(results) - before
+            time.sleep(1.0)
+            stop.set()
+            for future in clients:
+                future.result()
+        health, stats = get(port, "/healthz"), get(port, "/statsz")
+    finally:
+        stop.set()
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        thread.join(timeout=30)
+    check_launches({
+        "launches": {name: k.launches for name, k in kernels.items()},
+        "routes": {"flash_attention_infer": dict(
+            kernels["flash_attention_infer"].route_launches)},
+        "forwards": engine.forwards,
+        "layers": engine.config.num_hidden_layers},
+        "flash_attention_infer", ("layer_norm_fwd",))
+    if status != 200 or info.get("version") != "v2" or info.get(
+            "compiles") != 0:
+        raise AssertionError(f"/swapz answered {status}: {info}")
+    for task, payload, (code, body, _) in results:
+        if code != 200:
+            raise AssertionError(f"{task} answered {code} during the swap: "
+                                 f"{body}")
+        check_body(task, payload, body, ["0", "1"])
+    if (health.get("version") != "v2" or stats.get("version") != "v2"
+            or stats.get("swaps") != 1 or stats.get("torn_serves") != 0):
+        raise AssertionError(f"after the swap /healthz {health}, /statsz "
+                             f"swaps {stats.get('swaps')} torn "
+                             f"{stats.get('torn_serves')}")
+    fresh = run_server.build_service(serve_args(
+        vocab, "bfloat16", "flash_infer", "classify",
+        ["--classify_checkpoint", os.path.dirname(paths["classify_v2"])])
+    ).engine
+    classify = [p for t, p in payloads if t == "classify"]
+    for payload in classify:
+        if engine.run_direct("classify", payload) != fresh.run_direct(
+                "classify", payload):
+            raise AssertionError(f"after the swap, classify differs from a "
+                                 f"fresh v2 engine: {payload}")
+    log(f"[swap] /swapz classify -> v2 answered 200 in {swap_s:.2f} s "
+        f"(load_s {info['load_s']}, compiles {info['compiles']}); "
+        f"{len(results)} requests answered 200, {during} of them while the "
+        f"swap ran; /statsz swaps {stats['swaps']}, torn_serves "
+        f"{stats['torn_serves']}; {len(classify)} answers equal a fresh v2 "
+        f"engine")
+    return {"load_s": info["load_s"], "swap_s": swap_s,
+            "requests": len(results), "during_swap": during,
+            "fresh_load_s": fresh.load_s["classify"]}
 
 
 def overflow_request() -> tuple:
@@ -1006,24 +1238,43 @@ def overflow_request() -> tuple:
                           "top_k": 5})
 
 
-def drive_int8_main_path(vocab: str, kernels: dict) -> dict:
-    """Phase 5c: the int8 fast path over HTTP at BERT-large width (int8
-    weights and GEMMs, the int8-score kernel, the fused fill_mask gather),
-    with one batch past the gather slots."""
-    args = serve_args(vocab, "bfloat16", "flash_infer_int8",
-                      "fill_mask,classify", INT8_FLAGS)
-    served = serve_waves(args, request_waves() + [[overflow_request()]],
-                         kernels)
+def drive_int8_main_path(vocab: str, kernels: dict, memory,
+                         paths: dict) -> dict:
+    """Phase 5c: the int8 fast path over HTTP at BERT-large width from the
+    same checkpoints (int8 weights quantized as they stream in, int8 GEMMs,
+    the int8-score kernel, the fused fill_mask gather and squad's stacked
+    span), with one batch past the gather slots. The streamed int8 weights
+    must equal bit for bit ``quantize_state_dict`` of the in-memory
+    weights."""
+    from bert_pytorch_tpu_torch.models.convert import quantize_state_dict
+
+    args = serve_args(vocab, "bfloat16", "flash_infer_int8", ",".join(HEADS),
+                      INT8_FLAGS + tuple(checkpoint_flags(paths, HEADS)))
+    served, engine = serve_waves(args, request_waves() + [[overflow_request()]],
+                                 kernels)
     plans = served["plans"]
     check_coverage(plans)
-    fill = {p[4] for p in plans if p[0] == "fill_mask"}
-    if fill != {False, True} or any(p[4] for p in plans
-                                    if p[0] == "classify"):
-        raise AssertionError(f"fill_mask did not take both the fused and "
-                             f"the unfused forward (or classify fused): "
-                             f"{plans}")
+    fused = {task: {p[4] for p in plans if p[0] == task} for task in HEADS}
+    if fused != {"fill_mask": {False, True}, "classify": {False},
+                 "squad": {True}, "ner": {False}}:
+        raise AssertionError(f"fused epilogues by head {fused}: fill_mask "
+                             f"takes both forwards, squad only the stacked "
+                             f"span, classify and ner none; plans {plans}")
     check_launches(served, "flash_attention_infer_int8",
                    ("flash_attention_infer", "layer_norm_fwd"))
+    for task, spec in engine.tasks.items():
+        got = spec.model.state_dict()
+        want = quantize_state_dict(memory.tasks[task].model.state_dict(),
+                                   "int8")
+        if set(got) != set(want) or not all(
+                got[k].dtype == want[k].dtype
+                and torch.equal(got[k], want[k].to(got[k].device))
+                for k in want):
+            raise AssertionError(f"{task}: streamed int8 weights differ "
+                                 "from quantize_state_dict of memory's")
+    log(f"[check] streamed int8 weights of {sorted(engine.tasks)} equal "
+        f"quantize_state_dict of the in-memory weights bit for bit; load s "
+        f"by head {served['load_s_by_task']}")
     return served
 
 
@@ -1603,17 +1854,31 @@ def main() -> int:
             write_trace_vocab)
 
         vocab = write_trace_vocab(os.path.join(tmp, "vocab.txt"))
-        served = drive_main_path(vocab, kernels)
-        log(f"[serve] {served['requests']} requests served, p50 "
-            f"{served['p50_ms']:.1f} ms, max {served['max_ms']:.1f} ms on "
-            f"{card}")
+        root = os.path.join(tmp, "checkpoints")
+        os.makedirs(root)
+        memory, paths, write_s = write_checkpoints(vocab, root)
+        served, engine = drive_main_path(vocab, kernels, memory, paths)
+        del engine
+        log(f"[serve] {served['requests']} requests served from "
+            f"checkpoints, p50 {served['p50_ms']:.1f} ms, max "
+            f"{served['max_ms']:.1f} ms on {card}")
+        torch.cuda.empty_cache()
+        swap = check_hot_swap(vocab, kernels, paths)
+        torch.cuda.empty_cache()
         engine_err, fp32_rows = check_flash_vs_dense(vocab)
         torch.cuda.empty_cache()
-        served8 = drive_int8_main_path(vocab, kernels)
+        served8 = drive_int8_main_path(vocab, kernels, memory, paths)
+        del memory
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
         log(f"[serve int8] {served8['requests']} requests served, p50 "
             f"{served8['p50_ms']:.1f} ms, max {served8['max_ms']:.1f} ms; "
             f"weight bytes int8 {served8['weight_bytes_by_task']} vs fp32 "
             f"{served['weight_bytes_by_task']} on {card}")
+        log(f"[ckpt] BERT-large heads on {card}: write s "
+            f"{ {k: round(v, 2) for k, v in write_s.items()} }, load s fp32 "
+            f"{served['load_s_by_task']}, int8 {served8['load_s_by_task']}, "
+            f"swap load_s {swap['load_s']}")
         int8_errs = check_int8_engines(vocab, fp32_rows)
     torch.cuda.empty_cache()
     trained = drive_training(kernels)
@@ -1645,7 +1910,7 @@ def main() -> int:
     ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
         worst, cases, trained) + [ln_entry]
-    log(f"[result] {json.dumps(dict(served, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

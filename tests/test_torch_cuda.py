@@ -598,3 +598,58 @@ def test_squad_head_with_layer_norm_kernel_on_card():
     assert kln.layer_norm_fwd.launches == before + 5
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_heads_from_checkpoints_and_swap_on_card(tmp_path, monkeypatch):
+    """A tiny engine's four heads written with the port's save_checkpoint
+    and served from those files on the card: every weight equal, squad's
+    stacked-span forward and ner answering as the in-memory engine does,
+    and a hot-swap of classify that loads no kernel library."""
+    _need_card()
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.models.convert import to_jax_params
+    from bert_pytorch_tpu_torch.ops.kernels import build as kernel_build
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        write_trace_vocab)
+    from bert_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps(dict(
+        vocab_size=48, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=1, intermediate_size=128,
+        max_position_embeddings=64, next_sentence=True)))
+    vocab = write_trace_vocab(str(tmp_path / "vocab.txt"))
+    base = ["--model_config_file", str(cfg), "--vocab_file", vocab,
+            "--dtype", "float32", "--buckets", "16,32"]
+    memory = run_server.build_service(run_server.parse_arguments(
+        base)).engine
+    flags = []
+    for task, spec in memory.tasks.items():
+        save_checkpoint(str(tmp_path / task), 0, {"model": to_jax_params(
+            spec.model.state_dict(), memory.config, task)})
+        flags += [f"--{task}_checkpoint", str(tmp_path / task)]
+    served = run_server.build_service(run_server.parse_arguments(
+        base + flags + ["--fuse_epilogues"])).engine
+    for task, spec in served.tasks.items():
+        want = memory.tasks[task].model.state_dict()
+        got = spec.model.state_dict()
+        assert all(torch.equal(got[k], want[k]) for k in want), task
+    payloads = {"squad": {"question": "who wrote hamlet",
+                          "context": "william shakespeare wrote hamlet"},
+                "ner": {"text": "paris is in france"}}
+    for task, payload in payloads.items():
+        assert (served.run_direct(task, payload)
+                == memory.run_direct(task, payload))
+    def refuse(*args, **kwargs):
+        raise AssertionError("a hot-swap must build and load no kernel")
+
+    # Every launch looks its library up through load(), so only the swap
+    # itself runs with the build and load refused.
+    with monkeypatch.context() as patch:
+        patch.setattr(kernel_build, "build", refuse)
+        patch.setattr(kernel_build, "load", refuse)
+        info = served.swap_params("classify", str(
+            tmp_path / "classify" / "ckpt_0.msgpack"), "v2")
+    assert info["compiles"] == 0 and served.version() == "v2"
+    assert (served.run_direct("classify", {"text": "paris is big"})
+            == memory.run_direct("classify", {"text": "paris is big"}))

@@ -121,7 +121,7 @@ def test_from_jax_params_maps_every_parameter(jax_params):
     with pytest.raises(KeyError, match="head"):
         from_jax_params(jax_params["fill_mask"], cfg, "classify")
     with pytest.raises(ValueError, match="unknown head"):
-        from_jax_params(jax_params["fill_mask"], cfg, "squad")
+        from_jax_params(jax_params["fill_mask"], cfg, "summarize")
 
 
 def test_packed_positions_restart_per_sequence():

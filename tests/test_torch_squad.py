@@ -3,7 +3,7 @@ CPU: featurization, the QA head, ``span_loss``, the finetuning optimizers
 and train step, n-best decoding, torch-archive import, and the runner end
 to end on a seeded synthetic SQuAD file.
 
-Weights cross with ``from_jax_params(..., head="qa")``; inputs are numpy
+Weights cross with ``from_jax_params(..., head="squad")``; inputs are numpy
 arrays or files from a seed. Tolerances: features, examples and decoded
 answers exactly (the same pure-Python logic); QA logits and span loss fp32
 1e-5 (the serving heads' bar); optimizers and the finetune steps 1e-6 in
@@ -141,7 +141,7 @@ def _torch_qa(params, layer_norm_backend="plain"):
     cfg = BertConfig(**CONFIG)
     model = bert.BertForQuestionAnswering(
         cfg, layer_norm_backend=layer_norm_backend)
-    model.load_state_dict(from_jax_params(params, cfg, "qa"))
+    model.load_state_dict(from_jax_params(params, cfg, "squad"))
     return model
 
 
@@ -178,7 +178,7 @@ def test_qa_head_computes_in_fp32_on_a_bf16_encoder(jax_qa_params):
     head), not a bf16 product."""
     cfg = BertConfig(**CONFIG)
     model = bert.BertForQuestionAnswering(cfg, torch.bfloat16)
-    model.load_state_dict(from_jax_params(jax_qa_params, cfg, "qa"))
+    model.load_state_dict(from_jax_params(jax_qa_params, cfg, "squad"))
     t = _t(_qa_batch())
     with torch.no_grad():
         start, end = model(t["input_ids"], t["segment_ids"], t["input_mask"])
@@ -350,7 +350,7 @@ def test_finetune_steps_match_jax(jax_qa_params, tiny_config, tmp_path,
         np.testing.assert_allclose(float(t_loss), float(j_loss), atol=ATOL,
                                    rtol=0)
     ref = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
-                          BertConfig(**CONFIG), "qa")
+                          BertConfig(**CONFIG), "squad")
     for name, param in model.named_parameters():
         np.testing.assert_allclose(param.detach().numpy(), ref[name].numpy(),
                                    atol=STEP_ATOL, rtol=0, err_msg=name)
@@ -429,24 +429,26 @@ def test_from_torch_state_dict_equals_from_jax_params(jax_pretraining_params):
     again = from_torch_state_dict(reference, cfg, "pretraining")
     for key, value in want.items():
         torch.testing.assert_close(again[key], value, atol=0, rtol=0, msg=key)
-    qa = from_torch_state_dict(exported, cfg, "qa")
+    qa = from_torch_state_dict(exported, cfg, "squad")
     assert set(qa) == {k for k in want if k.startswith("bert.")}
     with pytest.raises(KeyError, match="not a BERT checkpoint"):
-        from_torch_state_dict({"x": torch.zeros(1)}, cfg, "qa")
+        from_torch_state_dict({"x": torch.zeros(1)}, cfg, "squad")
 
 
 def test_load_pretrained_encoder_reads_torch_archives(jax_pretraining_params,
                                                       tmp_path):
     """A .bin file and a directory with pytorch_model.bin (under the
     reference's ``{"model": ...}`` layout) put the encoder under a QA model
-    and leave its head alone; msgpack and TF checkpoints raise with a
-    pointer to ROADMAP.md."""
+    and leave its head alone; TF checkpoints (a directory without
+    pytorch_model.bin, a prefix with its .index file) raise with a pointer
+    to ROADMAP.md. The JAX package's msgpack checkpoints load:
+    tests/test_torch_checkpoint.py."""
     cfg = BertConfig(**CONFIG)
     exported = {k: torch.from_numpy(np.array(v)) for k, v in
                 jax_convert.export_torch_state_dict(
                     jax_pretraining_params,
                     JaxConfig(**dict(CONFIG, vocab_size=45))).items()}
-    want = from_torch_state_dict(exported, cfg, "qa")
+    want = from_torch_state_dict(exported, cfg, "squad")
     (tmp_path / "archive").mkdir()
     torch.save({"model": exported}, tmp_path / "archive" / "pytorch_model.bin")
     torch.save(exported, tmp_path / "weights.bin")
@@ -459,7 +461,8 @@ def test_load_pretrained_encoder_reads_torch_archives(jax_pretraining_params,
         for key, value in want.items():
             torch.testing.assert_close(state[key], value, atol=0, rtol=0)
         torch.testing.assert_close(model.qa_outputs.weight.detach(), head)
-    for bad in ("ckpt_100.msgpack", str(tmp_path)):
+    (tmp_path / "bert_model.ckpt.index").write_bytes(b"")
+    for bad in (str(tmp_path / "bert_model.ckpt"), str(tmp_path)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             load_pretrained_encoder(bad, cfg, model)
 
