@@ -3,11 +3,13 @@ copy of the JAX package's ``data/sampler.py`` (parity with reference
 src/dataset.py:341-428 ``DistributedSampler``). Each rank takes a
 contiguous chunk of the index space, so ranks stream different shard files
 sequentially; the sampler is its own iterator, so its ``index`` is the
-resume position (saving and restoring it comes with checkpointing)."""
+resume position, saved and restored with :meth:`state_dict` and
+:meth:`load_state_dict` under the JAX package's keys and rules."""
 
 from __future__ import annotations
 
 import math
+import warnings
 
 
 class DistributedSampler:
@@ -55,6 +57,36 @@ class DistributedSampler:
         x = self.global_indices[self.index + self.rank * self.num_samples]
         self.index += 1
         return x
+
+    def state_dict(self) -> dict:
+        return {
+            "epoch": self.epoch,
+            "seed": self.seed,
+            "num_replicas": self.num_replicas,
+            "total_size": self.total_size,
+            "index": self.index,
+        }
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore the position; a changed dataset size or replica count
+        warns and keeps the fresh position, as the JAX sampler does."""
+        if state_dict["total_size"] != self.total_size:
+            warnings.warn(
+                "The number of samples in the Sampler has changed. Skipping "
+                f"restoring sampler state. Expected size {self.total_size} "
+                f"but got size {state_dict['total_size']}. If the dataset "
+                "was changed and the sampler should be reset, ignore this "
+                "message")
+            return
+        if state_dict["num_replicas"] != self.num_replicas:
+            warnings.warn(
+                "The number of replicas has changed so the resume index "
+                "from the sampler is no longer valid. Skipping restoring "
+                "sampler state.")
+            return
+        self.epoch = int(state_dict["epoch"])
+        self.seed = int(state_dict["seed"])
+        self.index = int(state_dict["index"])
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch

@@ -1,8 +1,10 @@
 """Pure-Python WordPiece tokenization (reference src/tokenization.py:60-229).
 
 A copy of the JAX package's behavioral-spec tokenizers: ``load_vocab``,
-``BasicTokenizer``, ``WordpieceTokenizer`` and ``BertTokenizer``. The fast
-backends (the C++ core, HF ``tokenizers``) are not part of the port yet.
+``BasicTokenizer``, ``WordpieceTokenizer`` and ``BertTokenizer``, and
+``get_wordpiece_tokenizer``, whose tokenizer answers the fast-tokenizer
+calls of the finetuning data modules. The fast backends themselves (the
+C++ core, HF ``tokenizers``) are not part of the port yet.
 
 Thread-safety: every class holds only read-only state after construction
 (vocab dicts, flags), so one shared instance serves all HTTP worker threads.
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import collections
 import unicodedata
-from typing import Iterable, Optional
+from typing import Iterable, List, NamedTuple, Optional
 
 
 def load_vocab(vocab_file: str) -> "collections.OrderedDict[str, int]":
@@ -214,3 +216,35 @@ class BertTokenizer:
 
     def convert_ids_to_tokens(self, ids: Iterable[int]) -> list[str]:
         return [self.ids_to_tokens[i] for i in ids]
+
+
+class Encoding(NamedTuple):
+    """What a fast tokenizer's ``encode`` returns, as far as the data
+    modules read it."""
+
+    ids: List[int]
+    tokens: List[str]
+
+
+class WordpieceEncoder(BertTokenizer):
+    """:class:`BertTokenizer` with the fast-tokenizer interface that the
+    GLUE, NER and SWAG data modules call (``encode(text,
+    add_special_tokens=False).ids``/``.tokens``, ``token_to_id``), where
+    the JAX package hands them its C++ or HF WordPiece tokenizer."""
+
+    def encode(self, text: str, add_special_tokens: bool = True
+               ) -> Encoding:
+        tokens = self.tokenize(text)
+        if add_special_tokens:
+            tokens = ["[CLS]"] + tokens + ["[SEP]"]
+        return Encoding([self.vocab[t] for t in tokens], tokens)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+
+def get_wordpiece_tokenizer(vocab_file: str,
+                            uppercase: bool = False) -> WordpieceEncoder:
+    """The JAX package's ``get_wordpiece_tokenizer``: lower-cased (and
+    accent-stripped) unless ``uppercase``."""
+    return WordpieceEncoder(vocab_file, do_lower_case=not uppercase)

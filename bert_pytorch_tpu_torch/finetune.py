@@ -1,0 +1,152 @@
+"""What the port's GLUE, NER and SWAG runners share: the JAX runners'
+fixed-shape batching (``run_glue.batches``, which ``run_swag`` imports
+too), the device and model set-up, AdamW without bias correction over the
+no-decay groups, the train step (dropout from per-step seeds, global-norm
+clipping, one optimizer step), and the model-only checkpoint of
+``{"model"}`` in the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from bert_pytorch_tpu_torch.config import BertConfig
+from bert_pytorch_tpu_torch.models.bert import draw_dropout_seeds, init_weights
+from bert_pytorch_tpu_torch.models.convert import (load_pretrained_encoder,
+                                                   to_jax_params)
+from bert_pytorch_tpu_torch.optim.transforms import (AdamW, LearningRate,
+                                                     global_norm,
+                                                     param_groups)
+from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def read_vocab_args(args) -> argparse.Namespace:
+    """``vocab_file`` and ``tokenizer`` from the model config when the
+    command line omits them (the JAX runners' rule); only WordPiece is
+    ported."""
+    with open(args.model_config_file, encoding="utf-8") as f:
+        configs = json.load(f)
+    if args.vocab_file is None:
+        args.vocab_file = configs.get("vocab_file")
+        if args.vocab_file is None:
+            raise ValueError("vocab_file must be in model config or CLI")
+    if args.tokenizer is None:
+        args.tokenizer = configs.get("tokenizer", "wordpiece")
+    if args.tokenizer != "wordpiece":
+        raise ValueError(f"tokenizer {args.tokenizer!r}: the port has the "
+                         "WordPiece tokenizer only")
+    return args
+
+
+def setup_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda but torch.cuda.is_available() is False; pass "
+            "--device cpu to run on the CPU")
+    if device.type == "cuda":
+        # fp32 products in full fp32, as the JAX package's parity tests.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def load_config(path: str) -> BertConfig:
+    """The model config, its vocab padded to a multiple of 8."""
+    config = BertConfig.from_json_file(path)
+    if config.vocab_size % 8 != 0:
+        config.vocab_size += 8 - (config.vocab_size % 8)
+    return config
+
+
+def init_model(model: torch.nn.Module, config: BertConfig, seed: int,
+               init_checkpoint: Optional[str]) -> torch.nn.Module:
+    """Seeded random weights, then the encoder of ``init_checkpoint`` (a
+    JAX-layout msgpack checkpoint or a torch archive) when one is named;
+    a checkpoint that cannot be read fails here."""
+    device = next(model.parameters()).device
+    init_weights(model, config.initializer_range,
+                 torch.Generator(device=device).manual_seed(seed))
+    if init_checkpoint:
+        load_pretrained_encoder(init_checkpoint, config, model)
+        print(f"loaded pretrained encoder from {init_checkpoint}",
+              flush=True)
+    return model
+
+
+def adamw(model: torch.nn.Module, lr: LearningRate,
+          weight_decay: float) -> AdamW:
+    """AdamW without bias correction (the reference's FusedAdam recipe)
+    over the no-decay parameter groups."""
+    return AdamW(param_groups(model, weight_decay), lr,
+                 weight_decay=weight_decay, bias_correction=False)
+
+
+def batches(arrays: dict, batch_size: int, shuffle: bool, rng):
+    """Yield (batch, valid) of dict minibatches; the last partial batch is
+    padded to a full one with repeated rows and a ``valid`` mask (the JAX
+    run_glue.py ``batches``)."""
+    n = len(arrays["labels"])
+    order = rng.permutation(n) if shuffle else np.arange(n)
+    for i in range(0, n, batch_size):
+        idx = order[i:i + batch_size]
+        valid = np.ones(batch_size, bool)
+        if len(idx) < batch_size:
+            valid[len(idx):] = False
+            idx = np.concatenate([idx, np.zeros(batch_size - len(idx),
+                                                idx.dtype)])
+        yield {k: v[idx] for k, v in arrays.items()}, valid
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
+                                                            torch.Tensor]:
+    """Integer arrays as int64 tensors, float arrays as fp32, on
+    ``device``."""
+    return {k: torch.from_numpy(np.asarray(v)).to(
+        device, torch.float32 if np.asarray(v).dtype.kind == "f"
+        else torch.int64) for k, v in batch.items()}
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    loss_fn: Callable, clip_norm: float,
+                    generator: torch.Generator):
+    """``step(*inputs) -> loss`` (a device tensor): zero the gradients,
+    ``loss_fn(*inputs, dropout_seeds)`` with seeds drawn for this step,
+    backward, clip to a global norm of ``clip_norm`` (``min(1, clip /
+    (norm + 1e-6))``, the JAX ``clip_by_global_norm``), one optimizer
+    step. Parameters update in place."""
+    num_layers = model.bert.config.num_hidden_layers
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(*inputs):
+        for p in params:
+            p.grad = None
+        seeds = draw_dropout_seeds(generator, num_layers)
+        loss = loss_fn(*inputs, seeds)
+        loss.backward()
+        grads = [p.grad for p in params if p.grad is not None]
+        scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-6), max=1.0)
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def save(output_dir: str, step: int, model: torch.nn.Module,
+         config: BertConfig, head: str, async_write: bool) -> str:
+    """``{"model"}`` as ``ckpt_{step}.msgpack`` in ``output_dir`` (the
+    JAX runners' model-only checkpoint, keeping the newest three)."""
+    return ckpt.save_checkpoint(
+        output_dir, step,
+        {"model": to_jax_params(model.state_dict(), config, head,
+                                keep_device=True)},
+        async_write=async_write)

@@ -1,6 +1,7 @@
 """BERT model family in PyTorch: the port of the JAX package's
-``models/bert.py`` for the serving heads, the pretraining model and the
-SQuAD head (``BertForQuestionAnswering``).
+``models/bert.py``: the serving heads, the pretraining model and the
+finetuning heads (sequence classification and regression, token
+classification, multiple choice, question answering).
 
 Component parity with reference src/modeling.py (cited per class). The
 dtype semantics follow the JAX package's flax modules:
@@ -24,10 +25,11 @@ re-cast the weights on every call. A forward that records a graph casts
 with autograd on every call instead, so the gradient reaches the fp32
 master parameters.
 
-Training (``BertForPreTraining``): dropout runs where the JAX model's
-``nn.Dropout`` and attention dropout run, but only when the caller passes
-``dropout_seeds`` (:func:`draw_dropout_seeds`: one for the embeddings,
-one per encoder layer), never from a global generator, so a layer
+Training: dropout runs where the JAX model's ``nn.Dropout`` and attention
+dropout run (the classifier heads' dropout too, keyed on the embeddings'
+seed), but only when the caller passes ``dropout_seeds``
+(:func:`draw_dropout_seeds`: one for the embeddings, one per encoder
+layer), never from a global generator, so a layer
 recomputed under ``torch.utils.checkpoint`` (``remat``) draws the masks
 its first forward drew. ``remat="dots"`` saves the matmul outputs of each
 layer and recomputes the rest, the counterpart of the JAX encoder's
@@ -66,7 +68,7 @@ from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
 
 REMAT_POLICIES = ("none", "dots", "full")
 # Seeds drawn per call site from one layer seed (see _sub_seed).
-_ATTENTION_PROBS, _ATTENTION_OUT, _LAYER_OUT = range(3)
+_ATTENTION_PROBS, _ATTENTION_OUT, _LAYER_OUT, _HEAD = range(4)
 
 
 class _CastCache:
@@ -560,25 +562,31 @@ class BertForMaskedLM(nn.Module):
 
 
 class _ClassifierHead(nn.Module):
-    """The Dense classifier shared by the task heads (its dropout is a
-    no-op in inference)."""
+    """Dropout then the Dense classifier, shared by the task heads; the
+    dropout runs only under the seeds of a training forward."""
 
     def __init__(self, hidden_size: int, num_labels: int,
                  dtype: torch.dtype, device=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         # An output layer (quant.EXCLUDE_MODULES): bf16, never int8.
         self.classifier = make_dense(quant_ops.exclude(quant), hidden_size,
                                      num_labels, dtype, device)
 
-    def forward(self, x):
+    def forward(self, x, dropout_seeds=None):
+        if dropout_seeds is not None:
+            x = dropout(x, self.dropout_rate,
+                        _sub_seed(dropout_seeds[0], _HEAD))
         return self.classifier(x)
 
 
 class BertForSequenceClassification(nn.Module):
-    """Pooled-output classifier; parity with modeling.py:1072-1128.
-    ``sequence_ids`` + ``cls_positions`` select the packed-row path and
-    return [B, K, num_labels], one row per packed request."""
+    """Pooled-output classifier; parity with modeling.py:1072-1128 (a
+    regression when ``num_labels == 1``, STS-B: the same model, the runner
+    takes the squared error). ``sequence_ids`` + ``cls_positions`` select
+    the packed-row path and return [B, K, num_labels], one row per packed
+    request."""
 
     def __init__(self, config: BertConfig, num_labels: int,
                  dtype: torch.dtype = torch.float32,
@@ -593,13 +601,45 @@ class BertForSequenceClassification(nn.Module):
                               quant=quant,
                               layer_norm_backend=layer_norm_backend)
         self.head = _ClassifierHead(config.hidden_size, num_labels, dtype,
-                                    device, quant)
+                                    device, quant,
+                                    config.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                sequence_ids=None, cls_positions=None):
+                sequence_ids=None, cls_positions=None, dropout_seeds=None):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
-                              sequence_ids, cls_positions)
-        return self.head(pooled)
+                              sequence_ids, cls_positions, dropout_seeds)
+        return self.head(pooled, dropout_seeds)
+
+
+class BertForMultipleChoice(nn.Module):
+    """[B, C, S] choices flattened to [B*C, S] rows, one pooled score each,
+    returned as [B, C]; parity with modeling.py:1131-1197 and the JAX
+    package's ``BertForMultipleChoice``."""
+
+    def __init__(self, config: BertConfig, num_choices: int,
+                 dtype: torch.dtype = torch.float32,
+                 attention_backend: str = "dense", device=None,
+                 layer_norm_backend: str = "plain"):
+        super().__init__()
+        if not config.next_sentence:
+            raise ValueError("BertForMultipleChoice needs the pooler "
+                             "(config.next_sentence)")
+        self.num_choices = num_choices
+        self.bert = BertModel(config, dtype, attention_backend, device,
+                              layer_norm_backend=layer_norm_backend)
+        self.head = _ClassifierHead(config.hidden_size, 1, dtype, device,
+                                    dropout_rate=config.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                dropout_seeds=None):
+        batch, choices, seq = input_ids.shape
+
+        def flat(t):
+            return None if t is None else t.reshape(batch * choices, seq)
+
+        _, pooled = self.bert(flat(input_ids), flat(token_type_ids),
+                              flat(attention_mask), None, None, dropout_seeds)
+        return self.head(pooled, dropout_seeds).reshape(batch, choices)
 
 
 class BertForTokenClassification(nn.Module):
@@ -618,13 +658,15 @@ class BertForTokenClassification(nn.Module):
                               quant=quant,
                               layer_norm_backend=layer_norm_backend)
         self.head = _ClassifierHead(config.hidden_size, num_labels, dtype,
-                                    device, quant)
+                                    device, quant,
+                                    config.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                sequence_ids=None):
+                sequence_ids=None, dropout_seeds=None):
         sequence_output, _ = self.bert(input_ids, token_type_ids,
-                                       attention_mask, sequence_ids)
-        return self.head(sequence_output)
+                                       attention_mask, sequence_ids, None,
+                                       dropout_seeds)
+        return self.head(sequence_output, dropout_seeds)
 
 
 class BertForQuestionAnswering(nn.Module):

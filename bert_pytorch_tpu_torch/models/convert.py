@@ -53,10 +53,11 @@ HEAD_SUBTREES = {
     "classify": ("bert", "head"),
     "squad": ("bert", "qa_outputs"),
     "ner": ("bert", "head"),
+    "multiple_choice": ("bert", "head"),
     "pretraining": ("bert", "predictions"),
 }
-ROADMAP_CHECKPOINTS = ("ROADMAP.md, queue 1 of the modules still to port: "
-                       "\"Checkpointing (utils/checkpoint.py)\"")
+ROADMAP_FP16 = ("ROADMAP.md, queue 1 of the modules still to port, item 2: "
+                "\"fp16: dynamic_loss_scale and --dtype float16\"")
 ROADMAP_TF = ("ROADMAP.md, queue 1 of the modules still to port: \"The rest "
               "of finetuning\", --init_checkpoint from TF checkpoints")
 _STACKED = "bert/encoder/layers/"
@@ -202,20 +203,22 @@ def _put(tree: dict, path, value) -> None:
 
 
 def to_jax_params(state: Dict[str, torch.Tensor], config: BertConfig,
-                  head: str) -> dict:
+                  head: str, keep_device: bool = False) -> dict:
     """The inverse of :func:`from_jax_params`: the port's state dict of
     ``head`` as the JAX package's nested params, CPU tensors in the JAX
     layout (kernels [in, out], the attention kernels and biases split by
     head, ``weight_q``/``weight_scale`` as ``kernel_q``/``kernel_scale``),
     the encoder layers stacked on a leading ``L`` axis. What
     :func:`~bert_pytorch_tpu_torch.utils.checkpoint.save_checkpoint` writes
-    for the JAX package to read."""
+    for the JAX package to read. ``keep_device`` leaves each leaf where
+    its tensor lives (the transposes and stacks then run there)."""
     heads = config.num_attention_heads
     tree: dict = {}
     layers: Dict[tuple, Dict[int, torch.Tensor]] = {}
     for key, value in state.items():
         module, _, name = key.rpartition(".")
-        name, value = _jax_leaf(module, name, value.detach().to("cpu"), heads)
+        value = value.detach() if keep_device else value.detach().to("cpu")
+        name, value = _jax_leaf(module, name, value, heads)
         match = _LAYER.fullmatch(module)
         if match:
             rest = tuple(match.group(2).split(".")) + (name,)
@@ -231,6 +234,53 @@ def to_jax_params(state: Dict[str, torch.Tensor], config: BertConfig,
             [by_layer[i] for i in range(config.num_hidden_layers)]))
     _check_head(tree, config, head)
     return tree
+
+
+def optimizer_to_jax(model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, config: BertConfig,
+                     head: str, keep_device: bool = False) -> dict:
+    """The port's Adam-family optimizer state as the JAX package's
+    ``OptState`` subtree, the dict flax writes for that NamedTuple:
+    ``{"count": int32 scalar array, "mu": params-shaped first moments,
+    "nu": second moments}``, the moments of each parameter under its
+    params name and layout (:func:`to_jax_params`)."""
+    from bert_pytorch_tpu_torch.optim import transforms
+
+    mu, nu = transforms.moments(optimizer, dict(model.named_parameters()))
+    return {"count": np.asarray(transforms.opt_step_count(optimizer),
+                                np.int32),
+            "mu": to_jax_params(mu, config, head, keep_device),
+            "nu": to_jax_params(nu, config, head, keep_device)}
+
+
+def check_optimizer_tree(names, where: str) -> None:
+    """Refuse an optimizer subtree the port cannot continue: the JAX fp16
+    ``LossScaleState`` ``{scale, growth_count, inner}`` (ROADMAP_FP16), or
+    anything but ``{count, mu, nu}``."""
+    names = set(names)
+    if {"scale", "growth_count", "inner"} & names:
+        raise NotImplementedError(
+            f"{where} holds a loss-scaled (fp16) optimizer state "
+            f"{sorted(names)}; the port has no fp16 loss scaling yet "
+            f"({ROADMAP_FP16})")
+    if names != {"count", "mu", "nu"}:
+        raise KeyError(f"{where}: optimizer subtree {sorted(names)} is not "
+                       "an OptState {count, mu, nu}")
+
+
+def optimizer_from_jax(tree: dict, model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer, config: BertConfig,
+                       head: str) -> None:
+    """Load a JAX ``OptState`` subtree (:func:`optimizer_to_jax`'s layout)
+    into ``optimizer``: the count into every param group, mu and nu into
+    each parameter's ``exp_avg`` and ``exp_avg_sq``."""
+    from bert_pytorch_tpu_torch.optim import transforms
+
+    check_optimizer_tree(tree, "optimizer state")
+    transforms.load_moments(
+        optimizer, dict(model.named_parameters()), int(np.asarray(
+            tree["count"])), from_jax_params(tree["mu"], config, head),
+        from_jax_params(tree["nu"], config, head))
 
 
 def quantize_module(module: str, leaves: Dict[str, torch.Tensor],

@@ -91,3 +91,12 @@ def mlm_accuracy(prediction_logits: torch.Tensor,
     valid = masked_lm_labels != ignore_index
     correct = (preds == masked_lm_labels) & valid
     return correct.sum() / valid.sum().clamp(min=1)
+
+
+def token_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                              ignore_index: int = -100) -> torch.Tensor:
+    """Per-token CE skipping the special tokens' labels (the JAX
+    package's ``token_classification_loss``; run_ner.py)."""
+    num_labels = logits.shape[-1]
+    return _xent_ignore(logits.reshape(-1, num_labels), labels.reshape(-1),
+                        ignore_index)

@@ -18,6 +18,12 @@ semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
   ``BertAdam`` clips each tensor to ``max_grad_norm`` on its own and reads
   its schedule (``warmup_linear`` and the others of
   optim/schedules.py, with no +1 offset) inside the optimizer.
+* "Each tensor" is a leaf of the JAX params tree: the JAX encoder stacks
+  every layer's copy of a parameter into one [L, ...] leaf (``nn.scan``),
+  so LAMB's trust ratio and BertAdam's clipping norm span all layers of
+  ``bert.encoder.layers.<i>.<name>`` together. :func:`param_groups` names
+  each parameter's leaf (the group's ``"stacks"``); a group without them
+  takes each tensor alone.
 * Weight decay applies per param group: :func:`param_groups` splits a
   model's parameters with :func:`no_decay_mask`, the counterpart of the
   JAX ``weight_decay_mask``.
@@ -28,6 +34,7 @@ yet.
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
@@ -59,16 +66,40 @@ def no_decay_mask(named_parameters) -> Dict[str, bool]:
     return mask
 
 
+_LAYER_INDEX = re.compile(r"(?<=\.encoder\.layers\.)\d+\.")
+
+
+def stack_key(name: str) -> str:
+    """The JAX params leaf a port parameter belongs to: the layer index of
+    ``...encoder.layers.<i>.<rest>`` dropped (the scan-stacked leaf), any
+    other name itself."""
+    return _LAYER_INDEX.sub("", name, count=1)
+
+
 def param_groups(model: torch.nn.Module, weight_decay: float) -> List[dict]:
-    """The model's parameters as (decayed, not decayed) param groups."""
+    """The model's parameters as (decayed, not decayed) param groups, each
+    with its parameters' JAX leaves (``"stacks"``, :func:`stack_key`)."""
     named = list(model.named_parameters())
     mask = no_decay_mask(named)
     return [
-        {"params": [p for n, p in named if mask[n]],
-         "weight_decay": weight_decay},
-        {"params": [p for n, p in named if not mask[n]],
-         "weight_decay": 0.0},
+        {"params": [p for n, p in named if mask[n] == decay],
+         "stacks": [stack_key(n) for n, _ in named if mask[n] == decay],
+         "weight_decay": weight_decay if decay else 0.0}
+        for decay in (True, False)
     ]
+
+
+def _stack_norms(group, tensors) -> Dict[object, torch.Tensor]:
+    """The L2 norm of each of ``group``'s JAX leaves over ``tensors`` (one
+    per parameter of the group, in order), accumulated in fp32."""
+    keys = group.get("stacks") or range(len(group["params"]))
+    members: Dict[object, list] = {}
+    for key, t in zip(keys, tensors):
+        members.setdefault(key, []).append(
+            torch.linalg.vector_norm(t.float()))
+    return {key: norms[0] if len(norms) == 1
+            else torch.linalg.vector_norm(torch.stack(norms))
+            for key, norms in members.items()}
 
 
 def reset_count(optimizer: torch.optim.Optimizer, count: int) -> None:
@@ -76,6 +107,56 @@ def reset_count(optimizer: torch.optim.Optimizer, count: int) -> None:
     (reference run_pretraining.py:298-309)."""
     for group in optimizer.param_groups:
         group["count"] = int(count)
+
+
+def opt_step_count(optimizer: torch.optim.Optimizer) -> int:
+    """The optimizer's step count (every param group carries the same)."""
+    return int(optimizer.param_groups[0]["count"])
+
+
+def init_state(optimizer: torch.optim.Optimizer) -> None:
+    """Create every parameter's fp32 moments now (zeros, as the JAX
+    ``init`` does) rather than at the first step: a checkpoint writes
+    them and a restore fills them."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+                state["exp_avg_sq"] = torch.zeros_like(p,
+                                                       dtype=torch.float32)
+
+
+def moments(optimizer: torch.optim.Optimizer, named_params: Dict[
+        str, torch.nn.Parameter]) -> Tuple[Dict[str, torch.Tensor],
+                                           Dict[str, torch.Tensor]]:
+    """(exp_avg, exp_avg_sq) by parameter name, the live tensors (created
+    by :func:`init_state` if no step has run)."""
+    init_state(optimizer)
+    mu = {n: optimizer.state[p]["exp_avg"] for n, p in named_params.items()}
+    nu = {n: optimizer.state[p]["exp_avg_sq"]
+          for n, p in named_params.items()}
+    return mu, nu
+
+
+@torch.no_grad()
+def load_moments(optimizer: torch.optim.Optimizer,
+                 named_params: Dict[str, torch.nn.Parameter], count: int,
+                 exp_avg: Dict[str, torch.Tensor],
+                 exp_avg_sq: Dict[str, torch.Tensor]) -> None:
+    """Set every parameter's moments (by name) and the step count; a name
+    missing from either dict raises ``KeyError`` before anything is set."""
+    missing = sorted(n for n in named_params
+                     if n not in exp_avg or n not in exp_avg_sq)
+    if missing:
+        raise KeyError(f"optimizer state lacks the moments of {len(missing)} "
+                       f"parameters, e.g. {missing[:4]}")
+    init_state(optimizer)
+    for name, p in named_params.items():
+        state = optimizer.state[p]
+        state["exp_avg"].copy_(exp_avg[name])
+        state["exp_avg_sq"].copy_(exp_avg_sq[name])
+    reset_count(optimizer, count)
 
 
 class _Adam(torch.optim.Optimizer):
@@ -140,9 +221,14 @@ class Lamb(_Adam):
             scale = torch.clamp(self.max_grad_norm / (norm + 1e-6), max=1.0)
             grads = [[g * scale for g in group] for group in grads]
         for group, group_grads in zip(self.param_groups, grads):
-            for p, upd in self._updates(group, group_grads):
-                p_norm = torch.linalg.vector_norm(p.float())
-                u_norm = torch.linalg.vector_norm(upd)
+            # The trust ratio of each JAX leaf needs all of its layers'
+            # parameters and updates before any of them moves.
+            updates = list(self._updates(group, group_grads))
+            p_norms = _stack_norms(group, [p for p, _ in updates])
+            u_norms = _stack_norms(group, [u for _, u in updates])
+            keys = group.get("stacks") or range(len(updates))
+            for key, (p, upd) in zip(keys, updates):
+                p_norm, u_norm = p_norms[key], u_norms[key]
                 ratio = torch.where((p_norm > 0) & (u_norm > 0),
                                     p_norm / u_norm, torch.ones_like(p_norm))
                 p.add_((-group["lr"] * ratio * upd).to(p.dtype))
@@ -209,9 +295,10 @@ class BertAdam(_Adam):
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in group["params"]]
             if self.max_grad_norm > 0:
+                norms = _stack_norms(group, grads)
+                keys = group.get("stacks") or range(len(grads))
                 grads = [g * torch.clamp(
-                    self.max_grad_norm
-                    / (torch.linalg.vector_norm(g.float()) + 1e-6),
-                    max=1.0).to(g.dtype) for g in grads]
+                    self.max_grad_norm / (norms[key] + 1e-6),
+                    max=1.0).to(g.dtype) for key, g in zip(keys, grads)]
             for p, upd in self._updates(group, grads):
                 p.add_((-group["lr"] * upd).to(p.dtype))

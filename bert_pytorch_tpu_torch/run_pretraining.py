@@ -2,9 +2,14 @@
 ``run_pretraining.py``, with its flag names for what it implements.
 
     python -m bert_pytorch_tpu_torch.run_pretraining \\
+        --config_file configs/bert_pretraining_phase1_config.json \\
+        --model_config_file configs/bert_large_uncased_config.json \\
+        --input_dir <dir of HDF5 shards> --output_dir out/
+    python -m bert_pytorch_tpu_torch.run_pretraining \\
         --config_file configs/bert_pretraining_phase2_config.json \\
         --model_config_file configs/bert_large_uncased_config.json \\
-        --input_dir <dir of HDF5 shards> --steps 10 --skip_final_checkpoint
+        --input_dir <dir of seq-512 shards> --output_dir out/ \\
+        --previous_phase_end_step 7038
 
 A run streams the HDF5 shards (data/dataset.py; dynamic masking, optional
 ``--pack_sequences``), stacks each global batch into ``accumulation_steps
@@ -14,12 +19,30 @@ bf16 or fp32, ``--remat``, the ``flash`` attention kernels). Every
 ``--log_steps`` it prints the loss, learning rate and sequences per
 second.
 
-Not ported yet, so rejected rather than ignored: checkpoints (this runner
-writes none, and raises at startup unless ``--skip_final_checkpoint`` is
-given and the run ends before ``--num_steps_per_checkpoint``; ROADMAP.md
-queue 1 "Checkpointing"), meshes and multi-GPU, K-FAC, fp16 loss scaling,
-held-out evaluation, process-based loader workers, the telemetry planes
-and the metrics files of ``--output_dir``; argparse refuses their flags.
+Checkpoints are the JAX package's (utils/checkpoint.py):
+``<output_dir>/pretrain_ckpts/ckpt_{step}.msgpack`` holding ``{model,
+optimizer, sampler, epoch}``, so either package resumes the other's run.
+A run resumes from the newest checkpoint there that verifies (walking
+back past corrupt ones, with a record of each skip); with
+``--previous_phase_end_step`` N > 0 and a checkpoint at step >= N, it is
+phase 2 of the two-phase recipe: the optimizer's count restarts at the
+step within the phase, the moments are kept, and saves are numbered N +
+the step within the phase. Every ``--num_steps_per_checkpoint`` steps it
+saves (``--checkpoint_write async`` by default: the step pays a device
+copy, a background thread writes), keeping the newest
+``--keep_checkpoints``; at the end it saves synchronously unless
+``--skip_final_checkpoint``. SIGTERM, SIGINT or SIGUSR1 stop the run at
+the next ``--term_check_steps`` boundary, write the checkpoint even with
+``--skip_final_checkpoint``, and exit with 75 (utils/preemption.py). The
+dropout seeds come from ``--seed`` afresh in a resumed run, as the JAX
+runner draws its dropout rng afresh (its checkpoints hold none).
+
+Not ported yet, so rejected rather than ignored: meshes and multi-GPU
+(``--checkpoint_layout sharded`` is refused naming ROADMAP.md queue 1
+item 4; the sharded layout is read), K-FAC (``--kfac``, item 5), fp16
+loss scaling (a JAX fp16 checkpoint is refused), held-out evaluation,
+process-based loader workers, the telemetry planes and the metrics files
+of ``--output_dir``; argparse refuses the flags it does not know.
 On-the-fly packing packs up to 8 sequences per row (the JAX runner's
 ``--max_sequences_per_pack`` default), and LAMB clips to a global norm of
 1.0 (its ``--max_grad_norm`` default). ``attention_backend "pallas"`` in a
@@ -42,6 +65,10 @@ import time
 import torch
 
 from bert_pytorch_tpu_torch import pretrain
+from bert_pytorch_tpu_torch.models.convert import (optimizer_to_jax,
+                                                   to_jax_params)
+from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import preemption
 from bert_pytorch_tpu_torch.config import (BertConfig,
                                            parse_args_with_config_file,
                                            require_args)
@@ -53,14 +80,16 @@ from bert_pytorch_tpu_torch.data.tokenization import load_vocab
 from bert_pytorch_tpu_torch.models.bert import BertForPreTraining, init_weights
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.schedules import SCHEDULES, make_schedule
-from bert_pytorch_tpu_torch.optim.transforms import AdamW, Lamb, param_groups
+from bert_pytorch_tpu_torch.optim.transforms import (AdamW, Lamb,
+                                                     param_groups,
+                                                     reset_count)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # The JAX recipe's phase-2 config file names the fused kernels "pallas".
 BACKEND_ALIASES = {"pallas": "flash"}
 MAX_SEQUENCES_PER_PACK = 8
-CHECKPOINT_ITEM = ("ROADMAP.md, queue 1 of the modules still to port: "
-                   "\"Checkpointing (utils/checkpoint.py)\"")
+ROADMAP_KFAC = ("ROADMAP.md, queue 1 of the modules still to port, item 5: "
+                "\"K-FAC (optim/kfac.py)\"")
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
@@ -69,6 +98,9 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     # data / io
     parser.add_argument("--input_dir", type=str, default=None,
                         help="HDF5 shard file or directory of *.hdf5")
+    parser.add_argument("--output_dir", type=str, default=None,
+                        help="checkpoints go to <output_dir>/pretrain_ckpts, "
+                             "and a run resumes from there")
     parser.add_argument("--model_config_file", type=str, default=None)
     parser.add_argument("--config_file", type=str, default=None,
                         help="JSON overriding defaults; CLI overrides JSON")
@@ -95,9 +127,25 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="pack short samples into full rows on the fly "
                              "(data/packing.py, within each shard); "
                              "offline-packed shards are detected without it")
-    # checkpoints (not written by this runner yet)
+    # checkpoints
     parser.add_argument("--num_steps_per_checkpoint", type=int, default=200)
+    parser.add_argument("--keep_checkpoints", type=int, default=3)
+    parser.add_argument("--checkpoint_write", type=str, default="async",
+                        choices=["async", "sync"],
+                        help="periodic saves: 'async' clones the state on "
+                             "the device and writes it from a background "
+                             "thread; 'sync' writes before the next step. "
+                             "Final and preemption saves are synchronous")
+    parser.add_argument("--checkpoint_layout", type=str, default="gathered",
+                        choices=["gathered", "sharded"],
+                        help="only 'gathered' is written by the port")
     parser.add_argument("--skip_final_checkpoint", action="store_true")
+    parser.add_argument("--term_check_steps", type=int, default=10,
+                        help="act on SIGTERM/SIGINT/SIGUSR1 every this many "
+                             "steps: save and exit with 75; 0 installs no "
+                             "handler")
+    parser.add_argument("--kfac", action="store_true",
+                        help="refused: K-FAC is not ported yet")
     parser.add_argument("--log_steps", type=int, default=1)
     # numerics / memory
     parser.add_argument("--dtype", type=str, default="bfloat16",
@@ -128,10 +176,16 @@ def log(record: dict) -> None:
 
 
 def setup_training(args) -> argparse.Namespace:
-    """Device, numerics, accumulation math and the checkpoint rule; the
-    batches are unpacked until prepare_dataset finds packed data."""
-    require_args(args, ["model_config_file", "global_batch_size",
-                        "local_batch_size", "max_steps"])
+    """Device, numerics, accumulation math and the checkpoint directory;
+    the batches are unpacked until prepare_dataset finds packed data."""
+    require_args(args, ["model_config_file", "output_dir",
+                        "global_batch_size", "local_batch_size", "max_steps"])
+    if args.kfac:
+        raise NotImplementedError(f"--kfac: {ROADMAP_KFAC}")
+    if args.checkpoint_layout != "gathered":
+        raise NotImplementedError(
+            f"--checkpoint_layout {args.checkpoint_layout}: the port writes "
+            f"the gathered layout only ({ckpt.ROADMAP_SHARDED})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -153,14 +207,8 @@ def setup_training(args) -> argparse.Namespace:
             f"by local_batch_size={args.local_batch_size}")
     args.accumulation_steps = args.global_batch_size // args.local_batch_size
     args.packed, args.pack_k = False, 1
-    args.steps = args.max_steps if args.steps is None else args.steps
-    if not args.skip_final_checkpoint or (
-            args.steps >= args.num_steps_per_checkpoint):
-        raise ValueError(
-            "this runner writes no checkpoint yet "
-            f"({CHECKPOINT_ITEM}); pass --skip_final_checkpoint and run "
-            f"fewer --steps ({args.steps}) than --num_steps_per_checkpoint "
-            f"({args.num_steps_per_checkpoint})")
+    args.model_output_dir = os.path.join(args.output_dir, "pretrain_ckpts")
+    os.makedirs(args.model_output_dir, exist_ok=True)
     if device.type == "cuda":
         # fp32 products in full fp32, as the JAX package's parity tests.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -207,14 +255,57 @@ def mask_token_id(config) -> int:
     return 4 if found is None else int(found)
 
 
-def prepare_dataset(args, config):
-    """(loader of global batches, sampler); sets ``args.packed`` and
-    ``args.pack_k`` (sequences per row) from the data."""
-    require_args(args, ["input_dir"])
-    dataset = ShardedPretrainingDataset(
-        input_files(args.input_dir), mask_token_id(config),
-        args.max_predictions_per_seq, args.masked_token_fraction,
-        vocab_size=int(config.vocab_size), seed=args.seed)
+def restore_checkpoint(args, model, optimizer):
+    """Resume from the newest checkpoint of ``args.model_output_dir`` that
+    verifies (the walk-back logs each skipped file); returns (its extras:
+    sampler, epoch, count, or None with no checkpoint, the step within the
+    phase). With ``--previous_phase_end_step`` N > 0 and a checkpoint at
+    step >= N, the optimizer count becomes the step within the phase and
+    the moments stay (the phase-2 surgery, JAX run_pretraining.py:717-721);
+    an N above the checkpoint's step raises."""
+    skipped: list = []
+    t0 = time.perf_counter()
+    found = ckpt.load_latest_checkpoint(args.model_output_dir, model,
+                                        optimizer, on_skip=skipped.append)
+    for record in skipped:
+        log({"event": "resume_skip", **record})
+    args.resume_step = 0
+    if found is None:
+        if skipped:
+            log({"event": "resume_walk_back_exhausted",
+                 "skipped": len(skipped),
+                 "note": "NO loadable checkpoint: every retained checkpoint "
+                         "failed verification; training restarts from "
+                         "scratch"})
+        return None, 0
+    resume_step, extras = found
+    args.resume_step = resume_step
+    if args.previous_phase_end_step > resume_step:
+        raise ValueError(
+            f"previous_phase_end_step={args.previous_phase_end_step} cannot "
+            f"be larger than resume_step={resume_step}")
+    global_step = resume_step - args.previous_phase_end_step
+    if resume_step >= args.previous_phase_end_step > 0:
+        reset_count(optimizer, global_step)
+    log({"event": "resume", "step": resume_step, "global_step": global_step,
+         "optimizer_count": optimizer.param_groups[0]["count"],
+         "skipped": len(skipped),
+         "seconds": time.perf_counter() - t0})
+    return extras, global_step
+
+
+def prepare_dataset(args, config, checkpoint=None, dataset=None):
+    """(loader of global batches, sampler) over the shards of
+    ``--input_dir``, or over ``dataset`` when one is given (any object
+    with the shard dataset's items); the sampler resumes from
+    ``checkpoint``'s position. Sets ``args.packed`` and ``args.pack_k``
+    (sequences per row) from the data."""
+    if dataset is None:
+        require_args(args, ["input_dir"])
+        dataset = ShardedPretrainingDataset(
+            input_files(args.input_dir), mask_token_id(config),
+            args.max_predictions_per_seq, args.masked_token_fraction,
+            vocab_size=int(config.vocab_size), seed=args.seed)
     args.packed = bool(dataset.packed)
     args.pack_k = dataset.max_sequences_per_pack if dataset.packed else 1
     if not dataset.packed and args.pack_sequences:
@@ -226,6 +317,8 @@ def prepare_dataset(args, config):
         args.packed = True
         args.pack_k = MAX_SEQUENCES_PER_PACK
     sampler = DistributedSampler(dataset)
+    if checkpoint is not None and checkpoint.get("sampler") is not None:
+        sampler.load_state_dict(checkpoint["sampler"])
     loader = DataLoader(dataset, sampler, batch_size=args.global_batch_size,
                         drop_last=True)
     if len(loader) == 0:
@@ -244,45 +337,146 @@ def make_step(args, model, optimizer, schedule, config):
         generator=torch.Generator().manual_seed(args.seed))
 
 
-def main(args) -> dict:
+def checkpoint_contents(model, optimizer, config, sampler_state: dict,
+                        epoch: int) -> dict:
+    """The training checkpoint's tree, in the JAX package's layout, its
+    tensors on the model's device (the transposes and layer stacks run
+    there; the writer copies one leaf at a time to the host)."""
+    return {"model": to_jax_params(model.state_dict(), config, "pretraining",
+                                   keep_device=True),
+            "optimizer": optimizer_to_jax(model, optimizer, config,
+                                          "pretraining", keep_device=True),
+            "sampler": sampler_state, "epoch": int(epoch)}
+
+
+def save(args, model, optimizer, config, global_step: int,
+         sampler_state: dict, epoch: int, async_write: bool) -> float:
+    """Save at ``global_step`` (numbered ``previous_phase_end_step`` +
+    it); returns the seconds the call took (an async save's stall)."""
+    t0 = time.perf_counter()
+    save_step = global_step + args.previous_phase_end_step
+    ckpt.save_checkpoint(
+        args.model_output_dir, save_step,
+        checkpoint_contents(model, optimizer, config, sampler_state, epoch),
+        keep=args.keep_checkpoints, async_write=async_write)
+    stall = time.perf_counter() - t0
+    log({"event": "checkpoint", "step": save_step,
+         "mode": "async" if async_write else "sync", "stall_s": stall})
+    return stall
+
+
+def train(args, model, optimizer, config, step, loader, sampler,
+          checkpoint=None, global_step: int = 0) -> dict:
+    """The training loop from ``global_step``: ``--steps`` steps (or to
+    ``--max_steps``), the cadence and final saves, and the stop on a
+    preemption signal. Returns the last logged metrics with
+    ``global_step``, ``terminated_by_signal``, the wall time of each step
+    (``step_times``: (start, end) perf_counter pairs; a step's end is
+    read after its metrics, when it is logged) and each save's stall
+    (``saves``)."""
+    steps_this_run = args.steps or (args.max_steps - global_step)
+    steps_this_run = min(steps_this_run, args.max_steps - global_step)
+    epoch = int(checkpoint["epoch"]) if checkpoint and checkpoint.get(
+        "epoch") is not None else 0
+    log({"event": "start", "device": str(args.device),
+         "dtype": args.dtype, "attention_backend": args.attention_backend,
+         "remat": args.remat, "layer_norm_backend": args.layer_norm_backend,
+         "accumulation_steps": args.accumulation_steps,
+         "samples": len(loader.dataset), "packed": int(args.packed),
+         "global_step": global_step, "steps": steps_this_run})
+    # The position of the last TRAINED sample of the epoch: the loader's
+    # read-ahead moves the sampler's live index past it, so checkpoints
+    # save this (JAX run_pretraining.py:926-938).
+    trained_index = sampler.index
+
+    def sampler_state() -> dict:
+        state = sampler.state_dict()
+        state["index"] = trained_index
+        return state
+
+    last: dict = {}
+    step_times, saves = [], []
+    step_in_run, terminated, done = 0, False, steps_this_run <= 0
+    window_t0, window_steps = time.perf_counter(), 0
+    stop = preemption.GracefulStop()
+    if args.term_check_steps:
+        stop.install()
+    try:
+        while not done:
+            sampler.set_epoch(epoch)
+            for host_batch in loader:
+                t_start = time.perf_counter()
+                batch = pretrain.to_device(
+                    pretrain.stack_microbatches(host_batch,
+                                                args.accumulation_steps),
+                    args.device)
+                metrics = step(batch)
+                global_step += 1
+                step_in_run += 1
+                window_steps += 1
+                trained_index += args.global_batch_size
+                finished = (step_in_run >= steps_this_run
+                            or global_step >= args.max_steps)
+                if global_step % args.log_steps == 0 or finished:
+                    values = {k: float(v) for k, v in metrics.items()}
+                    elapsed = time.perf_counter() - window_t0
+                    last = dict(step=global_step, **values,
+                                seq_per_s=window_steps
+                                * args.global_batch_size / elapsed)
+                    log(last)
+                    window_t0, window_steps = time.perf_counter(), 0
+                step_times.append((t_start, time.perf_counter()))
+                if global_step % args.num_steps_per_checkpoint == 0:
+                    saves.append({"step": global_step, "stall_s": save(
+                        args, model, optimizer, config, global_step,
+                        sampler_state(), epoch,
+                        args.checkpoint_write == "async")})
+                if (args.term_check_steps
+                        and global_step % args.term_check_steps == 0
+                        and stop.requested):
+                    log({"event": "termination signal",
+                         "signal": stop.signal_name,
+                         "exit_code": preemption.EXIT_PREEMPTED,
+                         **preemption.preemption_record(global_step, stop)})
+                    terminated = done = True
+                    break
+                if finished:
+                    done = True
+                    break
+            else:
+                epoch += 1
+                trained_index = 0
+                continue
+            break
+        # The final save; a preemption's is written even with
+        # --skip_final_checkpoint. Synchronous: it joins a pending write to
+        # the directory first, so checkpoints land in order.
+        if not args.skip_final_checkpoint or terminated:
+            saves.append({"step": global_step, "stall_s": save(
+                args, model, optimizer, config, global_step, sampler_state(),
+                epoch, async_write=False)})
+        ckpt.wait_for_pending_save()
+    finally:
+        stop.restore()
+    return dict(last, global_step=global_step, terminated_by_signal=terminated,
+                step_times=step_times, saves=saves)
+
+
+def main(args, dataset=None) -> dict:
+    """A whole run; ``dataset`` stands in for the shards of
+    ``--input_dir`` (prepare_dataset)."""
     args = setup_training(args)
     model, config = prepare_model(args)
     optimizer, schedule = prepare_optimizer(args, model)
-    loader, sampler = prepare_dataset(args, config)
+    checkpoint, global_step = restore_checkpoint(args, model, optimizer)
+    loader, sampler = prepare_dataset(args, config, checkpoint, dataset)
     step = make_step(args, model, optimizer, schedule, config)
-    log({"event": "start", "device": str(args.device),
-               "dtype": args.dtype, "attention_backend":
-               args.attention_backend, "remat": args.remat,
-               "layer_norm_backend": args.layer_norm_backend,
-               "accumulation_steps": args.accumulation_steps,
-               "samples": len(loader.dataset), "packed": int(args.packed)})
-    global_step, epoch = 0, 0
-    last = {}
-    window_t0, window_steps = time.perf_counter(), 0
-    while global_step < args.steps:
-        sampler.set_epoch(epoch)
-        for host_batch in loader:
-            batch = pretrain.to_device(
-                pretrain.stack_microbatches(host_batch,
-                                            args.accumulation_steps),
-                args.device)
-            metrics = step(batch)
-            global_step += 1
-            window_steps += 1
-            if global_step % args.log_steps == 0 or global_step == args.steps:
-                values = {k: float(v) for k, v in metrics.items()}
-                elapsed = time.perf_counter() - window_t0
-                last = dict(step=global_step, **values,
-                            seq_per_s=window_steps * args.global_batch_size
-                            / elapsed)
-                log(last)
-                window_t0, window_steps = time.perf_counter(), 0
-            if global_step >= args.steps:
-                break
-        epoch += 1
-    return last
+    return train(args, model, optimizer, config, step, loader, sampler,
+                 checkpoint, global_step)
 
 
 if __name__ == "__main__":
     summary = main(parse_arguments())
-    sys.exit(0 if summary.get("finite", 0.0) == 1.0 else 1)
+    if summary["terminated_by_signal"]:
+        sys.exit(preemption.EXIT_PREEMPTED)
+    sys.exit(0 if summary.get("finite", 1.0) == 1.0 else 1)

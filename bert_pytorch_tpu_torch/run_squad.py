@@ -8,7 +8,7 @@ implements.
         --train_file train-v1.1.json --predict_file dev-v1.1.json \\
         --do_train --do_predict --do_eval \\
         --eval_script scripts/squad_evaluate_v11.py \\
-        --output_dir results/squad --skip_checkpoint
+        --output_dir results/squad
 
 A run reads the examples and featurizes them into sliding windows (a
 pickle cache beside the input file unless ``--skip_cache``), takes span-loss
@@ -26,13 +26,19 @@ subprocess. :func:`main` returns the summary (``e2e_train_time``,
 ``exact_match``, ``F1``), which is also written to ``--json_summary``
 under ``--output_dir``.
 
+Checkpoints are the JAX package's (utils/checkpoint.py): every
+``--save_steps`` steps an async save of ``{"model", "config"}`` to
+``--output_dir`` (keeping the newest one), and at the end of training a
+synchronous one, unless ``--skip_checkpoint``. SIGTERM, SIGINT or SIGUSR1
+stop training at the next step, write that checkpoint, skip prediction
+and exit with 75 (utils/preemption.py).
+
 One optimizer step takes the whole ``--train_batch_size`` batch: the JAX
 runner computes a microbatch size from ``--gradient_accumulation_steps``
 but its step never uses it, and neither does this one.
 
 Not ported yet, so rejected rather than ignored (argparse refuses their
-flags): checkpoint writing (the runner requires ``--skip_checkpoint``),
-``--save_steps``, ``--dtype float16`` and ``--init_loss_scale``, the BPE
+flags): ``--dtype float16`` and ``--init_loss_scale``, the BPE
 tokenizer, the telemetry planes, device prefetch, ``--mesh_data`` and
 ``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives and
 the JAX package's msgpack checkpoints, not TF checkpoints
@@ -63,14 +69,16 @@ from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
 from bert_pytorch_tpu_torch.models.bert import (BertForQuestionAnswering,
                                                 draw_dropout_seeds,
                                                 init_weights)
-from bert_pytorch_tpu_torch.models.convert import (ROADMAP_CHECKPOINTS,
-                                                   load_pretrained_encoder)
+from bert_pytorch_tpu_torch.models.convert import (load_pretrained_encoder,
+                                                   to_jax_params)
 from bert_pytorch_tpu_torch.models.losses import span_loss
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, BertAdam,
                                                      global_norm,
                                                      param_groups)
+from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import preemption
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 WEIGHT_DECAY = 0.01  # the JAX runner's optimizers' default
@@ -120,7 +128,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--log_freq", type=int, default=50)
     parser.add_argument("--json_summary", type=str, default="squad_log.json")
     parser.add_argument("--eval_script", type=str, default=None)
-    parser.add_argument("--skip_checkpoint", action="store_true")
+    parser.add_argument("--skip_checkpoint", action="store_true",
+                        help="write no checkpoint")
+    parser.add_argument("--save_steps", type=int, default=0,
+                        help="async checkpoint every this many steps (the "
+                             "newest is kept); 0: only the final one")
     parser.add_argument("--skip_cache", action="store_true")
     parser.add_argument("--cache_dir", type=str, default=None)
     parser.add_argument("--layer_norm_backend", type=str, default="plain",
@@ -150,10 +162,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise ValueError("do_train requires train_file")
     if args.do_predict and not args.predict_file:
         raise ValueError("do_predict requires predict_file")
-    if args.do_train and not args.skip_checkpoint:
-        raise ValueError(
-            "this runner writes no checkpoint yet "
-            f"({ROADMAP_CHECKPOINTS}); pass --skip_checkpoint")
     args.layer_norm_backend = resolve_backend(args.layer_norm_backend)
     return args
 
@@ -278,7 +286,18 @@ def make_train_step(model, optimizer, clip_norm: float,
     return step
 
 
-def train(args, model, tokenizer, device) -> dict:
+def save(args, model, config, global_step: int, async_write: bool) -> None:
+    """``{"model", "config"}`` as ``ckpt_{global_step}.msgpack`` in
+    ``--output_dir``, keeping the newest one (JAX run_squad.py:405-446)."""
+    ckpt.save_checkpoint(
+        args.output_dir, global_step,
+        {"model": to_jax_params(model.state_dict(), config, "squad",
+                                keep_device=True),
+         "config": config.to_dict()},
+        keep=1, async_write=async_write)
+
+
+def train(args, model, config, tokenizer, device) -> dict:
     """The finetuning loop; returns the training half of the summary."""
     train_examples = squad.read_squad_examples(
         args.train_file, True, args.version_2_with_negative)
@@ -301,27 +320,46 @@ def train(args, model, tokenizer, device) -> dict:
     global_step, seqs = 0, 0
     losses = []
     t_start = time.perf_counter()
-    while global_step < total_steps:
-        order = rng.permutation(n)
-        for i in range(0, n - args.train_batch_size + 1,
-                       args.train_batch_size):
-            feats = [train_features[j]
-                     for j in order[i:i + args.train_batch_size]]
-            losses.append(step(features_to_tensors(feats, True, device)))
-            global_step += 1
-            seqs += args.train_batch_size
-            if global_step % args.log_freq == 0:
-                log({"step": global_step, "step_loss": float(losses[-1]),
-                     "samples_per_second":
-                         seqs / (time.perf_counter() - t_start)})
-            if global_step >= total_steps:
-                break
-    step_losses = [float(x) for x in losses]  # synchronises
-    train_time = time.perf_counter() - t_start
+    # Handlers stay installed through the final write (a re-delivered
+    # signal must not kill it) and are restored after.
+    stop = preemption.GracefulStop().install()
+    try:
+        while global_step < total_steps and not stop.requested:
+            order = rng.permutation(n)
+            for i in range(0, n - args.train_batch_size + 1,
+                           args.train_batch_size):
+                feats = [train_features[j]
+                         for j in order[i:i + args.train_batch_size]]
+                losses.append(step(features_to_tensors(feats, True, device)))
+                global_step += 1
+                seqs += args.train_batch_size
+                if global_step % args.log_freq == 0:
+                    log({"step": global_step, "step_loss": float(losses[-1]),
+                         "samples_per_second":
+                             seqs / (time.perf_counter() - t_start)})
+                if (args.save_steps and not args.skip_checkpoint
+                        and global_step % args.save_steps == 0):
+                    save(args, model, config, global_step, async_write=True)
+                if global_step >= total_steps or stop.requested:
+                    break
+        step_losses = [float(x) for x in losses]  # synchronises
+        train_time = time.perf_counter() - t_start
+        if stop.requested:
+            log({"event": "termination signal", "signal": stop.signal_name,
+                 "exit_code": preemption.EXIT_PREEMPTED})
+        if not args.skip_checkpoint:
+            t_save = time.perf_counter()
+            save(args, model, config, global_step, async_write=False)
+            log({"event": "checkpoint", "step": global_step, "seconds":
+                 time.perf_counter() - t_save})
+        ckpt.wait_for_pending_save()
+    finally:
+        stop.restore()
     return {"e2e_train_time": train_time,
             "training_sequences_per_second": seqs / train_time,
             "final_loss": step_losses[-1], "global_step": global_step,
-            "step_losses": step_losses}
+            "step_losses": step_losses,
+            "terminated_by_signal": stop.requested}
 
 
 @torch.no_grad()
@@ -389,6 +427,12 @@ def predict(args, model, tokenizer, device) -> dict:
 
 
 def main(args) -> dict:
+    return run(args)[0]
+
+
+def run(args):
+    """(summary, model, config): the whole run; ``main`` keeps the
+    summary."""
     device = setup_device(args)
     torch.manual_seed(args.seed)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -400,18 +444,22 @@ def main(args) -> dict:
          "optimizer": args.optimizer, "layers": config.num_hidden_layers})
     summary = {}
     if args.do_train:
-        summary.update(train(args, model, tokenizer, device))
-    if args.do_predict:
+        summary.update(train(args, model, config, tokenizer, device))
+    if args.do_predict and not summary.get("terminated_by_signal"):
+        # A preempted run exits after its checkpoint: the grace period is
+        # for durability, not for prediction.
         summary.update(predict(args, model, tokenizer, device))
     log({"event": "summary", **{k: v for k, v in summary.items()
                                 if isinstance(v, (int, float))}})
     with open(os.path.join(args.output_dir, args.json_summary), "w",
               encoding="utf-8") as f:
         json.dump(summary, f, indent=2)
-    return summary
+    return summary, model, config
 
 
 if __name__ == "__main__":
     outcome = main(parse_args())
+    if outcome.get("terminated_by_signal"):
+        sys.exit(preemption.EXIT_PREEMPTED)
     losses = outcome.get("step_losses", [])
     sys.exit(0 if all(np.isfinite(losses)) else 1)

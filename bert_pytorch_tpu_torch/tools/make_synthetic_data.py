@@ -7,11 +7,15 @@
   published vocab width serves it unchanged.
 * Pretraining: host batches of random rows shaped like the JAX package's
   synthetic shards and masked by the port's dataset code
-  (:func:`synthetic_pretraining_batch`), for driving the train step where
+  (:func:`synthetic_pretraining_batch`), and a dataset of such rows
+  (:class:`SyntheticPretrainingDataset`) for the runner's own loop, where
   no shard (and no ``h5py``) is at hand.
 * SQuAD: a seeded SQuAD-format JSON file from the same words
   (:func:`write_squad_json`), for finetuning and prediction where no
   ``train-v1.1.json``/``dev-v1.1.json`` is at hand.
+* GLUE, NER and SWAG: seeded MRPC-shaped TSVs (:func:`write_mrpc_tsvs`),
+  a CoNLL-shaped file (:func:`write_conll`) and a SWAG-shaped CSV
+  (:func:`write_swag_csv`) from the same words.
 """
 
 from __future__ import annotations
@@ -95,6 +99,58 @@ def synthetic_pretraining_batch(seed: int, batch_size: int, seq_len: int,
     return batch
 
 
+class SyntheticPretrainingDataset:
+    """An in-memory stand-in for ``data/dataset.py``'s shard dataset where
+    no shard (and no ``h5py``) is at hand: ``num_samples`` rows of
+    :func:`synthetic_samples`, each masked on access by the dataset's own
+    ``mask_input`` under a generator seeded on (seed, epoch, index), as the
+    shard dataset seeds it. Items are the shard dataset's five int32
+    arrays, so the runner's sampler, loader and resume take it as they
+    take the shards."""
+
+    packed = False
+    max_sequences_per_pack = 1
+
+    def __init__(self, seed: int, num_samples: int, seq_len: int,
+                 vocab_size: int, max_pred_per_seq: int,
+                 masked_lm_prob: float = 0.15, mask_token_index: int = 4):
+        import numpy as np
+
+        self.seed = seed
+        self.ids, self.specials, self.nsp = synthetic_samples(
+            np.random.default_rng(seed), num_samples, seq_len, vocab_size)
+        self.vocab_size = vocab_size
+        self.max_pred_per_seq = max_pred_per_seq
+        self.masked_lm_prob = masked_lm_prob
+        self.mask_token_index = mask_token_index
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, idx: int):
+        import numpy as np
+
+        from bert_pytorch_tpu_torch.data.dataset import (input_mask_for,
+                                                         mask_input,
+                                                         segment_ids_for)
+
+        ids = self.ids[idx]
+        special = np.asarray(self.specials[idx])
+        masked, labels = mask_input(
+            np.random.default_rng((self.seed, self.epoch, int(idx))),
+            ids.copy(), special, self.max_pred_per_seq, self.masked_lm_prob,
+            self.vocab_size, self.mask_token_index)
+        return [masked.astype(np.int32),
+                segment_ids_for(ids, special).astype(np.int32),
+                input_mask_for(ids, special).astype(np.int32),
+                labels.astype(np.int32),
+                np.asarray(self.nsp[idx]).astype(np.int32)]
+
+
 # Context lengths of write_squad_json, in words (= WordPiece tokens: every
 # word is in the demo vocab): at max_seq_length 384, doc_stride 128 and a
 # question of at most 10 tokens, 400-700 tokens cut into 2-4 windows.
@@ -159,4 +215,100 @@ def write_squad_json(path: str, seed: int, n_articles: int,
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w", encoding="utf-8") as f:
         json.dump({"version": "v2.0" if version_2 else "1.1", "data": data}, f)
+    return path
+
+
+# -- finetuning files -------------------------------------------------------
+# Sentences of TRACE_WORDS (every word in the demo vocab), seeded by
+# numpy.random.default_rng(seed); each file is laid out as its task's
+# public release lays it out, so the data modules read it unchanged.
+
+NER_LABELS = ("O", "B-PER", "I-PER", "B-LOC", "I-LOC")
+_PEOPLE = ("william shakespeare", "william")
+_PLACES = ("paris", "london", "france", "england")
+
+
+def _sentence(rng, low: int, high: int) -> str:
+    return " ".join(str(w) for w in rng.choice(
+        TRACE_WORDS, int(rng.integers(low, high + 1))))
+
+
+def write_mrpc_tsvs(directory: str, seed: int, n_train: int,
+                    n_dev: int) -> str:
+    """MRPC-shaped ``train.tsv`` and ``dev.tsv`` (header ``Quality, #1 ID,
+    #2 ID, #1 String, #2 String``): a paraphrase pair (label 1) repeats
+    sentence 1 with one word changed, a non-pair (label 0) is another
+    sentence. Returns ``directory``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    header = "Quality\t#1 ID\t#2 ID\t#1 String\t#2 String"
+    for name, n in (("train.tsv", n_train), ("dev.tsv", n_dev)):
+        lines = [header]
+        for i in range(n):
+            first = _sentence(rng, 6, 24).split()
+            label = int(rng.integers(0, 2))
+            if label:
+                second = list(first)
+                second[int(rng.integers(0, len(second)))] = str(
+                    rng.choice(TRACE_WORDS))
+            else:
+                second = _sentence(rng, 6, 24).split()
+            lines.append(f"{label}\t{2 * i}\t{2 * i + 1}\t{' '.join(first)}"
+                         f"\t{' '.join(second)}")
+        with open(os.path.join(directory, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return directory
+
+
+def write_conll(path: str, seed: int, n_sentences: int) -> str:
+    """A CoNLL-2003-shaped file (``token POS chunk tag`` per line, blank
+    lines between sentences, a ``-DOCSTART-`` line first) tagged with
+    :data:`NER_LABELS`: people and places among plain words."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lines = ["-DOCSTART- -X- -X- O", ""]
+    for _ in range(n_sentences):
+        for _ in range(int(rng.integers(4, 20))):
+            kind = int(rng.integers(0, 6))
+            if kind == 0:
+                name = str(rng.choice(_PEOPLE)).split()
+                tags = ["B-PER"] + ["I-PER"] * (len(name) - 1)
+            elif kind == 1:
+                name, tags = [str(rng.choice(_PLACES))], ["B-LOC"]
+            else:
+                name, tags = [str(rng.choice(TRACE_WORDS))], ["O"]
+            lines += [f"{w} X X {t}" for w, t in zip(name, tags)]
+        lines.append("")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_swag_csv(path: str, seed: int, n_examples: int) -> str:
+    """A SWAG-shaped CSV (``video-id, fold-ind, startphrase, sent1, sent2,
+    gold-source, ending0..3, label``) whose gold ending repeats the last
+    word of ``sent1``."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    header = ["video-id", "fold-ind", "startphrase", "sent1", "sent2",
+              "gold-source", "ending0", "ending1", "ending2", "ending3",
+              "label"]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        for i in range(n_examples):
+            context = _sentence(rng, 6, 20)
+            label = int(rng.integers(0, 4))
+            endings = [_sentence(rng, 3, 10) for _ in range(4)]
+            endings[label] += " " + context.split()[-1]
+            writer.writerow([f"v{i}", i, context, context,
+                             _sentence(rng, 2, 5), "gold", *endings, label])
     return path

@@ -33,8 +33,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -78,7 +80,9 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
         synthetic_pretraining_batch)
 
+    out = tempfile.mkdtemp(prefix="profile_train_")  # no save happens
     args = run_pretraining.setup_training(run_pretraining.parse_arguments([
+        "--output_dir", out,
         "--config_file", os.path.join(REPO, "configs",
                                       "bert_pretraining_phase2_config.json"),
         "--model_config_file", os.path.join(
@@ -169,6 +173,7 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     del model, optimizer, step, batches
+    shutil.rmtree(out, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return result

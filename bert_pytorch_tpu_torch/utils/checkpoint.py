@@ -1,40 +1,70 @@
-"""Checkpoints of the JAX package, read (and written) by the port: the read
-side of the JAX package's ``utils/checkpoint.py`` plus the one write the
-server needs.
+"""Checkpoints in the JAX package's format, read and written by the port:
+the counterpart of the JAX package's ``utils/checkpoint.py``.
 
-A JAX checkpoint is one flax msgpack file, ``ckpt_{step}.msgpack``,
-holding ``{model, optimizer, sampler, epoch[, preconditioner]}``, beside
-its integrity manifest (:mod:`.integrity`). A server needs only ``model``:
-:func:`load_params_only` walks the top-level map with the port's own codec
-(:mod:`.flax_msgpack`; no ``msgpack``, ``flax`` or ``ml_dtypes``), skips
-every other subtree by byte offset without decoding it, and decodes
-``model`` one leaf at a time. Each flax module converts to the port's
-state-dict entries (``models/convert.py`` ``module_state``: stacked
-encoder leaves split per layer) as soon as its leaves decode, is checked
-against the target's shapes, and is cast or quantized then, so the host
-never holds a second full fp32 tree. A sharded-layout index
-(``ckpt_{step}.shard{p}of{n}.msgpack`` beside it) reads only the slices
-of ``model`` from its shard files.
+A checkpoint is one flax msgpack file, ``ckpt_{step}.msgpack``, holding
+``{model, optimizer, sampler, epoch[, preconditioner]}`` (a finetuning
+runner's holds ``{model[, config]}``), beside its integrity manifest
+(:mod:`.integrity`). Either package resumes from the other's file.
 
-:func:`save_checkpoint` is synchronous and writes one file, tmp + rename,
-then its manifest: what ``run_server --save_init_checkpoint`` needs.
-Retention, async writes and resume belong to the pretraining runner.
+Reading. :func:`load_params_only` walks the top-level map with the port's
+own codec (:mod:`.flax_msgpack`; no ``msgpack``, ``flax`` or
+``ml_dtypes``), skips every other subtree by byte offset without decoding
+it, and decodes ``model`` one leaf at a time. Each flax module converts to
+the port's state-dict entries (``models/convert.py`` ``module_state``:
+stacked encoder leaves split per layer) as soon as its leaves decode, is
+checked against the target's shapes, and is cast or quantized (or moved
+to the target's device) then, so the host never holds a second full fp32
+tree. :func:`restore_training_state` does the same for ``model`` and the
+optimizer's ``mu`` and ``nu`` of a training checkpoint, staging every
+tensor on the target's device and committing only once the whole state
+decoded and matched, so a failed restore leaves the model and optimizer
+as they were; it byte-skips a K-FAC ``preconditioner`` (ROADMAP_KFAC) and
+refuses an fp16 ``LossScaleState``. :func:`load_latest_checkpoint` walks
+the retained checkpoints newest first, skipping (with a record naming
+step, path and reason) every file whose manifest or msgpack structure
+fails, and restores the first that passes. A sharded-layout index
+(``ckpt_{step}.shard{p}of{n}.msgpack`` beside it) reads its slices from
+the shard files.
+
+Writing. :func:`save_checkpoint` streams the tree's bytes to a temporary
+file while hashing them, renames it into place, writes the manifest, then
+prunes all but the newest ``keep`` checkpoints (the gathered layout only:
+the sharded write waits for ROADMAP_SHARDED). With ``async_write=True`` it
+snapshots the tensors on their device (one clone each, on the current
+stream) and returns; a background thread copies the snapshot to the host
+on a side stream, encodes and writes it. One write per directory is in
+flight: the next save to it, and :func:`wait_for_pending_save`, join it
+first, and raise if it failed.
 """
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import os
 import re
 import tempfile
+import threading
+import time
+import warnings
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.models import convert as convert_lib
 from bert_pytorch_tpu_torch.ops import quant as quant_ops
+from bert_pytorch_tpu_torch.optim import transforms
 from bert_pytorch_tpu_torch.utils import flax_msgpack, integrity
 
 CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
+# Sharded-layout shard files; they do not match CKPT_RE, so discovery,
+# retention and the walk-back see only the index file.
+SHARD_RE = re.compile(r"ckpt_(\d+)\.shard(\d+)of(\d+)\.msgpack$")
+ROADMAP_KFAC = ("ROADMAP.md, queue 1 of the modules still to port, item 5: "
+                "\"K-FAC (optim/kfac.py)\"")
+ROADMAP_SHARDED = ("ROADMAP.md, queue 1 of the modules still to port, item "
+                   "4: \"Multi-GPU layouts\", the sharded checkpoint write")
 # The sharded layout's index carries this top-level key ({version,
 # n_shards, shard_files, mesh_spec}); its array leaves are stubs
 # {_LEAF_KEY: 1, shape, dtype} whose bytes live in the shard files as
@@ -65,10 +95,21 @@ def _ckpt_steps(output_dir: str) -> list:
                   if (m := CKPT_RE.search(name)))
 
 
-def find_resume_step(output_dir: str) -> Optional[int]:
-    """Max step among ckpt_*.msgpack files (None for none)."""
+def find_resume_step(output_dir: str, verify: bool = False
+                     ) -> Optional[int]:
+    """Max step among ckpt_*.msgpack files (None for none). ``verify``
+    walks newest first past files whose manifest fails: the newest step a
+    resume could load (a file without a manifest passes, unverifiable is
+    not corrupt)."""
     steps = _ckpt_steps(output_dir)
-    return steps[-1] if steps else None
+    if not verify:
+        return steps[-1] if steps else None
+    for step in reversed(steps):
+        status, _ = integrity.verify_checkpoint(
+            checkpoint_path(output_dir, step))
+        if status != integrity.CORRUPT:
+            return step
+    return None
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:
@@ -113,32 +154,72 @@ def load_params_only(path: str, target: Dict[str, torch.Tensor],
     status, detail = integrity.verify_blob(path, blob)
     if status == integrity.CORRUPT:
         raise CheckpointCorruptError(f"{path}: {detail}")
-    convert = _make_module_converter(target, quantize, device)
     offsets = _toplevel_offsets(path, blob)
     if key not in offsets:
         raise KeyError(f"checkpoint {path} has no top-level {key!r} subtree "
                        f"(keys: {sorted(k for k in offsets if k != SHARDED_KEY)})")
+    return _decode_state(path, blob, offsets, (key,), target, quantize,
+                         device, partial=True)
+
+
+def _decode_state(path: str, blob, offsets: Dict[str, int], keys: tuple,
+                  target: Dict[str, torch.Tensor], quantize: Optional[str],
+                  device, partial: bool) -> Dict[str, torch.Tensor]:
+    """The subtree at ``keys`` (a top-level key, then map keys below it)
+    as the port's state dict for ``target``, converted module by module
+    as it decodes. ``partial`` (the params-only rule): every module of the
+    target must arrive; otherwise every tensor of the target must."""
+    where = "/".join(keys)
+    convert = _make_module_converter(target, quantize, device)
+    state: Dict[str, torch.Tensor] = {}
     if SHARDED_KEY in offsets:
-        meta, _ = flax_msgpack.decode(blob, offsets[SHARDED_KEY])
-        stubs, _ = flax_msgpack.decode(blob, offsets[key])
-        tree = _assemble_sharded(path, {key: stubs}, meta, only_prefix=key)
-        state: Dict[str, torch.Tensor] = {}
-        for module_path, leaves in convert_lib.modules_of(tree[key]):
+        tree = _sharded_value(path, blob, offsets, keys)
+        for module_path, leaves in convert_lib.modules_of(tree):
             state.update(convert(module_path, leaves))
     else:
-        if not flax_msgpack.is_map(blob, offsets[key]):
-            raise KeyError(f"checkpoint {path}: the {key!r} subtree is not "
+        pos = _subtree_offset(path, blob, offsets, keys)
+        if not flax_msgpack.is_map(blob, pos):
+            raise KeyError(f"checkpoint {path}: the {where!r} subtree is not "
                            "a map of modules")
-        state = {}
-        _walk(blob, offsets[key], (), lambda p, leaves: state.update(
+        _walk(blob, pos, (), lambda p, leaves: state.update(
             convert(p, leaves)))
-    missing = ({k.rpartition(".")[0] for k in target}
-               - {k.rpartition(".")[0] for k in state})
+    if partial:
+        missing = ({k.rpartition(".")[0] for k in target}
+                   - {k.rpartition(".")[0] for k in state})
+    else:
+        missing = set(target) - set(state)
     if missing:
         raise CheckpointShapeError(
-            f"checkpoint {path} lacks {len(missing)} modules of the target "
-            f"under {key!r}, e.g. {sorted(missing)[:4]}")
+            f"checkpoint {path} lacks {len(missing)} "
+            f"{'modules' if partial else 'tensors'} of the target under "
+            f"{where!r}, e.g. {sorted(missing)[:4]}")
     return state
+
+
+def _subtree_offset(path: str, blob, offsets: Dict[str, int],
+                    keys: tuple) -> int:
+    """Offset of the value at ``keys`` below the top-level map, found by
+    skipping."""
+    pos = offsets[keys[0]]
+    for part in keys[1:]:
+        items = _map_offsets(blob, pos)
+        if part not in items:
+            raise KeyError(f"checkpoint {path}: {'/'.join(keys)} not found "
+                           f"(have {sorted(items)})")
+        pos = items[part]
+    return pos
+
+
+def _map_offsets(blob, pos: int) -> Dict[str, int]:
+    """Offset of each value of the map at ``pos``, by key (nothing decodes
+    but the keys)."""
+    n, pos = flax_msgpack.map_header(blob, pos)
+    offsets = {}
+    for _ in range(n):
+        name, pos = flax_msgpack.decode(blob, pos)
+        offsets[name] = pos
+        pos = flax_msgpack.skip(blob, pos)
+    return offsets
 
 
 def _toplevel_offsets(path: str, blob) -> Dict[str, int]:
@@ -146,13 +227,7 @@ def _toplevel_offsets(path: str, blob) -> Dict[str, int]:
     skipping (nothing decodes but the keys)."""
     if not flax_msgpack.is_map(blob, 0):
         raise KeyError(f"checkpoint {path} is not a map of subtrees")
-    n, pos = flax_msgpack.map_header(blob, 0)
-    offsets = {}
-    for _ in range(n):
-        name, pos = flax_msgpack.decode(blob, pos)
-        offsets[name] = pos
-        pos = flax_msgpack.skip(blob, pos)
-    return offsets
+    return _map_offsets(blob, 0)
 
 
 def _walk(blob, pos: int, path: tuple,
@@ -195,6 +270,9 @@ def _make_module_converter(target: Dict[str, torch.Tensor],
                     f"checkpoint leaf {where}/{name} has shape "
                     f"{tuple(leaf.shape)}: {len(layers)} stacked layers "
                     "expected")
+        if device is not None and quantize is None:
+            # Transposes and layer splits then run on the device.
+            leaves = {name: leaf.to(device) for name, leaf in leaves.items()}
         by_module: Dict[str, Dict[str, torch.Tensor]] = {}
         for key, value in convert_lib.module_state(path, leaves).items():
             module, _, name = key.rpartition(".")
@@ -224,7 +302,7 @@ def _make_module_converter(target: Dict[str, torch.Tensor],
 
 
 def _assemble_sharded(path: str, index: dict, meta: dict,
-                      only_prefix: str) -> dict:
+                      only_prefix: Optional[str]) -> dict:
     """Full tensors of the stubs in ``index`` from the slice records of
     every shard file named in ``meta`` (each verified against its own
     manifest). Only records under ``only_prefix`` decode; the rest of each
@@ -244,7 +322,8 @@ def _assemble_sharded(path: str, index: dict, meta: dict,
         n, pos = flax_msgpack.map_header(blob, offsets["leaves"])
         for _ in range(n):
             flat, pos = flax_msgpack.decode(blob, pos)
-            if flat == only_prefix or flat.startswith(only_prefix + "/"):
+            if (only_prefix is None or flat == only_prefix
+                    or flat.startswith(only_prefix + "/")):
                 recs, pos = flax_msgpack.decode(blob, pos)
                 records.setdefault(flat, []).extend(recs)
             else:
@@ -274,29 +353,348 @@ def _assemble_sharded(path: str, index: dict, meta: dict,
     return fill(index, ())
 
 
-def _atomic_write(path: str, blob: bytes) -> None:
-    directory = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+
+# -- full reads and resume -------------------------------------------------
+
+def _read_checked(path: str) -> bytearray:
+    """The file's bytes once its manifest (and a sharded index's shard
+    files) verify and the bytes hold exactly one msgpack value; else
+    :class:`CheckpointCorruptError` (or ``MsgpackError`` for a file that
+    has no manifest and is truncated)."""
+    blob = _read(path)
+    status, detail = integrity.verify_blob(path, blob)
+    if status == integrity.CORRUPT:
+        raise CheckpointCorruptError(f"{path}: {detail}")
+    end = flax_msgpack.skip(blob, 0)
+    if end != len(blob):
+        raise CheckpointCorruptError(
+            f"{path}: {len(blob) - end} bytes after the msgpack value")
+    if SHARDED_KEY in _toplevel_offsets(path, blob):
+        status, detail = integrity.verify_checkpoint(path)
+        if status == integrity.CORRUPT:
+            raise CheckpointCorruptError(f"{path}: {detail}")
+    return blob
+
+
+def _sharded_value(path: str, blob, offsets: Dict[str, int], keys: tuple):
+    """The value at ``keys`` of a sharded index, its array stubs filled
+    from the shard files (only their records under ``keys`` decode)."""
+    meta, _ = flax_msgpack.decode(blob, offsets[SHARDED_KEY])
+    value, _ = flax_msgpack.decode(
+        blob, _subtree_offset(path, blob, offsets, keys))
+    if not isinstance(value, dict):
+        return value
+    for part in reversed(keys):
+        value = {part: value}
+    value = _assemble_sharded(path, value, meta, only_prefix="/".join(keys))
+    for part in keys:
+        value = value[part]
+    return value
+
+
+def _decode_value(path: str, blob, offsets: Dict[str, int], keys: tuple):
+    """The whole value at ``keys``, decoded."""
+    if SHARDED_KEY in offsets:
+        return _sharded_value(path, blob, offsets, keys)
+    return flax_msgpack.decode(
+        blob, _subtree_offset(path, blob, offsets, keys))[0]
+
+
+def load_checkpoint(path: str, verify: bool = True) -> dict:
+    """The whole checkpoint decoded: nested dicts of CPU tensors and plain
+    values (a sharded index assembled from its shard files). ``verify``
+    checks the manifest first (:class:`CheckpointCorruptError`)."""
+    blob = _read_checked(path) if verify else _read(path)
+    offsets = _toplevel_offsets(path, blob)
+    return {key: _decode_value(path, blob, offsets, (key,))
+            for key in offsets if key != SHARDED_KEY}
+
+
+def restore_training_state(path: str, model: torch.nn.Module,
+                           optimizer: Optional[torch.optim.Optimizer] = None,
+                           blob=None) -> dict:
+    """Load a training checkpoint (either package's) into ``model`` and,
+    when given, the Adam-family ``optimizer``, in place; returns
+    ``{"sampler": dict or None, "epoch": int or None, "count": int or
+    None}``.
+
+    ``model`` and ``mu``/``nu`` decode module by module onto the model's
+    device (every tensor of the model's state dict, and of each parameter's
+    moments, must arrive with its shape: :class:`CheckpointShapeError`),
+    and are committed only then, so a failed restore leaves ``model`` and
+    ``optimizer`` untouched. A loss-scaled (fp16) optimizer state is
+    refused (``models/convert.py`` ROADMAP_FP16); a ``preconditioner``
+    subtree (K-FAC) is skipped undecoded with a warning (ROADMAP_KFAC).
+    ``blob`` is the file's bytes when the caller has read and checked
+    them (:func:`load_latest_checkpoint`)."""
+    if blob is None:
+        blob = _read_checked(path)
+    offsets = _toplevel_offsets(path, blob)
+    needed = ("model",) + (("optimizer",) if optimizer is not None else ())
+    absent = [key for key in needed if key not in offsets]
+    if absent:
+        raise KeyError(f"checkpoint {path} has no {absent} subtree (keys: "
+                       f"{sorted(k for k in offsets if k != SHARDED_KEY)})")
+    if "preconditioner" in offsets:
+        warnings.warn(f"{path}: its K-FAC preconditioner state is skipped; "
+                      f"the port has no K-FAC yet ({ROADMAP_KFAC})")
+    device = next(model.parameters()).device
+    target = model.state_dict()
+    if optimizer is not None:
+        opt_index = flax_msgpack.decode(blob, offsets["optimizer"])[0] if (
+            SHARDED_KEY in offsets) else _map_offsets(blob,
+                                                      offsets["optimizer"])
+        convert_lib.check_optimizer_tree(opt_index, f"checkpoint {path}")
+    state = _decode_state(path, blob, offsets, ("model",), target, None,
+                          device, partial=False)
+    extras = {"count": None}
+    if optimizer is not None:
+        params = dict(model.named_parameters())
+        moment_target = {n: torch.empty(p.shape, dtype=torch.float32,
+                                        device="meta")
+                         for n, p in params.items()}
+        mu, nu = (_decode_state(path, blob, offsets, ("optimizer", part),
+                                moment_target, None, device, partial=False)
+                  for part in ("mu", "nu"))
+        count = _decode_value(path, blob, offsets, ("optimizer", "count"))
+        extras["count"] = int(np.asarray(count))
+    model.load_state_dict(state)
+    del state
+    if optimizer is not None:
+        transforms.load_moments(optimizer, params, extras["count"], mu, nu)
+    for key in ("sampler", "epoch"):
+        extras[key] = (_decode_value(path, blob, offsets, (key,))
+                       if key in offsets else None)
+    return extras
+
+
+def load_latest_checkpoint(output_dir: str, model: torch.nn.Module,
+                           optimizer: Optional[torch.optim.Optimizer] = None,
+                           on_skip: Optional[Callable[[dict], None]] = None):
+    """(step, :func:`restore_training_state`'s extras) of the newest
+    checkpoint in ``output_dir`` that reads back whole, or None.
+
+    Newest first across every retained checkpoint: a file whose manifest
+    fails, or whose bytes are not one msgpack value (a truncated file
+    without a manifest), is skipped with a warning and
+    ``on_skip({"step", "path", "reason"})``, before anything of it is
+    restored; the first that passes is restored, and an error there (a
+    shape that does not fit the model) raises."""
+    for step in reversed(_ckpt_steps(output_dir)):
+        path = checkpoint_path(output_dir, step)
+        try:
+            blob = _read_checked(path)
+        except CheckpointCorruptError as e:
+            reason = f"integrity: {e}"
+        except (flax_msgpack.MsgpackError, KeyError, OSError) as e:
+            reason = f"{type(e).__name__}: {e}"
+        else:
+            return step, restore_training_state(path, model, optimizer, blob)
+        warnings.warn(f"Skipping unreadable checkpoint {path} ({reason}); "
+                      "falling back to the previous retained one")
+        if on_skip is not None:
+            on_skip({"step": step, "path": path, "reason": reason})
+    return None
+
+
+# -- writing ---------------------------------------------------------------
+
+# One pending async write per output directory (its absolute path): a
+# second save there joins the first, so its checkpoints land in order and
+# at most one extra copy of its state is held.
+_pending_saves: Dict[str, threading.Thread] = {}
+_pending_errors: Dict[str, list] = {}
+_pending_lock = threading.Lock()
+# The newest writes, one record each: {"path", "step", "bytes", "start",
+# "end" (perf_counter), "seconds", "async"}; a caller timing its saves
+# reads them here.
+write_records: collections.deque = collections.deque(maxlen=64)
+
+
+def _pending_key(output_dir: str) -> str:
+    return os.path.abspath(output_dir)
+
+
+def _join_pending_save(key: Optional[str] = None
+                       ) -> Optional[BaseException]:
+    """Join the pending writes (all, or one directory's) and return the
+    first recorded error instead of raising it."""
+    with _pending_lock:
+        if key is None:
+            threads = list(_pending_saves.values())
+            _pending_saves.clear()
+        else:
+            thread = _pending_saves.pop(key, None)
+            threads = [thread] if thread is not None else []
+    for thread in threads:
+        thread.join()
+    with _pending_lock:
+        if key is None:
+            errors = [(k, e) for k in list(_pending_errors)
+                      for e in _pending_errors.pop(k)]
+        else:
+            errors = [(key, e) for e in _pending_errors.pop(key, [])]
+    for where, extra in errors[1:]:
+        warnings.warn(f"additional async checkpoint write failure for "
+                      f"{where}: {type(extra).__name__}: {extra}")
+    return errors[0][1] if errors else None
+
+
+def _start_pending_save(key: str, step: int, work: Callable[[], None]
+                        ) -> None:
+    def run():
+        try:
+            work()
+        except BaseException as e:  # raised by the next join
+            with _pending_lock:
+                _pending_errors.setdefault(key, []).append(e)
+
+    thread = threading.Thread(target=run, name=f"ckpt-write-{step}",
+                              daemon=False)
+    with _pending_lock:
+        _pending_saves[key] = thread
+    thread.start()
+
+
+def wait_for_pending_save(output_dir: Optional[str] = None) -> None:
+    """Block until the pending async writes (all, or ``output_dir``'s)
+    have finished; raise if one failed. Call before reading checkpoints
+    back and before the process exits."""
+    key = None if output_dir is None else _pending_key(output_dir)
+    error = _join_pending_save(key)
+    if error is not None:
+        raise RuntimeError("async checkpoint write failed") from error
+
+
+def _prune_old(output_dir: str, keep: int) -> None:
+    """Delete all but the newest ``keep`` checkpoints (with their
+    manifests and any shard files)."""
+    steps = _ckpt_steps(output_dir)
+    for old in steps[:-keep] if keep > 0 else []:
+        old_path = checkpoint_path(output_dir, old)
+        stale = [old_path, integrity.manifest_path(old_path)]
+        for name in os.listdir(output_dir):
+            m = SHARD_RE.search(name)
+            if m and int(m.group(1)) == old:
+                shard = os.path.join(output_dir, name)
+                stale += [shard, integrity.manifest_path(shard)]
+        for name in stale:
+            try:
+                os.unlink(name)
+            except OSError:
+                pass
+
+
+def _write_and_prune(contents: dict, output_dir: str, step: int, keep: int,
+                     is_async: bool) -> None:
+    """Stream ``contents``' bytes to a temporary file, hashing them on the
+    way, rename it into place, write the manifest (blob first, manifest
+    second: a crash between leaves a file without a manifest, which reads
+    as unverifiable, never as corrupt), then prune."""
+    start = time.perf_counter()
+    path = checkpoint_path(output_dir, step)
+    digest, size = hashlib.sha256(), 0
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
+                               suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(blob)
+            def write(data) -> None:
+                nonlocal size
+                f.write(data)
+                digest.update(data)
+                size += len(data)
+
+            flax_msgpack.encode_to(contents, write)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-
-
-def save_checkpoint(output_dir: str, step: int, contents: dict) -> str:
-    """Write ``contents`` (a dict of subtrees: nested dicts of tensors,
-    numpy values and plain values, e.g. ``{"model": to_jax_params(...),
-    "epoch": 0}``) as ``ckpt_{step}.msgpack`` in flax's bytes, tmp +
-    rename, then its integrity manifest (the gathered layout). Returns the
-    path. The JAX package's ``load_params_only`` and
-    ``integrity.verify_checkpoint`` read it."""
-    os.makedirs(output_dir, exist_ok=True)
-    blob = flax_msgpack.encode(contents)
-    path = checkpoint_path(output_dir, step)
-    _atomic_write(path, blob)
     integrity.write_manifest(path, integrity.build_manifest(
-        step, blob, keys=contents.keys(), layout="gathered"))
+        step, None, keys=contents.keys(), layout="gathered",
+        sha256=digest.hexdigest(), size_bytes=size))
+    _prune_old(output_dir, keep)
+    end = time.perf_counter()
+    write_records.append({"path": path, "step": int(step), "bytes": size,
+                          "start": start, "end": end,
+                          "seconds": end - start, "async": is_async})
+
+
+def _snapshot(tree):
+    """A copy the caller's later updates cannot reach: tensors cloned on
+    their own devices (enqueued on the current stream), numpy arrays
+    copied, dicts and lists rebuilt, other values kept."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_snapshot(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+def _cuda_device(tree) -> Optional[torch.device]:
+    """The CUDA device of the first CUDA tensor leaf, or None."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for value in tree:
+            found = _cuda_device(value)
+            if found is not None:
+                return found
+        return None
+    if isinstance(tree, torch.Tensor) and tree.is_cuda:
+        return tree.device
+    return None
+
+
+def save_checkpoint(output_dir: str, step: int, contents: dict,
+                    keep: int = 3, async_write: bool = False,
+                    layout: str = "gathered") -> str:
+    """Write ``contents`` (a dict of subtrees: nested dicts of tensors on
+    any device, numpy values and plain values, e.g. ``{"model":
+    to_jax_params(...), "epoch": 0}``) as ``ckpt_{step}.msgpack`` in
+    flax's bytes, then its manifest, and keep the newest ``keep``
+    checkpoints of ``output_dir``. Returns the path. The JAX package's
+    ``load_checkpoint`` and ``integrity.verify_checkpoint`` read it.
+
+    A pending async write to ``output_dir`` is joined first (and its
+    error raised once this save's own work is done). ``async_write``:
+    every tensor is cloned on its device now, and a background thread
+    copies the clones to the host on a side stream (after an event that
+    follows the clones), encodes and writes them; the caller may update
+    its tensors at once. Only ``layout="gathered"`` is written."""
+    if layout != "gathered":
+        raise NotImplementedError(
+            f"checkpoint layout {layout!r}: the port writes the gathered "
+            f"layout only ({ROADMAP_SHARDED})")
+    key = _pending_key(output_dir)
+    pending_error = _join_pending_save(key)
+    os.makedirs(output_dir, exist_ok=True)
+    path = checkpoint_path(output_dir, step)
+    if async_write:
+        box = [_snapshot(contents)]
+        device = _cuda_device(box[0])
+        ready = None
+        if device is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+
+        def write_snapshot():
+            snapshot = box.pop()
+            if ready is None:
+                _write_and_prune(snapshot, output_dir, step, keep, True)
+                return
+            with torch.cuda.device(device):
+                side = torch.cuda.Stream()
+                with torch.cuda.stream(side):
+                    side.wait_event(ready)
+                    _write_and_prune(snapshot, output_dir, step, keep, True)
+
+        _start_pending_save(key, step, write_snapshot)
+    else:
+        _write_and_prune(contents, output_dir, step, keep, False)
+    if pending_error is not None:
+        raise RuntimeError("async checkpoint write failed") from pending_error
     return path

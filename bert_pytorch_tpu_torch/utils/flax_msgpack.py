@@ -14,14 +14,16 @@ packages, which a CUDA serving host need not have:
   ``{"__msgpack_chunked_array__": True, "shape": {"0": d0, ...},
   "chunks": {"0": flat slice, ...}}``, and read back whole.
 
-Three entry points: :func:`skip` returns the end offset of one value
+The entry points: :func:`skip` returns the end offset of one value
 without decoding it (``msgpack.Unpacker.skip``), :func:`decode` decodes one
 value (arrays as torch tensors; bfloat16 through ``torch.frombuffer``,
 since numpy alone cannot spell it), and :func:`encode` gives the bytes
 ``msgpack_serialize`` gives for the same tree: minimal int, str, bin, map,
 array and ext headers, strings as str (``use_bin_type``), and every dict's
 keys sorted, as flax's copy of the tree through ``jax.tree_util`` sorts
-them.
+them. :func:`encode_to` streams the same bytes to a ``write`` callable,
+each array's bytes straight from its (host) tensor, so writing a
+multi-GB training state never holds its encoding in memory.
 """
 
 from __future__ import annotations
@@ -230,6 +232,40 @@ def _unchunk(data: dict) -> torch.Tensor:
 
 # -- encoding ------------------------------------------------------------
 
+# Header bytes are gathered up to this size before a write; a payload of at
+# least _DIRECT_BYTES (an array's bytes) is written as it is, uncopied.
+_FLUSH_BYTES = 1 << 16
+_DIRECT_BYTES = 1 << 12
+
+
+class _Sink:
+    """The encoder's output: small pieces gather in a buffer, large ones go
+    to ``write`` directly (``out += piece`` and ``out.append(byte)``, as
+    on a bytearray)."""
+
+    def __init__(self, write):
+        self._write = write
+        self._buf = bytearray()
+
+    def append(self, byte: int) -> None:
+        self._buf.append(byte)
+
+    def __iadd__(self, data) -> "_Sink":
+        if len(data) >= _DIRECT_BYTES:
+            self.flush()
+            self._write(data)
+        else:
+            self._buf += data
+            if len(self._buf) >= _FLUSH_BYTES:
+                self.flush()
+        return self
+
+    def flush(self) -> None:
+        if self._buf:
+            self._write(self._buf)
+            self._buf = bytearray()
+
+
 def encode(tree) -> bytes:
     """The bytes ``flax.serialization.msgpack_serialize(tree)`` gives, for
     a tree of dicts, lists, None, bools, ints, floats, strings, bytes,
@@ -237,11 +273,21 @@ def encode(tree) -> bytes:
     CPU). Leaves of a dict (or the root) above ``MAX_CHUNK_SIZE`` bytes are
     chunked; tuples are refused, as flax's strict packer refuses them."""
     out = bytearray()
-    _pack(tree, out, chunk=True)
+    encode_to(tree, out.extend)
     return bytes(out)
 
 
-def _pack_header(out: bytearray, n: int, fix: int, fix_limit: int,
+def encode_to(tree, write) -> None:
+    """:func:`encode`'s bytes handed to ``write`` piece by piece, in
+    order; an array's bytes are passed as a view of the host tensor (a
+    device tensor is copied to the host, on the current stream, one leaf
+    at a time)."""
+    sink = _Sink(write)
+    _pack(tree, sink, chunk=True)
+    sink.flush()
+
+
+def _pack_header(out, n: int, fix: int, fix_limit: int,
                  wide: Tuple[Tuple[int, str, int], ...]) -> None:
     if n < fix_limit:
         out.append(fix | n)
@@ -262,7 +308,7 @@ _EXT = ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16), (0xC9, ">I", 1 << 32))
 _FIXEXT_TAGS = {v: k for k, v in _FIXEXT.items()}
 
 
-def _pack_int(x: int, out: bytearray) -> None:
+def _pack_int(x: int, out) -> None:
     if 0 <= x < 0x80 or -32 <= x < 0:
         out += struct.pack(">b" if x < 0 else ">B", x)
     elif x >= 0:
@@ -283,42 +329,42 @@ def _pack_int(x: int, out: bytearray) -> None:
         raise MsgpackError(f"integer {x} too small for msgpack")
 
 
-def _pack_bytes(data: bytes, out: bytearray) -> None:
+def _pack_bytes(data, out) -> None:
     _pack_header(out, len(data), 0, 0, _BIN)
     out += data
 
 
-def _array_payload(shape, name: str, data: bytes) -> bytes:
-    """The ext payload of one array: the msgpack triple (shape, dtype
-    name, bytes)."""
-    out = bytearray([0x93])
-    _pack_header(out, len(shape), 0x90, 16, _ARRAY)
+def _pack_array(x, code: int, out) -> None:
+    """One array leaf as an ext value: the ext header, then its payload,
+    the msgpack triple (shape, dtype name, bytes), the bytes uncopied."""
+    shape, name, data = _host(x)
+    head = bytearray([0x93])
+    _pack_header(head, len(shape), 0x90, 16, _ARRAY)
     for dim in shape:
-        _pack_int(int(dim), out)
-    _pack(name, out, chunk=False)
-    _pack_bytes(data, out)
-    return bytes(out)
-
-
-def _pack_ext(code: int, payload: bytes, out: bytearray) -> None:
-    n = len(payload)
+        _pack_int(int(dim), head)
+    _pack(name, head, chunk=False)
+    _pack_header(head, len(data), 0, 0, _BIN)
+    n = len(head) + len(data)
     if n in _FIXEXT_TAGS:
         out.append(_FIXEXT_TAGS[n])
     else:
         _pack_header(out, n, 0, 0, _EXT)
     out += struct.pack(">b", code)
-    out += payload
+    out += head
+    out += data
 
 
-def _host(x) -> Tuple[tuple, str, bytes]:
-    """(shape, dtype name, C-order bytes) of an array leaf."""
+def _host(x) -> Tuple[tuple, str, memoryview]:
+    """(shape, dtype name, C-order bytes as a flat byte view) of an array
+    leaf; a tensor not on the CPU is copied there first."""
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu").contiguous()
         if t.dtype not in DTYPE_NAMES:
             raise MsgpackError(f"cannot write a {t.dtype} tensor")
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
-        return tuple(t.shape), DTYPE_NAMES[t.dtype], raw
-    return x.shape, x.dtype.name, x.tobytes("C")
+        raw = t.reshape(-1).view(torch.uint8).numpy()
+        return tuple(t.shape), DTYPE_NAMES[t.dtype], memoryview(raw)
+    flat = np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+    return x.shape, x.dtype.name, memoryview(flat)
 
 
 def _nbytes(x) -> int:
@@ -327,7 +373,7 @@ def _nbytes(x) -> int:
     return x.size * x.dtype.itemsize
 
 
-def _pack_map(items: dict, out: bytearray, chunk: bool) -> None:
+def _pack_map(items: dict, out, chunk: bool) -> None:
     """A map in ``items``' own order; ``chunk`` whether its array values
     may be chunked."""
     _pack_header(out, len(items), 0x80, 16, _MAP)
@@ -336,7 +382,7 @@ def _pack_map(items: dict, out: bytearray, chunk: bool) -> None:
         _pack(value, out, chunk=chunk)
 
 
-def _pack_chunked(x, out: bytearray) -> None:
+def _pack_chunked(x, out) -> None:
     """flax's ``_chunk``: the flat array in slices of at most
     ``MAX_CHUNK_SIZE`` bytes, under maps in flax's insertion order (marker,
     shape, chunks; dimensions and slices by index), never sorted."""
@@ -353,7 +399,7 @@ def _pack_chunked(x, out: bytearray) -> None:
                enumerate(range(0, flat.shape[0], size))}, out, chunk=False)
 
 
-def _pack(x, out: bytearray, chunk: bool) -> None:
+def _pack(x, out, chunk: bool) -> None:
     if x is None:
         out.append(0xC0)
     elif x is True or x is False:
@@ -362,9 +408,9 @@ def _pack(x, out: bytearray, chunk: bool) -> None:
         if chunk and _nbytes(x) > MAX_CHUNK_SIZE:
             _pack_chunked(x, out)
             return
-        _pack_ext(EXT_NDARRAY, _array_payload(*_host(x)), out)
+        _pack_array(x, EXT_NDARRAY, out)
     elif isinstance(x, np.generic):
-        _pack_ext(EXT_NPSCALAR, _array_payload(*_host(np.asarray(x))), out)
+        _pack_array(np.asarray(x), EXT_NPSCALAR, out)
     elif type(x) is int:
         _pack_int(x, out)
     elif type(x) is float:

@@ -57,10 +57,14 @@ def sha256_file(path: str, chunk_bytes: int = 1 << 20) -> str:
     return digest.hexdigest()
 
 
-def build_manifest(step: int, blob: bytes, keys=(), mesh_spec=None,
-                   layout=None, shard_files=None) -> dict:
+def build_manifest(step: int, blob: Optional[bytes], keys=(),
+                   mesh_spec=None, layout=None, shard_files=None,
+                   sha256: Optional[str] = None,
+                   size_bytes: Optional[int] = None) -> dict:
     """Manifest dict for an in-memory serialized checkpoint (the save path
-    has the bytes in hand — hashing them costs no extra IO).
+    has the bytes in hand — hashing them costs no extra IO). A streamed
+    write passes ``blob=None`` with the ``sha256`` and ``size_bytes`` it
+    computed on the way out.
 
     ``mesh_spec`` (a plain dict of axis sizes, ``MeshSpec.as_dict()``)
     labels the topology the checkpoint was saved under — what elastic
@@ -72,8 +76,9 @@ def build_manifest(step: int, blob: bytes, keys=(), mesh_spec=None,
     manifest = {
         "schema": MANIFEST_SCHEMA,
         "step": int(step),
-        "sha256": hashlib.sha256(blob).hexdigest(),
-        "size_bytes": len(blob),
+        "sha256": (hashlib.sha256(blob).hexdigest() if blob is not None
+                   else sha256),
+        "size_bytes": len(blob) if blob is not None else int(size_bytes),
         "keys": sorted(keys),
     }
     if mesh_spec is not None:

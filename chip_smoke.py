@@ -109,7 +109,29 @@ Phases (any failure exits non-zero and prints no result line):
    and the LayerNorm kernel launched exactly 1 + 2 x 24 times per forward
    (steps + prediction batches) and no other kernel. The serving and
    pretraining paths keep the plain LayerNorm: the kernel launches never
-   there.
+   there. Its final checkpoint (no ``--skip_checkpoint``) verifies and
+   reads back equal to the trained params;
+9. the two-phase pretraining hand-off on the runner's own functions
+   (``drive_handoff``, BERT-large, after a check of 14 GB of free disk):
+   phase 1 at S=128 (local batch 32 x 2, 2 steps, a synchronous save),
+   then phase 2 at S=512 in the same directory with
+   ``--previous_phase_end_step 2`` and the flash kernels (the resumed
+   params and moments bit-equal to phase 1's final state, the optimizer
+   count 0; 4 steps with phase 6's launch counts on the tensor cores;
+   async saves at steps 4 and 6 keeping 2, so ckpt_2 is pruned; the
+   saving step's stall, the steps overlapping the background write and
+   its seconds logged); a fresh runner resumes it bit for bit and one
+   more step from each agrees (bit for bit where the kernels are
+   deterministic); a truncated newest file is walked back past, with the
+   skip logged;
+10. ``run_glue``, ``run_ner`` and ``run_swag`` at BERT-large width from
+   phase 9's checkpoint on seeded synthetic files (S=128; batch 32, 32,
+   16; 3 steps, ``--save_steps 1`` and the final save; metrics printed;
+   each final checkpoint reads back equal), then ``run_server`` serves
+   the GLUE checkpoint (``--tasks classify --classify_checkpoint``): one
+   dev example answered over HTTP with #4 24 times per forward on the
+   tensor cores, its logits within 5e-2 of the GLUE model's; then each
+   runner again for 9 steps without checkpoints, for its seq/s.
 
 Every launch counter is set to 0 just before each main path and read just
 after it. The last three lines of standard output are the kernels JSON,
@@ -1440,9 +1462,14 @@ def training_args(extra=()):
     the recipe's config file (seq 512 rows, max_pred 80, remat dots, LAMB
     with poly warmup), a local batch of 8 accumulated twice, bf16, the
     flash kernels, a few steps and no checkpoint."""
+    import atexit
+
     from bert_pytorch_tpu_torch import run_pretraining
 
+    out = tempfile.mkdtemp(prefix="chip_smoke_train_")  # nothing is saved
+    atexit.register(shutil.rmtree, out, True)
     return run_pretraining.parse_arguments([
+        "--output_dir", out,
         "--config_file", PHASE2, "--model_config_file", CONFIG,
         "--local_batch_size", str(TRAIN_LOCAL_BATCH),
         "--global_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
@@ -1775,7 +1802,7 @@ def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
         "--config_file", CONFIG, "--vocab_file", vocab, "--do_lower_case",
         "--train_file", train, "--predict_file", dev, "--do_train",
         "--do_predict", "--do_eval", "--eval_script", EVAL_SCRIPT,
-        "--output_dir", out, "--skip_checkpoint",
+        "--output_dir", out,
         "--max_seq_length", str(SQUAD_SEQ), "--doc_stride", "128",
         "--train_batch_size", str(SQUAD_BATCH), "--max_steps",
         str(SQUAD_STEPS), "--dtype", "bfloat16", "--layer_norm_backend",
@@ -1784,9 +1811,10 @@ def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     # Counts to zero just before the main path, read just after.
     zero_counts(kernels)
-    summary = run_squad.main(args)
+    summary, model, _ = run_squad.run(args)
     launches = {name: k.launches for name, k in kernels.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    write = check_saved_model(out, summary["global_step"], model, "SQuAD")
     losses = summary["step_losses"]
     if len(losses) != SQUAD_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"SQuAD steps not all finite: {losses}")
@@ -1809,9 +1837,502 @@ def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
         raise AssertionError(f"SQuAD launches {launches}; expected "
                              f"{expected} ({per_forward} LayerNorms per "
                              f"forward over {forwards} forwards)")
+    del model
     torch.cuda.empty_cache()
     return dict(summary, launches=launches, forwards=forwards,
-                questions=len(questions), peak_gib=peak_gib)
+                questions=len(questions), peak_gib=peak_gib,
+                checkpoint_write=write)
+
+
+# -- phase 9: the two-phase hand-off, resume and walk-back --------------------
+
+PHASE1 = os.path.join(REPO, "configs", "bert_pretraining_phase1_config.json")
+# 9a, the phase-1 recipe at S=128: local batch 32 x accumulation 2, 2
+# steps, a synchronous save at step 2. 9b, the phase-2 recipe at S=512:
+# phase 6's local batch 8 x 2, 4 steps, async saves every 2 keeping 2.
+P1_LOCAL, P1_ACCUM, P1_STEPS, P1_SEQ = 32, 2, 2, 128
+P2_STEPS, P2_EVERY, P2_KEEP = 4, 2, 2
+# Three BERT-large LAMB states of about 4 GB at the peak of a save (two
+# retained, one being written), plus headroom.
+HANDOFF_DISK_BYTES = 14 * 2 ** 30
+# One step from the resumed state against one from the in-memory state:
+# bit for bit when every kernel on the step is deterministic; where one is
+# not, the loss and every parameter and moment within 1e-5 (the step's lr
+# is about 1e-4 at count 4 of the recipe's warmup: a LAMB step moves no
+# element by more than lr x its trust ratio, and two runs of a
+# nondeterministic reduction differ in the last bits of a gradient).
+RESUME_STEP_ATOL = 1e-5
+
+
+def runner(out: str, config_file: str, extra) -> dict:
+    """The pretraining runner's own set-up at BERT-large width, as its
+    ``main`` runs it up to the loop: arguments, model, optimizer and the
+    resume from ``out`` (timed)."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments([
+        "--config_file", config_file, "--model_config_file", CONFIG,
+        "--output_dir", out, "--dtype", "bfloat16", "--device", "cuda",
+        "--seed", "0", "--log_steps", "1", *extra]))
+    model, config = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint, global_step = run_pretraining.restore_checkpoint(
+        args, model, optimizer)
+    torch.cuda.synchronize()
+    return {"args": args, "model": model, "config": config,
+            "optimizer": optimizer, "schedule": schedule,
+            "checkpoint": checkpoint, "global_step": global_step,
+            "resume_s": time.perf_counter() - t0}
+
+
+def train_runner(r: dict, dataset) -> dict:
+    """The runner's loop (prepare_dataset, make_step, train) on ``dataset``
+    from where ``r`` resumed."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    args = r["args"]
+    loader, sampler = run_pretraining.prepare_dataset(
+        args, r["config"], r["checkpoint"], dataset)
+    step = run_pretraining.make_step(args, r["model"], r["optimizer"],
+                                     r["schedule"], r["config"])
+    return run_pretraining.train(args, r["model"], r["optimizer"],
+                                 r["config"], step, loader, sampler,
+                                 r["checkpoint"], r["global_step"])
+
+
+def training_state(r: dict) -> dict:
+    """name -> (param, exp_avg, exp_avg_sq) of ``r``'s model, and the
+    count under None."""
+    state = {n: (p, r["optimizer"].state[p]["exp_avg"],
+                 r["optimizer"].state[p]["exp_avg_sq"])
+             for n, p in r["model"].named_parameters()}
+    state[None] = r["optimizer"].param_groups[0]["count"]
+    return state
+
+
+def host_copy(state: dict) -> dict:
+    return {n: v if n is None else tuple(t.detach().cpu().clone() for t in v)
+            for n, v in state.items()}
+
+
+def check_same_state(label: str, got: dict, want: dict,
+                     count=None) -> None:
+    """Every parameter and both moments bit for bit (``want`` may be a host
+    copy); the count ``count`` when given, else ``want``'s."""
+    bad = [n for n in want if n is not None and not all(
+        torch.equal(a.cpu() if b.device.type == "cpu" else a, b)
+        for a, b in zip(got[n], want[n]))]
+    expected = want[None] if count is None else count
+    if bad or got[None] != expected:
+        raise AssertionError(f"{label}: {len(bad)} tensors differ (e.g. "
+                             f"{bad[:3]}); count {got[None]} vs {expected}")
+
+
+def overlap(step_times: list, write: dict) -> tuple:
+    """(indices of the steps whose wall time overlaps the write, of those
+    that do not)."""
+    over = [i for i, (a, b) in enumerate(step_times)
+            if a < write["end"] and b > write["start"]]
+    return over, [i for i in range(len(step_times)) if i not in over]
+
+
+def check_launches_per_step(launches: dict, routes: dict, layers: int,
+                            accumulation: int, steps: int) -> None:
+    """Phase 6's exact counts (remat dots recomputes the forward), every
+    launch on the tensor cores, the LayerNorm kernel never."""
+    per_step = layers * accumulation
+    expected = {"flash_attention_fwd": 2 * per_step * steps,
+                "flash_attention_dq": per_step * steps,
+                "flash_attention_dkv": per_step * steps,
+                "layer_norm_fwd": 0}
+    for name, want in expected.items():
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"over {steps} steps; expected {want}")
+    for name in TRAIN_REPLACES:
+        if routes[name]["tensor_cores"] != launches[name]:
+            raise AssertionError(f"{name} launches by route {routes[name]}: "
+                                 "every bf16 launch must take the tensor "
+                                 "cores")
+
+
+def kernels_deterministic() -> dict:
+    """Whether the training forward, dq and dkv each give the same bits
+    twice on the same inputs (S=512, bf16, padded, dropout 0.1). Launches
+    outside any main path's count window."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do, _, key_bias, seg = training_inputs(TRAIN_SEQ, torch.bfloat16,
+                                                    False, gen)
+    args = (key_bias, seg, TRAIN_SEED, 0.1)
+
+    def once():
+        out, lse = ka.flash_attention_fwd(q, k, v, *args)
+        dq, delta = ka.flash_attention_dq(q, k, v, out, do, lse, *args)
+        return {"flash_attention_fwd": (out, lse),
+                "flash_attention_dq": (dq, delta),
+                "flash_attention_dkv": ka.flash_attention_dkv(
+                    q, k, v, do, lse, delta, *args)}
+
+    first, second = once(), once()
+    return {name: all((x is None and y is None) or torch.equal(x, y)
+                      for x, y in zip(first[name], second[name]))
+            for name in first}
+
+
+def drive_handoff(kernels: dict, root: str, card: str) -> dict:
+    """Phase 9 at BERT-large width (full width and depth; cut: 2 + 4 + 1
+    steps of seeded synthetic rows for the recipes' 7038 + 1563, local
+    batches 32 and 8 for the recipes' 64 and 32 with 1024 accumulation
+    steps): the runner's set-up, loop, saves and resume, all its own
+    functions (no shards and no h5py on the card machine: the rows come
+    from SyntheticPretrainingDataset, masked by the port's dataset code).
+
+    9a: phase 1 at S=128 from scratch, a synchronous save at step 2.
+    9b: phase 2 at S=512 in the same directory with
+    --previous_phase_end_step 2 and the flash kernels: the resumed params
+    and moments equal 9a's final state bit for bit with the optimizer
+    count 0; 4 steps with phase 6's launch counts on the tensor cores;
+    async saves at steps 4 and 6, ckpt_2 pruned.
+    9c: a fresh runner resumes 9b's directory: its state equals 9b's final
+    state bit for bit; one more step from each on the same batch and
+    dropout seeds gives the same loss and params (bit for bit where the
+    kernels are deterministic). Then the newest file is truncated and a
+    fresh runner walks back to step 4, logging the skip."""
+    from bert_pytorch_tpu_torch.optim.transforms import opt_step_count
+    from bert_pytorch_tpu_torch.testing import faults
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        SyntheticPretrainingDataset)
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    free = shutil.disk_usage(root).free
+    log(f"[handoff] {free / 2**30:.1f} GiB free under {root}")
+    if free < HANDOFF_DISK_BYTES:
+        raise AssertionError(f"phase 9 needs {HANDOFF_DISK_BYTES} bytes of "
+                             f"free disk, {free} are free")
+    out = os.path.join(root, "pretrain")
+    ckpt_dir = os.path.join(out, "pretrain_ckpts")
+    # 9a
+    r1 = runner(out, PHASE1, [
+        "--local_batch_size", str(P1_LOCAL),
+        "--global_batch_size", str(P1_LOCAL * P1_ACCUM),
+        "--steps", str(P1_STEPS), "--num_steps_per_checkpoint",
+        str(P1_STEPS), "--checkpoint_write", "sync",
+        "--skip_final_checkpoint"])
+    if r1["checkpoint"] is not None:
+        raise AssertionError(f"phase 1 found a checkpoint in {out}")
+    a1 = r1["args"]
+    summary1 = train_runner(r1, SyntheticPretrainingDataset(
+        1, P1_LOCAL * P1_ACCUM * P1_STEPS, P1_SEQ, r1["config"].vocab_size,
+        a1.max_predictions_per_seq))
+    write1 = ckpt.write_records[-1]
+    if (write1["step"], write1["async"]) != (P1_STEPS, False):
+        raise AssertionError(f"phase 1's save: {write1}")
+    host1 = host_copy(training_state(r1))
+    p1_ms = [(b - a) * 1e3 for a, b in summary1["step_times"]]
+    log(f"[handoff] 9a phase 1 (S={P1_SEQ}, {P1_LOCAL} x {P1_ACCUM}): steps "
+        f"{[round(x, 1) for x in p1_ms]} ms, loss {summary1['loss']:.4f}; "
+        f"sync save of ckpt_{P1_STEPS}: {write1['bytes']} bytes in "
+        f"{write1['seconds']:.2f} s (stall {summary1['saves'][0]['stall_s']:.2f}"
+        f" s) on {card}")
+    del r1
+    torch.cuda.empty_cache()
+    # 9b
+    p2_flags = ["--local_batch_size", str(TRAIN_LOCAL_BATCH),
+                "--global_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+                "--steps", str(P2_STEPS), "--previous_phase_end_step",
+                str(P1_STEPS), "--attention_backend", "flash",
+                "--num_steps_per_checkpoint", str(P2_EVERY),
+                "--keep_checkpoints", str(P2_KEEP), "--checkpoint_write",
+                "async", "--skip_final_checkpoint"]
+    r2 = runner(out, PHASE2, p2_flags)
+    a2 = r2["args"]
+    if (a2.resume_step, r2["global_step"], a2.remat,
+            a2.max_predictions_per_seq) != (P1_STEPS, 0, "dots", 80):
+        raise AssertionError(f"phase 2 resumed at {a2.resume_step}, step "
+                             f"{r2['global_step']}: {vars(a2)}")
+    check_same_state("9b resume vs phase 1's final state",
+                     training_state(r2), host1, count=0)
+    if opt_step_count(r2["optimizer"]) != 0:
+        raise AssertionError("the phase surgery left the count at "
+                             f"{opt_step_count(r2['optimizer'])}")
+    resume_s = {"9b": r2["resume_s"]}
+    log(f"[handoff] 9b resumed ckpt_{P1_STEPS} in {r2['resume_s']:.2f} s: "
+        "params, mu and nu bit-equal to phase 1's final state, optimizer "
+        "count 0")
+    del host1
+    dataset2 = SyntheticPretrainingDataset(
+        2, TRAIN_LOCAL_BATCH * TRAIN_ACCUM * (P2_STEPS + 1), TRAIN_SEQ,
+        r2["config"].vocab_size, a2.max_predictions_per_seq)
+    n_writes = len(ckpt.write_records)
+    torch.cuda.synchronize()
+    # Counts to zero just before the main path, read just after.
+    zero_counts(kernels)
+    summary2 = train_runner(r2, dataset2)
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.route_launches) for name, k in kernels.items()
+              if hasattr(k, "route_launches")}
+    layers = r2["config"].num_hidden_layers
+    check_launches_per_step(launches, routes, layers, TRAIN_ACCUM, P2_STEPS)
+    if not (math.isfinite(summary2["loss"]) and summary2["finite"] == 1.0):
+        raise AssertionError(f"phase 2 step not finite: {summary2}")
+    writes2 = list(ckpt.write_records)[n_writes:]
+    steps_on_disk = ckpt._ckpt_steps(ckpt_dir)
+    want = [P1_STEPS + P2_EVERY, P1_STEPS + P2_STEPS]
+    if ([w["step"] for w in writes2] != want or steps_on_disk != want
+            or not all(w["async"] for w in writes2)):
+        raise AssertionError(f"phase 2 writes {writes2}, on disk "
+                             f"{steps_on_disk}; expected async {want}, "
+                             f"ckpt_{P1_STEPS} pruned")
+    p2_ms = [(b - a) * 1e3 for a, b in summary2["step_times"]]
+    over, clear = overlap(summary2["step_times"], writes2[0])
+    stalls = [s["stall_s"] for s in summary2["saves"]]
+    log(f"[handoff] 9b phase 2 (S={TRAIN_SEQ}, flash, {TRAIN_LOCAL_BATCH} x "
+        f"{TRAIN_ACCUM}): steps {[round(x, 1) for x in p2_ms]} ms; async "
+        f"save stalls {[round(x * 1e3, 1) for x in stalls]} ms; background "
+        f"writes {[(w['step'], w['bytes'], round(w['seconds'], 2)) for w in writes2]}"
+        f" (step, bytes, s); steps overlapping the first write {over}, "
+        f"clear of it {clear}; launches {launches}; on {card}")
+    # 9c
+    r3 = runner(out, PHASE2, p2_flags)
+    if (r3["args"].resume_step, r3["global_step"]) != (
+            P1_STEPS + P2_STEPS, P2_STEPS):
+        raise AssertionError(f"9c resumed at {r3['args'].resume_step}")
+    resume_s["9c"] = r3["resume_s"]
+    state2 = training_state(r2)
+    check_same_state("9c resume vs 9b's final state", training_state(r3),
+                     state2)
+    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        synthetic_pretraining_batch)
+
+    batch = pretrain.to_device(pretrain.stack_microbatches(
+        synthetic_pretraining_batch(77, a2.global_batch_size, TRAIN_SEQ,
+                                    r2["config"].vocab_size,
+                                    a2.max_predictions_per_seq),
+        a2.accumulation_steps), a2.device)
+    metrics = {}
+    for label, r in (("memory", r2), ("resumed", r3)):
+        step = run_pretraining.make_step(r["args"], r["model"],
+                                         r["optimizer"], r["schedule"],
+                                         r["config"])
+        metrics[label] = float(step(batch)["loss"])
+    after2, after3 = training_state(r2), training_state(r3)
+    diff = max((a - b).abs().max().item()
+               for n in after2 if n is not None
+               for a, b in zip(after2[n], after3[n]))
+    exact = diff == 0.0 and metrics["memory"] == metrics["resumed"]
+    determinism = kernels_deterministic()
+    log(f"[handoff] 9c resumed ckpt_{P1_STEPS + P2_STEPS} in "
+        f"{r3['resume_s']:.2f} s, bit-equal to 9b's final state; one more "
+        f"step: loss {metrics} max |param/moment diff| {diff:.3e} "
+        f"(bit-equal {exact}); kernels bit-deterministic {determinism}")
+    if not exact and all(determinism.values()):
+        raise AssertionError("the resumed step differs from the in-memory "
+                             "one although every kernel is deterministic")
+    if not exact and (diff > RESUME_STEP_ATOL or abs(
+            metrics["memory"] - metrics["resumed"]) > RESUME_STEP_ATOL):
+        raise AssertionError(f"resumed step off by {diff} (tolerance "
+                             f"{RESUME_STEP_ATOL:g} where a kernel is not "
+                             f"deterministic: {determinism})")
+    del r3, state2, after2, after3
+    torch.cuda.empty_cache()
+    newest = ckpt.checkpoint_path(ckpt_dir, P1_STEPS + P2_STEPS)
+    faults.corrupt_checkpoint(newest, "truncate")
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        r4 = runner(out, PHASE2, p2_flags)
+    skips = [str(w.message) for w in caught
+             if "Skipping unreadable checkpoint" in str(w.message)]
+    resume_s["walk_back"] = r4["resume_s"]
+    if r4["args"].resume_step != P1_STEPS + P2_EVERY or len(skips) != 1:
+        raise AssertionError(f"walk-back resumed at "
+                             f"{r4['args'].resume_step}, skips {skips}")
+    log(f"[handoff] walk-back: truncated ckpt_{P1_STEPS + P2_STEPS}, resumed "
+        f"ckpt_{P1_STEPS + P2_EVERY} in {r4['resume_s']:.2f} s; skip logged: "
+        f"{skips[0][:160]}")
+    del r4, r2
+    torch.cuda.empty_cache()
+    init = ckpt.checkpoint_path(ckpt_dir, ckpt.find_resume_step(ckpt_dir,
+                                                                verify=True))
+    return {"phase1_step_ms": p1_ms, "sync_write": write1,
+            "sync_stall_s": summary1["saves"][0]["stall_s"],
+            "phase2_step_ms": p2_ms, "async_stalls_s": stalls,
+            "async_writes": writes2, "steps_overlapping_write": over,
+            "steps_clear_of_write": clear, "launches": launches,
+            "routes": routes, "resume_s": resume_s,
+            "determinism": determinism, "resumed_step_bit_equal": exact,
+            "resumed_step_max_diff": diff, "resumed_step_loss": metrics,
+            "init_checkpoint": init}
+
+
+# -- phase 10: finetune from the pretraining checkpoint, save, serve ---------
+
+# The scripts' recipes at S=128 (scripts/run_glue.sh, run_ner.sh,
+# run_swag.sh: batch 32, 32 and 16), one epoch of seeded synthetic files
+# sized to 3 steps each (cut from the datasets' sizes).
+FT_SEQ = 128
+FT_RUNS = {"glue": (32, 96), "ner": (32, 96), "swag": (16, 48)}
+# Each runner again without checkpoints for its seq/s at the recipe: 3
+# epochs (9 steps), after the saving run of the same shapes in the same
+# process (the saving run's seq/s waits on its per-step writes).
+FT_TIMED_EPOCHS = 3
+# The served GLUE logits against the runner's model on the same dev row,
+# both bf16: the server runs kernel #4 on the 128 bucket, the runner's
+# evaluation dense attention, so the two differ by bf16 rounding in 24
+# layers of attention, not by more than 5e-2 absolute on a logit.
+GLUE_SERVE_ATOL = 5e-2
+
+
+def check_saved_model(out: str, step: int, model, label: str) -> dict:
+    """The runner's final checkpoint in ``out`` (``ckpt_{step}``) verifies,
+    and reads back through ``load_params_only`` equal to ``model``'s
+    params bit for bit. Returns its write record."""
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+    from bert_pytorch_tpu_torch.utils import integrity
+
+    path = ckpt.checkpoint_path(out, step)
+    write = next(w for w in reversed(ckpt.write_records)
+                 if w["path"] == path)
+    status = integrity.verify_checkpoint(path)[0]
+    state = model.state_dict()
+    back = ckpt.load_params_only(path, state, device="cuda")
+    bad = [k for k in state if not torch.equal(back[k], state[k])]
+    if status != integrity.VERIFIED or bad or set(back) != set(state):
+        raise AssertionError(f"{label} checkpoint {path}: {status}, "
+                             f"{len(bad)} tensors differ (e.g. {bad[:3]})")
+    log(f"[ckpt] {label}: final ckpt_{step} {write['bytes']} bytes written "
+        f"in {write['seconds']:.2f} s (sync), reads back equal to the "
+        f"runner's params")
+    return write
+
+
+def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
+                   card: str) -> dict:
+    """Phase 10: ``run_glue``, ``run_ner`` and ``run_swag`` (their own
+    ``run``) at BERT-large width on seeded synthetic files, each from
+    phase 9's checkpoint (``--init_checkpoint``, NER's
+    ``--model_checkpoint``), with ``--save_steps 1`` and the final save;
+    each prints its metrics and its final checkpoint reads back equal.
+    Then ``run_server.build_service --tasks classify --classify_checkpoint
+    <glue out>`` answers a dev example over HTTP, 24 launches of #4 per
+    forward on the tensor cores, and its logits for the row equal the
+    GLUE model's within GLUE_SERVE_ATOL."""
+    from bert_pytorch_tpu_torch import run_glue, run_ner, run_swag
+    from bert_pytorch_tpu_torch.data import glue
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        get_wordpiece_tokenizer)
+    from bert_pytorch_tpu_torch.serve.batcher import Request
+    from bert_pytorch_tpu_torch.tools import make_synthetic_data as synth
+
+    data = os.path.join(root, "finetune_data")
+    mrpc = synth.write_mrpc_tsvs(os.path.join(data, "MRPC"), 21,
+                                 FT_RUNS["glue"][1], 32)
+    conll = synth.write_conll(os.path.join(data, "ner.txt"), 22,
+                              FT_RUNS["ner"][1])
+    swag_train = synth.write_swag_csv(os.path.join(data, "swag.csv"), 23,
+                                      FT_RUNS["swag"][1])
+    swag_val = synth.write_swag_csv(os.path.join(data, "swag_val.csv"), 24,
+                                    16)
+    base = ["--model_config_file", CONFIG, "--vocab_file", vocab,
+            "--device", "cuda", "--dtype", "bfloat16", "--max_seq_len",
+            str(FT_SEQ)]
+    common = base + ["--epochs", "1", "--save_steps", "1"]
+    argv = {
+        "glue": ["--task", "mrpc", "--data_dir", mrpc, "--init_checkpoint",
+                 init],
+        "ner": ["--train_file", conll, "--val_file", conll, "--test_file",
+                conll, "--labels", *synth.NER_LABELS, "--model_checkpoint",
+                init],
+        "swag": ["--train_file", swag_train, "--val_file", swag_val,
+                 "--init_checkpoint", init]}
+    modules = {"glue": run_glue, "ner": run_ner, "swag": run_swag}
+    metric = {"glue": "accuracy", "ner": "test_f1", "swag": "accuracy"}
+    runs, glue_model = {}, None
+    for name, module in modules.items():
+        out = os.path.join(root, f"{name}_out")
+        args = module.parse_arguments(argv[name] + common + [
+            "--batch_size", str(FT_RUNS[name][0]), "--output_dir", out])
+        torch.cuda.synchronize()
+        zero_counts(kernels)
+        results, model, _ = module.run(args)
+        launches = {n: k.launches for n, k in kernels.items()}
+        if any(launches.values()):
+            raise AssertionError(f"{name}: kernels {launches} launched on a "
+                                 "path of dense attention and plain "
+                                 "LayerNorm")
+        steps = results["global_step"]
+        if steps != FT_RUNS[name][1] // FT_RUNS[name][0] or not (
+                0.0 <= results.get(metric[name], -1.0) <= 1.0):
+            raise AssertionError(f"{name}: {results}")
+        write = check_saved_model(out, steps, model, name)
+        runs[name] = dict(results, checkpoint_write=write)
+        log(f"[finetune] {name}: {steps} steps at batch {FT_RUNS[name][0]}, "
+            f"S={FT_SEQ}, bf16: {results['training_sequences_per_second']:.2f}"
+            f" seq/s, {metric[name]} {results[metric[name]]:.4f}; model "
+            f"checkpoint {write['bytes']} bytes in {write['seconds']:.2f} s "
+            f"on {card}")
+        if name == "glue":
+            glue_model = model
+        else:
+            shutil.rmtree(out)
+        del model
+        torch.cuda.empty_cache()
+    # Serve what GLUE finetuned.
+    glue_out = os.path.join(root, "glue_out")
+    example = glue.PROCESSORS["mrpc"]().get_dev_examples(mrpc)[0]
+    payload = {"text": example.text_a, "text_pair": example.text_b}
+    served, engine = serve_waves(
+        serve_args(vocab, "bfloat16", "flash_infer", "classify",
+                   ["--classify_checkpoint", glue_out]),
+        [[("classify", payload)]], kernels)
+    check_launches(served, "flash_attention_infer", ("layer_norm_fwd",))
+    row = glue.features_to_arrays(glue.convert_examples_to_features(
+        [example], get_wordpiece_tokenizer(vocab), FT_SEQ,
+        glue.PROCESSORS["mrpc"].labels), False)
+    spec = engine.tasks["classify"]
+    features = spec.handler.prepare(payload, engine.max_len())
+    n = int(row["input_mask"][0].sum())
+    if list(features["input_ids"])[:n] != row["input_ids"][0][:n].tolist():
+        raise AssertionError("the server tokenizes the dev row differently")
+    plan = engine.plan_batch([Request("classify", features, payload)],
+                             packed=False)
+    served_logits = torch.as_tensor(np.asarray(
+        engine.execute("classify", plan)[0][0], np.float32)).reshape(-1)
+    with torch.no_grad():
+        t = {k: torch.from_numpy(v).long().cuda() for k, v in row.items()}
+        runner_logits = glue_model(t["input_ids"], t["segment_ids"],
+                                   t["input_mask"]).float().cpu()[0]
+    err = (served_logits - runner_logits).abs().max().item()
+    log(f"[serve] GLUE model served from {glue_out} (bucket {plan.bucket}): "
+        f"logits {served_logits.tolist()} vs the runner's "
+        f"{runner_logits.tolist()}, max |d| {err:.3e} (atol "
+        f"{GLUE_SERVE_ATOL:g})")
+    if not err <= GLUE_SERVE_ATOL:
+        raise AssertionError("the served GLUE logits differ from the "
+                             "runner's model")
+    del engine, glue_model
+    shutil.rmtree(glue_out)
+    torch.cuda.empty_cache()
+    timed = {}
+    for name, module in modules.items():
+        results, model, _ = module.run(module.parse_arguments(
+            argv[name] + base + ["--epochs", str(FT_TIMED_EPOCHS),
+                                 "--batch_size", str(FT_RUNS[name][0])]))
+        timed[name] = results["training_sequences_per_second"]
+        log(f"[finetune] {name} without checkpoints: "
+            f"{results['global_step']} steps, {timed[name]:.2f} seq/s "
+            f"(batch {FT_RUNS[name][0]}, S={FT_SEQ}, bf16) on {card}")
+        del model
+        torch.cuda.empty_cache()
+    return {"runs": runs, "served": {k: served[k] for k in (
+        "requests", "forwards", "launches", "routes")},
+        "served_logit_err": err, "seq_per_s_without_checkpoints": timed}
 
 
 def main() -> int:
@@ -1894,6 +2415,11 @@ def main() -> int:
 
         vocab = write_trace_vocab(os.path.join(tmp, "vocab.txt"))
         squad = drive_squad(vocab, tmp, kernels)
+        shutil.rmtree(os.path.join(tmp, "squad_out"))
+        handoff = drive_handoff(kernels, tmp, card)
+        finetuned = drive_finetune(vocab, tmp, handoff["init_checkpoint"],
+                                   kernels, card)
+        shutil.rmtree(os.path.join(tmp, "pretrain"))
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -1903,6 +2429,8 @@ def main() -> int:
         f"{squad['e2e_inference_time']:.2f} s, EM {squad['exact_match']}, "
         f"F1 {squad['F1']}, peak {squad['peak_gib']:.1f} GiB on {card}")
     infer_entry["launches"] = served["launches"]["flash_attention_infer"]
+    infer_entry["launches_glue_serving"] = finetuned["served"]["launches"][
+        "flash_attention_infer"]
     infer_entry["route_launches"] = served["routes"]["flash_attention_infer"]
     int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
     int8_entry["route_launches"] = served8["routes"][
@@ -1910,7 +2438,10 @@ def main() -> int:
     ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
         worst, cases, trained) + [ln_entry]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad))}")
+    for entry in entries:
+        if entry["name"] in TRAIN_REPLACES:
+            entry["launches_handoff"] = handoff["launches"][entry["name"]]
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

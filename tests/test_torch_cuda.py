@@ -653,3 +653,93 @@ def test_heads_from_checkpoints_and_swap_on_card(tmp_path, monkeypatch):
     assert info["compiles"] == 0 and served.version() == "v2"
     assert (served.run_direct("classify", {"text": "paris is big"})
             == memory.run_direct("classify", {"text": "paris is big"}))
+
+
+def _card_trainer(seed: int = 0):
+    """A 2-layer BertForPreTraining on the card with LAMB and its train
+    step, dropout off."""
+    from bert_pytorch_tpu_torch import pretrain
+    from bert_pytorch_tpu_torch.config import BertConfig
+    from bert_pytorch_tpu_torch.models import bert
+    from bert_pytorch_tpu_torch.optim import transforms
+
+    cfg = BertConfig(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=128,
+                     max_position_embeddings=64, next_sentence=True,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    model = bert.init_weights(bert.BertForPreTraining(cfg, device="cuda"),
+                              0.02,
+                              torch.Generator("cuda").manual_seed(seed))
+    opt = transforms.Lamb(transforms.param_groups(model, 0.01), 1e-3)
+    step = pretrain.make_train_step(model, opt, None, True, 6)
+    rng = np.random.default_rng(seed)
+
+    def batch():
+        ids = rng.integers(5, 128, (8, 32))
+        labels = np.where(rng.random((8, 32)) < 0.2, ids, -1)
+        host = {"input_ids": ids, "segment_ids": np.zeros_like(ids),
+                "input_mask": np.ones_like(ids), "masked_lm_labels": labels,
+                "next_sentence_labels": rng.integers(0, 2, 8)}
+        return pretrain.to_device(pretrain.stack_microbatches(host, 2),
+                                  "cuda")
+
+    return cfg, model, opt, step, batch
+
+
+def test_async_save_snapshot_is_immune_to_later_steps_on_card(tmp_path):
+    """An async save of the card's training state, then two more steps at
+    once: the checkpoint holds the state at the save, bit for bit."""
+    _need_card()
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.models.convert import from_jax_params
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    cfg, model, opt, step, batch = _card_trainer()
+    step(batch())
+    at_save = {k: v.detach().cpu().clone()
+               for k, v in model.state_dict().items()}
+    ckpt.save_checkpoint(str(tmp_path), 1, run_pretraining
+                         .checkpoint_contents(model, opt, cfg, None, 0),
+                         async_write=True)
+    step(batch())
+    step(batch())
+    ckpt.wait_for_pending_save()
+    saved = ckpt.load_checkpoint(ckpt.checkpoint_path(str(tmp_path), 1))
+    state = from_jax_params(saved["model"], cfg, "pretraining")
+    assert int(saved["optimizer"]["count"]) == 1
+    for key, value in at_save.items():
+        assert torch.equal(state[key], value), key
+    assert not all(torch.equal(v.cpu(), at_save[k])
+                   for k, v in model.state_dict().items())
+
+
+def test_resume_on_card_equals_the_saved_state(tmp_path):
+    """A sync save of the card's state, restored into a fresh model and
+    optimizer on the card: params, moments and count bit for bit, and the
+    next step from each gives the same loss and parameters."""
+    _need_card()
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    cfg, model, opt, step, batch = _card_trainer(seed=1)
+    step(batch())
+    step(batch())
+    ckpt.save_checkpoint(str(tmp_path), 2, run_pretraining
+                         .checkpoint_contents(model, opt, cfg, None, 0))
+    _, fresh, fresh_opt, fresh_step, _ = _card_trainer(seed=2)
+    step_no, extras = ckpt.load_latest_checkpoint(str(tmp_path), fresh,
+                                                  fresh_opt)
+    assert (step_no, extras["count"]) == (2, 2)
+    named, fresh_named = (dict(model.named_parameters()),
+                          dict(fresh.named_parameters()))
+    for name, p in named.items():
+        q = fresh_named[name]
+        assert q.is_cuda and torch.equal(p, q), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt.state[p][key], fresh_opt.state[q][key])
+    b = batch()
+    loss, fresh_loss = step(b)["loss"], fresh_step(b)["loss"]
+    assert torch.equal(loss, fresh_loss)
+    for name, p in named.items():
+        assert torch.equal(p, fresh_named[name]), name

@@ -194,7 +194,8 @@ def test_pretraining_runner_takes_the_layer_norm_backend(tmp_path):
     config.write_text(json.dumps(CONFIG))
     argv = ["--model_config_file", str(config), "--global_batch_size", "8",
             "--local_batch_size", "4", "--max_steps", "50", "--steps", "2",
-            "--device", "cpu", "--skip_final_checkpoint"]
+            "--device", "cpu", "--skip_final_checkpoint", "--output_dir",
+            str(tmp_path / "out")]
     for extra, want in (([], "plain"),
                         (["--layer_norm_backend", "pallas"], "kernel"),
                         (["--layer_norm_backend", "kernel"], "kernel")):

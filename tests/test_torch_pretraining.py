@@ -403,8 +403,13 @@ def shards(tmp_path_factory):
 
 
 def _run_args(shards, *extra):
+    """A run of its own output directory (a run resumes from the
+    checkpoints it finds there)."""
+    import tempfile
+
     root, config = shards
     return ["--model_config_file", str(config), "--input_dir", str(root),
+            "--output_dir", tempfile.mkdtemp(dir=root),
             "--global_batch_size", "8", "--local_batch_size", "4",
             "--max_steps", "50", "--device", "cpu", "--skip_final_checkpoint",
             *extra]
@@ -460,13 +465,23 @@ def test_runner_takes_the_recipe_config_files(shards, phase):
 
 def test_runner_refuses_what_it_cannot_do(shards):
     with pytest.raises(SystemExit):
-        run_pretraining.parse_arguments(_run_args(shards, "--kfac"))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+        run_pretraining.parse_arguments(_run_args(shards, "--val_input_dir",
+                                                  "x"))
+    for flags in (["--kfac"], ["--checkpoint_layout", "sharded"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run_pretraining.setup_training(run_pretraining.parse_arguments(
+                _run_args(shards, *flags)))
+    # Checkpoints are written now: a run past --num_steps_per_checkpoint
+    # with a final save is not refused; it needs somewhere to write them.
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        [a for a in _run_args(shards, "--steps", "200")
+         if a != "--skip_final_checkpoint"]))
+    assert args.model_output_dir.endswith("pretrain_ckpts")
+    argv = _run_args(shards)
+    at = argv.index("--output_dir")
+    with pytest.raises(ValueError, match="output_dir"):
         run_pretraining.setup_training(run_pretraining.parse_arguments(
-            [a for a in _run_args(shards) if a != "--skip_final_checkpoint"]))
-    with pytest.raises(ValueError, match="num_steps_per_checkpoint"):
-        run_pretraining.setup_training(run_pretraining.parse_arguments(
-            _run_args(shards, "--steps", "200")))
+            argv[:at] + argv[at + 2:]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             run_pretraining.setup_training(run_pretraining.parse_arguments(

@@ -525,12 +525,14 @@ def test_runner_refuses_what_it_cannot_do(tiny_config, tmp_path):
     base = _run_args(tmp_path, tiny_config, "--train_file",
                      tiny_config["v1"], "--do_train")
     for flags in (["--dtype", "float16"], ["--tokenizer", "bpe"],
-                  ["--save_steps", "10"], ["--init_loss_scale", "2"],
-                  ["--mesh_data", "1"]):
+                  ["--init_loss_scale", "2"], ["--mesh_data", "1"]):
         with pytest.raises(SystemExit):
             run_squad.parse_args(base + flags)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        run_squad.parse_args([a for a in base if a != "--skip_checkpoint"])
+    # Checkpoints are written now: neither --skip_checkpoint nor
+    # --save_steps is refused (test_torch_finetune.py checks the files).
+    args = run_squad.parse_args(
+        [a for a in base if a != "--skip_checkpoint"] + ["--save_steps", "10"])
+    assert args.save_steps == 10 and not args.skip_checkpoint
     with pytest.raises(ValueError, match="do_train or do_predict"):
         run_squad.parse_args([a for a in base if a != "--do_train"])
     if not torch.cuda.is_available():
