@@ -39,6 +39,18 @@ Every model takes ``layer_norm_backend`` (``"plain"``, the default, or
 ``"kernel"``), the flax ``LayerNorm.backend`` field, and hands it to each
 of its LayerNorms.
 
+K-FAC taps (optim/kfac.py; the JAX model's ``kfac_tap``): the encoder's
+q/k/v, attention-output and MLP-output Dense layers (``KFAC_TAPS`` of
+:class:`BertSelfAttention` and :class:`BertLayer`; not the intermediate,
+the pooler, the embeddings or the predictions head, as neither package
+registers them) add their factor statistics to the ``kfac_sink`` an
+optimizer arms on the module: Σ x̃x̃ᵀ of each layer input with the bias
+coordinate appended (the A factor, one for q/k/v) and Σ ĝĝᵀ of each layer
+output's fp32 cotangent (the G factor). Both are computed in backward
+nodes, which run once per backward whatever the remat (a forward under
+``torch.utils.checkpoint`` runs twice). Disarmed (``kfac_sink`` None, the
+default) a tap is the identity and adds nothing to the graph.
+
 Module and parameter names mirror the flax tree (``query``, ``dense_act``,
 ``output_layer_norm``, ...), so :mod:`.convert` maps the JAX params onto
 this state dict name by name. The encoder's ``nn.scan`` over layers is an
@@ -53,6 +65,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -94,6 +107,71 @@ class _CastCache:
             self._values = tuple(p.detach().to(dtype) for p in params)
             self._key = key
         return self._values
+
+
+# The profiler range of every tap's statistic (tools/profile_train.py).
+KFAC_CAPTURE_RANGE = "kfac.capture"
+
+
+def _augmented(x: torch.Tensor) -> torch.Tensor:
+    """x̃ = [x, 1]: the rows of ``x`` [..., d] in fp32 with the bias
+    coordinate appended, [rows, d + 1]."""
+    a = x.reshape(-1, x.shape[-1]).float()
+    return torch.cat([a, a.new_ones(a.shape[0], 1)], dim=1)
+
+
+class _InputStatistic(torch.autograd.Function):
+    """Identity on ``x``; its backward adds Σ x̃x̃ᵀ over the rows of ``x``
+    into ``out``, the K-FAC A statistic of a Dense layer consuming ``x``
+    (JAX ``_kfac_input_stat``), in a backward node: once per backward,
+    also under remat, where the forward runs again."""
+
+    @staticmethod
+    def forward(ctx, x, out):
+        ctx.save_for_backward(x)
+        ctx.out = out
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        with record_function(KFAC_CAPTURE_RANGE):
+            a = _augmented(x)
+            ctx.out.addmm_(a.t(), a)
+        return grad, None
+
+
+class _OutputStatistic(torch.autograd.Function):
+    """Identity on ``y``; its backward adds Σ ĝĝᵀ of the fp32 cotangent ĝ
+    of ``y`` [..., d] into ``out`` (JAX ``_g_factor_probe``)."""
+
+    @staticmethod
+    def forward(ctx, y, out):
+        ctx.out = out
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with record_function(KFAC_CAPTURE_RANGE):
+            g = grad.reshape(-1, grad.shape[-1]).float()
+            ctx.out.addmm_(g.t(), g)
+        return grad, None
+
+
+def kfac_input_tap(x: torch.Tensor, sink: Optional[dict],
+                   name: str) -> torch.Tensor:
+    """``x``, through an A-statistic tap into ``sink[name]`` when the
+    module is armed and the factor is kept."""
+    out = None if sink is None else sink.get(name)
+    return x if out is None else _InputStatistic.apply(x, out)
+
+
+def kfac_output_tap(y: torch.Tensor, sink: Optional[dict],
+                    name: str) -> torch.Tensor:
+    """``y``, through a G-statistic tap into ``sink[name]`` when the
+    module is armed and the layer is kept."""
+    out = None if sink is None else sink.get(name)
+    return y if out is None else _OutputStatistic.apply(y, out)
 
 
 class Dense(nn.Module):
@@ -243,6 +321,10 @@ class BertSelfAttention(nn.Module):
     projections; the attention core routes through
     :func:`~bert_pytorch_tpu_torch.ops.attention.dot_product_attention`."""
 
+    # K-FAC: (Dense submodule, its A factor); q/k/v share their input's.
+    KFAC_TAPS = (("query", "attn_in"), ("key", "attn_in"),
+                 ("value", "attn_in"), ("output", "attn_ctx"))
+
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str, device=None,
                  quant: Optional[str] = None,
@@ -261,15 +343,18 @@ class BertSelfAttention(nn.Module):
         self.attention_backend = attention_backend
         self.attention_dropout = cfg.attention_probs_dropout_prob
         self.hidden_dropout = cfg.hidden_dropout_prob
+        self.kfac_sink: Optional[dict] = None
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 sequence_ids: Optional[torch.Tensor] = None,
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
         batch, seq = hidden.shape[0], hidden.shape[1]
         shape = (batch, seq, self.heads, self.head_dim)
-        q = self.query(hidden).view(shape)
-        k = self.key(hidden).view(shape)
-        v = self.value(hidden).view(shape)
+        sink = self.kfac_sink
+        x = kfac_input_tap(hidden, sink, "attn_in_a")
+        q = kfac_output_tap(self.query(x), sink, "query__attn_in").view(shape)
+        k = kfac_output_tap(self.key(x), sink, "key__attn_in").view(shape)
+        v = kfac_output_tap(self.value(x), sink, "value__attn_in").view(shape)
         train = dropout_seed is not None
         context = dot_product_attention(
             q, k, v, bias=bias, dropout_rate=self.attention_dropout,
@@ -277,7 +362,9 @@ class BertSelfAttention(nn.Module):
             sequence_ids=sequence_ids,
             dropout_seed=(_sub_seed(dropout_seed, _ATTENTION_PROBS)
                           if train else None))
-        out = self.output(context.reshape(batch, seq, -1))
+        context = kfac_input_tap(context.reshape(batch, seq, -1), sink,
+                                 "attn_ctx_a")
+        out = kfac_output_tap(self.output(context), sink, "output__attn_ctx")
         if train:
             out = dropout(out, self.hidden_dropout,
                           _sub_seed(dropout_seed, _ATTENTION_OUT))
@@ -287,6 +374,8 @@ class BertSelfAttention(nn.Module):
 class BertLayer(nn.Module):
     """attention → intermediate (GELU) → output; parity with
     modeling.py:482-493."""
+
+    KFAC_TAPS = (("output", "mlp_in"),)
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str, device=None,
@@ -305,10 +394,15 @@ class BertLayer(nn.Module):
                                            cfg.layer_norm_eps, device,
                                            layer_norm_backend)
         self.hidden_dropout = cfg.hidden_dropout_prob
+        self.kfac_sink: Optional[dict] = None
 
     def forward(self, hidden, bias, sequence_ids=None, dropout_seed=None):
         attn_out = self.attention(hidden, bias, sequence_ids, dropout_seed)
-        out = self.output(self.intermediate(attn_out))
+        sink = self.kfac_sink
+        intermediate = kfac_input_tap(self.intermediate(attn_out), sink,
+                                      "mlp_in_a")
+        out = kfac_output_tap(self.output(intermediate), sink,
+                              "output__mlp_in")
         if dropout_seed is not None:
             out = dropout(out, self.hidden_dropout,
                           _sub_seed(dropout_seed, _LAYER_OUT))

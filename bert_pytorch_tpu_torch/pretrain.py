@@ -1,6 +1,7 @@
-"""Pretraining engine: the first-order train step and the eval step, the
-port of the JAX package's ``pretrain.py`` (``make_train_step`` without
-K-FAC, bucketed overlap or fp16 loss scaling; ``make_eval_step``;
+"""Pretraining engine: the train step (first-order, or preconditioned by
+K-FAC) and the eval step, the port of the JAX package's ``pretrain.py``
+(``make_train_step`` without bucketed overlap or fp16 loss scaling;
+``make_kfac_fns`` as :func:`make_kfac_loss`; ``make_eval_step``;
 ``stack_microbatches``).
 
 One optimizer step consumes a batch of [A, B, ...] arrays: A microbatches
@@ -9,11 +10,15 @@ run forward and backward in turn, their gradients accumulate in the fp32
 step follows (reference run_pretraining.py:405-460). Each microbatch draws
 its dropout seeds (embeddings + one per layer) from the step's
 ``torch.Generator`` before its forward, as the JAX step splits its rng per
-microbatch and per layer.
+microbatch and per layer. With K-FAC the averaged gradients are
+preconditioned before the optimizer, in the JAX step's order (factors
+captured in the step's own backward, due inverses, precondition,
+``grad_norm``, optimizer).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -54,12 +59,36 @@ def pretraining_loss_and_accuracy(model, mb: Dict[str, torch.Tensor],
     return loss, mlm_accuracy(mlm_logits, labels)
 
 
+def make_kfac_loss(model: torch.nn.Module, next_sentence: bool = True,
+                   max_pred_per_seq: Optional[int] = None):
+    """``apply_loss(mb, dropout_seeds) -> loss`` for ``KFAC``'s stats pass
+    (the JAX ``make_kfac_fns``), sharing the train step's loss. Its forward
+    runs without remat, as the JAX stats twin is built (``remat="none"``:
+    a small decoupled batch, where remat would only cost recompute)."""
+
+    def apply_loss(mb, dropout_seeds=None):
+        encoder = model.bert.encoder
+        saved, encoder.remat = encoder.remat, "none"
+        try:
+            loss, _ = pretraining_loss_and_accuracy(
+                model, mb, next_sentence, max_pred_per_seq, dropout_seeds)
+        finally:
+            encoder.remat = saved
+        return loss
+
+    return apply_loss
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     schedule: Optional[Callable[[int], float]] = None,
                     next_sentence: bool = True,
                     max_pred_per_seq: Optional[int] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    kfac=None, kfac_fused: bool = False,
+                    kfac_factor_interval: int = 1,
+                    kfac_inv_interval: int = 0,
+                    kfac_capture_microbatches: str = "first"):
     """Build ``step(batch) -> metrics`` for [A, B, ...] batches
     (input_ids/segment_ids/input_mask/masked_lm_labels [A, B, S],
     next_sentence_labels [A, B] or [A, B, K], and for packed rows
@@ -68,37 +97,89 @@ def make_train_step(model: torch.nn.Module,
 
     Metrics (device tensors; reading one synchronises): ``loss`` and
     ``mlm_accuracy`` (means over the microbatches), ``grad_norm`` (of the
-    averaged gradients, before LAMB's clipping), ``finite``,
-    ``real_tokens`` (the non-pad tokens of the step) and, with a
-    ``schedule``, ``learning_rate`` (at the pre-step count).
+    averaged gradients, preconditioned with K-FAC, before LAMB's
+    clipping), ``finite``, ``real_tokens`` (the non-pad tokens of the step)
+    and, with a ``schedule``, ``learning_rate`` (at the pre-step count).
 
     ``generator`` (CPU) draws the dropout seeds; a model whose dropout
-    rates are 0 draws them and drops nothing."""
+    rates are 0 draws them and drops nothing.
+
+    ``kfac`` (an ``optim.KFAC`` on ``model``, initialised): the step is
+    ``step(batch, kfac_state)`` and preconditions the averaged gradients
+    with ``lr = schedule(count)`` before the optimizer (needs a
+    ``schedule``). ``kfac_fused`` (the JAX ``kfac_capture_model``)
+    captures the factors in the step's own backward on steps where
+    ``count % kfac_factor_interval == 0``: microbatch 0's
+    (``kfac_capture_microbatches="first"``) or every microbatch's
+    (``"all"``, summed over A·B·S rows); with ``kfac_inv_interval`` > 0 the
+    inverses are rebuilt inside the step, from the factors it just
+    captured, where ``count % kfac_inv_interval == 0``. ``kfac_state`` is
+    updated in place. Without ``kfac_fused`` the caller drives
+    ``kfac.update_factors`` / ``update_inverses`` (the stats flow)."""
+    if kfac is not None and schedule is None:
+        raise ValueError("kfac preconditioning requires a schedule")
+    if kfac_fused and kfac is None:
+        raise ValueError("kfac_fused (the JAX kfac_capture_model) requires "
+                         "kfac")
+    if kfac_fused and kfac_factor_interval < 1:
+        raise ValueError(
+            f"kfac_factor_interval must be >= 1, got {kfac_factor_interval}")
+    if kfac_inv_interval and not kfac_fused:
+        raise ValueError(
+            "kfac_inv_interval (inverse updates inside the step) requires the "
+            "fused capture (kfac_fused); the stats flow calls "
+            "kfac.update_inverses itself")
+    if kfac_capture_microbatches not in ("first", "all"):
+        raise ValueError(
+            f"kfac_capture_microbatches must be first|all, got "
+            f"{kfac_capture_microbatches!r}")
     num_layers = model.config.num_hidden_layers
     generator = generator or torch.Generator().manual_seed(0)
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict[str, torch.Tensor],
+             kfac_state=None) -> Dict[str, torch.Tensor]:
         accum_steps = batch["input_ids"].shape[0]
         count = optimizer.param_groups[0]["count"]
+        if kfac is not None and kfac_state is None:
+            raise ValueError("a K-FAC step takes step(batch, kfac_state)")
+        capture = kfac_fused and count % kfac_factor_interval == 0
+        sums = kfac.zero_statistics() if capture else None
         for p in params:
             p.grad = None
         losses, accs = [], []
         for a in range(accum_steps):
             mb = {key: value[a] for key, value in batch.items()}
             seeds = draw_dropout_seeds(generator, num_layers)
-            loss, acc = pretraining_loss_and_accuracy(
-                model, mb, next_sentence, max_pred_per_seq, seeds)
-            loss.backward()
+            tapped = capture and (a == 0
+                                  or kfac_capture_microbatches == "all")
+            # Armed through the backward: a remat recompute runs the taps.
+            with kfac.capture(sums) if tapped else contextlib.nullcontext():
+                loss, acc = pretraining_loss_and_accuracy(
+                    model, mb, next_sentence, max_pred_per_seq, seeds)
+                loss.backward()
             losses.append(loss.detach())
             accs.append(acc.detach())
-        grads = []
+        if capture:
+            shape = batch["input_ids"].shape
+            rows = shape[1] * shape[2] * (
+                accum_steps if kfac_capture_microbatches == "all" else 1)
+            kfac.ema_factors(kfac_state, sums, rows, kfac.grad_scale(
+                {key: value[0] for key, value in batch.items()}))
+        if kfac_fused and kfac_inv_interval and (
+                count % kfac_inv_interval == 0):
+            kfac.inverse_factors(kfac_state)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             p.grad.div_(accum_steps)
-            grads.append(p.grad)
-        gnorm = global_norm(grads)
+        if kfac is not None:
+            pre = kfac.precondition(kfac_state, {n: p.grad for n, p in named},
+                                    schedule(count))
+            for name, p in named:
+                p.grad = pre[name]
+        gnorm = global_norm(p.grad for p in params)
         optimizer.step()
         losses = torch.stack(losses)
         metrics = {

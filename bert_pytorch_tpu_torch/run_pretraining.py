@@ -37,9 +37,21 @@ the next ``--term_check_steps`` boundary, write the checkpoint even with
 dropout seeds come from ``--seed`` afresh in a resumed run, as the JAX
 runner draws its dropout rng afresh (its checkpoints hold none).
 
+``--kfac`` preconditions every step with K-FAC (optim/kfac.py; the JAX
+runner's 11 ``--kfac*`` flags and defaults). ``--kfac_capture train``
+(default) captures the factors in the step's own backward (microbatch 0,
+or every microbatch with ``--kfac_capture_microbatches all``) every
+``--kfac_factor_interval`` steps and rebuilds the inverses inside the step
+every ``--kfac_inv_interval``; ``stats`` runs a separate tapped forward
+and backward (no remat, dropout seeds of its own) on ``--kfac_stats_batch``
+strided rows of microbatch 0 on those steps, then the inverses, then the
+step. Both fire on the first step. Checkpoints carry the state as
+``preconditioner``; a ``--kfac`` resume restores it and recomputes the
+inverses from the restored factors, a resume without ``--kfac`` skips it.
+
 Not ported yet, so rejected rather than ignored: meshes and multi-GPU
 (``--checkpoint_layout sharded`` is refused naming ROADMAP.md queue 1
-item 4; the sharded layout is read), K-FAC (``--kfac``, item 5), fp16
+item 4; the sharded layout is read), fp16
 loss scaling (a JAX fp16 checkpoint is refused), held-out evaluation,
 process-based loader workers, the telemetry planes and the metrics files
 of ``--output_dir``; argparse refuses the flags it does not know.
@@ -77,10 +89,14 @@ from bert_pytorch_tpu_torch.data.dataset import (ShardedPretrainingDataset,
 from bert_pytorch_tpu_torch.data.loader import DataLoader
 from bert_pytorch_tpu_torch.data.sampler import DistributedSampler
 from bert_pytorch_tpu_torch.data.tokenization import load_vocab
-from bert_pytorch_tpu_torch.models.bert import BertForPreTraining, init_weights
+from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                draw_dropout_seeds,
+                                                init_weights)
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
+from bert_pytorch_tpu_torch.optim.kfac import KFAC
 from bert_pytorch_tpu_torch.optim.schedules import SCHEDULES, make_schedule
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, Lamb,
+                                                     opt_step_count,
                                                      param_groups,
                                                      reset_count)
 
@@ -88,8 +104,9 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # The JAX recipe's phase-2 config file names the fused kernels "pallas".
 BACKEND_ALIASES = {"pallas": "flash"}
 MAX_SEQUENCES_PER_PACK = 8
-ROADMAP_KFAC = ("ROADMAP.md, queue 1 of the modules still to port, item 5: "
-                "\"K-FAC (optim/kfac.py)\"")
+# The stats pass's dropout seeds: a generator of its own per step (the JAX
+# runner's fold_in(PRNGKey(seed + 17), step)).
+KFAC_STATS_SEED_OFFSET = 17
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
@@ -144,8 +161,33 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="act on SIGTERM/SIGINT/SIGUSR1 every this many "
                              "steps: save and exit with 75; 0 installs no "
                              "handler")
+    # K-FAC (SURVEY §2.2), the JAX runner's flags and defaults
     parser.add_argument("--kfac", action="store_true",
-                        help="refused: K-FAC is not ported yet")
+                        help="precondition with K-FAC (optim/kfac.py)")
+    parser.add_argument("--kfac_stat_decay", type=float, default=0.95)
+    parser.add_argument("--kfac_damping", type=float, default=0.001)
+    parser.add_argument("--kfac_kl_clip", type=float, default=0.001)
+    parser.add_argument("--kfac_factor_interval", type=int, default=10)
+    parser.add_argument("--kfac_inv_interval", type=int, default=100)
+    parser.add_argument("--kfac_inv_method", type=str, default="cholesky",
+                        choices=["cholesky", "eigen"],
+                        help="'cholesky': damped factor inverses; 'eigen': "
+                             "eigenbasis preconditioning (kfac_pytorch's "
+                             "eigen method)")
+    parser.add_argument("--kfac_capture", type=str, default="train",
+                        choices=["train", "stats"],
+                        help="'train': factors from the training step's own "
+                             "backward; 'stats': a separate stats pass on "
+                             "--kfac_stats_batch rows every factor interval")
+    parser.add_argument("--kfac_capture_microbatches", type=str,
+                        default="first", choices=["first", "all"],
+                        help="fused capture source: microbatch 0 ('first') "
+                             "or every microbatch's backward ('all')")
+    parser.add_argument("--kfac_stats_batch", type=int, default=16,
+                        help="sequences of microbatch 0, strided, for the "
+                             "stats pass (0 = the whole microbatch)")
+    parser.add_argument("--kfac_skip_layers", type=str, nargs="+",
+                        default=["embeddings", "predictions"])
     parser.add_argument("--log_steps", type=int, default=1)
     # numerics / memory
     parser.add_argument("--dtype", type=str, default="bfloat16",
@@ -180,8 +222,6 @@ def setup_training(args) -> argparse.Namespace:
     the batches are unpacked until prepare_dataset finds packed data."""
     require_args(args, ["model_config_file", "output_dir",
                         "global_batch_size", "local_batch_size", "max_steps"])
-    if args.kfac:
-        raise NotImplementedError(f"--kfac: {ROADMAP_KFAC}")
     if args.checkpoint_layout != "gathered":
         raise NotImplementedError(
             f"--checkpoint_layout {args.checkpoint_layout}: the port writes "
@@ -255,18 +295,44 @@ def mask_token_id(config) -> int:
     return 4 if found is None else int(found)
 
 
-def restore_checkpoint(args, model, optimizer):
+def prepare_kfac(args, model, config):
+    """(KFAC, its zeroed state) with ``--kfac``, else (None, None) (JAX
+    run_pretraining.py:725-785)."""
+    if not args.kfac:
+        return None, None
+    kfac = KFAC(model, factor_decay=args.kfac_stat_decay,
+                damping=args.kfac_damping, kl_clip=args.kfac_kl_clip,
+                inv_method=args.kfac_inv_method,
+                skip_layers=tuple(args.kfac_skip_layers))
+    kfac_state = kfac.init()
+    log({"event": "kfac", "layer_groups": len(kfac.specs),
+         "capture": ("train (fused)" if args.kfac_capture == "train"
+                     else "stats"),
+         "microbatches": args.kfac_capture_microbatches,
+         "inv_method": args.kfac_inv_method, "damping": args.kfac_damping,
+         "kl_clip": args.kfac_kl_clip,
+         "factor_interval": args.kfac_factor_interval,
+         "inv_interval": args.kfac_inv_interval,
+         "state_bytes": kfac_state.nbytes()})
+    return kfac, kfac_state
+
+
+def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
     """Resume from the newest checkpoint of ``args.model_output_dir`` that
     verifies (the walk-back logs each skipped file); returns (its extras:
-    sampler, epoch, count, or None with no checkpoint, the step within the
-    phase). With ``--previous_phase_end_step`` N > 0 and a checkpoint at
-    step >= N, the optimizer count becomes the step within the phase and
-    the moments stay (the phase-2 surgery, JAX run_pretraining.py:717-721);
-    an N above the checkpoint's step raises."""
+    sampler, epoch, count, preconditioner, or None with no checkpoint, the
+    step within the phase). With ``--previous_phase_end_step`` N > 0 and a
+    checkpoint at step >= N, the optimizer count becomes the step within
+    the phase and the moments stay (the phase-2 surgery, JAX
+    run_pretraining.py:717-721); an N above the checkpoint's step raises.
+    With ``kfac_state`` a checkpoint's preconditioner restores into it and
+    the inverses are recomputed from the restored factors (the file may
+    hold the other inverse method's operators; JAX :766-777)."""
     skipped: list = []
     t0 = time.perf_counter()
     found = ckpt.load_latest_checkpoint(args.model_output_dir, model,
-                                        optimizer, on_skip=skipped.append)
+                                        optimizer, on_skip=skipped.append,
+                                        preconditioner=kfac_state)
     for record in skipped:
         log({"event": "resume_skip", **record})
     args.resume_step = 0
@@ -287,8 +353,12 @@ def restore_checkpoint(args, model, optimizer):
     global_step = resume_step - args.previous_phase_end_step
     if resume_step >= args.previous_phase_end_step > 0:
         reset_count(optimizer, global_step)
+    restored = extras.get("preconditioner", False)
+    if restored:
+        kfac.update_inverses(kfac_state)
     log({"event": "resume", "step": resume_step, "global_step": global_step,
          "optimizer_count": optimizer.param_groups[0]["count"],
+         "preconditioner": int(restored),
          "skipped": len(skipped),
          "seconds": time.perf_counter() - t0})
     return extras, global_step
@@ -328,36 +398,89 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
     return loader, sampler
 
 
-def make_step(args, model, optimizer, schedule, config):
-    """The train step for this run: the per-row MLM gather cap is
-    ``max_predictions_per_seq`` per packed sequence."""
-    return pretrain.make_train_step(
+def make_step(args, model, optimizer, schedule, config, kfac=None,
+              kfac_state=None):
+    """The train step for this run, ``step(batch) -> metrics``: the per-row
+    MLM gather cap is ``max_predictions_per_seq`` per packed sequence. With
+    ``kfac`` it preconditions ``kfac_state``'s way and follows the JAX
+    runner's dispatch (run_pretraining.py:940-980): ``--kfac_capture
+    train`` does everything inside the step; ``stats`` first runs the stats
+    pass on steps where the phase's step (the optimizer count, which
+    restore_checkpoint keeps equal to it) is a multiple of
+    ``--kfac_factor_interval``, then the inverses where it is one of
+    ``--kfac_inv_interval``."""
+    fused = kfac is not None and args.kfac_capture == "train"
+    train_step = pretrain.make_train_step(
         model, optimizer, schedule, next_sentence=config.next_sentence,
         max_pred_per_seq=args.max_predictions_per_seq * args.pack_k,
-        generator=torch.Generator().manual_seed(args.seed))
+        generator=torch.Generator().manual_seed(args.seed), kfac=kfac,
+        kfac_fused=fused, kfac_factor_interval=args.kfac_factor_interval,
+        kfac_inv_interval=args.kfac_inv_interval if fused else 0,
+        kfac_capture_microbatches=args.kfac_capture_microbatches)
+    if kfac is None:
+        return train_step
+    if fused:
+        return lambda batch: train_step(batch, kfac_state)
+    # The stats pass's loss runs without remat, as the JAX stats twin.
+    kfac.apply_loss = pretrain.make_kfac_loss(
+        model, next_sentence=config.next_sentence,
+        max_pred_per_seq=args.max_predictions_per_seq * args.pack_k)
+    layers = config.num_hidden_layers
+
+    def stats_step(batch):
+        global_step = opt_step_count(optimizer)
+        if global_step % args.kfac_factor_interval == 0:
+            kfac.update_factors(
+                kfac_state, stats_rows(batch, args.kfac_stats_batch),
+                draw_dropout_seeds(torch.Generator().manual_seed(
+                    (args.seed + KFAC_STATS_SEED_OFFSET) * 2 ** 32
+                    + global_step), layers))
+        if global_step % args.kfac_inv_interval == 0:
+            kfac.update_inverses(kfac_state)
+        return train_step(batch, kfac_state)
+
+    return stats_step
+
+
+def stats_rows(batch: dict, n_stats: int) -> dict:
+    """The stats pass's microbatch: ``n_stats`` rows of microbatch 0 taken
+    strided (so every shard of a global batch would contribute), or all of
+    it for ``n_stats`` 0 or not under its size."""
+    rows = batch["input_ids"].shape[1]
+    if n_stats and n_stats < rows:
+        stride = rows // n_stats
+        return {k: v[0][::stride][:n_stats] for k, v in batch.items()}
+    return {k: v[0] for k, v in batch.items()}
 
 
 def checkpoint_contents(model, optimizer, config, sampler_state: dict,
-                        epoch: int) -> dict:
+                        epoch: int, kfac_state=None) -> dict:
     """The training checkpoint's tree, in the JAX package's layout, its
     tensors on the model's device (the transposes and layer stacks run
-    there; the writer copies one leaf at a time to the host)."""
-    return {"model": to_jax_params(model.state_dict(), config, "pretraining",
-                                   keep_device=True),
-            "optimizer": optimizer_to_jax(model, optimizer, config,
-                                          "pretraining", keep_device=True),
-            "sampler": sampler_state, "epoch": int(epoch)}
+    there; the writer copies one leaf at a time to the host); with
+    ``kfac_state``, its ``preconditioner``."""
+    contents = {"model": to_jax_params(model.state_dict(), config,
+                                       "pretraining", keep_device=True),
+                "optimizer": optimizer_to_jax(model, optimizer, config,
+                                              "pretraining",
+                                              keep_device=True),
+                "sampler": sampler_state, "epoch": int(epoch)}
+    if kfac_state is not None:
+        contents["preconditioner"] = kfac_state.state_dict()
+    return contents
 
 
 def save(args, model, optimizer, config, global_step: int,
-         sampler_state: dict, epoch: int, async_write: bool) -> float:
+         sampler_state: dict, epoch: int, async_write: bool,
+         kfac_state=None) -> float:
     """Save at ``global_step`` (numbered ``previous_phase_end_step`` +
     it); returns the seconds the call took (an async save's stall)."""
     t0 = time.perf_counter()
     save_step = global_step + args.previous_phase_end_step
     ckpt.save_checkpoint(
         args.model_output_dir, save_step,
-        checkpoint_contents(model, optimizer, config, sampler_state, epoch),
+        checkpoint_contents(model, optimizer, config, sampler_state, epoch,
+                            kfac_state),
         keep=args.keep_checkpoints, async_write=async_write)
     stall = time.perf_counter() - t0
     log({"event": "checkpoint", "step": save_step,
@@ -366,14 +489,14 @@ def save(args, model, optimizer, config, global_step: int,
 
 
 def train(args, model, optimizer, config, step, loader, sampler,
-          checkpoint=None, global_step: int = 0) -> dict:
+          checkpoint=None, global_step: int = 0, kfac_state=None) -> dict:
     """The training loop from ``global_step``: ``--steps`` steps (or to
     ``--max_steps``), the cadence and final saves, and the stop on a
     preemption signal. Returns the last logged metrics with
     ``global_step``, ``terminated_by_signal``, the wall time of each step
     (``step_times``: (start, end) perf_counter pairs; a step's end is
     read after its metrics, when it is logged) and each save's stall
-    (``saves``)."""
+    (``saves``). ``kfac_state`` goes into every save."""
     steps_this_run = args.steps or (args.max_steps - global_step)
     steps_this_run = min(steps_this_run, args.max_steps - global_step)
     epoch = int(checkpoint["epoch"]) if checkpoint and checkpoint.get(
@@ -430,7 +553,7 @@ def train(args, model, optimizer, config, step, loader, sampler,
                     saves.append({"step": global_step, "stall_s": save(
                         args, model, optimizer, config, global_step,
                         sampler_state(), epoch,
-                        args.checkpoint_write == "async")})
+                        args.checkpoint_write == "async", kfac_state)})
                 if (args.term_check_steps
                         and global_step % args.term_check_steps == 0
                         and stop.requested):
@@ -454,7 +577,7 @@ def train(args, model, optimizer, config, step, loader, sampler,
         if not args.skip_final_checkpoint or terminated:
             saves.append({"step": global_step, "stall_s": save(
                 args, model, optimizer, config, global_step, sampler_state(),
-                epoch, async_write=False)})
+                epoch, async_write=False, kfac_state=kfac_state)})
         ckpt.wait_for_pending_save()
     finally:
         stop.restore()
@@ -468,11 +591,14 @@ def main(args, dataset=None) -> dict:
     args = setup_training(args)
     model, config = prepare_model(args)
     optimizer, schedule = prepare_optimizer(args, model)
-    checkpoint, global_step = restore_checkpoint(args, model, optimizer)
+    kfac, kfac_state = prepare_kfac(args, model, config)
+    checkpoint, global_step = restore_checkpoint(args, model, optimizer,
+                                                 kfac, kfac_state)
     loader, sampler = prepare_dataset(args, config, checkpoint, dataset)
-    step = make_step(args, model, optimizer, schedule, config)
+    step = make_step(args, model, optimizer, schedule, config, kfac,
+                     kfac_state)
     return train(args, model, optimizer, config, step, loader, sampler,
-                 checkpoint, global_step)
+                 checkpoint, global_step, kfac_state)
 
 
 if __name__ == "__main__":

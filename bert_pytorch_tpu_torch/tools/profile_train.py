@@ -1,7 +1,7 @@
 """Where the pretraining step's time goes, on the card.
 
     python -m bert_pytorch_tpu_torch.tools.profile_train \\
-        [--attention_backend flash,dense] [--remat dots,none]
+        [--attention_backend flash,dense] [--remat dots,none] [--kfac]
 
 Builds the phase-2 recipe (configs/bert_pretraining_phase2_config.json:
 seq 512, max_pred 80, LAMB with poly warmup) at BERT-large width
@@ -25,12 +25,27 @@ backend) with:
 * ``host`` — the top operators by self CPU time in the same step (where
   the host spends the time the card waits).
 
+``--kfac`` adds one JSON line (flash, remat dots) for K-FAC
+(``--kfac``, fused capture, factors and inverses due on every step: the
+heaviest step) beside the plain step of the same model, in turns (K-FAC,
+plain, plain, K-FAC): each step's wall time (host clock to a synchronize,
+unprofiled), then each step's device time and, for the K-FAC steps, the
+device time of the K-FAC profiler ranges (``kfac.capture``: the taps'
+statistics in the backward; ``kfac.ema``; ``kfac.inverses``: 24 Cholesky
+inverses of each stacked factor; ``kfac.precondition``), the amortised
+step at the runner's default intervals (factors every 10 steps, inverses
+every 100), the state's bytes, and the inverse update's library calls
+on one factor of each size (1024², 1025², 4097²; CUDA events): the
+Cholesky factorization, ``cholesky_inverse`` and ``eigh`` (the eigen
+method's update is 24 layers of 5 + 2 + 1 of them).
+
 Needs a CUDA card (the measurement has no CPU mode).
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import shutil
@@ -73,15 +88,13 @@ def device_rows(prof):
     return rows
 
 
-def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
-    from torch.profiler import ProfilerActivity, profile
+def recipe_args(out: str, backend: str = "flash", remat: str = "dots",
+                extra=()):
+    """The runner's arguments for the phase-2 recipe at BERT-large width
+    (bf16, local batch 8 x 2, no save)."""
+    from bert_pytorch_tpu_torch import run_pretraining
 
-    from bert_pytorch_tpu_torch import pretrain, run_pretraining
-    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
-        synthetic_pretraining_batch)
-
-    out = tempfile.mkdtemp(prefix="profile_train_")  # no save happens
-    args = run_pretraining.setup_training(run_pretraining.parse_arguments([
+    return run_pretraining.setup_training(run_pretraining.parse_arguments([
         "--output_dir", out,
         "--config_file", os.path.join(REPO, "configs",
                                       "bert_pretraining_phase2_config.json"),
@@ -90,24 +103,47 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
         "--steps", "1", "--skip_final_checkpoint", "--seed", "0",
         "--attention_backend", backend, "--remat", remat,
         "--dtype", "bfloat16", "--local_batch_size", str(LOCAL_BATCH),
-        "--global_batch_size", str(LOCAL_BATCH * ACCUMULATION_STEPS)]))
+        "--global_batch_size", str(LOCAL_BATCH * ACCUMULATION_STEPS),
+        *extra]))
+
+
+def recipe_batches(args, config, count: int = 3) -> list:
+    from bert_pytorch_tpu_torch import pretrain
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        synthetic_pretraining_batch)
+
+    return [pretrain.to_device(pretrain.stack_microbatches(
+        synthetic_pretraining_batch(i, args.global_batch_size, 512,
+                                    config.vocab_size,
+                                    args.max_predictions_per_seq),
+        args.accumulation_steps), args.device) for i in range(count)]
+
+
+def timed_ms(step, batch) -> float:
+    """Host clock around one step that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    out = tempfile.mkdtemp(prefix="profile_train_")  # no save happens
+    args = recipe_args(out, backend, remat)
     model, config = run_pretraining.prepare_model(args)
     optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
     step = run_pretraining.make_step(args, model, optimizer, schedule,
                                      config)
-    batches = [pretrain.to_device(pretrain.stack_microbatches(
-        synthetic_pretraining_batch(i, args.global_batch_size, 512,
-                                    config.vocab_size,
-                                    args.max_predictions_per_seq),
-        args.accumulation_steps), args.device) for i in range(3)]
+    batches = recipe_batches(args, config)
 
     def run(i):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = step(batches[i % len(batches)])
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+        return timed_ms(step, batches[i % len(batches)])
 
     for i in range(2):
         run(i)
@@ -179,6 +215,140 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
     return result
 
 
+def range_device_ms(prof, name: str) -> float:
+    """Device time (ms) of the kernels that run inside the profiler range
+    ``name`` on the device timeline: the range's device-side annotations
+    (the profiler mirrors each ``record_function`` range there, from its
+    first kernel's start to its last kernel's end) intersected with every
+    kernel. 0.0 when the trace holds no such annotation."""
+    cuda = torch.autograd.DeviceType.CUDA
+    windows, kernels = [], []
+    for evt in prof.events():
+        if evt.device_type != cuda:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if evt.name == name:
+            windows.append(span)
+        elif not (getattr(evt, "is_user_annotation", False)
+                  or "#" in evt.name or evt.name.startswith("kfac.")):
+            kernels.append(span)
+    kernels.sort()
+    starts = [k[0] for k in kernels]
+    total = 0.0
+    for lo, hi in windows:
+        i = max(bisect.bisect_left(starts, lo) - 1, 0)
+        while i < len(kernels) and kernels[i][0] < hi:
+            total += max(0.0, min(hi, kernels[i][1]) - max(lo,
+                                                           kernels[i][0]))
+            i += 1
+    return total / 1e3
+
+
+def linalg_ms(n: int, device) -> dict:
+    """CUDA-event ms of the inverse update's library calls on one damped
+    n x n SPD fp32 matrix (the second of two calls each): its Cholesky
+    factorization, ``cholesky_inverse`` of the factor (what
+    ``KFAC.inverse_factors`` runs), ``cholesky_solve`` of the identity
+    (the same inverse by two triangular solves, as the JAX package's
+    ``cho_solve``), and ``eigh`` (the eigen method)."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn(2 * n, n, generator=gen, device=device)
+    spd = x.t() @ x / (2 * n) + 0.05 * torch.eye(n, device=device)
+    chol = torch.linalg.cholesky_ex(spd)[0]
+    eye = torch.eye(n, device=device)
+    calls = {"cholesky": lambda: torch.linalg.cholesky_ex(spd),
+             "cholesky_inverse": lambda: torch.cholesky_inverse(chol),
+             "cholesky_solve": lambda: torch.cholesky_solve(eye, chol),
+             "eigh": lambda: torch.linalg.eigh(spd)}
+    out = {}
+    for label, call in calls.items():
+        call()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        out[label] = start.elapsed_time(end)
+    return out
+
+
+def kfac_turns(args, model, optimizer, schedule, config, kfac, kfac_state,
+               batches) -> dict:
+    """The K-FAC step (fused capture, factors and inverses due every step)
+    and the plain step of the same model in turns (K-FAC, plain, plain,
+    K-FAC): wall times unprofiled, then device times and the K-FAC ranges
+    profiled. ``args`` are the runner's (``--kfac``); the model trains
+    on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.models.bert import KFAC_CAPTURE_RANGE
+
+    saved = (args.kfac_capture, args.kfac_factor_interval,
+             args.kfac_inv_interval)
+    args.kfac_capture, args.kfac_factor_interval = "train", 1
+    args.kfac_inv_interval = 1
+    steps = {"kfac": run_pretraining.make_step(
+        args, model, optimizer, schedule, config, kfac, kfac_state),
+        "plain": run_pretraining.make_step(args, model, optimizer,
+                                           schedule, config)}
+    args.kfac_capture, args.kfac_factor_interval, args.kfac_inv_interval = (
+        saved)
+    order = ("kfac", "plain", "plain", "kfac")
+    for i, name in enumerate(order[:2]):  # warm-up
+        timed_ms(steps[name], batches[i % len(batches)])
+    wall = {"kfac": [], "plain": []}
+    for i, name in enumerate(order):
+        wall[name].append(timed_ms(steps[name], batches[i % len(batches)]))
+    device = {"kfac": [], "plain": []}
+    ranges = {key: [] for key in (KFAC_CAPTURE_RANGE, "kfac.ema",
+                                  "kfac.inverses", "kfac.precondition")}
+    for i, name in enumerate(order):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            timed_ms(steps[name], batches[i % len(batches)])
+        device[name].append(sum(r[1] for r in device_rows(prof)))
+        if name == "kfac":
+            for key in ranges:
+                ranges[key].append(range_device_ms(prof, key))
+    med = {key: statistics.median(v) for key, v in ranges.items()}
+    plain_ms = statistics.median(device["plain"])
+    kfac_ms = statistics.median(device["kfac"])
+    capture_ms = med[KFAC_CAPTURE_RANGE] + med["kfac.ema"]
+    return {
+        "wall_ms": wall, "device_ms": device, "ranges_ms": ranges,
+        "capture_ms": capture_ms, "inverses_ms": med["kfac.inverses"],
+        "precondition_ms": med["kfac.precondition"],
+        "kfac_minus_plain_device_ms": kfac_ms - plain_ms,
+        # Factors every 10 steps, inverses every 100: the runner's defaults.
+        "amortised_default_device_ms": plain_ms + med["kfac.precondition"]
+        + capture_ms / 10 + med["kfac.inverses"] / 100,
+        "state_bytes": kfac_state.nbytes(),
+        "linalg_ms": {n: linalg_ms(n, kfac_state.count.device)
+                      for n in (1024, 1025, 4097)},
+        "kfac_count": int(kfac_state.count)}
+
+
+def profile_kfac() -> dict:
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    out = tempfile.mkdtemp(prefix="profile_train_")  # no save happens
+    args = recipe_args(out, extra=["--kfac"])
+    model, config = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    kfac, kfac_state = run_pretraining.prepare_kfac(args, model, config)
+    result = kfac_turns(args, model, optimizer, schedule, config, kfac,
+                        kfac_state, recipe_batches(args, config))
+    result.update(backend=args.attention_backend, remat=args.remat,
+                  dtype=args.dtype, local_batch=args.local_batch_size,
+                  accumulation_steps=args.accumulation_steps,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, optimizer, kfac, kfac_state
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--attention_backend", default="flash",
@@ -186,6 +356,8 @@ def main(argv=None) -> int:
     parser.add_argument("--remat", default="dots",
                         help="comma-separated remat policies, each profiled "
                              "with every backend")
+    parser.add_argument("--kfac", action="store_true",
+                        help="also the K-FAC step against the plain one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
@@ -197,6 +369,8 @@ def main(argv=None) -> int:
     for remat in args.remat.split(","):
         for backend in args.attention_backend.split(","):
             print(json.dumps(profile_backend(backend, remat)), flush=True)
+    if args.kfac:
+        print(json.dumps({"kfac": profile_kfac()}), flush=True)
     return 0
 
 

@@ -18,8 +18,10 @@ tree. :func:`restore_training_state` does the same for ``model`` and the
 optimizer's ``mu`` and ``nu`` of a training checkpoint, staging every
 tensor on the target's device and committing only once the whole state
 decoded and matched, so a failed restore leaves the model and optimizer
-as they were; it byte-skips a K-FAC ``preconditioner`` (ROADMAP_KFAC) and
-refuses an fp16 ``LossScaleState``. :func:`load_latest_checkpoint` walks
+as they were; a K-FAC ``preconditioner`` restores into the caller's
+``optim.kfac.KFACState`` (checked key by key against it), or is
+byte-skipped when the caller has none; an fp16 ``LossScaleState`` is
+refused. :func:`load_latest_checkpoint` walks
 the retained checkpoints newest first, skipping (with a record naming
 step, path and reason) every file whose manifest or msgpack structure
 fails, and restores the first that passes. A sharded-layout index
@@ -61,8 +63,6 @@ CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
 # Sharded-layout shard files; they do not match CKPT_RE, so discovery,
 # retention and the walk-back see only the index file.
 SHARD_RE = re.compile(r"ckpt_(\d+)\.shard(\d+)of(\d+)\.msgpack$")
-ROADMAP_KFAC = ("ROADMAP.md, queue 1 of the modules still to port, item 5: "
-                "\"K-FAC (optim/kfac.py)\"")
 ROADMAP_SHARDED = ("ROADMAP.md, queue 1 of the modules still to port, item "
                    "4: \"Multi-GPU layouts\", the sharded checkpoint write")
 # The sharded layout's index carries this top-level key ({version,
@@ -410,23 +410,61 @@ def load_checkpoint(path: str, verify: bool = True) -> dict:
             for key in offsets if key != SHARDED_KEY}
 
 
+def _decode_preconditioner(path: str, blob, offsets: Dict[str, int],
+                           state) -> list:
+    """The ``preconditioner`` subtree as (target tensor, decoded CPU
+    tensor) pairs for every leaf of ``state`` (a ``KFACState``), each
+    checked against its target's key and shape
+    (:class:`CheckpointShapeError`) and cast to its dtype."""
+    tree = _decode_value(path, blob, offsets, ("preconditioner",))
+    where = f"checkpoint {path}: preconditioner"
+    leaves = [("count", state.count, tree.get("count")
+               if isinstance(tree, dict) else None)]
+    for field, targets in state.state_dict().items():
+        if field == "count":
+            continue
+        got = tree.get(field) if isinstance(tree, dict) else None
+        if not isinstance(got, dict) or set(got) != set(targets):
+            raise CheckpointShapeError(
+                f"{where}/{field} does not hold the K-FAC state's keys "
+                f"{sorted(targets)} (another model or --kfac_skip_layers?)")
+        leaves += [(f"{field}/{key}", target, got[key])
+                   for key, target in targets.items()]
+    pairs = []
+    for name, target, value in leaves:
+        if isinstance(value, np.generic):
+            value = torch.as_tensor(np.asarray(value))
+        if (not isinstance(value, torch.Tensor)
+                or tuple(value.shape) != tuple(target.shape)):
+            raise CheckpointShapeError(
+                f"{where}/{name}: {getattr(value, 'shape', value)!r} for "
+                f"the K-FAC state's shape {tuple(target.shape)}")
+        pairs.append((target, value.to(target.dtype)))
+    return pairs
+
+
 def restore_training_state(path: str, model: torch.nn.Module,
                            optimizer: Optional[torch.optim.Optimizer] = None,
-                           blob=None) -> dict:
+                           blob=None, preconditioner=None) -> dict:
     """Load a training checkpoint (either package's) into ``model`` and,
-    when given, the Adam-family ``optimizer``, in place; returns
+    when given, the Adam-family ``optimizer`` and the K-FAC
+    ``preconditioner`` (an ``optim.kfac.KFACState``), in place; returns
     ``{"sampler": dict or None, "epoch": int or None, "count": int or
-    None}``.
+    None}`` and, when ``preconditioner`` is given, ``"preconditioner"``:
+    whether the checkpoint held one.
 
     ``model`` and ``mu``/``nu`` decode module by module onto the model's
     device (every tensor of the model's state dict, and of each parameter's
     moments, must arrive with its shape: :class:`CheckpointShapeError`),
-    and are committed only then, so a failed restore leaves ``model`` and
-    ``optimizer`` untouched. A loss-scaled (fp16) optimizer state is
-    refused (``models/convert.py`` ROADMAP_FP16); a ``preconditioner``
-    subtree (K-FAC) is skipped undecoded with a warning (ROADMAP_KFAC).
-    ``blob`` is the file's bytes when the caller has read and checked
-    them (:func:`load_latest_checkpoint`)."""
+    the preconditioner to the host, and all are committed only then, so a
+    failed restore leaves ``model``, ``optimizer`` and ``preconditioner``
+    untouched. A loss-scaled (fp16) optimizer state is refused
+    (``models/convert.py`` ROADMAP_FP16). A ``preconditioner`` subtree is
+    skipped undecoded, with a warning, when the caller passes no state
+    (a run without ``--kfac``, as the JAX runner skips it); a checkpoint
+    without one leaves the given state as it is. ``blob`` is the file's
+    bytes when the caller has read and checked them
+    (:func:`load_latest_checkpoint`)."""
     if blob is None:
         blob = _read_checked(path)
     offsets = _toplevel_offsets(path, blob)
@@ -435,9 +473,13 @@ def restore_training_state(path: str, model: torch.nn.Module,
     if absent:
         raise KeyError(f"checkpoint {path} has no {absent} subtree (keys: "
                        f"{sorted(k for k in offsets if k != SHARDED_KEY)})")
-    if "preconditioner" in offsets:
-        warnings.warn(f"{path}: its K-FAC preconditioner state is skipped; "
-                      f"the port has no K-FAC yet ({ROADMAP_KFAC})")
+    kfac_pairs = None
+    if "preconditioner" in offsets and preconditioner is None:
+        warnings.warn(f"{path}: its K-FAC preconditioner state is skipped: "
+                      "the run has no --kfac")
+    elif "preconditioner" in offsets:
+        kfac_pairs = _decode_preconditioner(path, blob, offsets,
+                                            preconditioner)
     device = next(model.parameters()).device
     target = model.state_dict()
     if optimizer is not None:
@@ -448,6 +490,8 @@ def restore_training_state(path: str, model: torch.nn.Module,
     state = _decode_state(path, blob, offsets, ("model",), target, None,
                           device, partial=False)
     extras = {"count": None}
+    if preconditioner is not None:
+        extras["preconditioner"] = kfac_pairs is not None
     if optimizer is not None:
         params = dict(model.named_parameters())
         moment_target = {n: torch.empty(p.shape, dtype=torch.float32,
@@ -462,6 +506,8 @@ def restore_training_state(path: str, model: torch.nn.Module,
     del state
     if optimizer is not None:
         transforms.load_moments(optimizer, params, extras["count"], mu, nu)
+    for target, value in kfac_pairs or ():
+        target.copy_(value)
     for key in ("sampler", "epoch"):
         extras[key] = (_decode_value(path, blob, offsets, (key,))
                        if key in offsets else None)
@@ -470,7 +516,8 @@ def restore_training_state(path: str, model: torch.nn.Module,
 
 def load_latest_checkpoint(output_dir: str, model: torch.nn.Module,
                            optimizer: Optional[torch.optim.Optimizer] = None,
-                           on_skip: Optional[Callable[[dict], None]] = None):
+                           on_skip: Optional[Callable[[dict], None]] = None,
+                           preconditioner=None):
     """(step, :func:`restore_training_state`'s extras) of the newest
     checkpoint in ``output_dir`` that reads back whole, or None.
 
@@ -489,7 +536,8 @@ def load_latest_checkpoint(output_dir: str, model: torch.nn.Module,
         except (flax_msgpack.MsgpackError, KeyError, OSError) as e:
             reason = f"{type(e).__name__}: {e}"
         else:
-            return step, restore_training_state(path, model, optimizer, blob)
+            return step, restore_training_state(path, model, optimizer, blob,
+                                                preconditioner)
         warnings.warn(f"Skipping unreadable checkpoint {path} ({reason}); "
                       "falling back to the previous retained one")
         if on_skip is not None:

@@ -131,7 +131,23 @@ Phases (any failure exits non-zero and prints no result line):
    the GLUE checkpoint (``--tasks classify --classify_checkpoint``): one
    dev example answered over HTTP with #4 24 times per forward on the
    tensor cores, its logits within 5e-2 of the GLUE model's; then each
-   runner again for 9 steps without checkpoints, for its seq/s.
+   runner again for 9 steps without checkpoints, for its seq/s;
+11. K-FAC pretraining on the runner's own functions (``drive_kfac``,
+   BERT-large phase 2: S=512, flash, remat dots, LAMB, bf16, local batch
+   8 x 2, after a check of 16 GB of free disk): 4 steps with ``--kfac
+   --kfac_factor_interval 1 --kfac_inv_interval 2`` (fused capture,
+   cholesky) and a sync final save keeping 1 (every loss finite, count 4,
+   symmetric factors, phase 6's launches per step on the tensor cores);
+   a fresh runner resumes it (params, moments, factors and count
+   bit-equal, inverses recomputed) and one more step from each agrees;
+   2 steps with ``--kfac_capture stats --kfac_stats_batch 4`` (one more
+   forward, dq and dkv per layer per factor-due step); the K-FAC step
+   against the plain one in turns with its capture, inverse and
+   precondition device times and one 4097² ``eigh``
+   (``tools/profile_train.kfac_turns``); then at 2 layers of BERT-large
+   width, fp32, dropout 0, the fused capture against the stats pass and
+   remat none against dots, and eigen and cholesky preconditioning
+   against float64 and against each other (``check_kfac_parity``).
 
 Every launch counter is set to 0 just before each main path and read just
 after it. The last three lines of standard output are the kernels JSON,
@@ -1876,30 +1892,50 @@ def runner(out: str, config_file: str, extra) -> dict:
         "--seed", "0", "--log_steps", "1", *extra]))
     model, config = run_pretraining.prepare_model(args)
     optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    kfac, kfac_state = run_pretraining.prepare_kfac(args, model, config)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     checkpoint, global_step = run_pretraining.restore_checkpoint(
-        args, model, optimizer)
+        args, model, optimizer, kfac, kfac_state)
     torch.cuda.synchronize()
     return {"args": args, "model": model, "config": config,
-            "optimizer": optimizer, "schedule": schedule,
-            "checkpoint": checkpoint, "global_step": global_step,
+            "optimizer": optimizer, "schedule": schedule, "kfac": kfac,
+            "kfac_state": kfac_state, "checkpoint": checkpoint,
+            "global_step": global_step,
             "resume_s": time.perf_counter() - t0}
 
 
-def train_runner(r: dict, dataset) -> dict:
+def runner_step(r: dict):
+    """The runner's train step (make_step) for ``r``'s arguments."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    return run_pretraining.make_step(r["args"], r["model"], r["optimizer"],
+                                     r["schedule"], r["config"], r["kfac"],
+                                     r["kfac_state"])
+
+
+def train_runner(r: dict, dataset, on_step=None) -> dict:
     """The runner's loop (prepare_dataset, make_step, train) on ``dataset``
-    from where ``r`` resumed."""
+    from where ``r`` resumed; ``on_step(metrics)`` sees every step's
+    metrics."""
     from bert_pytorch_tpu_torch import run_pretraining
 
     args = r["args"]
     loader, sampler = run_pretraining.prepare_dataset(
         args, r["config"], r["checkpoint"], dataset)
-    step = run_pretraining.make_step(args, r["model"], r["optimizer"],
-                                     r["schedule"], r["config"])
+    step = runner_step(r)
+    if on_step is not None:
+        inner = step
+
+        def step(batch):
+            metrics = inner(batch)
+            on_step(metrics)
+            return metrics
+
     return run_pretraining.train(args, r["model"], r["optimizer"],
                                  r["config"], step, loader, sampler,
-                                 r["checkpoint"], r["global_step"])
+                                 r["checkpoint"], r["global_step"],
+                                 r["kfac_state"])
 
 
 def training_state(r: dict) -> dict:
@@ -2105,7 +2141,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
     state2 = training_state(r2)
     check_same_state("9c resume vs 9b's final state", training_state(r3),
                      state2)
-    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+    from bert_pytorch_tpu_torch import pretrain
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
         synthetic_pretraining_batch)
 
@@ -2116,10 +2152,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         a2.accumulation_steps), a2.device)
     metrics = {}
     for label, r in (("memory", r2), ("resumed", r3)):
-        step = run_pretraining.make_step(r["args"], r["model"],
-                                         r["optimizer"], r["schedule"],
-                                         r["config"])
-        metrics[label] = float(step(batch)["loss"])
+        metrics[label] = float(runner_step(r)(batch)["loss"])
     after2, after3 = training_state(r2), training_state(r3)
     diff = max((a - b).abs().max().item()
                for n in after2 if n is not None
@@ -2335,6 +2368,420 @@ def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
         "served_logit_err": err, "seq_per_s_without_checkpoints": timed}
 
 
+# -- phase 11: K-FAC pretraining ---------------------------------------------
+
+# The runner's K-FAC (fused capture, cholesky) with its intervals cut from
+# 10 and 100 so that four steps pass both gates: factors every step,
+# inverses at counts 0 and 2.
+KFAC_FLAGS = ["--kfac", "--kfac_factor_interval", "1",
+              "--kfac_inv_interval", "2"]
+KFAC_STEPS, KFAC_STATS_STEPS, KFAC_STATS_BATCH = 4, 2, 4
+# A BERT-large K-FAC training checkpoint is about 7.5 GB.
+KFAC_DISK_BYTES = 16 * 2 ** 30
+# A captured factor is Xᵀ X from cuBLAS, whose (i, j) and (j, i) entries
+# may sum in another order: symmetric within 1e-5 of its largest entry.
+KFAC_SYMMETRY_RTOL = 1e-5
+# One K-FAC step from the resumed state against one from the in-memory
+# state: within RESUME_STEP_ATOL, its bit-equality logged beside a probe
+# of the kernels and of K-FAC's library calls (cuBLAS, cuSOLVER). Two
+# identical states stepped once read 1.1e-11 apart in one of four card
+# runs with #1-#3 bit-deterministic (PR 10), so the libraries' bits do
+# not repeat every time; the resume itself is held bit for bit (params,
+# moments, factors, count, and inverses equal to the restored factors'),
+# the next step's factors to the factor bar below.
+# Card parity (2 layers of BERT-large width, fp32, dropout 0): factors of
+# two capture paths within the JAX package's bar between its own two
+# (tests/test_kfac.py:242-247); each inverse method's preconditioned
+# gradients (the JAX test's: all-ones gradients, damping 0.003, lr 0.01,
+# fp32 inverses) within KFAC_REF_RTOL of the largest entry of the same
+# method computed in float64 from the same factors; eigen against
+# cholesky in direction: cosine above 0.7 (tests/test_kfac.py:442-447),
+# or, for a layer where the float64 methods themselves part further (the
+# damping enters each differently), the card's cosine within
+# KFAC_COS_ATOL of the float64 one.
+KFAC_FACTOR_RTOL, KFAC_FACTOR_ATOL = 2e-4, 1e-5
+KFAC_REF_RTOL = 1e-3
+KFAC_COS_MIN, KFAC_COS_ATOL = 0.7, 1e-2
+KFAC_PARITY_DAMPING, KFAC_PARITY_LR = 0.003, 0.01
+
+
+def factor_errors(got, want, rtol: float, atol: float) -> tuple:
+    """(max |got - want| over every factor, worst excess over atol + rtol
+    |want|: <= 0 where all agree)."""
+    diff, excess = 0.0, -math.inf
+    for field in ("a", "g"):
+        for key, ref in getattr(want, field).items():
+            d = (getattr(got, field)[key] - ref).abs()
+            diff = max(diff, d.max().item())
+            excess = max(excess, (d - atol - rtol * ref.abs()).max().item())
+    return diff, excess
+
+
+def check_symmetric(state, label: str) -> float:
+    worst = 0.0
+    for field in ("a", "g"):
+        for key, fac in getattr(state, field).items():
+            rel = ((fac - fac.transpose(-1, -2)).abs().max()
+                   / fac.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            if not rel <= KFAC_SYMMETRY_RTOL:
+                raise AssertionError(f"{label}: factor {key} asymmetric by "
+                                     f"{rel:.2e} of its largest entry")
+    return worst
+
+
+def precondition_fp64(spec_list, state, grads: dict, method: str,
+                      damping: float, kl_clip: float, lr: float) -> dict:
+    """The plain float64 version of ``KFAC.precondition`` from ``state``'s
+    factors: its own inverses (cholesky: (F + √γ I)⁻¹; eigen: eigh,
+    eigenvalues clamped at 0), P per layer, the kl_clip scale over all."""
+    def inverse(fac):
+        fac = fac.double()
+        if method == "eigen":
+            w, v = torch.linalg.eigh(fac)
+            return v, w.clamp_min(0.0)
+        eye = torch.eye(fac.shape[-1], dtype=torch.float64,
+                        device=fac.device)
+        return torch.linalg.inv(fac + math.sqrt(damping) * eye), None
+
+    pre, vg = {}, 0.0
+    for spec in spec_list:
+        for i, module in enumerate(spec.modules):
+            w = torch.cat([grads[f"{module}.weight"].t(),
+                           grads[f"{module}.bias"][None]]).double()
+            qa, la = inverse(state.a[spec.a_key][i])
+            qg, lg = inverse(state.g[spec.g_key][i])
+            if method == "eigen":
+                v = qa.t() @ w @ qg / (la[:, None] * lg[None, :] + damping)
+                p = qa @ v @ qg.t()
+            else:
+                p = qa @ w @ qg
+            vg += float((p * w).sum()) * lr * lr
+            pre[module] = p
+    nu = min(1.0, math.sqrt(kl_clip / max(vg, 1e-30)))
+    return {module: (p * nu)[:-1].t() for module, p in pre.items()}
+
+
+def check_kfac_parity(tmp: str) -> dict:
+    """11d at 2 layers of BERT-large width, fp32, dropout 0, the same
+    seeded weights and batch: the fused capture (remat dots) against the
+    stats pass on microbatch 0 and against the fused capture under remat
+    none; eigen and cholesky preconditioning on the card against float64
+    and against each other."""
+    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+    from bert_pytorch_tpu_torch.optim import KFAC
+
+    path = cut_config(tmp, num_hidden_layers=2, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+
+    def build(remat: str) -> dict:
+        args = run_pretraining.setup_training(training_args([
+            "--model_config_file", path, "--dtype", "float32", "--remat",
+            remat, "--steps", "1", *KFAC_FLAGS]))
+        model, config = run_pretraining.prepare_model(args)
+        optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+        kfac, kfac_state = run_pretraining.prepare_kfac(args, model, config)
+        return {"args": args, "model": model, "config": config,
+                "optimizer": optimizer, "schedule": schedule, "kfac": kfac,
+                "kfac_state": kfac_state}
+
+    dots = build("dots")
+    if dots["args"].remat != "dots":
+        raise AssertionError(f"remat {dots['args'].remat}")
+    batch = training_batches(dots["args"], dots["config"], 1, seed0=300)[0]
+    kfac = dots["kfac"]
+    stats = kfac.init()
+    kfac.apply_loss = pretrain.make_kfac_loss(
+        dots["model"], True, dots["args"].max_predictions_per_seq)
+    kfac.update_factors(stats, {k: v[0] for k, v in batch.items()})
+    runner_step(dots)(batch)
+    stats_diff, stats_excess = factor_errors(
+        dots["kfac_state"], stats, KFAC_FACTOR_RTOL, KFAC_FACTOR_ATOL)
+    none = build("none")
+    runner_step(none)(batch)
+    remat_diff, remat_excess = factor_errors(
+        dots["kfac_state"], none["kfac_state"], KFAC_FACTOR_RTOL,
+        KFAC_FACTOR_ATOL)
+    log(f"[kfac] 11d fused capture vs the stats pass on microbatch 0: max "
+        f"|diff| {stats_diff:.3e}; remat dots vs none: {remat_diff:.3e} "
+        f"(rtol {KFAC_FACTOR_RTOL:g}, atol {KFAC_FACTOR_ATOL:g})")
+    if stats_excess > 0 or remat_excess > 0:
+        raise AssertionError("K-FAC factors differ between capture paths")
+    del none, stats
+    model = dots["model"]
+    ones = {n: torch.ones_like(p) for n, p in model.named_parameters()}
+    results, cosines = {}, {}
+    for method in ("cholesky", "eigen"):
+        k = KFAC(model, inv_method=method, damping=KFAC_PARITY_DAMPING,
+                 inv_dtype=torch.float32)
+        st = k.init()
+        for field in ("a", "g"):
+            for key, value in getattr(dots["kfac_state"], field).items():
+                getattr(st, field)[key].copy_(value)
+        k.update_inverses(st)
+        card = k.precondition(st, ones, KFAC_PARITY_LR)
+        ref = precondition_fp64(k.specs, st, ones, method,
+                                KFAC_PARITY_DAMPING, k.kl_clip,
+                                KFAC_PARITY_LR)
+        worst = max(((card[f"{m}.weight"].double() - r).abs().max()
+                     / r.abs().max()).item() for m, r in ref.items())
+        log(f"[kfac] 11d {method}: card vs float64 {worst:.3e} of the "
+            f"largest entry (rtol {KFAC_REF_RTOL:g})")
+        if not worst <= KFAC_REF_RTOL:
+            raise AssertionError(f"{method} preconditioning off float64 by "
+                                 f"{worst}")
+        results[method] = (card, ref, worst)
+    for module in results["cholesky"][1]:
+        pair = [results[m][0][f"{module}.weight"].flatten().double()
+                for m in ("cholesky", "eigen")]
+        ref = [results[m][1][module].flatten() for m in ("cholesky", "eigen")]
+        cos = float(pair[0] @ pair[1] / (pair[0].norm() * pair[1].norm()))
+        cos64 = float(ref[0] @ ref[1] / (ref[0].norm() * ref[1].norm()))
+        cosines[module] = (cos, cos64)
+        if not (cos > KFAC_COS_MIN or (cos64 <= KFAC_COS_MIN and abs(
+                cos - cos64) <= KFAC_COS_ATOL)):
+            raise AssertionError(f"{module}: eigen vs cholesky cosine {cos} "
+                                 f"(float64 {cos64})")
+    log(f"[kfac] 11d eigen vs cholesky cosine (card, float64) by layer: "
+        + ", ".join(f"{m.replace('bert.encoder.layers.', '')} "
+                    f"{c:.4f}/{c64:.4f}" for m, (c, c64) in cosines.items()))
+    del dots, results, model, ones
+    torch.cuda.empty_cache()
+    return {"stats_vs_fused_max_diff": stats_diff,
+            "remat_none_vs_dots_max_diff": remat_diff,
+            "eigen_cholesky_cosine": cosines}
+
+
+def kfac_state_equal(got, want) -> list:
+    """Keys of the factors and count that differ (bit for bit)."""
+    bad = [f"{field}/{key}" for field in ("a", "g")
+           for key, value in getattr(want, field).items()
+           if not torch.equal(getattr(got, field)[key], value)]
+    if int(got.count) != int(want.count):
+        bad.append("count")
+    return bad
+
+
+def kfac_deterministic(r: dict, batch: dict) -> dict:
+    """Whether K-FAC's library calls give the same bits twice on the same
+    inputs: the stats pass's capture (fp32 ``addmm``), the inverse update
+    (cuSOLVER) and the precondition (cuBLAS), each run twice from one
+    state. Launches outside any main path's count window."""
+    from bert_pytorch_tpu_torch import pretrain
+
+    kfac, state = r["kfac"], r["kfac_state"]
+
+    def factors_of():
+        fresh = kfac.init()
+        kfac.update_factors(fresh, {k: v[0] for k, v in batch.items()})
+        return [t.clone() for t in list(fresh.a.values())
+                + list(fresh.g.values())]
+
+    def inverses_of():
+        copy = kfac.init()
+        for field in ("a", "g"):
+            for key, value in getattr(state, field).items():
+                getattr(copy, field)[key].copy_(value)
+        kfac.inverse_factors(copy)
+        return list(copy.qa.values()) + list(copy.qg.values())
+
+    grads = {n: p.grad for n, p in r["model"].named_parameters()}
+
+    def preconditioned():
+        return list(kfac.precondition(state, grads, 1e-3).values())
+
+    saved = kfac.apply_loss
+    kfac.apply_loss = pretrain.make_kfac_loss(
+        r["model"], True, r["args"].max_predictions_per_seq)
+    try:
+        out = {}
+        for name, run in (("capture", factors_of),
+                          ("inverses", inverses_of),
+                          ("precondition", preconditioned)):
+            first, second = run(), run()
+            out[name] = all(torch.equal(a, b) for a, b in zip(first, second))
+            del first, second
+    finally:
+        kfac.apply_loss = saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_kfac(kernels: dict, root: str, card: str) -> dict:
+    """Phase 11: K-FAC pretraining of BERT-large on the runner's own
+    functions (the phase-2 recipe: S=512, flash, remat dots, LAMB, bf16;
+    local batch 8 x 2, seeded synthetic rows).
+
+    11a: 4 steps with ``--kfac`` (fused capture, factors every step,
+    inverses every 2), a sync final save keeping 1: every loss finite,
+    count 4, symmetric factors, phase 6's launches per step on the tensor
+    cores (the capture rides the step's own backward).
+    11c: a fresh runner resumes the save: params, moments, factors and
+    count bit-equal, the inverses recomputed; one more step from each
+    agrees within RESUME_STEP_ATOL (its factors within the factor bar).
+    11b: 2 steps with ``--kfac_capture stats --kfac_stats_batch 4``: per
+    factor-due step one more forward, dq and dkv per layer than a fused
+    step.
+    11e: the K-FAC step against the plain one in turns
+    (``tools/profile_train.kfac_turns``: capture, inverse and precondition
+    device times; one 4097² eigh), the state's and checkpoint's bytes."""
+    from bert_pytorch_tpu_torch.tools import profile_train
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        SyntheticPretrainingDataset)
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    free = shutil.disk_usage(root).free
+    log(f"[kfac] {free / 2**30:.1f} GiB free under {root}")
+    if free < KFAC_DISK_BYTES:
+        raise AssertionError(f"phase 11 needs {KFAC_DISK_BYTES} bytes of "
+                             f"free disk, {free} are free")
+    out = os.path.join(root, "kfac")
+    flags = ["--local_batch_size", str(TRAIN_LOCAL_BATCH),
+             "--global_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+             "--steps", str(KFAC_STEPS), "--attention_backend", "flash",
+             "--num_steps_per_checkpoint", str(10 ** 6),
+             "--keep_checkpoints", "1", "--previous_phase_end_step", "0",
+             *KFAC_FLAGS]
+    # 11a
+    r = runner(out, PHASE2, flags)
+    args = r["args"]
+    if (args.remat, args.optimizer, r["checkpoint"], args.kfac_capture) != (
+            "dots", "lamb", None, "train"):
+        raise AssertionError(f"not the K-FAC phase-2 run: {vars(args)}")
+    state_bytes = r["kfac_state"].nbytes()
+    dataset = SyntheticPretrainingDataset(
+        11, TRAIN_LOCAL_BATCH * TRAIN_ACCUM * KFAC_STEPS, TRAIN_SEQ,
+        r["config"].vocab_size, args.max_predictions_per_seq)
+    records = []
+    n_writes = len(ckpt.write_records)
+    torch.cuda.synchronize()
+    # Counts to zero just before the main path, read just after.
+    zero_counts(kernels)
+    summary = train_runner(r, dataset, on_step=records.append)
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.route_launches) for name, k in kernels.items()
+              if hasattr(k, "route_launches")}
+    layers = r["config"].num_hidden_layers
+    check_launches_per_step(launches, routes, layers, TRAIN_ACCUM,
+                            KFAC_STEPS)
+    losses = [float(m["loss"]) for m in records]
+    if len(losses) != KFAC_STEPS or not all(
+            math.isfinite(x) and float(m["finite"]) == 1.0
+            for x, m in zip(losses, records)):
+        raise AssertionError(f"K-FAC steps not finite: {losses}")
+    kstate = r["kfac_state"]
+    if int(kstate.count) != KFAC_STEPS:
+        raise AssertionError(f"K-FAC count {int(kstate.count)}, expected "
+                             f"{KFAC_STEPS}")
+    asym = check_symmetric(kstate, "11a")
+    write = list(ckpt.write_records)[n_writes:]
+    if [(w["step"], w["async"]) for w in write] != [(KFAC_STEPS, False)]:
+        raise AssertionError(f"11a's saves: {write}")
+    write = write[0]
+    step_ms = [(b - a) * 1e3 for a, b in summary["step_times"]]
+    log(f"[kfac] 11a BERT-large K-FAC (fused, cholesky, factors every step, "
+        f"inverses every 2), {TRAIN_LOCAL_BATCH} x {TRAIN_ACCUM}: losses "
+        f"{[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 4) for m in records]}, steps "
+        f"{[round(x, 1) for x in step_ms]} ms, count {int(kstate.count)}, "
+        f"factor asymmetry {asym:.2e}; state {state_bytes} bytes; sync save "
+        f"{write['bytes']} bytes in {write['seconds']:.2f} s; launches "
+        f"{launches} on {card}")
+    # 11c
+    r3 = runner(out, PHASE2, flags)
+    if (r3["args"].resume_step, r3["global_step"]) != (KFAC_STEPS,
+                                                       KFAC_STEPS):
+        raise AssertionError(f"11c resumed at {r3['args'].resume_step}")
+    check_same_state("11c resume vs 11a's final state", training_state(r3),
+                     training_state(r))
+    bad = kfac_state_equal(r3["kfac_state"], kstate)
+    recomputed = r3["kfac"].init()
+    for field in ("a", "g"):
+        for key, value in getattr(r3["kfac_state"], field).items():
+            getattr(recomputed, field)[key].copy_(value)
+    r3["kfac"].update_inverses(recomputed)
+    bad += [f"qa/{key}" for key, value in recomputed.qa.items()
+            if not torch.equal(r3["kfac_state"].qa[key], value)]
+    if bad:
+        raise AssertionError(f"11c: the resumed K-FAC state differs: {bad}")
+    log(f"[kfac] 11c resumed ckpt_{KFAC_STEPS} in {r3['resume_s']:.2f} s: "
+        "params, mu, nu, factors and count bit-equal, inverses recomputed "
+        "from the restored factors")
+    batch = training_batches(args, r["config"], 1, seed0=400)[0]
+    loss = {label: float(runner_step(x)(batch)["loss"])
+            for label, x in (("memory", r), ("resumed", r3))}
+    after, after3 = training_state(r), training_state(r3)
+    diff = max((a - b).abs().max().item() for n in after if n is not None
+               for a, b in zip(after[n], after3[n]))
+    bad = kfac_state_equal(r3["kfac_state"], kstate)
+    exact = diff == 0.0 and loss["memory"] == loss["resumed"] and not bad
+    determinism = dict(kernels_deterministic(), **{
+        f"kfac_{name}": same
+        for name, same in kfac_deterministic(r, batch).items()})
+    log(f"[kfac] 11c one more step: loss {loss}, max |param/moment diff| "
+        f"{diff:.3e}, factors differ {bad} (bit-equal {exact}); kernels "
+        f"and K-FAC's library calls bit-deterministic {determinism}")
+    factor_diff, factor_excess = factor_errors(
+        r3["kfac_state"], kstate, KFAC_FACTOR_RTOL, KFAC_FACTOR_ATOL)
+    if factor_excess > 0 or diff > RESUME_STEP_ATOL or abs(
+            loss["memory"] - loss["resumed"]) > RESUME_STEP_ATOL:
+        raise AssertionError(f"resumed K-FAC step off by {diff}, its "
+                             f"factors by {factor_diff}")
+    resume_s = r3["resume_s"]
+    del r3, after, after3, recomputed
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    # 11b
+    args.kfac_capture, args.kfac_stats_batch = "stats", KFAC_STATS_BATCH
+    stats_step = runner_step(r)
+    args.kfac_capture = "train"
+    batches = training_batches(args, r["config"], KFAC_STATS_STEPS,
+                               seed0=500)
+    count0 = int(kstate.count)
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    stats_losses = [float(stats_step(b)["loss"]) for b in batches]
+    stats_launches = {name: k.launches for name, k in kernels.items()}
+    per_step = layers * TRAIN_ACCUM
+    want = {"flash_attention_fwd": (2 * per_step + layers) * KFAC_STATS_STEPS,
+            "flash_attention_dq": (per_step + layers) * KFAC_STATS_STEPS,
+            "flash_attention_dkv": (per_step + layers) * KFAC_STATS_STEPS}
+    if any(stats_launches[n] != w for n, w in want.items()) or (
+            int(kstate.count) != count0 + KFAC_STATS_STEPS) or not all(
+            math.isfinite(x) for x in stats_losses):
+        raise AssertionError(f"11b stats capture: launches "
+                             f"{stats_launches}, expected {want}; count "
+                             f"{int(kstate.count)}; losses {stats_losses}")
+    log(f"[kfac] 11b stats capture (--kfac_stats_batch {KFAC_STATS_BATCH}): "
+        f"losses {stats_losses}, launches {stats_launches} (a fused step's "
+        f"+ {layers} forward, dq and dkv per factor-due step)")
+    # 11e
+    turns = profile_train.kfac_turns(
+        args, r["model"], r["optimizer"], r["schedule"], r["config"],
+        r["kfac"], kstate, training_batches(args, r["config"], 2,
+                                            seed0=600))
+    log(f"[kfac] 11e turns (K-FAC, plain, plain, K-FAC; K-FAC = fused "
+        f"capture + {layers}-layer Cholesky inverses + precondition every "
+        f"step): "
+        f"wall {turns['wall_ms']} ms, device {turns['device_ms']} ms; "
+        f"capture {turns['capture_ms']:.2f}, inverses "
+        f"{turns['inverses_ms']:.2f}, precondition "
+        f"{turns['precondition_ms']:.2f} ms device; amortised at the "
+        f"default intervals {turns['amortised_default_device_ms']:.2f} ms; "
+        f"one factor's Cholesky, cholesky_inverse and eigh by size (ms): "
+        f"{turns['linalg_ms']} on {card}")
+    del r, kstate
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "routes": routes, "count": KFAC_STEPS,
+            "factor_asymmetry": asym, "state_bytes": state_bytes,
+            "checkpoint_write": write, "resume_s": resume_s,
+            "resumed_step_bit_equal": exact, "resumed_step_max_diff": diff,
+            "determinism": determinism, "stats_launches": stats_launches,
+            "stats_losses": stats_losses, "turns": turns,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2420,6 +2867,8 @@ def main() -> int:
         finetuned = drive_finetune(vocab, tmp, handoff["init_checkpoint"],
                                    kernels, card)
         shutil.rmtree(os.path.join(tmp, "pretrain"))
+        kfac = drive_kfac(kernels, tmp, card)
+        kfac_parity = check_kfac_parity(tmp)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -2441,7 +2890,10 @@ def main() -> int:
     for entry in entries:
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned))}")
+            entry["launches_kfac"] = kfac["launches"][entry["name"]]
+            entry["launches_kfac_stats"] = kfac["stats_launches"][
+                entry["name"]]
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

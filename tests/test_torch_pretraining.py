@@ -467,10 +467,15 @@ def test_runner_refuses_what_it_cannot_do(shards):
     with pytest.raises(SystemExit):
         run_pretraining.parse_arguments(_run_args(shards, "--val_input_dir",
                                                   "x"))
-    for flags in (["--kfac"], ["--checkpoint_layout", "sharded"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_pretraining.setup_training(run_pretraining.parse_arguments(
-                _run_args(shards, *flags)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_pretraining.setup_training(run_pretraining.parse_arguments(
+            _run_args(shards, "--checkpoint_layout", "sharded")))
+    # K-FAC is ported: --kfac is accepted, with the JAX runner's defaults.
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        _run_args(shards, "--kfac")))
+    assert (args.kfac, args.kfac_factor_interval, args.kfac_inv_interval,
+            args.kfac_capture, args.kfac_inv_method) == (
+        True, 10, 100, "train", "cholesky")
     # Checkpoints are written now: a run past --num_steps_per_checkpoint
     # with a final save is not refused; it needs somewhere to write them.
     args = run_pretraining.setup_training(run_pretraining.parse_arguments(

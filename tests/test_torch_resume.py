@@ -41,7 +41,7 @@ from bert_pytorch_tpu_torch.models import bert
 from bert_pytorch_tpu_torch.models.convert import (from_jax_params,
                                                    optimizer_from_jax,
                                                    optimizer_to_jax)
-from bert_pytorch_tpu_torch.optim import schedules, transforms
+from bert_pytorch_tpu_torch.optim import KFAC, schedules, transforms
 from bert_pytorch_tpu_torch.testing import faults
 from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
     SyntheticPretrainingDataset)
@@ -329,7 +329,9 @@ def test_optimizer_norms_span_the_stacked_layers(name):
 def test_fp16_checkpoint_is_refused_and_kfac_state_skipped(tmp_path):
     """A JAX fp16 LossScaleState optimizer is refused naming the ROADMAP
     item, before the model is touched; a checkpoint with a K-FAC
-    ``preconditioner`` restores with a warning that names its item."""
+    ``preconditioner`` resumed without --kfac (no state to restore into)
+    restores the rest with a warning that the run has no --kfac, as the
+    JAX runner skips the subtree."""
     _, _, _, state = _jax_state(seed=7)
     scaled = jax_optim.LossScaleState(jnp.asarray(2.0 ** 16, jnp.float32),
                                       jnp.asarray(0, jnp.int32),
@@ -345,11 +347,159 @@ def test_fp16_checkpoint_is_refused_and_kfac_state_skipped(tmp_path):
     jax_ckpt.save_checkpoint(str(tmp_path / "kfac"), 3, {
         "model": state.params, "optimizer": state.opt_state, "epoch": 0,
         "preconditioner": {"factors": np.ones((3, 4), np.float32)}})
-    with pytest.warns(UserWarning, match="ROADMAP.md.*K-FAC"):
+    with pytest.warns(UserWarning, match="preconditioner.*no --kfac"):
         step_no, extras = ckpt.load_latest_checkpoint(str(tmp_path / "kfac"),
                                                       model, opt)
     assert step_no == 3 and extras["count"] == 0
     _assert_params_close(model, state.params, 0.0)
+
+
+# -- K-FAC checkpoints ---------------------------------------------------------
+
+def _jax_kfac(inv_method="cholesky"):
+    """(KFAC, its init state) of the JAX package on CONFIG's tapped twin."""
+    cfg = JaxConfig(**CONFIG)
+    tapped = jax_models.BertForPreTraining(cfg, dtype=jnp.float32,
+                                           kfac_tap=True)
+    model, _, _, state = _jax_state()
+    apply_loss, tap_shape_fn = jax_pretrain.make_kfac_fns(
+        tapped, True, max_pred_per_seq=P)
+    kfac = jax_optim.KFAC(apply_loss, tap_shape_fn, inv_method=inv_method)
+    mb0 = {k: v[0] for k, v in _stacked(0).items()}
+    return model, tapped, kfac, kfac.init(state.params, mb0)
+
+
+def _kfac_leaves(tree, prefix=""):
+    """flat '/'-path -> leaf of a KFACState checkpoint tree."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_kfac_leaves(value, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def test_jax_kfac_checkpoint_resumes_in_the_port_runner(tmp_path):
+    """A JAX K-FAC training checkpoint, as the JAX runner writes it ({model,
+    optimizer, sampler, epoch, preconditioner}; two fused K-FAC + LAMB
+    steps with the eigen method), resumed by the port's runner with --kfac
+    (cholesky): factors and count bit-equal, the inverses recomputed from
+    the restored factors (not the file's eigenvectors); the runner then
+    trains on and saves the count of 3."""
+    model, tapped, kfac, kstate = _jax_kfac(inv_method="eigen")
+    _, tx, _, state = _jax_state()
+    schedule, _ = _schedules()
+    step = jax_pretrain.make_train_step(
+        model, tx, schedule=schedule, next_sentence=True, max_pred_per_seq=P,
+        kfac=kfac, kfac_capture_model=tapped, kfac_inv_interval=1)
+    for seed in (60, 61):
+        state, _, kstate = step(state, _stacked(seed), kstate)
+    out = tmp_path / "out"
+    jax_ckpt.save_checkpoint(str(out / "pretrain_ckpts"), 2, {
+        "model": state.params, "optimizer": state.opt_state,
+        "sampler": {"epoch": 0, "seed": 0, "num_replicas": 1,
+                    "total_size": 32, "index": 16},
+        "epoch": 0, "preconditioner": kstate})
+    cfg_path = tmp_path / "tiny.json"
+    cfg_path.write_text(json.dumps(CONFIG))
+    argv = ["--model_config_file", str(cfg_path), "--output_dir", str(out),
+            "--global_batch_size", "8", "--local_batch_size", "4",
+            "--max_steps", "10", "--device", "cpu", "--dtype", "float32",
+            "--max_predictions_per_seq", str(P), "--kfac",
+            "--kfac_factor_interval", "1", "--kfac_inv_interval", "5"]
+    args = run_pretraining.setup_training(
+        run_pretraining.parse_arguments(argv))
+    port_model, config = run_pretraining.prepare_model(args)
+    opt, _ = run_pretraining.prepare_optimizer(args, port_model)
+    port_kfac, port_state = run_pretraining.prepare_kfac(args, port_model,
+                                                         config)
+    extras, global_step = run_pretraining.restore_checkpoint(
+        args, port_model, opt, port_kfac, port_state)
+    assert (global_step, extras["count"], extras["preconditioner"]) == (
+        2, 2, True)
+    assert int(port_state.count) == int(kstate.count) == 2
+    for field in ("a", "g"):
+        for key, value in getattr(kstate, field).items():
+            assert torch.equal(getattr(port_state, field)[key],
+                               torch.from_numpy(np.array(value))), key
+    recomputed = port_kfac.init()
+    for field in ("a", "g"):
+        for key, value in getattr(port_state, field).items():
+            getattr(recomputed, field)[key].copy_(value)
+    port_kfac.update_inverses(recomputed)
+    for field in ("qa", "qg", "la", "lg"):
+        for key, value in getattr(recomputed, field).items():
+            assert torch.equal(getattr(port_state, field)[key], value), key
+    key = "bert/encoder/layers/mlp_in_a"
+    assert not np.array_equal(port_state.qa[key].float().numpy(), np.asarray(
+        kstate.qa[key], np.float32))
+    result = run_pretraining.main(run_pretraining.parse_arguments(
+        argv + ["--steps", "1"]), SyntheticPretrainingDataset(0, 32, S, 128,
+                                                              P))
+    assert result["global_step"] == 3 and result["finite"] == 1.0
+    assert int(np.asarray(_final_tree(out, 3)["preconditioner"]["count"])
+               ) == 3
+
+
+@pytest.mark.parametrize("async_write", [False, True], ids=["sync", "async"])
+def test_port_kfac_checkpoint_reads_in_jax(tmp_path, async_write):
+    """Two fused K-FAC + LAMB port steps from the JAX init, saved by the
+    port (sync or async): the JAX package's restore_tree(kfac.init(...),
+    checkpoint["preconditioner"]) reads every leaf bit-equal to the port's
+    state, in the JAX dtypes."""
+    _, _, kfac, jstate = _jax_kfac()
+    _, _, _, state = _jax_state(seed=5)
+    model, opt, _ = _port(state.params)
+    port_kfac = KFAC(model)
+    kstate = port_kfac.init()
+    _, schedule = _schedules()
+    step = pretrain.make_train_step(model, opt, schedule, True, P,
+                                    kfac=port_kfac, kfac_fused=True,
+                                    kfac_inv_interval=1)
+    for seed in (62, 63):
+        step(pretrain.to_device(_stacked(seed), "cpu"), kstate)
+    path = ckpt.save_checkpoint(
+        str(tmp_path), 2, run_pretraining.checkpoint_contents(
+            model, opt, BertConfig(**CONFIG), None, 0, kstate),
+        async_write=async_write)
+    ckpt.wait_for_pending_save()
+    assert jax_integrity.verify_checkpoint(path)[0] == "verified"
+    restored = jax_ckpt.restore_tree(
+        jstate, jax_ckpt.load_checkpoint(path)["preconditioner"])
+    assert int(restored.count) == 2
+    want = _kfac_leaves(kstate.state_dict())
+    got = _kfac_leaves({"count": restored.count, "a": restored.a,
+                        "g": restored.g, "qa": restored.qa, "la": restored.la,
+                        "qg": restored.qg, "lg": restored.lg})
+    assert set(got) == set(want)
+    for name, value in want.items():
+        leaf = np.asarray(got[name])
+        assert str(leaf.dtype) == str(value.dtype).replace("torch.", ""), name
+        np.testing.assert_array_equal(leaf.astype(np.float32),
+                                      value.float().numpy(), err_msg=name)
+
+
+def test_kfac_state_of_other_layers_is_refused_and_leaves_all_alone(
+        tmp_path):
+    """A K-FAC checkpoint resumed into a state with other keys (here
+    --kfac_skip_layers attention) raises CheckpointShapeError naming the
+    field, and the model, optimizer and K-FAC state stay as they were."""
+    model, opt, _ = _port(seed=2)
+    full = KFAC(model)
+    ckpt.save_checkpoint(str(tmp_path), 1, run_pretraining.checkpoint_contents(
+        model, opt, BertConfig(**CONFIG), None, 0, full.init()))
+    fresh, fresh_opt, _ = _port(seed=3)
+    partial = KFAC(fresh, skip_layers=("attention",))
+    state = partial.init()
+    before = {n: p.detach().clone() for n, p in fresh.named_parameters()}
+    with pytest.raises(ckpt.CheckpointShapeError, match="preconditioner/a"):
+        ckpt.load_latest_checkpoint(str(tmp_path), fresh, fresh_opt,
+                                    preconditioner=state)
+    for name, p in fresh.named_parameters():
+        assert torch.equal(p, before[name]), name
+    assert not fresh_opt.state and set(state.a) == {
+        "bert/encoder/layers/mlp_in_a"}
 
 
 def test_shape_mismatch_raises_and_leaves_the_model_alone(tmp_path):
