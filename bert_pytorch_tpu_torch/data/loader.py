@@ -4,13 +4,15 @@ thread walks the sampler, pulls samples from the dataset (whose own thread
 streams shard files), collates numpy batches and keeps a small queue ahead
 of the training loop, so host-side masking overlaps device work.
 ``drop_last`` defaults to True: every step sees the same batch shape. The
-JAX loader's consumer-side gauges (telemetry) are not copied."""
+consumer-side gauges (:meth:`DataLoader.snapshot`) are the JAX loader's,
+read into each telemetry window."""
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+import time
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -40,6 +42,48 @@ class DataLoader:
         self.batch_size = int(batch_size)
         self.drop_last = drop_last
         self.prefetch_batches = prefetch_batches
+        self._reset_stats()
+
+    # -- telemetry gauges -----------------------------------------------
+    #
+    # Consumer-side instrumentation of the prefetch queue: how long the
+    # training loop blocked waiting for a batch (wait), how often it found
+    # the queue EMPTY (a stall — the producer is the bottleneck), and the
+    # queue depth observed at each get (depth ~= prefetch_batches means the
+    # producer keeps up; ~0 means it doesn't). snapshot() returns the deltas
+    # since the last snapshot, so the runner can fold them into each
+    # telemetry step-window record.
+
+    def _reset_stats(self) -> None:
+        self._stats = {"batches": 0, "wait_s_total": 0.0, "wait_s_max": 0.0,
+                       "stalls": 0, "depth_sum": 0, "depth_max": 0}
+
+    def _observe_get(self, wait_s: float, depth: int) -> None:
+        s = self._stats
+        s["batches"] += 1
+        s["wait_s_total"] += wait_s
+        s["wait_s_max"] = max(s["wait_s_max"], wait_s)
+        if depth == 0:
+            s["stalls"] += 1
+        s["depth_sum"] += depth
+        s["depth_max"] = max(s["depth_max"], depth)
+
+    def snapshot(self) -> Optional[dict]:
+        """Gauges accumulated since the previous snapshot (None if no
+        batches were delivered in the interval)."""
+        s = self._stats
+        if s["batches"] == 0:
+            return None
+        out = {
+            "batches": s["batches"],
+            "wait_s_total": round(s["wait_s_total"], 6),
+            "wait_s_max": round(s["wait_s_max"], 6),
+            "stalls": s["stalls"],
+            "depth_mean": round(s["depth_sum"] / s["batches"], 2),
+            "depth_max": s["depth_max"],
+        }
+        self._reset_stats()
+        return out
 
     def __len__(self) -> int:
         n = len(self.sampler)
@@ -72,11 +116,14 @@ class DataLoader:
         worker.start()
         try:
             while True:
+                depth = q.qsize()
+                t_wait0 = time.perf_counter()
                 item = q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):
                     raise item
+                self._observe_get(time.perf_counter() - t_wait0, depth)
                 yield item
         finally:
             stop.set()

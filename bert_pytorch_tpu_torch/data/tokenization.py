@@ -16,6 +16,10 @@ import collections
 import unicodedata
 from typing import Iterable, List, NamedTuple, Optional
 
+# What a runner or the server says when a model config names the BPE
+# tokenizer, which the port does not have yet.
+ROADMAP_BPE = "ROADMAP.md, \"The rest of finetuning\": the BPE tokenizer"
+
 
 def load_vocab(vocab_file: str) -> "collections.OrderedDict[str, int]":
     """token -> id, file order (reference tokenization.py:18-27)."""

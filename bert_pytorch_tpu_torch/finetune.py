@@ -2,8 +2,9 @@
 fixed-shape batching (``run_glue.batches``, which ``run_swag`` imports
 too), the device and model set-up, AdamW without bias correction over the
 no-decay groups, the train step (dropout from per-step seeds, global-norm
-clipping, one optimizer step), and the model-only checkpoint of
-``{"model"}`` in the JAX package's layout.
+clipping, one optimizer step, the grad-health block on due steps), the
+telemetry facade (:func:`open_telemetry`), and the model-only checkpoint
+of ``{"model"}`` in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -15,14 +16,18 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from bert_pytorch_tpu_torch import telemetry
 from bert_pytorch_tpu_torch.config import BertConfig
+from bert_pytorch_tpu_torch.data.tokenization import ROADMAP_BPE
 from bert_pytorch_tpu_torch.models.bert import draw_dropout_seeds, init_weights
 from bert_pytorch_tpu_torch.models.convert import (load_pretrained_encoder,
                                                    to_jax_params)
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, LearningRate,
                                                      global_norm,
                                                      param_groups)
+from bert_pytorch_tpu_torch.telemetry import model_stats
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import logging as logging_util
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -41,7 +46,7 @@ def read_vocab_args(args) -> argparse.Namespace:
         args.tokenizer = configs.get("tokenizer", "wordpiece")
     if args.tokenizer != "wordpiece":
         raise ValueError(f"tokenizer {args.tokenizer!r}: the port has the "
-                         "WordPiece tokenizer only")
+                         f"WordPiece tokenizer only ({ROADMAP_BPE})")
     return args
 
 
@@ -116,14 +121,18 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable, clip_norm: float,
-                    generator: torch.Generator):
-    """``step(*inputs) -> loss`` (a device tensor): zero the gradients,
-    ``loss_fn(*inputs, dropout_seeds)`` with seeds drawn for this step,
-    backward, clip to a global norm of ``clip_norm`` (``min(1, clip /
-    (norm + 1e-6))``, the JAX ``clip_by_global_norm``), one optimizer
-    step. Parameters update in place."""
+                    generator: torch.Generator, stats_every: int = 0):
+    """``step(*inputs) -> metrics``: zero the gradients, ``loss_fn(*inputs,
+    dropout_seeds)`` with seeds drawn for this step, backward, clip to a
+    global norm of ``clip_norm`` (``min(1, clip / (norm + 1e-6))``, the
+    JAX ``clip_by_global_norm``), one optimizer step. Parameters update in
+    place. ``metrics["loss"]`` is the loss (a device tensor);
+    ``metrics["grad_health"]`` the grad-health block of the clipped
+    gradients on steps whose pre-update optimizer count is a multiple of
+    ``stats_every`` (the JAX ``finetune_grad_health``; 0 disables)."""
     num_layers = model.bert.config.num_hidden_layers
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
 
     def step(*inputs):
         for p in params:
@@ -135,10 +144,25 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-6), max=1.0)
         for g in grads:
             g.mul_(scale.to(g.dtype))
-        optimizer.step()
-        return loss.detach()
+        metrics = {"loss": loss.detach()}
+        health = model_stats.step_with_health(optimizer, named, stats_every)
+        if health is not None:
+            metrics["grad_health"] = health
+        return metrics
 
     return step
+
+
+def open_telemetry(args, prefix: str, device, seq_per_step: int,
+                   flops_per_seq: float):
+    """The finetune runners' telemetry facade (JAX run_glue.py:124-129,
+    209-219; run_squad's too): its JSONL sink at ``--telemetry_jsonl``,
+    else ``<output_dir>/<prefix>_telemetry.jsonl``, else none."""
+    path = telemetry.default_jsonl_path(args, args.output_dir, prefix)
+    return telemetry.from_args(
+        args, sink=logging_util.JSONLHandler(path) if path else None,
+        seq_per_step=seq_per_step, flops_per_seq=flops_per_seq,
+        output_dir=args.output_dir or None, device=device)
 
 
 def save(output_dir: str, step: int, model: torch.nn.Module,

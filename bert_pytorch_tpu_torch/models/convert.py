@@ -56,10 +56,10 @@ HEAD_SUBTREES = {
     "multiple_choice": ("bert", "head"),
     "pretraining": ("bert", "predictions"),
 }
-ROADMAP_FP16 = ("ROADMAP.md, queue 1 of the modules still to port, item 2: "
-                "\"fp16: dynamic_loss_scale and --dtype float16\"")
-ROADMAP_TF = ("ROADMAP.md, queue 1 of the modules still to port: \"The rest "
-              "of finetuning\", --init_checkpoint from TF checkpoints")
+ROADMAP_FP16 = ("ROADMAP.md, \"The rest of pretraining\": fp16, "
+                "dynamic_loss_scale and --dtype float16")
+ROADMAP_TF = ("ROADMAP.md, \"The rest of finetuning\": --init_checkpoint "
+              "from TF checkpoints")
 _STACKED = "bert/encoder/layers/"
 STACKED_PATH = ("bert", "encoder", "layers")
 

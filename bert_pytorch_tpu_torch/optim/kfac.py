@@ -37,7 +37,7 @@ run_pretraining.py:320-355; SURVEY.md §2.2).
 
 The state's tensors are updated in place (the JAX methods return a new
 state); each method returns the state too, so call sites read as the JAX
-ones. ``kfac_state_shardings`` is not ported (ROADMAP.md, queue 1 item 4).
+ones. ``kfac_state_shardings`` is not ported (ROADMAP.md, "Multi-GPU layouts").
 """
 
 from __future__ import annotations

@@ -198,6 +198,15 @@ class _Adam(torch.optim.Optimizer):
             yield p, upd
         group["count"] = count + 1
 
+    @staticmethod
+    def _apply(p, delta, updates) -> None:
+        """``p += delta``; ``delta`` kept in ``updates`` under ``p`` when a
+        dict is given (the update each parameter received, before it is
+        rounded into the parameter: what the grad-health block reads)."""
+        p.add_(delta)
+        if updates is not None:
+            updates[p] = delta
+
 
 class Lamb(_Adam):
     """LAMB, the large-batch optimizer of the BERT recipe (the JAX
@@ -211,7 +220,7 @@ class Lamb(_Adam):
         self.max_grad_norm = max_grad_norm
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, updates=None):
         if closure is not None:
             raise ValueError("Lamb.step takes no closure")
         grads = [[torch.zeros_like(p) if p.grad is None else p.grad
@@ -223,15 +232,16 @@ class Lamb(_Adam):
         for group, group_grads in zip(self.param_groups, grads):
             # The trust ratio of each JAX leaf needs all of its layers'
             # parameters and updates before any of them moves.
-            updates = list(self._updates(group, group_grads))
-            p_norms = _stack_norms(group, [p for p, _ in updates])
-            u_norms = _stack_norms(group, [u for _, u in updates])
-            keys = group.get("stacks") or range(len(updates))
-            for key, (p, upd) in zip(keys, updates):
+            pairs = list(self._updates(group, group_grads))
+            p_norms = _stack_norms(group, [p for p, _ in pairs])
+            u_norms = _stack_norms(group, [u for _, u in pairs])
+            keys = group.get("stacks") or range(len(pairs))
+            for key, (p, upd) in zip(keys, pairs):
                 p_norm, u_norm = p_norms[key], u_norms[key]
                 ratio = torch.where((p_norm > 0) & (u_norm > 0),
                                     p_norm / u_norm, torch.ones_like(p_norm))
-                p.add_((-group["lr"] * ratio * upd).to(p.dtype))
+                self._apply(p, (-group["lr"] * ratio * upd).to(p.dtype),
+                            updates)
 
 
 class AdamW(_Adam):
@@ -246,14 +256,14 @@ class AdamW(_Adam):
                          bias_correction)
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, updates=None):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
         for group in self.param_groups:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in group["params"]]
             for p, upd in self._updates(group, grads):
-                p.add_((-group["lr"] * upd).to(p.dtype))
+                self._apply(p, (-group["lr"] * upd).to(p.dtype), updates)
 
 
 _BERT_ADAM_SCHEDULES = {
@@ -288,7 +298,7 @@ class BertAdam(_Adam):
         self.max_grad_norm = max_grad_norm
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, updates=None):
         if closure is not None:
             raise ValueError("BertAdam.step takes no closure")
         for group in self.param_groups:
@@ -301,4 +311,4 @@ class BertAdam(_Adam):
                     self.max_grad_norm / (norms[key] + 1e-6),
                     max=1.0).to(g.dtype) for key, g in zip(keys, grads)]
             for p, upd in self._updates(group, grads):
-                p.add_((-group["lr"] * upd).to(p.dtype))
+                self._apply(p, (-group["lr"] * upd).to(p.dtype), updates)

@@ -27,6 +27,7 @@ import torch
 from bert_pytorch_tpu_torch.models.bert import draw_dropout_seeds
 from bert_pytorch_tpu_torch.models.losses import mlm_accuracy, pretraining_loss
 from bert_pytorch_tpu_torch.optim.transforms import global_norm
+from bert_pytorch_tpu_torch.telemetry import model_stats
 
 
 def _mlm_positions(labels: torch.Tensor, max_pred_per_seq: Optional[int]):
@@ -88,7 +89,8 @@ def make_train_step(model: torch.nn.Module,
                     kfac=None, kfac_fused: bool = False,
                     kfac_factor_interval: int = 1,
                     kfac_inv_interval: int = 0,
-                    kfac_capture_microbatches: str = "first"):
+                    kfac_capture_microbatches: str = "first",
+                    stats_every: int = 0, stats_phase: int = 0):
     """Build ``step(batch) -> metrics`` for [A, B, ...] batches
     (input_ids/segment_ids/input_mask/masked_lm_labels [A, B, S],
     next_sentence_labels [A, B] or [A, B, K], and for packed rows
@@ -180,7 +182,8 @@ def make_train_step(model: torch.nn.Module,
             for name, p in named:
                 p.grad = pre[name]
         gnorm = global_norm(p.grad for p in params)
-        optimizer.step()
+        health = model_stats.step_with_health(optimizer, named, stats_every,
+                                              stats_phase)
         losses = torch.stack(losses)
         metrics = {
             "loss": losses.mean(),
@@ -192,6 +195,8 @@ def make_train_step(model: torch.nn.Module,
         }
         if schedule is not None:
             metrics["learning_rate"] = torch.tensor(float(schedule(count)))
+        if health is not None:
+            metrics["grad_health"] = health
         return metrics
 
     return step

@@ -19,12 +19,19 @@ dev set's GLUE metric (data/glue.py ``compute_metrics``). Every
 serves it). SIGTERM, SIGINT or SIGUSR1 stop at the next step, save, skip
 the evaluation and exit with 75.
 
+Telemetry (telemetry/, the JAX runner's flags; window 50, sync every 1):
+step windows with CUDA-event device time and MFU, allocator watermarks,
+grad health, the loss sentinel, the heartbeat and ``--profile_steps``
+traces go to ``<output_dir>/glue_telemetry.jsonl`` (or
+``--telemetry_jsonl``), ``<output_dir>/heartbeat.json`` and
+``<output_dir>/profile``. No TensorBoard files are written.
+
 ``--init_checkpoint`` reads the JAX package's msgpack checkpoints (a
 pretraining run's ``ckpt_N.msgpack``) and torch archives; TF checkpoints
 are refused (models/convert.py ``ROADMAP_TF``). Not ported, so argparse
 refuses their flags: ``--compile_cache_dir``, device prefetch and the
-telemetry planes; the BPE tokenizer is refused. Attention is dense (the
-JAX runner's ``xla``), LayerNorm plain.
+telemetry debug planes; the BPE tokenizer is refused. Attention is dense
+(the JAX runner's ``xla``), LayerNorm plain.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
 where there is none raises.
@@ -41,13 +48,14 @@ import time
 import numpy as np
 import torch
 
-from bert_pytorch_tpu_torch import finetune
+from bert_pytorch_tpu_torch import finetune, telemetry
 from bert_pytorch_tpu_torch.data import glue
 from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForSequenceClassification
 from bert_pytorch_tpu_torch.models.losses import _xent_ignore
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import flops as flops_util
 from bert_pytorch_tpu_torch.utils import preemption
 
 WEIGHT_DECAY = 0.01
@@ -82,6 +90,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "final one is synchronous. 0 disables")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    telemetry.add_cli_args(parser, sync_every_default=1)
     return finetune.read_vocab_args(parser.parse_args(argv))
 
 
@@ -140,7 +149,13 @@ def run(args):
                                       total_steps), WEIGHT_DECAY)
     step = finetune.make_train_step(
         model, optimizer, loss_fn(model, regression), args.clip_grad,
-        torch.Generator().manual_seed(args.seed))
+        torch.Generator().manual_seed(args.seed),
+        telemetry.stats_every(args))
+    tele = finetune.open_telemetry(
+        args, "glue", device, args.batch_size,
+        flops_util.bert_finetune_flops_per_seq(
+            config, args.max_seq_len, head_outputs=num_labels,
+            per_token_head=False, pooled=True))
 
     @torch.no_grad()
     def evaluate():
@@ -165,16 +180,22 @@ def run(args):
     try:
         for epoch in range(args.epochs):
             losses = []
-            for batch, valid in finetune.batches(arrays["train"],
-                                                 args.batch_size, True, rng):
-                losses.append(step(finetune.to_device(batch, device),
-                                   torch.from_numpy(valid).to(device)))
+            for batch, valid in tele.timed(finetune.batches(
+                    arrays["train"], args.batch_size, True, rng)):
+                tele.profiler.maybe_start(global_step + 1)
+                with tele.profiler.annotation(global_step + 1):
+                    metrics = step(finetune.to_device(batch, device),
+                                   torch.from_numpy(valid).to(device))
+                tele.dispatch_done()
                 global_step += 1
+                tele.step_done(global_step, metrics)
+                losses.append(metrics["loss"])
                 seen += int(valid.sum())
                 if (args.save_steps and args.output_dir
                         and global_step % args.save_steps == 0):
-                    finetune.save(args.output_dir, global_step, model,
-                                  config, "classify", async_write=True)
+                    with tele.checkpoint_stall():
+                        finetune.save(args.output_dir, global_step, model,
+                                      config, "classify", async_write=True)
                 if stop.requested:
                     break
             if losses:
@@ -184,10 +205,14 @@ def run(args):
                 print(f"termination signal ({stop.signal_name}) received; "
                       "checkpointing and exiting cleanly (exit code "
                       f"{preemption.EXIT_PREEMPTED})", flush=True)
+                tele.emit(preemption.preemption_record(global_step, stop))
                 break
         if device.type == "cuda":
             torch.cuda.synchronize()
         train_time = time.perf_counter() - t0
+        tele.finish(global_step, summary={
+            "training_seq_per_sec":
+                round(seen / train_time, 2) if train_time else 0.0})
         results = {"e2e_train_time": train_time,
                    "training_sequences_per_second":
                        seen / train_time if train_time else 0,
@@ -210,6 +235,7 @@ def run(args):
         ckpt.wait_for_pending_save()
     finally:
         stop.restore()
+        tele.close()
     return results, model, config
 
 

@@ -18,11 +18,19 @@ Every ``--save_steps`` steps an async ``{"model"}`` checkpoint goes to
 layout; ``run_server --ner_checkpoint`` serves it). SIGTERM, SIGINT or
 SIGUSR1 stop at the next step, save, skip the test and exit with 75.
 
+Telemetry (telemetry/, the JAX runner's flags; window 50, sync every 1):
+step windows with CUDA-event device time and MFU, allocator watermarks,
+grad health, the loss sentinel and ``--profile_steps`` traces go to the
+JSONL of ``--telemetry_jsonl``, else ``<output_dir>/ner_telemetry.jsonl``
+when there is an output dir, else nowhere; the heartbeat to
+``<output_dir>/heartbeat.json`` (or ``--heartbeat_file``). No TensorBoard
+files are written.
+
 ``--model_checkpoint`` reads the JAX package's msgpack checkpoints and
 torch archives; TF checkpoints are refused (models/convert.py
 ``ROADMAP_TF``). Not ported, so argparse refuses their flags:
-``--compile_cache_dir``, device prefetch and the telemetry planes; the
-BPE tokenizer is refused.
+``--compile_cache_dir``, device prefetch and the telemetry debug planes;
+the BPE tokenizer is refused.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
 where there is none raises.
@@ -38,12 +46,13 @@ import time
 import numpy as np
 import torch
 
-from bert_pytorch_tpu_torch import finetune
+from bert_pytorch_tpu_torch import finetune, telemetry
 from bert_pytorch_tpu_torch.data.ner_dataset import NERDataset
 from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
 from bert_pytorch_tpu_torch.models.losses import token_classification_loss
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import flops as flops_util
 from bert_pytorch_tpu_torch.utils import preemption
 
 
@@ -76,6 +85,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "final one is synchronous. 0 disables")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    telemetry.add_cli_args(parser, sync_every_default=1)
     return finetune.read_vocab_args(parser.parse_args(argv))
 
 
@@ -142,7 +152,12 @@ def run(args):
     optimizer = finetune.adamw(model, args.lr, 0.0)
     step = finetune.make_train_step(model, optimizer, loss_fn(model),
                                     args.clip_grad,
-                                    torch.Generator().manual_seed(args.seed))
+                                    torch.Generator().manual_seed(args.seed),
+                                    telemetry.stats_every(args))
+    tele = finetune.open_telemetry(
+        args, "ner", device, args.batch_size,
+        flops_util.bert_finetune_flops_per_seq(
+            config, args.max_seq_len, head_outputs=len(args.labels) + 1))
 
     def tensors(arrays):
         return [torch.from_numpy(a).to(device, torch.int64) for a in arrays]
@@ -172,15 +187,21 @@ def run(args):
             lr = args.lr / (1.0 + 0.05 * epoch)
             optimizer.schedule = lambda count, lr=lr: lr
             losses = []
-            for arrays in batches(datasets["train"], args.batch_size, True,
-                                  rng):
-                losses.append(step(*tensors(arrays)))
+            for arrays in tele.timed(batches(datasets["train"],
+                                             args.batch_size, True, rng)):
+                tele.profiler.maybe_start(global_step + 1)
+                with tele.profiler.annotation(global_step + 1):
+                    metrics = step(*tensors(arrays))
+                tele.dispatch_done()
                 global_step += 1
+                tele.step_done(global_step, metrics)
+                losses.append(metrics["loss"])
                 seen += args.batch_size
                 if (args.save_steps and args.output_dir
                         and global_step % args.save_steps == 0):
-                    finetune.save(args.output_dir, global_step, model,
-                                  config, "ner", async_write=True)
+                    with tele.checkpoint_stall():
+                        finetune.save(args.output_dir, global_step, model,
+                                      config, "ner", async_write=True)
                 if stop.requested:
                     break
             if device.type == "cuda":
@@ -190,6 +211,7 @@ def run(args):
                 print(f"termination signal ({stop.signal_name}) received; "
                       "checkpointing and exiting cleanly (exit code "
                       f"{preemption.EXIT_PREEMPTED})", flush=True)
+                tele.emit(preemption.preemption_record(global_step, stop))
                 break
             mean = (float(torch.stack(losses).mean()) if losses
                     else float("nan"))
@@ -204,6 +226,8 @@ def run(args):
                            seen / train_time if train_time else 0.0),
                        global_step=global_step,
                        terminated_by_signal=stop.requested)
+        tele.finish(global_step, summary={"training_seq_per_sec": round(
+            results["training_sequences_per_second"], 2)})
         if "test" in datasets and not stop.requested:
             test_loss, test_f1 = evaluate("test")
             results["test_f1"] = test_f1
@@ -216,6 +240,7 @@ def run(args):
         ckpt.wait_for_pending_save()
     finally:
         stop.restore()
+        tele.close()
     return results, model, config
 
 

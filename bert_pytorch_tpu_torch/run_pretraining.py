@@ -49,12 +49,30 @@ step. Both fire on the first step. Checkpoints carry the state as
 ``preconditioner``; a ``--kfac`` resume restores it and recomputes the
 inverses from the restored factors, a resume without ``--kfac`` skips it.
 
+Telemetry (telemetry/, the JAX runner's flags and defaults: window 20,
+sync every 4): ``<output_dir>/<log_prefix>.txt`` keeps the log lines,
+``<log_prefix>_metrics.csv`` and the JSONL sink
+(``<log_prefix>_telemetry.jsonl`` unless ``--telemetry_jsonl``; schema v1,
+``telemetry/schema.py``) the train records (``tag: "train"``), and the
+JSONL alone the telemetry records: step windows (data wait, host,
+device time from CUDA events, MFU on the card's peak, the loader's
+gauges), allocator watermarks, grad health (``--grad_stats_every``),
+sentinels (``--sentinel_policy abort`` ends the run with a non-zero
+code), a ``resume`` record naming each checkpoint the walk-back skipped,
+the preemption ``fault`` record and a ``run_summary``. The heartbeat goes
+to ``<output_dir>/heartbeat.json``; ``--profile_steps`` writes a Chrome
+trace of ``torch.profiler`` into ``<output_dir>/profile``. Standard
+output keeps the port's one ``key value`` line per logged step. No
+TensorBoard files are written, with or without ``--disable_tensorboard``
+(accepted for the JAX command lines).
+
 Not ported yet, so rejected rather than ignored: meshes and multi-GPU
-(``--checkpoint_layout sharded`` is refused naming ROADMAP.md queue 1
-item 4; the sharded layout is read), fp16
-loss scaling (a JAX fp16 checkpoint is refused), held-out evaluation,
-process-based loader workers, the telemetry planes and the metrics files
-of ``--output_dir``; argparse refuses the flags it does not know.
+(``--checkpoint_layout sharded`` is refused naming ROADMAP.md's
+"Multi-GPU layouts"; the sharded layout is read), fp16 loss scaling (a
+JAX fp16 checkpoint is refused), held-out evaluation, process-based
+loader workers, and the telemetry debug planes (``--debug_port``,
+``--postmortem_file``) and compile events; argparse refuses the flags it
+does not know.
 On-the-fly packing packs up to 8 sequences per row (the JAX runner's
 ``--max_sequences_per_pack`` default), and LAMB clips to a global norm of
 1.0 (its ``--max_grad_norm`` default). ``attention_backend "pallas"`` in a
@@ -76,10 +94,12 @@ import time
 
 import torch
 
-from bert_pytorch_tpu_torch import pretrain
+from bert_pytorch_tpu_torch import pretrain, telemetry
 from bert_pytorch_tpu_torch.models.convert import (optimizer_to_jax,
                                                    to_jax_params)
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import flops as flops_util
+from bert_pytorch_tpu_torch.utils import logging as logging_util
 from bert_pytorch_tpu_torch.utils import preemption
 from bert_pytorch_tpu_torch.config import (BertConfig,
                                            parse_args_with_config_file,
@@ -189,6 +209,15 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--kfac_skip_layers", type=str, nargs="+",
                         default=["embeddings", "predictions"])
     parser.add_argument("--log_steps", type=int, default=1)
+    parser.add_argument("--log_prefix", type=str, default="pretraining",
+                        help="<output_dir>/<log_prefix>.txt, "
+                             "_metrics.csv and _telemetry.jsonl")
+    parser.add_argument("--disable_tensorboard", action="store_true",
+                        help="accepted for the JAX runner's command lines; "
+                             "the port writes no TensorBoard files")
+    # telemetry: step-time windows + MFU, profiler trace windows, failure
+    # sentinels, grad health, heartbeat, hung-step watchdog
+    telemetry.add_cli_args(parser, window_default=20, sync_every_default=4)
     # numerics / memory
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=sorted(DTYPES))
@@ -212,9 +241,24 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     return parse_args_with_config_file(parser, argv)
 
 
-def log(record: dict) -> None:
-    print(" ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
-                   for k, v in record.items()), flush=True)
+def log(record: dict, logger=None) -> None:
+    """One ``key value`` line on standard output, and in ``logger``'s text
+    file when the run's logger is given."""
+    line = " ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in record.items())
+    print(line, flush=True)
+    if logger is not None:
+        logger.info(line)
+
+
+def append_record(path: str, record: dict) -> None:
+    """Append one telemetry record to the JSONL at ``path`` (the records
+    written before ``train`` opens the run's sink)."""
+    sink = logging_util.JSONLHandler(path)
+    try:
+        sink.write_record(record)
+    finally:
+        sink.close()
 
 
 def setup_training(args) -> argparse.Namespace:
@@ -249,6 +293,16 @@ def setup_training(args) -> argparse.Namespace:
     args.packed, args.pack_k = False, 1
     args.model_output_dir = os.path.join(args.output_dir, "pretrain_ckpts")
     os.makedirs(args.model_output_dir, exist_ok=True)
+    # The telemetry paths (JAX run_pretraining.py:394-399): the sink shared
+    # by the train records and the telemetry facade, the heartbeat and the
+    # profiler's traces.
+    args.telemetry_jsonl = telemetry.default_jsonl_path(
+        args, args.output_dir, args.log_prefix)
+    args.heartbeat_file = args.heartbeat_file or os.path.join(
+        args.output_dir, "heartbeat.json")
+    args.profile_dir = args.profile_dir or os.path.join(
+        args.output_dir, "profile")
+    telemetry.parse_profile_spec(args.profile_steps)  # fail before any work
     if device.type == "cuda":
         # fp32 products in full fp32, as the JAX package's parity tests.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,6 +397,10 @@ def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
                  "note": "NO loadable checkpoint: every retained checkpoint "
                          "failed verification; training restarts from "
                          "scratch"})
+            append_record(args.telemetry_jsonl, {
+                "kind": "fault", "tag": "telemetry",
+                "fault": "resume_walk_back_exhausted", "injected": False,
+                "step": 0, "skipped": skipped})
         return None, 0
     resume_step, extras = found
     args.resume_step = resume_step
@@ -361,6 +419,11 @@ def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
          "preconditioner": int(restored),
          "skipped": len(skipped),
          "seconds": time.perf_counter() - t0})
+    # Which step resumed and what the walk-back passed over (JAX
+    # run_pretraining.py:537-542).
+    append_record(args.telemetry_jsonl, {
+        "kind": "resume", "tag": "telemetry", "step": int(resume_step),
+        "skipped": skipped})
     return extras, global_step
 
 
@@ -408,7 +471,9 @@ def make_step(args, model, optimizer, schedule, config, kfac=None,
     pass on steps where the phase's step (the optimizer count, which
     restore_checkpoint keeps equal to it) is a multiple of
     ``--kfac_factor_interval``, then the inverses where it is one of
-    ``--kfac_inv_interval``."""
+    ``--kfac_inv_interval``. The grad-health block follows
+    ``--grad_stats_every``, counted from the optimizer count the step is
+    built at (the run's start)."""
     fused = kfac is not None and args.kfac_capture == "train"
     train_step = pretrain.make_train_step(
         model, optimizer, schedule, next_sentence=config.next_sentence,
@@ -416,7 +481,9 @@ def make_step(args, model, optimizer, schedule, config, kfac=None,
         generator=torch.Generator().manual_seed(args.seed), kfac=kfac,
         kfac_fused=fused, kfac_factor_interval=args.kfac_factor_interval,
         kfac_inv_interval=args.kfac_inv_interval if fused else 0,
-        kfac_capture_microbatches=args.kfac_capture_microbatches)
+        kfac_capture_microbatches=args.kfac_capture_microbatches,
+        stats_every=telemetry.stats_every(args),
+        stats_phase=opt_step_count(optimizer))
     if kfac is None:
         return train_step
     if fused:
@@ -472,7 +539,7 @@ def checkpoint_contents(model, optimizer, config, sampler_state: dict,
 
 def save(args, model, optimizer, config, global_step: int,
          sampler_state: dict, epoch: int, async_write: bool,
-         kfac_state=None) -> float:
+         kfac_state=None, logger=None) -> float:
     """Save at ``global_step`` (numbered ``previous_phase_end_step`` +
     it); returns the seconds the call took (an async save's stall)."""
     t0 = time.perf_counter()
@@ -484,29 +551,65 @@ def save(args, model, optimizer, config, global_step: int,
         keep=args.keep_checkpoints, async_write=async_write)
     stall = time.perf_counter() - t0
     log({"event": "checkpoint", "step": save_step,
-         "mode": "async" if async_write else "sync", "stall_s": stall})
+         "mode": "async" if async_write else "sync", "stall_s": stall},
+        logger)
     return stall
+
+
+def open_logger(args) -> logging_util.Logger:
+    """The run's file sinks (JAX run_pretraining.py:400-415): the text
+    log, the metrics CSV and the JSONL sink (``logger.handlers[-1]``),
+    appended to across resumed runs. Standard output is ``log``'s."""
+    logger = logging_util.Logger()
+    logger.init([
+        logging_util.FileHandler(
+            os.path.join(args.output_dir, args.log_prefix + ".txt")),
+        logging_util.CSVHandler(
+            os.path.join(args.output_dir, args.log_prefix + "_metrics.csv")),
+        logging_util.JSONLHandler(args.telemetry_jsonl)])
+    return logger
 
 
 def train(args, model, optimizer, config, step, loader, sampler,
           checkpoint=None, global_step: int = 0, kfac_state=None) -> dict:
     """The training loop from ``global_step``: ``--steps`` steps (or to
     ``--max_steps``), the cadence and final saves, and the stop on a
-    preemption signal. Returns the last logged metrics with
-    ``global_step``, ``terminated_by_signal``, the wall time of each step
-    (``step_times``: (start, end) perf_counter pairs; a step's end is
-    read after its metrics, when it is logged) and each save's stall
-    (``saves``). ``kfac_state`` goes into every save."""
+    preemption signal, threaded through the telemetry facade (step
+    windows, sentinels, grad health, heartbeat, profiler window; JAX
+    run_pretraining.py:827-848, 1001-1215). Returns the last logged
+    metrics with ``global_step``, ``terminated_by_signal``,
+    ``training_seq_per_sec`` and ``training_mfu`` (the steps after the
+    first), the wall time of each step (``step_times``: (start, end)
+    perf_counter pairs; a step's end is read after its metrics, when it
+    is logged) and each save's stall (``saves``). ``kfac_state`` goes into
+    every save. Under ``--sentinel_policy abort`` a diverged run raises
+    ``NonFiniteError``."""
     steps_this_run = args.steps or (args.max_steps - global_step)
     steps_this_run = min(steps_this_run, args.max_steps - global_step)
     epoch = int(checkpoint["epoch"]) if checkpoint and checkpoint.get(
         "epoch") is not None else 0
+    logger = open_logger(args)
+    eff_max_pred = args.max_predictions_per_seq * args.pack_k
+    seq_len = config.max_position_embeddings
+    try:
+        tele = telemetry.from_args(
+            args, sink=logger.handlers[-1],
+            seq_per_step=args.global_batch_size,
+            flops_per_seq=flops_util.bert_train_flops_per_seq(
+                config, seq_len, eff_max_pred,
+                next_sentence=bool(config.next_sentence)),
+            tokens_per_step=args.global_batch_size * seq_len,
+            output_dir=args.output_dir, device=args.device)
+    except BaseException:
+        logger.close()
+        raise
+    tele.attach_loader(loader)
     log({"event": "start", "device": str(args.device),
          "dtype": args.dtype, "attention_backend": args.attention_backend,
          "remat": args.remat, "layer_norm_backend": args.layer_norm_backend,
          "accumulation_steps": args.accumulation_steps,
          "samples": len(loader.dataset), "packed": int(args.packed),
-         "global_step": global_step, "steps": steps_this_run})
+         "global_step": global_step, "steps": steps_this_run}, logger)
     # The position of the last TRAINED sample of the epoch: the loader's
     # read-ahead moves the sampler's live index past it, so checkpoints
     # save this (JAX run_pretraining.py:926-938).
@@ -521,46 +624,87 @@ def train(args, model, optimizer, config, step, loader, sampler,
     step_times, saves = [], []
     step_in_run, terminated, done = 0, False, steps_this_run <= 0
     window_t0, window_steps = time.perf_counter(), 0
+    data_seq_len, train_start, samples_seen = None, time.perf_counter(), 0
     stop = preemption.GracefulStop()
     if args.term_check_steps:
         stop.install()
     try:
         while not done:
             sampler.set_epoch(epoch)
-            for host_batch in loader:
+            for host_batch in tele.timed(iter(loader)):
                 t_start = time.perf_counter()
-                batch = pretrain.to_device(
-                    pretrain.stack_microbatches(host_batch,
-                                                args.accumulation_steps),
-                    args.device)
-                metrics = step(batch)
+                # Profiler window in step-in-run terms: this iteration runs
+                # step step_in_run + 1.
+                tele.profiler.maybe_start(step_in_run + 1)
+                with tele.profiler.annotation(step_in_run + 1):
+                    batch = pretrain.to_device(
+                        pretrain.stack_microbatches(host_batch,
+                                                    args.accumulation_steps),
+                        args.device)
+                    metrics = step(batch)
+                tele.dispatch_done()
                 global_step += 1
                 step_in_run += 1
                 window_steps += 1
                 trained_index += args.global_batch_size
+                if data_seq_len is None:
+                    # MFU must use the DATA shape, not the model's cap.
+                    data_seq_len = int(batch["input_ids"].shape[-1])
+                    tele.timer.flops_per_seq = (
+                        flops_util.bert_train_flops_per_seq(
+                            config, data_seq_len, eff_max_pred,
+                            next_sentence=bool(config.next_sentence)))
+                    tele.timer.tokens_per_step = (
+                        args.global_batch_size * data_seq_len)
+                if step_in_run == 1:
+                    # The run's throughput starts once the first step has
+                    # run (its kernel builds and allocator warm-up stay
+                    # out, as the JAX runner leaves its compile out).
+                    if args.device.type == "cuda":
+                        torch.cuda.synchronize(args.device)
+                    train_start = time.perf_counter()
+                else:
+                    samples_seen += args.global_batch_size
                 finished = (step_in_run >= steps_this_run
                             or global_step >= args.max_steps)
+                # Step close-out: device sync (per cadence), step window,
+                # sentinel policy, grad health, heartbeat, profiler
+                # auto-stop. NonFiniteError propagates under
+                # --sentinel_policy abort.
+                tele.step_done(global_step, metrics, profile_step=step_in_run)
                 if global_step % args.log_steps == 0 or finished:
                     values = {k: float(v) for k, v in metrics.items()}
+                    if not tele.last_step_synced:
+                        # The float() reads above were this step's sync:
+                        # feed the sentinel and heartbeat that missed the
+                        # cadence.
+                        tele.sentinel.observe(global_step, values["finite"],
+                                              values["loss"])
+                        tele.heartbeat.beat(global_step, values["loss"])
                     elapsed = time.perf_counter() - window_t0
                     last = dict(step=global_step, **values,
                                 seq_per_s=window_steps
                                 * args.global_batch_size / elapsed)
                     log(last)
+                    logger.log(tag="train", epoch=epoch, **last)
                     window_t0, window_steps = time.perf_counter(), 0
                 step_times.append((t_start, time.perf_counter()))
                 if global_step % args.num_steps_per_checkpoint == 0:
-                    saves.append({"step": global_step, "stall_s": save(
-                        args, model, optimizer, config, global_step,
-                        sampler_state(), epoch,
-                        args.checkpoint_write == "async", kfac_state)})
+                    with tele.checkpoint_stall():
+                        saves.append({"step": global_step, "stall_s": save(
+                            args, model, optimizer, config, global_step,
+                            sampler_state(), epoch,
+                            args.checkpoint_write == "async", kfac_state,
+                            logger)})
                 if (args.term_check_steps
                         and global_step % args.term_check_steps == 0
                         and stop.requested):
+                    record = preemption.preemption_record(global_step, stop)
                     log({"event": "termination signal",
                          "signal": stop.signal_name,
-                         "exit_code": preemption.EXIT_PREEMPTED,
-                         **preemption.preemption_record(global_step, stop)})
+                         "exit_code": preemption.EXIT_PREEMPTED, **record},
+                        logger)
+                    tele.emit(record)
                     terminated = done = True
                     break
                 if finished:
@@ -571,17 +715,44 @@ def train(args, model, optimizer, config, step, loader, sampler,
                 trained_index = 0
                 continue
             break
+        if tele.profiler.active:  # the run ended inside the profile window
+            tele.profiler.stop()
+        if tele.profiler.last_trace:
+            logger.info(f"profiler trace written to {tele.profiler.last_trace}")
+        train_time = time.perf_counter() - train_start
+        seq_per_sec = samples_seen / max(train_time, 1e-9)
+        train_mfu = flops_util.mfu(seq_per_sec, tele.timer.flops_per_seq,
+                                   tele.timer.device_kind)
+        logger.info(f"Total time: {train_time:.2f} s")
+        logger.info(f"training_seq_per_sec = {seq_per_sec:.2f}")
+        if train_mfu:
+            logger.info(f"training_mfu = {train_mfu:.4f}")
         # The final save; a preemption's is written even with
         # --skip_final_checkpoint. Synchronous: it joins a pending write to
         # the directory first, so checkpoints land in order.
         if not args.skip_final_checkpoint or terminated:
-            saves.append({"step": global_step, "stall_s": save(
-                args, model, optimizer, config, global_step, sampler_state(),
-                epoch, async_write=False, kfac_state=kfac_state)})
+            with tele.checkpoint_stall():
+                saves.append({"step": global_step, "stall_s": save(
+                    args, model, optimizer, config, global_step,
+                    sampler_state(), epoch, async_write=False,
+                    kfac_state=kfac_state, logger=logger)})
         ckpt.wait_for_pending_save()
+        run_summary = {"training_seq_per_sec": round(seq_per_sec, 2),
+                       "training_mfu": round(train_mfu, 4),
+                       "terminated_by_signal": terminated}
+        run_eff = tele.timer.run_padding_efficiency()
+        if run_eff is not None:
+            run_summary["padding_efficiency"] = round(run_eff, 4)
+            run_summary["real_tokens_per_sec"] = round(
+                seq_per_sec * (data_seq_len or seq_len) * run_eff, 2)
+        # The partial window, the final heartbeat and the run summary.
+        tele.finish(global_step, summary=run_summary)
     finally:
         stop.restore()
+        tele.close()
+        logger.close()
     return dict(last, global_step=global_step, terminated_by_signal=terminated,
+                training_seq_per_sec=seq_per_sec, training_mfu=train_mfu,
                 step_times=step_times, saves=saves)
 
 

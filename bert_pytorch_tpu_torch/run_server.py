@@ -31,6 +31,13 @@ weights (demo mode) and says so. ``--save_init_checkpoint DIR`` writes the
 first task's served params there as ``ckpt_0.msgpack`` (with its
 manifest) before serving. The vocab is padded to a multiple of 8
 (30522 -> 30528), as the JAX package's server does.
+
+The tokenizer is the JAX server's rule: ``--tokenizer`` (default: the
+model config's ``"tokenizer"``, else ``wordpiece``), lower-cased unless
+``--uppercase`` (the config's ``"lowercase"`` is not read, as the JAX
+server does not read it). A BPE config is refused by name before anything
+loads: the port has the WordPiece tokenizer only (ROADMAP.md, "The rest
+of finetuning").
 """
 
 from __future__ import annotations
@@ -62,6 +69,13 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                                      "(PyTorch / CUDA)")
     parser.add_argument("--model_config_file", type=str, required=True)
     parser.add_argument("--vocab_file", type=str, default=None)
+    parser.add_argument("--tokenizer", type=str, default=None,
+                        choices=["wordpiece", "bpe"],
+                        help="default: the model config's \"tokenizer\"; "
+                             "only wordpiece is ported")
+    parser.add_argument("--uppercase", action="store_true",
+                        help="keep case (the tokenizer lower-cases "
+                             "without it)")
     parser.add_argument("--tasks", type=str,
                         default="fill_mask,classify,squad,ner",
                         help="comma-separated task heads to serve")
@@ -103,11 +117,19 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--request_timeout_s", type=float, default=30.0)
     args = parser.parse_args(argv)
+    from bert_pytorch_tpu_torch.data.tokenization import ROADMAP_BPE
+
+    with open(args.model_config_file) as f:
+        configs = json.load(f)
     if args.vocab_file is None:
-        with open(args.model_config_file) as f:
-            args.vocab_file = json.load(f).get("vocab_file")
+        args.vocab_file = configs.get("vocab_file")
         if args.vocab_file is None:
             raise ValueError("vocab_file must be in model config or CLI")
+    if args.tokenizer is None:
+        args.tokenizer = configs.get("tokenizer", "wordpiece")
+    if args.tokenizer != "wordpiece":
+        raise ValueError(f"tokenizer {args.tokenizer!r}: the port serves "
+                         f"with the WordPiece tokenizer only ({ROADMAP_BPE})")
     return args
 
 
@@ -132,7 +154,7 @@ def build_service(args: argparse.Namespace,
     ``start()``. Each task loads its ``--<task>_checkpoint``; ``weights``
     maps task -> state dict (from ``from_jax_params``) for tasks without
     one; the rest serve seeded random weights. The tokenizer lowercases
-    unless the model config says ``"lowercase": false``."""
+    unless ``--uppercase``, as the JAX server's."""
     from bert_pytorch_tpu_torch.config import BertConfig
     from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
     from bert_pytorch_tpu_torch.serve import (Batcher, InferenceEngine,
@@ -141,7 +163,7 @@ def build_service(args: argparse.Namespace,
 
     config = BertConfig.from_json_file(args.model_config_file)
     config.vocab_size = config.padded_vocab_size(8)
-    lowercase = getattr(config, "lowercase", True)
+    lowercase = not args.uppercase
     tokenizer = BertTokenizer(args.vocab_file, do_lower_case=lowercase)
     weights = weights or {}
     tasks = {}

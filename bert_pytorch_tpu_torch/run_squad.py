@@ -37,10 +37,18 @@ One optimizer step takes the whole ``--train_batch_size`` batch: the JAX
 runner computes a microbatch size from ``--gradient_accumulation_steps``
 but its step never uses it, and neither does this one.
 
+Telemetry (telemetry/, the JAX runner's flags; window 50, sync every 1):
+step windows with CUDA-event device time and MFU, allocator watermarks,
+grad health, the loss sentinel, the heartbeat and ``--profile_steps``
+traces go to ``<output_dir>/squad_telemetry.jsonl`` (or
+``--telemetry_jsonl``; with a ``tag: "train"`` record every
+``--log_freq`` steps), ``<output_dir>/heartbeat.json`` and
+``<output_dir>/profile``. No TensorBoard files are written.
+
 Not ported yet, so rejected rather than ignored (argparse refuses their
 flags): ``--dtype float16`` and ``--init_loss_scale``, the BPE
-tokenizer, the telemetry planes, device prefetch, ``--mesh_data`` and
-``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives and
+tokenizer, the telemetry debug planes, device prefetch, ``--mesh_data``
+and ``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives and
 the JAX package's msgpack checkpoints, not TF checkpoints
 (models/convert.py ``load_pretrained_encoder``).
 ``--layer_norm_backend kernel`` (or its JAX name ``pallas``) runs every
@@ -63,9 +71,10 @@ import time
 import numpy as np
 import torch
 
-from bert_pytorch_tpu_torch import squad
+from bert_pytorch_tpu_torch import finetune, squad, telemetry
 from bert_pytorch_tpu_torch.config import BertConfig
-from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
+from bert_pytorch_tpu_torch.data.tokenization import (ROADMAP_BPE,
+                                                      BertTokenizer)
 from bert_pytorch_tpu_torch.models.bert import (BertForQuestionAnswering,
                                                 draw_dropout_seeds,
                                                 init_weights)
@@ -77,7 +86,9 @@ from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, BertAdam,
                                                      global_norm,
                                                      param_groups)
+from bert_pytorch_tpu_torch.telemetry import model_stats
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import flops as flops_util
 from bert_pytorch_tpu_torch.utils import preemption
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -141,6 +152,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "kernel")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    telemetry.add_cli_args(parser, sync_every_default=1)
     args = parser.parse_args(argv)
 
     # vocab/tokenizer ride in the model config (reference run_squad.py:862-876)
@@ -155,7 +167,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.tokenizer != "wordpiece":
             raise ValueError(
                 f"tokenizer {args.tokenizer!r} from the model config: the "
-                "port has the WordPiece tokenizer only")
+                f"port has the WordPiece tokenizer only ({ROADMAP_BPE})")
     if not args.do_train and not args.do_predict:
         raise ValueError("At least one of do_train or do_predict required")
     if args.do_train and not args.train_file:
@@ -256,13 +268,18 @@ def make_optimizer(args, model, total_steps: int):
 
 
 def make_train_step(model, optimizer, clip_norm: float,
-                    generator: torch.Generator):
-    """``step(batch) -> loss`` (a device tensor): forward with dropout from
-    seeds drawn for this step, span loss, backward, global-norm clipping to
+                    generator: torch.Generator, stats_every: int = 0):
+    """``step(batch) -> metrics``: forward with dropout from seeds drawn
+    for this step, span loss, backward, global-norm clipping to
     ``clip_norm`` when it is > 0 (the adamw path; BertAdam clips per
-    tensor itself), one optimizer step. Parameters update in place."""
+    tensor itself), one optimizer step. Parameters update in place.
+    ``metrics["loss"]`` is the loss (a device tensor);
+    ``metrics["grad_health"]`` the grad-health block on steps whose
+    pre-update optimizer count is a multiple of ``stats_every`` (0
+    disables)."""
     num_layers = model.config.num_hidden_layers
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
 
     def step(batch):
         for p in params:
@@ -280,8 +297,11 @@ def make_train_step(model, optimizer, clip_norm: float,
                                 max=1.0)
             for g in grads:
                 g.mul_(scale)
-        optimizer.step()
-        return loss.detach()
+        metrics = {"loss": loss.detach()}
+        health = model_stats.step_with_health(optimizer, named, stats_every)
+        if health is not None:
+            metrics["grad_health"] = health
+        return metrics
 
     return step
 
@@ -315,7 +335,13 @@ def train(args, model, config, tokenizer, device) -> dict:
     step = make_train_step(
         model, optimizer,
         args.max_grad_norm if args.optimizer == "adamw" else 0.0,
-        torch.Generator().manual_seed(args.seed))
+        torch.Generator().manual_seed(args.seed), telemetry.stats_every(args))
+    # The telemetry facade (JAX run_squad.py:206-275); the JSONL also takes
+    # a train record every --log_freq steps.
+    tele = finetune.open_telemetry(
+        args, "squad", device, args.train_batch_size,
+        flops_util.bert_finetune_flops_per_seq(
+            config, args.max_seq_length, head_outputs=2))
     rng = np.random.RandomState(args.seed)
     global_step, seqs = 0, 0
     losses = []
@@ -323,23 +349,37 @@ def train(args, model, config, tokenizer, device) -> dict:
     # Handlers stay installed through the final write (a re-delivered
     # signal must not kill it) and are restored after.
     stop = preemption.GracefulStop().install()
+
+    def epoch_batches(order):
+        for i in range(0, n - args.train_batch_size + 1,
+                       args.train_batch_size):
+            yield [train_features[j]
+                   for j in order[i:i + args.train_batch_size]]
+
     try:
         while global_step < total_steps and not stop.requested:
             order = rng.permutation(n)
-            for i in range(0, n - args.train_batch_size + 1,
-                           args.train_batch_size):
-                feats = [train_features[j]
-                         for j in order[i:i + args.train_batch_size]]
-                losses.append(step(features_to_tensors(feats, True, device)))
+            for feats in tele.timed(epoch_batches(order)):
+                tele.profiler.maybe_start(global_step + 1)
+                with tele.profiler.annotation(global_step + 1):
+                    metrics = step(features_to_tensors(feats, True, device))
+                tele.dispatch_done()
                 global_step += 1
                 seqs += args.train_batch_size
+                tele.step_done(global_step, metrics)
+                losses.append(metrics["loss"])
                 if global_step % args.log_freq == 0:
-                    log({"step": global_step, "step_loss": float(losses[-1]),
-                         "samples_per_second":
-                             seqs / (time.perf_counter() - t_start)})
+                    record = {"step": global_step,
+                              "step_loss": float(losses[-1]),
+                              "samples_per_second":
+                                  seqs / (time.perf_counter() - t_start)}
+                    log(record)
+                    tele.emit(tag="train", **record)
                 if (args.save_steps and not args.skip_checkpoint
                         and global_step % args.save_steps == 0):
-                    save(args, model, config, global_step, async_write=True)
+                    with tele.checkpoint_stall():
+                        save(args, model, config, global_step,
+                             async_write=True)
                 if global_step >= total_steps or stop.requested:
                     break
         step_losses = [float(x) for x in losses]  # synchronises
@@ -347,6 +387,9 @@ def train(args, model, config, tokenizer, device) -> dict:
         if stop.requested:
             log({"event": "termination signal", "signal": stop.signal_name,
                  "exit_code": preemption.EXIT_PREEMPTED})
+            tele.emit(preemption.preemption_record(global_step, stop))
+        tele.finish(global_step, summary={
+            "training_seq_per_sec": round(seqs / train_time, 2)})
         if not args.skip_checkpoint:
             t_save = time.perf_counter()
             save(args, model, config, global_step, async_write=False)
@@ -355,6 +398,7 @@ def train(args, model, config, tokenizer, device) -> dict:
         ckpt.wait_for_pending_save()
     finally:
         stop.restore()
+        tele.close()
     return {"e2e_train_time": train_time,
             "training_sequences_per_second": seqs / train_time,
             "final_loss": step_losses[-1], "global_step": global_step,

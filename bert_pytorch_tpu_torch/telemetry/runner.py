@@ -1,0 +1,271 @@
+"""TrainTelemetry — the facade every runner of the port threads its
+training loop through (run_pretraining, run_squad, run_glue, run_ner,
+run_swag): the port of the JAX package's ``telemetry/runner.py``.
+
+One object owns the telemetry pieces and their lifecycle:
+
+* a JSONL sink (``utils/logging.py JSONLHandler``) — shared with the
+  runner's logger so ordinary train records land there too, while
+  telemetry records go ONLY there;
+* a :class:`~bert_pytorch_tpu_torch.telemetry.step_timer.StepTimer` for
+  the data-wait / host-dispatch / device decomposition + MFU windows (on
+  ``cuda`` the device time is a CUDA-event span, step_timer.py);
+* a :class:`~bert_pytorch_tpu_torch.telemetry.profiler.ProfilerWindow` for
+  bounded ``torch.profiler`` traces with per-step annotations;
+* a :class:`~bert_pytorch_tpu_torch.telemetry.sentinels.FailureSentinel`
+  and a :class:`~bert_pytorch_tpu_torch.telemetry.sentinels.Heartbeat`,
+  and the optional hung-step watchdog;
+* a :class:`~bert_pytorch_tpu_torch.telemetry.memory.MemorySampler`
+  reading the CUDA allocator's watermarks on the sync cadence (one record
+  per window; a single ``memory_supported: false`` note on the CPU);
+* a :class:`~bert_pytorch_tpu_torch.telemetry.model_stats.DivergenceMonitor`
+  consuming the grad-health block the train steps put into
+  ``metrics["grad_health"]`` on due steps (popped here, emitted as
+  ``grad_health`` records, checked for grad-norm spikes / update-ratio
+  drift).
+
+Not ported yet, and where each comes: the JAX facade's ``instrument`` and
+its ``CompileMonitor`` (compile events) come with the bench legs (ROADMAP
+item "Bench legs and an entry point", as nvcc-build events); its
+``attach_prefetcher`` with the device prefetcher ("The rest of
+pretraining"); its capture tick (``POST /profilez``), introspection hub
+and flight recorder with "Serving telemetry and the debug planes".
+
+Minimal loop integration::
+
+    tele = TrainTelemetry(jsonl_path=..., heartbeat_path=..., ...)
+    for batch in tele.timed(iter(loader)):        # measures data_wait
+        tele.profiler.maybe_start(step)
+        with tele.profiler.annotation(step):
+            metrics = train_step(batch)
+        tele.dispatch_done()                      # measures host dispatch
+        tele.step_done(step, metrics)             # sync + window + sentinel
+                                                  # + heartbeat + auto-stop
+    tele.finish(step)                             # flush partial window
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+from typing import Callable, Iterator, Optional
+
+import torch
+
+from bert_pytorch_tpu_torch.telemetry.memory import MemorySampler
+from bert_pytorch_tpu_torch.telemetry.model_stats import (DivergenceMonitor,
+                                                          health_record)
+from bert_pytorch_tpu_torch.telemetry.profiler import ProfilerWindow
+from bert_pytorch_tpu_torch.telemetry.sentinels import (FailureSentinel,
+                                                        Heartbeat,
+                                                        HeartbeatWatchdog)
+from bert_pytorch_tpu_torch.telemetry.step_timer import (CudaEventClock,
+                                                         StepTimer)
+from bert_pytorch_tpu_torch.utils import logging as logging_util
+
+
+class TrainTelemetry:
+    def __init__(
+        self,
+        jsonl_path: Optional[str] = None,
+        sink=None,
+        window: int = 20,
+        sync_every: int = 1,
+        seq_per_step: Optional[int] = None,
+        flops_per_seq: Optional[float] = None,
+        tokens_per_step: Optional[int] = None,
+        device_kind: str = "",
+        profile_steps=None,
+        profile_dir: Optional[str] = None,
+        sentinel_policy: str = "continue",
+        sentinel_patience: int = 3,
+        heartbeat_path: Optional[str] = None,
+        watchdog_timeout_s: float = 0.0,
+        grad_spike_factor: float = 10.0,
+        update_ratio_max: float = 1.0,
+        device="cpu",
+        clock: Callable[[], float] = time.perf_counter,
+        device_clock=None,
+    ):
+        """``device`` is the training device: on ``cuda`` the timer's
+        device clock is a :class:`CudaEventClock` on it (unless
+        ``device_clock`` is given), the memory sampler reads its
+        allocator and the profiler traces its kernels. The process is the
+        run's one process on one card: it writes every artifact, and the
+        heartbeat beats on every synced step (the JAX facade's
+        ``is_primary``, ``n_devices`` and ``heartbeat_every`` come with
+        the ROADMAP item "Multi-GPU layouts")."""
+        self._clock = clock
+        device = torch.device(device)
+        if device_clock is None and device.type == "cuda":
+            device_clock = CudaEventClock(device)
+        # An already-open handler can be shared in via ``sink``.
+        if sink is not None:
+            self.sink = sink
+        else:
+            self.sink = logging_util.JSONLHandler(
+                jsonl_path) if jsonl_path else None
+        self.timer = StepTimer(
+            window=window, sync_every=sync_every, clock=clock,
+            seq_per_step=seq_per_step, flops_per_seq=flops_per_seq,
+            device_kind=device_kind, tokens_per_step=tokens_per_step,
+            device_clock=device_clock)
+        self.profiler = ProfilerWindow(profile_steps, profile_dir,
+                                       device=device)
+        self.sentinel = FailureSentinel(
+            policy=sentinel_policy, patience=sentinel_patience,
+            emit=self.emit)
+        # Grad-health early-warning shares the sentinel's policy/patience:
+        # a sustained divergence warning is the same class of failure as a
+        # sustained NaN, just caught earlier (model_stats.py).
+        self.divergence = DivergenceMonitor(
+            emit=self.emit, policy=sentinel_policy,
+            patience=sentinel_patience, spike_factor=grad_spike_factor,
+            ratio_max=update_ratio_max)
+        # Device-memory watermarks, sampled where the host already waits
+        # (the sync cadence) and emitted one record per window.
+        self.memory = MemorySampler(emit=self.emit, device=device)
+        self.heartbeat = Heartbeat(heartbeat_path)
+        # Hung-step watchdog: fed a liveness note per completed step;
+        # flags (fault record + warning, never a kill) when none lands
+        # within the timeout. Started lazily at the first step so runner
+        # setup doesn't count.
+        self.watchdog = (HeartbeatWatchdog(watchdog_timeout_s, emit=self.emit)
+                         if watchdog_timeout_s else None)
+        self._loader_stats: Optional[Callable[[], Optional[dict]]] = None
+        self.last_step_synced = False
+
+    # -- wiring ---------------------------------------------------------
+
+    def emit(self, record=None, **kwargs) -> None:
+        """Write one telemetry record to the JSONL sink."""
+        rec = dict(record or {})
+        rec.update(kwargs)
+        if self.sink is not None:
+            self.sink.write_record(rec)
+
+    def attach_loader(self, loader) -> None:
+        """Use ``loader.snapshot()`` gauges in each window record."""
+        snapshot = getattr(loader, "snapshot", None)
+        if callable(snapshot):
+            self._loader_stats = snapshot
+
+    @contextlib.contextmanager
+    def checkpoint_stall(self):
+        """Context manager timing a checkpoint save's host stall; the
+        measured block lands on the step it rode on as a ``ckpt_step``
+        sample (step_timer.py note_ckpt_stall). Wrap every IN-LOOP save
+        with it, and the final save before :meth:`finish`."""
+        t0 = self._clock()
+        try:
+            yield
+        finally:
+            self.timer.note_ckpt_stall(self._clock() - t0)
+
+    # -- per-step protocol ----------------------------------------------
+
+    def timed(self, iterator: Iterator) -> Iterator:
+        """Wrap the batch iterator so host time blocked on the input
+        pipeline is measured as data_wait."""
+        while True:
+            self.timer.data_start()
+            try:
+                item = next(iterator)
+            except StopIteration:
+                return
+            self.timer.data_end()
+            yield item
+
+    def dispatch_done(self) -> None:
+        self.timer.dispatch_end()
+
+    def step_done(self, step: int, metrics: Optional[dict] = None,
+                  profile_step: Optional[int] = None) -> Optional[dict]:
+        """Close out one step: device sync (per the cadence), sentinel
+        check, heartbeat, profiler auto-stop, window emission.
+
+        ``metrics`` is the step's metrics dict (device tensors: the source
+        of the ``finite``/``loss`` scalars; a step without one is not
+        synced). ``profile_step`` is the step number in the SAME base the
+        runner feeds ``profiler.maybe_start`` — pass it when that base
+        differs from ``step`` (run_pretraining profiles in step-in-run
+        terms while ``step`` is the checkpoint-resumed global step).
+        Returns the window record when one was emitted.
+        """
+        # The grad-health block rides in metrics but is telemetry's, not
+        # the runner's: pop it unconditionally so runner-side
+        # float(metrics[...]) loops never trip over the nested dict, and
+        # read it only on synced steps (reading it otherwise would BE a
+        # sync and defeat the cadence). The real-token count follows the
+        # same contract: popped always, read only when this step syncs.
+        health = metrics.pop("grad_health", None) \
+            if isinstance(metrics, dict) else None
+        real_tokens = metrics.pop("real_tokens", None) \
+            if isinstance(metrics, dict) else None
+        synced = False
+        if metrics is not None and self.timer.should_sync():
+            self.timer.device_sync()
+            synced = True
+        self.last_step_synced = synced
+        if synced:
+            if real_tokens is not None:
+                self.timer.note_tokens(float(real_tokens))
+            self.memory.sample(step)
+            if health is not None and float(health.get("due", 0.0)):
+                record = health_record(step, health)
+                self.emit(record)
+                # DivergenceError propagates under policy="abort", same
+                # surface as the sentinel's NonFiniteError.
+                self.divergence.observe(
+                    step, record["grad_norm"], record["update_ratio"])
+        if metrics is not None and synced:
+            loss = metrics.get("loss")
+            loss = None if loss is None else float(loss)
+            finite = metrics.get("finite")
+            if finite is not None:
+                finite = float(finite)
+            else:
+                # No in-step sentinel (the finetune runners): fall back to
+                # a host-side isfinite on the read loss.
+                finite = 1.0 if (loss is None or math.isfinite(loss)) else 0.0
+            self.sentinel.observe(step, finite, loss)
+            self.heartbeat.beat(step, last_loss=loss)
+        if self.watchdog is not None:
+            self.watchdog.start().note(step)
+        self.profiler.maybe_stop(
+            step if profile_step is None else profile_step)
+        window = self.timer.step_done(step)
+        if window is not None:
+            if self._loader_stats is not None:
+                gauges = self._loader_stats()
+                if gauges:
+                    window["loader"] = gauges
+            self.emit(window)
+            self.memory.flush(step)  # one memory record per window
+        return window
+
+    # -- teardown -------------------------------------------------------
+
+    def finish(self, step: int, summary: Optional[dict] = None) -> None:
+        """End of run: stop a still-open trace, flush the partial window,
+        final heartbeat, optional run summary record."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        self.profiler.stop()
+        window = self.timer.flush(step)
+        if window is not None:
+            self.emit(window)
+        self.memory.flush(step)  # partial-window memory samples
+        if summary is not None:
+            rec = {"kind": "run_summary", "tag": "telemetry", "step": step,
+                   "steps": step}
+            rec.update(summary)
+            self.emit(rec)
+        self.heartbeat.beat(step)
+
+    def close(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.sink is not None:
+            self.sink.close()

@@ -1,0 +1,1461 @@
+"""Versioned record schema for the telemetry JSONL stream: a copy of the
+JAX package's ``telemetry/schema.py``, kept rule for rule (the port
+imports nothing of that package; ``tests/test_torch_telemetry.py`` holds
+this copy's verdicts to the original's on the same records).
+
+Every record the :class:`bert_pytorch_tpu_torch.utils.logging.JSONLHandler`
+writes carries ``schema`` (this module's ``SCHEMA_VERSION``) and ``ts``
+(unix seconds). Telemetry-layer records additionally carry ``kind``, which
+selects the per-kind required-key set below; runner metric records
+(tag/step/loss…) have no ``kind`` and only the universal rules apply.
+
+Universal rules, lintable offline (``validate_file``):
+
+* one JSON object per line — no arrays, no trailing prose;
+* no NaN/Infinity spellings (non-finite floats are written as ``null``);
+* a ``schema`` value other than a known version is an error (consumers
+  must be able to dispatch on it).
+
+Legacy artifacts (the ``*_r0*.jsonl`` bench files committed before this
+schema existed) carry no ``schema`` key; the lint holds them to the
+universal rules only, so history stays green while every NEW stream is
+strictly validated. Bump ``SCHEMA_VERSION`` when a kind's required keys
+change incompatibly; consumers dispatch on the per-record value. The
+record kinds of the JAX package's serving fleet, profiling plane and
+ledger are kept too, so the two packages' streams validate alike.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+
+SCHEMA_VERSION = 1
+KNOWN_VERSIONS = (1,)
+
+# Per-kind required keys (beyond the universal schema/ts). Extra keys are
+# always allowed — the schema pins the floor consumers can rely on, not the
+# ceiling.
+KIND_REQUIRED_KEYS = {
+    # windowed step-time decomposition (telemetry/step_timer.py)
+    "step_window": (
+        "step", "window_steps",
+        "data_wait_p50_s", "data_wait_p95_s", "data_wait_max_s",
+        "host_p50_s", "host_p95_s", "host_max_s",
+        "device_p50_s", "device_p95_s", "device_max_s",
+        "step_p50_s", "steps_per_sec", "mfu",
+    ),
+    # one compile (or compile-cache lookup) of a jitted function
+    # (telemetry/compile_events.py)
+    "compile": ("fn", "shapes_digest", "compile_s", "cache"),
+    # non-finite loss/grad-norm observation (telemetry/sentinels.py)
+    "sentinel": ("step", "finite", "consecutive_nonfinite", "policy"),
+    # in-jit model-internals statistics fetched on the sync cadence
+    # (telemetry/model_stats.py): global + per-layer-group grad/param
+    # norms and update:weight ratios
+    "grad_health": ("step", "grad_norm", "param_norm", "update_ratio",
+                    "groups"),
+    # divergence early-warning from the grad-health monitor
+    # (telemetry/model_stats.py DivergenceMonitor)
+    "divergence": ("step", "reason", "value", "threshold", "policy"),
+    # device-memory watermarks sampled on the sync cadence, or the
+    # one-shot memory_supported:false note on backends without
+    # allocator stats (telemetry/memory.py MemorySampler)
+    "memory": ("step", "memory_supported"),
+    # one-shot static cost/memory attribution of a jitted executable,
+    # joined to the compile event by (fn, shapes_digest)
+    # (telemetry/memory.py analyze_executable)
+    "compile_cost": ("fn", "shapes_digest", "analysis"),
+    # one Pallas block-geometry decision for one (kernel, seq, bh)
+    # shape (ops/pallas/autotune.py, serve/engine.py _setup_autotune):
+    # where the geometry came from — measured this start, loaded from
+    # the persisted winners cache, or the heuristic fallback — plus the
+    # winning (block_q, block_k, bh_block) when one exists
+    "autotune": ("kernel", "seq", "bh", "source"),
+    # end-of-run rollup
+    "run_summary": ("steps",),
+    # -- fault-tolerance record family (docs/fault_tolerance.md) -------
+    # one fault observation: a preemption signal acted on, a shard-read
+    # retry, a hung-step watchdog flag, or an armed injection
+    # (testing/faults.py — those carry injected: true so chaos-run
+    # artifacts are distinguishable from real incidents)
+    "fault": ("fault", "injected"),
+    # one resume decision (utils/checkpoint.py walk-back): the step
+    # training resumed from, plus every newer retained checkpoint that
+    # was skipped as corrupt/unreadable to get there
+    "resume": ("step", "skipped"),
+    # -- serve record family (serve/stats.py, docs/serving.md) ---------
+    # one window of online-inference traffic: request count, e2e and
+    # on-device latency percentiles (ms), batch occupancy (real tokens /
+    # dispatched slot budget), recompile count
+    "serve_window": (
+        "window_requests", "batches",
+        "latency_p50_ms", "latency_p95_ms", "latency_p99_ms",
+        "device_p50_ms", "device_p95_ms", "device_p99_ms",
+        "compiles",
+    ),
+    # end-of-run serving rollup (also the live /statsz shape)
+    "serve_summary": (
+        "requests", "batches",
+        "latency_p50_ms", "latency_p95_ms", "latency_p99_ms",
+    ),
+    # one engine startup (serve/stats.py observe_cold_start): AOT warmup
+    # wall time + its compiles split cold (real XLA compiles) vs warm
+    # (persistent-cache hits, the counter-event authority) — a restarted
+    # replica with a warm cache shows compiles_cold == 0
+    "serve_cold_start": (
+        "cold_start_s", "compiles", "compiles_cold", "compiles_warm",
+    ),
+    # one sampled request's span tree (serve/tracing.py): head-sampled
+    # at --trace_sample_rate, or force-sampled by the always-sample-slow
+    # rule when the request exceeded the SLO target
+    "serve_trace": (
+        "trace_id", "task", "total_ms", "queue_wait_ms", "sampled",
+        "spans",
+    ),
+    # one per-task window of request-latency decomposition: per-phase
+    # p50/p95, total percentiles, and the queue-wait share a router
+    # balances on (serve/tracing.py)
+    "serve_phase": (
+        "task", "window_requests", "queue_wait_share",
+        "queue_p50_ms", "queue_p95_ms",
+        "assembly_p50_ms", "assembly_p95_ms",
+        "execute_p50_ms", "execute_p95_ms",
+        "postprocess_p50_ms", "postprocess_p95_ms",
+        "total_p50_ms", "total_p95_ms", "total_p99_ms",
+    ),
+    # -- fleet record family (serve/supervisor.py, serve/router.py,
+    # docs/serving.md "Fleet tier") ------------------------------------
+    # one supervisor decision about one replica: spawn, exit (with rc
+    # and graceful classification), restart_scheduled (with backoff),
+    # wedged_kill/probe_kill (watchdog), gave_up, drain/drain_kill
+    "fleet_event": ("event", "replica", "port"),
+    # one window of routed traffic: the ok/shed/error decomposition plus
+    # the tail-at-scale counters (retries, hedges, failovers) and the
+    # failover-latency percentiles the "router failover" report gate
+    # reads (serve/router.py)
+    "router_window": (
+        "window_requests", "ok", "sheds", "errors",
+        "retries", "hedges", "hedge_wins", "failovers",
+        "healthy_replicas", "replicas",
+    ),
+    # run-level router rollup (the router's /statsz shape)
+    "router_summary": (
+        "requests", "ok", "sheds", "errors",
+        "retries", "hedges", "hedge_wins", "failovers",
+        "healthy_replicas", "replicas",
+    ),
+    # one sampled client request's router-tier span tree
+    # (serve/router.py): admission, per-attempt dispatch (attempt
+    # index, target replica, outcome), backoff waits, hedge
+    # launch/win/loss with loser-latency waste — the cross-tier parent
+    # every replica serve_trace chains to via ``parent_trace_id``
+    # (docs/observability.md "Trace propagation")
+    "router_trace": (
+        "trace_id", "task", "status", "total_ms", "sampled",
+        "attempts", "spans",
+    ),
+    # one stitched end-to-end trace tree (telemetry/collector.py): the
+    # join of a router_trace with the serve_trace records chained to it,
+    # decomposing the client-observed total into router overhead +
+    # network gap + winning-attempt replica time — or an orphan marker
+    # when one side never arrived (counted, never dropped silently)
+    "trace_stitch": (
+        "trace_id", "orphan", "router_spans", "replica_spans",
+    ),
+    # -- fleet observatory family (telemetry/collector.py,
+    # docs/observability.md) --------------------------------------------
+    # one collector probe of one registered endpoint (trainer debug
+    # plane, replica /metricsz, router /statsz): whether the scrape
+    # succeeded, and how stale the target's last GOOD sample is — the
+    # number the "fleet scrape staleness" report gate regresses on
+    "obs_scrape": ("target", "target_kind", "ok", "staleness_s"),
+    # one collector pass's fleet aggregate: healthy/total target counts
+    # (the dip-and-recovery signal when a replica dies), worst-replica
+    # p99, fleet request rate, trainer step rate, error-budget burn
+    "obs_fleet_window": ("targets_total", "targets_healthy",
+                         "max_staleness_s"),
+    # -- profiling plane (telemetry/sampler.py, telemetry/profiler.py,
+    # docs/observability.md "Profiling plane") --------------------------
+    # one bounded on-demand capture (POST /profilez): the jax-profiler
+    # trace artifact written (path + on-disk bytes; empty path when the
+    # trace was skipped — e.g. another trace window was already active),
+    # the steps/requests the window covered, and the host thread
+    # sampler's top-K self-time frames
+    "profile_window": (
+        "source", "trigger", "covered", "covered_unit", "duration_s",
+        "samples", "top_frames", "trace_path", "trace_bytes",
+    ),
+    # one point on the longitudinal perf trajectory (telemetry/ledger.py,
+    # tools/perf_ledger.py): a named bench/report leg's headline numbers
+    # plus the config digest that makes entries comparable — the
+    # "perf ledger drift" gate regresses the newest entry against the
+    # rolling median of its leg's history
+    "ledger_entry": ("leg", "config_digest", "metrics"),
+    # -- deployment plane (serve/registry.py, serve/rollout.py,
+    # docs/serving.md "Model registry & canary rollouts") ---------------
+    # one model-registry lifecycle event: a version published into the
+    # registry, or one state-machine transition between the lifecycle
+    # states below — transitions carry from_state, and a rollback
+    # (canary -> staged) must carry the SLO-breach reason that forced it
+    "registry_event": ("version", "event", "state"),
+    # one canary observation window (serve/rollout.py RolloutController):
+    # the canary cohort's ok/error decomposition and latency percentiles
+    # at one traffic share, the SLO verdict + error-budget burn the
+    # promotion gate read, the action taken (hold|advance|promote|
+    # rollback), and the torn-serve count the zero-tolerance
+    # "rollout torn-model serves" report gate regresses on
+    "rollout_window": (
+        "task", "version", "stage", "canary_share", "window_requests",
+        "ok", "errors", "slo_ok", "action", "torn_serves",
+    ),
+    # -- elasticity plane (serve/autoscaler.py, docs/serving.md
+    # "Elastic fleet") ---------------------------------------------------
+    # one autoscaler control-loop verdict: the decision (scale_up|
+    # scale_down|hold), the cooldown/hold reason, and the replica count
+    # before/after — ``exogenous`` stamps any membership drift since the
+    # previous event (a replica FAILed, an operator intervened) so the
+    # cross-record lint can reconstruct fleet membership from the event
+    # stream alone (see _check_scale_chain)
+    "scale_event": (
+        "decision", "reason", "replicas_before", "replicas_after",
+        "exogenous",
+    ),
+}
+
+# Target kinds the collector scrapes (telemetry/collector.py; mirrored
+# here so the schema module stays stdlib-only/jax-free like TRACE_PHASES).
+OBS_TARGET_KINDS = ("trainer", "replica", "router")
+
+# How a profile_window came to be (telemetry/sampler.py): the startup
+# --profile_steps window, an operator's POST /profilez, or the
+# collector's coordinated fleet-wide capture (obs_collect --profile).
+PROFILE_TRIGGERS = ("startup", "ondemand", "fleet")
+
+# What a profile_window's ``covered`` counts: training steps (trainer
+# captures) or completed dispatch batches' requests (replica captures).
+PROFILE_COVERED_UNITS = ("steps", "requests")
+
+# The ledger metrics the drift gate knows a direction for
+# (telemetry/ledger.py): "up" metrics regress by growing (latencies,
+# cold start), "down" metrics regress by shrinking (MFU, padding
+# efficiency). Extra metric keys are allowed in entries — they are
+# recorded but not drift-gated.
+LEDGER_METRIC_DIRECTIONS = {
+    "step_ms_p50": "up",
+    "step_ms_p95": "up",
+    "mfu": "down",
+    "serve_p50_ms": "up",
+    "serve_p99_ms": "up",
+    "cold_start_s": "up",
+    "padding_efficiency": "down",
+}
+
+# Model-registry version lifecycle (serve/registry.py; mirrored here so
+# the schema lint stays stdlib-only/jax-free like TRACE_PHASES). A
+# version enters the registry as ``staged``; only the edges below are
+# legal, and the canary -> staged edge (a rollback) must name its breach
+# reason — serve/registry.py imports THESE tuples, so the state machine
+# the registry enforces and the one the lint checks cannot drift.
+REGISTRY_STATES = ("staged", "canary", "live", "retired")
+REGISTRY_TRANSITIONS = (
+    ("staged", "canary"),    # rollout began (first traffic share)
+    ("canary", "live"),      # promoted after green observation windows
+    ("canary", "staged"),    # rolled back on SLO breach (reason required)
+    ("staged", "retired"),   # abandoned without ever taking traffic
+    ("live", "retired"),     # superseded by a promoted successor
+)
+
+# What a rollout_window decided (serve/rollout.py RolloutController):
+# hold at the current share, advance to the next stage, promote to live,
+# or roll back to the previous version.
+ROLLOUT_ACTIONS = ("hold", "advance", "promote", "rollback")
+
+# What a scale_event decided (serve/autoscaler.py AutoscalerController;
+# the controller imports THIS tuple, so the runtime vocabulary and the
+# offline lint cannot drift — the ROLLOUT_ACTIONS pattern).
+SCALE_DECISIONS = ("scale_up", "scale_down", "hold")
+
+# serve_trace span names (serve/tracing.py PHASES, mirrored here so the
+# schema module stays stdlib-only/jax-free — tools/check_telemetry_schema
+# loads it by file path).
+TRACE_PHASES = ("queue", "assembly", "execute", "postprocess")
+
+# Router-tier span names (serve/router.py, mirrored here so the schema
+# module stays stdlib-only/jax-free like TRACE_PHASES). Unlike the
+# replica phases, router spans may OVERLAP in time — a hedged race runs
+# two attempt spans concurrently — so the additive sum rule does not
+# apply; each span is individually bounded by the request interval.
+ROUTER_TRACE_SPANS = ("admission", "attempt", "backoff")
+
+# Rounding slack for the serve_trace additive invariants: spans and the
+# total are independently rounded to 3 decimals at emission, so exact <=
+# comparisons would flag sub-microsecond rounding noise as corruption.
+_TRACE_EPS_MS = 0.01
+
+# Rounding slack for the trace_stitch additive identity: the three
+# components are independently rounded to 3 decimals, and the replica
+# total is measured on a different process's clock than the router's
+# attempt span.
+_STITCH_EPS_MS = 0.05
+
+# Serve-kind consistency rules (lintable offline): percentiles must be
+# ordered, and occupancy is a ratio of real work to dispatched budget —
+# the serving analog of padding_efficiency, with the same (0, 1] domain.
+_SERVE_LATENCY_PREFIXES = ("latency", "device")
+
+# Host input-pipeline gauges (data/loader.py snapshot) ride INSIDE a
+# step_window record as its "loader" sub-object — they are not a standalone
+# record kind.
+LOADER_REQUIRED_KEYS = ("batches", "wait_s_total", "stalls", "depth_max")
+
+# Padding-aware throughput fields (schema v1 addition; step_timer.py,
+# sequence packing data/packing.py). Optional — pre-packing artifacts
+# simply omit them — but internally consistent when present: a
+# tokens_per_s without its basis, or a "real" basis without the
+# padding_efficiency that defines it, would make artifacts incomparable
+# across the packing transition (exactly what the basis field exists to
+# prevent).
+TOKENS_BASES = ("real", "all")
+
+_NONFINITE_SPELLINGS = ("NaN", "Infinity", "-Infinity")
+
+
+def validate_record(rec) -> list:
+    """Schema errors for one decoded record (empty list = valid)."""
+    if not isinstance(rec, dict):
+        return [f"record is {type(rec).__name__}, not an object"]
+    errors = []
+    if "schema" in rec:
+        if rec["schema"] not in KNOWN_VERSIONS:
+            errors.append(f"unknown schema version {rec['schema']!r}")
+        kind = rec.get("kind")
+        if kind is not None:
+            required = KIND_REQUIRED_KEYS.get(kind)
+            if required is None:
+                errors.append(f"unknown record kind {kind!r}")
+            else:
+                missing = [k for k in required if k not in rec]
+                if missing:
+                    errors.append(f"kind {kind!r} missing keys {missing}")
+                if kind == "step_window" and isinstance(
+                        rec.get("loader"), dict):
+                    gauges = rec["loader"]
+                    missing = [k for k in LOADER_REQUIRED_KEYS
+                               if k not in gauges]
+                    if missing:
+                        errors.append(
+                            f"loader gauges missing keys {missing}")
+                if kind == "step_window":
+                    _check_token_fields(rec, errors)
+                    _check_async_fields(rec, errors)
+                if kind in ("serve_window", "serve_summary"):
+                    _check_serve_fields(rec, errors)
+                if kind == "serve_cold_start":
+                    _check_cold_start_fields(rec, errors)
+                if kind == "serve_trace":
+                    _check_trace_fields(rec, errors)
+                if kind == "serve_phase":
+                    _check_phase_fields(rec, errors)
+                if kind == "fault":
+                    _check_fault_fields(rec, errors)
+                if kind == "resume":
+                    _check_resume_fields(rec, errors)
+                if kind == "fleet_event":
+                    _check_fleet_fields(rec, errors)
+                if kind in ("router_window", "router_summary"):
+                    _check_router_fields(rec, errors)
+                if kind == "router_trace":
+                    _check_router_trace_fields(rec, errors)
+                if kind == "trace_stitch":
+                    _check_stitch_fields(rec, errors)
+                if kind == "obs_scrape":
+                    _check_obs_scrape_fields(rec, errors)
+                if kind == "obs_fleet_window":
+                    _check_obs_fleet_fields(rec, errors)
+                if kind == "autotune":
+                    _check_autotune_fields(rec, errors)
+                if kind == "profile_window":
+                    _check_profile_fields(rec, errors)
+                if kind == "ledger_entry":
+                    _check_ledger_fields(rec, errors)
+                if kind == "registry_event":
+                    _check_registry_event_fields(rec, errors)
+                if kind == "rollout_window":
+                    _check_rollout_window_fields(rec, errors)
+                if kind == "scale_event":
+                    _check_scale_event_fields(rec, errors)
+    for key, value in rec.items():
+        _check_finite(key, value, errors)
+    return errors
+
+
+def _check_token_fields(rec, errors) -> None:
+    """Padding-aware throughput consistency (schema v1 addition)."""
+    if "tokens_per_s" in rec:
+        basis = rec.get("tokens_per_s_basis")
+        if basis not in TOKENS_BASES:
+            errors.append(
+                f"tokens_per_s requires tokens_per_s_basis in "
+                f"{TOKENS_BASES}, got {basis!r}")
+        if basis == "real" and "padding_efficiency" not in rec:
+            errors.append(
+                "tokens_per_s_basis 'real' requires padding_efficiency")
+    if "padding_efficiency" in rec:
+        eff = rec["padding_efficiency"]
+        if not isinstance(eff, (int, float)) or not 0 < eff <= 1:
+            errors.append(
+                f"padding_efficiency must be in (0, 1], got {eff!r}")
+    if "mfu_real_tokens" in rec and "padding_efficiency" not in rec:
+        errors.append("mfu_real_tokens requires padding_efficiency")
+
+
+def _check_async_fields(rec, errors) -> None:
+    """Async-hot-path consistency (schema v1 addition; step_timer.py,
+    data/device_prefetch.py, utils/checkpoint.py async_write).
+
+    ``h2d_wait_*`` is a SUB-phase of ``data_wait_*`` — an artifact where
+    the host->device share exceeds the wait it is part of is mismeasured,
+    not just noisy. ``ckpt_steps`` flags how many steps in the window
+    carried a checkpoint save; the ``ckpt_step_*`` percentiles only mean
+    anything over at least one such step."""
+    for suffix in ("p50_s", "p95_s", "max_s"):
+        h2d, data = rec.get(f"h2d_wait_{suffix}"), rec.get(
+            f"data_wait_{suffix}")
+        if h2d is None:
+            continue
+        if not isinstance(h2d, (int, float)) or isinstance(h2d, bool):
+            errors.append(f"h2d_wait_{suffix} must be a number, got {h2d!r}")
+        elif not isinstance(data, (int, float)) or isinstance(data, bool):
+            errors.append(
+                f"h2d_wait_{suffix} requires a numeric data_wait_{suffix}")
+        elif h2d > data:
+            errors.append(
+                f"h2d_wait_{suffix} ({h2d}) exceeds data_wait_{suffix} "
+                f"({data}): h2d_wait is a sub-phase of data_wait")
+    ckpt_steps = rec.get("ckpt_steps")
+    has_ckpt_stats = any(f"ckpt_step_{s}" in rec
+                         for s in ("p50_s", "p95_s", "max_s"))
+    if ckpt_steps is not None:
+        if not isinstance(ckpt_steps, int) or isinstance(ckpt_steps, bool) \
+                or ckpt_steps < 1:
+            errors.append(
+                f"ckpt_steps must be a positive integer, got {ckpt_steps!r}")
+    elif has_ckpt_stats:
+        errors.append("ckpt_step_* percentiles require ckpt_steps")
+
+
+def _check_serve_fields(rec, errors) -> None:
+    """Serve-kind consistency (schema v1 addition; serve/stats.py).
+    Continuous-batching fields (docs/serving.md "Continuous batching"):
+    ``device_idle_share`` is a ratio of idle to (idle + busy) executor
+    time, so it lives in [0, 1]; ``admitted_late`` counts requests, so
+    it is a non-negative integer bounded by the record's request
+    count — a window claiming more late admissions than requests is the
+    accounting bug this invariant exists to catch."""
+    for prefix in _SERVE_LATENCY_PREFIXES:
+        keys = [f"{prefix}_p50_ms", f"{prefix}_p95_ms", f"{prefix}_p99_ms"]
+        vals = [rec.get(k) for k in keys]
+        if not all(isinstance(v, (int, float)) and not isinstance(v, bool)
+                   for v in vals if v is not None):
+            continue  # type errors surface via the required-key check
+        present = [v for v in vals if v is not None]
+        if len(present) == 3 and not (vals[0] <= vals[1] <= vals[2]):
+            errors.append(
+                f"{prefix} percentiles not ordered "
+                f"(p50 <= p95 <= p99): {vals}")
+    if "batch_occupancy" in rec:
+        occ = rec["batch_occupancy"]
+        if not isinstance(occ, (int, float)) or isinstance(occ, bool) \
+                or not 0 < occ <= 1:
+            errors.append(
+                f"batch_occupancy must be in (0, 1], got {occ!r}")
+    if "device_idle_share" in rec:
+        share = rec["device_idle_share"]
+        if not _is_number(share) or not 0 <= share <= 1:
+            errors.append(
+                f"device_idle_share must be in [0, 1], got {share!r}")
+    late = rec.get("admitted_late")
+    if late is not None:
+        total_key = ("window_requests" if rec.get("kind") == "serve_window"
+                     else "requests")
+        total = rec.get(total_key)
+        if not isinstance(late, int) or isinstance(late, bool) or late < 0:
+            errors.append(
+                f"admitted_late must be a non-negative integer, got "
+                f"{late!r}")
+        elif isinstance(total, int) and not isinstance(total, bool) \
+                and late > total:
+            errors.append(
+                f"admitted_late ({late}) exceeds {total_key} ({total})")
+
+
+def _check_cold_start_fields(rec, errors) -> None:
+    """Cold-start consistency (serve/stats.py observe_cold_start): the
+    warm/cold split must add up — consumers assert "zero cold compiles"
+    on the split, so a record where cold + warm exceeds the total would
+    let a broken producer fake a warm start."""
+    numbers = {}
+    for key in ("cold_start_s", "compiles", "compiles_cold",
+                "compiles_warm"):
+        v = rec.get(key)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            errors.append(f"{key} must be a non-negative number, got {v!r}")
+        else:
+            numbers[key] = v
+    if {"compiles", "compiles_cold", "compiles_warm"} <= set(numbers) and \
+            numbers["compiles_cold"] + numbers["compiles_warm"] \
+            > numbers["compiles"]:
+        errors.append(
+            "compiles_cold + compiles_warm exceeds compiles "
+            f"({rec.get('compiles_cold')} + {rec.get('compiles_warm')} > "
+            f"{rec.get('compiles')})")
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def _check_trace_fields(rec, errors) -> None:
+    """serve_trace consistency (serve/tracing.py): the span tree must be
+    a real decomposition of the request — non-negative durations summing
+    to no more than the end-to-end total, a queue wait bounded by that
+    total, and a genuine boolean ``sampled`` flag (consumers split
+    head-sampled from slow-forced traces on it; the critical-path
+    analysis in telemetry-report trusts the arithmetic)."""
+    total = rec.get("total_ms")
+    if not _is_number(total) or total < 0:
+        errors.append(
+            f"total_ms must be a non-negative number, got {total!r}")
+        total = None
+    queue = rec.get("queue_wait_ms")
+    if not _is_number(queue) or queue < 0:
+        errors.append(
+            f"queue_wait_ms must be a non-negative number, got {queue!r}")
+    elif total is not None and queue > total + _TRACE_EPS_MS:
+        errors.append(
+            f"queue_wait_ms ({queue}) exceeds total_ms ({total})")
+    if not isinstance(rec.get("sampled"), bool):
+        errors.append(
+            f"serve_trace 'sampled' must be a boolean, got "
+            f"{rec.get('sampled')!r}")
+    reason = rec.get("sample_reason")
+    if reason is not None and reason not in ("head", "slow"):
+        errors.append(
+            f"sample_reason must be 'head' or 'slow', got {reason!r}")
+    parent = rec.get("parent_trace_id")
+    if parent is not None and (not isinstance(parent, str) or not parent):
+        # The cross-tier chain to the router's router_trace:
+        # optional — direct-to-replica traffic has no parent — but the
+        # stitcher joins on it, so a present-but-empty value is
+        # corruption, not data.
+        errors.append(
+            f"parent_trace_id must be a non-empty string, got {parent!r}")
+    attempt = rec.get("attempt")
+    if attempt is not None and (not isinstance(attempt, int)
+                                or isinstance(attempt, bool)
+                                or attempt < 1):
+        errors.append(
+            f"serve_trace 'attempt' must be a positive integer, got "
+            f"{attempt!r}")
+    late = rec.get("admitted_late")
+    if late is not None and not isinstance(late, bool):
+        # The continuous-batching admission marker (serve/service.py
+        # pipelined dispatch): consumers count admission-window wins on
+        # it, so it must be a real boolean, like `sampled`.
+        errors.append(
+            f"serve_trace 'admitted_late' must be a boolean, got {late!r}")
+    staged_wait = rec.get("staged_wait_ms")
+    if staged_wait is not None and (
+            not _is_number(staged_wait) or staged_wait < 0):
+        errors.append(
+            f"staged_wait_ms must be a non-negative number, got "
+            f"{staged_wait!r}")
+    spans = rec.get("spans")
+    if not isinstance(spans, list) or not spans:
+        errors.append(
+            f"serve_trace 'spans' must be a non-empty list, got {spans!r}")
+        return
+    dur_sum = 0.0
+    for i, span in enumerate(spans):
+        if not isinstance(span, dict) or not {"name", "start_ms",
+                                              "dur_ms"} <= set(span):
+            errors.append(
+                f"spans[{i}] must be an object with name/start_ms/dur_ms, "
+                f"got {span!r}")
+            continue
+        if not isinstance(span["name"], str) or not span["name"]:
+            errors.append(
+                f"spans[{i}].name must be a non-empty string, got "
+                f"{span['name']!r}")
+        for key in ("start_ms", "dur_ms"):
+            v = span[key]
+            if not _is_number(v) or v < 0:
+                errors.append(
+                    f"spans[{i}].{key} must be a non-negative number, "
+                    f"got {v!r}")
+                break
+        else:
+            dur_sum += span["dur_ms"]
+    if total is not None and dur_sum > total + _TRACE_EPS_MS:
+        errors.append(
+            f"sum of span durations ({round(dur_sum, 3)}) exceeds "
+            f"total_ms ({total}): spans must be sub-intervals of the "
+            "request")
+
+
+def _check_phase_fields(rec, errors) -> None:
+    """serve_phase consistency (serve/tracing.py window records)."""
+    task = rec.get("task")
+    if not isinstance(task, str) or not task:
+        errors.append(f"task must be a non-empty string, got {task!r}")
+    n = rec.get("window_requests")
+    if not isinstance(n, int) or isinstance(n, bool) or n < 1:
+        errors.append(
+            f"window_requests must be a positive integer, got {n!r}")
+    share = rec.get("queue_wait_share")
+    if not _is_number(share) or not 0 <= share <= 1:
+        errors.append(
+            f"queue_wait_share must be in [0, 1], got {share!r}")
+    for prefix in TRACE_PHASES:
+        p50 = rec.get(f"{prefix}_p50_ms")
+        p95 = rec.get(f"{prefix}_p95_ms")
+        for key, v in ((f"{prefix}_p50_ms", p50), (f"{prefix}_p95_ms",
+                                                   p95)):
+            if v is not None and (not _is_number(v) or v < 0):
+                errors.append(
+                    f"{key} must be a non-negative number, got {v!r}")
+        if _is_number(p50) and _is_number(p95) and p50 > p95:
+            errors.append(
+                f"{prefix} percentiles not ordered (p50 <= p95): "
+                f"[{p50}, {p95}]")
+    totals = [rec.get(f"total_{p}_ms") for p in ("p50", "p95", "p99")]
+    if all(_is_number(v) for v in totals) and \
+            not (totals[0] <= totals[1] <= totals[2]):
+        errors.append(
+            f"total percentiles not ordered (p50 <= p95 <= p99): {totals}")
+    late = rec.get("admitted_late")
+    if late is not None:
+        if not isinstance(late, int) or isinstance(late, bool) or late < 0:
+            errors.append(
+                f"admitted_late must be a non-negative integer, got "
+                f"{late!r}")
+        elif isinstance(n, int) and not isinstance(n, bool) and late > n:
+            errors.append(
+                f"admitted_late ({late}) exceeds window_requests ({n})")
+    over = rec.get("over_slo")
+    if over is not None:
+        if not isinstance(over, int) or isinstance(over, bool) or over < 0:
+            errors.append(
+                f"over_slo must be a non-negative integer, got {over!r}")
+        elif isinstance(n, int) and not isinstance(n, bool) and over > n:
+            errors.append(
+                f"over_slo ({over}) exceeds window_requests ({n})")
+        if not _is_number(rec.get("slo_target_ms")) or \
+                rec.get("slo_target_ms") <= 0:
+            errors.append(
+                "over_slo requires a positive slo_target_ms, got "
+                f"{rec.get('slo_target_ms')!r}")
+
+
+def _check_fault_fields(rec, errors) -> None:
+    """Fault-record consistency (schema v1 addition; docs/
+    fault_tolerance.md): the fault name is a non-empty string and the
+    injection marker is a real boolean — consumers filter chaos-run
+    artifacts on ``injected`` and must be able to trust it."""
+    fault = rec.get("fault")
+    if not isinstance(fault, str) or not fault:
+        errors.append(f"fault must be a non-empty string, got {fault!r}")
+    if not isinstance(rec.get("injected"), bool):
+        errors.append(
+            f"fault record 'injected' must be a boolean, got "
+            f"{rec.get('injected')!r}")
+
+
+def _check_fleet_fields(rec, errors) -> None:
+    """fleet_event consistency (serve/supervisor.py): the event is a
+    non-empty string and the replica identity is a real non-negative
+    index — the chaos harness reconstructs the supervisor's decision
+    sequence from these and must be able to trust the join keys."""
+    event = rec.get("event")
+    if not isinstance(event, str) or not event:
+        errors.append(f"event must be a non-empty string, got {event!r}")
+    for key in ("replica", "port"):
+        v = rec.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+    backoff = rec.get("backoff_s")
+    if backoff is not None and (not _is_number(backoff) or backoff < 0):
+        errors.append(
+            f"backoff_s must be a non-negative number, got {backoff!r}")
+
+
+# Router counter keys whose values must be non-negative integers; the
+# outcome triple additionally decomposes the window exactly (every
+# routed request is ok, shed, or errored — a router that loses requests
+# between the counters is the bug this invariant exists to catch).
+_ROUTER_COUNTERS = ("ok", "sheds", "errors", "retries", "hedges",
+                    "hedge_wins", "failovers")
+
+
+def _check_router_fields(rec, errors) -> None:
+    """router_window/router_summary consistency (serve/router.py)."""
+    total_key = ("window_requests" if rec.get("kind") == "router_window"
+                 else "requests")
+    ints = {}
+    for key in (total_key,) + _ROUTER_COUNTERS + (
+            "healthy_replicas", "replicas"):
+        v = rec.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+        else:
+            ints[key] = v
+    if {total_key, "ok", "sheds", "errors"} <= set(ints) and \
+            ints["ok"] + ints["sheds"] + ints["errors"] != ints[total_key]:
+        errors.append(
+            f"ok + sheds + errors must equal {total_key} "
+            f"({ints['ok']} + {ints['sheds']} + {ints['errors']} != "
+            f"{ints[total_key]}): every routed request is exactly one "
+            "of the three")
+    if {"hedges", "hedge_wins"} <= set(ints) and \
+            ints["hedge_wins"] > ints["hedges"]:
+        errors.append(
+            f"hedge_wins ({ints['hedge_wins']}) exceeds hedges "
+            f"({ints['hedges']})")
+    if {"healthy_replicas", "replicas"} <= set(ints) and \
+            ints["healthy_replicas"] > ints["replicas"]:
+        errors.append(
+            f"healthy_replicas ({ints['healthy_replicas']}) exceeds "
+            f"replicas ({ints['replicas']})")
+    wasted = rec.get("hedge_wasted_ms")
+    if wasted is not None:
+        # Hedge-loser waste: optional — pre-tracing windows
+        # omit it — but non-negative, and zero whenever no hedge fired
+        # (waste with no hedge would mean the counters were folded in
+        # different lock acquisitions: a race).
+        if not _is_number(wasted) or wasted < 0:
+            errors.append(
+                f"hedge_wasted_ms must be a non-negative number, got "
+                f"{wasted!r}")
+        elif wasted > 0 and ints.get("hedges") == 0:
+            errors.append(
+                f"hedge_wasted_ms ({wasted}) positive with zero hedges: "
+                "waste is accounted per hedged race")
+    for prefix, pcts in (("latency", ("p50", "p95", "p99")),
+                         ("failover", ("p50", "p95"))):
+        vals = [rec.get(f"{prefix}_{p}_ms") for p in pcts]
+        for p, v in zip(pcts, vals):
+            if v is not None and (not _is_number(v) or v < 0):
+                errors.append(
+                    f"{prefix}_{p}_ms must be a non-negative number, "
+                    f"got {v!r}")
+        present = [v for v in vals if _is_number(v)]
+        if len(present) == len(pcts) and present != sorted(present):
+            errors.append(
+                f"{prefix} percentiles not ordered "
+                f"({' <= '.join(pcts)}): {present}")
+
+
+def _check_router_trace_fields(rec, errors) -> None:
+    """router_trace consistency (serve/router.py): the router-tier span
+    tree behind the end-to-end stitch. Every span is a sub-interval of
+    the request (spans may overlap — a hedged race runs two attempts
+    concurrently — so there is no additive sum rule), every attempt span
+    names its target replica and outcome, and the ``attempts`` counter
+    must equal the number of attempt spans — the stitcher joins the
+    winning attempt by index and must be able to trust it."""
+    for key in ("trace_id", "task"):
+        v = rec.get(key)
+        if not isinstance(v, str) or not v:
+            errors.append(f"{key} must be a non-empty string, got {v!r}")
+    status = rec.get("status")
+    if not isinstance(status, int) or isinstance(status, bool) or \
+            status < 0:
+        errors.append(
+            f"status must be a non-negative integer, got {status!r}")
+    total = rec.get("total_ms")
+    if not _is_number(total) or total < 0:
+        errors.append(
+            f"total_ms must be a non-negative number, got {total!r}")
+        total = None
+    if not isinstance(rec.get("sampled"), bool):
+        errors.append(
+            f"router_trace 'sampled' must be a boolean, got "
+            f"{rec.get('sampled')!r}")
+    attempts = rec.get("attempts")
+    if not isinstance(attempts, int) or isinstance(attempts, bool) or \
+            attempts < 0:
+        errors.append(
+            f"attempts must be a non-negative integer, got {attempts!r}")
+        attempts = None
+    for key in ("hedges",):
+        v = rec.get(key)
+        if v is not None and (not isinstance(v, int)
+                              or isinstance(v, bool) or v < 0):
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+    wasted = rec.get("hedge_wasted_ms")
+    if wasted is not None and (not _is_number(wasted) or wasted < 0):
+        errors.append(
+            f"hedge_wasted_ms must be a non-negative number, got "
+            f"{wasted!r}")
+    winning = rec.get("winning_attempt")
+    if winning is not None:
+        if not isinstance(winning, int) or isinstance(winning, bool) or \
+                winning < 1:
+            errors.append(
+                f"winning_attempt must be a positive integer, got "
+                f"{winning!r}")
+        elif attempts is not None and winning > attempts:
+            errors.append(
+                f"winning_attempt ({winning}) exceeds attempts "
+                f"({attempts})")
+    spans = rec.get("spans")
+    if not isinstance(spans, list) or not spans:
+        errors.append(
+            f"router_trace 'spans' must be a non-empty list, got "
+            f"{spans!r}")
+        return
+    attempt_spans = 0
+    for i, span in enumerate(spans):
+        if not isinstance(span, dict) or not {"name", "start_ms",
+                                              "dur_ms"} <= set(span):
+            errors.append(
+                f"spans[{i}] must be an object with name/start_ms/dur_ms, "
+                f"got {span!r}")
+            continue
+        name = span["name"]
+        if name not in ROUTER_TRACE_SPANS:
+            errors.append(
+                f"spans[{i}].name must be one of {ROUTER_TRACE_SPANS}, "
+                f"got {name!r}")
+        bad_number = False
+        for key in ("start_ms", "dur_ms"):
+            v = span[key]
+            if not _is_number(v) or v < 0:
+                errors.append(
+                    f"spans[{i}].{key} must be a non-negative number, "
+                    f"got {v!r}")
+                bad_number = True
+        if not bad_number and total is not None and \
+                span["start_ms"] + span["dur_ms"] > total + _TRACE_EPS_MS:
+            errors.append(
+                f"spans[{i}] ends past total_ms "
+                f"({span['start_ms']} + {span['dur_ms']} > {total}): "
+                "router spans must be sub-intervals of the request")
+        if name == "attempt":
+            attempt_spans += 1
+            idx = span.get("attempt")
+            if not isinstance(idx, int) or isinstance(idx, bool) or \
+                    idx < 1:
+                errors.append(
+                    f"spans[{i}].attempt must be a positive integer, "
+                    f"got {idx!r}")
+            replica = span.get("replica")
+            if not isinstance(replica, str) or not replica:
+                errors.append(
+                    f"spans[{i}].replica must be a non-empty string, "
+                    f"got {replica!r}")
+            outcome = span.get("outcome")
+            if not isinstance(outcome, str) or not outcome:
+                errors.append(
+                    f"spans[{i}].outcome must be a non-empty string, "
+                    f"got {outcome!r}")
+    if attempts is not None and attempt_spans != attempts:
+        errors.append(
+            f"attempts ({attempts}) must equal the number of attempt "
+            f"spans ({attempt_spans})")
+
+
+def _check_stitch_fields(rec, errors) -> None:
+    """trace_stitch consistency (telemetry/collector.py): the stitched
+    tree's arithmetic must hold — client_total_ms decomposes exactly
+    into router_overhead_ms + network_gap_ms + replica_ms (the
+    acceptance invariant ``client_total >= router_overhead + winning
+    replica span sum`` follows whenever the gap is non-negative, which
+    is what ``consistent`` asserts) — and the orphan marker must be a
+    real boolean consumers can count on: a replica span with no router
+    parent is ALWAYS an orphan, never silently re-labeled."""
+    v = rec.get("trace_id")
+    if not isinstance(v, str) or not v:
+        errors.append(f"trace_id must be a non-empty string, got {v!r}")
+    orphan = rec.get("orphan")
+    if not isinstance(orphan, bool):
+        errors.append(
+            f"trace_stitch 'orphan' must be a boolean, got {orphan!r}")
+        orphan = None
+    counts = {}
+    for key in ("router_spans", "replica_spans"):
+        n = rec.get(key)
+        if not isinstance(n, int) or isinstance(n, bool) or n < 0:
+            errors.append(
+                f"{key} must be a non-negative integer, got {n!r}")
+        else:
+            counts[key] = n
+    if len(counts) == 2:
+        if counts["router_spans"] + counts["replica_spans"] == 0:
+            errors.append(
+                "trace_stitch must join at least one span "
+                "(router_spans + replica_spans >= 1)")
+        if orphan is False and counts["router_spans"] == 0:
+            errors.append(
+                "a stitch with no router_trace parent must be marked "
+                "orphan (replica spans never lose their orphanhood "
+                "silently)")
+    parts = {}
+    for key in ("client_total_ms", "router_overhead_ms", "replica_ms"):
+        v = rec.get(key)
+        if v is not None:
+            if not _is_number(v) or v < 0:
+                errors.append(
+                    f"{key} must be a non-negative number, got {v!r}")
+            else:
+                parts[key] = v
+    gap = rec.get("network_gap_ms")
+    if gap is not None:
+        # The gap alone may be slightly negative (replica and router
+        # measure on different clocks); ``consistent`` flags that.
+        if not _is_number(gap):
+            errors.append(
+                f"network_gap_ms must be a number, got {gap!r}")
+        else:
+            parts["network_gap_ms"] = gap
+    consistent = rec.get("consistent")
+    if consistent is not None and not isinstance(consistent, bool):
+        errors.append(
+            f"trace_stitch 'consistent' must be a boolean, got "
+            f"{consistent!r}")
+    if len(parts) == 4:
+        lhs = parts["router_overhead_ms"] + parts["network_gap_ms"] + \
+            parts["replica_ms"]
+        if abs(lhs - parts["client_total_ms"]) > _STITCH_EPS_MS:
+            errors.append(
+                f"stitch decomposition must sum to client_total_ms "
+                f"({round(lhs, 3)} != {parts['client_total_ms']}): "
+                "router_overhead_ms + network_gap_ms + replica_ms is "
+                "an exact decomposition, not an estimate")
+        if consistent is True and \
+                parts["network_gap_ms"] < -_STITCH_EPS_MS:
+            errors.append(
+                f"consistent stitch requires a non-negative "
+                f"network_gap_ms, got {parts['network_gap_ms']}")
+    winning = rec.get("winning_attempt")
+    if winning is not None and (not isinstance(winning, int)
+                                or isinstance(winning, bool)
+                                or winning < 1):
+        errors.append(
+            f"winning_attempt must be a positive integer, got {winning!r}")
+
+
+def _check_obs_scrape_fields(rec, errors) -> None:
+    """obs_scrape consistency (telemetry/collector.py): the target
+    identity is a non-empty string of a known kind, ``ok`` is a real
+    boolean (the collector's health aggregation and the staleness gate
+    both filter on it), and staleness/scrape cost are non-negative —
+    a negative staleness would mean the collector's clocks ran
+    backwards, which is corruption, not data."""
+    target = rec.get("target")
+    if not isinstance(target, str) or not target:
+        errors.append(f"target must be a non-empty string, got {target!r}")
+    kind = rec.get("target_kind")
+    if kind not in OBS_TARGET_KINDS:
+        errors.append(
+            f"target_kind must be one of {OBS_TARGET_KINDS}, got {kind!r}")
+    if not isinstance(rec.get("ok"), bool):
+        errors.append(
+            f"obs_scrape 'ok' must be a boolean, got {rec.get('ok')!r}")
+    for key in ("staleness_s", "scrape_ms", "queue_depth",
+                "latency_p99_ms", "requests", "errors", "over_slo"):
+        v = rec.get(key)
+        if v is not None and (not _is_number(v) or v < 0):
+            errors.append(
+                f"{key} must be a non-negative number, got {v!r}")
+
+
+def _check_obs_fleet_fields(rec, errors) -> None:
+    """obs_fleet_window consistency (telemetry/collector.py): the
+    healthy/total pairs are non-negative integers with healthy bounded
+    by total (a window claiming more healthy targets than targets is
+    the aggregation bug this invariant exists to catch), and every
+    rate/latency/burn aggregate is a non-negative number."""
+    ints = {}
+    for key in ("targets_total", "targets_healthy", "replicas_total",
+                "replicas_healthy"):
+        v = rec.get(key)
+        if v is None and key in ("replicas_total", "replicas_healthy"):
+            continue  # optional pair: a trainer-only fleet has none
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+        else:
+            ints[key] = v
+    for healthy, total in (("targets_healthy", "targets_total"),
+                           ("replicas_healthy", "replicas_total")):
+        if {healthy, total} <= set(ints) and \
+                ints[healthy] > ints[total]:
+            errors.append(
+                f"{healthy} ({ints[healthy]}) exceeds {total} "
+                f"({ints[total]})")
+    for key in ("max_staleness_s", "worst_replica_p99_ms", "fleet_rps",
+                "trainer_steps_per_sec", "error_budget_burn"):
+        v = rec.get(key)
+        if key == "max_staleness_s" and v is None:
+            continue  # required-key check already flagged it
+        if v is not None and (not _is_number(v) or v < 0):
+            errors.append(
+                f"{key} must be a non-negative number, got {v!r}")
+
+
+# Where an autotune record's geometry may come from
+# (ops/pallas/autotune.py; serve/engine.py _setup_autotune).
+AUTOTUNE_SOURCES = ("measured", "cached", "heuristic")
+
+
+def _check_autotune_fields(rec, errors) -> None:
+    """autotune-record consistency (ops/pallas/autotune.py): the kernel
+    name is non-empty, seq/bh are positive integers, the source is one
+    of the known provenances, and — when a winner is attached — its
+    blocks tile the shape (a winner whose block does not divide seq
+    would describe a grid the kernel cannot run; recording it would
+    poison every consumer that replays geometry from artifacts)."""
+    kernel = rec.get("kernel")
+    if not isinstance(kernel, str) or not kernel:
+        errors.append(f"kernel must be a non-empty string, got {kernel!r}")
+    for key in ("seq", "bh"):
+        v = rec.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+            errors.append(
+                f"{key} must be a positive integer, got {v!r}")
+    source = rec.get("source")
+    if source not in AUTOTUNE_SOURCES:
+        errors.append(
+            f"source must be one of {AUTOTUNE_SOURCES}, got {source!r}")
+    winner = rec.get("winner")
+    if winner is not None:
+        if not isinstance(winner, dict):
+            errors.append(f"winner must be an object, got {winner!r}")
+        else:
+            for field in ("block_q", "block_k", "bh_block"):
+                v = winner.get(field)
+                if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                    errors.append(
+                        f"winner.{field} must be a positive integer, "
+                        f"got {v!r}")
+                    continue
+                seq, bh = rec.get("seq"), rec.get("bh")
+                if field.startswith("block") and isinstance(seq, int) \
+                        and not isinstance(seq, bool) and seq >= 1 \
+                        and seq % v != 0:
+                    errors.append(
+                        f"winner.{field}={v} does not divide seq {seq}")
+                if field == "bh_block" and isinstance(bh, int) \
+                        and not isinstance(bh, bool) and bh >= 1 \
+                        and bh % v != 0:
+                    errors.append(
+                        f"winner.bh_block={v} does not divide bh {bh}")
+    elif source in ("measured", "cached"):
+        errors.append(f"source {source!r} requires a winner object")
+
+
+def _check_profile_fields(rec, errors) -> None:
+    """profile_window consistency (telemetry/sampler.py): the capture
+    names its source and trigger, the covered count is a non-negative
+    integer of a known unit, and the host-frame table is internally
+    consistent — every frame's sample count is a positive integer
+    bounded by the capture's total, and the self-time shares are in
+    (0, 1] summing to no more than 1 (within rounding slack). A frame
+    claiming more samples than the sampler took would mean the
+    attribution folded two captures together — the double-arm race the
+    409 guard exists to prevent."""
+    source = rec.get("source")
+    if not isinstance(source, str) or not source:
+        errors.append(f"source must be a non-empty string, got {source!r}")
+    trigger = rec.get("trigger")
+    if trigger not in PROFILE_TRIGGERS:
+        errors.append(
+            f"trigger must be one of {PROFILE_TRIGGERS}, got {trigger!r}")
+    unit = rec.get("covered_unit")
+    if unit not in PROFILE_COVERED_UNITS:
+        errors.append(
+            f"covered_unit must be one of {PROFILE_COVERED_UNITS}, "
+            f"got {unit!r}")
+    covered = rec.get("covered")
+    if not isinstance(covered, int) or isinstance(covered, bool) \
+            or covered < 0:
+        errors.append(
+            f"covered must be a non-negative integer, got {covered!r}")
+    samples = rec.get("samples")
+    if not isinstance(samples, int) or isinstance(samples, bool) \
+            or samples < 0:
+        errors.append(
+            f"samples must be a non-negative integer, got {samples!r}")
+        samples = None
+    for key in ("duration_s", "trace_bytes", "sample_interval_s"):
+        v = rec.get(key)
+        if key == "sample_interval_s" and v is None:
+            continue  # optional: trace-only captures omit it
+        if not _is_number(v) or v < 0:
+            errors.append(
+                f"{key} must be a non-negative number, got {v!r}")
+    path = rec.get("trace_path")
+    if not isinstance(path, str):
+        # Empty is legal (trace skipped: another window active, or a
+        # jax-free host); a non-string would break every path consumer.
+        errors.append(f"trace_path must be a string, got {path!r}")
+    frames = rec.get("top_frames")
+    if not isinstance(frames, list):
+        errors.append(
+            f"top_frames must be a list, got {type(frames).__name__}")
+        return
+    share_sum = 0.0
+    for i, frame in enumerate(frames):
+        if not isinstance(frame, dict):
+            errors.append(f"top_frames[{i}] must be an object, "
+                          f"got {frame!r}")
+            continue
+        name = frame.get("frame")
+        if not isinstance(name, str) or not name:
+            errors.append(
+                f"top_frames[{i}].frame must be a non-empty string, "
+                f"got {name!r}")
+        n = frame.get("samples")
+        if not isinstance(n, int) or isinstance(n, bool) or n < 1:
+            errors.append(
+                f"top_frames[{i}].samples must be a positive integer, "
+                f"got {n!r}")
+        elif samples is not None and n > samples:
+            errors.append(
+                f"top_frames[{i}].samples ({n}) exceeds the capture's "
+                f"total samples ({samples})")
+        share = frame.get("share")
+        if not _is_number(share) or share <= 0 or share > 1:
+            errors.append(
+                f"top_frames[{i}].share must be a number in (0, 1], "
+                f"got {share!r}")
+        else:
+            share_sum += share
+    if share_sum > 1.0 + 1e-6 + 0.005 * max(1, len(frames)):
+        # Per-frame rounding slack: shares are rounded at emission.
+        errors.append(
+            f"top_frames shares sum to {share_sum:.4f} > 1: self-time "
+            "attribution must decompose the capture, not exceed it")
+
+
+def _check_ledger_fields(rec, errors) -> None:
+    """ledger_entry consistency (telemetry/ledger.py): the trajectory
+    point names its leg and config digest (the comparability join keys
+    the drift gate filters on) and carries a non-empty metrics object of
+    finite non-negative numbers, with the same percentile-ordering and
+    ratio-domain rules the live record kinds obey — a ledger whose
+    history is internally inconsistent cannot anchor a drift verdict."""
+    for key in ("leg", "config_digest"):
+        v = rec.get(key)
+        if not isinstance(v, str) or not v:
+            errors.append(f"{key} must be a non-empty string, got {v!r}")
+    metrics = rec.get("metrics")
+    if not isinstance(metrics, dict) or not metrics:
+        errors.append(
+            f"metrics must be a non-empty object, got {metrics!r}")
+        return
+    nums = {}
+    for key, v in metrics.items():
+        if not _is_number(v) or v < 0:
+            errors.append(
+                f"metrics.{key} must be a non-negative number, got {v!r}")
+        else:
+            nums[key] = v
+    for lo, hi in (("step_ms_p50", "step_ms_p95"),
+                   ("serve_p50_ms", "serve_p99_ms")):
+        if {lo, hi} <= set(nums) and nums[lo] > nums[hi]:
+            errors.append(
+                f"metrics.{lo} ({nums[lo]}) exceeds metrics.{hi} "
+                f"({nums[hi]}): percentiles must be ordered")
+    for key in ("padding_efficiency", "mfu"):
+        if key in nums and nums[key] > 1:
+            errors.append(
+                f"metrics.{key} must be a ratio in [0, 1], "
+                f"got {nums[key]!r}")
+
+
+def _check_registry_event_fields(rec, errors) -> None:
+    """registry_event consistency (serve/registry.py): the version name
+    is the join key across registry/rollout/fleet records, the resulting
+    state must be a known lifecycle state, and a transition must be a
+    legal state-machine edge — a rollback additionally names WHY (the
+    breach reason is where the post-incident read starts)."""
+    for key in ("version", "event"):
+        v = rec.get(key)
+        if not isinstance(v, str) or not v:
+            errors.append(f"{key} must be a non-empty string, got {v!r}")
+    state = rec.get("state")
+    if state not in REGISTRY_STATES:
+        errors.append(
+            f"state must be one of {REGISTRY_STATES}, got {state!r}")
+    from_state = rec.get("from_state")
+    if from_state is not None:
+        if (from_state, state) not in REGISTRY_TRANSITIONS:
+            errors.append(
+                f"illegal registry transition {from_state!r} -> "
+                f"{state!r} (legal edges: {REGISTRY_TRANSITIONS})")
+        if (from_state, state) == ("canary", "staged"):
+            reason = rec.get("reason")
+            if not isinstance(reason, str) or not reason:
+                errors.append(
+                    "a rollback (canary -> staged) must carry a "
+                    f"non-empty 'reason', got {reason!r}")
+    elif rec.get("event") == "state_change":
+        errors.append("event 'state_change' requires from_state")
+    digest = rec.get("digest")
+    if digest is not None and (not isinstance(digest, str) or not digest):
+        errors.append(f"digest must be a non-empty string, got {digest!r}")
+
+
+def _check_rollout_window_fields(rec, errors) -> None:
+    """rollout_window consistency (serve/rollout.py): the canary share
+    is a traffic fraction, the cohort's ok/error split must fit inside
+    its window, percentiles are ordered, the action is one of the
+    controller's four decisions, and a rollback names its breach."""
+    for key in ("task", "version"):
+        v = rec.get(key)
+        if not isinstance(v, str) or not v:
+            errors.append(f"{key} must be a non-empty string, got {v!r}")
+    stage = rec.get("stage")
+    if not isinstance(stage, int) or isinstance(stage, bool) or stage < 0:
+        errors.append(
+            f"stage must be a non-negative integer, got {stage!r}")
+    share = rec.get("canary_share")
+    if not _is_number(share) or not 0 <= share <= 1:
+        errors.append(f"canary_share must be in [0, 1], got {share!r}")
+    counts = {}
+    for key in ("window_requests", "ok", "errors", "torn_serves"):
+        v = rec.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+        else:
+            counts[key] = v
+    if {"window_requests", "ok", "errors"} <= set(counts) and \
+            counts["ok"] + counts["errors"] > counts["window_requests"]:
+        errors.append(
+            "ok + errors exceeds window_requests "
+            f"({counts['ok']} + {counts['errors']} > "
+            f"{counts['window_requests']})")
+    if not isinstance(rec.get("slo_ok"), bool):
+        errors.append(
+            f"slo_ok must be a boolean, got {rec.get('slo_ok')!r}")
+    action = rec.get("action")
+    if action not in ROLLOUT_ACTIONS:
+        errors.append(
+            f"action must be one of {ROLLOUT_ACTIONS}, got {action!r}")
+    if action == "rollback":
+        reason = rec.get("reason")
+        if not isinstance(reason, str) or not reason:
+            errors.append(
+                "action 'rollback' must carry a non-empty 'reason', "
+                f"got {reason!r}")
+    vals = [rec.get(f"latency_{p}_ms") for p in ("p50", "p95", "p99")]
+    nums = [v for v in vals if _is_number(v)]
+    if len(nums) == 3 and not (nums[0] <= nums[1] <= nums[2]):
+        errors.append(
+            f"latency percentiles not ordered (p50 <= p95 <= p99): "
+            f"{nums}")
+    burn = rec.get("budget_burn")
+    if burn is not None and (not _is_number(burn) or burn < 0):
+        errors.append(
+            f"budget_burn must be a non-negative number, got {burn!r}")
+
+
+def _check_scale_event_fields(rec, errors) -> None:
+    """scale_event consistency (serve/autoscaler.py): the decision is
+    one of the controller's three verdicts, the before/after replica
+    counts move by exactly the decision's delta (a hold holds, a
+    scale_up adds ONE, a scale_down removes ONE), counts stay positive,
+    and the signal values that justified the verdict are sane."""
+    decision = rec.get("decision")
+    if decision not in SCALE_DECISIONS:
+        errors.append(
+            f"decision must be one of {SCALE_DECISIONS}, got "
+            f"{decision!r}")
+    reason = rec.get("reason")
+    if not isinstance(reason, str) or not reason:
+        errors.append(
+            f"reason must be a non-empty string, got {reason!r}")
+    counts = {}
+    for key in ("replicas_before", "replicas_after"):
+        v = rec.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+        else:
+            counts[key] = v
+    exo = rec.get("exogenous")
+    if not isinstance(exo, int) or isinstance(exo, bool):
+        errors.append(f"exogenous must be an integer, got {exo!r}")
+    if len(counts) == 2 and decision in SCALE_DECISIONS:
+        delta = {"scale_up": 1, "scale_down": -1, "hold": 0}[decision]
+        if counts["replicas_after"] != counts["replicas_before"] + delta:
+            errors.append(
+                f"decision {decision!r} must move replicas by {delta:+d} "
+                f"(got {counts['replicas_before']} -> "
+                f"{counts['replicas_after']})")
+    for key in ("window_requests", "window_errors", "window_sheds",
+                "reds", "greens", "healthy", "unfinished", "replica"):
+        v = rec.get(key)
+        if v is not None and (not isinstance(v, int)
+                              or isinstance(v, bool) or v < 0):
+            errors.append(
+                f"{key} must be a non-negative integer, got {v!r}")
+    for key in ("queue_wait_share", "budget_burn", "cooldown_s",
+                "since_last_scale_s"):
+        v = rec.get(key)
+        if v is not None and (not _is_number(v) or v < 0):
+            errors.append(
+                f"{key} must be a non-negative number, got {v!r}")
+    share = rec.get("queue_wait_share")
+    if _is_number(share) and share > 1:
+        errors.append(
+            f"queue_wait_share must be in [0, 1], got {share!r}")
+
+
+def _check_resume_fields(rec, errors) -> None:
+    """Resume-record consistency: ``skipped`` is a list of objects each
+    naming what was passed over and why (utils/checkpoint.py walk-back)."""
+    skipped = rec.get("skipped")
+    if not isinstance(skipped, list):
+        errors.append(f"resume 'skipped' must be a list, got "
+                      f"{type(skipped).__name__}")
+        return
+    for i, entry in enumerate(skipped):
+        if not isinstance(entry, dict) or not {"step", "path", "reason"} \
+                <= set(entry):
+            errors.append(
+                f"resume skipped[{i}] must be an object with "
+                f"step/path/reason, got {entry!r}")
+
+
+def _check_finite(key, value, errors) -> None:
+    """Non-finite floats anywhere in the record (grad_health nests its
+    per-group stats; memory/compile_cost nest nothing today but may)."""
+    if isinstance(value, float) and not math.isfinite(value):
+        errors.append(f"non-finite value for {key!r}")
+    elif isinstance(value, dict):
+        for k, v in value.items():
+            _check_finite(f"{key}.{k}", v, errors)
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            _check_finite(f"{key}[{i}]", v, errors)
+
+
+def validate_line(line: str) -> list:
+    """Schema errors for one raw JSONL line (empty list = valid)."""
+    stripped = line.strip()
+    if not stripped:
+        return []  # blank lines tolerated (trailing newline etc.)
+    for spelling in _NONFINITE_SPELLINGS:
+        # json.loads accepts these non-standard spellings; downstream
+        # strict parsers (jq, pandas with precise_float, other languages)
+        # do not — reject them at the source.
+        if spelling in stripped:
+            try:
+                json.loads(stripped, parse_constant=_reject_constant)
+            except _NonFiniteConstant:
+                return [f"non-finite JSON constant in line"]
+            except ValueError:
+                break  # fall through to the normal parse error below
+            break
+    try:
+        rec = json.loads(stripped)
+    except ValueError as exc:
+        return [f"not valid JSON: {exc}"]
+    return validate_record(rec)
+
+
+class _NonFiniteConstant(ValueError):
+    pass
+
+
+def _reject_constant(name):
+    raise _NonFiniteConstant(name)
+
+
+def validate_file(path: str) -> list:
+    """(line_number, error) pairs for a JSONL file; empty list = valid.
+
+    Beyond the per-line rules this applies the one CROSS-record lint the
+    stream carries: within one (task, version) rollout, ``canary_share``
+    may only advance (the controller holds or grows the cohort) until an
+    explicit ``rollback`` record resets the ramp — a share that shrinks
+    without a rollback means two controllers fought over the split,
+    which no single emitter produces.
+
+    ``scale_event`` streams carry a second cross-record lint: fleet
+    membership must be RECONSTRUCTIBLE from the event stream — each
+    event's ``replicas_before`` must equal the previous event's
+    ``replicas_after`` plus its declared ``exogenous`` drift. A count
+    that jumps without a declaration means the autoscaler lost track of
+    the fleet it manages (a SIGKILLed replica double-counted as
+    capacity, exactly the drift the surge chaos run forbids)."""
+    errors = []
+    shares: dict = {}
+    chain: dict = {}
+    with open(path, "r", encoding="utf-8") as f:
+        for lineno, line in enumerate(f, start=1):
+            line_errors = validate_line(line)
+            for err in line_errors:
+                errors.append((lineno, err))
+            stripped = line.strip()
+            if line_errors or not stripped:
+                continue
+            rec = json.loads(stripped)
+            if isinstance(rec, dict) and "schema" in rec \
+                    and rec.get("kind") == "rollout_window":
+                for err in _check_rollout_sequence(rec, shares):
+                    errors.append((lineno, err))
+            if isinstance(rec, dict) and "schema" in rec \
+                    and rec.get("kind") == "scale_event":
+                for err in _check_scale_chain(rec, chain):
+                    errors.append((lineno, err))
+    return errors
+
+
+def _check_rollout_sequence(rec, shares: dict) -> list:
+    """The cross-record monotone-share rule (see validate_file)."""
+    key = (rec.get("task"), rec.get("version"))
+    share = rec.get("canary_share")
+    if not _is_number(share):
+        return []
+    if rec.get("action") == "rollback":
+        shares.pop(key, None)  # a re-attempt starts the ramp over
+        return []
+    last = shares.get(key)
+    shares[key] = max(share, last) if last is not None else share
+    if last is not None and share < last:
+        return [
+            f"canary_share regressed without a rollback for task "
+            f"{rec.get('task')!r} version {rec.get('version')!r}: "
+            f"{share} < {last} (shares advance monotonically per stage)"]
+    return []
+
+
+def _check_scale_chain(rec, chain: dict) -> list:
+    """The cross-record membership-reconstruction rule (see
+    validate_file): replicas_before == previous replicas_after +
+    exogenous, per tag (one chain per autoscaler instance)."""
+    before = rec.get("replicas_before")
+    after = rec.get("replicas_after")
+    exo = rec.get("exogenous")
+    if not isinstance(before, int) or not isinstance(after, int) \
+            or not isinstance(exo, int):
+        return []  # field-level errors already reported per record
+    key = rec.get("tag")
+    last = chain.get(key)
+    chain[key] = after
+    if last is not None and before != last + exo:
+        return [
+            f"fleet membership not reconstructible: replicas_before="
+            f"{before} but previous replicas_after={last} with declared "
+            f"exogenous drift {exo:+d} (expected "
+            f"{last + exo})"]
+    return []

@@ -16,8 +16,9 @@ filling the rest) and reports, in milliseconds:
 * ``stage_ms`` / ``execute_ms`` / ``demux_ms`` / ``postprocess_ms`` — the
   engine's three steps and the handlers' decode (host clock; ``execute``
   ends in a device synchronize), medians over ``--iters`` runs;
-* ``kernels`` — device time per kernel name over one forward, from
-  ``torch.profiler`` (CUDA activity), largest first, with each kernel's
+* ``kernels`` — device time per kernel name over one forward, from the
+  kernel events of its ``torch.profiler`` trace
+  (``profile_train.kernel_rows``), largest first, with each kernel's
   share of the forward's device time; ``attention_ms`` sums the fused
   attention kernels (``flash_infer*``) and ``gemm_ms`` the library GEMMs
   (cuBLAS/cuBLASLt kernel names), ``int8_gemm_ms`` those of them on int8
@@ -77,20 +78,11 @@ _INT8_NAMES = ("s8", "i8", "int8", "imma")
 def _kernel_table(engine, staged):
     from torch.profiler import ProfilerActivity, profile
 
+    from bert_pytorch_tpu_torch.tools.profile_train import device_rows
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.execute_staged(staged)
-    rows = []
-    for evt in prof.key_averages():
-        # Device-side events only: the CPU-side aten ops carry their
-        # kernels' time too and would count it twice.
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        device_us = getattr(evt, "self_device_time_total", None)
-        if device_us is None:
-            device_us = evt.self_cuda_time_total
-        if device_us > 0:
-            rows.append((evt.key, device_us / 1e3, evt.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     total = sum(r[1] for r in rows) or 1.0
     gemms = [r for r in rows if any(f in r[0].lower() for f in _GEMM_NAMES)]
     return total, {

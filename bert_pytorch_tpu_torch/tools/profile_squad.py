@@ -100,7 +100,7 @@ def profile_turn(model, step, batches, predict, backend: str,
     def run(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        float(step(batches[i % len(batches)]))
+        float(step(batches[i % len(batches)])["loss"])
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 

@@ -1,7 +1,8 @@
 """Where the pretraining step's time goes, on the card.
 
     python -m bert_pytorch_tpu_torch.tools.profile_train \\
-        [--attention_backend flash,dense] [--remat dots,none] [--kfac]
+        [--attention_backend flash,dense] [--remat dots,none] [--kfac] \\
+        [--telemetry]
 
 Builds the phase-2 recipe (configs/bert_pretraining_phase2_config.json:
 seq 512, max_pred 80, LAMB with poly warmup) at BERT-large width
@@ -17,8 +18,9 @@ backend) with:
 * ``optimizer_ms`` — the share of the step spent in ``optimizer.step()``
   (host clock, synchronised before and after), and ``fwd_bwd_ms``, the
   rest;
-* ``device_ms`` — device time of one step by ``torch.profiler`` (CUDA
-  activity) and ``device_busy`` = device_ms / step_ms;
+* ``device_ms`` — device time of one step: the kernel events of its
+  ``torch.profiler`` Chrome trace (:func:`kernel_rows`), and
+  ``device_busy`` = device_ms / step_ms;
 * ``attention`` — the three training kernels' device time, launches
   (and those on the tensor-core route) and share of device_ms; ``largest_gemm`` — the largest cuBLAS GEMM kernel
   by total time; ``kernels`` — the top kernels by device time;
@@ -38,6 +40,14 @@ every 100), the state's bytes, and the inverse update's library calls
 on one factor of each size (1024², 1025², 4097²; CUDA events): the
 Cholesky factorization, ``cholesky_inverse`` and ``eigh`` (the eigen
 method's update is 24 layers of 5 + 2 + 1 of them).
+
+``--telemetry`` adds one JSON line (flash, remat dots) for the runner
+telemetry's own cost: the plain step against the step that computes the
+grad-health block (``--grad_stats_every 1``) and against the plain step
+threaded through the ``TrainTelemetry`` facade (event marks, a sync, the
+allocator read, a JSONL record per step) in turns (plain, health,
+facade, facade, health, plain): wall times, then each step's device
+time (``torch.profiler``).
 
 Needs a CUDA card (the measurement has no CPU mode).
 """
@@ -69,29 +79,49 @@ GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
 LOCAL_BATCH, ACCUMULATION_STEPS, ITERS = 8, 2, 5
 
 
-def device_rows(prof):
-    """(kernel name, device ms, launches), largest first. Annotations that
-    the profiler mirrors onto the device timeline (``Optimizer.step#...``)
-    span other kernels and would count them twice: they are left out."""
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
-            continue
-        device_us = getattr(evt, "self_device_time_total", None)
-        if device_us is None:
-            device_us = evt.self_cuda_time_total
-        if device_us > 0:
-            rows.append((evt.key, device_us / 1e3, evt.count))
-    rows.sort(key=lambda r: -r[1])
-    return rows
+def load_trace(path: str) -> list:
+    """The events of a ``torch.profiler`` Chrome trace file."""
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)["traceEvents"]
+
+
+def trace_events(prof) -> list:
+    """The events of a finished ``torch.profiler`` run's Chrome trace
+    (written to a temporary file and read back)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        return load_trace(path)
+    finally:
+        os.remove(path)
+
+
+def kernel_rows(events: list) -> list:
+    """(kernel name, device ms, launches), largest first, over the kernel
+    events of a Chrome trace: the repo's one reading of device time
+    (``chip_smoke.py`` reads its runners' trace windows with it too).
+    Profiler ranges mirrored onto the device timeline span other kernels;
+    they are not kernel events, so nothing counts twice."""
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    return sorted(((name, ms, n) for name, (ms, n) in by_name.items()),
+                  key=lambda r: -r[1])
+
+
+def device_rows(prof) -> list:
+    """:func:`kernel_rows` of a finished ``torch.profiler`` run."""
+    return kernel_rows(trace_events(prof))
 
 
 def recipe_args(out: str, backend: str = "flash", remat: str = "dots",
                 extra=()):
     """The runner's arguments for the phase-2 recipe at BERT-large width
-    (bf16, local batch 8 x 2, no save)."""
+    (bf16, local batch 8 x 2, no save, no grad-health block: the step
+    alone, as this script has always timed it)."""
     from bert_pytorch_tpu_torch import run_pretraining
 
     return run_pretraining.setup_training(run_pretraining.parse_arguments([
@@ -101,6 +131,7 @@ def recipe_args(out: str, backend: str = "flash", remat: str = "dots",
         "--model_config_file", os.path.join(
             REPO, "configs", "bert_large_uncased_config.json"),
         "--steps", "1", "--skip_final_checkpoint", "--seed", "0",
+        "--grad_stats_every", "0",
         "--attention_backend", backend, "--remat", remat,
         "--dtype", "bfloat16", "--local_batch_size", str(LOCAL_BATCH),
         "--global_batch_size", str(LOCAL_BATCH * ACCUMULATION_STEPS),
@@ -215,24 +246,18 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
     return result
 
 
-def range_device_ms(prof, name: str) -> float:
+def range_device_ms(events: list, name: str) -> float:
     """Device time (ms) of the kernels that run inside the profiler range
     ``name`` on the device timeline: the range's device-side annotations
-    (the profiler mirrors each ``record_function`` range there, from its
-    first kernel's start to its last kernel's end) intersected with every
-    kernel. 0.0 when the trace holds no such annotation."""
-    cuda = torch.autograd.DeviceType.CUDA
-    windows, kernels = [], []
-    for evt in prof.events():
-        if evt.device_type != cuda:
-            continue
-        span = (evt.time_range.start, evt.time_range.end)
-        if evt.name == name:
-            windows.append(span)
-        elif not (getattr(evt, "is_user_annotation", False)
-                  or "#" in evt.name or evt.name.startswith("kfac.")):
-            kernels.append(span)
-    kernels.sort()
+    in a Chrome trace (the profiler mirrors each ``record_function`` range
+    there, from its first kernel's start to its last kernel's end)
+    intersected with every kernel event. 0.0 when the trace holds no such
+    annotation."""
+    windows = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "gpu_user_annotation"
+               and e.get("name") == name]
+    kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                     if e.get("cat") == "kernel")
     starts = [k[0] for k in kernels]
     total = 0.0
     for lo, hi in windows:
@@ -285,15 +310,15 @@ def kfac_turns(args, model, optimizer, schedule, config, kfac, kfac_state,
     from bert_pytorch_tpu_torch.models.bert import KFAC_CAPTURE_RANGE
 
     saved = (args.kfac_capture, args.kfac_factor_interval,
-             args.kfac_inv_interval)
+             args.kfac_inv_interval, args.grad_stats_every)
     args.kfac_capture, args.kfac_factor_interval = "train", 1
-    args.kfac_inv_interval = 1
+    args.kfac_inv_interval, args.grad_stats_every = 1, 0
     steps = {"kfac": run_pretraining.make_step(
         args, model, optimizer, schedule, config, kfac, kfac_state),
         "plain": run_pretraining.make_step(args, model, optimizer,
                                            schedule, config)}
-    args.kfac_capture, args.kfac_factor_interval, args.kfac_inv_interval = (
-        saved)
+    (args.kfac_capture, args.kfac_factor_interval, args.kfac_inv_interval,
+     args.grad_stats_every) = saved
     order = ("kfac", "plain", "plain", "kfac")
     for i, name in enumerate(order[:2]):  # warm-up
         timed_ms(steps[name], batches[i % len(batches)])
@@ -307,10 +332,11 @@ def kfac_turns(args, model, optimizer, schedule, config, kfac, kfac_state,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             timed_ms(steps[name], batches[i % len(batches)])
-        device[name].append(sum(r[1] for r in device_rows(prof)))
+        events = trace_events(prof)
+        device[name].append(sum(r[1] for r in kernel_rows(events)))
         if name == "kfac":
             for key in ranges:
-                ranges[key].append(range_device_ms(prof, key))
+                ranges[key].append(range_device_ms(events, key))
     med = {key: statistics.median(v) for key, v in ranges.items()}
     plain_ms = statistics.median(device["plain"])
     kfac_ms = statistics.median(device["kfac"])
@@ -349,6 +375,59 @@ def profile_kfac() -> dict:
     return result
 
 
+def profile_telemetry() -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_pytorch_tpu_torch import run_pretraining, telemetry
+
+    out = tempfile.mkdtemp(prefix="profile_train_")
+    args = recipe_args(out)
+    model, config = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    batches = recipe_batches(args, config)
+    plain = run_pretraining.make_step(args, model, optimizer, schedule,
+                                      config)
+    args.grad_stats_every = 1
+    health = run_pretraining.make_step(args, model, optimizer, schedule,
+                                       config)
+    tele = telemetry.TrainTelemetry(
+        jsonl_path=os.path.join(out, "telemetry.jsonl"), window=1,
+        sync_every=1, seq_per_step=args.global_batch_size,
+        device=args.device)
+
+    def facade(batch):
+        tele.timer.data_start()
+        tele.timer.data_end()
+        metrics = plain(batch)
+        tele.dispatch_done()
+        tele.step_done(opt_step(), metrics)
+        return metrics
+
+    def opt_step():
+        return int(optimizer.param_groups[0]["count"])
+
+    steps = {"plain": plain, "health": health, "facade": facade}
+    order = ("plain", "health", "facade", "facade", "health", "plain")
+    for i, name in enumerate(order[:3]):  # warm-up
+        timed_ms(steps[name], batches[i % len(batches)])
+    wall = {name: [] for name in steps}
+    for i, name in enumerate(order):
+        wall[name].append(timed_ms(steps[name], batches[i % len(batches)]))
+    device = {name: [] for name in steps}
+    for i, name in enumerate(order):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            timed_ms(steps[name], batches[i % len(batches)])
+        device[name].append(sum(r[1] for r in device_rows(prof)))
+    tele.close()
+    del model, optimizer, steps, plain, health, batches
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"backend": args.attention_backend, "remat": args.remat,
+            "dtype": args.dtype, "order": order, "wall_ms": wall,
+            "device_ms": device}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--attention_backend", default="flash",
@@ -358,6 +437,10 @@ def main(argv=None) -> int:
                              "with every backend")
     parser.add_argument("--kfac", action="store_true",
                         help="also the K-FAC step against the plain one")
+    parser.add_argument("--telemetry", action="store_true",
+                        help="also the plain step against the grad-health "
+                             "step and the step through the telemetry "
+                             "facade")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
@@ -371,6 +454,8 @@ def main(argv=None) -> int:
             print(json.dumps(profile_backend(backend, remat)), flush=True)
     if args.kfac:
         print(json.dumps({"kfac": profile_kfac()}), flush=True)
+    if args.telemetry:
+        print(json.dumps({"telemetry": profile_telemetry()}), flush=True)
     return 0
 
 

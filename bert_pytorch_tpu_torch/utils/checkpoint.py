@@ -63,8 +63,8 @@ CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
 # Sharded-layout shard files; they do not match CKPT_RE, so discovery,
 # retention and the walk-back see only the index file.
 SHARD_RE = re.compile(r"ckpt_(\d+)\.shard(\d+)of(\d+)\.msgpack$")
-ROADMAP_SHARDED = ("ROADMAP.md, queue 1 of the modules still to port, item "
-                   "4: \"Multi-GPU layouts\", the sharded checkpoint write")
+ROADMAP_SHARDED = ("ROADMAP.md, \"Multi-GPU layouts\": the sharded "
+                   "checkpoint write")
 # The sharded layout's index carries this top-level key ({version,
 # n_shards, shard_files, mesh_spec}); its array leaves are stubs
 # {_LEAF_KEY: 1, shape, dtype} whose bytes live in the shard files as

@@ -123,11 +123,22 @@ Phases (any failure exits non-zero and prints no result line):
    its seconds logged); a fresh runner resumes it bit for bit and one
    more step from each agrees (bit for bit where the kernels are
    deterministic); a truncated newest file is walked back past, with the
-   skip logged;
+   skip logged. The phase-2 run has the runner's telemetry armed
+   (``--telemetry_window 2 --telemetry_sync_every 1 --profile_steps 2:3
+   --heartbeat_file --grad_stats_every 1``): its JSONL passes the port's
+   schema, every window is synced on every step with 0 < device_p50 <=
+   step_p50 and a device-basis mfu in (0, 1] that its record recomputes
+   to 1e-4, each memory record's peak equals
+   ``torch.cuda.max_memory_allocated()`` at its window's last step, the
+   trace of step 2 holds as many #1-#3 launches as the counters count
+   over that step, grad health covers 24 layers on every step, the
+   heartbeat reads the last step, and the last window's device span sits
+   between the traced step's kernel time and the step's wall time;
 10. ``run_glue``, ``run_ner`` and ``run_swag`` at BERT-large width from
    phase 9's checkpoint on seeded synthetic files (S=128; batch 32, 32,
    16; 3 steps, ``--save_steps 1`` and the final save; metrics printed;
-   each final checkpoint reads back equal), then ``run_server`` serves
+   each final checkpoint reads back equal; GLUE with ``--telemetry_window
+   3``, its JSONL schema-clean with a nonzero mfu), then ``run_server`` serves
    the GLUE checkpoint (``--tasks classify --classify_checkpoint``): one
    dev example answered over HTTP with #4 24 times per forward on the
    tensor cores, its logits within 5e-2 of the GLUE model's; then each
@@ -159,6 +170,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1530,7 +1542,10 @@ def drive_training(kernels: dict) -> dict:
     for batch in batches:
         t0 = time.perf_counter()
         metrics = step(batch)
-        values = {k: float(v) for k, v in metrics.items()}  # synchronises
+        # The runner's default grad-health block (every 4th step) is a
+        # dict of telemetry, not a metric.
+        values = {k: float(v) for k, v in metrics.items()
+                  if k != "grad_health"}  # synchronises
         values["step_ms"] = (time.perf_counter() - t0) * 1e3
         records.append(values)
         log(f"[train] step {len(records)}: " + ", ".join(
@@ -1878,6 +1893,145 @@ HANDOFF_DISK_BYTES = 14 * 2 ** 30
 # element by more than lr x its trust ratio, and two runs of a
 # nondeterministic reduction differ in the last bits of a gradient).
 RESUME_STEP_ATOL = 1e-5
+# 9b's run with the runner's telemetry armed (telemetry/): windows of 2
+# steps with every step synced, a torch.profiler trace of step 2 (in
+# step-in-run terms), the heartbeat and grad health on every step.
+TELEMETRY_WINDOW, PROFILE_STEPS, TRACED_STEP = 2, "2:3", 2
+# Each training kernel's launches in the trace, by the symbol of either of
+# its routes (the tensor-core one carries "_wgmma").
+TRACE_KERNELS = {
+    "flash_attention_fwd": re.compile(r"flash_fwd_(wgmma_)?kernel"),
+    "flash_attention_dq": re.compile(r"flash_dq_(wgmma_)?kernel"),
+    "flash_attention_dkv": re.compile(r"flash_dkv_(wgmma_)?kernel"),
+}
+# A window's mfu is rounded to 4 decimals in its record.
+MFU_ATOL = 1e-4
+
+
+def read_records(path: str) -> dict:
+    """kind (a train record: its tag) -> the JSONL's records of it."""
+    kinds: dict = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            kinds.setdefault(rec.get("kind", rec.get("tag")), []).append(rec)
+    return kinds
+
+
+def trace_kernels(path: str) -> tuple:
+    """(each training kernel's launches, the ms of every kernel) in a
+    Chrome trace of ``torch.profiler``, by ``tools/profile_train.py``'s
+    reading."""
+    from bert_pytorch_tpu_torch.tools.profile_train import (kernel_rows,
+                                                            load_trace)
+
+    rows = kernel_rows(load_trace(path))
+    counts = {name: sum(n for kernel, _, n in rows if pattern.search(kernel))
+              for name, pattern in TRACE_KERNELS.items()}
+    return counts, sum(ms for _, ms, _ in rows)
+
+
+def window_line(w: dict) -> str:
+    loader = w.get("loader", {}).get("wait_s_total", "n/a")
+    return (f"data_wait_p50 {w['data_wait_p50_s']} s, host_p50 "
+            f"{w['host_p50_s']} s, device_p50 {w['device_p50_s']} s, step_p50 "
+            f"{w['step_p50_s']} s, mfu {w['mfu']} ({w['mfu_basis']}), "
+            f"seq/s {w.get('seq_per_sec')}, loader wait_s_total {loader}")
+
+
+def check_runner_telemetry(tele_dir: str, r: dict, per_step: list,
+                           card: str) -> dict:
+    """9b's telemetry, read back: the JSONL passes the port's schema;
+    every window synced every step, 0 < device_p50 <= step_p50, mfu on
+    the device basis in (0, 1] and equal to the window's sequences x
+    FLOPs / its summed device seconds / the card's peak; each memory
+    record's peak equal to ``torch.cuda.max_memory_allocated()`` at its
+    window's last step (``per_step``: (peak, launch counts) after each
+    step); the trace's #1-#3 launches equal the counters over the traced
+    step; grad health of 24 layers on every step; the heartbeat at the
+    last step. The span of the last window must sit between the traced
+    step's kernel time and its wall time."""
+    from bert_pytorch_tpu_torch.telemetry import Heartbeat, schema
+    from bert_pytorch_tpu_torch.utils import flops
+
+    jsonl = os.path.join(tele_dir, "pretraining_telemetry.jsonl")
+    errors = schema.validate_file(jsonl)
+    if errors:
+        raise AssertionError(f"9b telemetry JSONL: {errors[:5]}")
+    kinds = read_records(jsonl)
+    args, config, steps = r["args"], r["config"], len(per_step)
+    per_seq = flops.bert_train_flops_per_seq(
+        config, TRAIN_SEQ, args.max_predictions_per_seq,
+        next_sentence=bool(config.next_sentence))
+    peak = flops.peak_tflops(torch.cuda.get_device_name()) * 1e12
+    # A save noted after the last full window rolled lands in a record of
+    # its own, with no step (the JAX timer's flush rule).
+    windows = [w for w in kinds["step_window"] if w["window_steps"]]
+    if sum(w["window_steps"] for w in windows) != steps or not all(
+            w.get("ckpt_steps") for w in kinds["step_window"]
+            if not w["window_steps"]):
+        raise AssertionError(f"9b windows {kinds['step_window']} for "
+                             f"{steps} steps")
+    for w in windows:
+        want = (w["window_steps"] * args.global_batch_size * per_seq
+                / w["device_sum_s"] / peak)
+        if (w["synced_steps"] != w["window_steps"]
+                or not 0 < w["device_p50_s"] <= w["step_p50_s"]
+                or w["mfu_basis"] != "device" or not 0 < w["mfu"] <= 1
+                or abs(w["mfu"] - want) > MFU_ATOL):
+            raise AssertionError(f"9b window {w}: mfu recomputed {want}")
+    memory = kinds["memory"]
+    peaks = [(m["step"], m["peak_bytes_in_use"], per_step[m["step"] - 1][0])
+             for m in memory]
+    if len(memory) != len(windows) or not all(
+            m["memory_supported"] for m in memory) or any(
+            a != b for _, a, b in peaks):
+        raise AssertionError(f"9b memory {memory}; allocator peaks {peaks}")
+    traces = os.listdir(os.path.join(tele_dir, "profile"))
+    if len(traces) != 1:
+        raise AssertionError(f"9b profile traces {traces}")
+    traced, kernel_ms = trace_kernels(
+        os.path.join(tele_dir, "profile", traces[0]))
+    counted = {name: per_step[TRACED_STEP - 1][1][name]
+               - per_step[TRACED_STEP - 2][1][name] for name in traced}
+    if traced != counted:
+        raise AssertionError(f"9b trace launches {traced}, counters over the "
+                             f"traced step {counted}")
+    health = kinds["grad_health"]
+    if [h["step"] for h in health] != list(range(1, steps + 1)) or any(
+            len(h["per_layer_grad_norm"]) != config.num_hidden_layers
+            or "bert/encoder" not in h["groups"] for h in health):
+        raise AssertionError(f"9b grad health: {health[:1]}")
+    beat = Heartbeat.read(os.path.join(tele_dir, "heartbeat.json"))
+    if beat is None or beat["step"] != steps:
+        raise AssertionError(f"9b heartbeat {beat}")
+    last = windows[-1]
+    log(f"[telemetry] 9b last window (steps {last['step'] - 1}-"
+        f"{last['step']}): {window_line(last)}; the traced step "
+        f"{TRACED_STEP}'s kernels take {kernel_ms:.2f} ms (torch.profiler), "
+        f"launches {traced}; memory peaks {peaks}; on {card}")
+    if not kernel_ms <= last["device_p50_s"] * 1e3 <= last["step_p50_s"] * 1e3:
+        raise AssertionError("the device span is not between the kernels' "
+                             f"{kernel_ms:.2f} ms and the step's wall time")
+    shutil.rmtree(os.path.join(tele_dir, "profile"))
+    return {"windows": windows, "traced_kernel_ms": kernel_ms,
+            "trace_launches": traced, "memory_peaks": peaks,
+            "grad_health_steps": len(health), "heartbeat": beat}
+
+
+def check_finetune_telemetry(jsonl: str, name: str, card: str) -> list:
+    """A finetune run's JSONL passes the port's schema and its windows of
+    steps read a nonzero mfu."""
+    from bert_pytorch_tpu_torch.telemetry import schema
+
+    errors = schema.validate_file(jsonl)
+    windows = [w for w in read_records(jsonl).get("step_window", [])
+               if w["window_steps"]]
+    if errors or not windows or not all(w["mfu"] > 0 for w in windows):
+        raise AssertionError(f"{name} telemetry: {errors[:5]}, {windows}")
+    log(f"[telemetry] {name} window (steps 1-{windows[0]['step']}): "
+        f"{window_line(windows[0])} on {card}")
+    return windows
 
 
 def runner(out: str, config_file: str, extra) -> dict:
@@ -2037,7 +2191,8 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
     state bit for bit; one more step from each on the same batch and
     dropout seeds gives the same loss and params (bit for bit where the
     kernels are deterministic). Then the newest file is truncated and a
-    fresh runner walks back to step 4, logging the skip."""
+    fresh runner walks back to step 4, logging the skip. 9b runs with the
+    runner's telemetry armed, read back by check_runner_telemetry."""
     from bert_pytorch_tpu_torch.optim.transforms import opt_step_count
     from bert_pytorch_tpu_torch.testing import faults
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
@@ -2084,7 +2239,15 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
                 "--num_steps_per_checkpoint", str(P2_EVERY),
                 "--keep_checkpoints", str(P2_KEEP), "--checkpoint_write",
                 "async", "--skip_final_checkpoint"]
-    r2 = runner(out, PHASE2, p2_flags)
+    tele_dir = os.path.join(root, "telemetry_9b")
+    r2 = runner(out, PHASE2, p2_flags + [
+        "--telemetry_window", str(TELEMETRY_WINDOW),
+        "--telemetry_sync_every", "1", "--profile_steps", PROFILE_STEPS,
+        "--profile_dir", os.path.join(tele_dir, "profile"),
+        "--heartbeat_file", os.path.join(tele_dir, "heartbeat.json"),
+        "--telemetry_jsonl", os.path.join(tele_dir,
+                                          "pretraining_telemetry.jsonl"),
+        "--grad_stats_every", "1"])
     a2 = r2["args"]
     if (a2.resume_step, r2["global_step"], a2.remat,
             a2.max_predictions_per_seq) != (P1_STEPS, 0, "dots", 80):
@@ -2104,10 +2267,16 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         2, TRAIN_LOCAL_BATCH * TRAIN_ACCUM * (P2_STEPS + 1), TRAIN_SEQ,
         r2["config"].vocab_size, a2.max_predictions_per_seq)
     n_writes = len(ckpt.write_records)
+    per_step = []
+
+    def on_step(metrics):
+        per_step.append((torch.cuda.max_memory_allocated(),
+                         {name: k.launches for name, k in kernels.items()}))
+
     torch.cuda.synchronize()
     # Counts to zero just before the main path, read just after.
     zero_counts(kernels)
-    summary2 = train_runner(r2, dataset2)
+    summary2 = train_runner(r2, dataset2, on_step=on_step)
     launches = {name: k.launches for name, k in kernels.items()}
     routes = {name: dict(k.route_launches) for name, k in kernels.items()
               if hasattr(k, "route_launches")}
@@ -2123,6 +2292,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         raise AssertionError(f"phase 2 writes {writes2}, on disk "
                              f"{steps_on_disk}; expected async {want}, "
                              f"ckpt_{P1_STEPS} pruned")
+    telemetry_9b = check_runner_telemetry(tele_dir, r2, per_step, card)
     p2_ms = [(b - a) * 1e3 for a, b in summary2["step_times"]]
     over, clear = overlap(summary2["step_times"], writes2[0])
     stalls = [s["stall_s"] for s in summary2["saves"]]
@@ -2201,7 +2371,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
             "routes": routes, "resume_s": resume_s,
             "determinism": determinism, "resumed_step_bit_equal": exact,
             "resumed_step_max_diff": diff, "resumed_step_loss": metrics,
-            "init_checkpoint": init}
+            "telemetry": telemetry_9b, "init_checkpoint": init}
 
 
 # -- phase 10: finetune from the pretraining checkpoint, save, serve ---------
@@ -2220,6 +2390,8 @@ FT_TIMED_EPOCHS = 3
 # evaluation dense attention, so the two differ by bf16 rounding in 24
 # layers of attention, not by more than 5e-2 absolute on a logit.
 GLUE_SERVE_ATOL = 5e-2
+# The GLUE run's telemetry: one window over its 3 steps.
+FT_TELEMETRY_WINDOW = 3
 
 
 def check_saved_model(out: str, step: int, model, label: str) -> dict:
@@ -2289,7 +2461,9 @@ def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
     runs, glue_model = {}, None
     for name, module in modules.items():
         out = os.path.join(root, f"{name}_out")
-        args = module.parse_arguments(argv[name] + common + [
+        tele = ["--telemetry_window", str(FT_TELEMETRY_WINDOW)] if (
+            name == "glue") else []
+        args = module.parse_arguments(argv[name] + common + tele + [
             "--batch_size", str(FT_RUNS[name][0]), "--output_dir", out])
         torch.cuda.synchronize()
         zero_counts(kernels)
@@ -2305,6 +2479,9 @@ def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
             raise AssertionError(f"{name}: {results}")
         write = check_saved_model(out, steps, model, name)
         runs[name] = dict(results, checkpoint_write=write)
+        if name == "glue":
+            runs[name]["telemetry_windows"] = check_finetune_telemetry(
+                os.path.join(out, "glue_telemetry.jsonl"), name, card)
         log(f"[finetune] {name}: {steps} steps at batch {FT_RUNS[name][0]}, "
             f"S={FT_SEQ}, bf16: {results['training_sequences_per_second']:.2f}"
             f" seq/s, {metric[name]} {results[metric[name]]:.4f}; model "

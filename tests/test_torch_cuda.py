@@ -743,3 +743,57 @@ def test_resume_on_card_equals_the_saved_state(tmp_path):
     assert torch.equal(loss, fresh_loss)
     for name, p in named.items():
         assert torch.equal(p, fresh_named[name]), name
+
+
+def test_step_timer_event_span_bounds_the_streams_work():
+    """The timer's CUDA-event device sample is the stream's span over the
+    step's work: at least the kernels' own time (a matmul chain timed
+    alone by events) and at most the host's wall time from the first mark
+    to the sync."""
+    _need_card()
+    from bert_pytorch_tpu_torch.telemetry.step_timer import (CudaEventClock,
+                                                             StepTimer)
+
+    x = torch.randn(4096, 4096, device="cuda")
+
+    def work():
+        y = x
+        for _ in range(8):
+            y = y @ x
+        return y
+
+    work()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    work()
+    end.record()
+    end.synchronize()
+    alone_s = start.elapsed_time(end) / 1e3
+    timer = StepTimer(window=1, sync_every=1,
+                      device_clock=CudaEventClock("cuda"))
+    timer.data_start()
+    timer.data_end()
+    work()
+    timer.dispatch_end()
+    timer.device_sync()
+    record = timer.step_done(1)
+    assert 0.9 * alone_s <= record["device_p50_s"] <= record["step_p50_s"]
+    assert record["device_sum_s"] == record["device_p50_s"]
+
+
+def test_memory_sampler_reads_the_allocator():
+    _need_card()
+    from bert_pytorch_tpu_torch.telemetry.memory import MemorySampler
+
+    emitted = []
+    sampler = MemorySampler(emitted.append, device="cuda")
+    keep = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    sampler.sample(1)
+    record = sampler.flush(1)
+    assert record["memory_supported"] is True and emitted == [record]
+    assert record["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+    assert record["bytes_in_use"] == torch.cuda.memory_allocated() >= (
+        keep.numel())
+    assert record["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory

@@ -364,7 +364,7 @@ def test_finetune_steps_match_jax(files, runner):
     opt_state = tx.init(params)
     for batch, inputs, scale in zip(steps, port_inputs, scales):
         params, opt_state, j_loss = j_step(params, opt_state, batch, scale)
-        loss = port_step(*inputs)
+        loss = port_step(*inputs)["loss"]
         np.testing.assert_allclose(float(loss), float(j_loss),
                                    rtol=STEP_ATOL, atol=0)
     ref = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
@@ -481,11 +481,47 @@ def test_runner_checkpoints_load_in_jax(files, runner, tmp_path):
 
 
 @pytest.mark.parametrize("runner", ["glue", "ner", "swag"])
+def test_runner_writes_schema_clean_telemetry(files, runner, tmp_path):
+    """Each finetune runner's JSONL (``<output_dir>/<runner>_telemetry
+    .jsonl``) passes both packages' schemas and holds step windows (the
+    checkpoint steps among them), a grad-health record per step (sync
+    every 1) and the run summary; the heartbeat reaches the last step."""
+    from bert_pytorch_tpu.telemetry import schema as jax_schema
+    from bert_pytorch_tpu_torch.telemetry import Heartbeat
+    from bert_pytorch_tpu_torch.telemetry import schema
+
+    out = tmp_path / "out"
+    results, _, _ = MODULES[runner].run(MODULES[runner].parse_arguments(
+        _runner_argv(runner, files, out, "--telemetry_window", "2",
+                     "--save_steps", "1")))
+    steps = results["global_step"]
+    path = str(out / f"{runner}_telemetry.jsonl")
+    assert schema.validate_file(path) == []
+    assert jax_schema.validate_file(path) == []
+    kinds = {}
+    for line in open(path):
+        rec = json.loads(line)
+        kinds.setdefault(rec["kind"], []).append(rec)
+    windows = kinds["step_window"]
+    assert sum(w["window_steps"] for w in windows) == steps
+    assert all(w["synced_steps"] == w["window_steps"] and w["mfu"] == 0.0
+               for w in windows)
+    assert sum(w.get("ckpt_steps", 0) for w in windows) == steps
+    health = kinds["grad_health"]
+    assert [r["step"] for r in health] == list(range(1, steps + 1))
+    assert all(len(r["per_layer_grad_norm"]) == CONFIG["num_hidden_layers"]
+               and "bert/encoder" in r["groups"] for r in health)
+    assert kinds["run_summary"][0]["steps"] == steps
+    assert Heartbeat.read(str(out / "heartbeat.json"))["step"] == steps
+
+
+@pytest.mark.parametrize("runner", ["glue", "ner", "swag"])
 def test_runner_refuses_what_it_cannot_do(files, runner, tmp_path):
     module = MODULES[runner]
     base = _runner_argv(runner, files, tmp_path / "out")
     for flags in (["--dtype", "float16"], ["--compile_cache_dir", "x"],
-                  ["--device_prefetch", "2"], ["--telemetry_jsonl", "x"]):
+                  ["--device_prefetch", "2"], ["--debug_port", "9318"],
+                  ["--postmortem_file", "x"]):
         with pytest.raises(SystemExit):
             module.parse_arguments(base + flags)
     with pytest.raises(ValueError, match="WordPiece"):

@@ -7,7 +7,8 @@ numpy arrays from a seed. Tolerances: logits and loss fp32 1e-5 (the
 serving heads' bar); parameter grads fp32 2e-5 (a 2-layer backward sums a
 few hundred products per element in another order); optimizer params
 after 3 steps 1e-6; one train step 1e-6 in params, loss and grad_norm (the
-ROADMAP gate); schedules rtol 1e-5 (JAX computes them in fp32, the port in
+ROADMAP gate); the grad-health block of that step 1e-5 relative;
+schedules rtol 1e-5 (JAX computes them in fp32, the port in
 float64, and the cosine decay's 1 + cos(pi + p) cancels in fp32). Dropout is off wherever the JAX package is compared (its masks
 cannot be reproduced).
 """
@@ -36,6 +37,7 @@ from bert_pytorch_tpu_torch.optim import schedules, transforms
 ATOL = 1e-5
 GRAD_ATOL = 2e-5
 STEP_ATOL = 1e-6
+HEALTH_RTOL = 1e-5
 CONFIG = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
               num_attention_heads=4, intermediate_size=64,
               max_position_embeddings=64, type_vocab_size=2,
@@ -353,20 +355,42 @@ def test_train_step_matches_jax():
     host = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
     step = jax_pretrain.make_train_step(model, tx, schedule=schedule,
                                         next_sentence=True,
-                                        max_pred_per_seq=P)
+                                        max_pred_per_seq=P, stats_every=1)
     j_batch = jax_pretrain.stack_microbatches(host, 2)
     t_model = _torch_model(jax.tree_util.tree_map(np.asarray, params))
     state, j_metrics = step(state, j_batch)
 
     t_schedule = schedules.warmup_poly_schedule(4e-3, 0.128, 100)
     opt = transforms.Lamb(transforms.param_groups(t_model, 0.01), t_schedule)
-    t_step = pretrain.make_train_step(t_model, opt, t_schedule, True, P)
+    t_step = pretrain.make_train_step(t_model, opt, t_schedule, True, P,
+                                      stats_every=1)
     metrics = t_step(pretrain.to_device(j_batch, "cpu"))
     for key in ("loss", "grad_norm", "mlm_accuracy", "learning_rate",
                 "real_tokens", "finite"):
         np.testing.assert_allclose(float(metrics[key]),
                                    float(j_metrics[key]), rtol=STEP_ATOL,
                                    atol=0, err_msg=key)
+    # The grad-health block on the same weights and batch: the JAX group
+    # keys, every norm and ratio within HEALTH_RTOL.
+    from bert_pytorch_tpu.telemetry import model_stats as jax_stats
+    from bert_pytorch_tpu_torch.telemetry import model_stats
+
+    got = model_stats.health_record(1, metrics["grad_health"])
+    want = jax_stats.health_record(1, j_metrics["grad_health"])
+    assert set(got["groups"]) == set(want["groups"]) >= {
+        "bert/encoder", "bert/embeddings", "bert/pooler", "predictions"}
+    assert len(got["per_layer_grad_norm"]) == CONFIG["num_hidden_layers"]
+    np.testing.assert_allclose(got["per_layer_grad_norm"],
+                               want["per_layer_grad_norm"],
+                               rtol=HEALTH_RTOL)
+    for key in ("grad_norm", "param_norm", "update_ratio"):
+        np.testing.assert_allclose(got[key], want[key], rtol=HEALTH_RTOL,
+                                   err_msg=key)
+        for name in want["groups"]:
+            np.testing.assert_allclose(
+                got["groups"][name][key], want["groups"][name][key],
+                rtol=HEALTH_RTOL, err_msg=f"{name} {key}")
+    assert got["update_ratio"] > 0
     ref = from_jax_params(jax.tree_util.tree_map(np.asarray, state.params),
                           BertConfig(**CONFIG), "pretraining")
     for name, param in t_model.named_parameters():

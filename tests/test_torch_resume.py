@@ -42,6 +42,7 @@ from bert_pytorch_tpu_torch.models.convert import (from_jax_params,
                                                    optimizer_from_jax,
                                                    optimizer_to_jax)
 from bert_pytorch_tpu_torch.optim import KFAC, schedules, transforms
+from bert_pytorch_tpu_torch.telemetry import schema as tschema
 from bert_pytorch_tpu_torch.testing import faults
 from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
     SyntheticPretrainingDataset)
@@ -615,7 +616,7 @@ def test_async_saves_from_many_threads_all_land(tmp_path):
 
 
 def test_sharded_write_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*Multi-GPU layouts"):
         ckpt.save_checkpoint(str(tmp_path), 1, _contents(1),
                              layout="sharded")
 
@@ -862,3 +863,55 @@ def test_sigterm_writes_the_checkpoint_and_exits_75(shards, tmp_path):
         "--term_check_steps", "0"))
     assert result["global_step"] == stopped_at + 1
     assert not result["terminated_by_signal"]
+    # A resume past a truncated newest checkpoint: the JSONL holds the
+    # preemption's fault record, then a resume record per run, the last
+    # naming the step the walk-back skipped.
+    faults.corrupt_checkpoint(ckpt.checkpoint_path(
+        str(out / "pretrain_ckpts"), stopped_at + 1), "truncate")
+    again = run_pretraining.main(_runner_args(
+        shards, out, "--global_batch_size", "4", "--steps", "1",
+        "--term_check_steps", "0", "--skip_final_checkpoint"))
+    assert again["global_step"] == stopped_at + 1
+    path = str(out / "pretraining_telemetry.jsonl")
+    assert tschema.validate_file(path) == []
+    records = [json.loads(line) for line in open(path)]
+    fault = [r for r in records if r.get("kind") == "fault"]
+    assert [(r["fault"], r["signal"], r["step"]) for r in fault] == [
+        ("preemption", "SIGTERM", stopped_at)]
+    resumes = [r for r in records if r.get("kind") == "resume"]
+    assert [r["step"] for r in resumes] == [stopped_at, stopped_at]
+    assert resumes[0]["skipped"] == []
+    assert [(r["step"], os.path.basename(r["path"])) for r in
+            resumes[1]["skipped"]] == [
+        (stopped_at + 1, f"ckpt_{stopped_at + 1}.msgpack")]
+
+
+def test_runner_records_a_walk_back_that_finds_nothing(tmp_path):
+    """Every retained checkpoint corrupt: the run restarts from scratch and
+    its JSONL holds the ``resume_walk_back_exhausted`` fault record
+    naming each skipped file (JAX run_pretraining.py:515-523)."""
+    cfg_path = tmp_path / "tiny.json"
+    cfg_path.write_text(json.dumps(CONFIG))
+
+    def run(*extra):
+        return run_pretraining.main(run_pretraining.parse_arguments([
+            "--model_config_file", str(cfg_path), "--output_dir",
+            str(tmp_path / "out"), "--global_batch_size", "8",
+            "--local_batch_size", "8", "--device", "cpu", "--dtype",
+            "float32", "--max_steps", "4", "--max_predictions_per_seq", "5",
+            "--num_steps_per_checkpoint", "1", "--checkpoint_write", "sync",
+            *extra]), SyntheticPretrainingDataset(1, 16, S, 128, 5))
+
+    run("--steps", "2", "--skip_final_checkpoint")
+    ckpt_dir = str(tmp_path / "out" / "pretrain_ckpts")
+    for step in (1, 2):
+        faults.corrupt_checkpoint(ckpt.checkpoint_path(ckpt_dir, step),
+                                  "truncate")
+    assert run("--steps", "1", "--skip_final_checkpoint")["global_step"] == 1
+    path = str(tmp_path / "out" / "pretraining_telemetry.jsonl")
+    assert tschema.validate_file(path) == []
+    fault = [json.loads(line) for line in open(path)
+             if '"fault"' in line]
+    assert len(fault) == 1
+    assert fault[0]["fault"] == "resume_walk_back_exhausted"
+    assert sorted(r["step"] for r in fault[0]["skipped"]) == [1, 2]

@@ -262,6 +262,46 @@ def test_build_service_pads_vocab_to_multiple_of_8(vocab_file, tmp_path):
     assert len(out["masks"][0]) == 5
 
 
+def test_run_server_refuses_bpe_by_name_before_loading(tmp_path):
+    """A BPE model config (the repo's RoBERTa-large) is refused at argument
+    parsing, naming the ROADMAP item, before any vocab or weight is read;
+    so is ``--tokenizer bpe`` on a WordPiece config."""
+    with pytest.raises(ValueError,
+                       match="bpe.*WordPiece.*The rest of finetuning"):
+        run_server.parse_arguments([
+            "--model_config_file", "configs/roberta_large_cased_config.json",
+            "--device", "cpu"])
+    cfg_path = tmp_path / "config.json"
+    cfg_path.write_text(json.dumps(dict(_config_dict(),
+                                        tokenizer="wordpiece")))
+    with pytest.raises(ValueError, match="The rest of finetuning"):
+        run_server.parse_arguments([
+            "--model_config_file", str(cfg_path), "--vocab_file",
+            str(tmp_path / "missing.txt"), "--tokenizer", "bpe"])
+
+
+@pytest.mark.parametrize("uppercase", [False, True])
+def test_run_server_case_follows_the_jax_rule(vocab_file, tmp_path,
+                                              uppercase):
+    """The JAX server lower-cases unless ``--uppercase`` and ignores the
+    config's ``"lowercase"``: on a ``"lowercase": false`` config the
+    port's served tokens equal the JAX tokenizer's under that rule."""
+    cfg_path = tmp_path / "config.json"
+    cfg_path.write_text(json.dumps(dict(_config_dict(), lowercase=False)))
+    argv = ["--model_config_file", str(cfg_path), "--vocab_file", vocab_file,
+            "--device", "cpu", "--tasks", "fill_mask,squad", "--buckets",
+            "16"] + (["--uppercase"] if uppercase else [])
+    args = run_server.parse_arguments(argv)
+    assert (args.tokenizer, args.uppercase) == ("wordpiece", uppercase)
+    handlers = run_server.build_service(args).engine.tasks
+    served = handlers["fill_mask"].handler.tokenizer
+    text = "Paris IS the Capital of London"
+    jax_tok = JaxTokenizer(vocab_file, do_lower_case=not uppercase)
+    assert served.tokenize(text) == jax_tok.tokenize(text)
+    assert ("paris" in served.tokenize(text)) != uppercase
+    assert handlers["squad"].handler.do_lower_case == (not uppercase)
+
+
 def test_engine_rejects_unknown_task_and_backend(vocab_file):
     tok = BertTokenizer(vocab_file)
     cfg = BertConfig(**_config_dict())

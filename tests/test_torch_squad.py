@@ -346,7 +346,7 @@ def test_finetune_steps_match_jax(jax_qa_params, tiny_config, tmp_path,
             grads = jax.tree_util.tree_map(lambda g: g * scale, grads)
         updates, state = tx.update(grads, state, params)
         params = optax.apply_updates(params, updates)
-        t_loss = step(_t(batch))
+        t_loss = step(_t(batch))["loss"]
         np.testing.assert_allclose(float(t_loss), float(j_loss), atol=ATOL,
                                    rtol=0)
     ref = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
@@ -506,6 +506,19 @@ def test_runner_end_to_end_on_cpu(tiny_config, tmp_path, optimizer, version,
     again = run_squad.main(run_squad.parse_args(_run_args(
         tmp_path, tiny_config, *extra)))
     assert again["predict_batches"] == summary["predict_batches"]
+    # The telemetry JSONL of both runs: schema-clean in both packages, a
+    # step window, a grad-health record and a train record per step.
+    from bert_pytorch_tpu.telemetry import schema as jax_schema
+    from bert_pytorch_tpu_torch.telemetry import schema as tschema
+
+    path = str(out / "squad_telemetry.jsonl")
+    assert tschema.validate_file(path) == jax_schema.validate_file(path) == []
+    records = [json.loads(line) for line in open(path)]
+    kinds = [r.get("kind", r.get("tag")) for r in records]
+    assert kinds.count("grad_health") == kinds.count("run_summary") * 2 == 4
+    assert kinds.count("step_window") >= 2
+    assert [r["step"] for r in records if r.get("kind") == "grad_health"
+            ] == [1, 2, 1, 2]
 
 
 def test_runner_command_line_exits_zero(tiny_config, tmp_path):
