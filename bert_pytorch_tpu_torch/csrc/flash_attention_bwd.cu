@@ -31,8 +31,8 @@
 // Each kernel has two routes, chosen by the wrapper from dtype and head_dim
 // before launch (ops/kernels/attention.py `train_route`):
 //
-// * Tensor cores, dq (`flash_dq_wgmma_kernel`, bf16 with head_dim 32, 64
-//   or 128). One warpgroup per (batch*head, 64-row q tile). delta is
+// * Tensor cores, dq (`flash_dq_wgmma_kernel`, bf16 or fp16 with head_dim
+//   32, 64 or 128). One warpgroup per (batch*head, 64-row q tile). delta is
 //   summed first, from O and dO in global memory (each lane of a quad a
 //   quarter of its two rows, 16-byte loads, then a quad sum), while TMA
 //   brings the q and dO tiles once and each 64-key K and V tile through a
@@ -48,8 +48,8 @@
 //   dQ stays in registers (head_dim / 2 fp32 a thread). What bounds it:
 //   the CUDA cores (the elementwise dS and, with dropout, the Philox
 //   rounds), not the tensor cores.
-// * Tensor cores, dkv (`flash_dkv_wgmma_kernel`, bf16 with head_dim 32 or
-//   64: BERT-base and BERT-large). One warpgroup per (batch*head, 64-key
+// * Tensor cores, dkv (`flash_dkv_wgmma_kernel`, bf16 or fp16 with head_dim
+//   32 or 64: BERT-base and BERT-large). One warpgroup per (batch*head, 64-key
 //   tile). TMA brings the K and V tiles once and each 64-row q and dO tile
 //   through the 2-stage ring. Per q tile, four `wgmma` products, all in
 //   the two shapes of the forward: S^T = K q^T and dA^T = V dO^T from
@@ -65,6 +65,11 @@
 //   they swap bytes by shuffles: no word is drawn twice. dK and dV stay in
 //   registers (head_dim fp32 a thread), which is why head_dim 128 keeps
 //   the CUDA-core route. What bounds it: the CUDA cores, as for dq.
+//   Both tensor-core kernels are templates on the 16-bit element type:
+//   the wgmma input type, the TMA maps' data type and the roundings of
+//   dS, P and the outputs follow it, to nearest and not saturating, so an
+//   fp16 dS or dV past 65504 is inf, as the Pallas kernels' astype makes
+//   it.
 // * CUDA cores (`flash_dq_kernel`, `flash_dkv_kernel`: fp32 and any other
 //   head_dim): one block of 256 threads (16 x 16) per (batch*head, 64-row
 //   tile); the tiles the inner loop walks are staged in shared memory as
@@ -509,16 +514,23 @@ struct Bwd {
       return dropout ? Bwd<float, 4, true>::method(__VA_ARGS__)             \
                      : Bwd<float, 4, false>::method(__VA_ARGS__);           \
     }                                                                       \
+    if (dtype == 1) {                                                       \
+      if (wide)                                                             \
+        return dropout ? Bwd<__nv_bfloat16, 8, true>::method(__VA_ARGS__)   \
+                       : Bwd<__nv_bfloat16, 8, false>::method(__VA_ARGS__); \
+      return dropout ? Bwd<__nv_bfloat16, 4, true>::method(__VA_ARGS__)     \
+                     : Bwd<__nv_bfloat16, 4, false>::method(__VA_ARGS__);   \
+    }                                                                       \
     if (wide)                                                               \
-      return dropout ? Bwd<__nv_bfloat16, 8, true>::method(__VA_ARGS__)     \
-                     : Bwd<__nv_bfloat16, 8, false>::method(__VA_ARGS__);   \
-    return dropout ? Bwd<__nv_bfloat16, 4, true>::method(__VA_ARGS__)       \
-                   : Bwd<__nv_bfloat16, 4, false>::method(__VA_ARGS__);     \
+      return dropout ? Bwd<__half, 8, true>::method(__VA_ARGS__)            \
+                     : Bwd<__half, 8, false>::method(__VA_ARGS__);          \
+    return dropout ? Bwd<__half, 4, true>::method(__VA_ARGS__)              \
+                   : Bwd<__half, 4, false>::method(__VA_ARGS__);            \
   } while (0)
 
 bool bad_shape(int batch, int seq, int heads, int head_dim, int dtype) {
   return batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 ||
-         head_dim > 128 || head_dim % 8 != 0 || (dtype != 0 && dtype != 1);
+         head_dim > 128 || head_dim % 8 != 0 || dtype < 0 || dtype > 2;
 }
 
 cudaError_t dq_entry(const void* q, const void* k, const void* v,
@@ -560,16 +572,16 @@ constexpr size_t bwd_smem_bytes() {
          (wg::kStages + 1) * sizeof(uint64_t);
 }
 
-// The TMA maps of q, k, v and dO ([B, S, H, D] bf16), in that order.
-template <int D>
+// The TMA maps of q, k, v and dO ([B, S, H, D] in E), in that order.
+template <typename E, int D>
 cudaError_t qkvdo_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
                        const void* v, const void* dout, int batch, int seq,
                        int heads) {
   const void* srcs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) {
     const cudaError_t err = wg::bshd_map(
-        &maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-        wg::Tile<2 * D>::kChunk, batch, seq, heads, D);
+        &maps[i], srcs[i], wg::tma_type<E>(), 2, wg::Tile<2 * D>::kChunk,
+        batch, seq, heads, D);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -580,10 +592,10 @@ cudaError_t qkvdo_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
 // P_drop^T and dS^T of one tile pair on this thread's 32 elements of S^T
 // and dA^T (raw products; layout as in wg::keep_bits_t), given the bias and
 // ids of its two keys and lse, delta and ids of its 16 q columns: leaves
-// both in bf16 pairs (the A fragments of four k16 steps) and adds dS to
+// both in E pairs (the A fragments of four k16 steps) and adds dS to
 // the keys' dbias sums. kFull: every q row of the tile lies before S
 // (else rows past S get probability 0 by index).
-template <bool kFull, bool kDropout>
+template <typename E, bool kFull, bool kDropout>
 __device__ __forceinline__ void grad_tile(
     const float (&s)[32], const float (&da)[32], const float (&kb)[2],
     const int (&kid)[2], const float (&lse)[16], const float (&delta)[16],
@@ -611,15 +623,15 @@ __device__ __forceinline__ void grad_tile(
       ds[u] = p * (a - delta[c]);
       db[r] += ds[u];
     }
-    pt[e >> 1] = wg::pack_bf16(pv[0], pv[1]);
-    dst[e >> 1] = wg::pack_bf16(ds[0], ds[1]);
+    pt[e >> 1] = wg::pack2<E>(pv[0], pv[1]);
+    dst[e >> 1] = wg::pack2<E>(ds[0], ds[1]);
   }
 }
 
 
 // Launch: grid (batch * heads, ceil(seq / 64)), wg::kThreads threads,
 // bwd_smem_bytes<D>() of dynamic shared memory.
-template <int D, bool kDropout>
+template <typename E, int D, bool kDropout>
 __global__ void __launch_bounds__(wg::kThreads)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -627,8 +639,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap domap,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv,
+                       E* __restrict__ dk, E* __restrict__ dv,
                        float* __restrict__ dbias,
                        const float* __restrict__ key_bias,
                        const int* __restrict__ seg, int seq, int heads,
@@ -714,12 +725,12 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg::wgmma_fence();
 #pragma unroll
     for (int step = 0; step < D / 16; ++step)
-      wg::mma_bf16_ss(s, wg::k_major<2 * D>(k_s, step),
-                      wg::k_major<2 * D>(qt, step), step > 0);
+      wg::mma_ss<E>(s, wg::k_major<2 * D>(k_s, step),
+                    wg::k_major<2 * D>(qt, step), step > 0);
 #pragma unroll
     for (int step = 0; step < D / 16; ++step)
-      wg::mma_bf16_ss(da, wg::k_major<2 * D>(v_s, step),
-                      wg::k_major<2 * D>(dot, step), step > 0);
+      wg::mma_ss<E>(da, wg::k_major<2 * D>(v_s, step),
+                    wg::k_major<2 * D>(dot, step), step > 0);
     wg::wgmma_commit();
     // lse, delta and ids of this thread's 16 q columns, and with dropout
     // its keep bits, made while the MMAs run.
@@ -741,15 +752,15 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg::pin(s);
     wg::pin(da);
 
-    uint32_t pt[16], dst[16];  // P_drop^T and dS^T in bf16 pairs
+    uint32_t pt[16], dst[16];  // P_drop^T and dS^T in E pairs
     if (full)
-      grad_tile<true, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
-                                segmented, scale, inv_keep, keep, q0, col0,
-                                seq, db, pt, dst);
+      grad_tile<E, true, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                   segmented, scale, inv_keep, keep, q0, col0,
+                                   seq, db, pt, dst);
     else
-      grad_tile<false, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
-                                 segmented, scale, inv_keep, keep, q0, col0,
-                                 seq, db, pt, dst);
+      grad_tile<E, false, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                    segmented, scale, inv_keep, keep, q0,
+                                    col0, seq, db, pt, dst);
 
     wg::pin(dk_acc);
     wg::pin(dv_acc);
@@ -760,10 +771,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int step = 0; step < 4; ++step) {
       const uint32_t a_p[4] = {pt[4 * step], pt[4 * step + 1],
                                pt[4 * step + 2], pt[4 * step + 3]};
-      wg::mma_pv<D>(dv_acc, a_p, wg::mn_major<2 * D>(dot, step));
+      wg::mma_pv<E, D>(dv_acc, a_p, wg::mn_major<2 * D>(dot, step));
       const uint32_t a_ds[4] = {dst[4 * step], dst[4 * step + 1],
                                 dst[4 * step + 2], dst[4 * step + 3]};
-      wg::mma_pv<D>(dk_acc, a_ds, wg::mn_major<2 * D>(qt, step));
+      wg::mma_pv<E, D>(dk_acc, a_ds, wg::mn_major<2 * D>(qt, step));
     }
     wg::wgmma_commit();
     wg::wgmma_wait();
@@ -786,15 +797,15 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
       const int i = 4 * jj + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jj) =
-          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * jj) =
-          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) =
+          wg::pack2<E>(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) =
+          wg::pack2<E>(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
-template <int D, bool kDropout>
+template <typename E, int D, bool kDropout>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv,
@@ -803,20 +814,21 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              float scale, uint2 seed, uint32_t threshold,
                              float inv_keep, cudaStream_t stream) {
   CUtensorMap maps[4];
-  cudaError_t err = qkvdo_maps<D>(maps, q, k, v, dout, batch, seq, heads);
+  cudaError_t err = qkvdo_maps<E, D>(maps, q, k, v, dout, batch, seq, heads);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = bwd_smem_bytes<D>();
-  err = prepare(flash_dkv_wgmma_kernel<D, kDropout>, smem);
+  err = prepare(flash_dkv_wgmma_kernel<E, D, kDropout>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
-  flash_dkv_wgmma_kernel<D, kDropout><<<grid, wg::kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), dbias,
+  flash_dkv_wgmma_kernel<E, D, kDropout>
+      <<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<E*>(dk),
+      static_cast<E*>(dv), dbias,
       key_bias, seg, seq, heads, scale, seed, threshold, inv_keep);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t dispatch_dkv_wgmma(bool dropout, const void* q, const void* k,
                                const void* v, const void* dout,
                                const float* lse, const float* delta, void* dk,
@@ -825,12 +837,14 @@ cudaError_t dispatch_dkv_wgmma(bool dropout, const void* q, const void* k,
                                float scale, uint2 seed, uint32_t threshold,
                                float inv_keep, cudaStream_t stream) {
   if (dropout)
-    return launch_dkv_wgmma<D, true>(q, k, v, dout, lse, delta, dk, dv, dbias,
-                                     key_bias, seg, batch, seq, heads, scale,
-                                     seed, threshold, inv_keep, stream);
-  return launch_dkv_wgmma<D, false>(q, k, v, dout, lse, delta, dk, dv, dbias,
-                                    key_bias, seg, batch, seq, heads, scale,
-                                    seed, threshold, inv_keep, stream);
+    return launch_dkv_wgmma<E, D, true>(q, k, v, dout, lse, delta, dk, dv,
+                                        dbias, key_bias, seg, batch, seq,
+                                        heads, scale, seed, threshold,
+                                        inv_keep, stream);
+  return launch_dkv_wgmma<E, D, false>(q, k, v, dout, lse, delta, dk, dv,
+                                       dbias, key_bias, seg, batch, seq,
+                                       heads, scale, seed, threshold,
+                                       inv_keep, stream);
 }
 
 // -- the dq kernel's tensor-core route ---------------------------------------
@@ -839,11 +853,11 @@ cudaError_t dispatch_dkv_wgmma(bool dropout, const void* q, const void* k,
 // products; element e at q row row0 + 8 * ((e >> 1) & 1) and key k0 +
 // 8 * (e >> 2) + col0 + (e & 1), its keep bit bit e of `keep`), given lse,
 // delta and ids of its two q rows and the bias and ids of its 16 keys:
-// leaves dS in bf16 pairs (the A fragments of four k16 steps). kFull:
+// leaves dS in E pairs (the A fragments of four k16 steps). kFull:
 // every key of the tile lies before S (else keys past S get probability 0
 // by index: their K and V rows read as zeros, but exp(s - lse) there is
 // not bounded, and inf * 0 would reach dQ).
-template <bool kFull, bool kDropout>
+template <typename E, bool kFull, bool kDropout>
 __device__ __forceinline__ void dq_grad_tile(
     const float (&s)[32], const float (&da)[32], const float (&kb)[16],
     const int (&kid)[16], const float (&lse)[2], const float (&delta)[2],
@@ -864,23 +878,21 @@ __device__ __forceinline__ void dq_grad_tile(
       if (kDropout) a = (keep >> (e + u)) & 1u ? a * inv_keep : 0.f;
       v[u] = p * (a - delta[r]);
     }
-    ds[e >> 1] = wg::pack_bf16(v[0], v[1]);
+    ds[e >> 1] = wg::pack2<E>(v[0], v[1]);
   }
 }
 
 // Launch: grid (batch * heads, ceil(seq / 64)), wg::kThreads threads,
 // bwd_smem_bytes<D>() of dynamic shared memory.
-template <int D, bool kDropout>
+template <typename E, int D, bool kDropout>
 __global__ void __launch_bounds__(wg::kThreads)
 flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap domap,
-                      const __nv_bfloat16* __restrict__ out,
-                      const __nv_bfloat16* __restrict__ dout,
+                      const E* __restrict__ out, const E* __restrict__ dout,
                       const float* __restrict__ lse,
-                      float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dq,
+                      float* __restrict__ delta, E* __restrict__ dq,
                       const float* __restrict__ key_bias,
                       const int* __restrict__ seg, int seq, int heads,
                       float scale, uint2 seed, uint32_t threshold,
@@ -960,12 +972,12 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < D / 32; ++i) {
         const uint4 ov = o_row[4 * i + (lane & 3)];
         const uint4 dv = do_row[4 * i + (lane & 3)];
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const uint32_t o2[4] = {ov.x, ov.y, ov.z, ov.w};
+        const uint32_t d2[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          const float2 of = __bfloat1622float2(o2[t]);
-          const float2 df = __bfloat1622float2(d2[t]);
+          const float2 of = wg::unpack2<E>(o2[t]);
+          const float2 df = wg::unpack2<E>(d2[t]);
           part = fmaf(df.x, of.x, part);
           part = fmaf(df.y, of.y, part);
         }
@@ -992,12 +1004,12 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg::wgmma_fence();
 #pragma unroll
     for (int step = 0; step < D / 16; ++step)
-      wg::mma_bf16_ss(s, wg::k_major<2 * D>(q_s, step),
-                      wg::k_major<2 * D>(kt, step), step > 0);
+      wg::mma_ss<E>(s, wg::k_major<2 * D>(q_s, step),
+                    wg::k_major<2 * D>(kt, step), step > 0);
 #pragma unroll
     for (int step = 0; step < D / 16; ++step)
-      wg::mma_bf16_ss(da, wg::k_major<2 * D>(do_s, step),
-                      wg::k_major<2 * D>(vt, step), step > 0);
+      wg::mma_ss<E>(da, wg::k_major<2 * D>(do_s, step),
+                    wg::k_major<2 * D>(vt, step), step > 0);
     wg::wgmma_commit();
     // The bias and ids of this thread's 16 keys, and with dropout its keep
     // bits, made while the MMAs run.
@@ -1018,15 +1030,15 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg::pin(s);
     wg::pin(da);
 
-    uint32_t ds[16];  // dS in bf16 pairs
+    uint32_t ds[16];  // dS in E pairs
     if (full)
-      dq_grad_tile<true, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
-                                   segmented, scale, inv_keep, keep, k0,
-                                   col0, seq, ds);
+      dq_grad_tile<E, true, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                      segmented, scale, inv_keep, keep, k0,
+                                      col0, seq, ds);
     else
-      dq_grad_tile<false, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
-                                    segmented, scale, inv_keep, keep, k0,
-                                    col0, seq, ds);
+      dq_grad_tile<E, false, kDropout>(s, da, kb, kid, lse_q, delta_q, qid,
+                                       segmented, scale, inv_keep, keep, k0,
+                                       col0, seq, ds);
 
     wg::pin(dq_acc);
     wg::pin(ds);
@@ -1035,7 +1047,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int step = 0; step < 4; ++step) {
       const uint32_t a[4] = {ds[4 * step], ds[4 * step + 1], ds[4 * step + 2],
                              ds[4 * step + 3]};
-      wg::mma_pv<D>(dq_acc, a, wg::mn_major<2 * D>(kt, step));
+      wg::mma_pv<E, D>(dq_acc, a, wg::mn_major<2 * D>(kt, step));
     }
     wg::wgmma_commit();
     wg::wgmma_wait();
@@ -1049,17 +1061,17 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int r = 0; r < 2; ++r) {
     const int q = q0 + row0 + 8 * r;
     if (q >= seq) continue;
-    __nv_bfloat16* dst = dq + base + q * row_stride + col0;
+    E* dst = dq + base + q * row_stride + col0;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
       const int i = 4 * jj + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) =
-          __floats2bfloat162_rn(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
+          wg::pack2<E>(dq_acc[i] * scale, dq_acc[i + 1] * scale);
     }
   }
 }
 
-template <int D, bool kDropout>
+template <typename E, int D, bool kDropout>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const void* out, const void* dout,
                             const float* lse, float* delta, void* dq,
@@ -1068,22 +1080,21 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             uint32_t threshold, float inv_keep,
                             cudaStream_t stream) {
   CUtensorMap maps[4];
-  cudaError_t err = qkvdo_maps<D>(maps, q, k, v, dout, batch, seq, heads);
+  cudaError_t err = qkvdo_maps<E, D>(maps, q, k, v, dout, batch, seq, heads);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = bwd_smem_bytes<D>();
-  err = prepare(flash_dq_wgmma_kernel<D, kDropout>, smem);
+  err = prepare(flash_dq_wgmma_kernel<E, D, kDropout>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
-  flash_dq_wgmma_kernel<D, kDropout><<<grid, wg::kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3],
-      static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), key_bias, seg, seq, heads, scale, seed,
-      threshold, inv_keep);
+  flash_dq_wgmma_kernel<E, D, kDropout>
+      <<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const E*>(out),
+      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq), key_bias,
+      seg, seq, heads, scale, seed, threshold, inv_keep);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t dispatch_dq_wgmma(bool dropout, const void* q, const void* k,
                               const void* v, const void* out,
                               const void* dout, const float* lse,
@@ -1092,12 +1103,90 @@ cudaError_t dispatch_dq_wgmma(bool dropout, const void* q, const void* k,
                               float scale, uint2 seed, uint32_t threshold,
                               float inv_keep, cudaStream_t stream) {
   if (dropout)
-    return launch_dq_wgmma<D, true>(q, k, v, out, dout, lse, delta, dq,
-                                    key_bias, seg, batch, seq, heads, scale,
-                                    seed, threshold, inv_keep, stream);
-  return launch_dq_wgmma<D, false>(q, k, v, out, dout, lse, delta, dq,
-                                   key_bias, seg, batch, seq, heads, scale,
-                                   seed, threshold, inv_keep, stream);
+    return launch_dq_wgmma<E, D, true>(q, k, v, out, dout, lse, delta, dq,
+                                       key_bias, seg, batch, seq, heads,
+                                       scale, seed, threshold, inv_keep,
+                                       stream);
+  return launch_dq_wgmma<E, D, false>(q, k, v, out, dout, lse, delta, dq,
+                                      key_bias, seg, batch, seq, heads, scale,
+                                      seed, threshold, inv_keep, stream);
+}
+
+// The dq tensor-core route's entry for the element type E.
+template <typename E>
+int dq_wgmma_entry(const void* q, const void* k, const void* v,
+                   const void* out, const void* dout, const float* lse,
+                   float* delta, void* dq, const float* key_bias,
+                   const int* seg, int batch, int seq, int heads,
+                   int head_dim, float scale, int dropout, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t threshold, float inv_keep,
+                   void* stream) {
+  const void* ptrs[6] = {q, k, v, out, dout, dq};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = dispatch_dq_wgmma<E, 32>(drop, q, k, v, out, dout, lse, delta, dq,
+                                     key_bias, seg, batch, seq, heads, scale,
+                                     seed, threshold, inv_keep, s);
+      break;
+    case 64:
+      err = dispatch_dq_wgmma<E, 64>(drop, q, k, v, out, dout, lse, delta, dq,
+                                     key_bias, seg, batch, seq, heads, scale,
+                                     seed, threshold, inv_keep, s);
+      break;
+    case 128:
+      err = dispatch_dq_wgmma<E, 128>(drop, q, k, v, out, dout, lse, delta,
+                                      dq, key_bias, seg, batch, seq, heads,
+                                      scale, seed, threshold, inv_keep, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The dkv tensor-core route's entry for the element type E.
+template <typename E>
+int dkv_wgmma_entry(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, float* dbias, const float* key_bias,
+                    const int* seg, int batch, int seq, int heads,
+                    int head_dim, float scale, int dropout, uint32_t seed_lo,
+                    uint32_t seed_hi, uint32_t threshold, float inv_keep,
+                    void* stream) {
+  const void* ptrs[6] = {q, k, v, dout, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = dispatch_dkv_wgmma<E, 32>(drop, q, k, v, dout, lse, delta, dk, dv,
+                                      dbias, key_bias, seg, batch, seq, heads,
+                                      scale, seed, threshold, inv_keep, s);
+      break;
+    case 64:
+      err = dispatch_dkv_wgmma<E, 64>(drop, q, k, v, dout, lse, delta, dk, dv,
+                                      dbias, key_bias, seg, batch, seq, heads,
+                                      scale, seed, threshold, inv_keep, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1106,10 +1195,10 @@ extern "C" {
 
 // The dq kernel's CUDA-core route: dq and delta = rowsum(dO * O) from the
 // forward's out and lse. dtype:
-// 0 = float32, 1 = bfloat16; key_bias ([B, S] fp32) and seg ([B, S] int32)
-// may each be null; lse and delta are [B*H, S] fp32. dropout != 0
-// regenerates the forward's keep mask from (seed_lo, seed_hi, threshold);
-// inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
+// 0 = float32, 1 = bfloat16, 2 = float16; key_bias ([B, S] fp32) and seg
+// ([B, S] int32) may each be null; lse and delta are [B*H, S] fp32.
+// dropout != 0 regenerates the forward's keep mask from (seed_lo, seed_hi,
+// threshold); inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
 int flash_attention_dq(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const float* lse,
                        float* delta, void* dq, const float* key_bias,
@@ -1137,36 +1226,26 @@ int flash_attention_dq_wgmma(const void* q, const void* k, const void* v,
                              float scale, int dropout, uint32_t seed_lo,
                              uint32_t seed_hi, uint32_t threshold,
                              float inv_keep, void* stream) {
-  const void* ptrs[6] = {q, k, v, out, dout, dq};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || seq <= 0 || heads <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint2 seed = make_uint2(seed_lo, seed_hi);
-  const bool drop = dropout != 0;
-  cudaError_t err;
-  switch (head_dim) {
-    case 32:
-      err = dispatch_dq_wgmma<32>(drop, q, k, v, out, dout, lse, delta, dq,
-                                  key_bias, seg, batch, seq, heads, scale,
-                                  seed, threshold, inv_keep, s);
-      break;
-    case 64:
-      err = dispatch_dq_wgmma<64>(drop, q, k, v, out, dout, lse, delta, dq,
-                                  key_bias, seg, batch, seq, heads, scale,
-                                  seed, threshold, inv_keep, s);
-      break;
-    case 128:
-      err = dispatch_dq_wgmma<128>(drop, q, k, v, out, dout, lse, delta, dq,
-                                   key_bias, seg, batch, seq, heads, scale,
-                                   seed, threshold, inv_keep, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return dq_wgmma_entry<__nv_bfloat16>(
+      q, k, v, out, dout, lse, delta, dq, key_bias, seg, batch, seq, heads,
+      head_dim, scale, dropout, seed_lo, seed_hi, threshold, inv_keep,
+      stream);
+}
+
+// The same for float16 tensors.
+int flash_attention_dq_wgmma_fp16(const void* q, const void* k,
+                                  const void* v, const void* out,
+                                  const void* dout, const float* lse,
+                                  float* delta, void* dq,
+                                  const float* key_bias, const int* seg,
+                                  int batch, int seq, int heads, int head_dim,
+                                  float scale, int dropout, uint32_t seed_lo,
+                                  uint32_t seed_hi, uint32_t threshold,
+                                  float inv_keep, void* stream) {
+  return dq_wgmma_entry<__half>(
+      q, k, v, out, dout, lse, delta, dq, key_bias, seg, batch, seq, heads,
+      head_dim, scale, dropout, seed_lo, seed_hi, threshold, inv_keep,
+      stream);
 }
 
 // The dkv kernel's CUDA-core route: dk, dv and dbias ([B*H, S] fp32, the
@@ -1202,31 +1281,27 @@ int flash_attention_dkv_wgmma(const void* q, const void* k, const void* v,
                               uint32_t seed_lo, uint32_t seed_hi,
                               uint32_t threshold, float inv_keep,
                               void* stream) {
-  const void* ptrs[6] = {q, k, v, dout, dk, dv};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || seq <= 0 || heads <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint2 seed = make_uint2(seed_lo, seed_hi);
-  const bool drop = dropout != 0;
-  cudaError_t err;
-  switch (head_dim) {
-    case 32:
-      err = dispatch_dkv_wgmma<32>(drop, q, k, v, dout, lse, delta, dk, dv,
-                                   dbias, key_bias, seg, batch, seq, heads,
-                                   scale, seed, threshold, inv_keep, s);
-      break;
-    case 64:
-      err = dispatch_dkv_wgmma<64>(drop, q, k, v, dout, lse, delta, dk, dv,
-                                   dbias, key_bias, seg, batch, seq, heads,
-                                   scale, seed, threshold, inv_keep, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return dkv_wgmma_entry<__nv_bfloat16>(
+      q, k, v, dout, lse, delta, dk, dv, dbias, key_bias, seg, batch, seq,
+      heads, head_dim, scale, dropout, seed_lo, seed_hi, threshold, inv_keep,
+      stream);
+}
+
+// The same for float16 tensors.
+int flash_attention_dkv_wgmma_fp16(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   void* dk, void* dv, float* dbias,
+                                   const float* key_bias, const int* seg,
+                                   int batch, int seq, int heads,
+                                   int head_dim, float scale, int dropout,
+                                   uint32_t seed_lo, uint32_t seed_hi,
+                                   uint32_t threshold, float inv_keep,
+                                   void* stream) {
+  return dkv_wgmma_entry<__half>(
+      q, k, v, dout, lse, delta, dk, dv, dbias, key_bias, seg, batch, seq,
+      heads, head_dim, scale, dropout, seed_lo, seed_hi, threshold, inv_keep,
+      stream);
 }
 
 const char* flash_attention_bwd_error(int code) {

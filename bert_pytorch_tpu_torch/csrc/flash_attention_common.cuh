@@ -1,5 +1,6 @@
 // Pieces shared by the training flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): dtype conversions, the
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): dtype conversions
+// (fp32, bf16 and fp16), the
 // half-warp reductions, and the counter-based dropout generator.
 //
 // Dropout: Philox4x32-10 keyed by the 64-bit seed and counted by
@@ -17,6 +18,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +35,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -41,6 +44,13 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+// Round to nearest, not saturating: past 65504 an fp16 value is inf, as
+// the JAX kernels' astype(float16) makes it (an overflow must reach the
+// gradients, so the loss scaler skips the step).
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // The value an fp32 operand takes when it is rounded to T for a product.

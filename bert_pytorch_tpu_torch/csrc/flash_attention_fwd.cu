@@ -26,8 +26,10 @@
 // Two routes, chosen by the wrapper from dtype and head_dim before launch
 // (ops/kernels/attention.py `train_route`):
 //
-// * Tensor cores (`flash_fwd_wgmma_kernel`, bf16 with head_dim 32, 64 or
-//   128: every training forward of the repo's configs). The serving
+// * Tensor cores (`flash_fwd_wgmma_kernel`, bf16 or fp16 with head_dim 32,
+//   64 or 128: every training forward of the repo's configs; one template
+//   on the element type, whose wgmma input type, TMA data type and
+//   roundings of P and out follow it). The serving
 //   kernels' stream (flash_infer_wgmma.cuh) with its training additions:
 //   one warpgroup per (batch*head, 64-row q tile); TMA brings q once and
 //   K/V through a 2-stage ring; S = Q K^T and P V by `wgmma` (P from
@@ -266,26 +268,26 @@ cudaError_t dispatch(bool dropout, const void* q, const void* k,
                                 threshold, keep_scale, stream);
 }
 
-template <int D, bool kDropout>
+template <typename E, int D, bool kDropout>
 __global__ void __launch_bounds__(flash::wg::kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       __nv_bfloat16* __restrict__ out,
+                       E* __restrict__ out,
                        float* __restrict__ lse,
                        const float* __restrict__ key_bias,
                        const int* __restrict__ seg, int seq, int heads,
                        float scale, uint2 seed, uint32_t threshold,
                        float keep_scale) {
   extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
-  wg::Bf16Scores<D> scores{&qmap, &kmap};
+  wg::HalfScores<E, D> scores{&qmap, &kmap};
   wg::forward_stream<D, kDropout>(scores, scale, &vmap, out, key_bias, seg,
                                   seq, heads,
                                   reinterpret_cast<uint8_t*>(smem),
                                   wg::Train{lse, seed, threshold, keep_scale});
 }
 
-template <int D, bool kDropout>
+template <typename E, int D, bool kDropout>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, const float* key_bias,
                          const int* seg, int batch, int seq, int heads,
@@ -296,24 +298,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const void* srcs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     const cudaError_t err =
-        wg::bshd_map(&maps[i], srcs[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     kChunk, batch, seq, heads, D);
+        wg::bshd_map(&maps[i], srcs[i], wg::tma_type<E>(), 2, kChunk, batch,
+                     seq, heads, D);
     if (err != cudaSuccess) return err;
   }
-  constexpr size_t smem = wg::smem_bytes<wg::Bf16Scores<D>, D>();
+  constexpr size_t smem = wg::smem_bytes<wg::HalfScores<E, D>, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D, kDropout>,
+      flash_fwd_wgmma_kernel<E, D, kDropout>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq + wg::kRows - 1) / wg::kRows);
-  flash_fwd_wgmma_kernel<D, kDropout>
+  flash_fwd_wgmma_kernel<E, D, kDropout>
       <<<grid, wg::kThreads, smem, stream>>>(
-          maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse,
+          maps[0], maps[1], maps[2], static_cast<E*>(out), lse,
           key_bias, seg, seq, heads, scale, seed, threshold, keep_scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t dispatch_wgmma(bool dropout, const void* q, const void* k,
                            const void* v, void* out, float* lse,
                            const float* key_bias, const int* seg, int batch,
@@ -321,22 +323,61 @@ cudaError_t dispatch_wgmma(bool dropout, const void* q, const void* k,
                            uint32_t threshold, float keep_scale,
                            cudaStream_t stream) {
   if (dropout)
-    return launch_wgmma<D, true>(q, k, v, out, lse, key_bias, seg, batch, seq,
-                                 heads, scale, seed, threshold, keep_scale,
-                                 stream);
-  return launch_wgmma<D, false>(q, k, v, out, lse, key_bias, seg, batch, seq,
-                                heads, scale, seed, threshold, keep_scale,
-                                stream);
+    return launch_wgmma<E, D, true>(q, k, v, out, lse, key_bias, seg, batch,
+                                    seq, heads, scale, seed, threshold,
+                                    keep_scale, stream);
+  return launch_wgmma<E, D, false>(q, k, v, out, lse, key_bias, seg, batch,
+                                   seq, heads, scale, seed, threshold,
+                                   keep_scale, stream);
+}
+
+// The tensor-core route's entry for the element type E.
+template <typename E>
+int fwd_wgmma_entry(const void* q, const void* k, const void* v, void* out,
+                    float* lse, const float* key_bias, const int* seg,
+                    int batch, int seq, int heads, int head_dim, float scale,
+                    int dropout, uint32_t seed_lo, uint32_t seed_hi,
+                    uint32_t threshold, float keep_scale, void* stream) {
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  switch (head_dim) {
+    case 32:
+      err = dispatch_wgmma<E, 32>(drop, q, k, v, out, lse, key_bias, seg,
+                                  batch, seq, heads, scale, seed, threshold,
+                                  keep_scale, s);
+      break;
+    case 64:
+      err = dispatch_wgmma<E, 64>(drop, q, k, v, out, lse, key_bias, seg,
+                                  batch, seq, heads, scale, seed, threshold,
+                                  keep_scale, s);
+      break;
+    case 128:
+      err = dispatch_wgmma<E, 128>(drop, q, k, v, out, lse, key_bias, seg,
+                                   batch, seq, heads, scale, seed, threshold,
+                                   keep_scale, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The CUDA-core route. dtype: 0 = float32, 1 = bfloat16. key_bias ([B, S]
-// fp32) and seg ([B, S] int32) may each be null. dropout != 0 draws the
-// keep mask from (seed_lo, seed_hi) with keep iff bits >= threshold;
-// keep_scale = 1 - rate. Returns the launch's cudaError_t.
+// The CUDA-core route. dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+// key_bias ([B, S] fp32) and seg ([B, S] int32) may each be null. dropout
+// != 0 draws the keep mask from (seed_lo, seed_hi) with keep iff bits >=
+// threshold; keep_scale = 1 - rate. Returns the launch's cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, float* lse, const float* key_bias,
                         const int* seg, int batch, int seq, int heads,
@@ -344,19 +385,24 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         uint32_t seed_lo, uint32_t seed_hi,
                         uint32_t threshold, float keep_scale, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 ||
-      head_dim > 128 || head_dim % 8 != 0 || (dtype != 0 && dtype != 1))
+      head_dim > 128 || head_dim % 8 != 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint2 seed = make_uint2(seed_lo, seed_hi);
-  const cudaError_t err =
-      dtype == 0
-          ? dispatch<float>(dropout != 0, q, k, v, out, lse, key_bias, seg,
-                            batch, seq, heads, head_dim, scale, seed,
-                            threshold, keep_scale, s)
-          : dispatch<__nv_bfloat16>(dropout != 0, q, k, v, out, lse,
-                                    key_bias, seg, batch, seq, heads,
-                                    head_dim, scale, seed, threshold,
-                                    keep_scale, s);
+  const bool drop = dropout != 0;
+  cudaError_t err;
+  if (dtype == 0)
+    err = dispatch<float>(drop, q, k, v, out, lse, key_bias, seg, batch, seq,
+                          heads, head_dim, scale, seed, threshold, keep_scale,
+                          s);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16>(drop, q, k, v, out, lse, key_bias, seg,
+                                  batch, seq, heads, head_dim, scale, seed,
+                                  threshold, keep_scale, s);
+  else
+    err = dispatch<__half>(drop, q, k, v, out, lse, key_bias, seg, batch, seq,
+                           heads, head_dim, scale, seed, threshold,
+                           keep_scale, s);
   return static_cast<int>(err);
 }
 
@@ -371,36 +417,23 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                               uint32_t seed_lo, uint32_t seed_hi,
                               uint32_t threshold, float keep_scale,
                               void* stream) {
-  const void* ptrs[4] = {q, k, v, out};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || seq <= 0 || heads <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint2 seed = make_uint2(seed_lo, seed_hi);
-  const bool drop = dropout != 0;
-  cudaError_t err;
-  switch (head_dim) {
-    case 32:
-      err = dispatch_wgmma<32>(drop, q, k, v, out, lse, key_bias, seg, batch,
-                               seq, heads, scale, seed, threshold,
-                               keep_scale, s);
-      break;
-    case 64:
-      err = dispatch_wgmma<64>(drop, q, k, v, out, lse, key_bias, seg, batch,
-                               seq, heads, scale, seed, threshold,
-                               keep_scale, s);
-      break;
-    case 128:
-      err = dispatch_wgmma<128>(drop, q, k, v, out, lse, key_bias, seg,
-                                batch, seq, heads, scale, seed, threshold,
-                                keep_scale, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return fwd_wgmma_entry<__nv_bfloat16>(
+      q, k, v, out, lse, key_bias, seg, batch, seq, heads, head_dim, scale,
+      dropout, seed_lo, seed_hi, threshold, keep_scale, stream);
+}
+
+// The same for float16 q, k, v and out.
+int flash_attention_fwd_wgmma_fp16(const void* q, const void* k,
+                                   const void* v, void* out, float* lse,
+                                   const float* key_bias, const int* seg,
+                                   int batch, int seq, int heads,
+                                   int head_dim, float scale, int dropout,
+                                   uint32_t seed_lo, uint32_t seed_hi,
+                                   uint32_t threshold, float keep_scale,
+                                   void* stream) {
+  return fwd_wgmma_entry<__half>(
+      q, k, v, out, lse, key_bias, seg, batch, seq, heads, head_dim, scale,
+      dropout, seed_lo, seed_hi, threshold, keep_scale, stream);
 }
 
 const char* flash_attention_fwd_error(int code) {

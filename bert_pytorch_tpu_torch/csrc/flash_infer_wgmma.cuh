@@ -12,11 +12,15 @@
 // (+ -10000 where the packed ids differ or q's id is 0; product and sum
 // rounded apart, as the plain version rounds them), m from -1e30, l summing
 // the unrounded, undropped probabilities, P (dropped where the keep mask
-// drops) rounded to bf16 before PV with fp32 accumulation, out = acc / l
-// (/ (1 - rate) in training) in bf16, keys past S at probability 0 by
-// index and rows past S not written; only e^x differs, taken by the
-// hardware's ex2.approx. Training also writes lse = m + log(l) (the
-// accurate log) as [B*H, S] fp32. Only bf16 v (and out) take this route.
+// drops) rounded to v's 16-bit type before PV with fp32 accumulation,
+// out = acc / l (/ (1 - rate) in training) in that type, keys past S at
+// probability 0 by index and rows past S not written; only e^x differs,
+// taken by the hardware's ex2.approx. Training also writes lse = m +
+// log(l) (the accurate log) as [B*H, S] fp32. bf16 v (and out) take this
+// route, and in training fp16 too: the stream is a template on the element
+// type E (__nv_bfloat16 or __half), which sets the wgmma instructions'
+// input type, the TMA maps' and the rounding of P and out (to nearest,
+// not saturating).
 //
 // Design, one thread block per (batch*head, 64 query rows), one warpgroup
 // (128 threads), from the pieces of wgmma_common.cuh:
@@ -26,13 +30,14 @@
 //     thread is past it, so the next tile is in flight while this one is
 //     computed.
 //   * S = Q K^T is `wgmma.mma_async` m64n64 with both operands K-major in
-//     shared memory (k16 for bf16, k32 for int8 -> int32, exact); the
+//     shared memory (k16 for bf16 and fp16, k32 for int8 -> int32, exact);
+//     the
 //     Scores object issues it and hands back raw fp32 products.
 //   * The online softmax runs on the accumulator fragments: thread t of
 //     warp w owns rows 16w + t/4 and 16w + t/4 + 8 and, per 8-key block j,
 //     keys 8j + 2(t%4) and one more; row max and row sum reduce over the 4
 //     threads of a quad with shuffles.
-//   * P, rounded to bf16 in registers, is the A operand of the PV wgmma as
+//   * P, rounded to E in registers, is the A operand of the PV wgmma as
 //     it stands (the S accumulator's fragment layout is the A-fragment
 //     layout), and V is the B operand, MN-major (keys by D, D contiguous),
 //     read with wgmma's transpose bit.
@@ -59,11 +64,11 @@ namespace wg {
 // elements (element e: row row0 + 8 * ((e >> 1) & 1), key k0 + 8 * (e >> 2)
 // + col0 + (e & 1)), given the raw scores s and the bias kb and ids kid of
 // its 16 keys: updates the running max m and this thread's share of the
-// row sum l, leaves P in bf16 pairs (the A fragments of four k16 steps)
+// row sum l, leaves P in E pairs (the A fragments of four k16 steps)
 // and the factor alpha the output must be rescaled by. kFull: every key of
 // the tile lies before S, so no key is masked by index. kDropout: l sums
 // every probability, then P is zeroed where bit e of `keep` is 0.
-template <bool kFull, bool kDropout>
+template <typename E, bool kFull, bool kDropout>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], const float (&kb)[16], const int (&kid)[16],
     const int (&qid)[2], bool segmented, float scale, int k0, int col0,
@@ -102,14 +107,14 @@ __device__ __forceinline__ void softmax_tile(
       p0 = (keep >> e) & 1u ? p0 : 0.f;
       p1 = (keep >> (e + 1)) & 1u ? p1 : 0.f;
     }
-    p[e >> 1] = pack_bf16(p0, p1);
+    p[e >> 1] = pack2<E>(p0, p1);
   }
 }
 
-// The fp score tile of #4 and #1: bf16 q and K tiles by TMA, S = Q K^T by
-// wgmma m64n64k16 (bf16 -> fp32).
-template <int D>
-struct Bf16Scores {
+// The fp score tile of #4 and #1: q and K tiles in the 16-bit type E by
+// TMA, S = Q K^T by wgmma m64n64k16 (E -> fp32).
+template <typename E, int D>
+struct HalfScores {
   static constexpr int kQBytes = Tile<2 * D>::kBytes;
   static constexpr int kKBytes = kQBytes;
   const CUtensorMap* qmap;
@@ -129,8 +134,8 @@ struct Bf16Scores {
     wgmma_fence();
 #pragma unroll
     for (int step = 0; step < D / 16; ++step)
-      mma_bf16_ss(s, k_major<2 * D>(qs, step), k_major<2 * D>(ks, step),
-                  step > 0);
+      mma_ss<E>(s, k_major<2 * D>(qs, step), k_major<2 * D>(ks, step),
+                step > 0);
     wgmma_commit();
   }
   __device__ __forceinline__ void finish(float (&s)[32]) const {
@@ -139,8 +144,12 @@ struct Bf16Scores {
   }
 };
 
+// The score tile of the bf16 serving kernel #4.
+template <int D>
+using Bf16Scores = HalfScores<__nv_bfloat16, D>;
+
 // Dynamic shared memory a kernel of this route asks for: the q tile, two
-// K and two V stages (bf16 V, rows of 2 * head_dim bytes), three mbarriers,
+// K and two V stages (16-bit V, rows of 2 * head_dim bytes), three mbarriers,
 // and 1024 bytes to align the base for the 128-byte swizzle.
 template <class Scores, int D>
 constexpr size_t smem_bytes() {
@@ -166,12 +175,14 @@ struct Train {
 //   finish(s)                 wait for it and leave the raw fp32 products in
 //                             s (the stream multiplies them by `scale`).
 // `Extra` is Serve or Train; kDropout (Train only) draws the keep mask.
+// E, the type of v and out, is the type P is rounded to.
 // Launch: grid (batch * heads, ceil(seq / 64)), kThreads threads,
 // smem_bytes<Scores, D>() of dynamic shared memory.
-template <int D, bool kDropout = false, class Scores, class Extra = Serve>
+template <int D, bool kDropout = false, class Scores, class Extra = Serve,
+          typename E>
 __device__ __forceinline__ void forward_stream(
     Scores& scores, float scale, const CUtensorMap* vmap,
-    __nv_bfloat16* __restrict__ out, const float* __restrict__ key_bias,
+    E* __restrict__ out, const float* __restrict__ key_bias,
     const int* __restrict__ seg, int seq, int heads, uint8_t* smem_raw,
     const Extra& extra = Extra{}) {
   constexpr bool kTrain = std::is_same_v<Extra, Train>;
@@ -257,13 +268,13 @@ __device__ __forceinline__ void forward_stream(
     scores.finish(s);
 
     float alpha[2];
-    uint32_t p[16];  // P in bf16 pairs: the A fragments of four k16 steps
+    uint32_t p[16];  // P in E pairs: the A fragments of four k16 steps
     if (full)
-      softmax_tile<true, kDropout>(s, kb, kid, qid, segmented, scale, k0,
-                                   col0, seq, keep, m, l, alpha, p);
+      softmax_tile<E, true, kDropout>(s, kb, kid, qid, segmented, scale, k0,
+                                      col0, seq, keep, m, l, alpha, p);
     else
-      softmax_tile<false, kDropout>(s, kb, kid, qid, segmented, scale, k0,
-                                    col0, seq, keep, m, l, alpha, p);
+      softmax_tile<E, false, kDropout>(s, kb, kid, qid, segmented, scale,
+                                       k0, col0, seq, keep, m, l, alpha, p);
 #pragma unroll
     for (int i = 0; i < kOut; ++i) o[i] *= alpha[(i >> 1) & 1];
 
@@ -274,7 +285,7 @@ __device__ __forceinline__ void forward_stream(
     for (int step = 0; step < 4; ++step) {
       const uint32_t a[4] = {p[4 * step], p[4 * step + 1], p[4 * step + 2],
                              p[4 * step + 3]};
-      mma_pv<D>(o, a, mn_major<2 * D>(v_s + st * V::kBytes, step));
+      mma_pv<E, D>(o, a, mn_major<2 * D>(v_s + st * V::kBytes, step));
     }
     wgmma_commit();
     wgmma_wait();
@@ -298,13 +309,11 @@ __device__ __forceinline__ void forward_stream(
         extra.lse[static_cast<long long>(blockIdx.x) * seq + s] =
             m[r] + logf(sum);
     }
-    __nv_bfloat16* dst = out + base + s * row_stride + col0;
+    E* dst = out + base + s * row_stride + col0;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(dst + 8 * jj) = pack2<E>(
           o[4 * jj + 2 * r] / denom, o[4 * jj + 2 * r + 1] / denom);
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) = v;
-    }
   }
 }
 

@@ -2,12 +2,13 @@
 //
 // Replaces the TPU kernel `_ln_fwd_kernel` (bert_pytorch_tpu/ops/pallas/
 // layernorm.py, called through `_ln_forward` and `layer_norm_pallas`).
-// For x [rows, H] in fp32 or bf16 and fp32 scale/bias [H], per row:
+// For x [rows, H] in fp32, bf16 or fp16 and fp32 scale/bias [H], per row:
 //
 //   mean = sum(x) / H                      (fp32)
 //   var  = sum((x - mean)^2) / H           (two passes, as the TPU kernel)
 //   rstd = rsqrt(var + eps)
-//   out  = ((x - mean) * rstd) * scale + bias, cast to x's dtype
+//   out  = ((x - mean) * rstd) * scale + bias, cast to x's dtype (round
+//          to nearest: an fp16 value past 65504 is inf, as on the TPU)
 //
 // and mean, rstd saved as fp32 [rows, 1] for the backward (plain PyTorch,
 // as the JAX package's backward is plain XLA). A row whose values are all
@@ -18,7 +19,7 @@
 // in registers (at most 128 fp32 values a lane at H = 4096), so x is read
 // from device memory once and both reductions are warp shuffles: no shared
 // memory and no second read. Each lane loads 16 bytes at a time (8 bf16 or
-// 4 fp32, neighbouring lanes on neighbouring addresses) where H and every
+// fp16, or 4 fp32, neighbouring lanes on neighbouring addresses) where H and every
 // pointer allow it, and one element at a time otherwise. The affine step
 // is rounded as the plain version rounds it (a multiply, then an add: no
 // fused multiply-add), so with equal statistics the outputs are equal.
@@ -29,6 +30,7 @@
 // bound is 15 us at 3.35 TB/s.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -42,6 +44,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -51,6 +54,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even, as torch's cast
 }
 
 // kVec contiguous elements at p as floats: one 16-byte load where kVec
@@ -215,22 +222,24 @@ cudaError_t run(const void* x, const float* scale, const float* bias,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. x and out [rows, hidden] contiguous,
-// scale and bias [hidden] fp32, mean and rstd [rows] fp32. Returns the
-// launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. x and out [rows, hidden]
+// contiguous, scale and bias [hidden] fp32, mean and rstd [rows] fp32.
+// Returns the launch's cudaError_t.
 int layer_norm_fwd(const void* x, const float* scale, const float* bias,
                    void* out, float* mean, float* rstd, long long rows,
                    int hidden, int dtype, float eps, void* stream) {
   if (rows <= 0 || hidden <= 0 || hidden > kMaxHidden ||
       (rows + kWarps - 1) / kWarps > 0x7fffffffLL ||
-      (dtype != 0 && dtype != 1))
+      dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? run<float>(x, scale, bias, out, mean, rstd, rows, hidden,
-                              eps, s)
-                 : run<__nv_bfloat16>(x, scale, bias, out, mean, rstd, rows,
-                                      hidden, eps, s);
+      dtype == 0   ? run<float>(x, scale, bias, out, mean, rstd, rows, hidden,
+                                eps, s)
+      : dtype == 1 ? run<__nv_bfloat16>(x, scale, bias, out, mean, rstd, rows,
+                                        hidden, eps, s)
+                   : run<__half>(x, scale, bias, out, mean, rstd, rows, hidden,
+                                 eps, s);
   return static_cast<int>(err);
 }
 

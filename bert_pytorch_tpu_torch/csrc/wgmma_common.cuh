@@ -14,11 +14,14 @@
 //   * `wgmma` shared-memory descriptors for K-major operands (rows of K
 //     contiguous) and MN-major B operands (read with the transpose bit),
 //     and the products the kernels use: d (+)= A B^T from shared memory
-//     (bf16 m64n64k16, int8 m64n64k32) and d += A B with A (64 x 16 bf16)
-//     from registers, in the S accumulator's fragment layout.
+//     (bf16 or fp16 m64n64k16, int8 m64n64k32) and d += A B with A (64 x
+//     16 bf16 or fp16) from registers, in the S accumulator's fragment
+//     layout. The 16-bit element type E (__nv_bfloat16 or __half) is a
+//     template parameter: the instruction's `.bf16.bf16` or `.f16.f16`,
+//     the TMA map's data type and the pair packing follow it.
 //   * The fragment helpers: pinning accumulator registers across an
-//     asynchronous wgmma, bf16 pair packing, quad reductions and e^x by
-//     `ex2.approx`.
+//     asynchronous wgmma, 16-bit pair packing (round to nearest, not
+//     saturating), quad reductions and e^x by `ex2.approx`.
 //
 // Accumulator fragment of an m64nN fp32 tile: thread t of warp w holds
 // element e (0 <= e < N/2) at row 16w + (t%32)/4 + 8 * ((e >> 1) & 1),
@@ -29,6 +32,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,6 +40,15 @@
 
 namespace flash {
 namespace wg {
+
+// The TMA data type of a 16-bit element type.
+template <typename E>
+constexpr CUtensorMapDataType tma_type() {
+  static_assert(std::is_same_v<E, __nv_bfloat16> || std::is_same_v<E, __half>,
+                "bf16 or fp16");
+  return std::is_same_v<E, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = 64;      // rows of a tile (wgmma M)
@@ -236,18 +249,26 @@ __device__ __forceinline__ void pin(R (&r)[N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, "         \
   "%24, %25, %26, %27, %28, %29, %30, %31}"
 
-// d (+)= A B^T for a 64 x 64 fp32 tile, bf16 A and B K-major in shared
-// memory; `accumulate` 0 overwrites d.
-__device__ __forceinline__ void mma_bf16_ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_WG_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16),
-        FLASH_WG8("+f", d, 24)
-      : "l"(a), "l"(b), "r"(accumulate));
+// d (+)= A B^T for a 64 x 64 fp32 tile, A and B K-major in shared memory
+// in the 16-bit type E (bf16 or fp16); `accumulate` 0 overwrites d.
+#define FLASH_MMA_SS(TY)                                                    \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY               \
+      " " FLASH_WG_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                  \
+      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16), \
+        FLASH_WG8("+f", d, 24)                                              \
+      : "l"(a), "l"(b), "r"(accumulate))
+
+template <typename E>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                       int accumulate) {
+  if constexpr (std::is_same_v<E, __half>)
+    FLASH_MMA_SS("f16");
+  else
+    FLASH_MMA_SS("bf16");
 }
+#undef FLASH_MMA_SS
 
 // The same for int8 A and B (k32), int32 d: exact.
 __device__ __forceinline__ void mma_s8_ss(int (&d)[32], uint64_t a, uint64_t b,
@@ -261,71 +282,88 @@ __device__ __forceinline__ void mma_s8_ss(int (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d += A B for one k16 step: A (64 x 16 bf16) from registers in the
+// d += A B for one k16 step: A (64 x 16, in E) from registers in the
 // accumulator's fragment layout (P in the forward; dS in dq; P^T and dS^T
 // in dkv), B (16 x N) MN-major in shared memory (transpose bit set: V in
 // the forward, K in dq, dO and q in dkv); d is 64 x N fp32, N = 32, 64 or
 // 128.
-template <int N>
+#define FLASH_MMA_PV32(TY)                                                 \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "                            \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                         \
+      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8)                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+#define FLASH_MMA_PV64(TY)                                                 \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      FLASH_WG_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"       \
+      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16), \
+        FLASH_WG8("+f", d, 24)                                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+#define FLASH_MMA_PV128(TY)                                                \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                           \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                         \
+      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16), \
+        FLASH_WG8("+f", d, 24), FLASH_WG8("+f", d, 32),                    \
+        FLASH_WG8("+f", d, 40), FLASH_WG8("+f", d, 48),                    \
+        FLASH_WG8("+f", d, 56)                                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename E, int N>
 __device__ __forceinline__ void mma_pv(float (&d)[N / 2],
-                                       const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void mma_pv<32>(float (&d)[16],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+                                       const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 64 || N == 128, "N = 32, 64 or 128");
+  constexpr bool kHalf = std::is_same_v<E, __half>;
+  if constexpr (N == 32) {
+    if constexpr (kHalf) FLASH_MMA_PV32("f16"); else FLASH_MMA_PV32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (kHalf) FLASH_MMA_PV64("f16"); else FLASH_MMA_PV64("bf16");
+  } else {
+    if constexpr (kHalf) FLASH_MMA_PV128("f16"); else FLASH_MMA_PV128("bf16");
+  }
 }
-
-template <>
-__device__ __forceinline__ void mma_pv<64>(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16),
-        FLASH_WG8("+f", d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_pv<128>(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16),
-        FLASH_WG8("+f", d, 24), FLASH_WG8("+f", d, 32),
-        FLASH_WG8("+f", d, 40), FLASH_WG8("+f", d, 48),
-        FLASH_WG8("+f", d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+#undef FLASH_MMA_PV32
+#undef FLASH_MMA_PV64
+#undef FLASH_MMA_PV128
 
 #undef FLASH_WG8
 #undef FLASH_WG_REGS32
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two fp32 values rounded to nearest into one word of E pairs (lo in the
+// low half). Not saturating: an fp16 value past 65504 becomes inf, as the
+// JAX kernels' astype(float16) makes it.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<E, __half>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+// The two fp32 values of a word of E pairs.
+template <typename E>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (std::is_same_v<E, __half>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -339,8 +377,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // e^x as 2^(x log2 e) by the special-function unit's `ex2.approx`
-// (relative error about 2^-22, far inside the bf16 rounding P takes next;
-// results below the smallest normal flush to 0, as exp(-10000) does).
+// (relative error about 2^-22, far inside the bf16 or fp16 rounding P
+// takes next; results below the smallest normal flush to 0, as exp(-10000) does).
 __device__ __forceinline__ float exp_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));

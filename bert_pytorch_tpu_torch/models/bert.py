@@ -229,6 +229,40 @@ class Embed(nn.Module):
         return F.embedding(ids, self.compute_weight())
 
 
+class _FewRowsEmbedding(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient sums each row's tokens by one
+    masked reduction per row, in a fixed order. ``F.embedding``'s CUDA
+    backward sums the rows of a small table, each repeated thousands of
+    times, in an order that varies from run to run: on an H100, BERT's two
+    token-type rows in fp16 differed between two runs of the same step
+    (``tools/probe_determinism.py --dtype float16 --pair repeat``; equal
+    under PyTorch's deterministic mode), so a resumed fp16 run did not
+    repeat the uninterrupted one bit for bit."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        grad = grad.reshape(-1, grad.shape[-1])
+        flat = ids.reshape(-1, 1)
+        zero = grad.new_zeros(())
+        dweight = torch.stack([torch.where(flat == row, grad, zero).sum(0)
+                               for row in range(ctx.rows)])
+        return None, dweight
+
+
+def embed_few_rows(ids: torch.Tensor, table: Embed) -> torch.Tensor:
+    """``table(ids)`` with a weight gradient that is the same on every
+    run (:class:`_FewRowsEmbedding`), for tables of a few rows (one masked
+    pass over the gradient per row)."""
+    return _FewRowsEmbedding.apply(ids, table.compute_weight())
+
+
 class LayerNorm(nn.Module):
     """Affine LayerNorm; parity with ``BertLayerNorm`` (modeling.py:311-336).
     fp32 statistics, result in the input's dtype. ``backend`` is the flax
@@ -308,7 +342,8 @@ class BertEmbeddings(nn.Module):
         if self.config.next_sentence:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
-            x = x + self.token_type_embeddings(token_type_ids)
+            x = x + embed_few_rows(token_type_ids,
+                                   self.token_type_embeddings)
         x = self.layer_norm(x)
         if dropout_seed is None:
             return x

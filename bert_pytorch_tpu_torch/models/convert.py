@@ -56,11 +56,13 @@ HEAD_SUBTREES = {
     "multiple_choice": ("bert", "head"),
     "pretraining": ("bert", "predictions"),
 }
-ROADMAP_FP16 = ("ROADMAP.md, \"The rest of pretraining\": fp16, "
-                "dynamic_loss_scale and --dtype float16")
 ROADMAP_TF = ("ROADMAP.md, \"The rest of finetuning\": --init_checkpoint "
               "from TF checkpoints")
 _STACKED = "bert/encoder/layers/"
+# The optimizer subtrees of a training checkpoint: the JAX ``OptState``,
+# and the fp16 ``LossScaleState`` that wraps one under ``inner``.
+OPT_STATE_KEYS = frozenset(("count", "mu", "nu"))
+LOSS_SCALE_KEYS = frozenset(("scale", "growth_count", "inner"))
 STACKED_PATH = ("bert", "encoder", "layers")
 
 
@@ -243,29 +245,48 @@ def optimizer_to_jax(model: torch.nn.Module,
     ``OptState`` subtree, the dict flax writes for that NamedTuple:
     ``{"count": int32 scalar array, "mu": params-shaped first moments,
     "nu": second moments}``, the moments of each parameter under its
-    params name and layout (:func:`to_jax_params`)."""
+    params name and layout (:func:`to_jax_params`). A ``DynamicLossScale``
+    (fp16) writes the JAX ``LossScaleState`` around it: ``{"scale": f32,
+    "growth_count": i32, "inner": OptState}``."""
     from bert_pytorch_tpu_torch.optim import transforms
 
     mu, nu = transforms.moments(optimizer, dict(model.named_parameters()))
-    return {"count": np.asarray(transforms.opt_step_count(optimizer),
+    tree = {"count": np.asarray(transforms.opt_step_count(optimizer),
                                 np.int32),
             "mu": to_jax_params(mu, config, head, keep_device),
             "nu": to_jax_params(nu, config, head, keep_device)}
+    if isinstance(optimizer, transforms.DynamicLossScale):
+        return {"scale": np.asarray(optimizer.scale, np.float32),
+                "growth_count": np.asarray(optimizer.growth_count, np.int32),
+                "inner": tree}
+    return tree
 
 
-def check_optimizer_tree(names, where: str) -> None:
-    """Refuse an optimizer subtree the port cannot continue: the JAX fp16
-    ``LossScaleState`` ``{scale, growth_count, inner}`` (ROADMAP_FP16), or
-    anything but ``{count, mu, nu}``."""
+def check_optimizer_tree(names, where: str, loss_scaled: bool = False,
+                         inner_names=()) -> None:
+    """Refuse an optimizer subtree the optimizer cannot continue from: a
+    plain Adam-family optimizer takes an ``OptState`` ``{count, mu, nu}``;
+    a ``DynamicLossScale`` (``loss_scaled``) the fp16 ``LossScaleState``
+    ``{scale, growth_count, inner}`` whose ``inner`` (its keys
+    ``inner_names``) is an OptState. A loss-scaled tree for a run without
+    the scaler, or the reverse, raises ``ValueError`` naming
+    ``--dtype float16``; any other tree ``KeyError``."""
     names = set(names)
-    if {"scale", "growth_count", "inner"} & names:
-        raise NotImplementedError(
-            f"{where} holds a loss-scaled (fp16) optimizer state "
-            f"{sorted(names)}; the port has no fp16 loss scaling yet "
-            f"({ROADMAP_FP16})")
-    if names != {"count", "mu", "nu"}:
-        raise KeyError(f"{where}: optimizer subtree {sorted(names)} is not "
-                       "an OptState {count, mu, nu}")
+    if names == LOSS_SCALE_KEYS and set(inner_names) == OPT_STATE_KEYS:
+        if not loss_scaled:
+            raise ValueError(
+                f"{where} holds a loss-scaled (fp16) optimizer state; "
+                "resume it with --dtype float16")
+        return
+    if names == OPT_STATE_KEYS:
+        if loss_scaled:
+            raise ValueError(
+                f"{where} holds an optimizer state without a loss scale; "
+                "a --dtype float16 run resumes only a loss-scaled one")
+        return
+    raise KeyError(f"{where}: optimizer subtree {sorted(names)} is not an "
+                   "OptState {count, mu, nu} or a LossScaleState {scale, "
+                   "growth_count, inner: OptState}")
 
 
 def optimizer_from_jax(tree: dict, model: torch.nn.Module,
@@ -273,14 +294,23 @@ def optimizer_from_jax(tree: dict, model: torch.nn.Module,
                        head: str) -> None:
     """Load a JAX ``OptState`` subtree (:func:`optimizer_to_jax`'s layout)
     into ``optimizer``: the count into every param group, mu and nu into
-    each parameter's ``exp_avg`` and ``exp_avg_sq``."""
+    each parameter's ``exp_avg`` and ``exp_avg_sq``; for a
+    ``DynamicLossScale``, a ``LossScaleState`` whose scale and growth count
+    it takes too."""
     from bert_pytorch_tpu_torch.optim import transforms
 
-    check_optimizer_tree(tree, "optimizer state")
+    loss_scaled = isinstance(optimizer, transforms.DynamicLossScale)
+    inner = tree.get("inner")
+    check_optimizer_tree(tree, "optimizer state", loss_scaled,
+                         inner if isinstance(inner, dict) else ())
+    state = inner if loss_scaled else tree
     transforms.load_moments(
         optimizer, dict(model.named_parameters()), int(np.asarray(
-            tree["count"])), from_jax_params(tree["mu"], config, head),
-        from_jax_params(tree["nu"], config, head))
+            state["count"])), from_jax_params(state["mu"], config, head),
+        from_jax_params(state["nu"], config, head))
+    if loss_scaled:
+        optimizer.load_scale_state(float(np.asarray(tree["scale"])),
+                                   int(np.asarray(tree["growth_count"])))
 
 
 def quantize_module(module: str, leaves: Dict[str, torch.Tensor],

@@ -49,10 +49,12 @@ Training, the port of ``flash_attention`` (``_flash_fwd_kernel``,
   the kernel, dtype and head_dim alone, before the launch, as
   :func:`infer_route` is for serving: ``"tensor_cores"`` (``wgmma`` + TMA;
   the forward on the serving kernels' stream, csrc/flash_infer_wgmma.cuh)
-  for bf16 with head_dim in :data:`TRAIN_TENSOR_CORE_HEAD_DIMS`,
+  for bf16 and fp16 with head_dim in :data:`TRAIN_TENSOR_CORE_HEAD_DIMS`,
   ``"cuda_cores"`` for the rest. A failed build or launch raises on either
-  route; neither falls back to the other. Each wrapper counts launches
-  per route in ``.route_launches``.
+  route; neither falls back to the other, and an fp16 tensor is never
+  converted to bf16. Each wrapper counts launches per route in
+  ``.route_launches``. The training kernels take fp32, bf16 and fp16; the
+  serving kernels fp32 and bf16 (no JAX entry point serves fp16).
 * :func:`flash_attention_reference` — the plain, differentiable PyTorch
   version of :func:`flash_attention` (autograd through tensor ops).
 * :func:`philox_keep_mask` — the dropout mask: Philox4x32-10 keyed by the
@@ -68,7 +70,10 @@ row sum ``l`` counts the undropped probabilities, P rounded to v's dtype
 before the PV product with fp32 accumulation, 1/(1-rate) applied at the
 normalisation, and the output in q's dtype. In the backward, dS is rounded
 to k's / q's dtype before the dq / dk products and the kept P / (1-rate)
-to dO's dtype before dv, as the Pallas kernels do. The scale is applied to
+to dO's dtype before dv, as the Pallas kernels do. Each rounding is to
+nearest and not saturating: an fp16 value past 65504 becomes inf, as the
+JAX kernels' ``astype`` makes it, so an overflow under a large loss scale
+reaches the gradients and the step is skipped. The scale is applied to
 the fp32 scores; the dense path (ops/attention.py) scales q in its own
 dtype instead, so in bf16 the two routes round differently.
 """
@@ -83,7 +88,12 @@ import torch
 from bert_pytorch_tpu_torch.ops import quant
 from bert_pytorch_tpu_torch.ops.kernels import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The dtypes each kernel family takes.
+_INFER_DTYPES = (torch.float32, torch.bfloat16)
+_TRAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The tensor-core entry points are one per 16-bit type: the name's suffix.
+_WGMMA_SUFFIX = {torch.bfloat16: "", torch.float16: "_fp16"}
 # Head dims of the serving kernels' tensor-core route: rows of 32, 64 or a
 # multiple of 128 bytes in int8 and bf16, the widths a TMA swizzle span
 # takes whole.
@@ -179,11 +189,11 @@ def train_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """The route a CUDA launch of the training kernel ``kernel``
     (``"flash_attention_fwd"``, ``"flash_attention_dq"`` or
     ``"flash_attention_dkv"``) takes, from q's dtype and head_dim:
-    ``"tensor_cores"`` for bf16 with head_dim in
+    ``"tensor_cores"`` for bf16 or fp16 with head_dim in
     ``TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]`` (32, 64 and 128 for the forward
     and dq; 32 and 64 for dkv, whose dK and dV at 128 would not fit one
     warpgroup's registers), else ``"cuda_cores"``."""
-    if (dtype == torch.bfloat16
+    if (dtype in _WGMMA_SUFFIX
             and head_dim in TRAIN_TENSOR_CORE_HEAD_DIMS[kernel]):
         return "tensor_cores"
     return "cuda_cores"
@@ -216,18 +226,24 @@ _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     "flash_attention_fwd": {
         "flash_attention_fwd": ([_PTR] * 7 + [_INT] * 5 + [_F32, _INT]
                                 + [_U32] * 3 + [_F32, _PTR]),
-        "flash_attention_fwd_wgmma": ([_PTR] * 7 + [_INT] * 4 + [_F32, _INT]
-                                      + [_U32] * 3 + [_F32, _PTR]),
+        **dict.fromkeys(("flash_attention_fwd_wgmma",
+                         "flash_attention_fwd_wgmma_fp16"),
+                        [_PTR] * 7 + [_INT] * 4 + [_F32, _INT]
+                        + [_U32] * 3 + [_F32, _PTR]),
     },
     "flash_attention_bwd": {
         "flash_attention_dq": ([_PTR] * 10 + [_INT] * 5 + [_F32, _INT]
                                + [_U32] * 3 + [_F32, _PTR]),
-        "flash_attention_dq_wgmma": ([_PTR] * 10 + [_INT] * 4 + [_F32, _INT]
-                                     + [_U32] * 3 + [_F32, _PTR]),
+        **dict.fromkeys(("flash_attention_dq_wgmma",
+                         "flash_attention_dq_wgmma_fp16"),
+                        [_PTR] * 10 + [_INT] * 4 + [_F32, _INT]
+                        + [_U32] * 3 + [_F32, _PTR]),
         "flash_attention_dkv": ([_PTR] * 11 + [_INT] * 5 + [_F32, _INT]
                                 + [_U32] * 3 + [_F32, _PTR]),
-        "flash_attention_dkv_wgmma": ([_PTR] * 11 + [_INT] * 4 + [_F32, _INT]
-                                      + [_U32] * 3 + [_F32, _PTR]),
+        **dict.fromkeys(("flash_attention_dkv_wgmma",
+                         "flash_attention_dkv_wgmma_fp16"),
+                        [_PTR] * 11 + [_INT] * 4 + [_F32, _INT]
+                        + [_U32] * 3 + [_F32, _PTR]),
     },
 }
 
@@ -240,9 +256,10 @@ def _library(name: str) -> ctypes.CDLL:
 
 def _check(name: str, q: torch.Tensor, same: Dict[str, torch.Tensor],
            key_bias, seg, stats: Optional[Dict[str, torch.Tensor]] = None,
-           q_label: str = "q") -> None:
+           q_label: str = "q", dtypes: Sequence = _INFER_DTYPES) -> None:
     """Raise on what the kernels do not take: q [B, S, H, D] contiguous
-    float32/bfloat16 with head_dim a multiple of 8 up to 128; ``same``
+    in one of ``dtypes`` (the serving kernels' float32/bfloat16 unless
+    given) with head_dim a multiple of 8 up to 128; ``same``
     tensors of q's shape, dtype and device; the key bias [B, S] fp32 and
     the ids [B, S] int32; ``stats`` (lse, delta) [B*H, S] fp32 — each
     contiguous and on q's device, since the kernels read them by pointer.
@@ -257,9 +274,9 @@ def _check(name: str, q: torch.Tensor, same: Dict[str, torch.Tensor],
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: {label} must match {q_label}'s dtype "
                              f"and device ({q.dtype}, {q.device})")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
-                        "(float32, bfloat16)")
+                        f"({', '.join(str(d)[6:] for d in dtypes)})")
     batch, seq, heads, depth = q.shape
     if depth % 8 or depth > 128:
         raise ValueError(f"{name}: head_dim {depth} must be a multiple of "
@@ -633,7 +650,7 @@ def flash_attention_fwd(q, k, v, key_bias=None, seg=None, seed=None,
     _dropout_args(seed, rate)
     if _device_of(name, q) == "cpu":
         return _forward_math(q, k, v, key_bias, seg, seed, rate)
-    _check(name, q, {"k": k, "v": v}, key_bias, seg)
+    _check(name, q, {"k": k, "v": v}, key_bias, seg, dtypes=_TRAIN_DTYPES)
     return _launch_fwd(q, k, v, key_bias, seg, seed, rate,
                        train_route(q.dtype, q.shape[3], name))
 
@@ -655,7 +672,8 @@ def _launch_fwd(q, k, v, key_bias, seg, seed, rate, route: str):
     with torch.cuda.device(q.device):
         if route == "tensor_cores":
             _check_aligned(name, {"q": q, "k": k, "v": v, "out": out})
-            rc = lib.flash_attention_fwd_wgmma(*args, *tail)
+            rc = getattr(lib, "flash_attention_fwd_wgmma"
+                         + _WGMMA_SUFFIX[q.dtype])(*args, *tail)
         else:
             rc = lib.flash_attention_fwd(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, name, name)
@@ -677,7 +695,7 @@ def flash_attention_dq(q, k, v, out, do, lse, key_bias=None, seg=None,
     if _device_of(name, q) == "cpu":
         return _dq_math(q, k, v, out, do, lse, key_bias, seg, seed, rate)
     _check(name, q, {"k": k, "v": v, "out": out, "do": do}, key_bias, seg,
-           {"lse": lse})
+           {"lse": lse}, dtypes=_TRAIN_DTYPES)
     return _launch_dq(q, k, v, out, do, lse, key_bias, seg, seed, rate,
                       train_route(q.dtype, q.shape[3], name))
 
@@ -701,7 +719,8 @@ def _launch_dq(q, k, v, out, do, lse, key_bias, seg, seed, rate,
         if route == "tensor_cores":
             _check_aligned(name, {"q": q, "k": k, "v": v, "out": out,
                                   "do": do, "dq": dq})
-            rc = lib.flash_attention_dq_wgmma(*args, *tail)
+            rc = getattr(lib, "flash_attention_dq_wgmma"
+                         + _WGMMA_SUFFIX[q.dtype])(*args, *tail)
         else:
             rc = lib.flash_attention_dq(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, "flash_attention_bwd", name)
@@ -721,7 +740,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, key_bias=None, seg=None,
     if _device_of(name, q) == "cpu":
         return _dkv_math(q, k, v, do, lse, delta, key_bias, seg, seed, rate)
     _check(name, q, {"k": k, "v": v, "do": do}, key_bias, seg,
-           {"lse": lse, "delta": delta})
+           {"lse": lse, "delta": delta}, dtypes=_TRAIN_DTYPES)
     return _launch_dkv(q, k, v, do, lse, delta, key_bias, seg, seed, rate,
                        train_route(q.dtype, q.shape[3], name))
 
@@ -746,7 +765,8 @@ def _launch_dkv(q, k, v, do, lse, delta, key_bias, seg, seed, rate,
         if route == "tensor_cores":
             _check_aligned(name, {"q": q, "k": k, "v": v, "do": do,
                                   "dk": dk, "dv": dv})
-            rc = lib.flash_attention_dkv_wgmma(*args, *tail)
+            rc = getattr(lib, "flash_attention_dkv_wgmma"
+                         + _WGMMA_SUFFIX[q.dtype])(*args, *tail)
         else:
             rc = lib.flash_attention_dkv(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, "flash_attention_bwd", name)

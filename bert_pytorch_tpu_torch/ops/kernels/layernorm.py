@@ -17,7 +17,8 @@ through ``_ln_forward`` and ``layer_norm_pallas``).
 
 Numerics (every version): fp32 mean, variance as the mean of the centered
 squares, ``rstd = rsqrt(var + eps)``, ``out = (x - mean) * rstd * scale +
-bias`` cast to x's dtype, and mean/rstd kept as fp32 [rows, 1].
+bias`` cast to x's dtype (fp32, bf16 or fp16; rounded to nearest), and
+mean/rstd kept as fp32 [rows, 1].
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from bert_pytorch_tpu_torch.ops.kernels import build
 
 _NAME = "layer_norm_fwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The largest hidden size the kernel holds in registers (128 values a lane).
 MAX_HIDDEN = 4096
 _PTR = ctypes.c_void_p
@@ -54,14 +55,14 @@ def layer_norm_fwd_reference(x2d: torch.Tensor, scale: torch.Tensor,
 
 def _check(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
     """Raise on what the kernel does not take: x [rows, H] contiguous
-    float32/bfloat16 with 0 < H <= MAX_HIDDEN and rows > 0; scale and bias
+    float32/bfloat16/float16 with 0 < H <= MAX_HIDDEN and rows > 0; scale and bias
     contiguous fp32 [H] on x's device."""
     if x2d.dim() != 2:
         raise ValueError(f"{_NAME}: x must be [rows, H], got "
                          f"{tuple(x2d.shape)}")
     if x2d.dtype not in _DTYPE_CODES:
         raise TypeError(f"{_NAME}: dtype {x2d.dtype} not supported "
-                        "(float32, bfloat16)")
+                        "(float32, bfloat16, float16)")
     rows, hidden = x2d.shape
     if rows == 0 or not 0 < hidden <= MAX_HIDDEN:
         raise ValueError(f"{_NAME}: needs rows > 0 and 0 < H <= "

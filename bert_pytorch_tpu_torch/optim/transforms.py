@@ -28,8 +28,13 @@ semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
   model's parameters with :func:`no_decay_mask`, the counterpart of the
   JAX ``weight_decay_mask``.
 
-``dynamic_loss_scale`` (fp16) and LAMB's ``trust_clip`` are not ported
-yet.
+* fp16 training wraps any of them in :class:`DynamicLossScale`, the
+  counterpart of the JAX ``dynamic_loss_scale`` (GradScaler semantics):
+  the caller multiplies the loss by ``scale``, and the wrapper unscales
+  the gradients, skips a step whose gradients are not all finite and
+  grows or backs off the scale.
+
+LAMB's ``trust_clip`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from __future__ import annotations
 import re
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.optim import schedules
@@ -312,3 +318,77 @@ class BertAdam(_Adam):
                     max=1.0).to(g.dtype) for key, g in zip(keys, grads)]
             for p, upd in self._updates(group, grads):
                 self._apply(p, (-group["lr"] * upd).to(p.dtype), updates)
+
+
+class DynamicLossScale:
+    """fp16 dynamic loss scaling around an Adam-family optimizer: the JAX
+    ``dynamic_loss_scale`` (optim/transforms.py; torch GradScaler's
+    defaults: init 2**16, growth 2x after ``growth_interval`` finite steps,
+    backoff 0.5x), with its state ``{scale: f32, growth_count: i32,
+    inner}`` (the JAX ``LossScaleState``).
+
+    The caller multiplies the loss by :attr:`scale` before the backward;
+    :meth:`step` multiplies every ``.grad`` by ``1 / scale`` (fp32, in
+    place) and then:
+
+    * all finite: the inner step runs; after ``growth_interval``
+      consecutive finite steps the scale doubles and the count resets;
+    * any inf or nan: the step is skipped (parameters, moments and the
+      inner count unchanged, no update recorded), the scale halves and
+      the count resets to 0.
+
+    The skip is decided on the host: one read of one device scalar per
+    step. ``param_groups`` and ``state`` are the inner optimizer's, so
+    :func:`reset_count`, :func:`opt_step_count`, :func:`moments` and
+    :func:`load_moments` see through the wrapper and the scale survives
+    the phase switch."""
+
+    GROWTH_FACTOR, BACKOFF_FACTOR = 2.0, 0.5
+
+    def __init__(self, inner: torch.optim.Optimizer,
+                 init_scale: float = 2.0 ** 16, growth_interval: int = 2000):
+        self.inner = inner
+        self.scale = float(np.float32(init_scale))
+        self.growth_count = 0
+        self.growth_interval = int(growth_interval)
+
+    @property
+    def param_groups(self) -> List[dict]:
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def load_scale_state(self, scale: float, growth_count: int) -> None:
+        """Set the scale and growth count (a checkpoint's)."""
+        self.scale = float(np.float32(scale))
+        self.growth_count = int(growth_count)
+
+    @torch.no_grad()
+    def step(self, closure=None, updates=None) -> bool:
+        """Unscale, then step or skip; returns whether the step ran.
+        ``updates`` is passed to the inner step (a skipped step records
+        none: its updates are zero)."""
+        if closure is not None:
+            raise ValueError("DynamicLossScale.step takes no closure")
+        grads = [p.grad for group in self.param_groups
+                 for p in group["params"] if p.grad is not None]
+        inv = float(np.float32(1.0) / np.float32(self.scale))
+        finite = True
+        if grads:
+            torch._foreach_mul_(grads, inv)
+            # max |g| is finite iff every element is (nan propagates).
+            finite = bool(torch.isfinite(torch.stack(
+                torch._foreach_norm(grads, float("inf")))).all())
+        if finite:
+            self.inner.step(updates=updates)
+            self.growth_count += 1
+            if self.growth_count >= self.growth_interval:
+                self.scale = float(np.float32(self.scale
+                                              * self.GROWTH_FACTOR))
+                self.growth_count = 0
+        else:
+            self.scale = float(np.float32(self.scale * self.BACKOFF_FACTOR))
+            self.growth_count = 0
+        return finite

@@ -1,6 +1,6 @@
 """Pretraining engine: the train step (first-order, or preconditioned by
 K-FAC) and the eval step, the port of the JAX package's ``pretrain.py``
-(``make_train_step`` without bucketed overlap or fp16 loss scaling;
+(``make_train_step`` without bucketed overlap, with fp16 loss scaling;
 ``make_kfac_fns`` as :func:`make_kfac_loss`; ``make_eval_step``;
 ``stack_microbatches``).
 
@@ -13,7 +13,10 @@ its dropout seeds (embeddings + one per layer) from the step's
 microbatch and per layer. With K-FAC the averaged gradients are
 preconditioned before the optimizer, in the JAX step's order (factors
 captured in the step's own backward, due inverses, precondition,
-``grad_norm``, optimizer).
+``grad_norm``, optimizer). In fp16 each microbatch's loss is multiplied
+by the loss scale before its backward, and the optimizer (a
+``DynamicLossScale``) unscales, skips an overflowing step and adjusts the
+scale.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 
 from bert_pytorch_tpu_torch.models.bert import draw_dropout_seeds
 from bert_pytorch_tpu_torch.models.losses import mlm_accuracy, pretraining_loss
-from bert_pytorch_tpu_torch.optim.transforms import global_norm
+from bert_pytorch_tpu_torch.optim.transforms import (DynamicLossScale,
+                                                     global_norm)
 from bert_pytorch_tpu_torch.telemetry import model_stats
 
 
@@ -90,7 +94,8 @@ def make_train_step(model: torch.nn.Module,
                     kfac_factor_interval: int = 1,
                     kfac_inv_interval: int = 0,
                     kfac_capture_microbatches: str = "first",
-                    stats_every: int = 0, stats_phase: int = 0):
+                    stats_every: int = 0, stats_phase: int = 0,
+                    loss_scale: bool = False):
     """Build ``step(batch) -> metrics`` for [A, B, ...] batches
     (input_ids/segment_ids/input_mask/masked_lm_labels [A, B, S],
     next_sentence_labels [A, B] or [A, B, K], and for packed rows
@@ -117,9 +122,24 @@ def make_train_step(model: torch.nn.Module,
     inverses are rebuilt inside the step, from the factors it just
     captured, where ``count % kfac_inv_interval == 0``. ``kfac_state`` is
     updated in place. Without ``kfac_fused`` the caller drives
-    ``kfac.update_factors`` / ``update_inverses`` (the stats flow)."""
+    ``kfac.update_factors`` / ``update_inverses`` (the stats flow).
+
+    ``loss_scale=True`` is the fp16 mode (the JAX ``loss_scale``):
+    ``optimizer`` is a ``DynamicLossScale``; each microbatch's loss is
+    multiplied by its current scale before the backward, ``grad_norm``
+    is the true norm (the scaled norm over the scale), ``loss_scale``
+    reports the scale the step used, and the grad-health block (when
+    ``stats_every`` > 0) runs on every step with its grad norms unscaled.
+    An overflowing step's ``grad_norm`` is inf, so ``finite`` is 0 and
+    the sentinel sees it as the JAX runner's does."""
     if kfac is not None and schedule is None:
         raise ValueError("kfac preconditioning requires a schedule")
+    if kfac is not None and loss_scale:
+        raise ValueError(
+            "loss_scale composes with first-order optimizers only; K-FAC "
+            "runs in bf16/f32 where no scaler is needed")
+    if loss_scale and not isinstance(optimizer, DynamicLossScale):
+        raise ValueError("loss_scale needs a DynamicLossScale optimizer")
     if kfac_fused and kfac is None:
         raise ValueError("kfac_fused (the JAX kfac_capture_model) requires "
                          "kfac")
@@ -147,6 +167,7 @@ def make_train_step(model: torch.nn.Module,
         if kfac is not None and kfac_state is None:
             raise ValueError("a K-FAC step takes step(batch, kfac_state)")
         capture = kfac_fused and count % kfac_factor_interval == 0
+        scale = optimizer.scale if loss_scale else None
         sums = kfac.zero_statistics() if capture else None
         for p in params:
             p.grad = None
@@ -160,7 +181,7 @@ def make_train_step(model: torch.nn.Module,
             with kfac.capture(sums) if tapped else contextlib.nullcontext():
                 loss, acc = pretraining_loss_and_accuracy(
                     model, mb, next_sentence, max_pred_per_seq, seeds)
-                loss.backward()
+                (loss if scale is None else loss * scale).backward()
             losses.append(loss.detach())
             accs.append(acc.detach())
         if capture:
@@ -182,8 +203,11 @@ def make_train_step(model: torch.nn.Module,
             for name, p in named:
                 p.grad = pre[name]
         gnorm = global_norm(p.grad for p in params)
-        health = model_stats.step_with_health(optimizer, named, stats_every,
-                                              stats_phase)
+        if scale is not None:
+            gnorm = gnorm / scale  # the gradients carry the loss scale
+        health = model_stats.step_with_health(
+            optimizer, named, 1 if scale is not None and stats_every > 0
+            else stats_every, stats_phase, grad_scale=scale)
         losses = torch.stack(losses)
         metrics = {
             "loss": losses.mean(),
@@ -193,6 +217,8 @@ def make_train_step(model: torch.nn.Module,
                        & torch.isfinite(gnorm)).float(),
             "real_tokens": batch["input_mask"].sum().float(),
         }
+        if scale is not None:
+            metrics["loss_scale"] = torch.tensor(scale)
         if schedule is not None:
             metrics["learning_rate"] = torch.tensor(float(schedule(count)))
         if health is not None:

@@ -15,7 +15,7 @@ A run streams the HDF5 shards (data/dataset.py; dynamic masking, optional
 ``--pack_sequences``), stacks each global batch into ``accumulation_steps
 = global_batch_size / local_batch_size`` microbatches, and takes optimizer
 steps with pretrain.make_train_step (LAMB or AdamW with a warmup schedule,
-bf16 or fp32, ``--remat``, the ``flash`` attention kernels). Every
+bf16, fp16 or fp32, ``--remat``, the ``flash`` attention kernels). Every
 ``--log_steps`` it prints the loss, learning rate and sequences per
 second.
 
@@ -66,11 +66,19 @@ output keeps the port's one ``key value`` line per logged step. No
 TensorBoard files are written, with or without ``--disable_tensorboard``
 (accepted for the JAX command lines).
 
+``--dtype float16`` is the reference's mixed-precision recipe: fp16
+activations over fp32 master parameters, the optimizer wrapped in
+``DynamicLossScale`` (``--init_loss_scale``, default 2**16, and
+``--loss_scale_growth_interval``, default 2000, the JAX runner's flags);
+every train record carries ``loss_scale``, an overflowing step is skipped
+(``finite 0``) and the scale rides in the checkpoint's ``optimizer`` tree
+as the JAX runner's does. K-FAC with fp16 is refused, as in the JAX
+runner.
+
 Not ported yet, so rejected rather than ignored: meshes and multi-GPU
 (``--checkpoint_layout sharded`` is refused naming ROADMAP.md's
-"Multi-GPU layouts"; the sharded layout is read), fp16 loss scaling (a
-JAX fp16 checkpoint is refused), held-out evaluation, process-based
-loader workers, and the telemetry debug planes (``--debug_port``,
+"Multi-GPU layouts"; the sharded layout is read), held-out evaluation,
+process-based loader workers, and the telemetry debug planes (``--debug_port``,
 ``--postmortem_file``) and compile events; argparse refuses the flags it
 does not know.
 On-the-fly packing packs up to 8 sequences per row (the JAX runner's
@@ -115,12 +123,14 @@ from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.kfac import KFAC
 from bert_pytorch_tpu_torch.optim.schedules import SCHEDULES, make_schedule
-from bert_pytorch_tpu_torch.optim.transforms import (AdamW, Lamb,
+from bert_pytorch_tpu_torch.optim.transforms import (AdamW,
+                                                     DynamicLossScale, Lamb,
                                                      opt_step_count,
                                                      param_groups,
                                                      reset_count)
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32}
 # The JAX recipe's phase-2 config file names the fused kernels "pallas".
 BACKEND_ALIASES = {"pallas": "flash"}
 MAX_SEQUENCES_PER_PACK = 8
@@ -220,7 +230,15 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     telemetry.add_cli_args(parser, window_default=20, sync_every_default=4)
     # numerics / memory
     parser.add_argument("--dtype", type=str, default="bfloat16",
-                        choices=sorted(DTYPES))
+                        choices=sorted(DTYPES),
+                        help="activation dtype; float16 adds the dynamic "
+                             "loss scaler")
+    parser.add_argument("--init_loss_scale", type=float, default=2.0 ** 16,
+                        help="fp16 only: initial dynamic loss scale")
+    parser.add_argument("--loss_scale_growth_interval", type=int,
+                        default=2000,
+                        help="fp16 only: consecutive finite steps before "
+                             "the loss scale doubles")
     parser.add_argument("--remat", type=str, default="none",
                         choices=["none", "dots", "full"])
     parser.add_argument("--attention_backend", type=str, default="auto",
@@ -285,6 +303,10 @@ def setup_training(args) -> argparse.Namespace:
     args.layer_norm_backend = resolve_backend(args.layer_norm_backend)
     if args.dtype not in DTYPES:
         raise ValueError(f"dtype {args.dtype!r} is not one of {sorted(DTYPES)}")
+    if args.dtype == "float16" and args.kfac:
+        raise ValueError(
+            "--dtype float16 is the first-order parity mode; K-FAC runs in "
+            "bf16/f32 (no loss scaler needed)")
     if args.global_batch_size % args.local_batch_size:
         raise ValueError(
             f"global_batch_size={args.global_batch_size} must be divisible "
@@ -327,7 +349,8 @@ def prepare_model(args):
 
 
 def prepare_optimizer(args, model):
-    """(LAMB or AdamW over the no-decay param groups, schedule)."""
+    """(LAMB or AdamW over the no-decay param groups, in fp16 wrapped in
+    ``DynamicLossScale``; schedule)."""
     schedule = make_schedule(args.lr_decay, args.learning_rate,
                              args.warmup_proportion, args.max_steps)
     groups = param_groups(model, args.weight_decay)
@@ -335,6 +358,10 @@ def prepare_optimizer(args, model):
         optimizer = Lamb(groups, schedule, weight_decay=args.weight_decay)
     else:
         optimizer = AdamW(groups, schedule, weight_decay=args.weight_decay)
+    if args.dtype == "float16":
+        optimizer = DynamicLossScale(
+            optimizer, init_scale=args.init_loss_scale,
+            growth_interval=args.loss_scale_growth_interval)
     return optimizer, schedule
 
 
@@ -416,6 +443,8 @@ def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
         kfac.update_inverses(kfac_state)
     log({"event": "resume", "step": resume_step, "global_step": global_step,
          "optimizer_count": optimizer.param_groups[0]["count"],
+         **({"loss_scale": optimizer.scale}
+            if isinstance(optimizer, DynamicLossScale) else {}),
          "preconditioner": int(restored),
          "skipped": len(skipped),
          "seconds": time.perf_counter() - t0})
@@ -483,7 +512,8 @@ def make_step(args, model, optimizer, schedule, config, kfac=None,
         kfac_inv_interval=args.kfac_inv_interval if fused else 0,
         kfac_capture_microbatches=args.kfac_capture_microbatches,
         stats_every=telemetry.stats_every(args),
-        stats_phase=opt_step_count(optimizer))
+        stats_phase=opt_step_count(optimizer),
+        loss_scale=args.dtype == "float16")
     if kfac is None:
         return train_step
     if fused:

@@ -45,9 +45,15 @@ traces go to ``<output_dir>/squad_telemetry.jsonl`` (or
 ``--log_freq`` steps), ``<output_dir>/heartbeat.json`` and
 ``<output_dir>/profile``. No TensorBoard files are written.
 
+``--dtype float16`` is the reference's mixed-precision recipe: fp16
+activations over fp32 master parameters, the loss multiplied by the
+dynamic loss scale (``--init_loss_scale``, default 2**16) before the
+backward, AdamW's clipping on the true norm (the scaled norm over the
+scale), and the optimizer wrapped in ``DynamicLossScale``, which skips an
+overflowing step and backs off the scale, as the JAX runner's.
+
 Not ported yet, so rejected rather than ignored (argparse refuses their
-flags): ``--dtype float16`` and ``--init_loss_scale``, the BPE
-tokenizer, the telemetry debug planes, device prefetch, ``--mesh_data``
+flags): the BPE tokenizer, the telemetry debug planes, device prefetch, ``--mesh_data``
 and ``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives and
 the JAX package's msgpack checkpoints, not TF checkpoints
 (models/convert.py ``load_pretrained_encoder``).
@@ -84,6 +90,7 @@ from bert_pytorch_tpu_torch.models.losses import span_loss
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, BertAdam,
+                                                     DynamicLossScale,
                                                      global_norm,
                                                      param_groups)
 from bert_pytorch_tpu_torch.telemetry import model_stats
@@ -91,7 +98,8 @@ from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
 from bert_pytorch_tpu_torch.utils import flops as flops_util
 from bert_pytorch_tpu_torch.utils import preemption
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32}
 WEIGHT_DECAY = 0.01  # the JAX runner's optimizers' default
 
 
@@ -135,7 +143,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "bert_adam = its fp32 path")
     parser.add_argument("--max_grad_norm", type=float, default=1.0)
     parser.add_argument("--dtype", type=str, default="bfloat16",
-                        choices=sorted(DTYPES))
+                        choices=sorted(DTYPES),
+                        help="float16 adds the dynamic loss scaler")
+    parser.add_argument("--init_loss_scale", type=float, default=2.0 ** 16,
+                        help="fp16 only: initial dynamic loss scale")
     parser.add_argument("--log_freq", type=int, default=50)
     parser.add_argument("--json_summary", type=str, default="squad_log.json")
     parser.add_argument("--eval_script", type=str, default=None)
@@ -254,17 +265,24 @@ def features_to_tensors(features, is_training, device):
 
 def make_optimizer(args, model, total_steps: int):
     """AdamW (no bias correction) on the linear warmup schedule, or
-    BertAdam with that schedule inside; both over the no-decay groups."""
+    BertAdam with that schedule inside; both over the no-decay groups, in
+    fp16 wrapped in ``DynamicLossScale``."""
     groups = param_groups(model, WEIGHT_DECAY)
     if args.optimizer == "adamw":
         schedule = warmup_linear_schedule(
             args.learning_rate, args.warmup_proportion, total_steps,
             offset=0)
-        return AdamW(groups, schedule, weight_decay=WEIGHT_DECAY,
-                     bias_correction=False)
-    return BertAdam(groups, args.learning_rate, schedule="warmup_linear",
-                    warmup=args.warmup_proportion, t_total=total_steps,
-                    weight_decay=WEIGHT_DECAY)
+        optimizer = AdamW(groups, schedule, weight_decay=WEIGHT_DECAY,
+                          bias_correction=False)
+    else:
+        optimizer = BertAdam(groups, args.learning_rate,
+                             schedule="warmup_linear",
+                             warmup=args.warmup_proportion,
+                             t_total=total_steps, weight_decay=WEIGHT_DECAY)
+    if args.dtype == "float16":
+        optimizer = DynamicLossScale(optimizer,
+                                     init_scale=args.init_loss_scale)
+    return optimizer
 
 
 def make_train_step(model, optimizer, clip_norm: float,
@@ -276,10 +294,16 @@ def make_train_step(model, optimizer, clip_norm: float,
     ``metrics["loss"]`` is the loss (a device tensor);
     ``metrics["grad_health"]`` the grad-health block on steps whose
     pre-update optimizer count is a multiple of ``stats_every`` (0
-    disables)."""
+    disables). With a ``DynamicLossScale`` optimizer (fp16) the loss is
+    multiplied by its scale before the backward, the clipping reads the
+    true norm, and the grad-health block runs on every step with its grad
+    norms unscaled (the JAX ``finetune_grad_health`` with
+    ``fp16_scale``)."""
     num_layers = model.config.num_hidden_layers
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
+
+    fp16 = isinstance(optimizer, DynamicLossScale)
 
     def step(batch):
         for p in params:
@@ -290,15 +314,20 @@ def make_train_step(model, optimizer, clip_norm: float,
             dropout_seeds=seeds)
         loss = span_loss(start_logits, end_logits, batch["start_positions"],
                          batch["end_positions"])
-        loss.backward()
+        loss_scale = optimizer.scale if fp16 else None
+        (loss if loss_scale is None else loss * loss_scale).backward()
         if clip_norm > 0:
             grads = [p.grad for p in params if p.grad is not None]
-            scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-6),
-                                max=1.0)
+            norm = global_norm(grads)
+            if loss_scale is not None:
+                norm = norm / loss_scale  # clip on the true norm
+            scale = torch.clamp(clip_norm / (norm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(scale)
         metrics = {"loss": loss.detach()}
-        health = model_stats.step_with_health(optimizer, named, stats_every)
+        health = model_stats.step_with_health(
+            optimizer, named, 1 if fp16 and stats_every > 0 else stats_every,
+            grad_scale=loss_scale)
         if health is not None:
             metrics["grad_health"] = health
         return metrics
@@ -399,11 +428,14 @@ def train(args, model, config, tokenizer, device) -> dict:
     finally:
         stop.restore()
         tele.close()
-    return {"e2e_train_time": train_time,
-            "training_sequences_per_second": seqs / train_time,
-            "final_loss": step_losses[-1], "global_step": global_step,
-            "step_losses": step_losses,
-            "terminated_by_signal": stop.requested}
+    summary = {"e2e_train_time": train_time,
+               "training_sequences_per_second": seqs / train_time,
+               "final_loss": step_losses[-1], "global_step": global_step,
+               "step_losses": step_losses,
+               "terminated_by_signal": stop.requested}
+    if isinstance(optimizer, DynamicLossScale):
+        summary["loss_scale"] = optimizer.scale
+    return summary
 
 
 @torch.no_grad()

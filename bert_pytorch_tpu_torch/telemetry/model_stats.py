@@ -82,7 +82,8 @@ def _sumsq(norms: List[torch.Tensor], members: List[int]) -> torch.Tensor:
 
 def grad_health(names: Sequence[str], param_norms: List[torch.Tensor],
                 grad_norms: List[torch.Tensor],
-                update_norms: List[torch.Tensor]) -> dict:
+                update_norms: List[torch.Tensor],
+                grad_scale: Optional[float] = None) -> dict:
     """Grouped grad/param/update statistics (0-d device tensors) from the
     per-tensor norms (:func:`tensor_norms`) of the parameters BEFORE the
     update, the gradients the step applied and the updates the optimizer
@@ -92,7 +93,9 @@ def grad_health(names: Sequence[str], param_norms: List[torch.Tensor],
     {group: {"grad_norm", "param_norm", "update_ratio"}}}`` plus
     ``"per_layer_grad_norm"`` ([L]) when the model has encoder layers.
     ``update_ratio`` is ||update|| / ||param||, the step-relative weight
-    change."""
+    change. ``grad_scale`` divides the reported grad norms: fp16
+    gradients carry the dynamic loss scale, and a scaled norm would show
+    every doubling of the scale to the spike detector as a 2x spike."""
     members: Dict[str, List[int]] = {}
     layers: Dict[int, List[int]] = {}
     for i, name in enumerate(names):
@@ -100,6 +103,8 @@ def grad_health(names: Sequence[str], param_norms: List[torch.Tensor],
         match = _LAYER.match(name)
         if match:
             layers.setdefault(int(match.group(1)), []).append(i)
+    if grad_scale is not None:
+        grad_norms = [g / grad_scale for g in grad_norms]
     out_groups = {}
     tot_g = tot_p = tot_u = 0.0
     for key in sorted(members):
@@ -139,24 +144,34 @@ def is_due(count: int, every: int, phase: int = 0) -> bool:
 
 
 def step_with_health(optimizer, named: Sequence, every: int,
-                     phase: int = 0) -> Optional[dict]:
+                     phase: int = 0,
+                     grad_scale: Optional[float] = None) -> Optional[dict]:
     """One ``optimizer.step()``; on a due step (:func:`is_due` at the
     optimizer's pre-update count) also the block for
     ``metrics["grad_health"]``, else None. ``named`` is the step's (name,
-    parameter) list: the block reduces the parameters' norms taken just
-    before the step, their gradients and the updates the optimizer
-    applied (its ``step(updates=)`` dict). ``"due"`` is 1.0 (the host
-    reads the JAX block's flag)."""
+    parameter) list: the block reduces the parameters' norms and their
+    gradients' taken just before the step (the gradients the step is
+    given, as the JAX block reads those given to ``tx.update``) and the
+    updates the optimizer applied (its ``step(updates=)`` dict). ``"due"``
+    is 1.0 (the host reads the JAX block's flag).
+
+    ``grad_scale`` (fp16: the loss scale the gradients carry, the JAX
+    ``grad_scale`` / ``finetune_grad_health``'s ``fp16_scale``) divides
+    the reported grad norms, and the caller passes ``every`` 1: a skipped
+    overflow step does not advance the count, so a count gate would drift
+    off the host's sync cadence."""
     if not is_due(optimizer.param_groups[0]["count"], every, phase):
         optimizer.step()
         return None
     params = [p for _, p in named]
-    param_norms, updates = tensor_norms(params), {}
+    param_norms = tensor_norms(params)
+    grad_norms = tensor_norms([p.grad for p in params])
+    updates = {}
     optimizer.step(updates=updates)
     with torch.no_grad():
-        stats = grad_health([n for n, _ in named], param_norms,
-                            tensor_norms([p.grad for p in params]),
-                            tensor_norms([updates.get(p) for p in params]))
+        stats = grad_health([n for n, _ in named], param_norms, grad_norms,
+                            tensor_norms([updates.get(p) for p in params]),
+                            grad_scale)
     stats["due"] = 1.0
     return stats
 

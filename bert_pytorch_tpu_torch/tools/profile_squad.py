@@ -2,16 +2,18 @@
 the LayerNorm forward in plain PyTorch and in the hand-written kernel.
 
     python -m bert_pytorch_tpu_torch.tools.profile_squad \\
-        [--order plain,kernel,kernel,plain]
+        [--order plain,kernel,kernel,plain] [--dtype bfloat16,float16]
 
 Builds ``BertForQuestionAnswering`` at BERT-large width
 (configs/bert_large_uncased_config.json, seeded random weights) through
-run_squad's own functions (bf16, dense attention, AdamW without bias
-correction and global-norm clipping, the recipe's batch of 32 features at
-max_seq_length 384, doc_stride 128), on features of a seeded synthetic
-SQuAD file. For each LayerNorm backend of ``--order`` in turn (one model:
-the backend is switched on its LayerNorm modules, so both read the same
-kind of weights) it prints one JSON line with:
+run_squad's own functions (bf16, or each of the comma-separated
+``--dtype``s in turn, fp16 with its dynamic loss scale; dense attention,
+AdamW without bias correction and global-norm clipping, the recipe's
+batch of 32 features at max_seq_length 384, doc_stride 128), on features
+of a seeded synthetic SQuAD file. For each dtype, one model; for each
+LayerNorm backend of ``--order`` in turn (the backend is switched on the
+model's LayerNorm modules, so both read the same kind of weights) it
+prints one JSON line with:
 
 * ``step_ms`` — host clock around a train step that ends in a device
   synchronize (median of ITERS after two of warmup) and ``seq_per_s``;
@@ -52,9 +54,9 @@ LN_KERNEL = "layer_norm_fwd_kernel"
 ITERS = 5
 
 
-def build(tmp: str, predict_batch_size: int):
+def build(tmp: str, predict_batch_size: int, dtype: str = "bfloat16"):
     """(model, step, train batches, predict batch) from run_squad's own
-    functions at BERT-large width."""
+    functions at BERT-large width in ``dtype``."""
     from bert_pytorch_tpu_torch import run_squad, squad
     from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
@@ -66,7 +68,7 @@ def build(tmp: str, predict_batch_size: int):
         "--config_file", CONFIG, "--vocab_file", vocab, "--do_lower_case",
         "--train_file", train, "--predict_file", train, "--do_train",
         "--do_predict", "--output_dir", os.path.join(tmp, "out"),
-        "--skip_checkpoint", "--skip_cache", "--dtype", "bfloat16",
+        "--skip_checkpoint", "--skip_cache", "--dtype", dtype,
         "--max_steps", "100", "--seed", "0", "--predict_batch_size",
         str(predict_batch_size)])
     device = run_squad.setup_device(args)
@@ -154,6 +156,9 @@ def main(argv=None) -> int:
                         help="comma-separated LayerNorm backends, profiled "
                              "in this order on one model")
     parser.add_argument("--predict_batch_size", type=int, default=8)
+    parser.add_argument("--dtype", default="bfloat16",
+                        help="comma-separated model dtypes, each built and "
+                             "profiled over --order in turn")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_squad needs a CUDA card")
@@ -162,12 +167,16 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        model, step, batches, predict, bs = build(tmp,
-                                                  args.predict_batch_size)
-        for backend in args.order.split(","):
-            print(json.dumps(profile_turn(model, step, batches, predict,
-                                          backend, bs)), flush=True)
+    for dtype in args.dtype.split(","):
+        with tempfile.TemporaryDirectory() as tmp:
+            model, step, batches, predict, bs = build(
+                tmp, args.predict_batch_size, dtype)
+            for backend in args.order.split(","):
+                print(json.dumps(dict(profile_turn(
+                    model, step, batches, predict, backend, bs),
+                    dtype=dtype)), flush=True)
+            del model, step, batches, predict
+            torch.cuda.empty_cache()
     return 0
 
 

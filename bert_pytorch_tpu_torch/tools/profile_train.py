@@ -1,16 +1,17 @@
 """Where the pretraining step's time goes, on the card.
 
     python -m bert_pytorch_tpu_torch.tools.profile_train \\
-        [--attention_backend flash,dense] [--remat dots,none] [--kfac] \\
-        [--telemetry]
+        [--attention_backend flash,dense] [--remat dots,none] \\
+        [--dtype bfloat16,float16,float16,bfloat16] [--kfac] [--telemetry]
 
 Builds the phase-2 recipe (configs/bert_pretraining_phase2_config.json:
 seq 512, max_pred 80, LAMB with poly warmup) at BERT-large width
 (configs/bert_large_uncased_config.json, seeded random weights) through the
-runner's own setup functions (bf16, local batch 8 x accumulation 2, as
-chip_smoke.py trains), feeds it seeded synthetic batches masked by
-the port's dataset code, and prints one JSON line per (remat policy,
-backend) with:
+runner's own setup functions (bf16, or each of the comma-separated
+``--dtype``s in turn, fp16 with its dynamic loss scale; local batch 8 x
+accumulation 2, as chip_smoke.py trains), feeds it seeded synthetic
+batches masked by the port's dataset code, and prints one JSON line per
+(remat policy, backend, dtype) with:
 
 * ``step_ms`` — host clock around a whole optimizer step that ends in a
   device synchronize (median of ITERS steps after two of warmup),
@@ -25,7 +26,10 @@ backend) with:
   (and those on the tensor-core route) and share of device_ms; ``largest_gemm`` — the largest cuBLAS GEMM kernel
   by total time; ``kernels`` — the top kernels by device time;
 * ``host`` — the top operators by self CPU time in the same step (where
-  the host spends the time the card waits).
+  the host spends the time the card waits);
+* in fp16, ``loss_scales`` and ``skipped``: the scale of every step run
+  and how many of them overflowed (a skipped step runs its forward and
+  backward but no optimizer update).
 
 ``--kfac`` adds one JSON line (flash, remat dots) for K-FAC
 (``--kfac``, fused capture, factors and inverses due on every step: the
@@ -118,9 +122,9 @@ def device_rows(prof) -> list:
 
 
 def recipe_args(out: str, backend: str = "flash", remat: str = "dots",
-                extra=()):
+                extra=(), dtype: str = "bfloat16"):
     """The runner's arguments for the phase-2 recipe at BERT-large width
-    (bf16, local batch 8 x 2, no save, no grad-health block: the step
+    (``dtype``, local batch 8 x 2, no save, no grad-health block: the step
     alone, as this script has always timed it)."""
     from bert_pytorch_tpu_torch import run_pretraining
 
@@ -133,7 +137,7 @@ def recipe_args(out: str, backend: str = "flash", remat: str = "dots",
         "--steps", "1", "--skip_final_checkpoint", "--seed", "0",
         "--grad_stats_every", "0",
         "--attention_backend", backend, "--remat", remat,
-        "--dtype", "bfloat16", "--local_batch_size", str(LOCAL_BATCH),
+        "--dtype", dtype, "--local_batch_size", str(LOCAL_BATCH),
         "--global_batch_size", str(LOCAL_BATCH * ACCUMULATION_STEPS),
         *extra]))
 
@@ -150,31 +154,39 @@ def recipe_batches(args, config, count: int = 3) -> list:
         args.accumulation_steps), args.device) for i in range(count)]
 
 
-def timed_ms(step, batch) -> float:
-    """Host clock around one step that ends in a synchronize."""
+def timed_ms(step, batch, scales=None) -> float:
+    """Host clock around one step that ends in a synchronize; the step's
+    (loss scale, finite) go to ``scales`` when a list is given and the
+    step reports a loss scale (fp16)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = step(batch)
     float(metrics["loss"])
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    elapsed = (time.perf_counter() - t0) * 1e3
+    if scales is not None and "loss_scale" in metrics:
+        scales.append((float(metrics["loss_scale"]),
+                       float(metrics["finite"])))
+    return elapsed
 
 
-def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
+def profile_backend(backend: str, remat: str, iters: int = ITERS,
+                    dtype: str = "bfloat16") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from bert_pytorch_tpu_torch import run_pretraining
 
     out = tempfile.mkdtemp(prefix="profile_train_")  # no save happens
-    args = recipe_args(out, backend, remat)
+    args = recipe_args(out, backend, remat, dtype=dtype)
     model, config = run_pretraining.prepare_model(args)
     optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
     step = run_pretraining.make_step(args, model, optimizer, schedule,
                                      config)
     batches = recipe_batches(args, config)
+    scales: list = []
 
     def run(i):
-        return timed_ms(step, batches[i % len(batches)])
+        return timed_ms(step, batches[i % len(batches)], scales)
 
     for i in range(2):
         run(i)
@@ -239,6 +251,9 @@ def profile_backend(backend: str, remat: str, iters: int = ITERS) -> dict:
                  for n, ms, c in host[:10]],
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
+    if scales:
+        result["loss_scales"] = [s for s, _ in scales]
+        result["skipped"] = sum(1 for _, f in scales if f != 1.0)
     del model, optimizer, step, batches
     shutil.rmtree(out, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -435,6 +450,10 @@ def main(argv=None) -> int:
     parser.add_argument("--remat", default="dots",
                         help="comma-separated remat policies, each profiled "
                              "with every backend")
+    parser.add_argument("--dtype", default="bfloat16",
+                        help="comma-separated dtypes (bfloat16, float16, "
+                             "float32), each profiled in turn with every "
+                             "backend; repeat them to alternate")
     parser.add_argument("--kfac", action="store_true",
                         help="also the K-FAC step against the plain one")
     parser.add_argument("--telemetry", action="store_true",
@@ -451,7 +470,9 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
     for remat in args.remat.split(","):
         for backend in args.attention_backend.split(","):
-            print(json.dumps(profile_backend(backend, remat)), flush=True)
+            for dtype in args.dtype.split(","):
+                print(json.dumps(profile_backend(backend, remat,
+                                                 dtype=dtype)), flush=True)
     if args.kfac:
         print(json.dumps({"kfac": profile_kfac()}), flush=True)
     if args.telemetry:

@@ -20,8 +20,9 @@ tensor on the target's device and committing only once the whole state
 decoded and matched, so a failed restore leaves the model and optimizer
 as they were; a K-FAC ``preconditioner`` restores into the caller's
 ``optim.kfac.KFACState`` (checked key by key against it), or is
-byte-skipped when the caller has none; an fp16 ``LossScaleState`` is
-refused. :func:`load_latest_checkpoint` walks
+byte-skipped when the caller has none; an fp16 ``LossScaleState``
+restores into a ``DynamicLossScale`` (its scale and growth count, and the
+wrapped state as any other). :func:`load_latest_checkpoint` walks
 the retained checkpoints newest first, skipping (with a record naming
 step, path and reason) every file whose manifest or msgpack structure
 fails, and restores the first that passes. A sharded-layout index
@@ -458,11 +459,15 @@ def restore_training_state(path: str, model: torch.nn.Module,
     moments, must arrive with its shape: :class:`CheckpointShapeError`),
     the preconditioner to the host, and all are committed only then, so a
     failed restore leaves ``model``, ``optimizer`` and ``preconditioner``
-    untouched. A loss-scaled (fp16) optimizer state is refused
-    (``models/convert.py`` ROADMAP_FP16). A ``preconditioner`` subtree is
-    skipped undecoded, with a warning, when the caller passes no state
-    (a run without ``--kfac``, as the JAX runner skips it); a checkpoint
-    without one leaves the given state as it is. ``blob`` is the file's
+    untouched. A loss-scaled (fp16) optimizer state ``{scale,
+    growth_count, inner}`` restores into a ``DynamicLossScale`` (the
+    scale and growth count too; ``extras["loss_scale"]`` is the scale),
+    and a tree of the other kind than the optimizer raises ``ValueError``
+    (``models/convert.py`` ``check_optimizer_tree``). A
+    ``preconditioner`` subtree is skipped undecoded, with a warning, when
+    the caller passes no state (a run without ``--kfac``, as the JAX
+    runner skips it); a checkpoint without one leaves the given state as
+    it is. ``blob`` is the file's
     bytes when the caller has read and checked them
     (:func:`load_latest_checkpoint`)."""
     if blob is None:
@@ -482,11 +487,23 @@ def restore_training_state(path: str, model: torch.nn.Module,
                                             preconditioner)
     device = next(model.parameters()).device
     target = model.state_dict()
+    loss_scaled = isinstance(optimizer, transforms.DynamicLossScale)
     if optimizer is not None:
-        opt_index = flax_msgpack.decode(blob, offsets["optimizer"])[0] if (
-            SHARDED_KEY in offsets) else _map_offsets(blob,
-                                                      offsets["optimizer"])
-        convert_lib.check_optimizer_tree(opt_index, f"checkpoint {path}")
+        if SHARDED_KEY in offsets:
+            opt_index = flax_msgpack.decode(blob, offsets["optimizer"])[0]
+            inner = opt_index.get("inner") if isinstance(
+                opt_index, dict) else None
+        else:
+            opt_index = _map_offsets(blob, offsets["optimizer"])
+            inner = (_map_offsets(blob, opt_index["inner"])
+                     if "inner" in opt_index
+                     and flax_msgpack.is_map(blob, opt_index["inner"])
+                     else None)
+        convert_lib.check_optimizer_tree(
+            opt_index, f"checkpoint {path}", loss_scaled,
+            inner if isinstance(inner, dict) else ())
+    # The OptState's path: under "inner" of an fp16 LossScaleState.
+    opt_keys = ("optimizer", "inner") if loss_scaled else ("optimizer",)
     state = _decode_state(path, blob, offsets, ("model",), target, None,
                           device, partial=False)
     extras = {"count": None}
@@ -497,15 +514,23 @@ def restore_training_state(path: str, model: torch.nn.Module,
         moment_target = {n: torch.empty(p.shape, dtype=torch.float32,
                                         device="meta")
                          for n, p in params.items()}
-        mu, nu = (_decode_state(path, blob, offsets, ("optimizer", part),
+        mu, nu = (_decode_state(path, blob, offsets, opt_keys + (part,),
                                 moment_target, None, device, partial=False)
                   for part in ("mu", "nu"))
-        count = _decode_value(path, blob, offsets, ("optimizer", "count"))
+        count = _decode_value(path, blob, offsets, opt_keys + ("count",))
         extras["count"] = int(np.asarray(count))
+        if loss_scaled:
+            scale_state = [_decode_value(path, blob, offsets,
+                                         ("optimizer", key))
+                           for key in ("scale", "growth_count")]
+            extras["loss_scale"] = float(np.asarray(scale_state[0]))
     model.load_state_dict(state)
     del state
     if optimizer is not None:
         transforms.load_moments(optimizer, params, extras["count"], mu, nu)
+        if loss_scaled:
+            optimizer.load_scale_state(extras["loss_scale"],
+                                       int(np.asarray(scale_state[1])))
     for target, value in kfac_pairs or ():
         target.copy_(value)
     for key in ("sampler", "epoch"):

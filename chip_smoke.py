@@ -158,7 +158,25 @@ Phases (any failure exits non-zero and prints no result line):
    (``tools/profile_train.kfac_turns``); then at 2 layers of BERT-large
    width, fp32, dropout 0, the fused capture against the stats pass and
    remat none against dots, and eigen and cholesky preconditioning
-   against float64 and against each other (``check_kfac_parity``).
+   against float64 and against each other (``check_kfac_parity``);
+12. fp16 mixed precision: 12a (run with phases 3, 4 and 7, so fp16 and
+   bf16 are timed at the same point of the process) the training
+   forward, dq and dkv in fp16
+   against their plain versions (S in SEQS, padded and packed, rates 0
+   and 0.1, both routes, the tensor-core route's edges; within the fp16
+   row of TRAIN_TOL), their keep masks bit for bit, their times beside
+   fp16 SDPA, and the LayerNorm kernel in fp16 at [32*384, 1024] and
+   [8*512, 1024] (one fp16 ulp + LN_OUT_ATOL) beside fp16
+   ``F.layer_norm``; 12b phase 6 in fp16 (every step at the default loss
+   scale 65536, the first loss within 5% of phase 6's bf16 one, the same
+   launches, all on the tensor cores, peak memory); 12c the runner's own
+   loop from ``--init_loss_scale 2**40`` (``drive_fp16_overflow``): the
+   first step skipped with params and moments unchanged and the scale
+   halved, a sentinel record for every overflowing step, the scale
+   following the wrapper's rule until the steps train; 12d its final
+   save resumed in a fresh runner bit for bit, scale and growth count
+   included, and the next trained step bit-equal; 12e ``run_squad``
+   in fp16 as phase 8 (49 LayerNorm launches per forward, EM and F1).
 
 Every launch counter is set to 0 just before each main path and read just
 after it. The last three lines of standard output are the kernels JSON,
@@ -192,7 +210,8 @@ sys.path.insert(0, REPO)
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores,
 # HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 # Kernel-vs-plain tolerances: fp32 differs only in summation order; bf16
 # rounds P to bf16 before PV at tile-local maxima (the plain version rounds
@@ -278,6 +297,10 @@ def cuda_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Traces read again when one lost kernel events (device_time_ms).
+DEVICE_TIME_TRIES = 3
+
+
 def device_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Device time per call of ``fn``: the time of every CUDA kernel in a
     ``torch.profiler`` trace of ``iters`` calls after ``warmup``, summed
@@ -291,11 +314,20 @@ def device_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r[1] for r in device_rows(prof)) / iters
+    for attempt in range(DEVICE_TIME_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        events = sum(r[2] for r in rows)
+        # Every call launches the same kernels, so a count that is not a
+        # multiple of the calls means the trace lost events: read again.
+        if events % iters == 0:
+            break
+        log(f"[warn] device_time_ms: {events} kernel events in the trace of "
+            f"{iters} calls (try {attempt + 1} of {DEVICE_TIME_TRIES})")
+    return sum(r[1] for r in rows) / iters
 
 
 def attention_inputs(seq: int, dtype, packed: bool, gen: torch.Generator,
@@ -564,6 +596,13 @@ TRAIN_TOL = {
                      "dq": (2e-2, 2e-2), "delta": (2e-3, 1e-3),
                      "dk": (2e-2, 2e-2), "dv": (2e-2, 2e-2),
                      "dbias": (2e-3, 2e-2)},
+    # fp16 keeps 3 more significand bits than bf16: the outputs' bounds
+    # are bf16's over 5 (about 4 fp16 ulps at 1); delta sums fp16 values
+    # in fp32 as fp32 does; lse and dbias are fp32 sums, as in bf16.
+    torch.float16: {"out": (4e-3, 4e-3), "lse": (2e-5, 1e-6),
+                    "dq": (4e-3, 4e-3), "delta": (1e-4, 1e-5),
+                    "dk": (4e-3, 4e-3), "dv": (4e-3, 4e-3),
+                    "dbias": (2e-3, 2e-2)},
 }
 TRAIN_RATES = (0.0, 0.1)
 TRAIN_SEED = 0x0123456789ABCDEF
@@ -732,15 +771,15 @@ def check_training_case(label: str, q, k, v, do, key_bias, seg, rate: float,
         f"{key} {val:.2e}" for key, val in errs.items()))
 
 
-def check_training_kernels() -> dict:
+def check_training_kernels(dtypes=(torch.bfloat16, torch.float32)) -> dict:
     """Hold the forward, dq and dkv kernels against their plain versions on
-    the same inputs: S in SEQS, bf16 and fp32, padded and packed, dropout 0
-    and 0.1 with a fixed seed; in bf16 each on both routes.
+    the same inputs: S in SEQS, ``dtypes``, padded and packed, dropout 0
+    and 0.1 with a fixed seed; in bf16 and fp16 each on both routes.
     Returns the max error per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in TRAIN_REPLACES}
     for seq in SEQS:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             for packed in (False, True):
                 q, k, v, do, _, kb, seg = training_inputs(seq, dtype, packed,
                                                           gen)
@@ -759,28 +798,28 @@ def check_training_kernels() -> dict:
 TRAIN_EDGE_SEQ, TRAIN_EDGE_DEPTHS = 200, (32, 64, 128)
 
 
-def check_training_edges(worst: dict) -> None:
+def check_training_edges(worst: dict, dtype=torch.bfloat16) -> None:
     gen = torch.Generator(device="cuda").manual_seed(5)
     for depth in TRAIN_EDGE_DEPTHS:
         for packed in (False, True):
             q, k, v, do, _, kb, seg = training_inputs(
-                TRAIN_EDGE_SEQ, torch.bfloat16, packed, gen, depth,
-                empty_row=True)
+                TRAIN_EDGE_SEQ, dtype, packed, gen, depth, empty_row=True)
             for rate in TRAIN_RATES:
                 rows = ("packed (row 0 all pad)" if packed
                         else "padded (row 0 every key masked)")
                 check_training_case(
-                    f"S={TRAIN_EDGE_SEQ} D={depth} bfloat16 {rows} rate "
-                    f"{rate}", q, k, v, do, kb, seg, rate,
-                    TRAIN_TOL[torch.bfloat16], worst)
+                    f"S={TRAIN_EDGE_SEQ} D={depth} {str(dtype)[6:]} {rows} "
+                    f"rate {rate}", q, k, v, do, kb, seg, rate,
+                    TRAIN_TOL[dtype], worst)
 
 
-def check_keep_masks() -> dict:
-    """The keep mask each route of the forward, dq and dkv drew, read from
-    their outputs (bert_pytorch_tpu_torch/testing/dropout_masks.py), held
-    bit for bit against the plain Philox twin: at the main path's shape
-    (B=8, H=16, S=512) and at a ragged S=200, rates 0 and 0.1. Returns the
-    kept share per (S, rate)."""
+def check_keep_masks(dtype=torch.bfloat16) -> dict:
+    """The keep mask each route of the forward, dq and dkv drew on
+    ``dtype`` tensors, read from their outputs
+    (bert_pytorch_tpu_torch/testing/dropout_masks.py), held bit for bit
+    against the plain Philox twin: at the main path's shape (B=8, H=16,
+    S=512) and at a ragged S=200, rates 0 and 0.1. Returns the kept share
+    per (S, rate)."""
     from bert_pytorch_tpu_torch.testing import dropout_masks as dm
 
     shares = {}
@@ -790,7 +829,7 @@ def check_keep_masks() -> dict:
             for route in ("tensor_cores", "cuda_cores"):
                 for read in (dm.forward_keep_mask, dm.dq_keep_mask,
                              dm.dkv_keep_mask):
-                    got = read(batch, seq, heads, TRAIN_SEED, rate,
+                    got = read(batch, seq, heads, TRAIN_SEED, rate, dtype,
                                device="cuda", route=route)
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
@@ -799,13 +838,15 @@ def check_keep_masks() -> dict:
                             f" {int((got != want).sum())} of {got.numel()} "
                             "mask bits differ from philox_keep_mask")
             shares[f"S={seq} rate {rate}"] = want.float().mean().item()
-            log(f"[check] keep mask S={seq} rate {rate}: forward, dq and "
-                f"dkv, both routes, equal philox_keep_mask bit for bit (kept "
+            log(f"[check] keep mask {str(dtype)[6:]} S={seq} rate {rate}: "
+                f"forward, dq and dkv, both routes, equal philox_keep_mask "
+                f"bit for bit (kept "
                 f"share {shares[f'S={seq} rate {rate}']:.5f})")
     return shares
 
 
-def time_training_kernels(rate: float = 0.1) -> dict:
+def time_training_kernels(rate: float = 0.1,
+                          dtypes=(torch.bfloat16, torch.float32)) -> dict:
     """Times of each training kernel at the main path's shapes (padded
     rows, dropout ``rate``): device time per call (``torch.profiler``) of
     the kernel on each of its routes (_routes_of) and of SDPA forward and
@@ -819,7 +860,7 @@ def time_training_kernels(rate: float = 0.1) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = {name: [] for name in TRAIN_REPLACES}
     for seq in SEQS:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             q, k, v, do, kw, kb, seg = training_inputs(seq, dtype, False, gen)
             args = (kb, seg, TRAIN_SEED, rate)
             out, lse = ka._forward_math(q, k, v, *args)
@@ -1520,12 +1561,24 @@ def training_batches(args, config, count: int, seed0: int = 0) -> list:
         args.accumulation_steps), args.device) for i in range(count)]
 
 
-def drive_training(kernels: dict) -> dict:
+# fp16 against bf16 on the same seed: the first loss within 5% (the same
+# random init; only the activations' rounding differs).
+FP16_LOSS_RTOL = 0.05
+# The fp16 runner's default initial loss scale (the JAX runner's, 2**16).
+FP16_INIT_SCALE = 2.0 ** 16
+
+
+def drive_training(kernels: dict, dtype: str = "bfloat16",
+                   ref_first_loss=None) -> dict:
     """The training main path: the port runner's setup functions and train
-    step, TRAIN_STEPS optimizer steps of BERT-large phase 2."""
+    step, TRAIN_STEPS optimizer steps of BERT-large phase 2 in ``dtype``.
+    In float16 (phase 12b) every step record must carry the default loss
+    scale (no step overflowed) and the first loss lie within
+    FP16_LOSS_RTOL of ``ref_first_loss`` (phase 6's bf16 first loss on the
+    same seed)."""
     from bert_pytorch_tpu_torch import run_pretraining
 
-    args = run_pretraining.setup_training(training_args())
+    args = run_pretraining.setup_training(training_args(["--dtype", dtype]))
     if (args.remat, args.max_predictions_per_seq, args.lr_decay,
             args.optimizer) != ("dots", 80, "poly", "lamb"):
         raise AssertionError(f"not the phase-2 recipe: {vars(args)}")
@@ -1536,6 +1589,7 @@ def drive_training(kernels: dict) -> dict:
     batches = training_batches(args, config, TRAIN_STEPS)
     layers = config.num_hidden_layers
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     # Counts to zero just before the main path, read just after.
     zero_counts(kernels)
     records = []
@@ -1548,7 +1602,7 @@ def drive_training(kernels: dict) -> dict:
                   if k != "grad_health"}  # synchronises
         values["step_ms"] = (time.perf_counter() - t0) * 1e3
         records.append(values)
-        log(f"[train] step {len(records)}: " + ", ".join(
+        log(f"[train {dtype}] step {len(records)}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in values.items()))
     launches = {name: k.launches for name, k in kernels.items()}
     routes = {name: dict(k.route_launches) for name, k in kernels.items()
@@ -1560,6 +1614,15 @@ def drive_training(kernels: dict) -> dict:
     if abs(losses[0] - INIT_LOSS) > 1.0:
         raise AssertionError(f"first loss {losses[0]} is not within 1 of "
                              f"ln(30528) + ln(2) = {INIT_LOSS:.4f}")
+    if dtype == "float16":
+        scales = [r["loss_scale"] for r in records]
+        if scales != [FP16_INIT_SCALE] * TRAIN_STEPS:
+            raise AssertionError(f"fp16 loss scales {scales}: expected "
+                                 f"{FP16_INIT_SCALE} on every step")
+        if abs(losses[0] / ref_first_loss - 1.0) > FP16_LOSS_RTOL:
+            raise AssertionError(
+                f"fp16 first loss {losses[0]} is not within "
+                f"{FP16_LOSS_RTOL:.0%} of bf16's {ref_first_loss}")
     per_step = layers * args.accumulation_steps
     expected = {"flash_attention_fwd": 2 * per_step * TRAIN_STEPS,
                 "flash_attention_dq": per_step * TRAIN_STEPS,
@@ -1574,15 +1637,16 @@ def drive_training(kernels: dict) -> dict:
     for name in TRAIN_REPLACES:
         if routes[name]["tensor_cores"] != launches[name]:
             raise AssertionError(f"{name} launches by route {routes[name]}: "
-                                 "every bf16 launch must take the tensor "
-                                 "cores")
-    log(f"[train] launches {launches}; by route {routes}")
+                                 f"every {dtype} launch must take the "
+                                 "tensor cores")
+    log(f"[train {dtype}] launches {launches}; by route {routes}")
     steady = [r["step_ms"] for r in records[1:]]
     step_ms = statistics.median(steady)
     del model, optimizer, step, batches
     torch.cuda.empty_cache()
-    return {"steps": TRAIN_STEPS, "losses": losses, "launches": launches,
-            "routes": routes,
+    return {"steps": TRAIN_STEPS, "dtype": dtype, "losses": losses,
+            "loss_scales": [r.get("loss_scale") for r in records],
+            "launches": launches, "routes": routes,
             "step_ms": step_ms, "first_step_ms": records[0]["step_ms"],
             "seq_per_s": args.global_batch_size / step_ms * 1e3,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -1638,18 +1702,20 @@ def check_training_flash_vs_dense() -> dict:
             "param_abs_err": param_err}
 
 
-def training_entries(worst: dict, cases: dict, trained: dict) -> list:
+def training_entries(worst: dict, cases: dict, trained: dict,
+                     dtype: str = "bfloat16", suffix: str = "") -> list:
     """The kernels-line entries of the training kernels: the headline
-    numbers at the main path's shape (S=512, bf16, dropout 0.1), device
-    time per call; launches and launches by route from the phase-2
-    drive."""
+    numbers at the main path's shape (S=512, ``dtype``, dropout 0.1),
+    device time per call; launches and launches by route from the
+    phase-2 drive in that dtype. ``suffix`` marks the names of the fp16
+    entries."""
     out = []
     keys = ("kernel_route", "event_ms", "library_event_ms", "cuda_core_ms",
             "rate0_ms", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms", "sdpa_bwd_ms")
     for name in TRAIN_REPLACES:
         head = next(c for c in cases[name] if c["seq"] == TRAIN_SEQ
-                    and c["dtype"] == "bfloat16")
-        entry = {"name": name, "route": "cuda",
+                    and c["dtype"] == dtype)
+        entry = {"name": name + suffix, "route": "cuda", "dtype": dtype,
                  "source": TRAIN_SOURCES[name],
                  "replaces": TRAIN_REPLACES[name],
                  "launches": trained["launches"][name],
@@ -1666,11 +1732,14 @@ def training_entries(worst: dict, cases: dict, trained: dict) -> list:
     return out
 
 
-def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
-    """One bf16 ulp at each value of ``t`` (fp32 holding bf16 values; 8
-    significant bits), the smallest normal's ulp at 0."""
-    mag = t.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+def half_ulp(t: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """One ulp of the 16-bit ``dtype`` at each value of ``t`` (fp32
+    holding such values; bf16 keeps 8 significant bits, fp16 11), the
+    smallest normal's ulp below it."""
+    info = torch.finfo(dtype)
+    mag = t.abs().clamp(min=info.tiny)
+    return torch.exp2(torch.floor(torch.log2(mag))
+                      - (7 if dtype == torch.bfloat16 else 10))
 
 
 def ln_inputs(rows: int, hidden: int, dtype, gen: torch.Generator):
@@ -1724,26 +1793,30 @@ def check_ln_gradients(rows: int, hidden: int, gen) -> float:
     return worst
 
 
-def check_and_time_layer_norm() -> dict:
+def check_and_time_layer_norm(shapes=LN_SHAPES,
+                              dtypes=(torch.bfloat16, torch.float32),
+                              suffix: str = "") -> dict:
     """Phase 7: the LayerNorm forward kernel against its plain version at
-    LN_SHAPES in bf16 and fp32 (out, mean, rstd), its gradients through the
-    autograd Function, and its time beside the plain version's,
-    ``torch.nn.functional.layer_norm``'s (weight and bias in x's dtype: one
-    PyTorch call for the same function, a yardstick only) and its bound."""
+    ``shapes`` in ``dtypes`` (out, mean, rstd), its fp32 gradients through
+    the autograd Function (when fp32 is among ``dtypes``), and its time
+    beside the plain version's, ``torch.nn.functional.layer_norm``'s
+    (weight and bias in x's dtype: one PyTorch call for the same function,
+    a yardstick only) and its bound. The entry's headline is the first
+    shape in the first dtype; ``suffix`` marks its name."""
     from bert_pytorch_tpu_torch.ops.kernels import layernorm as kln
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, max_err, grad_err = [], 0.0, 0.0
-    for rows, hidden in LN_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+    for rows, hidden in shapes:
+        for dtype in dtypes:
             x, scale, bias = ln_inputs(rows, hidden, dtype, gen)
             out, mean, rstd = kln.layer_norm_fwd(x, scale, bias, LN_EPS)
             torch.cuda.synchronize()
             ref, ref_mean, ref_rstd = kln.layer_norm_fwd_reference(
                 x, scale, bias, LN_EPS)
             err = (out.float() - ref.float()).abs()
-            tol = LN_OUT_ATOL + (bf16_ulp(ref.float())
-                                 if dtype == torch.bfloat16 else 0.0)
+            tol = LN_OUT_ATOL + (half_ulp(ref.float(), dtype)
+                                 if dtype != torch.float32 else 0.0)
             mean_ok = ((mean - ref_mean).abs()
                        <= LN_STAT_ATOL + LN_STAT_RTOL * ref_mean.abs()).all()
             rstd_rel = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
@@ -1752,7 +1825,7 @@ def check_and_time_layer_norm() -> dict:
             name = f"[{rows}, {hidden}] {str(dtype)[6:]}"
             log(f"[check] layer_norm_fwd {name}: out max_abs_err "
                 f"{err.max().item():.3e} (atol {LN_OUT_ATOL:g}"
-                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}), "
+                f"{'' if dtype == torch.float32 else ' + 1 ulp'}), "
                 f"mean max_abs_err {(mean - ref_mean).abs().max().item():.3e}, "
                 f"rstd max rel err {rstd_rel:.3e} (rtol {LN_STAT_RTOL:g}; "
                 f"zero-variance rows: rstd {rstd[0].item():.6g}), "
@@ -1795,13 +1868,16 @@ def check_and_time_layer_norm() -> dict:
                           "plain_event_ms": events["plain"],
                           "library_event_ms": events["library"],
                           "bound_ms": t_bound, "bound_by": by})
-        grad_err = max(grad_err, check_ln_gradients(rows, hidden, gen))
-    log(f"[check] layer_norm Function fp32 gradients vs autograd through the "
-        f"plain LayerNorm: worst relative error {grad_err:.3e} (rtol "
-        f"{LN_GRAD_RTOL:g})")
-    head = next(c for c in cases if (c["rows"], c["hidden"]) == LN_SHAPES[0]
-                and c["dtype"] == "bfloat16")
-    return {"name": "layer_norm_fwd", "route": "cuda", "source": LN_SOURCE,
+        if torch.float32 in dtypes:
+            grad_err = max(grad_err, check_ln_gradients(rows, hidden, gen))
+    if torch.float32 in dtypes:
+        log(f"[check] layer_norm Function fp32 gradients vs autograd through "
+            f"the plain LayerNorm: worst relative error {grad_err:.3e} (rtol "
+            f"{LN_GRAD_RTOL:g})")
+    head = next(c for c in cases if (c["rows"], c["hidden"]) == shapes[0]
+                and c["dtype"] == str(dtypes[0])[6:])
+    return {"name": "layer_norm_fwd" + suffix, "route": "cuda",
+            "dtype": head["dtype"], "source": LN_SOURCE,
             "replaces": LN_REPLACES, "launches": None, "max_abs_err": max_err,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1816,9 +1892,12 @@ SQUAD_INIT_LOSS = math.log(SQUAD_SEQ)
 EVAL_SCRIPT = os.path.join(REPO, "scripts", "squad_evaluate_v11.py")
 
 
-def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
-    """Phase 8: SQuAD finetuning and prediction at BERT-large width through
-    ``run_squad.main``, every LayerNorm through the kernel."""
+def drive_squad(vocab: str, tmp: str, kernels: dict,
+                dtype: str = "bfloat16") -> dict:
+    """Phase 8 (and 12e in float16, with the dynamic loss scale): SQuAD
+    finetuning and prediction at BERT-large width through
+    ``run_squad.main`` in ``dtype``, every LayerNorm through the
+    kernel."""
     from bert_pytorch_tpu_torch import run_squad
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
         write_squad_json)
@@ -1836,7 +1915,7 @@ def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
         "--output_dir", out,
         "--max_seq_length", str(SQUAD_SEQ), "--doc_stride", "128",
         "--train_batch_size", str(SQUAD_BATCH), "--max_steps",
-        str(SQUAD_STEPS), "--dtype", "bfloat16", "--layer_norm_backend",
+        str(SQUAD_STEPS), "--dtype", dtype, "--layer_norm_backend",
         "kernel", "--device", "cuda", "--seed", "0", "--log_freq", "1"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1859,6 +1938,9 @@ def drive_squad(vocab: str, tmp: str, kernels: dict) -> dict:
                              f"{len(questions)} questions")
     if summary.get("exact_match") is None or summary.get("F1") is None:
         raise AssertionError(f"no EM/F1 from the eval script: {summary}")
+    if dtype == "float16" and not summary.get("loss_scale"):
+        raise AssertionError(f"fp16 SQuAD ran without its loss scale: "
+                             f"{summary}")
     with open(CONFIG, encoding="utf-8") as f:
         per_forward = 1 + 2 * json.load(f)["num_hidden_layers"]
     forwards = summary["global_step"] + summary["predict_batches"]
@@ -2148,15 +2230,15 @@ def check_launches_per_step(launches: dict, routes: dict, layers: int,
                                  "cores")
 
 
-def kernels_deterministic() -> dict:
+def kernels_deterministic(dtype=torch.bfloat16) -> dict:
     """Whether the training forward, dq and dkv each give the same bits
-    twice on the same inputs (S=512, bf16, padded, dropout 0.1). Launches
-    outside any main path's count window."""
+    twice on the same inputs (S=512, ``dtype``, padded, dropout 0.1).
+    Launches outside any main path's count window."""
     from bert_pytorch_tpu_torch.ops.kernels import attention as ka
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    q, k, v, do, _, key_bias, seg = training_inputs(TRAIN_SEQ, torch.bfloat16,
-                                                    False, gen)
+    q, k, v, do, _, key_bias, seg = training_inputs(TRAIN_SEQ, dtype, False,
+                                                    gen)
     args = (key_bias, seg, TRAIN_SEED, 0.1)
 
     def once():
@@ -2959,6 +3041,213 @@ def drive_kfac(kernels: dict, root: str, card: str) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# -- phase 12: fp16 mixed precision ------------------------------------------
+
+# 12a: #6 in fp16 at the SQuAD path's rows (32 x 384) and the pretraining
+# path's (8 x 512).
+LN_FP16_SHAPES = ((32 * 384, 1024), (8 * 512, 1024))
+# 12c: a loss scale far past fp16's range, so the first steps overflow;
+# enough steps that the scale backs off to a finite step and trains.
+OVERFLOW_SCALE = 2.0 ** 40
+OVERFLOW_STEPS = 32
+# 12d: batches tried after the resume until a step trains.
+RESUME_TRIES = 4
+
+
+def check_fp16_kernels() -> tuple:
+    """12a: #1-#3 in fp16 against their plain versions (S in SEQS, padded
+    and packed, rates 0 and 0.1, both routes; the tensor-core route's
+    edges), their keep masks bit for bit, their times beside fp16 SDPA;
+    #6 in fp16 against its plain version (one fp16 ulp + LN_OUT_ATOL) and
+    its time beside fp16 F.layer_norm. Returns (worst errors, keep-mask
+    shares, timed cases, #6's entry)."""
+    worst = check_training_kernels(dtypes=(torch.float16,))
+    check_training_edges(worst, torch.float16)
+    shares = check_keep_masks(torch.float16)
+    cases = time_training_kernels(dtypes=(torch.float16,))
+    ln = check_and_time_layer_norm(LN_FP16_SHAPES, (torch.float16,), "_fp16")
+    return worst, shares, cases, ln
+
+
+def drive_fp16_overflow(kernels: dict, root: str, card: str) -> dict:
+    """12c and 12d at BERT-large phase 2 (S=512, flash, remat dots, LAMB,
+    local batch 8 x 2) in fp16, on the runner's own functions and loop
+    (telemetry on, every step logged) over SyntheticPretrainingDataset
+    rows.
+
+    12c: from --init_loss_scale 2**40, OVERFLOW_STEPS steps. The first
+    step overflows: it is skipped (params bit-equal to before it, the
+    moments still zero, the inner count 0), the scale halves and a
+    sentinel record is written; each overflowing step halves the scale,
+    each finite one keeps it and trains (the inner count is the number
+    of finite steps, and every non-finite step has its sentinel record),
+    until at least 4 steps trained and the last one did. Every step
+    launches #1-#3 as phase 6's on the tensor cores.
+    12d: the run's final synchronous save (scale and growth count in its
+    ``optimizer`` tree) resumes in a fresh runner: params, moments, count,
+    scale and growth count bit-equal; one more step from each on the same
+    batch agrees bit for bit (phase 9's rule where a kernel is not
+    deterministic: RESUME_STEP_ATOL); a step that overflows on both is
+    skipped on both, so they go on to the next batch until one trains
+    (RESUME_TRIES)."""
+    from bert_pytorch_tpu_torch import pretrain
+    from bert_pytorch_tpu_torch.optim import transforms
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        SyntheticPretrainingDataset, synthetic_pretraining_batch)
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    free = shutil.disk_usage(root).free
+    if free < HANDOFF_DISK_BYTES:
+        raise AssertionError(f"phase 12d needs {HANDOFF_DISK_BYTES} bytes of "
+                             f"free disk, {free} are free")
+    out = os.path.join(root, "fp16")
+    jsonl = os.path.join(out, "telemetry.jsonl")
+    flags = ["--local_batch_size", str(TRAIN_LOCAL_BATCH),
+             "--global_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+             "--steps", str(OVERFLOW_STEPS), "--attention_backend", "flash",
+             "--dtype", "float16", "--init_loss_scale", str(OVERFLOW_SCALE),
+             "--previous_phase_end_step", "0", "--checkpoint_write", "sync",
+             "--num_steps_per_checkpoint", str(10 ** 6),
+             "--telemetry_jsonl", jsonl]
+    r = runner(out, PHASE2, flags)
+    model, opt = r["model"], r["optimizer"]
+    if not isinstance(opt, transforms.DynamicLossScale) or (
+            opt.scale != OVERFLOW_SCALE):
+        raise AssertionError(f"fp16 runner optimizer {opt!r}")
+    transforms.init_state(opt)  # zero moments, as the JAX init has them
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    first = {}
+
+    def on_step(metrics):
+        if first:
+            return
+        moments = [t for state in opt.state.values() for t in state.values()]
+        first.update(
+            finite=float(metrics["finite"]),
+            loss_scale=float(metrics["loss_scale"]),
+            params_equal=all(torch.equal(p, before[n])
+                             for n, p in model.named_parameters()),
+            moments_zero=not any(bool(t.any()) for t in moments),
+            count=transforms.opt_step_count(opt), scale=opt.scale,
+            growth_count=opt.growth_count)
+        before.clear()
+
+    dataset = SyntheticPretrainingDataset(
+        3, TRAIN_LOCAL_BATCH * TRAIN_ACCUM * OVERFLOW_STEPS, TRAIN_SEQ,
+        r["config"].vocab_size, r["args"].max_predictions_per_seq)
+    torch.cuda.synchronize()
+    # Counts to zero just before the main path, read just after.
+    zero_counts(kernels)
+    summary = train_runner(r, dataset, on_step=on_step)
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.route_launches) for name, k in kernels.items()
+              if hasattr(k, "route_launches")}
+    check_launches_per_step(launches, routes, r["config"].num_hidden_layers,
+                            TRAIN_ACCUM, OVERFLOW_STEPS)
+    want_first = {"finite": 0.0, "loss_scale": OVERFLOW_SCALE,
+                  "params_equal": True, "moments_zero": True, "count": 0,
+                  "scale": OVERFLOW_SCALE / 2, "growth_count": 0}
+    if first != want_first:
+        raise AssertionError(f"12c first step {first}; expected {want_first}")
+    records = read_records(jsonl)
+    train = records.get("train", [])
+    scales = [rec["loss_scale"] for rec in train]
+    finite = [rec["finite"] for rec in train]
+    skipped = finite.index(1.0) if 1.0 in finite else len(finite)
+    sentinels = [rec["step"] for rec in records.get("sentinel", [])]
+    # The wrapper's rule, step by step: an overflow halves the scale, a
+    # finite step keeps it (the growth interval, 2000, is not reached).
+    want_scales = [OVERFLOW_SCALE]
+    for ok in finite[:-1]:
+        want_scales.append(want_scales[-1] * (1.0 if ok == 1.0 else 0.5))
+    trained_steps = int(sum(finite))
+    first_ok = scales[skipped] if skipped < len(scales) else None
+    log(f"[fp16] 12c from scale 2**40: the first {skipped} steps skipped, "
+        f"the first finite step at scale {first_ok}, "
+        f"{len(train) - trained_steps} skips in all, final scale "
+        f"{opt.scale}; losses "
+        f"{[round(rec['loss'], 4) for rec in train]}; sentinel records at "
+        f"steps {sentinels}; launches {launches} on {card}")
+    if (len(train) != OVERFLOW_STEPS or skipped < 1 or scales != want_scales
+            or sentinels != [i + 1 for i, ok in enumerate(finite)
+                             if ok != 1.0]
+            or transforms.opt_step_count(opt) != trained_steps
+            or trained_steps < 4 or finite[-1] != 1.0
+            or not all(math.isfinite(rec["loss"]) for rec in train)):
+        raise AssertionError(
+            f"12c: scales {scales}, finite {finite}, sentinels {sentinels}, "
+            f"count {transforms.opt_step_count(opt)}")
+    # 12d
+    write = ckpt.write_records[-1]
+    if (write["step"], write["async"]) != (OVERFLOW_STEPS, False):
+        raise AssertionError(f"12d: the final save {write}")
+    r2 = runner(out, PHASE2, flags)
+    if r2["global_step"] != OVERFLOW_STEPS:
+        raise AssertionError(f"12d resumed at {r2['global_step']}")
+    check_same_state("12d resume vs 12c's final state", training_state(r2),
+                     training_state(r))
+    opt2 = r2["optimizer"]
+    if (opt2.scale, opt2.growth_count) != (opt.scale, opt.growth_count):
+        raise AssertionError(f"12d scale {opt2.scale} growth "
+                             f"{opt2.growth_count}; saved {opt.scale} "
+                             f"{opt.growth_count}")
+    # One more step from each on the same batch; at this scale a step may
+    # overflow (and skip on both), so up to RESUME_TRIES batches in turn
+    # until one trains.
+    args = r["args"]
+    metrics = {"memory": [], "resumed": []}
+    for seed in range(78, 78 + RESUME_TRIES):
+        batch = pretrain.to_device(pretrain.stack_microbatches(
+            synthetic_pretraining_batch(seed, args.global_batch_size,
+                                        TRAIN_SEQ, r["config"].vocab_size,
+                                        args.max_predictions_per_seq),
+            args.accumulation_steps), args.device)
+        for label, x in (("memory", r), ("resumed", r2)):
+            m = runner_step(x)(batch)
+            metrics[label].append((float(m["loss"]), float(m["loss_scale"]),
+                                   float(m["finite"])))
+        if metrics["memory"][-1][2] == 1.0:
+            break
+    if metrics["memory"][-1][2] != 1.0:
+        raise AssertionError(f"12d: no finite step after the resume in "
+                             f"{RESUME_TRIES} tries: {metrics}")
+    after, after2 = training_state(r), training_state(r2)
+    diff = max((a - b).abs().max().item()
+               for n in after if n is not None
+               for a, b in zip(after[n], after2[n]))
+    exact = (diff == 0.0 and metrics["memory"] == metrics["resumed"]
+             and (opt.scale, opt.growth_count)
+             == (opt2.scale, opt2.growth_count))
+    determinism = kernels_deterministic(torch.float16)
+    log(f"[fp16] 12d resumed ckpt_{OVERFLOW_STEPS} ({write['bytes']} bytes, "
+        f"written in {write['seconds']:.2f} s) in {r2['resume_s']:.2f} s: "
+        f"state, scale and growth count bit-equal; then each step until one "
+        f"trained (loss, scale, finite) {metrics}, max "
+        f"|param/moment diff| {diff:.3e} (bit-equal {exact}); fp16 kernels "
+        f"bit-deterministic {determinism} on {card}")
+    if not exact and all(determinism.values()):
+        raise AssertionError("the resumed fp16 step differs from the "
+                             "in-memory one although every kernel is "
+                             "deterministic")
+    if not exact and (diff > RESUME_STEP_ATOL or any(
+            abs(a[0] - b[0]) > RESUME_STEP_ATOL or a[1:] != b[1:]
+            for a, b in zip(metrics["memory"], metrics["resumed"]))):
+        raise AssertionError(f"resumed fp16 step off by {diff}")
+    step_ms = [(b - a) * 1e3 for a, b in summary["step_times"]]
+    resume_s = r2["resume_s"]
+    del r, r2, model, opt, opt2, after, after2
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "routes": routes, "first_step": first,
+            "first_skipped": skipped, "trained_steps": trained_steps,
+            "loss_scales": scales, "finite": finite,
+            "sentinel_steps": sentinels,
+            "losses": [rec["loss"] for rec in train], "step_ms": step_ms,
+            "save": write, "resume_s": resume_s,
+            "resumed_step": metrics, "resumed_step_bit_equal": exact,
+            "resumed_step_max_diff": diff, "determinism": determinism}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2994,6 +3283,9 @@ def main() -> int:
     mask_shares = check_keep_masks()
     cases = time_training_kernels()
     ln_entry = check_and_time_layer_norm()
+    # 12a beside phases 3, 4 and 7, so the fp16 and bf16 times are read at
+    # the same point of the process.
+    worst16, shares16, cases16, ln16 = check_fp16_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
             write_trace_vocab)
@@ -3046,6 +3338,24 @@ def main() -> int:
         shutil.rmtree(os.path.join(tmp, "pretrain"))
         kfac = drive_kfac(kernels, tmp, card)
         kfac_parity = check_kfac_parity(tmp)
+        trained16 = drive_training(kernels, "float16", trained["losses"][0])
+        log(f"[train float16] BERT-large phase 2 as phase 6: "
+            f"{trained16['step_ms']:.1f} ms/step, "
+            f"{trained16['seq_per_s']:.2f} seq/s, losses "
+            f"{trained16['losses']} (bf16 {trained['losses']}), loss scales "
+            f"{trained16['loss_scales']}, peak {trained16['peak_gib']:.1f} "
+            f"GiB (bf16 {trained['peak_gib']:.1f}) on {card}")
+        overflow16 = drive_fp16_overflow(kernels, tmp, card)
+        squad16 = drive_squad(vocab, tmp, kernels, "float16")
+        shutil.rmtree(os.path.join(tmp, "squad_out"))
+        log(f"[squad float16] {squad16['global_step']} steps, losses "
+            f"{squad16['step_losses']}, final loss scale "
+            f"{squad16['loss_scale']}, train "
+            f"{squad16['training_sequences_per_second']:.2f} seq/s, EM "
+            f"{squad16['exact_match']}, F1 {squad16['F1']}, #6 launches "
+            f"{squad16['launches']['layer_norm_fwd']} over "
+            f"{squad16['forwards']} forwards, peak "
+            f"{squad16['peak_gib']:.1f} GiB on {card}")
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -3062,15 +3372,17 @@ def main() -> int:
     int8_entry["route_launches"] = served8["routes"][
         "flash_attention_infer_int8"]
     ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
+    ln16["launches"] = squad16["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
-        worst, cases, trained) + [ln_entry]
+        worst, cases, trained) + [ln_entry] + training_entries(
+        worst16, cases16, trained16, "float16", "_fp16") + [ln16]
     for entry in entries:
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16)))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -205,13 +205,13 @@ FWD, DQ, DKV = ("flash_attention_fwd", "flash_attention_dq",
     (torch.bfloat16, 96, "cuda_cores", "cuda_cores"),
     (torch.float32, 64, "cuda_cores", "cuda_cores"),
     (torch.float32, 128, "cuda_cores", "cuda_cores"),
-    (torch.float16, 64, "cuda_cores", "cuda_cores"),
+    (torch.float16, 64, "tensor_cores", "tensor_cores"),
 ])
 def test_train_route_from_dtype_and_head_dim(dtype, head_dim, fwd_route,
                                              dkv_route):
-    """bf16 forward at head_dim 32, 64 and 128 and bf16 dkv at 32 and 64
-    (dK and dV of head_dim 128 do not fit one warpgroup's registers) take
-    the tensor cores; fp32 and other head dims the CUDA cores."""
+    """bf16 and fp16 forward at head_dim 32, 64 and 128 and dkv at 32 and
+    64 (dK and dV of head_dim 128 do not fit one warpgroup's registers)
+    take the tensor cores; fp32 and other head dims the CUDA cores."""
     assert kattn.train_route(dtype, head_dim, FWD) == fwd_route
     assert kattn.train_route(dtype, head_dim, DKV) == dkv_route
 
@@ -223,12 +223,12 @@ def test_train_route_from_dtype_and_head_dim(dtype, head_dim, fwd_route,
     (torch.bfloat16, 24, "cuda_cores"),
     (torch.bfloat16, 96, "cuda_cores"),
     (torch.float32, 64, "cuda_cores"),
-    (torch.float16, 64, "cuda_cores"),
+    (torch.float16, 64, "tensor_cores"),
 ])
 def test_dq_train_route_from_dtype_and_head_dim(dtype, head_dim, route):
-    """bf16 dq at head_dim 32, 64 and 128 (dQ is head_dim / 2 fp32 values
-    a thread, as the forward's output) takes the tensor cores; fp32 and
-    other head dims the CUDA cores."""
+    """bf16 and fp16 dq at head_dim 32, 64 and 128 (dQ is head_dim / 2
+    fp32 values a thread, as the forward's output) takes the tensor cores;
+    fp32 and other head dims the CUDA cores."""
     assert kattn.train_route(dtype, head_dim, DQ) == route
 
 
@@ -267,6 +267,8 @@ def test_training_cpu_tensors_take_the_plain_versions_and_count_nothing(
     (torch.bfloat16, 128, "flash_attention_fwd_wgmma", "tensor_cores"),
     (torch.float32, 64, "flash_attention_fwd", "cuda_cores"),
     (torch.bfloat16, 24, "flash_attention_fwd", "cuda_cores"),
+    (torch.float16, 64, "flash_attention_fwd_wgmma_fp16", "tensor_cores"),
+    (torch.float16, 24, "flash_attention_fwd", "cuda_cores"),
 ])
 def test_forward_calls_its_routes_entry_point(fake_library, dtype, depth,
                                               entry, route):
@@ -293,6 +295,8 @@ def test_forward_calls_its_routes_entry_point(fake_library, dtype, depth,
     (torch.bfloat16, 32, "flash_attention_dkv_wgmma", "tensor_cores"),
     (torch.bfloat16, 128, "flash_attention_dkv", "cuda_cores"),
     (torch.float32, 64, "flash_attention_dkv", "cuda_cores"),
+    (torch.float16, 32, "flash_attention_dkv_wgmma_fp16", "tensor_cores"),
+    (torch.float16, 128, "flash_attention_dkv", "cuda_cores"),
 ])
 def test_dkv_calls_its_routes_entry_point(fake_library, dtype, depth, entry,
                                           route):
@@ -317,6 +321,8 @@ def test_dkv_calls_its_routes_entry_point(fake_library, dtype, depth, entry,
     (torch.bfloat16, 128, "flash_attention_dq_wgmma", "tensor_cores"),
     (torch.float32, 64, "flash_attention_dq", "cuda_cores"),
     (torch.bfloat16, 24, "flash_attention_dq", "cuda_cores"),
+    (torch.float16, 128, "flash_attention_dq_wgmma_fp16", "tensor_cores"),
+    (torch.float16, 96, "flash_attention_dq", "cuda_cores"),
 ])
 def test_dq_calls_its_routes_entry_point(fake_library, dtype, depth, entry,
                                          route):

@@ -327,24 +327,39 @@ def test_optimizer_norms_span_the_stacked_layers(name):
 
 # -- refusals ------------------------------------------------------------------
 
-def test_fp16_checkpoint_is_refused_and_kfac_state_skipped(tmp_path):
-    """A JAX fp16 LossScaleState optimizer is refused naming the ROADMAP
-    item, before the model is touched; a checkpoint with a K-FAC
-    ``preconditioner`` resumed without --kfac (no state to restore into)
-    restores the rest with a warning that the run has no --kfac, as the
-    JAX runner skips the subtree."""
+def test_jax_fp16_checkpoint_resumes_with_its_scale(tmp_path):
+    """A JAX fp16 LossScaleState optimizer (scale 2**13, growth count 5)
+    resumes into the port's DynamicLossScale: params, moments and count
+    bit for bit, and the scale and growth count with them. The same file
+    into an optimizer without the scaler is refused naming --dtype
+    float16, before the model is touched."""
     _, _, _, state = _jax_state(seed=7)
-    scaled = jax_optim.LossScaleState(jnp.asarray(2.0 ** 16, jnp.float32),
-                                      jnp.asarray(0, jnp.int32),
+    scaled = jax_optim.LossScaleState(jnp.asarray(2.0 ** 13, jnp.float32),
+                                      jnp.asarray(5, jnp.int32),
                                       state.opt_state)
     jax_ckpt.save_checkpoint(str(tmp_path / "fp16"), 3, {
         "model": state.params, "optimizer": scaled, "epoch": 0})
     model, opt, _ = _port(seed=1)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*fp16"):
+    with pytest.raises(ValueError, match="float16"):
         ckpt.load_latest_checkpoint(str(tmp_path / "fp16"), model, opt)
     for name, p in model.named_parameters():
         assert torch.equal(p, before[name]), name
+    scaler = transforms.DynamicLossScale(opt)
+    step_no, extras = ckpt.load_latest_checkpoint(str(tmp_path / "fp16"),
+                                                  model, scaler)
+    assert (step_no, extras["count"], extras["loss_scale"]) == (3, 0,
+                                                                2.0 ** 13)
+    assert (scaler.scale, scaler.growth_count) == (2.0 ** 13, 5)
+    _assert_params_close(model, state.params, 0.0)
+
+
+def test_kfac_state_is_skipped_without_kfac(tmp_path):
+    """A checkpoint with a K-FAC ``preconditioner`` resumed without --kfac
+    (no state to restore into) restores the rest with a warning that the
+    run has no --kfac, as the JAX runner skips the subtree."""
+    _, _, _, state = _jax_state(seed=7)
+    model, opt, _ = _port(seed=1)
     jax_ckpt.save_checkpoint(str(tmp_path / "kfac"), 3, {
         "model": state.params, "optimizer": state.opt_state, "epoch": 0,
         "preconditioner": {"factors": np.ones((3, 4), np.float32)}})

@@ -537,10 +537,13 @@ def test_runner_command_line_exits_zero(tiny_config, tmp_path):
 def test_runner_refuses_what_it_cannot_do(tiny_config, tmp_path):
     base = _run_args(tmp_path, tiny_config, "--train_file",
                      tiny_config["v1"], "--do_train")
-    for flags in (["--dtype", "float16"], ["--tokenizer", "bpe"],
-                  ["--init_loss_scale", "2"], ["--mesh_data", "1"]):
+    for flags in (["--tokenizer", "bpe"], ["--mesh_data", "1"]):
         with pytest.raises(SystemExit):
             run_squad.parse_args(base + flags)
+    # fp16 and its loss scale are ported (tests/test_torch_fp16.py).
+    args = run_squad.parse_args(base + ["--dtype", "float16",
+                                        "--init_loss_scale", "2"])
+    assert (args.dtype, args.init_loss_scale) == ("float16", 2.0)
     # Checkpoints are written now: neither --skip_checkpoint nor
     # --save_steps is refused (test_torch_finetune.py checks the files).
     args = run_squad.parse_args(
