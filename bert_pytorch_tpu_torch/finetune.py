@@ -157,12 +157,13 @@ def open_telemetry(args, prefix: str, device, seq_per_step: int,
                    flops_per_seq: float):
     """The finetune runners' telemetry facade (JAX run_glue.py:124-129,
     209-219; run_squad's too): its JSONL sink at ``--telemetry_jsonl``,
-    else ``<output_dir>/<prefix>_telemetry.jsonl``, else none."""
+    else ``<output_dir>/<prefix>_telemetry.jsonl``, else none; ``prefix``
+    also names the process in the debug plane and the postmortem."""
     path = telemetry.default_jsonl_path(args, args.output_dir, prefix)
     return telemetry.from_args(
         args, sink=logging_util.JSONLHandler(path) if path else None,
         seq_per_step=seq_per_step, flops_per_seq=flops_per_seq,
-        output_dir=args.output_dir or None, device=device)
+        output_dir=args.output_dir or None, device=device, process=prefix)
 
 
 def save(output_dir: str, step: int, model: torch.nn.Module,

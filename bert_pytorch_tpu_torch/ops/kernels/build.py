@@ -57,20 +57,29 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
-def library_path(name: str) -> Path:
+def library_digest(name: str) -> str:
+    """The hash that names a library: its source, the shared headers and
+    the flags."""
     text = source_path(name).read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(
+    return hashlib.sha256(
         text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{library_digest(name)}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
     """Compile every named kernel whose library is missing, one ``nvcc``
     process per source, all started together. Returns seconds per built
-    kernel (0.0 for one already built). The compiler's resource report
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside
-    each library as ``<library>.log``."""
+    kernel, from the common start to that compiler's exit (0.0 for one
+    already built). The compiler's resource report (``-Xptxas -v``:
+    registers, shared memory, spills) is kept beside each library as
+    ``<library>.log``. Each name is reported to the installed compile
+    monitors."""
+    from bert_pytorch_tpu_torch.telemetry.compile_events import report_build
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc: Optional[str] = None
     running = {}
@@ -83,21 +92,32 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
         nvcc = nvcc or find_nvcc()
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out, time.perf_counter())
+        log = out.with_name(out.name + ".log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        running[name] = (proc, tmp, out, log, time.perf_counter())
     failures = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_name(out.name + ".log").write_text(log)
-        if proc.returncode != 0:
-            failures.append(f"{name} (rc {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, out)
+    pending = dict(running)
+    while pending:
+        # Each compiler's seconds end at its own exit, whatever order
+        # the compilers finish in.
+        for name, (proc, tmp, out, log, t0) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            del pending[name]
+            if proc.returncode != 0:
+                failures.append(
+                    f"{name} (rc {proc.returncode}):\n{log.read_text()}")
+                tmp.unlink(missing_ok=True)
+                continue
+            os.replace(tmp, out)
+        if pending:
+            time.sleep(0.05)
     if failures:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
+    for name, secs in seconds.items():
+        report_build(name, library_digest(name), secs, name in running)
     return seconds
 
 
@@ -110,6 +130,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libraries[name] = lib
         return lib
+
+
+def ensure(names: Iterable[str]) -> None:
+    """Load each named library (built first if needed), reporting every
+    one to the installed compile monitors: a library this process loaded
+    before reports a hit, the others through :func:`build`. A start-up
+    (``InferenceEngine.warmup``) calls it so its compile records name
+    every library it runs, whatever the process ran before."""
+    from bert_pytorch_tpu_torch.telemetry.compile_events import report_build
+
+    for name in names:
+        with _lock:
+            loaded = name in _libraries
+        if loaded:
+            report_build(name, library_digest(name), 0.0, False)
+        else:
+            load(name)
 
 
 def load_bound(name: str, entry_points: Dict[str, List]) -> ctypes.CDLL:

@@ -61,7 +61,13 @@ sentinels (``--sentinel_policy abort`` ends the run with a non-zero
 code), a ``resume`` record naming each checkpoint the walk-back skipped,
 the preemption ``fault`` record and a ``run_summary``. The heartbeat goes
 to ``<output_dir>/heartbeat.json``; ``--profile_steps`` writes a Chrome
-trace of ``torch.profiler`` into ``<output_dir>/profile``. Standard
+trace of ``torch.profiler`` into ``<output_dir>/profile``. The debug
+planes take the JAX flags: ``--debug_port`` serves /healthz, /statsz,
+/metricsz and ``POST /profilez`` (an on-demand capture: host-thread
+samples and a trace under ``<output_dir>/profile/ondemand_<n>``, its
+``profile_window`` record in the JSONL), and the flight recorder keeps
+``<output_dir>/postmortem.json`` (``--postmortem_file``) through a crash
+and removes it on a clean exit. Standard
 output keeps the port's one ``key value`` line per logged step. No
 TensorBoard files are written, with or without ``--disable_tensorboard``
 (accepted for the JAX command lines).
@@ -78,9 +84,8 @@ runner.
 Not ported yet, so rejected rather than ignored: meshes and multi-GPU
 (``--checkpoint_layout sharded`` is refused naming ROADMAP.md's
 "Multi-GPU layouts"; the sharded layout is read), held-out evaluation,
-process-based loader workers, and the telemetry debug planes (``--debug_port``,
-``--postmortem_file``) and compile events; argparse refuses the flags it
-does not know.
+process-based loader workers, and ``--telemetry_cost_analysis``; argparse
+refuses the flags it does not know.
 On-the-fly packing packs up to 8 sequences per row (the JAX runner's
 ``--max_sequences_per_pack`` default), and LAMB clips to a global norm of
 1.0 (its ``--max_grad_norm`` default). ``attention_backend "pallas"`` in a
@@ -629,7 +634,8 @@ def train(args, model, optimizer, config, step, loader, sampler,
                 config, seq_len, eff_max_pred,
                 next_sentence=bool(config.next_sentence)),
             tokens_per_step=args.global_batch_size * seq_len,
-            output_dir=args.output_dir, device=args.device)
+            output_dir=args.output_dir, device=args.device,
+            process="pretrain", logger=logger)
     except BaseException:
         logger.close()
         raise

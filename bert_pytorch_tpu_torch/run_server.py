@@ -19,6 +19,7 @@
     curl -s localhost:8000/healthz
     curl -s localhost:8000/statsz
     curl -s localhost:8000/metricsz   # Prometheus text format
+    curl -s -X POST localhost:8000/profilez -d '{"duration_s": 2}'
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
 no card exists. Each ``--<task>_checkpoint`` names a JAX package
@@ -31,6 +32,18 @@ weights (demo mode) and says so. ``--save_init_checkpoint DIR`` writes the
 first task's served params there as ``ckpt_0.msgpack`` (with its
 manifest) before serving. The vocab is padded to a multiple of 8
 (30522 -> 30528), as the JAX package's server does.
+
+With ``--output_dir`` the replica keeps the JAX server's debug planes
+there: the serve telemetry JSONL (``serve_window``/``serve_summary``/
+``serve_cold_start``/``compile`` records, schema v1; ``--telemetry_jsonl``
+names another path), the heartbeat the dispatch plane beats
+(``heartbeat.json``, or ``--heartbeat_file``), the crash flight recorder
+(``postmortem.json``, or ``--postmortem_file``: written on a fault, a
+crash and periodically, removed by a clean exit, kept by a SIGTERM
+drain), and ``POST /profilez`` captures (a host-thread sample and a
+``torch.profiler`` trace of the card under ``<output_dir>/profile``;
+without an output dir a capture is sampler-only). A SIGTERM drains the
+replica, emits the preemption ``fault`` record and exits 75.
 
 The tokenizer is the JAX server's rule: ``--tokenizer`` (default: the
 model config's ``"tokenizer"``, else ``wordpiece``), lower-cased unless
@@ -62,6 +75,7 @@ TASKS = ("fill_mask", "classify", "squad", "ner")
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     from bert_pytorch_tpu_torch.serve.cli import (add_device_args,
+                                                  add_dispatch_args,
                                                   add_fast_path_args,
                                                   add_tracing_args)
 
@@ -107,15 +121,46 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "dispatches when its oldest request has "
                              "waited this long")
     add_device_args(parser)
+    add_dispatch_args(parser)
     add_fast_path_args(parser)
     add_tracing_args(parser)
     parser.add_argument("--pack_requests", action="store_true",
                         help="pack several short requests per row with "
                              "block-diagonal attention")
     parser.add_argument("--max_requests_per_pack", type=int, default=4)
+    parser.add_argument("--max_pending", type=int, default=1024,
+                        help="pending-queue cap; submissions beyond it "
+                             "shed with HTTP 503 instead of growing "
+                             "memory/latency without bound")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--request_timeout_s", type=float, default=30.0)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the random weights of heads served "
+                             "without a checkpoint")
+    parser.add_argument("--output_dir", type=str, default=None,
+                        help="telemetry/heartbeat/postmortem/profile "
+                             "anchor dir")
+    parser.add_argument("--telemetry_jsonl", type=str, default="",
+                        help="serve telemetry JSONL sink; default "
+                             "<output_dir>/serve_telemetry.jsonl")
+    parser.add_argument("--heartbeat_file", type=str, default="",
+                        help="liveness file the dispatch plane maintains "
+                             "(telemetry/sentinels.py Heartbeat, the file "
+                             "the training runners write); default "
+                             "<output_dir>/heartbeat.json, disabled "
+                             "without an output_dir")
+    parser.add_argument("--telemetry_window", type=int, default=64,
+                        help="requests per serve_window record")
+    parser.add_argument("--postmortem_file", type=str, default="",
+                        help="crash flight recorder flush target "
+                             "(telemetry/flightrec.py): the bounded ring "
+                             "of this replica's last telemetry records + "
+                             "log lines, written atomically on fault/"
+                             "crash and periodically (so a SIGKILLed "
+                             "replica leaves forensics); default "
+                             "<output_dir>/postmortem.json, disabled "
+                             "without an output_dir")
     args = parser.parse_args(argv)
     from bert_pytorch_tpu_torch.data.tokenization import ROADMAP_BPE
 
@@ -151,15 +196,28 @@ def resolve_ckpt(path: Optional[str]) -> Optional[str]:
 def build_service(args: argparse.Namespace,
                   weights: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
     """The :class:`ServingService` for ``args``, warmed up lazily by
-    ``start()``. Each task loads its ``--<task>_checkpoint``; ``weights``
-    maps task -> state dict (from ``from_jax_params``) for tasks without
-    one; the rest serve seeded random weights. The tokenizer lowercases
-    unless ``--uppercase``, as the JAX server's."""
+    ``start()``, wired as the JAX server's ``build_service`` wires it:
+    the JSONL sink teed into the flight recorder, serve telemetry and the
+    request tracer emitting through it, the heartbeat, the ``/profilez``
+    capture controller and the compile monitor. Each task loads its
+    ``--<task>_checkpoint``; ``weights`` maps task -> state dict (from
+    ``from_jax_params``) for tasks without one; the rest serve seeded
+    random weights. The tokenizer lowercases unless ``--uppercase``, as
+    the JAX server's. The service carries ``telemetry_sink`` (the JSONL
+    handler or None), ``flight_recorder`` (or None) and
+    ``compile_monitor``; :func:`close_planes` closes the first two."""
     from bert_pytorch_tpu_torch.config import BertConfig
     from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
     from bert_pytorch_tpu_torch.serve import (Batcher, InferenceEngine,
                                               ServeTelemetry, ServingService)
     from bert_pytorch_tpu_torch.serve.cli import DTYPES, build_tracer
+    from bert_pytorch_tpu_torch.telemetry.compile_events import \
+        CompileMonitor
+    from bert_pytorch_tpu_torch.telemetry.flightrec import FlightRecorder
+    from bert_pytorch_tpu_torch.telemetry.profiler import ProfilerWindow
+    from bert_pytorch_tpu_torch.telemetry.sampler import CaptureController
+    from bert_pytorch_tpu_torch.telemetry.sentinels import Heartbeat
+    from bert_pytorch_tpu_torch.utils.logging import JSONLHandler
 
     config = BertConfig.from_json_file(args.model_config_file)
     config.vocab_size = config.padded_vocab_size(8)
@@ -185,6 +243,23 @@ def build_service(args: argparse.Namespace,
             logger.warning("task %s: no checkpoint and no weights given — "
                            "serving randomly initialized weights (demo "
                            "mode)", task)
+
+    def under_output(name: str) -> Optional[str]:
+        return os.path.join(args.output_dir, name) if args.output_dir \
+            else None
+
+    telemetry_jsonl = args.telemetry_jsonl or under_output(
+        "serve_telemetry.jsonl")
+    sink = JSONLHandler(telemetry_jsonl) if telemetry_jsonl else None
+    # Crash flight recorder: every telemetry record tees into a bounded
+    # ring, flushed to postmortem.json on fault/crash and periodically.
+    postmortem = args.postmortem_file or under_output("postmortem.json")
+    recorder = (FlightRecorder(postmortem, process="serve")
+                .install_exit_hooks() if postmortem else None)
+    emit = sink.write_record if sink else None
+    if recorder is not None:
+        emit = recorder.tee(emit)
+    monitor = CompileMonitor(emit=emit)
     engine = InferenceEngine(
         config,
         tokenizer,
@@ -194,19 +269,71 @@ def build_service(args: argparse.Namespace,
         max_requests_per_pack=(args.max_requests_per_pack
                                if args.pack_requests else 1),
         dtype=DTYPES[args.dtype],
+        seed=args.seed,
         attention_backend=args.attention_backend,
         device=args.device,
         quantize=args.quantize,
         fuse_epilogues=args.fuse_epilogues,
         epilogue_slots=args.epilogue_slots,
         version=args.serving_version,
+        monitor=monitor,
     )
     batcher = Batcher(
         max_batch_size=args.max_batch_size,
         max_wait_ms=args.max_wait_ms,
-        max_requests_per_pack=engine.max_requests_per_pack)
-    return ServingService(engine, batcher, ServeTelemetry(),
-                          tracer=build_tracer(args))
+        max_requests_per_pack=engine.max_requests_per_pack,
+        max_pending=args.max_pending)
+    heartbeat_path = args.heartbeat_file or under_output("heartbeat.json")
+    # On-demand profiling plane: POST /profilez arms a bounded host-sampler
+    # + torch.profiler capture; the dispatch plane ticks it per boundary
+    # with position = requests served. The ProfilerWindow has no startup
+    # spec: it exists for the on-demand begin/end alone.
+    profile_dir = under_output("profile")
+    capture = CaptureController(
+        source="replica", covered_unit="requests",
+        window=(ProfilerWindow(None, profile_dir, device=engine.device)
+                if profile_dir else None),
+        trace_dir=profile_dir, emit=emit)
+    service = ServingService(
+        engine, batcher,
+        ServeTelemetry(emit=emit, window=args.telemetry_window),
+        tracer=build_tracer(args, emit=emit, window=args.telemetry_window),
+        heartbeat=Heartbeat(heartbeat_path) if heartbeat_path else None,
+        capture=capture, dispatch_mode=args.dispatch_mode)
+    service.telemetry_sink = sink
+    service.flight_recorder = recorder
+    service.compile_monitor = monitor
+    return service
+
+
+def close_planes(service, exc: Optional[BaseException] = None) -> None:
+    """Close what :func:`build_service` opened beside the service: the
+    JSONL sink, then the flight recorder — flushed with ``exc``'s
+    traceback when an exception ends the replica, else closed clean
+    (which removes the postmortem unless an incident, such as the
+    preemption ``fault`` record, was flushed during the run)."""
+    if service.telemetry_sink is not None:
+        service.telemetry_sink.close()
+    recorder = service.flight_recorder
+    if recorder is not None:
+        if exc is not None and not isinstance(exc, KeyboardInterrupt):
+            recorder.flush("crash", exc=exc)
+        else:
+            recorder.close(clean=True)
+
+
+class _RingLogHandler(logging.Handler):
+    """Tees the replica's ``logging`` lines into the flight recorder's
+    ring (through its ``utils/logging`` handler)."""
+
+    def __init__(self, recorder):
+        super().__init__()
+        self._handler = recorder.log_handler()
+        self.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(message)s"))
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self._handler.write_message(self.format(record))
 
 
 def save_init_checkpoint(engine, output_dir: str) -> str:
@@ -228,52 +355,83 @@ def save_init_checkpoint(engine, output_dir: str) -> str:
 
 
 def main(args: argparse.Namespace) -> int:
-    """Serve until interrupted; returns the process exit code (0 after
-    Ctrl-C, :data:`EXIT_PREEMPTED` after a SIGTERM drain)."""
+    """Serve until interrupted; returns the process exit code: 0 after
+    Ctrl-C, :data:`EXIT_PREEMPTED` after a SIGTERM drain (every accepted
+    request answered, the preemption ``fault`` record emitted through the
+    flight recorder's tee, so the postmortem stays on disk)."""
     from bert_pytorch_tpu_torch.serve import make_server
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     service = build_service(args)
     engine = service.engine
-    if args.save_init_checkpoint:
-        save_init_checkpoint(engine, args.save_init_checkpoint)
-    logger.info("warming %d task heads over buckets %s on %s (%s, "
-                "attention=%s, quantize=%s, fuse_epilogues=%s, pack=%d)",
-                len(engine.tasks), engine.buckets, engine.device, args.dtype,
-                engine.attention_backend, args.quantize,
-                engine.fuse_epilogues, engine.max_requests_per_pack)
-    engine.warmup()
-    logger.info("warmup done in %ss; weight bytes %d",
-                engine.startup["cold_start_s"],
-                engine.startup["weight_bytes"])
-    service.start()
-    server = make_server(service, host=args.host, port=args.port,
-                         request_timeout_s=args.request_timeout_s)
-    host, port = server.server_address[:2]
-    logger.info("serving %s (version %s) on http://%s:%s (POST /v1/<task>, "
-                "/swapz; GET /healthz, /statsz, /metricsz)",
-                sorted(engine.tasks), engine.version(), host, port)
+    # The process's compile monitor: builds at any point of its life
+    # become compile records (the warmup's count as start-up's).
+    service.compile_monitor.install()
+    ring_log = None
+    if service.flight_recorder is not None:
+        # Log lines tee into the ring too: a postmortem carries the
+        # replica's last words, not just its last records.
+        ring_log = _RingLogHandler(service.flight_recorder)
+        logging.getLogger().addHandler(ring_log)
     preempted = {"signaled": False}
-
-    def shutdown(signum, frame):
-        # Flip /healthz to 503 first, then unwind through the finally
-        # below, which drains in-flight requests before stopping.
-        preempted["signaled"] = True
-        service.begin_drain()
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, shutdown)
+    server = None
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if args.save_init_checkpoint:
+            save_init_checkpoint(engine, args.save_init_checkpoint)
+        logger.info("warming %d task heads over buckets %s on %s (%s, "
+                    "attention=%s, quantize=%s, fuse_epilogues=%s, pack=%d)",
+                    len(engine.tasks), engine.buckets, engine.device,
+                    args.dtype, engine.attention_backend, args.quantize,
+                    engine.fuse_epilogues, engine.max_requests_per_pack)
+        engine.warmup()
+        startup = engine.startup
+        logger.info("warmup done in %ss: %s cold kernel builds / %s "
+                    "already built; weight bytes %d",
+                    startup["cold_start_s"], startup["compiles_cold"],
+                    startup["compiles_warm"], startup["weight_bytes"])
+        service.start()
+        server = make_server(service, host=args.host, port=args.port,
+                             request_timeout_s=args.request_timeout_s)
+        host, port = server.server_address[:2]
+        logger.info("serving %s (version %s) on http://%s:%s (POST "
+                    "/v1/<task>, /swapz, /profilez; GET /healthz, /statsz, "
+                    "/metricsz) — dispatch %s", sorted(engine.tasks),
+                    engine.version(), host, port, service.dispatch_mode)
+
+        def shutdown(signum, frame):
+            # Flip /healthz to 503 first, then unwind through the finally
+            # below, which drains in-flight requests before stopping. Only
+            # a SIGTERM-initiated drain is a preemption (Ctrl-C stays 0).
+            preempted["signaled"] = True
+            service.begin_drain()
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, shutdown)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
     finally:
         logger.info("draining: rejecting new requests, flushing in-flight "
                     "batches, then shutting down")
-        server.shutdown()
-        server.server_close()
-        service.stop()
+        if preempted["signaled"] and service.telemetry.emit is not None:
+            # The training runners' preemption fault record, serve flavor
+            # (step = requests served at the signal), through the teed
+            # path so the flight recorder flushes its postmortem with it.
+            service.telemetry.emit({
+                "kind": "fault", "tag": "serve", "fault": "preemption",
+                "signal": "SIGTERM", "injected": False,
+                "step": service.telemetry.request_count(),
+            })
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        service.stop()  # drain + dispatch-thread join + telemetry summary
+        service.compile_monitor.uninstall()
+        if ring_log is not None:
+            logging.getLogger().removeHandler(ring_log)
+        close_planes(service, sys.exc_info()[1])
     return EXIT_PREEMPTED if preempted["signaled"] else 0
 
 

@@ -53,8 +53,9 @@ scale), and the optimizer wrapped in ``DynamicLossScale``, which skips an
 overflowing step and backs off the scale, as the JAX runner's.
 
 Not ported yet, so rejected rather than ignored (argparse refuses their
-flags): the BPE tokenizer, the telemetry debug planes, device prefetch, ``--mesh_data``
-and ``--compile_cache_dir``. ``--init_checkpoint`` reads torch archives and
+flags): the BPE tokenizer, ``--telemetry_cost_analysis``, device
+prefetch, ``--mesh_data`` and ``--compile_cache_dir``. The telemetry debug
+planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's. ``--init_checkpoint`` reads torch archives and
 the JAX package's msgpack checkpoints, not TF checkpoints
 (models/convert.py ``load_pretrained_encoder``).
 ``--layer_norm_backend kernel`` (or its JAX name ``pallas``) runs every

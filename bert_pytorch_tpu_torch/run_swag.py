@@ -29,8 +29,10 @@ TensorBoard files are written.
 ``--init_checkpoint`` reads the JAX package's msgpack checkpoints and
 torch archives; TF checkpoints are refused (models/convert.py
 ``ROADMAP_TF``). Not ported, so argparse refuses their flags:
-``--compile_cache_dir``, device prefetch and the telemetry debug planes;
-the BPE tokenizer is refused.
+``--compile_cache_dir``, device prefetch and
+``--telemetry_cost_analysis``; the BPE tokenizer is refused. The
+telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
+JAX runner's.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
 where there is none raises.

@@ -1,6 +1,6 @@
 """Shared CLI surface of the serving entry point (the port of the JAX
-package's ``serve/cli.py``): the device, kernel, fast-path and tracing
-flags, and the dispatch-mode names the service validates against.
+package's ``serve/cli.py``): the device, kernel, dispatch, fast-path and
+tracing flags, and the dispatch-mode names the service validates against.
 """
 
 from __future__ import annotations
@@ -44,6 +44,20 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
              "flash_infer_int8 its int8-QK^T twin (per-head symmetric "
              "scales); dense materializes the [B, H, S, S] scores with "
              "plain tensor ops")
+
+
+def add_dispatch_args(parser: argparse.ArgumentParser) -> None:
+    """The dispatch-plane knob (serve/service.py), spelled as in the JAX
+    package."""
+    parser.add_argument(
+        "--dispatch_mode", type=str, default="pipelined",
+        choices=DISPATCH_MODES,
+        help="pipelined (default) runs the three-stage continuous-"
+             "batching plane: an assembler admits late arrivals into "
+             "the forming batch while the executor keeps the device "
+             "busy and a completion stage decodes off the device "
+             "thread; serial is the flush-then-wait loop, kept for "
+             "A/B measurement")
 
 
 def add_fast_path_args(parser: argparse.ArgumentParser) -> None:

@@ -22,7 +22,11 @@ The :class:`InferenceEngine` owns the device side of serving:
   [B, 2, S] output (``stack_span``: one transfer to the host);
 * **warmup** — one forward per (task head, length bucket, packedness) at
   startup, so the first request pays no kernel build, library load or
-  cuBLAS set-up; ``startup["cold_start_s"]`` records what that took;
+  cuBLAS set-up; ``startup["cold_start_s"]`` records what that took, and
+  ``compiles_cold``/``compiles_warm`` the kernel libraries it built with
+  ``nvcc`` and found built (the ``compile`` records of its
+  :class:`~bert_pytorch_tpu_torch.telemetry.compile_events.CompileMonitor`),
+  so a restart on a built tree shows ``compiles_cold == 0``;
 * **batch planning** — :meth:`plan_batch` picks the SMALLEST bucket whose
   budget fits the flushed group (and, with packing on, the first-fit-
   decreasing row assignment of ``data/packing.py``), returning requests
@@ -60,6 +64,7 @@ from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.serve import tasks as tasks_lib
 from bert_pytorch_tpu_torch.serve.batcher import Request
 from bert_pytorch_tpu_torch.serve.cli import ATTENTION_BACKENDS, resolve_device
+from bert_pytorch_tpu_torch.telemetry.compile_events import CompileMonitor
 from bert_pytorch_tpu_torch.testing import faults
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
 
@@ -152,6 +157,7 @@ class InferenceEngine:
         fuse_epilogues: bool = False,
         epilogue_slots: int = 8,
         version: str = "v0",
+        monitor: Optional[CompileMonitor] = None,
     ):
         """``tasks`` maps task name -> options: ``classify`` and ``ner``
         read ``labels``, ``squad`` ``do_lower_case`` and
@@ -172,7 +178,9 @@ class InferenceEngine:
         activation scales. ``fuse_epilogues`` gathers fill_mask's [MASK]
         rows before the vocab projection and stacks squad's start and end
         logits; ``epilogue_slots`` is the per-row gather quota, past which
-        a batch runs the unfused forward."""
+        a batch runs the unfused forward. ``monitor`` receives the kernel
+        builds of the warmup as ``compile`` records (a silent one of its
+        own when none is given)."""
         if attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(f"attention_backend must be one of "
                              f"{ATTENTION_BACKENDS}, got {attention_backend!r}")
@@ -199,6 +207,7 @@ class InferenceEngine:
         self.dtype = dtype
         self._clock = clock
         self.startup: Optional[dict] = None
+        self.monitor = monitor or CompileMonitor()
         # Forwards run so far (warmup included). Written only by the one
         # device-calling thread; read by the chip smoke to tie kernel
         # launches to forwards.
@@ -291,13 +300,33 @@ class InferenceEngine:
             model.load_state_dict(state, strict=True)
         return model.eval()
 
+    def kernel_libraries(self) -> Tuple[str, ...]:
+        """The CUDA kernel libraries this engine's forwards launch (none
+        on the CPU, where the kernels' plain versions run)."""
+        if self.device.type != "cuda":
+            return ()
+        return {"flash_infer": ("flash_attention_infer",),
+                "flash_infer_int8": ("flash_attention_infer_int8",)}.get(
+                    self.attention_backend, ())
+
     def warmup(self) -> int:
         """Run every (task, bucket[, packed]) forward the serving loop can
         dispatch once, on all-zero inputs; returns the number of forwards.
-        Records :attr:`startup` (``cold_start_s`` covers the kernel build
-        and load at the first fused-attention launch)."""
+        Records :attr:`startup`: ``cold_start_s`` covers the kernel
+        libraries' build and load, which come first, with the monitor
+        installed while they load; the ``compile`` records it gets there
+        — one per library, a ``miss`` where ``nvcc`` ran, a ``hit`` where
+        it was built already — are start-up's ``compiles_cold`` and
+        ``compiles_warm`` (the JAX engine's split). A build outside the
+        warmup is never counted as start-up's."""
+        from bert_pytorch_tpu_torch.ops.kernels import build
+
         t0 = self._clock()
         count = 0
+        before = len(self.monitor.events)
+        with self.monitor.installed():
+            build.ensure(self.kernel_libraries())
+        compiles = self.monitor.events[before:]
         B, K = self.max_batch_size, self.max_requests_per_pack
         slots = np.zeros((B, self.epilogue_slots), np.int32)
         for spec in self.tasks.values():
@@ -326,6 +355,9 @@ class InferenceEngine:
                    for name, spec in self.tasks.items()}
         self.startup = {
             "cold_start_s": round(self._clock() - t0, 3),
+            "compiles": len(compiles),
+            "compiles_cold": sum(e["cache"] == "miss" for e in compiles),
+            "compiles_warm": sum(e["cache"] == "hit" for e in compiles),
             "warmup_forwards": count,
             "attention_backend": self.attention_backend,
             "device": str(self.device),

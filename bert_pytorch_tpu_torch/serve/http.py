@@ -26,10 +26,10 @@ Routes:
   share and per-phase p95s; with a capture controller attached, the
   ``profile`` sub-object carries the live capture phase / last window);
 * ``POST /profilez``   — arm an on-demand profiling capture
-  (docs/observability.md "Profiling plane"): the dispatch plane starts
-  a bounded host-thread-sampler + ``jax.profiler`` window at the next
-  boundary and emits a ``profile_window`` record when it expires. JSON
-  body (all optional): ``duration_s``, ``sample_interval_s``,
+  (telemetry/sampler.py): the dispatch plane starts a bounded
+  host-thread-sampler + ``torch.profiler`` window at the next boundary
+  and emits a ``profile_window`` record when it expires. JSON body (all
+  optional): ``duration_s``, ``sample_interval_s``,
   ``max_samples``, ``top_k``, ``trigger``. 200 with the armed
   parameters, 409 while a capture is already armed or active (traces
   cannot nest), 404 when the service was built without a controller;
@@ -233,9 +233,9 @@ def _make_handler():
 
         def _profilez(self, service, echo) -> None:
             """Arm an on-demand capture. 409 — not a second start — when
-            one is already armed/active: ``jax.profiler`` traces cannot
-            nest, and the controller's refusal is what keeps two POSTs
-            from stacking two ``start_trace`` calls."""
+            one is already armed/active: profiler traces cannot nest,
+            and the controller's refusal is what keeps two POSTs from
+            stacking two profiler starts."""
             if service.capture is None:
                 self._reply(404, {
                     "error": "profiling disabled: the service has no "

@@ -119,9 +119,9 @@ class ServingService:
         file the training runners write, so the capture harness covers
         serving processes too. ``capture`` is an optional
         :class:`~bert_pytorch_tpu_torch.telemetry.sampler.CaptureController`
-        (``POST /profilez`` arms it via serve/http.py; the dispatch
-        plane ticks it at the same boundary the heartbeat rides, with
-        position = requests served). ``dispatch_mode`` selects the pipelined
+        (``POST /profilez`` arms it via serve/http.py; the thread that
+        runs the forwards ticks it between them, with position =
+        requests served). ``dispatch_mode`` selects the pipelined
         continuous-batching plane (default) or the serial
         flush-then-wait loop (module docstring)."""
         if dispatch_mode not in DISPATCH_MODES:
@@ -525,6 +525,11 @@ class ServingService:
         device-idle share."""
         last_end: Optional[float] = None
         while True:
+            # On-demand capture boundary between forwards: the profiler
+            # starts and stops on the thread that launches the kernels,
+            # so the trace holds its operator events as well as the
+            # card's kernels, and whole forwards only.
+            self._capture_tick()
             # Hunger signal: tells the assembler "hand me your forming
             # batch NOW" — admission closes for that batch the moment
             # the device is actually ready for it, not a deadline
@@ -567,7 +572,6 @@ class ServingService:
                 if self._stop.is_set():
                     return
                 last_beat = self._maybe_beat(last_beat)
-                self._capture_tick()
                 continue
             self._note_stage_inflight("completion", done)
             self._complete(done)
@@ -576,7 +580,6 @@ class ServingService:
                 self.telemetry.request_count(),
                 emit=self.telemetry.emit)
             last_beat = self._maybe_beat(last_beat)
-            self._capture_tick()
 
     def _complete(self, done: _Executed) -> None:
         """Finish one executed batch: demux, postprocess, fulfil,
@@ -689,10 +692,12 @@ class ServingService:
 
     def _capture_tick(self) -> None:
         """On-demand capture boundary (telemetry/sampler.py): starts an
-        armed capture, collects an expired one. Rides the same
-        single-owner position as the heartbeat — the serial dispatch
-        thread, or the completion stage in pipelined mode — with
-        position = requests served (``covered_unit: "requests"``)."""
+        armed capture, collects an expired one, on the thread that runs
+        the forwards — the serial dispatch thread, or the executor stage
+        in pipelined mode (the JAX service ticks on the completion stage;
+        a ``torch.profiler`` started there records none of the executor's
+        operator events) — with position = requests served
+        (``covered_unit: "requests"``)."""
         if self.capture is not None:
             self.capture.tick(self.telemetry.request_count())
 
@@ -873,6 +878,12 @@ class ServingService:
                 stranded,
                 "service stopped before this request was dispatched "
                 "(drain deadline)")
+        if self.capture is not None and all(
+                not t.is_alive() for t in threads):
+            # A capture still running is collected over the requests it
+            # saw (its boundary's owner is gone), so its trace is written
+            # and the profiler released before the telemetry summary.
+            self.capture.tick(self.telemetry.request_count(), force=True)
         self.telemetry.finish()  # also flushes the attached tracer
         if self._heartbeat is not None and all(
                 not t.is_alive() for t in threads):

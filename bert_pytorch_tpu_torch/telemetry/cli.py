@@ -9,18 +9,19 @@ JAX names and defaults, and builds its
 finetune runs; ``sync_every_default``: the finetune runners keep the full
 per-step decomposition, the pretraining loop samples it).
 
-Not ported, so argparse refuses them: ``--debug_port`` and
-``--debug_stale_after_s`` (the introspection hub), ``--postmortem_file``
-(the flight recorder) and ``--telemetry_cost_analysis`` (XLA cost
-analysis). One difference from the JAX ``from_args``: it arms a flight
-recorder by default when there is an output dir; the port writes no
-``postmortem.json`` until the flight recorder is ported (ROADMAP item
-"Serving telemetry and the debug planes").
+The debug planes come with the JAX flags and defaults: ``--debug_port``
+(the live introspection server, 0 disables), ``--debug_stale_after_s``
+(its /healthz bound) and ``--postmortem_file`` (the crash flight
+recorder, armed at ``<output_dir>/postmortem.json`` by default). Not
+ported, so argparse refuses it: ``--telemetry_cost_analysis`` (the
+``compile_cost`` records of XLA's cost analysis; ROADMAP item "Bench legs
+and an entry point").
 """
 
 from __future__ import annotations
 
 import os
+import sys
 from typing import Optional
 
 import torch
@@ -69,6 +70,31 @@ def add_cli_args(parser, window_default: int = 50,
                         help="rank-0 liveness file (step/wallclock/"
                              "last_loss/counter, atomically replaced); "
                              "default <output_dir>/heartbeat.json")
+    parser.add_argument("--debug_port", type=int, default=0,
+                        help="live training introspection plane "
+                             "(telemetry/introspect.py): serve /healthz "
+                             "(heartbeat-backed step liveness), /statsz "
+                             "(live window/grad-health/compile snapshot), "
+                             "/metricsz (Prometheus text, consistent with "
+                             "the JSONL windows per metric name) and POST "
+                             "/profilez (on-demand capture) on "
+                             "127.0.0.1:<port>. 0 (default) disables")
+    parser.add_argument("--debug_stale_after_s", type=float, default=0.0,
+                        help="debug-plane /healthz staleness bound: 503 "
+                             "once no step completed for this many "
+                             "seconds. 0 (default) follows "
+                             "--watchdog_timeout_s when set, else 60 — "
+                             "size it above the worst healthy step time")
+    parser.add_argument("--postmortem_file", type=str, default="",
+                        help="crash flight recorder (telemetry/"
+                             "flightrec.py): bounded ring of the last "
+                             "telemetry records + log lines, flushed "
+                             "atomically here on fault/divergence/crash "
+                             "(and periodically, so even a SIGKILLed "
+                             "process leaves forensics); default "
+                             "<output_dir>/postmortem.json, disabled "
+                             "without an output dir. A clean run removes "
+                             "the file")
     parser.add_argument("--grad_stats_every", type=int, default=-1,
                         help="grad-health cadence (per-layer-group grad/"
                              "param norms + update:weight ratios, "
@@ -123,21 +149,48 @@ def device_kind(device) -> str:
 def from_args(args, sink=None, seq_per_step: Optional[int] = None,
               flops_per_seq: Optional[float] = None,
               tokens_per_step: Optional[int] = None,
-              output_dir: Optional[str] = None, device="cpu"):
+              output_dir: Optional[str] = None, device="cpu",
+              process: str = "train", logger=None):
     """Build a TrainTelemetry from the :func:`add_cli_args` namespace.
 
-    ``output_dir`` anchors the profile-dir and heartbeat fallbacks;
-    without one, traces go to ``./profile`` and the heartbeat is disabled
-    unless the flags name a path. ``device`` is the training device (its
-    name picks the peak for MFU; on ``cuda`` the device time comes from
-    CUDA events)."""
+    ``output_dir`` anchors the profile-dir, heartbeat and postmortem
+    fallbacks; without one, traces go to ``./profile`` and the heartbeat
+    and flight recorder are disabled unless the flags name paths.
+    ``device`` is the training device (its name picks the peak for MFU; on
+    ``cuda`` the device time comes from CUDA events). ``process`` labels
+    the runner in the debug plane's exports and the postmortem
+    ("pretrain", "glue", ...). ``logger`` (a ``utils/logging.Logger``), when
+    given, tees its log lines into the flight recorder's ring. With
+    ``--debug_port`` the debug server starts here; a port already held
+    costs the debug plane (a line on standard error), never the run."""
     from bert_pytorch_tpu_torch.telemetry.runner import TrainTelemetry
 
     profile_dir = args.profile_dir or (
         os.path.join(output_dir, "profile") if output_dir else "profile")
     heartbeat = args.heartbeat_file or (
         os.path.join(output_dir, "heartbeat.json") if output_dir else None)
-    return TrainTelemetry(
+    postmortem = getattr(args, "postmortem_file", "") or (
+        os.path.join(output_dir, "postmortem.json") if output_dir else None)
+    recorder = None
+    if postmortem:
+        from bert_pytorch_tpu_torch.telemetry.flightrec import FlightRecorder
+
+        recorder = FlightRecorder(
+            postmortem, process=process).install_exit_hooks()
+        if logger is not None:
+            # Log lines tee into the ring too (the runner initialized its
+            # handlers before building telemetry, so append).
+            logger.handlers.append(recorder.log_handler())
+    introspect = None
+    if getattr(args, "debug_port", 0):
+        from bert_pytorch_tpu_torch.telemetry.introspect import \
+            IntrospectionHub
+
+        stale_after = getattr(args, "debug_stale_after_s", 0.0) or \
+            getattr(args, "watchdog_timeout_s", 0.0) or 60.0
+        introspect = IntrospectionHub(process=process,
+                                      stale_after_s=stale_after)
+    tele = TrainTelemetry(
         sink=sink,
         window=args.telemetry_window,
         sync_every=args.telemetry_sync_every,
@@ -153,4 +206,25 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
         watchdog_timeout_s=getattr(args, "watchdog_timeout_s", 0.0),
         grad_spike_factor=args.grad_spike_factor,
         update_ratio_max=args.update_ratio_max,
-        device=device)
+        device=device,
+        introspect=introspect,
+        flight_recorder=recorder)
+    if introspect is not None:
+        from bert_pytorch_tpu_torch.telemetry.introspect import \
+            start_debug_server
+
+        try:
+            tele.debug_server = start_debug_server(
+                introspect, port=int(args.debug_port))
+        except OSError as exc:
+            # Observability must never take the run down: a port already
+            # held (a second runner on the host, a stale process) costs
+            # the debug plane, not the training job.
+            print(f"telemetry: debug plane DISABLED — could not bind port "
+                  f"{args.debug_port}: {exc}", file=sys.stderr, flush=True)
+        else:
+            host, port = tele.debug_server.server_address[:2]
+            print(f"telemetry: debug plane on http://{host}:{port} "
+                  "(/healthz /statsz /metricsz /profilez)", file=sys.stderr,
+                  flush=True)
+    return tele

@@ -1,6 +1,8 @@
-"""Bounded ``torch.profiler`` trace windows for the training loop: the port
-of the JAX package's ``telemetry/profiler.py``, on ``torch.profiler`` in
-place of ``jax.profiler``.
+"""Bounded ``torch.profiler`` trace windows for the training loop, and the
+``begin``/``end`` facility the on-demand profiling plane drives
+(telemetry/sampler.py, ``POST /profilez``): the port of the JAX package's
+``telemetry/profiler.py``, on ``torch.profiler`` in place of
+``jax.profiler``.
 
 ``--profile_steps`` accepts either ``"N"`` (N steady-state steps starting
 after the first step, i.e. the window ``[2, 2+N)`` in step-in-run terms)
@@ -10,21 +12,26 @@ device is synchronized (so the trace holds the full device work of every
 traced step) and the trace is written as one Chrome trace
 (``trace_<pid>.json``) into the window's directory.
 
+:meth:`ProfilerWindow.begin` and :meth:`ProfilerWindow.end` open and close
+any number of further windows on the same instance, each writing its trace
+into the directory ``begin`` names (an on-demand capture's
+``<profile_dir>/ondemand_<seq>``). A profiler is a process-wide singleton
+in practice (one CUPTI subscriber), so every start goes through the
+module-level exclusivity latch: ``begin`` REFUSES (returns False) instead
+of stacking traces, which is what lets the startup window and the HTTP
+planes share one process without coordinating. ``stop`` and
+``maybe_stop`` end the startup window only: an on-demand window is ended
+by the controller that began it.
+
 While a trace is active each step's dispatch is wrapped in
 ``torch.profiler.record_function("train/<step>")``, standing in for the
 JAX ``StepTraceAnnotation("train", step_num=...)``: the trace viewer then
 groups a step's host ranges under one named range.
 
-A profiler is a process-wide singleton in practice (one CUPTI
-subscriber), so every start goes through the module-level exclusivity
-latch: a second window REFUSES (returns False) instead of stacking
-traces. The JAX module's unbounded ``begin``/``end`` windows, driven by
-the debug planes, come with the ROADMAP item "Serving telemetry and the
-debug planes".
-
 On ``cuda`` the trace records CPU and CUDA activities (every kernel on the
-card with its device time); on ``cpu`` host activity only. No shapes and
-no stacks are recorded: both cost host time on every traced op.
+card with its device time, whichever thread launched it); on ``cpu`` host
+activity only. No shapes and no stacks are recorded: both cost host time
+on every traced op.
 """
 
 from __future__ import annotations
@@ -86,11 +93,12 @@ def parse_profile_spec(spec) -> Optional[Tuple[int, int]]:
 
 
 class ProfilerWindow:
-    """Drives the one bounded trace window of ``--profile_steps`` from
-    per-step calls (one-shot: ``done`` latches after it). ``device``
-    picks the activities (CUDA as well as CPU on a ``cuda`` device) and
-    the synchronize before the trace stops. ``last_trace`` is the path of
-    the trace written.
+    """Drives bounded trace windows: the one-shot startup window of
+    ``--profile_steps`` from per-step calls (``done`` latches after it),
+    and unbounded ``begin``/``end`` windows. ``device`` picks the
+    activities (CUDA as well as CPU on a ``cuda`` device) and the
+    synchronize before a trace stops. ``last_trace`` is the path of the
+    newest trace written.
     """
 
     def __init__(self, spec, trace_dir: Optional[str], device="cpu"):
@@ -101,17 +109,19 @@ class ProfilerWindow:
         self.done = False
         self.last_trace: Optional[str] = None
         self._prof = None
+        self._out_dir: Optional[str] = None
+        # True only while the SPEC-driven startup window is tracing: the
+        # auto-stop rule applies to it alone, so an on-demand window at
+        # step 50 is not ended by the startup range having ended.
+        self._startup_active = False
 
-    def maybe_start(self, step_in_run: int) -> bool:
-        """Start the trace when ``step_in_run`` enters the spec's window.
-        Returns False — never raises, never stacks — outside the window,
-        after it, or while ANY other trace is active in the process; a
-        profiler that fails to start is reported as a warning."""
-        if (self.range is None or self.active or self.done
-                or step_in_run < self.range[0]
-                or step_in_run >= self.range[1]):
-            return False
-        if not _acquire_trace():
+    def begin(self, trace_dir: Optional[str] = None) -> bool:
+        """Start a trace window writing into ``trace_dir`` (default the
+        window's own directory). Returns False — never raises, never
+        stacks — when this window is already tracing or ANY other trace
+        is active in the process; a profiler that fails to start is
+        reported as a warning."""
+        if self.active or not _acquire_trace():
             return False
         from torch.profiler import ProfilerActivity, profile
 
@@ -129,7 +139,43 @@ class ProfilerWindow:
             warnings.warn(f"profiler window did not start: {exc}")
             return False
         self._prof = prof
+        self._out_dir = trace_dir or self.trace_dir
         self.active = True
+        return True
+
+    def end(self, sync_target=None) -> bool:
+        """Stop the active window: synchronize the device (so the trace
+        holds the device work of every launch in the window), stop the
+        profiler and write the Chrome trace. ``sync_target`` is accepted
+        for the JAX signature; the synchronize covers it."""
+        if not self.active:
+            return False
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._prof.stop()
+            os.makedirs(self._out_dir, exist_ok=True)
+            path = os.path.join(self._out_dir, f"trace_{os.getpid()}.json")
+            self._prof.export_chrome_trace(path)
+            self.last_trace = path
+        finally:
+            self._prof = None
+            self.active = False
+            self._startup_active = False
+            _release_trace()
+        return True
+
+    def maybe_start(self, step_in_run: int) -> bool:
+        """Start the startup trace when ``step_in_run`` enters the spec's
+        window. Returns False outside the window, after it, or while ANY
+        other trace is active in the process."""
+        if (self.range is None or self.active or self.done
+                or step_in_run < self.range[0]
+                or step_in_run >= self.range[1]):
+            return False
+        if not self.begin():
+            return False
+        self._startup_active = True
         return True
 
     def annotation(self, step_in_run: int):
@@ -139,29 +185,17 @@ class ProfilerWindow:
         return contextlib.nullcontext()
 
     def maybe_stop(self, step_in_run: int) -> bool:
-        """Stop when the window's last step completed (auto-stop)."""
-        if not self.active or step_in_run < self.range[1] - 1:
+        """Stop when the startup window's last step completed (auto-stop)."""
+        if not self._startup_active or step_in_run < self.range[1] - 1:
             return False
         return self.stop()
 
     def stop(self) -> bool:
-        """Unconditional stop (end of run inside the window) and the
-        one-shot ``done`` latch. The device is synchronized first, so the
-        trace holds the device work of every step in the window; then
-        the Chrome trace is written."""
-        if not self.active:
+        """Stop the startup window (end of run inside it) and latch the
+        one-shot ``done``; an on-demand window is left to its
+        controller."""
+        if not self._startup_active:
             return False
-        try:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._prof.stop()
-            os.makedirs(self.trace_dir, exist_ok=True)
-            path = os.path.join(self.trace_dir, f"trace_{os.getpid()}.json")
-            self._prof.export_chrome_trace(path)
-            self.last_trace = path
-        finally:
-            self._prof = None
-            self.active = False
-            self.done = True
-            _release_trace()
+        self.end()
+        self.done = True
         return True

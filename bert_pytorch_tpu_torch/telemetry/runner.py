@@ -12,6 +12,16 @@ One object owns the telemetry pieces and their lifecycle:
   ``cuda`` the device time is a CUDA-event span, step_timer.py);
 * a :class:`~bert_pytorch_tpu_torch.telemetry.profiler.ProfilerWindow` for
   bounded ``torch.profiler`` traces with per-step annotations;
+* a :class:`~bert_pytorch_tpu_torch.telemetry.sampler.CaptureController` —
+  the on-demand profiling plane: ``POST /profilez`` on the introspection
+  hub arms it from an HTTP thread; :meth:`TrainTelemetry.step_done` ticks
+  it at each step boundary, starting/collecting the bounded host-sampler
+  + trace capture and emitting the ``profile_window`` record;
+* the optional live
+  :class:`~bert_pytorch_tpu_torch.telemetry.introspect.IntrospectionHub`
+  (``--debug_port``: /healthz, /statsz, /metricsz, /profilez) and crash
+  :class:`~bert_pytorch_tpu_torch.telemetry.flightrec.FlightRecorder`
+  (``postmortem.json``), both fed by :meth:`TrainTelemetry.emit`;
 * a :class:`~bert_pytorch_tpu_torch.telemetry.sentinels.FailureSentinel`
   and a :class:`~bert_pytorch_tpu_torch.telemetry.sentinels.Heartbeat`,
   and the optional hung-step watchdog;
@@ -25,11 +35,18 @@ One object owns the telemetry pieces and their lifecycle:
   drift).
 
 Not ported yet, and where each comes: the JAX facade's ``instrument`` and
-its ``CompileMonitor`` (compile events) come with the bench legs (ROADMAP
-item "Bench legs and an entry point", as nvcc-build events); its
+its ``CompileMonitor`` come with the bench legs (ROADMAP item "Bench legs
+and an entry point"; the port's compile records are the kernel builds,
+``telemetry/compile_events.py``, which the serving engine counts); its
 ``attach_prefetcher`` with the device prefetcher ("The rest of
-pretraining"); its capture tick (``POST /profilez``), introspection hub
-and flight recorder with "Serving telemetry and the debug planes".
+pretraining").
+
+One difference from the JAX facade: an on-demand capture still active
+when the run ends is collected by :meth:`TrainTelemetry.finish` (its
+``profile_window`` covers the steps up to the last), and :meth:`close`
+after an exception flushes the flight recorder with the traceback instead
+of closing it clean (the port's runners close their telemetry in a
+``finally``).
 
 Minimal loop integration::
 
@@ -48,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import sys
 import time
 from typing import Callable, Iterator, Optional
 
@@ -57,6 +75,7 @@ from bert_pytorch_tpu_torch.telemetry.memory import MemorySampler
 from bert_pytorch_tpu_torch.telemetry.model_stats import (DivergenceMonitor,
                                                           health_record)
 from bert_pytorch_tpu_torch.telemetry.profiler import ProfilerWindow
+from bert_pytorch_tpu_torch.telemetry.sampler import CaptureController
 from bert_pytorch_tpu_torch.telemetry.sentinels import (FailureSentinel,
                                                         Heartbeat,
                                                         HeartbeatWatchdog)
@@ -85,6 +104,8 @@ class TrainTelemetry:
         grad_spike_factor: float = 10.0,
         update_ratio_max: float = 1.0,
         device="cpu",
+        introspect=None,
+        flight_recorder=None,
         clock: Callable[[], float] = time.perf_counter,
         device_clock=None,
     ):
@@ -95,7 +116,10 @@ class TrainTelemetry:
         run's one process on one card: it writes every artifact, and the
         heartbeat beats on every synced step (the JAX facade's
         ``is_primary``, ``n_devices`` and ``heartbeat_every`` come with
-        the ROADMAP item "Multi-GPU layouts")."""
+        the ROADMAP item "Multi-GPU layouts"). ``introspect`` (an
+        :class:`IntrospectionHub`) and ``flight_recorder`` (a
+        :class:`FlightRecorder`) are fed every emitted record; the hub
+        also gets the step liveness and the capture controller."""
         self._clock = clock
         device = torch.device(device)
         if device_clock is None and device.type == "cuda":
@@ -133,15 +157,42 @@ class TrainTelemetry:
         # setup doesn't count.
         self.watchdog = (HeartbeatWatchdog(watchdog_timeout_s, emit=self.emit)
                          if watchdog_timeout_s else None)
+        # Live introspection hub and crash flight recorder: both fed from
+        # emit() — which background threads (watchdog) also call — so the
+        # bindings are frozen after __init__; each object does its own
+        # locking.
+        self.introspect = introspect
+        self.flight_recorder = flight_recorder
+        # On-demand capture plane: armed over HTTP (POST /profilez on the
+        # hub), started/collected at the step boundary in step_done. It
+        # shares the startup window's ProfilerWindow — the process-wide
+        # trace latch (profiler.py) keeps the two from stacking traces.
+        self.capture = CaptureController(
+            source="trainer", covered_unit="steps", window=self.profiler,
+            trace_dir=self.profiler.trace_dir, emit=self.emit)
+        if self.introspect is not None:
+            self.introspect.capture = self.capture
+        # The debug HTTP server serving the hub, attached by
+        # telemetry/cli.from_args (or tests); close() shuts it down so a
+        # runner that opened --debug_port never leaks the port.
+        self.debug_server = None
         self._loader_stats: Optional[Callable[[], Optional[dict]]] = None
         self.last_step_synced = False
 
     # -- wiring ---------------------------------------------------------
 
     def emit(self, record=None, **kwargs) -> None:
-        """Write one telemetry record to the JSONL sink."""
+        """Write one telemetry record to the JSONL sink — teeing it into
+        the live introspection hub and the flight-recorder ring first
+        (both no-ops when not attached; an incident record — fault /
+        divergence / sentinel — makes the recorder flush its
+        postmortem)."""
         rec = dict(record or {})
         rec.update(kwargs)
+        if self.introspect is not None:
+            self.introspect.observe_record(rec)
+        if self.flight_recorder is not None:
+            self.flight_recorder.note_record(rec)
         if self.sink is not None:
             self.sink.write_record(rec)
 
@@ -231,10 +282,23 @@ class TrainTelemetry:
                 finite = 1.0 if (loss is None or math.isfinite(loss)) else 0.0
             self.sentinel.observe(step, finite, loss)
             self.heartbeat.beat(step, last_loss=loss)
+        if self.introspect is not None:
+            # Every step, synced or not: /healthz liveness must not
+            # depend on the sync cadence (the loss rides only when this
+            # step read it — reading it off-cadence would BE a sync).
+            hub_loss = None
+            if metrics is not None and synced and \
+                    metrics.get("loss") is not None:
+                hub_loss = float(metrics["loss"])
+            self.introspect.note_step(step, loss=hub_loss)
         if self.watchdog is not None:
             self.watchdog.start().note(step)
         self.profiler.maybe_stop(
             step if profile_step is None else profile_step)
+        # On-demand capture boundary: starts an armed capture, collects
+        # an expired one (the finished profile_window record rides the
+        # normal emit tee into hub/recorder/sink).
+        self.capture.tick(step, sync_target=metrics)
         window = self.timer.step_done(step)
         if window is not None:
             if self._loader_stats is not None:
@@ -252,6 +316,8 @@ class TrainTelemetry:
         final heartbeat, optional run summary record."""
         if self.watchdog is not None:
             self.watchdog.stop()
+        # A capture still running collects over the steps it saw.
+        self.capture.tick(step, force=True)
         self.profiler.stop()
         window = self.timer.flush(step)
         if window is not None:
@@ -265,7 +331,25 @@ class TrainTelemetry:
         self.heartbeat.beat(step)
 
     def close(self) -> None:
+        """Stop the watchdog and the debug server, close the sink, and
+        end the flight recorder: clean (removing the postmortem unless an
+        incident was flushed during the run), or — when called while an
+        exception is propagating (a runner's ``finally``) — flushed with
+        the traceback and left armed for the exit hooks."""
         if self.watchdog is not None:
             self.watchdog.stop()
+        server, self.debug_server = self.debug_server, None
+        if server is not None:
+            try:
+                server.shutdown()
+                server.server_close()
+            except Exception:
+                pass
         if self.sink is not None:
             self.sink.close()
+        if self.flight_recorder is not None:
+            exc = sys.exc_info()[1]
+            if exc is not None and not isinstance(exc, KeyboardInterrupt):
+                self.flight_recorder.flush("crash", exc=exc)
+            else:
+                self.flight_recorder.close(clean=True)

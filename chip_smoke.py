@@ -176,7 +176,32 @@ Phases (any failure exits non-zero and prints no result line):
    following the wrapper's rule until the steps train; 12d its final
    save resumed in a fresh runner bit for bit, scale and growth count
    included, and the next trained step bit-equal; 12e ``run_squad``
-   in fp16 as phase 8 (49 LayerNorm launches per forward, EM and F1).
+   in fp16 as phase 8 (49 LayerNorm launches per forward, EM and F1);
+13. the debug planes: 13a ``run_server.build_service`` with
+   ``--output_dir`` (the JSONL sink teed into the flight recorder, the
+   heartbeat, the ``/profilez`` capture controller, the compile monitor)
+   serving fill_mask and classify at BERT-large width (``--buckets
+   128,512 --max_batch_size 8 --pack_requests``, flash_infer), and a
+   service without any of them on the same engine: phase 5a's waves for
+   those heads through each in 8 balanced turns of 3 rounds (the
+   telemetry's cost on p50 and max latency), then ``POST /profilez``
+   (``duration_s`` 2) over the short wave. The warmup's compile records must show no
+   cold build and one hit for the one library the engine runs; #4 once
+   per layer per forward on the tensor cores; the capture's trace must
+   hold as many #4 kernel events as launches in its window (24 per
+   forward), its ``profile_window`` record the trace's path and bytes;
+   the heartbeat must advance to the requests served, and the clean
+   close must remove the postmortem. 13b a ``run_server`` subprocess
+   with ``--output_dir`` sent SIGTERM as the first of phase 5a's waves'
+   answers arrives: exit 75, every accepted request answered 200, the
+   preemption ``fault`` record in its JSONL and in the postmortem it
+   keeps, its warmup line naming no cold build. Phase 9b runs with
+   ``--debug_port``: /healthz and /statsz read mid-run, and a capture
+   armed at step 2's boundary covers steps 3 and 4, its trace holding the
+   #1-#3 launches the counters count there (96/48/48 per step). Phase 6
+   ends with four more steps in turns, plain and under an active capture
+   (its cost on a phase-2 step), and phase 2's build logs its compile
+   records (the cold ``nvcc`` seconds per library).
 
 Every launch counter is set to 0 just before each main path and read just
 after it. The last three lines of standard output are the kernels JSON,
@@ -185,11 +210,13 @@ the card's name and power limit (``nvidia-smi``), and the JSON result.
 
 from __future__ import annotations
 
+import http.client
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1569,13 +1596,15 @@ FP16_INIT_SCALE = 2.0 ** 16
 
 
 def drive_training(kernels: dict, dtype: str = "bfloat16",
-                   ref_first_loss=None) -> dict:
+                   ref_first_loss=None, capture_turns: bool = False) -> dict:
     """The training main path: the port runner's setup functions and train
     step, TRAIN_STEPS optimizer steps of BERT-large phase 2 in ``dtype``.
     In float16 (phase 12b) every step record must carry the default loss
     scale (no step overflowed) and the first loss lie within
     FP16_LOSS_RTOL of ``ref_first_loss`` (phase 6's bf16 first loss on the
-    same seed)."""
+    same seed). With ``capture_turns`` (phase 13's cost of a capture on a
+    phase-2 step), four more steps after the counts are read, in turns:
+    plain, under an active /profilez capture, under one, plain."""
     from bert_pytorch_tpu_torch import run_pretraining
 
     args = run_pretraining.setup_training(training_args(["--dtype", dtype]))
@@ -1642,6 +1671,7 @@ def drive_training(kernels: dict, dtype: str = "bfloat16",
     log(f"[train {dtype}] launches {launches}; by route {routes}")
     steady = [r["step_ms"] for r in records[1:]]
     step_ms = statistics.median(steady)
+    turns = capture_step_turns(step, batches) if capture_turns else None
     del model, optimizer, step, batches
     torch.cuda.empty_cache()
     return {"steps": TRAIN_STEPS, "dtype": dtype, "losses": losses,
@@ -1649,7 +1679,55 @@ def drive_training(kernels: dict, dtype: str = "bfloat16",
             "launches": launches, "routes": routes,
             "step_ms": step_ms, "first_step_ms": records[0]["step_ms"],
             "seq_per_s": args.global_batch_size / step_ms * 1e3,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "capture_turns": turns}
+
+
+def capture_step_turns(step, batches: list) -> list:
+    """Phase-2 steps in turns (plain, captured, captured, plain): a
+    captured step runs under an active trainer capture (a
+    ``CaptureController`` over a ``torch.profiler`` window on the card,
+    ticked at the step's boundaries as TrainTelemetry ticks it). A step's
+    time is the host clock from its dispatch to its loss on the host;
+    the capture's collection (synchronize, trace export) is timed apart.
+    Outside every main path's count window."""
+    from bert_pytorch_tpu_torch.telemetry.profiler import ProfilerWindow
+    from bert_pytorch_tpu_torch.telemetry.sampler import CaptureController
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_capture_")
+    controller = CaptureController(
+        "trainer", window=ProfilerWindow(None, trace_dir, device="cuda"),
+        trace_dir=trace_dir)
+    turns = []
+    try:
+        for i, captured in enumerate((False, True, True, False)):
+            if captured:
+                controller.arm(duration_s=60)
+                controller.tick(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(batches[i % len(batches)])["loss"])
+            turn = {"captured": captured,
+                    "step_ms": (time.perf_counter() - t0) * 1e3}
+            if captured:
+                t0 = time.perf_counter()
+                record = controller.tick(i + 1, force=True)
+                turn.update(collect_s=time.perf_counter() - t0,
+                            trace_bytes=record["trace_bytes"],
+                            samples=record["samples"])
+                if not record["trace_path"]:
+                    raise AssertionError(f"capture without a trace: {record}")
+            turns.append(turn)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    log("[debug] capture cost on a phase-2 step (plain, captured, captured, "
+        "plain): " + "; ".join(
+            f"{'captured' if t['captured'] else 'plain'} "
+            f"{t['step_ms']:.1f} ms"
+            + (f" (collect {t['collect_s']:.2f} s, trace "
+               f"{t['trace_bytes']} bytes)" if t["captured"] else "")
+            for t in turns))
+    return turns
 
 
 def check_training_flash_vs_dense() -> dict:
@@ -1988,6 +2066,9 @@ TRACE_KERNELS = {
 }
 # A window's mfu is rounded to 4 decimals in its record.
 MFU_ATOL = 1e-4
+# 9b's /profilez capture, armed at step 2's boundary (the startup trace
+# ends there) and collected when the run ends: it covers steps 3 and 4.
+CAPTURE_FROM_STEP = 2
 
 
 def read_records(path: str) -> dict:
@@ -2069,7 +2150,8 @@ def check_runner_telemetry(tele_dir: str, r: dict, per_step: list,
             m["memory_supported"] for m in memory) or any(
             a != b for _, a, b in peaks):
         raise AssertionError(f"9b memory {memory}; allocator peaks {peaks}")
-    traces = os.listdir(os.path.join(tele_dir, "profile"))
+    traces = [f for f in os.listdir(os.path.join(tele_dir, "profile"))
+              if f.startswith("trace_")]
     if len(traces) != 1:
         raise AssertionError(f"9b profile traces {traces}")
     traced, kernel_ms = trace_kernels(
@@ -2099,6 +2181,58 @@ def check_runner_telemetry(tele_dir: str, r: dict, per_step: list,
     return {"windows": windows, "traced_kernel_ms": kernel_ms,
             "trace_launches": traced, "memory_peaks": peaks,
             "grad_health_steps": len(health), "heartbeat": beat}
+
+
+def check_trainer_capture(tele_dir: str, out: str, per_step: list,
+                          probes: dict, port: int, step_ms: list,
+                          card: str) -> dict:
+    """9b's debug plane: /healthz and /statsz answered mid-run, the
+    capture armed there covered the steps after it (its profile_window in
+    the JSONL, its trace holding exactly the #1-#3 launches the counters
+    count over those steps: 96/48/48 per optimizer step), the server
+    closed with the run and the clean run left no postmortem."""
+    health, stats, arm = probes["healthz"], probes["statsz"], probes["arm"]
+    if (health["status"], health["process"], health["step"]) != (
+            "ok", "pretrain", CAPTURE_FROM_STEP - 1) or \
+            stats["steps"] != CAPTURE_FROM_STEP - 1 or \
+            stats["profile"]["phase"] != "idle" or arm[0] != 200:
+        raise AssertionError(f"9b debug plane: {probes}")
+    try:
+        get(port, "/healthz")
+    except OSError:
+        pass
+    else:
+        raise AssertionError("9b: the debug server outlived the run")
+    if os.path.exists(os.path.join(out, "postmortem.json")):
+        raise AssertionError("9b: a clean run left postmortem.json")
+    (window,) = read_records(os.path.join(
+        tele_dir, "pretraining_telemetry.jsonl"))["profile_window"]
+    steps = len(per_step) - CAPTURE_FROM_STEP
+    if (window["source"], window["covered"], window["trace_path"]) != (
+            "trainer", steps, os.path.join(tele_dir, "profile",
+                                           "ondemand_1")):
+        raise AssertionError(f"9b profile_window {window}")
+    traced, kernel_ms = trace_kernels(os.path.join(
+        window["trace_path"], f"trace_{os.getpid()}.json"))
+    counted = {name: per_step[-1][1][name]
+               - per_step[CAPTURE_FROM_STEP - 1][1][name] for name in traced}
+    per = {"flash_attention_fwd": 96, "flash_attention_dq": 48,
+           "flash_attention_dkv": 48}
+    if traced != counted or traced != {n: v * steps for n, v in per.items()}:
+        raise AssertionError(f"9b capture trace launches {traced}, counters "
+                             f"{counted} over {steps} steps")
+    log(f"[debug 9b] /healthz {health['status']} at step {health['step']}, "
+        f"/statsz steps {stats['steps']}; /profilez capture over steps "
+        f"{CAPTURE_FROM_STEP + 1}-{len(per_step)}: trace "
+        f"{window['trace_bytes']} bytes, #1-#3 events {traced} "
+        f"({kernel_ms:.2f} ms of kernels), {window['samples']} host samples, "
+        f"{window['duration_s']} s; step ms {[round(x, 1) for x in step_ms]}"
+        f" (step {TRACED_STEP} under the startup trace, "
+        f"{CAPTURE_FROM_STEP + 1}-{len(per_step)} under the capture) on "
+        f"{card}")
+    return {"trace_bytes": window["trace_bytes"], "covered": steps,
+            "trace_launches": traced, "samples": window["samples"],
+            "duration_s": window["duration_s"], "step_ms": step_ms}
 
 
 def check_finetune_telemetry(jsonl: str, name: str, card: str) -> list:
@@ -2322,6 +2456,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
                 "--keep_checkpoints", str(P2_KEEP), "--checkpoint_write",
                 "async", "--skip_final_checkpoint"]
     tele_dir = os.path.join(root, "telemetry_9b")
+    debug_port = free_port()
     r2 = runner(out, PHASE2, p2_flags + [
         "--telemetry_window", str(TELEMETRY_WINDOW),
         "--telemetry_sync_every", "1", "--profile_steps", PROFILE_STEPS,
@@ -2329,7 +2464,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         "--heartbeat_file", os.path.join(tele_dir, "heartbeat.json"),
         "--telemetry_jsonl", os.path.join(tele_dir,
                                           "pretraining_telemetry.jsonl"),
-        "--grad_stats_every", "1"])
+        "--grad_stats_every", "1", "--debug_port", str(debug_port)])
     a2 = r2["args"]
     if (a2.resume_step, r2["global_step"], a2.remat,
             a2.max_predictions_per_seq) != (P1_STEPS, 0, "dots", 80):
@@ -2351,9 +2486,18 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
     n_writes = len(ckpt.write_records)
     per_step = []
 
+    probes = {}
+
     def on_step(metrics):
         per_step.append((torch.cuda.max_memory_allocated(),
                          {name: k.launches for name, k in kernels.items()}))
+        if len(per_step) == CAPTURE_FROM_STEP:
+            # The debug plane mid-run, and a capture armed to start at
+            # this step's boundary (collected when the run ends).
+            probes["healthz"] = get(debug_port, "/healthz")
+            probes["statsz"] = get(debug_port, "/statsz")
+            probes["arm"] = post(debug_port, "", {"duration_s": 60},
+                                 path="/profilez")[:2]
 
     torch.cuda.synchronize()
     # Counts to zero just before the main path, read just after.
@@ -2374,8 +2518,10 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         raise AssertionError(f"phase 2 writes {writes2}, on disk "
                              f"{steps_on_disk}; expected async {want}, "
                              f"ckpt_{P1_STEPS} pruned")
-    telemetry_9b = check_runner_telemetry(tele_dir, r2, per_step, card)
     p2_ms = [(b - a) * 1e3 for a, b in summary2["step_times"]]
+    capture_9b = check_trainer_capture(tele_dir, out, per_step, probes,
+                                       debug_port, p2_ms, card)
+    telemetry_9b = check_runner_telemetry(tele_dir, r2, per_step, card)
     over, clear = overlap(summary2["step_times"], writes2[0])
     stalls = [s["stall_s"] for s in summary2["saves"]]
     log(f"[handoff] 9b phase 2 (S={TRAIN_SEQ}, flash, {TRAIN_LOCAL_BATCH} x "
@@ -2453,7 +2599,8 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
             "routes": routes, "resume_s": resume_s,
             "determinism": determinism, "resumed_step_bit_equal": exact,
             "resumed_step_max_diff": diff, "resumed_step_loss": metrics,
-            "telemetry": telemetry_9b, "init_checkpoint": init}
+            "telemetry": telemetry_9b, "capture": capture_9b,
+            "init_checkpoint": init}
 
 
 # -- phase 10: finetune from the pretraining checkpoint, save, serve ---------
@@ -3247,6 +3394,407 @@ def drive_fp16_overflow(kernels: dict, root: str, card: str) -> dict:
             "resumed_step": metrics, "resumed_step_bit_equal": exact,
             "resumed_step_max_diff": diff, "determinism": determinism}
 
+# -- phase 13: the debug planes ----------------------------------------------
+
+# 13a: a replica with its planes at BERT-large width (fill_mask and
+# classify, the same seeded random weights for both services) and the same
+# engine behind a service without any, served phase 5a's waves in turns;
+# then a POST /profilez capture over one wave. 13b: a run_server
+# subprocess drained by SIGTERM mid-wave.
+DEBUG_TASKS = ("fill_mask", "classify")
+# #4's kernel symbols, on either route.
+INFER_TRACE_KERNEL = re.compile(r"flash_infer_(wgmma_)?kernel")
+CAPTURE_S = 2.0
+# 13a's turns, planes off and on in a balanced order, each serving the
+# waves TURN_REPEATS times.
+TURNS = ("off", "on", "on", "off", "on", "off", "off", "on")
+TURN_REPEATS = 3
+# Seconds a BERT-large replica subprocess may take to answer /healthz (an
+# interpreter, two heads' random init and the warmup forwards).
+REPLICA_START_S = 300
+
+
+def debug_waves() -> list:
+    """Phase 5a's waves, cut to the two heads phase 13 serves."""
+    return [[tp for tp in wave if tp[0] in DEBUG_TASKS]
+            for wave in request_waves()]
+
+
+def serve_http(service) -> tuple:
+    """Start ``service`` and an HTTP server on it: (server, thread)."""
+    from bert_pytorch_tpu_torch.serve import make_server
+
+    service.start()
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def stop_http(service, server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    service.stop()
+    thread.join(timeout=30)
+
+
+def wave_latencies(port: int, waves: list, labels) -> list:
+    """Each wave's requests sent concurrently, every answer 200 and well
+    formed: the requests' latencies in seconds."""
+    out = []
+    for wave in waves:
+        with ThreadPoolExecutor(max_workers=len(wave)) as pool:
+            got = list(pool.map(lambda tp: post(port, *tp), wave))
+        for (task, payload), (status, body, _) in zip(wave, got):
+            if status != 200:
+                raise AssertionError(f"{task} answered {status}: {body}")
+            check_body(task, payload, body, labels)
+        out += [seconds for _, _, seconds in got]
+    return out
+
+
+def latency_line(seconds: list) -> dict:
+    ordered = sorted(seconds)
+    return {"p50_ms": statistics.median(ordered) * 1e3,
+            "max_ms": ordered[-1] * 1e3, "requests": len(ordered)}
+
+
+def watch_window(window, engine, kernel) -> dict:
+    """Wrap a capture's trace window so each begin and end notes #4's
+    launch count and the engine's forwards just before and just after."""
+    marks: dict = {}
+    begin, end = window.begin, window.end
+
+    def snap(label):
+        marks[label] = (kernel.launches, engine.forwards)
+
+    def watched_begin(trace_dir=None):
+        snap("begin0")
+        ok = begin(trace_dir)
+        snap("begin1")
+        return ok
+
+    def watched_end(sync_target=None):
+        snap("end0")
+        ok = end(sync_target)
+        snap("end1")
+        return ok
+
+    window.begin, window.end = watched_begin, watched_end
+    return marks
+
+
+def wait_for(port: int, pred, what: str, timeout_s: float = 60.0) -> dict:
+    """Poll /statsz until ``pred(statsz)``."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        stats = get(port, "/statsz")
+        if pred(stats):
+            return stats
+        time.sleep(0.02)
+    raise AssertionError(f"/statsz never showed {what}")
+
+
+def capture_wave(service, port: int, wave: list, labels, kernel) -> dict:
+    """POST /profilez (CAPTURE_S), wait until the capture is active, serve
+    ``wave``, wait until it is collected, and count #4's kernel events in
+    its trace: at least the launches made between its begin and end, at
+    most those made from just before its begin to just after its end, and
+    24 per forward when no forward straddled either. A trace that lost
+    events is captured again over the same wave (DEVICE_TIME_TRIES)."""
+    from bert_pytorch_tpu_torch.tools.profile_train import (kernel_rows,
+                                                            load_trace)
+
+    layers = service.engine.config.num_hidden_layers
+    marks = watch_window(service.capture.window, service.engine, kernel)
+    for attempt in range(DEVICE_TIME_TRIES):
+        done = service.capture.status()["captures"]
+        status, armed, _ = post(port, "", {"duration_s": CAPTURE_S},
+                                path="/profilez")
+        if status != 200:
+            raise AssertionError(f"/profilez answered {status}: {armed}")
+        again = post(port, "", {}, path="/profilez")[0]
+        if again != 409:
+            raise AssertionError(f"a second /profilez answered {again}")
+        wait_for(port, lambda s: s["profile"]["phase"] == "active",
+                 "an active capture")
+        latencies = wave_latencies(port, [wave], labels)
+        stats = wait_for(port, lambda s: s["profile"]["captures"] > done,
+                         "the capture collected")
+        last = stats["profile"]["last"]
+        rows = kernel_rows(load_trace(os.path.join(
+            last["trace_path"], f"trace_{os.getpid()}.json")))
+        traced = sum(n for name, _, n in rows
+                     if INFER_TRACE_KERNEL.search(name))
+        kernel_ms = sum(ms for name, ms, _ in rows
+                        if INFER_TRACE_KERNEL.search(name))
+        lo = marks["end0"][0] - marks["begin1"][0]
+        hi = marks["end1"][0] - marks["begin0"][0]
+        if 0 < lo <= traced <= hi:
+            break
+        log(f"[warn] capture {attempt + 1} of {DEVICE_TIME_TRIES}: {traced} "
+            f"#4 kernel events in the trace, {lo}-{hi} launches in its "
+            f"window; marks {marks}")
+    else:
+        raise AssertionError(f"the capture's trace holds {traced} #4 kernel "
+                             f"events for {lo}-{hi} launches")
+    forwards = marks["end0"][1] - marks["begin1"][1]
+    quiet = (marks["begin0"] == marks["begin1"]
+             and marks["end0"] == marks["end1"])
+    if quiet and traced != layers * forwards:
+        raise AssertionError(f"{traced} #4 kernel events for {forwards} "
+                             f"forwards of {layers} layers")
+    return {"latencies": latencies, "traced_launches": traced,
+            "launches_in_window": [lo, hi], "forwards_in_window": forwards,
+            "traced_kernel_ms": kernel_ms, "last": last,
+            "attempts": attempt + 1}
+
+
+def drive_debug_planes(vocab: str, root: str, kernels: dict,
+                       card: str) -> dict:
+    """Phase 13a. ``run_server.build_service`` with ``--output_dir`` (the
+    JSONL sink teed into the flight recorder, the heartbeat, the capture
+    controller, the compile monitor) at BERT-large width, and a service
+    without any of them on the same engine; phase 5a's waves (fill_mask
+    and classify) through each in TURNS, then a
+    ``POST /profilez`` capture over the short wave on the replica. Checks
+    the warmup's compile records (no cold build: one hit for the one
+    library the engine runs), #4 once per layer per forward on the tensor
+    cores over the phase, the capture's trace against the launches its
+    window saw, the heartbeat's progress, the profile_window record and
+    the JSONL against the schema."""
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.serve import (Batcher, ServeTelemetry,
+                                              ServingService)
+    from bert_pytorch_tpu_torch.serve.cli import build_tracer
+    from bert_pytorch_tpu_torch.telemetry import Heartbeat, schema
+
+    out = os.path.join(root, "replica_13a")
+    args = serve_args(vocab, "bfloat16", "flash_infer", ",".join(DEBUG_TASKS),
+                      ["--output_dir", out, "--telemetry_window", "16"])
+    on = run_server.build_service(args)
+    engine = on.engine
+    on.compile_monitor.install()
+    try:
+        engine.warmup()
+    finally:
+        on.compile_monitor.uninstall()
+    startup = engine.startup
+    libraries = engine.kernel_libraries()
+    if (startup["compiles_cold"], startup["compiles_warm"],
+            libraries) != (0, 1, ("flash_attention_infer",)):
+        raise AssertionError(f"13a startup {startup}, libraries {libraries}: "
+                             "expected no cold build and one hit")
+    off = ServingService(engine, Batcher(
+        max_batch_size=args.max_batch_size, max_wait_ms=args.max_wait_ms,
+        max_requests_per_pack=engine.max_requests_per_pack),
+        ServeTelemetry(), tracer=build_tracer(args))
+    labels = args.classify_labels.split(",")
+    waves = debug_waves()
+    # Counts to zero just before the main path, read just after.
+    zero_counts(kernels)
+    engine.forwards = 0
+    turns = []
+    running = {name: (svc,) + serve_http(svc)
+               for name, svc in (("off", off), ("on", on))}
+    beat0 = Heartbeat.read(os.path.join(out, "heartbeat.json"))
+    try:
+        for name in ("off", "on"):  # untimed: each server's first waves
+            wave_latencies(running[name][1].server_address[1], waves, labels)
+        for name in TURNS:
+            port = running[name][1].server_address[1]
+            t0 = time.perf_counter()
+            seconds, short = [], []
+            for _ in range(TURN_REPEATS):
+                got = wave_latencies(port, waves, labels)
+                seconds += got
+                short += got[:len(waves[0])]
+            turns.append(dict(latency_line(seconds), planes=name,
+                              wall_s=time.perf_counter() - t0,
+                              short_wave=latency_line(short)))
+        captured = capture_wave(on, running["on"][1].server_address[1],
+                                waves[0], labels,
+                                kernels["flash_attention_infer"])
+    finally:
+        for svc, server, thread in running.values():
+            stop_http(svc, server, thread)
+        run_server.close_planes(on)
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.route_launches) for name, k in kernels.items()
+              if hasattr(k, "route_launches")}
+    served = {"launches": launches, "routes": routes,
+              "forwards": engine.forwards,
+              "layers": engine.config.num_hidden_layers}
+    check_launches(served, "flash_attention_infer", ("layer_norm_fwd",))
+    beat1 = Heartbeat.read(os.path.join(out, "heartbeat.json"))
+    requests = on.telemetry.request_count()
+    if not (beat0 and beat1 and beat1["counter"] > beat0["counter"]
+            and beat1["step"] == requests):
+        raise AssertionError(f"13a heartbeat {beat0} -> {beat1} for "
+                             f"{requests} requests")
+    jsonl = os.path.join(out, "serve_telemetry.jsonl")
+    errors = schema.validate_file(jsonl)
+    kinds = read_records(jsonl)
+    compiles = kinds.get("compile", [])
+    windows = kinds.get("profile_window", [])
+    if errors or [(c["fn"], c["cache"]) for c in compiles] != [
+            ("flash_attention_infer", "hit")] or len(windows) != \
+            captured["attempts"]:
+        raise AssertionError(f"13a JSONL: {errors[:5]}, compile records "
+                             f"{compiles}, profile windows {windows}")
+    window = windows[-1]
+    if (window["source"], window["covered_unit"], window["trace_path"]) != (
+            "replica", "requests", captured["last"]["trace_path"]) or \
+            window["covered"] < len(waves[0]) or not window["trace_bytes"]:
+        raise AssertionError(f"13a profile_window {window}")
+    if os.path.exists(os.path.join(out, "postmortem.json")):
+        raise AssertionError("13a: a clean close left postmortem.json")
+    on_p50 = [t["p50_ms"] for t in turns if t["planes"] == "on"]
+    off_p50 = [t["p50_ms"] for t in turns if t["planes"] == "off"]
+    short_on = [t["short_wave"] for t in turns if t["planes"] == "on"]
+    log(f"[debug 13a] telemetry cost, phase 5a's waves ({len(waves[0])} + "
+        f"{len(waves[1])} requests, {TURN_REPEATS} times a turn; "
+        f"{', '.join(TURNS)}): "
+        + "; ".join(f"{t['planes']} p50 {t['p50_ms']:.2f} ms max "
+                    f"{t['max_ms']:.2f} ms" for t in turns)
+        + f"; median p50 on {statistics.median(on_p50):.2f} ms, off "
+        f"{statistics.median(off_p50):.2f} ms on {card}")
+    cap = latency_line(captured["latencies"])
+    log(f"[debug 13a] capture over the short wave: p50 {cap['p50_ms']:.2f} ms "
+        f"max {cap['max_ms']:.2f} ms (the same wave in the 'on' turns: p50 "
+        f"{[round(t['p50_ms'], 2) for t in short_on]} ms, max "
+        f"{[round(t['max_ms'], 2) for t in short_on]} ms); trace "
+        f"{window['trace_bytes']} bytes, {captured['traced_launches']} #4 "
+        f"kernel events ({captured['traced_kernel_ms']:.3f} ms) for "
+        f"{captured['launches_in_window']} launches over "
+        f"{captured['forwards_in_window']} forwards in its window, "
+        f"{window['samples']} host samples, covered {window['covered']} "
+        f"requests in {window['duration_s']} s; heartbeat counter "
+        f"{beat0['counter']} -> {beat1['counter']}; startup {startup} on "
+        f"{card}")
+    return {"turns": turns, "capture": dict(
+                cap, trace_bytes=window["trace_bytes"],
+                traced_launches=captured["traced_launches"],
+                launches_in_window=captured["launches_in_window"],
+                forwards_in_window=captured["forwards_in_window"],
+                samples=window["samples"], covered=window["covered"],
+                attempts=captured["attempts"]),
+            "launches": launches, "routes": routes,
+            "forwards": engine.forwards, "startup": startup,
+            "heartbeat": [beat0, beat1]}
+
+
+def post_or_error(port: int, task: str, payload: dict) -> tuple:
+    """:func:`post`, with a refused or reset connection as (None, error)."""
+    try:
+        return post(port, task, payload)
+    except (OSError, http.client.HTTPException) as exc:
+        return None, repr(exc), 0.0
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def drive_replica_drain(vocab: str, root: str, card: str) -> dict:
+    """Phase 13b: ``python -m bert_pytorch_tpu_torch.run_server`` at
+    BERT-large width with ``--output_dir``, phase 5a's waves sent at once,
+    SIGTERM as the first answer arrives. The replica must exit 75; every
+    request it accepted answers 200 (the others are refused with 503 or a
+    closed connection), the JSONL carries the preemption ``fault`` record
+    and a serve_summary counting the answers, and postmortem.json keeps
+    the fault record."""
+    from concurrent.futures import as_completed
+
+    from bert_pytorch_tpu_torch.telemetry import schema
+    from bert_pytorch_tpu_torch.telemetry.flightrec import read_postmortem
+
+    out = os.path.join(root, "replica_13b")
+    port = free_port()
+    cmd = [sys.executable, "-m", "bert_pytorch_tpu_torch.run_server",
+           "--model_config_file", CONFIG, "--vocab_file", vocab,
+           "--tasks", ",".join(DEBUG_TASKS), "--buckets", "128,512",
+           "--max_batch_size", "8", "--pack_requests", "--port", str(port),
+           "--trace_sample_rate", "0", "--output_dir", out]
+    log_path = os.path.join(root, "replica_13b.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:
+            try:
+                get(port, "/healthz")
+                break
+            except OSError:
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > REPLICA_START_S:
+                    raise AssertionError(
+                        f"13b replica did not start (rc {proc.poll()}): "
+                        + open(log_path).read()[-3000:])
+                time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        requests = [tp for wave in debug_waves() for tp in wave]
+        with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+            futures = [pool.submit(post_or_error, port, *tp)
+                       for tp in requests]
+            next(as_completed(futures))
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            results = [f.result() for f in futures]
+        rc = proc.wait(timeout=300)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    output = open(log_path).read()
+    if rc != 75:
+        raise AssertionError(f"13b replica exited {rc}, not 75: "
+                             + output[-3000:])
+    codes = {}
+    for (task, payload), (status, body, _) in zip(requests, results):
+        codes[status] = codes.get(status, 0) + 1
+        if status == 200:
+            check_body(task, payload, body, ["0", "1"])
+        elif status not in (503, None):
+            raise AssertionError(f"13b {task} answered {status}: {body}")
+    jsonl = os.path.join(out, "serve_telemetry.jsonl")
+    errors = schema.validate_file(jsonl)
+    kinds = read_records(jsonl)
+    faults = kinds.get("fault", [])
+    summary = (kinds.get("serve_summary") or [{}])[-1]
+    pm = read_postmortem(os.path.join(out, "postmortem.json"))
+    if (errors or [(f["fault"], f["signal"]) for f in faults] != [
+            ("preemption", "SIGTERM")] or not codes.get(200)
+            or summary.get("requests") != codes[200]
+            or summary.get("errors", 0) != 0):
+        raise AssertionError(f"13b JSONL: {errors[:5]}, faults {faults}, "
+                             f"summary {summary}, answers {codes}")
+    if pm is None or pm["reason"] != "fault:preemption" or not any(
+            r.get("kind") == "fault" for r in pm["records"]):
+        raise AssertionError(f"13b postmortem: {pm and pm['reason']}")
+    if "0 cold kernel builds / 1 already built" not in output:
+        raise AssertionError("13b: the replica's warmup line names a cold "
+                             "build: " + output[-2000:])
+    log(f"[debug 13b] run_server subprocess answered /healthz {start_s:.1f} s "
+        f"after its start; SIGTERM after the first answer: rc {rc} in "
+        f"{drain_s:.2f} s, answers by status {codes}, fault record at "
+        f"request {faults[0]['step']}, serve_summary requests "
+        f"{summary['requests']}, postmortem {pm['reason']} with "
+        f"{len(pm['records'])} records and {len(pm['lines'])} log lines on "
+        f"{card}")
+    return {"rc": rc, "start_s": start_s, "drain_s": drain_s,
+            "answers": {str(k): v for k, v in codes.items()},
+            "fault_step": faults[0]["step"],
+            "postmortem_records": len(pm["records"])}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3267,9 +3815,16 @@ def main() -> int:
     device = torch.cuda.get_device_name(0)
     log(f"[card] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    from bert_pytorch_tpu_torch.telemetry.compile_events import CompileMonitor
+
     t0 = time.perf_counter()
-    built = build.build()
+    # The cold build's compile records (phase 13's nvcc seconds per kernel).
+    with CompileMonitor().installed() as monitor:
+        built = build.build()
     log(f"[build] {built} in {time.perf_counter() - t0:.2f}s")
+    log("[build] compile records (cold nvcc seconds per library) on "
+        f"{card}: " + ", ".join(f"{e['fn']} {e['cache']} {e['compile_s']} s"
+                                for e in monitor.events))
     kernels = {"flash_attention_infer": flash_attention_infer,
                "flash_attention_infer_int8": flash_attention_infer_int8,
                "flash_attention_fwd": flash_attention_fwd,
@@ -3317,8 +3872,12 @@ def main() -> int:
             f"{served['load_s_by_task']}, int8 {served8['load_s_by_task']}, "
             f"swap load_s {swap['load_s']}")
         int8_errs = check_int8_engines(vocab, fp32_rows)
+        torch.cuda.empty_cache()
+        debug = drive_debug_planes(vocab, tmp, kernels, card)
+        torch.cuda.empty_cache()
+        drain = drive_replica_drain(vocab, tmp, card)
     torch.cuda.empty_cache()
-    trained = drive_training(kernels)
+    trained = drive_training(kernels, capture_turns=True)
     log(f"[train] BERT-large phase 2 (S=512, max_pred 80, bf16, remat dots, "
         f"LAMB), local batch {TRAIN_LOCAL_BATCH} x {TRAIN_ACCUM}: "
         f"{trained['step_ms']:.1f} ms/step, {trained['seq_per_s']:.2f} "
@@ -3367,6 +3926,8 @@ def main() -> int:
     infer_entry["launches"] = served["launches"]["flash_attention_infer"]
     infer_entry["launches_glue_serving"] = finetuned["served"]["launches"][
         "flash_attention_infer"]
+    infer_entry["launches_debug_planes"] = debug["launches"][
+        "flash_attention_infer"]
     infer_entry["route_launches"] = served["routes"]["flash_attention_infer"]
     int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
     int8_entry["route_launches"] = served8["routes"][
@@ -3382,7 +3943,7 @@ def main() -> int:
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16)))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events)))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

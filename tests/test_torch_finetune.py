@@ -520,8 +520,7 @@ def test_runner_refuses_what_it_cannot_do(files, runner, tmp_path):
     module = MODULES[runner]
     base = _runner_argv(runner, files, tmp_path / "out")
     for flags in (["--dtype", "float16"], ["--compile_cache_dir", "x"],
-                  ["--device_prefetch", "2"], ["--debug_port", "9318"],
-                  ["--postmortem_file", "x"]):
+                  ["--device_prefetch", "2"]):
         with pytest.raises(SystemExit):
             module.parse_arguments(base + flags)
     with pytest.raises(ValueError, match="WordPiece"):
