@@ -3,16 +3,26 @@
 Each kernel is one source under ``bert_pytorch_tpu_torch/csrc/`` with a
 plain C interface. ``nvcc`` compiles it for Hopper (``sm_90a``) into a
 shared library, and ``ctypes`` loads it: no PyTorch headers are involved,
-so a build takes seconds. Libraries are built at first use into
-``bert_pytorch_tpu_torch/build/`` (listed in ``.gitignore``), named by a
-hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
-an edited source or header is rebuilt and never served stale. A missing compiler or a failed build raises: there is no
-fallback to another implementation.
+so a build takes seconds. Libraries are built at first use into the build
+directory — ``bert_pytorch_tpu_torch/build/`` (listed in ``.gitignore``)
+unless :func:`set_build_dir` names another (``run_server
+--compile_cache_dir``) — named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and never served stale. A missing compiler or a failed build
+raises: there is no fallback to another implementation.
+
+Processes that share a build directory (a fleet of replicas started
+together) build each library once: an advisory ``fcntl.flock`` on
+``<library>.lock`` is held around "built? else compile", so one process
+runs ``nvcc`` and reports a miss, and the others wait for it and report
+a hit. The kernel releases the lock when its holder exits, so a process
+killed mid-build leaves no stale lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -36,6 +46,23 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
+# The build directory an entry point named (set_build_dir); None means
+# BUILD_DIR.
+_build_dir: Optional[Path] = None
+
+
+def set_build_dir(path) -> Path:
+    """Build and find the kernel libraries in ``path`` from now on (None
+    or empty: back to :data:`BUILD_DIR`); returns the directory.
+    Libraries this process already loaded stay loaded."""
+    global _build_dir
+    _build_dir = Path(path).resolve() if path else None
+    return build_dir()
+
+
+def build_dir() -> Path:
+    """The directory the kernel libraries are built into and found in."""
+    return _build_dir or BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -67,7 +94,20 @@ def library_digest(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{library_digest(name)}.so"
+    return build_dir() / f"lib{name}-{library_digest(name)}.so"
+
+
+def _lock_library(out: Path):
+    """Open ``<library>.lock`` beside ``out`` and take its exclusive
+    advisory lock, waiting for another process's build; returns the open
+    file (closing it releases the lock)."""
+    handle = open(out.with_name(out.name + ".lock"), "a")
+    try:
+        fcntl.flock(handle, fcntl.LOCK_EX)
+    except BaseException:
+        handle.close()
+        raise
+    return handle
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
@@ -80,40 +120,55 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
     monitors."""
     from bert_pytorch_tpu_torch.telemetry.compile_events import report_build
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc: Optional[str] = None
     running = {}
     seconds: Dict[str, float] = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            seconds[name] = 0.0
-            continue
-        nvcc = nvcc or find_nvcc()
-        tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
-        log = out.with_name(out.name + ".log")
-        with open(log, "w") as f:
-            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
-        running[name] = (proc, tmp, out, log, time.perf_counter())
-    failures = []
-    pending = dict(running)
-    while pending:
-        # Each compiler's seconds end at its own exit, whatever order
-        # the compilers finish in.
-        for name, (proc, tmp, out, log, t0) in list(pending.items()):
-            if proc.poll() is None:
+    locks = {}
+    try:
+        # Locks are taken in name order, so two processes building
+        # overlapping sets never wait on each other in a cycle.
+        for name in sorted(set(names)):
+            out = library_path(name)
+            if out.exists():
+                seconds[name] = 0.0
                 continue
-            seconds[name] = time.perf_counter() - t0
-            del pending[name]
-            if proc.returncode != 0:
-                failures.append(
-                    f"{name} (rc {proc.returncode}):\n{log.read_text()}")
-                tmp.unlink(missing_ok=True)
+            locks[name] = _lock_library(out)
+            if out.exists():
+                # Another process built it while this one waited.
+                locks.pop(name).close()
+                seconds[name] = 0.0
                 continue
-            os.replace(tmp, out)
-        if pending:
-            time.sleep(0.05)
+            nvcc = nvcc or find_nvcc()
+            tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+            log = out.with_name(out.name + ".log")
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f,
+                                        stderr=subprocess.STDOUT)
+            running[name] = (proc, tmp, out, log, time.perf_counter())
+        failures = []
+        pending = dict(running)
+        while pending:
+            # Each compiler's seconds end at its own exit, whatever order
+            # the compilers finish in.
+            for name, (proc, tmp, out, log, t0) in list(pending.items()):
+                if proc.poll() is None:
+                    continue
+                seconds[name] = time.perf_counter() - t0
+                del pending[name]
+                if proc.returncode != 0:
+                    failures.append(
+                        f"{name} (rc {proc.returncode}):\n{log.read_text()}")
+                    tmp.unlink(missing_ok=True)
+                else:
+                    os.replace(tmp, out)
+                locks.pop(name).close()
+            if pending:
+                time.sleep(0.05)
+    finally:
+        for handle in locks.values():
+            handle.close()
     if failures:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
     for name, secs in seconds.items():

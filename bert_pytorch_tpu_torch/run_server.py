@@ -161,6 +161,12 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "replica leaves forensics); default "
                              "<output_dir>/postmortem.json, disabled "
                              "without an output_dir")
+    parser.add_argument("--compile_cache_dir", type=str, default="",
+                        help="directory the CUDA kernel libraries are "
+                             "built into and found in (replicas sharing "
+                             "one build each library once, under a "
+                             "per-library lock); default "
+                             "bert_pytorch_tpu_torch/build/")
     args = parser.parse_args(argv)
     from bert_pytorch_tpu_torch.data.tokenization import ROADMAP_BPE
 
@@ -202,12 +208,15 @@ def build_service(args: argparse.Namespace,
     capture controller and the compile monitor. Each task loads its
     ``--<task>_checkpoint``; ``weights`` maps task -> state dict (from
     ``from_jax_params``) for tasks without one; the rest serve seeded
-    random weights. The tokenizer lowercases unless ``--uppercase``, as
+    random weights. ``--compile_cache_dir`` names the directory the kernel
+    libraries are built into and found in (``ops/kernels/build.py``
+    ``set_build_dir``). The tokenizer lowercases unless ``--uppercase``, as
     the JAX server's. The service carries ``telemetry_sink`` (the JSONL
     handler or None), ``flight_recorder`` (or None) and
     ``compile_monitor``; :func:`close_planes` closes the first two."""
     from bert_pytorch_tpu_torch.config import BertConfig
     from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
+    from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.serve import (Batcher, InferenceEngine,
                                               ServeTelemetry, ServingService)
     from bert_pytorch_tpu_torch.serve.cli import DTYPES, build_tracer
@@ -219,6 +228,10 @@ def build_service(args: argparse.Namespace,
     from bert_pytorch_tpu_torch.telemetry.sentinels import Heartbeat
     from bert_pytorch_tpu_torch.utils.logging import JSONLHandler
 
+    # The kernel libraries' directory: --compile_cache_dir, else the
+    # package's build/ (set on every call, so a service built in the same
+    # process after another never inherits its directory).
+    build.set_build_dir(getattr(args, "compile_cache_dir", "") or None)
     config = BertConfig.from_json_file(args.model_config_file)
     config.vocab_size = config.padded_vocab_size(8)
     lowercase = not args.uppercase
@@ -284,6 +297,14 @@ def build_service(args: argparse.Namespace,
         max_requests_per_pack=engine.max_requests_per_pack,
         max_pending=args.max_pending)
     heartbeat_path = args.heartbeat_file or under_output("heartbeat.json")
+    heartbeat = Heartbeat(heartbeat_path) if heartbeat_path else None
+    telemetry = ServeTelemetry(emit=emit, window=args.telemetry_window)
+
+    def hold(seconds: float) -> None:
+        # A trace's collection holds the interpreter for seconds: the
+        # beat tells the fleet watchdog how long to wait.
+        heartbeat.beat(telemetry.request_count(), hold_s=seconds)
+
     # On-demand profiling plane: POST /profilez arms a bounded host-sampler
     # + torch.profiler capture; the dispatch plane ticks it per boundary
     # with position = requests served. The ProfilerWindow has no startup
@@ -293,13 +314,13 @@ def build_service(args: argparse.Namespace,
         source="replica", covered_unit="requests",
         window=(ProfilerWindow(None, profile_dir, device=engine.device)
                 if profile_dir else None),
-        trace_dir=profile_dir, emit=emit)
+        trace_dir=profile_dir, emit=emit,
+        hold=hold if heartbeat is not None else None)
     service = ServingService(
-        engine, batcher,
-        ServeTelemetry(emit=emit, window=args.telemetry_window),
+        engine, batcher, telemetry,
         tracer=build_tracer(args, emit=emit, window=args.telemetry_window),
-        heartbeat=Heartbeat(heartbeat_path) if heartbeat_path else None,
-        capture=capture, dispatch_mode=args.dispatch_mode)
+        heartbeat=heartbeat, capture=capture,
+        dispatch_mode=args.dispatch_mode)
     service.telemetry_sink = sink
     service.flight_recorder = recorder
     service.compile_monitor = monitor

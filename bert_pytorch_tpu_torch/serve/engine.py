@@ -309,6 +309,26 @@ class InferenceEngine:
                 "flash_infer_int8": ("flash_attention_infer_int8",)}.get(
                     self.attention_backend, ())
 
+    def kernel_launches(self) -> Dict[str, int]:
+        """Launches of each CUDA kernel this engine's forwards run (the
+        wrappers' counts, named as :meth:`kernel_libraries`; a fresh
+        process starts them at 0, so a replica's ``/statsz`` reads the
+        launches of its own forwards)."""
+        from bert_pytorch_tpu_torch.ops.kernels import attention
+
+        return {name: getattr(attention, name).launches
+                for name in self.kernel_libraries()}
+
+    def cuda_memory(self) -> Optional[Dict[str, int]]:
+        """The caching allocator's reserved bytes on the card, now and at
+        their peak (None on the CPU): a replica's own card memory, which
+        ``nvidia-smi`` cannot always tell apart per process."""
+        if self.device.type != "cuda":
+            return None
+        return {"reserved_bytes": torch.cuda.memory_reserved(self.device),
+                "max_reserved_bytes":
+                    torch.cuda.max_memory_reserved(self.device)}
+
     def warmup(self) -> int:
         """Run every (task, bucket[, packed]) forward the serving loop can
         dispatch once, on all-zero inputs; returns the number of forwards.
@@ -594,7 +614,10 @@ class InferenceEngine:
         ``positions`` selects the fused gather forward
         (``output_positions``), ``stack`` stacks a span head's (start,
         end) into one [B, 2, S] tensor."""
-        with torch.inference_mode():
+        # One "serve_forward" range per forward: a /profilez trace counts
+        # the forwards of its window by it.
+        with torch.inference_mode(), \
+                torch.profiler.record_function("serve_forward"):
             tensors = [torch.from_numpy(a).to(self.device) for a in args]
             kwargs = {}
             if positions is not None:

@@ -24,7 +24,10 @@ Routes:
   latency percentiles, batch occupancy, compile count; with tracing
   enabled, the ``phases`` sub-object carries the run-level queue-wait
   share and per-phase p95s; with a capture controller attached, the
-  ``profile`` sub-object carries the live capture phase / last window);
+  ``profile`` sub-object carries the live capture phase / last window;
+  ``forwards`` and ``kernel_launches`` count the forwards run and the
+  launches of the CUDA kernels they ran, and on the card ``cuda_memory``
+  holds the allocator's reserved bytes, now and at their peak);
 * ``POST /profilez``   — arm an on-demand profiling capture
   (telemetry/sampler.py): the dispatch plane starts a bounded
   host-thread-sampler + ``torch.profiler`` window at the next boundary
@@ -123,6 +126,13 @@ def _make_handler():
                     # serving version + swap/torn counters (the rollout
                     # controller and chaos harness scrape these).
                     snap.update(swap_stats())
+                # Forwards run and the launches of the CUDA kernels they
+                # ran (the chaos harness reads a replica's launches here).
+                snap["forwards"] = service.engine.forwards
+                snap["kernel_launches"] = service.engine.kernel_launches()
+                memory = service.engine.cuda_memory()
+                if memory is not None:
+                    snap["cuda_memory"] = memory
                 self._reply(200, snap)
             elif self.path == "/metricsz":
                 text = service.metrics_text()

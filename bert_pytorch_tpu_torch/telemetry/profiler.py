@@ -120,18 +120,24 @@ class ProfilerWindow:
         window's own directory). Returns False — never raises, never
         stacks — when this window is already tracing or ANY other trace
         is active in the process; a profiler that fails to start is
-        reported as a warning."""
+        reported as a warning.
+
+        The window drives ``torch.autograd.profiler.profile``, the kineto
+        profiler under ``torch.profiler.profile``, whose start first asks
+        ``hasattr(torch, "_inductor")``: that imports the compiler stack,
+        about 840 modules, which held a fresh replica's serving threads
+        for 8–11 s on the card. The trace is the same."""
         if self.active or not _acquire_trace():
             return False
-        from torch.profiler import ProfilerActivity, profile
+        from torch.autograd.profiler import profile
 
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
         try:
-            prof = profile(activities=activities, record_shapes=False,
-                           with_stack=False)
-            prof.start()
+            prof = profile(use_cpu=True,
+                           use_device=("cuda" if self.device.type == "cuda"
+                                       else None),
+                           record_shapes=False, with_stack=False,
+                           use_kineto=True)
+            prof.__enter__()
         except RuntimeError as exc:
             # A refused/failed start must release the latch or no trace
             # could ever start again in this process.
@@ -153,7 +159,7 @@ class ProfilerWindow:
         try:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self._prof.stop()
+            self._prof.__exit__(None, None, None)
             os.makedirs(self._out_dir, exist_ok=True)
             path = os.path.join(self._out_dir, f"trace_{os.getpid()}.json")
             self._prof.export_chrome_trace(path)

@@ -24,9 +24,15 @@ cannot nest, and two POSTs must never stack two trace starts.
 Stdlib-only at import time: the trace facility arrives by INJECTION (a
 :class:`telemetry.profiler.ProfilerWindow` whose ``begin``/``end`` the
 controller drives), so a controller without one works sampler-only.
-One addition to the JAX controller: ``tick(..., force=True)`` collects an
+Two additions to the JAX controller: ``tick(..., force=True)`` collects an
 active capture before its deadline, which the training facade does at
-the end of a run, so a capture never outlives the loop it measures.
+the end of a run, so a capture never outlives the loop it measures; and
+``hold``, called with a bound in seconds just before a trace is collected
+and with 0 just after. The collection holds the interpreter (stopping and
+writing a 2 s trace of a loaded BERT-large replica took 4.7 s on the
+card, all of it in C++ that keeps the GIL, so no other thread can beat a
+heartbeat meanwhile); a replica passes a heartbeat beat, which tells the
+fleet supervisor's watchdog to wait (telemetry/sentinels.py ``hold_s``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ MIN_INTERVAL_S = 0.001
 DEFAULT_DURATION_S = 2.0
 DEFAULT_INTERVAL_S = 0.01
 DEFAULT_TOP_K = 10
+# The bound passed to ``hold`` for a collection: twice the 2.4 s per
+# captured second a loaded BERT-large replica took, plus slack.
+HOLD_COLLECT_S = 10.0
+HOLD_COLLECT_S_PER_S = 5.0
 _STACK_DEPTH = 12  # collapsed-stack rendering depth (leaf-most frames)
 
 
@@ -202,7 +212,9 @@ class CaptureController:
     another trace is active) degrades the capture to sampler-only,
     recorded as an empty ``trace_path``. ``emit`` receives the finished
     ``profile_window`` record (a JSONLHandler's ``write_record`` or
-    TrainTelemetry.emit stamps schema/ts).
+    TrainTelemetry.emit stamps schema/ts). ``hold`` is called on the
+    owning thread with the seconds a trace's collection may block it,
+    just before, and with 0 just after (module docstring).
 
     Thread contract: :meth:`arm` and :meth:`status` may be called from
     any thread (HTTP workers); :meth:`tick` only by the owning boundary
@@ -216,6 +228,7 @@ class CaptureController:
                  window=None, trace_dir: Optional[str] = None,
                  include_threads: Optional[tuple] = None,
                  emit: Optional[Callable[[dict], None]] = None,
+                 hold: Optional[Callable[[float], None]] = None,
                  clock: Callable[[], float] = time.monotonic):
         self.source = str(source)
         self.covered_unit = str(covered_unit)
@@ -223,6 +236,7 @@ class CaptureController:
         self.trace_dir = trace_dir
         self.include_threads = include_threads
         self.emit = emit
+        self.hold = hold
         self._clock = clock
         self._lock = threading.Lock()
         # The one shared slot: phase + the armed
@@ -354,7 +368,12 @@ class CaptureController:
         sampler.stop()
         trace_path = params.get("trace_path", "")
         if trace_path and self.window is not None:
+            if self.hold is not None:
+                self.hold(HOLD_COLLECT_S + HOLD_COLLECT_S_PER_S
+                          * (self._clock() - started))
             self.window.end(sync_target=sync_target)
+            if self.hold is not None:
+                self.hold(0.0)
         folded = sampler.result(top_k=params["top_k"])
         record = {
             "kind": "profile_window",

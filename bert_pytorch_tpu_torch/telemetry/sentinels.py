@@ -83,7 +83,15 @@ class Heartbeat:
     "counter"}``, written atomically (tmp + rename) so a reader never sees
     a torn record. ``counter`` increments monotonically per beat — a
     restarted run resumes it from the file, so "is this process alive"
-    is simply "did counter advance between two reads"."""
+    is simply "did counter advance between two reads".
+
+    ``beat(..., hold_s=S)`` declares that the process may not beat for up
+    to S seconds from now (a bounded operation that holds the
+    interpreter, such as collecting a profiler trace): every beat until
+    then carries ``"hold_s"``, the seconds left, and the fleet
+    supervisor's watchdog adds them to its timeout. ``hold_s=0`` ends
+    the hold. A beat with no hold writes the JAX package's four keys.
+    Beats may come from several threads."""
 
     def __init__(self, path: Optional[str], is_primary: bool = True,
                  clock: Callable[[], float] = time.time):
@@ -91,6 +99,8 @@ class Heartbeat:
         self._clock = clock
         self.counter = 0
         self._last_loss = None
+        self._hold_until = 0.0
+        self._lock = threading.Lock()
         if self.path:
             previous = self.read(self.path)
             if previous:
@@ -98,22 +108,29 @@ class Heartbeat:
             os.makedirs(os.path.dirname(os.path.abspath(self.path)),
                         exist_ok=True)
 
-    def beat(self, step: int, last_loss=None) -> None:
+    def beat(self, step: int, last_loss=None,
+             hold_s: Optional[float] = None) -> None:
         if not self.path:
             return
-        self.counter += 1
-        if last_loss is not None:
-            self._last_loss = float(last_loss)
-        payload = {
-            "step": int(step),
-            "wallclock": round(self._clock(), 3),
-            "last_loss": self._last_loss,
-            "counter": self.counter,
-        }
-        tmp = f"{self.path}.tmp"
-        with open(tmp, "w") as f:
-            json.dump(payload, f)
-        os.replace(tmp, self.path)
+        with self._lock:
+            now = self._clock()
+            if hold_s is not None:
+                self._hold_until = now + max(0.0, float(hold_s))
+            self.counter += 1
+            if last_loss is not None:
+                self._last_loss = float(last_loss)
+            payload = {
+                "step": int(step),
+                "wallclock": round(now, 3),
+                "last_loss": self._last_loss,
+                "counter": self.counter,
+            }
+            if self._hold_until > now:
+                payload["hold_s"] = round(self._hold_until - now, 3)
+            tmp = f"{self.path}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, self.path)
 
     @staticmethod
     def read(path: str) -> Optional[dict]:

@@ -201,10 +201,36 @@ Phases (any failure exits non-zero and prints no result line):
    #1-#3 launches the counters count there (96/48/48 per step). Phase 6
    ends with four more steps in turns, plain and under an active capture
    (its cost on a phase-2 step), and phase 2's build logs its compile
-   records (the cold ``nvcc`` seconds per library).
+   records (the cold ``nvcc`` seconds per library);
+14. the serving fleet (``drive_fleet``): the port's chaos harness
+   (``bert_pytorch_tpu_torch/tools/chaos_serve.py``, a torch-free
+   parent) as a subprocess, its ``run_server`` replicas on the card at
+   BERT-large width (bf16, ``--attention_backend flash_infer``, classify,
+   ``--buckets 128 --max_batch_size 8``), each mode with a fresh
+   ``--compile_cache_dir``: 14a ``--smoke`` (two replicas; SIGKILL in
+   the admission window, a wedge caught by the heartbeat watchdog, a
+   kill mid-drain, a kill mid-swap, the fleet swapped to a published
+   version, then a ``POST /profilez`` capture on replica 0 under a
+   steady burst), 14b ``--canary`` (publish, canary, promote, a breach
+   rolled back), 14c ``--surge`` (scale-up under a shedding burst, a
+   SIGKILL mid-surge, a drained scale-down). Each verdict must be ok:
+   zero client-visible failures, zero torn serves, ``compiles_cold`` 0
+   on the restarts, swaps and the scale-up, one cold build of
+   ``flash_attention_infer`` across the first replicas (the build
+   lock), the report gates exiting 1 on their breach copies and 0 on
+   the clean ones; 14a's capture must hold 24 #4 kernel events per
+   ``serve_forward`` range in its trace and no more than the launches
+   the replica counted around it, and the replica's compile records
+   must name the library. The replicas' card memory: each one's
+   allocator peak from its ``/statsz``, and the card's least free memory
+   while each mode ran (``torch.cuda.mem_get_info`` once a second); the
+   card's free memory must come back to within 1 GiB once the fleets
+   stop. #4's ``launches_fleet`` sums the launches
+   the final replicas of the three modes report on ``/statsz``.
 
 Every launch counter is set to 0 just before each main path and read just
-after it. The last three lines of standard output are the kernels JSON,
+after it (phase 14's counters live in its replicas, fresh processes whose
+counters start at 0, and are read from their ``/statsz``). The last three lines of standard output are the kernels JSON,
 the card's name and power limit (``nvidia-smi``), and the JSON result.
 """
 
@@ -3796,6 +3822,199 @@ def drive_replica_drain(vocab: str, root: str, card: str) -> dict:
             "postmortem_records": len(pm["records"])}
 
 
+# -- phase 14: the serving fleet -----------------------------------------------
+# The port's chaos harness (bert_pytorch_tpu_torch/tools/chaos_serve.py, a
+# torch-free parent) drives a fleet of run_server replicas on the card at
+# BERT-large width: 14a --smoke (SIGKILL in admission, wedge, kill mid-drain,
+# kill mid-swap, a /profilez capture under a steady burst), 14b --canary
+# (publish, canary, promote, breach -> rollback), 14c --surge (scale-up under
+# a burst, SIGKILL mid-surge, scale-down). Each mode has its own fresh
+# --compile_cache_dir: the first replicas build flash_attention_infer once
+# between them (the build lock), every later start and swap builds nothing.
+FLEET_ARGS = ("--device", "cuda", "--model_config_file", CONFIG,
+              "--dtype", "bfloat16", "--attention_backend", "flash_infer",
+              "--buckets", "128", "--max_batch_size", "8")
+# Burst sizes cut from the JAX harness's defaults to keep phase 14 near
+# 240 s (width and depth stay BERT-large's): phase A 50 -> 40 requests,
+# phase C 30 -> 24, phase D 24 -> 16, the surge's recovery burst 60 -> 40.
+# The surge's down cooldown (counted from the scale-up) is 30 s, not 6: it
+# must outlast the elastic replica's start, the seed's SIGKILL and
+# respawn and the recovery burst, or green windows read during the
+# respawn shrink the fleet before the recovery burst has run.
+# 14a's capture is /profilez's default length (telemetry/sampler.py
+# DEFAULT_DURATION_S, 2 s).
+FLEET_MODES = (
+    ("14a", ("--smoke", "--phase_a_requests", "40", "--phase_c_requests",
+             "24", "--phase_d_requests", "16", "--profile_s", "2")),
+    ("14b", ("--canary",)),
+    ("14c", ("--surge", "--surge_recovery_requests", "40",
+             "--surge_down_cooldown_s", "30")),
+)
+FLEET_TIMEOUT_S = 420
+CHAOS_SERVE = os.path.join(REPO, "bert_pytorch_tpu_torch", "tools",
+                           "chaos_serve.py")
+GIB = 1 << 30
+
+
+def run_chaos(label: str, mode_args, workdir: str) -> tuple:
+    """One chaos_serve mode as a subprocess in its own process group (its
+    replicas with it, so a timeout stops them all); returns (verdict, the
+    card's least free memory while it ran, read each second, seconds)."""
+    cmd = [sys.executable, CHAOS_SERVE, *mode_args, *FLEET_ARGS,
+           "--workdir", workdir]
+    t0 = time.perf_counter()
+    least_free = torch.cuda.mem_get_info()[0]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    while True:
+        try:
+            out, err = proc.communicate(timeout=1.0)
+            break
+        except subprocess.TimeoutExpired:
+            least_free = min(least_free, torch.cuda.mem_get_info()[0])
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                os.killpg(proc.pid, signal.SIGKILL)
+                out, err = proc.communicate()
+                raise AssertionError(f"{label}: chaos_serve ran past "
+                                     f"{FLEET_TIMEOUT_S} s:\n{err[-4000:]}")
+    seconds = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    verdict = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not verdict.get("ok"):
+        logs = ""
+        for name in sorted(os.listdir(workdir)):
+            if name.endswith(".log"):
+                with open(os.path.join(workdir, name), errors="replace") as f:
+                    logs += f"--- {name}\n{f.read()[-3000:]}\n"
+        # The verdict and its error come last: a reader of the end of the
+        # output sees which check failed, after the logs that explain it.
+        raise AssertionError(f"{label}: chaos_serve rc {proc.returncode}\n"
+                             f"{err[-4000:]}\n{logs}\n{label}: verdict "
+                             f"{verdict}\n{label}: error "
+                             f"{verdict.get('error')}")
+    return verdict, least_free, seconds
+
+
+def check_fleet_capture(workdir: str, profile: dict, layers: int) -> dict:
+    """14a's ``/profilez`` capture on replica 0: the trace must hold 24 #4
+    kernel events per forward of its window (the ``serve_forward`` ranges
+    it holds), at least one forward, and no more #4 events than the
+    launches the replica counted from just before the POST to just after
+    the capture was collected; the replica's compile records must name
+    flash_attention_infer."""
+    from bert_pytorch_tpu_torch.tools.profile_train import (kernel_rows,
+                                                            load_trace)
+
+    path = os.path.join(profile["last"]["trace_path"],
+                        f"trace_{profile['pid']}.json")
+    events = load_trace(path)
+    rows = kernel_rows(events)
+    traced = sum(n for name, _, n in rows if INFER_TRACE_KERNEL.search(name))
+    forwards = sum(1 for e in events
+                   if e.get("name") == "serve_forward"
+                   and e.get("cat") == "user_annotation")
+    before, after = profile["kernel_launches"]
+    launched = (after["flash_attention_infer"]
+                - before["flash_attention_infer"])
+    if not (forwards > 0 and traced == layers * forwards
+            and traced <= launched):
+        raise AssertionError(f"14a capture: {traced} #4 kernel events for "
+                             f"{forwards} forwards of {layers} layers, "
+                             f"{launched} launches around its window")
+    builds = [r for r in read_jsonl(os.path.join(
+        workdir, "replica_0", "serve_telemetry.jsonl"))
+        if r.get("kind") == "compile"]
+    if not any(r["fn"] == "flash_attention_infer" for r in builds):
+        raise AssertionError(f"14a: replica 0's compile records {builds}")
+    return {"traced_launches": traced, "forwards_in_trace": forwards,
+            "launches_around_window": launched,
+            "trace_bytes": profile["last"]["trace_bytes"],
+            "duration_s": profile["last"]["duration_s"],
+            "wall_s": profile["wall_s"],
+            "polls_timed_out": profile["polls_timed_out"],
+            "compile_records": [(r["fn"], r["cache"]) for r in builds]}
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def drive_fleet(root: str, card: str) -> dict:
+    """Phase 14: chaos_serve's three modes on the card (FLEET_MODES),
+    each held to its own verdict and to the checks below; the card's free
+    memory must come back to within 1 GiB of its value before the phase
+    once every fleet has stopped."""
+    with open(CONFIG) as f:
+        layers = json.load(f)["num_hidden_layers"]
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    out = {}
+    for label, mode_args in FLEET_MODES:
+        workdir = os.path.join(root, f"fleet_{label}")
+        verdict, least_free, seconds = run_chaos(label, mode_args, workdir)
+        builds = verdict.get("first_builds")
+        launches = verdict.get("kernel_launches", {}).get(
+            "flash_attention_infer", 0)
+        if builds != {"flash_attention_infer": 1} or launches <= 0:
+            raise AssertionError(f"{label}: first builds {builds}, #4 "
+                                 f"launches {launches}")
+        if label == "14a":
+            if not (verdict["phase_a"]["admit_hold_observed"]
+                    and verdict["drain"]["rcs"]["0"] == 75
+                    and verdict["restart_compiles_cold"] == 0
+                    and verdict["phase_d"]["torn_serves"] == 0
+                    and verdict["phase_d"]["swap_compiles_cold"] == 0
+                    and verdict["trace"]["orphans"] == 0
+                    and verdict["trace"]["stitches"]
+                    == verdict["trace"]["router_traces"]):
+                raise AssertionError(f"14a verdict {verdict}")
+            verdict["capture"] = check_fleet_capture(
+                workdir, verdict["profile"], layers)
+        elif label == "14b":
+            if (verdict["torn_serves"] != 0
+                    or verdict["report_gate"] != {"breach_rc": 1,
+                                                  "clean_rc": 0}):
+                raise AssertionError(f"14b verdict {verdict}")
+        elif (verdict["elastic_compiles_cold"] != 0
+              or verdict["report_gate"] != {"breach_rc": 1, "clean_rc": 0}):
+            raise AssertionError(f"14c verdict {verdict}")
+        verdict.update(least_free_bytes=least_free, seconds=round(seconds, 1))
+        out[label] = verdict
+        log(f"[fleet {label}] {' '.join(mode_args)}: ok in {seconds:.1f} s; "
+            f"start {verdict.get('startup_s')} s, first builds {builds}, #4 "
+            f"launches {launches}, the final replicas' peak reserved bytes "
+            f"{verdict['max_reserved_bytes']}, the card's free bytes "
+            f"{free0} before phase 14, {least_free} at the least while "
+            f"{label} ran, on {card}")
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    if free1 < free0 - GIB:
+        raise AssertionError(f"the card's free memory did not come back: "
+                             f"{free0} bytes before phase 14, {free1} after")
+    smoke, canary, surge = out["14a"], out["14b"], out["14c"]
+    summary = {
+        "seconds": round(time.perf_counter() - t0, 1),
+        "free_bytes": [free0, free1],
+        "launches_fleet": sum(v["kernel_launches"]["flash_attention_infer"]
+                              for v in out.values()),
+        "modes": out,
+    }
+    log(f"[fleet] phase 14 in {summary['seconds']} s on {card}: start "
+        f"(cold build) {smoke['startup_s']} s, restart after SIGKILL "
+        f"{smoke['phase_a']['recovery_s']} s, failover p95 "
+        f"{smoke['router']['failover_p95_ms']} ms, router overhead p50 "
+        f"{smoke['router_overhead']}, swap_all {smoke['phase_d']['swap_all_s']}"
+        f" s (load {smoke['phase_d']['swap_load_s']} s), canary swaps "
+        f"{canary['swap_load_s']} s, warm scale-up {surge['scale_up_s']} s, "
+        f"14a capture {smoke['capture']}, free memory {free0} -> {free1} "
+        f"bytes")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3876,6 +4095,7 @@ def main() -> int:
         debug = drive_debug_planes(vocab, tmp, kernels, card)
         torch.cuda.empty_cache()
         drain = drive_replica_drain(vocab, tmp, card)
+        fleet = drive_fleet(tmp, card)
     torch.cuda.empty_cache()
     trained = drive_training(kernels, capture_turns=True)
     log(f"[train] BERT-large phase 2 (S=512, max_pred 80, bf16, remat dots, "
@@ -3928,6 +4148,7 @@ def main() -> int:
         "flash_attention_infer"]
     infer_entry["launches_debug_planes"] = debug["launches"][
         "flash_attention_infer"]
+    infer_entry["launches_fleet"] = fleet["launches_fleet"]
     infer_entry["route_launches"] = served["routes"]["flash_attention_infer"]
     int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
     int8_entry["route_launches"] = served8["routes"][
@@ -3943,7 +4164,7 @@ def main() -> int:
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events)))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

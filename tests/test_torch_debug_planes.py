@@ -315,6 +315,34 @@ def test_capture_controller_answers_as_jax(tmp_path, accept):
             trace_path="", trace_bytes=0)) == []
 
 
+@pytest.mark.parametrize("accept", [True, False, None],
+                         ids=["trace", "trace_refused", "sampler_only"])
+def test_capture_holds_around_the_collection(tmp_path, accept):
+    """``hold`` is called with a bound just before a trace is collected
+    (which holds the interpreter: on the card a replica's heartbeat tells
+    the fleet watchdog to wait) and with 0 just after; a capture without
+    a trace holds nothing."""
+    clock = FakeClock()
+    window = None if accept is None else _Window(accept)
+    calls = window.calls if window is not None else []
+    ctrl = sampler.CaptureController(
+        "replica", covered_unit="requests", window=window,
+        trace_dir=str(tmp_path), hold=lambda s: calls.append(("hold", s)),
+        clock=clock)
+    ctrl.arm(duration_s=2.0)
+    ctrl.tick(0)
+    clock.advance(2.5)
+    assert ctrl.tick(5)["covered"] == 5
+    collect = sampler.HOLD_COLLECT_S + sampler.HOLD_COLLECT_S_PER_S * 2.5
+    expected = {
+        True: [("begin", "ondemand_1"), ("hold", collect), ("end", None),
+               ("hold", 0.0)],
+        False: [("begin", "ondemand_1")],
+        None: [],
+    }[accept]
+    assert calls == expected
+
+
 def test_capture_force_collects_an_active_capture(tmp_path):
     clock = FakeClock()
     emitted = []
@@ -640,14 +668,13 @@ def jax_windows(serve_files):
 
 
 def test_run_server_takes_the_jax_flags_and_defaults(serve_files):
-    """Every JAX run_server flag, with its default, but the compile cache
-    and autotune (ROADMAP); the attention backends keep the port's
-    names."""
+    """Every JAX run_server flag, with its default, but autotune
+    (ROADMAP); the attention backends keep the port's names."""
     argv = ["--model_config_file", serve_files["config"], "--vocab_file",
             serve_files["vocab"]]
     jax_args = vars(jax_run_server.parse_arguments(argv))
     port_args = vars(run_server.parse_arguments(argv))
-    queued = {"compile_cache_dir", "autotune", "autotune_cache"}
+    queued = {"autotune", "autotune_cache"}
     assert set(jax_args) - queued <= set(port_args)
     assert set(port_args) - set(jax_args) == {"device"}
     differ = {k for k in set(jax_args) - queued

@@ -2,10 +2,15 @@
 nor ``chip_smoke.py``, imports JAX, flax or anything of the JAX package
 ``bert_pytorch_tpu`` (it keeps its own copies of what it needs), nor
 ``msgpack`` or ``ml_dtypes``, which a CUDA serving host need not have: its
-checkpoint code reads and writes flax msgpack with its own codec."""
+checkpoint code reads and writes flax msgpack with its own codec. Nor does
+any of them load a file of the JAX package by path (``load_by_path``,
+``spec_from_file_location`` and their kin), which an import check alone
+would not see."""
 
 import ast
+import collections
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +39,74 @@ def _imported_roots(path: Path):
               in ("import_module", "__import__") and node.args
               and isinstance(node.args[0], ast.Constant)):
             yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+# Calls that load a module or run a file by its path.
+PATH_LOADERS = {"load_by_path", "spec_from_file_location",
+                "SourceFileLoader", "run_path", "load_source"}
+# A path (or path part) naming the JAX package's directory.
+JAX_PACKAGE_PATH = re.compile(r"(?:^|[/\\])bert_pytorch_tpu(?:$|[/\\])")
+
+
+def _call_name(func) -> str:
+    return getattr(func, "attr", getattr(func, "id", ""))
+
+
+def _by_path_loads(source: str):
+    """(line, text) of every path-loading call whose arguments name the
+    JAX package's directory: in a string of the call itself, or in a
+    name the call passes that the file assigns from such a string."""
+    tree = ast.parse(source)
+    assigned = collections.defaultdict(list)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name):
+                    assigned[target.id].append(node.value)
+
+    def names_jax(expr, depth=0):
+        for sub in ast.walk(expr):
+            if (isinstance(sub, ast.Constant) and isinstance(sub.value, str)
+                    and JAX_PACKAGE_PATH.search(sub.value)):
+                return sub.value
+            if isinstance(sub, ast.Name) and depth < 4:
+                for value in assigned.get(sub.id, ()):
+                    found = names_jax(value, depth + 1)
+                    if found:
+                        return found
+        return None
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and _call_name(node.func) in \
+                PATH_LOADERS:
+            for arg in [*node.args, *(k.value for k in node.keywords)]:
+                found = names_jax(arg)
+                if found:
+                    yield node.lineno, found
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_loads_nothing_of_jax_by_path(rel):
+    loads = list(_by_path_loads((REPO / rel).read_text(encoding="utf-8")))
+    assert not loads, f"{rel} loads the JAX package by path: {loads}"
+
+
+@pytest.mark.parametrize("source, caught", [
+    ('load_by_path("_x", "bert_pytorch_tpu", "serve", "router.py")', True),
+    ('import importlib.util, os\n'
+     'importlib.util.spec_from_file_location("x", os.path.join(\n'
+     '    ROOT, "bert_pytorch_tpu", "serve", "router.py"))', True),
+    ('p = ROOT / "bert_pytorch_tpu/serve/router.py"\n'
+     'q = p\n'
+     'spec = importlib.util.spec_from_file_location("x", q)', True),
+    ('runpy.run_path("tools/../bert_pytorch_tpu/tools/x.py")', True),
+    ('load_by_path("_x", "telemetry", "schema.py")', False),
+    ('load_by_path("_x", "bert_pytorch_tpu_torch", "serve", "r.py")',
+     False),
+    ('REPLACES = "bert_pytorch_tpu/ops/pallas/attention.py:512"', False),
+])
+def test_by_path_rule_catches_jax_loads(source, caught):
+    assert bool(list(_by_path_loads(source))) is caught
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

@@ -462,6 +462,29 @@ def test_sentinel_answers_as_jax(policy, patience):
         sentinels.FailureSentinel(policy="explode")
 
 
+def test_heartbeat_hold_counts_down_and_ends(tmp_path):
+    """``beat(..., hold_s=S)`` declares that the process may not beat for
+    S seconds: beats inside the hold carry the seconds left (a regular
+    beat from another thread does not end it), ``hold_s=0`` ends it, and
+    a beat outside a hold writes the JAX package's four keys alone."""
+    clock = FakeClock()
+    path = str(tmp_path / "hb.json")
+    hb = sentinels.Heartbeat(path, clock=clock)
+    hb.beat(1, hold_s=12.0)
+    assert sentinels.Heartbeat.read(path)["hold_s"] == 12.0
+    clock.advance(4.0)
+    hb.beat(2)
+    assert sentinels.Heartbeat.read(path)["hold_s"] == 8.0
+    hb.beat(3, hold_s=0.0)
+    assert set(sentinels.Heartbeat.read(path)) == {
+        "step", "wallclock", "last_loss", "counter"}
+    hb.beat(4, hold_s=1.0)
+    clock.advance(1.5)
+    hb.beat(5)
+    assert "hold_s" not in sentinels.Heartbeat.read(path)
+    assert sentinels.Heartbeat.read(path)["counter"] == 5
+
+
 def test_heartbeat_and_watchdog_answer_as_jax(tmp_path):
     beats = []
     for module, name in ((sentinels, "port"), (jax_sentinels, "jax")):
