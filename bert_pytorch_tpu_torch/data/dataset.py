@@ -7,12 +7,21 @@ memory (the current one and a background-thread prefetch of the next),
 segment ids and input mask derived from ``special_token_positions``,
 dynamic masking with the 80/10/10 split drawn WITHOUT replacement from a
 per-sample generator seeded on ``(seed, epoch, index)``, the legacy NVIDIA
-pre-masked format, offline-packed shards (``packed_sequence_lengths``),
-and warn-and-skip verification of unreadable shards.
+pre-masked format, offline-packed shards (``packed_sequence_lengths``).
 
-Not copied: the read retries with backoff, the fault-injection hooks and
-the ``shard_error_policy='abort'`` option of the JAX package's data path (a
-failed read of a verified shard raises :class:`DataReadError`).
+The JAX data path's resilience is copied too: every shard open and read
+goes through ``utils/retry.py`` (``read_retries`` retries with exponential
+backoff from ``retry_base_delay_s``), each retry warns and reports a
+``fault`` record (``fault: shard_read_retry``) to ``on_fault``, and the
+armed fault plan (``testing/faults.py`` ``shard_errorxK``) injects its
+transient errors inside that wrapper. At start-up an unreadable shard is
+skipped with a warning and a ``shard_skipped`` record
+(``shard_error_policy='skip'``) or fails the run
+(``'abort'``, :class:`DataReadError`); a read that stays broken past the
+retries mid-stream always raises :class:`DataReadError`. The dataset
+pickles for spawned loader workers without its loaded shards, its
+prefetch thread and ``on_fault``.
+
 ``h5py`` is imported inside the shard reader only: the port runs on
 machines without it as long as it reads no shard.
 """
@@ -22,9 +31,11 @@ from __future__ import annotations
 import os
 import threading
 import warnings
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
+
+from bert_pytorch_tpu_torch.utils.retry import RetryPolicy, retry_call
 
 NEW_FORMAT_KEYS = ("input_ids", "special_token_positions",
                    "next_sentence_labels")
@@ -36,15 +47,8 @@ PACKED_MAX_SEQUENCES_ATTR = "packed_max_sequences"
 
 
 class DataReadError(RuntimeError):
-    """A read of a verified shard failed."""
-
-
-def _read_shard(filepath: str, reader):
-    """Run ``reader(h5py.File)`` on one shard."""
-    import h5py
-
-    with h5py.File(filepath, "r") as f:
-        return reader(f)
+    """A shard read failed past the retry budget (or the start-up
+    verification failed under ``shard_error_policy='abort'``)."""
 
 
 def mask_input(rng: np.random.Generator, input_ids: np.ndarray,
@@ -111,7 +115,10 @@ class ShardedPretrainingDataset:
     def __init__(self, files, mask_token_index: Optional[int],
                  max_pred_per_seq: int, masked_lm_prob: float,
                  vocab_size: int, original_token_prob: float = 0.1,
-                 random_token_prob: float = 0.1, seed: Optional[int] = None):
+                 random_token_prob: float = 0.1, seed: Optional[int] = None,
+                 read_retries: int = 2, retry_base_delay_s: float = 0.2,
+                 shard_error_policy: str = "skip",
+                 on_fault: Optional[Callable[[dict], None]] = None):
         if mask_token_index is not None and not isinstance(
                 mask_token_index, (int, np.integer)):
             raise ValueError("mask_token_index must be an integer")
@@ -128,6 +135,14 @@ class ShardedPretrainingDataset:
             raise ValueError("random_token_prob must be in [0,1]")
         if random_token_prob + original_token_prob > 1:
             raise ValueError("random_token_prob + original_token_prob > 1")
+        if shard_error_policy not in ("skip", "abort"):
+            raise ValueError(
+                f"shard_error_policy must be 'skip' or 'abort', got "
+                f"{shard_error_policy!r}")
+        self.read_retries = max(0, int(read_retries))
+        self.retry_base_delay_s = float(retry_base_delay_s)
+        self.shard_error_policy = shard_error_policy
+        self.on_fault = on_fault
         if isinstance(files, str):
             files = [files]
         files = sorted(files)  # all processes must agree on the order
@@ -153,6 +168,25 @@ class ShardedPretrainingDataset:
         self._next_file_data = None
         self._next_file_error: Optional[BaseException] = None
         self._next_file_thread: Optional[threading.Thread] = None
+
+    def __getstate__(self):
+        """Drop the streaming state (loaded shards, the prefetch thread)
+        and ``on_fault`` (a sink's method does not pickle): a spawned
+        worker streams from its own file handles and reports retries as
+        warnings. The masking seed base rides along, so a worker draws
+        the parent's masks."""
+        state = self.__dict__.copy()
+        for key in ("data", "_next_file_data", "_next_file_thread", "_rng",
+                    "_next_file_error", "on_fault", "file_idx",
+                    "next_file_idx"):
+            state[key] = None
+        state["file_sample_start_idx"] = -1
+        state["file_sample_end_idx"] = -1
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._rng = np.random.default_rng(self.seed)
 
     @staticmethod
     def _seed_base(seed: Optional[int]) -> int:
@@ -182,8 +216,9 @@ class ShardedPretrainingDataset:
                     error, self._next_file_error = self._next_file_error, None
                     self.data = None
                     raise DataReadError(
-                        f"shard load failed: {type(error).__name__}: "
-                        f"{error}") from error
+                        f"shard load failed past "
+                        f"{self.read_retries + 1} attempt(s): "
+                        f"{type(error).__name__}: {error}") from error
                 self.data = self._next_file_data
                 self.file_idx = self.next_file_idx
                 self.next_file_idx = (self.next_file_idx + 1) % len(self.files)
@@ -290,9 +325,48 @@ class ShardedPretrainingDataset:
         th.start()
         return th
 
+    def _emit_fault(self, record: dict) -> None:
+        """Report ``record`` to ``on_fault``; a failing sink never masks
+        the read error being reported."""
+        if self.on_fault is None:
+            return
+        try:
+            self.on_fault(record)
+        except Exception:
+            pass
+
+    def _read_shard(self, filepath: str, reader):
+        """Run ``reader(h5py.File)`` on one shard with retries and backoff;
+        each failed attempt warns and reports a ``shard_read_retry``
+        record, and the armed fault plan injects its errors inside."""
+        def attempt():
+            import h5py
+
+            from bert_pytorch_tpu_torch.testing import faults
+
+            faults.get_plan().shard_read_check(filepath,
+                                               emit=self._emit_fault)
+            with h5py.File(filepath, "r") as f:
+                return reader(f)
+
+        def on_retry(n, exc, delay):
+            warnings.warn(
+                f"shard read of {filepath} failed (attempt {n}: "
+                f"{type(exc).__name__}: {exc}); retrying in {delay:.2f}s")
+            self._emit_fault({
+                "kind": "fault", "tag": "telemetry",
+                "fault": "shard_read_retry", "injected": False,
+                "path": filepath, "attempt": n,
+                "error": f"{type(exc).__name__}: {exc}"})
+
+        return retry_call(
+            attempt, policy=RetryPolicy(attempts=self.read_retries + 1,
+                                        base_delay_s=self.retry_base_delay_s),
+            on_retry=on_retry, description=f"shard read {filepath}")
+
     def _load_hdf5(self, filepath: str) -> None:
         try:
-            self._next_file_data = _read_shard(
+            self._next_file_data = self._read_shard(
                 filepath,
                 lambda f: {key: np.asarray(f[key][:]) for key in f.keys()})
         except BaseException as e:  # re-raised by the swap in __getitem__
@@ -311,15 +385,22 @@ class ShardedPretrainingDataset:
         return labels
 
     def _verify_and_count_samples(self, files):
-        """Open every shard and count samples; an unreadable shard is
-        skipped with a warning."""
+        """Open every shard (with retries) and count samples; an
+        unreadable shard follows ``shard_error_policy``: skipped with a
+        warning and a ``shard_skipped`` record, or :class:`DataReadError`."""
         current_idx = 0
         verified_files, verified_idxs = [], []
         packed_flags, pack_limits = [], []
         keys = ["input_ids", "next_sentence_labels"]
 
         def skip(fpath, why):
+            if self.shard_error_policy == "abort":
+                raise DataReadError(
+                    f"{why} (shard_error_policy='abort'): {fpath}")
             warnings.warn(f"{why}: {fpath}. Skipping File")
+            self._emit_fault({
+                "kind": "fault", "tag": "telemetry", "fault": "shard_skipped",
+                "injected": False, "path": fpath, "error": why})
 
         def read_counts(f):
             counts = [len(f[key]) for key in keys]
@@ -332,7 +413,8 @@ class ShardedPretrainingDataset:
                 skip(fpath, "File not found")
                 continue
             try:
-                counts, is_packed, limit = _read_shard(fpath, read_counts)
+                counts, is_packed, limit = self._read_shard(fpath,
+                                                            read_counts)
             except Exception:
                 skip(fpath, f"Unable to read keys ({keys})")
                 continue

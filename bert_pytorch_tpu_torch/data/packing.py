@@ -1,9 +1,11 @@
 """Sequence packing (Krell et al. 2021, arXiv:2107.02027): a copy of the
-JAX package's ``data/packing.py`` less the offline shard writer.
+JAX package's ``data/packing.py``.
 
 * :func:`first_fit_decreasing` — the greedy packer the serving engine and
   the on-the-fly pretraining mode use;
 * :func:`pack_features` — one packed row from per-sample features;
+* :func:`write_packed_shard` — an offline-packed HDF5 shard (``h5py``
+  imported inside);
 * :class:`PackedPretrainingDataset` — ``--pack_sequences``: packs within
   each shard of a :class:`~bert_pytorch_tpu_torch.data.dataset.
   ShardedPretrainingDataset` and assembles rows from its already-masked
@@ -103,6 +105,60 @@ def pack_features(samples: Sequence[Sequence[np.ndarray]], max_seq_len: int,
         offset += n
     return [input_ids, segment_ids, input_mask, labels, nsp, sequence_ids,
             cls_positions]
+
+
+def write_packed_shard(path: str, rows: Sequence[Sequence],
+                       max_seq_len: int, max_sequences_per_pack: int) -> int:
+    """Write an offline-packed HDF5 shard; returns its row count. ``rows``
+    is a list of packed rows, each a list of members ``(token_ids,
+    special_token_positions, next_sentence_label)`` with positions
+    relative to the member (rebased onto the row here) and token ids
+    unpadded, [CLS]/[SEP] included. The shard stores raw ids: the dataset
+    masks each member at read time, as unpacked."""
+    import h5py
+
+    from bert_pytorch_tpu_torch.data.dataset import PACKED_MAX_SEQUENCES_ATTR
+
+    n = len(rows)
+    input_ids = np.zeros((n, max_seq_len), np.int32)
+    seq_lengths, specials, nsp_labels = [], [], []
+    for r, members in enumerate(rows):
+        if not 1 <= len(members) <= max_sequences_per_pack:
+            raise ValueError(
+                f"row {r} holds {len(members)} sequences, limit is "
+                f"{max_sequences_per_pack}")
+        offset = 0
+        lens, specs, nsps = [], [], []
+        for ids, special, nsp in members:
+            ids = np.asarray(ids, np.int32)
+            if offset + len(ids) > max_seq_len:
+                raise ValueError(
+                    f"row {r} overflows max_seq_len ({max_seq_len})")
+            input_ids[r, offset:offset + len(ids)] = ids
+            lens.append(len(ids))
+            specs.extend(int(p) + offset for p in special)
+            nsps.append(int(nsp))
+            offset += len(ids)
+        seq_lengths.append(np.asarray(lens, np.int32))
+        specials.append(np.asarray(specs, np.int32))
+        nsp_labels.append(np.asarray(nsps, np.int8))
+
+    vlen_i4 = h5py.vlen_dtype(np.dtype("i4"))
+    vlen_i1 = h5py.vlen_dtype(np.dtype("i1"))
+    with h5py.File(path, "w") as f:
+        f.create_dataset("input_ids", data=input_ids, dtype="i4",
+                         compression="gzip")
+        ds_len = f.create_dataset(
+            "packed_sequence_lengths", (n,), dtype=vlen_i4)
+        ds_spec = f.create_dataset(
+            "packed_special_token_positions", (n,), dtype=vlen_i4)
+        ds_nsp = f.create_dataset("next_sentence_labels", (n,), dtype=vlen_i1)
+        for r in range(n):
+            ds_len[r] = seq_lengths[r]
+            ds_spec[r] = specials[r]
+            ds_nsp[r] = nsp_labels[r]
+        f.attrs[PACKED_MAX_SEQUENCES_ATTR] = int(max_sequences_per_pack)
+    return n
 
 
 def _sample_lengths_for_file(path: str) -> np.ndarray:

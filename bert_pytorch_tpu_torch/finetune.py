@@ -3,8 +3,9 @@ fixed-shape batching (``run_glue.batches``, which ``run_swag`` imports
 too), the device and model set-up, AdamW without bias correction over the
 no-decay groups, the train step (dropout from per-step seeds, global-norm
 clipping, one optimizer step, the grad-health block on due steps), the
-telemetry facade (:func:`open_telemetry`), and the model-only checkpoint
-of ``{"model"}`` in the JAX package's layout.
+telemetry facade (:func:`open_telemetry`), the staging of a (batch,
+valid) item for ``data/device_prefetch.py`` (:func:`put_valid_batch`,
+``--device_prefetch``), and the model-only checkpoint of ``{"model"}`` in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -117,6 +118,13 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
     return {k: torch.from_numpy(np.asarray(v)).to(
         device, torch.float32 if np.asarray(v).dtype.kind == "f"
         else torch.int64) for k, v in batch.items()}
+
+
+def put_valid_batch(item, put):
+    """``prepare`` of a (batch, valid) item of :func:`batches`: (the batch
+    on the card, ``valid`` on the card, ``valid`` on the host)."""
+    batch, valid = item
+    return {k: put(v) for k, v in batch.items()}, put(valid), valid
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,

@@ -14,7 +14,8 @@ semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
   ``BertAdam`` use the raw moments.
 * LAMB clips the gradients to a global norm first
   (``min(1, max_norm / (||g|| + 1e-6))``) and scales each tensor's lr by
-  the trust ratio ``||p|| / ||update||`` (1.0 where either norm is 0).
+  the trust ratio ``||p|| / ||update||`` (1.0 where either norm is 0),
+  capped at ``trust_clip`` when one is given.
   ``BertAdam`` clips each tensor to ``max_grad_norm`` on its own and reads
   its schedule (``warmup_linear`` and the others of
   optim/schedules.py, with no +1 offset) inside the optimizer.
@@ -33,8 +34,6 @@ semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
   the caller multiplies the loss by ``scale``, and the wrapper unscales
   the gradients, skips a step whose gradients are not all finite and
   grows or backs off the scale.
-
-LAMB's ``trust_clip`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -217,13 +216,16 @@ class _Adam(torch.optim.Optimizer):
 class Lamb(_Adam):
     """LAMB, the large-batch optimizer of the BERT recipe (the JAX
     ``lamb``): global-norm clipping to ``max_grad_norm``, bias-corrected
-    Adam moments, and a per-tensor trust ratio on the lr."""
+    Adam moments, and a per-tensor trust ratio on the lr, at most
+    ``trust_clip`` when one is given."""
 
     def __init__(self, params, lr: LearningRate, betas=(0.9, 0.999),
                  eps: float = 1e-6, weight_decay: float = 0.01,
-                 max_grad_norm: Optional[float] = 1.0):
+                 max_grad_norm: Optional[float] = 1.0,
+                 trust_clip: Optional[float] = None):
         super().__init__(params, lr, betas, eps, weight_decay)
         self.max_grad_norm = max_grad_norm
+        self.trust_clip = trust_clip
 
     @torch.no_grad()
     def step(self, closure=None, updates=None):
@@ -246,6 +248,8 @@ class Lamb(_Adam):
                 p_norm, u_norm = p_norms[key], u_norms[key]
                 ratio = torch.where((p_norm > 0) & (u_norm > 0),
                                     p_norm / u_norm, torch.ones_like(p_norm))
+                if self.trust_clip is not None:
+                    ratio = torch.clamp(ratio, max=self.trust_clip)
                 self._apply(p, (-group["lr"] * ratio * upd).to(p.dtype),
                             updates)
 

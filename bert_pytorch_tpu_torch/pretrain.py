@@ -2,7 +2,7 @@
 K-FAC) and the eval step, the port of the JAX package's ``pretrain.py``
 (``make_train_step`` without bucketed overlap, with fp16 loss scaling;
 ``make_kfac_fns`` as :func:`make_kfac_loss`; ``make_eval_step``;
-``stack_microbatches``).
+``stack_microbatches``; ``device_prefetch``).
 
 One optimizer step consumes a batch of [A, B, ...] arrays: A microbatches
 run forward and backward in turn, their gradients accumulate in the fp32
@@ -258,6 +258,21 @@ def stack_microbatches(batch: dict, accum_steps: int) -> dict:
             (accum_steps, value.shape[0] // accum_steps)
             + tuple(value.shape[1:]))
     return out
+
+
+def device_prefetch(loader, accum_steps: int, device, depth: int = 2):
+    """The loader's global batches stacked into [A, B, ...] microbatches
+    and staged on ``device`` ``depth`` ahead (the JAX ``device_prefetch``):
+    a :class:`~bert_pytorch_tpu_torch.data.device_prefetch.
+    DevicePrefetcher` whose thread stacks each batch and copies it through
+    pinned memory on a side CUDA stream (int32 on the wire, int64 on the
+    card); the loop receives it on its own stream. ``depth <= 0`` stages
+    inline on the loop's thread. Attach the result to ``TrainTelemetry``
+    for the ``h2d_wait`` sub-phase; close it when the epoch is left."""
+    from bert_pytorch_tpu_torch.data.device_prefetch import prefetch
+
+    return prefetch(loader, device, depth, prepare=lambda host, put: {
+        k: put(v) for k, v in stack_microbatches(host, accum_steps).items()})
 
 
 def to_device(batch: dict, device) -> Dict[str, torch.Tensor]:

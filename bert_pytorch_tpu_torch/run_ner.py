@@ -28,8 +28,9 @@ files are written.
 
 ``--model_checkpoint`` reads the JAX package's msgpack checkpoints and
 torch archives; TF checkpoints are refused (models/convert.py
-``ROADMAP_TF``). Not ported, so argparse refuses their flags:
-``--compile_cache_dir``, device prefetch and
+``ROADMAP_TF``). ``--device_prefetch`` (default 2) stages the
+training batches on the card ahead of the step (data/device_prefetch.py).
+Not ported, so argparse refuses their flags: ``--compile_cache_dir`` and
 ``--telemetry_cost_analysis``; the BPE tokenizer is refused. The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's.
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, telemetry
+from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data.ner_dataset import NERDataset
 from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
@@ -87,6 +89,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "final one is synchronous. 0 disables")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
     return finetune.read_vocab_args(parser.parse_args(argv))
 
@@ -183,17 +186,22 @@ def run(args):
     results = {}
     global_step, seen, train_time = 0, 0, 0.0
     stop = preemption.GracefulStop().install()
+    prefetcher = None
     try:
         for epoch in range(args.epochs):
             t0 = time.perf_counter()
             lr = args.lr / (1.0 + 0.05 * epoch)
             optimizer.schedule = lambda count, lr=lr: lr
             losses = []
-            for arrays in tele.timed(batches(datasets["train"],
-                                             args.batch_size, True, rng)):
+            prefetcher = dp_cli.prefetch(
+                batches(datasets["train"], args.batch_size, True, rng),
+                device, args.device_prefetch,
+                lambda arrays, put: [put(a) for a in arrays])
+            tele.attach_prefetcher(prefetcher)
+            for staged in tele.timed(prefetcher):
                 tele.profiler.maybe_start(global_step + 1)
                 with tele.profiler.annotation(global_step + 1):
-                    metrics = step(*tensors(arrays))
+                    metrics = step(*staged)
                 tele.dispatch_done()
                 global_step += 1
                 tele.step_done(global_step, metrics)
@@ -241,6 +249,8 @@ def run(args):
                           async_write=False)
         ckpt.wait_for_pending_save()
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         stop.restore()
         tele.close()
     return results, model, config

@@ -81,14 +81,35 @@ every train record carries ``loss_scale``, an overflowing step is skipped
 as the JAX runner's does. K-FAC with fp16 is refused, as in the JAX
 runner.
 
-Not ported yet, so rejected rather than ignored: meshes and multi-GPU
-(``--checkpoint_layout sharded`` is refused naming ROADMAP.md's
-"Multi-GPU layouts"; the sharded layout is read), held-out evaluation,
-process-based loader workers, and ``--telemetry_cost_analysis``; argparse
-refuses the flags it does not know.
-On-the-fly packing packs up to 8 sequences per row (the JAX runner's
-``--max_sequences_per_pack`` default), and LAMB clips to a global norm of
-1.0 (its ``--max_grad_norm`` default). ``attention_backend "pallas"`` in a
+The feed of a long run (the JAX runner's flags and defaults): the loader
+produces on a thread, or on ``--num_workers`` spawned processes
+(data/loader.py; the batches are the same byte for byte); the shard
+reads retry (``--data_read_retries``, ``--data_retry_base_s``) and an
+unreadable shard at start-up is skipped or fails the run
+(``--shard_error_policy``), each retry and skip a ``fault`` record in the
+JSONL; and ``--device_prefetch`` batches (default 2) are staged on the
+card ahead of the step by a thread, through pinned memory on a side CUDA
+stream (data/device_prefetch.py; 0 stages inline), the staging share of
+each wait reported as ``h2d_wait``. ``--val_input_dir`` adds a held-out
+pass every ``--num_steps_per_eval`` steps: ``--eval_batches`` batches
+(at most what the shards fill) from the start of the held-out shards,
+masked under ``seed + 7919``, through pretrain.make_eval_step, logged as a
+``val`` record with ``average_loss`` and ``mlm_accuracy``.
+``--fault_spec`` (or ``BERT_FAULTS``) arms testing/faults.py: ``nonfinite@N``
+poisons step N's metrics before the sentinel sees them, ``die``, ``term``
+and ``hang`` fire after the step's checkpoint block, ``shard_errorxK``
+fails the first K shard reads (tools/chaos_run.py drives them).
+``--max_grad_norm`` is LAMB's clip norm, ``--max_sequences_per_pack`` the
+on-the-fly packing's limit, and ``--checkpoint_activations`` is
+``--remat full``.
+
+Not ported yet, so rejected rather than ignored: meshes and multi-GPU (the
+``--mesh*`` flags; ``--checkpoint_layout sharded`` is refused naming
+ROADMAP.md's "Multi-GPU layouts"; the sharded layout is read),
+``--compile_cache_dir`` and ``--telemetry_cost_analysis`` (the bench
+legs), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
+port draws Philox (the kernels' dropout, keyed by coordinates); argparse
+refuses the flags it does not know. ``attention_backend "pallas"`` in a
 config file (the JAX recipe's phase-2 setting) selects its counterpart,
 ``flash``. ``--layer_norm_backend kernel`` (or its JAX name ``pallas``)
 runs every LayerNorm through the hand-written forward kernel; the default
@@ -117,6 +138,7 @@ from bert_pytorch_tpu_torch.utils import preemption
 from bert_pytorch_tpu_torch.config import (BertConfig,
                                            parse_args_with_config_file,
                                            require_args)
+from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data.dataset import (ShardedPretrainingDataset,
                                                  input_files)
 from bert_pytorch_tpu_torch.data.loader import DataLoader
@@ -133,12 +155,14 @@ from bert_pytorch_tpu_torch.optim.transforms import (AdamW,
                                                      opt_step_count,
                                                      param_groups,
                                                      reset_count)
+from bert_pytorch_tpu_torch.testing import faults
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 # The JAX recipe's phase-2 config file names the fused kernels "pallas".
 BACKEND_ALIASES = {"pallas": "flash"}
-MAX_SEQUENCES_PER_PACK = 8
+# The held-out masks' seed offset (the JAX runner's seed + 7919).
+VAL_SEED_OFFSET = 7919
 # The stats pass's dropout seeds: a generator of its own per step (the JAX
 # runner's fold_in(PRNGKey(seed + 17), step)).
 KFAC_STATS_SEED_OFFSET = 17
@@ -179,6 +203,41 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="pack short samples into full rows on the fly "
                              "(data/packing.py, within each shard); "
                              "offline-packed shards are detected without it")
+    parser.add_argument("--max_sequences_per_pack", type=int, default=8,
+                        help="sequences per packed row on the fly (offline-"
+                             "packed shards carry their own); scales the "
+                             "row's MLM budget: max_predictions_per_seq "
+                             "applies per sequence")
+    parser.add_argument("--num_workers", type=int, default=0,
+                        help="loader worker processes (spawned; each "
+                             "featurizes every Nth batch); 0 = one "
+                             "background thread")
+    # held-out evaluation through pretrain.make_eval_step
+    parser.add_argument("--val_input_dir", type=str, default=None,
+                        help="directory of held-out HDF5 shards; enables a "
+                             "validation pass")
+    parser.add_argument("--num_steps_per_eval", type=int, default=200,
+                        help="optimizer steps between validation passes")
+    parser.add_argument("--eval_batches", type=int, default=16,
+                        help="validation batches per pass")
+    dp_cli.add_cli_args(parser)
+    # the data path's resilience (data/dataset.py, utils/retry.py)
+    parser.add_argument("--data_read_retries", type=int, default=2,
+                        help="retries of a shard open or read (exponential "
+                             "backoff with jitter) before it fails")
+    parser.add_argument("--data_retry_base_s", type=float, default=0.2,
+                        help="the backoff's base delay, doubled per retry")
+    parser.add_argument("--shard_error_policy", type=str, default="skip",
+                        choices=["skip", "abort"],
+                        help="a shard unreadable at start-up past the "
+                             "retries: 'skip' warns and trains on the rest; "
+                             "'abort' fails. A mid-run failure always "
+                             "fails")
+    parser.add_argument("--fault_spec", type=str, default="",
+                        help="deterministic fault injection for tests "
+                             "(testing/faults.py), e.g. 'die@7' or "
+                             "'shard_errorx2,nonfinite@5'; also armed by "
+                             "BERT_FAULTS. Empty disables")
     # checkpoints
     parser.add_argument("--num_steps_per_checkpoint", type=int, default=200)
     parser.add_argument("--keep_checkpoints", type=int, default=3)
@@ -244,8 +303,12 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         default=2000,
                         help="fp16 only: consecutive finite steps before "
                              "the loss scale doubles")
-    parser.add_argument("--remat", type=str, default="none",
-                        choices=["none", "dots", "full"])
+    parser.add_argument("--checkpoint_activations", action="store_true",
+                        help="shorthand for --remat full")
+    parser.add_argument("--remat", type=str, default=None,
+                        choices=["none", "dots", "full"],
+                        help="activation recompute in backward (default "
+                             "none, or full with --checkpoint_activations)")
     parser.add_argument("--attention_backend", type=str, default="auto",
                         choices=["auto", "dense", "flash"],
                         help="'auto': the flash kernels at seq >= 256 on a "
@@ -258,6 +321,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--optimizer", type=str, default="lamb",
                         choices=["lamb", "adamw"])
     parser.add_argument("--weight_decay", type=float, default=0.01)
+    parser.add_argument("--max_grad_norm", type=float, default=1.0,
+                        help="LAMB's global-norm gradient clip")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
@@ -299,6 +364,8 @@ def setup_training(args) -> argparse.Namespace:
             "--device cuda but torch.cuda.is_available() is False; pass "
             "--device cpu to run on the CPU")
     args.device = device
+    args.remat = args.remat or ("full" if args.checkpoint_activations
+                                else "none")
     args.attention_backend = BACKEND_ALIASES.get(args.attention_backend,
                                                  args.attention_backend)
     if args.attention_backend not in ("auto", "dense", "flash"):
@@ -360,7 +427,8 @@ def prepare_optimizer(args, model):
                              args.warmup_proportion, args.max_steps)
     groups = param_groups(model, args.weight_decay)
     if args.optimizer == "lamb":
-        optimizer = Lamb(groups, schedule, weight_decay=args.weight_decay)
+        optimizer = Lamb(groups, schedule, weight_decay=args.weight_decay,
+                         max_grad_norm=args.max_grad_norm)
     else:
         optimizer = AdamW(groups, schedule, weight_decay=args.weight_decay)
     if args.dtype == "float16":
@@ -461,6 +529,24 @@ def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
     return extras, global_step
 
 
+def shard_dataset(args, config, input_dir: str, seed: int):
+    """The shards under ``input_dir`` with the run's masking and the data
+    path's retries and policy; retries and skips go to the run's JSONL as
+    ``fault`` records (``train`` points ``on_fault`` at its telemetry while
+    it runs)."""
+    def on_fault(record):
+        append_record(args.telemetry_jsonl, record)
+
+    return ShardedPretrainingDataset(
+        input_files(input_dir), mask_token_id(config),
+        args.max_predictions_per_seq, args.masked_token_fraction,
+        vocab_size=int(config.vocab_size), seed=seed,
+        read_retries=args.data_read_retries,
+        retry_base_delay_s=args.data_retry_base_s,
+        shard_error_policy=args.shard_error_policy,
+        on_fault=on_fault)
+
+
 def prepare_dataset(args, config, checkpoint=None, dataset=None):
     """(loader of global batches, sampler) over the shards of
     ``--input_dir``, or over ``dataset`` when one is given (any object
@@ -469,10 +555,7 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
     (sequences per row) from the data."""
     if dataset is None:
         require_args(args, ["input_dir"])
-        dataset = ShardedPretrainingDataset(
-            input_files(args.input_dir), mask_token_id(config),
-            args.max_predictions_per_seq, args.masked_token_fraction,
-            vocab_size=int(config.vocab_size), seed=args.seed)
+        dataset = shard_dataset(args, config, args.input_dir, args.seed)
     args.packed = bool(dataset.packed)
     args.pack_k = dataset.max_sequences_per_pack if dataset.packed else 1
     if not dataset.packed and args.pack_sequences:
@@ -480,19 +563,71 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
             PackedPretrainingDataset)
 
         dataset = PackedPretrainingDataset(
-            dataset, max_sequences_per_pack=MAX_SEQUENCES_PER_PACK)
+            dataset, max_sequences_per_pack=args.max_sequences_per_pack)
         args.packed = True
-        args.pack_k = MAX_SEQUENCES_PER_PACK
+        args.pack_k = args.max_sequences_per_pack
     sampler = DistributedSampler(dataset)
     if checkpoint is not None and checkpoint.get("sampler") is not None:
         sampler.load_state_dict(checkpoint["sampler"])
     loader = DataLoader(dataset, sampler, batch_size=args.global_batch_size,
-                        drop_last=True)
+                        drop_last=True, num_workers=args.num_workers)
     if len(loader) == 0:
         raise ValueError(
             f"{len(dataset)} samples do not fill one global batch of "
             f"{args.global_batch_size}")
     return loader, sampler
+
+
+def prepare_val_loader(args, config, val_dataset=None):
+    """The held-out loader (global batches, a thread) over the shards of
+    ``--val_input_dir`` masked under ``seed + 7919``, or over
+    ``val_dataset``; None without either."""
+    if val_dataset is None:
+        if not args.val_input_dir:
+            return None
+        val_dataset = shard_dataset(args, config, args.val_input_dir,
+                                    args.seed + VAL_SEED_OFFSET)
+    return DataLoader(val_dataset, DistributedSampler(val_dataset),
+                      batch_size=args.global_batch_size, drop_last=True)
+
+
+def make_validation(args, model, config, val_loader, logger):
+    """``run(step, epoch)``: one held-out pass (the JAX runner's
+    ``run_validation``). Every pass evaluates the same batches: the
+    sampler restarts at 0, and the pass takes ``min(--eval_batches, the
+    batches the held-out set fills)`` (``run.batches``); it logs and
+    returns the ``val`` record (None when the set fills no batch)."""
+    eval_step = pretrain.make_eval_step(
+        model, next_sentence=bool(config.next_sentence))
+    n_batches = min(args.eval_batches,
+                    len(val_loader.sampler) // args.global_batch_size)
+
+    def run(step: int, epoch: int):
+        if n_batches == 0:
+            return None
+        val_loader.sampler.index = 0
+        loss_sum = acc_sum = 0.0
+        n = 0
+        batches = iter(val_loader)
+        try:
+            for host_batch in batches:
+                loss, acc = eval_step(pretrain.to_device(host_batch,
+                                                         args.device))
+                loss_sum += float(loss)
+                acc_sum += float(acc)
+                n += 1
+                if n >= n_batches:
+                    break
+        finally:
+            batches.close()
+        record = {"step": step, "epoch": epoch,
+                  "average_loss": loss_sum / n, "mlm_accuracy": acc_sum / n}
+        log({"event": "val", **record})
+        logger.log(tag="val", **record)
+        return record
+
+    run.batches = n_batches
+    return run
 
 
 def make_step(args, model, optimizer, schedule, config, kfac=None,
@@ -606,7 +741,8 @@ def open_logger(args) -> logging_util.Logger:
 
 
 def train(args, model, optimizer, config, step, loader, sampler,
-          checkpoint=None, global_step: int = 0, kfac_state=None) -> dict:
+          checkpoint=None, global_step: int = 0, kfac_state=None,
+          val_loader=None) -> dict:
     """The training loop from ``global_step``: ``--steps`` steps (or to
     ``--max_steps``), the cadence and final saves, and the stop on a
     preemption signal, threaded through the telemetry facade (step
@@ -616,13 +752,21 @@ def train(args, model, optimizer, config, step, loader, sampler,
     ``training_seq_per_sec`` and ``training_mfu`` (the steps after the
     first), the wall time of each step (``step_times``: (start, end)
     perf_counter pairs; a step's end is read after its metrics, when it
-    is logged) and each save's stall (``saves``). ``kfac_state`` goes into
-    every save. Under ``--sentinel_policy abort`` a diverged run raises
-    ``NonFiniteError``."""
+    is logged), each save's stall (``saves``) and the held-out records
+    (``val``; with ``val_loader``, every ``--num_steps_per_eval`` steps).
+    Each epoch's batches come through a device prefetcher
+    (``--device_prefetch``), closed when the epoch is left. ``kfac_state``
+    goes into every save. The armed fault plan poisons metrics before the
+    sentinel sees a step and fires its process faults after the step's
+    checkpoint block. Under ``--sentinel_policy abort`` a diverged run
+    raises ``NonFiniteError``."""
     steps_this_run = args.steps or (args.max_steps - global_step)
     steps_this_run = min(steps_this_run, args.max_steps - global_step)
     epoch = int(checkpoint["epoch"]) if checkpoint and checkpoint.get(
         "epoch") is not None else 0
+    # Inert unless --fault_spec or BERT_FAULTS armed it.
+    fault_plan = (faults.arm(args.fault_spec) if args.fault_spec
+                  else faults.get_plan())
     logger = open_logger(args)
     eff_max_pred = args.max_predictions_per_seq * args.pack_k
     seq_len = config.max_position_embeddings
@@ -640,6 +784,17 @@ def train(args, model, optimizer, config, step, loader, sampler,
         logger.close()
         raise
     tele.attach_loader(loader)
+    # The shard readers' fault records go through the telemetry's sink
+    # while it is open (ordered with the step records), to the file
+    # before and after.
+    fault_sinks = [(ds, ds.on_fault) for ds in (
+        loader.dataset,
+        val_loader.dataset if val_loader is not None else None)
+        if isinstance(ds, ShardedPretrainingDataset)]
+    for ds, _ in fault_sinks:
+        ds.on_fault = tele.emit
+    validate = (make_validation(args, model, config, val_loader, logger)
+                if val_loader is not None else None)
     log({"event": "start", "device": str(args.device),
          "dtype": args.dtype, "attention_backend": args.attention_backend,
          "remat": args.remat, "layer_norm_backend": args.layer_norm_backend,
@@ -657,26 +812,29 @@ def train(args, model, optimizer, config, step, loader, sampler,
         return state
 
     last: dict = {}
-    step_times, saves = [], []
+    step_times, saves, val_records = [], [], []
     step_in_run, terminated, done = 0, False, steps_this_run <= 0
     window_t0, window_steps = time.perf_counter(), 0
     data_seq_len, train_start, samples_seen = None, time.perf_counter(), 0
     stop = preemption.GracefulStop()
     if args.term_check_steps:
         stop.install()
+    prefetcher = None
     try:
         while not done:
             sampler.set_epoch(epoch)
-            for host_batch in tele.timed(iter(loader)):
+            # One prefetcher per epoch (a one-shot iterator), closed below
+            # or in the finally, so a left epoch leaks no thread.
+            prefetcher = pretrain.device_prefetch(
+                loader, args.accumulation_steps, args.device,
+                depth=args.device_prefetch)
+            tele.attach_prefetcher(prefetcher)
+            for batch in tele.timed(prefetcher):
                 t_start = time.perf_counter()
                 # Profiler window in step-in-run terms: this iteration runs
                 # step step_in_run + 1.
                 tele.profiler.maybe_start(step_in_run + 1)
                 with tele.profiler.annotation(step_in_run + 1):
-                    batch = pretrain.to_device(
-                        pretrain.stack_microbatches(host_batch,
-                                                    args.accumulation_steps),
-                        args.device)
                     metrics = step(batch)
                 tele.dispatch_done()
                 global_step += 1
@@ -703,6 +861,11 @@ def train(args, model, optimizer, config, step, loader, sampler,
                     samples_seen += args.global_batch_size
                 finished = (step_in_run >= steps_this_run
                             or global_step >= args.max_steps)
+                if fault_plan.active:
+                    # An armed NaN replaces this step's metrics before the
+                    # sentinel observes them.
+                    metrics = fault_plan.poison_metrics(global_step, metrics,
+                                                        emit=tele.emit)
                 # Step close-out: device sync (per cadence), step window,
                 # sentinel policy, grad health, heartbeat, profiler
                 # auto-stop. NonFiniteError propagates under
@@ -725,6 +888,11 @@ def train(args, model, optimizer, config, step, loader, sampler,
                     logger.log(tag="train", epoch=epoch, **last)
                     window_t0, window_steps = time.perf_counter(), 0
                 step_times.append((t_start, time.perf_counter()))
+                if (validate is not None
+                        and global_step % args.num_steps_per_eval == 0):
+                    record = validate(global_step, epoch)
+                    if record is not None:
+                        val_records.append(record)
                 if global_step % args.num_steps_per_checkpoint == 0:
                     with tele.checkpoint_stall():
                         saves.append({"step": global_step, "stall_s": save(
@@ -732,6 +900,11 @@ def train(args, model, optimizer, config, step, loader, sampler,
                             sampler_state(), epoch,
                             args.checkpoint_write == "async", kfac_state,
                             logger)})
+                if fault_plan.active:
+                    # die/term/hang after the checkpoint block: die@N
+                    # resumes from what N's cadence wrote.
+                    fault_plan.fire_process_faults(global_step,
+                                                   emit=tele.emit)
                 if (args.term_check_steps
                         and global_step % args.term_check_steps == 0
                         and stop.requested):
@@ -747,6 +920,7 @@ def train(args, model, optimizer, config, step, loader, sampler,
                     done = True
                     break
             else:
+                prefetcher.close()
                 epoch += 1
                 trained_index = 0
                 continue
@@ -784,17 +958,22 @@ def train(args, model, optimizer, config, step, loader, sampler,
         # The partial window, the final heartbeat and the run summary.
         tele.finish(global_step, summary=run_summary)
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
+        for ds, on_fault in fault_sinks:
+            ds.on_fault = on_fault
         stop.restore()
         tele.close()
         logger.close()
     return dict(last, global_step=global_step, terminated_by_signal=terminated,
                 training_seq_per_sec=seq_per_sec, training_mfu=train_mfu,
-                step_times=step_times, saves=saves)
+                step_times=step_times, saves=saves, val=val_records)
 
 
-def main(args, dataset=None) -> dict:
+def main(args, dataset=None, val_dataset=None) -> dict:
     """A whole run; ``dataset`` stands in for the shards of
-    ``--input_dir`` (prepare_dataset)."""
+    ``--input_dir`` (prepare_dataset), ``val_dataset`` for those of
+    ``--val_input_dir`` (prepare_val_loader)."""
     args = setup_training(args)
     model, config = prepare_model(args)
     optimizer, schedule = prepare_optimizer(args, model)
@@ -802,10 +981,11 @@ def main(args, dataset=None) -> dict:
     checkpoint, global_step = restore_checkpoint(args, model, optimizer,
                                                  kfac, kfac_state)
     loader, sampler = prepare_dataset(args, config, checkpoint, dataset)
+    val_loader = prepare_val_loader(args, config, val_dataset)
     step = make_step(args, model, optimizer, schedule, config, kfac,
                      kfac_state)
     return train(args, model, optimizer, config, step, loader, sampler,
-                 checkpoint, global_step, kfac_state)
+                 checkpoint, global_step, kfac_state, val_loader)
 
 
 if __name__ == "__main__":

@@ -52,9 +52,11 @@ backward, AdamW's clipping on the true norm (the scaled norm over the
 scale), and the optimizer wrapped in ``DynamicLossScale``, which skips an
 overflowing step and backs off the scale, as the JAX runner's.
 
-Not ported yet, so rejected rather than ignored (argparse refuses their
-flags): the BPE tokenizer, ``--telemetry_cost_analysis``, device
-prefetch, ``--mesh_data`` and ``--compile_cache_dir``. The telemetry debug
+``--device_prefetch`` (default 2) stages the training batches on the card
+ahead of the step (data/device_prefetch.py). Not ported yet, so rejected
+rather than ignored (argparse refuses their flags): the BPE tokenizer,
+``--telemetry_cost_analysis``, ``--mesh_data`` and
+``--compile_cache_dir``. The telemetry debug
 planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's. ``--init_checkpoint`` reads torch archives and
 the JAX package's msgpack checkpoints, not TF checkpoints
 (models/convert.py ``load_pretrained_encoder``).
@@ -79,6 +81,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, squad, telemetry
+from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.data.tokenization import (ROADMAP_BPE,
                                                       BertTokenizer)
@@ -164,6 +167,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "kernel")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
     args = parser.parse_args(argv)
 
@@ -249,9 +253,9 @@ def cached_features(args, examples, tokenizer, is_training, tag):
     return features
 
 
-def features_to_tensors(features, is_training, device):
+def features_to_arrays(features, is_training):
     """int64 [B, S] input_ids/segment_ids/input_mask (+ [B] start/end
-    positions for training) on ``device``."""
+    positions for training) as numpy arrays."""
     arrays = {
         "input_ids": [f.input_ids for f in features],
         "segment_ids": [f.segment_ids for f in features],
@@ -260,8 +264,13 @@ def features_to_tensors(features, is_training, device):
     if is_training:
         arrays["start_positions"] = [f.start_position for f in features]
         arrays["end_positions"] = [f.end_position for f in features]
-    return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
-            for k, v in arrays.items()}
+    return {k: np.asarray(v, np.int64) for k, v in arrays.items()}
+
+
+def features_to_tensors(features, is_training, device):
+    """:func:`features_to_arrays` as int64 tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in features_to_arrays(features, is_training).items()}
 
 
 def make_optimizer(args, model, total_steps: int):
@@ -386,13 +395,19 @@ def train(args, model, config, tokenizer, device) -> dict:
             yield [train_features[j]
                    for j in order[i:i + args.train_batch_size]]
 
+    prefetcher = None
     try:
         while global_step < total_steps and not stop.requested:
             order = rng.permutation(n)
-            for feats in tele.timed(epoch_batches(order)):
+            prefetcher = dp_cli.prefetch(
+                epoch_batches(order), device, args.device_prefetch,
+                lambda feats, put: {k: put(v) for k, v in
+                                    features_to_arrays(feats, True).items()})
+            tele.attach_prefetcher(prefetcher)
+            for batch in tele.timed(prefetcher):
                 tele.profiler.maybe_start(global_step + 1)
                 with tele.profiler.annotation(global_step + 1):
-                    metrics = step(features_to_tensors(feats, True, device))
+                    metrics = step(batch)
                 tele.dispatch_done()
                 global_step += 1
                 seqs += args.train_batch_size
@@ -427,6 +442,8 @@ def train(args, model, config, tokenizer, device) -> dict:
                  time.perf_counter() - t_save})
         ckpt.wait_for_pending_save()
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         stop.restore()
         tele.close()
     summary = {"e2e_train_time": train_time,

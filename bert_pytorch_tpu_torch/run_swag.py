@@ -28,8 +28,9 @@ TensorBoard files are written.
 
 ``--init_checkpoint`` reads the JAX package's msgpack checkpoints and
 torch archives; TF checkpoints are refused (models/convert.py
-``ROADMAP_TF``). Not ported, so argparse refuses their flags:
-``--compile_cache_dir``, device prefetch and
+``ROADMAP_TF``). ``--device_prefetch`` (default 2) stages the
+training batches on the card ahead of the step (data/device_prefetch.py).
+Not ported, so argparse refuses their flags: ``--compile_cache_dir`` and
 ``--telemetry_cost_analysis``; the BPE tokenizer is refused. The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's.
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, telemetry
+from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data import swag
 from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForMultipleChoice
@@ -87,6 +89,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "final one is synchronous. 0 disables")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
     return finetune.read_vocab_args(parser.parse_args(argv))
 
@@ -162,15 +165,19 @@ def run(args):
     global_step, seen = 0, 0
     t0 = time.perf_counter()
     stop = preemption.GracefulStop().install()
+    prefetcher = None
     try:
         for epoch in range(args.epochs):
             losses = []
-            for batch, valid in tele.timed(finetune.batches(
-                    arrays["train"], args.batch_size, True, rng)):
+            prefetcher = dp_cli.prefetch(
+                finetune.batches(arrays["train"], args.batch_size, True,
+                                 rng), device, args.device_prefetch,
+                finetune.put_valid_batch)
+            tele.attach_prefetcher(prefetcher)
+            for batch, valid_t, valid in tele.timed(prefetcher):
                 tele.profiler.maybe_start(global_step + 1)
                 with tele.profiler.annotation(global_step + 1):
-                    metrics = step(finetune.to_device(batch, device),
-                                   torch.from_numpy(valid).to(device))
+                    metrics = step(batch, valid_t)
                 tele.dispatch_done()
                 global_step += 1
                 tele.step_done(global_step, metrics)
@@ -217,6 +224,8 @@ def run(args):
                 json.dump(results, f, indent=2)
         ckpt.wait_for_pending_save()
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         stop.restore()
         tele.close()
     return results, model, config

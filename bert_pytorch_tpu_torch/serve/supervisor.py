@@ -143,6 +143,23 @@ class ReplicaSpec:
         return f"http://{self.host}:{self.port}"
 
 
+# Ports minted by ReplicaTemplate.alloc_port, each held by a bound socket
+# (SO_REUSEADDR, never listening) until its replica retires. The kernel
+# then hands the port to no outgoing connection and to no other bind to
+# 0 while the replica is down, so a respawn finds its port free; the
+# replica's HTTP server binds beside the held socket (it sets
+# SO_REUSEADDR too).
+_HELD_PORTS: dict = {}
+
+
+def release_port(port: int) -> None:
+    """Close the socket holding ``port`` (a no-op for a port this module
+    did not mint)."""
+    held = _HELD_PORTS.pop(int(port), None)
+    if held is not None:
+        held.close()
+
+
 # The repo root: the replicas start as ``python -m
 # bert_pytorch_tpu_torch.run_server`` with it as their working directory.
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -200,13 +217,18 @@ class ReplicaTemplate:
 
     @staticmethod
     def alloc_port() -> int:
-        """A free local port, kernel-assigned (bind to 0)."""
+        """A free local port, kernel-assigned (bind to 0) and held until
+        :func:`release_port`."""
         s = socket.socket()
         try:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-        finally:
+        except OSError:
             s.close()
+            raise
+        port = s.getsockname()[1]
+        _HELD_PORTS[port] = s
+        return port
 
     def make_spec(self, index: int, port: Optional[int] = None,
                   extra_args: Sequence[str] = (),
@@ -529,6 +551,7 @@ class Supervisor:
             # is confirmed — the router target is removed only now, so
             # every in-flight request already got its answer.
             rep.state = STOPPED
+            release_port(rep.spec.port)
             self._emit("drain_complete", rep, rc=rc, graceful=graceful)
             return
         if self._stop_event.is_set():
@@ -664,6 +687,8 @@ class Supervisor:
             self._thread = None
         with self._lock:
             rcs = {rep.spec.index: rep.last_rc for rep in self._replicas}
+            for rep in self._replicas:
+                release_port(rep.spec.port)
         graceful = all(rc in (0, EXIT_PREEMPTED)
                        for rc in rcs.values() if rc is not None)
         return {"rcs": rcs, "drain_killed": killed,
@@ -715,6 +740,7 @@ class Supervisor:
                 # decommission directly — there is no drain to wait on.
                 rep.state = STOPPED
                 rep.restart_at = None
+                release_port(rep.spec.port)
                 self._emit("drain_complete", rep, rc=rep.last_rc,
                            graceful=True)
                 return {"replica": rep.spec.index, "state": rep.state}

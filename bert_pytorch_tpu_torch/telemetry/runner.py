@@ -34,12 +34,14 @@ One object owns the telemetry pieces and their lifecycle:
   ``grad_health`` records, checked for grad-norm spikes / update-ratio
   drift).
 
-Not ported yet, and where each comes: the JAX facade's ``instrument`` and
-its ``CompileMonitor`` come with the bench legs (ROADMAP item "Bench legs
-and an entry point"; the port's compile records are the kernel builds,
-``telemetry/compile_events.py``, which the serving engine counts); its
-``attach_prefetcher`` with the device prefetcher ("The rest of
-pretraining").
+Not ported yet: the JAX facade's ``instrument`` and its
+``CompileMonitor`` come with the bench legs (ROADMAP item "Bench legs and
+an entry point"; the port's compile records are the kernel builds,
+``telemetry/compile_events.py``, which the serving engine counts).
+:meth:`TrainTelemetry.attach_prefetcher` takes the device prefetcher
+(data/device_prefetch.py): each step's staging share of its data wait
+becomes the ``h2d_wait`` sub-phase, and its gauges a window's
+``prefetch`` sub-object.
 
 One difference from the JAX facade: an on-demand capture still active
 when the run ends is collected by :meth:`TrainTelemetry.finish` (its
@@ -177,6 +179,7 @@ class TrainTelemetry:
         # runner that opened --debug_port never leaks the port.
         self.debug_server = None
         self._loader_stats: Optional[Callable[[], Optional[dict]]] = None
+        self._prefetcher = None
         self.last_step_synced = False
 
     # -- wiring ---------------------------------------------------------
@@ -202,6 +205,12 @@ class TrainTelemetry:
         if callable(snapshot):
             self._loader_stats = snapshot
 
+    def attach_prefetcher(self, prefetcher) -> None:
+        """Attribute the staging share of each step's data wait to the
+        ``h2d_wait`` sub-phase (``DevicePrefetcher.pop_h2d_wait_s``), and
+        fold the prefetcher's gauges into window records."""
+        self._prefetcher = prefetcher
+
     @contextlib.contextmanager
     def checkpoint_stall(self):
         """Context manager timing a checkpoint save's host stall; the
@@ -226,6 +235,10 @@ class TrainTelemetry:
             except StopIteration:
                 return
             self.timer.data_end()
+            if self._prefetcher is not None:
+                # The item came through the device prefetcher: how much
+                # of the wait was staging (0.0 when it was ready).
+                self.timer.note_h2d(self._prefetcher.pop_h2d_wait_s())
             yield item
 
     def dispatch_done(self) -> None:
@@ -305,6 +318,10 @@ class TrainTelemetry:
                 gauges = self._loader_stats()
                 if gauges:
                     window["loader"] = gauges
+            if self._prefetcher is not None:
+                gauges = self._prefetcher.snapshot()
+                if gauges:
+                    window["prefetch"] = gauges
             self.emit(window)
             self.memory.flush(step)  # one memory record per window
         return window

@@ -53,6 +53,9 @@ budget, pad included) and per-step real-token counts (``note_tokens``,
 fed from the train step's ``real_tokens`` metric on the sync cadence),
 windows additionally report ``padding_efficiency``, ``tokens_per_s`` with
 an explicit ``tokens_per_s_basis`` and ``mfu_real_tokens``.
+With a device prefetcher attached, :meth:`note_h2d` records the staging
+share of each step's data wait and windows carry ``h2d_wait_*``
+percentiles, clamped so that ``h2d_wait <= data_wait`` (a sub-phase).
 :meth:`note_ckpt_stall` folds a checkpoint save's host stall into the
 step it rode on, and windows with such steps carry ``ckpt_steps`` +
 ``ckpt_step_*`` percentiles.
@@ -144,6 +147,8 @@ class StepTimer:
         self._t_device1 = None
         self._mark0 = self._mark1 = None
         self._device_s = None
+        self._pending_h2d = None
+        self._h2d_attached = False
         self._last_step_s = 0.0
 
     def _reset_window(self):
@@ -152,6 +157,7 @@ class StepTimer:
         self._devices: list = []
         self._steps: list = []
         self._real_tokens: list = []
+        self._h2ds: list = []
         self._ckpt_steps_s: list = []
         self._window_t0 = None
 
@@ -176,6 +182,14 @@ class StepTimer:
         if self.sync_every == 0:
             return False
         return self._step_index % self.sync_every == 0
+
+    def note_h2d(self, h2d_wait_s: float) -> None:
+        """Record the staging share of THIS step's data wait (the device
+        prefetcher's attribution, data/device_prefetch.py). Called right
+        after ``data_end``; clamped to the step's data_wait at
+        :meth:`step_done`."""
+        self._pending_h2d = max(0.0, float(h2d_wait_s))
+        self._h2d_attached = True
 
     def note_ckpt_stall(self, stall_s: float) -> None:
         """Record a checkpoint save's host stall, attributed to the step
@@ -226,6 +240,12 @@ class StepTimer:
         if self._t_data0 is None or self._t_data1 is None:
             return None  # marks were skipped (e.g. epoch boundary)
         self._data_waits.append(max(0.0, self._t_data1 - self._t_data0))
+        if self._h2d_attached:
+            # A sub-phase of this step's data_wait (a step with no note
+            # contributes 0).
+            self._h2ds.append(min(self._pending_h2d or 0.0,
+                                  self._data_waits[-1]))
+            self._pending_h2d = None
         if self._t_dispatch1 is not None:
             self._hosts.append(max(0.0, self._t_dispatch1 - self._t_data1))
             if self._device_s is not None:
@@ -276,6 +296,14 @@ class StepTimer:
             "steps_per_sec": round(n / wall, 4),
         }
         record.update(_stats(self._data_waits, "data_wait"))
+        if self._h2d_attached:
+            # Clamped pairwise again, so the h2d_wait <= data_wait rule
+            # (schema.py) survives rounding and percentile picks.
+            h2d = _stats(self._h2ds, "h2d_wait")
+            for suffix in ("p50_s", "p95_s", "max_s"):
+                h2d[f"h2d_wait_{suffix}"] = min(
+                    h2d[f"h2d_wait_{suffix}"], record[f"data_wait_{suffix}"])
+            record.update(h2d)
         record.update(_stats(self._hosts, "host"))
         record.update(_stats(self._devices, "device"))
         if self._device_clock is not None:

@@ -9,7 +9,10 @@
   synthetic shards and masked by the port's dataset code
   (:func:`synthetic_pretraining_batch`), and a dataset of such rows
   (:class:`SyntheticPretrainingDataset`) for the runner's own loop, where
-  no shard (and no ``h5py``) is at hand.
+  no shard (and no ``h5py``) is at hand; and HDF5 shards in the JAX
+  package's layout (:func:`make_shard`, a copy of its ``make_shard``;
+  ``h5py`` imported inside), which the port's tests and its
+  ``tools/chaos_run.py`` write without the JAX package.
 * SQuAD: a seeded SQuAD-format JSON file from the same words
   (:func:`write_squad_json`), for finetuning and prediction where no
   ``train-v1.1.json``/``dev-v1.1.json`` is at hand.
@@ -97,6 +100,92 @@ def synthetic_pretraining_batch(seed: int, batch_size: int, seq_len: int,
              for key, value in rows.items()}
     batch["next_sentence_labels"] = nsp.astype(np.int32)
     return batch
+
+
+def make_shard(path: str, num_samples: int, seq_len: int, vocab_size: int,
+               seed: int = 0, nsp: bool = True, legacy: bool = False,
+               max_pred_per_seq: int = 20, mixed_lengths: bool = False,
+               packed: bool = False, max_sequences_per_pack: int = 8) -> str:
+    """One synthetic HDF5 shard, byte for byte the JAX package's
+    ``make_shard`` for the same arguments: ``num_samples`` rows of
+    ``seq_len`` ids drawn from ``seed`` ([CLS] 2, [SEP] 3, content ids
+    from 5), two segments under ``nsp``; ``legacy`` writes the NVIDIA
+    pre-masked keys, ``mixed_lengths`` draws short-biased lengths, and
+    ``packed`` writes an offline-packed shard of those rows instead."""
+    import h5py
+    import numpy as np
+
+    if packed and legacy:
+        raise ValueError("packed shards use the new format only")
+    rng = np.random.default_rng(seed)
+    input_ids = np.zeros((num_samples, seq_len), np.int32)
+    specials = []
+    next_sentence = rng.integers(0, 2 if nsp else 1,
+                                 num_samples).astype(np.int8)
+    cls_id, sep_id = 2, 3
+    for i in range(num_samples):
+        if mixed_lengths:
+            lo = min(6, seq_len - 4)
+            content = lo + int((seq_len - 2 - lo) * rng.random() ** 2)
+        else:
+            content = int(rng.integers(seq_len // 2, seq_len - 1))
+        ids = rng.integers(5, vocab_size, size=content).astype(np.int32)
+        if nsp:
+            split = int(rng.integers(1, content - 1)) if content > 2 else 1
+            row = np.concatenate(
+                [[cls_id], ids[:split], [sep_id], ids[split:], [sep_id]])
+            special = [0, split + 1, len(row) - 1]
+        else:
+            row = np.concatenate([[cls_id], ids, [sep_id]])
+            special = [0, len(row) - 1]
+        row = row[:seq_len]
+        special = [min(p, seq_len - 1) for p in special]
+        input_ids[i, :len(row)] = row
+        specials.append(special)
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if packed:
+        from bert_pytorch_tpu_torch.data.packing import (first_fit_decreasing,
+                                                         write_packed_shard)
+
+        lengths = [sp[-1] + 1 for sp in specials]
+        packs = first_fit_decreasing(lengths, seq_len, max_sequences_per_pack)
+        write_packed_shard(path, [
+            [(input_ids[i, :lengths[i]], specials[i], int(next_sentence[i]))
+             for i in pack] for pack in packs], seq_len,
+            max_sequences_per_pack)
+        return path
+    with h5py.File(path, "w") as f:
+        f.create_dataset("input_ids", data=input_ids, dtype="i4",
+                         compression="gzip")
+        if legacy:
+            segment_ids = np.zeros_like(input_ids)
+            input_mask = np.zeros_like(input_ids)
+            positions = np.zeros((num_samples, max_pred_per_seq), np.int32)
+            label_ids = np.zeros((num_samples, max_pred_per_seq), np.int32)
+            for i, special in enumerate(specials):
+                input_mask[i, :special[-1] + 1] = 1
+                if len(special) == 3:
+                    segment_ids[i, special[1] + 1:special[2] + 1] = 1
+                n_mask = int(rng.integers(1, max_pred_per_seq))
+                cand = [p for p in range(1, special[-1])
+                        if p not in special][:n_mask]
+                positions[i, :len(cand)] = cand
+                label_ids[i, :len(cand)] = input_ids[i, cand]
+            f.create_dataset("segment_ids", data=segment_ids, dtype="i4")
+            f.create_dataset("input_mask", data=input_mask, dtype="i4")
+            f.create_dataset("masked_lm_positions", data=positions,
+                             dtype="i4")
+            f.create_dataset("masked_lm_ids", data=label_ids, dtype="i4")
+        else:
+            dt = h5py.vlen_dtype(np.dtype("i4"))
+            ds = f.create_dataset("special_token_positions", (num_samples,),
+                                  dtype=dt)
+            for i, special in enumerate(specials):
+                ds[i] = np.asarray(special, np.int32)
+        f.create_dataset("next_sentence_labels", data=next_sentence,
+                         dtype="i1", compression="gzip")
+    return path
 
 
 class SyntheticPretrainingDataset:

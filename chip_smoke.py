@@ -226,7 +226,29 @@ Phases (any failure exits non-zero and prints no result line):
    while each mode ran (``torch.cuda.mem_get_info`` once a second); the
    card's free memory must come back to within 1 GiB once the fleets
    stop. #4's ``launches_fleet`` sums the launches
-   the final replicas of the three modes report on ``/statsz``.
+   the final replicas of the three modes report on ``/statsz``;
+15. the feed of a long pretraining run (``drive_feed``), phase 6's shape
+   through ``run_pretraining.main`` over ``SyntheticPretrainingDataset``
+   rows, 6 steps a run: 15a ``--device_prefetch`` 0 then 2 (traced),
+   then an untraced pair of each in turns (2, 0, 0, 2), per-step losses
+   bit-equal, the step p50 of each depth, #1-#3 96/48/48 per step, the traced steps 2-3 holding
+   the staged batch's copies as pinned-to-device memcpys on a stream other
+   than the compute kernels', data_wait and h2d_wait p50 of schema-clean
+   windows; 15b the runner's loader with ``--num_workers 2`` against 0,
+   every batch equal by sha256, each worker's start and the rows per
+   second; 15c ``--num_workers 2 --num_steps_per_eval 2 --eval_batches
+   4``, the losses 15a's, ``val`` records at steps 2, 4 and 6 each equal
+   to ``pretrain.make_eval_step`` on that step's params and batches, the
+   eval forward on #1 (24 launches a batch; #4 none); 15d
+   ``--fault_spec nonfinite@3`` under ``--sentinel_policy abort`` raising
+   with its injected record, then the kill cycle at dropout 0: a child
+   with ``die@4`` and synchronous saves every 2 steps dies by SIGKILL, its
+   newest checkpoint is truncated, and a fresh child walks back to step 2
+   (its ``resume`` record naming the skip) and runs to step 6 with the
+   losses of an uninterrupted run bit for bit. Every entry of the kernels
+   line carries ``launches_feed`` (15a's prefetch-2 run), #1 also
+   ``launches_feed_eval`` (15c's held-out forwards, counted around each of
+   that run's held-out passes).
 
 Every launch counter is set to 0 just before each main path and read just
 after it (phase 14's counters live in its replicas, fresh processes whose
@@ -2310,10 +2332,10 @@ def runner_step(r: dict):
                                      r["kfac_state"])
 
 
-def train_runner(r: dict, dataset, on_step=None) -> dict:
-    """The runner's loop (prepare_dataset, make_step, train) on ``dataset``
-    from where ``r`` resumed; ``on_step(metrics)`` sees every step's
-    metrics."""
+def train_runner(r: dict, dataset, on_step=None, val_dataset=None) -> dict:
+    """The runner's loop (prepare_dataset, prepare_val_loader, make_step,
+    train) on ``dataset`` (and ``val_dataset``, held out) from where ``r``
+    resumed; ``on_step(metrics)`` sees every step's metrics."""
     from bert_pytorch_tpu_torch import run_pretraining
 
     args = r["args"]
@@ -2331,7 +2353,9 @@ def train_runner(r: dict, dataset, on_step=None) -> dict:
     return run_pretraining.train(args, r["model"], r["optimizer"],
                                  r["config"], step, loader, sampler,
                                  r["checkpoint"], r["global_step"],
-                                 r["kfac_state"])
+                                 r["kfac_state"],
+                                 run_pretraining.prepare_val_loader(
+                                     args, r["config"], val_dataset))
 
 
 def training_state(r: dict) -> dict:
@@ -4015,6 +4039,499 @@ def drive_fleet(root: str, card: str) -> dict:
     return summary
 
 
+# -- phase 15: the feed of a long pretraining run -----------------------------
+
+# Phase 6's shape (S=512, max_pred 80, remat dots, LAMB, flash, bf16, local
+# batch 8 x 2) through run_pretraining.main over SyntheticPretrainingDataset
+# rows: FEED_STEPS steps a run, a held-out pass every FEED_EVERY steps of
+# FEED_EVAL_BATCHES batches, the kill cycle's saves every FEED_EVERY steps.
+FEED_STEPS, FEED_EVERY, FEED_EVAL_BATCHES = 6, 2, 4
+FEED_DATA_SEED, FEED_VAL_SEED = 15, 16
+# BERT-large's vocab padded to a multiple of 8 (the runner's rule) and the
+# phase-2 recipe's max_pred.
+FEED_VOCAB, FEED_MAX_PRED = 30528, 80
+# 15a traces steps 2 and 3 (step-in-run terms). The producer stages a
+# batch before it blocks on the full queue, so the copies of batch N + 3
+# are issued as step N begins: batch 6's, at step 3, inside the window.
+FEED_PROFILE_STEPS = "2:4"
+FEED_UNTRACED_ORDER = ("2", "0", "0", "2")
+FEED_WINDOW = 3
+FEED_WORKERS = 2
+FEED_NONFINITE_AT, FEED_KILL_AT = 3, 4
+# Two retained BERT-large LAMB states (4.03 GB each) and headroom.
+FEED_DISK_BYTES = 14 * 2 ** 30
+FEED_CHILD_TIMEOUT_S = 300
+# The arrays of an unpacked batch: ids, segments, mask, labels, NSP.
+FEED_ARRAYS = 5
+# A pinned host buffer copied to the card, by the name kineto gives it.
+PINNED_HTOD = re.compile(r"Memcpy HtoD \(Pinned -> Device\)")
+FEED_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+              "import chip_smoke; sys.exit(chip_smoke.feed_child("
+              "sys.argv[2:]))")
+
+
+def feed_dataset(seed: int = FEED_DATA_SEED, rows: int = None):
+    """The phase's seeded synthetic rows (a 6-step epoch by default)."""
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        SyntheticPretrainingDataset)
+
+    rows = rows or TRAIN_LOCAL_BATCH * TRAIN_ACCUM * FEED_STEPS
+    return SyntheticPretrainingDataset(seed, rows, TRAIN_SEQ, FEED_VOCAB,
+                                       FEED_MAX_PRED)
+
+
+def feed_argv(out: str, extra=(), config: str = CONFIG) -> list:
+    """The runner's command line for phase 15: the phase-2 recipe at
+    BERT-large width (``config``), FEED_STEPS steps, no saves unless
+    ``extra`` asks, saves numbered from 0."""
+    return ["--output_dir", out, "--config_file", PHASE2,
+            "--model_config_file", config,
+            "--local_batch_size", str(TRAIN_LOCAL_BATCH),
+            "--global_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+            "--steps", str(FEED_STEPS), "--attention_backend", "flash",
+            "--dtype", "bfloat16", "--device", "cuda", "--seed", "0",
+            "--log_steps", "1", "--skip_final_checkpoint",
+            "--num_steps_per_checkpoint", "1000",
+            "--previous_phase_end_step", "0", *extra]
+
+
+def feed_child(argv) -> int:
+    """A child of 15d's kill cycle: ``run_pretraining.main`` on the
+    phase's rows (a process of its own, so ``die@N`` can SIGKILL it)."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    summary = run_pretraining.main(run_pretraining.parse_arguments(argv),
+                                   feed_dataset())
+    return 0 if summary.get("finite", 1.0) == 1.0 else 1
+
+
+def feed_records(out: str) -> list:
+    """The run's JSONL, schema-clean, as records."""
+    from bert_pytorch_tpu_torch.telemetry import schema
+
+    path = os.path.join(out, "pretraining_telemetry.jsonl")
+    errors = schema.validate_file(path)
+    if errors:
+        raise AssertionError(f"{path}: {errors[:5]}")
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f]
+
+
+def train_losses(records: list) -> dict:
+    return {r["step"]: r["loss"] for r in records if r.get("tag") == "train"}
+
+
+def feed_main(kernels: dict, out: str, extra=(), dataset=None,
+              val_dataset=None, config: str = CONFIG) -> dict:
+    """``run_pretraining.main`` from a fresh directory, the launch counts
+    zeroed just before and read just after; its records and losses."""
+    import gc
+
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    args = run_pretraining.parse_arguments(feed_argv(out, extra, config))
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    summary = run_pretraining.main(args, dataset or feed_dataset(),
+                                   val_dataset)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = feed_records(out)
+    return {"summary": summary, "launches": launches, "records": records,
+            "losses": train_losses(records), "wall_s": wall,
+            "windows": [r for r in records
+                        if r.get("kind") == "step_window"]}
+
+
+def check_feed_launches(label: str, launches: dict, layers: int,
+                        extra_fwd: int = 0) -> None:
+    """Phase 6's 96/48/48 per step over FEED_STEPS steps (``extra_fwd``
+    more forwards: the held-out passes), no other kernel."""
+    per_step = layers * TRAIN_ACCUM
+    want = {name: 0 for name in launches}
+    want.update({"flash_attention_fwd": 2 * per_step * FEED_STEPS + extra_fwd,
+                 "flash_attention_dq": per_step * FEED_STEPS,
+                 "flash_attention_dkv": per_step * FEED_STEPS})
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}; expected {want}")
+
+
+def h2d_copies(trace: str) -> dict:
+    """The host-to-device copies of a Chrome trace of ``torch.profiler``
+    against the stream most of its kernels ran on (the compute stream)."""
+    from bert_pytorch_tpu_torch.tools.profile_train import load_trace
+
+    events = load_trace(trace)
+    streams = [e.get("args", {}).get("stream") for e in events
+               if e.get("cat") == "kernel"]
+    compute = statistics.mode(streams)
+    pinned = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and PINNED_HTOD.search(e.get("name", ""))]
+    pageable = [e for e in events if e.get("cat") == "gpu_memcpy"
+                and "HtoD" in e.get("name", "") and e not in pinned]
+    return {"compute_stream": compute,
+            "memcpys": sorted({e.get("name") for e in events
+                               if e.get("cat") == "gpu_memcpy"}),
+            "pinned": len(pinned),
+            "pinned_streams": sorted({e["args"].get("stream")
+                                      for e in pinned}),
+            "pinned_bytes": sum(e["args"].get("bytes", 0) for e in pinned),
+            "pinned_us": round(sum(e.get("dur", 0) for e in pinned), 3),
+            "pageable_on_compute": sum(
+                1 for e in pageable
+                if e["args"].get("stream") == compute)}
+
+
+def step_p50_s(run: dict) -> float:
+    """The median wall time of a run's steps after its first (the runner's
+    per-step start and end, every step synced)."""
+    return statistics.median(end - start for start, end in
+                             run["summary"]["step_times"][1:])
+
+
+def window_p50s(windows: list) -> list:
+    return [(w["step"], w["data_wait_p50_s"], w.get("h2d_wait_p50_s"),
+             w["step_p50_s"]) for w in windows]
+
+
+def batch_digests(loader) -> tuple:
+    """(sha256 of each batch, seconds to the first batch, rows per second
+    after it) of one pass of ``loader``."""
+    import hashlib
+
+    digests = []
+    t0 = time.perf_counter()
+    first = None
+    for batch in loader:
+        if first is None:
+            first = time.perf_counter()
+        h = hashlib.sha256()
+        for key in sorted(batch):
+            h.update(key.encode())
+            h.update(np.ascontiguousarray(batch[key]).tobytes())
+        digests.append(h.hexdigest())
+    rows = loader.batch_size * (len(digests) - 1)
+    return digests, first - t0, rows / max(time.perf_counter() - first,
+                                           1e-9)
+
+
+def drive_feed(kernels: dict, root: str, card: str) -> dict:
+    """Phase 15 (full width and depth of BERT-large; cut: 6 steps a run of
+    the recipe's 1563, local batch 8 x 2 for 32 x 1024, a held-out set of
+    4 batches): the feed of a long run through ``run_pretraining.main``.
+
+    15a: --device_prefetch 2 against 0, in turns (0, then 2 traced, then
+    untraced 2, 0, 0, 2): per-step losses bit-equal, #1-#3 96/48/48 per
+    step, the copies in the trace of steps 2-3 pinned-to-device on a
+    stream other than the compute kernels', data_wait/h2d_wait p50 of
+    schema-clean windows, and the step p50 of each depth with and
+    without the trace.
+    15b: the runner's loader with --num_workers 2 against 0: every batch
+    equal by sha256; each worker's start and the loader's rows per second.
+    15c: --num_workers 2 --num_steps_per_eval 2 --eval_batches 4: the
+    losses 15a's bit for bit, ``val`` records at steps 2, 4 and 6, each
+    equal to pretrain.make_eval_step on that step's params and the same
+    batches; the eval route's kernel and launches per batch, a pass's
+    seconds.
+    15d: nonfinite@3 under --sentinel_policy abort raises with the
+    injected record; then the kill cycle at dropout 0: a child with
+    die@4 and saves every 2 steps dies by SIGKILL, its newest checkpoint
+    is truncated, a fresh child walks back to step 2 (a resume record
+    naming the skip) and runs to step 6, its losses from step 3 on equal
+    to an uninterrupted run's bit for bit (within RESUME_STEP_ATOL only if
+    a kernel is not deterministic, as phase 9's rule)."""
+    import gc
+
+    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+    from bert_pytorch_tpu_torch.data.loader import DataLoader
+    from bert_pytorch_tpu_torch.data.sampler import DistributedSampler
+    from bert_pytorch_tpu_torch.telemetry.sentinels import NonFiniteError
+    from bert_pytorch_tpu_torch.testing import faults
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    layers = 24
+    # 15a
+    runs = {}
+    for depth in ("0", "2"):
+        out = os.path.join(root, f"feed_prefetch_{depth}")
+        extra = ["--device_prefetch", depth, "--telemetry_window",
+                 str(FEED_WINDOW), "--telemetry_sync_every", "1"]
+        if depth == "2":
+            extra += ["--profile_steps", FEED_PROFILE_STEPS, "--profile_dir",
+                      os.path.join(out, "profile")]
+        runs[depth] = feed_main(kernels, out, extra)
+        check_feed_launches(f"15a prefetch {depth}", runs[depth]["launches"],
+                            layers)
+    if (runs["0"]["losses"] != runs["2"]["losses"]
+            or len(runs["0"]["losses"]) != FEED_STEPS):
+        raise AssertionError(f"15a losses differ: prefetch 0 "
+                             f"{runs['0']['losses']}, 2 {runs['2']['losses']}")
+    profile = os.path.join(root, "feed_prefetch_2", "profile")
+    traces = [f for f in os.listdir(profile) if f.startswith("trace_")]
+    if len(traces) != 1:
+        raise AssertionError(f"15a profile traces {traces}")
+    copies = h2d_copies(os.path.join(profile, traces[0]))
+    if (copies["pinned"] < FEED_ARRAYS
+            or copies["compute_stream"] in copies["pinned_streams"]):
+        raise AssertionError(f"15a copies {copies}: a staged batch's five "
+                             "arrays must arrive pinned, on a side stream")
+    for depth, run in runs.items():
+        if not run["windows"] or any(
+                w["h2d_wait_p50_s"] > w["data_wait_p50_s"]
+                for w in run["windows"]):
+            raise AssertionError(f"15a windows of prefetch {depth}: "
+                                 f"{run['windows']}")
+    # The traced run changes the depth and the trace together: an untraced
+    # pair of each depth follows, in turns (2, 0, 0, 2), so that step time
+    # is read against the depth alone.
+    untraced = {"0": [], "2": []}
+    for i, depth in enumerate(FEED_UNTRACED_ORDER):
+        run = feed_main(kernels, os.path.join(
+            root, f"feed_untraced_{i}_{depth}"), [
+            "--device_prefetch", depth, "--telemetry_window",
+            str(FEED_WINDOW), "--telemetry_sync_every", "1"])
+        check_feed_launches(f"15a untraced prefetch {depth}",
+                            run["launches"], layers)
+        if run["losses"] != runs["0"]["losses"]:
+            raise AssertionError(f"15a untraced prefetch {depth} losses "
+                                 f"{run['losses']} differ from "
+                                 f"{runs['0']['losses']}")
+        untraced[depth].append({"step_p50_s": step_p50_s(run),
+                                "windows": window_p50s(run["windows"]),
+                                "main_s": run["wall_s"]})
+    log(f"[feed] 15a prefetch 0 then 2: losses bit-equal "
+        f"{runs['2']['losses']}; launches {runs['2']['launches']}; "
+        f"(step, data_wait p50, h2d_wait p50, step p50) s: prefetch 0 "
+        f"{window_p50s(runs['0']['windows'])}, prefetch 2 "
+        f"{window_p50s(runs['2']['windows'])}; steps 2-{FEED_STEPS} p50 "
+        f"{step_p50_s(runs['0']):.4f} / {step_p50_s(runs['2']):.4f} s (the "
+        f"2 run traced); the traced steps' copies {copies}; main() "
+        f"{runs['0']['wall_s']:.1f} / {runs['2']['wall_s']:.1f} s; untraced "
+        f"in turns {'/'.join(FEED_UNTRACED_ORDER)}: prefetch 0 "
+        f"{untraced['0']}, prefetch 2 {untraced['2']} on {card}")
+    # 15b
+    loaders = {}
+    for workers in (0, FEED_WORKERS):
+        args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+            feed_argv(os.path.join(root, f"feed_workers_{workers}"),
+                      ["--num_workers", str(workers)])))
+        loader, _ = run_pretraining.prepare_dataset(args, None, None,
+                                                    feed_dataset())
+        loaders[workers] = (loader,) + batch_digests(loader)
+    if loaders[0][1] != loaders[FEED_WORKERS][1] or len(loaders[0][1]) != \
+            FEED_STEPS:
+        raise AssertionError("15b batches differ between 0 and "
+                             f"{FEED_WORKERS} workers")
+    starts = [round(s, 3) for s in loaders[FEED_WORKERS][0]
+              .worker_first_batch_s]
+    log(f"[feed] 15b {FEED_STEPS} batches equal by sha256 with 0 and "
+        f"{FEED_WORKERS} workers; first batch {loaders[0][2]:.3f} / "
+        f"{loaders[FEED_WORKERS][2]:.3f} s, then {loaders[0][3]:.1f} / "
+        f"{loaders[FEED_WORKERS][3]:.1f} rows/s; each worker's start to its "
+        f"first batch {starts} s on {card}")
+    # 15c
+    out = os.path.join(root, "feed_eval")
+    r = runner(out, PHASE2, feed_argv(out, [
+        "--num_workers", str(FEED_WORKERS), "--num_steps_per_eval",
+        str(FEED_EVERY), "--eval_batches", str(FEED_EVAL_BATCHES)]))
+    val_dataset = feed_dataset(FEED_VAL_SEED, TRAIN_LOCAL_BATCH * TRAIN_ACCUM
+                               * FEED_EVAL_BATCHES)
+    snapshots = {}
+
+    def on_step(metrics):
+        step = len(snapshots) + 1
+        snapshots[step] = ({n: p.detach().clone() for n, p in
+                            r["model"].named_parameters()}
+                           if step % FEED_EVERY == 0 else None)
+
+    # The held-out passes' own launches, read around each of the runner's
+    # validate calls in this run.
+    held_out = {name: 0 for name in kernels}
+    make_validation = run_pretraining.make_validation
+
+    def counted_validation(*a, **kw):
+        validate = make_validation(*a, **kw)
+
+        def run(step, epoch):
+            before = {name: k.launches for name, k in kernels.items()}
+            try:
+                return validate(step, epoch)
+            finally:
+                for name, k in kernels.items():
+                    held_out[name] += k.launches - before[name]
+
+        run.batches = validate.batches
+        return run
+
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    run_pretraining.make_validation = counted_validation
+    try:
+        summary = train_runner(r, feed_dataset(), on_step=on_step,
+                               val_dataset=val_dataset)
+    finally:
+        run_pretraining.make_validation = make_validation
+    eval_launches = {name: k.launches for name, k in kernels.items()}
+    records = feed_records(out)
+    passes = len(summary["val"])
+    check_feed_launches("15c", eval_launches, layers,
+                        extra_fwd=passes * FEED_EVAL_BATCHES * layers)
+    if held_out != {name: (passes * FEED_EVAL_BATCHES * layers
+                           if name == "flash_attention_fwd" else 0)
+                    for name in kernels}:
+        raise AssertionError(f"15c held-out passes launched {held_out}")
+    if train_losses(records) != runs["2"]["losses"]:
+        raise AssertionError(f"15c losses {train_losses(records)} differ "
+                             f"from 15a's {runs['2']['losses']}")
+    if [v["step"] for v in summary["val"]] != list(
+            range(FEED_EVERY, FEED_STEPS + 1, FEED_EVERY)):
+        raise AssertionError(f"15c val records {summary['val']}")
+    eval_step = pretrain.make_eval_step(r["model"])
+    pass_s = []
+    zero_counts(kernels)
+    for record in summary["val"]:
+        with torch.no_grad():
+            for name, p in r["model"].named_parameters():
+                p.copy_(snapshots[record["step"]][name])
+        loader = DataLoader(val_dataset, DistributedSampler(val_dataset),
+                            batch_size=r["args"].global_batch_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_sum = acc_sum = 0.0
+        batches = iter(loader)
+        for _, batch in zip(range(FEED_EVAL_BATCHES), batches):
+            loss, acc = eval_step(pretrain.to_device(batch, "cuda"))
+            loss_sum += float(loss)
+            acc_sum += float(acc)
+        batches.close()
+        pass_s.append(time.perf_counter() - t0)
+        want = (loss_sum / FEED_EVAL_BATCHES, acc_sum / FEED_EVAL_BATCHES)
+        if (record["average_loss"], record["mlm_accuracy"]) != want:
+            raise AssertionError(f"15c val record {record}; make_eval_step "
+                                 f"on step {record['step']}'s params {want}")
+    check_launches = {name: k.launches for name, k in kernels.items()}
+    route = {name: n // (passes * FEED_EVAL_BATCHES)
+             for name, n in check_launches.items() if n}
+    if route != {"flash_attention_fwd": layers}:
+        raise AssertionError(f"15c eval launches {check_launches}")
+    del r, snapshots, eval_step
+    log(f"[feed] 15c {FEED_WORKERS} workers, losses 15a's bit for bit; val "
+        f"records {summary['val']} equal make_eval_step on each step's "
+        f"params; the eval forward runs {route} launches per batch (the "
+        f"training forward, #1; #4 none); a pass of {FEED_EVAL_BATCHES} "
+        f"batches {[round(s, 3) for s in pass_s]} s on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 15d
+    out = os.path.join(root, "feed_nonfinite")
+    try:
+        feed_main(kernels, out, [
+            "--fault_spec", f"nonfinite@{FEED_NONFINITE_AT}",
+            "--sentinel_policy", "abort", "--sentinel_patience", "1",
+            "--telemetry_sync_every", "1"])
+        raise AssertionError("nonfinite@3 under abort did not raise")
+    except NonFiniteError as exc:
+        aborted = str(exc)
+    finally:
+        faults.arm("")
+    records = feed_records(out)
+    injected = [r["step"] for r in records
+                if r.get("fault") == "injected_nonfinite"]
+    if injected != [FEED_NONFINITE_AT] or sorted(train_losses(records)) != \
+            list(range(1, FEED_NONFINITE_AT)):
+        raise AssertionError(f"15d nonfinite: injected at {injected}, "
+                             f"trained {sorted(train_losses(records))}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = shutil.disk_usage(root).free
+    if free < FEED_DISK_BYTES:
+        raise AssertionError(f"phase 15 needs {FEED_DISK_BYTES} bytes of "
+                             f"free disk, {free} are free")
+    cut = os.path.join(root, "feed_dropout0")
+    os.makedirs(cut)
+    config0 = cut_config(cut, hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    reference = feed_main(kernels, os.path.join(root, "feed_reference"),
+                          config=config0)
+    out = os.path.join(root, "feed_kill")
+    env = {k: v for k, v in os.environ.items() if k != faults.FAULTS_ENV}
+    t0 = time.perf_counter()
+    died = subprocess.run(
+        [sys.executable, "-c", FEED_CHILD, REPO, *feed_argv(out, [
+            "--fault_spec", f"die@{FEED_KILL_AT}",
+            "--num_steps_per_checkpoint", str(FEED_EVERY),
+            "--checkpoint_write", "sync"], config0)],
+        env=env, cwd=REPO, capture_output=True, text=True,
+        timeout=FEED_CHILD_TIMEOUT_S)
+    kill_s = time.perf_counter() - t0
+    ckpt_dir = os.path.join(out, "pretrain_ckpts")
+    if died.returncode != -signal.SIGKILL or ckpt._ckpt_steps(ckpt_dir) != [
+            FEED_EVERY, FEED_KILL_AT]:
+        raise AssertionError(f"15d kill child rc {died.returncode}, saves "
+                             f"{ckpt._ckpt_steps(ckpt_dir)}: "
+                             f"{died.stdout[-1500:]} {died.stderr[-1500:]}")
+    faults.corrupt_checkpoint(ckpt.checkpoint_path(ckpt_dir, FEED_KILL_AT),
+                              "truncate")
+    t0 = time.perf_counter()
+    resumed = subprocess.run(
+        [sys.executable, "-c", FEED_CHILD, REPO, *feed_argv(out, [
+            "--steps", str(FEED_STEPS - FEED_EVERY)], config0)],
+        env=env, cwd=REPO, capture_output=True, text=True,
+        timeout=FEED_CHILD_TIMEOUT_S)
+    resume_s = time.perf_counter() - t0
+    if resumed.returncode != 0:
+        raise AssertionError(f"15d resume child rc {resumed.returncode}: "
+                             f"{resumed.stderr[-2000:]}")
+    records = feed_records(out)
+    resume = [r for r in records if r.get("kind") == "resume"]
+    if len(resume) != 1 or resume[0]["step"] != FEED_EVERY or [
+            s["step"] for s in resume[0]["skipped"]] != [FEED_KILL_AT]:
+        raise AssertionError(f"15d resume records {resume}")
+    after = train_losses(records[records.index(resume[0]):])
+    want = {s: reference["losses"][s]
+            for s in range(FEED_EVERY + 1, FEED_STEPS + 1)}
+    exact = after == want
+    diff = max((abs(after.get(s, math.inf) - v) for s, v in want.items()),
+               default=math.inf)
+    determinism = None if exact else kernels_deterministic()
+    if not exact and (all(determinism.values())
+                      or diff > RESUME_STEP_ATOL):
+        raise AssertionError(f"15d resumed losses {after}, uninterrupted "
+                             f"{want} (kernels deterministic: "
+                             f"{determinism})")
+    shutil.rmtree(out)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[feed] 15d nonfinite@{FEED_NONFINITE_AT} under abort: "
+        f"{aborted!r}, injected record at step {FEED_NONFINITE_AT}; kill "
+        f"cycle (dropout 0): die@{FEED_KILL_AT} rc {died.returncode} after "
+        f"saves {FEED_EVERY}, {FEED_KILL_AT} in {kill_s:.1f} s; ckpt_"
+        f"{FEED_KILL_AT} truncated; the resume walked back to "
+        f"{resume[0]['step']} and ran to {FEED_STEPS} in {resume_s:.1f} s, "
+        f"losses {after} (uninterrupted {want}; bit-equal {exact}); phase "
+        f"15 {phase_s:.1f} s on {card}")
+    return {"launches": runs["2"]["launches"],
+            "eval_launches": eval_launches, "held_out_launches": held_out,
+            "eval_route": route, "eval_pass_s": pass_s,
+            "losses": runs["2"]["losses"], "windows": {
+                depth: window_p50s(run["windows"])
+                for depth, run in runs.items()},
+            "main_s": {depth: run["wall_s"] for depth, run in runs.items()},
+            "step_p50_s": {depth: step_p50_s(run)
+                           for depth, run in runs.items()},
+            "untraced": untraced,
+            "h2d_copies": copies,
+            "worker_first_batch_s": starts,
+            "loader_rows_per_s": {w: v[3] for w, v in loaders.items()},
+            "val": summary["val"], "nonfinite": aborted,
+            "kill_child_s": kill_s, "resume_child_s": resume_s,
+            "resumed_losses": after, "resumed_bit_equal": exact,
+            "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4135,6 +4652,8 @@ def main() -> int:
             f"{squad16['launches']['layer_norm_fwd']} over "
             f"{squad16['forwards']} forwards, peak "
             f"{squad16['peak_gib']:.1f} GiB on {card}")
+        torch.cuda.empty_cache()
+        feed = drive_feed(kernels, tmp, card)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -4159,12 +4678,18 @@ def main() -> int:
         worst, cases, trained) + [ln_entry] + training_entries(
         worst16, cases16, trained16, "float16", "_fp16") + [ln16]
     for entry in entries:
+        # Phase 15 runs bf16: an fp16 instance launches nothing there.
+        entry["launches_feed"] = (0 if entry["name"].endswith("_fp16")
+                                  else feed["launches"][entry["name"]])
+        if entry["name"] == "flash_attention_fwd":
+            entry["launches_feed_eval"] = feed["held_out_launches"][
+                "flash_attention_fwd"]
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

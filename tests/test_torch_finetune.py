@@ -519,8 +519,7 @@ def test_runner_writes_schema_clean_telemetry(files, runner, tmp_path):
 def test_runner_refuses_what_it_cannot_do(files, runner, tmp_path):
     module = MODULES[runner]
     base = _runner_argv(runner, files, tmp_path / "out")
-    for flags in (["--dtype", "float16"], ["--compile_cache_dir", "x"],
-                  ["--device_prefetch", "2"]):
+    for flags in (["--dtype", "float16"], ["--compile_cache_dir", "x"]):
         with pytest.raises(SystemExit):
             module.parse_arguments(base + flags)
     with pytest.raises(ValueError, match="WordPiece"):
@@ -573,3 +572,26 @@ def test_squad_runner_writes_checkpoints(tmp_path):
         np.asarray, jax_ckpt.load_params_only(path, target)),
         BertConfig(**wide), "squad")
     assert set(back) == set(ckpt.load_params_only(path, back))
+
+
+@pytest.mark.parametrize("runner", ["glue", "ner", "swag"])
+def test_device_prefetch_trains_the_same_steps(files, runner, tmp_path):
+    """--device_prefetch 2 (a staging thread) against 0 (inline): the same
+    steps, so the same final weights bit for bit, and the windows carry
+    the h2d_wait sub-phase under data_wait."""
+    module = MODULES[runner]
+    models = {}
+    for depth in ("0", "2"):
+        out = tmp_path / depth
+        _, model, _ = module.run(module.parse_arguments(_runner_argv(
+            runner, files, out, "--device_prefetch", depth,
+            "--telemetry_window", "2")))
+        models[depth] = model.state_dict()
+        windows = [json.loads(line) for line in open(
+            out / f"{runner}_telemetry.jsonl")
+            if '"step_window"' in line]
+        assert windows and all(
+            w["h2d_wait_max_s"] <= w["data_wait_max_s"] for w in windows)
+    assert models["0"].keys() == models["2"].keys()
+    for key, value in models["0"].items():
+        assert torch.equal(value, models["2"][key]), key

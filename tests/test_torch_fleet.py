@@ -366,6 +366,38 @@ def test_watchdog_waits_out_a_declared_hold(tmp_path):
     assert procs[0].rc == -9
 
 
+def test_minted_port_stays_held_while_its_replica_is_down(tmp_path):
+    """A port ReplicaTemplate mints stays bound (SO_REUSEADDR, not
+    listening) until its replica retires: a plain bind to it fails, so no
+    other socket takes it while the replica is down, yet the replica's
+    HTTP server binds and listens on it again and again; ``stop()``
+    releases it."""
+    import socket
+    from http.server import HTTPServer
+
+    m = _package("torch")
+    template = m.supervisor.ReplicaTemplate([], str(tmp_path))
+    spec = template.make_spec(0)
+    for _ in range(2):   # a replica's start, and its respawn
+        server = HTTPServer(("127.0.0.1", spec.port), None)
+        server.server_close()
+    other = socket.socket()
+    with pytest.raises(OSError):
+        other.bind(("127.0.0.1", spec.port))
+    other.close()
+
+    def spawn(spec):
+        return FakeProc(4000, 75)
+
+    sup = m.supervisor.Supervisor([spec], emit=lambda e: None, spawn=spawn,
+                                  clock=FakeClock(), sleep=lambda s: None)
+    sup.start(monitor=False)
+    sup.stop()
+    free = socket.socket()
+    free.bind(("127.0.0.1", spec.port))
+    free.close()
+
+
 def test_port_replicas_start_the_ports_server(tmp_path):
     cmd = _package("torch").supervisor.run_server_command(
         9001, str(tmp_path), ["--tasks", "classify"], python="py")

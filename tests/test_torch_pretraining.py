@@ -488,9 +488,10 @@ def test_runner_takes_the_recipe_config_files(shards, phase):
 
 
 def test_runner_refuses_what_it_cannot_do(shards):
-    with pytest.raises(SystemExit):
-        run_pretraining.parse_arguments(_run_args(shards, "--val_input_dir",
-                                                  "x"))
+    for flags in (("--rng_impl", "rbg"), ("--mesh_data", "2"),
+                  ("--compile_cache_dir", "x")):
+        with pytest.raises(SystemExit):
+            run_pretraining.parse_arguments(_run_args(shards, *flags))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_pretraining.setup_training(run_pretraining.parse_arguments(
             _run_args(shards, "--checkpoint_layout", "sharded")))

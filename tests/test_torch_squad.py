@@ -554,3 +554,15 @@ def test_runner_refuses_what_it_cannot_do(tiny_config, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             run_squad.main(run_squad.parse_args(base + ["--device", "cuda"]))
+
+
+def test_runner_device_prefetch_trains_the_same_steps(tiny_config, tmp_path):
+    """--device_prefetch 2 against 0: the same step losses bit for bit."""
+    losses = {}
+    for depth in ("0", "2"):
+        args = run_squad.parse_args(_run_args(
+            tmp_path / depth, tiny_config, "--train_file", tiny_config["v1"],
+            "--do_train", "--train_batch_size", "4", "--max_steps", "3",
+            "--skip_cache", "--device_prefetch", depth))
+        losses[depth] = run_squad.main(args)["step_losses"]
+    assert len(losses["0"]) == 3 and losses["0"] == losses["2"]
