@@ -1,24 +1,32 @@
-"""Pure-Python WordPiece tokenization (reference src/tokenization.py:60-229).
+"""Tokenization facade (reference src/tokenization.py:42-229).
 
-A copy of the JAX package's behavioral-spec tokenizers: ``load_vocab``,
-``BasicTokenizer``, ``WordpieceTokenizer`` and ``BertTokenizer``, and
-``get_wordpiece_tokenizer``, whose tokenizer answers the fast-tokenizer
-calls of the finetuning data modules. The fast backends themselves (the
-C++ core, HF ``tokenizers``) are not part of the port yet.
+:func:`get_wordpiece_tokenizer` and :func:`get_bpe_tokenizer` hand every
+runner and the server the port's C++ tokenizer core
+(``tools/tokenizer_cpp.py``, built from ``csrc/tokenizer/`` at first
+use), as the JAX package's constructors of the same names do. If the core
+cannot be built or loaded they raise: nothing falls back to another
+implementation. A byte-level BPE ``vocab_file`` is a ``vocab.json`` whose
+``merges.txt`` sits beside it (``vocab_file.replace("vocab.json",
+"merges.txt")``, the JAX rule).
 
-Thread-safety: every class holds only read-only state after construction
-(vocab dicts, flags), so one shared instance serves all HTTP worker threads.
+A copy of the JAX package's pure-Python behavioral-spec tokenizers stays
+beside them: ``load_vocab``, ``BasicTokenizer``, ``WordpieceTokenizer``
+and ``BertTokenizer`` (SQuAD's answer realignment assumes exactly their
+semantics), and :class:`WordpieceEncoder`, the same WordPiece with the
+fast-tokenizer surface (the tests' oracle for the C++ core).
+
+Thread-safety: the pure-Python classes hold only read-only state after
+construction (vocab dicts, flags); the C++ tokenizers serialize ``encode``
+behind a per-instance lock. One shared instance serves all HTTP worker
+threads either way.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import unicodedata
 from typing import Iterable, List, NamedTuple, Optional
-
-# What a runner or the server says when a model config names the BPE
-# tokenizer, which the port does not have yet.
-ROADMAP_BPE = "ROADMAP.md, \"The rest of finetuning\": the BPE tokenizer"
 
 
 def load_vocab(vocab_file: str) -> "collections.OrderedDict[str, int]":
@@ -247,8 +255,58 @@ class WordpieceEncoder(BertTokenizer):
         return self.vocab.get(token)
 
 
-def get_wordpiece_tokenizer(vocab_file: str,
-                            uppercase: bool = False) -> WordpieceEncoder:
-    """The JAX package's ``get_wordpiece_tokenizer``: lower-cased (and
-    accent-stripped) unless ``uppercase``."""
-    return WordpieceEncoder(vocab_file, do_lower_case=not uppercase)
+def get_wordpiece_tokenizer(vocab_file: str, uppercase: bool = False):
+    """BERT WordPiece tokenizer (reference tokenization.py:42-49): the C++
+    core's ``CppWordPieceTokenizer``, lower-cased and accent-stripped
+    unless ``uppercase``. Raises if the core cannot be built or loaded."""
+    from bert_pytorch_tpu_torch.tools.tokenizer_cpp import \
+        CppWordPieceTokenizer
+
+    return CppWordPieceTokenizer(vocab_file, lowercase=not uppercase)
+
+
+def bpe_merges_file(vocab_file: str) -> str:
+    """The ``merges.txt`` beside a byte-level BPE ``vocab.json``."""
+    return vocab_file.replace("vocab.json", "merges.txt")
+
+
+def get_bpe_tokenizer(vocab_file: str, uppercase: bool = False):
+    """Byte-level BPE tokenizer (reference tokenization.py:51-57) from a
+    ``vocab.json`` and the :func:`bpe_merges_file` beside it: the C++
+    core's ``CppByteLevelBPETokenizer``, lower-casing unless
+    ``uppercase``. Raises if the core cannot be built or loaded."""
+    from bert_pytorch_tpu_torch.tools.tokenizer_cpp import \
+        CppByteLevelBPETokenizer
+
+    return CppByteLevelBPETokenizer(vocab_file, bpe_merges_file(vocab_file),
+                                    lowercase=not uppercase)
+
+
+def check_tokenizer_files(kind: str, vocab_file: str) -> None:
+    """Refuse, by name, a ``kind`` (``"wordpiece"`` or ``"bpe"``)
+    tokenizer whose files are missing, before a caller loads any weights:
+    a BPE ``vocab_file`` must be a ``vocab.json`` with its ``merges.txt``
+    beside it."""
+    if kind == "wordpiece":
+        files = [vocab_file]
+    elif kind == "bpe":
+        if not str(vocab_file).endswith("vocab.json"):
+            raise ValueError(f"bpe vocab_file {vocab_file!r} is not a "
+                             "vocab.json (its merges.txt is found beside "
+                             "it)")
+        files = [vocab_file, bpe_merges_file(vocab_file)]
+    else:
+        raise ValueError(f"tokenizer {kind!r}; known: wordpiece, bpe")
+    for path in files:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{kind} tokenizer file {path} does not "
+                                    "exist")
+
+
+def get_tokenizer(kind: str, vocab_file: str, uppercase: bool = False):
+    """The ``kind`` tokenizer (``"wordpiece"`` or ``"bpe"``) of
+    ``vocab_file`` on the C++ core, its files checked first."""
+    check_tokenizer_files(kind, vocab_file)
+    if kind == "wordpiece":
+        return get_wordpiece_tokenizer(vocab_file, uppercase=uppercase)
+    return get_bpe_tokenizer(vocab_file, uppercase=uppercase)

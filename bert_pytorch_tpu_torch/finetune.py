@@ -19,9 +19,11 @@ import torch
 
 from bert_pytorch_tpu_torch import telemetry
 from bert_pytorch_tpu_torch.config import BertConfig
-from bert_pytorch_tpu_torch.data.tokenization import ROADMAP_BPE
+from bert_pytorch_tpu_torch.data.tokenization import (check_tokenizer_files,
+                                                      get_tokenizer)
 from bert_pytorch_tpu_torch.models.bert import draw_dropout_seeds, init_weights
-from bert_pytorch_tpu_torch.models.convert import (load_pretrained_encoder,
+from bert_pytorch_tpu_torch.models.convert import (check_pretrained_path,
+                                                   load_pretrained_encoder,
                                                    to_jax_params)
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, LearningRate,
                                                      global_norm,
@@ -33,10 +35,13 @@ from bert_pytorch_tpu_torch.utils import logging as logging_util
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def read_vocab_args(args) -> argparse.Namespace:
-    """``vocab_file`` and ``tokenizer`` from the model config when the
-    command line omits them (the JAX runners' rule); only WordPiece is
-    ported."""
+def read_vocab_args(args, checkpoint_flag: str = "init_checkpoint"
+                    ) -> argparse.Namespace:
+    """``vocab_file`` and ``tokenizer`` (``wordpiece`` or ``bpe``) from
+    the model config when the command line omits them (the JAX runners'
+    rule). Missing tokenizer files and an unreadable ``--<checkpoint_flag>``
+    (a missing file, a TF ``.index`` that is not one) are refused here,
+    by name, before any weights load."""
     with open(args.model_config_file, encoding="utf-8") as f:
         configs = json.load(f)
     if args.vocab_file is None:
@@ -45,10 +50,18 @@ def read_vocab_args(args) -> argparse.Namespace:
             raise ValueError("vocab_file must be in model config or CLI")
     if args.tokenizer is None:
         args.tokenizer = configs.get("tokenizer", "wordpiece")
-    if args.tokenizer != "wordpiece":
-        raise ValueError(f"tokenizer {args.tokenizer!r}: the port has the "
-                         f"WordPiece tokenizer only ({ROADMAP_BPE})")
+    check_tokenizer_files(args.tokenizer, args.vocab_file)
+    if getattr(args, checkpoint_flag, None):
+        check_pretrained_path(getattr(args, checkpoint_flag))
     return args
+
+
+def make_tokenizer(args):
+    """The ``--tokenizer`` of ``args`` on the C++ core (data/
+    tokenization.py ``get_tokenizer``), lower-casing unless
+    ``--uppercase``."""
+    return get_tokenizer(args.tokenizer, args.vocab_file,
+                         uppercase=args.uppercase)
 
 
 def setup_device(name: str) -> torch.device:
@@ -75,7 +88,8 @@ def load_config(path: str) -> BertConfig:
 def init_model(model: torch.nn.Module, config: BertConfig, seed: int,
                init_checkpoint: Optional[str]) -> torch.nn.Module:
     """Seeded random weights, then the encoder of ``init_checkpoint`` (a
-    JAX-layout msgpack checkpoint or a torch archive) when one is named;
+    JAX-layout msgpack checkpoint, a torch archive or a TF checkpoint)
+    when one is named;
     a checkpoint that cannot be read fails here."""
     device = next(model.parameters()).device
     init_weights(model, config.initializer_range,

@@ -510,21 +510,28 @@ class BertPooler(nn.Module):
 
 
 class BertModel(nn.Module):
-    """embeddings → encoder → (pooler iff next_sentence); parity with
-    modeling.py:802-883. Returns ``(sequence_output, pooled)``."""
+    """embeddings → encoder → (pooler iff next_sentence, or ``pooler``);
+    parity with modeling.py:802-883. Returns ``(sequence_output,
+    pooled)``, ``pooled`` None without a pooler. A classification head on
+    a config without NSP (RoBERTa) asks for the pooler with
+    ``pooler=True``: its dense + tanh over the first token is then the
+    head's own fresh layer (RoBERTa's classification head), which a
+    pretraining checkpoint does not hold."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype,
                  attention_backend: str = "dense", device=None,
                  remat: str = "none", quant: Optional[str] = None,
-                 layer_norm_backend: str = "plain"):
+                 layer_norm_backend: str = "plain",
+                 pooler: bool = False):
         super().__init__()
         self.config = config
+        self.has_pooler = config.next_sentence or pooler
         self.attention_backend = attention_backend
         self.embeddings = BertEmbeddings(config, dtype, device,
                                          layer_norm_backend)
         self.encoder = BertEncoder(config, dtype, attention_backend, device,
                                    remat, quant, layer_norm_backend)
-        if config.next_sentence:
+        if self.has_pooler:
             self.pooler = BertPooler(config, dtype, device, quant)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -558,7 +565,7 @@ class BertModel(nn.Module):
             hidden, bias, sequence_ids,
             None if dropout_seeds is None else seeds[1:])
         pooled = (self.pooler(sequence_output, cls_positions)
-                  if self.config.next_sentence else None)
+                  if self.has_pooler else None)
         return sequence_output, pooled
 
 
@@ -715,7 +722,8 @@ class BertForSequenceClassification(nn.Module):
     regression when ``num_labels == 1``, STS-B: the same model, the runner
     takes the squared error). ``sequence_ids`` + ``cls_positions`` select
     the packed-row path and return [B, K, num_labels], one row per packed
-    request."""
+    request. A config without NSP (RoBERTa) gets the pooler all the same,
+    as the head's fresh dense + tanh (:class:`BertModel` ``pooler``)."""
 
     def __init__(self, config: BertConfig, num_labels: int,
                  dtype: torch.dtype = torch.float32,
@@ -723,12 +731,10 @@ class BertForSequenceClassification(nn.Module):
                  quant: Optional[str] = None,
                  layer_norm_backend: str = "plain"):
         super().__init__()
-        if not config.next_sentence:
-            raise ValueError("BertForSequenceClassification needs the "
-                             "pooler (config.next_sentence)")
         self.bert = BertModel(config, dtype, attention_backend, device,
                               quant=quant,
-                              layer_norm_backend=layer_norm_backend)
+                              layer_norm_backend=layer_norm_backend,
+                              pooler=True)
         self.head = _ClassifierHead(config.hidden_size, num_labels, dtype,
                                     device, quant,
                                     config.hidden_dropout_prob)
@@ -743,19 +749,18 @@ class BertForSequenceClassification(nn.Module):
 class BertForMultipleChoice(nn.Module):
     """[B, C, S] choices flattened to [B*C, S] rows, one pooled score each,
     returned as [B, C]; parity with modeling.py:1131-1197 and the JAX
-    package's ``BertForMultipleChoice``."""
+    package's ``BertForMultipleChoice`` (the pooler built on a config
+    without NSP, as in :class:`BertForSequenceClassification`)."""
 
     def __init__(self, config: BertConfig, num_choices: int,
                  dtype: torch.dtype = torch.float32,
                  attention_backend: str = "dense", device=None,
                  layer_norm_backend: str = "plain"):
         super().__init__()
-        if not config.next_sentence:
-            raise ValueError("BertForMultipleChoice needs the pooler "
-                             "(config.next_sentence)")
         self.num_choices = num_choices
         self.bert = BertModel(config, dtype, attention_backend, device,
-                              layer_norm_backend=layer_norm_backend)
+                              layer_norm_backend=layer_norm_backend,
+                              pooler=True)
         self.head = _ClassifierHead(config.hidden_size, 1, dtype, device,
                                     dropout_rate=config.hidden_dropout_prob)
 

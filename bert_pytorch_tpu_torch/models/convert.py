@@ -29,9 +29,11 @@ port writes into a checkpoint the JAX package reads.
 The JAX package's ``models/convert.py`` ``export_torch_state_dict`` shows
 the same layout under HF naming. :func:`from_torch_state_dict` reads that
 naming (and the reference's) into the port's names, the counterpart of
-the JAX ``convert_torch_state_dict``, and :func:`load_pretrained_encoder`
-puts the encoder of a torch archive or of a JAX msgpack checkpoint under
-a finetuning model, as the JAX ``load_pretrained_encoder`` does.
+the JAX ``convert_torch_state_dict``; :func:`load_tf_checkpoint` reads a
+Google TF checkpoint into that naming (``models/tf_bundle.py``, without
+TensorFlow); and :func:`load_pretrained_encoder` puts the encoder of a
+torch archive, a TF checkpoint or a JAX msgpack checkpoint under a
+finetuning model, as the JAX ``load_pretrained_encoder`` does.
 """
 
 from __future__ import annotations
@@ -56,8 +58,10 @@ HEAD_SUBTREES = {
     "multiple_choice": ("bert", "head"),
     "pretraining": ("bert", "predictions"),
 }
-ROADMAP_TF = ("ROADMAP.md, \"The rest of finetuning\": --init_checkpoint "
-              "from TF checkpoints")
+# TF checkpoint variables that are optimizer or loss-scale state, not
+# weights (JAX convert.py load_tf_checkpoint).
+TF_SKIP = ("adam_v", "adam_m", "global_step", "lamb", "bad_steps",
+           "loss_scale", "good_steps")
 _STACKED = "bert/encoder/layers/"
 # The optimizer subtrees of a training checkpoint: the JAX ``OptState``,
 # and the fp16 ``LossScaleState`` that wraps one under ``inner``.
@@ -466,47 +470,110 @@ def from_torch_state_dict(state_dict: Dict, config: BertConfig,
     return state
 
 
+def load_tf_checkpoint(prefix: str) -> Dict[str, np.ndarray]:
+    """A Google BERT TF checkpoint (``prefix.index`` +
+    ``prefix.data-*``) as a torch-style state dict of numpy arrays, for
+    :func:`from_torch_state_dict`: the name map of the JAX
+    ``load_tf_checkpoint`` (reference load_tf_weights_in_bert,
+    modeling.py:58-116): ``layer_N`` -> ``layer.N``, ``kernel`` ->
+    ``weight`` transposed to the torch layout, ``gamma``/``beta`` ->
+    ``weight``/``bias``, ``output_bias``/``output_weights`` ->
+    ``bias``/``weight``, ``squad`` -> ``classifier``; optimizer slots and
+    counters skipped. The bundle is read by ``models/tf_bundle.py`` with
+    numpy alone."""
+    from bert_pytorch_tpu_torch.models.tf_bundle import TFCheckpointReader
+
+    reader = TFCheckpointReader(prefix)
+    sd: Dict[str, np.ndarray] = {}
+    renames = {"gamma": "weight", "beta": "bias", "output_bias": "bias",
+               "output_weights": "weight", "squad": "classifier"}
+    for tf_name in reader.shapes():
+        if any(s in tf_name.lower() for s in TF_SKIP):
+            continue
+        arr = reader.get_tensor(tf_name)
+        parts = []
+        for piece in tf_name.split("/"):
+            if piece.startswith("layer_"):
+                parts.append("layer." + piece[len("layer_"):])
+            elif piece == "kernel":
+                arr = np.asarray(arr).T
+                parts.append("weight")
+            else:
+                parts.append(renames.get(piece, piece))
+        sd[".".join(parts)] = np.asarray(arr)
+    return sd
+
+
+def tf_checkpoint_prefix(path: str) -> Optional[str]:
+    """The TF checkpoint prefix ``path`` names: a directory holding
+    ``bert_model.ckpt.index``, or a prefix with its ``.index``; None for
+    anything else."""
+    if os.path.isdir(path):
+        prefix = os.path.join(path, "bert_model.ckpt")
+        return prefix if os.path.exists(prefix + ".index") else None
+    return path if os.path.exists(path + ".index") else None
+
+
+def check_pretrained_path(path: str) -> None:
+    """Refuse, by name, a pretrained checkpoint :func:`load_pretrained_encoder`
+    cannot read, before any weights load: a path that does not exist
+    (nor its ``.index``), a directory without ``pytorch_model.bin`` or
+    ``bert_model.ckpt.index``, a TF ``.index`` that is not a checkpoint
+    index (its table is parsed)."""
+    from bert_pytorch_tpu_torch.models.tf_bundle import TFCheckpointReader
+
+    tf_prefix = tf_checkpoint_prefix(path)
+    if tf_prefix is not None:
+        TFCheckpointReader(tf_prefix)
+    elif os.path.isdir(path):
+        if not os.path.exists(os.path.join(path, "pytorch_model.bin")):
+            raise FileNotFoundError(
+                f"{path} holds no pytorch_model.bin and no "
+                "bert_model.ckpt.index")
+    elif not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint {path} does not exist (nor "
+                                f"{path}.index)")
+
+
 def load_pretrained_encoder(path: str, config: BertConfig,
                             model: torch.nn.Module) -> torch.nn.Module:
     """Put the ``bert`` encoder of a checkpoint under ``model`` (its head
     keeps its fresh init: the strict=False load of reference
     run_squad.py:957-961). ``path`` is a directory holding
-    ``pytorch_model.bin`` (its ``config.json`` is not read: ``config``
-    is), a ``.bin``/``.pt``/``.pth`` torch file, whose state dict may sit
-    under a ``"model"`` key, or one of the JAX package's msgpack
-    checkpoints, whose ``model/bert`` subtree is read params-only
-    (``utils/checkpoint.py`` ``load_params_only``; the msgpack branch of
-    the JAX ``load_pretrained_encoder``). TF checkpoints raise. Every
-    encoder tensor of ``model`` must be in the checkpoint."""
+    ``pytorch_model.bin`` or ``bert_model.ckpt.*`` (its ``config.json``
+    is not read: ``config`` is), a ``.bin``/``.pt``/``.pth`` torch file,
+    whose state dict may sit under a ``"model"`` key, a TF checkpoint
+    prefix (``<prefix>.index`` beside it; :func:`load_tf_checkpoint`),
+    or one of the JAX package's msgpack checkpoints, whose ``model/bert``
+    subtree is read params-only (``utils/checkpoint.py``
+    ``load_params_only``; the msgpack branch of the JAX
+    ``load_pretrained_encoder``). Every encoder tensor of ``model`` must
+    be in the checkpoint, but for a pooler built on a config without NSP
+    (a classification head's own fresh layer there)."""
+    check_pretrained_path(path)
     state = model.state_dict()
-    if os.path.isdir(path):
-        weights = os.path.join(path, "pytorch_model.bin")
-        if not os.path.exists(weights):
-            raise NotImplementedError(
-                f"{path} holds no pytorch_model.bin; TF checkpoints "
-                f"(bert_model.ckpt*) are not read by the port yet "
-                f"({ROADMAP_TF})")
-    elif path.endswith((".bin", ".pt", ".pth")):
-        weights = path
-    elif os.path.exists(path + ".index"):
-        raise NotImplementedError(
-            f"{path} is a TF checkpoint, not read by the port yet "
-            f"({ROADMAP_TF})")
-    else:
-        weights = None
-    if weights is None:
-        from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
-
-        loaded = ckpt_util.load_params_only(
-            path, {k: v for k, v in state.items() if k.startswith("bert.")})
-    else:
+    wanted = [k for k in state if k.startswith("bert.") and (
+        config.next_sentence or not k.startswith("bert.pooler."))]
+    tf_prefix = tf_checkpoint_prefix(path)
+    if tf_prefix is not None:
+        sd = load_tf_checkpoint(tf_prefix)
+    elif os.path.isdir(path) or path.endswith((".bin", ".pt", ".pth")):
+        weights = (os.path.join(path, "pytorch_model.bin")
+                   if os.path.isdir(path) else path)
         sd = torch.load(weights, map_location="cpu", weights_only=True)
         if isinstance(sd.get("model"), dict):
             sd = sd["model"]  # the reference's checkpoint dict (run_squad.py:958)
+    else:
+        sd = None
+    if sd is None:
+        from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
+
+        loaded = ckpt_util.load_params_only(
+            path, {k: state[k] for k in wanted})
+    else:
         loaded = {k: v for k, v in from_torch_state_dict(
-            sd, config, "pretraining").items() if k.startswith("bert.")}
-    missing = sorted(k for k in state if k.startswith("bert.")
-                     and k not in loaded)
+            sd, config, "pretraining").items() if k in wanted}
+    missing = sorted(k for k in wanted if k not in loaded)
     if missing:
         raise KeyError(f"{path} lacks encoder tensors {missing[:4]} "
                        f"({len(missing)} in all)")

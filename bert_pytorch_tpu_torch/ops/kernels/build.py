@@ -11,6 +11,10 @@ headers (``csrc/*.cuh``) and the flags, so an edited source or header is
 rebuilt and never served stale. A missing compiler or a failed build
 raises: there is no fallback to another implementation.
 
+The tokenizer core (``csrc/tokenizer/tokenizer.cpp``, C++ for the host,
+also with a plain C interface) is built the same way by the host C++
+compiler (:func:`find_cxx`): :func:`load_host`.
+
 Processes that share a build directory (a fleet of replicas started
 together) build each library once: an advisory ``fcntl.flock`` on
 ``<library>.lock`` is held around "built? else compile", so one process
@@ -43,6 +47,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Host libraries: name -> (source, the files it includes), under csrc/.
+HOST_SOURCES = {"tokenizer": ("tokenizer/tokenizer.cpp",
+                              ("tokenizer/unicode_tables.inc",))}
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -202,6 +211,77 @@ def ensure(names: Iterable[str]) -> None:
             report_build(name, library_digest(name), 0.0, False)
         else:
             load(name)
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: ``g++`` on ``PATH`` (the host compiler
+    ``nvcc`` takes), else ``$CXX``. ``$CXX`` comes second: a compiler
+    wrapper that links its own ``libstdc++`` into the library makes the
+    BPE trainer crash once ``torch`` (with its ``libstdc++``) is loaded."""
+    for name in ("g++", os.environ.get("CXX")):
+        path = shutil.which(name) if name else None
+        if path:
+            return path
+    raise RuntimeError(
+        "no host C++ compiler (g++ on PATH, or CXX): the tokenizer core is "
+        "compiled from bert_pytorch_tpu_torch/csrc/tokenizer at first use")
+
+
+def host_digest(name: str) -> str:
+    """The hash that names a host library: its source, what it includes
+    and the flags."""
+    source, includes = HOST_SOURCES[name]
+    text = b"".join((CSRC_DIR / f).read_bytes() for f in (source, *includes))
+    return hashlib.sha256(
+        text + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+
+
+def host_library_path(name: str) -> Path:
+    return build_dir() / f"lib{name}-{host_digest(name)}.so"
+
+
+def build_host(name: str) -> float:
+    """Compile the host library ``name`` unless it is built, under the
+    same per-library lock as :func:`build`; returns the compiler's seconds
+    (0.0 when it was built) and reports the outcome to the installed
+    compile monitors. A failed build raises with the compiler's output."""
+    from bert_pytorch_tpu_torch.telemetry.compile_events import report_build
+
+    out = host_library_path(name)
+    seconds, built = 0.0, False
+    if not out.exists():
+        build_dir().mkdir(parents=True, exist_ok=True)
+        with _lock_library(out):
+            if not out.exists():
+                tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+                cmd = [find_cxx(), *HOST_FLAGS, "-o", str(tmp),
+                       str(CSRC_DIR / HOST_SOURCES[name][0])]
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"host library build failed: {name} (rc "
+                        f"{proc.returncode}):\n{proc.stdout}")
+                os.replace(tmp, out)
+                built = True
+    report_build(name, host_digest(name), seconds, built)
+    return seconds
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name``, built first if needed; once
+    loaded it stays loaded for the process, whatever directory
+    :func:`set_build_dir` names later."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            build_host(name)
+            lib = ctypes.CDLL(str(host_library_path(name)))
+            _libraries[name] = lib
+        return lib
 
 
 def load_bound(name: str, entry_points: Dict[str, List]) -> ctypes.CDLL:

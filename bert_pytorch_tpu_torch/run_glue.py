@@ -27,12 +27,15 @@ traces go to ``<output_dir>/glue_telemetry.jsonl`` (or
 ``<output_dir>/profile``. No TensorBoard files are written.
 
 ``--init_checkpoint`` reads the JAX package's msgpack checkpoints (a
-pretraining run's ``ckpt_N.msgpack``) and torch archives; TF checkpoints
-are refused (models/convert.py ``ROADMAP_TF``). ``--device_prefetch``
+pretraining run's ``ckpt_N.msgpack``), torch archives and TF checkpoints
+(a ``bert_model.ckpt`` prefix or its directory; models/convert.py
+``load_pretrained_encoder``). The
+``--tokenizer`` (or the model config's ``tokenizer``) is ``wordpiece`` or
+``bpe``, both on the C++ core. ``--device_prefetch``
 (default 2) stages the training batches on the card ahead of the step
 (data/device_prefetch.py). Not ported, so argparse refuses their flags:
 ``--compile_cache_dir`` and
-``--telemetry_cost_analysis``; the BPE tokenizer is refused. The
+``--telemetry_cost_analysis``. The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's. Attention is dense
 (the JAX runner's ``xla``), LayerNorm plain.
@@ -55,7 +58,6 @@ import torch
 from bert_pytorch_tpu_torch import finetune, telemetry
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data import glue
-from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForSequenceClassification
 from bert_pytorch_tpu_torch.models.losses import _xent_ignore
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
@@ -126,8 +128,7 @@ def run(args):
     processor = glue.PROCESSORS[args.task]()
     regression = processor.regression
     num_labels = 1 if regression else len(processor.labels)
-    tokenizer = get_wordpiece_tokenizer(args.vocab_file,
-                                        uppercase=args.uppercase)
+    tokenizer = finetune.make_tokenizer(args)
     splits = {"train": processor.get_train_examples(args.data_dir)}
     if not args.skip_eval:
         splits["dev"] = processor.get_dev_examples(args.data_dir)

@@ -26,12 +26,14 @@ when there is an output dir, else nowhere; the heartbeat to
 ``<output_dir>/heartbeat.json`` (or ``--heartbeat_file``). No TensorBoard
 files are written.
 
-``--model_checkpoint`` reads the JAX package's msgpack checkpoints and
-torch archives; TF checkpoints are refused (models/convert.py
-``ROADMAP_TF``). ``--device_prefetch`` (default 2) stages the
+``--model_checkpoint`` reads the JAX package's msgpack checkpoints,
+torch archives and TF checkpoints (a ``bert_model.ckpt`` prefix or its
+directory; models/convert.py ``load_pretrained_encoder``). The
+``--tokenizer`` (or the model config's ``tokenizer``) is ``wordpiece`` or
+``bpe``, both on the C++ core. ``--device_prefetch`` (default 2) stages the
 training batches on the card ahead of the step (data/device_prefetch.py).
 Not ported, so argparse refuses their flags: ``--compile_cache_dir`` and
-``--telemetry_cost_analysis``; the BPE tokenizer is refused. The
+``--telemetry_cost_analysis``. The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's.
 
@@ -52,7 +54,6 @@ import torch
 from bert_pytorch_tpu_torch import finetune, telemetry
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data.ner_dataset import NERDataset
-from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
 from bert_pytorch_tpu_torch.models.losses import token_classification_loss
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
@@ -91,7 +92,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="cuda (default; raises without a card) or cpu")
     dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
-    return finetune.read_vocab_args(parser.parse_args(argv))
+    return finetune.read_vocab_args(parser.parse_args(argv),
+                                    "model_checkpoint")
 
 
 def macro_f1(predictions: np.ndarray, labels: np.ndarray) -> float:
@@ -139,8 +141,7 @@ def run(args):
     device = finetune.setup_device(args.device)
     torch.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
-    tokenizer = get_wordpiece_tokenizer(args.vocab_file,
-                                        uppercase=args.uppercase)
+    tokenizer = finetune.make_tokenizer(args)
     datasets = {"train": NERDataset(args.train_file, tokenizer, args.labels,
                                     args.max_seq_len)}
     for split, path in (("val", args.val_file), ("test", args.test_file)):

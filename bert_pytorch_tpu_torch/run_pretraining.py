@@ -143,7 +143,7 @@ from bert_pytorch_tpu_torch.data.dataset import (ShardedPretrainingDataset,
                                                  input_files)
 from bert_pytorch_tpu_torch.data.loader import DataLoader
 from bert_pytorch_tpu_torch.data.sampler import DistributedSampler
-from bert_pytorch_tpu_torch.data.tokenization import load_vocab
+from bert_pytorch_tpu_torch.data.tokenization import get_tokenizer
 from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
                                                 draw_dropout_seeds,
                                                 init_weights)
@@ -439,13 +439,22 @@ def prepare_optimizer(args, model):
 
 
 def mask_token_id(config) -> int:
-    """``mask_token_id`` of the model config, else ``[MASK]``/``<mask>`` of
-    its ``vocab_file``, else 4 (the synthetic-data default)."""
+    """``mask_token_id`` of the model config, else the id its tokenizer
+    gives ``[MASK]``, else ``<mask>`` (the RoBERTa convention), else 4
+    (the synthetic-data default) when the config names no ``vocab_file``
+    or the file does not exist (JAX run_pretraining.py:582-599). The
+    tokenizer is the one the config's ``tokenizer`` key names
+    (``"wordpiece"`` or ``"bpe"``), lower-casing unless ``lowercase`` is
+    false, on the C++ core."""
     found = getattr(config, "mask_token_id", None)
     vocab_file = getattr(config, "vocab_file", None)
     if found is None and vocab_file and os.path.exists(vocab_file):
-        vocab = load_vocab(vocab_file)
-        found = vocab.get("[MASK]", vocab.get("<mask>"))
+        tok = get_tokenizer(getattr(config, "tokenizer", "wordpiece"),
+                            vocab_file,
+                            uppercase=not getattr(config, "lowercase", True))
+        found = tok.token_to_id("[MASK]")
+        if found is None:
+            found = tok.token_to_id("<mask>")
     return 4 if found is None else int(found)
 
 
@@ -793,6 +802,9 @@ def train(args, model, optimizer, config, step, loader, sampler,
         if isinstance(ds, ShardedPretrainingDataset)]
     for ds, _ in fault_sinks:
         ds.on_fault = tele.emit
+    # The config's mask id (the one the shards are masked with), logged
+    # and returned with the run.
+    mask_id = mask_token_id(config)
     validate = (make_validation(args, model, config, val_loader, logger)
                 if val_loader is not None else None)
     log({"event": "start", "device": str(args.device),
@@ -800,7 +812,8 @@ def train(args, model, optimizer, config, step, loader, sampler,
          "remat": args.remat, "layer_norm_backend": args.layer_norm_backend,
          "accumulation_steps": args.accumulation_steps,
          "samples": len(loader.dataset), "packed": int(args.packed),
-         "global_step": global_step, "steps": steps_this_run}, logger)
+         "global_step": global_step, "steps": steps_this_run,
+         "mask_token_id": mask_id}, logger)
     # The position of the last TRAINED sample of the epoch: the loader's
     # read-ahead moves the sampler's live index past it, so checkpoints
     # save this (JAX run_pretraining.py:926-938).
@@ -967,7 +980,8 @@ def train(args, model, optimizer, config, step, loader, sampler,
         logger.close()
     return dict(last, global_step=global_step, terminated_by_signal=terminated,
                 training_seq_per_sec=seq_per_sec, training_mfu=train_mfu,
-                step_times=step_times, saves=saves, val=val_records)
+                step_times=step_times, saves=saves, val=val_records,
+                mask_token_id=mask_id)
 
 
 def main(args, dataset=None, val_dataset=None) -> dict:

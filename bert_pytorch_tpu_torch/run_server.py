@@ -46,11 +46,12 @@ without an output dir a capture is sampler-only). A SIGTERM drains the
 replica, emits the preemption ``fault`` record and exits 75.
 
 The tokenizer is the JAX server's rule: ``--tokenizer`` (default: the
-model config's ``"tokenizer"``, else ``wordpiece``), lower-cased unless
+model config's ``"tokenizer"``, else ``wordpiece``; ``bpe`` for a
+byte-level BPE ``vocab.json`` with its ``merges.txt`` beside it, as the
+RoBERTa config names), on the C++ core, lower-cased unless
 ``--uppercase`` (the config's ``"lowercase"`` is not read, as the JAX
-server does not read it). A BPE config is refused by name before anything
-loads: the port has the WordPiece tokenizer only (ROADMAP.md, "The rest
-of finetuning").
+server does not read it). Missing tokenizer files are refused by name at
+argument parsing, before anything loads.
 """
 
 from __future__ import annotations
@@ -168,7 +169,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "per-library lock); default "
                              "bert_pytorch_tpu_torch/build/")
     args = parser.parse_args(argv)
-    from bert_pytorch_tpu_torch.data.tokenization import ROADMAP_BPE
+    from bert_pytorch_tpu_torch.data.tokenization import \
+        check_tokenizer_files
 
     with open(args.model_config_file) as f:
         configs = json.load(f)
@@ -178,9 +180,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
             raise ValueError("vocab_file must be in model config or CLI")
     if args.tokenizer is None:
         args.tokenizer = configs.get("tokenizer", "wordpiece")
-    if args.tokenizer != "wordpiece":
-        raise ValueError(f"tokenizer {args.tokenizer!r}: the port serves "
-                         f"with the WordPiece tokenizer only ({ROADMAP_BPE})")
+    check_tokenizer_files(args.tokenizer, args.vocab_file)
     return args
 
 
@@ -215,7 +215,7 @@ def build_service(args: argparse.Namespace,
     handler or None), ``flight_recorder`` (or None) and
     ``compile_monitor``; :func:`close_planes` closes the first two."""
     from bert_pytorch_tpu_torch.config import BertConfig
-    from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
+    from bert_pytorch_tpu_torch.data.tokenization import get_tokenizer
     from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.serve import (Batcher, InferenceEngine,
                                               ServeTelemetry, ServingService)
@@ -235,7 +235,8 @@ def build_service(args: argparse.Namespace,
     config = BertConfig.from_json_file(args.model_config_file)
     config.vocab_size = config.padded_vocab_size(8)
     lowercase = not args.uppercase
-    tokenizer = BertTokenizer(args.vocab_file, do_lower_case=lowercase)
+    tokenizer = get_tokenizer(args.tokenizer, args.vocab_file,
+                              uppercase=not lowercase)
     weights = weights or {}
     tasks = {}
     for task in (t.strip() for t in args.tasks.split(",")):

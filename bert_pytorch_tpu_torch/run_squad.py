@@ -54,12 +54,15 @@ overflowing step and backs off the scale, as the JAX runner's.
 
 ``--device_prefetch`` (default 2) stages the training batches on the card
 ahead of the step (data/device_prefetch.py). Not ported yet, so rejected
-rather than ignored (argparse refuses their flags): the BPE tokenizer,
+rather than ignored (argparse refuses their flags):
 ``--telemetry_cost_analysis``, ``--mesh_data`` and
 ``--compile_cache_dir``. The telemetry debug
-planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's. ``--init_checkpoint`` reads torch archives and
-the JAX package's msgpack checkpoints, not TF checkpoints
-(models/convert.py ``load_pretrained_encoder``).
+planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's.
+The tokenizer (``--tokenizer``, else the model config's) is WordPiece or
+byte-level BPE on the C++ core (``build_tokenizer``, JAX run_squad.py:138-142);
+``--init_checkpoint`` reads torch archives, TF checkpoints and the JAX
+package's msgpack checkpoints (models/convert.py
+``load_pretrained_encoder``).
 ``--layer_norm_backend kernel`` (or its JAX name ``pallas``) runs every
 LayerNorm through the hand-written forward kernel.
 
@@ -83,12 +86,13 @@ import torch
 from bert_pytorch_tpu_torch import finetune, squad, telemetry
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.config import BertConfig
-from bert_pytorch_tpu_torch.data.tokenization import (ROADMAP_BPE,
-                                                      BertTokenizer)
+from bert_pytorch_tpu_torch.data.tokenization import (check_tokenizer_files,
+                                                      get_tokenizer)
 from bert_pytorch_tpu_torch.models.bert import (BertForQuestionAnswering,
                                                 draw_dropout_seeds,
                                                 init_weights)
-from bert_pytorch_tpu_torch.models.convert import (load_pretrained_encoder,
+from bert_pytorch_tpu_torch.models.convert import (check_pretrained_path,
+                                                   load_pretrained_encoder,
                                                    to_jax_params)
 from bert_pytorch_tpu_torch.models.losses import span_loss
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
@@ -140,7 +144,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         default=0.0)
     parser.add_argument("--vocab_file", type=str, default=None)
     parser.add_argument("--tokenizer", type=str, default=None,
-                        choices=["wordpiece"])
+                        choices=["wordpiece", "bpe"])
     parser.add_argument("--optimizer", type=str, default="adamw",
                         choices=["adamw", "bert_adam"],
                         help="adamw+linear-warmup = the reference fp16 path; "
@@ -180,10 +184,11 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise ValueError("vocab_file must be in the model config or CLI")
     if args.tokenizer is None:
         args.tokenizer = configs.get("tokenizer")
-        if args.tokenizer != "wordpiece":
-            raise ValueError(
-                f"tokenizer {args.tokenizer!r} from the model config: the "
-                f"port has the WordPiece tokenizer only ({ROADMAP_BPE})")
+        if args.tokenizer is None:
+            raise ValueError("tokenizer must be in the model config or CLI")
+    check_tokenizer_files(args.tokenizer, args.vocab_file)
+    if args.init_checkpoint:
+        check_pretrained_path(args.init_checkpoint)
     if not args.do_train and not args.do_predict:
         raise ValueError("At least one of do_train or do_predict required")
     if args.do_train and not args.train_file:
@@ -210,6 +215,14 @@ def setup_device(args) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def build_tokenizer(args):
+    """The run's tokenizer on the C++ core: ``--tokenizer`` of
+    ``--vocab_file``, lower-casing with ``--do_lower_case`` (JAX
+    run_squad.py:138-142)."""
+    return get_tokenizer(args.tokenizer, args.vocab_file,
+                         uppercase=not args.do_lower_case)
 
 
 def build_model(args, device):
@@ -531,8 +544,7 @@ def run(args):
     torch.manual_seed(args.seed)
     os.makedirs(args.output_dir, exist_ok=True)
     model, config = build_model(args, device)
-    tokenizer = BertTokenizer(args.vocab_file,
-                              do_lower_case=args.do_lower_case)
+    tokenizer = build_tokenizer(args)
     log({"event": "start", "device": str(device), "dtype": args.dtype,
          "layer_norm_backend": args.layer_norm_backend,
          "optimizer": args.optimizer, "layers": config.num_hidden_layers})

@@ -26,12 +26,14 @@ go to ``<output_dir>/swag_telemetry.jsonl`` (or ``--telemetry_jsonl``),
 ``<output_dir>/heartbeat.json`` and ``<output_dir>/profile``. No
 TensorBoard files are written.
 
-``--init_checkpoint`` reads the JAX package's msgpack checkpoints and
-torch archives; TF checkpoints are refused (models/convert.py
-``ROADMAP_TF``). ``--device_prefetch`` (default 2) stages the
+``--init_checkpoint`` reads the JAX package's msgpack checkpoints,
+torch archives and TF checkpoints (a ``bert_model.ckpt`` prefix or its
+directory; models/convert.py ``load_pretrained_encoder``). The
+``--tokenizer`` (or the model config's ``tokenizer``) is ``wordpiece`` or
+``bpe``, both on the C++ core. ``--device_prefetch`` (default 2) stages the
 training batches on the card ahead of the step (data/device_prefetch.py).
 Not ported, so argparse refuses their flags: ``--compile_cache_dir`` and
-``--telemetry_cost_analysis``; the BPE tokenizer is refused. The
+``--telemetry_cost_analysis``. The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's.
 
@@ -53,7 +55,6 @@ import torch
 from bert_pytorch_tpu_torch import finetune, telemetry
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data import swag
-from bert_pytorch_tpu_torch.data.tokenization import get_wordpiece_tokenizer
 from bert_pytorch_tpu_torch.models.bert import BertForMultipleChoice
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
@@ -114,8 +115,7 @@ def run(args):
     results."""
     device = finetune.setup_device(args.device)
     torch.manual_seed(args.seed)
-    tokenizer = get_wordpiece_tokenizer(args.vocab_file,
-                                        uppercase=args.uppercase)
+    tokenizer = finetune.make_tokenizer(args)
     arrays = {"train": swag.convert_examples_to_arrays(
         swag.read_swag_examples(args.train_file), tokenizer,
         args.max_seq_len)}

@@ -652,6 +652,7 @@ class InferenceEngine:
         out = self._run(model, staged.args, staged.positions,
                         stack=staged.fused
                         and spec.handler.epilogue == "stack_span")
+        faults.get_plan().serve_forward_check()
         with self._swap_lock:
             if spec.model is not model and self._swap_epoch == epoch:
                 self._torn_serves += 1

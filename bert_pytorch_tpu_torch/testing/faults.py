@@ -50,6 +50,12 @@ The spec is a comma-separated list of points::
                      the flip not yet taken, proving in-flight batches
                      only ever see the OLD consistent version
                      (tools/chaos_serve.py swap phase)
+    slow_forward     sleep MS milliseconds (default 50) after every
+    slow_forwardxMS  serving forward (serve/engine.py execute_staged),
+                     off the CPU and outside the GIL: a CPU replica
+                     then has a card's fixed service time, so a second
+                     replica adds capacity on a loaded box as a second
+                     card does (tools/chaos_serve.py --surge)
 
 Everything is keyed on explicit step numbers / call counts — rerunning
 the same spec on the same data reproduces the same failure, which is
@@ -115,6 +121,8 @@ class FaultPlan:
                         f"fault point {point!r} needs @step (e.g. "
                         f"{point}@7)")
                 self._points[point] = {"step": int(step), "count": count}
+            elif point == "slow_forward":
+                self._points[point] = {"count": count or 50}
             elif point == "shard_error":
                 self._shard_errors_left = count or 1
                 self._points[point] = {"count": self._shard_errors_left}
@@ -122,7 +130,7 @@ class FaultPlan:
                 raise FaultSpecError(
                     f"unknown fault point {point!r} (known: "
                     f"{', '.join(_STEP_POINTS)}, shard_error, wedge, "
-                    f"admit_hold, swap_hold)")
+                    f"admit_hold, swap_hold, slow_forward)")
 
     @classmethod
     def from_env(cls) -> "FaultPlan":
@@ -253,6 +261,13 @@ class FaultPlan:
                               swaps_attempted=int(swaps_attempted),
                               hold_s=hold_s))
         time.sleep(hold_s)
+
+    def serve_forward_check(self) -> None:
+        """Sleep the armed ``slow_forwardxMS`` milliseconds; called by
+        the serving engine after every forward, inside its timed span."""
+        cfg = self._points.get("slow_forward")
+        if cfg is not None:
+            time.sleep(cfg["count"] / 1000.0)
 
     def shard_read_check(self, path: str,
                          emit: Optional[Callable] = None) -> None:

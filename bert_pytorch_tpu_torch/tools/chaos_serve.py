@@ -226,6 +226,13 @@ PHRASES = (
 )
 
 
+# The surge's CPU replicas sleep this long off the CPU after each forward
+# (the slow_forward fault point), a card's fixed service time: replicas on
+# one box share its cores, so on a loaded box a second CPU replica added
+# too little capacity for p99 to recover above the box's noise.
+SURGE_CPU_FORWARD_MS = 50
+
+
 class ChaosFailure(AssertionError):
     pass
 
@@ -983,7 +990,11 @@ def run_surge(args) -> int:
     workdir = args.workdir or tempfile.mkdtemp(prefix="chaos_surge_")
     os.makedirs(workdir, exist_ok=True)
     shared_args = replica_args(args, workdir, max_batch_size=2)
-    template = supervisor_mod.ReplicaTemplate(shared_args, workdir)
+    forward_ms = SURGE_CPU_FORWARD_MS if args.device == "cpu" else 0
+    template = supervisor_mod.ReplicaTemplate(
+        shared_args, workdir,
+        env=({faults.FAULTS_ENV: f"slow_forwardx{forward_ms}"}
+             if forward_ms else None))
     specs = [template.make_spec(0)]
 
     fleet_jsonl = os.path.join(workdir, "fleet_telemetry.jsonl")
@@ -1066,6 +1077,7 @@ def run_surge(args) -> int:
                    args.warmup_timeout_s, "the seed replica healthy")
         verdict["startup_s"] = round(time.monotonic() - t_start, 2)
         verdict["first_builds"] = first_builds(workdir, [0])
+        verdict["forward_ms"] = forward_ms
 
         # -- phase 1: surge past one replica's capacity -> scale up -----
         surge_stop = {"flag": False}
@@ -1331,10 +1343,20 @@ def main(argv=None) -> int:
                         help="closed-loop client threads for the surge "
                              "burst (must overwhelm ONE replica's "
                              "brownout ceiling, not two)")
-    parser.add_argument("--surge_brownout_depth", type=int, default=6,
+    parser.add_argument("--surge_brownout_depth", type=int, default=9,
                         help="router brownout queue ceiling per replica "
                              "in surge mode — the definition of one "
-                             "replica's capacity")
+                             "replica's capacity. One below "
+                             "--surge_workers: the overloaded replica "
+                             "admits 9 requests (5 batches of 2) where "
+                             "each of two admits 5 (3 batches) after the "
+                             "scale-up; at 6 it admitted 6, and p99 "
+                             "recovered by half a batch only, inside a "
+                             "loaded box's noise. A shed needs every "
+                             "worker on one replica at once, which a "
+                             "surge of a few seconds meets tens of "
+                             "times; with 12 workers the harness's own "
+                             "shed-and-retry load hid the recovery")
     parser.add_argument("--surge_recovery_requests", type=int, default=60,
                         help="burst size for the post-scale-up recovery "
                              "phase (same worker count as the surge)")

@@ -96,7 +96,8 @@ def _kernel_table(engine, staged):
 
 def main(argv=None) -> int:
     from bert_pytorch_tpu_torch.config import BertConfig
-    from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
+    from bert_pytorch_tpu_torch.data.tokenization import \
+        get_wordpiece_tokenizer
     from bert_pytorch_tpu_torch.serve import InferenceEngine
     from bert_pytorch_tpu_torch.serve.cli import DTYPES, add_fast_path_args
     from bert_pytorch_tpu_torch.serve.engine import BatchPlan
@@ -131,7 +132,7 @@ def main(argv=None) -> int:
                           "fuse_epilogues": args.fuse_epilogues}),
               flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        tokenizer = BertTokenizer(write_trace_vocab(
+        tokenizer = get_wordpiece_tokenizer(write_trace_vocab(
             os.path.join(tmp, "vocab.txt")))
     engine = InferenceEngine(
         config, tokenizer, {task: {} for task in args.tasks.split(",")},

@@ -58,7 +58,6 @@ def build(tmp: str, predict_batch_size: int, dtype: str = "bfloat16"):
     """(model, step, train batches, predict batch) from run_squad's own
     functions at BERT-large width in ``dtype``."""
     from bert_pytorch_tpu_torch import run_squad, squad
-    from bert_pytorch_tpu_torch.data.tokenization import BertTokenizer
     from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
         write_squad_json, write_trace_vocab)
 
@@ -75,7 +74,7 @@ def build(tmp: str, predict_batch_size: int, dtype: str = "bfloat16"):
     model, _ = run_squad.build_model(args, device)
     features = squad.convert_examples_to_features(
         squad.read_squad_examples(train, True, False),
-        BertTokenizer(vocab, do_lower_case=True), args.max_seq_length,
+        run_squad.build_tokenizer(args), args.max_seq_length,
         args.doc_stride, args.max_query_length, True)
     optimizer = run_squad.make_optimizer(args, model, args.max_steps)
     step = run_squad.make_train_step(model, optimizer, args.max_grad_norm,

@@ -230,7 +230,7 @@ Phases (any failure exits non-zero and prints no result line):
 15. the feed of a long pretraining run (``drive_feed``), phase 6's shape
    through ``run_pretraining.main`` over ``SyntheticPretrainingDataset``
    rows, 6 steps a run: 15a ``--device_prefetch`` 0 then 2 (traced),
-   then an untraced pair of each in turns (2, 0, 0, 2), per-step losses
+   then an untraced run of each (2, then 0), per-step losses
    bit-equal, the step p50 of each depth, #1-#3 96/48/48 per step, the traced steps 2-3 holding
    the staged batch's copies as pinned-to-device memcpys on a stream other
    than the compute kernels', data_wait and h2d_wait p50 of schema-clean
@@ -241,14 +241,36 @@ Phases (any failure exits non-zero and prints no result line):
    to ``pretrain.make_eval_step`` on that step's params and batches, the
    eval forward on #1 (24 launches a batch; #4 none); 15d
    ``--fault_spec nonfinite@3`` under ``--sentinel_policy abort`` raising
-   with its injected record, then the kill cycle at dropout 0: a child
-   with ``die@4`` and synchronous saves every 2 steps dies by SIGKILL, its
-   newest checkpoint is truncated, and a fresh child walks back to step 2
-   (its ``resume`` record naming the skip) and runs to step 6 with the
-   losses of an uninterrupted run bit for bit. Every entry of the kernels
+   with its injected record, then the kill cycle at dropout 0 and 6
+   layers: a child with ``die@4`` and synchronous saves every 2 steps
+   dies by SIGKILL, its newest checkpoint is truncated, and a fresh
+   child walks back to step 2 (its ``resume`` record naming the skip)
+   and runs to step 6 with the losses of an uninterrupted run bit for
+   bit. Every entry of the kernels
    line carries ``launches_feed`` (15a's prefetch-2 run), #1 also
    ``launches_feed_eval`` (15c's held-out forwards, counted around each of
-   that run's held-out passes).
+   that run's held-out passes);
+16. RoBERTa-large and the text path (``drive_roberta``), the repo's
+   ``configs/roberta_large_cased_config.json`` at full width and depth
+   (no NSP, byte-level BPE), bf16, seeded random weights: 16a a cold
+   build of the C++ tokenizer core into a fresh build directory (its
+   ``compile`` record), then ``make_synthetic_text`` -> ``shard`` ->
+   ``build_vocab --tokenizer bpe``, its ``[MASK]`` moved to the last id
+   as the published vocab's mask token is; 16b ``run_pretraining.main``
+   in phase 6's shape on that vocab (4 steps, the mask id the run logs
+   the tokenizer's ``[MASK]`` and not 4, no NSP loss, 96/48/48 launches of #1/#2/#3
+   per step, a final sync save); 16c ``run_glue`` MRPC ``--tokenizer
+   bpe`` from it (3 steps of 32 at S=128, final save); 16d ``run_server
+   --tasks classify,fill_mask`` from both checkpoints over HTTP (24
+   launches of #4 per forward, the classify logits the GLUE model's
+   within ``GLUE_SERVE_ATOL``, the fill_mask top-k held against the same
+   model with dense attention on the same features, the handler's
+   decode of known in-vocab top-k ids); 16e ``tools/batch_infer`` on a
+   file of the same 32 requests in runs of one task, packed up to 8 a
+   batch, each result 16d's answer within the tolerances, 24 launches of
+   #4 per forward. #1-#4 carry
+   ``launches_roberta`` (16b's and 16d's), #4 also
+   ``launches_roberta_batch_infer`` (16e's).
 
 Every launch counter is set to 0 just before each main path and read just
 after it (phase 14's counters live in its replicas, fresh processes whose
@@ -1103,13 +1125,15 @@ def check_body(task: str, payload: dict, body, labels) -> None:
             raise AssertionError(f"classify body malformed: {body}")
 
 
-def serve_waves(args, waves: list, kernels: dict) -> tuple:
+def serve_waves(args, waves: list, kernels: dict,
+                keep_bodies: bool = False) -> tuple:
     """Build the service for ``args``, warm it, then serve ``waves`` over
     HTTP (each wave's requests concurrently) and one request per head
     through ``run_direct`` (one request alone in an unpacked row). Every
     count is set to 0 just before the traffic and read just after. Checks
     that every request answered 200 with a well-formed body. Returns (the
-    run's numbers, the engine)."""
+    run's numbers, with the answers in request order under ``bodies``
+    when ``keep_bodies``; the engine)."""
     from bert_pytorch_tpu_torch import run_server
     from bert_pytorch_tpu_torch.serve import make_server
 
@@ -1146,8 +1170,11 @@ def serve_waves(args, waves: list, kernels: dict) -> tuple:
             payloads += wave
         # The unpacked forward (key-bias path of the kernel): the offline
         # scoring entry point runs one request alone in a row.
-        singles = [tp for tp in waves[0][:len(HEADS)]
-                   if tp[0] in engine.tasks]
+        # The first request of each served task in the first wave.
+        singles = []
+        for tp in waves[0]:
+            if tp[0] in engine.tasks and all(t != tp[0] for t, _ in singles):
+                singles.append(tp)
         direct = {task: engine.run_direct(task, payload)
                   for task, payload in singles}
     finally:
@@ -1170,7 +1197,8 @@ def serve_waves(args, waves: list, kernels: dict) -> tuple:
         f"forwards; plans (task, bucket, packed, max requests/row, fused): "
         f"{plans}")
     del engine.execute_staged
-    return {"requests": len(results), "forwards": forwards,
+    bodies = {"bodies": [r[1] for r in results]} if keep_bodies else {}
+    return {**bodies, "requests": len(results), "forwards": forwards,
             "launches": launches, "routes": routes, "plans": plans,
             "layers": engine.config.num_hidden_layers,
             "p50_ms": statistics.median(latencies) * 1e3,
@@ -4054,10 +4082,14 @@ FEED_VOCAB, FEED_MAX_PRED = 30528, 80
 # batch before it blocks on the full queue, so the copies of batch N + 3
 # are issued as step N begins: batch 6's, at step 3, inside the window.
 FEED_PROFILE_STEPS = "2:4"
-FEED_UNTRACED_ORDER = ("2", "0", "0", "2")
+FEED_UNTRACED_ORDER = ("2", "0")
 FEED_WINDOW = 3
 FEED_WORKERS = 2
 FEED_NONFINITE_AT, FEED_KILL_AT = 3, 4
+# The kill cycle's depth, cut from 24 to make room for phase 16 in the
+# smoke's time: its two sync saves, the walk-back and the resume are the
+# same code at any depth (1.26 GB a save instead of 4.03).
+FEED_KILL_LAYERS = 6
 # Two retained BERT-large LAMB states (4.03 GB each) and headroom.
 FEED_DISK_BYTES = 14 * 2 ** 30
 FEED_CHILD_TIMEOUT_S = 300
@@ -4224,7 +4256,7 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     4 batches): the feed of a long run through ``run_pretraining.main``.
 
     15a: --device_prefetch 2 against 0, in turns (0, then 2 traced, then
-    untraced 2, 0, 0, 2): per-step losses bit-equal, #1-#3 96/48/48 per
+    untraced 2, then 0): per-step losses bit-equal, #1-#3 96/48/48 per
     step, the copies in the trace of steps 2-3 pinned-to-device on a
     stream other than the compute kernels', data_wait/h2d_wait p50 of
     schema-clean windows, and the step p50 of each depth with and
@@ -4237,9 +4269,9 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     batches; the eval route's kernel and launches per batch, a pass's
     seconds.
     15d: nonfinite@3 under --sentinel_policy abort raises with the
-    injected record; then the kill cycle at dropout 0: a child with
-    die@4 and saves every 2 steps dies by SIGKILL, its newest checkpoint
-    is truncated, a fresh child walks back to step 2 (a resume record
+    injected record; then the kill cycle at dropout 0 and 6 layers: a
+    child with die@4 and saves every 2 steps dies by SIGKILL, its newest
+    checkpoint is truncated, a fresh child walks back to step 2 (a resume record
     naming the skip) and runs to step 6, its losses from step 3 on equal
     to an uninterrupted run's bit for bit (within RESUME_STEP_ATOL only if
     a kernel is not deterministic, as phase 9's rule)."""
@@ -4286,8 +4318,8 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
             raise AssertionError(f"15a windows of prefetch {depth}: "
                                  f"{run['windows']}")
     # The traced run changes the depth and the trace together: an untraced
-    # pair of each depth follows, in turns (2, 0, 0, 2), so that step time
-    # is read against the depth alone.
+    # run of each depth follows, so that step time is read against the
+    # depth alone.
     untraced = {"0": [], "2": []}
     for i, depth in enumerate(FEED_UNTRACED_ORDER):
         run = feed_main(kernels, os.path.join(
@@ -4454,7 +4486,8 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     cut = os.path.join(root, "feed_dropout0")
     os.makedirs(cut)
     config0 = cut_config(cut, hidden_dropout_prob=0.0,
-                         attention_probs_dropout_prob=0.0)
+                         attention_probs_dropout_prob=0.0,
+                         num_hidden_layers=FEED_KILL_LAYERS)
     reference = feed_main(kernels, os.path.join(root, "feed_reference"),
                           config=config0)
     out = os.path.join(root, "feed_kill")
@@ -4507,7 +4540,8 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     phase_s = time.perf_counter() - t_phase
     log(f"[feed] 15d nonfinite@{FEED_NONFINITE_AT} under abort: "
         f"{aborted!r}, injected record at step {FEED_NONFINITE_AT}; kill "
-        f"cycle (dropout 0): die@{FEED_KILL_AT} rc {died.returncode} after "
+        f"cycle (dropout 0, {FEED_KILL_LAYERS} layers): die@{FEED_KILL_AT} "
+        f"rc {died.returncode} after "
         f"saves {FEED_EVERY}, {FEED_KILL_AT} in {kill_s:.1f} s; ckpt_"
         f"{FEED_KILL_AT} truncated; the resume walked back to "
         f"{resume[0]['step']} and ran to {FEED_STEPS} in {resume_s:.1f} s, "
@@ -4530,6 +4564,551 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
             "kill_child_s": kill_s, "resume_child_s": resume_s,
             "resumed_losses": after, "resumed_bit_equal": exact,
             "phase_s": phase_s}
+
+
+# -- phase 16: RoBERTa-large and the text path --------------------------------
+
+# The repo's RoBERTa-large config as published (24 x 1024, 16 heads, FFN
+# 4096, vocab 50265, no NSP, byte-level BPE, cased); only its vocab_file
+# names the vocab 16a trains (the published vocab.json is not in the repo).
+ROBERTA = os.path.join(REPO, "configs", "roberta_large_cased_config.json")
+# 16a: the synthetic corpus (make_synthetic_text's defaults: 4 files of
+# 200 articles), shards of 100 kB, a BPE vocab of at most 2000 entries.
+TEXT_FILES, TEXT_ARTICLES, TEXT_SHARD_BYTES, BPE_VOCAB = 4, 200, 100_000, 2000
+ROBERTA_STEPS = 4
+ROBERTA_DATA_SEED = 16
+# 16c: MRPC at the GLUE recipe, 3 steps of 32.
+ROBERTA_GLUE = (32, 96)
+# 16d/16e: the requests 16d serves one at a time, after a concurrent wave
+# that packs them, and 16e scores from a file in runs of one task (packed
+# up to 8 to a forward).
+ROBERTA_REQUESTS = 32
+# The served fill_mask slots against the dense run of the same model on
+# the same features, as log-probabilities: both bf16, so the two differ
+# by bf16 rounding in 24 layers of attention, GLUE_SERVE_ATOL on a logit,
+# twice that once the logsumexp moves too. Two ids whose reference
+# log-probabilities lie within twice this are a tie at bf16 precision,
+# and may trade places in a top-k.
+FILL_MASK_LOGP_ATOL = 2 * GLUE_SERVE_ATOL
+ROBERTA_DISK_BYTES = 14 * 2 ** 30
+
+
+def roberta_requests() -> list:
+    """ROBERTA_REQUESTS (task, payload) pairs over the synthetic corpus's
+    words (cased text): the first half fill_mask (one or two [MASK]s),
+    the second classify, so that a file of them holds one run of each
+    task."""
+    from bert_pytorch_tpu_torch.tools import make_synthetic_text as text
+
+    rng = np.random.default_rng(16)
+    words = sorted({w.strip(".?") for _, s, _ in text.RELATIONS
+                    for w in s.split() if "{" not in w}
+                   | set(text.ENTITIES))
+    out = []
+    for i in range(ROBERTA_REQUESTS):
+        chosen = [str(w) for w in rng.choice(words, int(rng.integers(6, 40)))]
+        chosen[0] = chosen[0].capitalize()
+        if i < ROBERTA_REQUESTS // 2:
+            for _ in range(1 + i % 2):
+                chosen[int(rng.integers(len(chosen)))] = "[MASK]"
+            out.append(("fill_mask", {"text": " ".join(chosen) + ".",
+                                      "top_k": 5}))
+        else:
+            cut = len(chosen) // 2
+            out.append(("classify", {"text": " ".join(chosen[:cut]),
+                                     "text_pair": " ".join(chosen[cut:])}))
+    return out
+
+
+def move_mask_last(vocab: str, tokens: dict) -> str:
+    """Trade the ids of ``[MASK]`` and the last entry of the BPE
+    ``vocab.json`` at ``vocab`` (``tokens``, its token -> id, is updated
+    in place), as the published vocab's mask token is last; returns the
+    token that took [MASK]'s old id."""
+    last = max(tokens.values())
+    moved = next(t for t, i in tokens.items() if i == last)
+    tokens[moved], tokens["[MASK]"] = tokens["[MASK]"], last
+    with open(vocab, "w", encoding="utf-8") as f:
+        json.dump(dict(sorted(tokens.items(), key=lambda kv: kv[1])), f,
+                  ensure_ascii=False, separators=(",", ":"))
+    return moved
+
+
+def check_known_decode(engine, payload: dict, by_id: dict) -> list:
+    """The fill_mask handler's answer to logits whose top-5 at every
+    [MASK] of ``payload`` are known ids of the trained vocab (``by_id``,
+    id -> token: its five longest tokens, ranked): each slot must carry
+    the id and its vocab entry. Returns those ids."""
+    handler = engine.tasks["fill_mask"].handler
+    payload = dict(payload, top_k=5)
+    features = handler.prepare(payload, engine.max_len())
+    known = sorted(by_id, key=lambda i: (-len(by_id[i]), i))[:5]
+    logits = np.zeros((len(features["input_ids"]), engine.config.vocab_size),
+                      np.float32)
+    logits[np.ix_(features["mask_positions"], known)] = np.arange(5, 0, -1)
+    decoded = handler.postprocess(features, logits, payload)["masks"]
+    want = [[(i, by_id[i]) for i in known]] * len(features["mask_positions"])
+    if [[(s["id"], s["token"]) for s in m] for m in decoded] != want:
+        raise AssertionError(f"16d: the handler decoded known top-k ids "
+                             f"{known} as {decoded}")
+    return known
+
+
+def fill_mask_reference(engine, payloads: list) -> list:
+    """Log-probabilities (float64 [masks, vocab]) at each [MASK] of each
+    fill_mask payload: the engine's fill_mask model run with dense
+    attention on the features its handler makes, one request alone in an
+    unpacked row."""
+    from bert_pytorch_tpu_torch.serve.batcher import Request
+
+    spec = engine.tasks["fill_mask"]
+    modules = [m for m in spec.model.modules()
+               if hasattr(m, "attention_backend")]
+    served = [m.attention_backend for m in modules]
+    for m in modules:
+        m.attention_backend = "dense"
+    refs = []
+    try:
+        for payload in payloads:
+            features = spec.handler.prepare(payload, engine.max_len())
+            plan = engine.plan_batch(
+                [Request("fill_mask", features, payload)], packed=False)
+            rows = np.asarray(engine.execute("fill_mask", plan)[0][0],
+                              np.float64)[features["mask_positions"]]
+            rows = rows - rows.max(axis=-1, keepdims=True)
+            refs.append(rows - np.log(np.exp(rows).sum(axis=-1,
+                                                       keepdims=True)))
+    finally:
+        for m, backend in zip(modules, served):
+            m.attention_backend = backend
+    return refs
+
+
+def check_fill_mask(answer: dict, ref: np.ndarray, label: str) -> float:
+    """Hold one fill_mask answer to its reference log-probabilities: each
+    slot's score is the reference's for its id within
+    FILL_MASK_LOGP_ATOL, and the slots are a top-k of the reference up to
+    ties (no slot below the reference's k-th by more than a tie, no id
+    above it by more than a tie left out). Returns the largest error."""
+    if len(answer["masks"]) != len(ref):
+        raise AssertionError(f"{label}: {len(answer['masks'])} masks "
+                             f"answered, {len(ref)} in the text")
+    err = 0.0
+    for slots, row in zip(answer["masks"], ref):
+        kth = np.sort(row)[-len(slots)]
+        ids = [s["id"] for s in slots]
+        errs = [abs(math.log(s["score"]) - row[s["id"]]) for s in slots]
+        missed = set(np.flatnonzero(row > kth + 2 * FILL_MASK_LOGP_ATOL)
+                     .tolist()) - set(ids)
+        low = [i for i in ids if row[i] < kth - 2 * FILL_MASK_LOGP_ATOL]
+        if max(errs) > FILL_MASK_LOGP_ATOL or missed or low:
+            raise AssertionError(
+                f"{label}: slots {ids} with log-probability errors {errs} "
+                f"(atol {FILL_MASK_LOGP_ATOL:g}); the reference's top ids "
+                f"{np.argsort(-row)[:len(slots)].tolist()}, missed {missed},"
+                f" below its k-th {low}")
+        err = max(err, *errs)
+    return err
+
+
+def top_k_swaps(answer: dict, want: dict, ref: np.ndarray,
+                label: str) -> int:
+    """The rank positions where ``answer``'s fill_mask ids differ from
+    ``want``'s; raises unless each such pair of ids is a tie in the
+    reference (log-probabilities within 2 x FILL_MASK_LOGP_ATOL)."""
+    swaps = 0
+    for got, exp, row in zip(answer["masks"], want["masks"], ref):
+        for a, b in zip(got, exp):
+            if a["id"] == b["id"]:
+                continue
+            swaps += 1
+            if abs(row[a["id"]] - row[b["id"]]) > 2 * FILL_MASK_LOGP_ATOL:
+                raise AssertionError(
+                    f"{label}: id {a['id']} where 16d answered {b['id']}, "
+                    f"reference log-probabilities {row[a['id']]:.4f} and "
+                    f"{row[b['id']]:.4f}")
+    return swaps
+
+
+def check_offline_answers(results: list, answers: list, refs: dict
+                          ) -> tuple:
+    """Hold batch_infer's ``results`` to the server's ``answers`` for the
+    same requests: packed batches sum in other orders than one-request
+    forwards, so they agree within the tolerances, not bit for bit.
+    fill_mask (the requests ``refs`` holds, index -> reference
+    log-probabilities) as check_fill_mask and rank for rank up to ties
+    (top_k_swaps); classify log-probabilities within 2 x GLUE_SERVE_ATOL.
+    Returns (fill_mask error, ranks swapped, classify error)."""
+    swaps, fill_err, cls_err = 0, 0.0, 0.0
+    for i, (got, body) in enumerate(zip(results, answers)):
+        if i in refs:
+            fill_err = max(fill_err, check_fill_mask(
+                got, refs[i], f"16e request {i}"))
+            swaps += top_k_swaps(got, body, refs[i], f"16e request {i}")
+            continue
+        d = max(abs(math.log(got["scores"][k]) - math.log(v))
+                for k, v in body["scores"].items())
+        cls_err = max(cls_err, d)
+        if not d <= 2 * GLUE_SERVE_ATOL:
+            raise AssertionError(f"16e request {i}: classify {got} where "
+                                 f"16d answered {body}")
+    return fill_err, swaps, cls_err
+
+
+def drive_roberta(kernels: dict, root: str, card: str) -> dict:
+    """Phase 16: RoBERTa-large through the text path, at full width and
+    depth (cut: 4 pretraining steps of the recipe, local batch 8 x 2).
+
+    16a: a cold build of the tokenizer core into a fresh build directory
+    (its ``compile`` record and seconds), then make_synthetic_text ->
+    shard -> build_vocab --tokenizer bpe (the C++ trainer), each timed;
+    the vocab's [MASK] then trades ids with its last entry, as the
+    published vocab's mask token is last (build_vocab puts it at 4, the
+    runner's fallback, where a wrong lookup would not show).
+    16b: run_pretraining.main on the RoBERTa config with that vocab, in
+    phase 6's shape on SyntheticPretrainingDataset rows masked with the
+    runner's mask id: the id it logs is the C++ tokenizer's [MASK] and
+    not 4, no NSP loss anywhere, finite losses, 96/48/48 launches of #1/#2/#3 per
+    step on the tensor cores, one sync save at the end.
+    16c: run_glue MRPC --tokenizer bpe from that checkpoint at the
+    recipe (S=128, batch 32, 3 steps) with its final save.
+    16d: run_server --tasks classify,fill_mask (flash_infer) from 16c's
+    and 16b's checkpoints: a concurrent wave, then the 32 requests one at
+    a time, over HTTP; 24 launches of #4 per forward; the classify logits
+    of a dev row equal the GLUE model's within GLUE_SERVE_ATOL; each
+    fill_mask answer a top-k of the same model run with dense attention
+    on the same features (check_fill_mask), every token the vocab entry
+    of its id, and the handler's decode of logits whose top-k are known
+    in-vocab ids.
+    16e: tools/batch_infer on a JSONL of the same 32 requests (a run of
+    fill_mask, then one of classify) and checkpoints: its plans pack
+    several requests to a forward; each result is 16d's answer (classify
+    log-probabilities within 2 x GLUE_SERVE_ATOL, fill_mask ids rank for
+    rank up to ties of the reference, and held to it as in 16d); 24
+    launches of #4 per forward."""
+    import gc
+
+    from bert_pytorch_tpu_torch import run_glue, run_pretraining
+    from bert_pytorch_tpu_torch.data import glue
+    from bert_pytorch_tpu_torch.data.tokenization import get_bpe_tokenizer
+    from bert_pytorch_tpu_torch.ops.kernels import build
+    from bert_pytorch_tpu_torch.serve.batcher import Request
+    from bert_pytorch_tpu_torch.serve.engine import InferenceEngine
+    from bert_pytorch_tpu_torch.telemetry.compile_events import CompileMonitor
+    from bert_pytorch_tpu_torch.tools import (batch_infer, build_vocab,
+                                              make_synthetic_text, shard)
+    from bert_pytorch_tpu_torch.tools import make_synthetic_data as synth
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        SyntheticPretrainingDataset)
+    from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    out = {"seconds": {}}
+    work = os.path.join(root, "roberta")
+    os.makedirs(work)
+    free = shutil.disk_usage(root).free
+    if free < ROBERTA_DISK_BYTES:
+        raise AssertionError(f"phase 16 needs {ROBERTA_DISK_BYTES} bytes of "
+                             f"disk for its checkpoints; {free} free")
+
+    # -- 16a: the tokenizer core and the offline text chain ---------------
+    t0 = time.perf_counter()
+    build.set_build_dir(os.path.join(work, "build"))
+    try:
+        with CompileMonitor().installed() as monitor:
+            build_s = build.build_host("tokenizer")
+    finally:
+        build.set_build_dir(None)
+    events = [(e["fn"], e["cache"], e["compile_s"]) for e in monitor.events]
+    if events != [("tokenizer", "miss", round(build_s, 4))] or build_s <= 0:
+        raise AssertionError(f"16a: the cold build reported {events}")
+    steps = {}
+    t = time.perf_counter()
+    corpus = make_synthetic_text.write_corpus(
+        os.path.join(work, "text"), TEXT_FILES, TEXT_ARTICLES, 0)
+    steps["make_synthetic_text"] = time.perf_counter() - t
+    t = time.perf_counter()
+    shards = shard.shard(corpus, os.path.join(work, "shards"),
+                         TEXT_SHARD_BYTES)
+    steps["shard"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vocab = build_vocab.main([
+        "--input_glob", os.path.join(work, "shards", "*.txt"),
+        "--tokenizer", "bpe", "--output", os.path.join(work, "vocab"),
+        "--vocab_size", str(BPE_VOCAB), "--uppercase"])
+    steps["build_vocab"] = time.perf_counter() - t
+    merges = vocab.replace("vocab.json", "merges.txt")
+    with open(vocab, encoding="utf-8") as f:
+        vocab_tokens = json.load(f)
+    moved = move_mask_last(vocab, vocab_tokens)
+    last = vocab_tokens["[MASK]"]
+    with open(merges, encoding="utf-8") as f:
+        n_merges = sum(1 for line in f if line.strip()
+                       and not line.startswith("#version"))
+    tokenizer = get_bpe_tokenizer(vocab, uppercase=True)
+    mask_id = tokenizer.token_to_id("[MASK]")
+    if mask_id != last or n_merges == 0:
+        raise AssertionError(f"16a: vocab {len(vocab_tokens)}, merges "
+                             f"{n_merges}, [MASK] {mask_id}")
+    out["tokenizer"] = {"build_s": build_s, "steps_s": steps,
+                        "corpus_bytes": sum(os.path.getsize(p)
+                                            for p in corpus),
+                        "shards": len(shards), "vocab": len(vocab_tokens),
+                        "merges": n_merges, "mask_id": mask_id}
+    out["seconds"]["16a"] = time.perf_counter() - t0
+    log(f"[roberta 16a] tokenizer core cold build {build_s:.2f} s "
+        f"(compile record {events}); corpus {out['tokenizer']['corpus_bytes']}"
+        f" bytes in {steps['make_synthetic_text']:.2f} s, {len(shards)} "
+        f"shards in {steps['shard']:.2f} s, BPE vocab {len(vocab_tokens)} "
+        f"tokens / {n_merges} merges in {steps['build_vocab']:.2f} s; [MASK] "
+        f"moved to id {mask_id} (its id 4 to {moved!r}) on {card}")
+    with open(ROBERTA, encoding="utf-8") as f:
+        published = json.load(f)
+    config = os.path.join(work, "roberta.json")
+    with open(config, "w", encoding="utf-8") as f:
+        json.dump(dict(published, vocab_file=vocab), f)
+
+    # -- 16b: pretraining ----------------------------------------------------
+    t0 = time.perf_counter()
+    pre_out = os.path.join(work, "pretrain")
+    vocab_padded = published["vocab_size"] + (-published["vocab_size"]) % 8
+    dataset = SyntheticPretrainingDataset(
+        ROBERTA_DATA_SEED, TRAIN_LOCAL_BATCH * TRAIN_ACCUM * ROBERTA_STEPS,
+        TRAIN_SEQ, vocab_padded, FEED_MAX_PRED, mask_token_index=mask_id)
+    argv = feed_argv(pre_out, config=config)
+    argv[argv.index("--steps") + 1] = str(ROBERTA_STEPS)
+    argv.remove("--skip_final_checkpoint")
+    args = run_pretraining.parse_arguments(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t = time.perf_counter()
+    summary = run_pretraining.main(args, dataset)
+    wall = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(kernels[name].route_launches)
+              for name in TRAIN_REPLACES}
+    peak = torch.cuda.max_memory_allocated()
+    records = feed_records(pre_out)
+    losses = train_losses(records)
+    layers = published["num_hidden_layers"]
+    per_step = layers * TRAIN_ACCUM
+    want = {name: 0 for name in launches}
+    want.update({"flash_attention_fwd": 2 * per_step * ROBERTA_STEPS,
+                 "flash_attention_dq": per_step * ROBERTA_STEPS,
+                 "flash_attention_dkv": per_step * ROBERTA_STEPS})
+    if launches != want:
+        raise AssertionError(f"16b launches {launches}; expected {want}")
+    for name in TRAIN_REPLACES:
+        if routes[name].get("tensor_cores") != launches[name]:
+            raise AssertionError(f"16b {name} by route {routes[name]}")
+    nsp_keys = sorted({k for r in records for k in r if "nsp" in k
+                       or "next_sentence" in k})
+    if (summary["mask_token_id"] != mask_id or mask_id == 4 or nsp_keys
+            or sorted(losses) != list(range(1, ROBERTA_STEPS + 1))
+            or not all(math.isfinite(v) for v in losses.values())
+            or summary.get("finite", 1.0) != 1.0):
+        raise AssertionError(f"16b: mask id {summary['mask_token_id']} (the "
+                             f"tokenizer's {mask_id}), NSP keys {nsp_keys}, "
+                             f"losses {losses}")
+    saved = ckpt.latest_checkpoint(os.path.join(pre_out, "pretrain_ckpts"))
+    write = next(w for w in reversed(ckpt.write_records)
+                 if w["path"] == saved)
+    if write["async"] or not os.path.exists(saved):
+        raise AssertionError(f"16b: final save {write}")
+    step_s = step_p50_s({"summary": summary})
+    seq_per_s = TRAIN_LOCAL_BATCH * TRAIN_ACCUM / step_s
+    out["pretraining"] = {
+        "losses": losses, "mask_token_id": summary["mask_token_id"],
+        "launches": launches, "routes": routes, "step_p50_s": step_s,
+        "seq_per_s": seq_per_s, "wall_s": wall, "peak_bytes": peak,
+        "checkpoint": {k: write[k] for k in ("bytes", "seconds", "async")}}
+    del summary
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"]["16b"] = time.perf_counter() - t0
+    log(f"[roberta 16b] RoBERTa-large pretraining (S={TRAIN_SEQ}, max_pred "
+        f"{FEED_MAX_PRED}, bf16, remat dots, LAMB, flash), local batch "
+        f"{TRAIN_LOCAL_BATCH} x {TRAIN_ACCUM}, {ROBERTA_STEPS} steps: step "
+        f"p50 {step_s:.4f} s, {seq_per_s:.2f} seq/s, losses {losses}, mask "
+        f"id {mask_id}, launches {launches}, allocator peak {peak} bytes, "
+        f"final sync save {write['bytes']} bytes in {write['seconds']:.2f} s"
+        f" on {card}")
+
+    # -- 16c: GLUE --------------------------------------------------------
+    t0 = time.perf_counter()
+    mrpc = synth.write_mrpc_tsvs(os.path.join(work, "MRPC"), 21,
+                                 ROBERTA_GLUE[1], 32)
+    glue_out = os.path.join(work, "glue_out")
+    glue_args = run_glue.parse_arguments([
+        "--task", "mrpc", "--data_dir", mrpc, "--model_config_file", config,
+        "--tokenizer", "bpe", "--vocab_file", vocab, "--uppercase",
+        "--init_checkpoint", saved, "--device", "cuda", "--dtype",
+        "bfloat16", "--max_seq_len", str(FT_SEQ), "--epochs", "1",
+        "--batch_size", str(ROBERTA_GLUE[0]), "--output_dir", glue_out])
+    zero_counts(kernels)
+    results, glue_model, _ = run_glue.run(glue_args)
+    if any(k.launches for k in kernels.values()):
+        raise AssertionError("16c: a kernel launched on GLUE's dense path")
+    glue_steps = results["global_step"]
+    if glue_steps != ROBERTA_GLUE[1] // ROBERTA_GLUE[0] or not (
+            0.0 <= results.get("accuracy", -1.0) <= 1.0):
+        raise AssertionError(f"16c: {results}")
+    glue_write = check_saved_model(glue_out, glue_steps, glue_model,
+                                   "roberta glue")
+    out["glue"] = {"steps": glue_steps,
+                   "seq_per_s": results["training_sequences_per_second"],
+                   "accuracy": results["accuracy"],
+                   "checkpoint_bytes": glue_write["bytes"]}
+    out["seconds"]["16c"] = time.perf_counter() - t0
+    log(f"[roberta 16c] MRPC --tokenizer bpe from ckpt of 16b: {glue_steps} "
+        f"steps at batch {ROBERTA_GLUE[0]}, S={FT_SEQ}, bf16: "
+        f"{results['training_sequences_per_second']:.2f} seq/s, accuracy "
+        f"{results['accuracy']:.4f}; final save {glue_write['bytes']} bytes "
+        f"on {card}")
+
+    # -- 16d: serving -----------------------------------------------------
+    t0 = time.perf_counter()
+    requests = roberta_requests()
+    rng = np.random.default_rng(17)
+    wave = [requests[i] for i in rng.permutation(len(requests))[:16]]
+    served, engine = serve_waves(
+        serve_args(vocab, "bfloat16", "flash_infer", "classify,fill_mask",
+                   ["--classify_checkpoint", glue_out,
+                    "--fill_mask_checkpoint", saved, "--uppercase"],
+                   config=config),
+        [wave] + [[r] for r in requests], kernels, keep_bodies=True)
+    check_launches(served, "flash_attention_infer", [
+        n for n in kernels if n != "flash_attention_infer"])
+    answers = served.pop("bodies")[len(wave):]
+    fill = [i for i, (task, _) in enumerate(requests) if task == "fill_mask"]
+    refs = dict(zip(fill, fill_mask_reference(
+        engine, [requests[i][1] for i in fill])))
+    fill_err = max(check_fill_mask(answers[i], refs[i], f"16d request {i}")
+                   for i in fill)
+    # Each slot's token is the BPE decode of its id: the vocab entry for
+    # an id the trained vocab holds, "" for a row past it (the model keeps
+    # the published vocab's 50265 rows).
+    by_id = {i: t for t, i in vocab_tokens.items()}
+    slots = [s for i in fill for m in answers[i]["masks"] for s in m]
+    bad = [s for s in slots if s["token"] != by_id.get(s["id"], "")
+           or s["token"] != tokenizer.id_to_token(s["id"])]
+    if bad or not slots:
+        raise AssertionError(f"16d: fill_mask slots not decoded by the BPE "
+                             f"vocab: {bad[:5]}")
+    in_vocab = sum(s["id"] in by_id for s in slots)
+    # Random weights put few top-k ids inside the small trained vocab, so
+    # the decode is also held on logits whose top-k are known.
+    known = check_known_decode(engine, requests[fill[-1]][1], by_id)
+    example = glue.PROCESSORS["mrpc"]().get_dev_examples(mrpc)[0]
+    payload = {"text": example.text_a, "text_pair": example.text_b}
+    row = glue.features_to_arrays(glue.convert_examples_to_features(
+        [example], tokenizer, FT_SEQ, glue.PROCESSORS["mrpc"].labels), False)
+    spec = engine.tasks["classify"]
+    features = spec.handler.prepare(payload, engine.max_len())
+    n = int(row["input_mask"][0].sum())
+    if list(features["input_ids"])[:n] != row["input_ids"][0][:n].tolist():
+        raise AssertionError("16d: the server tokenizes the dev row "
+                             "differently from run_glue")
+    plan = engine.plan_batch([Request("classify", features, payload)],
+                             packed=False)
+    served_logits = torch.as_tensor(np.asarray(
+        engine.execute("classify", plan)[0][0], np.float32)).reshape(-1)
+    with torch.no_grad():
+        t = {k: torch.from_numpy(v).long().cuda() for k, v in row.items()}
+        runner_logits = glue_model(t["input_ids"], t["segment_ids"],
+                                   t["input_mask"]).float().cpu()[0]
+    err = (served_logits - runner_logits).abs().max().item()
+    if not err <= GLUE_SERVE_ATOL:
+        raise AssertionError(f"16d: served logits {served_logits.tolist()} "
+                             f"vs the GLUE model's {runner_logits.tolist()}")
+    del engine, glue_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serving"] = dict(served, classify_logit_err=err,
+                          fill_mask_logp_err=fill_err,
+                          fill_mask_slots=len(slots),
+                          fill_mask_slots_in_vocab=in_vocab)
+    out["seconds"]["16d"] = time.perf_counter() - t0
+    log(f"[roberta 16d] run_server classify,fill_mask (flash_infer, bf16) "
+        f"from 16c's and 16b's checkpoints: {served['requests']} requests "
+        f"over {served['forwards']} forwards, p50 {served['p50_ms']:.1f} ms,"
+        f" max {served['max_ms']:.1f} ms; classify logits vs the GLUE model "
+        f"max |d| {err:.3e} (atol {GLUE_SERVE_ATOL:g}); fill_mask top-k vs "
+        f"dense attention max |d log p| {fill_err:.3e} (atol "
+        f"{FILL_MASK_LOGP_ATOL:g}); {in_vocab} of {len(slots)} fill_mask "
+        f"slots inside the trained vocab; known top-k {known} decoded "
+        f"{[by_id[i] for i in known]} on {card}")
+
+    # -- 16e: batch_infer -------------------------------------------------
+    t0 = time.perf_counter()
+    request_file = os.path.join(work, "requests.jsonl")
+    with open(request_file, "w", encoding="utf-8") as f:
+        for i, (task, payload) in enumerate(requests):
+            f.write(json.dumps({"id": i, "task": task, "payload": payload})
+                    + "\n")
+    scored = os.path.join(work, "scored.jsonl")
+    plans = []
+    plan_batch = InferenceEngine.plan_batch
+
+    def recording(engine, todo, packed=None):
+        plan = plan_batch(engine, todo, packed)
+        plans.append((plan.requests[0].task, len(plan.requests),
+                      plan.bucket, plan.packed))
+        return plan
+
+    InferenceEngine.plan_batch = recording
+    zero_counts(kernels)
+    try:
+        stats = batch_infer.main([
+        "--input", request_file, "--output", scored,
+        "--model_config_file", config, "--vocab_file", vocab,
+        "--device", "cuda", "--dtype", "bfloat16",
+        "--attention_backend", "flash_infer",
+        "--tasks", "classify,fill_mask", "--buckets", "128,512",
+        "--max_batch_size", "8", "--pack_requests", "--uppercase",
+        "--classify_checkpoint", glue_out, "--fill_mask_checkpoint", saved])
+    finally:
+        InferenceEngine.plan_batch = plan_batch
+    batch_launches = {name: k.launches for name, k in kernels.items()}
+    with open(scored, encoding="utf-8") as f:
+        lines = [json.loads(line) for line in f]
+    if (stats["errors"] or len(lines) != len(requests)
+            or [line["id"] for line in lines] != list(range(len(requests)))
+            or sum(n for _, n, _, _ in plans) != len(requests)
+            or max(n for _, n, _, _ in plans) < 2):
+        raise AssertionError(f"16e: {stats}; plans (task, requests, bucket, "
+                             f"packed) {plans}")
+    fill_err_e, swaps, cls_err = check_offline_answers(
+        [line["result"] for line in lines], answers, refs)
+    want_infer = layers * stats["forwards"]
+    if batch_launches["flash_attention_infer"] != want_infer or any(
+            v for n, v in batch_launches.items()
+            if n != "flash_attention_infer"):
+        raise AssertionError(f"16e launches {batch_launches}; expected "
+                             f"{want_infer} of #4 over {stats['forwards']} "
+                             "forwards")
+    out["batch_infer"] = dict(stats, launches=batch_launches, plans=plans,
+                              fill_mask_logp_err=fill_err_e,
+                              fill_mask_swaps=swaps,
+                              classify_logp_err=cls_err)
+    out["seconds"]["16e"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"[roberta 16e] batch_infer: {stats['requests']} requests in plans "
+        f"(task, requests, bucket, packed) {plans}; against 16d's answers "
+        f"classify max |d log p| {cls_err:.3e} (atol "
+        f"{2 * GLUE_SERVE_ATOL:g}), fill_mask max |d log p| vs dense "
+        f"{fill_err_e:.3e}, {swaps} top-k ranks swapped at ties; "
+        f"{stats['forwards']} forwards (warmup included), "
+        f"#4 {want_infer} launches ({layers} per forward), wall "
+        f"{stats['wall_s']} s; phase 16 seconds "
+        f"{ {k: round(v, 2) for k, v in out['seconds'].items()} } on {card}")
+    return out
 
 
 def main() -> int:
@@ -4654,6 +5233,8 @@ def main() -> int:
             f"{squad16['peak_gib']:.1f} GiB on {card}")
         torch.cuda.empty_cache()
         feed = drive_feed(kernels, tmp, card)
+        torch.cuda.empty_cache()
+        roberta = drive_roberta(kernels, tmp, card)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -4684,12 +5265,20 @@ def main() -> int:
         if entry["name"] == "flash_attention_fwd":
             entry["launches_feed_eval"] = feed["held_out_launches"][
                 "flash_attention_fwd"]
+        # Phase 16 runs bf16 too.
+        entry["launches_roberta"] = (
+            0 if entry["name"].endswith("_fp16") else
+            roberta["pretraining"]["launches"][entry["name"]]
+            + roberta["serving"]["launches"][entry["name"]])
+        if entry["name"] == "flash_attention_infer":
+            entry["launches_roberta_batch_infer"] = roberta["batch_infer"][
+                "launches"]["flash_attention_infer"]
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

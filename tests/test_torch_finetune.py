@@ -522,14 +522,33 @@ def test_runner_refuses_what_it_cannot_do(files, runner, tmp_path):
     for flags in (["--dtype", "float16"], ["--compile_cache_dir", "x"]):
         with pytest.raises(SystemExit):
             module.parse_arguments(base + flags)
-    with pytest.raises(ValueError, match="WordPiece"):
+    # BPE is taken: a vocab.json with its merges.txt beside it parses; a
+    # WordPiece vocab.txt or a vocab.json without its merges.txt is refused
+    # by name at parsing, before any weights load.
+    bpe = tmp_path / "bpe"
+    bpe.mkdir()
+    (bpe / "vocab.json").write_text(json.dumps({"[PAD]": 0, "a": 1}))
+    with pytest.raises(FileNotFoundError, match="merges.txt"):
+        module.parse_arguments(base + ["--tokenizer", "bpe", "--vocab_file",
+                                       str(bpe / "vocab.json")])
+    (bpe / "merges.txt").write_text("#version: 0.2\n")
+    args = module.parse_arguments(base + ["--tokenizer", "bpe",
+                                          "--vocab_file",
+                                          str(bpe / "vocab.json")])
+    assert (args.tokenizer, args.vocab_file) == ("bpe",
+                                                 str(bpe / "vocab.json"))
+    with pytest.raises(ValueError, match="not a vocab.json"):
         module.parse_arguments(base + ["--tokenizer", "bpe"])
+    # TF checkpoints are taken (tests/test_torch_tf_checkpoint.py loads
+    # one); an .index that is no checkpoint index, and a missing
+    # checkpoint, are refused by name at parsing.
     flag = "--model_checkpoint" if runner == "ner" else "--init_checkpoint"
     tf_prefix = tmp_path / "bert_model.ckpt"
     (tmp_path / "bert_model.ckpt.index").write_text("")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        module.run(module.parse_arguments(base + [flag, str(tf_prefix)]))
-    with pytest.raises(FileNotFoundError):
+    for path in (tf_prefix, tmp_path):
+        with pytest.raises(ValueError, match="not a TF checkpoint index"):
+            module.run(module.parse_arguments(base + [flag, str(path)]))
+    with pytest.raises(FileNotFoundError, match="missing.msgpack"):
         module.run(module.parse_arguments(
             base + [flag, str(tmp_path / "missing.msgpack")]))
     if not torch.cuda.is_available():

@@ -174,3 +174,36 @@ def test_checkpoints_round_trip_without_msgpack_or_ml_dtypes(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_text_path_runs_without_h5py_tensorflow_or_hf_tokenizers(tmp_path):
+    """The text path needs none of h5py, tensorflow or HF ``tokenizers``
+    (the H100 machine has none of them): in a fresh interpreter where they
+    cannot be imported, the tokenizer core trains and encodes, the text
+    tools and the TF reader import, and ``encode_data`` fails only when it
+    writes HDF5."""
+    code = (
+        "import sys\n"
+        "for name in ('h5py', 'tensorflow', 'tokenizers', 'jax'):\n"
+        "    sys.modules[name] = None\n"
+        "from bert_pytorch_tpu_torch.data.tokenization import get_tokenizer\n"
+        "from bert_pytorch_tpu_torch.models import convert, tf_bundle\n"
+        "from bert_pytorch_tpu_torch.tools import (batch_infer, "
+        "build_vocab, encode_data, make_synthetic_text, shard)\n"
+        f"root = {str(tmp_path)!r}\n"
+        "files = make_synthetic_text.write_corpus(root + '/text', 1, 20, 0)\n"
+        "vocab = build_vocab.main(['--input_glob', root + '/text/*.txt', "
+        "'--tokenizer', 'bpe', '--output', root + '/bpe', '--vocab_size', "
+        "'300'])\n"
+        "tok = get_tokenizer('bpe', vocab)\n"
+        "assert tok.encode('the old roads').ids\n"
+        "try:\n"
+        "    encode_data.main(['--input_dir', root + '/text', '--output_dir',"
+        " root + '/h5', '--vocab_file', vocab, '--tokenizer', 'bpe', "
+        "'--processes', '1'])\n"
+        "except ImportError as exc:\n"
+        "    print('ok', exc)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("ok")

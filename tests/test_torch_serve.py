@@ -263,18 +263,32 @@ def test_build_service_pads_vocab_to_multiple_of_8(vocab_file, tmp_path):
 
 
 def test_run_server_refuses_bpe_by_name_before_loading(tmp_path):
-    """A BPE model config (the repo's RoBERTa-large) is refused at argument
-    parsing, naming the ROADMAP item, before any vocab or weight is read;
-    so is ``--tokenizer bpe`` on a WordPiece config."""
-    with pytest.raises(ValueError,
-                       match="bpe.*WordPiece.*The rest of finetuning"):
+    """A BPE model config (the repo's RoBERTa-large) is taken, its vocab
+    refused by name at argument parsing when the file is missing, before
+    any weight is read: the config's own ``data/vocab/bpe-vocab.json`` is
+    not in the repo. A ``vocab.json`` with its ``merges.txt`` parses as
+    ``bpe``; ``--tokenizer bpe`` on a WordPiece ``.txt`` is refused."""
+    with pytest.raises(FileNotFoundError, match="bpe-vocab.json"):
         run_server.parse_arguments([
             "--model_config_file", "configs/roberta_large_cased_config.json",
             "--device", "cpu"])
+    bpe = tmp_path / "bpe"
+    bpe.mkdir()
+    (bpe / "vocab.json").write_text(json.dumps({"[PAD]": 0, "a": 1}))
+    (bpe / "merges.txt").write_text("#version: 0.2\n")
+    args = run_server.parse_arguments([
+        "--model_config_file", "configs/roberta_large_cased_config.json",
+        "--vocab_file", str(bpe / "vocab.json"), "--device", "cpu"])
+    assert args.tokenizer == "bpe"
+    (bpe / "merges.txt").unlink()
+    with pytest.raises(FileNotFoundError, match="merges.txt"):
+        run_server.parse_arguments([
+            "--model_config_file", "configs/roberta_large_cased_config.json",
+            "--vocab_file", str(bpe / "vocab.json"), "--device", "cpu"])
     cfg_path = tmp_path / "config.json"
     cfg_path.write_text(json.dumps(dict(_config_dict(),
                                         tokenizer="wordpiece")))
-    with pytest.raises(ValueError, match="The rest of finetuning"):
+    with pytest.raises(ValueError, match="not a vocab.json"):
         run_server.parse_arguments([
             "--model_config_file", str(cfg_path), "--vocab_file",
             str(tmp_path / "missing.txt"), "--tokenizer", "bpe"])
@@ -297,8 +311,8 @@ def test_run_server_case_follows_the_jax_rule(vocab_file, tmp_path,
     served = handlers["fill_mask"].handler.tokenizer
     text = "Paris IS the Capital of London"
     jax_tok = JaxTokenizer(vocab_file, do_lower_case=not uppercase)
-    assert served.tokenize(text) == jax_tok.tokenize(text)
-    assert ("paris" in served.tokenize(text)) != uppercase
+    assert served.encode(text).tokens == jax_tok.tokenize(text)
+    assert ("paris" in served.encode(text).tokens) != uppercase
     assert handlers["squad"].handler.do_lower_case == (not uppercase)
 
 
@@ -657,6 +671,26 @@ def test_swapz_swaps_the_served_head(vocab_file, head_checkpoints,
         service.stop()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def test_slow_forward_fault_holds_every_forward(vocab_file,
+                                                head_checkpoints):
+    """``slow_forwardxMS`` sleeps MS milliseconds after each forward,
+    inside its timed span, and leaves every answer as it was."""
+    engine = _classify_engine(vocab_file, head_checkpoints["classify"])
+    payloads = PAYLOADS["classify"][:2]
+    want = [engine.run_direct("classify", p) for p in payloads]
+    faults.arm("slow_forwardx150")
+    try:
+        t0 = time.perf_counter()
+        got = [engine.run_direct("classify", p) for p in payloads]
+        held = time.perf_counter() - t0
+    finally:
+        faults.arm("")
+    assert got == want
+    assert held >= 2 * 0.15
+    with pytest.raises(faults.FaultSpecError, match="slow_forward"):
+        faults.FaultPlan("slow_walk")
 
 
 def test_run_server_checkpoint_flags(vocab_file, head_checkpoints,

@@ -440,9 +440,10 @@ def test_load_pretrained_encoder_reads_torch_archives(jax_pretraining_params,
     """A .bin file and a directory with pytorch_model.bin (under the
     reference's ``{"model": ...}`` layout) put the encoder under a QA model
     and leave its head alone; TF checkpoints (a directory without
-    pytorch_model.bin, a prefix with its .index file) raise with a pointer
-    to ROADMAP.md. The JAX package's msgpack checkpoints load:
-    tests/test_torch_checkpoint.py."""
+    pytorch_model.bin, a prefix with its .index file) are read when the
+    .index is a checkpoint index (tests/test_torch_tf_checkpoint.py) and
+    refused by name when it is not. The JAX package's msgpack checkpoints
+    load: tests/test_torch_checkpoint.py."""
     cfg = BertConfig(**CONFIG)
     exported = {k: torch.from_numpy(np.array(v)) for k, v in
                 jax_convert.export_torch_state_dict(
@@ -463,8 +464,13 @@ def test_load_pretrained_encoder_reads_torch_archives(jax_pretraining_params,
         torch.testing.assert_close(model.qa_outputs.weight.detach(), head)
     (tmp_path / "bert_model.ckpt.index").write_bytes(b"")
     for bad in (str(tmp_path / "bert_model.ckpt"), str(tmp_path)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="bert_model.ckpt.index is not "
+                                             "a TF checkpoint index"):
             load_pretrained_encoder(bad, cfg, model)
+    (tmp_path / "bert_model.ckpt.index").unlink()
+    with pytest.raises(FileNotFoundError, match="no pytorch_model.bin and "
+                                                "no bert_model.ckpt.index"):
+        load_pretrained_encoder(str(tmp_path), cfg, model)
 
 
 @pytest.mark.parametrize("optimizer,version,layer_norm_backend", [
@@ -537,9 +543,12 @@ def test_runner_command_line_exits_zero(tiny_config, tmp_path):
 def test_runner_refuses_what_it_cannot_do(tiny_config, tmp_path):
     base = _run_args(tmp_path, tiny_config, "--train_file",
                      tiny_config["v1"], "--do_train")
-    for flags in (["--tokenizer", "bpe"], ["--mesh_data", "1"]):
-        with pytest.raises(SystemExit):
-            run_squad.parse_args(base + flags)
+    with pytest.raises(SystemExit):
+        run_squad.parse_args(base + ["--mesh_data", "1"])
+    # --tokenizer bpe is taken; on the WordPiece vocab.txt it is refused by
+    # name at parsing (a BPE vocab is a vocab.json with merges.txt beside).
+    with pytest.raises(ValueError, match="not a vocab.json"):
+        run_squad.parse_args(base + ["--tokenizer", "bpe"])
     # fp16 and its loss scale are ported (tests/test_torch_fp16.py).
     args = run_squad.parse_args(base + ["--dtype", "float16",
                                         "--init_loss_scale", "2"])
