@@ -176,16 +176,21 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def open_telemetry(args, prefix: str, device, seq_per_step: int,
-                   flops_per_seq: float):
+                   flops_per_seq: float, is_primary: bool = True,
+                   n_devices: int = 1):
     """The finetune runners' telemetry facade (JAX run_glue.py:124-129,
     209-219; run_squad's too): its JSONL sink at ``--telemetry_jsonl``,
     else ``<output_dir>/<prefix>_telemetry.jsonl``, else none; ``prefix``
-    also names the process in the debug plane and the postmortem."""
+    also names the process in the debug plane and the postmortem. Of a
+    run's ranks only the primary writes (``is_primary``); MFU is per card
+    over ``n_devices``."""
     path = telemetry.default_jsonl_path(args, args.output_dir, prefix)
     return telemetry.from_args(
-        args, sink=logging_util.JSONLHandler(path) if path else None,
+        args, sink=(logging_util.JSONLHandler(path, is_primary=is_primary)
+                    if path else None),
         seq_per_step=seq_per_step, flops_per_seq=flops_per_seq,
-        output_dir=args.output_dir or None, device=device, process=prefix)
+        output_dir=args.output_dir or None, device=device, process=prefix,
+        is_primary=is_primary, n_devices=n_devices)
 
 
 def save(output_dir: str, step: int, model: torch.nn.Module,

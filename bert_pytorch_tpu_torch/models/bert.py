@@ -669,6 +669,24 @@ def draw_dropout_seeds(generator: torch.Generator,
     return [int(x) for x in draws.tolist()]
 
 
+# An odd 64-bit constant (the golden ratio's) that spreads rank r's fold.
+_RANK_FOLD = 0x9E3779B97F4A7C15
+
+
+def fold_dropout_seeds(seeds: Sequence[int], rank: int) -> Sequence[int]:
+    """Rank ``rank``'s dropout seeds from one forward's draw: rank 0 keeps
+    the draw unchanged (so a one-rank run is the single-process run), any
+    other rank folds its index into each seed. The kernels key their
+    Philox masks by the seed and the LOCAL batch coordinates, so ranks
+    with the same seeds would drop the same positions of different
+    examples (the JAX overlap step folds the shard index for the same
+    reason, pretrain.py:250-255)."""
+    if rank == 0:
+        return list(seeds)
+    return [(s ^ ((rank * _RANK_FOLD) & (2 ** 64 - 1))) % (2 ** 61)
+            for s in seeds]
+
+
 class BertForMaskedLM(nn.Module):
     """MLM only; parity with modeling.py:950-1008. ``sequence_ids`` selects
     the packed-row path (block-diagonal attention, position restart)."""

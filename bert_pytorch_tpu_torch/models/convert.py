@@ -183,23 +183,44 @@ _ATTENTION_IN = ("attention.query", "attention.key", "attention.value")
 _LAYER = re.compile(r"bert\.encoder\.layers\.(\d+)\.(.+)")
 
 
-def _jax_leaf(module: str, name: str, value: torch.Tensor, heads: int):
-    """(flax leaf name, JAX-layout tensor) of one port leaf: the inverse
-    of :func:`_leaf`."""
+def _jax_layout(module: str, name: str):
+    """How one port leaf lies in the JAX layout, the inverse of
+    :func:`_leaf`: (flax leaf name, transposed to [in, out], the axis of
+    the transposed tensor that splits into (heads, head_dim) or None).
+    The one table :func:`_jax_leaf` (whole tensors) and :func:`jax_slices`
+    (row shards) both read."""
     if name in ("weight", "weight_q"):
+        kernel = "kernel" if name == "weight" else "kernel_q"
         if module.endswith("_embeddings"):
-            return "embedding", value
-        kernel = value.t().contiguous()  # [in, out]
+            return "embedding", False, None
         if module.endswith(_ATTENTION_IN):
-            kernel = kernel.reshape(kernel.shape[0], heads, -1)
-        elif module.endswith("attention.output"):
-            kernel = kernel.reshape(heads, -1, kernel.shape[-1])
-        return ("kernel" if name == "weight" else "kernel_q"), kernel
+            return kernel, True, 1  # [in, heads, hd]
+        if module.endswith("attention.output"):
+            return kernel, True, 0  # [heads, hd, out]
+        return kernel, True, None
     if name == "weight_scale":
-        return "kernel_scale", value
+        return "kernel_scale", False, None
     if name == "bias" and module.endswith(_ATTENTION_IN):
-        return name, value.reshape(heads, -1)
-    return name, value
+        return name, False, 0  # [heads, hd]
+    return name, False, None
+
+
+def _arrange(value: torch.Tensor, transposed: bool, split, heads: int):
+    """``value`` laid out as :func:`_jax_layout` says, its ``split`` axis
+    cut into ``heads`` heads."""
+    if transposed:
+        value = value.t().contiguous()
+    if split is not None:
+        shape = list(value.shape)
+        shape[split:split + 1] = [heads, shape[split] // heads]
+        value = value.reshape(shape)
+    return value
+
+
+def _jax_leaf(module: str, name: str, value: torch.Tensor, heads: int):
+    """(flax leaf name, JAX-layout tensor) of one port leaf."""
+    jname, transposed, split = _jax_layout(module, name)
+    return jname, _arrange(value, transposed, split, heads)
 
 
 def _put(tree: dict, path, value) -> None:
@@ -242,6 +263,48 @@ def to_jax_params(state: Dict[str, torch.Tensor], config: BertConfig,
     return tree
 
 
+def jax_slices(key: str, rows: torch.Tensor, row_start: int,
+               config: BertConfig):
+    """Where rows ``[row_start, row_start + len(rows))`` (dimension 0) of
+    the port tensor ``key`` land in its JAX leaf: (the leaf's flax path,
+    ``[(start, limit, data)]`` windows of the leaf in the JAX layout, as
+    :func:`to_jax_params` lays the whole tensor out, read from the same
+    :func:`_jax_layout`). What a rank's FSDP shard writes into a sharded
+    checkpoint's slice records. A stacked encoder leaf's windows start at
+    the layer's index on its ``L`` axis; rows that split into heads (the
+    attention in-projection and its bias) give one window per head they
+    touch."""
+    module, _, name = key.rpartition(".")
+    heads = config.num_attention_heads
+    jname, transposed, split = _jax_layout(module, name)
+    axis = 1 if transposed else 0  # where dimension 0 lies once arranged
+    r0, r1 = row_start, row_start + rows.shape[0]
+    if split == axis:  # one window per head: (head, offset in the head)
+        hd = config.hidden_size // heads
+        runs = [(max(r0, h * hd), min(r1, (h + 1) * hd), h)
+                for h in range(r0 // hd, -(-r1 // hd))]
+    else:
+        runs = [(r0, r1, None)]
+    windows = []
+    for a, b, h in runs if r1 > r0 else ():
+        data = _arrange(rows[a - r0:b - r0], transposed, split,
+                        heads if h is None else 1)
+        start = [0] * data.dim()
+        if h is not None:
+            start[axis:axis + 2] = [h, a - h * hd]
+        else:
+            start[axis + (split is not None and split < axis)] = a
+        windows.append((start, [s + n for s, n in zip(start, data.shape)],
+                        data))
+    match = _LAYER.fullmatch(module)
+    if match is None:
+        return tuple(module.split(".")) + (jname,), windows
+    layer = int(match.group(1))
+    path = STACKED_PATH + tuple(match.group(2).split(".")) + (jname,)
+    return path, [([layer] + start, [layer + 1] + limit, data[None])
+                  for start, limit, data in windows]
+
+
 def optimizer_to_jax(model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer, config: BertConfig,
                      head: str, keep_device: bool = False) -> dict:
@@ -251,10 +314,15 @@ def optimizer_to_jax(model: torch.nn.Module,
     "nu": second moments}``, the moments of each parameter under its
     params name and layout (:func:`to_jax_params`). A ``DynamicLossScale``
     (fp16) writes the JAX ``LossScaleState`` around it: ``{"scale": f32,
-    "growth_count": i32, "inner": OptState}``."""
+    "growth_count": i32, "inner": OptState}``. Under FSDP each moment is
+    gathered whole first (a collective per sharded parameter: every rank
+    calls this)."""
     from bert_pytorch_tpu_torch.optim import transforms
+    from bert_pytorch_tpu_torch.parallel.sharding import gather_like
 
-    mu, nu = transforms.moments(optimizer, dict(model.named_parameters()))
+    params = dict(model.named_parameters())
+    mu, nu = ({n: gather_like(t, params[n]) for n, t in moments.items()}
+              for moments in transforms.moments(optimizer, params))
     tree = {"count": np.asarray(transforms.opt_step_count(optimizer),
                                 np.int32),
             "mu": to_jax_params(mu, config, head, keep_device),

@@ -37,7 +37,10 @@ run_pretraining.py:320-355; SURVEY.md §2.2).
 
 The state's tensors are updated in place (the JAX methods return a new
 state); each method returns the state too, so call sites read as the JAX
-ones. ``kfac_state_shardings`` is not ported (ROADMAP.md, "Multi-GPU layouts").
+ones. K-FAC runs on one rank: the data-parallel and fully-sharded steps
+(pretrain.py ``DataParallel``) are ported, but K-FAC's factor all-reduce
+and ``kfac_state_shardings`` are not, so ``--kfac`` at a world size above
+1 is refused (ROADMAP.md, "Multi-GPU layouts").
 """
 
 from __future__ import annotations

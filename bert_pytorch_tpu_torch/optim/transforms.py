@@ -28,6 +28,13 @@ semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
 * Weight decay applies per param group: :func:`param_groups` splits a
   model's parameters with :func:`no_decay_mask`, the counterpart of the
   JAX ``weight_decay_mask``.
+* Under FSDP (parallel/sharding.py) each parameter is a ``DTensor`` of
+  which this rank holds a shard: the moments are kept for the shard, the
+  update is the shard's, and every norm (the global clip, each leaf's
+  trust ratio or clip) is a local sum of squares added over the shard
+  group in one all-reduce of one vector for all leaves (LAMB needs two
+  per step: the clip norm with the parameter norms before the moments
+  move, the update norms after), never one collective per tensor.
 
 * fp16 training wraps any of them in :class:`DynamicLossScale`, the
   counterpart of the JAX ``dynamic_loss_scale`` (GradScaler semantics):
@@ -45,16 +52,25 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.optim import schedules
+from bert_pytorch_tpu_torch.parallel.sharding import (all_finite_across_ranks,
+                                                      local, local_rows,
+                                                      shard_group,
+                                                      sum_over_shards)
 
 LearningRate = Union[float, Callable[[int], float]]
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every tensor, accumulated in fp32."""
+    """L2 norm over every tensor, accumulated in fp32; over FSDP shards,
+    the local sums of squares added over the shard group (one
+    all-reduce)."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    group = shard_group(tensors)
+    sq = sum(local(t).float().square().sum() for t in tensors)
+    return torch.sqrt(sum_over_shards(sq.reshape(1), group)[0]
+                      if group is not None else sq)
 
 
 def no_decay_mask(named_parameters) -> Dict[str, bool]:
@@ -96,7 +112,8 @@ def param_groups(model: torch.nn.Module, weight_decay: float) -> List[dict]:
 
 def _stack_norms(group, tensors) -> Dict[object, torch.Tensor]:
     """The L2 norm of each of ``group``'s JAX leaves over ``tensors`` (one
-    per parameter of the group, in order), accumulated in fp32."""
+    per parameter of the group, in order, whole tensors), accumulated in
+    fp32."""
     keys = group.get("stacks") or range(len(group["params"]))
     members: Dict[object, list] = {}
     for key, t in zip(keys, tensors):
@@ -105,6 +122,37 @@ def _stack_norms(group, tensors) -> Dict[object, torch.Tensor]:
     return {key: norms[0] if len(norms) == 1
             else torch.linalg.vector_norm(torch.stack(norms))
             for key, norms in members.items()}
+
+
+def _leaf_sumsq(group, tensors) -> Dict[object, torch.Tensor]:
+    """The local sum of squares of each of ``group``'s JAX leaves over
+    ``tensors`` (this rank's shards), fp32."""
+    keys = group.get("stacks") or range(len(group["params"]))
+    members: Dict[object, list] = {}
+    for key, t in zip(keys, tensors):
+        members.setdefault(key, []).append(
+            torch.linalg.vector_norm(t.float()).square())
+    return {key: torch.stack(sq).sum() for key, sq in members.items()}
+
+
+def _leaf_norms(groups, tensors, shards, extra=()):
+    """Per param group, ``{leaf: L2 norm}`` of ``tensors`` (one list per
+    group). Whole tensors (``shards`` None) take :func:`_stack_norms`;
+    shards sum their leaves' squares over the shard group in ONE
+    all-reduce for every leaf of every group, with the scalars of
+    ``extra`` (local sums of squares) riding in the same vector. Returns
+    (norms per group, the square roots of ``extra`` summed)."""
+    if shards is None:
+        return ([_stack_norms(g, ts) for g, ts in zip(groups, tensors)],
+                [torch.sqrt(e) for e in extra])
+    local_sq = [_leaf_sumsq(g, ts) for g, ts in zip(groups, tensors)]
+    flat = [v for sq in local_sq for v in sq.values()] + list(extra)
+    total = torch.sqrt(sum_over_shards(torch.stack(flat), shards))
+    out, i = [], 0
+    for sq in local_sq:
+        out.append(dict(zip(sq.keys(), total[i:i + len(sq)])))
+        i += len(sq)
+    return out, list(total[i:])
 
 
 def reset_count(optimizer: torch.optim.Optimizer, count: int) -> None:
@@ -127,8 +175,9 @@ def init_state(optimizer: torch.optim.Optimizer) -> None:
         for p in group["params"]:
             state = optimizer.state[p]
             if not state:
-                state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-                state["exp_avg_sq"] = torch.zeros_like(p,
+                state["exp_avg"] = torch.zeros_like(local(p),
+                                                    dtype=torch.float32)
+                state["exp_avg_sq"] = torch.zeros_like(local(p),
                                                        dtype=torch.float32)
 
 
@@ -136,7 +185,8 @@ def moments(optimizer: torch.optim.Optimizer, named_params: Dict[
         str, torch.nn.Parameter]) -> Tuple[Dict[str, torch.Tensor],
                                            Dict[str, torch.Tensor]]:
     """(exp_avg, exp_avg_sq) by parameter name, the live tensors (created
-    by :func:`init_state` if no step has run)."""
+    by :func:`init_state` if no step has run): under FSDP, this rank's
+    shard of each."""
     init_state(optimizer)
     mu = {n: optimizer.state[p]["exp_avg"] for n, p in named_params.items()}
     nu = {n: optimizer.state[p]["exp_avg_sq"]
@@ -149,8 +199,9 @@ def load_moments(optimizer: torch.optim.Optimizer,
                  named_params: Dict[str, torch.nn.Parameter], count: int,
                  exp_avg: Dict[str, torch.Tensor],
                  exp_avg_sq: Dict[str, torch.Tensor]) -> None:
-    """Set every parameter's moments (by name) and the step count; a name
-    missing from either dict raises ``KeyError`` before anything is set."""
+    """Set every parameter's moments (by name, whole tensors; under FSDP
+    each rank takes its shard's rows) and the step count; a name missing
+    from either dict raises ``KeyError`` before anything is set."""
     missing = sorted(n for n in named_params
                      if n not in exp_avg or n not in exp_avg_sq)
     if missing:
@@ -159,8 +210,8 @@ def load_moments(optimizer: torch.optim.Optimizer,
     init_state(optimizer)
     for name, p in named_params.items():
         state = optimizer.state[p]
-        state["exp_avg"].copy_(exp_avg[name])
-        state["exp_avg_sq"].copy_(exp_avg_sq[name])
+        state["exp_avg"].copy_(local_rows(exp_avg[name], p))
+        state["exp_avg_sq"].copy_(local_rows(exp_avg_sq[name], p))
     reset_count(optimizer, count)
 
 
@@ -178,8 +229,9 @@ class _Adam(torch.optim.Optimizer):
             weight_decay=weight_decay, count=0))
 
     def _updates(self, group, grads):
-        """Advance the moments of ``group`` with ``grads``; yields (param,
-        fp32 update before the lr) and sets ``group["lr"]``."""
+        """Advance the moments of ``group`` with ``grads`` (local shards);
+        yields (param, fp32 update of its shard before the lr) and sets
+        ``group["lr"]``."""
         count = group["count"]
         group["lr"] = float(self.schedule(count))
         b1, b2 = group["betas"]
@@ -190,25 +242,27 @@ class _Adam(torch.optim.Optimizer):
         for p, g in zip(group["params"], grads):
             state = self.state[p]
             if not state:
-                state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-                state["exp_avg_sq"] = torch.zeros_like(p,
+                state["exp_avg"] = torch.zeros_like(local(p),
+                                                    dtype=torch.float32)
+                state["exp_avg_sq"] = torch.zeros_like(local(p),
                                                        dtype=torch.float32)
             m, v = state["exp_avg"], state["exp_avg_sq"]
-            g = g.float()
+            g = local(g).float()
             m.mul_(b1).add_((1.0 - b1) * g)
             v.mul_(b2).add_((1.0 - b2) * g.square())
             upd = (m / c1) / (torch.sqrt(v / c2) + group["eps"])
             if group["weight_decay"] > 0:
-                upd = upd + group["weight_decay"] * p.float()
+                upd = upd + group["weight_decay"] * local(p).float()
             yield p, upd
         group["count"] = count + 1
 
     @staticmethod
     def _apply(p, delta, updates) -> None:
-        """``p += delta``; ``delta`` kept in ``updates`` under ``p`` when a
-        dict is given (the update each parameter received, before it is
-        rounded into the parameter: what the grad-health block reads)."""
-        p.add_(delta)
+        """``p += delta`` (on this rank's shard); ``delta`` kept in
+        ``updates`` under ``p`` when a dict is given (the update each
+        parameter received, before it is rounded into the parameter: what
+        the grad-health block reads)."""
+        local(p).add_(delta)
         if updates is not None:
             updates[p] = delta
 
@@ -231,21 +285,33 @@ class Lamb(_Adam):
     def step(self, closure=None, updates=None):
         if closure is not None:
             raise ValueError("Lamb.step takes no closure")
-        grads = [[torch.zeros_like(p) if p.grad is None else p.grad
-                  for p in group["params"]] for group in self.param_groups]
-        if self.max_grad_norm is not None and self.max_grad_norm > 0:
-            norm = global_norm(g for group in grads for g in group)
-            scale = torch.clamp(self.max_grad_norm / (norm + 1e-6), max=1.0)
+        groups = self.param_groups
+        shards = shard_group(p for g in groups for p in g["params"])
+        grads = [[torch.zeros_like(local(p)) if p.grad is None
+                  else local(p.grad) for p in group["params"]]
+                 for group in groups]
+        clip = self.max_grad_norm is not None and self.max_grad_norm > 0
+        params = [[local(p) for p in g["params"]] for g in groups]
+        # The clip norm and every leaf's parameter norm (over shards, in
+        # one all-reduce: the parameters do not move before the update).
+        p_norms, clip_norm = _leaf_norms(
+            groups, params, shards,
+            [sum(g.float().square().sum() for group in grads
+                 for g in group)] if clip else [])
+        if clip:
+            scale = torch.clamp(self.max_grad_norm / (clip_norm[0] + 1e-6),
+                                max=1.0)
             grads = [[g * scale for g in group] for group in grads]
-        for group, group_grads in zip(self.param_groups, grads):
-            # The trust ratio of each JAX leaf needs all of its layers'
-            # parameters and updates before any of them moves.
-            pairs = list(self._updates(group, group_grads))
-            p_norms = _stack_norms(group, [p for p, _ in pairs])
-            u_norms = _stack_norms(group, [u for _, u in pairs])
-            keys = group.get("stacks") or range(len(pairs))
-            for key, (p, upd) in zip(keys, pairs):
-                p_norm, u_norm = p_norms[key], u_norms[key]
+        # The trust ratio of each JAX leaf needs all of its layers'
+        # parameters and updates before any of them moves.
+        pairs = [list(self._updates(group, group_grads))
+                 for group, group_grads in zip(groups, grads)]
+        u_norms = _leaf_norms(groups, [[u for _, u in gp] for gp in pairs],
+                              shards)[0]
+        for i, group in enumerate(groups):
+            keys = group.get("stacks") or range(len(pairs[i]))
+            for key, (p, upd) in zip(keys, pairs[i]):
+                p_norm, u_norm = p_norms[i][key], u_norms[i][key]
                 ratio = torch.where((p_norm > 0) & (u_norm > 0),
                                     p_norm / u_norm, torch.ones_like(p_norm))
                 if self.trust_clip is not None:
@@ -270,8 +336,8 @@ class AdamW(_Adam):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
         for group in self.param_groups:
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in group["params"]]
+            grads = [torch.zeros_like(local(p)) if p.grad is None
+                     else local(p.grad) for p in group["params"]]
             for p, upd in self._updates(group, grads):
                 self._apply(p, (-group["lr"] * upd).to(p.dtype), updates)
 
@@ -311,16 +377,21 @@ class BertAdam(_Adam):
     def step(self, closure=None, updates=None):
         if closure is not None:
             raise ValueError("BertAdam.step takes no closure")
-        for group in self.param_groups:
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in group["params"]]
-            if self.max_grad_norm > 0:
-                norms = _stack_norms(group, grads)
-                keys = group.get("stacks") or range(len(grads))
-                grads = [g * torch.clamp(
-                    self.max_grad_norm / (norms[key] + 1e-6),
-                    max=1.0).to(g.dtype) for key, g in zip(keys, grads)]
-            for p, upd in self._updates(group, grads):
+        groups = self.param_groups
+        shards = shard_group(p for g in groups for p in g["params"])
+        grads = [[torch.zeros_like(local(p)) if p.grad is None
+                  else local(p.grad) for p in group["params"]]
+                 for group in groups]
+        if self.max_grad_norm > 0:
+            # Every leaf's clip norm, in one all-reduce under FSDP.
+            norms = _leaf_norms(groups, grads, shards)[0]
+            for i, group in enumerate(groups):
+                keys = group.get("stacks") or range(len(grads[i]))
+                grads[i] = [g * torch.clamp(
+                    self.max_grad_norm / (norms[i][key] + 1e-6),
+                    max=1.0).to(g.dtype) for key, g in zip(keys, grads[i])]
+        for group, group_grads in zip(groups, grads):
+            for p, upd in self._updates(group, group_grads):
                 self._apply(p, (-group["lr"] * upd).to(p.dtype), updates)
 
 
@@ -342,10 +413,12 @@ class DynamicLossScale:
       the count resets to 0.
 
     The skip is decided on the host: one read of one device scalar per
-    step. ``param_groups`` and ``state`` are the inner optimizer's, so
-    :func:`reset_count`, :func:`opt_step_count`, :func:`moments` and
-    :func:`load_moments` see through the wrapper and the scale survives
-    the phase switch."""
+    step. Under FSDP each rank sees its shards' gradients only, so the
+    flag is agreed over every rank (a MIN all-reduce): one rank never
+    skips while another steps. ``param_groups`` and ``state`` are the
+    inner optimizer's, so :func:`reset_count`, :func:`opt_step_count`,
+    :func:`moments` and :func:`load_moments` see through the wrapper and
+    the scale survives the phase switch."""
 
     GROWTH_FACTOR, BACKOFF_FACTOR = 2.0, 0.5
 
@@ -376,8 +449,8 @@ class DynamicLossScale:
         none: its updates are zero)."""
         if closure is not None:
             raise ValueError("DynamicLossScale.step takes no closure")
-        grads = [p.grad for group in self.param_groups
-                 for p in group["params"] if p.grad is not None]
+        params = [p for group in self.param_groups for p in group["params"]]
+        grads = [local(p.grad) for p in params if p.grad is not None]
         inv = float(np.float32(1.0) / np.float32(self.scale))
         finite = True
         if grads:
@@ -385,6 +458,8 @@ class DynamicLossScale:
             # max |g| is finite iff every element is (nan propagates).
             finite = bool(torch.isfinite(torch.stack(
                 torch._foreach_norm(grads, float("inf")))).all())
+        if shard_group(params) is not None:
+            finite = all_finite_across_ranks(finite, local(params[0]).device)
         if finite:
             self.inner.step(updates=updates)
             self.growth_count += 1

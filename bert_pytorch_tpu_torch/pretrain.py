@@ -1,6 +1,6 @@
 """Pretraining engine: the train step (first-order, or preconditioned by
 K-FAC) and the eval step, the port of the JAX package's ``pretrain.py``
-(``make_train_step`` without bucketed overlap, with fp16 loss scaling;
+(``make_train_step`` with fp16 loss scaling and the bucketed overlap;
 ``make_kfac_fns`` as :func:`make_kfac_loss`; ``make_eval_step``;
 ``stack_microbatches``; ``device_prefetch``).
 
@@ -17,18 +17,37 @@ captured in the step's own backward, due inverses, precondition,
 by the loss scale before its backward, and the optimizer (a
 ``DynamicLossScale``) unscales, skips an overflowing step and adjusts the
 scale.
+
+Across ranks (``data_parallel``, a :class:`DataParallel`) the step is the
+JAX step over the GLOBAL batch: each rank holds its rows of every
+microbatch, computes its local loss SUMS, and divides them by the global
+masked-token and NSP counts (one all-reduce of two counts per microbatch,
+no gradient through it; JAX pretrain.py:263-275), so the sum of the
+ranks' gradients is the global-mean gradient whatever masked counts the
+ranks hold. That sum is taken once per optimizer step, after the last
+microbatch: by parallel/overlap.py's reducer (one flat all-reduce, or
+three availability buckets with ``--overlap_grad_reduce``) for replicated
+parameters, by FSDP2's reduce-scatter (a sum) for sharded ones. The
+loss, ``mlm_accuracy`` and ``real_tokens`` are global (one all-reduce of
+the metric sums). Each rank folds its index into the dropout seeds
+(models/bert.py ``fold_dropout_seeds``; rank 0 keeps them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from bert_pytorch_tpu_torch.models.bert import draw_dropout_seeds
-from bert_pytorch_tpu_torch.models.losses import mlm_accuracy, pretraining_loss
+from bert_pytorch_tpu_torch.models.bert import (draw_dropout_seeds,
+                                                fold_dropout_seeds)
+from bert_pytorch_tpu_torch.models.losses import pretraining_loss_sums
+from bert_pytorch_tpu_torch.parallel.mesh import ROADMAP_LAYOUTS
+from bert_pytorch_tpu_torch.parallel.overlap import GradReducer
 from bert_pytorch_tpu_torch.optim.transforms import (DynamicLossScale,
                                                      global_norm)
 from bert_pytorch_tpu_torch.telemetry import model_stats
@@ -48,20 +67,56 @@ def _mlm_positions(labels: torch.Tensor, max_pred_per_seq: Optional[int]):
     return torch.gather(labels, 1, positions), positions
 
 
-def pretraining_loss_and_accuracy(model, mb: Dict[str, torch.Tensor],
-                                  next_sentence: bool,
-                                  max_pred_per_seq: Optional[int],
-                                  dropout_seeds=None):
-    """The shared apply + loss (+ accuracy) of one microbatch."""
+def microbatch_sums(model, mb: Dict[str, torch.Tensor], next_sentence: bool,
+                    max_pred_per_seq: Optional[int], dropout_seeds=None):
+    """The shared apply of one microbatch and its loss sums:
+    ``pretraining_loss_sums``' ``(mlm_sum, mlm_count, nsp_sum,
+    nsp_count, mlm_correct)``."""
     labels, positions = _mlm_positions(mb["masked_lm_labels"],
                                        max_pred_per_seq)
     mlm_logits, nsp_logits = model(
         mb["input_ids"], mb["segment_ids"], mb["input_mask"], positions,
         mb.get("sequence_ids"), mb.get("cls_positions"), dropout_seeds)
-    loss = pretraining_loss(
+    return pretraining_loss_sums(
         mlm_logits, nsp_logits if next_sentence else None, labels,
         mb["next_sentence_labels"] if next_sentence else None)
-    return loss, mlm_accuracy(mlm_logits, labels)
+
+
+def _mean_loss(mlm_sum, nsp_sum, counts: torch.Tensor, next_sentence: bool):
+    """The loss from its sums over ``counts`` [..., 2] (masked, NSP)."""
+    counts = counts.clamp(min=1)
+    loss = mlm_sum / counts[..., 0]
+    if next_sentence:
+        loss = loss + nsp_sum / counts[..., 1]
+    return loss
+
+
+def pretraining_loss_and_accuracy(model, mb: Dict[str, torch.Tensor],
+                                  next_sentence: bool,
+                                  max_pred_per_seq: Optional[int],
+                                  dropout_seeds=None):
+    """The loss and MLM accuracy of one microbatch on its own."""
+    mlm_sum, n_mlm, nsp_sum, n_nsp, correct = microbatch_sums(
+        model, mb, next_sentence, max_pred_per_seq, dropout_seeds)
+    counts = torch.stack([n_mlm, n_nsp]).float()
+    return (_mean_loss(mlm_sum, nsp_sum, counts, next_sentence),
+            correct / counts[0].clamp(min=1))
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """The step's place among the ranks that split each microbatch (all
+    the ranks of the default process group, over which the counts, the
+    metric sums and the replicated gradients reduce): ``rank`` of
+    ``world_size`` (its rows of the batch, its dropout fold), ``fsdp``
+    (the model is FSDP2-sharded: FSDP reduces the gradients) and
+    ``overlap`` (``--overlap_grad_reduce``: bucketed, launched during the
+    last backward)."""
+
+    rank: int = 0
+    world_size: int = 1
+    fsdp: bool = False
+    overlap: bool = False
 
 
 def make_kfac_loss(model: torch.nn.Module, next_sentence: bool = True,
@@ -95,7 +150,8 @@ def make_train_step(model: torch.nn.Module,
                     kfac_inv_interval: int = 0,
                     kfac_capture_microbatches: str = "first",
                     stats_every: int = 0, stats_phase: int = 0,
-                    loss_scale: bool = False):
+                    loss_scale: bool = False,
+                    data_parallel: Optional[DataParallel] = None):
     """Build ``step(batch) -> metrics`` for [A, B, ...] batches
     (input_ids/segment_ids/input_mask/masked_lm_labels [A, B, S],
     next_sentence_labels [A, B] or [A, B, K], and for packed rows
@@ -131,7 +187,22 @@ def make_train_step(model: torch.nn.Module,
     reports the scale the step used, and the grad-health block (when
     ``stats_every`` > 0) runs on every step with its grad norms unscaled.
     An overflowing step's ``grad_norm`` is inf, so ``finite`` is 0 and
-    the sentinel sees it as the JAX runner's does."""
+    the sentinel sees it as the JAX runner's does.
+
+    ``data_parallel`` (a :class:`DataParallel`): ``batch`` holds this
+    rank's rows of each microbatch and the step is the global-batch step
+    of the module docstring; the metrics are global. K-FAC across ranks
+    is refused (its factor all-reduce is not ported), and the overlap
+    composes with neither FSDP nor fp16 loss scaling (the JAX rule)."""
+    dp = data_parallel
+    if dp is not None and kfac is not None:
+        raise NotImplementedError(
+            f"K-FAC across {dp.world_size} ranks: the factor all-reduce and "
+            f"kfac_state_shardings wait for {ROADMAP_LAYOUTS}")
+    if dp is not None and dp.overlap and (dp.fsdp or loss_scale):
+        raise ValueError(
+            "overlap_grad_reduce composes with the plain first-order dp "
+            "path only (no fsdp, no fp16 loss scaling)")
     if kfac is not None and schedule is None:
         raise ValueError("kfac preconditioning requires a schedule")
     if kfac is not None and loss_scale:
@@ -159,6 +230,8 @@ def make_train_step(model: torch.nn.Module,
     generator = generator or torch.Generator().manual_seed(0)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
+    reducer = (GradReducer(named, dp.overlap)
+               if dp is not None and not dp.fsdp else None)
 
     def step(batch: Dict[str, torch.Tensor],
              kfac_state=None) -> Dict[str, torch.Tensor]:
@@ -171,19 +244,34 @@ def make_train_step(model: torch.nn.Module,
         sums = kfac.zero_statistics() if capture else None
         for p in params:
             p.grad = None
-        losses, accs = [], []
+        loss_sums, counts = [], []
         for a in range(accum_steps):
             mb = {key: value[a] for key, value in batch.items()}
             seeds = draw_dropout_seeds(generator, num_layers)
+            if dp is not None:
+                seeds = fold_dropout_seeds(seeds, dp.rank)
+                # The step's one reduction rides the last backward.
+                last = a == accum_steps - 1
+                if dp.fsdp:
+                    model.set_requires_gradient_sync(last)
+                elif last:
+                    reducer.arm()
             tapped = capture and (a == 0
                                   or kfac_capture_microbatches == "all")
             # Armed through the backward: a remat recompute runs the taps.
             with kfac.capture(sums) if tapped else contextlib.nullcontext():
-                loss, acc = pretraining_loss_and_accuracy(
+                mlm_sum, n_mlm, nsp_sum, n_nsp, correct = microbatch_sums(
                     model, mb, next_sentence, max_pred_per_seq, seeds)
+                # The normalizers, from labels alone (no gradient), over
+                # the global microbatch.
+                mb_counts = torch.stack([n_mlm, n_nsp]).float()
+                if dp is not None:
+                    dist.all_reduce(mb_counts)
+                loss = _mean_loss(mlm_sum, nsp_sum, mb_counts, next_sentence)
                 (loss if scale is None else loss * scale).backward()
-            losses.append(loss.detach())
-            accs.append(acc.detach())
+            loss_sums.append(torch.stack([mlm_sum.detach(), nsp_sum.detach(),
+                                          correct.float()]))
+            counts.append(mb_counts)
         if capture:
             shape = batch["input_ids"].shape
             rows = shape[1] * shape[2] * (
@@ -193,6 +281,8 @@ def make_train_step(model: torch.nn.Module,
         if kfac_fused and kfac_inv_interval and (
                 count % kfac_inv_interval == 0):
             kfac.inverse_factors(kfac_state)
+        if reducer is not None:
+            reducer.finish()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -208,14 +298,21 @@ def make_train_step(model: torch.nn.Module,
         health = model_stats.step_with_health(
             optimizer, named, 1 if scale is not None and stats_every > 0
             else stats_every, stats_phase, grad_scale=scale)
-        losses = torch.stack(losses)
+        # Every metric sum of the step, over the ranks in one all-reduce.
+        totals = torch.cat([torch.stack(loss_sums).reshape(-1),
+                            batch["input_mask"].sum().float().reshape(1)])
+        if dp is not None:
+            dist.all_reduce(totals)
+        by_mb = totals[:-1].reshape(accum_steps, 3)
+        counts = torch.stack(counts)
+        losses = _mean_loss(by_mb[:, 0], by_mb[:, 1], counts, next_sentence)
         metrics = {
             "loss": losses.mean(),
-            "mlm_accuracy": torch.stack(accs).float().mean(),
+            "mlm_accuracy": (by_mb[:, 2] / counts[:, 0].clamp(min=1)).mean(),
             "grad_norm": gnorm,
             "finite": (torch.isfinite(losses.sum())
                        & torch.isfinite(gnorm)).float(),
-            "real_tokens": batch["input_mask"].sum().float(),
+            "real_tokens": totals[-1],
         }
         if scale is not None:
             metrics["loss_scale"] = torch.tensor(scale)
@@ -225,23 +322,28 @@ def make_train_step(model: torch.nn.Module,
             metrics["grad_health"] = health
         return metrics
 
+    step.reducer = reducer
     return step
 
 
-def make_eval_step(model: torch.nn.Module, next_sentence: bool = True):
+def make_eval_step(model: torch.nn.Module, next_sentence: bool = True,
+                   data_parallel: Optional[DataParallel] = None):
     """Deterministic forward + loss for held-out evaluation, on every
-    position (no masked-position gather), packed batches included."""
+    position (no masked-position gather), packed batches included. With
+    ``data_parallel`` the batch is this rank's rows and the loss and
+    accuracy are the global batch's (local sums over global counts, one
+    all-reduce)."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]):
-        mlm_logits, nsp_logits = model(
-            batch["input_ids"], batch["segment_ids"], batch["input_mask"],
-            None, batch.get("sequence_ids"), batch.get("cls_positions"))
-        loss = pretraining_loss(
-            mlm_logits, nsp_logits if next_sentence else None,
-            batch["masked_lm_labels"],
-            batch["next_sentence_labels"] if next_sentence else None)
-        return loss, mlm_accuracy(mlm_logits, batch["masked_lm_labels"])
+        sums = torch.stack([v.float() for v in microbatch_sums(
+            model, batch, next_sentence, None)])
+        if data_parallel is not None:
+            dist.all_reduce(sums)
+        mlm_sum, n_mlm, nsp_sum, n_nsp, correct = sums
+        return (_mean_loss(mlm_sum, nsp_sum, torch.stack([n_mlm, n_nsp]),
+                           next_sentence),
+                correct / n_mlm.clamp(min=1))
 
     return eval_step
 

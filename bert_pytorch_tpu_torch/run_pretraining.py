@@ -1,5 +1,6 @@
-"""BERT MLM+NSP pretraining on one GPU: the port of the JAX package's
-``run_pretraining.py``, with its flag names for what it implements.
+"""BERT MLM+NSP pretraining on one GPU or many: the port of the JAX
+package's ``run_pretraining.py``, with its flag names for what it
+implements.
 
     python -m bert_pytorch_tpu_torch.run_pretraining \\
         --config_file configs/bert_pretraining_phase1_config.json \\
@@ -10,6 +11,28 @@
         --model_config_file configs/bert_large_uncased_config.json \\
         --input_dir <dir of seq-512 shards> --output_dir out/ \\
         --previous_phase_end_step 7038
+    torchrun --nproc_per_node 8 -m bert_pytorch_tpu_torch.run_pretraining \\
+        --mesh dp=8 ...                 # or fsdp=8, dp=4,fsdp=2
+
+Across GPUs (parallel/): one process per GPU, launched by torchrun (or
+with the JAX launcher's or SLURM's environment; parallel/launcher.py),
+on ``nccl`` (``gloo`` on the CPU, or when the host's ranks outnumber its
+cards). ``--mesh`` (the JAX grammar, parallel/mesh.py ``MeshSpec``; or the
+legacy ``--parallel_strategy dp|fsdp`` with ``--mesh_data``/``--mesh_fsdp``)
+lays the ranks out as a ``(data, fsdp)`` torch DeviceMesh: ``dp``
+replicates the parameters and sums the gradients once per step (one flat
+all-reduce, or three availability buckets launched during the last
+backward with ``--overlap_grad_reduce``), ``fsdp`` shards them with FSDP2
+(HSDP on a 2-D mesh), and the step is the JAX step over the global batch
+(pretrain.py: local loss sums over global masked counts). Each rank reads
+its part of the index space (``DistributedSampler(num_replicas=world,
+rank=rank)``, ``global_batch_size / world`` rows a step) and masks under
+``seed + rank``; ``local_batch_size`` is per rank, as in the JAX runner.
+Rank 0 prints, logs and writes the telemetry; ``--checkpoint_layout
+sharded`` has every rank write its shard (utils/checkpoint.py), the
+gathered layout gathers to rank 0; a resume goes through
+``agree_on_resume_step``, so the ranks restore one step, and a sharded
+checkpoint resumes at any world size.
 
 A run streams the HDF5 shards (data/dataset.py; dynamic masking, optional
 ``--pack_sequences``), stacks each global batch into ``accumulation_steps
@@ -103,9 +126,9 @@ fails the first K shard reads (tools/chaos_run.py drives them).
 on-the-fly packing's limit, and ``--checkpoint_activations`` is
 ``--remat full``.
 
-Not ported yet, so rejected rather than ignored: meshes and multi-GPU (the
-``--mesh*`` flags; ``--checkpoint_layout sharded`` is refused naming
-ROADMAP.md's "Multi-GPU layouts"; the sharded layout is read),
+Not ported yet, so rejected rather than ignored: the mesh axes beyond dp
+and fsdp (``pipe``, ``seq``, ``model``, ``dcn``) and ``--kfac`` across
+ranks are refused naming ROADMAP.md's "Multi-GPU layouts";
 ``--compile_cache_dir`` and ``--telemetry_cost_analysis`` (the bench
 legs), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
 port draws Philox (the kernels' dropout, keyed by coordinates); argparse
@@ -155,7 +178,11 @@ from bert_pytorch_tpu_torch.optim.transforms import (AdamW,
                                                      opt_step_count,
                                                      param_groups,
                                                      reset_count)
+from bert_pytorch_tpu_torch.parallel import launcher
+from bert_pytorch_tpu_torch.parallel import mesh as mesh_lib
+from bert_pytorch_tpu_torch.parallel import sharding
 from bert_pytorch_tpu_torch.testing import faults
+from bert_pytorch_tpu_torch.utils import dist as dist_utils
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
@@ -170,7 +197,7 @@ KFAC_STATS_SEED_OFFSET = 17
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="BERT pretraining on one GPU (PyTorch / CUDA port)")
+        description="BERT pretraining on GPUs (PyTorch / CUDA port)")
     # data / io
     parser.add_argument("--input_dir", type=str, default=None,
                         help="HDF5 shard file or directory of *.hdf5")
@@ -249,7 +276,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "Final and preemption saves are synchronous")
     parser.add_argument("--checkpoint_layout", type=str, default="gathered",
                         choices=["gathered", "sharded"],
-                        help="only 'gathered' is written by the port")
+                        help="'gathered' (default): one full msgpack, "
+                             "written by rank 0; 'sharded': every rank "
+                             "writes its shard's slice records plus a "
+                             "rank-0 index, resumable at any world size")
     parser.add_argument("--skip_final_checkpoint", action="store_true")
     parser.add_argument("--term_check_steps", type=int, default=10,
                         help="act on SIGTERM/SIGINT/SIGUSR1 every this many "
@@ -323,6 +353,32 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--weight_decay", type=float, default=0.01)
     parser.add_argument("--max_grad_norm", type=float, default=1.0,
                         help="LAMB's global-norm gradient clip")
+    # mesh (the JAX runner's flags; parallel/mesh.py)
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="declarative mesh spec, e.g. 'dp=4,fsdp=2' "
+                             "(MeshSpec grammar); overrides "
+                             "--parallel_strategy and the --mesh_* sizes")
+    parser.add_argument("--parallel_strategy", type=str, default="dp",
+                        choices=["dp", "fsdp", "tp", "tp_fsdp", "sp", "pp",
+                                 "pp_tp"],
+                        help="legacy strategy alias lowered onto a mesh "
+                             "spec; the port realises dp and fsdp")
+    parser.add_argument("--mesh_data", type=int, default=-1,
+                        help="data-parallel ranks; -1 = all the rest")
+    parser.add_argument("--mesh_fsdp", type=int, default=1)
+    parser.add_argument("--mesh_pipe", type=int, default=1)
+    parser.add_argument("--mesh_seq", type=int, default=1)
+    parser.add_argument("--mesh_model", type=int, default=1)
+    parser.add_argument("--mesh_dcn_data", type=int, default=1)
+    parser.add_argument("--overlap_grad_reduce", action="store_true",
+                        help="reduce the gradients in three availability "
+                             "buckets (heads, encoder, embeddings) launched "
+                             "during the last backward (dp only, "
+                             "first-order optimizers, bf16/fp32)")
+    parser.add_argument("--dist_init_method", type=str, default=None,
+                        help="the process group's init_method (e.g. "
+                             "file:///path) in place of torchrun's "
+                             "env:// TCP store")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
@@ -330,11 +386,12 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 
 
 def log(record: dict, logger=None) -> None:
-    """One ``key value`` line on standard output, and in ``logger``'s text
-    file when the run's logger is given."""
+    """One ``key value`` line on standard output (rank 0's), and in
+    ``logger``'s text file when the run's logger is given."""
     line = " ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in record.items())
-    print(line, flush=True)
+    if dist_utils.is_main_process():
+        print(line, flush=True)
     if logger is not None:
         logger.info(line)
 
@@ -342,27 +399,100 @@ def log(record: dict, logger=None) -> None:
 def append_record(path: str, record: dict) -> None:
     """Append one telemetry record to the JSONL at ``path`` (the records
     written before ``train`` opens the run's sink)."""
-    sink = logging_util.JSONLHandler(path)
+    sink = logging_util.JSONLHandler(
+        path, is_primary=dist_utils.is_main_process())
     try:
         sink.write_record(record)
     finally:
         sink.close()
 
 
+def mesh_spec(args) -> mesh_lib.MeshSpec:
+    """``--mesh``, or the legacy ``--parallel_strategy`` with the
+    ``--mesh_*`` sizes, with the JAX runner's alias rules
+    (run_pretraining.py:346-378)."""
+    if args.mesh:
+        return mesh_lib.MeshSpec.parse(args.mesh)
+    spec = mesh_lib.MeshSpec.from_strategy(
+        args.parallel_strategy, data=args.mesh_data, fsdp=args.mesh_fsdp,
+        pipe=args.mesh_pipe, seq=args.mesh_seq, model=args.mesh_model,
+        dcn_data=args.mesh_dcn_data)
+    if args.mesh_pipe > 1 and args.parallel_strategy not in ("pp", "pp_tp"):
+        raise ValueError(
+            f"--mesh_pipe {args.mesh_pipe} requires --parallel_strategy "
+            "pp or pp_tp (or express the product with --mesh)")
+    if args.parallel_strategy in ("pp", "pp_tp") and args.mesh_pipe < 2:
+        raise ValueError(
+            "--parallel_strategy pp/pp_tp needs --mesh_pipe >= 2 (a "
+            "1-stage pipeline is just dp with schedule overhead)")
+    if args.parallel_strategy == "pp_tp" and args.mesh_model < 2:
+        raise ValueError(
+            "--parallel_strategy pp_tp needs --mesh_model >= 2 "
+            "(with one model shard use plain pp)")
+    if args.parallel_strategy == "pp" and args.mesh_model > 1:
+        raise ValueError(
+            f"--mesh_model {args.mesh_model} with --parallel_strategy pp "
+            "replicates all stage weights over the model axis; use pp_tp "
+            "(or --mesh)")
+    return spec
+
+
+def setup_parallel(args, device_type: str) -> None:
+    """Join the run's ranks (parallel/launcher.py) and lay them out as the
+    mesh spec says: sets ``args.rank``, ``args.world_size``,
+    ``args.backend``, ``args.mesh_spec`` (resolved) and ``args.mesh`` (a
+    DeviceMesh, or None for a single process). The unported axes and
+    ``--kfac`` across ranks are refused by name, the overlap outside the
+    plain dp path as the JAX runner refuses it."""
+    topology = launcher.initialize(device_type,
+                                   init_method=args.dist_init_method)
+    args.rank, args.world_size = topology.rank, topology.world_size
+    args.backend = topology.backend
+    args.owns_group = topology.distributed and topology.source != "existing"
+    spec = mesh_spec(args)
+    spec.validate(packed=bool(args.pack_sequences))
+    args.mesh_spec = mesh_lib.resolved(spec, args.world_size)
+    if args.kfac and args.world_size > 1:
+        raise NotImplementedError(
+            f"--kfac across {args.world_size} ranks: K-FAC's factor "
+            "all-reduce and kfac_state_shardings wait for "
+            f"{mesh_lib.ROADMAP_LAYOUTS}")
+    if args.overlap_grad_reduce and (
+            args.mesh_spec.active_axes() - {mesh_lib.AXIS_DATA}
+            or args.kfac or args.dtype == "float16"):
+        raise ValueError(
+            "--overlap_grad_reduce requires a pure data-parallel mesh "
+            "(fsdp=pipe=seq=model=1) with a first-order optimizer "
+            "(no --kfac) and bf16/fp32")
+    args.mesh = (mesh_lib.create_mesh(args.mesh_spec, device_type)
+                 if topology.distributed else None)
+
+
+def data_parallel(args) -> "pretrain.DataParallel | None":
+    """The train step's :class:`~bert_pytorch_tpu_torch.pretrain.
+    DataParallel` for a run of several ranks (or one under a launcher),
+    else None (the single-process step)."""
+    if getattr(args, "mesh", None) is None:
+        return None
+    return pretrain.DataParallel(
+        rank=args.rank, world_size=args.world_size,
+        fsdp=args.mesh_spec.fsdp > 1, overlap=args.overlap_grad_reduce)
+
+
 def setup_training(args) -> argparse.Namespace:
-    """Device, numerics, accumulation math and the checkpoint directory;
-    the batches are unpacked until prepare_dataset finds packed data."""
+    """Ranks and mesh, device, numerics, accumulation math and the
+    checkpoint directory; the batches are unpacked until prepare_dataset
+    finds packed data."""
     require_args(args, ["model_config_file", "output_dir",
                         "global_batch_size", "local_batch_size", "max_steps"])
-    if args.checkpoint_layout != "gathered":
-        raise NotImplementedError(
-            f"--checkpoint_layout {args.checkpoint_layout}: the port writes "
-            f"the gathered layout only ({ckpt.ROADMAP_SHARDED})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False; pass "
             "--device cpu to run on the CPU")
+    setup_parallel(args, device.type)
+    if device.type == "cuda" and args.mesh is not None:
+        device = torch.device("cuda", torch.cuda.current_device())
     args.device = device
     args.remat = args.remat or ("full" if args.checkpoint_activations
                                 else "none")
@@ -379,14 +509,23 @@ def setup_training(args) -> argparse.Namespace:
         raise ValueError(
             "--dtype float16 is the first-order parity mode; K-FAC runs in "
             "bf16/f32 (no loss scaler needed)")
-    if args.global_batch_size % args.local_batch_size:
+    # Accumulation math in global terms (JAX run_pretraining.py:444-451):
+    # local_batch_size rows per rank per microbatch.
+    global_microbatch = args.local_batch_size * args.world_size
+    if args.global_batch_size % global_microbatch:
         raise ValueError(
             f"global_batch_size={args.global_batch_size} must be divisible "
-            f"by local_batch_size={args.local_batch_size}")
-    args.accumulation_steps = args.global_batch_size // args.local_batch_size
+            f"by local_batch_size*world_size={global_microbatch}")
+    args.accumulation_steps = args.global_batch_size // global_microbatch
+    args.host_batch_per_step = args.global_batch_size // args.world_size
     args.packed, args.pack_k = False, 1
     args.model_output_dir = os.path.join(args.output_dir, "pretrain_ckpts")
     os.makedirs(args.model_output_dir, exist_ok=True)
+    if args.mesh is not None:
+        log({"event": "mesh", "data": args.mesh_spec.data,
+             "fsdp": args.mesh_spec.fsdp, "world_size": args.world_size,
+             "backend": args.backend, "spec": args.mesh_spec.canonical(),
+             "device": str(device)})
     # The telemetry paths (JAX run_pretraining.py:394-399): the sink shared
     # by the train records and the telemetry facade, the heartbeat and the
     # profiler's traces.
@@ -407,7 +546,9 @@ def setup_training(args) -> argparse.Namespace:
 
 def prepare_model(args):
     """(model with seeded random weights, config); vocab padded to a
-    multiple of 8 as the reference does (run_pretraining.py:237)."""
+    multiple of 8 as the reference does (run_pretraining.py:237). Every
+    rank draws the same weights; under ``fsdp`` > 1 FSDP2 then shards
+    them (parallel/sharding.py)."""
     config = BertConfig.from_json_file(args.model_config_file)
     if config.vocab_size % 8 != 0:
         config.vocab_size += 8 - (config.vocab_size % 8)
@@ -417,7 +558,7 @@ def prepare_model(args):
         device=args.device, layer_norm_backend=args.layer_norm_backend)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     init_weights(model, config.initializer_range, gen)
-    return model, config
+    return sharding.shard_model(model, getattr(args, "mesh", None)), config
 
 
 def prepare_optimizer(args, model):
@@ -493,9 +634,9 @@ def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
     hold the other inverse method's operators; JAX :766-777)."""
     skipped: list = []
     t0 = time.perf_counter()
-    found = ckpt.load_latest_checkpoint(args.model_output_dir, model,
-                                        optimizer, on_skip=skipped.append,
-                                        preconditioner=kfac_state)
+    found = ckpt.load_latest_checkpoint(
+        args.model_output_dir, model, optimizer, on_skip=skipped.append,
+        preconditioner=kfac_state, agree=dist_utils.agree_on_resume_step)
     for record in skipped:
         log({"event": "resume_skip", **record})
     args.resume_step = 0
@@ -539,10 +680,10 @@ def restore_checkpoint(args, model, optimizer, kfac=None, kfac_state=None):
 
 
 def shard_dataset(args, config, input_dir: str, seed: int):
-    """The shards under ``input_dir`` with the run's masking and the data
-    path's retries and policy; retries and skips go to the run's JSONL as
-    ``fault`` records (``train`` points ``on_fault`` at its telemetry while
-    it runs)."""
+    """The shards under ``input_dir`` with the run's masking (``seed``;
+    callers add the rank) and the data path's retries and policy; retries
+    and skips go to the run's JSONL as ``fault`` records (``train`` points
+    ``on_fault`` at its telemetry while it runs)."""
     def on_fault(record):
         append_record(args.telemetry_jsonl, record)
 
@@ -564,7 +705,8 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
     (sequences per row) from the data."""
     if dataset is None:
         require_args(args, ["input_dir"])
-        dataset = shard_dataset(args, config, args.input_dir, args.seed)
+        dataset = shard_dataset(args, config, args.input_dir,
+                                args.seed + getattr(args, "rank", 0))
     args.packed = bool(dataset.packed)
     args.pack_k = dataset.max_sequences_per_pack if dataset.packed else 1
     if not dataset.packed and args.pack_sequences:
@@ -575,29 +717,34 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
             dataset, max_sequences_per_pack=args.max_sequences_per_pack)
         args.packed = True
         args.pack_k = args.max_sequences_per_pack
-    sampler = DistributedSampler(dataset)
+    sampler = DistributedSampler(dataset, num_replicas=args.world_size,
+                                 rank=args.rank)
     if checkpoint is not None and checkpoint.get("sampler") is not None:
         sampler.load_state_dict(checkpoint["sampler"])
-    loader = DataLoader(dataset, sampler, batch_size=args.global_batch_size,
-                        drop_last=True, num_workers=args.num_workers)
+    loader = DataLoader(dataset, sampler,
+                        batch_size=args.host_batch_per_step, drop_last=True,
+                        num_workers=args.num_workers)
     if len(loader) == 0:
         raise ValueError(
             f"{len(dataset)} samples do not fill one global batch of "
-            f"{args.global_batch_size}")
+            f"{args.global_batch_size} over {args.world_size} ranks")
     return loader, sampler
 
 
 def prepare_val_loader(args, config, val_dataset=None):
-    """The held-out loader (global batches, a thread) over the shards of
-    ``--val_input_dir`` masked under ``seed + 7919``, or over
-    ``val_dataset``; None without either."""
+    """The held-out loader (this rank's rows of each global batch, a
+    thread) over the shards of ``--val_input_dir`` masked under ``seed +
+    7919 + rank``, or over ``val_dataset``; None without either."""
     if val_dataset is None:
         if not args.val_input_dir:
             return None
         val_dataset = shard_dataset(args, config, args.val_input_dir,
-                                    args.seed + VAL_SEED_OFFSET)
-    return DataLoader(val_dataset, DistributedSampler(val_dataset),
-                      batch_size=args.global_batch_size, drop_last=True)
+                                    args.seed + VAL_SEED_OFFSET + args.rank)
+    return DataLoader(val_dataset,
+                      DistributedSampler(val_dataset,
+                                         num_replicas=args.world_size,
+                                         rank=args.rank),
+                      batch_size=args.host_batch_per_step, drop_last=True)
 
 
 def make_validation(args, model, config, val_loader, logger):
@@ -607,9 +754,10 @@ def make_validation(args, model, config, val_loader, logger):
     batches the held-out set fills)`` (``run.batches``); it logs and
     returns the ``val`` record (None when the set fills no batch)."""
     eval_step = pretrain.make_eval_step(
-        model, next_sentence=bool(config.next_sentence))
+        model, next_sentence=bool(config.next_sentence),
+        data_parallel=data_parallel(args))
     n_batches = min(args.eval_batches,
-                    len(val_loader.sampler) // args.global_batch_size)
+                    len(val_loader.sampler) // args.host_batch_per_step)
 
     def run(step: int, epoch: int):
         if n_batches == 0:
@@ -662,7 +810,8 @@ def make_step(args, model, optimizer, schedule, config, kfac=None,
         kfac_capture_microbatches=args.kfac_capture_microbatches,
         stats_every=telemetry.stats_every(args),
         stats_phase=opt_step_count(optimizer),
-        loss_scale=args.dtype == "float16")
+        loss_scale=args.dtype == "float16",
+        data_parallel=data_parallel(args))
     if kfac is None:
         return train_step
     if fused:
@@ -700,20 +849,43 @@ def stats_rows(batch: dict, n_stats: int) -> dict:
 
 
 def checkpoint_contents(model, optimizer, config, sampler_state: dict,
-                        epoch: int, kfac_state=None) -> dict:
+                        epoch: int, kfac_state=None,
+                        layout: str = "gathered") -> dict:
     """The training checkpoint's tree, in the JAX package's layout, its
     tensors on the model's device (the transposes and layer stacks run
     there; the writer copies one leaf at a time to the host); with
-    ``kfac_state``, its ``preconditioner``."""
-    contents = {"model": to_jax_params(model.state_dict(), config,
-                                       "pretraining", keep_device=True),
-                "optimizer": optimizer_to_jax(model, optimizer, config,
-                                              "pretraining",
-                                              keep_device=True),
-                "sampler": sampler_state, "epoch": int(epoch)}
+    ``kfac_state``, its ``preconditioner``. Gathered under FSDP, every
+    sharded tensor is gathered whole first (a collective: every rank
+    calls this); ``layout="sharded"`` holds this rank's shards as slice
+    records instead (utils/checkpoint.py ``sharded_training_state``)."""
+    if layout == "sharded":
+        contents = ckpt.sharded_training_state(model, optimizer, config)
+    else:
+        state = sharding.full_state_dict(model)
+        contents = {"model": to_jax_params(state, config, "pretraining",
+                                           keep_device=True),
+                    "optimizer": optimizer_to_jax(model, optimizer, config,
+                                                  "pretraining",
+                                                  keep_device=True)}
+    contents.update(sampler=sampler_state, epoch=int(epoch))
     if kfac_state is not None:
         contents["preconditioner"] = kfac_state.state_dict()
     return contents
+
+
+def write_checkpoint(output_dir: str, step: int, model, optimizer, config,
+                     sampler_state: dict, epoch: int, layout: str = "gathered",
+                     async_write: bool = False, mesh_spec=None, keep: int = 3,
+                     kfac_state=None) -> None:
+    """:func:`checkpoint_contents` written as ``ckpt_{step}`` in
+    ``layout`` (every rank calls it: the gathered layout's gathers are
+    collectives, the sharded layout's shards are every rank's)."""
+    ckpt.save_checkpoint(
+        output_dir, step,
+        checkpoint_contents(model, optimizer, config, sampler_state, epoch,
+                            kfac_state, layout),
+        keep=keep, async_write=async_write, layout=layout,
+        mesh_spec=mesh_spec)
 
 
 def save(args, model, optimizer, config, global_step: int,
@@ -723,11 +895,10 @@ def save(args, model, optimizer, config, global_step: int,
     it); returns the seconds the call took (an async save's stall)."""
     t0 = time.perf_counter()
     save_step = global_step + args.previous_phase_end_step
-    ckpt.save_checkpoint(
-        args.model_output_dir, save_step,
-        checkpoint_contents(model, optimizer, config, sampler_state, epoch,
-                            kfac_state),
-        keep=args.keep_checkpoints, async_write=async_write)
+    write_checkpoint(args.model_output_dir, save_step, model, optimizer,
+                     config, sampler_state, epoch, args.checkpoint_layout,
+                     async_write, args.mesh_spec.as_dict(),
+                     args.keep_checkpoints, kfac_state)
     stall = time.perf_counter() - t0
     log({"event": "checkpoint", "step": save_step,
          "mode": "async" if async_write else "sync", "stall_s": stall},
@@ -738,14 +909,18 @@ def save(args, model, optimizer, config, global_step: int,
 def open_logger(args) -> logging_util.Logger:
     """The run's file sinks (JAX run_pretraining.py:400-415): the text
     log, the metrics CSV and the JSONL sink (``logger.handlers[-1]``),
-    appended to across resumed runs. Standard output is ``log``'s."""
+    appended to across resumed runs; rank 0's only. Standard output is
+    ``log``'s."""
+    primary = dist_utils.is_main_process()
     logger = logging_util.Logger()
     logger.init([
         logging_util.FileHandler(
-            os.path.join(args.output_dir, args.log_prefix + ".txt")),
+            os.path.join(args.output_dir, args.log_prefix + ".txt"),
+            is_primary=primary),
         logging_util.CSVHandler(
-            os.path.join(args.output_dir, args.log_prefix + "_metrics.csv")),
-        logging_util.JSONLHandler(args.telemetry_jsonl)])
+            os.path.join(args.output_dir, args.log_prefix + "_metrics.csv"),
+            is_primary=primary),
+        logging_util.JSONLHandler(args.telemetry_jsonl, is_primary=primary)])
     return logger
 
 
@@ -788,7 +963,9 @@ def train(args, model, optimizer, config, step, loader, sampler,
                 next_sentence=bool(config.next_sentence)),
             tokens_per_step=args.global_batch_size * seq_len,
             output_dir=args.output_dir, device=args.device,
-            process="pretrain", logger=logger)
+            process="pretrain", logger=logger,
+            is_primary=dist_utils.is_main_process(),
+            n_devices=args.world_size)
     except BaseException:
         logger.close()
         raise
@@ -853,7 +1030,7 @@ def train(args, model, optimizer, config, step, loader, sampler,
                 global_step += 1
                 step_in_run += 1
                 window_steps += 1
-                trained_index += args.global_batch_size
+                trained_index += args.host_batch_per_step
                 if data_seq_len is None:
                     # MFU must use the DATA shape, not the model's cap.
                     data_seq_len = int(batch["input_ids"].shape[-1])
@@ -987,7 +1164,16 @@ def train(args, model, optimizer, config, step, loader, sampler,
 def main(args, dataset=None, val_dataset=None) -> dict:
     """A whole run; ``dataset`` stands in for the shards of
     ``--input_dir`` (prepare_dataset), ``val_dataset`` for those of
-    ``--val_input_dir`` (prepare_val_loader)."""
+    ``--val_input_dir`` (prepare_val_loader). A run that formed its
+    process group destroys it at the end."""
+    try:
+        return _main(args, dataset, val_dataset)
+    finally:
+        if getattr(args, "owns_group", False):
+            launcher.shutdown()
+
+
+def _main(args, dataset=None, val_dataset=None) -> dict:
     args = setup_training(args)
     model, config = prepare_model(args)
     optimizer, schedule = prepare_optimizer(args, model)

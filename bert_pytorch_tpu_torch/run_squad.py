@@ -53,9 +53,18 @@ scale), and the optimizer wrapped in ``DynamicLossScale``, which skips an
 overflowing step and backs off the scale, as the JAX runner's.
 
 ``--device_prefetch`` (default 2) stages the training batches on the card
-ahead of the step (data/device_prefetch.py). Not ported yet, so rejected
-rather than ignored (argparse refuses their flags):
-``--telemetry_cost_analysis``, ``--mesh_data`` and
+ahead of the step (data/device_prefetch.py).
+
+``--mesh_data N`` (the JAX runner's flag) trains data-parallel over the
+run's N ranks, one per GPU, launched by torchrun (parallel/launcher.py;
+``--mesh_data`` must be the world size, or -1): every rank walks the same
+batch order and takes its rows of each ``--train_batch_size`` batch, the
+span loss is the global batch's (local sums over the global start and
+end counts), the gradients are summed once per step before the clipping
+(parallel/overlap.py), and each rank folds its index into the dropout
+seeds. Rank 0 alone logs, writes the feature cache, the telemetry and
+the checkpoints, and predicts. Not ported yet, so rejected rather than
+ignored (argparse refuses their flags): ``--telemetry_cost_analysis`` and
 ``--compile_cache_dir``. The telemetry debug
 planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's.
 The tokenizer (``--tokenizer``, else the model config's) is WordPiece or
@@ -79,6 +88,7 @@ import pickle
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,11 +100,12 @@ from bert_pytorch_tpu_torch.data.tokenization import (check_tokenizer_files,
                                                       get_tokenizer)
 from bert_pytorch_tpu_torch.models.bert import (BertForQuestionAnswering,
                                                 draw_dropout_seeds,
+                                                fold_dropout_seeds,
                                                 init_weights)
 from bert_pytorch_tpu_torch.models.convert import (check_pretrained_path,
                                                    load_pretrained_encoder,
                                                    to_jax_params)
-from bert_pytorch_tpu_torch.models.losses import span_loss
+from bert_pytorch_tpu_torch.models.losses import span_loss, span_loss_sums
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, BertAdam,
@@ -102,7 +113,10 @@ from bert_pytorch_tpu_torch.optim.transforms import (AdamW, BertAdam,
                                                      global_norm,
                                                      param_groups)
 from bert_pytorch_tpu_torch.telemetry import model_stats
+from bert_pytorch_tpu_torch.parallel import launcher
+from bert_pytorch_tpu_torch.parallel.overlap import GradReducer
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+from bert_pytorch_tpu_torch.utils import dist as dist_utils
 from bert_pytorch_tpu_torch.utils import flops as flops_util
 from bert_pytorch_tpu_torch.utils import preemption
 
@@ -113,7 +127,7 @@ WEIGHT_DECAY = 0.01  # the JAX runner's optimizers' default
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="BERT SQuAD finetuning on one GPU (PyTorch / CUDA port)")
+        description="BERT SQuAD finetuning on GPUs (PyTorch / CUDA port)")
     parser.add_argument("--output_dir", type=str, required=True)
     parser.add_argument("--init_checkpoint", type=str, default=None,
                         help="torch archive: a directory with "
@@ -171,6 +185,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "kernel")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    parser.add_argument("--mesh_data", type=int, default=-1,
+                        help="data-parallel ranks: the world size, or -1 "
+                             "(all of them); the batch size must divide it")
+    parser.add_argument("--dist_init_method", type=str, default=None,
+                        help="the process group's init_method (e.g. "
+                             "file:///path) in place of torchrun's env://")
     dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
     args = parser.parse_args(argv)
@@ -200,16 +220,36 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def log(record: dict) -> None:
-    print(" ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
-                   for k, v in record.items()), flush=True)
+    if dist_utils.is_main_process():
+        print(" ".join(f"{k} {v:.6g}" if isinstance(v, float)
+                       else f"{k} {v}" for k, v in record.items()),
+              flush=True)
 
 
 def setup_device(args) -> torch.device:
+    """The run's device, after joining its ranks (parallel/launcher.py):
+    ``args.rank`` and ``args.world_size`` are set, and ``--mesh_data``
+    must be the world size (or -1)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False; pass "
             "--device cpu to run on the CPU")
+    topology = launcher.initialize(device.type,
+                                   init_method=args.dist_init_method)
+    args.rank, args.world_size = topology.rank, topology.world_size
+    args.owns_group = topology.distributed and topology.source != "existing"
+    args.distributed = topology.distributed
+    if args.mesh_data not in (-1, args.world_size):
+        raise ValueError(
+            f"--mesh_data {args.mesh_data} must be the world size "
+            f"{args.world_size} (or -1): one rank per GPU")
+    if args.train_batch_size % args.world_size:
+        raise ValueError(
+            f"train_batch_size={args.train_batch_size} must be divisible by "
+            f"the world size {args.world_size}")
+    if device.type == "cuda" and topology.distributed:
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type == "cuda":
         # fp32 products in full fp32, as the JAX package's parity tests.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,7 +297,7 @@ def cached_features(args, examples, tokenizer, is_training, tag):
     features = squad.convert_examples_to_features(
         examples, tokenizer, args.max_seq_length, args.doc_stride,
         args.max_query_length, is_training)
-    if not args.skip_cache:
+    if not args.skip_cache and dist_utils.is_main_process():
         try:
             with open(cache_file, "wb") as f:
                 pickle.dump(features, f)
@@ -309,7 +349,8 @@ def make_optimizer(args, model, total_steps: int):
 
 
 def make_train_step(model, optimizer, clip_norm: float,
-                    generator: torch.Generator, stats_every: int = 0):
+                    generator: torch.Generator, stats_every: int = 0,
+                    rank: Optional[int] = None):
     """``step(batch) -> metrics``: forward with dropout from seeds drawn
     for this step, span loss, backward, global-norm clipping to
     ``clip_norm`` when it is > 0 (the adamw path; BertAdam clips per
@@ -321,10 +362,17 @@ def make_train_step(model, optimizer, clip_norm: float,
     multiplied by its scale before the backward, the clipping reads the
     true norm, and the grad-health block runs on every step with its grad
     norms unscaled (the JAX ``finetune_grad_health`` with
-    ``fp16_scale``)."""
+    ``fp16_scale``).
+
+    ``rank`` (a run of several ranks; --mesh_data): ``batch`` is this
+    rank's rows of the global batch; the loss is the global batch's (the
+    local start and end sums over their global counts, one all-reduce),
+    the gradients are summed over the ranks (one flat all-reduce) before
+    the clipping, and the dropout seeds fold in the rank."""
     num_layers = model.config.num_hidden_layers
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
+    reducer = GradReducer(named) if rank is not None else None
 
     fp16 = isinstance(optimizer, DynamicLossScale)
 
@@ -332,13 +380,30 @@ def make_train_step(model, optimizer, clip_norm: float,
         for p in params:
             p.grad = None
         seeds = draw_dropout_seeds(generator, num_layers)
+        if reducer is not None:
+            seeds = fold_dropout_seeds(seeds, rank)
         start_logits, end_logits = model(
             batch["input_ids"], batch["segment_ids"], batch["input_mask"],
             dropout_seeds=seeds)
-        loss = span_loss(start_logits, end_logits, batch["start_positions"],
-                         batch["end_positions"])
+        if reducer is None:
+            loss = span_loss(start_logits, end_logits,
+                             batch["start_positions"], batch["end_positions"])
+            local_loss = loss
+        else:
+            s_sum, s_n, e_sum, e_n = span_loss_sums(
+                start_logits, end_logits, batch["start_positions"],
+                batch["end_positions"])
+            counts = torch.stack([s_n, e_n]).float()
+            torch.distributed.all_reduce(counts)
+            c_s, c_e = counts.clamp(min=1)
+            local_loss = (s_sum / c_s + e_sum / c_e) / 2.0
         loss_scale = optimizer.scale if fp16 else None
-        (loss if loss_scale is None else loss * loss_scale).backward()
+        (local_loss if loss_scale is None
+         else local_loss * loss_scale).backward()
+        if reducer is not None:
+            reducer.finish()
+            loss = local_loss.detach().clone()
+            torch.distributed.all_reduce(loss)
         if clip_norm > 0:
             grads = [p.grad for p in params if p.grad is not None]
             norm = global_norm(grads)
@@ -360,7 +425,10 @@ def make_train_step(model, optimizer, clip_norm: float,
 
 def save(args, model, config, global_step: int, async_write: bool) -> None:
     """``{"model", "config"}`` as ``ckpt_{global_step}.msgpack`` in
-    ``--output_dir``, keeping the newest one (JAX run_squad.py:405-446)."""
+    ``--output_dir``, keeping the newest one (JAX run_squad.py:405-446);
+    rank 0's alone."""
+    if not dist_utils.is_main_process():
+        return
     ckpt.save_checkpoint(
         args.output_dir, global_step,
         {"model": to_jax_params(model.state_dict(), config, "squad",
@@ -387,13 +455,18 @@ def train(args, model, config, tokenizer, device) -> dict:
     step = make_train_step(
         model, optimizer,
         args.max_grad_norm if args.optimizer == "adamw" else 0.0,
-        torch.Generator().manual_seed(args.seed), telemetry.stats_every(args))
+        torch.Generator().manual_seed(args.seed), telemetry.stats_every(args),
+        rank=args.rank if args.distributed else None)
     # The telemetry facade (JAX run_squad.py:206-275); the JSONL also takes
     # a train record every --log_freq steps.
     tele = finetune.open_telemetry(
         args, "squad", device, args.train_batch_size,
         flops_util.bert_finetune_flops_per_seq(
-            config, args.max_seq_length, head_outputs=2))
+            config, args.max_seq_length, head_outputs=2),
+        is_primary=dist_utils.is_main_process(),
+        n_devices=args.world_size)
+    rows = args.train_batch_size // args.world_size
+    mine = slice(args.rank * rows, (args.rank + 1) * rows)
     rng = np.random.RandomState(args.seed)
     global_step, seqs = 0, 0
     losses = []
@@ -406,7 +479,7 @@ def train(args, model, config, tokenizer, device) -> dict:
         for i in range(0, n - args.train_batch_size + 1,
                        args.train_batch_size):
             yield [train_features[j]
-                   for j in order[i:i + args.train_batch_size]]
+                   for j in order[i:i + args.train_batch_size][mine]]
 
     prefetcher = None
     try:
@@ -534,7 +607,11 @@ def predict(args, model, tokenizer, device) -> dict:
 
 
 def main(args) -> dict:
-    return run(args)[0]
+    try:
+        return run(args)[0]
+    finally:
+        if getattr(args, "owns_group", False):
+            launcher.shutdown()
 
 
 def run(args):
@@ -551,6 +628,11 @@ def run(args):
     summary = {}
     if args.do_train:
         summary.update(train(args, model, config, tokenizer, device))
+    if args.distributed:
+        # Prediction, the official eval and the summary are rank 0's.
+        dist_utils.barrier()
+        if not dist_utils.is_main_process():
+            return summary, model, config
     if args.do_predict and not summary.get("terminated_by_signal"):
         # A preempted run exits after its checkpoint: the grace period is
         # for durability, not for prediction.

@@ -150,7 +150,8 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
               flops_per_seq: Optional[float] = None,
               tokens_per_step: Optional[int] = None,
               output_dir: Optional[str] = None, device="cpu",
-              process: str = "train", logger=None):
+              process: str = "train", logger=None,
+              is_primary: bool = True, n_devices: int = 1):
     """Build a TrainTelemetry from the :func:`add_cli_args` namespace.
 
     ``output_dir`` anchors the profile-dir, heartbeat and postmortem
@@ -162,7 +163,11 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
     ("pretrain", "glue", ...). ``logger`` (a ``utils/logging.Logger``), when
     given, tees its log lines into the flight recorder's ring. With
     ``--debug_port`` the debug server starts here; a port already held
-    costs the debug plane (a line on standard error), never the run."""
+    costs the debug plane (a line on standard error), never the run.
+    ``is_primary`` (rank 0 of a multi-rank run) gates the artifacts: only
+    the primary writes the heartbeat, traces and flight recorder and
+    serves the debug plane; ``n_devices`` (the world size) makes MFU per
+    card."""
     from bert_pytorch_tpu_torch.telemetry.runner import TrainTelemetry
 
     profile_dir = args.profile_dir or (
@@ -172,7 +177,7 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
     postmortem = getattr(args, "postmortem_file", "") or (
         os.path.join(output_dir, "postmortem.json") if output_dir else None)
     recorder = None
-    if postmortem:
+    if postmortem and is_primary:
         from bert_pytorch_tpu_torch.telemetry.flightrec import FlightRecorder
 
         recorder = FlightRecorder(
@@ -182,7 +187,7 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
             # handlers before building telemetry, so append).
             logger.handlers.append(recorder.log_handler())
     introspect = None
-    if getattr(args, "debug_port", 0):
+    if getattr(args, "debug_port", 0) and is_primary:
         from bert_pytorch_tpu_torch.telemetry.introspect import \
             IntrospectionHub
 
@@ -192,6 +197,8 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
                                       stale_after_s=stale_after)
     tele = TrainTelemetry(
         sink=sink,
+        is_primary=is_primary,
+        n_devices=n_devices,
         window=args.telemetry_window,
         sync_every=args.telemetry_sync_every,
         seq_per_step=seq_per_step,

@@ -45,6 +45,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from bert_pytorch_tpu_torch.parallel.sharding import (local, shard_group,
+                                                      sum_over_shards)
+
 from bert_pytorch_tpu_torch.telemetry.sentinels import NonFiniteError
 
 _EPS = 1e-12
@@ -69,8 +72,9 @@ def group_key(name: str) -> str:
 def tensor_norms(tensors: Sequence[Optional[torch.Tensor]]
                  ) -> List[torch.Tensor]:
     """fp32 L2 norm of each tensor, on its device (a zero for a missing
-    one): the per-tensor reduction :func:`grad_health` groups."""
-    present = [t.float() for t in tensors if t is not None]
+    one): the per-tensor reduction :func:`grad_health` groups. Of a
+    sharded tensor (FSDP), the norm of this rank's shard."""
+    present = [local(t).float() for t in tensors if t is not None]
     norms = iter(torch._foreach_norm(present)) if present else iter(())
     zero = torch.zeros((), device=present[0].device if present else None)
     return [zero if t is None else next(norms) for t in tensors]
@@ -169,9 +173,18 @@ def step_with_health(optimizer, named: Sequence, every: int,
     updates = {}
     optimizer.step(updates=updates)
     with torch.no_grad():
+        update_norms = tensor_norms([updates.get(p) for p in params])
+        shards = shard_group(params)
+        if shards is not None:
+            # Shards' norms -> whole tensors' norms: every square in one
+            # all-reduce over the shard group.
+            n = len(params)
+            total = torch.sqrt(sum_over_shards(torch.stack(
+                param_norms + grad_norms + update_norms).square(), shards))
+            param_norms, grad_norms, update_norms = (
+                list(total[:n]), list(total[n:2 * n]), list(total[2 * n:]))
         stats = grad_health([n for n, _ in named], param_norms, grad_norms,
-                            tensor_norms([updates.get(p) for p in params]),
-                            grad_scale)
+                            update_norms, grad_scale)
     stats["due"] = 1.0
     return stats
 

@@ -91,12 +91,14 @@ class TrainTelemetry:
         self,
         jsonl_path: Optional[str] = None,
         sink=None,
+        is_primary: bool = True,
         window: int = 20,
         sync_every: int = 1,
         seq_per_step: Optional[int] = None,
         flops_per_seq: Optional[float] = None,
         tokens_per_step: Optional[int] = None,
         device_kind: str = "",
+        n_devices: int = 1,
         profile_steps=None,
         profile_dir: Optional[str] = None,
         sentinel_policy: str = "continue",
@@ -114,14 +116,17 @@ class TrainTelemetry:
         """``device`` is the training device: on ``cuda`` the timer's
         device clock is a :class:`CudaEventClock` on it (unless
         ``device_clock`` is given), the memory sampler reads its
-        allocator and the profiler traces its kernels. The process is the
-        run's one process on one card: it writes every artifact, and the
-        heartbeat beats on every synced step (the JAX facade's
-        ``is_primary``, ``n_devices`` and ``heartbeat_every`` come with
-        the ROADMAP item "Multi-GPU layouts"). ``introspect`` (an
+        allocator and the profiler traces its kernels. Of the run's ranks
+        (one per card), the primary (``is_primary``, rank 0) writes the
+        JSONL, the heartbeat, the traces and the flight recorder; the
+        others keep a disabled sink, so the loop code is rank-agnostic,
+        and their sentinels still see the (global) metrics, so a
+        non-finite step ends the run on every rank. MFU is per card over
+        ``n_devices`` cards (the world size). ``introspect`` (an
         :class:`IntrospectionHub`) and ``flight_recorder`` (a
         :class:`FlightRecorder`) are fed every emitted record; the hub
         also gets the step liveness and the capture controller."""
+        self.is_primary = is_primary
         self._clock = clock
         device = torch.device(device)
         if device_clock is None and device.type == "cuda":
@@ -131,14 +136,15 @@ class TrainTelemetry:
             self.sink = sink
         else:
             self.sink = logging_util.JSONLHandler(
-                jsonl_path) if jsonl_path else None
+                jsonl_path, is_primary=is_primary) if jsonl_path else None
         self.timer = StepTimer(
             window=window, sync_every=sync_every, clock=clock,
             seq_per_step=seq_per_step, flops_per_seq=flops_per_seq,
             device_kind=device_kind, tokens_per_step=tokens_per_step,
-            device_clock=device_clock)
-        self.profiler = ProfilerWindow(profile_steps, profile_dir,
-                                       device=device)
+            device_clock=device_clock, n_devices=n_devices)
+        self.profiler = ProfilerWindow(
+            profile_steps if is_primary else None, profile_dir,
+            device=device)
         self.sentinel = FailureSentinel(
             policy=sentinel_policy, patience=sentinel_patience,
             emit=self.emit)
@@ -152,13 +158,13 @@ class TrainTelemetry:
         # Device-memory watermarks, sampled where the host already waits
         # (the sync cadence) and emitted one record per window.
         self.memory = MemorySampler(emit=self.emit, device=device)
-        self.heartbeat = Heartbeat(heartbeat_path)
+        self.heartbeat = Heartbeat(heartbeat_path, is_primary=is_primary)
         # Hung-step watchdog: fed a liveness note per completed step;
         # flags (fault record + warning, never a kill) when none lands
         # within the timeout. Started lazily at the first step so runner
         # setup doesn't count.
         self.watchdog = (HeartbeatWatchdog(watchdog_timeout_s, emit=self.emit)
-                         if watchdog_timeout_s else None)
+                         if watchdog_timeout_s and is_primary else None)
         # Live introspection hub and crash flight recorder: both fed from
         # emit() — which background threads (watchdog) also call — so the
         # bindings are frozen after __init__; each object does its own

@@ -127,6 +127,7 @@ class StepTimer:
         device_kind: str = "",
         tokens_per_step: Optional[int] = None,
         device_clock=None,
+        n_devices: int = 1,
     ):
         self.window = max(1, int(window))
         self.sync_every = max(0, int(sync_every))  # 0 = never sync
@@ -135,6 +136,8 @@ class StepTimer:
         self.seq_per_step = seq_per_step
         self.flops_per_seq = flops_per_seq
         self.device_kind = device_kind
+        # MFU is per card: the step's sequences over this many cards.
+        self.n_devices = max(1, int(n_devices))
         # tokens_per_step is the step's token BUDGET (rows x seq_len, pad
         # included); the train step reports the real (non-pad) count via
         # note_tokens on the sync cadence.
@@ -351,12 +354,12 @@ class StepTimer:
             device_s = sum(self._devices)
             if device_s <= 0:
                 return 0.0, "device"
-            seq_per_s = self.seq_per_step * n_steps / device_s
+            seq_per_s = self.seq_per_step * n_steps / device_s / self.n_devices
             basis = "device"
         else:
             if wall <= 0:
                 return 0.0, "wall"
-            seq_per_s = self.seq_per_step * n_steps / wall
+            seq_per_s = self.seq_per_step * n_steps / wall / self.n_devices
             basis = "wall"
         return round(flops_util.mfu(
             seq_per_s, self.flops_per_seq, self.device_kind), 4), basis

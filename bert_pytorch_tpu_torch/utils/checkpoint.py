@@ -25,14 +25,28 @@ restores into a ``DynamicLossScale`` (its scale and growth count, and the
 wrapped state as any other). :func:`load_latest_checkpoint` walks
 the retained checkpoints newest first, skipping (with a record naming
 step, path and reason) every file whose manifest or msgpack structure
-fails, and restores the first that passes. A sharded-layout index
-(``ckpt_{step}.shard{p}of{n}.msgpack`` beside it) reads its slices from
-the shard files.
+fails, and restores the first that passes; across ranks, ``agree``
+(``utils/dist.py`` ``agree_on_resume_step``) picks the step every rank
+can load. A sharded-layout index (``ckpt_{step}.shard{p}of{n}.msgpack``
+beside it) reads its slices from the shard files. A model under FSDP
+(parallel/sharding.py) takes its shard's rows of each decoded tensor.
 
 Writing. :func:`save_checkpoint` streams the tree's bytes to a temporary
 file while hashing them, renames it into place, writes the manifest, then
-prunes all but the newest ``keep`` checkpoints (the gathered layout only:
-the sharded write waits for ROADMAP_SHARDED). With ``async_write=True`` it
+prunes all but the newest ``keep`` checkpoints. ``layout="sharded"`` (the
+JAX ``_write_sharded``): every rank writes ``ckpt_{step}.shard{r}of{n}.
+msgpack``, the slice records ``{start, limit, data}`` of the leaves it
+holds, in the coordinates of the whole JAX leaf, with its own manifest;
+then rank 0 waits until every shard's manifest carries this save's token
+(``utils/dist.py`` ``shared_token``, so a shard that an earlier, torn
+save of the step left behind is never taken for this one's) and writes
+the index (the tree with a stub ``{__elastic_leaf__, shape, dtype}`` per
+array and ``__sharded__`` naming the shard files and mesh spec) and its
+manifest (``layout="sharded"``, the same token: a restore refuses an
+index whose shards carry another). A leaf a rank holds a part of is a
+:class:`ShardedLeaf`; a whole tensor is written by rank 0 alone.
+:func:`sharded_training_state` builds the model and optimizer subtrees
+from FSDP shards. With ``async_write=True`` it
 snapshots the tensors on their device (one clone each, on the current
 stream) and returns; a background thread copies the snapshot to the host
 on a side stream, encodes and writes it. One write per directory is in
@@ -43,6 +57,7 @@ first, and raise if it failed.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import os
 import re
@@ -58,14 +73,14 @@ import torch
 from bert_pytorch_tpu_torch.models import convert as convert_lib
 from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.optim import transforms
+from bert_pytorch_tpu_torch.parallel import sharding
+from bert_pytorch_tpu_torch.utils import dist as dist_utils
 from bert_pytorch_tpu_torch.utils import flax_msgpack, integrity
 
 CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
 # Sharded-layout shard files; they do not match CKPT_RE, so discovery,
 # retention and the walk-back see only the index file.
 SHARD_RE = re.compile(r"ckpt_(\d+)\.shard(\d+)of(\d+)\.msgpack$")
-ROADMAP_SHARDED = ("ROADMAP.md, \"Multi-GPU layouts\": the sharded "
-                   "checkpoint write")
 # The sharded layout's index carries this top-level key ({version,
 # n_shards, shard_files, mesh_spec}); its array leaves are stubs
 # {_LEAF_KEY: 1, shape, dtype} whose bytes live in the shard files as
@@ -165,7 +180,8 @@ def load_params_only(path: str, target: Dict[str, torch.Tensor],
 
 def _decode_state(path: str, blob, offsets: Dict[str, int], keys: tuple,
                   target: Dict[str, torch.Tensor], quantize: Optional[str],
-                  device, partial: bool) -> Dict[str, torch.Tensor]:
+                  device, partial: bool,
+                  shards: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """The subtree at ``keys`` (a top-level key, then map keys below it)
     as the port's state dict for ``target``, converted module by module
     as it decodes. ``partial`` (the params-only rule): every module of the
@@ -174,7 +190,7 @@ def _decode_state(path: str, blob, offsets: Dict[str, int], keys: tuple,
     convert = _make_module_converter(target, quantize, device)
     state: Dict[str, torch.Tensor] = {}
     if SHARDED_KEY in offsets:
-        tree = _sharded_value(path, blob, offsets, keys)
+        tree = _sharded_value(path, blob, offsets, keys, shards)
         for module_path, leaves in convert_lib.modules_of(tree):
             state.update(convert(module_path, leaves))
     else:
@@ -302,21 +318,41 @@ def _make_module_converter(target: Dict[str, torch.Tensor],
     return convert
 
 
+def _read_shard(shard_path: str, shards: Optional[dict]) -> bytearray:
+    """A shard file's bytes, verified against its own manifest; kept in
+    ``shards`` (by path) when a caller passes one, so that one restore
+    reads and hashes each file once for all of its subtrees."""
+    if shards is not None and shard_path in shards:
+        return shards[shard_path]
+    blob = _read(shard_path)
+    status, detail = integrity.verify_blob(shard_path, blob)
+    if status == integrity.CORRUPT:
+        raise CheckpointCorruptError(f"{shard_path}: {detail}")
+    if shards is not None:
+        shards[shard_path] = blob
+    return blob
+
+
 def _assemble_sharded(path: str, index: dict, meta: dict,
-                      only_prefix: Optional[str]) -> dict:
+                      only_prefix: Optional[str],
+                      shards: Optional[dict] = None) -> dict:
     """Full tensors of the stubs in ``index`` from the slice records of
     every shard file named in ``meta`` (each verified against its own
-    manifest). Only records under ``only_prefix`` decode; the rest of each
-    shard is skipped by offset. A stub whose elements are not all covered
-    raises :class:`CheckpointCorruptError`."""
+    manifest; see :func:`_read_shard` for ``shards``). Only records under
+    ``only_prefix`` decode; the rest of each shard is skipped by offset. A
+    stub whose elements are not all covered, or a shard whose manifest
+    names another save than the index's, raises
+    :class:`CheckpointCorruptError`."""
     directory = os.path.dirname(os.path.abspath(path))
+    save_id = (integrity.read_manifest(path) or {}).get("save_id")
     records: Dict[str, list] = {}
     for name in meta.get("shard_files", ()):
         shard_path = os.path.join(directory, os.path.basename(str(name)))
-        blob = _read(shard_path)
-        status, detail = integrity.verify_blob(shard_path, blob)
-        if status == integrity.CORRUPT:
-            raise CheckpointCorruptError(f"{shard_path}: {detail}")
+        if save_id is not None and (integrity.read_manifest(shard_path)
+                                    or {}).get("save_id") != save_id:
+            raise CheckpointCorruptError(
+                f"{shard_path}: written by another save than {path}")
+        blob = _read_shard(shard_path, shards)
         offsets = _toplevel_offsets(shard_path, blob)
         if "leaves" not in offsets:
             continue
@@ -377,7 +413,8 @@ def _read_checked(path: str) -> bytearray:
     return blob
 
 
-def _sharded_value(path: str, blob, offsets: Dict[str, int], keys: tuple):
+def _sharded_value(path: str, blob, offsets: Dict[str, int], keys: tuple,
+                   shards: Optional[dict] = None):
     """The value at ``keys`` of a sharded index, its array stubs filled
     from the shard files (only their records under ``keys`` decode)."""
     meta, _ = flax_msgpack.decode(blob, offsets[SHARDED_KEY])
@@ -387,16 +424,17 @@ def _sharded_value(path: str, blob, offsets: Dict[str, int], keys: tuple):
         return value
     for part in reversed(keys):
         value = {part: value}
-    value = _assemble_sharded(path, value, meta, only_prefix="/".join(keys))
+    value = _assemble_sharded(path, value, meta, "/".join(keys), shards)
     for part in keys:
         value = value[part]
     return value
 
 
-def _decode_value(path: str, blob, offsets: Dict[str, int], keys: tuple):
+def _decode_value(path: str, blob, offsets: Dict[str, int], keys: tuple,
+                  shards: Optional[dict] = None):
     """The whole value at ``keys``, decoded."""
     if SHARDED_KEY in offsets:
-        return _sharded_value(path, blob, offsets, keys)
+        return _sharded_value(path, blob, offsets, keys, shards)
     return flax_msgpack.decode(
         blob, _subtree_offset(path, blob, offsets, keys))[0]
 
@@ -504,8 +542,11 @@ def restore_training_state(path: str, model: torch.nn.Module,
             inner if isinstance(inner, dict) else ())
     # The OptState's path: under "inner" of an fp16 LossScaleState.
     opt_keys = ("optimizer", "inner") if loss_scaled else ("optimizer",)
+    # A sharded checkpoint's shard files, read and hashed once for every
+    # subtree below.
+    shards: dict = {}
     state = _decode_state(path, blob, offsets, ("model",), target, None,
-                          device, partial=False)
+                          device, partial=False, shards=shards)
     extras = {"count": None}
     if preconditioner is not None:
         extras["preconditioner"] = kfac_pairs is not None
@@ -515,16 +556,19 @@ def restore_training_state(path: str, model: torch.nn.Module,
                                         device="meta")
                          for n, p in params.items()}
         mu, nu = (_decode_state(path, blob, offsets, opt_keys + (part,),
-                                moment_target, None, device, partial=False)
+                                moment_target, None, device, partial=False,
+                                shards=shards)
                   for part in ("mu", "nu"))
-        count = _decode_value(path, blob, offsets, opt_keys + ("count",))
+        count = _decode_value(path, blob, offsets, opt_keys + ("count",),
+                              shards)
         extras["count"] = int(np.asarray(count))
         if loss_scaled:
             scale_state = [_decode_value(path, blob, offsets,
-                                         ("optimizer", key))
+                                         ("optimizer", key), shards)
                            for key in ("scale", "growth_count")]
             extras["loss_scale"] = float(np.asarray(scale_state[0]))
-    model.load_state_dict(state)
+    model.load_state_dict({k: sharding.as_like(v, target[k])
+                           for k, v in state.items()})
     del state
     if optimizer is not None:
         transforms.load_moments(optimizer, params, extras["count"], mu, nu)
@@ -534,15 +578,37 @@ def restore_training_state(path: str, model: torch.nn.Module,
     for target, value in kfac_pairs or ():
         target.copy_(value)
     for key in ("sampler", "epoch"):
-        extras[key] = (_decode_value(path, blob, offsets, (key,))
+        extras[key] = (_decode_value(path, blob, offsets, (key,), shards)
                        if key in offsets else None)
     return extras
+
+
+def _newest_loadable(output_dir: str, on_skip, below: Optional[int] = None):
+    """(step, bytes) of the newest checkpoint (at or below ``below``) that
+    reads back whole, or (None, None); each skipped file warns and goes
+    to ``on_skip``."""
+    for step in reversed(_ckpt_steps(output_dir)):
+        if below is not None and step > below:
+            continue
+        path = checkpoint_path(output_dir, step)
+        try:
+            return step, _read_checked(path)
+        except CheckpointCorruptError as e:
+            reason = f"integrity: {e}"
+        except (flax_msgpack.MsgpackError, KeyError, OSError) as e:
+            reason = f"{type(e).__name__}: {e}"
+        warnings.warn(f"Skipping unreadable checkpoint {path} ({reason}); "
+                      "falling back to the previous retained one")
+        if on_skip is not None:
+            on_skip({"step": step, "path": path, "reason": reason})
+    return None, None
 
 
 def load_latest_checkpoint(output_dir: str, model: torch.nn.Module,
                            optimizer: Optional[torch.optim.Optimizer] = None,
                            on_skip: Optional[Callable[[dict], None]] = None,
-                           preconditioner=None):
+                           preconditioner=None,
+                           agree: Optional[Callable] = None):
     """(step, :func:`restore_training_state`'s extras) of the newest
     checkpoint in ``output_dir`` that reads back whole, or None.
 
@@ -551,23 +617,24 @@ def load_latest_checkpoint(output_dir: str, model: torch.nn.Module,
     without a manifest), is skipped with a warning and
     ``on_skip({"step", "path", "reason"})``, before anything of it is
     restored; the first that passes is restored, and an error there (a
-    shape that does not fit the model) raises."""
-    for step in reversed(_ckpt_steps(output_dir)):
-        path = checkpoint_path(output_dir, step)
-        try:
-            blob = _read_checked(path)
-        except CheckpointCorruptError as e:
-            reason = f"integrity: {e}"
-        except (flax_msgpack.MsgpackError, KeyError, OSError) as e:
-            reason = f"{type(e).__name__}: {e}"
-        else:
-            return step, restore_training_state(path, model, optimizer, blob,
-                                                preconditioner)
-        warnings.warn(f"Skipping unreadable checkpoint {path} ({reason}); "
-                      "falling back to the previous retained one")
-        if on_skip is not None:
-            on_skip({"step": step, "path": path, "reason": reason})
-    return None
+    shape that does not fit the model) raises. ``agree`` (the ranks'
+    ``agree_on_resume_step``) turns this rank's newest loadable step into
+    the run's: the oldest of the ranks' proposals, restored on every rank
+    (an agreed step this rank cannot load raises)."""
+    step, blob = _newest_loadable(output_dir, on_skip)
+    if agree is not None:
+        agreed = agree(step)
+        if agreed != step:
+            step, blob = _newest_loadable(output_dir, on_skip, below=agreed)
+            if step != agreed:
+                raise CheckpointCorruptError(
+                    f"{output_dir}: the ranks agreed on step {agreed}, which "
+                    f"this rank cannot load (its newest below is {step})")
+    if step is None:
+        return None
+    return step, restore_training_state(checkpoint_path(output_dir, step),
+                                        model, optimizer, blob,
+                                        preconditioner)
 
 
 # -- writing ---------------------------------------------------------------
@@ -659,32 +726,18 @@ def _prune_old(output_dir: str, keep: int) -> None:
 
 
 def _write_and_prune(contents: dict, output_dir: str, step: int, keep: int,
-                     is_async: bool) -> None:
+                     is_async: bool, mesh_spec: Optional[dict] = None
+                     ) -> None:
     """Stream ``contents``' bytes to a temporary file, hashing them on the
     way, rename it into place, write the manifest (blob first, manifest
     second: a crash between leaves a file without a manifest, which reads
     as unverifiable, never as corrupt), then prune."""
     start = time.perf_counter()
     path = checkpoint_path(output_dir, step)
-    digest, size = hashlib.sha256(), 0
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
-                               suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            def write(data) -> None:
-                nonlocal size
-                f.write(data)
-                digest.update(data)
-                size += len(data)
-
-            flax_msgpack.encode_to(contents, write)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    digest, size = _stream_write(path, contents)
     integrity.write_manifest(path, integrity.build_manifest(
         step, None, keys=contents.keys(), layout="gathered",
-        sha256=digest.hexdigest(), size_bytes=size))
+        mesh_spec=mesh_spec, sha256=digest, size_bytes=size))
     _prune_old(output_dir, keep)
     end = time.perf_counter()
     write_records.append({"path": path, "step": int(step), "bytes": size,
@@ -722,9 +775,182 @@ def _cuda_device(tree) -> Optional[torch.device]:
     return None
 
 
+@dataclasses.dataclass
+class ShardedLeaf:
+    """An array leaf of which this rank holds some windows: the whole
+    leaf's ``shape`` and ``dtype`` (a numpy name) and this rank's
+    ``records``, ``(start, limit, data)`` windows of it."""
+
+    shape: tuple
+    dtype: str
+    records: list
+
+
+def shard_name(step: int, proc: int, n_procs: int) -> str:
+    return f"ckpt_{step}.shard{proc}of{n_procs}.msgpack"
+
+
+def _build_sharded(tree, records: dict, rank: int, path=()):
+    """The index of ``tree`` (array leaves replaced by stubs) and, in
+    ``records`` (flat-path keyed), the slice records this rank writes: a
+    :class:`ShardedLeaf`'s own, and a whole tensor's from rank 0 only.
+    Other values (sampler state, epoch, counts) stay inline."""
+    if isinstance(tree, dict):
+        return {k: _build_sharded(v, records, rank, path + (str(k),))
+                for k, v in tree.items()}
+    key = "/".join(path)
+    if isinstance(tree, ShardedLeaf):
+        records[key] = [{"start": [int(x) for x in start],
+                         "limit": [int(x) for x in limit], "data": data}
+                        for start, limit, data in tree.records]
+        return {_LEAF_KEY: 1, "shape": [int(d) for d in tree.shape],
+                "dtype": tree.dtype}
+    if isinstance(tree, torch.Tensor) or (isinstance(tree, np.ndarray)
+                                          and tree.ndim > 0):
+        array = tree if isinstance(tree, np.ndarray) else tree.detach()
+        if rank == 0:
+            records[key] = [{"start": [0] * array.ndim,
+                             "limit": [int(d) for d in array.shape],
+                             "data": array}]
+        dtype = (str(array.dtype) if isinstance(array, np.ndarray)
+                 else flax_msgpack.DTYPE_NAMES[array.dtype])
+        return {_LEAF_KEY: 1, "shape": [int(d) for d in array.shape],
+                "dtype": dtype}
+    return tree
+
+
+def _stream_write(path: str, tree) -> tuple:
+    """Encode ``tree`` into a temporary file beside ``path``, hashing on
+    the way, and rename it into place: (sha256, size)."""
+    digest, size = hashlib.sha256(), 0
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            def write(data) -> None:
+                nonlocal size
+                f.write(data)
+                digest.update(data)
+                size += len(data)
+
+            flax_msgpack.encode_to(tree, write)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return digest.hexdigest(), size
+
+
+# How long rank 0 waits for the other ranks' shard files before the index.
+SHARD_WAIT_S = 600.0
+
+
+def _write_sharded(index: dict, records: dict, output_dir: str, step: int,
+                   keep: int, mesh_spec: Optional[dict], rank: int,
+                   world: int, is_async: bool, save_id: str) -> None:
+    """This rank's shard file and manifest; on rank 0, once every shard's
+    manifest carries ``save_id``, the index and its manifest, then the
+    pruning. Shards first, index last: a torn write leaves orphan shard
+    files but no visible step. No collective, so an async write may run
+    it."""
+    start = time.perf_counter()
+    shard_files = [shard_name(step, r, world) for r in range(world)]
+    shard_path = os.path.join(output_dir, shard_files[rank])
+    digest, size = _stream_write(shard_path, {"leaves": records})
+    integrity.write_manifest(shard_path, integrity.build_manifest(
+        step, None, mesh_spec=mesh_spec, sha256=digest, size_bytes=size,
+        save_id=save_id))
+    if rank == 0:
+        deadline = time.monotonic() + SHARD_WAIT_S
+        for name in shard_files:
+            shard = os.path.join(output_dir, name)
+            while (integrity.read_manifest(shard) or {}).get(
+                    "save_id") != save_id:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"{shard}: this save's shard did not land within "
+                        f"{SHARD_WAIT_S:.0f} s; the index of step {step} is "
+                        "not written")
+                time.sleep(0.05)
+        index = dict(index)
+        index[SHARDED_KEY] = {"version": 1, "n_shards": world,
+                              "shard_files": shard_files,
+                              "mesh_spec": dict(mesh_spec or {})}
+        path = checkpoint_path(output_dir, step)
+        digest, size = _stream_write(path, index)
+        integrity.write_manifest(path, integrity.build_manifest(
+            step, None, keys=[k for k in index if k != SHARDED_KEY],
+            mesh_spec=mesh_spec, layout="sharded", shard_files=shard_files,
+            sha256=digest, size_bytes=size, save_id=save_id))
+        _prune_old(output_dir, keep)
+    end = time.perf_counter()
+    write_records.append({"path": shard_path, "step": int(step),
+                          "bytes": size, "start": start, "end": end,
+                          "seconds": end - start, "async": is_async})
+
+
+def sharded_training_state(model: torch.nn.Module,
+                           optimizer: Optional[torch.optim.Optimizer],
+                           config) -> dict:
+    """``{"model"[, "optimizer"]}`` in the JAX layout with a
+    :class:`ShardedLeaf` per array: this rank's FSDP shard of every
+    parameter (and of its moments) as windows of the JAX leaves
+    (``models/convert.py`` ``jax_slices``). A replicated copy is written
+    by one rank only: under HSDP the ranks of ``data`` coordinate 0, for
+    an unsharded tensor rank 0."""
+    state = model.state_dict()
+    meta = {k: torch.empty(tuple(v.shape), device="meta")
+            for k, v in state.items()}
+    shapes = convert_lib.to_jax_params(meta, config, "pretraining",
+                                       keep_device=True)
+    rank = dist_utils.get_rank()
+
+    def writes(like) -> bool:
+        if not sharding.is_sharded(like):
+            return rank == 0
+        mesh = like.device_mesh
+        return all(mesh.get_local_rank(d) == 0
+                   for d, p in enumerate(like.placements)
+                   if not p.is_shard())
+
+    def tree_of(tensors: Dict[str, torch.Tensor]) -> dict:
+        records: Dict[tuple, list] = {}
+        for name, t in tensors.items():
+            like = state[name]
+            if not writes(like):
+                continue
+            path, windows = convert_lib.jax_slices(
+                name, sharding.local(t).detach(), sharding.row_range(like)[0],
+                config)
+            records.setdefault(path, []).extend(windows)
+
+        def leaf(node, path):
+            if isinstance(node, dict):
+                return {k: leaf(v, path + (k,)) for k, v in node.items()}
+            return ShardedLeaf(tuple(node.shape), "float32",
+                               records.get(path, []))
+
+        return leaf(shapes, ())
+
+    out = {"model": tree_of(state)}
+    if optimizer is not None:
+        mu, nu = transforms.moments(optimizer, dict(model.named_parameters()))
+        tree = {"count": np.asarray(transforms.opt_step_count(optimizer),
+                                    np.int32),
+                "mu": tree_of(mu), "nu": tree_of(nu)}
+        if isinstance(optimizer, transforms.DynamicLossScale):
+            tree = {"scale": np.asarray(optimizer.scale, np.float32),
+                    "growth_count": np.asarray(optimizer.growth_count,
+                                               np.int32),
+                    "inner": tree}
+        out["optimizer"] = tree
+    return out
+
+
 def save_checkpoint(output_dir: str, step: int, contents: dict,
                     keep: int = 3, async_write: bool = False,
-                    layout: str = "gathered") -> str:
+                    layout: str = "gathered",
+                    mesh_spec: Optional[dict] = None) -> Optional[str]:
     """Write ``contents`` (a dict of subtrees: nested dicts of tensors on
     any device, numpy values and plain values, e.g. ``{"model":
     to_jax_params(...), "epoch": 0}``) as ``ckpt_{step}.msgpack`` in
@@ -737,15 +963,37 @@ def save_checkpoint(output_dir: str, step: int, contents: dict,
     every tensor is cloned on its device now, and a background thread
     copies the clones to the host on a side stream (after an event that
     follows the clones), encodes and writes them; the caller may update
-    its tensors at once. Only ``layout="gathered"`` is written."""
-    if layout != "gathered":
-        raise NotImplementedError(
-            f"checkpoint layout {layout!r}: the port writes the gathered "
-            f"layout only ({ROADMAP_SHARDED})")
+    its tensors at once.
+
+    ``layout="sharded"`` writes this rank's shard and, on rank 0, the
+    index (see the module docstring; every rank calls it, and the async
+    write covers it too); ``mesh_spec`` (``MeshSpec.as_dict()``) is
+    recorded in the manifests. The gathered layout is rank 0's alone
+    (other ranks return None). Returns the index's path."""
+    if layout not in ("gathered", "sharded"):
+        raise ValueError(f"unknown checkpoint layout {layout!r}; options: "
+                         "gathered, sharded")
+    rank, world = dist_utils.get_rank(), dist_utils.get_world_size()
+    if layout == "gathered" and rank != 0:
+        return None
     key = _pending_key(output_dir)
     pending_error = _join_pending_save(key)
     os.makedirs(output_dir, exist_ok=True)
     path = checkpoint_path(output_dir, step)
+    if layout == "sharded":
+        records: dict = {}
+        index = _build_sharded(contents, records, rank)
+        save_id = dist_utils.shared_token()
+
+        def write(recs, is_async):
+            _write_sharded(index, recs, output_dir, step, keep, mesh_spec,
+                           rank, world, is_async, save_id)
+
+        contents = records
+    else:
+        def write(tree, is_async):
+            _write_and_prune(tree, output_dir, step, keep, is_async,
+                             mesh_spec)
     if async_write:
         box = [_snapshot(contents)]
         device = _cuda_device(box[0])
@@ -757,17 +1005,17 @@ def save_checkpoint(output_dir: str, step: int, contents: dict,
         def write_snapshot():
             snapshot = box.pop()
             if ready is None:
-                _write_and_prune(snapshot, output_dir, step, keep, True)
+                write(snapshot, True)
                 return
             with torch.cuda.device(device):
                 side = torch.cuda.Stream()
                 with torch.cuda.stream(side):
                     side.wait_event(ready)
-                    _write_and_prune(snapshot, output_dir, step, keep, True)
+                    write(snapshot, True)
 
         _start_pending_save(key, step, write_snapshot)
     else:
-        _write_and_prune(contents, output_dir, step, keep, False)
+        write(contents, False)
     if pending_error is not None:
         raise RuntimeError("async checkpoint write failed") from pending_error
     return path

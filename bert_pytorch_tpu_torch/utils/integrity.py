@@ -60,7 +60,8 @@ def sha256_file(path: str, chunk_bytes: int = 1 << 20) -> str:
 def build_manifest(step: int, blob: Optional[bytes], keys=(),
                    mesh_spec=None, layout=None, shard_files=None,
                    sha256: Optional[str] = None,
-                   size_bytes: Optional[int] = None) -> dict:
+                   size_bytes: Optional[int] = None,
+                   save_id: Optional[str] = None) -> dict:
     """Manifest dict for an in-memory serialized checkpoint (the save path
     has the bytes in hand — hashing them costs no extra IO). A streamed
     write passes ``blob=None`` with the ``sha256`` and ``size_bytes`` it
@@ -72,6 +73,9 @@ def build_manifest(step: int, blob: Optional[bytes], keys=(),
     layouts pass ``layout='sharded'`` plus the shard file NAMES; each
     shard carries its own sidecar manifest (multi-host saves cannot hash
     another process's shard), and :func:`verify_checkpoint` chases them.
+    ``save_id`` (the ranks' shared token of one sharded save) is recorded
+    in the index's and every shard's manifest, so a shard left by another
+    save of the same step is told apart from this save's.
     """
     manifest = {
         "schema": MANIFEST_SCHEMA,
@@ -88,6 +92,8 @@ def build_manifest(step: int, blob: Optional[bytes], keys=(),
         manifest["layout"] = str(layout)
     if shard_files is not None:
         manifest["shard_files"] = sorted(str(n) for n in shard_files)
+    if save_id is not None:
+        manifest["save_id"] = str(save_id)
     return manifest
 
 
@@ -170,6 +176,10 @@ def verify_checkpoint(ckpt_path: str) -> Tuple[str, str]:
             return CORRUPT, f"shard {name}: {shard_detail}"
         if shard_status == NO_MANIFEST:
             status, detail = NO_MANIFEST, f"shard {name}: {shard_detail}"
+        elif manifest.get("save_id") is not None and (
+                read_manifest(shard) or {}).get("save_id") != \
+                manifest["save_id"]:
+            return CORRUPT, f"shard {name}: written by another save"
     return status, detail
 
 

@@ -112,7 +112,8 @@ Phases (any failure exits non-zero and prints no result line):
    there. Its final checkpoint (no ``--skip_checkpoint``) verifies and
    reads back equal to the trained params;
 9. the two-phase pretraining hand-off on the runner's own functions
-   (``drive_handoff``, BERT-large, after a check of 14 GB of free disk):
+   (``drive_handoff``, BERT-large's width at 6 layers since PR 17,
+   after a check of 6 GiB of free disk):
    phase 1 at S=128 (local batch 32 x 2, 2 steps, a synchronous save),
    then phase 2 at S=512 in the same directory with
    ``--previous_phase_end_step 2`` and the flash kernels (the resumed
@@ -131,21 +132,21 @@ Phases (any failure exits non-zero and prints no result line):
    to 1e-4, each memory record's peak equals
    ``torch.cuda.max_memory_allocated()`` at its window's last step, the
    trace of step 2 holds as many #1-#3 launches as the counters count
-   over that step, grad health covers 24 layers on every step, the
+   over that step, grad health covers every layer on every step, the
    heartbeat reads the last step, and the last window's device span sits
    between the traced step's kernel time and the step's wall time;
-10. ``run_glue``, ``run_ner`` and ``run_swag`` at BERT-large width from
-   phase 9's checkpoint on seeded synthetic files (S=128; batch 32, 32,
+10. ``run_glue``, ``run_ner`` and ``run_swag`` at BERT-large width and
+   phase 9's depth from phase 9's checkpoint on seeded synthetic files (S=128; batch 32, 32,
    16; 3 steps, ``--save_steps 1`` and the final save; metrics printed;
    each final checkpoint reads back equal; GLUE with ``--telemetry_window
    3``, its JSONL schema-clean with a nonzero mfu), then ``run_server`` serves
    the GLUE checkpoint (``--tasks classify --classify_checkpoint``): one
-   dev example answered over HTTP with #4 24 times per forward on the
-   tensor cores, its logits within 5e-2 of the GLUE model's; then each
+   dev example answered over HTTP with #4 once per layer per forward on
+   the tensor cores, its logits within 5e-2 of the GLUE model's; then each
    runner again for 9 steps without checkpoints, for its seq/s;
 11. K-FAC pretraining on the runner's own functions (``drive_kfac``,
-   BERT-large phase 2: S=512, flash, remat dots, LAMB, bf16, local batch
-   8 x 2, after a check of 16 GB of free disk): 4 steps with ``--kfac
+   BERT-large phase 2 at 6 layers since PR 17: S=512, flash, remat dots, LAMB, bf16, local batch
+   8 x 2, after a check of 6 GiB of free disk): 4 steps with ``--kfac
    --kfac_factor_interval 1 --kfac_inv_interval 2`` (fused capture,
    cholesky) and a sync final save keeping 1 (every loss finite, count 4,
    symmetric factors, phase 6's launches per step on the tensor cores);
@@ -170,7 +171,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``F.layer_norm``; 12b phase 6 in fp16 (every step at the default loss
    scale 65536, the first loss within 5% of phase 6's bf16 one, the same
    launches, all on the tensor cores, peak memory); 12c the runner's own
-   loop from ``--init_loss_scale 2**40`` (``drive_fp16_overflow``): the
+   loop, at 6 layers since PR 17, from ``--init_loss_scale 2**40``
+   (``drive_fp16_overflow``): the
    first step skipped with params and moments unchanged and the scale
    halved, a sentinel record for every overflowing step, the scale
    following the wrapper's rule until the steps train; 12d its final
@@ -198,7 +200,7 @@ Phases (any failure exits non-zero and prints no result line):
    keeps, its warmup line naming no cold build. Phase 9b runs with
    ``--debug_port``: /healthz and /statsz read mid-run, and a capture
    armed at step 2's boundary covers steps 3 and 4, its trace holding the
-   #1-#3 launches the counters count there (96/48/48 per step). Phase 6
+   #1-#3 launches the counters count there (4/2/2 per layer per step). Phase 6
    ends with four more steps in turns, plain and under an active capture
    (its cost on a phase-2 step), and phase 2's build logs its compile
    records (the cold ``nvcc`` seconds per library);
@@ -229,9 +231,10 @@ Phases (any failure exits non-zero and prints no result line):
    the final replicas of the three modes report on ``/statsz``;
 15. the feed of a long pretraining run (``drive_feed``), phase 6's shape
    through ``run_pretraining.main`` over ``SyntheticPretrainingDataset``
-   rows, 6 steps a run: 15a ``--device_prefetch`` 0 then 2 (traced),
-   then an untraced run of each (2, then 0), per-step losses
-   bit-equal, the step p50 of each depth, #1-#3 96/48/48 per step, the traced steps 2-3 holding
+   rows, 6 steps a run: 15a ``--device_prefetch`` 0 then 2 (traced; 6
+   layers since PR 17), then an untraced run of each (2, then 0; 24
+   layers), per-step losses bit-equal within each pair, the step p50 of
+   each depth, #1-#3 4/2/2 per layer per step, the traced steps 2-3 holding
    the staged batch's copies as pinned-to-device memcpys on a stream other
    than the compute kernels', data_wait and h2d_wait p50 of schema-clean
    windows; 15b the runner's loader with ``--num_workers 2`` against 0,
@@ -241,13 +244,13 @@ Phases (any failure exits non-zero and prints no result line):
    to ``pretrain.make_eval_step`` on that step's params and batches, the
    eval forward on #1 (24 launches a batch; #4 none); 15d
    ``--fault_spec nonfinite@3`` under ``--sentinel_policy abort`` raising
-   with its injected record, then the kill cycle at dropout 0 and 6
-   layers: a child with ``die@4`` and synchronous saves every 2 steps
+   with its injected record (6 layers since PR 17), then the kill cycle
+   at dropout 0 and 6 layers: a child with ``die@4`` and synchronous saves every 2 steps
    dies by SIGKILL, its newest checkpoint is truncated, and a fresh
    child walks back to step 2 (its ``resume`` record naming the skip)
    and runs to step 6 with the losses of an uninterrupted run bit for
    bit. Every entry of the kernels
-   line carries ``launches_feed`` (15a's prefetch-2 run), #1 also
+   line carries ``launches_feed`` (15a's untraced prefetch-2 run), #1 also
    ``launches_feed_eval`` (15c's held-out forwards, counted around each of
    that run's held-out passes);
 16. RoBERTa-large and the text path (``drive_roberta``), the repo's
@@ -270,7 +273,26 @@ Phases (any failure exits non-zero and prints no result line):
    batch, each result 16d's answer within the tolerances, 24 launches of
    #4 per forward. #1-#4 carry
    ``launches_roberta`` (16b's and 16d's), #4 also
-   ``launches_roberta_batch_infer`` (16e's).
+   ``launches_roberta_batch_infer`` (16e's);
+17. pretraining across ranks (``drive_mesh``), each part a
+   ``python -m torch.distributed.run`` of the runner: 17a at world size 1
+   on nccl (``--mesh dp=1``) through ``run_pretraining.main`` in phase
+   6's shape on phase 6's rows, 4 steps: #1-#3 96/48/48 per step on the
+   tensor cores and the losses phase 6's bit for bit; 17b two ranks
+   sharing the card (so gloo: NCCL refuses two ranks on one device),
+   ``--mesh dp=2`` at full width and 6 layers, 3 steps at dropout 0 and
+   0.1 and with ``--overlap_grad_reduce``: the ranks' parameters
+   bit-equal after every step, the first loss at dropout 0 within
+   ``P17_LOSS_RTOL`` of one process's step on the same 16 rows, the
+   overlap's buckets heads, encoder, embeddings and its fp32 weights
+   within 1e-6 of the plain reduction's; 17c ``--mesh fsdp=2`` on the
+   same ranks (FSDP2 over gloo), 2 steps, then a sharded save (a shard
+   file a rank) and a gathered one of the same state, each resumed by
+   the runner at world size 1: the restored states and the next step
+   from each bit-equal. Each rank counts its own launches (phase 6's per
+   step); the training kernels carry ``launches_mesh_dp1`` (17a),
+   ``launches_mesh_dp2`` (17b's three runs, rank 0) and
+   ``launches_mesh_fsdp2`` (17c, rank 0).
 
 Every launch counter is set to 0 just before each main path and read just
 after it (phase 14's counters live in its replicas, fresh processes whose
@@ -2118,10 +2140,15 @@ PHASE1 = os.path.join(REPO, "configs", "bert_pretraining_phase1_config.json")
 # steps, a synchronous save at step 2. 9b, the phase-2 recipe at S=512:
 # phase 6's local batch 8 x 2, 4 steps, async saves every 2 keeping 2.
 P1_LOCAL, P1_ACCUM, P1_STEPS, P1_SEQ = 32, 2, 2, 128
+# Phases 9 and 10 run BERT-large's full width at HANDOFF_LAYERS layers
+# (cut from 24 in PR 17 to make room for phase 17 in the smoke's time:
+# the saves, resumes, walk-back, telemetry and finetuning are the same
+# code at any depth; a LAMB checkpoint is 1.31 GB instead of 4.03).
+HANDOFF_LAYERS = 6
 P2_STEPS, P2_EVERY, P2_KEEP = 4, 2, 2
-# Three BERT-large LAMB states of about 4 GB at the peak of a save (two
+# Three 6-layer LAMB states of 1.31 GB at the peak of a save (two
 # retained, one being written), plus headroom.
-HANDOFF_DISK_BYTES = 14 * 2 ** 30
+HANDOFF_DISK_BYTES = 6 * 2 ** 30
 # One step from the resumed state against one from the in-memory state:
 # bit for bit when every kernel on the step is deterministic; where one is
 # not, the loss and every parameter and moment within 1e-5 (the step's lr
@@ -2187,7 +2214,7 @@ def check_runner_telemetry(tele_dir: str, r: dict, per_step: list,
     record's peak equal to ``torch.cuda.max_memory_allocated()`` at its
     window's last step (``per_step``: (peak, launch counts) after each
     step); the trace's #1-#3 launches equal the counters over the traced
-    step; grad health of 24 layers on every step; the heartbeat at the
+    step; grad health of every layer on every step; the heartbeat at the
     last step. The span of the last window must sit between the traced
     step's kernel time and its wall time."""
     from bert_pytorch_tpu_torch.telemetry import Heartbeat, schema
@@ -2261,12 +2288,13 @@ def check_runner_telemetry(tele_dir: str, r: dict, per_step: list,
 
 def check_trainer_capture(tele_dir: str, out: str, per_step: list,
                           probes: dict, port: int, step_ms: list,
-                          card: str) -> dict:
+                          card: str, layers: int) -> dict:
     """9b's debug plane: /healthz and /statsz answered mid-run, the
     capture armed there covered the steps after it (its profile_window in
     the JSONL, its trace holding exactly the #1-#3 launches the counters
-    count over those steps: 96/48/48 per optimizer step), the server
-    closed with the run and the clean run left no postmortem."""
+    count over those steps: 4/2/2 per layer per optimizer step, remat
+    dots over 2 microbatches), the server closed with the run and the
+    clean run left no postmortem."""
     health, stats, arm = probes["healthz"], probes["statsz"], probes["arm"]
     if (health["status"], health["process"], health["step"]) != (
             "ok", "pretrain", CAPTURE_FROM_STEP - 1) or \
@@ -2292,8 +2320,9 @@ def check_trainer_capture(tele_dir: str, out: str, per_step: list,
         window["trace_path"], f"trace_{os.getpid()}.json"))
     counted = {name: per_step[-1][1][name]
                - per_step[CAPTURE_FROM_STEP - 1][1][name] for name in traced}
-    per = {"flash_attention_fwd": 96, "flash_attention_dq": 48,
-           "flash_attention_dkv": 48}
+    per = {"flash_attention_fwd": 4 * layers,
+           "flash_attention_dq": 2 * layers,
+           "flash_attention_dkv": 2 * layers}
     if traced != counted or traced != {n: v * steps for n, v in per.items()}:
         raise AssertionError(f"9b capture trace launches {traced}, counters "
                              f"{counted} over {steps} steps")
@@ -2326,14 +2355,14 @@ def check_finetune_telemetry(jsonl: str, name: str, card: str) -> list:
     return windows
 
 
-def runner(out: str, config_file: str, extra) -> dict:
-    """The pretraining runner's own set-up at BERT-large width, as its
-    ``main`` runs it up to the loop: arguments, model, optimizer and the
-    resume from ``out`` (timed)."""
+def runner(out: str, config_file: str, extra, config: str = CONFIG) -> dict:
+    """The pretraining runner's own set-up at BERT-large width (the model
+    config ``config``), as its ``main`` runs it up to the loop:
+    arguments, model, optimizer and the resume from ``out`` (timed)."""
     from bert_pytorch_tpu_torch import run_pretraining
 
     args = run_pretraining.setup_training(run_pretraining.parse_arguments([
-        "--config_file", config_file, "--model_config_file", CONFIG,
+        "--config_file", config_file, "--model_config_file", config,
         "--output_dir", out, "--dtype", "bfloat16", "--device", "cuda",
         "--seed", "0", "--log_steps", "1", *extra]))
     model, config = run_pretraining.prepare_model(args)
@@ -2468,8 +2497,8 @@ def kernels_deterministic(dtype=torch.bfloat16) -> dict:
 
 
 def drive_handoff(kernels: dict, root: str, card: str) -> dict:
-    """Phase 9 at BERT-large width (full width and depth; cut: 2 + 4 + 1
-    steps of seeded synthetic rows for the recipes' 7038 + 1563, local
+    """Phase 9 at BERT-large width (full width, HANDOFF_LAYERS layers; cut:
+    2 + 4 + 1 steps of seeded synthetic rows for the recipes' 7038 + 1563, local
     batches 32 and 8 for the recipes' 64 and 32 with 1024 accumulation
     steps): the runner's set-up, loop, saves and resume, all its own
     functions (no shards and no h5py on the card machine: the rows come
@@ -2500,13 +2529,16 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
                              f"free disk, {free} are free")
     out = os.path.join(root, "pretrain")
     ckpt_dir = os.path.join(out, "pretrain_ckpts")
+    cut = os.path.join(root, "handoff_config")
+    os.makedirs(cut)
+    config = cut_config(cut, num_hidden_layers=HANDOFF_LAYERS)
     # 9a
     r1 = runner(out, PHASE1, [
         "--local_batch_size", str(P1_LOCAL),
         "--global_batch_size", str(P1_LOCAL * P1_ACCUM),
         "--steps", str(P1_STEPS), "--num_steps_per_checkpoint",
         str(P1_STEPS), "--checkpoint_write", "sync",
-        "--skip_final_checkpoint"])
+        "--skip_final_checkpoint"], config)
     if r1["checkpoint"] is not None:
         raise AssertionError(f"phase 1 found a checkpoint in {out}")
     a1 = r1["args"]
@@ -2542,7 +2574,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         "--heartbeat_file", os.path.join(tele_dir, "heartbeat.json"),
         "--telemetry_jsonl", os.path.join(tele_dir,
                                           "pretraining_telemetry.jsonl"),
-        "--grad_stats_every", "1", "--debug_port", str(debug_port)])
+        "--grad_stats_every", "1", "--debug_port", str(debug_port)], config)
     a2 = r2["args"]
     if (a2.resume_step, r2["global_step"], a2.remat,
             a2.max_predictions_per_seq) != (P1_STEPS, 0, "dots", 80):
@@ -2598,7 +2630,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
                              f"ckpt_{P1_STEPS} pruned")
     p2_ms = [(b - a) * 1e3 for a, b in summary2["step_times"]]
     capture_9b = check_trainer_capture(tele_dir, out, per_step, probes,
-                                       debug_port, p2_ms, card)
+                                       debug_port, p2_ms, card, layers)
     telemetry_9b = check_runner_telemetry(tele_dir, r2, per_step, card)
     over, clear = overlap(summary2["step_times"], writes2[0])
     stalls = [s["stall_s"] for s in summary2["saves"]]
@@ -2609,7 +2641,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
         f" (step, bytes, s); steps overlapping the first write {over}, "
         f"clear of it {clear}; launches {launches}; on {card}")
     # 9c
-    r3 = runner(out, PHASE2, p2_flags)
+    r3 = runner(out, PHASE2, p2_flags, config)
     if (r3["args"].resume_step, r3["global_step"]) != (
             P1_STEPS + P2_STEPS, P2_STEPS):
         raise AssertionError(f"9c resumed at {r3['args'].resume_step}")
@@ -2655,7 +2687,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        r4 = runner(out, PHASE2, p2_flags)
+        r4 = runner(out, PHASE2, p2_flags, config)
     skips = [str(w.message) for w in caught
              if "Skipping unreadable checkpoint" in str(w.message)]
     resume_s["walk_back"] = r4["resume_s"]
@@ -2669,7 +2701,7 @@ def drive_handoff(kernels: dict, root: str, card: str) -> dict:
     torch.cuda.empty_cache()
     init = ckpt.checkpoint_path(ckpt_dir, ckpt.find_resume_step(ckpt_dir,
                                                                 verify=True))
-    return {"phase1_step_ms": p1_ms, "sync_write": write1,
+    return {"config": config, "phase1_step_ms": p1_ms, "sync_write": write1,
             "sync_stall_s": summary1["saves"][0]["stall_s"],
             "phase2_step_ms": p2_ms, "async_stalls_s": stalls,
             "async_writes": writes2, "steps_overlapping_write": over,
@@ -2694,8 +2726,9 @@ FT_RUNS = {"glue": (32, 96), "ner": (32, 96), "swag": (16, 48)}
 FT_TIMED_EPOCHS = 3
 # The served GLUE logits against the runner's model on the same dev row,
 # both bf16: the server runs kernel #4 on the 128 bucket, the runner's
-# evaluation dense attention, so the two differ by bf16 rounding in 24
-# layers of attention, not by more than 5e-2 absolute on a logit.
+# evaluation dense attention, so the two differ by bf16 rounding in its
+# layers of attention (24 until PR 17, HANDOFF_LAYERS since), not by more
+# than 5e-2 absolute on a logit.
 GLUE_SERVE_ATOL = 5e-2
 # The GLUE run's telemetry: one window over its 3 steps.
 FT_TELEMETRY_WINDOW = 3
@@ -2724,17 +2757,18 @@ def check_saved_model(out: str, step: int, model, label: str) -> dict:
     return write
 
 
-def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
-                   card: str) -> dict:
+def drive_finetune(vocab: str, root: str, init: str, config: str,
+                   kernels: dict, card: str) -> dict:
     """Phase 10: ``run_glue``, ``run_ner`` and ``run_swag`` (their own
-    ``run``) at BERT-large width on seeded synthetic files, each from
-    phase 9's checkpoint (``--init_checkpoint``, NER's
-    ``--model_checkpoint``), with ``--save_steps 1`` and the final save;
-    each prints its metrics and its final checkpoint reads back equal.
-    Then ``run_server.build_service --tasks classify --classify_checkpoint
-    <glue out>`` answers a dev example over HTTP, 24 launches of #4 per
-    forward on the tensor cores, and its logits for the row equal the
-    GLUE model's within GLUE_SERVE_ATOL."""
+    ``run``) at BERT-large width and phase 9's depth (the model config
+    ``config``) on seeded synthetic files, each from phase 9's checkpoint
+    (``--init_checkpoint``, NER's ``--model_checkpoint``), with
+    ``--save_steps 1`` and the final save; each prints its metrics and its
+    final checkpoint reads back equal. Then ``run_server.build_service
+    --tasks classify --classify_checkpoint <glue out>`` answers a dev
+    example over HTTP, one launch of #4 per layer per forward on the
+    tensor cores, and its logits for the row equal the GLUE model's
+    within GLUE_SERVE_ATOL."""
     from bert_pytorch_tpu_torch import run_glue, run_ner, run_swag
     from bert_pytorch_tpu_torch.data import glue
     from bert_pytorch_tpu_torch.data.tokenization import (
@@ -2751,7 +2785,7 @@ def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
                                       FT_RUNS["swag"][1])
     swag_val = synth.write_swag_csv(os.path.join(data, "swag_val.csv"), 24,
                                     16)
-    base = ["--model_config_file", CONFIG, "--vocab_file", vocab,
+    base = ["--model_config_file", config, "--vocab_file", vocab,
             "--device", "cuda", "--dtype", "bfloat16", "--max_seq_len",
             str(FT_SEQ)]
     common = base + ["--epochs", "1", "--save_steps", "1"]
@@ -2806,7 +2840,7 @@ def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
     payload = {"text": example.text_a, "text_pair": example.text_b}
     served, engine = serve_waves(
         serve_args(vocab, "bfloat16", "flash_infer", "classify",
-                   ["--classify_checkpoint", glue_out]),
+                   ["--classify_checkpoint", glue_out], config),
         [[("classify", payload)]], kernels)
     check_launches(served, "flash_attention_infer", ("layer_norm_fwd",))
     row = glue.features_to_arrays(glue.convert_examples_to_features(
@@ -2860,8 +2894,12 @@ def drive_finetune(vocab: str, root: str, init: str, kernels: dict,
 KFAC_FLAGS = ["--kfac", "--kfac_factor_interval", "1",
               "--kfac_inv_interval", "2"]
 KFAC_STEPS, KFAC_STATS_STEPS, KFAC_STATS_BATCH = 4, 2, 4
-# A BERT-large K-FAC training checkpoint is about 7.5 GB.
-KFAC_DISK_BYTES = 16 * 2 ** 30
+# Its depth, cut from 24 in PR 17 to make room for phase 17 in the
+# smoke's time (full width: the factors are BERT-large's, 1025² to 4097²).
+KFAC_LAYERS = 6
+# A K-FAC training checkpoint at 6 layers is 2.18 GB (7.5 GB at 24); one
+# retained and one being written, plus headroom.
+KFAC_DISK_BYTES = 6 * 2 ** 30
 # A captured factor is Xᵀ X from cuBLAS, whose (i, j) and (j, i) entries
 # may sum in another order: symmetric within 1e-5 of its largest entry.
 KFAC_SYMMETRY_RTOL = 1e-5
@@ -3092,9 +3130,10 @@ def kfac_deterministic(r: dict, batch: dict) -> dict:
 
 
 def drive_kfac(kernels: dict, root: str, card: str) -> dict:
-    """Phase 11: K-FAC pretraining of BERT-large on the runner's own
-    functions (the phase-2 recipe: S=512, flash, remat dots, LAMB, bf16;
-    local batch 8 x 2, seeded synthetic rows).
+    """Phase 11: K-FAC pretraining of BERT-large's width at KFAC_LAYERS
+    layers on the runner's own functions (the phase-2 recipe: S=512,
+    flash, remat dots, LAMB, bf16; local batch 8 x 2, seeded synthetic
+    rows).
 
     11a: 4 steps with ``--kfac`` (fused capture, factors every step,
     inverses every 2), a sync final save keeping 1: every loss finite,
@@ -3126,8 +3165,11 @@ def drive_kfac(kernels: dict, root: str, card: str) -> dict:
              "--num_steps_per_checkpoint", str(10 ** 6),
              "--keep_checkpoints", "1", "--previous_phase_end_step", "0",
              *KFAC_FLAGS]
+    cut = os.path.join(root, "kfac_config")
+    os.makedirs(cut)
+    config = cut_config(cut, num_hidden_layers=KFAC_LAYERS)
     # 11a
-    r = runner(out, PHASE2, flags)
+    r = runner(out, PHASE2, flags, config)
     args = r["args"]
     if (args.remat, args.optimizer, r["checkpoint"], args.kfac_capture) != (
             "dots", "lamb", None, "train"):
@@ -3172,7 +3214,7 @@ def drive_kfac(kernels: dict, root: str, card: str) -> dict:
         f"{write['bytes']} bytes in {write['seconds']:.2f} s; launches "
         f"{launches} on {card}")
     # 11c
-    r3 = runner(out, PHASE2, flags)
+    r3 = runner(out, PHASE2, flags, config)
     if (r3["args"].resume_step, r3["global_step"]) != (KFAC_STEPS,
                                                        KFAC_STEPS):
         raise AssertionError(f"11c resumed at {r3['args'].resume_step}")
@@ -3255,6 +3297,7 @@ def drive_kfac(kernels: dict, root: str, card: str) -> dict:
         f"one factor's Cholesky, cholesky_inverse and eigh by size (ms): "
         f"{turns['linalg_ms']} on {card}")
     del r, kstate
+    shutil.rmtree(cut)
     torch.cuda.empty_cache()
     return {"losses": losses, "step_ms": step_ms, "launches": launches,
             "routes": routes, "count": KFAC_STEPS,
@@ -3275,6 +3318,10 @@ LN_FP16_SHAPES = ((32 * 384, 1024), (8 * 512, 1024))
 # enough steps that the scale backs off to a finite step and trains.
 OVERFLOW_SCALE = 2.0 ** 40
 OVERFLOW_STEPS = 32
+# Its depth, cut from 24 to make room for phase 17 in the smoke's time:
+# the scaler, the skips and the save and resume are the same code at any
+# depth (the steps are not cut).
+OVERFLOW_LAYERS = 6
 # 12d: batches tried after the resume until a step trains.
 RESUME_TRIES = 4
 
@@ -3296,7 +3343,8 @@ def check_fp16_kernels() -> tuple:
 
 def drive_fp16_overflow(kernels: dict, root: str, card: str) -> dict:
     """12c and 12d at BERT-large phase 2 (S=512, flash, remat dots, LAMB,
-    local batch 8 x 2) in fp16, on the runner's own functions and loop
+    local batch 8 x 2; full width, OVERFLOW_LAYERS layers) in fp16, on the
+    runner's own functions and loop
     (telemetry on, every step logged) over SyntheticPretrainingDataset
     rows.
 
@@ -3334,7 +3382,10 @@ def drive_fp16_overflow(kernels: dict, root: str, card: str) -> dict:
              "--previous_phase_end_step", "0", "--checkpoint_write", "sync",
              "--num_steps_per_checkpoint", str(10 ** 6),
              "--telemetry_jsonl", jsonl]
-    r = runner(out, PHASE2, flags)
+    cut = os.path.join(root, "fp16_config")
+    os.makedirs(cut)
+    config = cut_config(cut, num_hidden_layers=OVERFLOW_LAYERS)
+    r = runner(out, PHASE2, flags, config)
     model, opt = r["model"], r["optimizer"]
     if not isinstance(opt, transforms.DynamicLossScale) or (
             opt.scale != OVERFLOW_SCALE):
@@ -3406,7 +3457,7 @@ def drive_fp16_overflow(kernels: dict, root: str, card: str) -> dict:
     write = ckpt.write_records[-1]
     if (write["step"], write["async"]) != (OVERFLOW_STEPS, False):
         raise AssertionError(f"12d: the final save {write}")
-    r2 = runner(out, PHASE2, flags)
+    r2 = runner(out, PHASE2, flags, config)
     if r2["global_step"] != OVERFLOW_STEPS:
         raise AssertionError(f"12d resumed at {r2['global_step']}")
     check_same_state("12d resume vs 12c's final state", training_state(r2),
@@ -3462,6 +3513,7 @@ def drive_fp16_overflow(kernels: dict, root: str, card: str) -> dict:
     resume_s = r2["resume_s"]
     del r, r2, model, opt, opt2, after, after2
     shutil.rmtree(out)
+    shutil.rmtree(cut)
     torch.cuda.empty_cache()
     return {"launches": launches, "routes": routes, "first_step": first,
             "first_skipped": skipped, "trained_steps": trained_steps,
@@ -4083,15 +4135,19 @@ FEED_VOCAB, FEED_MAX_PRED = 30528, 80
 # are issued as step N begins: batch 6's, at step 3, inside the window.
 FEED_PROFILE_STEPS = "2:4"
 FEED_UNTRACED_ORDER = ("2", "0")
+# The traced pair's depth (PR 17 cut it from 24 to make room for phase
+# 17): the prefetcher's copies, its stream and the trace are the same at
+# any depth; the untraced pair and 15c keep BERT-large's 24.
+FEED_TRACED_LAYERS = 6
 FEED_WINDOW = 3
 FEED_WORKERS = 2
 FEED_NONFINITE_AT, FEED_KILL_AT = 3, 4
 # The kill cycle's depth, cut from 24 to make room for phase 16 in the
 # smoke's time: its two sync saves, the walk-back and the resume are the
-# same code at any depth (1.26 GB a save instead of 4.03).
+# same code at any depth (1.31 GB a save instead of 4.03).
 FEED_KILL_LAYERS = 6
-# Two retained BERT-large LAMB states (4.03 GB each) and headroom.
-FEED_DISK_BYTES = 14 * 2 ** 30
+# Two retained 6-layer LAMB states (1.31 GB each) and headroom.
+FEED_DISK_BYTES = 6 * 2 ** 30
 FEED_CHILD_TIMEOUT_S = 300
 # The arrays of an unpacked batch: ids, segments, mask, labels, NSP.
 FEED_ARRAYS = 5
@@ -4180,7 +4236,7 @@ def feed_main(kernels: dict, out: str, extra=(), dataset=None,
 
 def check_feed_launches(label: str, launches: dict, layers: int,
                         extra_fwd: int = 0) -> None:
-    """Phase 6's 96/48/48 per step over FEED_STEPS steps (``extra_fwd``
+    """Phase 6's 4/2/2 per layer per step over FEED_STEPS steps (``extra_fwd``
     more forwards: the held-out passes), no other kernel."""
     per_step = layers * TRAIN_ACCUM
     want = {name: 0 for name in launches}
@@ -4255,12 +4311,13 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     the recipe's 1563, local batch 8 x 2 for 32 x 1024, a held-out set of
     4 batches): the feed of a long run through ``run_pretraining.main``.
 
-    15a: --device_prefetch 2 against 0, in turns (0, then 2 traced, then
-    untraced 2, then 0): per-step losses bit-equal, #1-#3 96/48/48 per
-    step, the copies in the trace of steps 2-3 pinned-to-device on a
-    stream other than the compute kernels', data_wait/h2d_wait p50 of
-    schema-clean windows, and the step p50 of each depth with and
-    without the trace.
+    15a: --device_prefetch 2 against 0, in turns (0, then 2 traced, both
+    at FEED_TRACED_LAYERS layers, then untraced 2, then 0 at 24): per-step
+    losses bit-equal within each pair, #1-#3 4 x layers / 2 x layers /
+    2 x layers per step, the copies in the trace of steps 2-3
+    pinned-to-device on a stream other than the compute kernels',
+    data_wait/h2d_wait p50 of schema-clean windows, and the step p50 of
+    each depth with and without the trace.
     15b: the runner's loader with --num_workers 2 against 0: every batch
     equal by sha256; each worker's start and the loader's rows per second.
     15c: --num_workers 2 --num_steps_per_eval 2 --eval_batches 4: the
@@ -4269,7 +4326,8 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     batches; the eval route's kernel and launches per batch, a pass's
     seconds.
     15d: nonfinite@3 under --sentinel_policy abort raises with the
-    injected record; then the kill cycle at dropout 0 and 6 layers: a
+    injected record (FEED_TRACED_LAYERS layers since PR 17); then the
+    kill cycle at dropout 0 and 6 layers: a
     child with die@4 and saves every 2 steps dies by SIGKILL, its newest
     checkpoint is truncated, a fresh child walks back to step 2 (a resume record
     naming the skip) and runs to step 6, its losses from step 3 on equal
@@ -4287,6 +4345,10 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     t_phase = time.perf_counter()
     layers = 24
     # 15a
+    traced_dir = os.path.join(root, "feed_traced_config")
+    os.makedirs(traced_dir)
+    traced_config = cut_config(traced_dir,
+                               num_hidden_layers=FEED_TRACED_LAYERS)
     runs = {}
     for depth in ("0", "2"):
         out = os.path.join(root, f"feed_prefetch_{depth}")
@@ -4295,9 +4357,9 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
         if depth == "2":
             extra += ["--profile_steps", FEED_PROFILE_STEPS, "--profile_dir",
                       os.path.join(out, "profile")]
-        runs[depth] = feed_main(kernels, out, extra)
+        runs[depth] = feed_main(kernels, out, extra, config=traced_config)
         check_feed_launches(f"15a prefetch {depth}", runs[depth]["launches"],
-                            layers)
+                            FEED_TRACED_LAYERS)
     if (runs["0"]["losses"] != runs["2"]["losses"]
             or len(runs["0"]["losses"]) != FEED_STEPS):
         raise AssertionError(f"15a losses differ: prefetch 0 "
@@ -4321,6 +4383,7 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     # run of each depth follows, so that step time is read against the
     # depth alone.
     untraced = {"0": [], "2": []}
+    untraced_runs = {}
     for i, depth in enumerate(FEED_UNTRACED_ORDER):
         run = feed_main(kernels, os.path.join(
             root, f"feed_untraced_{i}_{depth}"), [
@@ -4328,15 +4391,20 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
             str(FEED_WINDOW), "--telemetry_sync_every", "1"])
         check_feed_launches(f"15a untraced prefetch {depth}",
                             run["launches"], layers)
-        if run["losses"] != runs["0"]["losses"]:
+        untraced_runs[depth] = run
+        first = untraced_runs[FEED_UNTRACED_ORDER[0]]
+        if run["losses"] != first["losses"]:
             raise AssertionError(f"15a untraced prefetch {depth} losses "
                                  f"{run['losses']} differ from "
-                                 f"{runs['0']['losses']}")
+                                 f"{first['losses']}")
         untraced[depth].append({"step_p50_s": step_p50_s(run),
                                 "windows": window_p50s(run["windows"]),
                                 "main_s": run["wall_s"]})
-    log(f"[feed] 15a prefetch 0 then 2: losses bit-equal "
-        f"{runs['2']['losses']}; launches {runs['2']['launches']}; "
+    log(f"[feed] 15a prefetch 0 then 2 ({FEED_TRACED_LAYERS} layers): "
+        f"losses bit-equal {runs['2']['losses']}; launches "
+        f"{runs['2']['launches']}; untraced (24 layers) losses bit-equal "
+        f"{untraced_runs['2']['losses']}, launches "
+        f"{untraced_runs['2']['launches']}; "
         f"(step, data_wait p50, h2d_wait p50, step p50) s: prefetch 0 "
         f"{window_p50s(runs['0']['windows'])}, prefetch 2 "
         f"{window_p50s(runs['2']['windows'])}; steps 2-{FEED_STEPS} p50 "
@@ -4416,9 +4484,9 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
                            if name == "flash_attention_fwd" else 0)
                     for name in kernels}:
         raise AssertionError(f"15c held-out passes launched {held_out}")
-    if train_losses(records) != runs["2"]["losses"]:
+    if train_losses(records) != untraced_runs["2"]["losses"]:
         raise AssertionError(f"15c losses {train_losses(records)} differ "
-                             f"from 15a's {runs['2']['losses']}")
+                             f"from 15a's {untraced_runs['2']['losses']}")
     if [v["step"] for v in summary["val"]] != list(
             range(FEED_EVERY, FEED_STEPS + 1, FEED_EVERY)):
         raise AssertionError(f"15c val records {summary['val']}")
@@ -4464,7 +4532,7 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
         feed_main(kernels, out, [
             "--fault_spec", f"nonfinite@{FEED_NONFINITE_AT}",
             "--sentinel_policy", "abort", "--sentinel_patience", "1",
-            "--telemetry_sync_every", "1"])
+            "--telemetry_sync_every", "1"], config=traced_config)
         raise AssertionError("nonfinite@3 under abort did not raise")
     except NonFiniteError as exc:
         aborted = str(exc)
@@ -4547,10 +4615,12 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
         f"{resume[0]['step']} and ran to {FEED_STEPS} in {resume_s:.1f} s, "
         f"losses {after} (uninterrupted {want}; bit-equal {exact}); phase "
         f"15 {phase_s:.1f} s on {card}")
-    return {"launches": runs["2"]["launches"],
+    shutil.rmtree(traced_dir)
+    return {"launches": untraced_runs["2"]["launches"],
+            "traced_launches": runs["2"]["launches"],
             "eval_launches": eval_launches, "held_out_launches": held_out,
             "eval_route": route, "eval_pass_s": pass_s,
-            "losses": runs["2"]["losses"], "windows": {
+            "losses": untraced_runs["2"]["losses"], "windows": {
                 depth: window_p50s(run["windows"])
                 for depth, run in runs.items()},
             "main_s": {depth: run["wall_s"] for depth, run in runs.items()},
@@ -5111,6 +5181,475 @@ def drive_roberta(kernels: dict, root: str, card: str) -> dict:
     return out
 
 
+# -- phase 17: data-parallel and fully-sharded pretraining -------------------
+
+# 17a: phase 6's rows (its four global batches of 16, seeds 0-3, as one
+# dataset) through torchrun at world size 1, --mesh dp=1, on nccl.
+# 17b / 17c: two ranks sharing the card (so gloo: NCCL refuses two ranks
+# on one device) at BERT-large width cut to P17_LAYERS layers, a local
+# batch of 4 a rank (2 ranks x 4 rows x 2 microbatches = phase 6's 16
+# rows a step): 17b --mesh dp=2, P17B_STEPS steps at dropout 0, at 0.1 and
+# at 0.1 with --overlap_grad_reduce; 17c --mesh fsdp=2, P17C_STEPS steps,
+# then a sharded and a gathered save of the same state, each resumed at
+# world size 1 in this process.
+P17_LAYERS = 6
+P17_LOCAL_BATCH = TRAIN_LOCAL_BATCH // 2
+P17B_STEPS, P17C_STEPS = 3, 2
+P17_DATA_SEED = 17
+P17_CHILD_TIMEOUT_S = 420
+# 17b's first dp=2 step at dropout 0 against one process on the same 16
+# rows: the same sums, with bf16 activations through GEMMs of 4 rows a
+# microbatch against 8 (cuBLAS may take other kernels), and the loss
+# summed in another order over the ranks: relative 2e-3 on an fp32 mean
+# near ln(30528) + ln(2).
+P17_LOSS_RTOL = 2e-3
+# --overlap_grad_reduce against the plain reduction: the same sums, so
+# the fp32 master weights within 1e-6 after P17B_STEPS steps.
+P17_OVERLAP_ATOL = 1e-6
+DIST_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+              "import chip_smoke; sys.exit(chip_smoke.dist_child("
+              "sys.argv[2:]))")
+
+
+class ConcatRows:
+    """The rows of several datasets, one after another (the runner's
+    sampler, loader and resume take it as they take the shards)."""
+
+    packed = False
+    max_sequences_per_pack = 1
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    def set_epoch(self, epoch: int) -> None:
+        for part in self.parts:
+            part.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.parts)
+
+    def __getitem__(self, idx: int):
+        for part in self.parts:
+            if idx < len(part):
+                return part[idx]
+            idx -= len(part)
+        raise IndexError(idx)
+
+
+def phase6_rows():
+    """Phase 6's batches as rows: batch i is synthetic_pretraining_batch(i,
+    16, ...), which is SyntheticPretrainingDataset(i, 16, ...) at epoch 0,
+    row for row (the same samples and per-row mask generators)."""
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        SyntheticPretrainingDataset)
+
+    return ConcatRows(SyntheticPretrainingDataset(
+        i, TRAIN_LOCAL_BATCH * TRAIN_ACCUM, TRAIN_SEQ, FEED_VOCAB,
+        FEED_MAX_PRED) for i in range(TRAIN_STEPS))
+
+
+def params_digest(model) -> str:
+    """sha256 of every parameter's bytes (the whole tensor, gathered under
+    FSDP), in the state dict's order."""
+    import hashlib
+
+    from bert_pytorch_tpu_torch.parallel import sharding
+
+    digest = hashlib.sha256()
+    for _, value in sorted(sharding.full_state_dict(model).items()):
+        digest.update(value.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def child_kernels() -> dict:
+    from bert_pytorch_tpu_torch.ops.kernels import attention as a, build
+    from bert_pytorch_tpu_torch.ops.kernels.layernorm import layer_norm_fwd
+
+    build.build()  # the parent's libraries: a load, not an nvcc
+    kernels = {name: getattr(a, name) for name in TRAIN_REPLACES}
+    kernels["layer_norm_fwd"] = layer_norm_fwd
+    return kernels
+
+
+def counted(kernels: dict) -> tuple:
+    return ({name: k.launches for name, k in kernels.items()},
+            {name: dict(k.route_launches) for name, k in kernels.items()
+             if hasattr(k, "route_launches")})
+
+
+def timed_reductions() -> list:
+    """Wrap ``GradReducer.finish`` (the step's gradient reduction after
+    the last backward: all of it, or what the overlap left exposed) so
+    that each call's seconds, the card synchronized before and after,
+    land in the returned list."""
+    from bert_pytorch_tpu_torch.parallel import overlap
+
+    seconds = []
+    # The reducer's own finish, however many runs this process times.
+    finish = getattr(overlap.GradReducer, "untimed_finish",
+                     overlap.GradReducer.finish)
+    overlap.GradReducer.untimed_finish = finish
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finish(self)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+
+    overlap.GradReducer.finish = timed
+    return seconds
+
+
+def child_17a(spec: dict, kernels: dict) -> dict:
+    """17a in a torchrun rank: run_pretraining.main on phase 6's rows."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    args = run_pretraining.parse_arguments(spec["argv"])
+    dataset = phase6_rows()
+    reduce_s = timed_reductions()
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    summary = run_pretraining.main(args, dataset)
+    wall = time.perf_counter() - t0
+    launches, routes = counted(kernels)
+    return {"launches": launches, "routes": routes, "wall_s": wall,
+            "backend": args.backend, "world_size": args.world_size,
+            "mesh": args.mesh_spec.canonical(),
+            "step_s": [b - a for a, b in summary["step_times"]],
+            "reduce_s": reduce_s,
+            "losses": train_losses(feed_records(args.output_dir))
+            if args.rank == 0 else None}
+
+
+def child_dp_run(kernels: dict, out: str, config: str, mesh: str,
+                 steps: int, extra=()) -> tuple:
+    """One run of the runner's own functions under ``mesh`` on the
+    phase's rows: (result, model, optimizer, args, config, first
+    batch)."""
+    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        feed_argv(out, ["--mesh", mesh, "--steps", str(steps),
+                        "--local_batch_size", str(P17_LOCAL_BATCH),
+                        *extra], config)))
+    model, cfg = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    step = run_pretraining.make_step(args, model, optimizer, schedule, cfg)
+    loader, _ = run_pretraining.prepare_dataset(
+        args, cfg, None, feed_dataset(P17_DATA_SEED, TRAIN_LOCAL_BATCH
+                                      * TRAIN_ACCUM * steps))
+    hosts = iter(loader)
+    batches = [pretrain.to_device(pretrain.stack_microbatches(
+        next(hosts), args.accumulation_steps), args.device)
+        for _ in range(steps)]
+    hosts.close()
+    reduce_s = timed_reductions()
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    losses, digests, step_s = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+        digests.append(params_digest(model))
+    launches, routes = counted(kernels)
+    reducer = getattr(step, "reducer", None)
+    result = {"losses": losses, "digests": digests, "step_s": step_s,
+              "reduce_s": reduce_s,
+              "launches": launches, "routes": routes,
+              "backend": args.backend, "mesh": args.mesh_spec.canonical(),
+              "accumulation": args.accumulation_steps,
+              "bucket_launches": reducer.launches[:3] if reducer else None}
+    return result, model, optimizer, args, cfg, batches[0]
+
+
+def child_17bc(spec: dict, kernels: dict) -> dict:
+    """17b and 17c in one of two torchrun ranks sharing the card."""
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.parallel import launcher, sharding
+
+    rank = int(os.environ["RANK"])
+    out = spec["out"]
+    results = {}
+    plain = None
+    for label, config, extra in (
+            ("dropout0", spec["config0"], ()),
+            ("dropout", spec["config"], ()),
+            ("overlap", spec["config"], ("--overlap_grad_reduce",))):
+        result, model, optimizer, args, cfg, first = child_dp_run(
+            kernels, os.path.join(out, label), config, "dp=2", P17B_STEPS,
+            extra)
+        if label == "dropout0":
+            np.savez(os.path.join(out, f"batch.rank{rank}.npz"),
+                     **{k: v.cpu().numpy() for k, v in first.items()})
+        params = {n: p.detach().float().cpu()
+                  for n, p in model.named_parameters()}
+        if label == "dropout":
+            plain = params
+        if label == "overlap":
+            result["overlap_max_abs_diff"] = max(
+                (params[n] - plain[n]).abs().max().item() for n in params)
+        results[label] = result
+        del model, optimizer, params
+        torch.cuda.empty_cache()
+    # 17c
+    log(f"[dp] rank {rank}: 17b done; 17c fsdp=2")
+    result, model, optimizer, args, cfg, _ = child_dp_run(
+        kernels, os.path.join(out, "fsdp"), spec["config0"], "fsdp=2",
+        P17C_STEPS)
+    log(f"[dp] rank {rank}: 17c steps done; saves")
+    result["sharded"] = sharding.is_fsdp(model)
+    t0 = time.perf_counter()
+    for layout in ("sharded", "gathered"):
+        run_pretraining.write_checkpoint(
+            os.path.join(out, f"ckpt_{layout}", "pretrain_ckpts"),
+            P17C_STEPS, model, optimizer, cfg, {"index": 0}, 0,
+            layout=layout, mesh_spec=args.mesh_spec.as_dict())
+        result[f"{layout}_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    results["fsdp"] = result
+    launcher.shutdown()
+    return results
+
+
+def dist_child(argv) -> int:
+    """A torchrun rank of phase 17: ``dist_child([mode, spec.json])``
+    writes its results to ``<out>/<mode>.rank<r>.json``."""
+    import faulthandler
+
+    faulthandler.enable()  # a rank that crashes prints its Python stack
+    mode, spec_path = argv
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    kernels = child_kernels()
+    result = (child_17a if mode == "17a" else child_17bc)(spec, kernels)
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(spec["out"], f"{mode}.rank{rank}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(result, f)
+    return 0
+
+
+def torchrun(mode: str, nproc: int, spec: dict) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc`` of :func:`dist_child`; (each rank's results, seconds)."""
+    path = os.path.join(spec["out"], f"{mode}.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), "--no-python", sys.executable,
+         "-c", DIST_CHILD, REPO, mode, path],
+        cwd=REPO, capture_output=True, text=True,
+        timeout=P17_CHILD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"phase {mode} torchrun rc {done.returncode}: "
+                             f"{done.stdout[-3000:]} {done.stderr[-4000:]}")
+    results = []
+    for rank in range(nproc):
+        with open(os.path.join(spec["out"], f"{mode}.rank{rank}.json"),
+                  encoding="utf-8") as f:
+            results.append(json.load(f))
+    return results, seconds, done.stdout
+
+
+def check_dp_launches(label: str, launches: dict, routes: dict,
+                      layers: int, steps: int) -> None:
+    """Phase 6's counts per step (remat dots recomputes the forward), all
+    on the tensor cores, the LayerNorm kernel never."""
+    check_launches_per_step(launches, routes, layers, TRAIN_ACCUM, steps)
+    log(f"[dp] {label}: launches {launches}, by route {routes}")
+
+
+def resume_world1(kernels: dict, out: str, config: str, batch: dict) -> dict:
+    """17c: the runner at world size 1 resumed from ``out``, then one step
+    on ``batch``: its state and the step's loss."""
+    r = runner(out, PHASE2, ["--local_batch_size", str(TRAIN_LOCAL_BATCH),
+                             "--global_batch_size",
+                             str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+                             "--attention_backend", "flash",
+                             "--previous_phase_end_step", "0"], config)
+    resumed = host_copy(training_state(r))
+    loss = float(runner_step(r)(batch)["loss"])
+    return {"global_step": r["global_step"], "resumed": resumed,
+            "after": host_copy(training_state(r)), "loss": loss,
+            "resume_s": r["resume_s"]}
+
+
+def drive_mesh(kernels: dict, root: str, card: str,
+               phase6_losses: list) -> dict:
+    """Phase 17: the port's pretraining across ranks, through torchrun.
+
+    17a: ``run_pretraining.main`` at world size 1 on nccl (``--mesh
+    dp=1``: the data-parallel step, its reductions over one rank) at
+    BERT-large's full width and depth in phase 6's shape on phase 6's
+    rows, 4 steps: #1-#3 96/48/48 per step on the tensor cores, and the
+    losses phase 6's bit for bit (rank 0's dropout seeds are the
+    single-process draw).
+    17b: two ranks sharing the card over gloo, --mesh dp=2, P17_LAYERS
+    layers, P17B_STEPS steps at dropout 0 and 0.1: both ranks' parameters
+    bit-equal after every step, the launches phase 6's per step on each
+    rank, and at dropout 0 the first loss within P17_LOSS_RTOL of one
+    process's step on the same 16 rows; --overlap_grad_reduce (its
+    buckets heads, encoder, embeddings) within P17_OVERLAP_ATOL of the
+    plain reduction's fp32 weights.
+    17c: --mesh fsdp=2 on the same ranks, P17C_STEPS steps, then a sharded
+    save (a shard file a rank) and a gathered one of the same state; a
+    runner at world size 1 resumes each: the restored states bit-equal,
+    and the next step from each bit-equal."""
+    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        synthetic_pretraining_batch)
+
+    t_phase = time.perf_counter()
+    out = os.path.join(root, "mesh")
+    os.makedirs(out)
+    # 17a
+    argv = feed_argv(os.path.join(out, "dp1"), [
+        "--mesh", "dp=1", "--steps", str(TRAIN_STEPS)])
+    (a,), a_s, a_stdout = torchrun("17a", 1, {"out": out, "argv": argv})
+    check_dp_launches("17a", a["launches"], a["routes"], 24, TRAIN_STEPS)
+    losses = [a["losses"][str(s)] for s in range(1, TRAIN_STEPS + 1)]
+    if (a["backend"], a["world_size"], a["mesh"]) != ("nccl", 1, "dp=1"):
+        raise AssertionError(f"17a ran {a['backend']}, world "
+                             f"{a['world_size']}, mesh {a['mesh']}")
+    if "event mesh" not in a_stdout:
+        raise AssertionError(f"17a printed no mesh line: {a_stdout[-1500:]}")
+    if losses != phase6_losses:
+        raise AssertionError(f"17a losses {losses} differ from phase 6's "
+                             f"{phase6_losses}")
+    log(f"[dp] 17a torchrun world 1 ({a['backend']}, mesh {a['mesh']}), "
+        f"BERT-large phase 2, {TRAIN_STEPS} steps: losses {losses}, phase "
+        f"6's bit for bit; steps {[round(s, 4) for s in a['step_s']]} s, "
+        f"the reduction of each (one rank on nccl) "
+        f"{[round(s, 4) for s in a['reduce_s']]} s; "
+        f"main() {a['wall_s']:.1f} s, torchrun {a_s:.1f} s on {card}")
+    # 17b, 17c
+    config0 = cut_config(out, num_hidden_layers=P17_LAYERS,
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    cut = os.path.join(out, "dropout")
+    os.makedirs(cut)
+    config = cut_config(cut, num_hidden_layers=P17_LAYERS)
+    ranks, bc_s, _ = torchrun("17bc", 2, {"out": out, "config0": config0,
+                                          "config": config})
+    for label in ("dropout0", "dropout", "overlap"):
+        r0, r1 = ranks[0][label], ranks[1][label]
+        if (r0["backend"], r0["mesh"], r0["accumulation"]) != (
+                "gloo", "dp=2", TRAIN_ACCUM):
+            raise AssertionError(f"17b {label}: {r0['backend']} "
+                                 f"{r0['mesh']} A={r0['accumulation']}")
+        if r0["digests"] != r1["digests"] or r0["losses"] != r1["losses"]:
+            raise AssertionError(f"17b {label}: the ranks' parameters "
+                                 f"differ after a step: {r0['digests']} vs "
+                                 f"{r1['digests']}")
+        for rank, res in enumerate((r0, r1)):
+            check_dp_launches(f"17b {label} rank {rank}", res["launches"],
+                              res["routes"], P17_LAYERS, P17B_STEPS)
+    if ranks[0]["overlap"]["bucket_launches"] != ["heads", "encoder",
+                                                  "embeddings"]:
+        raise AssertionError(f"17b overlap buckets "
+                             f"{ranks[0]['overlap']['bucket_launches']}")
+    overlap_diff = max(r["overlap"]["overlap_max_abs_diff"] for r in ranks)
+    if overlap_diff > P17_OVERLAP_ATOL:
+        raise AssertionError(f"17b --overlap_grad_reduce off the plain "
+                             f"reduction by {overlap_diff}")
+    # One process, the same 16 rows: rank r's rows of microbatch a are
+    # rows 4r..4r+3 of the global microbatch a.
+    halves = [dict(np.load(os.path.join(out, f"batch.rank{r}.npz")))
+              for r in range(2)]
+    batch = {k: torch.from_numpy(np.concatenate([h[k] for h in halves],
+                                                axis=1)).cuda()
+             for k in halves[0]}
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        feed_argv(os.path.join(out, "single"), ["--steps", "1"], config0)))
+    model, cfg = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    single = float(run_pretraining.make_step(
+        args, model, optimizer, schedule, cfg)(batch)["loss"])
+    del model, optimizer
+    torch.cuda.empty_cache()
+    dp_loss = ranks[0]["dropout0"]["losses"][0]
+    if abs(dp_loss / single - 1.0) > P17_LOSS_RTOL:
+        raise AssertionError(f"17b dp=2 first loss {dp_loss}, one process "
+                             f"{single}: beyond {P17_LOSS_RTOL}")
+    log(f"[dp] 17b two ranks on one card (gloo), dp=2, {P17_LAYERS} "
+        f"layers, {P17B_STEPS} steps: parameters bit-equal across ranks "
+        f"after every step; losses at dropout 0 "
+        f"{ranks[0]['dropout0']['losses']}, 0.1 "
+        f"{ranks[0]['dropout']['losses']}, overlap "
+        f"{ranks[0]['overlap']['losses']}; first step against one process "
+        f"{dp_loss} / {single} (rel {abs(dp_loss / single - 1):.3e}); "
+        f"overlap vs plain max |w| diff {overlap_diff:.3e}; step s plain "
+        f"{[round(s, 3) for s in ranks[0]['dropout']['step_s']]}, overlap "
+        f"{[round(s, 3) for s in ranks[0]['overlap']['step_s']]}; the "
+        f"reduction after the last backward (gloo) plain "
+        f"{[round(s, 3) for s in ranks[0]['dropout']['reduce_s']]} s, "
+        f"overlap (exposed) "
+        f"{[round(s, 3) for s in ranks[0]['overlap']['reduce_s']]} s on "
+        f"{card}")
+    # 17c
+    f0, f1 = ranks[0]["fsdp"], ranks[1]["fsdp"]
+    if not f0["sharded"] or f0["mesh"] != "dp=1,fsdp=2" or (
+            f0["digests"] != f1["digests"]):
+        raise AssertionError(f"17c: sharded {f0['sharded']}, mesh "
+                             f"{f0['mesh']}, digests {f0['digests']} / "
+                             f"{f1['digests']}")
+    for rank, res in enumerate((f0, f1)):
+        check_dp_launches(f"17c rank {rank}", res["launches"], res["routes"],
+                          P17_LAYERS, P17C_STEPS)
+    shard_dir = os.path.join(out, "ckpt_sharded", "pretrain_ckpts")
+    files = sorted(os.listdir(shard_dir))
+    if not {f"ckpt_{P17C_STEPS}.shard0of2.msgpack",
+            f"ckpt_{P17C_STEPS}.shard1of2.msgpack"} <= set(files):
+        raise AssertionError(f"17c sharded save wrote {files}")
+    next_batch = pretrain.to_device(pretrain.stack_microbatches(
+        synthetic_pretraining_batch(
+            P17_DATA_SEED + 1, TRAIN_LOCAL_BATCH * TRAIN_ACCUM, TRAIN_SEQ,
+            FEED_VOCAB, FEED_MAX_PRED), TRAIN_ACCUM), "cuda")
+    sharded = resume_world1(kernels, os.path.join(out, "ckpt_sharded"),
+                            config0, next_batch)
+    gathered = resume_world1(kernels, os.path.join(out, "ckpt_gathered"),
+                             config0, next_batch)
+    if sharded["global_step"] != P17C_STEPS or \
+            gathered["global_step"] != P17C_STEPS:
+        raise AssertionError(f"17c resumed at {sharded['global_step']} / "
+                             f"{gathered['global_step']}")
+    check_same_state("17c sharded resume vs gathered", sharded["resumed"],
+                     gathered["resumed"])
+    check_same_state("17c step after the sharded resume vs the gathered",
+                     sharded["after"], gathered["after"])
+    if sharded["loss"] != gathered["loss"]:
+        raise AssertionError(f"17c resumed step loss {sharded['loss']} vs "
+                             f"{gathered['loss']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[dp] 17c fsdp=2 on the two ranks, {P17C_STEPS} steps, losses "
+        f"{f0['losses']}; saves sharded {f0['sharded_save_s']:.2f} s, "
+        f"gathered {f0['gathered_save_s']:.2f} s; resumed at world size 1 "
+        f"in {sharded['resume_s']:.2f} / {gathered['resume_s']:.2f} s, "
+        f"states and the next step bit-equal (loss {sharded['loss']}); "
+        f"torchrun 17a {a_s:.1f} s, 17b+17c {bc_s:.1f} s; phase 17 "
+        f"{phase_s:.1f} s on {card}")
+    shutil.rmtree(out)
+    return {"dp1": a, "dp2": {k: ranks[0][k] for k in
+                              ("dropout0", "dropout", "overlap")},
+            "fsdp2": f0, "single_loss": single, "dp2_first_loss": dp_loss,
+            "overlap_max_abs_diff": overlap_diff,
+            "resume_loss": sharded["loss"],
+            "torchrun_s": {"17a": a_s, "17bc": bc_s}, "seconds": phase_s,
+            "launches": {
+                "dp1": a["launches"],
+                "dp2": {name: sum(ranks[0][k]["launches"][name] for k in
+                                  ("dropout0", "dropout", "overlap"))
+                        for name in a["launches"]},
+                "fsdp2": f0["launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5209,6 +5748,7 @@ def main() -> int:
         shutil.rmtree(os.path.join(tmp, "squad_out"))
         handoff = drive_handoff(kernels, tmp, card)
         finetuned = drive_finetune(vocab, tmp, handoff["init_checkpoint"],
+                                   handoff["config"],
                                    kernels, card)
         shutil.rmtree(os.path.join(tmp, "pretrain"))
         kfac = drive_kfac(kernels, tmp, card)
@@ -5235,6 +5775,8 @@ def main() -> int:
         feed = drive_feed(kernels, tmp, card)
         torch.cuda.empty_cache()
         roberta = drive_roberta(kernels, tmp, card)
+        torch.cuda.empty_cache()
+        mesh = drive_mesh(kernels, tmp, card, trained["losses"])
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -5273,12 +5815,19 @@ def main() -> int:
         if entry["name"] == "flash_attention_infer":
             entry["launches_roberta_batch_infer"] = roberta["batch_infer"][
                 "launches"]["flash_attention_infer"]
+        # Phase 17 runs bf16 #1-#3 (and no other kernel): 17a through
+        # torchrun at world size 1, 17b's three dp=2 runs and 17c's fsdp=2
+        # run on rank 0 of the two sharing the card.
+        for key, counts in mesh["launches"].items():
+            entry[f"launches_mesh_{key}"] = (
+                0 if entry["name"].endswith("_fp16")
+                else counts.get(entry["name"], 0))
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,196 @@
+"""The port's runners across ranks, end to end on the CPU: two processes of
+``python -m bert_pytorch_tpu_torch.run_pretraining`` (and of
+``run_squad``) launched with torchrun's environment over gloo, meeting
+through a ``file://`` rendezvous in the test's directory.
+
+* pretraining ``--mesh dp=2``: rank 0 alone prints, writes the JSONL, the
+  heartbeat and the gathered checkpoint; a second run resumes it under
+  ``--mesh fsdp=2`` (the ranks agree on the step) and writes a sharded
+  checkpoint, one shard per rank; ``--kfac`` at world size 2 is refused
+  by name.
+* SQuAD ``--mesh_data 2``: one step, equal to the single-process step on
+  the same batch (dropout off) within 1e-6 in loss and parameters.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bert_pytorch_tpu_torch import run_squad
+from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+    make_shard, write_squad_json, write_trace_vocab)
+from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+              num_attention_heads=4, intermediate_size=128,
+              max_position_embeddings=32, type_vocab_size=2,
+              next_sentence=True, hidden_dropout_prob=0.0,
+              attention_probs_dropout_prob=0.0)
+TOL = 1e-6
+
+
+def _launch(tmp, name, module, argv, world=2):
+    """``world`` ranks of ``python -m module argv`` with torchrun's
+    environment and a file:// rendezvous; (returncodes, stdouts,
+    stderrs)."""
+    rdzv = tmp / f"{name}.rdzv"
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                   OMP_NUM_THREADS="1")
+        env.pop("MASTER_ADDR", None)
+        env.pop("MASTER_PORT", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", module, *argv, "--dist_init_method",
+             f"file://{rdzv}"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=240) for p in procs]
+    return ([p.returncode for p in procs], [o for o, _ in outs],
+            [e for _, e in outs])
+
+
+@pytest.fixture(scope="module")
+def pretrain_data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("runner_shards")
+    for s in range(2):
+        make_shard(str(root / f"shard_{s}.hdf5"), 32, 32, 125, seed=s)
+    config = root / "tiny.json"
+    config.write_text(json.dumps(dict(CONFIG, vocab_size=125)))
+    return root, config
+
+
+def _pretrain_args(data, out, *extra):
+    root, config = data
+    return ["--model_config_file", str(config), "--input_dir", str(root),
+            "--output_dir", str(out), "--global_batch_size", "8",
+            "--local_batch_size", "2", "--max_steps", "50", "--device",
+            "cpu", "--dtype", "float32", "--checkpoint_write", "sync",
+            "--skip_final_checkpoint", *extra]
+
+
+@pytest.fixture(scope="module")
+def dp_then_fsdp(pretrain_data, tmp_path_factory):
+    """Run A: dp=2, 2 steps, a gathered checkpoint at step 2. Run B: the
+    same directory under fsdp=2, resumed, 1 step, saved sharded."""
+    tmp = tmp_path_factory.mktemp("runner")
+    out = tmp / "out"
+    a = _launch(tmp, "a", "bert_pytorch_tpu_torch.run_pretraining",
+                _pretrain_args(pretrain_data, out, "--mesh", "dp=2",
+                               "--steps", "2", "--num_steps_per_checkpoint",
+                               "2"))
+    b = _launch(tmp, "b", "bert_pytorch_tpu_torch.run_pretraining",
+                _pretrain_args(pretrain_data, out, "--mesh", "fsdp=2",
+                               "--steps", "1", "--num_steps_per_checkpoint",
+                               "1", "--checkpoint_layout", "sharded"))
+    return tmp, out, a, b
+
+
+def test_dp_runner_rank_zero_writes(dp_then_fsdp):
+    _, out, (rcs, stdouts, stderrs), _ = dp_then_fsdp
+    assert rcs == [0, 0], stderrs[0][-3000:] + stderrs[1][-3000:]
+    lines = stdouts[0].splitlines()
+    mesh_line = next(line for line in lines if line.startswith("event mesh"))
+    assert "data 2 fsdp 1 world_size 2 backend gloo" in mesh_line
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["1", "2"]
+    assert all(" finite 1 " in s for s in steps)
+    assert stdouts[1] == ""  # rank 1 prints nothing
+    records = [json.loads(line) for line in
+               (out / "pretraining_telemetry.jsonl").read_text().splitlines()]
+    train = [r for r in records if r.get("tag") == "train"]
+    assert [r["step"] for r in train[:2]] == [1, 2]  # once, not per rank
+    assert json.loads((out / "heartbeat.json").read_text())["step"] >= 2
+    files = sorted(os.listdir(out / "pretrain_ckpts"))
+    assert "ckpt_2.msgpack" in files
+    assert not any("shard" in f for f in files if "ckpt_2." in f)
+
+
+def test_fsdp_runner_resumes_the_agreed_step_and_saves_sharded(dp_then_fsdp):
+    _, out, _, (rcs, stdouts, stderrs) = dp_then_fsdp
+    assert rcs == [0, 0], stderrs[0][-3000:] + stderrs[1][-3000:]
+    lines = stdouts[0].splitlines()
+    resume = next(line for line in lines if line.startswith("event resume"))
+    assert resume.split()[3] == "2"
+    assert "fsdp 2" in next(line for line in lines
+                            if line.startswith("event mesh"))
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["3"]
+    files = os.listdir(out / "pretrain_ckpts")
+    assert {"ckpt_3.msgpack", "ckpt_3.shard0of2.msgpack",
+            "ckpt_3.shard1of2.msgpack"} <= set(files)
+    state = ckpt.load_checkpoint(str(out / "pretrain_ckpts" /
+                                     "ckpt_3.msgpack"))
+    assert int(np.asarray(state["optimizer"]["count"])) == 3
+    assert np.isfinite(float(state["model"]["predictions"]["bias"].sum()))
+
+
+def test_kfac_across_ranks_is_refused_by_name(pretrain_data, tmp_path):
+    rcs, stdouts, stderrs = _launch(
+        tmp_path, "kfac", "bert_pytorch_tpu_torch.run_pretraining",
+        _pretrain_args(pretrain_data, tmp_path / "out", "--mesh", "dp=2",
+                       "--kfac", "--steps", "1"))
+    assert rcs[0] != 0 and rcs[1] != 0
+    for err in stderrs:
+        assert "Multi-GPU layouts" in err and "--kfac" in err
+
+
+@pytest.fixture(scope="module")
+def squad_files(tmp_path_factory):
+    root = tmp_path_factory.mktemp("squad_dp")
+    vocab = write_trace_vocab(str(root / "vocab.txt"))
+    config = root / "tiny.json"
+    config.write_text(json.dumps(dict(CONFIG, vocab_size=48,
+                                      max_position_embeddings=128,
+                                      tokenizer="wordpiece")))
+    return root, vocab, config, write_squad_json(str(root / "v1.json"), 0, 2)
+
+
+def _squad_args(files, out, *extra):
+    root, vocab, config, train = files
+    return ["--output_dir", str(out), "--config_file", str(config),
+            "--vocab_file", vocab, "--do_lower_case", "--device", "cpu",
+            "--dtype", "float32", "--max_seq_length", "64", "--doc_stride",
+            "32", "--max_query_length", "16", "--train_file", train,
+            "--do_train", "--train_batch_size", "4", "--max_steps", "1",
+            "--skip_cache", "--learning_rate", "1e-3", *extra]
+
+
+def test_squad_mesh_data_matches_one_process(squad_files, tmp_path):
+    rcs, stdouts, stderrs = _launch(
+        tmp_path, "squad", "bert_pytorch_tpu_torch.run_squad",
+        _squad_args(squad_files, tmp_path / "dp", "--mesh_data", "2"))
+    assert rcs == [0, 0], stderrs[0][-3000:] + stderrs[1][-3000:]
+    assert stdouts[1] == ""
+    dp = json.loads((tmp_path / "dp" / "squad_log.json").read_text())
+    single = run_squad.main(run_squad.parse_args(
+        _squad_args(squad_files, tmp_path / "one")))
+    assert dp["global_step"] == single["global_step"] == 1
+    np.testing.assert_allclose(dp["final_loss"], single["final_loss"],
+                               rtol=TOL)
+    got = ckpt.load_checkpoint(ckpt.checkpoint_path(str(tmp_path / "dp"),
+                                                    1))["model"]
+    want = ckpt.load_checkpoint(ckpt.checkpoint_path(str(tmp_path / "one"),
+                                                     1))["model"]
+
+    def leaves(tree, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{path}/{k}")
+            else:
+                yield f"{path}/{k}", v
+
+    want = dict(leaves(want))
+    for key, value in leaves(got):
+        np.testing.assert_allclose(torch.as_tensor(value).numpy(),
+                                   torch.as_tensor(want[key]).numpy(),
+                                   atol=TOL, rtol=0, err_msg=key)
+    with pytest.raises(ValueError, match="world size"):
+        run_squad.main(run_squad.parse_args(
+            _squad_args(squad_files, tmp_path / "bad", "--mesh_data", "2")))

@@ -488,13 +488,23 @@ def test_runner_takes_the_recipe_config_files(shards, phase):
 
 
 def test_runner_refuses_what_it_cannot_do(shards):
-    for flags in (("--rng_impl", "rbg"), ("--mesh_data", "2"),
-                  ("--compile_cache_dir", "x")):
+    for flags in (("--rng_impl", "rbg"), ("--compile_cache_dir", "x")):
         with pytest.raises(SystemExit):
             run_pretraining.parse_arguments(_run_args(shards, *flags))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # The mesh flags are ported (tests/test_torch_parallel.py): a product
+    # the world cannot realise, and the axes beyond dp and fsdp, are
+    # refused; the sharded layout is accepted.
+    from bert_pytorch_tpu_torch.parallel.mesh import MeshSpecError
+
+    with pytest.raises(MeshSpecError, match="devices"):
         run_pretraining.setup_training(run_pretraining.parse_arguments(
-            _run_args(shards, "--checkpoint_layout", "sharded")))
+            _run_args(shards, "--mesh_data", "2")))
+    with pytest.raises(MeshSpecError, match="Multi-GPU layouts"):
+        run_pretraining.setup_training(run_pretraining.parse_arguments(
+            _run_args(shards, "--mesh", "dp=1,pipe=2")))
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        _run_args(shards, "--checkpoint_layout", "sharded")))
+    assert args.checkpoint_layout == "sharded" and args.mesh is None
     # K-FAC is ported: --kfac is accepted, with the JAX runner's defaults.
     args = run_pretraining.setup_training(run_pretraining.parse_arguments(
         _run_args(shards, "--kfac")))

@@ -631,9 +631,21 @@ def test_async_saves_from_many_threads_all_land(tmp_path):
 
 
 def test_sharded_write_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*Multi-GPU layouts"):
-        ckpt.save_checkpoint(str(tmp_path), 1, _contents(1),
-                             layout="sharded")
+    """An unknown layout is refused; the sharded layout is written now (a
+    single process writes one shard file beside the index) and reads back
+    as the gathered one does (tests/test_torch_parallel.py covers ranks)."""
+    with pytest.raises(ValueError, match="unknown checkpoint layout"):
+        ckpt.save_checkpoint(str(tmp_path), 1, _contents(1), layout="banana")
+    ckpt.save_checkpoint(str(tmp_path), 1, _contents(1), layout="sharded",
+                         mesh_spec={"data": 1, "fsdp": 1})
+    assert sorted(os.listdir(tmp_path)) == sorted([
+        "ckpt_1.msgpack", "ckpt_1.msgpack.manifest.json",
+        "ckpt_1.shard0of1.msgpack", "ckpt_1.shard0of1.msgpack.manifest.json"])
+    assert integrity.read_manifest(ckpt.checkpoint_path(
+        str(tmp_path), 1))["layout"] == "sharded"
+    state = ckpt.load_checkpoint(ckpt.checkpoint_path(str(tmp_path), 1))
+    assert state["epoch"] == 1
+    assert torch.equal(state["model"]["w"], torch.full((4, 4), 1.0))
 
 
 @pytest.mark.parametrize("modes", [("truncate",), ("flip", "truncate")],

@@ -543,8 +543,12 @@ def test_runner_command_line_exits_zero(tiny_config, tmp_path):
 def test_runner_refuses_what_it_cannot_do(tiny_config, tmp_path):
     base = _run_args(tmp_path, tiny_config, "--train_file",
                      tiny_config["v1"], "--do_train")
-    with pytest.raises(SystemExit):
-        run_squad.parse_args(base + ["--mesh_data", "1"])
+    # --mesh_data is ported (tests/test_torch_parallel_runner.py): one
+    # rank takes 1 (or -1); a size that is not the world size is refused
+    # when the run starts.
+    assert run_squad.parse_args(base + ["--mesh_data", "1"]).mesh_data == 1
+    with pytest.raises(ValueError, match="world size"):
+        run_squad.main(run_squad.parse_args(base + ["--mesh_data", "2"]))
     # --tokenizer bpe is taken; on the WordPiece vocab.txt it is refused by
     # name at parsing (a BPE vocab is a vocab.json with merges.txt beside).
     with pytest.raises(ValueError, match="not a vocab.json"):
