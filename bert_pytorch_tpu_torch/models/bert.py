@@ -51,6 +51,15 @@ nodes, which run once per backward whatever the remat (a forward under
 ``torch.utils.checkpoint`` runs twice). Disarmed (``kfac_sink`` None, the
 default) a tap is the identity and adds nothing to the graph.
 
+Across ranks (parallel/): ``tp`` attributes, set by
+``parallel/tensor_parallel.py`` ``split_model``, make a module hold its
+``model`` rank's part and run Megatron's collectives (a Dense ``tp`` of
+``("row", axis)`` sums its partial product over the axis before the
+bias, ``("gather", axis)`` gathers its split output); ``ring`` on the
+attention and ``seq`` on the embeddings put a layer on a ``seq`` shard
+(ops/ring.py; the shard's position offset); a pipeline stage's encoder
+holds its own layers under their global indices (``layer_ids``).
+
 Module and parameter names mirror the flax tree (``query``, ``dense_act``,
 ``output_layer_norm``, ...), so :mod:`.convert` maps the JAX params onto
 this state dict name by name. The encoder's ``nn.scan`` over layers is an
@@ -78,6 +87,9 @@ from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
 from bert_pytorch_tpu_torch.ops.dropout import dropout
 from bert_pytorch_tpu_torch.ops.layernorm import BACKENDS as LN_BACKENDS
 from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
+from bert_pytorch_tpu_torch.parallel.tensor_parallel import (copy_to,
+                                                             gather_last,
+                                                             reduce_from)
 
 REMAT_POLICIES = ("none", "dots", "full")
 # Seeds drawn per call site from one layer seed (see _sub_seed).
@@ -191,10 +203,17 @@ class Dense(nn.Module):
                                              device=device))
         self.dtype = dtype
         self._cast = _CastCache()
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self._cast.get((self.weight, self.bias), self.dtype)
-        return F.linear(x.to(self.dtype), weight, bias)
+        x = x.to(self.dtype)
+        if self.tp is None:
+            return F.linear(x, weight, bias)
+        mode, axis = self.tp
+        if mode == "row":
+            return reduce_from(F.linear(x, weight), axis) + bias
+        return gather_last(F.linear(copy_to(x, axis), weight, bias), axis)
 
 
 def make_dense(quant: Optional[str], in_features: int, out_features: int,
@@ -221,12 +240,21 @@ class Embed(nn.Module):
             torch.empty(num_embeddings, features, device=device))
         self.dtype = dtype
         self._cast = _CastCache()
+        self.tp = None  # (model axis, first row held) of a vocab split
 
     def compute_weight(self) -> torch.Tensor:
         return self._cast.get((self.weight,), self.dtype)[0]
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.compute_weight())
+        weight = self.compute_weight()
+        if self.tp is None:
+            return F.embedding(ids, weight)
+        axis, start = self.tp
+        local = ids - start
+        inside = (local >= 0) & (local < weight.shape[0])
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(
+            local)), weight)
+        return reduce_from(rows * inside[..., None].to(rows.dtype), axis)
 
 
 class _FewRowsEmbedding(torch.autograd.Function):
@@ -323,6 +351,7 @@ class BertEmbeddings(nn.Module):
                                                cfg.hidden_size, dtype, device)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                     device, layer_norm_backend)
+        self.seq = None  # the seq AxisGroup of a sequence shard
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
@@ -335,6 +364,8 @@ class BertEmbeddings(nn.Module):
             is_start[:, 1:] = sequence_ids[:, 1:] != sequence_ids[:, :-1]
             starts = torch.where(is_start, idx, torch.zeros_like(idx))
             position_ids = idx - torch.cummax(starts, dim=-1).values
+        elif self.seq is not None:
+            position_ids = idx + self.seq.index * seq_len
         else:
             position_ids = idx
         x = self.word_embeddings(input_ids) + self.position_embeddings(
@@ -379,6 +410,8 @@ class BertSelfAttention(nn.Module):
         self.attention_dropout = cfg.attention_probs_dropout_prob
         self.hidden_dropout = cfg.hidden_dropout_prob
         self.kfac_sink: Optional[dict] = None
+        self.tp = None  # the model AxisGroup: H / model heads here
+        self.ring = None  # the seq AxisGroup of the ring backend
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 sequence_ids: Optional[torch.Tensor] = None,
@@ -386,17 +419,23 @@ class BertSelfAttention(nn.Module):
         batch, seq = hidden.shape[0], hidden.shape[1]
         shape = (batch, seq, self.heads, self.head_dim)
         sink = self.kfac_sink
-        x = kfac_input_tap(hidden, sink, "attn_in_a")
+        x = copy_to(kfac_input_tap(hidden, sink, "attn_in_a"), self.tp)
         q = kfac_output_tap(self.query(x), sink, "query__attn_in").view(shape)
         k = kfac_output_tap(self.key(x), sink, "key__attn_in").view(shape)
         v = kfac_output_tap(self.value(x), sink, "value__attn_in").view(shape)
         train = dropout_seed is not None
+        probs_seed = None
+        if train:
+            probs_seed = _sub_seed(dropout_seed, _ATTENTION_PROBS)
+            if self.tp is not None:
+                # Each model rank's heads draw masks of their own.
+                probs_seed = fold_dropout_seeds([probs_seed],
+                                                self.tp.index)[0]
         context = dot_product_attention(
             q, k, v, bias=bias, dropout_rate=self.attention_dropout,
             deterministic=not train, backend=self.attention_backend,
-            sequence_ids=sequence_ids,
-            dropout_seed=(_sub_seed(dropout_seed, _ATTENTION_PROBS)
-                          if train else None))
+            sequence_ids=sequence_ids, dropout_seed=probs_seed,
+            ring=self.ring)
         context = kfac_input_tap(context.reshape(batch, seq, -1), sink,
                                  "attn_ctx_a")
         out = kfac_output_tap(self.output(context), sink, "output__attn_ctx")
@@ -430,12 +469,13 @@ class BertLayer(nn.Module):
                                            layer_norm_backend)
         self.hidden_dropout = cfg.hidden_dropout_prob
         self.kfac_sink: Optional[dict] = None
+        self.tp = None  # the model AxisGroup: intermediate / model here
 
     def forward(self, hidden, bias, sequence_ids=None, dropout_seed=None):
         attn_out = self.attention(hidden, bias, sequence_ids, dropout_seed)
         sink = self.kfac_sink
-        intermediate = kfac_input_tap(self.intermediate(attn_out), sink,
-                                      "mlp_in_a")
+        intermediate = kfac_input_tap(self.intermediate(
+            copy_to(attn_out, self.tp)), sink, "mlp_in_a")
         out = kfac_output_tap(self.output(intermediate), sink,
                               "output__mlp_in")
         if dropout_seed is not None:
@@ -473,10 +513,15 @@ class BertEncoder(nn.Module):
             BertLayer(config, dtype, attention_backend, device, quant,
                       layer_norm_backend)
             for _ in range(config.num_hidden_layers))
+        # The global index of each layer held (a pipeline stage holds a
+        # contiguous block, parallel/pipeline.py).
+        self.layer_ids = list(range(config.num_hidden_layers))
 
     def forward(self, hidden, bias, sequence_ids=None, dropout_seeds=None):
-        """``dropout_seeds``: one int per layer, or None (no dropout)."""
-        for i, layer in enumerate(self.layers):
+        """``dropout_seeds``: one int per layer of the whole stack (a
+        stage takes its layers' by global index), or None (no
+        dropout)."""
+        for i, layer in zip(self.layer_ids, self.layers):
             seed = None if dropout_seeds is None else dropout_seeds[i]
             if self.remat == "none" or not torch.is_grad_enabled():
                 hidden = layer(hidden, bias, sequence_ids, seed)
@@ -541,32 +586,41 @@ class BertModel(nn.Module):
         ``cls_positions`` [B, K], one pooled vector per packed sequence.
         ``dropout_seeds`` (embeddings, then one per layer) turns dropout
         on."""
-        backend = resolve_backend(self.attention_backend,
-                                  input_ids.shape[-1], input_ids.device)
-        if sequence_ids is not None and backend != "dense":
-            # The fused kernels rebuild the block-diagonal mask from the
-            # ids, so the [B, 1, S, S] bias is never built.
-            bias = None
-        else:
-            if attention_mask is None:
-                attention_mask = torch.ones_like(input_ids)
-            bias = make_attention_bias(attention_mask, torch.float32,
-                                       sequence_ids)
-        seeds = [None] if dropout_seeds is None else list(dropout_seeds)
-        if dropout_seeds is not None and (
-                len(seeds) != 1 + self.config.num_hidden_layers):
-            raise ValueError(
-                f"dropout_seeds holds {len(seeds)} seeds; the model needs "
-                f"{1 + self.config.num_hidden_layers} (embeddings + one per "
-                "layer, draw_dropout_seeds)")
+        bias = self.attention_bias(input_ids, attention_mask, sequence_ids)
+        self.check_seeds(dropout_seeds)
         hidden = self.embeddings(input_ids, token_type_ids, sequence_ids,
-                                 seeds[0])
+                                 None if dropout_seeds is None
+                                 else dropout_seeds[0])
         sequence_output = self.encoder(
             hidden, bias, sequence_ids,
-            None if dropout_seeds is None else seeds[1:])
-        pooled = (self.pooler(sequence_output, cls_positions)
-                  if self.has_pooler else None)
-        return sequence_output, pooled
+            None if dropout_seeds is None else list(dropout_seeds)[1:])
+        return sequence_output, self.pool(sequence_output, cls_positions)
+
+    def attention_bias(self, input_ids, attention_mask=None,
+                       sequence_ids=None) -> Optional[torch.Tensor]:
+        """The encoder's attention bias for this batch: None for packed
+        rows on the fused kernels (they rebuild the block-diagonal mask
+        from the ids), else :func:`make_attention_bias`'s."""
+        backend = resolve_backend(self.attention_backend,
+                                  input_ids.shape[-1], input_ids.device)
+        if sequence_ids is not None and backend not in ("dense", "ring"):
+            return None
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        return make_attention_bias(attention_mask, torch.float32,
+                                   sequence_ids)
+
+    def check_seeds(self, dropout_seeds) -> None:
+        if dropout_seeds is not None and (
+                len(dropout_seeds) != 1 + self.config.num_hidden_layers):
+            raise ValueError(
+                f"dropout_seeds holds {len(dropout_seeds)} seeds; the model "
+                f"needs {1 + self.config.num_hidden_layers} (embeddings + "
+                "one per layer, draw_dropout_seeds)")
+
+    def pool(self, sequence_output, cls_positions=None):
+        return (self.pooler(sequence_output, cls_positions)
+                if self.has_pooler else None)
 
 
 class BertPredictionHeadTransform(nn.Module):
@@ -599,12 +653,14 @@ class BertLMPredictionHead(nn.Module):
         self.bias = nn.Parameter(torch.zeros(config.vocab_size, device=device))
         self.dtype = dtype
         self._cast = _CastCache()
+        self.tp = None  # the model AxisGroup of a vocab split
 
     def forward(self, hidden: torch.Tensor,
                 word_embeddings: Embed) -> torch.Tensor:
-        x = self.transform(hidden)
+        x = copy_to(self.transform(hidden), self.tp)
         (bias,) = self._cast.get((self.bias,), self.dtype)
-        return F.linear(x, word_embeddings.compute_weight(), bias)
+        return gather_last(F.linear(x, word_embeddings.compute_weight(),
+                                    bias), self.tp)
 
 
 class BertForPreTraining(nn.Module):
@@ -638,6 +694,11 @@ class BertForPreTraining(nn.Module):
         sequence_output, pooled = self.bert(
             input_ids, token_type_ids, attention_mask, sequence_ids,
             cls_positions, dropout_seeds)
+        return self.heads(sequence_output, pooled, masked_positions)
+
+    def heads(self, sequence_output, pooled, masked_positions=None):
+        """(MLM logits, NSP logits or None) from the encoder's output and
+        the pooled vector."""
         if masked_positions is not None:
             sequence_output = gather_rows(sequence_output, masked_positions)
         prediction_logits = self.predictions(

@@ -305,9 +305,44 @@ def jax_slices(key: str, rows: torch.Tensor, row_start: int,
                   for start, limit, data in windows]
 
 
+def jax_column_slices(key: str, part: torch.Tensor, row_start: int,
+                      col_start: int, config: BertConfig):
+    """Where a block of the port tensor ``key`` (rows from ``row_start``,
+    columns from ``col_start``: a ``model`` rank's columns of a
+    row-split Dense, the attention output or the MLP output) lands in its
+    JAX leaf: (the leaf's flax path, ``[(start, limit, data)]``), as
+    :func:`jax_slices` for rows. The JAX kernel is the transpose, so the
+    columns are its leading axis (cut into whole heads for the attention
+    output)."""
+    module, _, name = key.rpartition(".")
+    heads = config.num_attention_heads
+    jname, transposed, split = _jax_layout(module, name)
+    if not transposed or split not in (None, 0):
+        raise ValueError(f"{key}: no column split in the JAX layout")
+    start = [col_start, row_start]
+    if split == 0:
+        hd = config.hidden_size // heads
+        if col_start % hd or part.shape[1] % hd:
+            raise ValueError(f"{key}: columns {col_start}+{part.shape[1]} "
+                             "are not whole heads")
+        data = _arrange(part, True, 0, part.shape[1] // hd)
+        start = [col_start // hd, 0, row_start]
+    else:
+        data = _arrange(part, True, None, heads)
+    windows = [(start, [s + n for s, n in zip(start, data.shape)], data)]
+    match = _LAYER.fullmatch(module)
+    if match is None:
+        return tuple(module.split(".")) + (jname,), windows
+    layer = int(match.group(1))
+    path = STACKED_PATH + tuple(match.group(2).split(".")) + (jname,)
+    return path, [([layer] + st, [layer + 1] + lim, d[None])
+                  for st, lim, d in windows]
+
+
 def optimizer_to_jax(model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer, config: BertConfig,
-                     head: str, keep_device: bool = False) -> dict:
+                     head: str, keep_device: bool = False,
+                     regroup=None) -> dict:
     """The port's Adam-family optimizer state as the JAX package's
     ``OptState`` subtree, the dict flax writes for that NamedTuple:
     ``{"count": int32 scalar array, "mu": params-shaped first moments,
@@ -316,13 +351,16 @@ def optimizer_to_jax(model: torch.nn.Module,
     (fp16) writes the JAX ``LossScaleState`` around it: ``{"scale": f32,
     "growth_count": i32, "inner": OptState}``. Under FSDP each moment is
     gathered whole first (a collective per sharded parameter: every rank
-    calls this)."""
+    calls this); ``regroup`` (a dict of moments in, whole ones out) then
+    gathers the ``pipe`` and ``model`` parts (parallel/state.py)."""
     from bert_pytorch_tpu_torch.optim import transforms
     from bert_pytorch_tpu_torch.parallel.sharding import gather_like
 
     params = dict(model.named_parameters())
     mu, nu = ({n: gather_like(t, params[n]) for n, t in moments.items()}
               for moments in transforms.moments(optimizer, params))
+    if regroup is not None:
+        mu, nu = regroup(mu), regroup(nu)
     tree = {"count": np.asarray(transforms.opt_step_count(optimizer),
                                 np.int32),
             "mu": to_jax_params(mu, config, head, keep_device),

@@ -17,6 +17,10 @@ Backends (``backend=``):
 * ``"flash"`` — the counterpart of ``"pallas"``: the training kernels with
   a gradient and in-kernel attention dropout (ops/kernels/attention.py
   ``flash_attention``);
+* ``"ring"`` — the counterpart of ``"ring"``/``"ring_manual"``: context
+  parallelism over the ``seq`` axis group the caller passes as ``ring``
+  (ops/ring.py), each rank holding an S/n slice; without a group (no
+  sequence sharding) it runs the dense path, as the JAX route falls back;
 * ``"auto"`` — ``"flash"`` at S >= 256 on a CUDA tensor, ``"dense"``
   otherwise. The 256 crossover is the JAX package's (ops/attention.py
   :70-78, measured on a TPU); it is not measured on the H100.
@@ -36,7 +40,8 @@ from bert_pytorch_tpu_torch.ops.dropout import dropout
 from bert_pytorch_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_infer, flash_attention_infer_int8)
 
-BACKENDS = ("dense", "flash_infer", "flash_infer_int8", "flash", "auto")
+BACKENDS = ("dense", "flash_infer", "flash_infer_int8", "flash", "ring",
+            "auto")
 # The forward-only serving kernels: no dropout, packed rows drop the bias.
 INFER_BACKENDS = {"flash_infer": flash_attention_infer,
                   "flash_infer_int8": flash_attention_infer_int8}
@@ -87,6 +92,7 @@ def dot_product_attention(
     backend: str = "dense",
     sequence_ids: Optional[torch.Tensor] = None,
     dropout_seed: Optional[int] = None,
+    ring=None,
 ) -> torch.Tensor:
     """Attention over [B, S, H, D] query/key/value tensors; returns
     [B, S, H, D].
@@ -96,12 +102,19 @@ def dot_product_attention(
     from :func:`make_attention_bias` (or None); the fused kernels drop that
     bias and rebuild the block-diagonal mask per tile from the id vectors.
     Dropout of the attention probabilities runs when ``deterministic`` is
-    False and ``dropout_rate > 0``, from ``dropout_seed``.
+    False and ``dropout_rate > 0``, from ``dropout_seed``. ``ring`` (an
+    ``AxisGroup`` of the ``seq`` axis) is the ring backend's group.
     """
     backend = resolve_backend(backend, q.shape[1], q.device)
     active = not deterministic and dropout_rate > 0.0
     if active and backend not in INFER_BACKENDS and dropout_seed is None:
         raise ValueError("attention dropout needs dropout_seed")
+    if backend == "ring" and ring is not None:
+        from bert_pytorch_tpu_torch.ops.ring import ring_attention
+
+        return ring_attention(q, k, v, bias, ring,
+                              dropout_rate if active else 0.0,
+                              dropout_seed if active else None, sequence_ids)
     if backend == "flash":
         kbias = None if sequence_ids is not None else bias
         return flash_attention(

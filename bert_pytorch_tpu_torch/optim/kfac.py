@@ -37,10 +37,17 @@ run_pretraining.py:320-355; SURVEY.md §2.2).
 
 The state's tensors are updated in place (the JAX methods return a new
 state); each method returns the state too, so call sites read as the JAX
-ones. K-FAC runs on one rank: the data-parallel and fully-sharded steps
-(pretrain.py ``DataParallel``) are ported, but K-FAC's factor all-reduce
-and ``kfac_state_shardings`` are not, so ``--kfac`` at a world size above
-1 is refused (ROADMAP.md, "Multi-GPU layouts").
+ones.
+
+Across ranks (``group``: the data coordinate's group, ``dcn x data x
+fsdp``, parallel/mesh.py): every rank holds the whole state. The factor
+statistics are summed over the group before the EMA (each rank's taps
+see its rows; the rows and the per-sample scale count the whole group's),
+and the inverses are split by layer over the group, (factor, layer) in
+turn, then gathered (a sum of zero-filled parts: the port of
+``kfac_state_shardings``' layer split). Under ``pipe`` the runner's stats
+pass runs on a whole-model twin and the pipeline step preconditions the
+gathered gradients (pretrain.py ``make_pp_train_step``).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import re
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 # The encoder layer index in a module name ("bert.encoder.layers.3.x"):
@@ -152,6 +160,9 @@ class KFAC:
         substrings matched against tap paths; matching layers are not
         preconditioned (the reference's --kfac_skip_layers; the default
         skip set, predictions head and embeddings, is never tapped).
+    group:
+        the data coordinate's process group across ranks (None on one
+        rank): the statistics are summed and the inverses split over it.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -160,7 +171,7 @@ class KFAC:
                  kl_clip: float = 0.001, inv_dtype=torch.bfloat16,
                  inv_method: str = "cholesky",
                  grad_scale: Optional[Callable[[dict], float]] = None,
-                 skip_layers: Tuple[str, ...] = ()):
+                 skip_layers: Tuple[str, ...] = (), group=None):
         if inv_method not in ("cholesky", "eigen"):
             raise ValueError(
                 f"inv_method must be cholesky|eigen, got {inv_method!r}")
@@ -176,6 +187,9 @@ class KFAC:
         self.skip_layers = tuple(skip_layers)
         self.specs: Tuple[LayerSpec, ...] = ()
         self.device = next(model.parameters()).device
+        self.group = group
+        # The data replicas whose rows one factor update covers.
+        self.replicas = 1 if group is None else dist.get_world_size(group)
 
     # ------------------------------------------------------------------ init
 
@@ -265,7 +279,22 @@ class KFAC:
             loss = self.apply_loss(batch, dropout_seeds)
             torch.autograd.grad(loss, [first])
         rows = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
-        return self.ema_factors(state, sums, rows, self.grad_scale(batch))
+        self.reduce_statistics(sums)
+        return self.ema_factors(state, sums, rows * self.replicas,
+                                self.grad_scale(batch) * self.replicas)
+
+    def reduce_statistics(self, sums) -> None:
+        """Sum captured statistics over the data group (in place; one
+        flat all-reduce)."""
+        if self.group is None:
+            return
+        tensors = [t for part in ("a", "g") for t in sums[part].values()]
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
     @record_function("kfac.ema")
     def ema_factors(self, state: KFACState, sums, rows: int,
@@ -291,7 +320,11 @@ class KFAC:
     @record_function("kfac.inverses")
     def inverse_factors(self, state: KFACState) -> KFACState:
         """Recompute ``qa``/``la``/``qg``/``lg`` from the factors, one layer
-        at a time."""
+        at a time; across ranks each (factor, layer) on one rank of the
+        group in turn, then gathered."""
+        n = self.replicas
+        me = 0 if self.group is None else dist.get_rank(self.group)
+        unit = 0
         for factors, ops, values in ((state.a, state.qa, state.la),
                                      (state.g, state.qg, state.lg)):
             for key, fac in factors.items():
@@ -299,22 +332,36 @@ class KFAC:
                 layers = fac if stacked else fac[None]
                 op = ops[key] if stacked else ops[key][None]
                 lam = values[key] if stacked else values[key][None]
+                mine = [(unit + i) % n == me for i in range(len(layers))]
+                unit += len(layers)
                 if self.inv_method == "eigen":
                     for i, one in enumerate(layers):
+                        if not mine[i]:
+                            op[i].zero_()
+                            lam[i].zero_()
+                            continue
                         w, v = torch.linalg.eigh(one)
                         op[i].copy_(v)
                         lam[i].copy_(w.clamp_min(0.0))
+                    self._gather_inverses(op, lam)
                     continue
                 eye = math.sqrt(self.damping) * torch.eye(
                     fac.shape[-1], dtype=fac.dtype, device=fac.device)
                 failed = []
                 for i, one in enumerate(layers):
+                    if not mine[i]:
+                        op[i].zero_()
+                        failed.append(torch.zeros((), dtype=torch.int32,
+                                                  device=fac.device))
+                        continue
                     # (F + √γ·I)⁻¹ through its Cholesky factor.
                     chol, info = torch.linalg.cholesky_ex(one + eye)
-                    failed.append(info)
+                    failed.append(info.to(torch.int32))
                     op[i].copy_(torch.cholesky_inverse(chol))
                 lam.fill_(1.0)
-                failed = torch.stack(failed).cpu()  # one sync per factor
+                failed = torch.stack(failed)
+                self._gather_inverses(op, None, failed)
+                failed = failed.cpu()  # one sync per factor
                 if failed.any():
                     layer = int(failed.nonzero()[0, 0])
                     raise FactorNotPositiveDefinite(
@@ -322,6 +369,19 @@ class KFAC:
                         f"definite after damping {self.damping}: Cholesky "
                         f"failed at order {int(failed[layer])}")
         return state
+
+    def _gather_inverses(self, op, lam, failed=None) -> None:
+        """Each rank's layers of ``op`` (and ``lam``, the Cholesky
+        ``failed`` codes) to every rank of the group: a sum in fp32 over
+        parts the other ranks filled with zeros."""
+        if self.group is None:
+            return
+        for t in (op, lam, failed):
+            if t is None:
+                continue
+            wide = t.float()
+            dist.all_reduce(wide, group=self.group)
+            t.copy_(wide.to(t.dtype))
 
     def update_inverses(self, state: KFACState) -> KFACState:
         """The inverse update between steps (the JAX jitted wrapper of

@@ -35,6 +35,12 @@ semantics, reference run_pretraining.py:279-295 and src/optimization.py:25;
   group in one all-reduce of one vector for all leaves (LAMB needs two
   per step: the clip norm with the parameter norms before the moments
   move, the update norms after), never one collective per tensor.
+* Under ``pipe`` or ``model`` (parallel/mesh.py ``mark_norms``) a leaf is
+  spread over the ranks of its parameters' ``norm_group`` (the stages
+  hold different layers of a stacked leaf, the model ranks different
+  columns): each rank adds its parts' squares divided by
+  ``norm_copies`` (the ranks holding the same part), and the same one
+  vector all-reduce sums them over that group.
 
 * fp16 training wraps any of them in :class:`DynamicLossScale`, the
   counterpart of the JAX ``dynamic_loss_scale`` (GradScaler semantics):
@@ -60,13 +66,37 @@ from bert_pytorch_tpu_torch.parallel.sharding import (all_finite_across_ranks,
 LearningRate = Union[float, Callable[[int], float]]
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def norm_reduction(params) -> Tuple[object, Optional[List[int]]]:
+    """(the group a norm over ``params`` sums its squares over, the copies
+    of each parameter in it, or None): the ``norm_group`` and
+    ``norm_copies`` of a model split over ``pipe``/``model``, else the
+    FSDP shard group (or None) with no copies."""
+    params = list(params)
+    group = next((p.norm_group for p in params
+                  if getattr(p, "norm_group", None) is not None), None)
+    if group is None:
+        return shard_group(params), None
+    return group, [getattr(p, "norm_copies", 1) for p in params]
+
+
+def _sumsq(t: torch.Tensor, copies: Optional[int] = None) -> torch.Tensor:
+    sq = torch.linalg.vector_norm(local(t).float()).square()
+    return sq if copies is None else sq / copies
+
+
+def global_norm(tensors: Iterable[torch.Tensor], params=None) -> torch.Tensor:
     """L2 norm over every tensor, accumulated in fp32; over FSDP shards,
     the local sums of squares added over the shard group (one
-    all-reduce)."""
+    all-reduce); with ``params`` (the parameters the tensors belong to,
+    in order) split over ``pipe``/``model``, over their ``norm_group``."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
+    if params is not None:
+        group, copies = norm_reduction(params)
+        if copies is not None:
+            sq = sum(_sumsq(t, c) for t, c in zip(tensors, copies))
+            return torch.sqrt(sum_over_shards(sq.reshape(1), group)[0])
     group = shard_group(tensors)
     sq = sum(local(t).float().square().sum() for t in tensors)
     return torch.sqrt(sum_over_shards(sq.reshape(1), group)[0]
@@ -124,28 +154,45 @@ def _stack_norms(group, tensors) -> Dict[object, torch.Tensor]:
             for key, norms in members.items()}
 
 
-def _leaf_sumsq(group, tensors) -> Dict[object, torch.Tensor]:
+def _leaf_sumsq(group, tensors, copies=None) -> Dict[object, torch.Tensor]:
     """The local sum of squares of each of ``group``'s JAX leaves over
-    ``tensors`` (this rank's shards), fp32."""
+    ``tensors`` (this rank's shards), fp32; each tensor's over its
+    ``copies`` when given."""
     keys = group.get("stacks") or range(len(group["params"]))
+    copies = copies or [None] * len(group["params"])
     members: Dict[object, list] = {}
-    for key, t in zip(keys, tensors):
-        members.setdefault(key, []).append(
-            torch.linalg.vector_norm(t.float()).square())
+    for key, t, c in zip(keys, tensors, copies):
+        members.setdefault(key, []).append(_sumsq(t, c))
     return {key: torch.stack(sq).sum() for key, sq in members.items()}
 
 
-def _leaf_norms(groups, tensors, shards, extra=()):
+def _group_copies(groups) -> Tuple[object, Optional[list]]:
+    """(the norms' reduction group, per param group the copies of its
+    parameters or None): :func:`norm_reduction` over every group."""
+    shards, copies = norm_reduction(p for g in groups for p in g["params"])
+    if copies is None:
+        return shards, None
+    out, i = [], 0
+    for g in groups:
+        out.append(copies[i:i + len(g["params"])])
+        i += len(g["params"])
+    return shards, out
+
+
+def _leaf_norms(groups, tensors, shards, extra=(), copies=None):
     """Per param group, ``{leaf: L2 norm}`` of ``tensors`` (one list per
     group). Whole tensors (``shards`` None) take :func:`_stack_norms`;
     shards sum their leaves' squares over the shard group in ONE
     all-reduce for every leaf of every group, with the scalars of
-    ``extra`` (local sums of squares) riding in the same vector. Returns
-    (norms per group, the square roots of ``extra`` summed)."""
+    ``extra`` (local sums of squares) riding in the same vector; with
+    ``copies`` (per group, :func:`_group_copies`) each tensor's squares
+    count once over its copies. Returns (norms per group, the square
+    roots of ``extra`` summed)."""
     if shards is None:
         return ([_stack_norms(g, ts) for g, ts in zip(groups, tensors)],
                 [torch.sqrt(e) for e in extra])
-    local_sq = [_leaf_sumsq(g, ts) for g, ts in zip(groups, tensors)]
+    local_sq = [_leaf_sumsq(g, ts, None if copies is None else copies[i])
+                for i, (g, ts) in enumerate(zip(groups, tensors))]
     flat = [v for sq in local_sq for v in sq.values()] + list(extra)
     total = torch.sqrt(sum_over_shards(torch.stack(flat), shards))
     out, i = [], 0
@@ -286,18 +333,22 @@ class Lamb(_Adam):
         if closure is not None:
             raise ValueError("Lamb.step takes no closure")
         groups = self.param_groups
-        shards = shard_group(p for g in groups for p in g["params"])
+        shards, copies = _group_copies(groups)
         grads = [[torch.zeros_like(local(p)) if p.grad is None
                   else local(p.grad) for p in group["params"]]
                  for group in groups]
         clip = self.max_grad_norm is not None and self.max_grad_norm > 0
         params = [[local(p) for p in g["params"]] for g in groups]
+        if copies is None:
+            clip_sq = [sum(g.float().square().sum() for group in grads
+                           for g in group)] if clip else []
+        else:
+            clip_sq = [sum(_sumsq(g, c) for group, cs in zip(grads, copies)
+                           for g, c in zip(group, cs))] if clip else []
         # The clip norm and every leaf's parameter norm (over shards, in
         # one all-reduce: the parameters do not move before the update).
-        p_norms, clip_norm = _leaf_norms(
-            groups, params, shards,
-            [sum(g.float().square().sum() for group in grads
-                 for g in group)] if clip else [])
+        p_norms, clip_norm = _leaf_norms(groups, params, shards, clip_sq,
+                                         copies)
         if clip:
             scale = torch.clamp(self.max_grad_norm / (clip_norm[0] + 1e-6),
                                 max=1.0)
@@ -307,7 +358,7 @@ class Lamb(_Adam):
         pairs = [list(self._updates(group, group_grads))
                  for group, group_grads in zip(groups, grads)]
         u_norms = _leaf_norms(groups, [[u for _, u in gp] for gp in pairs],
-                              shards)[0]
+                              shards, copies=copies)[0]
         for i, group in enumerate(groups):
             keys = group.get("stacks") or range(len(pairs[i]))
             for key, (p, upd) in zip(keys, pairs[i]):
@@ -378,13 +429,13 @@ class BertAdam(_Adam):
         if closure is not None:
             raise ValueError("BertAdam.step takes no closure")
         groups = self.param_groups
-        shards = shard_group(p for g in groups for p in g["params"])
+        shards, copies = _group_copies(groups)
         grads = [[torch.zeros_like(local(p)) if p.grad is None
                   else local(p.grad) for p in group["params"]]
                  for group in groups]
         if self.max_grad_norm > 0:
             # Every leaf's clip norm, in one all-reduce under FSDP.
-            norms = _leaf_norms(groups, grads, shards)[0]
+            norms = _leaf_norms(groups, grads, shards, copies=copies)[0]
             for i, group in enumerate(groups):
                 keys = group.get("stacks") or range(len(grads[i]))
                 grads[i] = [g * torch.clamp(
@@ -413,9 +464,9 @@ class DynamicLossScale:
       the count resets to 0.
 
     The skip is decided on the host: one read of one device scalar per
-    step. Under FSDP each rank sees its shards' gradients only, so the
-    flag is agreed over every rank (a MIN all-reduce): one rank never
-    skips while another steps. ``param_groups`` and ``state`` are the
+    step. Under FSDP, ``pipe`` or ``model`` each rank sees its parts'
+    gradients only, so the flag is agreed over every rank of the world (a
+    MIN all-reduce): one rank never skips while another steps. ``param_groups`` and ``state`` are the
     inner optimizer's, so :func:`reset_count`, :func:`opt_step_count`,
     :func:`moments` and :func:`load_moments` see through the wrapper and
     the scale survives the phase switch."""
@@ -458,7 +509,9 @@ class DynamicLossScale:
             # max |g| is finite iff every element is (nan propagates).
             finite = bool(torch.isfinite(torch.stack(
                 torch._foreach_norm(grads, float("inf")))).all())
-        if shard_group(params) is not None:
+        group, copies = norm_reduction(params)
+        if group is not None or copies is not None:
+            # Agreed over the whole world: no rank skips alone.
             finite = all_finite_across_ranks(finite, local(params[0]).device)
         if finite:
             self.inner.step(updates=updates)

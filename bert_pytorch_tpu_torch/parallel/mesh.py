@@ -5,14 +5,29 @@ package's ``parallel/mesh.py`` (``MeshSpec``, ``MeshSpecError``,
 :class:`MeshSpec` is the JAX package's, copied so that its behaviour is
 the same: ``parse`` with the key aliases, ``from_strategy``,
 ``canonical``, ``as_dict``/``from_dict``, ``active_axes`` and ``validate``
-with the packing rule. The XLA logical-rule table is not copied: FSDP2's
-wrap policy (parallel/sharding.py) takes its place.
+with the packing rule. The XLA logical-rule table is realised by hand:
+FSDP2's wrap policy (parallel/sharding.py) for ``fsdp``, the Megatron
+splits of parallel/tensor_parallel.py for ``model`` (``heads``, ``mlp``,
+``vocab`` and ``embed_out`` on ``model``, ``kv`` never), the GPipe stages
+of parallel/pipeline.py for ``pipe`` (``layers`` on ``pipe``) and the
+ring of ops/ring.py for ``seq``.
 
-:func:`create_mesh` realises the ``data`` and ``fsdp`` axes, in the JAX
-order, as ``init_device_mesh(device_type, (data, fsdp),
-mesh_dim_names=("data", "fsdp"))`` over the run's process group (one rank
-per device). The other axes (``pipe``, ``seq``, ``model``, ``dcn``) above
-1 are refused by name: they wait for ROADMAP.md's "Multi-GPU layouts".
+:func:`create_mesh` lays the run's ranks out in the JAX order, ``(data,
+fsdp, pipe, seq, model)`` with ``model`` fastest, as one
+``init_device_mesh`` over the run's process group (one rank per device),
+``dcn`` the outer factor of ``data`` (JAX ``MeshConfig.resolve`` and
+``create_mesh``). :class:`Layout` is a rank's place in it: its
+coordinates and the process groups of its axes, including the **data
+coordinate** (the rank's index along ``dcn x data x fsdp``; the port of
+``check_batch_process_locality``), which decides the rows it reads. Ranks
+along ``pipe``, ``seq`` and ``model`` that share a data coordinate read
+the same rows.
+
+``dcn=N`` is the multi-slice data axis. On GPUs a slice is a node: the
+ranks of one node must be contiguous, so the nodes (``WORLD_SIZE /
+LOCAL_WORLD_SIZE``) must divide by N (the GPU reading of the JAX
+``dcn_process_granule``). The gradient sum runs over the whole data axis
+in one collective; NCCL picks its own hierarchy across nodes.
 """
 
 from __future__ import annotations
@@ -27,8 +42,6 @@ AXIS_SEQ = "seq"
 AXIS_MODEL = "model"
 
 MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_PIPE, AXIS_SEQ, AXIS_MODEL)
-# The axes the port realises, in the JAX mesh's order.
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP)
 ROADMAP_LAYOUTS = "ROADMAP.md, \"Multi-GPU layouts\""
 
 # Legacy strategy aliases -> the mesh axes they activate (JAX
@@ -206,17 +219,6 @@ class MeshSpec:
         if n_devices is not None:
             self.resolve(n_devices)
 
-    def require_ported(self) -> None:
-        """Refuse the axes the port does not realise yet, by name."""
-        unported = {key: getattr(self, key)
-                    for key in ("pipe", "seq", "model", "dcn_data")
-                    if getattr(self, key) > 1}
-        if unported:
-            raise MeshSpecError(
-                f"mesh axes {unported} ({self.canonical()}) are not ported: "
-                f"the port realises dp and fsdp only; pipeline, ring, tensor "
-                f"and multi-slice layouts wait for {ROADMAP_LAYOUTS}")
-
 
 def parse_mesh_spec(text: str) -> MeshSpec:
     """Module-level alias for :meth:`MeshSpec.parse`."""
@@ -224,19 +226,178 @@ def parse_mesh_spec(text: str) -> MeshSpec:
 
 
 def resolved(spec: MeshSpec, world_size: int) -> MeshSpec:
-    """``spec`` with ``data`` realised for ``world_size`` ranks (the JAX
-    runner records the resolved spec in manifests and telemetry); refuses
-    the unported axes and a product that is not the world size."""
-    spec.require_ported()
-    data, fsdp = spec.resolve(world_size)[:2]
-    return dataclasses.replace(spec, data=data, fsdp=fsdp)
+    """``spec`` with ``data`` realised for ``world_size`` ranks (per
+    ``dcn`` granule, as the JAX runner records the resolved spec in
+    manifests and telemetry); refuses a product that is not the world
+    size."""
+    data = spec.resolve(world_size)[0]
+    return dataclasses.replace(spec, data=data)
+
+
+def check_dcn(spec: MeshSpec, world_size: int, local_world_size: int) -> None:
+    """``dcn=N`` needs whole nodes in every granule: the nodes
+    (``world_size / local_world_size``) must divide by N."""
+    if spec.dcn_data <= 1:
+        return
+    nodes = max(1, world_size // max(1, local_world_size))
+    if world_size % max(1, local_world_size) or nodes % spec.dcn_data:
+        raise MeshSpecError(
+            f"dcn={spec.dcn_data} needs the ranks of one node contiguous "
+            f"and the nodes divisible by it: {world_size} ranks, "
+            f"{local_world_size} a node ({nodes} nodes)")
+
+
+def mesh_shape(spec: MeshSpec) -> tuple:
+    """The resolved spec's device-mesh shape: ``(dcn * data, fsdp, pipe,
+    seq, model)``."""
+    return (spec.dcn_data * spec.data, spec.fsdp, spec.pipe, spec.seq,
+            spec.model)
+
+
+def coordinates(rank: int, shape: tuple) -> dict:
+    """``rank``'s index along each axis of a row-major ``shape`` mesh (the
+    ``model`` axis fastest)."""
+    coords = {}
+    for axis, size in zip(reversed(MESH_AXES), reversed(shape)):
+        coords[axis] = rank % size
+        rank //= size
+    return {axis: coords[axis] for axis in MESH_AXES}
+
+
+def axis_ranks(shape: tuple, axes) -> list:
+    """The rank lists of every group along ``axes`` (the ranks that differ
+    only in those coordinates), each sorted, in the order of the other
+    coordinates."""
+    axes = [MESH_AXES.index(a) for a in axes]
+    groups: dict = {}
+    world = 1
+    for size in shape:
+        world *= size
+    for rank in range(world):
+        c = coordinates(rank, shape)
+        key = tuple(c[a] for i, a in enumerate(MESH_AXES) if i not in axes)
+        groups.setdefault(key, []).append(rank)
+    return [groups[k] for k in sorted(groups)]
+
+
+# The groups a Layout makes, by name: the axes each spans.
+GROUP_AXES = {
+    AXIS_PIPE: (AXIS_PIPE,),
+    AXIS_SEQ: (AXIS_SEQ,),
+    AXIS_MODEL: (AXIS_MODEL,),
+    # The data coordinate: the ranks that read different rows.
+    "batch": (AXIS_DATA, AXIS_FSDP),
+    # The rows and the tokens: what the gradients of a replicated
+    # parameter, the loss sums and the masked counts are summed over.
+    "grad": (AXIS_DATA, AXIS_FSDP, AXIS_SEQ),
+    # The splits of one parameter: what a norm's squares are summed over.
+    "norm": (AXIS_FSDP, AXIS_PIPE, AXIS_MODEL),
+}
+
+
+@dataclasses.dataclass
+class Layout:
+    """A rank's place in the run's mesh: the resolved ``spec``, ``rank``
+    and ``world``, its ``coords`` along each axis (``data`` counts the
+    ``dcn`` granules too), the c10d ``groups`` of :data:`GROUP_AXES`
+    (None for a group of one rank) with their ``group_ranks`` (global
+    ranks, in coordinate order), the ``backend`` and the torch
+    ``device_mesh`` (FSDP2 slices its ``(data, fsdp)`` sub-mesh)."""
+
+    spec: MeshSpec
+    rank: int
+    world: int
+    coords: dict
+    groups: dict
+    group_ranks: dict
+    backend: str
+    device_mesh: object = None
+
+    @property
+    def data_index(self) -> int:
+        """The data coordinate: this rank's index along ``dcn x data x
+        fsdp`` (which rows it reads)."""
+        return self.coords[AXIS_DATA] * self.spec.fsdp + self.coords[AXIS_FSDP]
+
+    @property
+    def n_data(self) -> int:
+        """The data replicas: ``dcn * data * fsdp``."""
+        return self.spec.dcn_data * self.spec.data * self.spec.fsdp
+
+    @property
+    def dropout_index(self) -> int:
+        """The index folded into the dropout seeds: one per (data
+        coordinate, seq shard), so ranks that hold other tokens draw other
+        masks and ranks that hold the same tokens (``pipe``, ``model``)
+        the same ones; 0 on the data coordinate 0's seq shard 0."""
+        return self.data_index * self.spec.seq + self.coords[AXIS_SEQ]
+
+    @property
+    def host_staged(self) -> bool:
+        """Point-to-point transfers (the pipeline's activations, the
+        ring's K/V) go through host memory: gloo's send and recv take host
+        tensors."""
+        return self.backend == "gloo"
+
+    def transports(self) -> dict:
+        """Each group's transport, for the ``event mesh`` line: the
+        backend, and for the point-to-point axes under gloo ``gloo+host``
+        (pinned host buffers)."""
+        out = {}
+        for name in ("batch", AXIS_PIPE, AXIS_SEQ, AXIS_MODEL):
+            if self.groups.get(name) is None:
+                continue
+            p2p = name in (AXIS_PIPE, AXIS_SEQ) and self.host_staged
+            out[name] = self.backend + ("+host" if p2p else "")
+        return out
+
+    def axis(self, name: str):
+        """The ``AxisGroup`` (parallel/tensor_parallel.py) of group
+        ``name``, or None for a group of one rank."""
+        from bert_pytorch_tpu_torch.parallel.tensor_parallel import AxisGroup
+
+        if self.groups.get(name) is None:
+            return None
+        ranks = tuple(self.group_ranks[name])
+        return AxisGroup(self.groups[name], ranks.index(self.rank),
+                         len(ranks), ranks, self.host_staged)
+
+    @property
+    def model_parallel(self) -> bool:
+        """Whether parameters are split over ``pipe`` or ``model``."""
+        return self.spec.pipe > 1 or self.spec.model > 1
+
+
+def make_layout(spec: MeshSpec, rank: int, world: int, backend: str,
+                device_mesh=None) -> Layout:
+    """The :class:`Layout` of ``rank`` under the resolved ``spec``: every
+    group of :data:`GROUP_AXES` is created on every rank in one order (a
+    c10d rule), and a group of one rank is None."""
+    import torch.distributed as dist
+
+    shape = mesh_shape(spec)
+    groups, group_ranks = {}, {}
+    for name, axes in GROUP_AXES.items():
+        lists = axis_ranks(shape, axes)
+        mine = next(r for r in lists if rank in r)
+        group_ranks[name] = mine
+        if len(mine) == 1:
+            groups[name] = None
+            continue
+        group, _ = dist.new_subgroups_by_enumeration(lists)
+        groups[name] = group
+    return Layout(spec=spec, rank=rank, world=world,
+                  coords=coordinates(rank, shape), groups=groups,
+                  group_ranks=group_ranks, backend=backend,
+                  device_mesh=device_mesh)
 
 
 def create_mesh(spec: MeshSpec, device_type: str = "cuda"):
-    """The run's ``DeviceMesh``: ``(data, fsdp)`` named ``("data",
-    "fsdp")``, one rank per device, over the default process group
-    (which must exist: :func:`~bert_pytorch_tpu_torch.parallel.launcher.
-    initialize`). ``data=-1`` resolves to ``world // fsdp``."""
+    """The run's ``DeviceMesh``: ``(data, fsdp, pipe, seq, model)`` (``data``
+    the ``dcn x data`` ranks), one rank per device, over the default
+    process group (which must exist: :func:`~bert_pytorch_tpu_torch.
+    parallel.launcher.initialize`). ``data=-1`` resolves to the ranks
+    left over by the other axes."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -246,5 +407,51 @@ def create_mesh(spec: MeshSpec, device_type: str = "cuda"):
             "parallel.launcher.initialize first (torchrun, or the JAX or "
             "SLURM environment)")
     spec = resolved(spec, dist.get_world_size())
-    return init_device_mesh(device_type, (spec.data, spec.fsdp),
-                            mesh_dim_names=PORTED_AXES)
+    return init_device_mesh(device_type, mesh_shape(spec),
+                            mesh_dim_names=MESH_AXES)
+
+
+def place_model(model, layout: Optional[Layout]):
+    """Lay ``model`` (whole weights, seeded or converted) out for this
+    rank before FSDP2 wraps it: its ``model`` part (tensor_parallel.
+    split_model), its pipeline stage's layers (pipeline.stage_model) and
+    the ring on its ``seq`` shard (each attention's ``ring``, the
+    embeddings' position offset). ``model.layout`` records ``layout``."""
+    from bert_pytorch_tpu_torch.models import bert
+    from bert_pytorch_tpu_torch.parallel import pipeline, tensor_parallel
+
+    model.layout = layout
+    if layout is None:
+        return model
+    tensor_parallel.split_model(model, layout.axis(AXIS_MODEL))
+    pipeline.stage_model(model, layout.axis(AXIS_PIPE))
+    seq = layout.axis(AXIS_SEQ)
+    if seq is not None:
+        for module in model.modules():
+            if isinstance(module, bert.BertSelfAttention):
+                module.ring = seq
+            elif isinstance(module, bert.BertEmbeddings):
+                module.seq = seq
+    return model
+
+
+def mark_norms(model, layout: Optional[Layout]) -> None:
+    """Under ``pipe`` or ``model``, give every parameter (FSDP2's, once it
+    has wrapped them) ``norm_group`` (the ``fsdp x pipe x model`` group its
+    parts are spread over) and ``norm_copies`` (how many ranks of that
+    group hold the same part), so a norm is one all-reduce of local sums
+    of squares over the copies (optim/transforms.py)."""
+    if layout is None or not layout.model_parallel:
+        return
+    from bert_pytorch_tpu_torch.parallel import sharding, tensor_parallel
+
+    group = layout.groups["norm"]
+    size = len(layout.group_ranks["norm"])
+    for name, p in model.named_parameters():
+        parts = layout.spec.fsdp if sharding.is_sharded(p) else 1
+        if tensor_parallel.split_of(name) is not None:
+            parts *= layout.spec.model
+        if ".encoder.layers." in name:
+            parts *= layout.spec.pipe
+        p.norm_group = group
+        p.norm_copies = size // parts

@@ -61,18 +61,27 @@ def _unflat(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
         offset += n
 
 
+def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum ``tensors`` over ``group`` (the default group when None) in
+    place: one all-reduce of their concatenation."""
+    flat = _flat(tensors)
+    dist.all_reduce(flat, group=group)
+    _unflat(flat, tensors)
+
+
 class GradReducer:
-    """Sums the gradients of ``named`` (name, parameter) over the default
-    process group once per step. Call :meth:`arm` before the
+    """Sums the gradients of ``named`` (name, parameter) over ``group``
+    (the default process group when None) once per step. Call :meth:`arm` before the
     last microbatch's backward and :meth:`finish` after it; parameters
     without a gradient get zeros. ``launches`` records, per step, the
     buckets in the order their reductions were launched (a plain reducer
     records one entry, ``"all"``)."""
 
     def __init__(self, named: Sequence[Tuple[str, torch.nn.Parameter]],
-                 overlap: bool = False):
+                 overlap: bool = False, group=None):
         self.params = [p for _, p in named]
         self.overlap = overlap
+        self.group = group
         self.launches: List[str] = []
         self._armed = False
         self._pending: Dict[int, tuple] = {}
@@ -108,7 +117,7 @@ class GradReducer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         flat = _flat(grads)
-        work = dist.all_reduce(flat, async_op=True)
+        work = dist.all_reduce(flat, group=self.group, async_op=True)
         self._pending[bucket] = (work, flat, grads)
         self.launches.append(BUCKET_NAMES[bucket])
 
@@ -121,10 +130,7 @@ class GradReducer:
             for p in self.params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in self.params]
-            flat = _flat(grads)
-            dist.all_reduce(flat)
-            _unflat(flat, grads)
+            all_reduce_flat([p.grad for p in self.params], self.group)
             self.launches.append("all")
             return
         for bucket in range(N_BUCKETS):

@@ -31,6 +31,18 @@ parameters, by FSDP2's reduce-scatter (a sum) for sharded ones. The
 loss, ``mlm_accuracy`` and ``real_tokens`` are global (one all-reduce of
 the metric sums). Each rank folds its index into the dropout seeds
 (models/bert.py ``fold_dropout_seeds``; rank 0 keeps them).
+
+Under the model-parallel axes (``DataParallel.layout``, parallel/mesh.py)
+the rows are the data coordinate's: the ranks along ``pipe``, ``seq``
+and ``model`` that share one read the same rows and draw the same seeds
+(folded with the data coordinate and the seq shard). A ``seq`` rank runs
+its S/n slice of every row (:func:`local_inputs`): the masked positions
+are chosen over the whole row, and each rank scores those that fall in
+its slice; the NSP head reads [CLS] on seq rank 0. The masked counts,
+the loss sums and the gradients of replicated parameters are summed over
+the ``grad`` group (data coordinate x seq). ``model`` ranks run their
+parts of every layer (parallel/tensor_parallel.py). ``pipe`` runs
+:func:`make_pp_train_step`, the GPipe step (JAX ``make_pp_train_step``).
 """
 
 from __future__ import annotations
@@ -46,8 +58,12 @@ import torch.distributed as dist
 from bert_pytorch_tpu_torch.models.bert import (draw_dropout_seeds,
                                                 fold_dropout_seeds)
 from bert_pytorch_tpu_torch.models.losses import pretraining_loss_sums
-from bert_pytorch_tpu_torch.parallel.mesh import ROADMAP_LAYOUTS
-from bert_pytorch_tpu_torch.parallel.overlap import GradReducer
+from bert_pytorch_tpu_torch.parallel import pipeline
+from bert_pytorch_tpu_torch.parallel import state as state_lib
+from bert_pytorch_tpu_torch.parallel.mesh import (AXIS_MODEL, AXIS_PIPE,
+                                                  AXIS_SEQ, ROADMAP_LAYOUTS)
+from bert_pytorch_tpu_torch.parallel.overlap import (GradReducer,
+                                                     all_reduce_flat)
 from bert_pytorch_tpu_torch.optim.transforms import (DynamicLossScale,
                                                      global_norm)
 from bert_pytorch_tpu_torch.telemetry import model_stats
@@ -67,19 +83,73 @@ def _mlm_positions(labels: torch.Tensor, max_pred_per_seq: Optional[int]):
     return torch.gather(labels, 1, positions), positions
 
 
-def microbatch_sums(model, mb: Dict[str, torch.Tensor], next_sentence: bool,
-                    max_pred_per_seq: Optional[int], dropout_seeds=None):
-    """The shared apply of one microbatch and its loss sums:
-    ``pretraining_loss_sums``' ``(mlm_sum, mlm_count, nsp_sum,
-    nsp_count, mlm_correct)``."""
+def local_inputs(mb: Dict[str, torch.Tensor],
+                 max_pred_per_seq: Optional[int], seq=None) -> dict:
+    """One microbatch as this rank's model takes it: ``input_ids``,
+    ``segment_ids``, ``input_mask`` (and packed ``sequence_ids``,
+    ``cls_positions``), the MLM ``positions`` (None: every position) and
+    ``labels``, and the NSP ``nsp_labels``. With ``seq`` (the ``seq``
+    ``AxisGroup``) the token arrays are this rank's S/n slice; the masked
+    positions are chosen over the whole row, and those outside the slice
+    carry label -1 (position 0); the NSP labels are -1 except on seq rank
+    0, which holds [CLS]. Packed rows and a length the group does not
+    divide are refused, as the JAX ring refuses them."""
     labels, positions = _mlm_positions(mb["masked_lm_labels"],
                                        max_pred_per_seq)
+    out = {key: mb.get(key) for key in ("input_ids", "segment_ids",
+                                        "input_mask", "sequence_ids",
+                                        "cls_positions")}
+    out.update(labels=labels, positions=positions,
+               nsp_labels=mb["next_sentence_labels"])
+    if seq is None:
+        return out
+    if mb.get("sequence_ids") is not None:
+        raise ValueError(
+            "packed batches cannot shard the sequence axis "
+            "(MeshSpec.validate(packed=True) rejects seq>1)")
+    length = mb["input_ids"].shape[-1]
+    if length % seq.size:
+        raise ValueError(f"seq={seq.size}: sequence length {length} is not "
+                         "divisible by the mesh 'seq' axis")
+    width = length // seq.size
+    lo = seq.index * width
+    for key in ("input_ids", "segment_ids", "input_mask"):
+        out[key] = mb[key][:, lo:lo + width]
+    if positions is None:
+        positions = torch.arange(length, device=labels.device).expand(
+            labels.shape)
+    inside = (positions >= lo) & (positions < lo + width)
+    out["labels"] = torch.where(inside, labels, torch.full_like(labels, -1))
+    out["positions"] = torch.where(inside, positions - lo,
+                                   torch.zeros_like(positions))
+    if seq.index:
+        out["nsp_labels"] = torch.full_like(out["nsp_labels"], -1)
+    return out
+
+
+def microbatch_sums(model, mb: Dict[str, torch.Tensor], next_sentence: bool,
+                    max_pred_per_seq: Optional[int], dropout_seeds=None,
+                    seq=None):
+    """The shared apply of one microbatch and its loss sums:
+    ``pretraining_loss_sums``' ``(mlm_sum, mlm_count, nsp_sum,
+    nsp_count, mlm_correct)`` (over this rank's positions under
+    ``seq``)."""
+    x = local_inputs(mb, max_pred_per_seq, seq)
     mlm_logits, nsp_logits = model(
-        mb["input_ids"], mb["segment_ids"], mb["input_mask"], positions,
-        mb.get("sequence_ids"), mb.get("cls_positions"), dropout_seeds)
+        x["input_ids"], x["segment_ids"], x["input_mask"], x["positions"],
+        x["sequence_ids"], x["cls_positions"], dropout_seeds)
     return pretraining_loss_sums(
-        mlm_logits, nsp_logits if next_sentence else None, labels,
-        mb["next_sentence_labels"] if next_sentence else None)
+        mlm_logits, nsp_logits if next_sentence else None, x["labels"],
+        x["nsp_labels"] if next_sentence else None)
+
+
+def label_counts(x: dict, next_sentence: bool) -> torch.Tensor:
+    """[masked, NSP] label counts of :func:`local_inputs`' microbatch
+    (fp32; no model needed)."""
+    n_mlm = (x["labels"] != -1).sum()
+    n_nsp = ((x["nsp_labels"] != -1).sum() if next_sentence
+             else torch.zeros_like(n_mlm))
+    return torch.stack([n_mlm, n_nsp]).float()
 
 
 def _mean_loss(mlm_sum, nsp_sum, counts: torch.Tensor, next_sentence: bool):
@@ -111,32 +181,73 @@ class DataParallel:
     ``world_size`` (its rows of the batch, its dropout fold), ``fsdp``
     (the model is FSDP2-sharded: FSDP reduces the gradients) and
     ``overlap`` (``--overlap_grad_reduce``: bucketed, launched during the
-    last backward)."""
+    last backward). ``layout`` (a ``parallel.mesh.Layout``): the reductions
+    run over its ``grad`` group and the dropout fold is its
+    ``dropout_index`` (see the module docstring)."""
 
     rank: int = 0
     world_size: int = 1
     fsdp: bool = False
     overlap: bool = False
+    layout: object = None
+
+    @property
+    def group(self):
+        """The group the counts, sums and replicated gradients reduce
+        over (None: the default group, or no reduction for one rank)."""
+        return None if self.layout is None else self.layout.groups["grad"]
+
+    @property
+    def reduces(self) -> bool:
+        return self.layout is None or self.group is not None
+
+    @property
+    def fold(self) -> int:
+        return self.rank if self.layout is None else self.layout.dropout_index
+
+    def axis(self, name):
+        return None if self.layout is None else self.layout.axis(name)
 
 
 def make_kfac_loss(model: torch.nn.Module, next_sentence: bool = True,
-                   max_pred_per_seq: Optional[int] = None):
+                   max_pred_per_seq: Optional[int] = None, group=None):
     """``apply_loss(mb, dropout_seeds) -> loss`` for ``KFAC``'s stats pass
     (the JAX ``make_kfac_fns``), sharing the train step's loss. Its forward
     runs without remat, as the JAX stats twin is built (``remat="none"``:
-    a small decoupled batch, where remat would only cost recompute)."""
+    a small decoupled batch, where remat would only cost recompute). With
+    ``group`` (the data coordinate's) the loss is this rank's sums over
+    the group's counts, as the JAX stats pass's loss over the global
+    stats batch."""
 
     def apply_loss(mb, dropout_seeds=None):
         encoder = model.bert.encoder
         saved, encoder.remat = encoder.remat, "none"
         try:
-            loss, _ = pretraining_loss_and_accuracy(
+            mlm_sum, n_mlm, nsp_sum, n_nsp, _ = microbatch_sums(
                 model, mb, next_sentence, max_pred_per_seq, dropout_seeds)
         finally:
             encoder.remat = saved
-        return loss
+        counts = torch.stack([n_mlm, n_nsp]).float()
+        if group is not None:
+            dist.all_reduce(counts, group=group)
+        return _mean_loss(mlm_sum, nsp_sum, counts, next_sentence)
 
     return apply_loss
+
+
+def refuse_kfac_layout(spec) -> None:
+    """The K-FAC layouts not ported (ROADMAP.md "Multi-GPU layouts") of a
+    ``MeshSpec``: with ``fsdp`` > 1, and with ``model`` or ``seq`` > 1
+    outside a pipeline."""
+    if spec.fsdp > 1:
+        raise NotImplementedError(
+            f"--kfac with fsdp={spec.fsdp}: K-FAC's factors over FSDP "
+            f"shards wait for {ROADMAP_LAYOUTS}")
+    if spec.pipe == 1 and (spec.model > 1 or spec.seq > 1):
+        raise NotImplementedError(
+            f"--kfac with model={spec.model}, seq={spec.seq} outside a "
+            f"pipeline: the fused capture of split layers waits for "
+            f"{ROADMAP_LAYOUTS}")
 
 
 def make_train_step(model: torch.nn.Module,
@@ -192,13 +303,15 @@ def make_train_step(model: torch.nn.Module,
     ``data_parallel`` (a :class:`DataParallel`): ``batch`` holds this
     rank's rows of each microbatch and the step is the global-batch step
     of the module docstring; the metrics are global. K-FAC across ranks
-    is refused (its factor all-reduce is not ported), and the overlap
-    composes with neither FSDP nor fp16 loss scaling (the JAX rule)."""
+    sums its statistics over the data group (``kfac.group``); with fsdp,
+    or with model or seq outside a pipeline, it is refused. The overlap
+    composes with neither FSDP nor fp16 loss scaling (the JAX rule); a
+    ``pipe`` axis takes :func:`make_pp_train_step`."""
     dp = data_parallel
-    if dp is not None and kfac is not None:
-        raise NotImplementedError(
-            f"K-FAC across {dp.world_size} ranks: the factor all-reduce and "
-            f"kfac_state_shardings wait for {ROADMAP_LAYOUTS}")
+    if dp is not None and kfac is not None and dp.layout is not None:
+        refuse_kfac_layout(dp.layout.spec)
+    if dp is not None and dp.layout is not None and dp.layout.spec.pipe > 1:
+        raise ValueError("a pipe axis runs make_pp_train_step")
     if dp is not None and dp.overlap and (dp.fsdp or loss_scale):
         raise ValueError(
             "overlap_grad_reduce composes with the plain first-order dp "
@@ -230,8 +343,10 @@ def make_train_step(model: torch.nn.Module,
     generator = generator or torch.Generator().manual_seed(0)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
-    reducer = (GradReducer(named, dp.overlap)
-               if dp is not None and not dp.fsdp else None)
+    reducer = (GradReducer(named, dp.overlap, dp.group)
+               if dp is not None and not dp.fsdp and dp.reduces else None)
+    seq = dp.axis(AXIS_SEQ) if dp is not None else None
+    whole_names = _whole_names(model, dp)
 
     def step(batch: Dict[str, torch.Tensor],
              kfac_state=None) -> Dict[str, torch.Tensor]:
@@ -249,24 +364,24 @@ def make_train_step(model: torch.nn.Module,
             mb = {key: value[a] for key, value in batch.items()}
             seeds = draw_dropout_seeds(generator, num_layers)
             if dp is not None:
-                seeds = fold_dropout_seeds(seeds, dp.rank)
+                seeds = fold_dropout_seeds(seeds, dp.fold)
                 # The step's one reduction rides the last backward.
                 last = a == accum_steps - 1
                 if dp.fsdp:
                     model.set_requires_gradient_sync(last)
-                elif last:
+                elif last and reducer is not None:
                     reducer.arm()
             tapped = capture and (a == 0
                                   or kfac_capture_microbatches == "all")
             # Armed through the backward: a remat recompute runs the taps.
             with kfac.capture(sums) if tapped else contextlib.nullcontext():
                 mlm_sum, n_mlm, nsp_sum, n_nsp, correct = microbatch_sums(
-                    model, mb, next_sentence, max_pred_per_seq, seeds)
+                    model, mb, next_sentence, max_pred_per_seq, seeds, seq)
                 # The normalizers, from labels alone (no gradient), over
                 # the global microbatch.
                 mb_counts = torch.stack([n_mlm, n_nsp]).float()
-                if dp is not None:
-                    dist.all_reduce(mb_counts)
+                if dp is not None and dp.reduces:
+                    dist.all_reduce(mb_counts, group=dp.group)
                 loss = _mean_loss(mlm_sum, nsp_sum, mb_counts, next_sentence)
                 (loss if scale is None else loss * scale).backward()
             loss_sums.append(torch.stack([mlm_sum.detach(), nsp_sum.detach(),
@@ -276,8 +391,11 @@ def make_train_step(model: torch.nn.Module,
             shape = batch["input_ids"].shape
             rows = shape[1] * shape[2] * (
                 accum_steps if kfac_capture_microbatches == "all" else 1)
-            kfac.ema_factors(kfac_state, sums, rows, kfac.grad_scale(
-                {key: value[0] for key, value in batch.items()}))
+            kfac.reduce_statistics(sums)
+            kfac.ema_factors(kfac_state, sums, rows * kfac.replicas,
+                             kfac.grad_scale({key: value[0] for key, value
+                                              in batch.items()})
+                             * kfac.replicas)
         if kfac_fused and kfac_inv_interval and (
                 count % kfac_inv_interval == 0):
             kfac.inverse_factors(kfac_state)
@@ -292,38 +410,235 @@ def make_train_step(model: torch.nn.Module,
                                     schedule(count))
             for name, p in named:
                 p.grad = pre[name]
-        gnorm = global_norm(p.grad for p in params)
-        if scale is not None:
-            gnorm = gnorm / scale  # the gradients carry the loss scale
-        health = model_stats.step_with_health(
-            optimizer, named, 1 if scale is not None and stats_every > 0
-            else stats_every, stats_phase, grad_scale=scale)
-        # Every metric sum of the step, over the ranks in one all-reduce.
-        totals = torch.cat([torch.stack(loss_sums).reshape(-1),
-                            batch["input_mask"].sum().float().reshape(1)])
-        if dp is not None:
-            dist.all_reduce(totals)
-        by_mb = totals[:-1].reshape(accum_steps, 3)
-        counts = torch.stack(counts)
-        losses = _mean_loss(by_mb[:, 0], by_mb[:, 1], counts, next_sentence)
-        metrics = {
-            "loss": losses.mean(),
-            "mlm_accuracy": (by_mb[:, 2] / counts[:, 0].clamp(min=1)).mean(),
-            "grad_norm": gnorm,
-            "finite": (torch.isfinite(losses.sum())
-                       & torch.isfinite(gnorm)).float(),
-            "real_tokens": totals[-1],
-        }
-        if scale is not None:
-            metrics["loss_scale"] = torch.tensor(scale)
-        if schedule is not None:
-            metrics["learning_rate"] = torch.tensor(float(schedule(count)))
-        if health is not None:
-            metrics["grad_health"] = health
-        return metrics
+        return _update_and_metrics(
+            optimizer, named, torch.stack(loss_sums), torch.stack(counts),
+            batch["input_mask"], dp, seq, next_sentence, schedule, count,
+            stats_every, stats_phase, whole_names, scale)
 
     step.reducer = reducer
     return step
+
+
+def _update_and_metrics(optimizer, named, loss_sums: torch.Tensor,
+                        counts: torch.Tensor, input_mask: torch.Tensor,
+                        dp: Optional[DataParallel], seq, next_sentence: bool,
+                        schedule, count: int, stats_every: int,
+                        stats_phase: int, whole_names, scale=None,
+                        pipe=None) -> Dict[str, torch.Tensor]:
+    """The tail of both train steps: the gradient norm, the optimizer step
+    (with the grad-health block) and the metrics, from the step's
+    per-microbatch sums ``loss_sums`` [A, 3] (MLM, NSP, correct; zeros
+    off the last stage under ``pipe``) and global label ``counts`` [A,
+    2]. Every metric sum is taken over the ranks in one all-reduce; under
+    ``pipe`` the last stage's sums are handed to every stage. ``scale``:
+    the fp16 loss scale the gradients carry."""
+    params = [p for _, p in named]
+    gnorm = global_norm([p.grad for p in params], params)
+    if scale is not None:
+        gnorm = gnorm / scale  # the gradients carry the loss scale
+    health = model_stats.step_with_health(
+        optimizer, named, 1 if scale is not None and stats_every > 0
+        else stats_every, stats_phase, grad_scale=scale,
+        whole_names=whole_names)
+    totals = torch.cat([loss_sums.reshape(-1),
+                        _real_tokens(input_mask, seq)])
+    if dp is not None and dp.reduces:
+        dist.all_reduce(totals, group=dp.group)
+    by_mb = totals[:-1].reshape(-1, 3)
+    if pipe is not None:
+        dist.broadcast(by_mb, pipe.ranks[-1], group=pipe.group)
+    losses = _mean_loss(by_mb[:, 0], by_mb[:, 1], counts, next_sentence)
+    metrics = {
+        "loss": losses.mean(),
+        "mlm_accuracy": (by_mb[:, 2] / counts[:, 0].clamp(min=1)).mean(),
+        "grad_norm": gnorm,
+        "finite": (torch.isfinite(losses.sum())
+                   & torch.isfinite(gnorm)).float(),
+        "real_tokens": totals[-1],
+    }
+    if scale is not None:
+        metrics["loss_scale"] = torch.tensor(scale)
+    if schedule is not None:
+        metrics["learning_rate"] = torch.tensor(float(schedule(count)))
+    if health is not None:
+        metrics["grad_health"] = health
+    return metrics
+
+
+def _whole_names(model, dp) -> Optional[list]:
+    """The single-process model's parameter names when ``model`` is split
+    over ``pipe``/``model`` (the grad-health block's names), else None."""
+    layout = dp.layout if dp is not None else None
+    if layout is None or not layout.model_parallel:
+        return None
+    return sorted(state_lib.full_shapes(
+        model, layout.axis(AXIS_MODEL), layout.axis(AXIS_PIPE),
+        model.config.num_hidden_layers))
+
+
+def _real_tokens(input_mask: torch.Tensor, seq) -> torch.Tensor:
+    """The non-pad tokens of ``input_mask`` [A, B, S] this rank counts
+    (its slice under ``seq``), fp32 [1]."""
+    if seq is not None:
+        width = input_mask.shape[-1] // seq.size
+        input_mask = input_mask[..., seq.index * width:
+                                (seq.index + 1) * width]
+    return input_mask.sum().float().reshape(1)
+
+
+def make_pp_train_step(model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer,
+                       schedule: Optional[Callable[[int], float]] = None,
+                       next_sentence: bool = True,
+                       max_pred_per_seq: Optional[int] = None,
+                       generator: Optional[torch.Generator] = None,
+                       kfac=None, stats_every: int = 0,
+                       stats_phase: int = 0,
+                       data_parallel: Optional[DataParallel] = None):
+    """The train step with the encoder run as a GPipe pipeline over the
+    ``pipe`` axis (the JAX ``make_pp_train_step``; parallel/pipeline.py):
+    ``step(batch[, kfac_state]) -> metrics`` as :func:`make_train_step`'s.
+
+    The accumulation microbatches are the pipeline's microbatches (at
+    least as many as stages). Stage 0 embeds each microbatch, every stage
+    runs its layers (with ``seq``, the ring inside them; with ``model``,
+    its part of each), the last stage runs the heads and the loss: each
+    microbatch's local sums over its global counts, the gradients summed
+    over the microbatches and divided by A, as the JAX step's mean of
+    per-microbatch losses. The gradients are then summed over the
+    ``grad`` group (one flat all-reduce) and those of the replicated
+    parameters (embeddings, heads) over ``pipe``. The metrics are the
+    last stage's, handed to every stage.
+
+    ``kfac`` (stats flow only, as the JAX runner falls back under
+    ``pipe``): the averaged gradients of the tapped layers are gathered
+    whole (over ``model`` and ``pipe``; parallel/state.py), preconditioned
+    on every rank alike, and each rank keeps its part. fp16 loss scaling
+    is refused with a pipeline, as in JAX."""
+    dp = data_parallel
+    if dp is None or dp.layout is None or dp.layout.spec.pipe < 2:
+        raise ValueError("make_pp_train_step needs a layout with pipe >= 2")
+    if isinstance(optimizer, DynamicLossScale):
+        raise ValueError("fp16 loss scaling is not supported with pipeline "
+                         "parallelism; use bf16 (the JAX rule)")
+    if kfac is not None and schedule is None:
+        raise ValueError("kfac preconditioning requires a schedule")
+    if kfac is not None:
+        refuse_kfac_layout(dp.layout.spec)
+    layout = dp.layout
+    pipe, seq = layout.axis(AXIS_PIPE), layout.axis(AXIS_SEQ)
+    model_axis = layout.axis(AXIS_MODEL)
+    num_layers = model.config.num_hidden_layers
+    generator = generator or torch.Generator().manual_seed(0)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    replicated = [p for n, p in named if ".encoder.layers." not in n]
+    is_last = pipe.index == pipe.size - 1
+    whole_names = _whole_names(model, dp)
+
+    def step(batch: Dict[str, torch.Tensor],
+             kfac_state=None) -> Dict[str, torch.Tensor]:
+        accum_steps = batch["input_ids"].shape[0]
+        pipeline.check_microbatches(accum_steps, pipe.size)
+        count = optimizer.param_groups[0]["count"]
+        if kfac is not None and kfac_state is None:
+            raise ValueError("a K-FAC step takes step(batch, kfac_state)")
+        for p in params:
+            p.grad = None
+        inputs, seeds = [], []
+        for a in range(accum_steps):
+            mb = {key: value[a] for key, value in batch.items()}
+            inputs.append(local_inputs(mb, max_pred_per_seq, seq))
+            seeds.append(fold_dropout_seeds(
+                draw_dropout_seeds(generator, num_layers), dp.fold))
+        counts = torch.stack([label_counts(x, next_sentence)
+                              for x in inputs])
+        if dp.group is not None:
+            dist.all_reduce(counts, group=dp.group)
+        first, stage, loss_sums, like = _stage_fns(model, inputs, seeds,
+                                                   next_sentence)
+
+        def last(a, hidden):
+            mlm_sum, _, nsp_sum, _, correct = loss_sums(a, hidden)
+            loss = _mean_loss(mlm_sum, nsp_sum, counts[a], next_sentence)
+            return loss, torch.stack([mlm_sum.detach(), nsp_sum.detach(),
+                                      correct.float()])
+
+        results = pipeline.gpipe(accum_steps, pipe, first, stage, last, like)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if dp.group is not None:
+            all_reduce_flat([p.grad for p in params], dp.group)
+        all_reduce_flat([p.grad for p in replicated], pipe.group)
+        for p in params:
+            p.grad.div_(accum_steps)
+        if kfac is not None:
+            _pp_precondition(kfac, kfac_state, named, model_axis, pipe,
+                             num_layers, float(schedule(count)))
+        sums = (torch.stack([r[1] for r in results]) if is_last else
+                torch.zeros((accum_steps, 3), device=counts.device))
+        return _update_and_metrics(
+            optimizer, named, sums, counts, batch["input_mask"], dp, seq,
+            next_sentence, schedule, count, stats_every, stats_phase,
+            whole_names, pipe=pipe)
+
+    step.reducer = None
+    return step
+
+
+def _stage_fns(model, inputs: list, seeds: Optional[list],
+               next_sentence: bool):
+    """``pipeline.gpipe``'s (first, stage, last, like) over microbatches
+    ``inputs`` (:func:`local_inputs`' dicts) with their dropout ``seeds``
+    (None: no dropout); ``last(m, hidden)`` gives the heads'
+    ``pretraining_loss_sums``."""
+    bert = model.bert
+    biases = [bert.attention_bias(x["input_ids"], x["input_mask"],
+                                  x["sequence_ids"]) for x in inputs]
+
+    def first(a):
+        x = inputs[a]
+        return bert.embeddings(x["input_ids"], x["segment_ids"],
+                               x["sequence_ids"],
+                               None if seeds is None else seeds[a][0])
+
+    def stage(a, hidden):
+        return bert.encoder(hidden, biases[a], inputs[a]["sequence_ids"],
+                            None if seeds is None else seeds[a][1:])
+
+    def last(a, hidden):
+        x = inputs[a]
+        mlm_logits, nsp_logits = model.heads(
+            hidden, bert.pool(hidden, x["cls_positions"]), x["positions"])
+        return pretraining_loss_sums(
+            mlm_logits, nsp_logits if next_sentence else None, x["labels"],
+            x["nsp_labels"] if next_sentence else None)
+
+    def like(a):
+        ids = inputs[a]["input_ids"]
+        return torch.empty(tuple(ids.shape) + (model.config.hidden_size,),
+                           dtype=bert.embeddings.word_embeddings.dtype,
+                           device=ids.device)
+
+    return first, stage, last, like
+
+
+def _pp_precondition(kfac, kfac_state, named, model_axis, pipe,
+                     num_layers: int, lr: float) -> None:
+    """K-FAC under ``pipe``: the tapped layers' averaged gradients
+    gathered whole, preconditioned (identically on every rank), and this
+    rank's parts put back."""
+    tapped = {f"{m}.{leaf}" for spec in kfac.specs for m in spec.modules
+              for leaf in ("weight", "bias")}
+    mine = {n: p.grad for n, p in named if n in tapped}
+    full = state_lib.gather_full(mine, model_axis, pipe, num_layers)
+    pre = kfac.precondition(kfac_state, full, lr)
+    for name, p in named:
+        if name in mine:
+            p.grad = state_lib.local_state(pre, [name], model_axis)[
+                name].contiguous()
+
 
 
 def make_eval_step(model: torch.nn.Module, next_sentence: bool = True,
@@ -332,14 +647,34 @@ def make_eval_step(model: torch.nn.Module, next_sentence: bool = True,
     position (no masked-position gather), packed batches included. With
     ``data_parallel`` the batch is this rank's rows and the loss and
     accuracy are the global batch's (local sums over global counts, one
-    all-reduce)."""
+    all-reduce); under ``pipe`` the forward runs through the stages
+    (the last stage's sums handed to every stage)."""
+    dp = data_parallel
+    seq = dp.axis(AXIS_SEQ) if dp is not None else None
+    pipe = dp.axis(AXIS_PIPE) if dp is not None else None
+
+    def pp_sums(batch):
+        first, stage, loss_sums, like = _stage_fns(
+            model, [local_inputs(batch, None, seq)], None, next_sentence)
+        results = pipeline.gpipe(
+            1, pipe, first, stage,
+            lambda a, hidden: torch.stack(
+                [v.float() for v in loss_sums(a, hidden)]),
+            like, backward=False)
+        sums = (results[0] if results else
+                torch.zeros(5, device=batch["input_ids"].device))
+        dist.broadcast(sums, pipe.ranks[-1], group=pipe.group)
+        return sums
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]):
-        sums = torch.stack([v.float() for v in microbatch_sums(
-            model, batch, next_sentence, None)])
-        if data_parallel is not None:
-            dist.all_reduce(sums)
+        if pipe is not None:
+            sums = pp_sums(batch)
+        else:
+            sums = torch.stack([v.float() for v in microbatch_sums(
+                model, batch, next_sentence, None, None, seq)])
+        if dp is not None and dp.reduces:
+            dist.all_reduce(sums, group=dp.group)
         mlm_sum, n_mlm, nsp_sum, n_nsp, correct = sums
         return (_mean_loss(mlm_sum, nsp_sum, torch.stack([n_mlm, n_nsp]),
                            next_sentence),

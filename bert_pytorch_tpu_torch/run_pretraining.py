@@ -12,22 +12,31 @@ implements.
         --input_dir <dir of seq-512 shards> --output_dir out/ \\
         --previous_phase_end_step 7038
     torchrun --nproc_per_node 8 -m bert_pytorch_tpu_torch.run_pretraining \\
-        --mesh dp=8 ...                 # or fsdp=8, dp=4,fsdp=2
+        --mesh dp=8 ...     # or fsdp=8, dp=2,pipe=2,model=2, seq=2, ...
 
 Across GPUs (parallel/): one process per GPU, launched by torchrun (or
 with the JAX launcher's or SLURM's environment; parallel/launcher.py),
 on ``nccl`` (``gloo`` on the CPU, or when the host's ranks outnumber its
 cards). ``--mesh`` (the JAX grammar, parallel/mesh.py ``MeshSpec``; or the
-legacy ``--parallel_strategy dp|fsdp`` with ``--mesh_data``/``--mesh_fsdp``)
-lays the ranks out as a ``(data, fsdp)`` torch DeviceMesh: ``dp``
+legacy ``--parallel_strategy dp|fsdp|sp|tp|tp_fsdp|pp|pp_tp`` with the
+``--mesh_*`` sizes) lays the ranks out in the JAX order ``(data, fsdp,
+pipe, seq, model)``, ``dcn`` the outer factor of ``data``: ``dp``
 replicates the parameters and sums the gradients once per step (one flat
 all-reduce, or three availability buckets launched during the last
 backward with ``--overlap_grad_reduce``), ``fsdp`` shards them with FSDP2
-(HSDP on a 2-D mesh), and the step is the JAX step over the global batch
-(pretrain.py: local loss sums over global masked counts). Each rank reads
-its part of the index space (``DistributedSampler(num_replicas=world,
-rank=rank)``, ``global_batch_size / world`` rows a step) and masks under
-``seed + rank``; ``local_batch_size`` is per rank, as in the JAX runner.
+(HSDP on a 2-D mesh), ``model`` splits the layers Megatron's way
+(parallel/tensor_parallel.py), ``seq`` shards the sequence with ring
+attention (ops/ring.py; ``seq`` > 1 forces ``--attention_backend ring``,
+as the JAX runner does), and ``pipe`` runs the encoder as a GPipe
+pipeline (parallel/pipeline.py; at least as many accumulation steps as
+stages). The step is the JAX step over the global batch (pretrain.py:
+local loss sums over global masked counts). Each data coordinate (the
+rank's index along ``dcn x data x fsdp``) reads its part of the index
+space (``DistributedSampler(num_replicas=data replicas, rank=data
+coordinate)``, ``global_batch_size / data replicas`` rows a step) and
+masks under ``seed + data coordinate``; ranks along ``pipe``, ``seq`` and
+``model`` that share one read the same rows. ``local_batch_size`` is per
+data replica, as in the JAX runner.
 Rank 0 prints, logs and writes the telemetry; ``--checkpoint_layout
 sharded`` has every rank write its shard (utils/checkpoint.py), the
 gathered layout gathers to rank 0; a resume goes through
@@ -71,6 +80,10 @@ strided rows of microbatch 0 on those steps, then the inverses, then the
 step. Both fire on the first step. Checkpoints carry the state as
 ``preconditioner``; a ``--kfac`` resume restores it and recomputes the
 inverses from the restored factors, a resume without ``--kfac`` skips it.
+Across ranks the statistics are summed over the data replicas and the
+inverses split by layer over them (optim/kfac.py); under ``pipe`` the
+capture falls back to ``stats`` (logged, as the JAX runner does), on a
+whole-model twin that takes the run's weights before each pass.
 
 Telemetry (telemetry/, the JAX runner's flags and defaults: window 20,
 sync every 4): ``<output_dir>/<log_prefix>.txt`` keeps the log lines,
@@ -126,9 +139,11 @@ fails the first K shard reads (tools/chaos_run.py drives them).
 on-the-fly packing's limit, and ``--checkpoint_activations`` is
 ``--remat full``.
 
-Not ported yet, so rejected rather than ignored: the mesh axes beyond dp
-and fsdp (``pipe``, ``seq``, ``model``, ``dcn``) and ``--kfac`` across
-ranks are refused naming ROADMAP.md's "Multi-GPU layouts";
+Not ported yet, so rejected rather than ignored, before the rendezvous
+(every rank prints the refusal): ``--kfac`` with ``fsdp`` > 1, or with
+``model`` or ``seq`` > 1 outside a pipeline, and ``fsdp`` > 1 with
+``pipe`` or ``seq`` > 1, are refused naming ROADMAP.md's "Multi-GPU
+layouts";
 ``--compile_cache_dir`` and ``--telemetry_cost_analysis`` (the bench
 legs), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
 port draws Philox (the kernels' dropout, keyed by coordinates); argparse
@@ -180,7 +195,8 @@ from bert_pytorch_tpu_torch.optim.transforms import (AdamW,
                                                      reset_count)
 from bert_pytorch_tpu_torch.parallel import launcher
 from bert_pytorch_tpu_torch.parallel import mesh as mesh_lib
-from bert_pytorch_tpu_torch.parallel import sharding
+from bert_pytorch_tpu_torch.parallel import pipeline, sharding
+from bert_pytorch_tpu_torch.parallel import state as state_lib
 from bert_pytorch_tpu_torch.testing import faults
 from bert_pytorch_tpu_torch.utils import dist as dist_utils
 
@@ -340,7 +356,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="activation recompute in backward (default "
                              "none, or full with --checkpoint_activations)")
     parser.add_argument("--attention_backend", type=str, default="auto",
-                        choices=["auto", "dense", "flash"],
+                        choices=["auto", "dense", "flash", "ring"],
                         help="'auto': the flash kernels at seq >= 256 on a "
                              "CUDA device, dense otherwise")
     parser.add_argument("--layer_norm_backend", type=str, default="plain",
@@ -362,7 +378,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         choices=["dp", "fsdp", "tp", "tp_fsdp", "sp", "pp",
                                  "pp_tp"],
                         help="legacy strategy alias lowered onto a mesh "
-                             "spec; the port realises dp and fsdp")
+                             "spec with the --mesh_* sizes")
     parser.add_argument("--mesh_data", type=int, default=-1,
                         help="data-parallel ranks; -1 = all the rest")
     parser.add_argument("--mesh_fsdp", type=int, default=1)
@@ -437,46 +453,96 @@ def mesh_spec(args) -> mesh_lib.MeshSpec:
     return spec
 
 
-def setup_parallel(args, device_type: str) -> None:
-    """Join the run's ranks (parallel/launcher.py) and lay them out as the
-    mesh spec says: sets ``args.rank``, ``args.world_size``,
-    ``args.backend``, ``args.mesh_spec`` (resolved) and ``args.mesh`` (a
-    DeviceMesh, or None for a single process). The unported axes and
-    ``--kfac`` across ranks are refused by name, the overlap outside the
-    plain dp path as the JAX runner refuses it."""
-    topology = launcher.initialize(device_type,
-                                   init_method=args.dist_init_method)
-    args.rank, args.world_size = topology.rank, topology.world_size
-    args.backend = topology.backend
-    args.owns_group = topology.distributed and topology.source != "existing"
-    spec = mesh_spec(args)
-    spec.validate(packed=bool(args.pack_sequences))
-    args.mesh_spec = mesh_lib.resolved(spec, args.world_size)
-    if args.kfac and args.world_size > 1:
+def refuse_layout(args, spec: mesh_lib.MeshSpec) -> None:
+    """The layout's refusals, from flags alone (raised before the
+    rendezvous, on every rank): the ones ROADMAP.md's "Multi-GPU layouts"
+    lists, the overlap outside the plain dp path and fp16 with a pipeline
+    (the JAX runner's rules)."""
+    if args.kfac:
+        pretrain.refuse_kfac_layout(spec)
+    if spec.fsdp > 1 and (spec.pipe > 1 or spec.seq > 1):
         raise NotImplementedError(
-            f"--kfac across {args.world_size} ranks: K-FAC's factor "
-            "all-reduce and kfac_state_shardings wait for "
+            f"fsdp={spec.fsdp} with pipe={spec.pipe}, seq={spec.seq}: FSDP2 "
+            "over pipeline stages and sequence shards waits for "
             f"{mesh_lib.ROADMAP_LAYOUTS}")
     if args.overlap_grad_reduce and (
-            args.mesh_spec.active_axes() - {mesh_lib.AXIS_DATA}
+            spec.active_axes() - {mesh_lib.AXIS_DATA}
             or args.kfac or args.dtype == "float16"):
         raise ValueError(
             "--overlap_grad_reduce requires a pure data-parallel mesh "
             "(fsdp=pipe=seq=model=1) with a first-order optimizer "
             "(no --kfac) and bf16/fp32")
-    args.mesh = (mesh_lib.create_mesh(args.mesh_spec, device_type)
-                 if topology.distributed else None)
+    if spec.pipe > 1 and args.dtype == "float16":
+        raise ValueError("--dtype float16 is not supported with pipeline "
+                         "parallelism; use bfloat16")
+
+
+def setup_parallel(args, device_type: str) -> None:
+    """Lay the run's ranks out as the mesh spec says and join them
+    (parallel/launcher.py): sets ``args.rank``, ``args.world_size``,
+    ``args.backend``, ``args.mesh_spec`` (resolved) and ``args.layout``
+    (a ``parallel.mesh.Layout``, or None for a single process). Everything that depends only on the flags
+    and the launcher's environment is checked before the rendezvous: the
+    spec against the world size, ``dcn`` against the nodes, the refusals
+    (:func:`refuse_layout`) and the accumulation math."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    else:
+        found = launcher.discover(args.dist_init_method)
+        world = found["world_size"] if found else 1
+        local_world = found["local_world_size"] if found else 1
+    spec = mesh_spec(args)
+    spec.validate(packed=bool(args.pack_sequences))
+    spec = mesh_lib.resolved(spec, world)
+    mesh_lib.check_dcn(spec, world, local_world)
+    refuse_layout(args, spec)
+    accumulation_math(args, spec)
+    topology = launcher.initialize(device_type,
+                                   init_method=args.dist_init_method)
+    args.rank, args.world_size = topology.rank, topology.world_size
+    args.backend = topology.backend
+    args.owns_group = topology.distributed and topology.source != "existing"
+    args.mesh_spec = spec
+    args.layout = None
+    if topology.distributed:
+        device_mesh = (mesh_lib.create_mesh(spec, device_type)
+                       if spec.fsdp > 1 else None)
+        args.layout = mesh_lib.make_layout(spec, args.rank, args.world_size,
+                                           args.backend, device_mesh)
+    args.data_index = args.layout.data_index if args.layout else 0
+
+
+def accumulation_math(args, spec: mesh_lib.MeshSpec) -> None:
+    """The accumulation math in global terms (JAX run_pretraining.py:
+    444-451, 795): ``local_batch_size`` rows per data replica per
+    microbatch, and under ``pipe`` at least as many microbatches as
+    stages. Sets ``args.n_data``, ``args.accumulation_steps`` and
+    ``args.host_batch_per_step``."""
+    args.n_data = spec.dcn_data * spec.data * spec.fsdp
+    global_microbatch = args.local_batch_size * args.n_data
+    if args.global_batch_size % global_microbatch:
+        raise ValueError(
+            f"global_batch_size={args.global_batch_size} must be divisible "
+            f"by local_batch_size*data_shards={global_microbatch}")
+    args.accumulation_steps = args.global_batch_size // global_microbatch
+    args.host_batch_per_step = args.global_batch_size // args.n_data
+    if spec.pipe > 1:
+        pipeline.check_microbatches(args.accumulation_steps, spec.pipe)
 
 
 def data_parallel(args) -> "pretrain.DataParallel | None":
     """The train step's :class:`~bert_pytorch_tpu_torch.pretrain.
     DataParallel` for a run of several ranks (or one under a launcher),
     else None (the single-process step)."""
-    if getattr(args, "mesh", None) is None:
+    if getattr(args, "layout", None) is None:
         return None
     return pretrain.DataParallel(
         rank=args.rank, world_size=args.world_size,
-        fsdp=args.mesh_spec.fsdp > 1, overlap=args.overlap_grad_reduce)
+        fsdp=args.mesh_spec.fsdp > 1, overlap=args.overlap_grad_reduce,
+        layout=args.layout)
 
 
 def setup_training(args) -> argparse.Namespace:
@@ -490,18 +556,24 @@ def setup_training(args) -> argparse.Namespace:
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False; pass "
             "--device cpu to run on the CPU")
+    args.attention_backend = BACKEND_ALIASES.get(args.attention_backend,
+                                                 args.attention_backend)
+    if args.attention_backend not in ("auto", "dense", "flash", "ring"):
+        raise ValueError(
+            f"attention_backend {args.attention_backend!r} is not one of "
+            "auto, dense, flash, ring")
     setup_parallel(args, device.type)
-    if device.type == "cuda" and args.mesh is not None:
+    if device.type == "cuda" and args.layout is not None:
         device = torch.device("cuda", torch.cuda.current_device())
     args.device = device
     args.remat = args.remat or ("full" if args.checkpoint_activations
                                 else "none")
-    args.attention_backend = BACKEND_ALIASES.get(args.attention_backend,
-                                                 args.attention_backend)
-    if args.attention_backend not in ("auto", "dense", "flash"):
-        raise ValueError(
-            f"attention_backend {args.attention_backend!r} is not one of "
-            "auto, dense, flash")
+    if args.mesh_spec.seq > 1 and args.attention_backend != "ring":
+        # A seq axis exists to avoid O(S^2) attention (JAX
+        # run_pretraining.py:463-470): the ring, never a silent dense path.
+        log({"event": "attention_backend", "was": args.attention_backend,
+             "now": "ring", "reason": "mesh seq>1"})
+        args.attention_backend = "ring"
     args.layer_norm_backend = resolve_backend(args.layer_norm_backend)
     if args.dtype not in DTYPES:
         raise ValueError(f"dtype {args.dtype!r} is not one of {sorted(DTYPES)}")
@@ -509,23 +581,18 @@ def setup_training(args) -> argparse.Namespace:
         raise ValueError(
             "--dtype float16 is the first-order parity mode; K-FAC runs in "
             "bf16/f32 (no loss scaler needed)")
-    # Accumulation math in global terms (JAX run_pretraining.py:444-451):
-    # local_batch_size rows per rank per microbatch.
-    global_microbatch = args.local_batch_size * args.world_size
-    if args.global_batch_size % global_microbatch:
-        raise ValueError(
-            f"global_batch_size={args.global_batch_size} must be divisible "
-            f"by local_batch_size*world_size={global_microbatch}")
-    args.accumulation_steps = args.global_batch_size // global_microbatch
-    args.host_batch_per_step = args.global_batch_size // args.world_size
     args.packed, args.pack_k = False, 1
     args.model_output_dir = os.path.join(args.output_dir, "pretrain_ckpts")
     os.makedirs(args.model_output_dir, exist_ok=True)
-    if args.mesh is not None:
-        log({"event": "mesh", "data": args.mesh_spec.data,
-             "fsdp": args.mesh_spec.fsdp, "world_size": args.world_size,
-             "backend": args.backend, "spec": args.mesh_spec.canonical(),
-             "device": str(device)})
+    if args.layout is not None:
+        spec = args.mesh_spec
+        log({"event": "mesh", "dcn": spec.dcn_data, "data": spec.data,
+             "fsdp": spec.fsdp, "world_size": args.world_size,
+             "backend": args.backend, "pipe": spec.pipe, "seq": spec.seq,
+             "model": spec.model,
+             "transport": ",".join(f"{k}={v}" for k, v in
+                                   args.layout.transports().items())
+             or "none", "spec": spec.canonical(), "device": str(device)})
     # The telemetry paths (JAX run_pretraining.py:394-399): the sink shared
     # by the train records and the telemetry facade, the heartbeat and the
     # profiler's traces.
@@ -558,7 +625,12 @@ def prepare_model(args):
         device=args.device, layer_norm_backend=args.layer_norm_backend)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     init_weights(model, config.initializer_range, gen)
-    return sharding.shard_model(model, getattr(args, "mesh", None)), config
+    layout = getattr(args, "layout", None)
+    model = mesh_lib.place_model(model, layout)
+    model = sharding.shard_model(
+        model, layout.device_mesh if layout is not None else None)
+    mesh_lib.mark_norms(model, layout)
+    return model, config
 
 
 def prepare_optimizer(args, model):
@@ -601,13 +673,29 @@ def mask_token_id(config) -> int:
 
 def prepare_kfac(args, model, config):
     """(KFAC, its zeroed state) with ``--kfac``, else (None, None) (JAX
-    run_pretraining.py:725-785)."""
+    run_pretraining.py:725-785). Across ranks it sums over the data
+    replicas' group; under ``pipe`` the capture falls back to the stats
+    pass (logged) on a whole-model twin, which takes the run's weights
+    whole before each factor update (:func:`whole_parts`)."""
     if not args.kfac:
         return None, None
-    kfac = KFAC(model, factor_decay=args.kfac_stat_decay,
+    layout = getattr(args, "layout", None)
+    tapped = model
+    if args.mesh_spec.pipe > 1:
+        if args.kfac_capture == "train":
+            log({"event": "kfac_capture", "was": "train", "now": "stats",
+                 "reason": "pipeline parallelism has no fused capture"})
+            args.kfac_capture = "stats"
+        tapped = BertForPreTraining(
+            config, dtype=DTYPES[args.dtype],
+            attention_backend=("auto" if args.attention_backend == "ring"
+                               else args.attention_backend),
+            device=args.device, layer_norm_backend=args.layer_norm_backend)
+    kfac = KFAC(tapped, factor_decay=args.kfac_stat_decay,
                 damping=args.kfac_damping, kl_clip=args.kfac_kl_clip,
                 inv_method=args.kfac_inv_method,
-                skip_layers=tuple(args.kfac_skip_layers))
+                skip_layers=tuple(args.kfac_skip_layers),
+                group=layout.groups["batch"] if layout is not None else None)
     kfac_state = kfac.init()
     log({"event": "kfac", "layer_groups": len(kfac.specs),
          "capture": ("train (fused)" if args.kfac_capture == "train"
@@ -706,7 +794,7 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
     if dataset is None:
         require_args(args, ["input_dir"])
         dataset = shard_dataset(args, config, args.input_dir,
-                                args.seed + getattr(args, "rank", 0))
+                                args.seed + getattr(args, "data_index", 0))
     args.packed = bool(dataset.packed)
     args.pack_k = dataset.max_sequences_per_pack if dataset.packed else 1
     if not dataset.packed and args.pack_sequences:
@@ -717,8 +805,8 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
             dataset, max_sequences_per_pack=args.max_sequences_per_pack)
         args.packed = True
         args.pack_k = args.max_sequences_per_pack
-    sampler = DistributedSampler(dataset, num_replicas=args.world_size,
-                                 rank=args.rank)
+    sampler = DistributedSampler(dataset, num_replicas=args.n_data,
+                                 rank=args.data_index)
     if checkpoint is not None and checkpoint.get("sampler") is not None:
         sampler.load_state_dict(checkpoint["sampler"])
     loader = DataLoader(dataset, sampler,
@@ -727,23 +815,25 @@ def prepare_dataset(args, config, checkpoint=None, dataset=None):
     if len(loader) == 0:
         raise ValueError(
             f"{len(dataset)} samples do not fill one global batch of "
-            f"{args.global_batch_size} over {args.world_size} ranks")
+            f"{args.global_batch_size} over {args.n_data} data replicas")
     return loader, sampler
 
 
 def prepare_val_loader(args, config, val_dataset=None):
-    """The held-out loader (this rank's rows of each global batch, a
-    thread) over the shards of ``--val_input_dir`` masked under ``seed +
-    7919 + rank``, or over ``val_dataset``; None without either."""
+    """The held-out loader (this data coordinate's rows of each global
+    batch, a thread) over the shards of ``--val_input_dir`` masked under
+    ``seed + 7919 + data coordinate``, or over ``val_dataset``; None
+    without either."""
     if val_dataset is None:
         if not args.val_input_dir:
             return None
         val_dataset = shard_dataset(args, config, args.val_input_dir,
-                                    args.seed + VAL_SEED_OFFSET + args.rank)
+                                    args.seed + VAL_SEED_OFFSET
+                                    + args.data_index)
     return DataLoader(val_dataset,
                       DistributedSampler(val_dataset,
-                                         num_replicas=args.world_size,
-                                         rank=args.rank),
+                                         num_replicas=args.n_data,
+                                         rank=args.data_index),
                       batch_size=args.host_batch_per_step, drop_last=True)
 
 
@@ -801,32 +891,46 @@ def make_step(args, model, optimizer, schedule, config, kfac=None,
     ``--grad_stats_every``, counted from the optimizer count the step is
     built at (the run's start)."""
     fused = kfac is not None and args.kfac_capture == "train"
-    train_step = pretrain.make_train_step(
-        model, optimizer, schedule, next_sentence=config.next_sentence,
-        max_pred_per_seq=args.max_predictions_per_seq * args.pack_k,
-        generator=torch.Generator().manual_seed(args.seed), kfac=kfac,
-        kfac_fused=fused, kfac_factor_interval=args.kfac_factor_interval,
-        kfac_inv_interval=args.kfac_inv_interval if fused else 0,
-        kfac_capture_microbatches=args.kfac_capture_microbatches,
-        stats_every=telemetry.stats_every(args),
-        stats_phase=opt_step_count(optimizer),
-        loss_scale=args.dtype == "float16",
-        data_parallel=data_parallel(args))
+    common = dict(next_sentence=config.next_sentence,
+                  max_pred_per_seq=args.max_predictions_per_seq * args.pack_k,
+                  generator=torch.Generator().manual_seed(args.seed),
+                  kfac=kfac, stats_every=telemetry.stats_every(args),
+                  stats_phase=opt_step_count(optimizer),
+                  data_parallel=data_parallel(args))
+    if args.mesh_spec.pipe > 1:
+        train_step = pretrain.make_pp_train_step(model, optimizer, schedule,
+                                                 **common)
+    else:
+        train_step = pretrain.make_train_step(
+            model, optimizer, schedule, kfac_fused=fused,
+            kfac_factor_interval=args.kfac_factor_interval,
+            kfac_inv_interval=args.kfac_inv_interval if fused else 0,
+            kfac_capture_microbatches=args.kfac_capture_microbatches,
+            loss_scale=args.dtype == "float16", **common)
     if kfac is None:
         return train_step
     if fused:
         return lambda batch: train_step(batch, kfac_state)
     # The stats pass's loss runs without remat, as the JAX stats twin.
+    layout = getattr(args, "layout", None)
     kfac.apply_loss = pretrain.make_kfac_loss(
-        model, next_sentence=config.next_sentence,
-        max_pred_per_seq=args.max_predictions_per_seq * args.pack_k)
+        kfac.model, next_sentence=config.next_sentence,
+        max_pred_per_seq=args.max_predictions_per_seq * args.pack_k,
+        group=kfac.group)
     layers = config.num_hidden_layers
+    # The stats rows of each data replica (JAX strides them over the
+    # global microbatch 0, so each replica's share is its own rows').
+    n_stats = (args.kfac_stats_batch // args.n_data
+               if args.kfac_stats_batch else 0)
 
     def stats_step(batch):
         global_step = opt_step_count(optimizer)
         if global_step % args.kfac_factor_interval == 0:
+            if kfac.model is not model:
+                kfac.model.load_state_dict(whole_parts(model)(
+                    sharding.full_state_dict(model)))
             kfac.update_factors(
-                kfac_state, stats_rows(batch, args.kfac_stats_batch),
+                kfac_state, stats_rows(batch, n_stats),
                 draw_dropout_seeds(torch.Generator().manual_seed(
                     (args.seed + KFAC_STATS_SEED_OFFSET) * 2 ** 32
                     + global_step), layers))
@@ -854,23 +958,37 @@ def checkpoint_contents(model, optimizer, config, sampler_state: dict,
     """The training checkpoint's tree, in the JAX package's layout, its
     tensors on the model's device (the transposes and layer stacks run
     there; the writer copies one leaf at a time to the host); with
-    ``kfac_state``, its ``preconditioner``. Gathered under FSDP, every
-    sharded tensor is gathered whole first (a collective: every rank
-    calls this); ``layout="sharded"`` holds this rank's shards as slice
+    ``kfac_state``, its ``preconditioner``. Gathered under FSDP, ``pipe``
+    or ``model``, every split tensor is gathered whole first (a
+    collective: every rank calls this); ``layout="sharded"`` holds this rank's shards as slice
     records instead (utils/checkpoint.py ``sharded_training_state``)."""
     if layout == "sharded":
         contents = ckpt.sharded_training_state(model, optimizer, config)
     else:
-        state = sharding.full_state_dict(model)
+        regroup = whole_parts(model)
+        state = regroup(sharding.full_state_dict(model))
         contents = {"model": to_jax_params(state, config, "pretraining",
                                            keep_device=True),
                     "optimizer": optimizer_to_jax(model, optimizer, config,
                                                   "pretraining",
-                                                  keep_device=True)}
+                                                  keep_device=True,
+                                                  regroup=regroup)}
     contents.update(sampler=sampler_state, epoch=int(epoch))
     if kfac_state is not None:
         contents["preconditioner"] = kfac_state.state_dict()
     return contents
+
+
+def whole_parts(model):
+    """``regroup(named) -> whole tensors``: the ``pipe`` and ``model`` parts
+    of a state gathered (parallel/state.py; a collective), or the state
+    itself for a model split over neither."""
+    layout = getattr(model, "layout", None)
+    if layout is None or not layout.model_parallel:
+        return lambda named: named
+    return lambda named: state_lib.gather_full(
+        named, layout.axis(mesh_lib.AXIS_MODEL),
+        layout.axis(mesh_lib.AXIS_PIPE), model.config.num_hidden_layers)
 
 
 def write_checkpoint(output_dir: str, step: int, model, optimizer, config,

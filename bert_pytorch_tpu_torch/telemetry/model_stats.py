@@ -149,7 +149,9 @@ def is_due(count: int, every: int, phase: int = 0) -> bool:
 
 def step_with_health(optimizer, named: Sequence, every: int,
                      phase: int = 0,
-                     grad_scale: Optional[float] = None) -> Optional[dict]:
+                     grad_scale: Optional[float] = None,
+                     whole_names: Optional[Sequence[str]] = None
+                     ) -> Optional[dict]:
     """One ``optimizer.step()``; on a due step (:func:`is_due` at the
     optimizer's pre-update count) also the block for
     ``metrics["grad_health"]``, else None. ``named`` is the step's (name,
@@ -163,7 +165,13 @@ def step_with_health(optimizer, named: Sequence, every: int,
     ``grad_scale`` / ``finetune_grad_health``'s ``fp16_scale``) divides
     the reported grad norms, and the caller passes ``every`` 1: a skipped
     overflow step does not advance the count, so a count gate would drift
-    off the host's sync cadence."""
+    off the host's sync cadence.
+
+    ``whole_names`` (the single-process model's parameter names) for a
+    model split over ``pipe``/``model``: each rank's squares, over their
+    ``norm_copies``, go into one vector over the whole names, summed over
+    the ``norm_group`` (one all-reduce), so the block is the whole
+    model's on every rank."""
     if not is_due(optimizer.param_groups[0]["count"], every, phase):
         optimizer.step()
         return None
@@ -175,6 +183,23 @@ def step_with_health(optimizer, named: Sequence, every: int,
     with torch.no_grad():
         update_norms = tensor_norms([updates.get(p) for p in params])
         shards = shard_group(params)
+        group = next((p.norm_group for p in params
+                      if getattr(p, "norm_group", None) is not None), None)
+        if group is not None and whole_names is not None:
+            names = list(whole_names)
+            at = {n: i for i, n in enumerate(names)}
+            w = len(names)
+            squares = param_norms[0].new_zeros(3 * w)
+            for (name, p), norms in zip(named, zip(
+                    param_norms, grad_norms, update_norms)):
+                for k, norm in enumerate(norms):
+                    squares[k * w + at[name]] += norm.square() / p.norm_copies
+            total = torch.sqrt(sum_over_shards(squares, group))
+            stats = grad_health(names, list(total[:w]),
+                                list(total[w:2 * w]), list(total[2 * w:]),
+                                grad_scale)
+            stats["due"] = 1.0
+            return stats
         if shards is not None:
             # Shards' norms -> whole tensors' norms: every square in one
             # all-reduce over the shard group.

@@ -29,7 +29,10 @@ fails, and restores the first that passes; across ranks, ``agree``
 (``utils/dist.py`` ``agree_on_resume_step``) picks the step every rank
 can load. A sharded-layout index (``ckpt_{step}.shard{p}of{n}.msgpack``
 beside it) reads its slices from the shard files. A model under FSDP
-(parallel/sharding.py) takes its shard's rows of each decoded tensor.
+(parallel/sharding.py) takes its shard's rows of each decoded tensor; a
+model split over ``pipe`` or ``model`` (parallel/mesh.py ``place_model``)
+decodes the whole tensors and takes its stage's layers and its model
+part of each, so a checkpoint of any layout resumes in any other.
 
 Writing. :func:`save_checkpoint` streams the tree's bytes to a temporary
 file while hashing them, renames it into place, writes the manifest, then
@@ -74,6 +77,8 @@ from bert_pytorch_tpu_torch.models import convert as convert_lib
 from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.optim import transforms
 from bert_pytorch_tpu_torch.parallel import sharding
+from bert_pytorch_tpu_torch.parallel import state as state_lib
+from bert_pytorch_tpu_torch.parallel import tensor_parallel as tp_lib
 from bert_pytorch_tpu_torch.utils import dist as dist_utils
 from bert_pytorch_tpu_torch.utils import flax_msgpack, integrity
 
@@ -525,6 +530,13 @@ def restore_training_state(path: str, model: torch.nn.Module,
                                             preconditioner)
     device = next(model.parameters()).device
     target = model.state_dict()
+    # A model split over pipe/model decodes whole tensors, then keeps its
+    # parts.
+    layout = _split_layout(model)
+    whole = target
+    if layout is not None:
+        whole = {k: torch.empty(shape, device="meta") for k, shape in
+                 _whole_shapes(model, layout).items()}
     loss_scaled = isinstance(optimizer, transforms.DynamicLossScale)
     if optimizer is not None:
         if SHARDED_KEY in offsets:
@@ -545,20 +557,27 @@ def restore_training_state(path: str, model: torch.nn.Module,
     # A sharded checkpoint's shard files, read and hashed once for every
     # subtree below.
     shards: dict = {}
-    state = _decode_state(path, blob, offsets, ("model",), target, None,
+    state = _decode_state(path, blob, offsets, ("model",), whole, None,
                           device, partial=False, shards=shards)
+    if layout is not None:
+        state = _local_parts(state, target, layout)
     extras = {"count": None}
     if preconditioner is not None:
         extras["preconditioner"] = kfac_pairs is not None
     if optimizer is not None:
         params = dict(model.named_parameters())
-        moment_target = {n: torch.empty(p.shape, dtype=torch.float32,
+        # Whole moments of every parameter (of every stage) under a split.
+        shapes = ({n: whole[n].shape for n in whole} if layout is not None
+                  else {n: p.shape for n, p in params.items()})
+        moment_target = {n: torch.empty(shape, dtype=torch.float32,
                                         device="meta")
-                         for n, p in params.items()}
+                         for n, shape in shapes.items()}
         mu, nu = (_decode_state(path, blob, offsets, opt_keys + (part,),
                                 moment_target, None, device, partial=False,
                                 shards=shards)
                   for part in ("mu", "nu"))
+        if layout is not None:
+            mu, nu = (_local_parts(m, params, layout) for m in (mu, nu))
         count = _decode_value(path, blob, offsets, opt_keys + ("count",),
                               shards)
         extras["count"] = int(np.asarray(count))
@@ -581,6 +600,26 @@ def restore_training_state(path: str, model: torch.nn.Module,
         extras[key] = (_decode_value(path, blob, offsets, (key,), shards)
                        if key in offsets else None)
     return extras
+
+
+def _split_layout(model: torch.nn.Module):
+    """The model's ``parallel.mesh.Layout`` when it splits parameters over
+    ``pipe`` or ``model``, else None."""
+    layout = getattr(model, "layout", None)
+    return layout if layout is not None and layout.model_parallel else None
+
+
+def _whole_shapes(model: torch.nn.Module, layout) -> Dict[str, tuple]:
+    return state_lib.full_shapes(model, layout.axis("model"),
+                                 layout.axis("pipe"),
+                                 model.config.num_hidden_layers)
+
+
+def _local_parts(whole: Dict[str, torch.Tensor], names, layout
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's parts (its layers, its model part) of whole tensors."""
+    return {name: tp_lib.local_part(name, whole[name], layout.axis("model"))
+            .contiguous() for name in names}
 
 
 def _newest_loadable(output_dir: str, on_skip, below: Optional[int] = None):
@@ -899,13 +938,27 @@ def sharded_training_state(model: torch.nn.Module,
     by one rank only: under HSDP the ranks of ``data`` coordinate 0, for
     an unsharded tensor rank 0."""
     state = model.state_dict()
-    meta = {k: torch.empty(tuple(v.shape), device="meta")
-            for k, v in state.items()}
+    layout = _split_layout(model)
+    shapes_by_name = (_whole_shapes(model, layout) if layout is not None
+                      else {k: tuple(v.shape) for k, v in state.items()})
+    meta = {k: torch.empty(shape, device="meta")
+            for k, shape in shapes_by_name.items()}
     shapes = convert_lib.to_jax_params(meta, config, "pretraining",
                                        keep_device=True)
     rank = dist_utils.get_rank()
+    model_axis = layout.axis("model") if layout is not None else None
 
-    def writes(like) -> bool:
+    def writes(name, like) -> bool:
+        if layout is not None:
+            c = layout.coords
+            if c["data"] or c["seq"] or (c["fsdp"]
+                                         and not sharding.is_sharded(like)):
+                return False
+            if c["model"] and tp_lib.split_of(name) is None:
+                return False
+            if c["pipe"] and ".encoder.layers." not in name:
+                return False
+            return True
         if not sharding.is_sharded(like):
             return rank == 0
         mesh = like.device_mesh
@@ -913,15 +966,26 @@ def sharded_training_state(model: torch.nn.Module,
                    for d, p in enumerate(like.placements)
                    if not p.is_shard())
 
+    def windows_of(name, part, like):
+        row0 = sharding.row_range(like)[0]
+        window = (tp_lib.shard_window(name, shapes_by_name[name],
+                                      model_axis)
+                  if model_axis is not None else None)
+        if window is None:
+            return convert_lib.jax_slices(name, part, row0, config)
+        dim, lo, _ = window
+        if dim == 0:
+            return convert_lib.jax_slices(name, part, lo + row0, config)
+        return convert_lib.jax_column_slices(name, part, row0, lo, config)
+
     def tree_of(tensors: Dict[str, torch.Tensor]) -> dict:
         records: Dict[tuple, list] = {}
         for name, t in tensors.items():
             like = state[name]
-            if not writes(like):
+            if not writes(name, like):
                 continue
-            path, windows = convert_lib.jax_slices(
-                name, sharding.local(t).detach(), sharding.row_range(like)[0],
-                config)
+            path, windows = windows_of(name, sharding.local(t).detach(),
+                                       like)
             records.setdefault(path, []).extend(windows)
 
         def leaf(node, path):

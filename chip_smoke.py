@@ -292,7 +292,30 @@ Phases (any failure exits non-zero and prints no result line):
    from each bit-equal. Each rank counts its own launches (phase 6's per
    step); the training kernels carry ``launches_mesh_dp1`` (17a),
    ``launches_mesh_dp2`` (17b's three runs, rank 0) and
-   ``launches_mesh_fsdp2`` (17c, rank 0).
+   ``launches_mesh_fsdp2`` (17c, rank 0);
+18. model-parallel pretraining (``drive_model_parallel``), one
+   ``torch.distributed.run`` of 4 ranks sharing the card over gloo at
+   BERT-large width and 6 layers, 16 rows a step, the runner's own
+   functions: 18a ``--mesh pipe=2,model=2`` (GPipe over 2 stages of 3
+   layers, each layer split over 2 model ranks), 2 steps at dropout 0,
+   the first loss within ``P17_LOSS_RTOL`` of one process's step on the
+   same rows, a sharded save resumed at world size 1 with the same state
+   digest; 18b ``--mesh pipe=2,seq=2`` at S=512 (ring attention inside
+   each stage), one step at dropout 0 (the same bar) and one at 0.1,
+   and one ring layer's output and q/k/v gradients against the plain
+   dense attention with the ring's dropout masks at TRAIN_TOL's bf16
+   bars; 18c ``--mesh dp=4 --kfac`` (factors and inverses every step), 2
+   steps, the K-FAC state digests equal on the 4 ranks and the first
+   update (the preconditioned gradients) within ``P18_KFAC_UPDATE_RTOL``
+   of one process's, a planted fault (the factors without the replica
+   count) beyond it. Each rank counts its
+   launches: #1-#3 2/1/1 a layer a microbatch for its layers in 18a and
+   18c, none in 18b; the training kernels carry rank 0's as
+   ``launches_mp_pp_tp``, ``launches_mp_pp_sp`` and
+   ``launches_mp_kfac_dp4``.
+
+``python3 chip_smoke.py --only 18`` runs phase 18 alone (the kernels built,
+phase 18, its result line; none of the contract's lines).
 
 Every launch counter is set to 0 just before each main path and read just
 after it (phase 14's counters live in its replicas, fresh processes whose
@@ -5425,7 +5448,8 @@ def dist_child(argv) -> int:
     with open(spec_path, encoding="utf-8") as f:
         spec = json.load(f)
     kernels = child_kernels()
-    result = (child_17a if mode == "17a" else child_17bc)(spec, kernels)
+    result = {"17a": child_17a, "17bc": child_17bc,
+              "18": child_18}[mode](spec, kernels)
     rank = int(os.environ["RANK"])
     with open(os.path.join(spec["out"], f"{mode}.rank{rank}.json"), "w",
               encoding="utf-8") as f:
@@ -5650,11 +5674,498 @@ def drive_mesh(kernels: dict, root: str, card: str,
                 "fsdp2": f0["launches"]}}
 
 
+# -- phase 18: model-parallel pretraining ------------------------------------
+
+# One torchrun launch of 4 ranks sharing the card (gloo), BERT-large width
+# cut to P17_LAYERS layers, 16 rows a step from the phase's seeded rows
+# (P18_DATA_SEED), bf16, remat dots, the runner's own functions:
+# 18a --mesh pipe=2,model=2 (local batch 8: 2 microbatches through 2
+# stages), P18A_STEPS steps at dropout 0, then a sharded save resumed at
+# world size 1 in this process; 18b --mesh pipe=2,seq=2 at S=512 (the
+# ring inside each stage), one step at dropout 0 and one at 0.1; 18c
+# --mesh dp=4 --kfac (local batch 4, factors and inverses every step),
+# P18C_STEPS steps at dropout 0.
+P18_WORLD = 4
+P18A_STEPS, P18C_STEPS = 2, 2
+P18_DATA_SEED = 18
+P18_CHILD_TIMEOUT_S = 420
+# 18c's first K-FAC update (the preconditioned gradients of step 1, what
+# the optimizer receives) against one process's K-FAC step on the same 16
+# rows: relative L2 distance over every parameter, at most 0.1. What it
+# must let through is bf16 rounding: the gradients and factors come from
+# GEMMs of 4 rows a rank against 16, through 6 layers of bf16 backward,
+# and the damped inverses amplify a relative perturbation by up to their
+# condition number. Readings on the card (NVIDIA H100 80GB HBM3, 700.00
+# W): the dp=4 update 3.128e-2 off one process's; one process's own
+# update with fp32 inverses 1.460e-2 off its bf16 one (about half the gap
+# is the inverses' storage); the planted fault (next) 0.5215. A first bar
+# of 3e-2, set before any reading, sat under the rounding; 0.1 sits
+# between the two readings. (Not LAMB's parameter step: its first step
+# is sign(g) elementwise, which turns the rounding of a near-zero
+# gradient into a full step; it read 0.319.)
+P18_KFAC_UPDATE_RTOL = 0.1
+# Held against that bar in every run: one process's K-FAC update with a
+# planted fault, the factors of a dp=4 rank that leaves out the "x
+# replicas" of its row count and per-sample scale (A 4x too large, G 4x
+# too small), must land beyond it; one process's update with fp32
+# inverses is read beside it.
+
+# 18b's ring attention layer on the card, against the plain dense
+# attention on the whole sequence with the ring's own dropout masks laid
+# into the [S, S] grid: one layer at 18b's shape (8 rows, S=512, 16
+# heads of 64, bf16; the last P18B_RING_PAD keys of every other row
+# padded), at dropout 0 and P18B_RING_RATE, its output and q/k/v
+# gradients within TRAIN_TOL's bf16 bars (those of #1-#3 against their
+# plain versions), the masks' kept share within P18B_KEEP_ATOL of
+# 1 - rate.
+P18B_RING_RATE = 0.1
+P18B_RING_SEED = 0x18B
+P18B_RING_PAD = 64
+P18B_KEEP_ATOL = 1e-3
+
+
+def whole_state_digest(model, optimizer) -> str:
+    """sha256 of every parameter and both moments, whole (gathered over
+    FSDP, pipe and model: a collective under a layout), by name."""
+    import hashlib
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.optim import transforms
+    from bert_pytorch_tpu_torch.parallel import sharding
+
+    regroup = run_pretraining.whole_parts(model)
+    params = dict(model.named_parameters())
+    state = regroup({n: v for n, v in sharding.full_state_dict(
+        model).items() if n in params})
+    mu, nu = (regroup({n: sharding.gather_like(t, params[n])
+                       for n, t in m.items()})
+              for m in transforms.moments(optimizer, params))
+    digest = hashlib.sha256()
+    for tree in (state, mu, nu):
+        for _, value in sorted(tree.items()):
+            digest.update(value.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def kfac_state_digest(state) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for field in ("a", "g", "qa", "la", "qg", "lg"):
+        for _, value in sorted(getattr(state, field).items()):
+            digest.update(value.detach().float().cpu().numpy().tobytes())
+    digest.update(str(int(state.count)).encode())
+    return digest.hexdigest()
+
+
+def child_18_run(kernels: dict, out: str, config: str, mesh: str,
+                 steps: int, local_batch: int, extra=(),
+                 keep_first: bool = False) -> tuple:
+    """One run of the runner's functions under ``mesh`` on the phase's
+    rows: (result, model, optimizer, args, config, kfac state)."""
+    from bert_pytorch_tpu_torch import pretrain, run_pretraining
+
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        feed_argv(out, ["--mesh", mesh, "--steps", str(steps),
+                        "--local_batch_size", str(local_batch), *extra],
+                  config)))
+    model, cfg = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    kfac, kfac_state = run_pretraining.prepare_kfac(args, model, cfg)
+    step = run_pretraining.make_step(args, model, optimizer, schedule, cfg,
+                                     kfac, kfac_state)
+    loader, _ = run_pretraining.prepare_dataset(
+        args, cfg, None, feed_dataset(P18_DATA_SEED, TRAIN_LOCAL_BATCH
+                                      * TRAIN_ACCUM * steps))
+    hosts = iter(loader)
+    batches = [pretrain.to_device(pretrain.stack_microbatches(
+        next(hosts), args.accumulation_steps), args.device)
+        for _ in range(steps)]
+    hosts.close()
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    losses, step_s, first_update = [], [], None
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+        if keep_first and i == 0:
+            # The optimizer's input: the preconditioned gradients.
+            first_update = {n: p.grad.detach().float().cpu()
+                            for n, p in model.named_parameters()}
+    launches, routes = counted(kernels)
+    result = {"losses": losses, "step_s": step_s, "launches": launches,
+              "routes": routes, "backend": args.backend,
+              "mesh": args.mesh_spec.canonical(),
+              "accumulation": args.accumulation_steps,
+              "attention_backend": args.attention_backend,
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    result["first_update"] = first_update
+    result["first_batch"] = {k: v.cpu().numpy() for k, v in
+                             batches[0].items()}
+    return result, model, optimizer, args, cfg, kfac_state
+
+
+def ring_layer_check(seq, rows: int, heads: int, depth: int) -> dict:
+    """One ring attention layer over the ``seq`` group (this rank's S/n
+    slice) on the card at dropout 0 and P18B_RING_RATE, forward and
+    backward, against the plain dense attention on the whole sequence in
+    fp32 with the same dropout masks (each block's ``keep_scale`` at its
+    ``block_seed``, laid where that block's keys meet its queries).
+    Returns, per rate, the worst |ring - plain| / (atol + rtol
+    |plain|) of the output and of dq, dk, dv at TRAIN_TOL's bf16 bars
+    (at most 1 passes) and the masks' kept share."""
+    from bert_pytorch_tpu_torch.ops.ring import (block_seed, keep_scale,
+                                                 ring_attention)
+
+    n, r = seq.size, seq.index
+    width = TRAIN_SEQ // n
+    gen = torch.Generator(device="cuda").manual_seed(P18_DATA_SEED)
+    shape = (rows, TRAIN_SEQ, heads, depth)
+    q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(4))
+    bias = torch.zeros((rows, TRAIN_SEQ), device="cuda")
+    bias[::2, -P18B_RING_PAD:] = -10000.0  # make_attention_bias' value
+    mine = slice(r * width, (r + 1) * width)
+    tol = TRAIN_TOL[torch.bfloat16]
+    out = {}
+    for rate in (0.0, P18B_RING_RATE):
+        ql, kl, vl = (t[:, mine].clone().requires_grad_(True)
+                      for t in (q, k, v))
+        got = ring_attention(ql, kl, vl, bias[:, mine].contiguous(), seq,
+                             rate, P18B_RING_SEED if rate else None)
+        got.backward(d_out[:, mine])
+        # The plain version over the whole sequence: every rank's
+        # queries, whose gradients reach this rank's keys round the ring.
+        keep = torch.ones((rows, heads, TRAIN_SEQ, TRAIN_SEQ), device="cuda")
+        if rate:
+            for src_q in range(n):
+                for step in range(n):
+                    src_k = (src_q - step) % n  # held at this ring step
+                    keep[:, :, src_q * width:(src_q + 1) * width,
+                         src_k * width:(src_k + 1) * width] = keep_scale(
+                        (rows, heads, width, width), rate,
+                        block_seed(P18B_RING_SEED, src_q, step), "cuda")
+        q32, k32, v32 = (t.float().requires_grad_(True) for t in (q, k, v))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q32, k32) / (
+            depth ** 0.5) + bias[:, None, None, :]
+        want = torch.einsum("bhqk,bkhd->bqhd",
+                            torch.softmax(scores, dim=-1) * keep, v32)
+        want.backward(d_out.float())
+        worst = {}
+        for name, x, y in (("out", got, want), ("dq", ql.grad, q32.grad),
+                           ("dk", kl.grad, k32.grad),
+                           ("dv", vl.grad, v32.grad)):
+            atol, rtol = tol[name]
+            y = y[:, mine]
+            worst[name] = float(((x.float() - y).abs()
+                                 / (atol + rtol * y.abs())).max())
+        worst["kept"] = float((keep > 0).float().mean())
+        out[str(rate)] = worst
+    return out
+
+
+def child_18(spec: dict, kernels: dict) -> dict:
+    """18a, 18b and 18c in one of the four torchrun ranks sharing the
+    card."""
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.parallel import launcher
+
+    rank = int(os.environ["RANK"])
+    out = spec["out"]
+    results = {}
+    # 18a
+    res, model, optimizer, args, cfg, _ = child_18_run(
+        kernels, os.path.join(out, "pp_tp"), spec["config0"],
+        "pipe=2,model=2", P18A_STEPS, TRAIN_LOCAL_BATCH)
+    if rank == 0:
+        np.savez(os.path.join(out, "batch18.npz"), **res["first_batch"])
+    t0 = time.perf_counter()
+    run_pretraining.write_checkpoint(
+        os.path.join(out, "ckpt_pp_tp", "pretrain_ckpts"), P18A_STEPS,
+        model, optimizer, cfg, {"index": 0}, 0, layout="sharded",
+        mesh_spec=args.mesh_spec.as_dict())
+    res["sharded_save_s"] = time.perf_counter() - t0
+    res["digest"] = whole_state_digest(model, optimizer)
+    res["transport"] = args.layout.transports()
+    res.pop("first_batch")
+    res.pop("first_update")
+    results["18a"] = res
+    del model, optimizer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[mp] rank {rank}: 18a done; 18b pipe=2,seq=2")
+    # 18b: dropout 0 then 0.1, one step each
+    for label, config in (("dropout0", spec["config0"]),
+                          ("dropout", spec["config"])):
+        res, model, optimizer, args, cfg, _ = child_18_run(
+            kernels, os.path.join(out, f"pp_sp_{label}"), config,
+            "pipe=2,seq=2", 1, TRAIN_LOCAL_BATCH)
+        res.pop("first_batch")
+        res.pop("first_update")
+        res["transport"] = args.layout.transports()
+        if label == "dropout0":
+            res["ring_layer"] = ring_layer_check(
+                args.layout.axis("seq"), TRAIN_LOCAL_BATCH,
+                cfg.num_attention_heads,
+                cfg.hidden_size // cfg.num_attention_heads)
+        results[f"18b_{label}"] = res
+        del model, optimizer
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"[mp] rank {rank}: 18b done; 18c dp=4 --kfac")
+    # 18c
+    res, model, optimizer, args, cfg, kstate = child_18_run(
+        kernels, os.path.join(out, "kfac"), spec["config0"], "dp=4",
+        P18C_STEPS, TRAIN_LOCAL_BATCH * TRAIN_ACCUM // P18_WORLD,
+        ["--kfac", "--kfac_factor_interval", "1", "--kfac_inv_interval", "1"],
+        keep_first=True)
+    res["kfac_digest"] = kfac_state_digest(kstate)
+    if rank == 0:
+        torch.save(res["first_update"], os.path.join(out, "update18c.pt"))
+        np.savez(os.path.join(out, "batch18c.r0.npz"), **res["first_batch"])
+    else:
+        np.savez(os.path.join(out, f"batch18c.r{rank}.npz"),
+                 **res["first_batch"])
+    res.pop("first_update")
+    res.pop("first_batch")
+    results["18c"] = res
+    launcher.shutdown()
+    return results
+
+
+def check_launches_per_rank(label: str, launches: dict, routes: dict,
+                            layers: int, accumulation: int,
+                            steps: int) -> None:
+    """#1-#3 at phase 6's rate for the layers one rank runs (remat dots
+    recomputes the forward: 2/1/1 a layer a microbatch), all on the
+    tensor cores; 0 when ``layers`` is 0 (ring layers)."""
+    per = layers * accumulation * steps
+    want = {"flash_attention_fwd": 2 * per, "flash_attention_dq": per,
+            "flash_attention_dkv": per, "layer_norm_fwd": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} "
+                                 f"times; expected {n}")
+    for name in TRAIN_REPLACES:
+        if routes[name]["tensor_cores"] != launches[name]:
+            raise AssertionError(f"{label}: {name} by route {routes[name]}")
+
+
+def single_process_step(out: str, config: str, batch: dict,
+                        extra=(), tweak=None) -> tuple:
+    """One runner step at world size 1 on ``batch`` (the 16 rows as one
+    microbatch of 16 with ``--kfac``, else 2 of 8): (loss, model); the
+    model's ``.grad`` hold what the optimizer received. ``tweak(kfac,
+    kfac_state) -> kfac_state`` changes K-FAC before the step is built."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
+    args = run_pretraining.setup_training(run_pretraining.parse_arguments(
+        feed_argv(out, ["--steps", "1", *extra], config)))
+    model, cfg = run_pretraining.prepare_model(args)
+    optimizer, schedule = run_pretraining.prepare_optimizer(args, model)
+    kfac, kfac_state = run_pretraining.prepare_kfac(args, model, cfg)
+    if tweak is not None:
+        kfac_state = tweak(kfac, kfac_state)
+    step = run_pretraining.make_step(args, model, optimizer, schedule, cfg,
+                                     kfac, kfac_state)
+    loss = float(step(batch)["loss"])
+    return loss, model
+
+
+def unreplicated_factors(kfac, kfac_state):
+    """The planted fault: factors folded as a dp=4 rank would fold them
+    without the "x replicas" of its rows and per-sample scale."""
+    fold = kfac.ema_factors
+    kfac.ema_factors = lambda state, sums, rows, scale: fold(
+        state, sums, rows / P18_WORLD, scale / P18_WORLD)
+    return kfac_state
+
+
+def fp32_inverses(kfac, kfac_state):
+    kfac.inv_dtype = torch.float32
+    return kfac.init()
+
+
+def update_rel(got: dict, want: dict) -> float:
+    """Relative L2 distance of two updates over every parameter."""
+    diff = math.sqrt(sum(float((got[n] - want[n]).square().sum())
+                         for n in want))
+    return diff / math.sqrt(sum(float(want[n].square().sum())
+                                for n in want))
+
+
+def drive_model_parallel(kernels: dict, root: str, card: str) -> dict:
+    """Phase 18: the port's model-parallel pretraining, one torchrun launch
+    of P18_WORLD ranks sharing the card over gloo (NCCL refuses two ranks
+    on one device), at BERT-large width cut to P17_LAYERS layers.
+
+    18a: ``--mesh pipe=2,model=2``, P18A_STEPS steps at dropout 0: the
+    first loss within P17_LOSS_RTOL of one process's step on the same 16
+    rows; a sharded save (a shard file a rank, the JAX slice records:
+    ``layers`` on pipe, the rule-table axes on model) resumed by the
+    runner at world size 1 here: its state digest equal to the ranks'
+    whole state's. 18b: ``--mesh pipe=2,seq=2`` at S=512 (the runner
+    switches to the ring), one step at dropout 0 (the same loss bar) and
+    one at 0.1 (finite); then one ring layer on every rank against the
+    plain dense attention with the ring's masks (:func:`ring_layer_check`).
+    18c: ``--mesh dp=4 --kfac`` (fused capture, factors and inverses every
+    step), P18C_STEPS steps: the K-FAC state digests equal on all ranks,
+    the first update (the preconditioned gradients) within
+    P18_KFAC_UPDATE_RTOL of one process's, and one process's update with
+    the planted fault beyond it. Exact launch counts of #1-#3 per rank:
+    18a each rank's 3 layers (H/2 heads each), 18c all 6, 18b none (ring
+    layers launch no flash kernel)."""
+    t_phase = time.perf_counter()
+    out = os.path.join(root, "model_parallel")
+    os.makedirs(out)
+    config0 = cut_config(out, num_hidden_layers=P17_LAYERS,
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    cut = os.path.join(out, "dropout")
+    os.makedirs(cut)
+    config = cut_config(cut, num_hidden_layers=P17_LAYERS)
+    ranks, run_s, _ = torchrun("18", P18_WORLD, {
+        "out": out, "config0": config0, "config": config})
+    a = [r["18a"] for r in ranks]
+    per_stage = P17_LAYERS // 2
+    for rank, res in enumerate(a):
+        check_launches_per_rank(f"18a rank {rank}", res["launches"],
+                                res["routes"], per_stage, TRAIN_ACCUM,
+                                P18A_STEPS)
+    # gloo where the ranks share a card (NCCL refuses two ranks on one
+    # device), nccl with a card a rank.
+    backend = ("nccl" if torch.cuda.device_count() >= P18_WORLD else "gloo")
+    if a[0]["mesh"] != "dp=1,pipe=2,model=2" or a[0]["backend"] != backend:
+        raise AssertionError(f"18a mesh {a[0]['mesh']} {a[0]['backend']}, "
+                             f"expected {backend}")
+    if len({r["digest"] for r in a}) != 1 or len(
+            {tuple(r["losses"]) for r in a}) != 1:
+        raise AssertionError("18a: the ranks disagree on the state or the "
+                             f"losses: {[r['losses'] for r in a]}")
+    for label in ("18b_dropout0", "18b_dropout"):
+        for rank, r in enumerate(ranks):
+            res = r[label]
+            check_launches_per_rank(f"{label} rank {rank}", res["launches"],
+                                    res["routes"], 0, TRAIN_ACCUM, 1)
+            if res["attention_backend"] != "ring" or not all(
+                    np.isfinite(res["losses"])):
+                raise AssertionError(f"{label} rank {rank}: backend "
+                                     f"{res['attention_backend']}, losses "
+                                     f"{res['losses']}")
+    ring_layer = [r["18b_dropout0"]["ring_layer"] for r in ranks]
+    for rank, by_rate in enumerate(ring_layer):
+        for rate, worst in by_rate.items():
+            kept = 1.0 - float(rate)
+            if max(worst[k] for k in ("out", "dq", "dk", "dv")) > 1.0 or abs(
+                    worst["kept"] - kept) > P18B_KEEP_ATOL:
+                raise AssertionError(f"18b ring layer rank {rank} at "
+                                     f"dropout {rate}: {worst}")
+    c = [r["18c"] for r in ranks]
+    for rank, res in enumerate(c):
+        check_launches_per_rank(f"18c rank {rank}", res["launches"],
+                                res["routes"], P17_LAYERS, 1, P18C_STEPS)
+    if len({r["kfac_digest"] for r in c}) != 1:
+        raise AssertionError(f"18c: K-FAC state digests differ: "
+                             f"{[r['kfac_digest'][:12] for r in c]}")
+    # One process on the same 16 rows (18a/18b's first batch).
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             np.load(os.path.join(out, "batch18.npz")).items()}
+    single, model = single_process_step(os.path.join(out, "single"),
+                                        config0, batch)
+    del model
+    torch.cuda.empty_cache()
+    rel = {label: abs(loss / single - 1.0) for label, loss in (
+        ("18a", a[0]["losses"][0]),
+        ("18b", ranks[0]["18b_dropout0"]["losses"][0]))}
+    if max(rel.values()) > P17_LOSS_RTOL:
+        raise AssertionError(f"first losses against one process {single}: "
+                             f"{rel} beyond {P17_LOSS_RTOL}")
+    # 18a's sharded save at world size 1.
+    resumed = runner(os.path.join(out, "ckpt_pp_tp"), PHASE2, [
+        "--local_batch_size", str(TRAIN_LOCAL_BATCH), "--global_batch_size",
+        str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM), "--attention_backend", "flash",
+        "--previous_phase_end_step", "0"], config0)
+    resumed_digest = whole_state_digest(resumed["model"],
+                                        resumed["optimizer"])
+    if resumed["global_step"] != P18A_STEPS or resumed_digest != a[0][
+            "digest"]:
+        raise AssertionError(f"18a resume at world 1: step "
+                             f"{resumed['global_step']}, digest "
+                             f"{resumed_digest[:12]} vs {a[0]['digest'][:12]}")
+    resume_s = resumed["resume_s"]
+    del resumed
+    torch.cuda.empty_cache()
+    # 18c's first update against one process's K-FAC step.
+    parts = [np.load(os.path.join(out, f"batch18c.r{r}.npz"))
+             for r in range(P18_WORLD)]
+    batch_c = {k: torch.from_numpy(np.concatenate(
+        [p[k] for p in parts], axis=1)).cuda() for k in parts[0]}
+    singles = {}
+    for label, tweak in (("plain", None), ("fault", unreplicated_factors),
+                         ("fp32_inverses", fp32_inverses)):
+        _, model = single_process_step(
+            os.path.join(out, f"single_kfac_{label}"), config0, batch_c, [
+                "--local_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+                "--kfac", "--kfac_factor_interval", "1",
+                "--kfac_inv_interval", "1"], tweak)
+        singles[label] = {n: p.grad.detach().float().cpu()
+                          for n, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+    want = singles["plain"]
+    kfac_rel = update_rel(torch.load(os.path.join(out, "update18c.pt")),
+                          want)
+    fault_rel = update_rel(singles["fault"], want)
+    inv32_rel = update_rel(singles["fp32_inverses"], want)
+    if not kfac_rel <= P18_KFAC_UPDATE_RTOL < fault_rel:
+        raise AssertionError(f"18c first update {kfac_rel:.3e} off one "
+                             f"process's, the planted fault {fault_rel:.3e} "
+                             f"(bar {P18_KFAC_UPDATE_RTOL} between them)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[mp] 18a pipe=2,model=2 ({P18_WORLD} ranks, gloo, transport "
+        f"{a[0]['transport']}), {P17_LAYERS} layers, {P18A_STEPS} steps: "
+        f"losses {a[0]['losses']}, step s "
+        f"{[round(x, 3) for x in a[0]['step_s']]}, first loss against one "
+        f"process {a[0]['losses'][0]} / {single} (rel {rel['18a']:.3e}); "
+        f"sharded save {a[0]['sharded_save_s']:.2f} s, resumed at world 1 "
+        f"in {resume_s:.2f} s with the same state digest; launches a rank "
+        f"{a[0]['launches']}; peak {a[0]['peak_bytes']} bytes (rank 0)")
+    b0, b1 = ranks[0]["18b_dropout0"], ranks[0]["18b_dropout"]
+    log(f"[mp] 18b pipe=2,seq=2, S={TRAIN_SEQ}, ring: losses dropout 0 "
+        f"{b0['losses']} (rel {rel['18b']:.3e}), 0.1 {b1['losses']}; step s "
+        f"{b0['step_s'][0]:.3f}, {b1['step_s'][0]:.3f}; launches "
+        f"{b0['launches']}; peak {b0['peak_bytes']} bytes; one ring layer "
+        f"against plain, worst share of the bar by rank {ring_layer}")
+    log(f"[mp] 18c dp=4 --kfac: losses {c[0]['losses']}, step s "
+        f"{[round(x, 3) for x in c[0]['step_s']]}, K-FAC digests equal on "
+        f"{P18_WORLD} ranks, first update against one process rel "
+        f"{kfac_rel:.3e} (bar {P18_KFAC_UPDATE_RTOL}; the planted fault "
+        f"{fault_rel:.3e}, fp32 inverses {inv32_rel:.3e}); launches a rank "
+        f"{c[0]['launches']}; peak {c[0]['peak_bytes']} bytes; torchrun "
+        f"{run_s:.1f} s, phase 18 {phase_s:.1f} s on {card}")
+    shutil.rmtree(out)
+    return {"18a": a[0], "18b": {"dropout0": b0, "dropout": b1},
+            "18c": c[0], "single_loss": single, "first_loss_rel": rel,
+            "kfac_update_rel": kfac_rel, "kfac_fault_rel": fault_rel,
+            "kfac_fp32_inverses_rel": inv32_rel, "ring_layer": ring_layer,
+            "resume_s": resume_s,
+            "torchrun_s": run_s, "seconds": phase_s,
+            "launches": {"pp_tp": a[0]["launches"],
+                         "pp_sp": {n: b0["launches"][n]
+                                   + b1["launches"][n]
+                                   for n in b0["launches"]},
+                         "kfac_dp4": c[0]["launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--only", "18"]:
+        return only_model_parallel()
     from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.ops.kernels.attention import (
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -5777,6 +6288,8 @@ def main() -> int:
         roberta = drive_roberta(kernels, tmp, card)
         torch.cuda.empty_cache()
         mesh = drive_mesh(kernels, tmp, card, trained["losses"])
+        torch.cuda.empty_cache()
+        model_parallel = drive_model_parallel(kernels, tmp, card)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -5822,17 +6335,42 @@ def main() -> int:
             entry[f"launches_mesh_{key}"] = (
                 0 if entry["name"].endswith("_fp16")
                 else counts.get(entry["name"], 0))
+        # Phase 18: rank 0's counts (bf16 #1-#3; 0 under the ring).
+        for key, counts in model_parallel["launches"].items():
+            entry[f"launches_mp_{key}"] = (
+                0 if entry["name"].endswith("_fp16")
+                else counts.get(entry["name"], 0))
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device,
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_model_parallel() -> int:
+    """Phase 18 alone: the kernels built, then :func:`drive_model_parallel`
+    and its result line."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    card = card_line()
+    t0 = time.perf_counter()
+    log(f"[build] {build.build()} in {time.perf_counter() - t0:.2f}s")
+    kernels = child_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = drive_model_parallel(kernels, tmp, card)
+    log(f"[result] {json.dumps({'model_parallel': result})}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "phase18.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"card": card, "model_parallel": result}, f)
+    print(card)
     return 0
 
 

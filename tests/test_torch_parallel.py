@@ -404,10 +404,23 @@ def test_mesh_spec_validate_rejections(text, kwargs, match):
 
 @pytest.mark.parametrize("text", ["dp=2,pipe=2", "dp=2,seq=2", "tp=2",
                                   "dp=2,dcn=2"])
-def test_unported_axes_are_refused_by_name(text):
+def test_model_parallel_axes_resolve_as_jax(text):
+    """The axes beyond dp and fsdp resolve as JAX MeshConfig.resolve does:
+    the same sizes on the product of the spec, the same refusal of a world
+    that is not it (data per dcn granule)."""
     spec = mesh.MeshSpec.parse(text)
-    with pytest.raises(mesh.MeshSpecError, match="Multi-GPU layouts"):
-        mesh.resolved(spec, 8)
+    jax_config = JaxMeshSpec.parse(text).mesh_config()
+    world = max(spec.data, 1) * spec.fsdp * spec.pipe * spec.seq * (
+        spec.model * spec.dcn_data)
+    got = mesh.resolved(spec, world)
+    assert (got.data, got.fsdp, got.pipe, got.seq, got.model) == \
+        jax_config.resolve(world)
+    assert got.canonical() == dataclasses.replace(
+        JaxMeshSpec.parse(text), data=got.data).canonical()
+    with pytest.raises(mesh.MeshSpecError, match="devices"):
+        mesh.resolved(spec, world + 1)
+    with pytest.raises(ValueError, match="devices"):
+        jax_config.resolve(world + 1)
 
 
 def test_resolved_fills_data_from_the_world():

@@ -6,8 +6,16 @@ through a ``file://`` rendezvous in the test's directory.
 * pretraining ``--mesh dp=2``: rank 0 alone prints, writes the JSONL, the
   heartbeat and the gathered checkpoint; a second run resumes it under
   ``--mesh fsdp=2`` (the ranks agree on the step) and writes a sharded
-  checkpoint, one shard per rank; ``--kfac`` at world size 2 is refused
-  by name.
+  checkpoint, one shard per rank; ``--kfac`` at dp=2 sums its factors
+  over the ranks;
+* pretraining ``--mesh pipe=2,model=2`` on 4 ranks and ``--mesh seq=2``:
+  rank 0 alone prints, writes the JSONL and the checkpoint; the mesh line
+  names every axis and each group's transport;
+* a layout refused by name (K-FAC with fsdp) is refused before the
+  rendezvous, so every rank of every run prints the refusal, also with
+  several runs launched at once (a refusal raised after the rendezvous
+  let a rank leave while its peer was still connecting: the peer died of
+  gloo's "connectFullMesh failed" instead).
 * SQuAD ``--mesh_data 2``: one step, equal to the single-process step on
   the same batch (dropout off) within 1e-6 in loss and parameters.
 """
@@ -35,10 +43,9 @@ CONFIG = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
 TOL = 1e-6
 
 
-def _launch(tmp, name, module, argv, world=2):
-    """``world`` ranks of ``python -m module argv`` with torchrun's
-    environment and a file:// rendezvous; (returncodes, stdouts,
-    stderrs)."""
+def _start(tmp, name, module, argv, world=2):
+    """Start ``world`` ranks of ``python -m module argv`` with torchrun's
+    environment and a file:// rendezvous; their processes."""
     rdzv = tmp / f"{name}.rdzv"
     procs = []
     for rank in range(world):
@@ -51,9 +58,21 @@ def _launch(tmp, name, module, argv, world=2):
             [sys.executable, "-m", module, *argv, "--dist_init_method",
              f"file://{rdzv}"], cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _finish(procs):
+    """(returncodes, stdouts, stderrs) of started ranks."""
     outs = [p.communicate(timeout=240) for p in procs]
     return ([p.returncode for p in procs], [o for o, _ in outs],
             [e for _, e in outs])
+
+
+def _launch(tmp, name, module, argv, world=2):
+    """``world`` ranks of ``python -m module argv`` with torchrun's
+    environment and a file:// rendezvous; (returncodes, stdouts,
+    stderrs)."""
+    return _finish(_start(tmp, name, module, argv, world))
 
 
 @pytest.fixture(scope="module")
@@ -131,14 +150,86 @@ def test_fsdp_runner_resumes_the_agreed_step_and_saves_sharded(dp_then_fsdp):
     assert np.isfinite(float(state["model"]["predictions"]["bias"].sum()))
 
 
-def test_kfac_across_ranks_is_refused_by_name(pretrain_data, tmp_path):
+def test_kfac_dp2_runner_sums_factors_over_the_ranks(pretrain_data,
+                                                    tmp_path):
     rcs, stdouts, stderrs = _launch(
         tmp_path, "kfac", "bert_pytorch_tpu_torch.run_pretraining",
         _pretrain_args(pretrain_data, tmp_path / "out", "--mesh", "dp=2",
-                       "--kfac", "--steps", "1"))
-    assert rcs[0] != 0 and rcs[1] != 0
-    for err in stderrs:
-        assert "Multi-GPU layouts" in err and "--kfac" in err
+                       "--kfac", "--steps", "2", "--kfac_factor_interval",
+                       "1", "--kfac_inv_interval", "1"))
+    assert rcs == [0, 0], stderrs[0][-3000:] + stderrs[1][-3000:]
+    lines = stdouts[0].splitlines()
+    kfac = next(line for line in lines if line.startswith("event kfac"))
+    assert "capture train (fused)" in kfac
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["1", "2"]
+    assert all(" finite 1 " in s for s in steps)
+    assert stdouts[1] == ""
+
+
+def test_pp_tp_runner_on_four_ranks(pretrain_data, tmp_path):
+    out = tmp_path / "out"
+    rcs, stdouts, stderrs = _launch(
+        tmp_path, "pp_tp", "bert_pytorch_tpu_torch.run_pretraining",
+        _pretrain_args(pretrain_data, out, "--mesh", "pipe=2,model=2",
+                       "--steps", "2", "--num_steps_per_checkpoint", "2",
+                       "--val_input_dir", str(pretrain_data[0]),
+                       "--num_steps_per_eval", "2", "--eval_batches", "1"),
+        world=4)
+    assert rcs == [0] * 4, "".join(e[-2000:] for e in stderrs)
+    lines = stdouts[0].splitlines()
+    mesh_line = next(line for line in lines if line.startswith("event mesh"))
+    assert ("dcn 1 data 1 fsdp 1 world_size 4 backend gloo pipe 2 seq 1 "
+            "model 2 transport pipe=gloo+host,model=gloo") in mesh_line
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["1", "2"]
+    assert all(" finite 1 " in s for s in steps)
+    # The held-out forward runs through the stages too.
+    assert any(line.startswith("event val step 2 ") for line in lines)
+    assert stdouts[1] == stdouts[2] == stdouts[3] == ""
+    records = [json.loads(line) for line in
+               (out / "pretraining_telemetry.jsonl").read_text().splitlines()]
+    train = [r for r in records if r.get("tag") == "train"]
+    assert [r["step"] for r in train[:2]] == [1, 2]
+    state = ckpt.load_checkpoint(str(out / "pretrain_ckpts" /
+                                     "ckpt_2.msgpack"))
+    layers = state["model"]["bert"]["encoder"]["layers"]
+    assert np.asarray(layers["attention"]["query"]["kernel"]).shape == (
+        2, 64, 4, 16)  # every layer, every head: gathered whole
+    assert int(np.asarray(state["optimizer"]["count"])) == 2
+
+
+def test_seq2_runner_switches_to_the_ring(pretrain_data, tmp_path):
+    rcs, stdouts, stderrs = _launch(
+        tmp_path, "sp", "bert_pytorch_tpu_torch.run_pretraining",
+        _pretrain_args(pretrain_data, tmp_path / "out", "--mesh", "seq=2",
+                       "--steps", "1"))
+    assert rcs == [0, 0], stderrs[0][-3000:] + stderrs[1][-3000:]
+    lines = stdouts[0].splitlines()
+    assert any(line.startswith("event attention_backend was auto now ring")
+               for line in lines)
+    start = next(line for line in lines if line.startswith("event start"))
+    assert "attention_backend ring" in start
+    steps = [line for line in lines if line.startswith("step ")]
+    assert len(steps) == 1 and " finite 1 " in steps[0]
+    assert stdouts[1] == ""
+
+
+def test_refusals_reach_every_rank_under_load(pretrain_data, tmp_path):
+    """Three refused runs of two ranks each, started at once: every rank
+    of every run prints the refusal (it is raised before the rendezvous,
+    so no rank waits on a peer that has left)."""
+    runs = [_start(tmp_path, f"refused{i}",
+                   "bert_pytorch_tpu_torch.run_pretraining",
+                   _pretrain_args(pretrain_data, tmp_path / f"out{i}",
+                                  "--mesh", "fsdp=2", "--kfac", "--steps",
+                                  "1"))
+            for i in range(3)]
+    for procs in runs:
+        rcs, _, stderrs = _finish(procs)
+        assert rcs[0] != 0 and rcs[1] != 0
+        for err in stderrs:
+            assert "Multi-GPU layouts" in err and "fsdp" in err, err[-2000:]
 
 
 @pytest.fixture(scope="module")
