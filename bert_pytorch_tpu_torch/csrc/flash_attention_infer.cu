@@ -36,7 +36,11 @@
 //   score element, so the stream keeps it lean: e^x by one `ex2.approx`,
 //   index masks only on the ragged last tile, the bias read while the
 //   score wgmma runs. At S=512 it reads 3.8x its byte bound, level with
-//   SDPA (PERF.md).
+//   SDPA (PERF.md). The route is a template on its tile geometry
+//   (block_q, block_k) with a runtime bh_block (flash_infer_wgmma.cuh):
+//   (64, 64) at every head dim, the four tiles of 64 and 128 at head dim
+//   64 (`dispatch_geometry`), chosen per call by the wrapper from a
+//   measured winner (ops/kernels/autotune.py) or the default (64, 64, 1).
 // * CUDA cores (`flash_infer_kernel`, fp32 inputs and any other head_dim,
 //   a multiple of 8 up to 128): one thread block per (batch*head, 64-row
 //   q tile); q and each 64-key K tile staged in shared memory as fp32
@@ -162,26 +166,28 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                       head_dim, scale, stream);
 }
 
-template <int D>
-__global__ void __launch_bounds__(flash::wg::kThreads)
+template <int D, int kBlockQ, int kBlockK>
+__global__ void __launch_bounds__(kBlockQ / flash::wg::kRows *
+                                  flash::wg::kThreads)
 flash_infer_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          __nv_bfloat16* __restrict__ out,
                          const float* __restrict__ key_bias,
                          const int* __restrict__ seg, int seq, int heads,
-                         float scale) {
+                         float scale, int bh_block) {
   extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
-  flash::wg::Bf16Scores<D> scores{&qmap, &kmap};
-  flash::wg::forward_stream<D>(scores, scale, &vmap, out, key_bias, seg,
-                               seq, heads, reinterpret_cast<uint8_t*>(smem));
+  flash::wg::Bf16Scores<D, kBlockK> scores{&qmap, &kmap};
+  flash::wg::forward_stream<D, false, kBlockQ>(
+      scores, scale, &vmap, out, key_bias, seg, seq, heads,
+      reinterpret_cast<uint8_t*>(smem), flash::wg::Serve{}, bh_block);
 }
 
-template <int D>
+template <int D, int kBlockQ, int kBlockK>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, const float* key_bias, const int* seg,
                          int batch, int seq, int heads, float scale,
-                         cudaStream_t stream) {
+                         int bh_block, cudaStream_t stream) {
   constexpr int kChunk = flash::wg::Tile<2 * D>::kChunk;
   CUtensorMap maps[3];
   const void* srcs[3] = {q, k, v};
@@ -191,18 +197,45 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
         seq, heads, D);
     if (err != cudaSuccess) return err;
   }
-  constexpr size_t smem =
-      flash::wg::smem_bytes<flash::wg::Bf16Scores<D>, D>();
+  using Scores = flash::wg::Bf16Scores<D, kBlockK>;
+  constexpr size_t smem = flash::wg::smem_bytes<Scores, D, kBlockQ>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_infer_wgmma_kernel<D>,
+      flash_infer_wgmma_kernel<D, kBlockQ, kBlockK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (seq + flash::wg::kRows - 1) /
-                                     flash::wg::kRows);
-  flash_infer_wgmma_kernel<D><<<grid, flash::wg::kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), key_bias,
-      seg, seq, heads, scale);
+  const dim3 grid(batch * heads / bh_block, (seq + kBlockQ - 1) / kBlockQ);
+  flash_infer_wgmma_kernel<D, kBlockQ, kBlockK>
+      <<<grid, kBlockQ / flash::wg::kRows * flash::wg::kThreads, smem,
+         stream>>>(maps[0], maps[1], maps[2],
+                   static_cast<__nv_bfloat16*>(out), key_bias, seg, seq,
+                   heads, scale, bh_block);
   return cudaGetLastError();
+}
+
+// The tile (block_q, block_k) this head dim instantiates, or
+// cudaErrorInvalidValue: every head dim takes (64, 64); head dim 64 also
+// (64, 128), (128, 64) and (128, 128) (ops/kernels/autotune.py TILES).
+template <int D>
+cudaError_t dispatch_geometry(const void* q, const void* k, const void* v,
+                              void* out, const float* key_bias,
+                              const int* seg, int batch, int seq, int heads,
+                              float scale, int block_q, int block_k,
+                              int bh_block, cudaStream_t stream) {
+  if (block_q == 64 && block_k == 64)
+    return launch_wgmma<D, 64, 64>(q, k, v, out, key_bias, seg, batch, seq,
+                                   heads, scale, bh_block, stream);
+  if constexpr (D == 64) {
+    if (block_q == 64 && block_k == 128)
+      return launch_wgmma<D, 64, 128>(q, k, v, out, key_bias, seg, batch,
+                                      seq, heads, scale, bh_block, stream);
+    if (block_q == 128 && block_k == 64)
+      return launch_wgmma<D, 128, 64>(q, k, v, out, key_bias, seg, batch,
+                                      seq, heads, scale, bh_block, stream);
+    if (block_q == 128 && block_k == 128)
+      return launch_wgmma<D, 128, 128>(q, k, v, out, key_bias, seg, batch,
+                                       seq, heads, scale, bh_block, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -230,34 +263,42 @@ int flash_attention_infer(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core route: q, k, v, out [B, S, H, D] bfloat16, 16-byte
-// aligned, head_dim 32, 64 or 128; key_bias and seg as above. Returns the
-// launch's cudaError_t (cudaErrorSymbolNotFound if the driver has no
-// cuTensorMapEncodeTiled).
+// aligned, head_dim 32, 64 or 128; key_bias and seg as above; the tile
+// geometry (block_q, block_k, bh_block): a tile dispatch_geometry
+// instantiates for head_dim and a bh_block >= 1 dividing batch * heads
+// (the default (64, 64, 1) takes any shape). Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for a geometry it does not take,
+// cudaErrorSymbolNotFound if the driver has no cuTensorMapEncodeTiled).
 int flash_attention_infer_wgmma(const void* q, const void* k, const void* v,
                                 void* out, const float* key_bias,
                                 const int* seg, int batch, int seq,
                                 int heads, int head_dim, float scale,
+                                int block_q, int block_k, int bh_block,
                                 void* stream) {
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || seq <= 0 || heads <= 0)
+  if (batch <= 0 || seq <= 0 || heads <= 0 || bh_block <= 0 ||
+      (batch * heads) % bh_block != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (head_dim) {
     case 32:
-      err = launch_wgmma<32>(q, k, v, out, key_bias, seg, batch, seq, heads,
-                             scale, s);
+      err = dispatch_geometry<32>(q, k, v, out, key_bias, seg, batch, seq,
+                                  heads, scale, block_q, block_k, bh_block,
+                                  s);
       break;
     case 64:
-      err = launch_wgmma<64>(q, k, v, out, key_bias, seg, batch, seq, heads,
-                             scale, s);
+      err = dispatch_geometry<64>(q, k, v, out, key_bias, seg, batch, seq,
+                                  heads, scale, block_q, block_k, bh_block,
+                                  s);
       break;
     case 128:
-      err = launch_wgmma<128>(q, k, v, out, key_bias, seg, batch, seq, heads,
-                              scale, s);
+      err = dispatch_geometry<128>(q, k, v, out, key_bias, seg, batch, seq,
+                                   heads, scale, block_q, block_k, bh_block,
+                                   s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -15,7 +15,8 @@
 //                                                  q's id is 0)
 //   out = softmax(s) v                             (in v's dtype)
 //
-// The rescale is formed in that order once per block, and everything after
+// The rescale is formed in that order once per (batch, head) slice a block
+// takes, and everything after
 // the raw product is the stream shared with the fp kernel #4: the same
 // online softmax, P rounded to v's dtype before PV with fp32 accumulation,
 // the same masking and edges.
@@ -27,7 +28,8 @@
 //   32, 64 or 128: every int8 serving forward of the repo's configs). The
 //   q8 and each K8 tile come by TMA (rows of head_dim bytes, swizzled by
 //   that width: 64 bytes at D=64), both K-major, as 8-bit wgmma requires;
-//   S is `wgmma.mma_async` m64n64k32 s8 x s8 -> s32, exact, converted to
+//   S is `wgmma.mma_async` m64nNk32 s8 x s8 -> s32 (N the key tile, 64 or
+//   128; the tile geometry is the fp kernel's), exact, converted to
 //   fp32 and multiplied by the rescale; the softmax, P V (bf16 P from
 //   registers, V by TMA) and the output are #4's tensor-core stream
 //   (flash_infer_wgmma.cuh). It replaces `__dp4a` products and fp32-FMA
@@ -186,15 +188,19 @@ cudaError_t dispatch(const void* q8, const void* k8, const void* v,
                       batch, seq, heads, head_dim, scale, stream);
 }
 
-// The tensor-core score tile: int8 q8 and K8 tiles by TMA, exact int32 S
-// by wgmma, handed on as fp32.
-template <int D>
+// The tensor-core score tile: an int8 q8 tile and kN-key K8 tiles by TMA,
+// exact int32 S by wgmma, handed on as fp32; the score scale of slice bh is
+// (q_scale[bh] * k_scale[bh]) * scale.
+template <int D, int kKeys>
 struct WgmmaInt8Scores {
+  static constexpr int kN = kKeys;
   static constexpr int kQBytes = flash::wg::Tile<D>::kBytes;
-  static constexpr int kKBytes = kQBytes;
+  static constexpr int kKBytes = flash::wg::Tile<D, kN>::kBytes;
   const CUtensorMap* qmap;
   const CUtensorMap* kmap;
-  int acc[32];
+  const float* q_scale;
+  const float* k_scale;
+  int acc[kN / 2];
 
   __device__ __forceinline__ void load_q(uint32_t dst, uint32_t bar, int h,
                                          int s, int b) const {
@@ -202,28 +208,33 @@ struct WgmmaInt8Scores {
   }
   __device__ __forceinline__ void load_k(uint32_t dst, uint32_t bar, int h,
                                          int s, int b) const {
-    flash::wg::load_tile<D, 1>(dst, kmap, bar, h, s, b);
+    flash::wg::load_tile<D, 1, kN>(dst, kmap, bar, h, s, b);
+  }
+  __device__ __forceinline__ float head_scale(int bh, float scale) const {
+    return (q_scale[bh] * k_scale[bh]) * scale;
   }
   __device__ __forceinline__ void issue(uint32_t qs, uint32_t ks,
-                                        float (&)[32]) {
+                                        float (&)[kN / 2]) {
     flash::wg::pin(acc);
     flash::wg::wgmma_fence();
 #pragma unroll
     for (int step = 0; step < D / 32; ++step)
-      flash::wg::mma_s8_ss(acc, flash::wg::k_major<D>(qs, step),
-                           flash::wg::k_major<D>(ks, step), step > 0);
+      flash::wg::mma_s8_ss<kN>(acc, flash::wg::k_major<D>(qs, step),
+                               flash::wg::k_major<D, kN>(ks, step),
+                               step > 0);
     flash::wg::wgmma_commit();
   }
-  __device__ __forceinline__ void finish(float (&s)[32]) {
+  __device__ __forceinline__ void finish(float (&s)[kN / 2]) {
     flash::wg::wgmma_wait();
     flash::wg::pin(acc);
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = static_cast<float>(acc[e]);
+    for (int e = 0; e < kN / 2; ++e) s[e] = static_cast<float>(acc[e]);
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(flash::wg::kThreads)
+template <int D, int kBlockQ, int kBlockK>
+__global__ void __launch_bounds__(kBlockQ / flash::wg::kRows *
+                                  flash::wg::kThreads)
 flash_infer_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap kmap,
                               const __grid_constant__ CUtensorMap vmap,
@@ -232,21 +243,20 @@ flash_infer_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const float* __restrict__ k_scale,
                               const float* __restrict__ key_bias,
                               const int* __restrict__ seg, int seq,
-                              int heads, float scale) {
+                              int heads, float scale, int bh_block) {
   extern __shared__ float smem[];  // the same symbol as the CUDA-core kernel's
-  WgmmaInt8Scores<D> scores{&qmap, &kmap};
-  const int bh = blockIdx.x;
-  const float rescale = (q_scale[bh] * k_scale[bh]) * scale;
-  flash::wg::forward_stream<D>(scores, rescale, &vmap, out, key_bias, seg,
-                               seq, heads, reinterpret_cast<uint8_t*>(smem));
+  WgmmaInt8Scores<D, kBlockK> scores{&qmap, &kmap, q_scale, k_scale};
+  flash::wg::forward_stream<D, false, kBlockQ>(
+      scores, scale, &vmap, out, key_bias, seg, seq, heads,
+      reinterpret_cast<uint8_t*>(smem), flash::wg::Serve{}, bh_block);
 }
 
-template <int D>
+template <int D, int kBlockQ, int kBlockK>
 cudaError_t launch_wgmma(const void* q8, const void* k8, const void* v,
                          void* out, const float* q_scale,
                          const float* k_scale, const float* key_bias,
                          const int* seg, int batch, int seq, int heads,
-                         float scale, cudaStream_t stream) {
+                         float scale, int bh_block, cudaStream_t stream) {
   CUtensorMap maps[3];
   cudaError_t err = flash::wg::bshd_map(
       &maps[0], q8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
@@ -260,18 +270,49 @@ cudaError_t launch_wgmma(const void* q8, const void* k8, const void* v,
                               2, flash::wg::Tile<2 * D>::kChunk, batch, seq,
                               heads, D);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = flash::wg::smem_bytes<WgmmaInt8Scores<D>, D>();
-  err = cudaFuncSetAttribute(flash_infer_int8_wgmma_kernel<D>,
+  using Scores = WgmmaInt8Scores<D, kBlockK>;
+  constexpr size_t smem = flash::wg::smem_bytes<Scores, D, kBlockQ>();
+  err = cudaFuncSetAttribute(flash_infer_int8_wgmma_kernel<D, kBlockQ, kBlockK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (seq + flash::wg::kRows - 1) /
-                                     flash::wg::kRows);
-  flash_infer_int8_wgmma_kernel<D>
-      <<<grid, flash::wg::kThreads, smem, stream>>>(
-          maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out),
-          q_scale, k_scale, key_bias, seg, seq, heads, scale);
+  const dim3 grid(batch * heads / bh_block, (seq + kBlockQ - 1) / kBlockQ);
+  flash_infer_int8_wgmma_kernel<D, kBlockQ, kBlockK>
+      <<<grid, kBlockQ / flash::wg::kRows * flash::wg::kThreads, smem,
+         stream>>>(maps[0], maps[1], maps[2],
+                   static_cast<__nv_bfloat16*>(out), q_scale, k_scale,
+                   key_bias, seg, seq, heads, scale, bh_block);
   return cudaGetLastError();
+}
+
+// The tile (block_q, block_k) this head dim instantiates, or
+// cudaErrorInvalidValue: the fp kernel's (flash_attention_infer.cu).
+template <int D>
+cudaError_t dispatch_geometry(const void* q8, const void* k8, const void* v,
+                              void* out, const float* q_scale,
+                              const float* k_scale, const float* key_bias,
+                              const int* seg, int batch, int seq, int heads,
+                              float scale, int block_q, int block_k,
+                              int bh_block, cudaStream_t stream) {
+  if (block_q == 64 && block_k == 64)
+    return launch_wgmma<D, 64, 64>(q8, k8, v, out, q_scale, k_scale,
+                                   key_bias, seg, batch, seq, heads, scale,
+                                   bh_block, stream);
+  if constexpr (D == 64) {
+    if (block_q == 64 && block_k == 128)
+      return launch_wgmma<D, 64, 128>(q8, k8, v, out, q_scale, k_scale,
+                                      key_bias, seg, batch, seq, heads,
+                                      scale, bh_block, stream);
+    if (block_q == 128 && block_k == 64)
+      return launch_wgmma<D, 128, 64>(q8, k8, v, out, q_scale, k_scale,
+                                      key_bias, seg, batch, seq, heads,
+                                      scale, bh_block, stream);
+    if (block_q == 128 && block_k == 128)
+      return launch_wgmma<D, 128, 128>(q8, k8, v, out, q_scale, k_scale,
+                                       key_bias, seg, batch, seq, heads,
+                                       scale, bh_block, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -306,36 +347,43 @@ int flash_attention_infer_int8(const void* q8, const void* k8, const void* v,
 
 // The tensor-core route: q8, k8 [B, S, H, D] int8 and v, out bfloat16,
 // each 16-byte aligned, head_dim 32, 64 or 128; the scales, key_bias and
-// seg as above. Returns the launch's cudaError_t (cudaErrorSymbolNotFound
-// if the driver has no cuTensorMapEncodeTiled).
+// seg as above; the tile geometry (block_q, block_k, bh_block) as for the
+// fp kernel. Returns the launch's cudaError_t (cudaErrorInvalidValue for a
+// geometry it does not take, cudaErrorSymbolNotFound if the driver has no
+// cuTensorMapEncodeTiled).
 int flash_attention_infer_int8_wgmma(const void* q8, const void* k8,
                                      const void* v, void* out,
                                      const float* q_scale,
                                      const float* k_scale,
                                      const float* key_bias, const int* seg,
                                      int batch, int seq, int heads,
-                                     int head_dim, float scale,
+                                     int head_dim, float scale, int block_q,
+                                     int block_k, int bh_block,
                                      void* stream) {
   const void* ptrs[4] = {q8, k8, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || seq <= 0 || heads <= 0)
+  if (batch <= 0 || seq <= 0 || heads <= 0 || bh_block <= 0 ||
+      (batch * heads) % bh_block != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (head_dim) {
     case 32:
-      err = launch_wgmma<32>(q8, k8, v, out, q_scale, k_scale, key_bias, seg,
-                             batch, seq, heads, scale, s);
+      err = dispatch_geometry<32>(q8, k8, v, out, q_scale, k_scale, key_bias,
+                                  seg, batch, seq, heads, scale, block_q,
+                                  block_k, bh_block, s);
       break;
     case 64:
-      err = launch_wgmma<64>(q8, k8, v, out, q_scale, k_scale, key_bias, seg,
-                             batch, seq, heads, scale, s);
+      err = dispatch_geometry<64>(q8, k8, v, out, q_scale, k_scale, key_bias,
+                                  seg, batch, seq, heads, scale, block_q,
+                                  block_k, bh_block, s);
       break;
     case 128:
-      err = launch_wgmma<128>(q8, k8, v, out, q_scale, k_scale, key_bias,
-                              seg, batch, seq, heads, scale, s);
+      err = dispatch_geometry<128>(q8, k8, v, out, q_scale, k_scale,
+                                   key_bias, seg, batch, seq, heads, scale,
+                                   block_q, block_k, bh_block, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -14,7 +14,8 @@
 //   * `wgmma` shared-memory descriptors for K-major operands (rows of K
 //     contiguous) and MN-major B operands (read with the transpose bit),
 //     and the products the kernels use: d (+)= A B^T from shared memory
-//     (bf16 or fp16 m64n64k16, int8 m64n64k32) and d += A B with A (64 x
+//     (bf16 or fp16 m64nNk16, int8 m64nNk32, N = 64, or 128 for a serving
+//     geometry's 128-key stage) and d += A B with A (64 x
 //     16 bf16 or fp16) from registers, in the S accumulator's fragment
 //     layout. The 16-bit element type E (__nv_bfloat16 or __half) is a
 //     template parameter: the instruction's `.bf16.bf16` or `.f16.f16`,
@@ -54,15 +55,18 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = 64;      // rows of a tile (wgmma M)
 constexpr int kStages = 2;
 
-// A 64-row tile of rows of kRowBytes bytes, as TMA lays it out: chunks of
-// up to 128 bytes per row (the swizzle span), each chunk 64 rows deep.
-template <int kRowBytes>
+// A tile of kTileRows rows (64 unless a serving geometry takes 128 keys a
+// stage) of kRowBytes bytes, as TMA lays it out: chunks of up to 128 bytes
+// per row (the swizzle span), each chunk kTileRows rows deep, filled by one
+// 64-row box per chunk and 64 rows.
+template <int kRowBytes, int kTileRows = kRows>
 struct Tile {
   static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes % 128 == 0,
                 "rows of 32, 64 or a multiple of 128 bytes");
+  static_assert(kTileRows % kRows == 0, "whole 64-row boxes");
   static constexpr int kChunk = kRowBytes < 128 ? kRowBytes : 128;
   static constexpr int kChunks = kRowBytes / kChunk;
-  static constexpr int kBytes = kRows * kRowBytes;  // a multiple of 1024
+  static constexpr int kBytes = kTileRows * kRowBytes;  // a multiple of 1024
 };
 
 // -- host: tensor maps ------------------------------------------------------
@@ -170,15 +174,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// The 64 rows from s of one (b, h) head into a Tile<kRowBytes> at dst.
-template <int kRowBytes, int kElem>
+// The kTileRows rows from s of one (b, h) head into a
+// Tile<kRowBytes, kTileRows> at dst.
+template <int kRowBytes, int kElem, int kTileRows = kRows>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int h, int s, int b) {
-  using T = Tile<kRowBytes>;
+  using T = Tile<kRowBytes, kTileRows>;
 #pragma unroll
   for (int c = 0; c < T::kChunks; ++c)
-    tma_load(dst + c * kRows * T::kChunk, map, bar, c * T::kChunk / kElem, h,
-             s, b);
+#pragma unroll
+    for (int r = 0; r < kTileRows; r += kRows)
+      tma_load(dst + (c * kTileRows + r) * T::kChunk, map, bar,
+               c * T::kChunk / kElem, h, s + r, b);
 }
 
 // -- device: wgmma ------------------------------------------------------------
@@ -197,11 +204,11 @@ __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
 // K-major operand (rows of K contiguous: q, k, v and dO tiles), at the k-step
 // `step` of 32 bytes (k16 bf16 or k32 int8): 8-row groups 8 * chunk bytes
 // apart; the leading offset is unused by swizzled K-major layouts.
-template <int kRowBytes>
+template <int kRowBytes, int kTileRows = kRows>
 __device__ __forceinline__ uint64_t k_major(uint32_t base, int step) {
-  using T = Tile<kRowBytes>;
+  using T = Tile<kRowBytes, kTileRows>;
   const int byte = step * 32;
-  return descriptor(base + (byte / T::kChunk) * kRows * T::kChunk +
+  return descriptor(base + (byte / T::kChunk) * kTileRows * T::kChunk +
                         byte % T::kChunk,
                     16, 8 * T::kChunk, T::kChunk);
 }
@@ -210,10 +217,10 @@ __device__ __forceinline__ uint64_t k_major(uint32_t base, int step) {
 // N: V in the forward, K in dq, dO and q in dkv), at the row step `step` of
 // 16 rows: the leading offset steps to the next chunk of D, the stride
 // offset to the next 8 rows.
-template <int kRowBytes>
+template <int kRowBytes, int kTileRows = kRows>
 __device__ __forceinline__ uint64_t mn_major(uint32_t base, int step) {
-  using T = Tile<kRowBytes>;
-  return descriptor(base + step * 16 * T::kChunk, kRows * T::kChunk,
+  using T = Tile<kRowBytes, kTileRows>;
+  return descriptor(base + step * 16 * T::kChunk, kTileRows * T::kChunk,
                     8 * T::kChunk, T::kChunk);
 }
 
@@ -248,9 +255,23 @@ __device__ __forceinline__ void pin(R (&r)[N]) {
   "%8, %9, %10, %11, %12, %13, %14, %15, "           \
   "%16, %17, %18, %19, %20, %21, %22, %23, "         \
   "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define FLASH_WG_REGS64                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "         \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "         \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "         \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define FLASH_WG64(C, d)                                                    \
+  FLASH_WG8(C, d, 0), FLASH_WG8(C, d, 8), FLASH_WG8(C, d, 16),              \
+      FLASH_WG8(C, d, 24), FLASH_WG8(C, d, 32), FLASH_WG8(C, d, 40),        \
+      FLASH_WG8(C, d, 48), FLASH_WG8(C, d, 56)
 
-// d (+)= A B^T for a 64 x 64 fp32 tile, A and B K-major in shared memory
-// in the 16-bit type E (bf16 or fp16); `accumulate` 0 overwrites d.
+// d (+)= A B^T for a 64 x N fp32 tile (N = 64, or 128 for a serving
+// geometry's 128-key stage), A and B K-major in shared memory in the 16-bit
+// type E (bf16 or fp16); `accumulate` 0 overwrites d.
 #define FLASH_MMA_SS(TY)                                                    \
   asm volatile(                                                             \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
@@ -259,27 +280,49 @@ __device__ __forceinline__ void pin(R (&r)[N]) {
       : FLASH_WG8("+f", d, 0), FLASH_WG8("+f", d, 8), FLASH_WG8("+f", d, 16), \
         FLASH_WG8("+f", d, 24)                                              \
       : "l"(a), "l"(b), "r"(accumulate))
+#define FLASH_MMA_SS128(TY)                                                 \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY              \
+      " " FLASH_WG_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                  \
+      : FLASH_WG64("+f", d)                                                 \
+      : "l"(a), "l"(b), "r"(accumulate))
 
-template <typename E>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                       int accumulate) {
-  if constexpr (std::is_same_v<E, __half>)
-    FLASH_MMA_SS("f16");
-  else
-    FLASH_MMA_SS("bf16");
+template <typename E, int N = 64>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int accumulate) {
+  static_assert(N == 64 || N == 128, "N = 64 or 128");
+  constexpr bool kHalf = std::is_same_v<E, __half>;
+  if constexpr (N == 64) {
+    if constexpr (kHalf) FLASH_MMA_SS("f16"); else FLASH_MMA_SS("bf16");
+  } else {
+    if constexpr (kHalf) FLASH_MMA_SS128("f16"); else FLASH_MMA_SS128("bf16");
+  }
 }
 #undef FLASH_MMA_SS
+#undef FLASH_MMA_SS128
 
 // The same for int8 A and B (k32), int32 d: exact.
-__device__ __forceinline__ void mma_s8_ss(int (&d)[32], uint64_t a, uint64_t b,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FLASH_WG_REGS32
-      ", %32, %33, p;\n}\n"
-      : FLASH_WG8("+r", d, 0), FLASH_WG8("+r", d, 8), FLASH_WG8("+r", d, 16),
-        FLASH_WG8("+r", d, 24)
-      : "l"(a), "l"(b), "r"(accumulate));
+template <int N = 64>
+__device__ __forceinline__ void mma_s8_ss(int (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  static_assert(N == 64 || N == 128, "N = 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FLASH_WG_REGS32
+        ", %32, %33, p;\n}\n"
+        : FLASH_WG8("+r", d, 0), FLASH_WG8("+r", d, 8),
+          FLASH_WG8("+r", d, 16), FLASH_WG8("+r", d, 24)
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " FLASH_WG_REGS64
+        ", %64, %65, p;\n}\n"
+        : FLASH_WG64("+r", d)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
 }
 
 // d += A B for one k16 step: A (64 x 16, in E) from registers in the
@@ -341,7 +384,9 @@ __device__ __forceinline__ void mma_pv(float (&d)[N / 2],
 #undef FLASH_MMA_PV128
 
 #undef FLASH_WG8
+#undef FLASH_WG64
 #undef FLASH_WG_REGS32
+#undef FLASH_WG_REGS64
 
 // Two fp32 values rounded to nearest into one word of E pairs (lo in the
 // low half). Not saturating: an fp16 value past 65504 becomes inf, as the

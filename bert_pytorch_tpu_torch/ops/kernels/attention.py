@@ -18,6 +18,11 @@ Serving (forward only), the port of ``flash_attention_infer``
 * :func:`flash_attention_infer_reference` — the plain PyTorch version of
   the same function: the CPU tests hold it against the JAX kernel, and the
   chip smoke holds the CUDA kernel against it.
+* ``geometry`` — the tensor-core route's tile geometry ``(block_q,
+  block_k, bh_block)`` (csrc/flash_infer_wgmma.cuh), resolved by
+  :func:`infer_geometry` as the JAX ``_infer_geometry`` resolves the
+  Pallas one: a forced geometry, then a winner of the process's autotune
+  registry (ops/kernels/autotune.py), then the default (64, 64, 1).
 
 Serving with int8 scores, the port of ``flash_attention_infer_int8``
 (``_infer_fwd_kernel_int8`` + ``_infer_stream``):
@@ -86,7 +91,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from bert_pytorch_tpu_torch.ops import quant
-from bert_pytorch_tpu_torch.ops.kernels import build
+from bert_pytorch_tpu_torch.ops.kernels import autotune, build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The dtypes each kernel family takes.
@@ -216,12 +221,13 @@ def reset_counts(wrapper) -> None:
 _ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     "flash_attention_infer": {
         "flash_attention_infer": [_PTR] * 6 + [_INT] * 5 + [_F32, _PTR],
-        "flash_attention_infer_wgmma": [_PTR] * 6 + [_INT] * 4 + [_F32, _PTR],
+        "flash_attention_infer_wgmma": ([_PTR] * 6 + [_INT] * 4 + [_F32]
+                                        + [_INT] * 3 + [_PTR]),
     },
     "flash_attention_infer_int8": {
         "flash_attention_infer_int8": [_PTR] * 8 + [_INT] * 5 + [_F32, _PTR],
         "flash_attention_infer_int8_wgmma": ([_PTR] * 8 + [_INT] * 4
-                                             + [_F32, _PTR]),
+                                             + [_F32] + [_INT] * 3 + [_PTR]),
     },
     "flash_attention_fwd": {
         "flash_attention_fwd": ([_PTR] * 7 + [_INT] * 5 + [_F32, _INT]
@@ -321,27 +327,75 @@ def _check_aligned(name: str, tensors: Dict[str, torch.Tensor]) -> None:
                              "the tensor-core route")
 
 
-def flash_attention_infer(q, k, v, bias=None, sequence_ids=None):
+def infer_geometry(kernel: str, seq: int, bh: int, depth: int,
+                   geometry=None) -> Tuple[int, int, int]:
+    """The tile geometry ``(block_q, block_k, bh_block)`` of one serving
+    kernel call (``kernel`` ``"infer"`` or ``"infer_int8"``, as the autotune
+    registry keys it): a forced ``geometry`` (the measurement's hook) wins,
+    then the registry's winner for (kernel, seq, bh), then
+    :data:`autotune.DEFAULT_GEOMETRY`. A forced or loaded geometry must
+    tile the shape, as the JAX ``_infer_geometry`` requires (its message),
+    and be one the tensor-core route instantiates for ``depth``
+    (``autotune.TILES``); the default takes any shape, ragged lengths
+    included. Raises ``ValueError`` otherwise, on any device."""
+    if geometry is None:
+        geometry = autotune.lookup(kernel, seq, bh)
+        if geometry is None:
+            return autotune.DEFAULT_GEOMETRY
+    block_q, block_k, g = (int(x) for x in geometry)
+    if (block_q, block_k, g) == autotune.DEFAULT_GEOMETRY:
+        return autotune.DEFAULT_GEOMETRY
+    if g < 1 or not autotune.tiles((block_q, block_k, g), seq, bh):
+        raise ValueError(
+            f"attention geometry (block_q={block_q}, block_k={block_k}, "
+            f"bh_block={g}) does not tile seq={seq}, bh={bh}")
+    if (block_q, block_k) not in autotune.TILES.get(int(depth), ()):
+        raise ValueError(
+            f"attention geometry (block_q={block_q}, block_k={block_k}) is "
+            f"not instantiated for head_dim {depth} (tiles: "
+            f"{autotune.TILES.get(int(depth), ())})")
+    return block_q, block_k, g
+
+
+def _route_geometry(name: str, route: str, geometry) -> None:
+    """The CUDA-core route runs only the default geometry: raise for any
+    other rather than launch something else than was asked."""
+    if route == "cuda_cores" and tuple(geometry) != autotune.DEFAULT_GEOMETRY:
+        raise ValueError(
+            f"{name}: geometry {tuple(geometry)} needs the tensor-core route "
+            f"(bf16 with head_dim in {TENSOR_CORE_HEAD_DIMS}); the CUDA-core "
+            f"route runs {autotune.DEFAULT_GEOMETRY} only")
+
+
+def flash_attention_infer(q, k, v, bias=None, sequence_ids=None,
+                          geometry=None):
     """Forward-only fused attention over [B, S, H, D] tensors; returns
     [B, S, H, D] in q's dtype. ``bias`` is the [B, 1, 1, S] key bias for
     padded batches; ``sequence_ids`` ([B, S], 0 = pad) marks a packed batch
-    and rebuilds the block-diagonal mask inside the kernel.
+    and rebuilds the block-diagonal mask inside the kernel. ``geometry``
+    forces a tile geometry (:func:`infer_geometry`; None: the autotune
+    winner, else the default).
 
     On a CUDA tensor this launches the CUDA kernel on the route
-    :func:`infer_route` picks, counting the launch in
-    ``flash_attention_infer.launches`` and ``.route_launches[route]``; on
-    a CPU tensor it returns the plain version and counts nothing."""
-    batch, seq = q.shape[0], q.shape[1]
+    :func:`infer_route` picks, at the resolved geometry, counting the
+    launch in ``flash_attention_infer.launches`` and
+    ``.route_launches[route]``, or raises; on a CPU tensor it validates the
+    geometry the same way, returns the plain version and counts nothing."""
+    batch, seq, heads, depth = q.shape
     key_bias, seg = _infer_bias_seg(bias, sequence_ids, batch, seq)
+    geom = infer_geometry("infer", seq, batch * heads, depth, geometry)
     if _device_of(_NAME, q) == "cpu":
         return _forward_math(q, k, v, key_bias, seg, 0, 0.0)[0]
     _check(_NAME, q, {"k": k, "v": v}, key_bias, seg)
     return _launch_infer(q, k, v, key_bias, seg,
-                         infer_route(q.dtype, q.shape[3]))
+                         infer_route(q.dtype, depth), geom)
 
 
-def _launch_infer(q, k, v, key_bias, seg, route: str):
-    """Launch the fp-score kernel on ``route`` (checked CUDA inputs)."""
+def _launch_infer(q, k, v, key_bias, seg, route: str,
+                  geometry=autotune.DEFAULT_GEOMETRY):
+    """Launch the fp-score kernel on ``route`` at ``geometry`` (checked
+    CUDA inputs)."""
+    _route_geometry(_NAME, route, geometry)
     batch, seq, heads, depth = q.shape
     out = torch.empty_like(q)
     scale = 1.0 / float(depth) ** 0.5
@@ -352,7 +406,7 @@ def _launch_infer(q, k, v, key_bias, seg, route: str):
             rc = lib.flash_attention_infer_wgmma(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _ptr(key_bias), _ptr(seg), batch, seq, heads, depth, scale,
-                _stream(q))
+                *geometry, _stream(q))
         else:
             rc = lib.flash_attention_infer(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -426,25 +480,33 @@ def _check_int8(name, q8, k8, q_scale, k_scale, v, key_bias, seg) -> None:
 
 
 def flash_attention_infer_int8_prequantized(q8, k8, q_scale, k_scale, v,
-                                            key_bias=None, seg=None):
+                                            key_bias=None, seg=None,
+                                            geometry=None):
     """The int8-score kernel on pre-quantized inputs (:func:`quantize_qk`):
     q8, k8 [B, S, H, D] int8, q_scale, k_scale [B, H] fp32, v [B, S, H, D],
     the [B, S] fp32 key bias or [B, S] int32 ids (each optional); returns
-    [B, S, H, D] in v's dtype. A CUDA tensor launches
-    csrc/flash_attention_infer_int8.cu on the current stream, on the route
-    :func:`infer_route` picks from v's dtype and head_dim, counting the
-    launch in ``flash_attention_infer_int8.launches`` and
-    ``.route_launches[route]``, or raises; a CPU tensor takes the plain
-    version and counts nothing."""
+    [B, S, H, D] in v's dtype. ``geometry`` as for
+    :func:`flash_attention_infer` (the registry's ``"infer_int8"`` winner
+    when None). A CUDA tensor launches csrc/flash_attention_infer_int8.cu on
+    the current stream, on the route :func:`infer_route` picks from v's
+    dtype and head_dim, at the resolved geometry, counting the launch in
+    ``flash_attention_infer_int8.launches`` and ``.route_launches[route]``,
+    or raises; a CPU tensor validates the geometry the same way, takes the
+    plain version and counts nothing."""
+    batch, seq, heads, depth = v.shape
+    geom = infer_geometry("infer_int8", seq, batch * heads, depth, geometry)
     if _device_of(_INT8, v) == "cpu":
         return _int8_forward_math(q8, k8, q_scale, k_scale, v, key_bias, seg)
     _check_int8(_INT8, q8, k8, q_scale, k_scale, v, key_bias, seg)
     return _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg,
-                        infer_route(v.dtype, v.shape[3]))
+                        infer_route(v.dtype, depth), geom)
 
 
-def _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg, route: str):
-    """Launch the int8-score kernel on ``route`` (checked CUDA inputs)."""
+def _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg, route: str,
+                 geometry=autotune.DEFAULT_GEOMETRY):
+    """Launch the int8-score kernel on ``route`` at ``geometry`` (checked
+    CUDA inputs)."""
+    _route_geometry(_INT8, route, geometry)
     batch, seq, heads, depth = v.shape
     out = torch.empty_like(v)
     scale = 1.0 / float(depth) ** 0.5
@@ -455,7 +517,8 @@ def _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg, route: str):
             rc = lib.flash_attention_infer_int8_wgmma(
                 q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
                 q_scale.data_ptr(), k_scale.data_ptr(), _ptr(key_bias),
-                _ptr(seg), batch, seq, heads, depth, scale, _stream(v))
+                _ptr(seg), batch, seq, heads, depth, scale, *geometry,
+                _stream(v))
         else:
             rc = lib.flash_attention_infer_int8(
                 q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -467,19 +530,20 @@ def _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg, route: str):
     return out
 
 
-def flash_attention_infer_int8(q, k, v, bias=None, sequence_ids=None):
+def flash_attention_infer_int8(q, k, v, bias=None, sequence_ids=None,
+                               geometry=None):
     """Forward-only fused attention with int8 QK^T over [B, S, H, D]
     tensors; returns [B, S, H, D] in v's dtype. The contract of
     :func:`flash_attention_infer` (``bias`` for padded batches,
-    ``sequence_ids`` for packed ones) with q and k quantized per (batch,
-    head) by :func:`quantize_qk` before the kernel. On a CUDA tensor this
-    launches the int8 kernel (counted in ``.launches`` and
+    ``sequence_ids`` for packed ones, ``geometry``) with q and k quantized
+    per (batch, head) by :func:`quantize_qk` before the kernel. On a CUDA
+    tensor this launches the int8 kernel (counted in ``.launches`` and
     ``.route_launches``); on a CPU tensor it returns the plain version."""
     key_bias, seg = _infer_bias_seg(bias, sequence_ids, q.shape[0],
                                     q.shape[1], _INT8)
     q8, q_scale, k8, k_scale = quantize_qk(q, k)
     return flash_attention_infer_int8_prequantized(
-        q8, k8, q_scale, k_scale, v, key_bias, seg)
+        q8, k8, q_scale, k_scale, v, key_bias, seg, geometry)
 
 
 flash_attention_infer_int8.launches = 0

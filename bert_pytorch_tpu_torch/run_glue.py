@@ -33,9 +33,10 @@ pretraining run's ``ckpt_N.msgpack``), torch archives and TF checkpoints
 ``--tokenizer`` (or the model config's ``tokenizer``) is ``wordpiece`` or
 ``bpe``, both on the C++ core. ``--device_prefetch``
 (default 2) stages the training batches on the card ahead of the step
-(data/device_prefetch.py). Not ported, so argparse refuses their flags:
-``--compile_cache_dir`` and
-``--telemetry_cost_analysis``. The
+(data/device_prefetch.py). ``--compile_cache_dir`` names the directory
+the kernel libraries and the tokenizer core are built into
+(ops/kernels/build.py ``set_build_dir``). Not ported, so argparse refuses
+its flag: ``--telemetry_cost_analysis``. The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's. Attention is dense
 (the JAX runner's ``xla``), LayerNorm plain.
@@ -60,6 +61,7 @@ from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data import glue
 from bert_pytorch_tpu_torch.models.bert import BertForSequenceClassification
 from bert_pytorch_tpu_torch.models.losses import _xent_ignore
+from bert_pytorch_tpu_torch.ops.kernels import build
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
 from bert_pytorch_tpu_torch.utils import flops as flops_util
@@ -99,6 +101,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="cuda (default; raises without a card) or cpu")
     dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
+    build.add_cli_args(parser)
     return finetune.read_vocab_args(parser.parse_args(argv))
 
 
@@ -123,6 +126,7 @@ def loss_fn(model, regression: bool):
 def run(args):
     """(results, model, config): the whole run; ``main`` keeps the
     results."""
+    build.set_build_dir(args.compile_cache_dir or None)
     device = finetune.setup_device(args.device)
     torch.manual_seed(args.seed)
     processor = glue.PROCESSORS[args.task]()

@@ -144,8 +144,7 @@ Not ported yet, so rejected rather than ignored, before the rendezvous
 ``model`` or ``seq`` > 1 outside a pipeline, and ``fsdp`` > 1 with
 ``pipe`` or ``seq`` > 1, are refused naming ROADMAP.md's "Multi-GPU
 layouts";
-``--compile_cache_dir`` and ``--telemetry_cost_analysis`` (the bench
-legs), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
+``--telemetry_cost_analysis`` (a bench leg), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
 port draws Philox (the kernels' dropout, keyed by coordinates); argparse
 refuses the flags it does not know. ``attention_backend "pallas"`` in a
 config file (the JAX recipe's phase-2 setting) selects its counterpart,
@@ -185,6 +184,7 @@ from bert_pytorch_tpu_torch.data.tokenization import get_tokenizer
 from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
                                                 draw_dropout_seeds,
                                                 init_weights)
+from bert_pytorch_tpu_torch.ops.kernels import build
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.kfac import KFAC
 from bert_pytorch_tpu_torch.optim.schedules import SCHEDULES, make_schedule
@@ -338,6 +338,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     # telemetry: step-time windows + MFU, profiler trace windows, failure
     # sentinels, grad health, heartbeat, hung-step watchdog
     telemetry.add_cli_args(parser, window_default=20, sync_every_default=4)
+    build.add_cli_args(parser)
     # numerics / memory
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=sorted(DTYPES),
@@ -551,6 +552,8 @@ def setup_training(args) -> argparse.Namespace:
     finds packed data."""
     require_args(args, ["model_config_file", "output_dir",
                         "global_batch_size", "local_batch_size", "max_steps"])
+    # The kernel libraries' directory, before anything loads one.
+    build.set_build_dir(args.compile_cache_dir or None)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

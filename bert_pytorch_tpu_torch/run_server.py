@@ -10,6 +10,12 @@
     python -m bert_pytorch_tpu_torch.run_server ... --quantize int8 \
         --attention_backend flash_infer_int8 --fuse_epilogues
 
+    # measure the attention kernels' tile geometry once, then reuse it
+    python -m bert_pytorch_tpu_torch.run_server ... --compile_cache_dir D \
+        --autotune measure --autotune_cache D/autotune.json
+    python -m bert_pytorch_tpu_torch.run_server ... --compile_cache_dir D \
+        --autotune load --autotune_cache D/autotune.json
+
     curl -s localhost:8000/v1/fill_mask -d '{"text": "paris is [MASK]"}'
     curl -s localhost:8000/v1/squad \
         -d '{"question": "who wrote hamlet", "context": "shakespeare wrote hamlet"}'
@@ -75,6 +81,7 @@ TASKS = ("fill_mask", "classify", "squad", "ner")
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
+    from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.serve.cli import (add_device_args,
                                                   add_dispatch_args,
                                                   add_fast_path_args,
@@ -162,12 +169,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "replica leaves forensics); default "
                              "<output_dir>/postmortem.json, disabled "
                              "without an output_dir")
-    parser.add_argument("--compile_cache_dir", type=str, default="",
-                        help="directory the CUDA kernel libraries are "
-                             "built into and found in (replicas sharing "
-                             "one build each library once, under a "
-                             "per-library lock); default "
-                             "bert_pytorch_tpu_torch/build/")
+    build.add_cli_args(parser)
     args = parser.parse_args(argv)
     from bert_pytorch_tpu_torch.data.tokenization import \
         check_tokenizer_files
@@ -291,6 +293,8 @@ def build_service(args: argparse.Namespace,
         epilogue_slots=args.epilogue_slots,
         version=args.serving_version,
         monitor=monitor,
+        autotune=args.autotune,
+        autotune_cache=args.autotune_cache or None,
     )
     batcher = Batcher(
         max_batch_size=args.max_batch_size,
@@ -406,6 +410,10 @@ def main(args: argparse.Namespace) -> int:
                     len(engine.tasks), engine.buckets, engine.device,
                     args.dtype, engine.attention_backend, args.quantize,
                     engine.fuse_epilogues, engine.max_requests_per_pack)
+        for record in engine.autotune_records:
+            logger.info("autotune %s s=%d bh=%d: %s %s", record["kernel"],
+                        record["seq"], record["bh"], record["source"],
+                        record.get("winner", "default (64, 64, 1)"))
         engine.warmup()
         startup = engine.startup
         logger.info("warmup done in %ss: %s cold kernel builds / %s "

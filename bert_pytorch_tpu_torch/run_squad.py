@@ -64,8 +64,9 @@ end counts), the gradients are summed once per step before the clipping
 (parallel/overlap.py), and each rank folds its index into the dropout
 seeds. Rank 0 alone logs, writes the feature cache, the telemetry and
 the checkpoints, and predicts. Not ported yet, so rejected rather than
-ignored (argparse refuses their flags): ``--telemetry_cost_analysis`` and
-``--compile_cache_dir``. The telemetry debug
+ignored (argparse refuses its flag): ``--telemetry_cost_analysis``.
+``--compile_cache_dir`` names the directory the kernel libraries and the
+tokenizer core are built into (ops/kernels/build.py ``set_build_dir``). The telemetry debug
 planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's.
 The tokenizer (``--tokenizer``, else the model config's) is WordPiece or
 byte-level BPE on the C++ core (``build_tokenizer``, JAX run_squad.py:138-142);
@@ -106,6 +107,7 @@ from bert_pytorch_tpu_torch.models.convert import (check_pretrained_path,
                                                    load_pretrained_encoder,
                                                    to_jax_params)
 from bert_pytorch_tpu_torch.models.losses import span_loss, span_loss_sums
+from bert_pytorch_tpu_torch.ops.kernels import build
 from bert_pytorch_tpu_torch.ops.layernorm import resolve_backend
 from bert_pytorch_tpu_torch.optim.schedules import warmup_linear_schedule
 from bert_pytorch_tpu_torch.optim.transforms import (AdamW, BertAdam,
@@ -193,6 +195,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "file:///path) in place of torchrun's env://")
     dp_cli.add_cli_args(parser)
     telemetry.add_cli_args(parser, sync_every_default=1)
+    build.add_cli_args(parser)
     args = parser.parse_args(argv)
 
     # vocab/tokenizer ride in the model config (reference run_squad.py:862-876)
@@ -617,6 +620,7 @@ def main(args) -> dict:
 def run(args):
     """(summary, model, config): the whole run; ``main`` keeps the
     summary."""
+    build.set_build_dir(args.compile_cache_dir or None)
     device = setup_device(args)
     torch.manual_seed(args.seed)
     os.makedirs(args.output_dir, exist_ok=True)

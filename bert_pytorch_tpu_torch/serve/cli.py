@@ -12,6 +12,7 @@ import torch
 ATTENTION_BACKENDS = ("flash_infer", "flash_infer_int8", "dense")
 QUANTIZE_CHOICES = ("none", "bf16", "int8")
 DISPATCH_MODES = ("pipelined", "serial")
+AUTOTUNE_MODES = ("off", "load", "measure")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -81,6 +82,18 @@ def add_fast_path_args(parser: argparse.ArgumentParser) -> None:
         help="per-row gather quota for fused epilogues; a batch whose "
              "rows carry more positions of interest runs the unfused "
              "forward")
+    parser.add_argument(
+        "--autotune", type=str, default="off", choices=AUTOTUNE_MODES,
+        help="measured tile geometry of the flash_infer* attention "
+             "kernels (ops/kernels/autotune.py): 'load' reads the "
+             "winners in --autotune_cache, 'measure' also times the "
+             "candidates of buckets without one at start-up and writes "
+             "the winners back")
+    parser.add_argument(
+        "--autotune_cache", type=str, default="",
+        help="autotune winners JSON, kept beside --compile_cache_dir: a "
+             "restart that loads it serves the same geometry, measuring "
+             "and building nothing")
 
 
 def add_tracing_args(parser: argparse.ArgumentParser) -> None:

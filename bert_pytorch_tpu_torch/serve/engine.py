@@ -20,6 +20,14 @@ The :class:`InferenceEngine` owns the device side of serving:
   instead of [B, S, V]; a batch whose rows need more slots runs the
   unfused forward), and squad stacks its start and end logits into one
   [B, 2, S] output (``stack_span``: one transfer to the host);
+* **measured attention geometry** — with ``autotune`` ``"load"`` or
+  ``"measure"``, the tile geometry of kernel #4 or #5 per (bucket,
+  max_batch_size * heads) comes from a winners file
+  (ops/kernels/autotune.py), measured at start-up where it has none;
+  one ``kind="autotune"`` record per bucket says where each came from,
+  and the per-bucket forward names (:meth:`forward_name`, listed in
+  ``startup["forwards"]``) carry the winner's digest, as the JAX engine's
+  do;
 * **warmup** — one forward per (task head, length bucket, packedness) at
   startup, so the first request pays no kernel build, library load or
   cuBLAS set-up; ``startup["cold_start_s"]`` records what that took, and
@@ -61,9 +69,11 @@ from bert_pytorch_tpu_torch.data.packing import first_fit_decreasing
 from bert_pytorch_tpu_torch.models import bert as models
 from bert_pytorch_tpu_torch.models.convert import quantize_state_dict
 from bert_pytorch_tpu_torch.ops import quant as quant_ops
+from bert_pytorch_tpu_torch.ops.kernels import autotune as tune
 from bert_pytorch_tpu_torch.serve import tasks as tasks_lib
 from bert_pytorch_tpu_torch.serve.batcher import Request
-from bert_pytorch_tpu_torch.serve.cli import ATTENTION_BACKENDS, resolve_device
+from bert_pytorch_tpu_torch.serve.cli import (ATTENTION_BACKENDS,
+                                              AUTOTUNE_MODES, resolve_device)
 from bert_pytorch_tpu_torch.telemetry.compile_events import CompileMonitor
 from bert_pytorch_tpu_torch.testing import faults
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt_util
@@ -158,6 +168,8 @@ class InferenceEngine:
         epilogue_slots: int = 8,
         version: str = "v0",
         monitor: Optional[CompileMonitor] = None,
+        autotune: str = "off",
+        autotune_cache: Optional[str] = None,
     ):
         """``tasks`` maps task name -> options: ``classify`` and ``ner``
         read ``labels``, ``squad`` ``do_lower_case`` and
@@ -180,10 +192,40 @@ class InferenceEngine:
         logits; ``epilogue_slots`` is the per-row gather quota, past which
         a batch runs the unfused forward. ``monitor`` receives the kernel
         builds of the warmup as ``compile`` records (a silent one of its
-        own when none is given)."""
+        own when none is given).
+
+        ``autotune`` drives the measured tile geometry of the serving
+        kernels (ops/kernels/autotune.py) for the ``flash_infer*``
+        backends: ``"load"`` reads the winners in ``autotune_cache``, a
+        JSON file (kept beside the kernel build directory), ``"measure"``
+        also times the candidates of every (bucket, max_batch_size *
+        heads) shape without one and writes the file back. It runs here,
+        before any forward, as the JAX engine's does; the registry is
+        process-global, so the winners apply to every engine of the
+        process that serves those shapes."""
         if attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(f"attention_backend must be one of "
                              f"{ATTENTION_BACKENDS}, got {attention_backend!r}")
+        if autotune not in AUTOTUNE_MODES:
+            raise ValueError(
+                f"autotune must be off|load|measure, got {autotune!r}")
+        if autotune != "off" and not autotune_cache:
+            # A forgotten cache would quietly serve the default geometry
+            # and measure again at every restart: fail at construction.
+            raise ValueError(
+                f"autotune={autotune!r} requires autotune_cache (the "
+                "winners JSON path beside the kernel build directory)")
+        if autotune != "off" and attention_backend not in (
+                "flash_infer", "flash_infer_int8"):
+            # Only the serving kernels have a geometry to tune: silently
+            # doing nothing under dense would let an operator believe the
+            # measured geometry is in use.
+            raise ValueError(
+                f"autotune={autotune!r} tunes the serving attention "
+                f"kernels; attention_backend={attention_backend!r} has "
+                "no geometry to tune (use flash_infer or flash_infer_int8)")
+        self.autotune = autotune
+        self.autotune_cache = autotune_cache
         self.quantize = quant_ops.check_mode(
             None if quantize in (None, "none") else quantize)
         self.fuse_epilogues = bool(fuse_epilogues)
@@ -208,6 +250,14 @@ class InferenceEngine:
         self._clock = clock
         self.startup: Optional[dict] = None
         self.monitor = monitor or CompileMonitor()
+        # compile records of libraries the autotune measurement built (the
+        # warmup counts them as start-up's); its records, one per bucket.
+        self._autotune_compiles: List[dict] = []
+        self.autotune_records: List[dict] = []
+        # The kernels' launch counts when the forwards began: a
+        # measurement's launches at start-up are not the forwards'.
+        self._launch_base: Dict[str, int] = {}
+        self._setup_autotune()
         # Forwards run so far (warmup included). Written only by the one
         # device-calling thread; read by the chip smoke to tie kernel
         # launches to forwards.
@@ -242,6 +292,90 @@ class InferenceEngine:
         self.warmed = False
 
     # -- construction ----------------------------------------------------
+
+    def _autotune_kernel(self) -> Optional[str]:
+        """The autotune registry's name of the kernel this engine's
+        attention runs, or None for a backend without a geometry."""
+        return {"flash_infer": "infer",
+                "flash_infer_int8": "infer_int8"}.get(self.attention_backend)
+
+    def _autotune_bh(self) -> int:
+        """B*H of every serving forward: batches are padded to
+        max_batch_size rows."""
+        return self.max_batch_size * self.config.num_attention_heads
+
+    def _setup_autotune(self) -> None:
+        """Load (and in ``"measure"`` mode, fill) the geometry winners
+        before any forward: one ``kind="autotune"`` record per bucket says
+        where its geometry came from — ``measured`` now, ``cached`` from
+        the file, or ``heuristic``, the kernels' default (64, 64, 1). A
+        bucket with no candidate but the default (a length 64 does not
+        divide, or a head dim with the default tile only) is not measured.
+        On the card, measuring builds the kernel library first, with the
+        monitor installed: warmup then counts that build as start-up's."""
+        if self.autotune == "off":
+            return
+        from bert_pytorch_tpu_torch.ops.kernels import build
+
+        kernel = self._autotune_kernel()
+        tune.load_winners(self.autotune_cache, self.device)
+        bh = self._autotune_bh()
+        depth = self.config.hidden_size // self.config.num_attention_heads
+        measured = 0
+        for bucket in self.buckets:
+            geom = tune.lookup(kernel, bucket, bh)
+            record = {"kind": "autotune", "tag": "telemetry",
+                      "kernel": kernel, "seq": bucket, "bh": bh}
+            grid = tune.candidates(bucket, bh, depth, kernel)
+            if geom is not None:
+                record["source"] = "cached"
+                record["winner"] = {"block_q": geom[0], "block_k": geom[1],
+                                    "bh_block": geom[2]}
+            elif self.autotune == "measure" and len(grid) > 1:
+                if self.device.type == "cuda" and not self._autotune_compiles:
+                    before = len(self.monitor.events)
+                    with self.monitor.installed():
+                        build.ensure(self.kernel_libraries())
+                    self._autotune_compiles = self.monitor.events[before:]
+                t0 = self._clock()
+                result = tune.measure(
+                    kernel, bucket, bh, depth,
+                    heads=self.config.num_attention_heads, dtype=self.dtype,
+                    device=self.device)
+                measured += 1
+                record.update(source="measured", winner=result["winner"],
+                              candidates=result["candidates"],
+                              failed=result["failed"],
+                              launches_per_round=result["launches"],
+                              measured_ms=result["measured_ms"],
+                              spread_ms=result["spread_ms"],
+                              measure_s=round(self._clock() - t0, 3))
+            else:
+                record["source"] = "heuristic"
+            record["digest"] = tune.name_digest(kernel, bucket, bh)
+            self.autotune_records.append(record)
+            self.monitor.note(record)
+        if measured:
+            tune.save_winners(self.autotune_cache, self.device)
+            from bert_pytorch_tpu_torch.ops.kernels import attention
+
+            self._launch_base = {
+                name: getattr(attention, name).launches
+                for name in self.kernel_libraries()}
+
+    def forward_name(self, task: str, bucket: int, packed: bool = False,
+                     fused: bool = False) -> str:
+        """The per-bucket forward's name, the JAX engine's
+        ``serve_<task>_b<bucket>[_packed][_fused]_<quant>``, plus
+        ``_g<digest>`` of the autotune winner that forward runs (none at
+        the default geometry), so a name says which geometry ran."""
+        name = (f"serve_{task}_b{bucket}{'_packed' if packed else ''}"
+                f"{'_fused' if fused else ''}_{self.quantize or 'fp32'}")
+        kernel = self._autotune_kernel()
+        if kernel is None:
+            return name
+        digest = tune.name_digest(kernel, bucket, self._autotune_bh())
+        return f"{name}_g{digest}" if digest else name
 
     def _build_task(self, name: str, options: dict,
                     seed: int) -> torch.nn.Module:
@@ -313,10 +447,12 @@ class InferenceEngine:
         """Launches of each CUDA kernel this engine's forwards run (the
         wrappers' counts, named as :meth:`kernel_libraries`; a fresh
         process starts them at 0, so a replica's ``/statsz`` reads the
-        launches of its own forwards)."""
+        launches of its own forwards: an autotune measurement's launches,
+        made before them, are left out)."""
         from bert_pytorch_tpu_torch.ops.kernels import attention
 
         return {name: getattr(attention, name).launches
+                - self._launch_base.get(name, 0)
                 for name in self.kernel_libraries()}
 
     def cuda_memory(self) -> Optional[Dict[str, int]]:
@@ -343,10 +479,16 @@ class InferenceEngine:
 
         t0 = self._clock()
         count = 0
-        before = len(self.monitor.events)
-        with self.monitor.installed():
-            build.ensure(self.kernel_libraries())
-        compiles = self.monitor.events[before:]
+        if self._autotune_compiles:
+            # The autotune measurement built and loaded them.
+            compiles = list(self._autotune_compiles)
+        else:
+            before = len(self.monitor.events)
+            with self.monitor.installed():
+                build.ensure(self.kernel_libraries())
+            compiles = [e for e in self.monitor.events[before:]
+                        if e.get("kind") == "compile"]
+        forwards = []
         B, K = self.max_batch_size, self.max_requests_per_pack
         slots = np.zeros((B, self.epilogue_slots), np.int32)
         for spec in self.tasks.values():
@@ -370,6 +512,8 @@ class InferenceEngine:
                                   slots if is_fused and epilogue == "gather"
                                   else None,
                                   stack=is_fused and epilogue == "stack_span")
+                        forwards.append(self.forward_name(
+                            spec.name, bucket, packed, is_fused))
                         count += 1
         by_task = {name: quant_ops.weight_bytes(spec.model)
                    for name, spec in self.tasks.items()}
@@ -384,6 +528,8 @@ class InferenceEngine:
             "dtype": str(self.dtype).replace("torch.", ""),
             "quantize": self.quantize or "none",
             "fuse_epilogues": self.fuse_epilogues,
+            "autotune": self.autotune,
+            "forwards": forwards,
             "weight_bytes": sum(by_task.values()),
             "weight_bytes_by_task": by_task,
             "load_s_by_task": {k: round(v, 3) for k, v in self.load_s.items()},

@@ -82,6 +82,15 @@ class CompileMonitor:
         finally:
             self.uninstall()
 
+    def note(self, record: dict) -> None:
+        """Keep and emit one caller-built record through this monitor's
+        sink, beside the compile records: the serve engine's
+        ``kind="autotune"`` geometry records ride here, as in the JAX
+        package."""
+        self.events.append(record)
+        if self._emit is not None:
+            self._emit(record)
+
     def record(self, fn: str, digest: str, seconds: float,
                built: bool) -> dict:
         """The ``compile`` record of one library build (or hit)."""

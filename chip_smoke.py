@@ -312,14 +312,35 @@ Phases (any failure exits non-zero and prints no result line):
    launches: #1-#3 2/1/1 a layer a microbatch for its layers in 18a and
    18c, none in 18b; the training kernels carry rank 0's as
    ``launches_mp_pp_tp``, ``launches_mp_pp_sp`` and
-   ``launches_mp_kfac_dp4``.
+   ``launches_mp_kfac_dp4``;
+19. measured attention geometry for serving (``drive_autotune``): 19a
+   every candidate geometry of #4 and #5 (ops/kernels/autotune.py
+   ``candidates``: block_q 64/128, block_k 64/128, bh_block 1-8 at B=8,
+   H=16, D=64) at S in SEQS, padded and packed, against its plain version
+   at ATOL, each candidate's time by ``autotune.measure`` (CUDA events
+   over 100 back-to-back launches behind a sleep), its winner, and the
+   winner, the default (64, 64, 1) and SDPA by device time beside the
+   bound; 19b ``run_server`` subprocesses at BERT-large width (fill_mask
+   and classify, buckets 128 and 512, batch 8) sharing one fresh
+   ``--compile_cache_dir`` (seeded with the libraries built at the
+   start): A ``--autotune measure`` (``measured`` records, a winners file
+   stamped with the card), B
+   ``--autotune load`` (``cached`` records, the same winners, every
+   compile record a hit, answers bit-equal to A's), C with autotune off
+   (answers within P19_SCORE_ATOL of A's), D the int8 path with
+   ``--autotune measure``; 24 launches of the path's kernel per forward
+   in each (``/statsz``, the measurement's launches left out). #4 and
+   #5 carry ``geometries`` (each candidate's time and error), ``winner``
+   (per S) and ``launches_autotune`` (A's, D's).
 
-``python3 chip_smoke.py --only 18`` runs phase 18 alone (the kernels built,
-phase 18, its result line; none of the contract's lines).
+``python3 chip_smoke.py --only 18`` runs phase 18 alone, and ``--only 19``
+phase 19 (the kernels built, the phase, its result line; none of the
+contract's lines).
 
 Every launch counter is set to 0 just before each main path and read just
-after it (phase 14's counters live in its replicas, fresh processes whose
-counters start at 0, and are read from their ``/statsz``). The last three lines of standard output are the kernels JSON,
+after it (phase 14's and 19b's counters live in their replicas, fresh
+processes whose counters start at 0, and are read from their
+``/statsz``). The last three lines of standard output are the kernels JSON,
 the card's name and power limit (``nvidia-smi``), and the JSON result.
 """
 
@@ -6159,6 +6180,386 @@ def drive_model_parallel(kernels: dict, root: str, card: str) -> dict:
                          "kfac_dp4": c[0]["launches"]}}
 
 
+# -- phase 19: measured attention geometry for serving ------------------------
+
+# 19a: every candidate geometry of #4 and #5 (ops/kernels/autotune.py) at
+# B=8, H=16, D=64, bf16, S in SEQS, padded and packed, against its plain
+# version at ATOL; each candidate's time as measure() takes it (CUDA events
+# over P19_LAUNCHES back-to-back launches queued behind a sleep, median of
+# its rounds, after an untimed call and an untimed pass of as many
+# launches), SDPA's the same way; the winner also by device time
+# (torch.profiler, 100 launches after 10), beside phases 3 and 4's device
+# times of the default and SDPA.
+P19_LAUNCHES = 100
+# 19b: run_server subprocesses at BERT-large width and depth (fill_mask and
+# classify, buckets 128 and 512, batch 8, unpacked, so each sequential
+# request runs alone in its forward at row 0), sharing one fresh
+# --compile_cache_dir: A measures, B loads (nothing measured, nothing
+# built), C serves the default geometry (off), D measures the int8 path.
+# The directory starts with copies of the libraries this process built
+# already (#4's, #5's and the tokenizer core's; phase 14 shows a fresh
+# --compile_cache_dir's cold build), so no replica runs a compiler.
+P19_TASKS = "fill_mask,classify"
+P19_REPLICA_S = 300
+# The served answers of the tuned and the default geometry: the same
+# model in bf16 with the attention's online softmax taken over other key
+# tiles, so probabilities within the GLUE bar (a bf16 logit).
+P19_SCORE_ATOL = GLUE_SERVE_ATOL
+
+
+def p19_requests() -> list:
+    """Sequential requests for 19b: classify at two lengths in each bucket,
+    fill_mask in the 128 one (its unfused 512 batch ships [8, 512, V]
+    logits to the host)."""
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import TRACE_WORDS
+
+    rng = np.random.default_rng(19)
+    out = []
+    for n in (12, 90, 250, 400):
+        words = [str(w) for w in rng.choice(TRACE_WORDS, n)]
+        if n < 120:
+            out.append(("fill_mask", {"text": " ".join(
+                words[:n // 2] + ["[MASK]"] + words[n // 2:]), "top_k": 5}))
+        out.append(("classify", {"text": " ".join(words)}))
+    return out
+
+
+def check_geometries(card: str) -> dict:
+    """Phase 19a. Returns, per kernel, the kernels-line fields
+    ``geometries`` (each candidate's time at each S and its worst error)
+    and ``winner`` (per S: measure()'s winner, its time and the default's
+    and SDPA's by events, its device time, and the bound)."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+    from bert_pytorch_tpu_torch.ops.kernels import autotune
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    dtype = torch.bfloat16
+    errs = {}   # (kernel, seq, geometry) -> worst error over padded/packed
+    timed = {}  # (kernel, seq) -> padded calls: geometry -> fn, and SDPA
+    for seq in SEQS:
+        for packed in (False, True):
+            q, k, v, kw = attention_inputs(seq, dtype, packed, gen)
+            key_bias, seg = ka._infer_bias_seg(
+                kw.get("bias"), kw.get("sequence_ids"), B, seq)
+            q8, q_scale, k8, k_scale = ka.quantize_qk(q, k)
+            args8 = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+            refs = {"infer": ka.flash_attention_infer_reference(q, k, v,
+                                                                **kw),
+                    "infer_int8": ka._int8_forward_math(*args8)}
+            calls = {"infer": lambda g, q=q, k=k, v=v, kw=kw: (
+                         ka.flash_attention_infer(q, k, v, geometry=g,
+                                                  **kw)),
+                     "infer_int8": lambda g, args8=args8: (
+                         ka.flash_attention_infer_int8_prequantized(
+                             *args8, geometry=g))}
+            for kernel in autotune.KERNELS:
+                for geom in autotune.candidates(seq, B * H, D, kernel):
+                    out = calls[kernel](geom)
+                    torch.cuda.synchronize()
+                    name = (f"S={seq} {'packed' if packed else 'padded'} "
+                            f"geometry {geom}")
+                    err = check_case(f"[19a] {kernel}", name, dtype, out,
+                                     refs[kernel])
+                    key = (kernel, seq, geom)
+                    errs[key] = max(errs.get(key, 0.0), err)
+            if not packed:
+                deq = [(t8.float() * s[:, None, :, None]).to(dtype)
+                       for t8, s in ((q8, q_scale), (k8, k_scale))]
+                timed[("infer", seq)] = (calls["infer"],
+                                         library_call(q, k, v, kw))
+                timed[("infer_int8", seq)] = (
+                    calls["infer_int8"], library_call(deq[0], deq[1], v, kw))
+    fields = {kernel: {"geometries": [], "winner": {}}
+              for kernel in autotune.KERNELS}
+    for (kernel, seq), (call, sdpa) in timed.items():
+        autotune.clear_winners()
+        result = autotune.measure(kernel, seq, B * H, D, heads=H,
+                                  launches=P19_LAUNCHES)
+        win = tuple(result["winner"][f] for f in ("block_q", "block_k",
+                                                  "bh_block"))
+        sdpa_event, = autotune.time_rounds(
+            [sdpa], P19_LAUNCHES, result["rounds"], True,
+            time.perf_counter)
+        times = result["times_ms"]
+        for geom in autotune.candidates(seq, B * H, D, kernel):
+            fields[kernel]["geometries"].append({
+                "seq": seq, "geometry": list(geom),
+                "ms": times["%dx%dg%d" % geom],
+                "max_abs_err": errs[(kernel, seq, geom)]})
+        default = autotune.DEFAULT_GEOMETRY
+        device_ms = device_time_ms(lambda: call(win))
+        bound, by = (bound_ms if kernel == "infer" else int8_bound_ms)(
+            seq, dtype)
+        fields[kernel]["winner"][str(seq)] = {
+            "geometry": list(win), "ms": result["measured_ms"],
+            "spread_ms": result["spread_ms"],
+            "launches": result["launches"], "resolved": result["resolved"],
+            "default_ms": times["%dx%dg%d" % default],
+            "sdpa_ms": round(statistics.median(sdpa_event), 5),
+            "device_ms": device_ms, "bound_ms": bound, "bound_by": by,
+            "failed": result["failed"]}
+        log(f"[19a] {kernel} S={seq}: {result['candidates']} candidates, "
+            f"winner {win} {result['measured_ms']:.5f} ms (spread "
+            f"{result['spread_ms']:.5f}, {result['launches']} launches, "
+            f"resolved {result['resolved']}) vs default "
+            f"{times['%dx%dg%d' % default]:.5f} vs SDPA "
+            f"{statistics.median(sdpa_event):.5f} ms (CUDA events); the "
+            f"winner's device time {device_ms:.5f} ms; bound "
+            f"{bound:.5f} ms ({by}); every candidate "
+            f"{json.dumps(times)} on {card}")
+    autotune.clear_winners()
+    worst = max(errs.values())
+    log(f"[19a] {len(errs)} (kernel, S, geometry) cases against the plain "
+        f"versions, worst {worst:.3e} (atol {ATOL[dtype]:g}) in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return fields
+
+
+def start_replica(label: str, root: str, vocab: str, cache: str,
+                  extra=()) -> tuple:
+    """A ``run_server`` subprocess of phase 19b with its own output dir,
+    sharing ``cache`` as its --compile_cache_dir: (process, port, output
+    dir, log path, start time)."""
+    out = os.path.join(root, f"replica_19{label}")
+    port = free_port()
+    cmd = [sys.executable, "-m", "bert_pytorch_tpu_torch.run_server",
+           "--model_config_file", CONFIG, "--vocab_file", vocab,
+           "--tasks", P19_TASKS, "--buckets", "128,512",
+           "--max_batch_size", "8", "--max_wait_ms", "1",
+           "--port", str(port), "--trace_sample_rate", "0",
+           "--output_dir", out, "--compile_cache_dir", cache, *extra]
+    log_path = os.path.join(root, f"replica_19{label}.log")
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    return proc, port, out, log_path, time.perf_counter()
+
+
+def await_replica(label: str, replica: tuple) -> float:
+    """Seconds until the replica answers /healthz."""
+    proc, port, _, log_path, t0 = replica
+    while True:
+        try:
+            get(port, "/healthz")
+            return time.perf_counter() - t0
+        except OSError:
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > P19_REPLICA_S:
+                raise AssertionError(
+                    f"19{label} replica did not start (rc {proc.poll()}): "
+                    + open(log_path).read()[-3000:])
+            time.sleep(0.25)
+
+
+def serve_and_stop(label: str, replica: tuple, requests: list) -> dict:
+    """Send ``requests`` one at a time, read /statsz, stop the replica with
+    Ctrl-C (rc 0) and read its JSONL: answers, the kernel launches its
+    forwards made, and its autotune and compile records."""
+    from bert_pytorch_tpu_torch.telemetry import schema
+
+    proc, port, out, log_path, _ = replica
+    try:
+        answers = []
+        for task, payload in requests:
+            status, body, _ = post(port, task, payload)
+            if status != 200:
+                raise AssertionError(f"19{label} {task} answered {status}: "
+                                     f"{body}")
+            check_body(task, payload, body, ["0", "1"])
+            answers.append(body)
+        stats = get(port, "/statsz")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"19{label} replica exited {rc}: "
+                             + open(log_path).read()[-3000:])
+    jsonl = os.path.join(out, "serve_telemetry.jsonl")
+    errors = schema.validate_file(jsonl)
+    if errors:
+        raise AssertionError(f"19{label} JSONL: {errors[:5]}")
+    kinds = read_records(jsonl)
+    return {"answers": answers, "launches": stats.get("kernel_launches"),
+            "forwards": stats.get("forwards"),
+            "autotune": kinds.get("autotune", []),
+            "compile": [(e["fn"], e["cache"]) for e in kinds.get("compile",
+                                                                  [])],
+            "cold_start": (kinds.get("serve_cold_start") or [{}])[-1]}
+
+
+def tuned_geometries(label: str, served: dict, source: str,
+                     kernel: str) -> dict:
+    """Bucket -> the winner of a 19b start whose every autotune record
+    must have ``source`` for ``kernel``."""
+    recs = served["autotune"]
+    if sorted(r["seq"] for r in recs) != [128, 512] or any(
+            r["source"] != source or r["kernel"] != kernel
+            or r["bh"] != 8 * H for r in recs):
+        raise AssertionError(f"19{label} autotune records: {recs}")
+    return {r["seq"]: (r["winner"], r["digest"]) for r in recs}
+
+
+def close_scores(a: dict, b: dict) -> float:
+    """The largest score gap between two answers of one request: classify
+    scores by label; fill_mask slots by token id (ids past the demo vocab
+    all decode to ""), an id in only one top-k no more than the bar above
+    the other's lowest score (a tie at the cut)."""
+    if "scores" in a:
+        return max(abs(a["scores"][k] - b["scores"][k]) for k in a["scores"])
+    gap = 0.0
+    for ma, mb in zip(a["masks"], b["masks"]):
+        sb = {s["id"]: s["score"] for s in mb}
+        for slot in ma:
+            if slot["id"] in sb:
+                gap = max(gap, abs(slot["score"] - sb[slot["id"]]))
+            else:
+                gap = max(gap, slot["score"] - min(sb.values()))
+    return gap
+
+
+def drive_autotune_serving(vocab: str, root: str, card: str) -> dict:
+    """Phase 19b: run_server with --autotune measure, then load, off, and
+    the int8 path with measure (P19_TASKS at BERT-large width)."""
+    from bert_pytorch_tpu_torch.ops.kernels import autotune
+
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(root, "compile_cache_19")
+    os.makedirs(cache)
+    for built in (build.host_library_path("tokenizer"),
+                  build.library_path("flash_attention_infer"),
+                  build.library_path("flash_attention_infer_int8")):
+        if built.exists():
+            shutil.copy(built, cache)
+    winners = os.path.join(cache, "autotune.json")
+    winners8 = os.path.join(cache, "autotune_int8.json")
+    requests = p19_requests()
+    starts = {}
+    # A: measure, alone on the card.
+    a = start_replica("a", root, vocab, cache,
+                      ("--autotune", "measure", "--autotune_cache", winners))
+    starts["a"] = await_replica("a", a)
+    served_a = serve_and_stop("a", a, requests)
+    geom_a = tuned_geometries("a", served_a, "measured", "infer")
+    if autotune.validate_winners_file(winners):
+        raise AssertionError(f"19a winners file: "
+                             f"{autotune.validate_winners_file(winners)}")
+    with open(winners, encoding="utf-8") as f:
+        stamp = json.load(f)["platform"]
+    if stamp != f"cuda:{torch.cuda.get_device_name(0)}":
+        raise AssertionError(f"19b winners file stamped {stamp!r}")
+    # B (load), C (off) and D (int8, measure) together: B and C measure
+    # nothing and are warm before D measures.
+    b = start_replica("b", root, vocab, cache,
+                      ("--autotune", "load", "--autotune_cache", winners))
+    c = start_replica("c", root, vocab, cache)
+    d = start_replica("d", root, vocab, cache,
+                      ("--autotune", "measure", "--autotune_cache", winners8,
+                       "--quantize", "int8", "--attention_backend",
+                       "flash_infer_int8", "--fuse_epilogues"))
+    for label, replica in (("b", b), ("c", c), ("d", d)):
+        starts[label] = await_replica(label, replica)
+    served_b = serve_and_stop("b", b, requests)
+    served_c = serve_and_stop("c", c, requests)
+    served_d = serve_and_stop("d", d, requests)
+    geom_b = tuned_geometries("b", served_b, "cached", "infer")
+    if geom_b != geom_a:
+        raise AssertionError(f"19b B loaded {geom_b}, A measured {geom_a}")
+    if any(cache_ != "hit" for _, cache_ in served_b["compile"]) or \
+            served_b["cold_start"].get("compiles_cold") != 0:
+        raise AssertionError(f"19b B built a library: {served_b['compile']}")
+    if served_b["answers"] != served_a["answers"]:
+        raise AssertionError("19b B's answers are not A's bit for bit")
+    if served_c["autotune"]:
+        raise AssertionError(f"19b C (off) wrote {served_c['autotune']}")
+    gap = max(close_scores(x, y) for x, y in zip(served_a["answers"],
+                                                 served_c["answers"]))
+    if not gap <= P19_SCORE_ATOL:
+        raise AssertionError(f"19b tuned vs default answers {gap} apart "
+                             f"(bar {P19_SCORE_ATOL})")
+    geom_d = tuned_geometries("d", served_d, "measured", "infer_int8")
+    for label, served, kernel in (("a", served_a, "flash_attention_infer"),
+                                  ("b", served_b, "flash_attention_infer"),
+                                  ("c", served_c, "flash_attention_infer"),
+                                  ("d", served_d,
+                                   "flash_attention_infer_int8")):
+        launches = served["launches"].get(kernel)
+        if launches != 24 * served["forwards"]:
+            raise AssertionError(f"19{label}: {launches} launches of "
+                                 f"{kernel} over {served['forwards']} "
+                                 "forwards, not 24 each")
+    seconds = time.perf_counter() - t_phase
+    result = {
+        "start_s": starts,
+        "winners": {"a": {str(s): g for s, g in geom_a.items()},
+                    "d": {str(s): g for s, g in geom_d.items()}},
+        "measure_s": {label: {str(r["seq"]): r.get("measure_s")
+                              for r in served["autotune"]}
+                      for label, served in (("a", served_a),
+                                            ("d", served_d))},
+        "compile": {label: served["compile"] for label, served in (
+            ("a", served_a), ("b", served_b), ("c", served_c),
+            ("d", served_d))},
+        "launches": {label: served["launches"] for label, served in (
+            ("a", served_a), ("b", served_b), ("c", served_c),
+            ("d", served_d))},
+        "forwards": {label: served["forwards"] for label, served in (
+            ("a", served_a), ("b", served_b), ("c", served_c),
+            ("d", served_d))},
+        "tuned_vs_default_gap": gap,
+        "default_bit_equal": served_c["answers"] == served_a["answers"],
+        "seconds": seconds}
+    log(f"[19b] run_server --autotune measure (A, {starts['a']:.1f} s to "
+        f"/healthz, the measurement included): winners "
+        f"{result['winners']['a']}, measure s {result['measure_s']['a']}; "
+        f"load (B, {starts['b']:.1f} s): cached, compile records "
+        f"{served_b['compile']}, answers bit-equal to A's; off (C): "
+        f"answers within {gap:.3e} of A's (bit-equal "
+        f"{result['default_bit_equal']}); int8 measure (D): winners "
+        f"{result['winners']['d']}; launches {result['launches']} over "
+        f"forwards {result['forwards']}; phase 19b {seconds:.1f} s on {card}")
+    return result
+
+
+def drive_autotune(root: str, card: str) -> dict:
+    """Phase 19: 19a in this process, then 19b's replicas."""
+    from bert_pytorch_tpu_torch.tools.make_synthetic_data import (
+        write_trace_vocab)
+
+    t0 = time.perf_counter()
+    fields = check_geometries(card)
+    vocab = write_trace_vocab(os.path.join(root, "vocab_19.txt"))
+    served = drive_autotune_serving(vocab, root, card)
+    seconds = time.perf_counter() - t0
+    log(f"[19] phase 19 {seconds:.1f} s on {card}")
+    return {"fields": fields, "serving": served, "seconds": seconds}
+
+
+def only_autotune() -> int:
+    """Phase 19 alone: the kernels built, then :func:`drive_autotune` and
+    its result line (also in chiprun_out/phase19.json)."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    t0 = time.perf_counter()
+    log(f"[build] {build.build()} in {time.perf_counter() - t0:.2f}s")
+    with tempfile.TemporaryDirectory() as tmp:
+        result = drive_autotune(tmp, card)
+    log(f"[result] {json.dumps({'autotune': result})}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "phase19.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"card": card, "autotune": result}, f)
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6166,6 +6567,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--only", "18"]:
         return only_model_parallel()
+    if sys.argv[1:] == ["--only", "19"]:
+        return only_autotune()
     from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.ops.kernels.attention import (
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -6290,6 +6693,8 @@ def main() -> int:
         mesh = drive_mesh(kernels, tmp, card, trained["losses"])
         torch.cuda.empty_cache()
         model_parallel = drive_model_parallel(kernels, tmp, card)
+        torch.cuda.empty_cache()
+        tuned = drive_autotune(tmp, card)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -6308,6 +6713,13 @@ def main() -> int:
     int8_entry["launches"] = served8["launches"]["flash_attention_infer_int8"]
     int8_entry["route_launches"] = served8["routes"][
         "flash_attention_infer_int8"]
+    # Phase 19: each candidate geometry, the winners, and the launches of
+    # the measured starts' forwards (19b A for #4, D for #5).
+    for entry, kernel, label in ((infer_entry, "infer", "a"),
+                                 (int8_entry, "infer_int8", "d")):
+        entry.update(tuned["fields"][kernel])
+        entry["launches_autotune"] = tuned["serving"]["launches"][label][
+            entry["name"]]
     ln_entry["launches"] = squad["launches"]["layer_norm_fwd"]
     ln16["launches"] = squad16["launches"]["layer_norm_fwd"]
     entries = [infer_entry, int8_entry] + training_entries(
@@ -6345,7 +6757,7 @@ def main() -> int:
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"]))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

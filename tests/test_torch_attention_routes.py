@@ -135,13 +135,43 @@ def test_fp_kernel_calls_its_routes_entry_point(fake_library, dtype, depth,
     assert out.shape == q.shape and out.dtype == dtype
     ((name, args),) = fake_library.calls
     assert name == entry
-    # The tensor-core entry takes no dtype code; both end with the scale
-    # and the stream, after (batch, seq, heads, head_dim).
+    # Both take (batch, seq, heads, head_dim) after the six pointers and
+    # end with the stream; the CUDA-core entry takes a dtype code, then the
+    # scale; the tensor-core entry the scale, then the tile geometry (the
+    # default, with no autotune winner recorded).
     assert args[6:10] == (2, q.shape[1], 3, depth)
-    assert args[-2] == pytest.approx(depth ** -0.5)
+    if route == "tensor_cores":
+        assert args[10] == pytest.approx(depth ** -0.5)
+        assert args[11:14] == (64, 64, 1)
+    else:
+        assert args[-2] == pytest.approx(depth ** -0.5)
     after = kattn.flash_attention_infer.route_launches
     assert after[route] == before[route] + 1
     assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("kernel", ["infer", "infer_int8"])
+def test_tensor_core_entries_take_the_geometry(fake_library, kernel):
+    """A geometry reaches the tensor-core entry point as its three ints
+    after the scale; the CUDA-core route refuses any but the default
+    before its entry is called."""
+    q, k, v, bias, _ = _inputs(torch.bfloat16, depth=64)
+    kb, _ = kattn._infer_bias_seg(bias, None, 2, q.shape[1])
+    if kernel == "infer":
+        launch = lambda route, g: kattn._launch_infer(q, k, v, kb, None,
+                                                      route, g)
+        first = 10
+    else:
+        q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+        launch = lambda route, g: kattn._launch_int8(
+            q8, k8, q_scale, k_scale, v, kb, None, route, g)
+        first = 12
+    launch("tensor_cores", (128, 64, 2))
+    ((_, args),) = fake_library.calls
+    assert args[first + 1:first + 4] == (128, 64, 2)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        launch("cuda_cores", (128, 64, 2))
+    assert len(fake_library.calls) == 1
 
 
 @pytest.mark.parametrize("dtype,depth,entry,route", [

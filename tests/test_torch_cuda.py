@@ -367,6 +367,75 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take():
 
 # -- the int8-score serving kernel (TPU kernel #5) --------------------------
 
+@pytest.mark.parametrize("kernel", ["infer", "infer_int8"])
+def test_every_candidate_geometry_matches_plain_version(kernel):
+    """Each candidate tile geometry of the tensor-core route
+    (ops/kernels/autotune.py) at S=256, B*H=8, D=64, bf16, padded and
+    packed, against the plain version; a geometry the route does not take
+    raises on the card too, and the CUDA-core route takes the default
+    only."""
+    from bert_pytorch_tpu_torch.ops.kernels import autotune
+
+    _need_card()
+    q, k, v, mask, sids = _inputs(torch.bfloat16, 2, 256, 4, 64, 19)
+    for kw in ({"bias": make_attention_bias(mask)}, {"sequence_ids": sids}):
+        key_bias, seg = kattn._infer_bias_seg(
+            kw.get("bias"), kw.get("sequence_ids"), 2, 256)
+        q8, q_scale, k8, k_scale = kattn.quantize_qk(q, k)
+        args8 = (q8, k8, q_scale, k_scale, v, key_bias, seg)
+        if kernel == "infer":
+            ref = kattn.flash_attention_infer_reference(q, k, v, **kw)
+            call = lambda g: kattn.flash_attention_infer(q, k, v, geometry=g,
+                                                         **kw)
+        else:
+            ref = kattn._int8_forward_math(*args8)
+            call = lambda g: kattn.flash_attention_infer_int8_prequantized(
+                *args8, geometry=g)
+        grid = autotune.candidates(256, 8, 64, kernel)
+        assert len(grid) == 16
+        for geom in grid:
+            out = call(geom)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            assert torch.isfinite(out).all() and err <= ATOL["bfloat16"], (
+                geom, err)
+        with pytest.raises(ValueError, match="not instantiated"):
+            call((32, 32, 1))
+    with pytest.raises(ValueError, match="tensor-core route"):
+        kattn.flash_attention_infer(q.float(), k.float(), v.float(),
+                                    geometry=(128, 64, 1))
+
+
+def test_measured_winner_serves_the_engine_on_card(tmp_path):
+    """autotune.measure on the card ranks every candidate by CUDA events,
+    stamps the card, and a loaded winner is the geometry a later call
+    without one launches (its output equals the forced call's bit for
+    bit)."""
+    from bert_pytorch_tpu_torch.ops.kernels import autotune
+
+    _need_card()
+    autotune.clear_winners()
+    try:
+        result = autotune.measure("infer", 256, 8, 64, heads=4)
+        assert result["platform"] == \
+            f"cuda:{torch.cuda.get_device_name(0)}"
+        assert not result["interpret"] and result["failed"] == 0
+        win = tuple(result["winner"][f] for f in ("block_q", "block_k",
+                                                  "bh_block"))
+        path = str(tmp_path / "w.json")
+        autotune.save_winners(path)
+        autotune.clear_winners()
+        assert autotune.load_winners(path) == 1
+        assert autotune.load_winners(path, "cpu") == 0
+        q, k, v, mask, _ = _inputs(torch.bfloat16, 2, 256, 4, 64, 3)
+        bias = make_attention_bias(mask)
+        assert torch.equal(
+            kattn.flash_attention_infer(q, k, v, bias=bias),
+            kattn.flash_attention_infer(q, k, v, bias=bias, geometry=win))
+    finally:
+        autotune.clear_winners()
+
+
 @pytest.mark.parametrize("depth", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_kernel_matches_plain_version(dtype, depth):

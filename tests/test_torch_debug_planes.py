@@ -668,13 +668,14 @@ def jax_windows(serve_files):
 
 
 def test_run_server_takes_the_jax_flags_and_defaults(serve_files):
-    """Every JAX run_server flag, with its default, but autotune
-    (ROADMAP); the attention backends keep the port's names."""
+    """Every JAX run_server flag, with its default (--autotune and
+    --autotune_cache included); the attention backends keep the port's
+    names."""
     argv = ["--model_config_file", serve_files["config"], "--vocab_file",
             serve_files["vocab"]]
     jax_args = vars(jax_run_server.parse_arguments(argv))
     port_args = vars(run_server.parse_arguments(argv))
-    queued = {"autotune", "autotune_cache"}
+    queued = set()
     assert set(jax_args) - queued <= set(port_args)
     assert set(port_args) - set(jax_args) == {"device"}
     differ = {k for k in set(jax_args) - queued

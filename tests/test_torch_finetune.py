@@ -515,11 +515,44 @@ def test_runner_writes_schema_clean_telemetry(files, runner, tmp_path):
     assert Heartbeat.read(str(out / "heartbeat.json"))["step"] == steps
 
 
+class _DeviceReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("runner", ["glue", "ner", "swag"])
+def test_runner_routes_the_build_directory(files, runner, tmp_path,
+                                           monkeypatch):
+    """--compile_cache_dir (the JAX runner's flag, default "") names the
+    directory the kernel libraries and the tokenizer core are built into:
+    the run sets it first, before its device and anything that loads a
+    library; a run without it is back on the package's build/."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    module = MODULES[runner]
+    base = _runner_argv(runner, files, tmp_path / "out")
+    assert module.parse_arguments(base).compile_cache_dir == ""
+    seen = []
+
+    def reached(device):
+        seen.append(build.build_dir())
+        raise _DeviceReached
+
+    monkeypatch.setattr(finetune, "setup_device", reached)
+    cache = tmp_path / "kernels"
+    try:
+        for argv in (base + ["--compile_cache_dir", str(cache)], base):
+            with pytest.raises(_DeviceReached):
+                module.run(module.parse_arguments(argv))
+    finally:
+        build.set_build_dir(None)
+    assert seen == [cache.resolve(), build.BUILD_DIR]
+
+
 @pytest.mark.parametrize("runner", ["glue", "ner", "swag"])
 def test_runner_refuses_what_it_cannot_do(files, runner, tmp_path):
     module = MODULES[runner]
     base = _runner_argv(runner, files, tmp_path / "out")
-    for flags in (["--dtype", "float16"], ["--compile_cache_dir", "x"]):
+    for flags in (["--dtype", "float16"],):
         with pytest.raises(SystemExit):
             module.parse_arguments(base + flags)
     # BPE is taken: a vocab.json with its merges.txt beside it parses; a

@@ -475,6 +475,31 @@ def test_runner_command_line_exits_zero(shards):
     assert len(steps) == 3 and all(" finite 1 " in line for line in steps)
 
 
+def test_runner_routes_the_build_directory(shards, tmp_path):
+    """--compile_cache_dir (the JAX runner's flag, default "") names the
+    directory the kernel libraries and the tokenizer core are built into
+    and found in, set by setup_training, the first step of a run, before
+    anything loads a library; a run without it is back on the package's
+    build/."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    cache = tmp_path / "kernels"
+    assert run_pretraining.parse_arguments(
+        _run_args(shards)).compile_cache_dir == ""
+    try:
+        run_pretraining.setup_training(run_pretraining.parse_arguments(
+            _run_args(shards, "--compile_cache_dir", str(cache))))
+        assert build.build_dir() == cache.resolve()
+        assert build.library_path("flash_attention_fwd").parent == \
+            cache.resolve()
+        assert build.host_library_path("tokenizer").parent == cache.resolve()
+        run_pretraining.setup_training(
+            run_pretraining.parse_arguments(_run_args(shards)))
+        assert build.build_dir() == build.BUILD_DIR
+    finally:
+        build.set_build_dir(None)
+
+
 @pytest.mark.parametrize("phase", [1, 2])
 def test_runner_takes_the_recipe_config_files(shards, phase):
     args = run_pretraining.parse_arguments(_run_args(
@@ -488,7 +513,7 @@ def test_runner_takes_the_recipe_config_files(shards, phase):
 
 
 def test_runner_refuses_what_it_cannot_do(shards):
-    for flags in (("--rng_impl", "rbg"), ("--compile_cache_dir", "x")):
+    for flags in (("--rng_impl", "rbg"),):
         with pytest.raises(SystemExit):
             run_pretraining.parse_arguments(_run_args(shards, *flags))
     # The mesh flags are ported (tests/test_torch_parallel.py,

@@ -286,6 +286,39 @@ def _run_args(tmp, files, *extra):
             "--doc_stride", "32", "--max_query_length", "16", *extra]
 
 
+class _DeviceReached(Exception):
+    pass
+
+
+def test_runner_routes_the_build_directory(tiny_config, tmp_path,
+                                           monkeypatch):
+    """--compile_cache_dir (the JAX runner's flag, default "") names the
+    directory the kernel libraries (#6 under --layer_norm_backend kernel)
+    and the tokenizer core are built into: the run sets it first, before
+    its device and anything that loads a library; a run without it is
+    back on the package's build/."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    base = _run_args(tmp_path, tiny_config, "--do_predict", "--predict_file",
+                     str(tiny_config["v1"]))
+    assert run_squad.parse_args(base).compile_cache_dir == ""
+    seen = []
+
+    def reached(args):
+        seen.append(build.build_dir())
+        raise _DeviceReached
+
+    monkeypatch.setattr(run_squad, "setup_device", reached)
+    cache = tmp_path / "kernels"
+    try:
+        for argv in (base + ["--compile_cache_dir", str(cache)], base):
+            with pytest.raises(_DeviceReached):
+                run_squad.run(run_squad.parse_args(argv))
+    finally:
+        build.set_build_dir(None)
+    assert seen == [cache.resolve(), build.BUILD_DIR]
+
+
 @pytest.fixture(scope="module")
 def tiny_config(files):
     path = files["root"] / "tiny.json"
