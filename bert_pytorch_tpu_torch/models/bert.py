@@ -49,7 +49,10 @@ coordinate appended (the A factor, one for q/k/v) and Σ ĝĝᵀ of each layer
 output's fp32 cotangent (the G factor). Both are computed in backward
 nodes, which run once per backward whatever the remat (a forward under
 ``torch.utils.checkpoint`` runs twice). Disarmed (``kfac_sink`` None, the
-default) a tap is the identity and adds nothing to the graph.
+default) a tap is the identity and adds nothing to the graph. Under
+``model`` the taps that see a rank's slice of the features (q/k/v's
+outputs, the attention context, the MLP's intermediate) gather the slices
+over the ``model`` group before the statistic.
 
 Across ranks (parallel/): ``tp`` attributes, set by
 ``parallel/tensor_parallel.py`` ``split_model``, make a module hold its
@@ -87,9 +90,8 @@ from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
 from bert_pytorch_tpu_torch.ops.dropout import dropout
 from bert_pytorch_tpu_torch.ops.layernorm import BACKENDS as LN_BACKENDS
 from bert_pytorch_tpu_torch.ops.layernorm import layer_norm
-from bert_pytorch_tpu_torch.parallel.tensor_parallel import (copy_to,
-                                                             gather_last,
-                                                             reduce_from)
+from bert_pytorch_tpu_torch.parallel.tensor_parallel import (
+    all_gather_last, copy_to, gather_last, reduce_from)
 
 REMAT_POLICIES = ("none", "dots", "full")
 # Seeds drawn per call site from one layer seed (see _sub_seed).
@@ -136,54 +138,62 @@ class _InputStatistic(torch.autograd.Function):
     """Identity on ``x``; its backward adds Σ x̃x̃ᵀ over the rows of ``x``
     into ``out``, the K-FAC A statistic of a Dense layer consuming ``x``
     (JAX ``_kfac_input_stat``), in a backward node: once per backward,
-    also under remat, where the forward runs again."""
+    also under remat, where the forward runs again. With ``split`` (the
+    ``model`` AxisGroup of a row-split layer, whose input is this rank's
+    slice of the features) the slices are gathered whole first: the
+    cross-blocks of A need the whole vector."""
 
     @staticmethod
-    def forward(ctx, x, out):
+    def forward(ctx, x, out, split):
         ctx.save_for_backward(x)
-        ctx.out = out
+        ctx.out, ctx.split = out, split
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
         with record_function(KFAC_CAPTURE_RANGE):
-            a = _augmented(x)
+            a = _augmented(all_gather_last(x, ctx.split))
             ctx.out.addmm_(a.t(), a)
-        return grad, None
+        return grad, None, None
 
 
 class _OutputStatistic(torch.autograd.Function):
     """Identity on ``y``; its backward adds Σ ĝĝᵀ of the fp32 cotangent ĝ
-    of ``y`` [..., d] into ``out`` (JAX ``_g_factor_probe``)."""
+    of ``y`` [..., d] into ``out`` (JAX ``_g_factor_probe``); with
+    ``split`` (a column-split layer's ``model`` AxisGroup) the cotangent's
+    slices gathered whole first."""
 
     @staticmethod
-    def forward(ctx, y, out):
-        ctx.out = out
+    def forward(ctx, y, out, split):
+        ctx.out, ctx.split = out, split
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, grad):
         with record_function(KFAC_CAPTURE_RANGE):
-            g = grad.reshape(-1, grad.shape[-1]).float()
+            whole = all_gather_last(grad, ctx.split)
+            g = whole.reshape(-1, whole.shape[-1]).float()
             ctx.out.addmm_(g.t(), g)
-        return grad, None
+        return grad, None, None
 
 
-def kfac_input_tap(x: torch.Tensor, sink: Optional[dict],
-                   name: str) -> torch.Tensor:
+def kfac_input_tap(x: torch.Tensor, sink: Optional[dict], name: str,
+                   split=None) -> torch.Tensor:
     """``x``, through an A-statistic tap into ``sink[name]`` when the
-    module is armed and the factor is kept."""
+    module is armed and the factor is kept; ``split``: the ``model``
+    AxisGroup over which ``x``'s features are split (None: whole)."""
     out = None if sink is None else sink.get(name)
-    return x if out is None else _InputStatistic.apply(x, out)
+    return x if out is None else _InputStatistic.apply(x, out, split)
 
 
-def kfac_output_tap(y: torch.Tensor, sink: Optional[dict],
-                    name: str) -> torch.Tensor:
+def kfac_output_tap(y: torch.Tensor, sink: Optional[dict], name: str,
+                    split=None) -> torch.Tensor:
     """``y``, through a G-statistic tap into ``sink[name]`` when the
-    module is armed and the layer is kept."""
+    module is armed and the layer is kept; ``split`` as
+    :func:`kfac_input_tap`'s."""
     out = None if sink is None else sink.get(name)
-    return y if out is None else _OutputStatistic.apply(y, out)
+    return y if out is None else _OutputStatistic.apply(y, out, split)
 
 
 class Dense(nn.Module):
@@ -420,9 +430,13 @@ class BertSelfAttention(nn.Module):
         shape = (batch, seq, self.heads, self.head_dim)
         sink = self.kfac_sink
         x = copy_to(kfac_input_tap(hidden, sink, "attn_in_a"), self.tp)
-        q = kfac_output_tap(self.query(x), sink, "query__attn_in").view(shape)
-        k = kfac_output_tap(self.key(x), sink, "key__attn_in").view(shape)
-        v = kfac_output_tap(self.value(x), sink, "value__attn_in").view(shape)
+        # Under ``model`` q, k, v and the context hold this rank's heads.
+        tp = self.tp
+        q = kfac_output_tap(self.query(x), sink, "query__attn_in",
+                            tp).view(shape)
+        k = kfac_output_tap(self.key(x), sink, "key__attn_in", tp).view(shape)
+        v = kfac_output_tap(self.value(x), sink, "value__attn_in",
+                            tp).view(shape)
         train = dropout_seed is not None
         probs_seed = None
         if train:
@@ -437,7 +451,7 @@ class BertSelfAttention(nn.Module):
             sequence_ids=sequence_ids, dropout_seed=probs_seed,
             ring=self.ring)
         context = kfac_input_tap(context.reshape(batch, seq, -1), sink,
-                                 "attn_ctx_a")
+                                 "attn_ctx_a", tp)
         out = kfac_output_tap(self.output(context), sink, "output__attn_ctx")
         if train:
             out = dropout(out, self.hidden_dropout,
@@ -475,7 +489,7 @@ class BertLayer(nn.Module):
         attn_out = self.attention(hidden, bias, sequence_ids, dropout_seed)
         sink = self.kfac_sink
         intermediate = kfac_input_tap(self.intermediate(
-            copy_to(attn_out, self.tp)), sink, "mlp_in_a")
+            copy_to(attn_out, self.tp)), sink, "mlp_in_a", self.tp)
         out = kfac_output_tap(self.output(intermediate), sink,
                               "output__mlp_in")
         if dropout_seed is not None:
@@ -695,6 +709,28 @@ class BertForPreTraining(nn.Module):
             input_ids, token_type_ids, attention_mask, sequence_ids,
             cls_positions, dropout_seeds)
         return self.heads(sequence_output, pooled, masked_positions)
+
+    def stage_forward(self, hidden, input_ids, token_type_ids, bias,
+                      sequence_ids=None, cls_positions=None,
+                      masked_positions=None, dropout_seeds=None,
+                      first: bool = True, last: bool = True):
+        """One pipeline stage's share of :meth:`forward`
+        (parallel/pipeline.py): the embeddings on the ``first`` stage
+        (``hidden`` None), this stage's encoder layers under the attention
+        ``bias``, and on the ``last`` the heads' (MLM, NSP) logits, else
+        the hidden states to send on. Under FSDP2 it is a forward of the
+        root (parallel/sharding.py)."""
+        if first:
+            hidden = self.bert.embeddings(
+                input_ids, token_type_ids, sequence_ids,
+                None if dropout_seeds is None else dropout_seeds[0])
+        hidden = self.bert.encoder(
+            hidden, bias, sequence_ids,
+            None if dropout_seeds is None else list(dropout_seeds)[1:])
+        if not last:
+            return hidden
+        return self.heads(hidden, self.bert.pool(hidden, cls_positions),
+                          masked_positions)
 
     def heads(self, sequence_output, pooled, masked_positions=None):
         """(MLM logits, NSP logits or None) from the encoder's output and

@@ -39,15 +39,23 @@ The state's tensors are updated in place (the JAX methods return a new
 state); each method returns the state too, so call sites read as the JAX
 ones.
 
-Across ranks (``group``: the data coordinate's group, ``dcn x data x
-fsdp``, parallel/mesh.py): every rank holds the whole state. The factor
-statistics are summed over the group before the EMA (each rank's taps
-see its rows; the rows and the per-sample scale count the whole group's),
-and the inverses are split by layer over the group, (factor, layer) in
-turn, then gathered (a sum of zero-filled parts: the port of
-``kfac_state_shardings``' layer split). Under ``pipe`` the runner's stats
-pass runs on a whole-model twin and the pipeline step preconditions the
-gathered gradients (pretrain.py ``make_pp_train_step``).
+Across ranks every rank holds the whole state. ``group`` is the group
+whose ranks hold other rows or other tokens of the batch: the data
+coordinate's (``dcn x data x fsdp``, parallel/mesh.py) for a whole model,
+and for the fused capture of a split model its ``grad`` group (``x seq``:
+each seq rank's taps see its S/seq tokens). The factor statistics are
+summed over the group before the EMA; the rows and the per-sample scale
+count the ``replicas`` (the data replicas), and the inverses are split by
+layer over the group, (factor, layer) in turn, then gathered (a sum of
+zero-filled parts: the port of ``kfac_state_shardings``' split of the
+stacked factors over ``(data, fsdp)``). Under ``model`` the taps of a
+split layer gather its features over the ``model`` group before the
+statistic (models/bert.py), so the ``model`` ranks hold the same sums and
+nothing is summed over ``model``. The step preconditions whole gradients,
+gathered over FSDP shards, ``model`` parts and ``pipe`` stages
+(pretrain.py ``precondition_whole``). The runner's stats pass on a split
+or ring model runs on a whole-model twin that takes the run's weights
+gathered whole (run_pretraining.py ``prepare_kfac``).
 """
 
 from __future__ import annotations
@@ -113,18 +121,27 @@ class LayerSpec:
 
 def build_layer_specs(model: torch.nn.Module) -> Tuple[LayerSpec, ...]:
     """Every tapped Dense layer of ``model`` (modules with ``KFAC_TAPS``),
-    under the JAX tap paths, in the JAX order (sorted by path)."""
+    under the JAX tap paths, in the JAX order (sorted by path), at the
+    whole model's widths (a layer split over ``model`` counts every
+    part)."""
+    from bert_pytorch_tpu_torch.parallel.tensor_parallel import split_of
+
+    layout = getattr(model, "layout", None)
+    parts = layout.spec.model if layout is not None else 1
     found: Dict[str, dict] = {}
     for name, module in model.named_modules():
         for dense, a_name in getattr(module, "KFAC_TAPS", ()):
             parent = tuple(_LAYER.sub(".encoder.layers", name).split("."))
             g_key = "/".join(parent + (f"{dense}__{a_name}",))
-            weight = getattr(module, dense).weight
+            shape = list(getattr(module, dense).weight.shape)
+            split = split_of(f"{name}.{dense}.weight")
+            if split is not None:
+                shape[split[0]] *= parts
             spec = found.setdefault(g_key, {
                 "a_key": "/".join(parent + (f"{a_name}_a",)),
                 "kernel_path": parent + (dense, "kernel"),
                 "bias_path": parent + (dense, "bias"),
-                "a_dim": weight.shape[1] + 1, "g_dim": weight.shape[0],
+                "a_dim": shape[1] + 1, "g_dim": shape[0],
                 "stacked": _LAYER.search(name) is not None, "modules": []})
             spec["modules"].append(f"{name}.{dense}")
     return tuple(LayerSpec(g_key=key, **dict(v, modules=tuple(v["modules"])))
@@ -161,8 +178,12 @@ class KFAC:
         preconditioned (the reference's --kfac_skip_layers; the default
         skip set, predictions head and embeddings, is never tapped).
     group:
-        the data coordinate's process group across ranks (None on one
-        rank): the statistics are summed and the inverses split over it.
+        the process group whose ranks hold other rows or tokens (None on
+        one rank): the statistics are summed and the inverses split over
+        it (see the module docstring).
+    replicas:
+        the data replicas whose rows one factor update covers (the rows
+        and the per-sample scale count them); the group's size when None.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -171,7 +192,8 @@ class KFAC:
                  kl_clip: float = 0.001, inv_dtype=torch.bfloat16,
                  inv_method: str = "cholesky",
                  grad_scale: Optional[Callable[[dict], float]] = None,
-                 skip_layers: Tuple[str, ...] = (), group=None):
+                 skip_layers: Tuple[str, ...] = (), group=None,
+                 replicas: Optional[int] = None):
         if inv_method not in ("cholesky", "eigen"):
             raise ValueError(
                 f"inv_method must be cholesky|eigen, got {inv_method!r}")
@@ -189,7 +211,8 @@ class KFAC:
         self.device = next(model.parameters()).device
         self.group = group
         # The data replicas whose rows one factor update covers.
-        self.replicas = 1 if group is None else dist.get_world_size(group)
+        self.replicas = replicas or (
+            1 if group is None else dist.get_world_size(group))
 
     # ------------------------------------------------------------------ init
 
@@ -322,7 +345,7 @@ class KFAC:
         """Recompute ``qa``/``la``/``qg``/``lg`` from the factors, one layer
         at a time; across ranks each (factor, layer) on one rank of the
         group in turn, then gathered."""
-        n = self.replicas
+        n = 1 if self.group is None else dist.get_world_size(self.group)
         me = 0 if self.group is None else dist.get_rank(self.group)
         unit = 0
         for factors, ops, values in ((state.a, state.qa, state.la),

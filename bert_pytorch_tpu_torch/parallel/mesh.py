@@ -42,7 +42,6 @@ AXIS_SEQ = "seq"
 AXIS_MODEL = "model"
 
 MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_PIPE, AXIS_SEQ, AXIS_MODEL)
-ROADMAP_LAYOUTS = "ROADMAP.md, \"Multi-GPU layouts\""
 
 # Legacy strategy aliases -> the mesh axes they activate (JAX
 # parallel/mesh.py _STRATEGY_AXES; only the names matter here).

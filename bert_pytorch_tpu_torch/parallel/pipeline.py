@@ -19,11 +19,20 @@ stage sends its input's gradient to the one before). The transfers are
 point-to-point (parallel/p2p.py; through pinned host memory on gloo).
 Each stage keeps its microbatches' graphs until their backward, as
 GPipe does; ``remat`` on the encoder keeps only each layer's boundary.
+
+Under ``fsdp`` a stage's layers, heads and root are FSDP2 units over the
+stage's own ``fsdp`` group (parallel/sharding.py). A stage's share of a
+microbatch is one call of the model's ``stage_forward``, which FSDP2
+hooks as the root's forward, so the root's parameters are gathered
+before any layer runs and its gradients are reduced after its last
+use. The step holds FSDP's gradient sync off until the last
+microbatch's backward (``before_backward``), so each unit
+reduce-scatters once a step, as the JAX step reduces once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
@@ -85,34 +94,38 @@ def stage_model(model: nn.Module, pipe) -> nn.Module:
     return model
 
 
-def gpipe(n_mb: int, pipe, first: Callable, stage: Callable, last: Callable,
-          like: Callable, backward: bool = True) -> list:
+def gpipe(n_mb: int, pipe, part: Callable, like: Callable,
+          backward: bool = True,
+          before_backward: Optional[Callable[[int], None]] = None) -> list:
     """Run ``n_mb`` microbatches forward and backward through the stages.
 
-    ``first(m)`` gives microbatch m's input activations on stage 0 (in the
-    graph: the embeddings); ``stage(m, x)`` runs this stage's layers;
-    ``last(m, y)`` gives (a scalar to back-propagate, anything else) on
-    the last stage; ``like(m)`` is an empty tensor shaped as the
-    activations between stages. Returns the last stage's ``last`` results
-    (an empty list elsewhere); the parameters' ``.grad`` hold the step's
-    gradients from this stage's part of the graph. ``backward=False`` runs
-    the forward only (``last`` may then give anything: its results are
-    returned as they are)."""
+    ``part(m, x)`` runs this stage's whole share of microbatch m (one
+    call, so that an FSDP2 root sees one forward a microbatch): ``x`` is
+    the activations received from the stage before (None on stage 0,
+    which embeds the microbatch itself); on the last stage it gives (a
+    scalar to back-propagate, anything else), elsewhere the activations
+    to send on. ``like(m)`` is an empty tensor shaped as the activations
+    between stages. ``before_backward(m)`` (optional) runs before
+    microbatch m's backward on every stage. Returns the last stage's
+    ``part`` results (an empty list elsewhere); the parameters' ``.grad``
+    hold the step's gradients from this stage's part of the graph.
+    ``backward=False`` runs the forward only (``part`` may then give
+    anything on the last stage: its results are returned as they
+    are)."""
     s, n = pipe.index, pipe.size
     prev = pipe.peer(-1) if s > 0 else None
     nxt = pipe.peer(1) if s < n - 1 else None
     saved, results = [], []
     for m in range(n_mb):
-        if prev is None:
-            x = first(m)
-        else:
+        x = None
+        if prev is not None:
             (x,) = p2p.recv([like(m)], prev, pipe.group, pipe.host_staged)
             x.requires_grad_(backward)
-        y = stage(m, x)
+        y = part(m, x)
         if nxt is None and not backward:
-            results.append(last(m, y))
+            results.append(y)
         elif nxt is None:
-            loss, extra = last(m, y)
+            loss, extra = y
             saved.append((x, loss))
             results.append((loss.detach(), extra))
         else:
@@ -123,6 +136,8 @@ def gpipe(n_mb: int, pipe, first: Callable, stage: Callable, last: Callable,
         return results
     for m in range(n_mb):
         x, out = saved[m]
+        if before_backward is not None:
+            before_backward(m)
         if nxt is None:
             out.backward()
         else:

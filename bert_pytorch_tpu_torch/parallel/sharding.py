@@ -14,6 +14,17 @@ gathered from its forward to its backward. The gradients FSDP reduces are
 sums (its divide factor is 1): the train step already divides each rank's
 loss sums by the GLOBAL counts (pretrain.py).
 
+The mesh is the run's whole ``(data, fsdp, pipe, seq, model)`` mesh; FSDP2
+takes its ``(data, fsdp)`` sub-mesh, one per coordinate of the other
+axes. Under ``pipe`` the encoder holds its stage's layers only
+(parallel/pipeline.py ``stage_model``), so each stage's layers are units
+over that stage's ``fsdp`` group, and the root's ``stage_forward`` is
+registered as a forward of the root: the GPipe schedule never calls the
+root's ``forward``, and the root must run first (FSDP2's lazy init) and
+keep the tied word table gathered until its last use. Under ``seq`` FSDP2
+sums over ``data x fsdp`` only; the step adds the ``seq`` sum of the
+local shards (pretrain.py ``_sum_unreduced``).
+
 Each sharded parameter is a ``DTensor``; :func:`local` is its shard on
 this rank, :func:`row_range` the rows of the full tensor that shard holds
 (``torch.chunk`` on dimension 0 over the ``fsdp`` ranks, as FSDP2 shards).
@@ -175,7 +186,8 @@ def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     and loaded before it)."""
     if mesh is None or mesh[AXIS_FSDP].size() == 1:
         return model
-    from torch.distributed.fsdp import FSDPModule, fully_shard
+    from torch.distributed.fsdp import (FSDPModule, fully_shard,
+                                        register_fsdp_forward_method)
 
     shard_mesh = fsdp_mesh(mesh)
     units = list(model.bert.encoder.layers)
@@ -187,6 +199,9 @@ def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     for unit in units:
         fully_shard(unit, mesh=shard_mesh)
     fully_shard(model, mesh=shard_mesh)
+    # A pipeline stage's share of a microbatch is a root forward too.
+    if hasattr(model, "stage_forward"):
+        register_fsdp_forward_method(model, "stage_forward")
     for module in model.modules():
         if isinstance(module, FSDPModule):
             module.set_gradient_divide_factor(1.0)

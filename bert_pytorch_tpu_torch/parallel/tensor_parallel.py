@@ -117,21 +117,31 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+def all_gather_last(x: torch.Tensor, axis: Optional[AxisGroup]
+                    ) -> torch.Tensor:
+    """The parts ``x`` of the ``axis`` group's ranks concatenated on the
+    last dimension, in rank order (no autograd); ``x`` itself without an
+    axis."""
+    if axis is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x.contiguous(), group=axis.group)
+    return torch.cat(parts, dim=-1)
+
+
 class _GatherLast(torch.autograd.Function):
     """The group's parts concatenated on the last dimension; the gradient
     of this rank's part is its slice."""
 
     @staticmethod
-    def forward(ctx, x, group, index, size):
-        ctx.index, ctx.width = index, x.shape[-1]
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=-1)
+    def forward(ctx, x, axis):
+        ctx.index, ctx.width = axis.index, x.shape[-1]
+        return all_gather_last(x, axis)
 
     @staticmethod
     def backward(ctx, grad):
         lo = ctx.index * ctx.width
-        return grad[..., lo:lo + ctx.width].contiguous(), None, None, None
+        return grad[..., lo:lo + ctx.width].contiguous(), None
 
 
 def copy_to(x: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
@@ -143,8 +153,7 @@ def reduce_from(x: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
 
 
 def gather_last(x: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
-    return x if axis is None else _GatherLast.apply(x, axis.group,
-                                                    axis.index, axis.size)
+    return x if axis is None else _GatherLast.apply(x, axis)
 
 
 def shard_window(name: str, full_shape, axis: AxisGroup):

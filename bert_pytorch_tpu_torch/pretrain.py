@@ -40,9 +40,14 @@ its S/n slice of every row (:func:`local_inputs`): the masked positions
 are chosen over the whole row, and each rank scores those that fall in
 its slice; the NSP head reads [CLS] on seq rank 0. The masked counts,
 the loss sums and the gradients of replicated parameters are summed over
-the ``grad`` group (data coordinate x seq). ``model`` ranks run their
-parts of every layer (parallel/tensor_parallel.py). ``pipe`` runs
-:func:`make_pp_train_step`, the GPipe step (JAX ``make_pp_train_step``).
+the ``grad`` group (data coordinate x seq; under ``fsdp`` FSDP2 sums the
+shards over the data coordinate and the step adds the ``seq`` sum).
+``model`` ranks run their parts of every layer
+(parallel/tensor_parallel.py). ``pipe`` runs :func:`make_pp_train_step`,
+the GPipe step (JAX ``make_pp_train_step``). K-FAC preconditions each
+tapped layer's whole gradient on every rank, gathered over FSDP shards,
+``model`` parts and ``pipe`` stages, and keeps this rank's part
+(:func:`precondition_whole`).
 """
 
 from __future__ import annotations
@@ -58,12 +63,13 @@ import torch.distributed as dist
 from bert_pytorch_tpu_torch.models.bert import (draw_dropout_seeds,
                                                 fold_dropout_seeds)
 from bert_pytorch_tpu_torch.models.losses import pretraining_loss_sums
-from bert_pytorch_tpu_torch.parallel import pipeline
+from bert_pytorch_tpu_torch.parallel import pipeline, sharding
 from bert_pytorch_tpu_torch.parallel import state as state_lib
 from bert_pytorch_tpu_torch.parallel.mesh import (AXIS_MODEL, AXIS_PIPE,
-                                                  AXIS_SEQ, ROADMAP_LAYOUTS)
+                                                  AXIS_SEQ)
 from bert_pytorch_tpu_torch.parallel.overlap import (GradReducer,
                                                      all_reduce_flat)
+from bert_pytorch_tpu_torch.parallel.sharding import local
 from bert_pytorch_tpu_torch.optim.transforms import (DynamicLossScale,
                                                      global_norm)
 from bert_pytorch_tpu_torch.telemetry import model_stats
@@ -135,9 +141,16 @@ def microbatch_sums(model, mb: Dict[str, torch.Tensor], next_sentence: bool,
     nsp_count, mlm_correct)`` (over this rank's positions under
     ``seq``)."""
     x = local_inputs(mb, max_pred_per_seq, seq)
-    mlm_logits, nsp_logits = model(
+    return _loss_sums(model(
         x["input_ids"], x["segment_ids"], x["input_mask"], x["positions"],
-        x["sequence_ids"], x["cls_positions"], dropout_seeds)
+        x["sequence_ids"], x["cls_positions"], dropout_seeds), x,
+        next_sentence)
+
+
+def _loss_sums(logits, x: dict, next_sentence: bool):
+    """``pretraining_loss_sums`` of the heads' (MLM, NSP) ``logits`` on
+    :func:`local_inputs`' microbatch ``x``."""
+    mlm_logits, nsp_logits = logits
     return pretraining_loss_sums(
         mlm_logits, nsp_logits if next_sentence else None, x["labels"],
         x["nsp_labels"] if next_sentence else None)
@@ -235,21 +248,6 @@ def make_kfac_loss(model: torch.nn.Module, next_sentence: bool = True,
     return apply_loss
 
 
-def refuse_kfac_layout(spec) -> None:
-    """The K-FAC layouts not ported (ROADMAP.md "Multi-GPU layouts") of a
-    ``MeshSpec``: with ``fsdp`` > 1, and with ``model`` or ``seq`` > 1
-    outside a pipeline."""
-    if spec.fsdp > 1:
-        raise NotImplementedError(
-            f"--kfac with fsdp={spec.fsdp}: K-FAC's factors over FSDP "
-            f"shards wait for {ROADMAP_LAYOUTS}")
-    if spec.pipe == 1 and (spec.model > 1 or spec.seq > 1):
-        raise NotImplementedError(
-            f"--kfac with model={spec.model}, seq={spec.seq} outside a "
-            f"pipeline: the fused capture of split layers waits for "
-            f"{ROADMAP_LAYOUTS}")
-
-
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     schedule: Optional[Callable[[int], float]] = None,
@@ -303,13 +301,11 @@ def make_train_step(model: torch.nn.Module,
     ``data_parallel`` (a :class:`DataParallel`): ``batch`` holds this
     rank's rows of each microbatch and the step is the global-batch step
     of the module docstring; the metrics are global. K-FAC across ranks
-    sums its statistics over the data group (``kfac.group``); with fsdp,
-    or with model or seq outside a pipeline, it is refused. The overlap
+    sums its statistics over ``kfac.group`` (optim/kfac.py) and
+    preconditions whole gradients (:func:`precondition_whole`). The overlap
     composes with neither FSDP nor fp16 loss scaling (the JAX rule); a
     ``pipe`` axis takes :func:`make_pp_train_step`."""
     dp = data_parallel
-    if dp is not None and kfac is not None and dp.layout is not None:
-        refuse_kfac_layout(dp.layout.spec)
     if dp is not None and dp.layout is not None and dp.layout.spec.pipe > 1:
         raise ValueError("a pipe axis runs make_pp_train_step")
     if dp is not None and dp.overlap and (dp.fsdp or loss_scale):
@@ -404,12 +400,14 @@ def make_train_step(model: torch.nn.Module,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if dp is not None and dp.fsdp:
+            _sum_unreduced(params, dp)
+        for p in params:
             p.grad.div_(accum_steps)
         if kfac is not None:
-            pre = kfac.precondition(kfac_state, {n: p.grad for n, p in named},
-                                    schedule(count))
-            for name, p in named:
-                p.grad = pre[name]
+            precondition_whole(kfac, kfac_state, named,
+                               None if dp is None else dp.layout,
+                               schedule(count))
         return _update_and_metrics(
             optimizer, named, torch.stack(loss_sums), torch.stack(counts),
             batch["input_mask"], dp, seq, next_sentence, schedule, count,
@@ -506,15 +504,14 @@ def make_pp_train_step(model: torch.nn.Module,
     microbatch's local sums over its global counts, the gradients summed
     over the microbatches and divided by A, as the JAX step's mean of
     per-microbatch losses. The gradients are then summed over the
-    ``grad`` group (one flat all-reduce) and those of the replicated
-    parameters (embeddings, heads) over ``pipe``. The metrics are the
-    last stage's, handed to every stage.
+    ``grad`` group (one flat all-reduce; under ``fsdp`` FSDP2's
+    reduce-scatter in the last microbatch's backward, then the ``seq``
+    sum) and those of the replicated parameters (embeddings, heads) over
+    ``pipe``. The metrics are the last stage's, handed to every stage.
 
     ``kfac`` (stats flow only, as the JAX runner falls back under
-    ``pipe``): the averaged gradients of the tapped layers are gathered
-    whole (over ``model`` and ``pipe``; parallel/state.py), preconditioned
-    on every rank alike, and each rank keeps its part. fp16 loss scaling
-    is refused with a pipeline, as in JAX."""
+    ``pipe``): :func:`precondition_whole`. fp16 loss scaling is refused
+    with a pipeline, as in JAX."""
     dp = data_parallel
     if dp is None or dp.layout is None or dp.layout.spec.pipe < 2:
         raise ValueError("make_pp_train_step needs a layout with pipe >= 2")
@@ -523,11 +520,8 @@ def make_pp_train_step(model: torch.nn.Module,
                          "parallelism; use bf16 (the JAX rule)")
     if kfac is not None and schedule is None:
         raise ValueError("kfac preconditioning requires a schedule")
-    if kfac is not None:
-        refuse_kfac_layout(dp.layout.spec)
     layout = dp.layout
     pipe, seq = layout.axis(AXIS_PIPE), layout.axis(AXIS_SEQ)
-    model_axis = layout.axis(AXIS_MODEL)
     num_layers = model.config.num_hidden_layers
     generator = generator or torch.Generator().manual_seed(0)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
@@ -555,27 +549,35 @@ def make_pp_train_step(model: torch.nn.Module,
                               for x in inputs])
         if dp.group is not None:
             dist.all_reduce(counts, group=dp.group)
-        first, stage, loss_sums, like = _stage_fns(model, inputs, seeds,
-                                                   next_sentence)
+        part, like = _stage_fns(model, inputs, seeds, pipe)
 
-        def last(a, hidden):
-            mlm_sum, _, nsp_sum, _, correct = loss_sums(a, hidden)
+        def stage(a, hidden):
+            out = part(a, hidden)
+            if not is_last:
+                return out
+            mlm_sum, _, nsp_sum, _, correct = _loss_sums(
+                out, inputs[a], next_sentence)
             loss = _mean_loss(mlm_sum, nsp_sum, counts[a], next_sentence)
             return loss, torch.stack([mlm_sum.detach(), nsp_sum.detach(),
                                       correct.float()])
 
-        results = pipeline.gpipe(accum_steps, pipe, first, stage, last, like)
+        def before_backward(a):
+            # FSDP reduces once a step, in the last microbatch's backward.
+            model.set_requires_gradient_sync(a == accum_steps - 1)
+
+        results = pipeline.gpipe(accum_steps, pipe, stage, like,
+                                 before_backward=(before_backward if dp.fsdp
+                                                  else None))
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if dp.group is not None:
-            all_reduce_flat([p.grad for p in params], dp.group)
-        all_reduce_flat([p.grad for p in replicated], pipe.group)
+        _sum_unreduced(params, dp)
+        all_reduce_flat([local(p.grad) for p in replicated], pipe.group)
         for p in params:
             p.grad.div_(accum_steps)
         if kfac is not None:
-            _pp_precondition(kfac, kfac_state, named, model_axis, pipe,
-                             num_layers, float(schedule(count)))
+            precondition_whole(kfac, kfac_state, named, layout,
+                               float(schedule(count)))
         sums = (torch.stack([r[1] for r in results]) if is_last else
                 torch.zeros((accum_steps, 3), device=counts.device))
         return _update_and_metrics(
@@ -587,33 +589,22 @@ def make_pp_train_step(model: torch.nn.Module,
     return step
 
 
-def _stage_fns(model, inputs: list, seeds: Optional[list],
-               next_sentence: bool):
-    """``pipeline.gpipe``'s (first, stage, last, like) over microbatches
-    ``inputs`` (:func:`local_inputs`' dicts) with their dropout ``seeds``
-    (None: no dropout); ``last(m, hidden)`` gives the heads'
-    ``pretraining_loss_sums``."""
+def _stage_fns(model, inputs: list, seeds: Optional[list], pipe):
+    """``pipeline.gpipe``'s (part, like) over microbatches ``inputs``
+    (:func:`local_inputs`' dicts) with their dropout ``seeds`` (None: no
+    dropout): ``part(m, x)`` is one ``stage_forward`` call (models/bert.py),
+    on the last stage the heads' (MLM, NSP) logits."""
     bert = model.bert
     biases = [bert.attention_bias(x["input_ids"], x["input_mask"],
                                   x["sequence_ids"]) for x in inputs]
+    first, last = pipe.index == 0, pipe.index == pipe.size - 1
 
-    def first(a):
+    def part(a, hidden):
         x = inputs[a]
-        return bert.embeddings(x["input_ids"], x["segment_ids"],
-                               x["sequence_ids"],
-                               None if seeds is None else seeds[a][0])
-
-    def stage(a, hidden):
-        return bert.encoder(hidden, biases[a], inputs[a]["sequence_ids"],
-                            None if seeds is None else seeds[a][1:])
-
-    def last(a, hidden):
-        x = inputs[a]
-        mlm_logits, nsp_logits = model.heads(
-            hidden, bert.pool(hidden, x["cls_positions"]), x["positions"])
-        return pretraining_loss_sums(
-            mlm_logits, nsp_logits if next_sentence else None, x["labels"],
-            x["nsp_labels"] if next_sentence else None)
+        return model.stage_forward(
+            hidden, x["input_ids"], x["segment_ids"], biases[a],
+            x["sequence_ids"], x["cls_positions"], x["positions"],
+            None if seeds is None else seeds[a], first=first, last=last)
 
     def like(a):
         ids = inputs[a]["input_ids"]
@@ -621,24 +612,48 @@ def _stage_fns(model, inputs: list, seeds: Optional[list],
                            dtype=bert.embeddings.word_embeddings.dtype,
                            device=ids.device)
 
-    return first, stage, last, like
+    return part, like
 
 
-def _pp_precondition(kfac, kfac_state, named, model_axis, pipe,
-                     num_layers: int, lr: float) -> None:
-    """K-FAC under ``pipe``: the tapped layers' averaged gradients
-    gathered whole, preconditioned (identically on every rank), and this
-    rank's parts put back."""
+def _sum_unreduced(params, dp: DataParallel) -> None:
+    """Sum the gradients of ``params`` over the part of the ``grad`` group
+    that the step's own reduction left out: all of it without FSDP (one
+    flat all-reduce); under FSDP2, which sums over ``data x fsdp``, the
+    ``seq`` group (one flat all-reduce of the local shards)."""
+    group = dp.group
+    if dp.fsdp:
+        group = dp.layout.groups[AXIS_SEQ] if dp.layout is not None else None
+    if group is not None:
+        all_reduce_flat([local(p.grad) for p in params], group)
+
+
+def precondition_whole(kfac, kfac_state, named, layout, lr: float) -> None:
+    """K-FAC's preconditioning of the tapped layers' averaged gradients
+    (``.grad`` of ``named``, in place) on a split model: each is gathered
+    whole, over its FSDP shards (parallel/sharding.py ``gather_like``),
+    then its ``model`` parts and ``pipe`` stages (parallel/state.py),
+    preconditioned alike on every rank (so the kl-clip sum counts every
+    parameter once), and this rank's part put back. ``layout`` None (one
+    process) or a layout that splits nothing preconditions in place."""
+    if layout is None or not (layout.model_parallel or layout.spec.fsdp > 1):
+        pre = kfac.precondition(kfac_state, {n: p.grad for n, p in named},
+                                lr)
+        for name, p in named:
+            p.grad = pre[name]
+        return
     tapped = {f"{m}.{leaf}" for spec in kfac.specs for m in spec.modules
               for leaf in ("weight", "bias")}
-    mine = {n: p.grad for n, p in named if n in tapped}
-    full = state_lib.gather_full(mine, model_axis, pipe, num_layers)
+    mine = {n: p for n, p in named if n in tapped}
+    whole = {n: sharding.gather_like(local(p.grad), p)
+             for n, p in sorted(mine.items())}
+    full = state_lib.gather_full(whole, layout.axis(AXIS_MODEL),
+                                 layout.axis(AXIS_PIPE),
+                                 kfac.model.config.num_hidden_layers)
     pre = kfac.precondition(kfac_state, full, lr)
-    for name, p in named:
-        if name in mine:
-            p.grad = state_lib.local_state(pre, [name], model_axis)[
-                name].contiguous()
-
+    model_axis = layout.axis(AXIS_MODEL)
+    for name, p in mine.items():
+        part = state_lib.local_state(pre, [name], model_axis)[name]
+        p.grad = sharding.as_like(part.contiguous(), p)
 
 
 def make_eval_step(model: torch.nn.Module, next_sentence: bool = True,
@@ -654,12 +669,14 @@ def make_eval_step(model: torch.nn.Module, next_sentence: bool = True,
     pipe = dp.axis(AXIS_PIPE) if dp is not None else None
 
     def pp_sums(batch):
-        first, stage, loss_sums, like = _stage_fns(
-            model, [local_inputs(batch, None, seq)], None, next_sentence)
+        x = local_inputs(batch, None, seq)
+        part, like = _stage_fns(model, [x], None, pipe)
+        last = pipe.index == pipe.size - 1
         results = pipeline.gpipe(
-            1, pipe, first, stage,
-            lambda a, hidden: torch.stack(
-                [v.float() for v in loss_sums(a, hidden)]),
+            1, pipe, lambda a, hidden: (
+                torch.stack([v.float() for v in _loss_sums(
+                    part(a, hidden), x, next_sentence)]) if last
+                else part(a, hidden)),
             like, backward=False)
         sums = (results[0] if results else
                 torch.zeros(5, device=batch["input_ids"].device))

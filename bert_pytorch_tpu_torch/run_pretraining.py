@@ -80,10 +80,14 @@ strided rows of microbatch 0 on those steps, then the inverses, then the
 step. Both fire on the first step. Checkpoints carry the state as
 ``preconditioner``; a ``--kfac`` resume restores it and recomputes the
 inverses from the restored factors, a resume without ``--kfac`` skips it.
-Across ranks the statistics are summed over the data replicas and the
-inverses split by layer over them (optim/kfac.py); under ``pipe`` the
-capture falls back to ``stats`` (logged, as the JAX runner does), on a
-whole-model twin that takes the run's weights before each pass.
+Across ranks the statistics are summed over the data replicas (and
+under ``seq`` the token shards) and the inverses split by layer over
+them, the taps of a layer split over ``model`` gather its features, and
+the step preconditions whole gradients (optim/kfac.py); under ``pipe``
+the capture falls back to ``stats`` (logged, as the JAX runner does).
+The stats pass of a model split over ``fsdp``, ``pipe`` or ``model``, or
+on the ring, runs on a whole-model twin that takes the run's weights
+gathered whole before each pass.
 
 Telemetry (telemetry/, the JAX runner's flags and defaults: window 20,
 sync every 4): ``<output_dir>/<log_prefix>.txt`` keeps the log lines,
@@ -139,11 +143,11 @@ fails the first K shard reads (tools/chaos_run.py drives them).
 on-the-fly packing's limit, and ``--checkpoint_activations`` is
 ``--remat full``.
 
-Not ported yet, so rejected rather than ignored, before the rendezvous
-(every rank prints the refusal): ``--kfac`` with ``fsdp`` > 1, or with
-``model`` or ``seq`` > 1 outside a pipeline, and ``fsdp`` > 1 with
-``pipe`` or ``seq`` > 1, are refused naming ROADMAP.md's "Multi-GPU
-layouts";
+Every ``--mesh`` product the JAX runner takes runs, ``--kfac`` under each
+of them; the JAX runner's own refusals are made before the rendezvous
+(every rank prints them): ``--overlap_grad_reduce`` outside a plain data
+mesh, ``--dtype float16`` with a pipeline or with K-FAC, and packing with
+``seq``. Not ported yet, so rejected rather than ignored:
 ``--telemetry_cost_analysis`` (a bench leg), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
 port draws Philox (the kernels' dropout, keyed by coordinates); argparse
 refuses the flags it does not know. ``attention_backend "pallas"`` in a
@@ -456,16 +460,9 @@ def mesh_spec(args) -> mesh_lib.MeshSpec:
 
 def refuse_layout(args, spec: mesh_lib.MeshSpec) -> None:
     """The layout's refusals, from flags alone (raised before the
-    rendezvous, on every rank): the ones ROADMAP.md's "Multi-GPU layouts"
-    lists, the overlap outside the plain dp path and fp16 with a pipeline
-    (the JAX runner's rules)."""
-    if args.kfac:
-        pretrain.refuse_kfac_layout(spec)
-    if spec.fsdp > 1 and (spec.pipe > 1 or spec.seq > 1):
-        raise NotImplementedError(
-            f"fsdp={spec.fsdp} with pipe={spec.pipe}, seq={spec.seq}: FSDP2 "
-            "over pipeline stages and sequence shards waits for "
-            f"{mesh_lib.ROADMAP_LAYOUTS}")
+    rendezvous, on every rank): the overlap outside the plain dp path and
+    fp16 with a pipeline (the JAX runner's rules). Every other product of
+    the mesh axes, with or without ``--kfac``, is taken."""
     if args.overlap_grad_reduce and (
             spec.active_axes() - {mesh_lib.AXIS_DATA}
             or args.kfac or args.dtype == "float16"):
@@ -676,19 +673,30 @@ def mask_token_id(config) -> int:
 
 def prepare_kfac(args, model, config):
     """(KFAC, its zeroed state) with ``--kfac``, else (None, None) (JAX
-    run_pretraining.py:725-785). Across ranks it sums over the data
-    replicas' group; under ``pipe`` the capture falls back to the stats
-    pass (logged) on a whole-model twin, which takes the run's weights
-    whole before each factor update (:func:`whole_parts`)."""
+    run_pretraining.py:725-785). Under ``pipe`` the capture falls back to
+    the stats pass (logged), as the JAX runner's. The fused capture runs
+    on the run's model, split or not, and sums over the ``grad`` group
+    (the data replicas, and under ``seq`` the token shards); the stats
+    pass of a model split over ``fsdp``, ``pipe`` or ``model``, or on the
+    ring, runs on a whole-model twin, which takes the run's weights
+    gathered whole before each factor update (:func:`whole_parts` of
+    ``sharding.full_state_dict``), and sums over the data replicas."""
     if not args.kfac:
         return None, None
     layout = getattr(args, "layout", None)
     tapped = model
-    if args.mesh_spec.pipe > 1:
-        if args.kfac_capture == "train":
-            log({"event": "kfac_capture", "was": "train", "now": "stats",
-                 "reason": "pipeline parallelism has no fused capture"})
-            args.kfac_capture = "stats"
+    if args.mesh_spec.pipe > 1 and args.kfac_capture == "train":
+        log({"event": "kfac_capture", "was": "train", "now": "stats",
+             "reason": "pipeline parallelism has no fused capture"})
+        args.kfac_capture = "stats"
+    group = None
+    if layout is not None:
+        # The fused capture's taps see this rank's rows and, under seq,
+        # its tokens; the twin sees the data coordinate's whole rows.
+        group = layout.groups["grad" if args.kfac_capture == "train"
+                              else "batch"]
+    split = args.mesh_spec.active_axes() - {mesh_lib.AXIS_DATA}
+    if args.kfac_capture == "stats" and split:
         tapped = BertForPreTraining(
             config, dtype=DTYPES[args.dtype],
             attention_backend=("auto" if args.attention_backend == "ring"
@@ -698,7 +706,7 @@ def prepare_kfac(args, model, config):
                 damping=args.kfac_damping, kl_clip=args.kfac_kl_clip,
                 inv_method=args.kfac_inv_method,
                 skip_layers=tuple(args.kfac_skip_layers),
-                group=layout.groups["batch"] if layout is not None else None)
+                group=group, replicas=getattr(args, "n_data", 1))
     kfac_state = kfac.init()
     log({"event": "kfac", "layer_groups": len(kfac.specs),
          "capture": ("train (fused)" if args.kfac_capture == "train"

@@ -207,7 +207,8 @@ Phases (any failure exits non-zero and prints no result line):
 14. the serving fleet (``drive_fleet``): the port's chaos harness
    (``bert_pytorch_tpu_torch/tools/chaos_serve.py``, a torch-free
    parent) as a subprocess, its ``run_server`` replicas on the card at
-   BERT-large width (bf16, ``--attention_backend flash_infer``, classify,
+   BERT-large width and ``FLEET_LAYERS`` (6) layers since PR 20 (bf16,
+   ``--attention_backend flash_infer``, classify,
    ``--buckets 128 --max_batch_size 8``), each mode with a fresh
    ``--compile_cache_dir``: 14a ``--smoke`` (two replicas; SIGKILL in
    the admission window, a wedge caught by the heartbeat watchdog, a
@@ -218,10 +219,11 @@ Phases (any failure exits non-zero and prints no result line):
    SIGKILL mid-surge, a drained scale-down). Each verdict must be ok:
    zero client-visible failures, zero torn serves, ``compiles_cold`` 0
    on the restarts, swaps and the scale-up, one cold build of
-   ``flash_attention_infer`` across the first replicas (the build
-   lock), the report gates exiting 1 on their breach copies and 0 on
-   the clean ones; 14a's capture must hold 24 #4 kernel events per
-   ``serve_forward`` range in its trace and no more than the launches
+   ``flash_attention_infer`` across 14a's first replicas (the build
+   lock; since PR 20 14b and 14c start from a compile dir seeded with
+   that build, and build nothing), the report gates exiting 1 on their breach copies and 0 on
+   the clean ones; 14a's capture must hold one #4 kernel event per layer
+   per ``serve_forward`` range in its trace and no more than the launches
    the replica counted around it, and the replica's compile records
    must name the library. The replicas' card memory: each one's
    allocator peak from its ``/statsz``, and the card's least free memory
@@ -254,24 +256,25 @@ Phases (any failure exits non-zero and prints no result line):
    ``launches_feed_eval`` (15c's held-out forwards, counted around each of
    that run's held-out passes);
 16. RoBERTa-large and the text path (``drive_roberta``), the repo's
-   ``configs/roberta_large_cased_config.json`` at full width and depth
-   (no NSP, byte-level BPE), bf16, seeded random weights: 16a a cold
+   ``configs/roberta_large_cased_config.json`` at full width and, since
+   PR 20, ``ROBERTA_LAYERS`` (6) layers (no NSP, byte-level BPE), bf16,
+   seeded random weights: 16a a cold
    build of the C++ tokenizer core into a fresh build directory (its
    ``compile`` record), then ``make_synthetic_text`` -> ``shard`` ->
    ``build_vocab --tokenizer bpe``, its ``[MASK]`` moved to the last id
    as the published vocab's mask token is; 16b ``run_pretraining.main``
    in phase 6's shape on that vocab (4 steps, the mask id the run logs
-   the tokenizer's ``[MASK]`` and not 4, no NSP loss, 96/48/48 launches of #1/#2/#3
-   per step, a final sync save); 16c ``run_glue`` MRPC ``--tokenizer
+   the tokenizer's ``[MASK]`` and not 4, no NSP loss, 4/2/2 launches of
+   #1/#2/#3 per layer per step, a final sync save); 16c ``run_glue`` MRPC ``--tokenizer
    bpe`` from it (3 steps of 32 at S=128, final save); 16d ``run_server
-   --tasks classify,fill_mask`` from both checkpoints over HTTP (24
-   launches of #4 per forward, the classify logits the GLUE model's
+   --tasks classify,fill_mask`` from both checkpoints over HTTP (one
+   launch of #4 per layer per forward, the classify logits the GLUE model's
    within ``GLUE_SERVE_ATOL``, the fill_mask top-k held against the same
    model with dense attention on the same features, the handler's
    decode of known in-vocab top-k ids); 16e ``tools/batch_infer`` on a
    file of the same 32 requests in runs of one task, packed up to 8 a
-   batch, each result 16d's answer within the tolerances, 24 launches of
-   #4 per forward. #1-#4 carry
+   batch, each result 16d's answer within the tolerances, one launch of
+   #4 per layer per forward. #1-#4 carry
    ``launches_roberta`` (16b's and 16d's), #4 also
    ``launches_roberta_batch_infer`` (16e's);
 17. pretraining across ranks (``drive_mesh``), each part a
@@ -331,11 +334,33 @@ Phases (any failure exits non-zero and prints no result line):
    ``--autotune measure``; 24 launches of the path's kernel per forward
    in each (``/statsz``, the measurement's launches left out). #4 and
    #5 carry ``geometries`` (each candidate's time and error), ``winner``
-   (per S) and ``launches_autotune`` (A's, D's).
+   (per S) and ``launches_autotune`` (A's, D's);
+20. the last pretraining layouts (``drive_layouts``), 4 ranks sharing
+   the card over gloo at BERT-large width and 6 layers, 16 rows a step,
+   the runner's own functions, in phase 18's ``torch.distributed.run``
+   (each rank runs 18's parts, then 20's: ``drive_phases_18_and_20``;
+   the ranks start once): 20a ``--mesh fsdp=2,pipe=2`` (GPipe over 2 stages of 3
+   layers, each stage's layers FSDP2 units on its fsdp group), 2 steps
+   at dropout 0, the first loss within ``P17_LOSS_RTOL`` of one
+   process's step on the same rows, the ranks' losses and state digests
+   equal, a sharded save resumed at world size 1 with the same digest;
+   20b ``--mesh fsdp=2,seq=2`` at S=512 (the ring inside FSDP2 units),
+   one step at dropout 0 (the same bar) and one at 0.1 (finite); 20c
+   ``--mesh fsdp=2,model=2 --kfac`` and 20d ``--mesh dp=2,seq=2
+   --kfac`` (the fused capture, factors and inverses every step), 2 steps
+   each, the K-FAC digests equal on the 4 ranks, the first whole update
+   within ``P18_KFAC_UPDATE_RTOL`` of one process's and phase 18's
+   planted fault beyond it. Each rank counts its launches: #1-#3 2/1/1 a
+   layer a microbatch for its layers in 20a (3, all heads) and 20c (6,
+   H/2 heads), none in 20b and 20d; the training kernels carry rank 0's
+   as ``launches_mesh_fsdp_pp``, ``launches_mesh_fsdp_sp``,
+   ``launches_mesh_fsdp_kfac_tp`` and ``launches_mesh_kfac_sp``.
 
-``python3 chip_smoke.py --only 18`` runs phase 18 alone, and ``--only 19``
-phase 19 (the kernels built, the phase, its result line; none of the
-contract's lines).
+``python3 chip_smoke.py --only 18`` runs phase 18 alone, ``--only 19``
+phase 19 and ``--only 20`` phase 20 (the kernels built, the phase, its
+result line; none of the contract's lines); ``--only 14 [--fleet_layers
+N]`` runs phase 14 (its replicas build #4 themselves) at FLEET_LAYERS
+layers or at N.
 
 Every launch counter is set to 0 just before each main path and read just
 after it (phase 14's and 19b's counters live in their replicas, fresh
@@ -3976,12 +4001,19 @@ def drive_replica_drain(vocab: str, root: str, card: str) -> dict:
 # BERT-large width: 14a --smoke (SIGKILL in admission, wedge, kill mid-drain,
 # kill mid-swap, a /profilez capture under a steady burst), 14b --canary
 # (publish, canary, promote, breach -> rollback), 14c --surge (scale-up under
-# a burst, SIGKILL mid-surge, scale-down). Each mode has its own fresh
-# --compile_cache_dir: the first replicas build flash_attention_infer once
-# between them (the build lock), every later start and swap builds nothing.
-FLEET_ARGS = ("--device", "cuda", "--model_config_file", CONFIG,
-              "--dtype", "bfloat16", "--attention_backend", "flash_infer",
-              "--buckets", "128", "--max_batch_size", "8")
+# a burst, SIGKILL mid-surge, scale-down). Each mode has its own
+# --compile_cache_dir: 14a's starts empty, and its first replicas build
+# flash_attention_infer once between them (the build lock); 14b's and 14c's
+# start with a copy of that build (a cold nvcc is ~13-16 s a mode); every
+# later start and swap builds nothing.
+FLEET_ARGS = ("--device", "cuda", "--dtype", "bfloat16",
+              "--attention_backend", "flash_infer", "--buckets", "128",
+              "--max_batch_size", "8")
+# The replicas' depth, cut from BERT-large's 24 to make room for phase 20
+# (width stays BERT-large's): the supervisor, router, autoscaler, swaps,
+# kills and the capture are the same code at any depth; a replica's start
+# and forward are what shrink.
+FLEET_LAYERS = 6
 # Burst sizes cut from the JAX harness's defaults to keep phase 14 near
 # 240 s (width and depth stay BERT-large's): phase A 50 -> 40 requests,
 # phase C 30 -> 24, phase D 24 -> 16, the surge's recovery burst 60 -> 40.
@@ -4004,12 +4036,13 @@ CHAOS_SERVE = os.path.join(REPO, "bert_pytorch_tpu_torch", "tools",
 GIB = 1 << 30
 
 
-def run_chaos(label: str, mode_args, workdir: str) -> tuple:
+def run_chaos(label: str, mode_args, workdir: str, config: str) -> tuple:
     """One chaos_serve mode as a subprocess in its own process group (its
-    replicas with it, so a timeout stops them all); returns (verdict, the
-    card's least free memory while it ran, read each second, seconds)."""
+    replicas with it, so a timeout stops them all) serving the model
+    config ``config``; returns (verdict, the card's least free memory
+    while it ran, read each second, seconds)."""
     cmd = [sys.executable, CHAOS_SERVE, *mode_args, *FLEET_ARGS,
-           "--workdir", workdir]
+           "--model_config_file", config, "--workdir", workdir]
     t0 = time.perf_counter()
     least_free = torch.cuda.mem_get_info()[0]
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
@@ -4089,26 +4122,42 @@ def read_jsonl(path: str) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
-def drive_fleet(root: str, card: str) -> dict:
+def drive_fleet(root: str, card: str, layers: int = FLEET_LAYERS) -> dict:
     """Phase 14: chaos_serve's three modes on the card (FLEET_MODES),
     each held to its own verdict and to the checks below; the card's free
     memory must come back to within 1 GiB of its value before the phase
-    once every fleet has stopped."""
-    with open(CONFIG) as f:
-        layers = json.load(f)["num_hidden_layers"]
+    once every fleet has stopped. The replicas run BERT-large's width at
+    ``layers`` layers."""
+    config_dir = os.path.join(root, "fleet_config")
+    os.makedirs(config_dir, exist_ok=True)
+    config = cut_config(config_dir, num_hidden_layers=layers)
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
     out = {}
+    # 14a's replicas build #4 cold under the lock; 14b and 14c start from
+    # a compile dir seeded with that build, so no later replica runs nvcc.
+    seed = os.path.join(root, "fleet_built")
+    os.makedirs(seed, exist_ok=True)
     for label, mode_args in FLEET_MODES:
         workdir = os.path.join(root, f"fleet_{label}")
-        verdict, least_free, seconds = run_chaos(label, mode_args, workdir)
+        first = not os.listdir(seed)
+        if not first:
+            shutil.copytree(seed, os.path.join(workdir, "compile_cache"))
+        verdict, least_free, seconds = run_chaos(label, mode_args, workdir,
+                                                 config)
         builds = verdict.get("first_builds")
         launches = verdict.get("kernel_launches", {}).get(
             "flash_attention_infer", 0)
-        if builds != {"flash_attention_infer": 1} or launches <= 0:
+        if builds != ({"flash_attention_infer": 1} if first else {}) or (
+                launches <= 0):
             raise AssertionError(f"{label}: first builds {builds}, #4 "
                                  f"launches {launches}")
+        if first:
+            cache = os.path.join(workdir, "compile_cache")
+            for name in os.listdir(cache):
+                if name.endswith(".so"):
+                    shutil.copy(os.path.join(cache, name), seed)
         if label == "14a":
             if not (verdict["phase_a"]["admit_hold_observed"]
                     and verdict["drain"]["rcs"]["0"] == 75
@@ -4690,6 +4739,10 @@ ROBERTA = os.path.join(REPO, "configs", "roberta_large_cased_config.json")
 # 200 articles), shards of 100 kB, a BPE vocab of at most 2000 entries.
 TEXT_FILES, TEXT_ARTICLES, TEXT_SHARD_BYTES, BPE_VOCAB = 4, 200, 100_000, 2000
 ROBERTA_STEPS = 4
+# The depth 16b-16e run at, cut from the published 24 to keep the smoke in
+# its time since PR 20 (width, heads, FFN, vocab and the text path stay the
+# published ones): the checkpoints, loads and steps shrink, not the code.
+ROBERTA_LAYERS = 6
 ROBERTA_DATA_SEED = 16
 # 16c: MRPC at the GLUE recipe, 3 steps of 32.
 ROBERTA_GLUE = (32, 96)
@@ -4699,7 +4752,7 @@ ROBERTA_GLUE = (32, 96)
 ROBERTA_REQUESTS = 32
 # The served fill_mask slots against the dense run of the same model on
 # the same features, as log-probabilities: both bf16, so the two differ
-# by bf16 rounding in 24 layers of attention, GLUE_SERVE_ATOL on a logit,
+# by bf16 rounding in the layers' attention, GLUE_SERVE_ATOL on a logit,
 # twice that once the logsumexp moves too. Two ids whose reference
 # log-probabilities lie within twice this are a tie at bf16 precision,
 # and may trade places in a top-k.
@@ -4871,7 +4924,8 @@ def check_offline_answers(results: list, answers: list, refs: dict
 
 def drive_roberta(kernels: dict, root: str, card: str) -> dict:
     """Phase 16: RoBERTa-large through the text path, at full width and
-    depth (cut: 4 pretraining steps of the recipe, local batch 8 x 2).
+    ROBERTA_LAYERS layers (cut: 4 pretraining steps of the recipe, local
+    batch 8 x 2).
 
     16a: a cold build of the tokenizer core into a fresh build directory
     (its ``compile`` record and seconds), then make_synthetic_text ->
@@ -4882,13 +4936,15 @@ def drive_roberta(kernels: dict, root: str, card: str) -> dict:
     16b: run_pretraining.main on the RoBERTa config with that vocab, in
     phase 6's shape on SyntheticPretrainingDataset rows masked with the
     runner's mask id: the id it logs is the C++ tokenizer's [MASK] and
-    not 4, no NSP loss anywhere, finite losses, 96/48/48 launches of #1/#2/#3 per
-    step on the tensor cores, one sync save at the end.
+    not 4, no NSP loss anywhere, finite losses, 4/2/2 launches of
+    #1/#2/#3 per layer per step on the tensor cores, one sync save at the
+    end.
     16c: run_glue MRPC --tokenizer bpe from that checkpoint at the
     recipe (S=128, batch 32, 3 steps) with its final save.
     16d: run_server --tasks classify,fill_mask (flash_infer) from 16c's
     and 16b's checkpoints: a concurrent wave, then the 32 requests one at
-    a time, over HTTP; 24 launches of #4 per forward; the classify logits
+    a time, over HTTP; one launch of #4 per layer per forward; the
+    classify logits
     of a dev row equal the GLUE model's within GLUE_SERVE_ATOL; each
     fill_mask answer a top-k of the same model run with dense attention
     on the same features (check_fill_mask), every token the vocab entry
@@ -4898,8 +4954,8 @@ def drive_roberta(kernels: dict, root: str, card: str) -> dict:
     fill_mask, then one of classify) and checkpoints: its plans pack
     several requests to a forward; each result is 16d's answer (classify
     log-probabilities within 2 x GLUE_SERVE_ATOL, fill_mask ids rank for
-    rank up to ties of the reference, and held to it as in 16d); 24
-    launches of #4 per forward."""
+    rank up to ties of the reference, and held to it as in 16d); one
+    launch of #4 per layer per forward."""
     import gc
 
     from bert_pytorch_tpu_torch import run_glue, run_pretraining
@@ -4980,7 +5036,8 @@ def drive_roberta(kernels: dict, root: str, card: str) -> dict:
         published = json.load(f)
     config = os.path.join(work, "roberta.json")
     with open(config, "w", encoding="utf-8") as f:
-        json.dump(dict(published, vocab_file=vocab), f)
+        json.dump(dict(published, vocab_file=vocab,
+                       num_hidden_layers=ROBERTA_LAYERS), f)
 
     # -- 16b: pretraining ----------------------------------------------------
     t0 = time.perf_counter()
@@ -5007,7 +5064,7 @@ def drive_roberta(kernels: dict, root: str, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     records = feed_records(pre_out)
     losses = train_losses(records)
-    layers = published["num_hidden_layers"]
+    layers = ROBERTA_LAYERS
     per_step = layers * TRAIN_ACCUM
     want = {name: 0 for name in launches}
     want.update({"flash_attention_fwd": 2 * per_step * ROBERTA_STEPS,
@@ -5470,12 +5527,24 @@ def dist_child(argv) -> int:
         spec = json.load(f)
     kernels = child_kernels()
     result = {"17a": child_17a, "17bc": child_17bc,
-              "18": child_18}[mode](spec, kernels)
+              "18": child_18, "20": child_20,
+              "18_20": child_18_20}[mode](spec, kernels)
     rank = int(os.environ["RANK"])
     with open(os.path.join(spec["out"], f"{mode}.rank{rank}.json"), "w",
               encoding="utf-8") as f:
         json.dump(result, f)
     return 0
+
+
+def child_18_20(spec: dict, kernels: dict) -> dict:
+    """Phases 18 and 20 in one torchrun rank: ``child_18`` then
+    ``child_20`` on the same process group."""
+    from bert_pytorch_tpu_torch.parallel import launcher
+
+    result = {"18": child_18(spec["18"], kernels, shutdown=False),
+              "20": child_20(spec["20"], kernels, shutdown=False)}
+    launcher.shutdown()
+    return result
 
 
 def torchrun(mode: str, nproc: int, spec: dict) -> tuple:
@@ -5779,11 +5848,25 @@ def kfac_state_digest(state) -> str:
     return digest.hexdigest()
 
 
+def whole_grads(model) -> dict:
+    """Every parameter's ``.grad`` whole, fp32 on the host (gathered over
+    FSDP, pipe and model: a collective under a layout)."""
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.parallel import sharding
+
+    named = {n: sharding.gather_like(sharding.local(p.grad), p)
+             for n, p in model.named_parameters()}
+    return {n: t.detach().float().cpu()
+            for n, t in run_pretraining.whole_parts(model)(named).items()}
+
+
 def child_18_run(kernels: dict, out: str, config: str, mesh: str,
                  steps: int, local_batch: int, extra=(),
-                 keep_first: bool = False) -> tuple:
+                 keep_first: bool = False, seed: int = P18_DATA_SEED,
+                 data_steps: int = 0) -> tuple:
     """One run of the runner's functions under ``mesh`` on the phase's
-    rows: (result, model, optimizer, args, config, kfac state)."""
+    rows (``seed``'s, ``data_steps`` steps of them: ``steps`` when 0):
+    (result, model, optimizer, args, config, kfac state)."""
     from bert_pytorch_tpu_torch import pretrain, run_pretraining
 
     args = run_pretraining.setup_training(run_pretraining.parse_arguments(
@@ -5796,8 +5879,8 @@ def child_18_run(kernels: dict, out: str, config: str, mesh: str,
     step = run_pretraining.make_step(args, model, optimizer, schedule, cfg,
                                      kfac, kfac_state)
     loader, _ = run_pretraining.prepare_dataset(
-        args, cfg, None, feed_dataset(P18_DATA_SEED, TRAIN_LOCAL_BATCH
-                                      * TRAIN_ACCUM * steps))
+        args, cfg, None, feed_dataset(seed, TRAIN_LOCAL_BATCH * TRAIN_ACCUM
+                                      * (data_steps or steps)))
     hosts = iter(loader)
     batches = [pretrain.to_device(pretrain.stack_microbatches(
         next(hosts), args.accumulation_steps), args.device)
@@ -5813,11 +5896,11 @@ def child_18_run(kernels: dict, out: str, config: str, mesh: str,
         step_s.append(time.perf_counter() - t0)
         if keep_first and i == 0:
             # The optimizer's input: the preconditioned gradients.
-            first_update = {n: p.grad.detach().float().cpu()
-                            for n, p in model.named_parameters()}
+            first_update = whole_grads(model)
     launches, routes = counted(kernels)
     result = {"losses": losses, "step_s": step_s, "launches": launches,
               "routes": routes, "backend": args.backend,
+              "data_index": args.data_index,
               "mesh": args.mesh_spec.canonical(),
               "accumulation": args.accumulation_steps,
               "attention_backend": args.attention_backend,
@@ -5887,12 +5970,13 @@ def ring_layer_check(seq, rows: int, heads: int, depth: int) -> dict:
     return out
 
 
-def child_18(spec: dict, kernels: dict) -> dict:
+def child_18(spec: dict, kernels: dict, shutdown: bool = True) -> dict:
     """18a, 18b and 18c in one of the four torchrun ranks sharing the
-    card."""
+    card (``shutdown``: leave the process group after them)."""
     from bert_pytorch_tpu_torch import run_pretraining
     from bert_pytorch_tpu_torch.parallel import launcher
 
+    t_child = time.perf_counter()
     rank = int(os.environ["RANK"])
     out = spec["out"]
     results = {}
@@ -5952,7 +6036,9 @@ def child_18(spec: dict, kernels: dict) -> dict:
     res.pop("first_update")
     res.pop("first_batch")
     results["18c"] = res
-    launcher.shutdown()
+    results["child_s"] = time.perf_counter() - t_child
+    if shutdown:
+        launcher.shutdown()
     return results
 
 
@@ -5997,7 +6083,8 @@ def single_process_step(out: str, config: str, batch: dict,
 
 def unreplicated_factors(kfac, kfac_state):
     """The planted fault: factors folded as a dp=4 rank would fold them
-    without the "x replicas" of its rows and per-sample scale."""
+    without the "x replicas" of its rows and per-sample scale (phase 20
+    holds its layouts against the same fault)."""
     fold = kfac.ema_factors
     kfac.ema_factors = lambda state, sums, rows, scale: fold(
         state, sums, rows / P18_WORLD, scale / P18_WORLD)
@@ -6017,7 +6104,23 @@ def update_rel(got: dict, want: dict) -> float:
                                 for n in want))
 
 
-def drive_model_parallel(kernels: dict, root: str, card: str) -> dict:
+def phase_spec(root: str, name: str) -> dict:
+    """A torchrun phase's directory under ``root`` and its two configs,
+    BERT-large cut to P17_LAYERS layers: ``config0`` at dropout 0 and
+    ``config`` at the config's own dropout."""
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    config0 = cut_config(out, num_hidden_layers=P17_LAYERS,
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    cut = os.path.join(out, "dropout")
+    os.makedirs(cut)
+    return {"out": out, "config0": config0,
+            "config": cut_config(cut, num_hidden_layers=P17_LAYERS)}
+
+
+def drive_model_parallel(kernels: dict, root: str, card: str,
+                         launched=None) -> dict:
     """Phase 18: the port's model-parallel pretraining, one torchrun launch
     of P18_WORLD ranks sharing the card over gloo (NCCL refuses two ranks
     on one device), at BERT-large width cut to P17_LAYERS layers.
@@ -6037,18 +6140,16 @@ def drive_model_parallel(kernels: dict, root: str, card: str) -> dict:
     P18_KFAC_UPDATE_RTOL of one process's, and one process's update with
     the planted fault beyond it. Exact launch counts of #1-#3 per rank:
     18a each rank's 3 layers (H/2 heads each), 18c all 6, 18b none (ring
-    layers launch no flash kernel)."""
+    layers launch no flash kernel). ``launched``: (spec, each rank's
+    results, seconds) of a launch shared with phase 20
+    (:func:`drive_phases_18_and_20`) instead of a launch of its own."""
     t_phase = time.perf_counter()
-    out = os.path.join(root, "model_parallel")
-    os.makedirs(out)
-    config0 = cut_config(out, num_hidden_layers=P17_LAYERS,
-                         hidden_dropout_prob=0.0,
-                         attention_probs_dropout_prob=0.0)
-    cut = os.path.join(out, "dropout")
-    os.makedirs(cut)
-    config = cut_config(cut, num_hidden_layers=P17_LAYERS)
-    ranks, run_s, _ = torchrun("18", P18_WORLD, {
-        "out": out, "config0": config0, "config": config})
+    if launched is None:
+        spec = phase_spec(root, "model_parallel")
+        ranks, run_s, _ = torchrun("18", P18_WORLD, spec)
+    else:
+        spec, ranks, run_s = launched
+    out, config0 = spec["out"], spec["config0"]
     a = [r["18a"] for r in ranks]
     per_stage = P17_LAYERS // 2
     for rank, res in enumerate(a):
@@ -6144,7 +6245,9 @@ def drive_model_parallel(kernels: dict, root: str, card: str) -> dict:
         raise AssertionError(f"18c first update {kfac_rel:.3e} off one "
                              f"process's, the planted fault {fault_rel:.3e} "
                              f"(bar {P18_KFAC_UPDATE_RTOL} between them)")
-    phase_s = time.perf_counter() - t_phase
+    # A shared launch's ranks ran this phase's part in child_s.
+    phase_s = time.perf_counter() - t_phase + (
+        0.0 if launched is None else ranks[0]["child_s"])
     log(f"[mp] 18a pipe=2,model=2 ({P18_WORLD} ranks, gloo, transport "
         f"{a[0]['transport']}), {P17_LAYERS} layers, {P18A_STEPS} steps: "
         f"losses {a[0]['losses']}, step s "
@@ -6540,6 +6643,330 @@ def drive_autotune(root: str, card: str) -> dict:
     return {"fields": fields, "serving": served, "seconds": seconds}
 
 
+# -- phase 20: the last pretraining layouts -----------------------------------
+# One torchrun launch of P18_WORLD ranks sharing the card (gloo), BERT-large
+# width cut to P17_LAYERS layers, 16 rows a step from the phase's seeded rows
+# (P20_DATA_SEED), bf16, remat dots, the runner's own functions:
+# 20a --mesh fsdp=2,pipe=2 (local batch 4 a data replica: 2 microbatches
+# through 2 stages, each stage's layers FSDP2 units on its fsdp group),
+# P20A_STEPS steps at dropout 0, then a sharded save resumed at world size 1
+# in this process; 20b --mesh fsdp=2,seq=2 at S=512 (local batch 4, 2
+# microbatches; the ring inside FSDP2 units), one step at dropout 0 and one
+# at 0.1; 20c --mesh fsdp=2,model=2 --kfac and 20d --mesh dp=2,seq=2 --kfac
+# (local batch 8, one microbatch; the fused capture, factors and inverses
+# every step), P20K_STEPS steps at dropout 0, each first update held to
+# P18_KFAC_UPDATE_RTOL against one process's and the planted fault of
+# phase 18 beyond it.
+P20A_STEPS, P20K_STEPS = 2, 2
+P20_DATA_SEED = 20
+P20_LOCAL_BATCH = TRAIN_LOCAL_BATCH // 2
+P20_KFAC_FLAGS = ("--kfac", "--kfac_factor_interval", "1",
+                  "--kfac_inv_interval", "1")
+# Each K-FAC layout: (mesh, whether its layers run flash attention).
+P20_KFAC_LAYOUTS = {"20c": ("fsdp=2,model=2", True),
+                    "20d": ("dp=2,seq=2", False)}
+
+
+def child_20(spec: dict, kernels: dict, shutdown: bool = True) -> dict:
+    """20a, 20b, 20c and 20d in one of the four torchrun ranks sharing the
+    card (``shutdown``: leave the process group after them); each rank
+    saves its first batch of each part, so the driver can lay the global
+    batch out for one process."""
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.parallel import launcher, sharding
+
+    t_child = time.perf_counter()
+    rank = int(os.environ["RANK"])
+    out = spec["out"]
+    results = {}
+
+    def keep_batch(label, res):
+        np.savez(os.path.join(out, f"batch{label}.r{rank}.npz"),
+                 **res.pop("first_batch"))
+
+    def release():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # 20a
+    res, model, optimizer, args, cfg, _ = child_18_run(
+        kernels, os.path.join(out, "fsdp_pp"), spec["config0"],
+        "fsdp=2,pipe=2", P20A_STEPS, P20_LOCAL_BATCH, seed=P20_DATA_SEED)
+    keep_batch("20a", res)
+    res["sharded"] = sharding.is_fsdp(model)
+    t0 = time.perf_counter()
+    run_pretraining.write_checkpoint(
+        os.path.join(out, "ckpt_fsdp_pp", "pretrain_ckpts"), P20A_STEPS,
+        model, optimizer, cfg, {"index": 0}, 0, layout="sharded",
+        mesh_spec=args.mesh_spec.as_dict())
+    res["sharded_save_s"] = time.perf_counter() - t0
+    res["digest"] = whole_state_digest(model, optimizer)
+    res["transport"] = args.layout.transports()
+    res.pop("first_update")
+    results["20a"] = res
+    del model, optimizer
+    release()
+    log(f"[layouts] rank {rank}: 20a done; 20b fsdp=2,seq=2")
+    # 20b: dropout 0 then 0.1, one step each
+    for label, config in (("dropout0", spec["config0"]),
+                          ("dropout", spec["config"])):
+        # 20a's rows, so one process's step on them serves both.
+        res, model, optimizer, args, cfg, _ = child_18_run(
+            kernels, os.path.join(out, f"fsdp_sp_{label}"), config,
+            "fsdp=2,seq=2", 1, P20_LOCAL_BATCH, seed=P20_DATA_SEED,
+            data_steps=P20A_STEPS)
+        keep_batch(f"20b_{label}", res)
+        res.pop("first_update")
+        res["sharded"] = sharding.is_fsdp(model)
+        res["transport"] = args.layout.transports()
+        results[f"20b_{label}"] = res
+        del model, optimizer
+        release()
+    # 20c and 20d
+    for key, (mesh, _) in P20_KFAC_LAYOUTS.items():
+        log(f"[layouts] rank {rank}: {key} {mesh} --kfac")
+        res, model, optimizer, args, cfg, kstate = child_18_run(
+            kernels, os.path.join(out, f"kfac_{key}"), spec["config0"], mesh,
+            P20K_STEPS, TRAIN_LOCAL_BATCH, P20_KFAC_FLAGS, keep_first=True,
+            seed=P20_DATA_SEED)
+        keep_batch(key, res)
+        res["kfac_digest"] = kfac_state_digest(kstate)
+        if rank == 0:
+            torch.save(res["first_update"], os.path.join(
+                out, f"update{key}.pt"))
+        res.pop("first_update")
+        results[key] = res
+        del model, optimizer, kstate
+        release()
+    results["child_s"] = time.perf_counter() - t_child
+    if shutdown:
+        launcher.shutdown()
+    return results
+
+
+def batch_digest(batch: dict) -> str:
+    """sha256 of a batch's arrays, by key."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for key, value in sorted(batch.items()):
+        digest.update(key.encode())
+        digest.update(value.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def drive_phases_18_and_20(kernels: dict, root: str, card: str) -> tuple:
+    """Phases 18 and 20 from ONE torchrun launch of P18_WORLD ranks sharing
+    the card (each rank runs ``child_18`` then ``child_20``): the ranks
+    start once, and each phase's checks are those it makes alone
+    (:func:`drive_model_parallel`, :func:`drive_layouts`). Returns (phase
+    18's result, phase 20's)."""
+    t0 = time.perf_counter()
+    spec = {"out": os.path.join(root, "phases_18_20"),
+            "18": phase_spec(root, "model_parallel"),
+            "20": phase_spec(root, "layouts")}
+    os.makedirs(spec["out"])
+    ranks, run_s, _ = torchrun("18_20", P18_WORLD, spec)
+    model_parallel = drive_model_parallel(
+        kernels, root, card, (spec["18"], [r["18"] for r in ranks], run_s))
+    torch.cuda.empty_cache()
+    layouts = drive_layouts(
+        kernels, root, card, (spec["20"], [r["20"] for r in ranks], run_s))
+    shutil.rmtree(spec["out"])
+    start_s = run_s - ranks[0]["18"]["child_s"] - ranks[0]["20"]["child_s"]
+    seconds = time.perf_counter() - t0
+    log(f"[mp] phases 18 and 20 from one torchrun of {P18_WORLD} ranks: "
+        f"launch {run_s:.1f} s (the ranks' start and exit {start_s:.1f} s), "
+        f"both phases {seconds:.1f} s on {card}")
+    for result in (model_parallel, layouts):
+        result.update(shared_launch_s=run_s, shared_start_s=start_s,
+                      shared_phases_s=seconds)
+    return model_parallel, layouts
+
+
+def global_first_batch(out: str, label: str, ranks: list) -> dict:
+    """The global first batch of part ``label``: each data coordinate's
+    rows (from the first rank that holds it), concatenated in coordinate
+    order along the rows of every microbatch, on the card."""
+    firsts = {}
+    for rank, res in enumerate(ranks):
+        firsts.setdefault(res["data_index"], rank)
+    parts = [np.load(os.path.join(out, f"batch{label}.r{r}.npz"))
+             for _, r in sorted(firsts.items())]
+    return {k: torch.from_numpy(np.concatenate([p[k] for p in parts],
+                                               axis=1)).cuda()
+            for k in parts[0]}
+
+
+def drive_layouts(kernels: dict, root: str, card: str,
+                  launched=None) -> dict:
+    """Phase 20: the last pretraining layouts, one torchrun launch of
+    P18_WORLD ranks sharing the card over gloo, at BERT-large width cut to
+    P17_LAYERS layers.
+
+    20a: ``--mesh fsdp=2,pipe=2``, P20A_STEPS steps at dropout 0: the first
+    loss within P17_LOSS_RTOL of one process's step on the same 16 rows,
+    the ranks' losses and whole-state digests equal, a sharded save
+    resumed by the runner at world size 1 here with the same digest. 20b:
+    ``--mesh fsdp=2,seq=2`` at S=512 (the runner switches to the ring), one
+    step at dropout 0 (the same loss bar) and one at 0.1 (finite). 20c
+    ``--mesh fsdp=2,model=2 --kfac`` and 20d ``--mesh dp=2,seq=2 --kfac``
+    (the fused capture, factors and inverses every step), P20K_STEPS steps
+    each: the K-FAC digests equal on every rank, the first update (the
+    preconditioned gradients, whole) within P18_KFAC_UPDATE_RTOL of one
+    process's on the same 16 rows, and one process's update with phase
+    18's planted fault beyond it. Exact launch counts of #1-#3 per rank:
+    20a its stage's 3 layers, 20c all 6 (H/2 heads each), 20b and 20d
+    none (ring layers launch no flash kernel). 20a and 20b read the same
+    rows, and so do 20c and 20d: one process's step on them serves both.
+    ``launched`` as :func:`drive_model_parallel`'s."""
+    t_phase = time.perf_counter()
+    if launched is None:
+        spec = phase_spec(root, "layouts")
+        ranks, run_s, _ = torchrun("20", P18_WORLD, spec)
+    else:
+        spec, ranks, run_s = launched
+    out, config0 = spec["out"], spec["config0"]
+    backend = ("nccl" if torch.cuda.device_count() >= P18_WORLD else "gloo")
+    a = [r["20a"] for r in ranks]
+    for rank, res in enumerate(a):
+        check_launches_per_rank(f"20a rank {rank}", res["launches"],
+                                res["routes"], P17_LAYERS // 2,
+                                res["accumulation"], P20A_STEPS)
+    if (a[0]["mesh"] != "dp=1,fsdp=2,pipe=2" or a[0]["backend"] != backend
+            or a[0]["accumulation"] != 2 or not all(r["sharded"] for r in a)):
+        raise AssertionError(f"20a mesh {a[0]['mesh']} {a[0]['backend']}, "
+                             f"accumulation {a[0]['accumulation']}, FSDP "
+                             f"{[r['sharded'] for r in a]}")
+    if len({r["digest"] for r in a}) != 1 or len(
+            {tuple(r["losses"]) for r in a}) != 1:
+        raise AssertionError("20a: the ranks disagree on the state or the "
+                             f"losses: {[r['losses'] for r in a]}")
+    for label in ("20b_dropout0", "20b_dropout"):
+        for rank, r in enumerate(ranks):
+            res = r[label]
+            check_launches_per_rank(f"{label} rank {rank}", res["launches"],
+                                    res["routes"], 0, res["accumulation"], 1)
+            if (res["attention_backend"] != "ring" or not res["sharded"]
+                    or not all(np.isfinite(res["losses"]))):
+                raise AssertionError(f"{label} rank {rank}: backend "
+                                     f"{res['attention_backend']}, FSDP "
+                                     f"{res['sharded']}, losses "
+                                     f"{res['losses']}")
+    # One process on the same 16 rows (2 microbatches of 8), once for
+    # each distinct batch.
+    rel, singles, by_batch = {}, {}, {}
+    for label, loss in (("20a", a[0]["losses"][0]),
+                        ("20b_dropout0",
+                         ranks[0]["20b_dropout0"]["losses"][0])):
+        batch = global_first_batch(out, label, [r[label] for r in ranks])
+        key = batch_digest(batch)
+        if key not in by_batch:
+            by_batch[key], model = single_process_step(
+                os.path.join(out, f"single_{label}"), config0, batch)
+            del model
+            torch.cuda.empty_cache()
+        singles[label] = by_batch[key]
+        rel[label] = abs(loss / singles[label] - 1.0)
+    if max(rel.values()) > P17_LOSS_RTOL:
+        raise AssertionError(f"first losses against one process {singles}: "
+                             f"{rel} beyond {P17_LOSS_RTOL}")
+    # 20a's sharded save at world size 1.
+    resumed = runner(os.path.join(out, "ckpt_fsdp_pp"), PHASE2, [
+        "--local_batch_size", str(TRAIN_LOCAL_BATCH), "--global_batch_size",
+        str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM), "--attention_backend", "flash",
+        "--previous_phase_end_step", "0"], config0)
+    resumed_digest = whole_state_digest(resumed["model"],
+                                        resumed["optimizer"])
+    if resumed["global_step"] != P20A_STEPS or resumed_digest != a[0][
+            "digest"]:
+        raise AssertionError(f"20a resume at world 1: step "
+                             f"{resumed['global_step']}, digest "
+                             f"{resumed_digest[:12]} vs {a[0]['digest'][:12]}")
+    resume_s = resumed["resume_s"]
+    del resumed
+    torch.cuda.empty_cache()
+    # 20c and 20d: the first update against one process's K-FAC step.
+    kfac_rel, fault_rel, kfac_parts, kfac_singles = {}, {}, {}, {}
+    for key, (mesh, flash) in P20_KFAC_LAYOUTS.items():
+        parts = [r[key] for r in ranks]
+        for rank, res in enumerate(parts):
+            check_launches_per_rank(f"{key} rank {rank}", res["launches"],
+                                    res["routes"],
+                                    P17_LAYERS if flash else 0,
+                                    res["accumulation"], P20K_STEPS)
+        if len({r["kfac_digest"] for r in parts}) != 1 or not all(
+                np.isfinite(r["losses"]).all() for r in parts):
+            raise AssertionError(f"{key}: K-FAC state digests "
+                                 f"{[r['kfac_digest'][:12] for r in parts]}"
+                                 f", losses {[r['losses'] for r in parts]}")
+        batch = global_first_batch(out, key, parts)
+        updates = kfac_singles.setdefault(batch_digest(batch), {})
+        for label, tweak in (("plain", None),
+                             ("fault", unreplicated_factors)):
+            if label in updates:
+                continue
+            _, model = single_process_step(
+                os.path.join(out, f"single_{key}_{label}"), config0, batch,
+                ["--local_batch_size", str(TRAIN_LOCAL_BATCH * TRAIN_ACCUM),
+                 *P20_KFAC_FLAGS], tweak)
+            updates[label] = {n: p.grad.detach().float().cpu()
+                              for n, p in model.named_parameters()}
+            del model
+            torch.cuda.empty_cache()
+        kfac_rel[key] = update_rel(torch.load(os.path.join(
+            out, f"update{key}.pt")), updates["plain"])
+        fault_rel[key] = update_rel(updates["fault"], updates["plain"])
+        if not kfac_rel[key] <= P18_KFAC_UPDATE_RTOL < fault_rel[key]:
+            raise AssertionError(
+                f"{key} first update {kfac_rel[key]:.3e} off one process's, "
+                f"the planted fault {fault_rel[key]:.3e} (bar "
+                f"{P18_KFAC_UPDATE_RTOL} between them)")
+        kfac_parts[key] = parts[0]
+    phase_s = time.perf_counter() - t_phase + (
+        0.0 if launched is None else ranks[0]["child_s"])
+    log(f"[layouts] 20a fsdp=2,pipe=2 ({P18_WORLD} ranks, gloo, transport "
+        f"{a[0]['transport']}), {P17_LAYERS} layers, {P20A_STEPS} steps: "
+        f"losses {a[0]['losses']}, step s "
+        f"{[round(x, 3) for x in a[0]['step_s']]}, first loss against one "
+        f"process {a[0]['losses'][0]} / {singles['20a']} (rel "
+        f"{rel['20a']:.3e}); sharded save {a[0]['sharded_save_s']:.2f} s, "
+        f"resumed at world 1 in {resume_s:.2f} s with the same state digest; "
+        f"launches a rank {a[0]['launches']}; peak {a[0]['peak_bytes']} "
+        f"bytes (rank 0)")
+    b0, b1 = ranks[0]["20b_dropout0"], ranks[0]["20b_dropout"]
+    log(f"[layouts] 20b fsdp=2,seq=2, S={TRAIN_SEQ}, ring: losses dropout 0 "
+        f"{b0['losses']} (rel {rel['20b_dropout0']:.3e}), 0.1 "
+        f"{b1['losses']}; step s {b0['step_s'][0]:.3f}, "
+        f"{b1['step_s'][0]:.3f}; launches {b0['launches']}; peak "
+        f"{b0['peak_bytes']} bytes")
+    for key, (mesh, _) in P20_KFAC_LAYOUTS.items():
+        res = kfac_parts[key]
+        log(f"[layouts] {key} {mesh} --kfac: losses {res['losses']}, step s "
+            f"{[round(x, 3) for x in res['step_s']]}, K-FAC digests equal on "
+            f"{P18_WORLD} ranks, first update against one process rel "
+            f"{kfac_rel[key]:.3e} (bar {P18_KFAC_UPDATE_RTOL}; the planted "
+            f"fault {fault_rel[key]:.3e}); launches a rank "
+            f"{res['launches']}; peak {res['peak_bytes']} bytes")
+    log(f"[layouts] torchrun {run_s:.1f} s, phase 20 {phase_s:.1f} s "
+        f"({len(by_batch)} one-process loss steps, "
+        f"{sum(len(u) for u in kfac_singles.values())} K-FAC ones) on "
+        f"{card}")
+    shutil.rmtree(out)
+    c, d = kfac_parts["20c"], kfac_parts["20d"]
+    return {"20a": a[0], "20b": {"dropout0": b0, "dropout": b1},
+            "20c": c, "20d": d, "single_losses": singles,
+            "first_loss_rel": rel, "kfac_update_rel": kfac_rel,
+            "kfac_fault_rel": fault_rel, "resume_s": resume_s,
+            "torchrun_s": run_s, "seconds": phase_s,
+            "launches": {"fsdp_pp": a[0]["launches"],
+                         "fsdp_sp": {n: b0["launches"][n]
+                                     + b1["launches"][n]
+                                     for n in b0["launches"]},
+                         "fsdp_kfac_tp": c["launches"],
+                         "kfac_sp": d["launches"]}}
+
+
 def only_autotune() -> int:
     """Phase 19 alone: the kernels built, then :func:`drive_autotune` and
     its result line (also in chiprun_out/phase19.json)."""
@@ -6569,6 +6996,10 @@ def main() -> int:
         return only_model_parallel()
     if sys.argv[1:] == ["--only", "19"]:
         return only_autotune()
+    if sys.argv[1:] == ["--only", "20"]:
+        return only_layouts()
+    if sys.argv[1:3] == ["--only", "14"]:
+        return only_fleet(sys.argv[3:])
     from bert_pytorch_tpu_torch.ops.kernels import build
     from bert_pytorch_tpu_torch.ops.kernels.attention import (
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -6692,7 +7123,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         mesh = drive_mesh(kernels, tmp, card, trained["losses"])
         torch.cuda.empty_cache()
-        model_parallel = drive_model_parallel(kernels, tmp, card)
+        model_parallel, layouts = drive_phases_18_and_20(kernels, tmp,
+                                                          card)
         torch.cuda.empty_cache()
         tuned = drive_autotune(tmp, card)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
@@ -6752,17 +7184,67 @@ def main() -> int:
             entry[f"launches_mp_{key}"] = (
                 0 if entry["name"].endswith("_fp16")
                 else counts.get(entry["name"], 0))
+        # Phase 20: rank 0's counts, as phase 18's.
+        for key, counts in layouts["launches"].items():
+            entry[f"launches_mesh_{key}"] = (
+                0 if entry["name"].endswith("_fp16")
+                else counts.get(entry["name"], 0))
         if entry["name"] in TRAIN_REPLACES:
             entry["launches_handoff"] = handoff["launches"][entry["name"]]
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"]))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"], layouts=layouts))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device,
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_fleet(argv) -> int:
+    """Phase 14 alone, at FLEET_LAYERS layers, or at the depth
+    ``--fleet_layers N`` names (24, BERT-large's, for the depth's cost):
+    :func:`drive_fleet` and its result line (also in
+    chiprun_out/phase14_<layers>.json)."""
+    layers = FLEET_LAYERS
+    if argv:
+        if len(argv) != 2 or argv[0] != "--fleet_layers":
+            raise SystemExit("usage: chip_smoke.py --only 14 "
+                             "[--fleet_layers N]")
+        layers = int(argv[1])
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = drive_fleet(tmp, card, layers)
+    result["layers"] = layers
+    log(f"[result] {json.dumps({'fleet': result})}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", f"phase14_{layers}.json"),
+              "w", encoding="utf-8") as f:
+        json.dump({"card": card, "fleet": result}, f)
+    print(card)
+    return 0
+
+
+def only_layouts() -> int:
+    """Phase 20 alone: the kernels built, then :func:`drive_layouts` and its
+    result line (also in chiprun_out/phase20.json)."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    t0 = time.perf_counter()
+    log(f"[build] {build.build()} in {time.perf_counter() - t0:.2f}s")
+    kernels = child_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = drive_layouts(kernels, tmp, card)
+    log(f"[result] {json.dumps({'layouts': result})}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "phase20.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"card": card, "layouts": result}, f)
+    print(card)
     return 0
 
 

@@ -108,14 +108,41 @@ def make_step(model, opt, schedule, cfg, case, dp, kfac=None):
     return pretrain.make_train_step(model, opt, schedule, **kwargs)
 
 
+def counting_fsdp_reductions():
+    """(calls, restore): FSDP2's gradient reductions (one a unit that
+    reduces) append to ``calls`` until ``restore()``."""
+    from torch.distributed.fsdp._fully_shard import _fsdp_param_group
+
+    calls, original = [], _fsdp_param_group.foreach_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return original(*args, **kwargs)
+
+    _fsdp_param_group.foreach_reduce = counted
+    return calls, lambda: setattr(_fsdp_param_group, "foreach_reduce",
+                                  original)
+
+
 def case_step(case, rank, world, out):
     """One optimizer step; rank 0 writes the metrics and the whole state
-    after it (:func:`whole_state`)."""
+    after it (:func:`whole_state`). Under FSDP2 each rank also writes its
+    units and the reductions the step made."""
     model, opt, schedule, layout, dp, cfg = build(case, rank, world)
     step = make_step(model, opt, schedule, cfg, case, dp)
-    metrics = step(rows_of(dict(np.load(case["batch"])), layout))
+    calls, restore = counting_fsdp_reductions() if dp.fsdp else (None, None)
+    try:
+        metrics = step(rows_of(dict(np.load(case["batch"])), layout))
+    finally:
+        if restore is not None:
+            restore()
     result = {k: float(metrics[k]) for k in
               ("loss", "grad_norm", "mlm_accuracy", "real_tokens", "finite")}
+    if calls is not None:
+        from torch.distributed.fsdp import FSDPModule
+
+        result.update(fsdp_reductions=len(calls), fsdp_units=sum(
+            isinstance(m, FSDPModule) for m in model.modules()))
     from bert_pytorch_tpu_torch.telemetry import model_stats
 
     health = model_stats.health_record(1, metrics["grad_health"])
@@ -131,20 +158,24 @@ def case_step(case, rank, world, out):
 
 def case_kfac(case, rank, world, out):
     """One K-FAC step: the factors from a stats pass over the whole
-    microbatch 0 (a twin of the whole model under a pipeline), the
-    inverses, then the preconditioned step (fused capture under dp);
-    rank 0 writes the whole state after it and K-FAC's ``a``, ``g``,
-    ``qa`` and ``qg``."""
+    microbatch 0, the inverses, then the preconditioned step; or with
+    ``fused`` the capture in the step, its statistics summed over the
+    ``grad`` group. The stats pass of a split or ring model runs on a
+    twin of the whole model that takes the weights gathered whole from
+    the ranks' parts, as the runner's. Rank 0 writes the whole state after
+    the step and K-FAC's ``a``, ``g``, ``qa`` and ``qg``."""
+    from bert_pytorch_tpu_torch import run_pretraining
+
     model, opt, schedule, layout, dp, cfg = build(case, rank, world)
-    group = layout.groups["batch"]
     batch = rows_of(dict(np.load(case["batch"])), layout)
-    if layout.spec.pipe > 1:
-        twin, _ = whole_model(case, "dense")
-        kfac = KFAC(twin, damping=case["damping"], group=group,
-                    inv_dtype=torch.float32)
-    else:
-        kfac = KFAC(model, damping=case["damping"], group=group,
-                    inv_dtype=torch.float32)
+    group = layout.groups["grad" if case.get("fused") else "batch"]
+    tapped = model
+    if not case.get("fused") and layout.spec.active_axes() - {"data"}:
+        tapped, _ = whole_model(case, "dense")
+        tapped.load_state_dict(run_pretraining.whole_parts(model)(
+            sharding.full_state_dict(model)))
+    kfac = KFAC(tapped, damping=case["damping"], group=group,
+                replicas=layout.n_data, inv_dtype=torch.float32)
     state = kfac.init()
     kfac.apply_loss = pretrain.make_kfac_loss(kfac.model, True,
                                               case["max_pred"], group)

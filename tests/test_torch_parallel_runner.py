@@ -11,11 +11,16 @@ through a ``file://`` rendezvous in the test's directory.
 * pretraining ``--mesh pipe=2,model=2`` on 4 ranks and ``--mesh seq=2``:
   rank 0 alone prints, writes the JSONL and the checkpoint; the mesh line
   names every axis and each group's transport;
-* a layout refused by name (K-FAC with fsdp) is refused before the
-  rendezvous, so every rank of every run prints the refusal, also with
-  several runs launched at once (a refusal raised after the rendezvous
-  let a rank leave while its peer was still connecting: the peer died of
-  gloo's "connectFullMesh failed" instead).
+* ``--mesh fsdp=2,pipe=2`` on 4 ranks (FSDP2 units on each stage's
+  fsdp group): a held-out pass, a sharded save, and a second run that
+  resumes it; ``--mesh fsdp=2 --kfac`` (the fused capture on FSDP
+  shards), whose saved K-FAC state one process resumes bit for bit;
+* a refused layout (the JAX runner's rule: the bucketed overlap outside a
+  plain data mesh) is refused before the rendezvous, so every rank of
+  every run prints the refusal, also with several runs launched at once
+  (a refusal raised after the rendezvous let a rank leave while its peer
+  was still connecting: the peer died of gloo's "connectFullMesh failed"
+  instead).
 * SQuAD ``--mesh_data 2``: one step, equal to the single-process step on
   the same batch (dropout off) within 1e-6 in loss and parameters.
 """
@@ -218,18 +223,120 @@ def test_seq2_runner_switches_to_the_ring(pretrain_data, tmp_path):
 def test_refusals_reach_every_rank_under_load(pretrain_data, tmp_path):
     """Three refused runs of two ranks each, started at once: every rank
     of every run prints the refusal (it is raised before the rendezvous,
-    so no rank waits on a peer that has left)."""
+    so no rank waits on a peer that has left). The refusal is the JAX
+    runner's: the bucketed overlap outside a plain data mesh."""
     runs = [_start(tmp_path, f"refused{i}",
                    "bert_pytorch_tpu_torch.run_pretraining",
                    _pretrain_args(pretrain_data, tmp_path / f"out{i}",
-                                  "--mesh", "fsdp=2", "--kfac", "--steps",
-                                  "1"))
+                                  "--mesh", "fsdp=2", "--overlap_grad_reduce",
+                                  "--steps", "1"))
             for i in range(3)]
     for procs in runs:
         rcs, _, stderrs = _finish(procs)
         assert rcs[0] != 0 and rcs[1] != 0
         for err in stderrs:
-            assert "Multi-GPU layouts" in err and "fsdp" in err, err[-2000:]
+            assert ("--overlap_grad_reduce requires a pure data-parallel "
+                    "mesh") in err, err[-2000:]
+
+
+@pytest.fixture(scope="module")
+def fsdp_pp_runs(pretrain_data, tmp_path_factory):
+    """Run A: fsdp=2,pipe=2 on 4 ranks, 2 steps, a held-out pass at step 2
+    and a sharded checkpoint. Run B: the same directory and layout,
+    resumed, 1 step."""
+    tmp = tmp_path_factory.mktemp("fsdp_pp")
+    out = tmp / "out"
+    common = ("--mesh", "fsdp=2,pipe=2", "--checkpoint_layout", "sharded",
+              "--val_input_dir", str(pretrain_data[0]),
+              "--num_steps_per_eval", "2", "--eval_batches", "1")
+    a = _launch(tmp, "a", "bert_pytorch_tpu_torch.run_pretraining",
+                _pretrain_args(pretrain_data, out, *common, "--steps", "2",
+                               "--num_steps_per_checkpoint", "2"), world=4)
+    b = _launch(tmp, "b", "bert_pytorch_tpu_torch.run_pretraining",
+                _pretrain_args(pretrain_data, out, *common, "--steps", "1",
+                               "--num_steps_per_checkpoint", "1"), world=4)
+    return out, a, b
+
+
+def test_fsdp_pp_runner_on_four_ranks(fsdp_pp_runs):
+    out, (rcs, stdouts, stderrs), _ = fsdp_pp_runs
+    assert rcs == [0] * 4, "".join(e[-2000:] for e in stderrs)
+    lines = stdouts[0].splitlines()
+    mesh_line = next(line for line in lines if line.startswith("event mesh"))
+    assert ("dcn 1 data 1 fsdp 2 world_size 4 backend gloo pipe 2 seq 1 "
+            "model 1 transport batch=gloo,pipe=gloo+host") in mesh_line
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["1", "2"]
+    assert all(" finite 1 " in s for s in steps)
+    # The held-out forward runs through the stages and the FSDP units.
+    val = next(line for line in lines if line.startswith("event val step 2 "))
+    assert np.isfinite(float(val.split("average_loss ")[1].split()[0]))
+    assert stdouts[1] == stdouts[2] == stdouts[3] == ""
+    files = set(os.listdir(out / "pretrain_ckpts"))
+    assert {"ckpt_2.msgpack"} | {f"ckpt_2.shard{r}of4.msgpack"
+                                 for r in range(4)} <= files
+
+
+def test_fsdp_pp_runner_resumes_its_sharded_save(fsdp_pp_runs):
+    out, _, (rcs, stdouts, stderrs) = fsdp_pp_runs
+    assert rcs == [0] * 4, "".join(e[-2000:] for e in stderrs)
+    lines = stdouts[0].splitlines()
+    resume = next(line for line in lines if line.startswith("event resume"))
+    assert resume.split()[3] == "2"
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["3"]
+    assert " finite 1 " in steps[0]
+    state = ckpt.load_checkpoint(str(out / "pretrain_ckpts" /
+                                     "ckpt_3.msgpack"))
+    assert int(np.asarray(state["optimizer"]["count"])) == 3
+    layers = state["model"]["bert"]["encoder"]["layers"]
+    assert np.asarray(layers["attention"]["query"]["kernel"]).shape == (
+        2, 64, 4, 16)  # every layer, every head, from the four shards
+
+
+def test_kfac_fsdp2_runner_state_resumes_at_world_one(pretrain_data,
+                                                      tmp_path):
+    """--kfac under fsdp=2 (the fused capture): the factors and inverses
+    it saves resume bit for bit in one process."""
+    from bert_pytorch_tpu_torch.config import BertConfig
+    from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
+    from bert_pytorch_tpu_torch.optim import KFAC, schedules, transforms
+
+    out = tmp_path / "out"
+    rcs, stdouts, stderrs = _launch(
+        tmp_path, "kfac_fsdp", "bert_pytorch_tpu_torch.run_pretraining",
+        _pretrain_args(pretrain_data, out, "--mesh", "fsdp=2", "--kfac",
+                       "--steps", "2", "--kfac_factor_interval", "1",
+                       "--kfac_inv_interval", "1",
+                       "--num_steps_per_checkpoint", "2"))
+    assert rcs == [0, 0], stderrs[0][-3000:] + stderrs[1][-3000:]
+    lines = stdouts[0].splitlines()
+    assert "capture train (fused)" in next(
+        line for line in lines if line.startswith("event kfac"))
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [s.split()[1] for s in steps] == ["1", "2"]
+    assert all(" finite 1 " in s for s in steps)
+    path = str(out / "pretrain_ckpts")
+    saved = ckpt.load_checkpoint(os.path.join(path, "ckpt_2.msgpack"))[
+        "preconditioner"]
+    assert int(np.asarray(saved["count"])) == 2
+    config = BertConfig(**dict(CONFIG, vocab_size=128))
+    model = BertForPreTraining(config, torch.float32)
+    opt = transforms.Lamb(transforms.param_groups(model, 0.01),
+                          schedules.warmup_poly_schedule(1e-3, 0.1, 50))
+    kfac = KFAC(model)
+    state = kfac.init()
+    step, extras = ckpt.load_latest_checkpoint(path, model, opt,
+                                               preconditioner=state)
+    assert step == 2 and extras["preconditioner"]
+    assert int(state.count) == 2
+    for field in ("a", "g", "qa", "la", "qg", "lg"):
+        for key, value in getattr(state, field).items():
+            want = saved[field][key]
+            if not isinstance(want, torch.Tensor):
+                want = torch.as_tensor(np.asarray(want))
+            assert want.dtype == value.dtype, (field, key)
+            assert torch.equal(value, want), (field, key)
 
 
 @pytest.fixture(scope="module")

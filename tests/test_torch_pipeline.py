@@ -4,23 +4,26 @@ package's single-device step on the CPU, and its checkpoints against the
 JAX package's.
 
 The ranks run in processes of their own (tests/_torch_layout_worker.py),
-4 for pp (dp=2,pipe=2), pp_tp (pipe=2,model=2) and pp_sp (pipe=2,seq=2)
-and 8 for pp_sp_tp (pipe=2,seq=2,model=2), from the JAX weights
+4 for pp (dp=2,pipe=2), pp_tp (pipe=2,model=2), pp_sp (pipe=2,seq=2) and
+fsdp_pp (fsdp=2,pipe=2: each stage's layers FSDP2 units on the stage's
+fsdp group) and 8 for pp_sp_tp (pipe=2,seq=2,model=2), from the JAX weights
 (``from_jax_params``) on the same [2, 8, 32] batch: one LAMB step each
 against the JAX single-device ``make_train_step``, the loss at rtol 1e-5
 and every parameter at atol 2e-5 (the JAX package's own pipeline bars,
 tests/test_pipeline.py:318-327); pp also on packed rows
-(tests/test_one_mesh.py:262). K-FAC under pp, pp_tp and pp_sp (the
-stats pass on a whole-model twin, the preconditioner on the gathered
-gradients) against the JAX K-FAC step of tests/test_kfac.py:450's cells:
+(tests/test_one_mesh.py:262), and fsdp_pp too. K-FAC under pp, pp_tp,
+pp_sp and fsdp_pp (the stats pass on a whole-model twin that takes the
+weights gathered from the ranks' parts, the preconditioner on the
+gathered gradients) against the JAX K-FAC step of tests/test_kfac.py:450's cells:
 factors from microbatch 0, fp32 inverses, then the preconditioned step:
 the factors, the inverses and the whole preconditioned gradients (LAMB's
 first moment) at the bars of tests/layout_common.py. The step cells hold
 the whole gradients too.
 
-Checkpoints: a pp_tp sharded save (a shard file a rank, the JAX slice
-records) read by the JAX package's ``load_checkpoint`` and resumed by
-the port at world sizes 1 and 2 bit for bit; and a JAX pp_tp sharded
+Checkpoints: pp_tp and fsdp_pp sharded saves (a shard file a rank, the
+JAX slice records) read by the JAX package's ``load_checkpoint`` and
+resumed by the port at world size 1 bit for bit, pp_tp's at world size 2
+too; and a JAX pp_tp sharded
 checkpoint resumed by the port's pp_tp ranks.
 """
 
@@ -47,9 +50,13 @@ from bert_pytorch_tpu_torch.optim import schedules, transforms
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
 
 STEP_CELLS = {"pp": "dp=2,pipe=2", "pp_tp": "pipe=2,model=2",
-              "pp_sp": "pipe=2,seq=2"}
+              "pp_sp": "pipe=2,seq=2", "fsdp_pp": "fsdp=2,pipe=2"}
+PACKED_CELLS = {"pp_packed": "dp=2,pipe=2",
+                "fsdp_pp_packed": "fsdp=2,pipe=2"}
 KFAC_CELLS = {"kfac_pp": "dp=2,pipe=2", "kfac_pp_tp": "pipe=2,model=2",
-              "kfac_pp_sp": "pipe=2,seq=2"}
+              "kfac_pp_sp": "pipe=2,seq=2", "kfac_fsdp_pp": "fsdp=2,pipe=2"}
+# Sharded saves: one shard file a rank, the JAX slice records.
+SAVE_CELLS = {"pp_tp": "pipe=2,model=2", "fsdp_pp": "fsdp=2,pipe=2"}
 
 
 def _jax_pp_tp_checkpoint(root, params, host):
@@ -95,12 +102,13 @@ def world4(inputs):
     jax_state = _jax_pp_tp_checkpoint(root, params, batches["unpacked"])
     cases = [common.case(name, "step", root, mesh)
              for name, mesh in STEP_CELLS.items()]
-    cases.append(common.case("pp_packed", "step", root, "dp=2,pipe=2",
-                             "packed"))
+    cases += [common.case(name, "step", root, mesh, "packed")
+              for name, mesh in PACKED_CELLS.items()]
     cases += [common.case(name, "kfac", root, mesh)
               for name, mesh in KFAC_CELLS.items()]
-    cases.append(common.case("save_pp_tp", "save", root, "pipe=2,model=2",
-                             dir=str(root / "port_pp_tp")))
+    cases += [common.case(f"save_{name}", "save", root, mesh,
+                          dir=str(root / f"port_{name}"))
+              for name, mesh in SAVE_CELLS.items()]
     cases.append(common.case("resume_jax_pp_tp", "resume", root,
                              "pipe=2,model=2", dir=str(root / "jax_pp_tp")))
     return common.Group(root / "w4", 4, cases), jax_state
@@ -140,10 +148,32 @@ def test_pipeline_step_matches_jax(world4, refs, name):
                       name)
 
 
+def test_fsdp_pipeline_reduces_once_a_step(world4):
+    """Each FSDP2 unit of a stage reduce-scatters once in a step of two
+    microbatches: the sync is held until the last microbatch's
+    backward."""
+    group, _ = world4
+    for rank in range(4):
+        result = group.json("fsdp_pp", rank)
+        # A stage's 1 layer, the MLM transform, the pooler, the NSP head
+        # and the root; on stage 0 (even ranks: pipe is the fastest axis
+        # here) the heads take no gradient, so its layer and the root
+        # reduce.
+        assert result["fsdp_units"] == 5, result
+        assert result["fsdp_reductions"] == (5 if rank % 2 else 2), result
+
+
 def test_pipeline_step_on_packed_rows_matches_jax(world4, refs):
     group, _ = world4
     common.check_step(group.json("pp_packed"), group.npz("pp_packed"),
                       refs["packed"], "pp_packed")
+
+
+def test_fsdp_pipeline_step_on_packed_rows_matches_jax(world4, refs):
+    group, _ = world4
+    common.check_step(group.json("fsdp_pp_packed"),
+                      group.npz("fsdp_pp_packed"), refs["packed"],
+                      "fsdp_pp_packed")
 
 
 def test_pp_sp_tp_on_eight_ranks_matches_jax(world8, refs):
@@ -165,15 +195,13 @@ def test_kfac_under_the_pipeline_matches_jax(world4, refs, name):
     assert len(sums) == 1, sums
 
 
-def _saved(group):
-    return group.npz("save_pp_tp")
+def _saved(group, name="pp_tp"):
+    return group.npz(f"save_{name}")
 
 
-def test_jax_reads_the_ports_pp_tp_shards(world4, inputs):
-    group, _ = world4
-    root, _, _ = inputs
-    saved = _saved(group)
-    tree = jax_ckpt.load_checkpoint(str(root / "port_pp_tp" /
+def _jax_reads(group, root, name):
+    saved = _saved(group, name)
+    tree = jax_ckpt.load_checkpoint(str(root / f"port_{name}" /
                                         "ckpt_3.msgpack"))
     got = common.port_names(tree["model"])
     assert set(got) == {k[len("param/"):] for k in saved
@@ -186,23 +214,37 @@ def test_jax_reads_the_ports_pp_tp_shards(world4, inputs):
     assert int(np.asarray(tree["optimizer"]["count"])) == 1
 
 
-def test_port_resumes_pp_tp_shards_at_world_one(world4, inputs):
-    group, _ = world4
-    root, _, _ = inputs
-    saved = _saved(group)
+def test_jax_reads_the_ports_pp_tp_shards(world4, inputs):
+    _jax_reads(world4[0], inputs[0], "pp_tp")
+
+
+def test_jax_reads_the_ports_fsdp_pp_shards(world4, inputs):
+    _jax_reads(world4[0], inputs[0], "fsdp_pp")
+
+
+def _resumes_at_world_one(group, root, name):
+    saved = _saved(group, name)
     cfg = BertConfig(**common.CONFIG)
     model = bert.BertForPreTraining(cfg, torch.float32)
     opt = transforms.Lamb(transforms.param_groups(model, 0.01),
                           schedules.warmup_poly_schedule(*common.SCHEDULE))
-    step, extras = ckpt.load_latest_checkpoint(str(root / "port_pp_tp"),
+    step, extras = ckpt.load_latest_checkpoint(str(root / f"port_{name}"),
                                                model, opt)
     assert step == 3 and extras["count"] == 1
     mu, nu = transforms.moments(opt, dict(model.named_parameters()))
-    for name, p in model.named_parameters():
-        for prefix, t in (("param", p), ("mu", mu[name]), ("nu", nu[name])):
+    for key, p in model.named_parameters():
+        for prefix, t in (("param", p), ("mu", mu[key]), ("nu", nu[key])):
             np.testing.assert_array_equal(t.detach().numpy(),
-                                          saved[f"{prefix}/{name}"],
-                                          f"{prefix}/{name}")
+                                          saved[f"{prefix}/{key}"],
+                                          f"{prefix}/{key}")
+
+
+def test_port_resumes_pp_tp_shards_at_world_one(world4, inputs):
+    _resumes_at_world_one(world4[0], inputs[0], "pp_tp")
+
+
+def test_port_resumes_fsdp_pp_shards_at_world_one(world4, inputs):
+    _resumes_at_world_one(world4[0], inputs[0], "fsdp_pp")
 
 
 def test_port_resumes_pp_tp_shards_at_world_two(world2, world4):

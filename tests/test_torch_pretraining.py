@@ -518,16 +518,17 @@ def test_runner_refuses_what_it_cannot_do(shards):
             run_pretraining.parse_arguments(_run_args(shards, *flags))
     # The mesh flags are ported (tests/test_torch_parallel.py,
     # test_torch_mesh_axes.py): a product the world cannot realise is
-    # refused, and so are the layouts ROADMAP.md's "Multi-GPU layouts"
-    # still lists (K-FAC with fsdp); the sharded layout is accepted.
+    # refused, and so are the layouts the JAX runner refuses (fp16 with a
+    # pipeline); the sharded layout is accepted.
     from bert_pytorch_tpu_torch.parallel.mesh import MeshSpec, MeshSpecError
 
     with pytest.raises(MeshSpecError, match="devices"):
         run_pretraining.setup_training(run_pretraining.parse_arguments(
             _run_args(shards, "--mesh_data", "2")))
-    with pytest.raises(NotImplementedError, match="Multi-GPU layouts"):
+    with pytest.raises(ValueError, match="pipeline parallelism"):
         run_pretraining.refuse_layout(run_pretraining.parse_arguments(
-            _run_args(shards, "--kfac")), MeshSpec.parse("dp=1,fsdp=2"))
+            _run_args(shards, "--dtype", "float16")),
+            MeshSpec.parse("fsdp=2,pipe=2"))
     args = run_pretraining.setup_training(run_pretraining.parse_arguments(
         _run_args(shards, "--checkpoint_layout", "sharded")))
     assert args.checkpoint_layout == "sharded" and args.mesh is None
