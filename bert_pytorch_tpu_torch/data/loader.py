@@ -248,6 +248,11 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+            # Join the producer: it stops at its next sample or put. A
+            # daemon thread still inside a read (h5py, numpy) when the
+            # interpreter exits ends the process with "terminate called
+            # without an active exception".
+            worker.join(timeout=5.0)
 
     @staticmethod
     def _collate(samples) -> dict:

@@ -14,7 +14,11 @@ Serving (forward only), the port of ``flash_attention_infer``
   head_dim in :data:`TENSOR_CORE_HEAD_DIMS`, ``"cuda_cores"`` for the rest
   (fp32, other head dims). A failed build or launch raises on either route;
   neither falls back to the other. Each wrapper counts launches per route
-  in ``.route_launches`` beside ``.launches``.
+  in ``.route_launches`` beside ``.launches``, and notes each launch's
+  cost (:func:`infer_cost`, :func:`infer_int8_cost`, :func:`train_cost`:
+  the flops its plain version counts and the bytes of its bound) to the
+  cost counter of the instrumented call running (build.py ``note_cost``),
+  which cannot see a ``ctypes`` launch.
 * :func:`flash_attention_infer_reference` — the plain PyTorch version of
   the same function: the CPU tests hold it against the JAX kernel, and the
   chip smoke holds the CUDA kernel against it.
@@ -207,6 +211,66 @@ def train_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
 def _count(wrapper, route: str) -> None:
     wrapper.launches += 1
     wrapper.route_launches[route] += 1
+
+
+# -- what one launch does (cost notes and chip_smoke.py's bounds) -----------
+
+def _elem(dtype: torch.dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def infer_cost(batch: int, seq: int, heads: int, depth: int, dtype,
+               masked: bool = True) -> build.KernelCost:
+    """One launch of the serving kernel (#4): q, k and v read and out
+    written once in ``dtype``, plus the [B, S] fp32 key bias or int32 ids
+    when ``masked``; QK^T and PV, ``4*B*H*S^2*D`` flops (what the cost
+    counter reads from the plain version)."""
+    n = batch * seq * heads * depth
+    return build.KernelCost(
+        flops=4 * batch * heads * seq * seq * depth,
+        bytes_accessed=4 * n * _elem(dtype) + (batch * seq * 4 if masked
+                                               else 0))
+
+
+def infer_int8_cost(batch: int, seq: int, heads: int, depth: int, dtype,
+                    masked: bool = True) -> build.KernelCost:
+    """One launch of the int8-score kernel (#5) on pre-quantized inputs:
+    q8 and k8 read at 1 B an element, v read and out written in v's
+    ``dtype``, the two [B, H] fp32 scales, and the key bias or ids when
+    ``masked``; QK^T (``2*B*H*S^2*D``, ``int8_ops``) plus PV (as many)."""
+    n = batch * seq * heads * depth
+    products = 2 * batch * heads * seq * seq * depth
+    return build.KernelCost(
+        flops=2 * products,
+        bytes_accessed=(2 * n + 2 * n * _elem(dtype) + 2 * batch * heads * 4
+                        + (batch * seq * 4 if masked else 0)),
+        int8_ops=products)
+
+
+# Products of B*H*S^2*D, times 2 for multiply-add: QK^T and PV for the
+# forward; QK^T, dO V^T and dS K for dq; QK^T, dO V^T, P^T dO and dS^T Q
+# for dkv.
+TRAIN_PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_dq": 3,
+                  "flash_attention_dkv": 4}
+
+
+def train_cost(name: str, batch: int, seq: int, heads: int, depth: int,
+               dtype, masked: bool = True) -> build.KernelCost:
+    """One launch of the training kernel ``name`` (#1-#3): every operand
+    read once and every result written once ([B, S, H, D] tensors in
+    ``dtype``; lse, delta and dbias [B*H, S] fp32), plus the key bias or
+    ids when ``masked``; ``2 * TRAIN_PRODUCTS[name] * B*H*S^2*D``
+    flops."""
+    act = batch * seq * heads * depth * _elem(dtype)
+    stat = batch * heads * seq * 4
+    nbytes = {
+        "flash_attention_fwd": 4 * act + stat,         # q k v | out lse
+        "flash_attention_dq": 6 * act + 2 * stat,      # q k v o dO | dq, lse | delta
+        "flash_attention_dkv": 6 * act + 3 * stat,     # q k v dO | dk dv, lse delta | dbias
+    }[name]
+    return build.KernelCost(
+        flops=2 * TRAIN_PRODUCTS[name] * batch * heads * seq * seq * depth,
+        bytes_accessed=nbytes + (batch * seq * 4 if masked else 0))
 
 
 def reset_counts(wrapper) -> None:
@@ -414,6 +478,8 @@ def _launch_infer(q, k, v, key_bias, seg, route: str,
                 _DTYPE_CODES[q.dtype], scale, _stream(q))
     build.raise_on(rc, lib, _NAME, _NAME)
     _count(flash_attention_infer, route)
+    build.note_cost(infer_cost, batch, seq, heads, depth, q.dtype,
+                    masked=key_bias is not None or seg is not None)
     return out
 
 
@@ -527,6 +593,8 @@ def _launch_int8(q8, k8, q_scale, k_scale, v, key_bias, seg, route: str,
                 scale, _stream(v))
     build.raise_on(rc, lib, _INT8, _INT8)
     _count(flash_attention_infer_int8, route)
+    build.note_cost(infer_int8_cost, batch, seq, heads, depth, v.dtype,
+                    masked=key_bias is not None or seg is not None)
     return out
 
 
@@ -742,6 +810,8 @@ def _launch_fwd(q, k, v, key_bias, seg, seed, rate, route: str):
             rc = lib.flash_attention_fwd(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, name, name)
     _count(flash_attention_fwd, route)
+    build.note_cost(train_cost, name, batch, seq, heads, depth, q.dtype,
+                    masked=key_bias is not None or seg is not None)
     return out, lse
 
 
@@ -789,6 +859,8 @@ def _launch_dq(q, k, v, out, do, lse, key_bias, seg, seed, rate,
             rc = lib.flash_attention_dq(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, "flash_attention_bwd", name)
     _count(flash_attention_dq, route)
+    build.note_cost(train_cost, name, batch, seq, heads, depth, q.dtype,
+                    masked=key_bias is not None or seg is not None)
     return dq, delta
 
 
@@ -835,6 +907,8 @@ def _launch_dkv(q, k, v, do, lse, delta, key_bias, seg, seed, rate,
             rc = lib.flash_attention_dkv(*args, _DTYPE_CODES[q.dtype], *tail)
     build.raise_on(rc, lib, "flash_attention_bwd", name)
     _count(flash_attention_dkv, route)
+    build.note_cost(train_cost, name, batch, seq, heads, depth, q.dtype,
+                    masked=key_bias is not None or seg is not None)
     return dk, dv, dbias
 
 

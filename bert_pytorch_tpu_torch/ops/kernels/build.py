@@ -21,6 +21,12 @@ together) build each library once: an advisory ``fcntl.flock`` on
 runs ``nvcc`` and reports a miss, and the others wait for it and report
 a hit. The kernel releases the lock when its holder exits, so a process
 killed mid-build leaves no stale lock.
+
+Each kernel wrapper states what one launch does (:class:`KernelCost`)
+and hands it to :func:`note_cost` when its kernel ran, for the cost
+counter of the instrumented call running, which cannot see a ``ctypes``
+launch (telemetry/compile_events.py, imported at the call as for the
+build reports).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -319,6 +325,29 @@ def load_bound(name: str, entry_points: Dict[str, List]) -> ctypes.CDLL:
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return lib
+
+
+class KernelCost(NamedTuple):
+    """What one launch of a hand-written kernel does: ``flops`` as the
+    cost counter (telemetry/memory.py) reads them from its plain version
+    at the same shapes (the products' ``2*M*N*K``), ``bytes_accessed``
+    each operand read once and each result written once (the bytes of its
+    bound in chip_smoke.py), and, of the flops, the ``int8_ops`` done on
+    int8 operands."""
+
+    flops: int
+    bytes_accessed: int
+    int8_ops: int = 0
+
+
+def note_cost(cost_fn, *args, **kwargs) -> None:
+    """A kernel launched: its :class:`KernelCost` (``cost_fn(*args,
+    **kwargs)``, computed only when counted) to the cost counter of the
+    instrumented call running, if any, which cannot see a ``ctypes``
+    launch (telemetry/compile_events.py ``note_kernel``)."""
+    from bert_pytorch_tpu_torch.telemetry.compile_events import note_kernel
+
+    note_kernel(cost_fn, *args, **kwargs)
 
 
 def raise_on(rc: int, lib: ctypes.CDLL, lib_name: str, name: str) -> None:

@@ -4,8 +4,11 @@ through ``_ln_forward`` and ``layer_norm_pallas``).
 
 * :func:`layer_norm_fwd` — the wrapper over x [rows, H]: a CUDA tensor
   launches the hand-written kernel (csrc/layer_norm_fwd.cu) on the current
-  stream, counting the launch in ``layer_norm_fwd.launches``, or raises; a
-  CPU tensor takes the plain version and counts nothing.
+  stream, counting the launch in ``layer_norm_fwd.launches`` and noting
+  its cost (:func:`layer_norm_cost`) to the cost counter of the
+  instrumented call running (build.py ``note_cost``), or raises; a CPU
+  tensor takes the plain version, which the counter counts op by op, and
+  counts nothing.
 * :func:`layer_norm_fwd_reference` — the plain PyTorch version of the same
   function: the CPU tests hold it against the JAX kernel, and the chip
   smoke holds the CUDA kernel against it.
@@ -38,6 +41,18 @@ _ENTRY_POINTS = {
     _NAME: [_PTR] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                          ctypes.c_float, _PTR],
 }
+
+
+def layer_norm_cost(rows: int, hidden: int, dtype) -> build.KernelCost:
+    """One launch of the kernel (#6): x read and out written once at x's
+    element size plus the fp32 mean and rstd of each row. Its flops are
+    what the cost counter reads from the plain version: 0, since no
+    matrix product runs (chip_smoke.py bounds its elementwise work
+    separately)."""
+    elem = torch.finfo(dtype).bits // 8
+    return build.KernelCost(flops=0,
+                            bytes_accessed=rows * hidden * 2 * elem
+                            + 8 * rows)
 
 
 def layer_norm_fwd_reference(x2d: torch.Tensor, scale: torch.Tensor,
@@ -102,6 +117,7 @@ def layer_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor,
             torch.cuda.current_stream(x2d.device).cuda_stream)
     build.raise_on(rc, lib, _NAME, _NAME)
     layer_norm_fwd.launches += 1
+    build.note_cost(layer_norm_cost, rows, hidden, x2d.dtype)
     return out, mean, rstd
 
 

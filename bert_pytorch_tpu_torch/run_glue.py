@@ -35,8 +35,9 @@ pretraining run's ``ckpt_N.msgpack``), torch archives and TF checkpoints
 (default 2) stages the training batches on the card ahead of the step
 (data/device_prefetch.py). ``--compile_cache_dir`` names the directory
 the kernel libraries and the tokenizer core are built into
-(ops/kernels/build.py ``set_build_dir``). Not ported, so argparse refuses
-its flag: ``--telemetry_cost_analysis``. The
+(ops/kernels/build.py ``set_build_dir``). ``train_step`` and
+``eval_step`` emit their ``compile`` and ``compile_cost`` records
+(``--telemetry_cost_analysis``, telemetry/memory.py). The
 telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's. Attention is dense
 (the JAX runner's ``xla``), LayerNorm plain.
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, telemetry
+from bert_pytorch_tpu_torch.telemetry import memory as memory_util
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data import glue
 from bert_pytorch_tpu_torch.models.bert import BertForSequenceClassification
@@ -167,6 +169,10 @@ def run(args):
         flops_util.bert_finetune_flops_per_seq(
             config, args.max_seq_len, head_outputs=num_labels,
             per_token_head=False, pooled=True))
+    # Compile and cost attribution (JAX run_glue.py:222-231).
+    step = tele.instrument(step, "train_step",
+                           memory_util.training_state(model, optimizer))
+    eval_step = tele.instrument(model, "eval_step")
 
     @torch.no_grad()
     def evaluate():
@@ -175,8 +181,8 @@ def run(args):
                                              False,
                                              np.random.default_rng(0)):
             t = finetune.to_device(batch, device)
-            logits = model(t["input_ids"], t["segment_ids"],
-                           t["input_mask"]).float().cpu().numpy()
+            logits = eval_step(t["input_ids"], t["segment_ids"],
+                               t["input_mask"]).float().cpu().numpy()
             out = (logits.squeeze(-1) if regression
                    else logits.argmax(axis=-1))
             preds.append(out[valid])

@@ -34,9 +34,9 @@ directory; models/convert.py ``load_pretrained_encoder``). The
 training batches on the card ahead of the step (data/device_prefetch.py).
 ``--compile_cache_dir`` names the directory the kernel libraries and the
 tokenizer core are built into (ops/kernels/build.py ``set_build_dir``).
-Not ported, so argparse refuses its flag: ``--telemetry_cost_analysis``.
-The
-telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
+``train_step`` and ``eval_step`` emit their ``compile`` and
+``compile_cost`` records (``--telemetry_cost_analysis``,
+telemetry/memory.py). The telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, telemetry
+from bert_pytorch_tpu_torch.telemetry import memory as memory_util
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data.ner_dataset import NERDataset
 from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
@@ -169,6 +170,10 @@ def run(args):
         args, "ner", device, args.batch_size,
         flops_util.bert_finetune_flops_per_seq(
             config, args.max_seq_len, head_outputs=len(args.labels) + 1))
+    # Compile and cost attribution (JAX run_ner.py:211-218).
+    step = tele.instrument(step, "train_step",
+                           memory_util.training_state(model, optimizer))
+    eval_step = tele.instrument(model, "eval_step")
 
     def tensors(arrays):
         return [torch.from_numpy(a).to(device, torch.int64) for a in arrays]
@@ -179,7 +184,7 @@ def run(args):
         for seqs, labels, masks in batches(datasets[split], args.batch_size,
                                            False, rng):
             t_seqs, t_labels, t_masks = tensors((seqs, labels, masks))
-            logits = model(t_seqs, None, t_masks).float()
+            logits = eval_step(t_seqs, None, t_masks).float()
             losses.append(float(token_classification_loss(logits,
                                                           t_labels)))
             all_logits.append(logits.cpu().numpy())

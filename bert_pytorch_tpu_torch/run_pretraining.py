@@ -147,12 +147,14 @@ Every ``--mesh`` product the JAX runner takes runs, ``--kfac`` under each
 of them; the JAX runner's own refusals are made before the rendezvous
 (every rank prints them): ``--overlap_grad_reduce`` outside a plain data
 mesh, ``--dtype float16`` with a pipeline or with K-FAC, and packing with
-``seq``. Not ported yet, so rejected rather than ignored:
-``--telemetry_cost_analysis`` (a bench leg), and ``--rng_impl``, which picks the TPU's hardware PRNG where the
-port draws Philox (the kernels' dropout, keyed by coordinates); argparse
-refuses the flags it does not know. ``attention_backend "pallas"`` in a
-config file (the JAX recipe's phase-2 setting) selects its counterpart,
-``flash``. ``--layer_norm_backend kernel`` (or its JAX name ``pallas``)
+``seq``. Not ported, so rejected rather than ignored: ``--rng_impl``,
+which picks the TPU's hardware PRNG where the port draws Philox (the
+kernels' dropout, keyed by coordinates); argparse refuses the flags it
+does not know. ``train_step`` and the held-out ``eval_step`` emit their
+``compile`` and ``compile_cost`` records (``--telemetry_cost_analysis``,
+telemetry/memory.py) under every layout; each rank counts its own work.
+``attention_backend "pallas"`` in a config file (the JAX recipe's
+phase-2 setting) selects its counterpart, ``flash``. ``--layer_norm_backend kernel`` (or its JAX name ``pallas``)
 runs every LayerNorm through the hand-written forward kernel; the default
 ``plain`` (JAX ``xla``) is the JAX runner's.
 
@@ -170,6 +172,7 @@ import time
 import torch
 
 from bert_pytorch_tpu_torch import pretrain, telemetry
+from bert_pytorch_tpu_torch.telemetry import memory as memory_util
 from bert_pytorch_tpu_torch.models.convert import (optimizer_to_jax,
                                                    to_jax_params)
 from bert_pytorch_tpu_torch.utils import checkpoint as ckpt
@@ -848,15 +851,20 @@ def prepare_val_loader(args, config, val_dataset=None):
                       batch_size=args.host_batch_per_step, drop_last=True)
 
 
-def make_validation(args, model, config, val_loader, logger):
+def make_validation(args, model, config, val_loader, logger,
+                    instrument=None):
     """``run(step, epoch)``: one held-out pass (the JAX runner's
     ``run_validation``). Every pass evaluates the same batches: the
     sampler restarts at 0, and the pass takes ``min(--eval_batches, the
     batches the held-out set fills)`` (``run.batches``); it logs and
-    returns the ``val`` record (None when the set fills no batch)."""
+    returns the ``val`` record (None when the set fills no batch).
+    ``instrument`` (``TrainTelemetry.instrument``) wraps the eval step as
+    ``"eval_step"``."""
     eval_step = pretrain.make_eval_step(
         model, next_sentence=bool(config.next_sentence),
         data_parallel=data_parallel(args))
+    if instrument is not None:
+        eval_step = instrument(eval_step, "eval_step")
     n_batches = min(args.eval_batches,
                     len(val_loader.sampler) // args.host_batch_per_step)
 
@@ -1111,7 +1119,12 @@ def train(args, model, optimizer, config, step, loader, sampler,
     # The config's mask id (the one the shards are masked with), logged
     # and returned with the run.
     mask_id = mask_token_id(config)
-    validate = (make_validation(args, model, config, val_loader, logger)
+    # Compile and cost attribution (JAX run_pretraining.py:848-858): the
+    # first call of each shapes digest emits compile + compile_cost.
+    step = tele.instrument(step, "train_step",
+                           memory_util.training_state(model, optimizer))
+    validate = (make_validation(args, model, config, val_loader, logger,
+                                instrument=tele.instrument)
                 if val_loader is not None else None)
     log({"event": "start", "device": str(args.device),
          "dtype": args.dtype, "attention_backend": args.attention_backend,

@@ -63,8 +63,11 @@ span loss is the global batch's (local sums over the global start and
 end counts), the gradients are summed once per step before the clipping
 (parallel/overlap.py), and each rank folds its index into the dropout
 seeds. Rank 0 alone logs, writes the feature cache, the telemetry and
-the checkpoints, and predicts. Not ported yet, so rejected rather than
-ignored (argparse refuses its flag): ``--telemetry_cost_analysis``.
+the checkpoints, and predicts. ``train_step`` and ``predict_step`` emit
+their ``compile`` and ``compile_cost`` records
+(``--telemetry_cost_analysis``, telemetry/memory.py); with
+``--layer_norm_backend kernel`` the LayerNorm kernel's notes are in the
+count.
 ``--compile_cache_dir`` names the directory the kernel libraries and the
 tokenizer core are built into (ops/kernels/build.py ``set_build_dir``). The telemetry debug
 planes (``--debug_port``, ``--postmortem_file``) are the JAX runner's.
@@ -95,6 +98,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, squad, telemetry
+from bert_pytorch_tpu_torch.telemetry import memory as memory_util
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.data.tokenization import (check_tokenizer_files,
@@ -440,8 +444,21 @@ def save(args, model, config, global_step: int, async_write: bool) -> None:
         keep=1, async_write=async_write)
 
 
-def train(args, model, config, tokenizer, device) -> dict:
-    """The finetuning loop; returns the training half of the summary."""
+def open_telemetry(args, config, device):
+    """The run's telemetry facade (JAX run_squad.py:262-275), shared by
+    training and prediction; the JSONL also takes a train record every
+    --log_freq steps."""
+    return finetune.open_telemetry(
+        args, "squad", device, args.train_batch_size,
+        flops_util.bert_finetune_flops_per_seq(
+            config, args.max_seq_length, head_outputs=2),
+        is_primary=dist_utils.is_main_process(),
+        n_devices=args.world_size)
+
+
+def train(args, model, config, tokenizer, device, tele) -> dict:
+    """The finetuning loop, threaded through ``tele`` (finished here,
+    closed by the caller); returns the training half of the summary."""
     train_examples = squad.read_squad_examples(
         args.train_file, True, args.version_2_with_negative)
     train_features = cached_features(args, train_examples, tokenizer, True,
@@ -460,14 +477,9 @@ def train(args, model, config, tokenizer, device) -> dict:
         args.max_grad_norm if args.optimizer == "adamw" else 0.0,
         torch.Generator().manual_seed(args.seed), telemetry.stats_every(args),
         rank=args.rank if args.distributed else None)
-    # The telemetry facade (JAX run_squad.py:206-275); the JSONL also takes
-    # a train record every --log_freq steps.
-    tele = finetune.open_telemetry(
-        args, "squad", device, args.train_batch_size,
-        flops_util.bert_finetune_flops_per_seq(
-            config, args.max_seq_length, head_outputs=2),
-        is_primary=dist_utils.is_main_process(),
-        n_devices=args.world_size)
+    # Compile and cost attribution (JAX run_squad.py:343).
+    step = tele.instrument(step, "train_step",
+                           memory_util.training_state(model, optimizer))
     rows = args.train_batch_size // args.world_size
     mine = slice(args.rank * rows, (args.rank + 1) * rows)
     rng = np.random.RandomState(args.seed)
@@ -534,7 +546,6 @@ def train(args, model, config, tokenizer, device) -> dict:
         if prefetcher is not None:
             prefetcher.close()
         stop.restore()
-        tele.close()
     summary = {"e2e_train_time": train_time,
                "training_sequences_per_second": seqs / train_time,
                "final_loss": step_losses[-1], "global_step": global_step,
@@ -546,10 +557,12 @@ def train(args, model, config, tokenizer, device) -> dict:
 
 
 @torch.no_grad()
-def predict(args, model, tokenizer, device) -> dict:
+def predict(args, model, tokenizer, device, tele) -> dict:
     """Prediction over ``--predict_file`` in full batches (the last padded
     with copies of the last feature), n-best decoding, the output files
-    and the official eval; returns the prediction half of the summary."""
+    and the official eval; returns the prediction half of the summary.
+    The forward is ``tele``'s instrumented ``predict_step``."""
+    predict_step = tele.instrument(model, "predict_step")
     eval_examples = squad.read_squad_examples(
         args.predict_file, False, args.version_2_with_negative)
     eval_features = cached_features(args, eval_examples, tokenizer, False,
@@ -564,7 +577,7 @@ def predict(args, model, tokenizer, device) -> dict:
     for i in range(0, len(padded), bs):
         feats = padded[i:i + bs]
         batch = features_to_tensors(feats, False, device)
-        start_logits, end_logits = model(
+        start_logits, end_logits = predict_step(
             batch["input_ids"], batch["segment_ids"], batch["input_mask"])
         start_logits = start_logits.float().cpu().numpy()
         end_logits = end_logits.float().cpu().numpy()
@@ -630,17 +643,22 @@ def run(args):
          "layer_norm_backend": args.layer_norm_backend,
          "optimizer": args.optimizer, "layers": config.num_hidden_layers})
     summary = {}
-    if args.do_train:
-        summary.update(train(args, model, config, tokenizer, device))
-    if args.distributed:
-        # Prediction, the official eval and the summary are rank 0's.
-        dist_utils.barrier()
-        if not dist_utils.is_main_process():
-            return summary, model, config
-    if args.do_predict and not summary.get("terminated_by_signal"):
-        # A preempted run exits after its checkpoint: the grace period is
-        # for durability, not for prediction.
-        summary.update(predict(args, model, tokenizer, device))
+    tele = open_telemetry(args, config, device)
+    try:
+        if args.do_train:
+            summary.update(train(args, model, config, tokenizer, device,
+                                 tele))
+        if args.distributed:
+            # Prediction, the official eval and the summary are rank 0's.
+            dist_utils.barrier()
+            if not dist_utils.is_main_process():
+                return summary, model, config
+        if args.do_predict and not summary.get("terminated_by_signal"):
+            # A preempted run exits after its checkpoint: the grace period
+            # is for durability, not for prediction.
+            summary.update(predict(args, model, tokenizer, device, tele))
+    finally:
+        tele.close()
     log({"event": "summary", **{k: v for k, v in summary.items()
                                 if isinstance(v, (int, float))}})
     with open(os.path.join(args.output_dir, args.json_summary), "w",

@@ -34,9 +34,9 @@ directory; models/convert.py ``load_pretrained_encoder``). The
 training batches on the card ahead of the step (data/device_prefetch.py).
 ``--compile_cache_dir`` names the directory the kernel libraries and the
 tokenizer core are built into (ops/kernels/build.py ``set_build_dir``).
-Not ported, so argparse refuses its flag: ``--telemetry_cost_analysis``.
-The
-telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
+``train_step`` and ``eval_step`` emit their ``compile`` and
+``compile_cost`` records (``--telemetry_cost_analysis``,
+telemetry/memory.py). The telemetry debug planes (``--debug_port``, ``--postmortem_file``) are the
 JAX runner's.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import finetune, telemetry
+from bert_pytorch_tpu_torch.telemetry import memory as memory_util
 from bert_pytorch_tpu_torch.data import device_prefetch as dp_cli
 from bert_pytorch_tpu_torch.data import swag
 from bert_pytorch_tpu_torch.models.bert import BertForMultipleChoice
@@ -151,6 +152,10 @@ def run(args):
         swag.NUM_CHOICES * flops_util.bert_finetune_flops_per_seq(
             config, args.max_seq_len, head_outputs=1, per_token_head=False,
             pooled=True))
+    # Compile and cost attribution (JAX run_swag.py:187-189).
+    step = tele.instrument(step, "train_step",
+                           memory_util.training_state(model, optimizer))
+    eval_step = tele.instrument(model, "eval_step")
 
     @torch.no_grad()
     def evaluate():
@@ -159,8 +164,8 @@ def run(args):
                                              False,
                                              np.random.default_rng(0)):
             t = finetune.to_device(batch, device)
-            scores = model(t["input_ids"], t["segment_ids"],
-                           t["input_mask"]).float().cpu().numpy()
+            scores = eval_step(t["input_ids"], t["segment_ids"],
+                               t["input_mask"]).float().cpu().numpy()
             preds = scores.argmax(axis=-1)
             correct += int(((preds == batch["labels"]) & valid).sum())
             total += int(valid.sum())

@@ -12,10 +12,10 @@ per-step decomposition, the pretraining loop samples it).
 The debug planes come with the JAX flags and defaults: ``--debug_port``
 (the live introspection server, 0 disables), ``--debug_stale_after_s``
 (its /healthz bound) and ``--postmortem_file`` (the crash flight
-recorder, armed at ``<output_dir>/postmortem.json`` by default). Not
-ported, so argparse refuses it: ``--telemetry_cost_analysis`` (the
-``compile_cost`` records of XLA's cost analysis; ROADMAP item "Bench legs
-and an entry point").
+recorder, armed at ``<output_dir>/postmortem.json`` by default).
+``--telemetry_cost_analysis`` (``auto``, ``off``, ``full``; default
+``auto``) sets the mode of the ``compile_cost`` records the instrumented
+step functions emit (telemetry/memory.py).
 """
 
 from __future__ import annotations
@@ -115,6 +115,16 @@ def add_cli_args(parser, window_default: int = 50,
                              "warning; never a kill) when no step completes "
                              "for this many seconds. Arms at the FIRST "
                              "completed step. 0 (default) disables")
+    parser.add_argument("--telemetry_cost_analysis", type=str,
+                        default="auto", choices=["auto", "off", "full"],
+                        help="per-step-function cost attribution "
+                             "(compile_cost records: FLOPs, bytes "
+                             "accessed, argument/output bytes) counted "
+                             "over the first call of each shapes digest. "
+                             "'auto' counts the ops and the kernels' "
+                             "notes; 'full' also reads the CUDA "
+                             "allocator's peak over that call "
+                             "(temp_bytes); 'off' emits none")
 
 
 def stats_every(args) -> int:
@@ -215,7 +225,8 @@ def from_args(args, sink=None, seq_per_step: Optional[int] = None,
         update_ratio_max=args.update_ratio_max,
         device=device,
         introspect=introspect,
-        flight_recorder=recorder)
+        flight_recorder=recorder,
+        cost_analysis=getattr(args, "telemetry_cost_analysis", "auto"))
     if introspect is not None:
         from bert_pytorch_tpu_torch.telemetry.introspect import \
             start_debug_server

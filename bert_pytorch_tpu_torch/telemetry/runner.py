@@ -34,10 +34,13 @@ One object owns the telemetry pieces and their lifecycle:
   ``grad_health`` records, checked for grad-norm spikes / update-ratio
   drift).
 
-Not ported yet: the JAX facade's ``instrument`` and its
-``CompileMonitor`` come with the bench legs (ROADMAP item "Bench legs and
-an entry point"; the port's compile records are the kernel builds,
-``telemetry/compile_events.py``, which the serving engine counts).
+* a :class:`~bert_pytorch_tpu_torch.telemetry.compile_events.CompileMonitor`
+  (``.compile_monitor``): :meth:`TrainTelemetry.instrument` wraps a step
+  function so the first call of each new shapes digest emits its
+  ``compile`` record and, unless ``cost_analysis`` is ``"off"``, its
+  ``compile_cost`` record (telemetry/memory.py), both through
+  :meth:`TrainTelemetry.emit`.
+
 :meth:`TrainTelemetry.attach_prefetcher` takes the device prefetcher
 (data/device_prefetch.py): each step's staging share of its data wait
 becomes the ``h2d_wait`` sub-phase, and its gauges a window's
@@ -73,6 +76,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
+from bert_pytorch_tpu_torch.telemetry.compile_events import CompileMonitor
 from bert_pytorch_tpu_torch.telemetry.memory import MemorySampler
 from bert_pytorch_tpu_torch.telemetry.model_stats import (DivergenceMonitor,
                                                           health_record)
@@ -112,6 +116,7 @@ class TrainTelemetry:
         flight_recorder=None,
         clock: Callable[[], float] = time.perf_counter,
         device_clock=None,
+        cost_analysis: str = "auto",
     ):
         """``device`` is the training device: on ``cuda`` the timer's
         device clock is a :class:`CudaEventClock` on it (unless
@@ -125,7 +130,9 @@ class TrainTelemetry:
         ``n_devices`` cards (the world size). ``introspect`` (an
         :class:`IntrospectionHub`) and ``flight_recorder`` (a
         :class:`FlightRecorder`) are fed every emitted record; the hub
-        also gets the step liveness and the capture controller."""
+        also gets the step liveness and the capture controller.
+        ``cost_analysis`` (``auto``, ``off``, ``full``) is the mode of the
+        ``compile_cost`` records of :meth:`instrument`."""
         self.is_primary = is_primary
         self._clock = clock
         device = torch.device(device)
@@ -171,6 +178,9 @@ class TrainTelemetry:
         # locking.
         self.introspect = introspect
         self.flight_recorder = flight_recorder
+        self.compile_monitor = CompileMonitor(
+            emit=self.emit, cost_analysis=cost_analysis, device=device,
+            sampler=self.memory)
         # On-demand capture plane: armed over HTTP (POST /profilez on the
         # hub), started/collected at the step boundary in step_done. It
         # shares the startup window's ProfilerWindow — the process-wide
@@ -204,6 +214,12 @@ class TrainTelemetry:
             self.flight_recorder.note_record(rec)
         if self.sink is not None:
             self.sink.write_record(rec)
+
+    def instrument(self, fn, name: str, state=None):
+        """``fn`` wrapped for compile and cost attribution (its records
+        go through :meth:`emit`); ``state`` as
+        :meth:`CompileMonitor.instrument`'s."""
+        return self.compile_monitor.instrument(fn, name, state)
 
     def attach_loader(self, loader) -> None:
         """Use ``loader.snapshot()`` gauges in each window record."""

@@ -1,0 +1,139 @@
+#!/usr/bin/env python
+"""The longitudinal perf-ledger CLI of the port (telemetry/ledger.py): the
+counterpart of the repo-root ``tools/perf_ledger.py``.
+
+The ledger is an append-mode, schema-linted JSONL trajectory of headline
+perf numbers, one ``ledger_entry`` per bench leg or telemetry-report run,
+keyed by (leg, config digest). ``telemetry_report.py --ledger`` appends
+and gates in one run; this tool shows, appends and drift-checks a ledger
+the caller owns.
+
+Usage::
+
+    python bert_pytorch_tpu_torch/tools/perf_ledger.py show out/perf_ledger.jsonl [--leg serve]
+    python bert_pytorch_tpu_torch/tools/perf_ledger.py append out/perf_ledger.jsonl \\
+        --leg train --metric step_ms_p50=41.2 --metric mfu=0.38 [--config seq_len=128]
+    python bert_pytorch_tpu_torch/tools/perf_ledger.py check out/perf_ledger.jsonl \\
+        [--window 8] [--tol 0.25]
+
+``check`` compares the NEWEST entry of every (leg, config) trajectory
+against the rolling median of its history and exits 1 on drift, naming
+"perf ledger drift". Exit 0 = clean, 1 = drift, 2 = missing file or bad
+input. Stdlib only: the ledger engine loads by file path
+(tools/_bootstrap.py), no torch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+if __package__:
+    from bert_pytorch_tpu_torch.tools._bootstrap import load_by_path
+else:
+    from _bootstrap import load_by_path
+
+ledger = load_by_path("_torch_perf_ledger_engine", "telemetry", "ledger.py")
+
+
+def _parse_kv(pairs, cast):
+    out = {}
+    for item in pairs or ():
+        key, sep, value = item.partition("=")
+        if not sep or not key:
+            raise argparse.ArgumentTypeError(
+                f"want key=value, got {item!r}")
+        out[key] = cast(value)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="perf-ledger",
+        description="show / append / drift-check a longitudinal perf "
+                    "ledger")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_show = sub.add_parser("show", help="render the trajectory")
+    p_show.add_argument("path")
+    p_show.add_argument("--leg", default=None,
+                        help="only this leg's entries")
+
+    p_append = sub.add_parser("append", help="append one entry")
+    p_append.add_argument("path")
+    p_append.add_argument("--leg", required=True, help="leg name")
+    p_append.add_argument("--metric", action="append", default=[],
+                          metavar="KEY=VALUE",
+                          help="one metric (repeatable); known "
+                               "directions: "
+                               + ", ".join(sorted(
+                                   ledger.METRIC_DIRECTIONS)))
+    p_append.add_argument("--config", action="append", default=[],
+                          metavar="KEY=VALUE",
+                          help="config knob folded into the "
+                               "comparability digest (repeatable)")
+
+    p_check = sub.add_parser("check", help="rolling-median drift gate")
+    p_check.add_argument("path")
+    p_check.add_argument("--leg", default=None,
+                         help="only gate this leg's trajectories")
+    p_check.add_argument("--window", type=int,
+                         default=ledger.DEFAULT_WINDOW,
+                         help="history depth (default %(default)s)")
+    p_check.add_argument("--tol", type=float,
+                         default=ledger.DEFAULT_TOLERANCE,
+                         help="relative drift tolerance "
+                              "(default %(default)s)")
+
+    args = parser.parse_args(argv)
+
+    if args.cmd == "append":
+        try:
+            metrics = _parse_kv(args.metric, float)
+            config = _parse_kv(args.config, str) or None
+        except (argparse.ArgumentTypeError, ValueError) as exc:
+            print(f"perf-ledger: {exc}", file=sys.stderr)
+            return 2
+        if not metrics:
+            print("perf-ledger: append wants at least one --metric",
+                  file=sys.stderr)
+            return 2
+        rec = ledger.append_entry(args.path, args.leg, metrics,
+                                  config=config)
+        if rec is None:
+            print("perf-ledger: no metric survived cleaning (non-finite "
+                  "or negative values are dropped)", file=sys.stderr)
+            return 2
+        print(f"perf-ledger: appended {args.leg} "
+              f"[{rec['config_digest']}]: "
+              + " ".join(f"{k}={v:g}"
+                         for k, v in sorted(rec["metrics"].items())))
+        return 0
+
+    if not os.path.exists(args.path):
+        print(f"perf-ledger: {args.path}: no such ledger", file=sys.stderr)
+        return 2
+    entries = ledger.read_entries(args.path,
+                                  leg=getattr(args, "leg", None))
+    if args.cmd == "show":
+        print(ledger.format_trajectory(entries))
+        return 0
+
+    findings = ledger.check_drift(entries, window=args.window,
+                                  tolerance=args.tol)
+    if not findings:
+        print(f"perf-ledger: {args.path}: ok "
+              f"({len(entries)} entries, no drift)")
+        return 0
+    for f in findings:
+        print(f"perf-ledger: REGRESSION perf ledger drift: "
+              f"{f['leg']}/{f['metric']} [{f['digest']}]: "
+              f"median {f['median']:g} -> {f['latest']:g} "
+              f"({f['change']:+.1%}, tolerance {f['tolerance']:.0%}, "
+              f"window {f['window']})")
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -183,6 +183,32 @@ def verify_checkpoint(ckpt_path: str) -> Tuple[str, str]:
     return status, detail
 
 
+def validate_mesh_spec(manifest: dict) -> Tuple[bool, str]:
+    """Consistency of a manifest's mesh spec with its shard layout
+    (``tools/verify_checkpoint.py --strict``): axis sizes are concrete
+    positives, and a sharded layout's device product is divisible by its
+    shard count (each rank wrote one shard). Returns (ok, reason)."""
+    spec = manifest.get("mesh_spec")
+    if spec is None:
+        return True, "no mesh_spec recorded"
+    if not isinstance(spec, dict) or not spec:
+        return False, "mesh_spec is not a non-empty object"
+    product = 1
+    for key, size in spec.items():
+        if not isinstance(size, int) or size < 1:
+            return False, (f"mesh_spec axis '{key}' must be a concrete "
+                           f"positive size, got {size!r}")
+        product *= size
+    shards = manifest.get("shard_files")
+    if manifest.get("layout") == "sharded":
+        if not shards:
+            return False, "layout=sharded but no shard_files listed"
+        if product % len(shards) != 0:
+            return False, (f"device product {product} not divisible by "
+                           f"{len(shards)} process shards")
+    return True, f"mesh_spec consistent ({product} devices)"
+
+
 def verify_blob(ckpt_path: str, blob: bytes) -> Tuple[str, str]:
     """(status, detail) for checkpoint bytes already in memory — the load
     paths read the file ONCE and verify that buffer instead of paying a

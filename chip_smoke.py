@@ -100,7 +100,13 @@ Phases (any failure exits non-zero and prints no result line):
    per call (``torch.profiler``: the kernel alone takes less than the
    host's time to issue it) beside its plain version's,
    ``torch.nn.functional.layer_norm``'s and its bound, and CUDA-event
-   times of 100 calls back to back;
+   times of 100 calls back to back. Then each kernel's cost note (a
+   ``ctypes`` launch is invisible to the cost counter's dispatch mode, so
+   every wrapper notes its flops and its bound's bytes to the counter of
+   the instrumented call running) against the counter's count of its
+   plain version on the same inputs, each an instrumented call (S=128
+   bf16, #6 at [4096, 1024]): the same flops, noted once (``cost_note`` in the
+   kernels line);
 8. the SQuAD main path: ``run_squad.main`` at BERT-large width on seeded
    synthetic SQuAD files (max_seq_length 384, doc_stride 128, batch 32,
    bf16, AdamW, ``--layer_norm_backend kernel``): three optimizer steps,
@@ -110,7 +116,10 @@ Phases (any failure exits non-zero and prints no result line):
    (steps + prediction batches) and no other kernel. The serving and
    pretraining paths keep the plain LayerNorm: the kernel launches never
    there. Its final checkpoint (no ``--skip_checkpoint``) verifies and
-   reads back equal to the trained params;
+   reads back equal to the trained params. Its telemetry holds the
+   ``compile`` and ``compile_cost`` records of ``train_step`` and
+   ``predict_step`` (the cost counter's first call of each), each count
+   holding #6's cost notes, 1 + 2 x 24;
 9. the two-phase pretraining hand-off on the runner's own functions
    (``drive_handoff``, BERT-large's width at 6 layers since PR 17,
    after a check of 6 GiB of free disk):
@@ -235,15 +244,16 @@ Phases (any failure exits non-zero and prints no result line):
    through ``run_pretraining.main`` over ``SyntheticPretrainingDataset``
    rows, 6 steps a run: 15a ``--device_prefetch`` 0 then 2 (traced; 6
    layers since PR 17), then an untraced run of each (2, then 0; 24
-   layers), per-step losses bit-equal within each pair, the step p50 of
-   each depth, #1-#3 4/2/2 per layer per step, the traced steps 2-3 holding
-   the staged batch's copies as pinned-to-device memcpys on a stream other
-   than the compute kernels', data_wait and h2d_wait p50 of schema-clean
-   windows; 15b the runner's loader with ``--num_workers 2`` against 0,
-   every batch equal by sha256, each worker's start and the rows per
-   second; 15c ``--num_workers 2 --num_steps_per_eval 2 --eval_batches
-   4``, the losses 15a's, ``val`` records at steps 2, 4 and 6 each equal
-   to ``pretrain.make_eval_step`` on that step's params and batches, the
+   layers) and 0 again without the cost counter, per-step losses
+   bit-equal within each pair, the step p50 of each depth, #1-#3 4/2/2
+   per layer per step, the traced steps 2-3 holding the staged batch's
+   copies as pinned-to-device memcpys on a stream other than the compute
+   kernels', data_wait and h2d_wait p50 of schema-clean
+   windows; 15c ``--num_workers 2 --num_steps_per_eval 2 --eval_batches
+   4``, the losses 15a's (so its two workers' batches are the in-process
+   loader's) and each worker's start to its first batch, ``val`` records
+   at steps 2, 4 and 6 each equal to ``pretrain.make_eval_step`` on that
+   step's params and batches, the
    eval forward on #1 (24 launches a batch; #4 none); 15d
    ``--fault_spec nonfinite@3`` under ``--sentinel_policy abort`` raising
    with its injected record (6 layers since PR 17), then the kill cycle
@@ -254,7 +264,21 @@ Phases (any failure exits non-zero and prints no result line):
    bit. Every entry of the kernels
    line carries ``launches_feed`` (15a's untraced prefetch-2 run), #1 also
    ``launches_feed_eval`` (15c's held-out forwards, counted around each of
-   that run's held-out passes);
+   that run's held-out passes). The compile and cost attribution
+   (``--telemetry_cost_analysis``) rides on these runs: 15a's traced
+   prefetch-0 run counts under ``full`` (its ``temp_bytes``, the allocator
+   peak before it kept in its memory records, the flops of the auto run
+   beside it; the traced prefetch-2 run after it reads peaks no higher
+   than the allocator's), the untraced pair under ``auto``, and a third
+   untraced run, prefetch 0 again under ``off`` (no ``compile_cost``; its
+   losses the counted runs' bit for bit, its first step and steps 2-6
+   p50 beside the prefetch-0 ``auto`` run's: the counter's cost); the
+   untraced prefetch-2 run's ``train_step`` flops equal the closed form
+   from the layer shapes (flash's notes, the remat recompute of #1
+   included) and its 192
+   kernel notes, 96 of them from the backward, and the ratio to
+   utils/flops.py's model flops is logged; 15c's records hold
+   ``eval_step``'s too;
 16. RoBERTa-large and the text path (``drive_roberta``), the repo's
    ``configs/roberta_large_cased_config.json`` at full width and, since
    PR 20, ``ROBERTA_LAYERS`` (6) layers (no NSP, byte-level BPE), bf16,
@@ -274,9 +298,15 @@ Phases (any failure exits non-zero and prints no result line):
    decode of known in-vocab top-k ids); 16e ``tools/batch_infer`` on a
    file of the same 32 requests in runs of one task, packed up to 8 a
    batch, each result 16d's answer within the tolerances, one launch of
-   #4 per layer per forward. #1-#4 carry
-   ``launches_roberta`` (16b's and 16d's), #4 also
-   ``launches_roberta_batch_infer`` (16e's);
+   #4 per layer per forward; then the same file with ``--quantize int8
+   --attention_backend flash_infer_int8 --fuse_epilogues``, each result
+   16d's answer within the int8 bound (log-probabilities within
+   ``INT8_LOGIT_ATOL``, 1e-1), one launch of #5 per layer per forward and
+   none of #4; then ``tools/bench_loader`` over synthetic rows and
+   ``tools/bench_tokenizer`` on 16a's BPE vocabulary, their JSON lines
+   logged. #1-#4 carry ``launches_roberta`` (16b's and 16d's), #4 also
+   ``launches_roberta_batch_infer`` (16e's), #5
+   ``launches_roberta_batch_infer_int8``;
 17. pretraining across ranks (``drive_mesh``), each part a
    ``python -m torch.distributed.run`` of the runner: 17a at world size 1
    on nccl (``--mesh dp=1``) through ``run_pretraining.main`` in phase
@@ -568,12 +598,14 @@ def library_call(q, k, v, kwargs):
 
 def bound_ms(seq: int, dtype, depth: int = D) -> tuple:
     """(least time in ms, what bounds it): q, k, v read once and out written
-    once (+ the [B, S] fp32 key bias), against 4*B*H*S^2*D operations."""
-    elem = torch.finfo(dtype).bits // 8
-    nbytes = 4 * B * seq * H * depth * elem + B * seq * 4
-    flops = 4 * B * H * seq * seq * depth
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    once (+ the [B, S] fp32 key bias), against 4*B*H*S^2*D operations: the
+    bytes and flops of ``infer_cost``, which the kernel's cost note reads
+    too."""
+    from bert_pytorch_tpu_torch.ops.kernels.attention import infer_cost
+
+    cost = infer_cost(B, seq, H, depth, dtype)
+    t_bytes = cost.bytes_accessed / PEAK_BYTES_PER_S * 1e3
+    t_ops = cost.flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -702,13 +734,14 @@ def int8_bound_ms(seq: int, dtype, depth: int = D) -> tuple:
     k8 read once at 1 B an element, v read and out written at v's element
     size, the [B, S] fp32 key bias (or ids) and the two [B, H] fp32 scales;
     against QK^T (2*B*H*S^2*D) at the int8 rate plus PV (as many) at the
-    rate of v's dtype."""
-    elem = torch.finfo(dtype).bits // 8
-    n = B * seq * H * depth
-    nbytes = 2 * n + 2 * n * elem + B * seq * 4 + 2 * B * H * 4
-    ops = 2 * B * H * seq * seq * depth
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (ops / PEAK_INT8_OPS + ops / PEAK_FLOPS[dtype]) * 1e3
+    rate of v's dtype (``infer_int8_cost``, which the kernel's cost note
+    reads too)."""
+    from bert_pytorch_tpu_torch.ops.kernels.attention import infer_int8_cost
+
+    cost = infer_int8_cost(B, seq, H, depth, dtype)
+    t_bytes = cost.bytes_accessed / PEAK_BYTES_PER_S * 1e3
+    t_ops = (cost.int8_ops / PEAK_INT8_OPS
+             + (cost.flops - cost.int8_ops) / PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -804,28 +837,19 @@ TRAIN_SOURCES = {
     "flash_attention_dq": "bert_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_dkv": "bert_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
 }
-# FLOPs per B*H*S^2*D of each kernel: QK^T and PV forward; QK^T, dO V^T and
-# dS K for dq; QK^T, dO V^T, P^T dO and dS^T Q for dkv.
-TRAIN_FLOPS = {"flash_attention_fwd": 4, "flash_attention_dq": 6,
-               "flash_attention_dkv": 8}
 
 
 def train_bound_ms(name: str, seq: int, dtype) -> tuple:
     """(least time in ms, what bounds it) for one training kernel at
     B x S x H x D: every operand read once and every result written once
     ([B, S, H, D] tensors in dtype; lse, delta, dbias [B*H, S] and the
-    [B, S] key bias in fp32), against TRAIN_FLOPS * B*H*S^2*D operations."""
-    elem = torch.finfo(dtype).bits // 8
-    act = B * seq * H * D * elem
-    stat = B * H * seq * 4
-    nbytes = {
-        "flash_attention_fwd": 4 * act + stat,              # q k v | out lse
-        "flash_attention_dq": 6 * act + 2 * stat,           # q k v o dO | dq, lse | delta
-        "flash_attention_dkv": 6 * act + 3 * stat,          # q k v dO | dk dv, lse delta | dbias
-    }[name] + B * seq * 4
-    flops = TRAIN_FLOPS[name] * B * H * seq * seq * D
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    [B, S] key bias in fp32), against 2 * TRAIN_PRODUCTS * B*H*S^2*D
+    operations: ``train_cost``, which the kernel's cost note reads too."""
+    from bert_pytorch_tpu_torch.ops.kernels.attention import train_cost
+
+    cost = train_cost(name, B, seq, H, D, dtype)
+    t_bytes = cost.bytes_accessed / PEAK_BYTES_PER_S * 1e3
+    t_ops = cost.flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2003,9 +2027,11 @@ def ln_inputs(rows: int, hidden: int, dtype, gen: torch.Generator):
 def ln_bound_ms(rows: int, hidden: int, dtype) -> tuple:
     """(least time in ms, what bounds it): x read and out written once at
     x's element size plus the fp32 mean and rstd of each row, against
-    LN_OPS_PER_ELEMENT fp32 operations per element."""
-    elem = torch.finfo(dtype).bits // 8
-    nbytes = rows * hidden * 2 * elem + 8 * rows
+    LN_OPS_PER_ELEMENT fp32 operations per element (the bytes of
+    ``layer_norm_cost``, which the kernel's cost note reads too)."""
+    from bert_pytorch_tpu_torch.ops.kernels.layernorm import layer_norm_cost
+
+    nbytes = layer_norm_cost(rows, hidden, dtype).bytes_accessed
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (LN_OPS_PER_ELEMENT * rows * hidden
              / PEAK_FLOPS[torch.float32] * 1e3)
@@ -2137,6 +2163,86 @@ SQUAD_INIT_LOSS = math.log(SQUAD_SEQ)
 EVAL_SCRIPT = os.path.join(REPO, "scripts", "squad_evaluate_v11.py")
 
 
+def check_cost_notes(seq: int = 128, dtype=torch.bfloat16) -> dict:
+    """Each kernel's cost note against the cost counter's count of its
+    plain version on the same CUDA inputs, each counted as an instrumented
+    call's first call (telemetry/compile_events.py
+    ``CompileMonitor.instrument``; a ``ctypes`` launch is invisible to the
+    counter, so each wrapper notes its own flops and bytes to the call's
+    counter): at B x S x H x D = 8 x ``seq``
+    x 16 x 64 in ``dtype``, dropout 0.1 for #1-#3, and #6 at
+    [8*512, 1024]. The wrapper's counted flops must equal the plain
+    version's and the wrapper must note exactly once; its bytes are the
+    bound's (``*_cost``). These launches are not a main path's: every
+    main path zeroes the counts first."""
+    from bert_pytorch_tpu_torch.ops.kernels import attention as ka
+    from bert_pytorch_tpu_torch.ops.kernels import layernorm as kl
+    from bert_pytorch_tpu_torch.telemetry.compile_events import \
+        CompileMonitor
+
+    def count(fn) -> dict:
+        monitor = CompileMonitor(cost_analysis="auto", device="cuda")
+        monitor.instrument(fn, "cost_note")()
+        cost, = [r for r in monitor.events if r["kind"] == "compile_cost"]
+        return cost
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do, kw, key_bias, seg = training_inputs(seq, dtype, False, gen)
+    out, lse = ka.flash_attention_fwd(q, k, v, key_bias, seg, 5, 0.1)
+    _, delta = ka.flash_attention_dq(q, k, v, out, do, lse, key_bias, seg, 5,
+                                     0.1)
+    q8, q_scale, k8, k_scale = ka.quantize_qk(q, k)
+    x, ln_scale, ln_bias = ln_inputs(8 * 512, 1024, dtype, gen)
+    pairs = {
+        "flash_attention_infer": (
+            lambda: ka.flash_attention_infer(q, k, v, **kw),
+            lambda: ka.flash_attention_infer_reference(q, k, v, **kw),
+            ka.infer_cost(B, seq, H, D, dtype)),
+        "flash_attention_infer_int8": (
+            lambda: ka.flash_attention_infer_int8_prequantized(
+                q8, k8, q_scale, k_scale, v, key_bias, seg),
+            lambda: ka._int8_forward_math(q8, k8, q_scale, k_scale, v,
+                                          key_bias, seg),
+            ka.infer_int8_cost(B, seq, H, D, dtype)),
+        "flash_attention_fwd": (
+            lambda: ka.flash_attention_fwd(q, k, v, key_bias, seg, 5, 0.1),
+            lambda: ka._forward_math(q, k, v, key_bias, seg, 5, 0.1),
+            ka.train_cost("flash_attention_fwd", B, seq, H, D, dtype)),
+        "flash_attention_dq": (
+            lambda: ka.flash_attention_dq(q, k, v, out, do, lse, key_bias,
+                                          seg, 5, 0.1),
+            lambda: ka._dq_math(q, k, v, out, do, lse, key_bias, seg, 5, 0.1),
+            ka.train_cost("flash_attention_dq", B, seq, H, D, dtype)),
+        "flash_attention_dkv": (
+            lambda: ka.flash_attention_dkv(q, k, v, do, lse, delta, key_bias,
+                                           seg, 5, 0.1),
+            lambda: ka._dkv_math(q, k, v, do, lse, delta, key_bias, seg, 5,
+                                 0.1),
+            ka.train_cost("flash_attention_dkv", B, seq, H, D, dtype)),
+        "layer_norm_fwd": (
+            lambda: kl.layer_norm_fwd(x, ln_scale, ln_bias, LN_EPS),
+            lambda: kl.layer_norm_fwd_reference(x, ln_scale, ln_bias,
+                                                LN_EPS),
+            kl.layer_norm_cost(8 * 512, 1024, dtype)),
+    }
+    notes = {}
+    for name, (kernel, plain, cost) in pairs.items():
+        mine, ref = count(kernel), count(plain)
+        if (mine["flops"] != ref["flops"] or mine["flops"] != cost.flops
+                or mine["kernel_notes"] != 1 or ref["kernel_notes"] != 0
+                or mine["bytes_accessed"] < cost.bytes_accessed):
+            raise AssertionError(
+                f"{name} cost note: counted {mine} vs the plain version's "
+                f"{ref}; cost {cost}")
+        notes[name] = {"flops": int(mine["flops"]),
+                       "bytes": cost.bytes_accessed,
+                       "plain_bytes": int(ref["bytes_accessed"])}
+    log(f"[cost] each kernel's note equals its plain version's counted "
+        f"flops at S={seq} {str(dtype)[6:]} (#6 at [4096, 1024]), noted "
+        f"once: {notes}")
+    return notes
+
+
 def drive_squad(vocab: str, tmp: str, kernels: dict,
                 dtype: str = "bfloat16") -> dict:
     """Phase 8 (and 12e in float16, with the dynamic loss scale): SQuAD
@@ -2195,11 +2301,25 @@ def drive_squad(vocab: str, tmp: str, kernels: dict,
         raise AssertionError(f"SQuAD launches {launches}; expected "
                              f"{expected} ({per_forward} LayerNorms per "
                              f"forward over {forwards} forwards)")
+    # The counted first call of each step function holds #6's notes: one
+    # a LayerNorm of its one forward.
+    with open(os.path.join(out, "squad_telemetry.jsonl"),
+              encoding="utf-8") as f:
+        records = [json.loads(line) for line in f]
+    costs = cost_records("SQuAD", records, ["train_step", "predict_step"])
+    notes = {fn: cost["kernel_notes"] for fn, (_, cost) in costs.items()}
+    if notes != {"train_step": per_forward, "predict_step": per_forward}:
+        raise AssertionError(f"SQuAD #6 notes in the counts {notes}; "
+                             f"expected {per_forward} a forward")
     del model
     torch.cuda.empty_cache()
     return dict(summary, launches=launches, forwards=forwards,
                 questions=len(questions), peak_gib=peak_gib,
-                checkpoint_write=write)
+                checkpoint_write=write, cost={
+                    fn: {k: cost[k] for k in ("flops", "bytes_accessed",
+                                              "argument_bytes",
+                                              "kernel_notes")}
+                    for fn, (_, cost) in costs.items()})
 
 
 # -- phase 9: the two-phase hand-off, resume and walk-back --------------------
@@ -2467,6 +2587,7 @@ def train_runner(r: dict, dataset, on_step=None, val_dataset=None) -> dict:
     args = r["args"]
     loader, sampler = run_pretraining.prepare_dataset(
         args, r["config"], r["checkpoint"], dataset)
+    r["loader"] = loader
     step = runner_step(r)
     if on_step is not None:
         inner = step
@@ -4227,7 +4348,9 @@ FEED_VOCAB, FEED_MAX_PRED = 30528, 80
 # batch before it blocks on the full queue, so the copies of batch N + 3
 # are issued as step N begins: batch 6's, at step 3, inside the window.
 FEED_PROFILE_STEPS = "2:4"
-FEED_UNTRACED_ORDER = ("2", "0")
+# The untraced runs in order, (depth, --telemetry_cost_analysis): the
+# prefetch pair under one mode, then the counter's pair at prefetch 0.
+FEED_UNTRACED_RUNS = (("2", "auto"), ("0", "auto"), ("0", "off"))
 # The traced pair's depth (PR 17 cut it from 24 to make room for phase
 # 17): the prefetcher's copies, its stream and the trace are the same at
 # any depth; the untraced pair and 15c keep BERT-large's 24.
@@ -4318,13 +4441,65 @@ def feed_main(kernels: dict, out: str, extra=(), dataset=None,
                                    val_dataset)
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    allocator_peak = torch.cuda.max_memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
     records = feed_records(out)
     return {"summary": summary, "launches": launches, "records": records,
             "losses": train_losses(records), "wall_s": wall,
+            "allocator_peak": allocator_peak,
             "windows": [r for r in records
                         if r.get("kind") == "step_window"]}
+
+
+def cost_records(label: str, records: list, fns, mode: str = "auto"
+                 ) -> dict:
+    """fn -> (compile, compile_cost or None) of a run's records: every
+    instrumented function in ``fns`` has its compile record and, unless
+    ``mode`` is off, its compile_cost record on the same shapes_digest
+    (``"counted_allocator"`` with temp_bytes under full); raises on a
+    gap, so a silent one cannot pass."""
+    compiles = {r["fn"]: r for r in records if r.get("kind") == "compile"}
+    costs = {(r["fn"], r["shapes_digest"]): r for r in records
+             if r.get("kind") == "compile_cost"}
+    out = {}
+    for fn in fns:
+        rec = compiles.get(fn)
+        cost = rec and costs.get((fn, rec["shapes_digest"]))
+        want = {"off": None, "auto": "counted",
+                "full": "counted_allocator"}[mode]
+        got = cost and cost["analysis"]
+        if (rec is None or got != want or (cost is not None and not (
+                cost["flops"] > 0 and cost["argument_bytes"] > 0))
+                or (mode == "full" and not cost["temp_bytes"] > 0)):
+            raise AssertionError(f"{label}: {fn}'s compile record {rec}, "
+                                 f"compile_cost {cost} under {mode}")
+        out[fn] = (rec, cost)
+    return out
+
+
+def train_step_flops(layers: int, rows: int, seq: int, hidden: int,
+                     inter: int, vocab: int, preds: int, micro: int,
+                     flash: bool = True) -> int:
+    """The cost counter's flops of one pretraining step, from the layer
+    shapes (tests/test_torch_cost_analysis.py's closed form): each dense
+    ``M x in x out`` 6MNK over forward and backward; attention
+    12*rows*S^2*hidden dense, or with the flash kernels and remat dots
+    their notes, forward 4 + its recompute 4 + dq 6 + dkv 8 (the dots are
+    saved, not recomputed); the MLM transform and decoder on ``preds``
+    rows a row, the pooler and NSP classifier on one."""
+    def dense(m, k, n):
+        return 6 * m * k * n
+
+    tokens = rows * seq
+    attention = (22 if flash else 12) * rows * seq * seq * hidden
+    layer = (dense(tokens, hidden, 3 * hidden) + dense(tokens, hidden, hidden)
+             + dense(tokens, hidden, inter) + dense(tokens, inter, hidden)
+             + attention)
+    heads = (dense(rows * preds, hidden, hidden)
+             + dense(rows * preds, hidden, vocab)
+             + dense(rows, hidden, hidden) + dense(rows, hidden, 2))
+    return micro * (layers * layer + heads)
 
 
 def check_feed_launches(label: str, launches: dict, layers: int,
@@ -4378,46 +4553,26 @@ def window_p50s(windows: list) -> list:
              w["step_p50_s"]) for w in windows]
 
 
-def batch_digests(loader) -> tuple:
-    """(sha256 of each batch, seconds to the first batch, rows per second
-    after it) of one pass of ``loader``."""
-    import hashlib
-
-    digests = []
-    t0 = time.perf_counter()
-    first = None
-    for batch in loader:
-        if first is None:
-            first = time.perf_counter()
-        h = hashlib.sha256()
-        for key in sorted(batch):
-            h.update(key.encode())
-            h.update(np.ascontiguousarray(batch[key]).tobytes())
-        digests.append(h.hexdigest())
-    rows = loader.batch_size * (len(digests) - 1)
-    return digests, first - t0, rows / max(time.perf_counter() - first,
-                                           1e-9)
-
-
 def drive_feed(kernels: dict, root: str, card: str) -> dict:
     """Phase 15 (full width and depth of BERT-large; cut: 6 steps a run of
     the recipe's 1563, local batch 8 x 2 for 32 x 1024, a held-out set of
     4 batches): the feed of a long run through ``run_pretraining.main``.
 
     15a: --device_prefetch 2 against 0, in turns (0, then 2 traced, both
-    at FEED_TRACED_LAYERS layers, then untraced 2, then 0 at 24): per-step
-    losses bit-equal within each pair, #1-#3 4 x layers / 2 x layers /
+    at FEED_TRACED_LAYERS layers, then untraced 2, then 0 at 24, both
+    under the default cost analysis; then 0 again under
+    --telemetry_cost_analysis off, the counter's pair): per-step losses
+    bit-equal within each pair, #1-#3 4 x layers / 2 x layers /
     2 x layers per step, the copies in the trace of steps 2-3
     pinned-to-device on a stream other than the compute kernels',
     data_wait/h2d_wait p50 of schema-clean windows, and the step p50 of
     each depth with and without the trace.
-    15b: the runner's loader with --num_workers 2 against 0: every batch
-    equal by sha256; each worker's start and the loader's rows per second.
     15c: --num_workers 2 --num_steps_per_eval 2 --eval_batches 4: the
-    losses 15a's bit for bit, ``val`` records at steps 2, 4 and 6, each
-    equal to pretrain.make_eval_step on that step's params and the same
-    batches; the eval route's kernel and launches per batch, a pass's
-    seconds.
+    losses 15a's bit for bit (the two workers' batches the in-process
+    loader's), each worker's start to its first batch, ``val`` records
+    at steps 2, 4 and 6, each equal to pretrain.make_eval_step on that
+    step's params and the same batches; the eval route's kernel and
+    launches per batch, a pass's seconds.
     15d: nonfinite@3 under --sentinel_policy abort raises with the
     injected record (FEED_TRACED_LAYERS layers since PR 17); then the
     kill cycle at dropout 0 and 6 layers: a
@@ -4443,16 +4598,34 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
     traced_config = cut_config(traced_dir,
                                num_hidden_layers=FEED_TRACED_LAYERS)
     runs = {}
+    # The prefetch-0 run counts its first step under --telemetry_cost_analysis
+    # full (the allocator's peak over it, after a reset): the allocator's
+    # peak before it must survive into the run's memory records.
+    peak_before = torch.cuda.max_memory_allocated()
     for depth in ("0", "2"):
         out = os.path.join(root, f"feed_prefetch_{depth}")
         extra = ["--device_prefetch", depth, "--telemetry_window",
                  str(FEED_WINDOW), "--telemetry_sync_every", "1"]
-        if depth == "2":
+        if depth == "0":
+            extra += ["--telemetry_cost_analysis", "full"]
+        else:
             extra += ["--profile_steps", FEED_PROFILE_STEPS, "--profile_dir",
                       os.path.join(out, "profile")]
         runs[depth] = feed_main(kernels, out, extra, config=traced_config)
         check_feed_launches(f"15a prefetch {depth}", runs[depth]["launches"],
                             FEED_TRACED_LAYERS)
+    full = cost_records("15a prefetch 0", runs["0"]["records"],
+                        ["train_step"], "full")["train_step"][1]
+    auto = cost_records("15a prefetch 2", runs["2"]["records"],
+                        ["train_step"])["train_step"][1]
+    peaks = [r["peak_bytes_in_use"] for r in runs["0"]["records"]
+             if r.get("kind") == "memory"]
+    if (full["flops"] != auto["flops"] or not peaks
+            or min(peaks) < max(peak_before, full["temp_bytes"])):
+        raise AssertionError(
+            f"15a full vs auto: flops {full['flops']} / {auto['flops']}, "
+            f"temp_bytes {full['temp_bytes']}, the run's peaks {peaks} "
+            f"under the peak before it {peak_before}")
     if (runs["0"]["losses"] != runs["2"]["losses"]
             or len(runs["0"]["losses"]) != FEED_STEPS):
         raise AssertionError(f"15a losses differ: prefetch 0 "
@@ -4472,60 +4645,102 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
                 for w in run["windows"]):
             raise AssertionError(f"15a windows of prefetch {depth}: "
                                  f"{run['windows']}")
+    # The run after the full one has no floor of its own: its peak is the
+    # allocator's, which full's reset lowered.
+    peaks2 = [r["peak_bytes_in_use"] for r in runs["2"]["records"]
+              if r.get("kind") == "memory"]
+    if not peaks2 or max(peaks2) > runs["2"]["allocator_peak"]:
+        raise AssertionError(f"15a prefetch 2 peaks {peaks2} above the "
+                             f"allocator's {runs['2']['allocator_peak']}")
     # The traced run changes the depth and the trace together: an untraced
-    # run of each depth follows, so that step time is read against the
-    # depth alone.
+    # run of each depth follows, both under the default cost analysis, so
+    # that step time is read against the depth alone. Then the counter's
+    # own cost: the prefetch-0 run again under off, its losses the counted
+    # runs', its first step and steps 2-N read beside the run before it.
     untraced = {"0": [], "2": []}
     untraced_runs = {}
-    for i, depth in enumerate(FEED_UNTRACED_ORDER):
+    for i, (depth, mode) in enumerate(FEED_UNTRACED_RUNS):
         run = feed_main(kernels, os.path.join(
-            root, f"feed_untraced_{i}_{depth}"), [
+            root, f"feed_untraced_{i}_{depth}_{mode}"), [
             "--device_prefetch", depth, "--telemetry_window",
-            str(FEED_WINDOW), "--telemetry_sync_every", "1"])
-        check_feed_launches(f"15a untraced prefetch {depth}",
+            str(FEED_WINDOW), "--telemetry_sync_every", "1",
+            "--telemetry_cost_analysis", mode])
+        check_feed_launches(f"15a untraced prefetch {depth} {mode}",
                             run["launches"], layers)
-        untraced_runs[depth] = run
-        first = untraced_runs[FEED_UNTRACED_ORDER[0]]
+        untraced_runs[depth, mode] = run
+        first = untraced_runs[FEED_UNTRACED_RUNS[0]]
         if run["losses"] != first["losses"]:
-            raise AssertionError(f"15a untraced prefetch {depth} losses "
-                                 f"{run['losses']} differ from "
+            raise AssertionError(f"15a untraced prefetch {depth} {mode} "
+                                 f"losses {run['losses']} differ from "
                                  f"{first['losses']}")
-        untraced[depth].append({"step_p50_s": step_p50_s(run),
-                                "windows": window_p50s(run["windows"]),
-                                "main_s": run["wall_s"]})
+        if mode == "auto":
+            untraced[depth].append({"step_p50_s": step_p50_s(run),
+                                    "windows": window_p50s(run["windows"]),
+                                    "main_s": run["wall_s"]})
+    counted = {key: cost_records(
+        f"15a untraced prefetch {key[0]} {key[1]}", run["records"],
+        ["train_step"], key[1])["train_step"]
+        for key, run in untraced_runs.items()}
+    cost = counted["2", "auto"][1]
+    if counted["0", "auto"][1]["flops"] != cost["flops"]:
+        raise AssertionError(f"15a untraced prefetch 0 counted "
+                             f"{counted['0', 'auto'][1]}, 2 {cost}")
+    counter_pair = {mode: {
+        "first_step_s": counted["0", mode][0]["compile_s"],
+        "steps_p50_s": step_p50_s(untraced_runs["0", mode])}
+        for mode in ("auto", "off")}
+    want = train_step_flops(layers, TRAIN_LOCAL_BATCH, TRAIN_SEQ, 1024, 4096,
+                            FEED_VOCAB, FEED_MAX_PRED, TRAIN_ACCUM)
+    # #1 twice (the remat recompute), #2 and #3 once, a layer a microbatch:
+    # the notes from the backward come from autograd's thread.
+    notes = 4 * layers * TRAIN_ACCUM
+    if cost["flops"] != want or cost["kernel_notes"] != notes:
+        raise AssertionError(f"15a train_step counted flops {cost['flops']}"
+                             f" and {cost['kernel_notes']} kernel notes; "
+                             f"the closed form {want}, {notes} notes")
+    from bert_pytorch_tpu_torch.config import BertConfig
+    from bert_pytorch_tpu_torch.utils import flops as flops_util
+
+    model_flops = flops_util.bert_train_flops_per_seq(
+        BertConfig.from_json_file(CONFIG), TRAIN_SEQ,
+        FEED_MAX_PRED) * TRAIN_LOCAL_BATCH * TRAIN_ACCUM
+    out_cost = {
+        "flops": cost["flops"], "closed_form": want,
+        "model_flops": model_flops,
+        "counted_over_model": cost["flops"] / model_flops,
+        "bytes_accessed": cost["bytes_accessed"],
+        "argument_bytes": cost["argument_bytes"],
+        "output_bytes": cost["output_bytes"],
+        "counter_prefetch_0": counter_pair,
+        "temp_bytes_6_layers": full["temp_bytes"],
+        "peak_bytes_6_layers": max(peaks)}
+    log(f"[cost] phase-2 train_step at 24 layers: counted flops "
+        f"{cost['flops']:.6e} (the closed form's, exact), "
+        f"utils/flops.py {model_flops:.6e}, counted / model "
+        f"{out_cost['counted_over_model']:.4f}; bytes accessed "
+        f"{cost['bytes_accessed']:.6e}, argument bytes "
+        f"{cost['argument_bytes']}, output bytes {cost['output_bytes']}; "
+        f"prefetch 0 (first step, steps 2-{FEED_STEPS} p50) "
+        f"{counter_pair['auto']['first_step_s']} s, "
+        f"{counter_pair['auto']['steps_p50_s']:.4f} s counted (auto), "
+        f"{counter_pair['off']['first_step_s']} s, "
+        f"{counter_pair['off']['steps_p50_s']:.4f} s off; at "
+        f"{FEED_TRACED_LAYERS} layers full's temp_bytes "
+        f"{full['temp_bytes']}, the run's peak {max(peaks)} (before it "
+        f"{peak_before}) on {card}")
     log(f"[feed] 15a prefetch 0 then 2 ({FEED_TRACED_LAYERS} layers): "
         f"losses bit-equal {runs['2']['losses']}; launches "
         f"{runs['2']['launches']}; untraced (24 layers) losses bit-equal "
-        f"{untraced_runs['2']['losses']}, launches "
-        f"{untraced_runs['2']['launches']}; "
+        f"{first['losses']}, launches {first['launches']}; "
         f"(step, data_wait p50, h2d_wait p50, step p50) s: prefetch 0 "
         f"{window_p50s(runs['0']['windows'])}, prefetch 2 "
         f"{window_p50s(runs['2']['windows'])}; steps 2-{FEED_STEPS} p50 "
         f"{step_p50_s(runs['0']):.4f} / {step_p50_s(runs['2']):.4f} s (the "
         f"2 run traced); the traced steps' copies {copies}; main() "
         f"{runs['0']['wall_s']:.1f} / {runs['2']['wall_s']:.1f} s; untraced "
-        f"in turns {'/'.join(FEED_UNTRACED_ORDER)}: prefetch 0 "
+        f"in turns {'/'.join(d for d, _ in FEED_UNTRACED_RUNS[:2])}, "
+        f"auto: prefetch 0 "
         f"{untraced['0']}, prefetch 2 {untraced['2']} on {card}")
-    # 15b
-    loaders = {}
-    for workers in (0, FEED_WORKERS):
-        args = run_pretraining.setup_training(run_pretraining.parse_arguments(
-            feed_argv(os.path.join(root, f"feed_workers_{workers}"),
-                      ["--num_workers", str(workers)])))
-        loader, _ = run_pretraining.prepare_dataset(args, None, None,
-                                                    feed_dataset())
-        loaders[workers] = (loader,) + batch_digests(loader)
-    if loaders[0][1] != loaders[FEED_WORKERS][1] or len(loaders[0][1]) != \
-            FEED_STEPS:
-        raise AssertionError("15b batches differ between 0 and "
-                             f"{FEED_WORKERS} workers")
-    starts = [round(s, 3) for s in loaders[FEED_WORKERS][0]
-              .worker_first_batch_s]
-    log(f"[feed] 15b {FEED_STEPS} batches equal by sha256 with 0 and "
-        f"{FEED_WORKERS} workers; first batch {loaders[0][2]:.3f} / "
-        f"{loaders[FEED_WORKERS][2]:.3f} s, then {loaders[0][3]:.1f} / "
-        f"{loaders[FEED_WORKERS][3]:.1f} rows/s; each worker's start to its "
-        f"first batch {starts} s on {card}")
     # 15c
     out = os.path.join(root, "feed_eval")
     r = runner(out, PHASE2, feed_argv(out, [
@@ -4577,9 +4792,12 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
                            if name == "flash_attention_fwd" else 0)
                     for name in kernels}:
         raise AssertionError(f"15c held-out passes launched {held_out}")
-    if train_losses(records) != untraced_runs["2"]["losses"]:
+    if train_losses(records) != untraced_runs["2", "auto"]["losses"]:
         raise AssertionError(f"15c losses {train_losses(records)} differ "
-                             f"from 15a's {untraced_runs['2']['losses']}")
+                             f"from 15a's {first['losses']}")
+    eval_cost = cost_records("15c", records, ["train_step", "eval_step"])[
+        "eval_step"][1]
+    out_cost["eval_step_flops"] = eval_cost["flops"]
     if [v["step"] for v in summary["val"]] != list(
             range(FEED_EVERY, FEED_STEPS + 1, FEED_EVERY)):
         raise AssertionError(f"15c val records {summary['val']}")
@@ -4611,8 +4829,13 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
              for name, n in check_launches.items() if n}
     if route != {"flash_attention_fwd": layers}:
         raise AssertionError(f"15c eval launches {check_launches}")
+    starts = r["loader"].worker_first_batch_s
+    if len(starts) != FEED_WORKERS or None in starts:
+        raise AssertionError(f"15c the workers' first batches {starts}")
+    starts = [round(s, 3) for s in starts]
     del r, snapshots, eval_step
-    log(f"[feed] 15c {FEED_WORKERS} workers, losses 15a's bit for bit; val "
+    log(f"[feed] 15c {FEED_WORKERS} workers, losses 15a's bit for bit, "
+        f"each worker's start to its first batch {starts} s; val "
         f"records {summary['val']} equal make_eval_step on each step's "
         f"params; the eval forward runs {route} launches per batch (the "
         f"training forward, #1; #4 none); a pass of {FEED_EVAL_BATCHES} "
@@ -4709,11 +4932,11 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
         f"losses {after} (uninterrupted {want}; bit-equal {exact}); phase "
         f"15 {phase_s:.1f} s on {card}")
     shutil.rmtree(traced_dir)
-    return {"launches": untraced_runs["2"]["launches"],
+    return {"launches": untraced_runs["2", "auto"]["launches"],
             "traced_launches": runs["2"]["launches"],
             "eval_launches": eval_launches, "held_out_launches": held_out,
             "eval_route": route, "eval_pass_s": pass_s,
-            "losses": untraced_runs["2"]["losses"], "windows": {
+            "losses": untraced_runs["2", "auto"]["losses"], "windows": {
                 depth: window_p50s(run["windows"])
                 for depth, run in runs.items()},
             "main_s": {depth: run["wall_s"] for depth, run in runs.items()},
@@ -4722,11 +4945,10 @@ def drive_feed(kernels: dict, root: str, card: str) -> dict:
             "untraced": untraced,
             "h2d_copies": copies,
             "worker_first_batch_s": starts,
-            "loader_rows_per_s": {w: v[3] for w, v in loaders.items()},
             "val": summary["val"], "nonfinite": aborted,
             "kill_child_s": kill_s, "resume_child_s": resume_s,
             "resumed_losses": after, "resumed_bit_equal": exact,
-            "phase_s": phase_s}
+            "phase_s": phase_s, "cost": out_cost}
 
 
 # -- phase 16: RoBERTa-large and the text path --------------------------------
@@ -4920,6 +5142,50 @@ def check_offline_answers(results: list, answers: list, refs: dict
             raise AssertionError(f"16e request {i}: classify {got} where "
                                  f"16d answered {body}")
     return fill_err, swaps, cls_err
+
+
+def bench_tools(bpe_vocab: str, card: str) -> dict:
+    """The offline benches on the card: tools/bench_loader over
+    SyntheticPretrainingDataset rows (the card has no h5py) at phase 6's
+    S=512 in the process (no workers: 15c reads their start), and
+    tools/bench_tokenizer's C++ BPE on 16a's vocabulary beside HF's where
+    ``tokenizers`` imports. Each prints the JAX tool's JSON lines; a few
+    seconds each."""
+    import contextlib
+    import io
+
+    from bert_pytorch_tpu_torch.tools import bench_loader, bench_tokenizer
+
+    lines = {}
+    for name, tool, argv in (
+            ("bench_loader", bench_loader,
+             ["--source", "rows", "--seq_len", str(TRAIN_SEQ),
+              "--batch_size", "16", "--samples", "1024", "--workers",
+              "0"]),
+            ("bench_tokenizer", bench_tokenizer,
+             ["--lines", "5000", "--repeat", "3", "--vocab_file",
+              bpe_vocab])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tool.main(argv)
+        lines[name] = [json.loads(line) for line in
+                       buf.getvalue().splitlines() if line.startswith("{")]
+        lines[name + "_s"] = time.perf_counter() - t0
+    rates = [line["value"] for line in lines["bench_loader"]]
+    cpp = [line for line in lines["bench_tokenizer"]
+           if line.get("backend") == "cpp"]
+    if len(rates) != 1 or min(rates) <= 0 or len(cpp) != 1 or not (
+            cpp[0]["value"] > 0 and cpp[0]["metric"]
+            == "bpe_encode_tokens_per_sec"):
+        raise AssertionError(f"bench tools: {lines}")
+    log(f"[tools] bench_loader rows S={TRAIN_SEQ} batch 16: {rates[0]} "
+        f"seq/s in the process ({lines['bench_loader_s']:.1f} s); "
+        f"bench_tokenizer C++ BPE on 16a's vocab: {cpp[0]['value']} "
+        f"tokens/s over {cpp[0]['tokens']} tokens "
+        f"({lines['bench_tokenizer_s']:.1f} s); "
+        f"{lines['bench_tokenizer'][1:]} on {card}")
+    return lines
 
 
 def drive_roberta(kernels: dict, root: str, card: str) -> dict:
@@ -5265,6 +5531,48 @@ def drive_roberta(kernels: dict, root: str, card: str) -> dict:
                               fill_mask_logp_err=fill_err_e,
                               fill_mask_swaps=swaps,
                               classify_logp_err=cls_err)
+    # The same file through --quantize int8 (int8 weights and GEMMs, #5's
+    # int8 scores, the fused gather): held to 16d's answers at the int8
+    # bound (log-probabilities within INT8_LOGIT_ATOL, the JAX package's
+    # 1e-1; the classify bound 2 x GLUE_SERVE_ATOL is the same 1e-1), one
+    # launch of #5 per layer per forward and none of #4.
+    scored8 = os.path.join(work, "scored_int8.jsonl")
+    zero_counts(kernels)
+    stats8 = batch_infer.main([
+        "--input", request_file, "--output", scored8,
+        "--model_config_file", config, "--vocab_file", vocab,
+        "--device", "cuda", "--dtype", "bfloat16",
+        "--attention_backend", "flash_infer_int8", *INT8_FLAGS,
+        "--tasks", "classify,fill_mask", "--buckets", "128,512",
+        "--max_batch_size", "8", "--pack_requests", "--uppercase",
+        "--classify_checkpoint", glue_out, "--fill_mask_checkpoint", saved])
+    int8_launches = {name: k.launches for name, k in kernels.items()}
+    with open(scored8, encoding="utf-8") as f:
+        lines8 = [json.loads(line) for line in f]
+    if (stats8["errors"] or stats8["quantize"] != "int8"
+            or [line["id"] for line in lines8] != list(range(len(requests)))):
+        raise AssertionError(f"16e int8: {stats8}")
+    assert FILL_MASK_LOGP_ATOL == 2 * GLUE_SERVE_ATOL == INT8_LOGIT_ATOL
+    fill_err8, swaps8, cls_err8 = check_offline_answers(
+        [line["result"] for line in lines8], answers, refs)
+    want_int8 = layers * stats8["forwards"]
+    if int8_launches["flash_attention_infer_int8"] != want_int8 or any(
+            v for n, v in int8_launches.items()
+            if n != "flash_attention_infer_int8"):
+        raise AssertionError(f"16e int8 launches {int8_launches}; expected "
+                             f"{want_int8} of #5 over {stats8['forwards']} "
+                             "forwards")
+    out["batch_infer_int8"] = dict(stats8, launches=int8_launches,
+                                   fill_mask_logp_err=fill_err8,
+                                   fill_mask_swaps=swaps8,
+                                   classify_logp_err=cls_err8)
+    log(f"[roberta 16e] batch_infer --quantize int8: {stats8['requests']} "
+        f"requests, {stats8['forwards']} forwards, #5 {want_int8} launches "
+        f"({layers} per forward), wall {stats8['wall_s']} s; against 16d's "
+        f"answers classify max |d log p| {cls_err8:.3e}, fill_mask max "
+        f"|d log p| vs dense {fill_err8:.3e} (bound {INT8_LOGIT_ATOL:g}), "
+        f"{swaps8} top-k ranks swapped at ties on {card}")
+    out["tools"] = bench_tools(vocab, card)
     out["seconds"]["16e"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -7037,6 +7345,7 @@ def main() -> int:
     mask_shares = check_keep_masks()
     cases = time_training_kernels()
     ln_entry = check_and_time_layer_norm()
+    cost_notes = check_cost_notes()
     # 12a beside phases 3, 4 and 7, so the fp16 and bf16 times are read at
     # the same point of the process.
     worst16, shares16, cases16, ln16 = check_fp16_kernels()
@@ -7172,6 +7481,11 @@ def main() -> int:
         if entry["name"] == "flash_attention_infer":
             entry["launches_roberta_batch_infer"] = roberta["batch_infer"][
                 "launches"]["flash_attention_infer"]
+        if entry["name"] == "flash_attention_infer_int8":
+            entry["launches_roberta_batch_infer_int8"] = roberta[
+                "batch_infer_int8"]["launches"]["flash_attention_infer_int8"]
+        if entry["name"] in cost_notes:
+            entry["cost_note"] = cost_notes[entry["name"]]
         # Phase 17 runs bf16 #1-#3 (and no other kernel): 17a through
         # torchrun at world size 1, 17b's three dp=2 runs and 17c's fsdp=2
         # run on rank 0 of the two sharing the card.
@@ -7194,7 +7508,7 @@ def main() -> int:
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"], layouts=layouts))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, cost_notes=cost_notes, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"], layouts=layouts))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

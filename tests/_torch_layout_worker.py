@@ -57,8 +57,9 @@ def whole_model(case, backend=None):
     model = bert.BertForPreTraining(
         cfg, torch.float32, backend or case.get("backend", "dense"),
         case.get("remat", "none"))
-    params = unflatten(np.load(case["params"]))
-    model.load_state_dict(from_jax_params(params, cfg, "pretraining"))
+    if case.get("params"):  # else the seeded init, the same on every rank
+        params = unflatten(np.load(case["params"]))
+        model.load_state_dict(from_jax_params(params, cfg, "pretraining"))
     return model, cfg
 
 
@@ -297,8 +298,23 @@ def case_resume(case, rank, world, out):
         json.dump({"step": found[0], "count": found[1]["count"]}, f)
 
 
+def case_cost(case, rank, world, out):
+    """One step through the compile monitor with the cost counter on
+    (telemetry/compile_events.py); each rank writes its records."""
+    from bert_pytorch_tpu_torch.telemetry.compile_events import CompileMonitor
+
+    model, opt, schedule, layout, dp, cfg = build(case, rank, world)
+    monitor = CompileMonitor(cost_analysis="auto")
+    step = monitor.instrument(
+        make_step(model, opt, schedule, cfg, case, dp), "train_step")
+    step(rows_of(dict(np.load(case["batch"])), layout))
+    with open(f"{out}/{case['name']}.rank{rank}.json", "w") as f:
+        json.dump(monitor.events, f)
+
+
 CASES = {"step": case_step, "kfac": case_kfac, "ring": case_ring,
-         "refuse": case_refuse, "save": case_save, "resume": case_resume}
+         "refuse": case_refuse, "save": case_save, "resume": case_resume,
+         "cost": case_cost}
 
 
 def main():

@@ -751,8 +751,8 @@ def test_sentinel_abort_stops_the_facade():
 
 # The JAX runner smoke test's record kinds (tests/test_telemetry.py,
 # test_pretraining_smoke_emits_telemetry) that the port does not write:
-# XLA compile events and their cost analysis.
-JAX_ONLY_KINDS = {"compile", "compile_cost"}
+# none since the port's step functions emit compile and compile_cost.
+JAX_ONLY_KINDS: set = set()
 JAX_SMOKE_KINDS = {"step_window", "compile", "compile_cost", "grad_health",
                    "memory", "run_summary", "metric"}
 
@@ -791,7 +791,13 @@ def test_runner_jsonl_passes_both_schemas(pretraining_run):
     for line in open(path):
         rec = json.loads(line)
         kinds.setdefault(rec.get("kind", "metric"), []).append(rec)
-    assert set(kinds) == JAX_SMOKE_KINDS - JAX_ONLY_KINDS
+    assert set(kinds) == JAX_SMOKE_KINDS - JAX_ONLY_KINDS == JAX_SMOKE_KINDS
+    compile_rec, = kinds["compile"]
+    cost, = kinds["compile_cost"]
+    assert compile_rec["fn"] == cost["fn"] == "train_step"
+    assert compile_rec["shapes_digest"] == cost["shapes_digest"]
+    assert compile_rec["cache"] == "jit" and cost["analysis"] == "counted"
+    assert cost["flops"] > 0 and cost["argument_bytes"] > 0
     windows = kinds["step_window"]
     assert len(windows) >= 2
     for w in windows:
@@ -838,13 +844,21 @@ def test_runner_writes_the_jax_file_sinks_and_one_trace(pretraining_run):
 
 
 def test_runner_refuses_the_planes_it_does_not_port(tmp_path):
+    """The telemetry flags take the JAX runner's choices and defaults: the
+    cost analysis (once refused) is accepted as auto/off/full, default
+    auto, and a bad choice is refused."""
     base = ["--model_config_file", "x.json", "--output_dir", str(tmp_path),
             "--global_batch_size", "8", "--local_batch_size", "8",
             "--max_steps", "1"]
+    for mode in ("auto", "off", "full"):
+        assert run_pretraining.parse_arguments(
+            base + ["--telemetry_cost_analysis", mode]
+        ).telemetry_cost_analysis == mode
     with pytest.raises(SystemExit):
         run_pretraining.parse_arguments(
-            base + ["--telemetry_cost_analysis", "off"])
+            base + ["--telemetry_cost_analysis", "lowered"])
     args = run_pretraining.parse_arguments(base + ["--disable_tensorboard"])
+    assert args.telemetry_cost_analysis == "auto"
     assert (args.debug_port, args.debug_stale_after_s,
             args.postmortem_file) == (0, 0.0, "")
     assert (args.telemetry_window, args.telemetry_sync_every,
