@@ -156,6 +156,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
 
+    # torchlint: hot
     def step(*inputs):
         for p in params:
             p.grad = None

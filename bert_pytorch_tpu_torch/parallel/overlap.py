@@ -23,6 +23,7 @@ optimizer step, after the last microbatch:
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -75,13 +76,20 @@ class GradReducer:
     last microbatch's backward and :meth:`finish` after it; parameters
     without a gradient get zeros. ``launches`` records, per step, the
     buckets in the order their reductions were launched (a plain reducer
-    records one entry, ``"all"``)."""
+    records one entry, ``"all"``).
+
+    With overlap the gradient hooks run on autograd's backward thread
+    (the device thread for CUDA tensors) and :meth:`arm`/:meth:`finish`
+    on the loop's: the bucket state they share (``_armed``, ``_seen``,
+    ``_pending``, ``launches``) is touched under ``_lock`` only
+    (analysis/concurrency.py)."""
 
     def __init__(self, named: Sequence[Tuple[str, torch.nn.Parameter]],
                  overlap: bool = False, group=None):
         self.params = [p for _, p in named]
         self.overlap = overlap
         self.group = group
+        self._lock = threading.Lock()
         self.launches: List[str] = []
         self._armed = False
         self._pending: Dict[int, tuple] = {}
@@ -98,19 +106,22 @@ class GradReducer:
     def arm(self) -> None:
         """The next backward is the step's last: launch each bucket's
         reduction as soon as its gradients are complete."""
-        self._armed = self.overlap
-        self._seen = {b: 0 for b in range(N_BUCKETS)}
-        self._pending = {}
+        with self._lock:
+            self._armed = self.overlap
+            self._seen = {b: 0 for b in range(N_BUCKETS)}
+            self._pending = {}
 
     def _on_grad(self, p: torch.nn.Parameter) -> None:
-        if not self._armed:
-            return
-        bucket = self._bucket_of[id(p)]
-        self._seen[bucket] += 1
-        if self._seen[bucket] == len(self._buckets[bucket]):
-            self._launch(bucket)
+        with self._lock:
+            if not self._armed:
+                return
+            bucket = self._bucket_of[id(p)]
+            self._seen[bucket] += 1
+            if self._seen[bucket] == len(self._buckets[bucket]):
+                self._launch_locked(bucket)
 
-    def _launch(self, bucket: int) -> None:
+    def _launch_locked(self, bucket: int) -> None:
+        """Launch one bucket's reduction (``_lock`` held)."""
         params = self._buckets[bucket]
         for p in params:
             if p.grad is None:
@@ -125,19 +136,20 @@ class GradReducer:
         """Complete the step's reduction: the plain flat all-reduce, or
         the launch of any bucket whose gradients never all arrived (a
         parameter the step did not reach) and the wait on every bucket."""
-        self._armed = False
-        if not self.overlap:
-            for p in self.params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            all_reduce_flat([p.grad for p in self.params], self.group)
-            self.launches.append("all")
-            return
-        for bucket in range(N_BUCKETS):
-            if bucket not in self._pending and self._buckets[bucket]:
-                self._launch(bucket)
-        for bucket in sorted(self._pending):
-            work, flat, grads = self._pending[bucket]
+        with self._lock:
+            self._armed = False
+            if not self.overlap:
+                for p in self.params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                all_reduce_flat([p.grad for p in self.params], self.group)
+                self.launches.append("all")
+                return
+            for bucket in range(N_BUCKETS):
+                if bucket not in self._pending and self._buckets[bucket]:
+                    self._launch_locked(bucket)
+            pending, self._pending = self._pending, {}
+        for bucket in sorted(pending):
+            work, flat, grads = pending[bucket]
             work.wait()
             _unflat(flat, grads)
-        self._pending = {}

@@ -96,7 +96,9 @@ def all_finite_across_ranks(finite: bool, device) -> bool:
     flag = torch.tensor([1 if finite else 0], dtype=torch.int32,
                         device=device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-    return bool(flag.item())
+    # A per-step sync of the fp16 step across ranks, kept: every rank
+    # branches on the agreed flag (see DynamicLossScale.step).
+    return bool(flag.item())  # torchlint: disable=HS101
 
 
 def row_range(t: torch.Tensor) -> Tuple[int, int]:

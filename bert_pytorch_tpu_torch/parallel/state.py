@@ -55,6 +55,8 @@ def gather_full(named: Dict[str, torch.Tensor], model_axis=None,
     for name, t in out.items():
         match = _LAYER.match(name)
         if match:
+            # Host-resident: a regex group of a parameter name.
+            # torchlint: disable=HS101
             key = (int(match.group(2)) - mine[0], match.group(1),
                    match.group(3))
             layered[key] = t

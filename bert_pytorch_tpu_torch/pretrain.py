@@ -344,6 +344,7 @@ def make_train_step(model: torch.nn.Module,
     seq = dp.axis(AXIS_SEQ) if dp is not None else None
     whole_names = _whole_names(model, dp)
 
+    # torchlint: hot
     def step(batch: Dict[str, torch.Tensor],
              kfac_state=None) -> Dict[str, torch.Tensor]:
         accum_steps = batch["input_ids"].shape[0]
@@ -457,6 +458,8 @@ def _update_and_metrics(optimizer, named, loss_sums: torch.Tensor,
     if scale is not None:
         metrics["loss_scale"] = torch.tensor(scale)
     if schedule is not None:
+        # Host-resident: the schedule of the optimizer's int count.
+        # torchlint: disable=HS101
         metrics["learning_rate"] = torch.tensor(float(schedule(count)))
     if health is not None:
         metrics["grad_health"] = health
@@ -530,6 +533,7 @@ def make_pp_train_step(model: torch.nn.Module,
     is_last = pipe.index == pipe.size - 1
     whole_names = _whole_names(model, dp)
 
+    # torchlint: hot
     def step(batch: Dict[str, torch.Tensor],
              kfac_state=None) -> Dict[str, torch.Tensor]:
         accum_steps = batch["input_ids"].shape[0]
@@ -576,8 +580,9 @@ def make_pp_train_step(model: torch.nn.Module,
         for p in params:
             p.grad.div_(accum_steps)
         if kfac is not None:
-            precondition_whole(kfac, kfac_state, named, layout,
-                               float(schedule(count)))
+            # Host-resident: the schedule of the optimizer's int count.
+            lr = float(schedule(count))  # torchlint: disable=HS101
+            precondition_whole(kfac, kfac_state, named, layout, lr)
         sums = (torch.stack([r[1] for r in results]) if is_last else
                 torch.zeros((accum_steps, 3), device=counts.device))
         return _update_and_metrics(

@@ -1179,6 +1179,8 @@ def train(args, model, optimizer, config, step, loader, sampler,
                     tele.timer.flops_per_seq = (
                         flops_util.bert_train_flops_per_seq(
                             config, data_seq_len, eff_max_pred,
+                            # Host-resident: a config flag.
+                            # torchlint: disable=HS101
                             next_sentence=bool(config.next_sentence)))
                     tele.timer.tokens_per_step = (
                         args.global_batch_size * data_seq_len)

@@ -192,7 +192,9 @@ def run(args):
                 global_step += 1
                 tele.step_done(global_step, metrics)
                 losses.append(metrics["loss"])
-                seen += int(valid.sum())
+                # valid is the host-side numpy padding mask (the prefetcher
+                # stages only the batch and valid_t).
+                seen += int(valid.sum())  # torchlint: disable=HS101
                 if (args.save_steps and args.output_dir
                         and global_step % args.save_steps == 0):
                     with tele.checkpoint_stall():

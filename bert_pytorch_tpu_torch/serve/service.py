@@ -144,8 +144,8 @@ class ServingService:
         self.capture = capture
         self._clock = clock
         # Guards _threads, _draining, _forming, and _stage_inflight (the
-        # concurrency registry, analysis/concurrency.py, enforced by
-        # jaxlint LK501): begin_drain runs on a signal-handling/main
+        # port's concurrency registry, analysis/concurrency.py, enforced
+        # by torchlint LK501): begin_drain runs on a signal-handling/main
         # thread, every HTTP worker reads _draining in submit and thread
         # liveness in /healthz, the stage threads update their in-flight
         # markers, and /metricsz reads the forming-depth gauge.

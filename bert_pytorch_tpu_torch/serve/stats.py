@@ -178,7 +178,7 @@ class ServeTelemetry:
     def request_count(self) -> int:
         """Completed-request total, read under the lock (the serve
         heartbeat's step counter — a bare ``total_requests`` read would
-        race the dispatch thread, jaxlint LK501)."""
+        race the dispatch thread, torchlint LK501)."""
         with self._lock:
             return self.total_requests
 

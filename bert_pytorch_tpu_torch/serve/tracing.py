@@ -60,8 +60,8 @@ Thread-safety: ``observe``/``flush``/``finish`` run on the single
 dispatch thread while ``observe_error`` (HTTP workers) and
 ``metrics_text``/``phase_snapshot`` (/metricsz and /statsz scrapes) run
 on HTTP worker threads — all shared state lives in the per-task stats
-map behind one lock (declared in the jaxlint concurrency registry,
-analysis/concurrency.py).
+map behind one lock (declared in the port's concurrency registry,
+analysis/concurrency.py, enforced by torchlint LK501).
 """
 
 from __future__ import annotations

@@ -103,7 +103,11 @@ def note_kernel(cost_fn, *args, **kwargs) -> None:
     """A hand-written kernel ran: add ``cost_fn(*args, **kwargs)`` (its
     ``KernelCost``) to the cost counter of the instrumented call running,
     if it has one; computed only then."""
-    if not _calls:  # nothing instrumented is running: a serving launch
+    # Lock-free fast path for serving launches (nothing instrumented is
+    # running): an instrumented call is pushed on the loop thread before
+    # its kernels launch, and autograd's engine orders the backward's
+    # launches after that push; the locked read in _current_call decides.
+    if not _calls:  # torchlint: disable=LK501
         return
     call = _current_call()
     counter = call and call["counter"]

@@ -106,6 +106,8 @@ def grad_health(names: Sequence[str], param_norms: List[torch.Tensor],
         members.setdefault(group_key(name), []).append(i)
         match = _LAYER.match(name)
         if match:
+            # Host-resident: a regex group of a parameter name.
+            # torchlint: disable=HS101
             layers.setdefault(int(match.group(1)), []).append(i)
     if grad_scale is not None:
         grad_norms = [g / grad_scale for g in grad_norms]
@@ -144,6 +146,8 @@ def is_due(count: int, every: int, phase: int = 0) -> bool:
     checkpoint-resumed run whose absolute count is not a multiple of
     ``every`` would otherwise have its due steps land only on unsynced
     steps."""
+    # Host-resident: ints of the optimizer count and the flags.
+    # torchlint: disable=HS101
     return bool(every) and every > 0 and (count - phase) % every == 0
 
 

@@ -77,6 +77,7 @@ from bert_pytorch_tpu_torch.models import convert as convert_lib
 from bert_pytorch_tpu_torch.ops import quant as quant_ops
 from bert_pytorch_tpu_torch.optim import transforms
 from bert_pytorch_tpu_torch.parallel import sharding
+from bert_pytorch_tpu_torch.parallel.mesh import AXIS_MODEL, AXIS_PIPE
 from bert_pytorch_tpu_torch.parallel import state as state_lib
 from bert_pytorch_tpu_torch.parallel import tensor_parallel as tp_lib
 from bert_pytorch_tpu_torch.utils import dist as dist_utils
@@ -610,15 +611,16 @@ def _split_layout(model: torch.nn.Module):
 
 
 def _whole_shapes(model: torch.nn.Module, layout) -> Dict[str, tuple]:
-    return state_lib.full_shapes(model, layout.axis("model"),
-                                 layout.axis("pipe"),
+    return state_lib.full_shapes(model, layout.axis(AXIS_MODEL),
+                                 layout.axis(AXIS_PIPE),
                                  model.config.num_hidden_layers)
 
 
 def _local_parts(whole: Dict[str, torch.Tensor], names, layout
                  ) -> Dict[str, torch.Tensor]:
     """This rank's parts (its layers, its model part) of whole tensors."""
-    return {name: tp_lib.local_part(name, whole[name], layout.axis("model"))
+    model_axis = layout.axis(AXIS_MODEL)
+    return {name: tp_lib.local_part(name, whole[name], model_axis)
             .contiguous() for name in names}
 
 
@@ -946,7 +948,7 @@ def sharded_training_state(model: torch.nn.Module,
     shapes = convert_lib.to_jax_params(meta, config, "pretraining",
                                        keep_device=True)
     rank = dist_utils.get_rank()
-    model_axis = layout.axis("model") if layout is not None else None
+    model_axis = layout.axis(AXIS_MODEL) if layout is not None else None
 
     def writes(name, like) -> bool:
         if layout is not None:

@@ -55,6 +55,9 @@ def bert_encoder_flops_per_seq(config, seq_len: int) -> float:
     f = config.intermediate_size
     ll = config.num_hidden_layers
     s = seq_len
+    # Pure host math: every operand is a Python int off the config / CLI
+    # (never a device tensor), so this float() is not a device fetch.
+    # torchlint: disable=HS101
     return float(ll * (8 * s * h * h + 4 * s * s * h + 4 * s * h * f))
 
 

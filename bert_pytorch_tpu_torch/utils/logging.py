@@ -207,7 +207,7 @@ class JSONLHandler(Handler):
         # transition is close(), and the locked re-check below covers
         # that race — but serializing every hot-path record just to drop
         # it would be per-step waste on every rank.
-        if self._f is None:
+        if self._f is None:  # torchlint: disable=LK501
             return
         from bert_pytorch_tpu_torch.telemetry.schema import SCHEMA_VERSION
 

@@ -384,11 +384,21 @@ Phases (any failure exits non-zero and prints no result line):
    layer a microbatch for its layers in 20a (3, all heads) and 20c (6,
    H/2 heads), none in 20b and 20d; the training kernels carry rank 0's
    as ``launches_mesh_fsdp_pp``, ``launches_mesh_fsdp_sp``,
-   ``launches_mesh_fsdp_kfac_tp`` and ``launches_mesh_kfac_sp``.
+   ``launches_mesh_fsdp_kfac_tp`` and ``launches_mesh_kfac_sp``;
+21. the static analysis on the port (``drive_lint``): the port's lint
+   gate, ``python -m bert_pytorch_tpu_torch.tools.check_all``, in a
+   subprocess of the card machine's Python — torchlint over the port's
+   package and this script against the committed baseline, the telemetry
+   schema over every JSONL file the earlier phases wrote (copies of the
+   serving phases' taken before their directory goes), the winners format
+   over 19b's two winners files; one line with the files linted, the
+   findings and the seconds, and any finding, stale baseline entry or
+   failing artifact fails the run. No kernel runs.
 
 ``python3 chip_smoke.py --only 18`` runs phase 18 alone, ``--only 19``
-phase 19 and ``--only 20`` phase 20 (the kernels built, the phase, its
-result line; none of the contract's lines); ``--only 14 [--fleet_layers
+phase 19, ``--only 20`` phase 20 and ``--only 21`` phase 19 then 21 (the
+kernels built, the phase, its result line; none of the contract's
+lines); ``--only 14 [--fleet_layers
 N]`` runs phase 14 (its replicas build #4 themselves) at FLEET_LAYERS
 layers or at N.
 
@@ -6283,6 +6293,7 @@ def child_18(spec: dict, kernels: dict, shutdown: bool = True) -> dict:
     card (``shutdown``: leave the process group after them)."""
     from bert_pytorch_tpu_torch import run_pretraining
     from bert_pytorch_tpu_torch.parallel import launcher
+    from bert_pytorch_tpu_torch.parallel.mesh import AXIS_SEQ
 
     t_child = time.perf_counter()
     rank = int(os.environ["RANK"])
@@ -6320,7 +6331,7 @@ def child_18(spec: dict, kernels: dict, shutdown: bool = True) -> dict:
         res["transport"] = args.layout.transports()
         if label == "dropout0":
             res["ring_layer"] = ring_layer_check(
-                args.layout.axis("seq"), TRAIN_LOCAL_BATCH,
+                args.layout.axis(AXIS_SEQ), TRAIN_LOCAL_BATCH,
                 cfg.num_attention_heads,
                 cfg.hidden_size // cfg.num_attention_heads)
         results[f"18b_{label}"] = res
@@ -7295,6 +7306,122 @@ def only_autotune() -> int:
     return 0
 
 
+# -- phase 21: the static analysis on the port --------------------------------
+# The port's lint gate (bert_pytorch_tpu_torch/tools/check_all.py) in a
+# subprocess of the card machine's own Python: torchlint over the port's
+# package and this script, the telemetry schema leg over the JSONL files
+# the earlier phases wrote, the winners leg over phase 19b's winners files.
+# No kernel runs: the gate parses the code, it never imports it.
+
+
+def collect_jsonl(root: str, dest: str) -> list:
+    """Copy every ``*.jsonl`` under ``root`` into ``dest``, named by its
+    path under ``root`` (the phases' working directories are removed when
+    their block ends); returns the copies."""
+    os.makedirs(dest, exist_ok=True)
+    copies = []
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = [d for d in dirnames
+                       if os.path.join(dirpath, d) != dest]
+        for name in sorted(filenames):
+            if not name.endswith(".jsonl"):
+                continue
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, root).replace(os.sep, "__")
+            copy = os.path.join(dest, rel)
+            shutil.copyfile(path, copy)
+            copies.append(copy)
+    return copies
+
+
+def winners_files(root: str) -> list:
+    """Phase 19b's winners files under ``root``."""
+    cache = os.path.join(root, "compile_cache_19")
+    return [os.path.join(cache, name)
+            for name in ("autotune.json", "autotune_int8.json")]
+
+
+def drive_lint(jsonls: list, winners: list, card: str) -> dict:
+    """Phase 21: ``python -m bert_pytorch_tpu_torch.tools.check_all
+    --format json`` over the port's tree and the named artifacts; fails
+    on any finding, stale baseline entry or failing artifact."""
+    if not jsonls:
+        raise AssertionError("phase 21: the earlier phases left no JSONL")
+    cmd = [sys.executable, "-m", "bert_pytorch_tpu_torch.tools.check_all",
+           "--format", "json", *jsonls, *winners]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    try:
+        payload = json.loads(proc.stdout)
+    except ValueError:
+        raise AssertionError(
+            f"phase 21: check_all rc {proc.returncode} printed no JSON: "
+            f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}") from None
+    lint = payload["torchlint"]
+    new = [f for f in lint["findings"] if f["status"] == "new"]
+    failing = [r for r in payload["schema"] + payload["autotune_winners"]
+               if not r["ok"]]
+    lines = 0
+    for path in jsonls:
+        with open(path, "rb") as f:
+            lines += sum(1 for _ in f)
+    result = {
+        "rc": proc.returncode,
+        "files_linted": lint["files"],
+        "findings": len(new),
+        "baselined": len(lint["findings"]) - len(new),
+        "stale_baseline": len(lint["stale_baseline"]),
+        "jsonl_files": len(payload["schema"]),
+        "jsonl_records": lines,
+        "jsonl_bytes": sum(os.path.getsize(p) for p in jsonls),
+        "winners_files": len(payload["autotune_winners"]),
+        "failing_artifacts": [r["path"] for r in failing],
+        "seconds": seconds,
+    }
+    log(f"[21] check_all (torchlint + schema + winners) over the port: "
+        f"{result['files_linted']} files linted, {result['findings']} "
+        f"findings ({result['baselined']} baselined, "
+        f"{result['stale_baseline']} stale entries); {result['jsonl_files']}"
+        f" JSONL artifacts of the earlier phases ({lines} records, "
+        f"{result['jsonl_bytes']} bytes) and {result['winners_files']} "
+        f"winners files of 19b, {len(failing)} failing; rc "
+        f"{proc.returncode} in {seconds:.2f} s on {card}")
+    if proc.returncode != 0 or new or failing or lint["stale_baseline"]:
+        raise AssertionError(
+            "phase 21: the gate failed: "
+            + "; ".join([f"{f['path']}:{f['line']}: {f['check']} "
+                         f"{f['message']}" for f in new]
+                        + [f"{r['path']}: {r['errors'][:3]}"
+                           for r in failing]
+                        + [f"stale {e}" for e in lint["stale_baseline"]]))
+    return result
+
+
+def only_lint() -> int:
+    """Phase 21 alone, after phase 19 (whose 19b writes the winners files
+    and JSONL artifacts the gate lints): the kernels built, the two
+    phases, their result line (also in chiprun_out/phase21.json)."""
+    from bert_pytorch_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    t0 = time.perf_counter()
+    log(f"[build] {build.build()} in {time.perf_counter() - t0:.2f}s")
+    with tempfile.TemporaryDirectory() as tmp:
+        tuned = drive_autotune(tmp, card)
+        jsonls = collect_jsonl(tmp, os.path.join(tmp, "lint_21"))
+        lint = drive_lint(jsonls, winners_files(tmp), card)
+    log(f"[result] {json.dumps({'autotune': tuned['serving'], 'lint': lint})}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "phase21.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"card": card, "lint": lint}, f)
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7306,6 +7433,8 @@ def main() -> int:
         return only_autotune()
     if sys.argv[1:] == ["--only", "20"]:
         return only_layouts()
+    if sys.argv[1:] == ["--only", "21"]:
+        return only_lint()
     if sys.argv[1:3] == ["--only", "14"]:
         return only_fleet(sys.argv[3:])
     from bert_pytorch_tpu_torch.ops.kernels import build
@@ -7385,6 +7514,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         drain = drive_replica_drain(vocab, tmp, card)
         fleet = drive_fleet(tmp, card)
+        # Phase 21 lints these phases' JSONL too: keep copies past the
+        # block.
+        lint_dir = tempfile.mkdtemp(prefix="chip_smoke_21_")
+        jsonls = collect_jsonl(tmp, os.path.join(lint_dir, "serving"))
     torch.cuda.empty_cache()
     trained = drive_training(kernels, capture_turns=True)
     log(f"[train] BERT-large phase 2 (S=512, max_pred 80, bf16, remat dots, "
@@ -7436,6 +7569,9 @@ def main() -> int:
                                                           card)
         torch.cuda.empty_cache()
         tuned = drive_autotune(tmp, card)
+        jsonls += collect_jsonl(tmp, os.path.join(lint_dir, "training"))
+        lint = drive_lint(jsonls, winners_files(tmp), card)
+    shutil.rmtree(lint_dir)
     log(f"[squad] BERT-large SQuAD (S={SQUAD_SEQ}, batch {SQUAD_BATCH}, "
         f"bf16, AdamW, LayerNorm kernel): {squad['global_step']} steps, "
         f"losses {squad['step_losses']}, train "
@@ -7508,7 +7644,7 @@ def main() -> int:
             entry["launches_kfac"] = kfac["launches"][entry["name"]]
             entry["launches_kfac_stats"] = kfac["stats_launches"][
                 entry["name"]]
-    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, cost_notes=cost_notes, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"], layouts=layouts))}")
+    log(f"[result] {json.dumps(dict(served, checkpoint_write_s=write_s, hot_swap=swap, engine_fp32_max_abs_err=engine_err, int8_serving=served8, int8_engines=int8_errs, training=trained, training_flash_vs_dense=train_check, keep_mask_shares=mask_shares, cost_notes=cost_notes, squad=squad, handoff=handoff, finetune=finetuned, kfac=kfac, kfac_parity=kfac_parity, fp16=dict(keep_mask_shares=shares16, training=trained16, overflow=overflow16, squad=squad16), debug_planes=dict(replica=debug, drain=drain, build=monitor.events), fleet=fleet, feed=feed, roberta=roberta, mesh=mesh, model_parallel=model_parallel, autotune=tuned["serving"], layouts=layouts, lint=lint))}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -526,6 +526,48 @@ def test_overlap_buckets_in_availability_order():
     assert set(buckets.values()) == set(overlap.BUCKET_NAMES)
 
 
+def test_overlap_hooks_from_many_threads_launch_each_bucket_once(
+        monkeypatch):
+    """The bucketed reducer's hooks run on autograd's thread while arm()
+    and finish() run on the loop's: its bucket state is under one lock.
+    Many threads fire the hooks at once (a short switch interval): every
+    bucket's count still reaches its size, so each bucket is launched by
+    its last hook exactly once, before finish()."""
+    import threading
+
+    class Work:
+        def wait(self):
+            pass
+
+    monkeypatch.setattr(overlap.dist, "all_reduce",
+                        lambda flat, group=None, async_op=False: Work())
+    named = [(f"{prefix}.{i}", torch.nn.Parameter(torch.ones(2)))
+             for prefix in ("predictions", "bert.encoder.layers.0",
+                            "bert.embeddings") for i in range(400)]
+    for _, p in named:
+        p.grad = torch.ones(2)
+    reducer = overlap.GradReducer(named, overlap=True)
+    reducer.arm()
+    params = [p for _, p in named]
+    threads = [threading.Thread(target=lambda part=params[t::16]: [
+        reducer._on_grad(p) for p in part]) for t in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(reducer.launches) == sorted(overlap.BUCKET_NAMES)
+    assert reducer._seen == {b: 400 for b in range(overlap.N_BUCKETS)}
+    reducer.finish()
+    assert sorted(reducer.launches) == sorted(overlap.BUCKET_NAMES)
+    assert all(torch.equal(p.grad, torch.ones(2)) for p in params)
+
+
 def test_dropout_fold_keeps_rank_zero():
     seeds = bert.draw_dropout_seeds(torch.Generator().manual_seed(3), 2)
     assert bert.fold_dropout_seeds(seeds, 0) == seeds
